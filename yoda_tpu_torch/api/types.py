@@ -1,0 +1,481 @@
+"""Core API types: the per-node TPU metrics CR and the pod model.
+
+``TpuNodeMetrics`` is the TPU-native replacement for the reference's SCV CRD:
+one cluster-scoped object per node, named after the node (the reference Gets
+it by node name, reference pkg/yoda/scheduler.go:70). The field mapping from
+the SCV schema (inferred at reference pkg/yoda/filter/filter.go:13-58,
+collection/collection.go:59-78, score/algorithm.go:72-87):
+
+    Scv.Status.CardNumber      -> len(TpuNodeMetrics.chips)
+    Scv.Status.CardList        -> TpuNodeMetrics.chips
+    Scv.Status.FreeMemorySum   -> TpuNodeMetrics.hbm_free_sum
+    Scv.Status.TotalMemorySum  -> TpuNodeMetrics.hbm_total_sum
+    Card.Health                -> TpuChip.health
+    Card.FreeMemory (MB)       -> TpuChip.hbm_free (bytes)
+    Card.TotalMemory (MB)      -> TpuChip.hbm_total (bytes)
+    Card.Clock (MHz)           -> TpuChip.clock_mhz
+    Card.Bandwidth             -> TpuChip.hbm_bandwidth_gbps
+    Card.Core                  -> TpuChip.tflops_bf16
+    Card.Power                 -> TpuChip.power_w
+
+Net-new fields with no reference analog (required by the topology-aware gang
+scheduler): ``generation``, ``topology_coords``, ``slice_id``, ``accel_type``,
+and ``last_updated_unix`` (staleness detection — the reference never checks
+freshness, see SURVEY.md §5 failure-detection row).
+
+Counterpart of ``yoda_tpu/api/types.py``, ported as far as the singleton
+path reaches it. Left out until a later slice: the API-server wire format
+(``to_obj`` / ``from_obj`` on every type and the container-spec parsers
+behind them), the PersistentVolumeClaim / PersistentVolume /
+PodDisruptionBudget / Namespace models, and ``make_node``.
+"""
+
+from __future__ import annotations
+
+import itertools
+import time
+from dataclasses import dataclass, field
+from typing import Mapping, Sequence
+
+HEALTHY = "Healthy"
+
+# Rank for ">= generation" admission semantics. The reference demanded an
+# EXACT clock match in Filter (card.Clock == clock, reference
+# pkg/yoda/filter/filter.go:57) while its own collection/score used >=
+# (collection.go:46, algorithm.go:49) — so a pod asking for clock 5705 was
+# rejected by nodes with strictly faster cards. We keep one ordering,
+# "at least this generation", everywhere.
+GENERATION_RANK = {"v2": 2, "v3": 3, "v4": 4, "v5e": 5, "v5p": 6, "v6e": 7}
+
+
+@dataclass
+class TpuChip:
+    """One TPU chip on a host — the analog of one SCV ``Card``."""
+
+    index: int
+    health: str = HEALTHY
+    hbm_free: int = 0          # bytes
+    hbm_total: int = 0         # bytes
+    clock_mhz: int = 0
+    hbm_bandwidth_gbps: int = 0
+    tflops_bf16: int = 0
+    power_w: int = 0
+    # True when hbm_free/hbm_total were read from live hardware counters
+    # (PJRT memory_stats or the libtpu metrics service) rather than derived
+    # from the spec table + label accounting. Provenance for operators, and
+    # the agent's input for classifying unattributable usage into the
+    # node-level ``external_used_chips`` count the scheduler's reservation
+    # corrections key on (NativeTpuAgent._external_used).
+    hw_read: bool = False
+    # Tensorcore duty cycle [0, 100] from the libtpu metrics service
+    # (agent --libtpu-metrics; tpu-info's utilization column). Purely
+    # observational — aggregated on /metrics as the fleet-mean gauge
+    # yoda_tpu_duty_cycle_avg_pct (per-chip values live in the CR) for
+    # operators chasing underutilized fleets; the scheduler never filters
+    # or scores on it (a busy chip is already excluded by its HBM usage
+    # under the exclusive-chip model). None = source not available.
+    duty_cycle_pct: float | None = None
+
+    @property
+    def healthy(self) -> bool:
+        return self.health == HEALTHY
+
+
+@dataclass
+class TpuNodeMetrics:
+    """Per-node TPU metrics CR, published by the node agent (one per node,
+    named after the node — mirrors the SCV Get-by-node-name contract,
+    reference pkg/yoda/scheduler.go:70)."""
+
+    name: str
+    chips: list[TpuChip] = field(default_factory=list)
+    generation: str = "v5e"
+    accel_type: str = ""                      # e.g. "v5p-16"
+    slice_id: str = ""                        # multi-host slice this node belongs to
+    topology_coords: tuple[int, int, int] = (0, 0, 0)  # host coords within slice
+    last_updated_unix: float = 0.0
+    resource_version: int = 0
+    # Which collection path produced these values (agent provenance, e.g.
+    # "env", "device-files", "jax-runtime+memstats") — lets operators tell
+    # hardware-read metrics from spec-table fallbacks.
+    source: str = ""
+    # Hardware-read used chips whose consumption the agent could NOT
+    # attribute to any running pod on the node at scrape time — an
+    # external tenant / foreign process. The scheduler must treat these
+    # as occupied-by-nobody: they absorb no accountant reservation
+    # (filter_plugin.invisible_reservations) and earn no stale-freed
+    # credit. Always 0 for spec-table agents (their usage is label
+    # attribution by construction, so every used chip is pod-backed).
+    external_used_chips: int = 0
+
+    @property
+    def chip_count(self) -> int:
+        return len(self.chips)
+
+    @property
+    def hbm_free_sum(self) -> int:
+        return sum(c.hbm_free for c in self.chips)
+
+    @property
+    def hbm_total_sum(self) -> int:
+        return sum(c.hbm_total for c in self.chips)
+
+    @property
+    def generation_rank(self) -> int:
+        return GENERATION_RANK.get(self.generation.strip().lower(), 0)
+
+    def healthy_chips(self) -> list[TpuChip]:
+        return [c for c in self.chips if c.healthy]
+
+    def fresh(self, *, max_age_s: float, now: float | None = None) -> bool:
+        """Staleness check (net-new vs reference; SURVEY.md §5)."""
+        now = time.time() if now is None else now
+        return (now - self.last_updated_unix) <= max_age_s
+
+    def values_equal(self, other: "TpuNodeMetrics") -> bool:
+        """Equality on every schedulability-relevant field — everything
+        except the publish timestamp, resource version, and the purely
+        observational per-chip duty cycle (a continuously fluctuating
+        telemetry value the scheduler never filters or scores on: leaving
+        it relevant would classify EVERY heartbeat as a real change and
+        reintroduce the per-heartbeat rebuild storm the elision exists to
+        prevent). Otherwise derived from the dataclass so a FUTURE field
+        defaults to RELEVANT (consumers: the informer's heartbeat
+        classification and the fleet-array incremental diff — a hand-kept
+        field list would silently classify real changes as heartbeats)."""
+        import dataclasses
+
+        def neutral(t: "TpuNodeMetrics") -> "TpuNodeMetrics":
+            return dataclasses.replace(
+                t,
+                last_updated_unix=0.0,
+                resource_version=0,
+                chips=[
+                    dataclasses.replace(c, duty_cycle_pct=None)
+                    for c in t.chips
+                ],
+            )
+
+        return neutral(self) == neutral(other)
+
+
+@dataclass(frozen=True)
+class Taint:
+    """A v1.Taint (spec.taints entry on a Node)."""
+
+    key: str
+    value: str = ""
+    effect: str = "NoSchedule"   # NoSchedule | PreferNoSchedule | NoExecute
+
+
+@dataclass(frozen=True)
+class Toleration:
+    """A v1.Toleration (spec.tolerations entry on a Pod)."""
+
+    key: str = ""                # empty key + Exists tolerates everything
+    operator: str = "Equal"      # Equal | Exists
+    value: str = ""
+    effect: str = ""             # empty matches every effect
+
+    def tolerates(self, taint: Taint) -> bool:
+        if self.effect and self.effect != taint.effect:
+            return False
+        if self.operator == "Exists":
+            return not self.key or self.key == taint.key
+        return self.key == taint.key and self.value == taint.value
+
+
+@dataclass(frozen=True)
+class NodeSelectorRequirement:
+    """One matchExpressions entry of a v1.NodeSelectorTerm. Operator
+    semantics mirror upstream labels.Selector: NotIn and DoesNotExist also
+    match nodes MISSING the key; Gt/Lt compare single integer values;
+    unknown operators fail closed."""
+
+    key: str
+    operator: str  # In | NotIn | Exists | DoesNotExist | Gt | Lt
+    values: tuple[str, ...] = ()
+
+    def matches(self, labels: Mapping[str, str]) -> bool:
+        v = labels.get(self.key)
+        op = self.operator
+        if op == "In":
+            return v is not None and v in self.values
+        if op == "NotIn":
+            return v is None or v not in self.values
+        if op == "Exists":
+            return v is not None
+        if op == "DoesNotExist":
+            return v is None
+        if op in ("Gt", "Lt"):
+            if v is None or not self.values:
+                return False
+            try:
+                have, want = int(v), int(self.values[0])
+            except ValueError:
+                return False
+            return have > want if op == "Gt" else have < want
+        return False
+
+
+@dataclass(frozen=True)
+class NodeSelectorTerm:
+    """A v1.NodeSelectorTerm: matchExpressions and matchFields AND
+    together within the term; terms OR together at the affinity level.
+    Upstream semantics: an EMPTY term matches no objects, and the only
+    valid matchFields key is ``metadata.name`` (evaluated against the
+    node's name); anything else fails closed."""
+
+    match_expressions: tuple[NodeSelectorRequirement, ...] = ()
+    match_fields: tuple[NodeSelectorRequirement, ...] = ()
+
+    def matches(self, labels: Mapping[str, str], node_name: str = "") -> bool:
+        if not self.match_expressions and not self.match_fields:
+            return False  # upstream: an empty term selects nothing
+        if not all(r.matches(labels) for r in self.match_expressions):
+            return False
+        for f in self.match_fields:
+            if f.key != "metadata.name":
+                return False  # the only upstream-valid field key
+            if not f.matches({"metadata.name": node_name}):
+                return False
+        return True
+
+
+def host_ports_conflict(
+    a: tuple[int, str, str], b: tuple[int, str, str]
+) -> bool:
+    """Upstream NodePorts conflict rule: same protocol + port, and the
+    hostIPs overlap (equal, or either side is the 0.0.0.0 wildcard)."""
+    pa, prota, ipa = a
+    pb, protb, ipb = b
+    return (
+        pa == pb
+        and prota == protb
+        and (ipa == ipb or ipa == "0.0.0.0" or ipb == "0.0.0.0")
+    )
+
+
+@dataclass
+class K8sNode:
+    """The scheduler-relevant slice of a v1.Node.
+
+    The reference never reads Node objects itself, but its upstream
+    snapshot carries them (reference pkg/yoda/scheduler.go:101), so cordon
+    (spec.unschedulable), NoSchedule taints, and node deletion are honored
+    for free there. This type restores that awareness first-party: the
+    cluster backends watch /api/v1/nodes and the informer folds these into
+    each NodeInfo."""
+
+    name: str
+    unschedulable: bool = False
+    taints: list[Taint] = field(default_factory=list)
+    labels: dict[str, str] = field(default_factory=dict)
+    # status.conditions[type=Ready]: False when the node controller
+    # reports the kubelet unreachable/NotReady. Deliberately NOT part of
+    # pod_admits_on — readiness policy belongs to the node health
+    # monitor (yoda_tpu/nodehealth), which fences and repairs; hard
+    # admission here would silently drop a whole failure-handling layer.
+    ready: bool = True
+    # status.allocatable, parsed (0 = undeclared -> that resource is not
+    # enforced): the upstream NodeResourcesFit inputs. TPU chips are NOT
+    # tracked here — the TpuNodeMetrics CR is the authority for those.
+    alloc_cpu_milli: int = 0
+    alloc_memory: int = 0
+    alloc_pods: int = 0
+    # status.images flattened to image-name -> sizeBytes (every name/tag
+    # of an image maps to its size) — the ImageLocality scoring input
+    # (plugins/yoda/image_locality.py). Empty = kubelet reports none.
+    images: dict[str, int] = field(default_factory=dict)
+    # status.allocatable "attachable-volumes-*" keys: limit-key suffix ->
+    # max attachable volumes (upstream NodeVolumeLimits inputs, e.g.
+    # "csi-pd.csi.storage.gke.io" -> 127). Empty = no declared limits.
+    # Not enforced by this port yet (volume constraints are refused at
+    # PreFilter).
+    attach_limits: dict[str, int] = field(default_factory=dict)
+
+
+def node_admits_pod(
+    node: "K8sNode | None",
+    tolerations: Sequence[Toleration],
+    node_selector: Mapping[str, str] | None = None,
+    node_affinity: Sequence[NodeSelectorTerm] = (),
+) -> tuple[bool, str]:
+    """Cordon + taint + nodeSelector + required-node-affinity admission:
+    can the pod be placed on the node at all?
+
+    Mirrors what upstream kube-scheduler's NodeUnschedulable,
+    TaintToleration, and NodeAffinity plugins give the reference for free
+    via its snapshot (reference pkg/yoda/scheduler.go:101). ``node is
+    None`` (no Node object known — e.g. a fake-cluster test without node
+    records) admits UNLESS the pod has a selector/affinity constraint:
+    the scheduler is the enforcement point for those (kubelet does not
+    re-check them), so an unverifiable constraint must reject, not pass
+    vacuously. Only hard taint effects reject: NoSchedule / NoExecute;
+    PreferNoSchedule (and preferred affinity) are scoring concerns, not
+    filters."""
+    if node_selector and (
+        node is None
+        or any(node.labels.get(k) != v for k, v in node_selector.items())
+    ):
+        return False, (
+            "node labels do not match the pod's nodeSelector"
+            if node is not None
+            else "pod has a nodeSelector but the node object is unknown"
+        )
+    if node_affinity:
+        # Terms OR; a term's matchExpressions AND (upstream semantics).
+        if node is None:
+            return False, (
+                "pod has required node affinity but the node object is "
+                "unknown"
+            )
+        if not any(t.matches(node.labels, node.name) for t in node_affinity):
+            return False, (
+                "node labels do not match the pod's required node affinity"
+            )
+    if node is None:
+        return True, ""
+    if node.unschedulable:
+        return False, "node is cordoned (spec.unschedulable)"
+    for taint in node.taints:
+        if taint.effect not in ("NoSchedule", "NoExecute"):
+            continue
+        if not any(t.tolerates(taint) for t in tolerations):
+            return False, f"node has untolerated taint {taint.key}:{taint.effect}"
+    return True, ""
+
+
+def pod_admits_on(node: "K8sNode | None", pod: "PodSpec") -> tuple[bool, str]:
+    """:func:`node_admits_pod` with the pod's own constraint set — the
+    form every scheduler-side caller wants (filter, batch admission
+    vector, gang planning, preemption eligibility)."""
+    return node_admits_pod(
+        node, pod.tolerations, pod.node_selector, pod.node_affinity
+    )
+
+
+def untolerated_soft_taints(node: "K8sNode | None", pod: "PodSpec") -> int:
+    """How many PreferNoSchedule taints on the node the pod does NOT
+    tolerate — the soft companion to the hard taint filter (upstream
+    TaintToleration's scoring half). 0 when no Node object is known."""
+    if node is None:
+        return 0
+    return sum(
+        1
+        for taint in node.taints
+        if taint.effect == "PreferNoSchedule"
+        and not any(t.tolerates(taint) for t in pod.tolerations)
+    )
+
+
+def preferred_affinity_score(node: "K8sNode | None", pod: "PodSpec") -> int:
+    """Soft steering: [0, 100] fraction of the pod's
+    preferredDuringSchedulingIgnoredDuringExecution term weights this node
+    satisfies (upstream NodeAffinity scoring). 0 when the pod declares no
+    preferences or the node object is unknown — soft constraints degrade
+    gracefully, unlike the hard ones, which fail closed."""
+    prefs = pod.preferred_node_affinity
+    if not prefs or node is None:
+        return 0
+    total = sum(w for w, _ in prefs)
+    if total <= 0:
+        return 0
+    matched = sum(
+        w for w, t in prefs if t.matches(node.labels, node.name)
+    )
+    return matched * 100 // total
+
+
+_pod_seq = itertools.count()
+
+
+@dataclass
+class PodSpec:
+    """Minimal pod model: everything the scheduler reads off a v1.Pod.
+
+    The reference reads only pod name and labels (reference
+    pkg/yoda/filter/filter.go:12,19,36; sort/sort.go:13) plus the node's
+    already-placed pods' labels for allocation scoring
+    (score/algorithm.go:77-80).
+    """
+
+    name: str
+    namespace: str = "default"
+    labels: dict[str, str] = field(default_factory=dict)
+    scheduler_name: str = "yoda-tpu"
+    node_name: str | None = None
+    phase: str = "Pending"
+    uid: str = ""
+    tolerations: list[Toleration] = field(default_factory=list)
+    # spec.nodeSelector — how unmodified GKE TPU workloads steer onto node
+    # pools (cloud.google.com/gke-tpu-accelerator / -topology node labels).
+    # Enforced by node_admits_pod against K8sNode.labels: the scheduler is
+    # the selector's enforcement point.
+    node_selector: dict[str, str] = field(default_factory=dict)
+    # spec.affinity.nodeAffinity.requiredDuringSchedulingIgnoredDuring
+    # Execution.nodeSelectorTerms — the hard-affinity terms (OR of terms,
+    # AND within a term).
+    node_affinity: tuple[NodeSelectorTerm, ...] = ()
+    # preferredDuringSchedulingIgnoredDuringExecution — (weight, term)
+    # pairs, scored by preferred_affinity_score (soft steering).
+    preferred_node_affinity: tuple[tuple[int, NodeSelectorTerm], ...] = ()
+    # spec.affinity.podAffinity / podAntiAffinity (api.affinity module):
+    # required terms filter, preferred terms score, existing pods'
+    # anti-affinity is enforced symmetrically. The reference inherited
+    # these from the upstream default plugins it ran alongside
+    # (deploy/yoda-scheduler.yaml:15-27 adds yoda to the defaults).
+    pod_affinity: tuple = ()          # tuple[PodAffinityTerm, ...]
+    pod_anti_affinity: tuple = ()     # tuple[PodAffinityTerm, ...]
+    preferred_pod_affinity: tuple = ()       # tuple[(int, PodAffinityTerm)]
+    preferred_pod_anti_affinity: tuple = ()  # tuple[(int, PodAffinityTerm)]
+    # spec.topologySpreadConstraints (api.affinity.TopologySpreadConstraint).
+    topology_spread: tuple = ()
+    # Sum of the containers' google.com/tpu resource limits — how
+    # unmodified GKE TPU workloads request chips (requests.pod_request uses
+    # it as the chip count when no tpu/chips label is present).
+    tpu_resource_limit: int = 0
+    # Effective cpu (millicores) / memory (bytes) requests across the
+    # pod's containers (_resource_requests_of: per-container requests fall
+    # back to limits; init containers contribute their max). Enforced
+    # against K8sNode allocatable by node_fits_resources — the upstream
+    # NodeResourcesFit half the reference inherited.
+    cpu_milli_request: int = 0
+    memory_request: int = 0
+    # spec.priority — what the admission controller resolves from
+    # priorityClassName; the fallback when no tpu/priority label is set
+    # (upstream preemption orders by this field).
+    spec_priority: int = 0
+    # status.nominatedNodeName — written by preemption when victims were
+    # evicted to make room (upstream parity: kubectl's NOMINATED NODE
+    # column; other components see the earmarked capacity).
+    nominated_node_name: str | None = None
+    # spec.preemptionPolicy — "Never" pods queue at their priority but
+    # must not trigger evictions (upstream PriorityClass preemptionPolicy).
+    preemption_policy: str = "PreemptLowerPriority"
+    # spec.schedulingGates — gate names; while non-empty the pod must NOT
+    # be scheduled (upstream PodSchedulingReadiness: how Kueue and quota
+    # controllers hold pods until admission).
+    scheduling_gates: tuple[str, ...] = ()
+    # spec.containers[].ports[].hostPort occupations as (port, protocol,
+    # hostIP) — the upstream NodePorts filter the reference inherited
+    # (reference pkg/register/register.go:10 runs the full default plugin
+    # set): two pods claiming a conflicting host port cannot share a node
+    # (host_ports_conflict).
+    host_ports: tuple[tuple[int, str, str], ...] = ()
+    # spec.volumes[].persistentVolumeClaim.claimName — minimal volume
+    # awareness (upstream VolumeBinding/volume-zone parity). This port
+    # refuses such pods at PreFilter until volume resolution is ported.
+    pvc_names: tuple[str, ...] = ()
+    # spec.containers[].image (regular containers, upstream ImageLocality's
+    # scoring inputs — init containers run once and are not scored).
+    container_images: tuple[str, ...] = ()
+    creation_seq: int = field(default_factory=lambda: next(_pod_seq))
+
+    def __post_init__(self) -> None:
+        if not self.uid:
+            self.uid = f"{self.namespace}/{self.name}#{self.creation_seq}"
+
+    @property
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"

@@ -1,0 +1,299 @@
+"""Informer cache: watch-driven local store + per-cycle snapshots.
+
+The scheduler reads ONLY this cache during a cycle. The cache maintains:
+
+- the TpuNodeMetrics CR per node (watch on the CRD, replacing per-cycle Gets),
+- the pods bound to each node (for allocation scoring, reference
+  pkg/yoda/score/algorithm.go:77-80),
+- incrementally-maintained claimed-HBM per node,
+- two monotonic versions: ``version`` (any change — snapshot cache key) and
+  ``metrics_version`` (TPU CR changes only — fleet-array cache key, so pod
+  binds do not force an O(nodes x chips) array rebuild).
+
+Counterpart of ``yoda_tpu/cluster/informer.py``, ported as far as the
+singleton path reaches it. Left out until a later slice: the Namespace /
+PersistentVolumeClaim / PersistentVolume / PodDisruptionBudget watches,
+the epoch/delta feeds (``changes_since``, ``claimed_changes_since``,
+``admission_changes_since``) that the device-resident fleet state reads,
+shard partitioning, the node-health fence hook and the watch-staleness
+clock.
+"""
+
+from __future__ import annotations
+
+import bisect
+import threading
+import time
+from typing import Callable
+
+from yoda_tpu_torch.api.requests import LabelParseError, pod_request
+from yoda_tpu_torch.api.types import K8sNode, PodSpec, TpuNodeMetrics
+from yoda_tpu_torch.cluster.fake import Event
+from yoda_tpu_torch.framework.interfaces import NodeInfo, Snapshot
+
+MIB = 1 << 20
+
+
+class InformerCache:
+    def __init__(
+        self,
+        *,
+        scheduler_name: str = "yoda-tpu",
+        on_pod_pending: Callable[[PodSpec], None] | None = None,
+        on_change_batch: "Callable[[list[Event]], None] | None" = None,
+        staleness_s: float = 0.0,
+        now_fn: Callable[[], float] = time.time,
+    ) -> None:
+        self.scheduler_name = scheduler_name
+        self.on_pod_pending = on_pod_pending
+        # One call per applied batch with the schedulability-relevant
+        # events (build_stack wires the delete fast path and ONE
+        # move_all_to_active decision here).
+        self.on_change_batch = on_change_batch
+        # The scheduler's max_metrics_age_s, used ONLY to classify
+        # timestamp-only republishes: a node whose publish gap exceeded
+        # this had gone stale, so its refresh must reactivate parked pods.
+        self.staleness_s = staleness_s
+        self.now_fn = now_fn
+        self._lock = threading.RLock()
+        self._tpus: dict[str, TpuNodeMetrics] = {}
+        # _tpus keys kept sorted incrementally (bisect on CR add/delete):
+        # snapshot() hands the pre-sorted list to Snapshot(order=...).
+        self._tpu_order: list[str] = []
+        self._nodes: dict[str, K8sNode] = {}
+        # True once any Node event arrived: from then on a TPU CR without a
+        # live Node object is excluded from snapshots (node deleted).
+        self._node_informed = False
+        self._pods_by_node: dict[str, dict[str, PodSpec]] = {}
+        self._claimed_mib: dict[str, int] = {}
+        # Every pod uid currently alive in the cluster.
+        self._live_uids: set[str] = set()
+        # Unbound pods held by spec.schedulingGates: kept OUT of the queue
+        # until a modified event shows the gates cleared.
+        self._gated_uids: set[str] = set()
+        # pod uid -> (node counted on, claim MiB added).
+        self._pod_nodes: dict[str, tuple[str, int]] = {}
+        self._version = 1
+        self._metrics_version = 1
+        self._snapshot_cache: Snapshot | None = None
+        # NodeInfo reuse across snapshots for nodes whose CR / Node object /
+        # pod set did not change.
+        self._ni_cache: dict[str, NodeInfo] = {}
+        # Per-batch accumulators written by the _handle_* internals (lock
+        # held); handle_batch bumps each version at most once per batch.
+        self._batch_dirty = False
+        self._batch_metrics = False
+        self._batch_pending: list[PodSpec] = []
+
+    # --- watch sink ---
+
+    def handle(self, event: Event) -> None:
+        self.handle_batch((event,))
+
+    def handle_batch(self, events) -> None:
+        """Apply a run of watch events under ONE lock acquisition, with one
+        ``version`` bump, one ``metrics_version`` bump and one snapshot
+        invalidation. Pending-pod and change callbacks fire after the batch
+        is fully applied, outside the lock."""
+        relevant_events: list[Event] = []
+        with self._lock:
+            self._batch_dirty = False
+            self._batch_metrics = False
+            self._batch_pending = []
+            for event in events:
+                relevant = True
+                if event.kind == "TpuNodeMetrics":
+                    relevant = self._handle_tpu(event)
+                elif event.kind == "Pod":
+                    self._handle_pod(event)
+                elif event.kind == "Node":
+                    self._handle_node(event)
+                # Timestamp-only heartbeats are NOT propagated as cluster
+                # changes (upstream's queueing-hint discipline).
+                if relevant:
+                    relevant_events.append(event)
+            if self._batch_dirty:
+                self._version += 1
+                self._snapshot_cache = None
+            if self._batch_metrics:
+                self._metrics_version += 1
+            pending = self._batch_pending
+            self._batch_pending = []
+        if self.on_pod_pending is not None:
+            for pod in pending:
+                self.on_pod_pending(pod)
+        if relevant_events and self.on_change_batch is not None:
+            self.on_change_batch(relevant_events)
+
+    def _handle_node(self, event: Event) -> None:
+        node: K8sNode = event.obj  # type: ignore[assignment]
+        self._node_informed = True
+        if event.type == "deleted":
+            self._nodes.pop(node.name, None)
+        else:
+            self._nodes[node.name] = node
+        self._ni_cache.pop(node.name, None)
+        self._batch_dirty = True
+        if event.type in ("added", "deleted"):
+            # The candidate-node SET changed, which invalidates the fleet
+            # arrays keyed on metrics_version. A cordon/taint flip does
+            # not: admission is evaluated per cycle, not baked into arrays.
+            self._batch_metrics = True
+
+    def _handle_tpu(self, event: Event) -> bool:
+        """Returns whether the event carries schedulability-relevant change.
+        A value-identical republish refreshes the stored timestamp and the
+        snapshot, but does NOT bump ``metrics_version`` — unless the node
+        had gone STALE, whose refresh changes feasibility."""
+        tpu: TpuNodeMetrics = event.obj  # type: ignore[assignment]
+        if event.type == "deleted":
+            if self._tpus.pop(tpu.name, None) is not None:
+                i = bisect.bisect_left(self._tpu_order, tpu.name)
+                if i < len(self._tpu_order) and self._tpu_order[i] == tpu.name:
+                    del self._tpu_order[i]
+            relevant = True
+        else:
+            prev = self._tpus.get(tpu.name)
+            self._tpus[tpu.name] = tpu
+            if prev is None:
+                bisect.insort(self._tpu_order, tpu.name)
+            relevant = prev is None or not prev.values_equal(tpu)
+            if not relevant and self.staleness_s > 0:
+                age = self.now_fn() - prev.last_updated_unix
+                relevant = age > self.staleness_s  # was stale: now fresh
+        self._ni_cache.pop(tpu.name, None)
+        self._batch_dirty = True
+        if relevant:
+            self._batch_metrics = True
+        return relevant
+
+    def _handle_pod(self, event: Event) -> None:
+        pod: PodSpec = event.obj  # type: ignore[assignment]
+        if event.type == "deleted":
+            self._live_uids.discard(pod.uid)
+        else:
+            self._live_uids.add(pod.uid)
+        counted = self._pod_nodes.get(pod.uid)
+        if counted and (event.type == "deleted" or counted[0] != pod.node_name):
+            self._uncount_pod(pod.uid)
+            counted = None
+        if event.type != "deleted" and pod.node_name and counted is None:
+            self._count_pod(pod, pod.node_name)
+        ours_unbound = (
+            event.type != "deleted"
+            and pod.node_name is None
+            and pod.scheduler_name == self.scheduler_name
+        )
+        if event.type == "deleted":
+            self._gated_uids.discard(pod.uid)
+        elif ours_unbound and pod.scheduling_gates:
+            self._gated_uids.add(pod.uid)  # held, not schedulable
+        elif event.type == "added" and ours_unbound:
+            self._batch_pending.append(pod)
+        elif (
+            event.type == "modified"
+            and ours_unbound
+            and pod.uid in self._gated_uids
+        ):
+            # Gates cleared: NOW the pod becomes schedulable.
+            self._gated_uids.discard(pod.uid)
+            self._batch_pending.append(pod)
+        self._batch_dirty = True
+
+    def _count_pod(self, pod: PodSpec, node: str) -> None:
+        claim = _pod_claim_mib(pod)
+        self._pods_by_node.setdefault(node, {})[pod.uid] = pod
+        self._pod_nodes[pod.uid] = (node, claim)
+        self._claimed_mib[node] = self._claimed_mib.get(node, 0) + claim
+        self._ni_cache.pop(node, None)
+
+    def _uncount_pod(self, uid: str) -> None:
+        node, claim = self._pod_nodes.pop(uid)
+        self._pods_by_node.get(node, {}).pop(uid, None)
+        self._claimed_mib[node] = max(self._claimed_mib.get(node, 0) - claim, 0)
+        self._ni_cache.pop(node, None)
+
+    # --- readers ---
+
+    @property
+    def version(self) -> int:
+        with self._lock:
+            return self._version
+
+    @property
+    def metrics_version(self) -> int:
+        with self._lock:
+            return self._metrics_version
+
+    def claimed_hbm_mib(self, node_name: str) -> int:
+        with self._lock:
+            return self._claimed_mib.get(node_name, 0)
+
+    def claimed_hbm_mib_map(self) -> dict[str, int]:
+        """One consistent copy under a single lock acquisition."""
+        with self._lock:
+            return dict(self._claimed_mib)
+
+    def last_updated_map(self) -> dict[str, float]:
+        """Live per-node metric timestamps — the freshness source for the
+        evaluation's dynamics row (heartbeats do not bump the metrics
+        version, so cached arrays carry stale timestamps)."""
+        with self._lock:
+            return {
+                name: t.last_updated_unix for name, t in self._tpus.items()
+            }
+
+    def pod_alive(self, pod: PodSpec) -> bool:
+        """False once the watch saw the pod's deletion (by uid)."""
+        with self._lock:
+            return pod.uid in self._live_uids
+
+    def pod_schedulable(self, pod: PodSpec) -> bool:
+        """Should a popped queue entry actually be scheduled? False for
+        deleted pods, pods already counted as BOUND, and pods held by
+        scheduling gates."""
+        with self._lock:
+            return (
+                pod.uid in self._live_uids
+                and pod.uid not in self._pod_nodes
+                and pod.uid not in self._gated_uids
+            )
+
+    def snapshot(self) -> Snapshot:
+        """Consistent view for one scheduling cycle. Cached until the next
+        watch event; NodeInfo pod lists are copies, safe across threads."""
+        with self._lock:
+            if self._snapshot_cache is not None:
+                return self._snapshot_cache
+            cache = self._ni_cache
+            nodes = {}
+            order: list[str] = []
+            for name in self._tpu_order:
+                tpu = self._tpus[name]
+                # Once Node-informed, a CR whose Node is gone is a deleted
+                # node: never a candidate.
+                if self._node_informed and name not in self._nodes:
+                    continue
+                ni = cache.get(name)
+                if ni is None or ni.tpu is not tpu:
+                    ni = NodeInfo(
+                        name=name,
+                        tpu=tpu,
+                        pods=list(self._pods_by_node.get(name, {}).values()),
+                        node=self._nodes.get(name),
+                    )
+                    cache[name] = ni
+                nodes[name] = ni
+                order.append(name)
+            snap = Snapshot(nodes, order=order, version=self._version)
+            snap.metrics_version = self._metrics_version
+            self._snapshot_cache = snap
+            return snap
+
+
+def _pod_claim_mib(pod: PodSpec) -> int:
+    try:
+        r = pod_request(pod)
+    except LabelParseError:
+        return 0
+    return (r.hbm_per_chip // MIB) * r.effective_chips

@@ -1,0 +1,71 @@
+"""Bind plugin: posts the pod->node binding to the cluster backend — the
+step the reference delegates to upstream default binding (SURVEY.md §3.2
+[bind] row) — with transient-error retry: a bind that fails with a
+retryable error (409 conflict, 429 throttle, 5xx, socket timeout —
+cluster.retry classification, ``__cause__`` chains included) is retried
+with bounded jittered exponential backoff before it is reported as a
+scheduling failure.
+
+Counterpart of ``yoda_tpu/plugins/yoda/binder.py``, ported as far as the
+singleton path reaches it. Left out until a later slice: worker-side
+leader fencing, the interruptible (stop-event) backoff of the bind
+executor, the bind wall-time hook and ``unbind`` (gang rollback).
+"""
+
+from __future__ import annotations
+
+import logging
+import random
+import time
+
+from yoda_tpu_torch.api.types import PodSpec
+from yoda_tpu_torch.cluster.retry import BackoffPolicy, call_with_retries
+from yoda_tpu_torch.framework.cyclestate import CycleState
+from yoda_tpu_torch.framework.interfaces import BindPlugin, Status
+
+log = logging.getLogger("yoda_tpu_torch.binder")
+
+
+class ClusterBinder(BindPlugin):
+    name = "yoda-binder"
+
+    def __init__(
+        self,
+        cluster,
+        *,
+        retry_attempts: int = 3,
+        retry_base_s: float = 0.05,
+        retry_cap_s: float = 1.0,
+        rng: "random.Random | None" = None,
+        sleep=time.sleep,
+    ) -> None:
+        self.cluster = cluster  # anything with bind_pod(pod_key, node_name)
+        self.policy = BackoffPolicy(
+            attempts=max(retry_attempts, 0),
+            base_s=retry_base_s,
+            cap_s=retry_cap_s,
+        )
+        # Seedable for deterministic replays; fresh entropy otherwise.
+        self.rng = rng or random.Random()
+        self.sleep = sleep
+        self.retries = 0
+
+    def bind(self, state: CycleState, pod: PodSpec, node_name: str) -> Status:
+        def on_retry(attempt: int, e: BaseException) -> None:
+            self.retries += 1
+            log.warning(
+                "bind %s -> %s failed transiently (attempt %d: %s); "
+                "retrying with backoff", pod.key, node_name, attempt + 1, e,
+            )
+
+        try:
+            call_with_retries(
+                lambda: self.cluster.bind_pod(pod.key, node_name),
+                policy=self.policy,
+                rng=self.rng,
+                sleep=self.sleep,
+                on_retry=on_retry,
+            )
+        except Exception as e:  # retries exhausted or genuinely infeasible
+            return Status.error(f"binding {pod.key} to {node_name}: {e}")
+        return Status.ok()

@@ -1,0 +1,183 @@
+"""Wire a complete in-process scheduler stack (cluster + informer + plugins
++ scheduler loop).
+
+Counterpart of ``yoda_tpu/standalone.py``: a single-stack ``build_stack``
+that wires only the parts this port has — informer snapshot →
+``YodaPreFilter`` → ``YodaBatch`` dispatch (the hand CUDA kernel on the
+card) → Reserve on ``ChipAccountant`` → bind. Left out until a later
+slice: the gang plugin, preemption, the speculative placement cache, node
+health, the rebalancer, the reconciler, the bind executor, tracing /
+metrics / SLO / overload, batched ingest, tenancy, the durable journal,
+profiles, shards and federation.
+
+A knob of such a subsystem loads (``config.SchedulerConfig`` keeps every
+knob of the reference), but ``build_stack`` raises ``NotImplementedError``
+naming it when it is set away from its default — except to the value that
+turns the subsystem off, which is what this port already does
+(``UNPORTED_KNOB_VALUES``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from dataclasses import dataclass
+
+from yoda_tpu_torch.cluster.fake import Event, FakeCluster
+from yoda_tpu_torch.cluster.informer import InformerCache
+from yoda_tpu_torch.config import SchedulerConfig
+from yoda_tpu_torch.framework.queue import SchedulingQueue
+from yoda_tpu_torch.framework.runtime import Framework
+from yoda_tpu_torch.framework.scheduler import Scheduler
+from yoda_tpu_torch.plugins.yoda import YodaBatch, default_plugins
+from yoda_tpu_torch.plugins.yoda.accounting import ChipAccountant
+from yoda_tpu_torch.plugins.yoda.binder import ClusterBinder
+
+# Knobs this port honours, at any valid value.
+PORTED_KNOBS = frozenset(
+    {
+        "scheduler_name",
+        "weights",
+        "scoring_strategy",
+        "max_metrics_age_s",
+        "kernel_platform",
+        "kernel_backend",
+        "batch_requests",
+        "bind_retry_attempts",
+        "bind_retry_base_s",
+        "bind_retry_cap_s",
+        "immediate_retry_attempts",
+    }
+)
+
+# Every other knob belongs to a part this port does not have yet; it must
+# keep its default or take one of these values, each of which switches
+# that part off (the port's behaviour either way).
+UNPORTED_KNOB_VALUES = {
+    "enable_preemption": (False,),
+    "bind_workers": (0,),
+    "bind_pipeline": ("off",),
+    "reconcile_period_s": (0,),
+    "rebalance_period_s": (0,),
+    "spec_enabled": (False,),
+    "node_repair": (False,),
+    "node_health_period_s": (0,),
+    "trace_sample_rate": (0,),
+    "slo_enabled": (False,),
+    "overload_period_s": (0,),
+}
+
+
+def unported_settings(config: SchedulerConfig) -> list[str]:
+    """The knobs of ``config`` that ask for a part this port lacks."""
+    default = SchedulerConfig()
+    out = []
+    for f in dataclasses.fields(config):
+        if f.name in PORTED_KNOBS:
+            continue
+        value = getattr(config, f.name)
+        if value == getattr(default, f.name):
+            continue
+        if value in UNPORTED_KNOB_VALUES.get(f.name, ()):
+            continue
+        out.append(f"{f.name}={value!r}")
+    return out
+
+
+@dataclass
+class Stack:
+    cluster: FakeCluster
+    informer: InformerCache
+    accountant: ChipAccountant
+    framework: Framework
+    queue: SchedulingQueue
+    scheduler: Scheduler
+    binder: ClusterBinder
+    batch: YodaBatch
+
+
+def build_stack(
+    cluster: FakeCluster | None = None,
+    config: SchedulerConfig | None = None,
+    *,
+    clock=time.monotonic,
+) -> Stack:
+    """Build a fully-wired scheduler stack against ``cluster`` (a fresh
+    FakeCluster by default). Watchers are registered list-then-watch, so a
+    stack built against a populated cluster reconstructs accounting state
+    from existing bound pods. The fleet evaluation runs on the CUDA device
+    unless ``config.kernel_platform`` is "cpu"; with no card present the
+    default raises."""
+    cluster = cluster or FakeCluster()
+    config = config or SchedulerConfig()
+    unported = unported_settings(config)
+    if unported:
+        raise NotImplementedError(
+            "not yet ported to yoda_tpu_torch: " + ", ".join(unported)
+        )
+    accountant = ChipAccountant(scheduler_name=config.scheduler_name)
+    plugins = default_plugins(
+        weights=config.effective_weights(),
+        reserved_fn=accountant.chips_in_use,
+        max_metrics_age_s=config.max_metrics_age_s,
+        kernel_platform=config.kernel_platform,
+        kernel_backend=config.kernel_backend,
+        batch_requests=config.batch_requests,
+        # Bulk accountant read: one lock per dispatch, not N.
+        reserved_map_fn=accountant.chips_by_node,
+    )
+    plugins.append(accountant)
+    binder = ClusterBinder(
+        cluster,
+        retry_attempts=config.bind_retry_attempts,
+        retry_base_s=config.bind_retry_base_s,
+        retry_cap_s=config.bind_retry_cap_s,
+    )
+    plugins.append(binder)
+    framework = Framework(plugins)
+    queue = SchedulingQueue(
+        framework.queue_sort,
+        clock=clock,
+        immediate_retry_attempts=config.immediate_retry_attempts,
+    )
+
+    def _reactivates(event: Event) -> bool:
+        # New/changed TPU metrics may make parked pods schedulable; pod
+        # deletions free chips; Node changes re-open hosts. Binds already
+        # reactivate via the scheduler.
+        return event.kind in ("TpuNodeMetrics", "Node") or event.type == "deleted"
+
+    def on_change_batch(events: "list[Event]") -> None:
+        """ONE reactivation decision per applied batch; a pod deleted while
+        queued leaves the queue now."""
+        for event in events:
+            if event.kind == "Pod" and event.type == "deleted":
+                queue.remove(event.obj.uid)
+        if any(map(_reactivates, events)) and queue.has_parked():
+            queue.move_all_to_active()
+
+    informer = InformerCache(
+        scheduler_name=config.scheduler_name,
+        on_pod_pending=queue.add,
+        on_change_batch=on_change_batch,
+        staleness_s=config.max_metrics_age_s,
+    )
+    (batch,) = framework.batch_plugins
+    batch.claimed_fn = informer.claimed_hbm_mib
+    batch.claimed_map_fn = informer.claimed_hbm_mib_map
+    batch.last_updated_map_fn = informer.last_updated_map
+    # Accountant before informer: reservation releases precede the
+    # informer's view of the same event.
+    cluster.add_watcher(accountant.handle)
+    cluster.add_watcher(informer.handle, batch_fn=informer.handle_batch)
+    scheduler = Scheduler(
+        framework,
+        informer.snapshot,
+        queue,
+        clock=clock,
+        pod_alive=informer.pod_schedulable,
+        burst_size=config.batch_requests,
+    )
+    return Stack(
+        cluster, informer, accountant, framework, queue, scheduler, binder, batch
+    )
