@@ -5,13 +5,21 @@
 Phases, each of which makes the script exit non-zero when it fails:
 
 1. Device: the card's name and power limit (nvidia-smi), then the build of
-   the hand-written CUDA kernel from yoda_tpu_torch/csrc/fleet_eval.cu.
+   the hand-written CUDA kernel from yoda_tpu_torch/csrc/fleet_eval.cu
+   (with ptxas's register and shared-memory report).
 2. Kernel against its plain PyTorch version on the card: seeded fleets of
-   8 chips per node at the main path's shapes and beyond, default and
-   most-allocated weights; all six output rows must be exactly equal
-   (int32, tolerance 0). Per shape: the kernel's time (median of CUDA-event
-   timings after warm-up), the plain version's, and the bound (the bytes
-   the function must move over the card's 3.35 TB/s).
+   8 chips per node from 1 node to 262,144 (smaller than one tile, ragged
+   tiles, the main path's shapes, blocks walking several tiles), default
+   and most-allocated weights; all six output rows must be exactly equal
+   (int32, tolerance 0). Per shape: the launch plan, the wrapper's time
+   (median of CUDA-event timings around each call after warm-up), the plain
+   version's, the bound (the bytes the function must move over the card's
+   3.35 TB/s) and an nvidia-smi sample of SM clock and power. At the main
+   path's shapes and 65,536 nodes also the kernel's device time and the
+   CUDA launches per call from a torch.profiler window (which must be 1),
+   and at the main path's shapes the host round trip of
+   TorchFleetKernel.evaluate_burst (pack, upload, launch, fetch), back to
+   back and after 5 ms of sleep or of host work between calls.
 3. The main path: the port's build_stack(mode="batch") over its FakeCluster,
    a 5,000-node fleet published by its FakeTpuAgent (512 v5p 2x2x1 slices
    = 2,048 hosts x 4 chips, plus 2,952 v5e hosts x 8 chips), then (a) 64
@@ -23,7 +31,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    script through kernel_platform "cpu" (the plain version) must bind
    every pod to the same node.
 4. One line {"kernels": [...]} with the kernel's launches on the main
-   path, its largest difference from the plain version and its times.
+   path, its largest difference from the plain version and its times
+   ("not measured" where the profiler saw no device activity).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits non-zero and prints no result.
@@ -45,18 +54,30 @@ INT32_OPS_PER_S = 67e12       # H100 SXM non-tensor-core 32-bit rate
 OPS_PER_CHIP_ELEMENT = 60     # integer ops per (chip, request) pair, both passes
 
 KERNEL_SHAPES = [  # (real nodes, padded nodes, requests K)
+    (1, 1, 1),              # smaller than one 64-node tile
+    (37, 37, 1),
     (37, 64, 1),
+    (37, 37, 16),
     (256, 256, 8),
+    (5000, 5000, 16),       # not a multiple of the tile
     (5000, 8192, 1),
     (5000, 8192, 16),
     (65536, 65536, 16),
+    (262144, 262144, 4),    # more tiles than the grid: blocks walk several
 ]
 MAIN_PATH_SHAPE = (5000, 8192, 16)
+# Shapes whose device time the profiler reads: the main path's two and a
+# fleet of 65,536 nodes.
+PROFILED_SHAPES = [(5000, 8192, 1), (5000, 8192, 16), (65536, 65536, 16)]
 CHIPS = 8
 REQUEST_TABLE = np.array(
     [[1, 0, 0, 0, 0], [2, 8192, 0, 0, 0], [4, 4096, 900, 5, 1], [8, 15360, 990, 6, 0]],
     dtype=np.int32,
 )
+
+
+def not_measured(value):
+    return "not measured" if value is None else value
 
 
 def fail(phase: str, err: BaseException | str) -> None:
@@ -131,6 +152,44 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return statistics.median(times)
 
 
+def profiled_ms(fn, calls: int = 20) -> tuple[float | None, float | None]:
+    """Device time of the fleet_eval kernel per call and CUDA launches
+    (kernels and memsets) per call, from a torch.profiler window over
+    ``calls`` calls of ``fn``; (None, None) when the profiler records no
+    device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernel_us, device_events = None, 0
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA or evt.key.startswith("Memcpy"):
+            continue
+        device_events += evt.count
+        if "fleet_eval" in evt.key:
+            total = getattr(evt, "self_device_time_total", None)
+            if total is None:
+                total = evt.self_cuda_time_total
+            kernel_us = (kernel_us or 0.0) + total
+    if kernel_us is None:
+        return None, None
+    return kernel_us / calls / 1e3, device_events / calls
+
+
+def smi_sample() -> str:
+    """The card's SM clock, power draw and power limit, now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 def phase_device() -> tuple[str, str]:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -143,12 +202,78 @@ def phase_device() -> tuple[str, str]:
     t0 = time.monotonic()
     lib = cuda_kernel.build()
     print(f"built {lib.name} in {time.monotonic() - t0:.2f} s")
+    log = lib.with_suffix(".log")
+    if log.exists():
+        for line in log.read_text().splitlines():
+            if "registers" in line or "bytes stack" in line or "error" in line:
+                print(f"  ptxas: {line.strip()}")
     return kind, smi
+
+
+def round_trip_ms(chips, nodes, dyn, host_ok, reqs, calls: int = 30) -> dict:
+    """Host wall time of TorchFleetKernel.evaluate_burst calls on the card
+    (pack and upload the per-call inputs, launch, fetch, unpack), median ms
+    per call: back to back ("hot"), after 5 ms of sleep ("after_sleep",
+    host and card idle) and after 5 ms of host Python work that touches
+    8 MB ("after_work", as a scheduling cycle does). "pack_hot" and
+    "pack_after_sleep" time the host-only packing step (pack_inputs) alone
+    the same ways, to tell a slower host from a slower card."""
+    from yoda_tpu_torch.config import SchedulerConfig
+    from yoda_tpu_torch.ops.arrays import FleetArrays
+    from yoda_tpu_torch.ops.kernel import CHIP_KEYS, STATIC_NODE_KEYS, KernelRequest
+    from yoda_tpu_torch.ops.kernel import TorchFleetKernel, pack_inputs, pack_request
+
+    n_real = int(nodes[0].sum())
+    fields = {key: chips[i].T for i, key in enumerate(CHIP_KEYS)}
+    fields.update({key: nodes[i] for i, key in enumerate(STATIC_NODE_KEYS)})
+    fields.update(
+        names=[f"n{i}" for i in range(n_real)], fresh=dyn[0],
+        reserved_chips=dyn[1], claimed_hbm_mib=dyn[2], host_ok=host_ok[0],
+        last_updated=np.zeros(dyn.shape[1]),
+    )
+    kern = TorchFleetKernel(
+        SchedulerConfig().effective_weights(), torch.device("cuda", 0)
+    )
+    kern.put_static(FleetArrays.from_numpy(fields))
+    requests = [KernelRequest(*map(int, r)) for r in reqs]
+
+    def work() -> None:
+        end = time.perf_counter() + 0.005
+        while time.perf_counter() < end:
+            junk = bytearray(8 << 20)
+            junk[:: 4096] = b"x" * len(junk[:: 4096])
+
+    def evaluate() -> None:
+        kern.evaluate_burst(dyn, host_ok, requests)
+
+    def pack() -> None:
+        pack_inputs(dyn, host_ok, np.stack([pack_request(r) for r in requests]))
+
+    def sleep() -> None:
+        time.sleep(0.005)
+
+    out = {}
+    for name, fn, gap in (
+        ("hot", evaluate, None), ("after_sleep", evaluate, sleep),
+        ("after_work", evaluate, work), ("pack_hot", pack, None),
+        ("pack_after_sleep", pack, sleep),
+    ):
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(calls):
+            if gap:
+                gap()
+            t = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t)
+        out[name] = 1e3 * statistics.median(times)
+    return out
 
 
 def phase_kernel() -> tuple[list[dict], dict]:
     from yoda_tpu_torch.config import SchedulerConfig
-    from yoda_tpu_torch.ops.cuda_kernel import fleet_eval
+    from yoda_tpu_torch.ops.cuda_kernel import fleet_eval, launch_plan
     from yoda_tpu_torch.ops.kernel import kernel_packed_burst
 
     dev = torch.device("cuda", 0)
@@ -188,16 +313,30 @@ def phase_kernel() -> tuple[list[dict], dict]:
                 tolerance=0, bound_ms=bound_ms(n_pad, k),
             )
             if wname == "least-allocated":
+                row["plan"] = launch_plan(n_pad, CHIPS, k, dev)
                 row["ms"] = cuda_ms(lambda: fleet_eval(*args, w))
                 row["plain_ms"] = cuda_ms(
                     lambda: kernel_packed_burst(*args, w), iters=10
                 )
+                if (n_real, n_pad, k) in PROFILED_SHAPES:
+                    row["device_ms"], row["launches_per_call"] = profiled_ms(
+                        lambda: fleet_eval(*args, w)
+                    )
+                    if row["launches_per_call"] not in (None, 1):
+                        raise AssertionError(
+                            f"{row['launches_per_call']} CUDA launches per "
+                            f"fleet_eval call at nodes={n_pad} K={k}, not 1"
+                        )
+                    if n_pad == 8192:
+                        row["round_trips_ms"] = round_trip_ms(
+                            chips, nodes, dyn, host_ok, reqs
+                        )
+                        row["round_trip_ms"] = row["round_trips_ms"]["hot"]
+                row["smi"] = smi_sample()
             rows.append(row)
             print("kernel", json.dumps(row))
-    main = next(
-        r for r in rows
-        if (r["nodes"], r["padded"], r["k"]) == MAIN_PATH_SHAPE and "ms" in r
-    )
+    timed = [r for r in rows if "ms" in r]
+    main = [r for r in timed if (r["nodes"], r["padded"], r["k"]) in PROFILED_SHAPES]
     return rows, main
 
 
@@ -248,14 +387,14 @@ def run_main_path(platform: str, pods_a, pods_b) -> dict:
         # against the whole run: the share of the cycle the device path
         # can move.
         kern = stack.batch._kern
-        eval_s = [0.0]
+        eval_s: list[float] = []
 
         def timed(*args, _inner=kern.evaluate_burst):
             t = time.monotonic()
             try:
                 return _inner(*args)
             finally:
-                eval_s[0] += time.monotonic() - t
+                eval_s.append(time.monotonic() - t)
 
         kern.evaluate_burst = timed
         cuda_kernel.launches = 0
@@ -287,7 +426,9 @@ def run_main_path(platform: str, pods_a, pods_b) -> dict:
             overcommitted=over, launches=launches,
             dispatch_count=b.dispatch_count, burst_dispatches=b.burst_dispatches,
             burst_served=b.burst_served, dispatch_errors=b.dispatch_errors,
-            wall_s=wall, eval_s=eval_s[0],
+            wall_s=wall, eval_s=sum(eval_s),
+            eval_ms_per_call=1e3 * sum(eval_s) / max(len(eval_s), 1),
+            eval_ms_median=1e3 * statistics.median(eval_s) if eval_s else None,
             pods_per_s=len(lat) / wall if wall else 0.0,
             p50_ms=1e3 * lat[len(lat) // 2] if lat else None,
             p99_ms=1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))] if lat else None,
@@ -344,13 +485,16 @@ def main() -> None:
     except Exception as e:  # noqa: BLE001 — report the failing phase
         fail("device/build", e)
     try:
-        rows, main_row = phase_kernel()
+        rows, profiled = phase_kernel()
     except Exception as e:  # noqa: BLE001
         fail("kernel vs plain", e)
     try:
         gpu = phase_main_path()
     except Exception as e:  # noqa: BLE001
         fail("main path", e)
+    main_row = next(
+        r for r in profiled if (r["nodes"], r["padded"], r["k"]) == MAIN_PATH_SHAPE
+    )
     kernels = {
         "kernels": [
             {
@@ -368,6 +512,17 @@ def main() -> None:
                 "bound_ms": main_row["bound_ms"],
                 "bound_by": "bytes",
                 "library_ms": None,
+                "device_ms": not_measured(main_row["device_ms"]),
+                "round_trip_ms": main_row["round_trip_ms"],
+                "cuda_launches_per_call": not_measured(main_row["launches_per_call"]),
+                "shapes": [
+                    {
+                        key: not_measured(r.get(key))
+                        for key in ("padded", "k", "ms", "device_ms", "plain_ms",
+                                    "bound_ms", "round_trips_ms", "smi")
+                    }
+                    for r in profiled
+                ],
             }
         ]
     }

@@ -22,7 +22,13 @@ from yoda_tpu_torch.config import Weights as TorchWeights
 from yoda_tpu_torch.ops import cuda_kernel
 from yoda_tpu_torch.ops.arrays import FleetArrays as TorchFleetArrays
 from yoda_tpu_torch.ops.kernel import KernelRequest as TorchKernelRequest
-from yoda_tpu_torch.ops.kernel import TorchFleetKernel, kernel_packed, stack_static
+from yoda_tpu_torch.ops.kernel import (
+    TorchFleetKernel,
+    kernel_packed,
+    pack_inputs,
+    split_inputs,
+    stack_static,
+)
 
 CPU = torch.device("cpu")
 
@@ -207,3 +213,71 @@ class TestPlainVersionParity:
         before = cuda_kernel.launches
         port_eval(random_arrays(10, seed=5), REQUESTS[1], Weights())
         assert cuda_kernel.launches == before
+
+
+class TestPackedRoundTrip:
+    """The one-buffer upload layout of TorchFleetKernel.evaluate_burst
+    (the card copies it to the device in one pinned transfer)."""
+
+    @pytest.mark.parametrize("n,k", [(1, 1), (37, 4), (64, 16)])
+    def test_pack_then_split_gives_the_inputs_back(self, n, k):
+        rng = np.random.default_rng(n + k)
+        dyn = rng.integers(-5, 2**20, size=(4, n)).astype(np.int32)
+        host_ok = rng.random((k, n)) > 0.5
+        reqs = rng.integers(0, 16384, size=(k, 5)).astype(np.int32)
+        buf = pack_inputs(dyn, host_ok, reqs)
+        assert buf.dtype == np.int32 and buf.shape == (4 * n + k * n + 5 * k,)
+        got = split_inputs(torch.from_numpy(buf), n, k)
+        for t, want in zip(got, (dyn, host_ok.astype(np.int32), reqs)):
+            assert t.is_contiguous()
+            np.testing.assert_array_equal(t.numpy(), want)
+
+    def test_pack_writes_into_a_given_buffer(self):
+        dyn = np.arange(8, dtype=np.int32).reshape(4, 2)
+        host_ok = np.array([[1, 0]], dtype=np.int32)
+        reqs = np.array([[2, 1024, 0, 0, 1]], dtype=np.int32)
+        out = np.full(4 * 2 + 2 + 5, -1, dtype=np.int32)
+        assert pack_inputs(dyn, host_ok, reqs, out=out) is out
+        assert out.tolist() == list(range(8)) + [1, 0, 2, 1024, 0, 0, 1]
+
+    @pytest.mark.parametrize("n_nodes", [100, 300])
+    @pytest.mark.parametrize("k", [1, 4])
+    def test_evaluate_burst_matches_device_kernel(self, n_nodes, k):
+        arrays = random_arrays(n_nodes, seed=n_nodes)
+        dyn = own_dyn(arrays)
+        n_pad = arrays.node_valid.shape[0]
+        host_ok_k = (np.random.default_rng(k).random((k, n_pad)) > 0.3)
+        if k > 1:
+            host_ok_k[-1] = False
+        requests = REQUESTS[:k]
+        want_kern = DeviceFleetKernel(MOST_ALLOCATED)
+        want_kern.put_static(arrays)
+        want = want_kern.evaluate_burst(dyn, host_ok_k.astype(np.int32), requests)
+        got_kern = TorchFleetKernel(torch_weights(MOST_ALLOCATED), CPU)
+        got_kern.put_static(to_torch(arrays))
+        got = got_kern.evaluate_burst(
+            dyn, host_ok_k, [torch_request(r) for r in requests]
+        )
+        assert len(got) == k
+        for g, w in zip(got, want):
+            assert_same(g, w)
+
+    def test_results_survive_the_next_evaluation(self):
+        arrays = random_arrays(37, seed=13)
+        dyn = own_dyn(arrays)
+        n_pad = arrays.node_valid.shape[0]
+        kern = TorchFleetKernel(TorchWeights(), CPU)
+        kern.put_static(to_torch(arrays))
+        requests = [torch_request(r) for r in REQUESTS]
+        host_ok_k = np.ones((4, n_pad), dtype=np.int32)
+        first = kern.evaluate_burst(dyn, host_ok_k, requests)
+        kept = [
+            (r.feasible.copy(), r.scores.copy(), r.claimable.copy(), r.best_index)
+            for r in first
+        ]
+        kern.evaluate_burst(dyn, 1 - host_ok_k, requests[::-1])
+        for r, (feasible, scores, claimable, best) in zip(first, kept):
+            np.testing.assert_array_equal(r.feasible, feasible)
+            np.testing.assert_array_equal(r.scores, scores)
+            np.testing.assert_array_equal(r.claimable, claimable)
+            assert r.best_index == best

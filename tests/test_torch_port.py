@@ -1,6 +1,7 @@
 """The port's package rules and configuration, held against the JAX package:
 
-- yoda_tpu_torch and chip_smoke.py import neither JAX nor yoda_tpu;
+- yoda_tpu_torch, chip_smoke.py and kernel_phases.py import neither JAX
+  nor yoda_tpu;
 - the same config dicts (the shipped ConfigMap included) are accepted or
   rejected alike, with equal effective weights;
 - entry points run on the card unless asked for the CPU: "auto" raises
@@ -49,7 +50,7 @@ def _forbidden(module: str) -> bool:
 class TestImportGuard:
     def test_port_imports_neither_jax_nor_reference(self):
         files = sorted((REPO / "yoda_tpu_torch").rglob("*.py"))
-        files.append(REPO / "chip_smoke.py")
+        files += [REPO / "chip_smoke.py", REPO / "kernel_phases.py"]
         assert len(files) > 20
         bad = {
             f"{f.relative_to(REPO)}: {m}"

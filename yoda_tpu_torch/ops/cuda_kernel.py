@@ -7,13 +7,15 @@ K) and their host epilogue; K = 1 serves the single request. The source's
 header says what bounds it on an H100 and how the design answers that.
 
 The source is compiled at first use with ``nvcc -gencode
-arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`` into a shared
-library with a plain C interface under ``build/kernels/`` (named by the
-source's hash, so an edit rebuilds) and loaded with ``ctypes``. The wrapper
-:func:`fleet_eval` launches it on PyTorch's current stream for CUDA
-tensors and runs the plain PyTorch version
-(``ops.kernel.kernel_packed_burst``) only for tensors on the CPU. For a
-CUDA tensor it launches the kernel or raises: there is no fallback.
+arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC -Xptxas -v`` into
+a shared library with a plain C interface under ``build/kernels/`` (named
+by the source's hash, so an edit rebuilds; ptxas's register and
+shared-memory report goes to the ``.log`` beside it) and loaded with
+``ctypes``. The wrapper :func:`fleet_eval` makes one cooperative launch of
+it on PyTorch's current stream for CUDA tensors and runs the plain PyTorch
+version (``ops.kernel.kernel_packed_burst``) only for tensors on the CPU.
+For a CUDA tensor it launches the kernel or raises (a failed build, a
+refused cooperative launch, a CUDA error): there is no fallback.
 """
 
 from __future__ import annotations
@@ -35,11 +37,18 @@ SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fleet_eval.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Wrapper calls that launched the kernel (one call = the four launches of
-# fleet_eval_launch). Plain-version calls on CPU tensors do not count.
+# Nodes per tile in fleet_eval.cu (kTileNodes): the launch's grid never has
+# more blocks than tiles, which bounds the scratch it needs.
+TILE_NODES = 64
+SCRATCH_WORDS = 11  # int32 scratch words per (block, request)
+MAX_CHIPS = 32      # chips per node (kMaxChips: one bit each in a mask)
+MAX_REQUESTS = 128  # requests per call (kMaxRequests)
+
+# CUDA kernel launches: fleet_eval_launch enqueues exactly one cooperative
+# launch per wrapper call. Plain-version calls on CPU tensors do not count.
 launches = 0
 
 _lib: "ctypes.CDLL | None" = None
@@ -79,6 +88,7 @@ def build() -> Path:
             f"nvcc failed to build {SOURCE.name} (rc {proc.returncode}):\n"
             f"{proc.stderr}"
         )
+    lib.with_suffix(".log").write_text(proc.stderr)
     os.replace(tmp, lib)  # atomic: a concurrent build never loads a torn file
     return lib
 
@@ -89,15 +99,57 @@ def _load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.fleet_eval_launch.argtypes = [ptr] * 10 + [i32] * 3 + [ptr, ptr]
+            lib.fleet_eval_launch.argtypes = (
+                [ptr] * 7 + [ctypes.c_longlong] + [i32] * 3 + [ptr, i32, ptr]
+            )
             lib.fleet_eval_launch.restype = i32
+            lib.fleet_eval_plan.argtypes = [i32, i32, i32, ptr]
+            lib.fleet_eval_plan.restype = i32
             lib.fleet_eval_error_string.argtypes = [i32]
             lib.fleet_eval_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
 
 
+def _raise_for(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(
+            f"fleet_eval {what} failed: CUDA error {rc} "
+            f"({lib.fleet_eval_error_string(rc).decode()})"
+        )
+
+
+def launch_plan(n: int, c: int, k: int, device: torch.device) -> dict:
+    """The launch fleet_eval makes for n nodes x c chips x k requests on
+    ``device``: grid blocks, threads per block, tiles each block walks,
+    tiles it stages in shared memory, dynamic shared-memory bytes."""
+    lib = _load()
+    plan = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        _raise_for(lib, lib.fleet_eval_plan(n, c, k, plan), "plan")
+    return dict(zip(("grid", "threads", "walk", "resident", "smem_bytes"), plan))
+
+
+_weights: dict[Weights, ctypes.Array] = {}
+
+
+def _host_weights(w: Weights) -> ctypes.Array:
+    """The kernel's weight row for ``w`` (built once per Weights value)."""
+    row = _weights.get(w)
+    if row is None:
+        row = _weights[w] = (ctypes.c_int32 * 9)(
+            w.hbm_bandwidth, w.clock, w.tflops, w.power, w.hbm_free,
+            w.hbm_total, w.actual, w.allocate, SLICE_PROTECT_TIER * w.slice_protect,
+        )
+    return row
+
+
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
+    if (
+        t.device == device and t.dtype == torch.int32 and t.shape == shape
+        and t.is_contiguous()
+    ):
+        return
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, the fleet on {device}")
     if t.dtype != torch.int32:
@@ -132,29 +184,23 @@ def fleet_eval(
     _check("dyn", dyn, (4, n), device)
     _check("host_ok_k", host_ok_k, (k, n), device)
     _check("reqs_k", reqs_k, (k, 5), device)
-    w = weights
-    host_weights = (ctypes.c_int32 * 9)(
-        w.hbm_bandwidth, w.clock, w.tflops, w.power, w.hbm_free,
-        w.hbm_total, w.actual, w.allocate, SLICE_PROTECT_TIER * w.slice_protect,
-    )
-    out = torch.empty((k, 6, n), dtype=torch.int32, device=device)
-    maxima = torch.empty((k, 6), dtype=torch.int32, device=device)
-    lohi = torch.empty((2, k), dtype=torch.int32, device=device)
-    any_feasible = torch.empty((k,), dtype=torch.int32, device=device)
-    best = torch.empty((k,), dtype=torch.int64, device=device)
+    if c > MAX_CHIPS or k > MAX_REQUESTS:
+        raise ValueError(
+            f"the CUDA fleet evaluation takes at most {MAX_CHIPS} chips per "
+            f"node and {MAX_REQUESTS} requests, got {c} and {k}"
+        )
+    # The output, then the partials of the three grid-wide reductions (every
+    # scratch word the kernel reads it first writes in the same launch).
+    scratch_words = SCRATCH_WORDS * k * -(-n // TILE_NODES)
+    buf = torch.empty((k * 6 * n + scratch_words,), dtype=torch.int32, device=device)
     lib = _load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.fleet_eval_launch(
-            chips.data_ptr(), nodes.data_ptr(), dyn.data_ptr(),
-            host_ok_k.data_ptr(), reqs_k.data_ptr(), out.data_ptr(),
-            maxima.data_ptr(), lohi.data_ptr(), any_feasible.data_ptr(),
-            best.data_ptr(), n, c, k, ctypes.addressof(host_weights), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"fleet_eval launch failed: CUDA error {rc} "
-            f"({lib.fleet_eval_error_string(rc).decode()})"
-        )
+    rc = lib.fleet_eval_launch(
+        chips.data_ptr(), nodes.data_ptr(), dyn.data_ptr(),
+        host_ok_k.data_ptr(), reqs_k.data_ptr(), buf.data_ptr(),
+        buf.data_ptr() + 4 * k * 6 * n, scratch_words, n, c, k,
+        ctypes.addressof(_host_weights(weights)), device.index,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _raise_for(lib, rc, "launch")
     launches += 1
-    return out
+    return buf[: k * 6 * n].view(k, 6, n)

@@ -367,18 +367,54 @@ def pack_request(request: KernelRequest) -> np.ndarray:
     )
 
 
-def result_from_packed(names: list[str], packed: np.ndarray) -> KernelResult:
-    """Unpack one request's [6, N] output, trimmed to the real fleet."""
-    n = len(names)
-    best = int(packed[4, 0]) if packed.shape[1] else -1
-    return KernelResult(
-        feasible=packed[0, :n].astype(bool),
-        reasons=packed[1, :n],
-        raw_scores=packed[2, :n],
-        scores=packed[3, :n],
-        best_index=best if 0 <= best < n else -1,
-        claimable=packed[5, :n],
+def pack_inputs(
+    dyn: np.ndarray,        # [4, N] int32
+    host_ok_k: np.ndarray,  # [K, N] int32/bool
+    reqs: np.ndarray,       # [K, 5] int32
+    out: np.ndarray | None = None,
+) -> np.ndarray:
+    """An evaluation's per-call inputs in ONE flat int32 buffer, so one
+    host-to-device copy moves them: dyn, then host_ok, then reqs, each
+    row-major. ``out`` (e.g. a pinned tensor's numpy view) receives them
+    when given. :func:`split_inputs` takes the buffer apart again."""
+    n, k = dyn.shape[1], host_ok_k.shape[0]
+    buf = np.empty(4 * n + k * n + 5 * k, dtype=np.int32) if out is None else out
+    buf[: 4 * n] = dyn.reshape(-1)
+    buf[4 * n : (4 + k) * n] = host_ok_k.reshape(-1)
+    buf[(4 + k) * n :] = reqs.reshape(-1)
+    return buf
+
+
+def split_inputs(buf: torch.Tensor, n: int, k: int) -> tuple[torch.Tensor, ...]:
+    """Views (dyn [4, N], host_ok [K, N], reqs [K, 5]) of a
+    :func:`pack_inputs` buffer, on whatever device it lies."""
+    return (
+        buf[: 4 * n].view(4, n),
+        buf[4 * n : (4 + k) * n].view(k, n),
+        buf[(4 + k) * n :].view(k, 5),
     )
+
+
+def results_from_packed(names: list[str], packed: np.ndarray) -> list[KernelResult]:
+    """Unpack a [K, 6, N] output into one KernelResult per request, trimmed
+    to the real fleet (views of ``packed``, plus one bool copy of the
+    feasible rows for all K)."""
+    n = len(names)
+    feasible = packed[:, 0, :n].astype(bool)
+    results = []
+    for i in range(packed.shape[0]):
+        best = int(packed[i, 4, 0]) if packed.shape[2] else -1
+        results.append(
+            KernelResult(
+                feasible=feasible[i],
+                reasons=packed[i, 1, :n],
+                raw_scores=packed[i, 2, :n],
+                scores=packed[i, 3, :n],
+                best_index=best if 0 <= best < n else -1,
+                claimable=packed[i, 5, :n],
+            )
+        )
+    return results
 
 
 def resolve_device(platform: str) -> torch.device:
@@ -403,11 +439,13 @@ class TorchFleetKernel:
     ``FleetKernelLike`` (reference kernel.py:701-816).
 
     :meth:`put_static` uploads the [9, C, N] chip grids and the static node
-    rows to ``device`` once per metrics version; each evaluation then
-    uploads one [4, N] dynamics array, the [K, N] admission rows and the
-    [K, 5] requests, makes ONE wrapper call and fetches one [K, 6, N]
-    result. On a CUDA device the call launches the hand-written kernel; on
-    the CPU it runs the plain version (:func:`kernel_packed_burst`).
+    rows to ``device`` once per metrics version. Each evaluation then packs
+    the [4, N] dynamics, the [K, N] admission rows and the [K, 5] requests
+    into one buffer (:func:`pack_inputs`), makes ONE wrapper call and
+    fetches one [K, 6, N] result. On a CUDA device that is one pinned
+    host-to-device copy, the hand-written kernel's one launch and one
+    device-to-host copy into pinned memory; on the CPU the same buffer
+    feeds the plain version (:func:`kernel_packed_burst`).
     """
 
     def __init__(self, weights: Weights, device: torch.device) -> None:
@@ -447,13 +485,25 @@ class TorchFleetKernel:
         if self._chips is None:
             raise RuntimeError("put_static() must run before evaluate_burst()")
         reqs = np.stack([pack_request(r) for r in requests])
+        host_ok_k = np.asarray(host_ok_k)
+        n, k = dyn.shape[1], len(requests)
         dev = self.device
-        packed = fleet_eval(
-            self._chips,
-            self._nodes,
-            torch.from_numpy(np.ascontiguousarray(dyn, dtype=np.int32)).to(dev),
-            torch.from_numpy(np.ascontiguousarray(host_ok_k, dtype=np.int32)).to(dev),
-            torch.from_numpy(reqs).to(dev),
-            self.weights,
-        ).cpu().numpy()
-        return [result_from_packed(self._names, packed[k]) for k in range(len(requests))]
+        if dev.type == "cuda":
+            size = 4 * n + k * n + 5 * k
+            staged = torch.empty(size, dtype=torch.int32, pin_memory=True)
+            pack_inputs(dyn, host_ok_k, reqs, out=staged.numpy())
+            inputs = torch.empty(size, dtype=torch.int32, device=dev)
+            inputs.copy_(staged, non_blocking=True)
+        else:
+            inputs = torch.from_numpy(pack_inputs(dyn, host_ok_k, reqs))
+        out = fleet_eval(
+            self._chips, self._nodes, *split_inputs(inputs, n, k), self.weights
+        )
+        if dev.type == "cuda":
+            # A fresh pinned tensor every call: the results are views of it,
+            # and a burst's results outlive later evaluations.
+            fetched = torch.empty(out.shape, dtype=torch.int32, pin_memory=True)
+            fetched.copy_(out, non_blocking=True)
+            torch.cuda.current_stream(dev).synchronize()
+            out = fetched
+        return results_from_packed(self._names, out.numpy())
