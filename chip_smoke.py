@@ -5,32 +5,66 @@
 Phases, each of which makes the script exit non-zero when it fails:
 
 1. Device: the card's name and power limit (nvidia-smi), then the build of
-   the hand-written CUDA kernel from yoda_tpu_torch/csrc/fleet_eval.cu
-   (with ptxas's register and shared-memory report).
-2. Kernel against its plain PyTorch version on the card: seeded fleets of
-   8 chips per node from 1 node to 262,144 (smaller than one tile, ragged
-   tiles, the main path's shapes, blocks walking several tiles), default
-   and most-allocated weights; all six output rows must be exactly equal
-   (int32, tolerance 0). Per shape: the launch plan, the wrapper's time
-   (median of CUDA-event timings around each call after warm-up), the plain
-   version's, the bound (the bytes the function must move over the card's
-   3.35 TB/s) and an nvidia-smi sample of SM clock and power. At the main
-   path's shapes and 65,536 nodes also the kernel's device time and the
-   CUDA launches per call from a torch.profiler window (which must be 1),
-   and at the main path's shapes the host round trip of
-   TorchFleetKernel.evaluate_burst (pack, upload, launch, fetch), back to
-   back and after 5 ms of sleep or of host work between calls.
-3. The main path: the port's build_stack(mode="batch") over its FakeCluster,
-   a 5,000-node fleet published by its FakeTpuAgent (512 v5p 2x2x1 slices
-   = 2,048 hosts x 4 chips, plus 2,952 v5e hosts x 8 chips), then (a) 64
-   singleton pods at batch_requests 1 and (b) 256 at batch_requests 16,
-   with mixed tpu/chips, tpu/hbm, tpu/clock and tpu/generation labels.
-   Every pod must bind without over-committing a host, every evaluation
-   must have launched the hand kernel (launches == dispatch_count, which
-   counts burst dispatches too), with no dispatch error, and the same pod
-   script through kernel_platform "cpu" (the plain version) must bind
-   every pod to the same node.
-4. One line {"kernels": [...]} with the kernel's launches on the main
+   the hand-written CUDA kernels from yoda_tpu_torch/csrc/fleet_eval.cu and
+   joint_fit.cu, one nvcc each, started together (with ptxas's register
+   and shared-memory report).
+2. Kernels against their plain PyTorch versions on the card, tolerance 0
+   (everything is int32):
+   - fleet_eval: seeded fleets of 8 chips per node from 1 node to 262,144
+     (smaller than one tile, ragged tiles, the main path's shapes, blocks
+     walking several tiles) and K = 144 / 256 requests (launched as 128-row
+     chunks), default and most-allocated weights; all six output rows must
+     be equal. Per shape: the launch plan, the wrapper's time (median of
+     CUDA-event timings around each call after warm-up), the plain
+     version's, the bound (the bytes the function must move over the
+     card's 3.35 TB/s) and an nvidia-smi sample of SM clock and power. At
+     the main path's shapes and 65,536 nodes also the kernel's device time
+     and the CUDA launches per call from a torch.profiler window (which
+     must be 1), and at the main path's shapes the host round trip of
+     TorchFleetKernel.evaluate_burst (pack, upload, launch, fetch), back
+     to back and after 5 ms of sleep or of host work between calls.
+   - joint_fit: seeded [K, 6, N] rows with heavy score ties, padding rows
+     and gangs that fail at their first row, part-way and after a fit, at
+     (K, N) = (1, 1), (3, 37), (16, 5000), (64, 8192), (256, 8192) and
+     (64, 65,536) (the last keeps its ledgers in global memory); picks,
+     group verdicts and the ledger must be equal. Per shape the same
+     times, the device time and launches per call from the profiler, and
+     the bound. The scan is a dependent chain of K block-wide arg-maxes,
+     so the bytes bound is far below what a sequential design reaches.
+3. The main path: the port's build_stack over its FakeCluster, a
+   5,000-node fleet published by its FakeTpuAgent (512 v5p 2x2x1 slices =
+   2,048 hosts x 4 chips, each a v5p-32, plus 2,952 v5e hosts x 8 chips),
+   in four runs:
+   (a) 64 singleton pods at batch_requests 1 and (b) 256 at
+       batch_requests 16, with mixed tpu/chips, tpu/hbm, tpu/clock and
+       tpu/generation labels;
+   (c) gangs at batch_requests 16, created in two seeded interleaved
+       waves: first 8 plain gangs of 16 v5e members x 8 chips and 4
+       coscheduling-alias gangs of 4 x 4 chips with 32 singletons (their
+       joint pass is plain gangs only, so its fit gate is the joint-fit
+       kernel, over 144 rows), then 16 topology gangs (2x2x1, 4 v5p
+       members x 4 chips: one whole v5p-32 each) and 4 multislice gangs
+       (2 x 2x2x1, 8 members) with 32 more singletons (a joint pass with
+       topology gangs takes the host block planner, as in the reference);
+       240 gang members and 304 pods;
+   (d) contention at the joint fit gate: Node objects labelled
+       pool=contended on 52 v5e hosts and 4 plain gangs of 16 v5e members
+       x 8 chips selecting that pool, co-queued: three fit (48 hosts), the
+       fourth must park whole at the gate with nothing bound or reserved.
+   Each run: every pod binds (in (d) all but the parked gang) without
+   over-committing a host, every gang is all-or-nothing, topology members
+   land one per host on one slice and multislice members on two, every
+   evaluation launched the hand kernels (fleet_eval calls ==
+   dispatch_count, its launches == the 128-row chunks those calls needed,
+   joint_fit launches == fused_plan_dispatches), no dispatch error, no
+   Permit waiter left (no run waits on a real permit timeout), and the
+   same script through kernel_platform "cpu" (the plain versions) binds
+   every pod to the same node and launches nothing. Printed per run:
+   pods/s, per-pod p50/p99, gang completion p50/p99 (first member's cycle
+   start to the last member's bind, on the scheduler's clock), evaluation
+   ms per call, and for (c)/(d) the joint_fit device ms on the inputs the
+   run gave it.
+4. One line {"kernels": [...]} with each kernel's launches on the main
    path, its largest difference from the plain version and its times
    ("not measured" where the profiler saw no device activity).
 
@@ -65,7 +99,11 @@ KERNEL_SHAPES = [  # (real nodes, padded nodes, requests K)
     (65536, 65536, 16),
     (262144, 262144, 4),    # more tiles than the grid: blocks walk several
 ]
+# fleet_eval past one launch's 128 requests: chunked, still exact.
+CHUNKED_SHAPES = [(5000, 8192, 144), (5000, 8192, 256)]
 MAIN_PATH_SHAPE = (5000, 8192, 16)
+JOINT_SHAPES = [(1, 1), (3, 37), (16, 5000), (64, 8192), (256, 8192), (64, 65536)]
+JOINT_MAIN_SHAPE = (64, 8192)  # run (d)'s joint pass
 # Shapes whose device time the profiler reads: the main path's two and a
 # fleet of 65,536 nodes.
 PROFILED_SHAPES = [(5000, 8192, 1), (5000, 8192, 16), (65536, 65536, 16)]
@@ -152,11 +190,12 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return statistics.median(times)
 
 
-def profiled_ms(fn, calls: int = 20) -> tuple[float | None, float | None]:
-    """Device time of the fleet_eval kernel per call and CUDA launches
-    (kernels and memsets) per call, from a torch.profiler window over
-    ``calls`` calls of ``fn``; (None, None) when the profiler records no
-    device activity."""
+def profiled_ms(
+    fn, calls: int = 20, kernel: str = "fleet_eval"
+) -> tuple[float | None, float | None]:
+    """Device time of ``kernel`` per call and CUDA launches (kernels and
+    memsets) per call, from a torch.profiler window over ``calls`` calls of
+    ``fn``; (None, None) when the profiler records no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -171,7 +210,7 @@ def profiled_ms(fn, calls: int = 20) -> tuple[float | None, float | None]:
         if evt.device_type != DeviceType.CUDA or evt.key.startswith("Memcpy"):
             continue
         device_events += evt.count
-        if "fleet_eval" in evt.key:
+        if kernel in evt.key:
             total = getattr(evt, "self_device_time_total", None)
             if total is None:
                 total = evt.self_cuda_time_total
@@ -200,13 +239,15 @@ def phase_device() -> tuple[str, str]:
     from yoda_tpu_torch.ops import cuda_kernel
 
     t0 = time.monotonic()
-    lib = cuda_kernel.build()
-    print(f"built {lib.name} in {time.monotonic() - t0:.2f} s")
-    log = lib.with_suffix(".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "bytes stack" in line or "error" in line:
-                print(f"  ptxas: {line.strip()}")
+    libs = cuda_kernel.build_all()
+    print(f"built {', '.join(lib.name for lib in libs.values())} in "
+          f"{time.monotonic() - t0:.2f} s (in parallel)")
+    for lib in libs.values():
+        log = lib.with_suffix(".log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "bytes stack" in line or "error" in line:
+                    print(f"  ptxas {lib.stem}: {line.strip()}")
     return kind, smi
 
 
@@ -271,6 +312,84 @@ def round_trip_ms(chips, nodes, dyn, host_ok, reqs, calls: int = 30) -> dict:
     return out
 
 
+def joint_case(k: int, n: int, seed: int):
+    """Seeded joint-fit inputs: [K, 6, N] rows whose rows 0, 3, 5 are
+    feasible / score / claimable, with heavy score ties (scores 0..3),
+    gangs of 1-6 rows, the last K // 8 rows padding, and demands (up to 40
+    chips against 0..8 claimable) that fail gangs at their first row,
+    part-way and after an earlier gang fit."""
+    from yoda_tpu_torch.ops.kernel import KernelRequest, joint_fit_vectors
+
+    rng = np.random.default_rng(seed)
+    packed = rng.integers(-9, 9, size=(k, 6, n)).astype(np.int32)
+    packed[:, 0] = rng.random((k, n)) > 0.4
+    packed[:, 3] = rng.integers(0, 4, size=(k, n))
+    packed[:, 5] = rng.integers(0, 9, size=(k, n))
+    m = k - k // 8
+    offsets = [0]
+    while offsets[-1] < m:
+        offsets.append(min(m, offsets[-1] + int(rng.integers(1, 7))))
+    requests = [
+        KernelRequest(int(rng.choice([1, 2, 4, 8, 40])), 0, 0, 0, 0)
+        for _ in range(m)
+    ] + [KernelRequest(1, 0, 0, 0, 0)] * (k - m)
+    return (packed, *joint_fit_vectors(requests, offsets))
+
+
+def joint_bound_ms(k: int, n: int) -> float:
+    """Least time for the scan: rows 0, 3 and 5 of [K, 6, N] read once, the
+    three [K] side inputs read once, picks and verdicts [K] and the ledger
+    [N] written once, over the memory rate (a few integer operations per
+    element: the operations' time is far smaller)."""
+    return (3 * k * n + 3 * k + 2 * k + n) * 4 / MEM_BYTES_PER_S * 1e3
+
+
+def phase_joint_fit() -> list[dict]:
+    """joint_fit against its plain version at the JOINT_SHAPES."""
+    from yoda_tpu_torch.ops.cuda_kernel import joint_fit, joint_fit_plan
+    from yoda_tpu_torch.ops.kernel import joint_fit_scan
+
+    dev = torch.device("cuda", 0)
+    rows = []
+    for k, n in JOINT_SHAPES:
+        packed, chips, starts, valid = (
+            torch.from_numpy(x).to(dev) for x in joint_case(k, n, seed=k * 7 + n)
+        )
+        got = joint_fit(packed, chips, starts, valid)
+
+        def plain():
+            return joint_fit_scan(
+                packed[:, 0], packed[:, 3], packed[:, 5], chips, starts, valid
+            )
+
+        want = plain()
+        torch.cuda.synchronize()
+        err = max(
+            int((g.long() - w.long()).abs().max()) if g.numel() else 0
+            for g, w in zip(got, want)
+        )
+        if err or not all(torch.equal(g, w.to(torch.int32)) for g, w in zip(got, want)):
+            raise AssertionError(f"joint_fit != plain at K={k} N={n}: max |diff| {err}")
+        row = dict(
+            k=k, n=n, max_abs_err=err, tolerance=0, plan=joint_fit_plan(n, dev),
+            taken=int((got[0] >= 0).sum()), gangs_fit=int(got[1].sum()),
+            bound_ms=joint_bound_ms(k, n),
+            ms=cuda_ms(lambda: joint_fit(packed, chips, starts, valid)),
+            plain_ms=cuda_ms(plain, warmup=1, iters=3),
+        )
+        row["device_ms"], row["launches_per_call"] = profiled_ms(
+            lambda: joint_fit(packed, chips, starts, valid), kernel="joint_fit"
+        )
+        if row["launches_per_call"] not in (None, 1):
+            raise AssertionError(
+                f"{row['launches_per_call']} CUDA launches per joint_fit call"
+            )
+        row["smi"] = smi_sample()
+        rows.append(row)
+        print("joint_fit", json.dumps(row))
+    return rows
+
+
 def phase_kernel() -> tuple[list[dict], dict]:
     from yoda_tpu_torch.config import SchedulerConfig
     from yoda_tpu_torch.ops.cuda_kernel import fleet_eval, launch_plan
@@ -284,7 +403,7 @@ def phase_kernel() -> tuple[list[dict], dict]:
         ).effective_weights(),
     }
     rows = []
-    for n_real, n_pad, k in KERNEL_SHAPES:
+    for n_real, n_pad, k in KERNEL_SHAPES + CHUNKED_SHAPES:
         chips, nodes, dyn = random_fleet(n_real, n_pad, seed=n_pad + k)
         rng = np.random.default_rng(k)
         host_ok = (rng.random((k, n_pad)) > 0.2).astype(np.int32)
@@ -312,7 +431,10 @@ def phase_kernel() -> tuple[list[dict], dict]:
                 nodes=n_real, padded=n_pad, k=k, weights=wname, max_abs_err=err,
                 tolerance=0, bound_ms=bound_ms(n_pad, k),
             )
-            if wname == "least-allocated":
+            if wname == "least-allocated" and (n_real, n_pad, k) in CHUNKED_SHAPES:
+                row["ms"] = cuda_ms(lambda: fleet_eval(*args, w))
+                row["smi"] = smi_sample()
+            elif wname == "least-allocated":
                 row["plan"] = launch_plan(n_pad, CHIPS, k, dev)
                 row["ms"] = cuda_ms(lambda: fleet_eval(*args, w))
                 row["plain_ms"] = cuda_ms(
@@ -361,25 +483,14 @@ def fleet_and_pods(seed: int):
 
 
 def run_main_path(platform: str, pods_a, pods_b) -> dict:
-    """Both runs of the main path on one kernel_platform; returns the
-    bindings, counters and latencies."""
-    from yoda_tpu_torch.agent.fake_publisher import FakeTpuAgent
+    """Runs (a) and (b) of the main path on one kernel_platform; returns
+    the bindings, counters and latencies."""
     from yoda_tpu_torch.api.types import PodSpec
-    from yoda_tpu_torch.config import SchedulerConfig
     from yoda_tpu_torch.ops import cuda_kernel
-    from yoda_tpu_torch.standalone import build_stack
 
     out = {}
     for run, pods, burst in (("a", pods_a, 1), ("b", pods_b, 16)):
-        stack = build_stack(
-            config=SchedulerConfig(kernel_platform=platform, batch_requests=burst)
-        )
-        agent = FakeTpuAgent(stack.cluster)
-        for s in range(512):
-            agent.add_slice(f"v5p-{s:03d}", generation="v5p", host_topology=(2, 2, 1))
-        for h in range(2952):
-            agent.add_host(f"v5e-{h:04d}", generation="v5e", chips=8)
-        agent.publish_all()
+        stack = build_fleet(platform, burst)
         n_nodes = len(stack.informer.snapshot())
         for name, labels in pods:
             stack.cluster.create_pod(PodSpec(name, labels=dict(labels)))
@@ -436,14 +547,298 @@ def run_main_path(platform: str, pods_a, pods_b) -> dict:
     return out
 
 
-def phase_main_path() -> dict:
+def build_fleet(platform: str, burst: int):
+    """The 5,000-node fleet's stack: 512 v5p 2x2x1 slices and 2,952 v5e
+    hosts, published by the port's FakeTpuAgent."""
+    from yoda_tpu_torch.agent.fake_publisher import FakeTpuAgent
+    from yoda_tpu_torch.config import SchedulerConfig
+    from yoda_tpu_torch.standalone import build_stack
+
+    stack = build_stack(
+        config=SchedulerConfig(kernel_platform=platform, batch_requests=burst)
+    )
+    agent = FakeTpuAgent(stack.cluster)
+    for s in range(512):
+        agent.add_slice(f"v5p-{s:03d}", generation="v5p", host_topology=(2, 2, 1))
+    for h in range(2952):
+        agent.add_host(f"v5e-{h:04d}", generation="v5e", chips=8)
+    agent.publish_all()
+    return stack
+
+
+def gang_script(seed: int):
+    """Run (c)'s two waves of (name, labels, node selector) and the gang
+    each gang member belongs to (name -> (kind, size))."""
+    rng = np.random.default_rng(seed)
+    singles = fleet_and_pods(seed)[0]  # 64 singletons drawn as for run (a)
+    gangs: dict[str, tuple[str, int]] = {}
+
+    def members(name, kind, labels, size):
+        gangs[name] = (kind, size)
+        return [(f"{name}-{i:02d}", dict(labels), None) for i in range(size)]
+
+    wave1, wave2 = [], []
+    for g in range(8):
+        wave1 += members(f"plain{g}", "plain", {
+            "tpu/gang": f"plain{g}", "tpu/gang-size": "16", "tpu/chips": "8",
+            "tpu/generation": "v5e"}, 16)
+    for g in range(4):
+        wave1 += members(f"cosched{g}", "cosched", {
+            "pod-group.scheduling.sigs.k8s.io/name": f"cosched{g}",
+            "pod-group.scheduling.sigs.k8s.io/min-available": "4",
+            "tpu/chips": "4"}, 4)
+    for g in range(16):
+        wave2 += members(f"topo{g}", "topology", {
+            "tpu/gang": f"topo{g}", "tpu/topology": "2x2x1", "tpu/chips": "4",
+            "tpu/generation": "v5p"}, 4)
+    for g in range(4):
+        wave2 += members(f"multi{g}", "multislice", {
+            "tpu/gang": f"multi{g}", "tpu/topology": "2x2x1",
+            "tpu/multislice": "2", "tpu/chips": "4"}, 8)
+    wave1 += [(f"s{n}", labels, None) for n, labels in singles[:32]]
+    wave2 += [(f"s{n}", labels, None) for n, labels in singles[32:]]
+    waves = [[w[i] for i in rng.permutation(len(w))] for w in (wave1, wave2)]
+    return waves, gangs
+
+
+def contended_script():
+    """Run (d): 4 plain v5e gangs of 16 x 8 chips selecting pool=contended."""
+    gangs, pods = {}, []
+    for g in range(4):
+        name = f"cont{g}"
+        gangs[name] = ("plain", 16)
+        labels = {"tpu/gang": name, "tpu/gang-size": "16", "tpu/chips": "8",
+                  "tpu/generation": "v5e"}
+        pods += [(f"{name}-{i:02d}", dict(labels), {"pool": "contended"})
+                 for i in range(16)]
+    return [pods], gangs
+
+
+def run_gang_path(platform: str, run: str) -> dict:
+    """Run (c) or (d) on one kernel_platform; the bindings, counters and
+    latencies."""
+    from yoda_tpu_torch.api.requests import gang_name_of
+    from yoda_tpu_torch.api.types import K8sNode, PodSpec
+    from yoda_tpu_torch.ops import cuda_kernel
+
+    stack = build_fleet(platform, 16)
+    if run == "c":
+        waves, gangs = gang_script(seed=1)
+    else:
+        waves, gangs = contended_script()
+        for h in range(52):
+            stack.cluster.put_node(
+                K8sNode(f"v5e-{h * 37:04d}", labels={"pool": "contended"})
+            )
+    kern = stack.batch._kern
+    eval_s: list[float] = []
+    fleet_calls: list[int] = []
+    joint_inputs: list[tuple] = []
+
+    def timed(inner):
+        def call(*args, **kw):
+            t = time.monotonic()
+            try:
+                return inner(*args, **kw)
+            finally:
+                eval_s.append(time.monotonic() - t)
+        return call
+
+    kern.evaluate_burst = timed(kern.evaluate_burst)
+    kern.evaluate_joint_plan = timed(kern.evaluate_joint_plan)
+    real_fleet_eval, real_joint_fit = cuda_kernel.fleet_eval, cuda_kernel.joint_fit
+
+    def counted_fleet_eval(*args, **kw):
+        fleet_calls.append(args[4].shape[0])
+        return real_fleet_eval(*args, **kw)
+
+    def kept_joint_fit(packed, *side, **kw):
+        if packed.is_cuda:
+            joint_inputs.append(tuple(t.clone() for t in (packed, *side)))
+        return real_joint_fit(packed, *side, **kw)
+
+    cuda_kernel.fleet_eval, cuda_kernel.joint_fit = counted_fleet_eval, kept_joint_fit
+    cuda_kernel.launches = cuda_kernel.joint_fit_launches = 0
+    t0 = time.monotonic()
+    try:
+        for wave in waves:
+            for name, labels, selector in wave:
+                stack.cluster.create_pod(
+                    PodSpec(name, labels=labels, node_selector=selector or {})
+                )
+            stack.scheduler.run_until_idle(max_wall_s=600)
+        if platform != "cpu":
+            torch.cuda.synchronize()
+    finally:
+        cuda_kernel.fleet_eval, cuda_kernel.joint_fit = real_fleet_eval, real_joint_fit
+    wall = time.monotonic() - t0
+    launches, joint_launches = cuda_kernel.launches, cuda_kernel.joint_fit_launches
+    pods = [name for wave in waves for name, _, _ in wave]
+    bound = {n: stack.cluster.get_pod(f"default/{n}").node_name for n in pods}
+    # On the scheduler's clock: a pod's first cycle start, and when it was
+    # bound — its own "bound" cycle, or for a gang member the end of the
+    # cycle whose Permit released the gang (the last member's).
+    first: dict[str, float] = {}
+    span: dict[str, tuple[float, float]] = {}
+    bound_at: dict[str, float] = {}
+    for r in stack.scheduler.stats.results:
+        name = r.pod_key.split("/", 1)[1]
+        first.setdefault(name, r.completed_at - r.latency_s)
+        g = gang_name_of(stack.cluster.get_pod(r.pod_key).labels)
+        if g is not None and bound[name]:
+            lo, hi = span.get(g, (float("inf"), 0.0))
+            span[g] = (min(lo, first[name]), max(hi, r.completed_at))
+        elif r.outcome == "bound":
+            bound_at[name] = r.completed_at
+    for name in pods:
+        g = gang_name_of(stack.cluster.get_pod(f"default/{name}").labels)
+        if g in span:
+            bound_at[name] = span[g][1]
+    lat = sorted(bound_at[n] - first[n] for n in bound_at)
+    completion = sorted(hi - lo for lo, hi in span.values())
+    capacity = {
+        t.name: sum(c.healthy for c in t.chips) for t in stack.cluster.list_tpu_metrics()
+    }
+    slice_of = {t.name: t.slice_id for t in stack.cluster.list_tpu_metrics()}
+    b = stack.batch
+    verdicts = {}
+    for g, (kind, size) in gangs.items():
+        nodes = [bound[n] for n in pods if n.startswith(f"{g}-")]
+        verdicts[g] = dict(
+            kind=kind, bound=sum(x is not None for x in nodes), size=size,
+            hosts=len({x for x in nodes if x}),
+            slices=len({slice_of[x] for x in nodes if x}),
+            reserved=sum(
+                stack.accountant.chips_in_use(x) for x in {x for x in nodes if x}
+            ),
+        )
+    return dict(
+        platform=platform, run=run, pods=len(pods),
+        bound=sum(v is not None for v in bound.values()), bindings=bound,
+        verdicts=verdicts,
+        overcommitted=[h for h, c in capacity.items() if stack.accountant.chips_in_use(h) > c],
+        launches=launches, fleet_calls=len(fleet_calls),
+        chunks=sum(-(-k // cuda_kernel.MAX_REQUESTS) for k in fleet_calls),
+        max_rows=max(fleet_calls, default=0), joint_fit_launches=joint_launches,
+        waiting=len(stack.framework.waiting_pods()),
+        **{c: getattr(b, c) for c in (
+            "dispatch_count", "burst_dispatches", "burst_served",
+            "gang_burst_dispatches", "gang_burst_served", "joint_dispatches",
+            "joint_gangs", "joint_parked", "fused_plan_dispatches", "plan_served",
+            "dispatch_errors")},
+        wall_s=wall, eval_s=sum(eval_s),
+        eval_ms_per_call=1e3 * sum(eval_s) / max(len(eval_s), 1),
+        pods_per_s=len(lat) / wall if wall else 0.0,
+        p50_ms=1e3 * lat[len(lat) // 2] if lat else None,
+        p99_ms=1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))] if lat else None,
+        gang_p50_ms=1e3 * completion[len(completion) // 2] if completion else None,
+        gang_p99_ms=(
+            1e3 * completion[min(len(completion) - 1, int(0.99 * len(completion)))]
+            if completion else None
+        ),
+        joint_inputs=joint_inputs,
+    )
+
+
+def joint_device_ms(inputs: list[tuple]) -> float | None:
+    """joint_fit's device time per call on the inputs a run gave it, from a
+    profiler window over one call per input (after the run's counts were
+    read: these launches are not the main path's)."""
+    from yoda_tpu_torch.ops.cuda_kernel import joint_fit
+
+    if not inputs:
+        return None
+    total = 0.0
+    for args in inputs:
+        ms, _launches = profiled_ms(lambda: joint_fit(*args), calls=5, kernel="joint_fit")
+        if ms is None:
+            return None
+        total += ms
+    return total / len(inputs)
+
+
+def check_gang_run(g: dict, c: dict) -> None:
+    run = g["run"]
+    if g["bindings"] != c["bindings"]:
+        diff = [p for p in g["bindings"] if g["bindings"][p] != c["bindings"][p]]
+        raise AssertionError(
+            f"run {run}: {len(diff)} pods bound differently on cuda vs cpu, "
+            f"e.g. {diff[:3]}"
+        )
+    if g["overcommitted"]:
+        raise AssertionError(f"run {run}: over-committed {g['overcommitted']}")
+    if g["dispatch_errors"]:
+        raise AssertionError(f"run {run}: {g['dispatch_errors']} dispatch errors")
+    if g["waiting"]:
+        raise AssertionError(f"run {run}: {g['waiting']} pods left at Permit")
+    for name, v in g["verdicts"].items():
+        if v["bound"] not in (0, v["size"]):
+            raise AssertionError(f"run {run}: gang {name} split: {v}")
+        if v["bound"] and v["kind"] in ("topology", "multislice"):
+            want_slices = 1 if v["kind"] == "topology" else 2
+            if v["hosts"] != v["size"] or v["slices"] != want_slices:
+                raise AssertionError(f"run {run}: gang {name} misplaced: {v}")
+    if not 0 < g["fleet_calls"] == g["dispatch_count"]:
+        raise AssertionError(
+            f"run {run}: {g['fleet_calls']} fleet_eval calls for "
+            f"{g['dispatch_count']} dispatches"
+        )
+    if g["launches"] != g["chunks"]:
+        raise AssertionError(
+            f"run {run}: {g['launches']} fleet_eval launches for {g['chunks']} chunks"
+        )
+    if not 0 < g["joint_fit_launches"] == g["fused_plan_dispatches"]:
+        raise AssertionError(
+            f"run {run}: {g['joint_fit_launches']} joint_fit launches for "
+            f"{g['fused_plan_dispatches']} fused dispatches"
+        )
+    if c["launches"] or c["joint_fit_launches"]:
+        raise AssertionError(f"run {run}: the CPU run launched a kernel")
+    bound_pods = sum(v is not None for v in g["bindings"].values())
+    if run == "c" and bound_pods != g["pods"]:
+        raise AssertionError(f"run c: {bound_pods}/{g['pods']} pods bound")
+    if run == "d":
+        parked = [n for n, v in g["verdicts"].items() if v["bound"] == 0]
+        if len(parked) != 1 or g["joint_parked"] < 1 or bound_pods != 48:
+            raise AssertionError(
+                f"run d: parked {parked}, joint_parked {g['joint_parked']}, "
+                f"{bound_pods} bound (want one gang parked, 48 bound)"
+            )
+        if g["verdicts"][parked[0]]["reserved"]:
+            raise AssertionError("run d: the parked gang holds reservations")
+
+
+def phase_gang_path(smi: str) -> dict:
+    out = {}
+    for run in ("c", "d"):
+        g = run_gang_path("auto", run)
+        g["joint_fit_device_ms"] = joint_device_ms(g.pop("joint_inputs"))
+        c = run_gang_path("cpu", run)
+        c.pop("joint_inputs")
+        summary = {
+            k: v for k, v in g.items() if k not in ("bindings", "verdicts")
+        }
+        print(f"gang path ({run}) cuda [{smi}]:", json.dumps(summary))
+        print(
+            f"gang path ({run}) cpu plain: bound {c['bound']}/{c['pods']}, "
+            f"pods/s {c['pods_per_s']:.1f}, p50 {c['p50_ms']:.2f} ms, "
+            f"p99 {c['p99_ms']:.2f} ms, gang p50 {c['gang_p50_ms']:.2f} ms, "
+            f"gang p99 {c['gang_p99_ms']:.2f} ms, evaluation {c['eval_s']:.3f} s "
+            f"of {c['wall_s']:.3f} s"
+        )
+        check_gang_run(g, c)
+        out[run] = g
+    return out
+
+
+def phase_main_path(smi: str) -> dict:
     pods_a, pods_b = fleet_and_pods(seed=0)
     gpu = run_main_path("auto", pods_a, pods_b)
     cpu = run_main_path("cpu", pods_a, pods_b)
     for run in ("a", "b"):
         g, c = gpu[run], cpu[run]
         summary = {k: v for k, v in g.items() if k not in ("bindings",)}
-        print(f"main path ({run}) cuda:", json.dumps(summary))
+        print(f"main path ({run}) cuda [{smi}]:", json.dumps(summary))
         print(
             f"main path ({run}) cpu plain: bound {c['bound']}/{c['pods']}, "
             f"pods/s {c['pods_per_s']:.1f}, p50 {c['p50_ms']:.2f} ms, "
@@ -489,12 +884,21 @@ def main() -> None:
     except Exception as e:  # noqa: BLE001
         fail("kernel vs plain", e)
     try:
-        gpu = phase_main_path()
+        joint_rows = phase_joint_fit()
+    except Exception as e:  # noqa: BLE001
+        fail("joint_fit vs plain", e)
+    try:
+        gpu = phase_main_path(smi)
     except Exception as e:  # noqa: BLE001
         fail("main path", e)
+    try:
+        gangs = phase_gang_path(smi)
+    except Exception as e:  # noqa: BLE001
+        fail("gang path", e)
     main_row = next(
         r for r in profiled if (r["nodes"], r["padded"], r["k"]) == MAIN_PATH_SHAPE
     )
+    joint_main = next(r for r in joint_rows if (r["k"], r["n"]) == JOINT_MAIN_SHAPE)
     kernels = {
         "kernels": [
             {
@@ -505,7 +909,8 @@ def main() -> None:
                     "yoda_tpu/ops/pallas_kernel.py:268 (_pallas_eval) + "
                     "yoda_tpu/ops/pallas_kernel.py:299 (_pallas_eval_burst)"
                 ),
-                "launches": gpu["a"]["launches"] + gpu["b"]["launches"],
+                "launches": sum(run["launches"] for run in (
+                    gpu["a"], gpu["b"], gangs["c"], gangs["d"])),
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": main_row["ms"],
                 "plain_ms": main_row["plain_ms"],
@@ -523,7 +928,37 @@ def main() -> None:
                     }
                     for r in profiled
                 ],
-            }
+            },
+            {
+                "name": "joint_fit",
+                "route": "cuda",
+                "source": "yoda_tpu_torch/csrc/joint_fit.cu",
+                "replaces": (
+                    "yoda_tpu/ops/kernel.py:500 joint_fit_scan "
+                    "(lax.scan in kernel_joint_plan, :581)"
+                ),
+                "launches": gangs["c"]["joint_fit_launches"]
+                + gangs["d"]["joint_fit_launches"],
+                "max_abs_err": max(r["max_abs_err"] for r in joint_rows),
+                "ms": joint_main["ms"],
+                "device_ms": not_measured(joint_main["device_ms"]),
+                "plain_ms": joint_main["plain_ms"],
+                "bound_ms": joint_main["bound_ms"],
+                "bound_by": "bytes",
+                "library_ms": None,
+                "main_path_device_ms": {
+                    run: not_measured(gangs[run]["joint_fit_device_ms"])
+                    for run in ("c", "d")
+                },
+                "shapes": [
+                    {
+                        key: not_measured(r.get(key))
+                        for key in ("k", "n", "ms", "device_ms", "plain_ms",
+                                    "bound_ms", "plan", "smi")
+                    }
+                    for r in joint_rows
+                ],
+            },
         ]
     }
     print(json.dumps(kernels))

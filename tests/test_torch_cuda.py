@@ -1,6 +1,6 @@
-"""The hand-written CUDA fleet-evaluation kernel (yoda_tpu_torch/csrc/
-fleet_eval.cu) against its plain PyTorch version on the same tensors,
-tolerance 0 (everything is int32), and the wrapper's contract.
+"""The hand-written CUDA kernels (yoda_tpu_torch/csrc/fleet_eval.cu and
+joint_fit.cu) against their plain PyTorch versions on the same tensors,
+tolerance 0 (everything is int32), and the wrappers' contracts.
 
 Tests marked ``cuda`` need the card and skip without one; run them there
 with ``python -m pytest -m cuda tests/test_torch_cuda.py``. This file
@@ -16,10 +16,12 @@ from yoda_tpu_torch.agent.fake_publisher import FakeTpuAgent
 from yoda_tpu_torch.api.types import PodSpec
 from yoda_tpu_torch.config import SchedulerConfig, Weights
 from yoda_tpu_torch.ops import cuda_kernel
-from yoda_tpu_torch.ops.cuda_kernel import fleet_eval
+from yoda_tpu_torch.ops.cuda_kernel import fleet_eval, joint_fit
 from yoda_tpu_torch.ops.kernel import (
     KernelRequest,
     TorchFleetKernel,
+    joint_fit_scan,
+    joint_fit_vectors,
     kernel_packed_burst,
 )
 from yoda_tpu_torch.standalone import build_stack
@@ -102,6 +104,27 @@ def widen_metrics(inputs, seed: int):
     return inputs
 
 
+def joint_case(k: int, n: int, seed: int):
+    """Seeded joint-fit inputs: a [K, 6, N] block whose rows 0, 3, 5 are
+    feasible / score / claimable, with heavy score ties (scores in 0..3),
+    gangs of 1-6 rows, the last K // 8 rows padding, and demands that make
+    gangs fail at their first row, part-way and after an earlier fit."""
+    rng = np.random.default_rng(seed)
+    packed = rng.integers(-9, 9, size=(k, 6, n)).astype(np.int32)
+    packed[:, 0] = rng.random((k, n)) > 0.4
+    packed[:, 3] = rng.integers(0, 4, size=(k, n))
+    packed[:, 5] = rng.integers(0, 9, size=(k, n))
+    m = k - k // 8
+    offsets = [0]
+    while offsets[-1] < m:
+        offsets.append(min(m, offsets[-1] + int(rng.integers(1, 7))))
+    requests = [
+        KernelRequest(int(rng.choice([1, 2, 4, 8, 40])), 0, 0, 0, 0)
+        for _ in range(m)
+    ] + [KernelRequest(1, 0, 0, 0, 0)] * (k - m)
+    return (packed, *joint_fit_vectors(requests, offsets))
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -117,6 +140,14 @@ class TestWrapperOnCpu:
         assert cuda_kernel.launches == before
         assert torch.equal(got, kernel_packed_burst(*args, Weights()))
         assert got.shape == (4, 6, 64) and got.dtype == torch.int32
+
+    def test_cpu_output_buffer_and_chunking_need_no_card(self):
+        args = on("cpu", stacked_fleet(37, 64, 150, seed=3))
+        out = torch.full((150, 6, 64), -1, dtype=torch.int32)
+        before = cuda_kernel.launches
+        assert fleet_eval(*args, Weights(), out=out) is out
+        assert cuda_kernel.launches == before
+        assert torch.equal(out, kernel_packed_burst(*args, Weights()))
 
     def test_other_devices_are_refused(self):
         args = [t.to("meta") for t in on("cpu", stacked_fleet(8, 8, 1, seed=2))]
@@ -291,3 +322,97 @@ class TestHandKernel:
         assert all(p.node_name for p in stack.cluster.list_pods())
         assert cuda_kernel.launches - before == stack.batch.dispatch_count > 0
         assert stack.batch.dispatch_errors == 0
+
+
+@pytest.mark.cuda
+class TestJointFitKernel:
+    @pytest.mark.parametrize(
+        "k,n",
+        [(1, 1), (3, 37), (16, 5000), (64, 8192), (256, 8192), (64, 65536)],
+    )
+    def test_equals_plain(self, card, k, n):
+        packed, chips, starts, valid = (
+            torch.from_numpy(x).to(card) for x in joint_case(k, n, seed=k + n)
+        )
+        before = cuda_kernel.joint_fit_launches
+        got = joint_fit(packed, chips, starts, valid)
+        assert cuda_kernel.joint_fit_launches == before + 1
+        want = joint_fit_scan(packed[:, 0], packed[:, 3], packed[:, 5], chips, starts, valid)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w.to(torch.int32)), (k, n)
+
+    def test_plan_moves_ledgers_to_global_past_the_shared_ceiling(self, card):
+        assert cuda_kernel.joint_fit_plan(8192, card)["shared_ledgers"] == 1
+        assert cuda_kernel.joint_fit_plan(65536, card)["shared_ledgers"] == 0
+
+    @pytest.mark.parametrize("k", [144, 256])
+    def test_fleet_eval_chunks_past_128_requests(self, card, k):
+        args = on(card, stacked_fleet(5000, 8192, k, seed=k))
+        before = cuda_kernel.launches
+        got = fleet_eval(*args, Weights())
+        assert cuda_kernel.launches == before + 2
+        assert torch.equal(got, kernel_packed_burst(*args, Weights()))
+
+    def test_evaluate_joint_plan_on_card_equals_cpu(self, card):
+        chips, nodes, dyn, host_ok, _reqs = stacked_fleet(300, 512, 1, seed=21)
+        arrays = fleet_arrays(chips, nodes, dyn, host_ok, 300)
+        rng = np.random.default_rng(21)
+        sizes = [5, 9, 3, 12]
+        groups = [(rng.random((s, 512)) > 0.2).astype(np.int32) for s in sizes]
+        requests = [
+            [KernelRequest(*map(int, REQUESTS[int(rng.integers(0, 4))])) for _ in range(s)]
+            for s in sizes
+        ]
+        out = []
+        for device in (card, torch.device("cpu")):
+            kern = TorchFleetKernel(Weights(), device)
+            kern.put_static(arrays)
+            before = cuda_kernel.joint_fit_launches
+            out.append(kern.evaluate_joint_plan(dyn, groups, requests, 16))
+            assert cuda_kernel.joint_fit_launches == before + (device.type == "cuda")
+        (g_rows, g_fits, g_picks), (c_rows, c_fits, c_picks) = out
+        assert g_fits == c_fits
+        for gp, cp in zip(g_picks, c_picks):
+            np.testing.assert_array_equal(gp, cp)
+        for gg, cg in zip(g_rows, c_rows):
+            for g, c in zip(gg, cg):
+                for f in dataclasses.fields(g):
+                    np.testing.assert_array_equal(getattr(g, f.name), getattr(c, f.name))
+
+    def test_second_call_does_not_overwrite_kept_rows(self, card):
+        chips, nodes, dyn, host_ok, _reqs = stacked_fleet(300, 512, 1, seed=22)
+        kern = TorchFleetKernel(Weights(), card)
+        kern.put_static(fleet_arrays(chips, nodes, dyn, host_ok, 300))
+        groups = [np.ones((4, 512), dtype=np.int32), np.ones((3, 512), dtype=np.int32)]
+        requests = [[KernelRequest(2, 0, 0, 0, 0)] * 4, [KernelRequest(1, 0, 0, 0, 0)] * 3]
+        rows, fits, picks = kern.evaluate_joint_plan(dyn, groups, requests)
+        kept = [[r.scores.copy() for r in g] for g in rows]
+        kept_picks = [p.copy() for p in picks]
+        kern.evaluate_joint_plan(dyn, [1 - g for g in groups], requests[::-1])
+        for g, k in zip(rows, kept):
+            for r, scores in zip(g, k):
+                np.testing.assert_array_equal(r.scores, scores)
+        for p, k in zip(picks, kept_picks):
+            np.testing.assert_array_equal(p, k)
+
+    def test_joint_gang_pass_launches_the_scan(self, card):
+        stack = build_stack(config=SchedulerConfig(batch_requests=16))
+        agent = FakeTpuAgent(stack.cluster)
+        for h in range(6):
+            agent.add_host(f"h{h}", chips=8)
+        agent.publish_all()
+        for g in range(3):  # 3 x 4 x 4 chips over 48: the third gang parks
+            for i in range(4):
+                stack.cluster.create_pod(PodSpec(f"g{g}-{i}", labels={
+                    "tpu/gang": f"g{g}", "tpu/gang-size": "4", "tpu/chips": "4" if g < 2 else "8",
+                }))
+        before = cuda_kernel.joint_fit_launches
+        stack.scheduler.run_until_idle(max_wall_s=30)
+        b = stack.batch
+        assert b.fused_plan_dispatches >= 1
+        assert cuda_kernel.joint_fit_launches - before == b.fused_plan_dispatches
+        assert b.dispatch_errors == 0
+        for g in range(3):
+            nodes = [stack.cluster.get_pod(f"default/g{g}-{i}").node_name for i in range(4)]
+            assert all(nodes) or not any(nodes)

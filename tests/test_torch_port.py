@@ -6,8 +6,9 @@
   rejected alike, with equal effective weights;
 - entry points run on the card unless asked for the CPU: "auto" raises
   without a GPU;
-- knobs of parts the port lacks are refused by build_stack, and pods that
-  need them (gangs) are refused with an explicit status.
+- knobs of parts the port lacks are refused by build_stack; gang pods,
+  refused by the first slice, now schedule whole (tests/test_torch_gang.py
+  holds the gang path against the JAX package).
 """
 
 import ast
@@ -22,7 +23,6 @@ from yoda_tpu.config import SchedulerConfig as RefConfig
 from yoda_tpu_torch.api.types import PodSpec
 from yoda_tpu_torch.agent.fake_publisher import FakeTpuAgent
 from yoda_tpu_torch.config import SchedulerConfig
-from yoda_tpu_torch.framework.interfaces import Code
 from yoda_tpu_torch.standalone import build_stack, unported_settings
 
 REPO = Path(__file__).resolve().parents[1]
@@ -196,36 +196,68 @@ class TestUnportedKnobs:
 
 
 class TestGangPodsRefused:
+    """The first slice refused every gang pod as not ported; the gang path
+    is ported now, so the same four cases assert the new behaviour: a
+    complete gang of each label kind binds whole, and a lone member parks
+    with its gang's own message."""
+
     @pytest.mark.parametrize(
-        "labels",
+        "labels,size,slices",
         [
-            {"tpu/gang": "g1", "tpu/gang-size": "2", "tpu/chips": "4"},
-            {"tpu/gang": "g2", "tpu/topology": "2x2x1"},
-            {"pod-group.scheduling.sigs.k8s.io/name": "pg",
-             "pod-group.scheduling.sigs.k8s.io/min-available": "2"},
+            ({"tpu/gang": "g1", "tpu/gang-size": "2", "tpu/chips": "4"}, 2, 0),
+            ({"tpu/gang": "g2", "tpu/topology": "2x2x1", "tpu/chips": "4"}, 4, 1),
+            ({"pod-group.scheduling.sigs.k8s.io/name": "pg",
+              "pod-group.scheduling.sigs.k8s.io/min-available": "2"}, 2, 0),
+            ({"tpu/gang": "g3", "tpu/topology": "2x2x1", "tpu/multislice": "2",
+              "tpu/chips": "4"}, 8, 2),
         ],
-        ids=["gang", "topology", "coscheduling"],
+        ids=["gang", "topology", "coscheduling", "multislice"],
     )
-    def test_not_yet_ported_status(self, labels):
+    def test_not_yet_ported_status(self, labels, size, slices):
         stack = build_stack(config=SchedulerConfig(kernel_platform="cpu"))
         agent = FakeTpuAgent(stack.cluster)
         for h in range(4):
             agent.add_host(f"h{h}", generation="v5p")
+        for s in range(slices):
+            agent.add_slice(f"s{s}", generation="v5p", host_topology=(2, 2, 1))
         agent.publish_all()
-        stack.cluster.create_pod(PodSpec("member", labels=labels))
+        for i in range(size):
+            stack.cluster.create_pod(PodSpec(f"member-{i}", labels=dict(labels)))
         stack.scheduler.run_until_idle(max_wall_s=5)
-        assert stack.cluster.get_pod("default/member").node_name is None
-        (result,) = stack.scheduler.stats.results
-        assert result.outcome == "unschedulable"
-        assert "gang scheduling is not yet ported" in result.message
-        assert stack.queue.depths() == (0, 0, 1)  # parked unresolvable
-        assert stack.batch.dispatch_count == 0
+        nodes = [stack.cluster.get_pod(f"default/member-{i}").node_name for i in range(size)]
+        assert all(nodes), nodes
+        if slices:  # one member per host of the planned block(s)
+            assert len(set(nodes)) == size
+            assert all(n.startswith("s") for n in nodes)
+        assert all(r.outcome in ("waiting", "bound") for r in stack.scheduler.stats.results)
+        assert not any("not yet ported" in r.message for r in stack.scheduler.stats.results)
+        assert stack.queue.depths() == (0, 0, 0)
+        assert stack.batch.dispatch_count == 1  # one gang-fused evaluation
 
     def test_status_code_is_unresolvable(self):
-        from yoda_tpu_torch.framework.cyclestate import CycleState
-        from yoda_tpu_torch.framework.interfaces import Snapshot
-        from yoda_tpu_torch.plugins.yoda.filter_plugin import YodaPreFilter
-
-        pod = PodSpec("m", labels={"tpu/gang": "g", "tpu/gang-size": "2"})
-        st = YodaPreFilter().pre_filter(CycleState(), pod, Snapshot({}))
-        assert st.code == Code.UNSCHEDULABLE_AND_UNRESOLVABLE
+        """A lone member of a 2-member gang is not refused as unported: it
+        reserves and parks at the Permit barrier with its gang's message,
+        and a gang the fleet cannot admit parks at admission with the
+        gang's own reason."""
+        stack = build_stack(config=SchedulerConfig(kernel_platform="cpu"))
+        agent = FakeTpuAgent(stack.cluster)
+        agent.add_host("h0", generation="v5p")
+        agent.publish_all()
+        stack.cluster.create_pod(
+            PodSpec("m", labels={"tpu/gang": "g", "tpu/gang-size": "2"})
+        )
+        stack.scheduler.run_until_idle(max_wall_s=0.2)
+        (result,) = stack.scheduler.stats.results
+        assert result.outcome == "waiting"
+        (waiter,) = stack.framework.waiting_pods()
+        assert waiter.pod.name == "m"
+        assert stack.gang.gang_status("g") == (2, 1, 0)
+        stack.cluster.create_pod(
+            PodSpec("big", labels={"tpu/gang": "b", "tpu/gang-size": "3",
+                                   "tpu/chips": "4"})
+        )
+        stack.scheduler.run_until_idle(max_wall_s=0.2)
+        parked = [r for r in stack.scheduler.stats.results if r.pod_key == "default/big"]
+        assert parked[0].outcome == "unschedulable"
+        assert parked[0].message.startswith("gang b: 3 members still need placement")
+        assert "not yet ported" not in parked[0].message

@@ -8,8 +8,8 @@ Thread-safe.
 Counterpart of ``yoda_tpu/cluster/fake.py``, ported as far as the
 singleton path reaches it. Left out until a later slice: the Namespace /
 PersistentVolumeClaim / PersistentVolume / PodDisruptionBudget stores,
-eviction and nomination (preemption), unbind (gang rollback), Events,
-node-death helpers and the watch-drop / staleness probes.
+eviction and nomination (preemption), Events, node-death helpers and the
+watch-drop / staleness probes.
 """
 
 from __future__ import annotations
@@ -99,6 +99,18 @@ class FakeCluster:
                 )
             pod.node_name = node_name
             pod.phase = "Running"
+            self._emit(Event("modified", "Pod", pod))
+
+    def unbind_pod(self, pod_key: str, node_name: str) -> None:
+        """Reverse a binding (gang transactional rollback). Only the named
+        node's binding is cleared — a pod re-bound elsewhere concurrently
+        is left alone. Missing pods are a no-op (deleted mid-rollback)."""
+        with self._lock:
+            pod = self._pods.get(pod_key)
+            if pod is None or pod.node_name != node_name:
+                return
+            pod.node_name = None
+            pod.phase = "Pending"
             self._emit(Event("modified", "Pod", pod))
 
     def update_pod(self, pod: PodSpec) -> None:

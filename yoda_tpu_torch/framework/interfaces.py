@@ -7,9 +7,12 @@ ScoreExtensions (reference pkg/yoda/scheduler.go:29-33); this framework adds
 the extension points the reference lacks and the BASELINE configs require:
 PreFilter, modern PostFilter (preemption), Reserve/Unreserve, Permit, Bind.
 
-Counterpart of ``yoda_tpu/framework/interfaces.py``. The PostFilter and
-Permit extension points wait for the ports of preemption and gang
-scheduling; the snapshot carries no volume, namespace or fence data yet.
+Counterpart of ``yoda_tpu/framework/interfaces.py``. The PostFilter
+extension point waits for the port of preemption; the snapshot carries no
+volume, namespace or fence data yet. Permit (``PermitPlugin``) serves the
+gang plugin; the runtime reaches its waitlist hooks (``on_pod_waiting``,
+``on_pod_resolved``, ``on_pod_bound``, ``on_bind_failed``,
+``on_unbind_failed``) by name, as the reference does.
 """
 
 from __future__ import annotations
@@ -216,6 +219,15 @@ class ReservePlugin(Plugin):
         raise NotImplementedError
 
     def unreserve(self, state: "CycleState", pod: PodSpec, node_name: str) -> None:
+        raise NotImplementedError
+
+
+class PermitPlugin(Plugin):
+    def permit(
+        self, state: "CycleState", pod: PodSpec, node_name: str
+    ) -> tuple[Status, float]:
+        """Returns (status, timeout_seconds). Status WAIT parks the pod on the
+        framework waitlist until approved/rejected or timeout."""
         raise NotImplementedError
 
 

@@ -7,11 +7,13 @@ backoff / unschedulable pools, event-driven re-activation) from upstream;
 this module is the from-scratch equivalent of that machinery.
 
 Counterpart of ``yoda_tpu/framework/queue.py``, ported as far as the
-singleton path reaches it: one tenant-blind active heap, the backoff heap
-and the unresolvable pool. Left out until a later slice: per-tenant DRF
-fair queuing and quota parking, the overload shed hook, the gang-arrival
-promotion and the gang gather / spillover surfaces (``pop_matching``,
-``take_gang``, ``readd``, ``pending_gangs``).
+singleton and gang paths reach it: one tenant-blind active heap, the
+backoff heap, the unresolvable pool, the gang-arrival promotion, the gang
+gather (``pop_matching``, ``restore``), ``readd``, ``pending_gangs`` and the
+activity signal the scheduler's drain waits on. Left out until a later
+slice: per-tenant DRF fair queuing and quota parking, the overload shed
+hook, ``take_gang`` (federation spillover), ``all_entries`` / ``find``
+(shard reroute, drift reconciler) and ``close``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import time
 from dataclasses import dataclass
 from typing import Callable
 
+from yoda_tpu_torch.api.requests import gang_name_of
 from yoda_tpu_torch.api.types import PodSpec
 from yoda_tpu_torch.framework.interfaces import QueueSortPlugin
 
@@ -90,6 +93,11 @@ class SchedulingQueue:
         self._active: list[_HeapItem] = []
         self._backoff: list[tuple[float, int, QueuedPodInfo]] = []  # (ready_at, seq, qpi)
         self._unschedulable: dict[str, QueuedPodInfo] = {}  # pod key -> qpi
+        # Optional listener fired (outside the queue lock) whenever work
+        # arrives or parked pods are reactivated — the scheduler's
+        # event-bound drain (Scheduler.run_until_idle) waits on it instead
+        # of polling.
+        self.on_activity: Callable[[], None] | None = None
 
     def __len__(self) -> int:
         with self._lock:
@@ -119,7 +127,41 @@ class SchedulingQueue:
     def add(self, pod: PodSpec) -> None:
         with self._cond:
             self._push_active(QueuedPodInfo(pod=pod, added_unix=self._clock()))
+            # Gang-arrival signal: a new member of gang G reactivates every
+            # parked/backoff member of G IMMEDIATELY (bypassing their
+            # backoff timers) — the late member triggers exactly one retry
+            # of its siblings instead of leaving them to walk the
+            # backoff-sleep ladder while the gang could now complete.
+            gang = gang_name_of(pod.labels)
+            if gang:
+                self._promote_gang_locked(gang)
             self._cond.notify()
+        self._fire_activity()
+
+    def _fire_activity(self) -> None:
+        cb = self.on_activity
+        if cb is not None:
+            cb()
+
+    def _promote_gang_locked(self, gang: str) -> None:
+        """Move every parked member of ``gang`` to the active queue now."""
+        still: list[tuple[float, int, QueuedPodInfo]] = []
+        moved = False
+        for ready_at, seq, qpi in self._backoff:
+            if gang_name_of(qpi.pod.labels) == gang:
+                self._push_active(qpi)
+                moved = True
+            else:
+                still.append((ready_at, seq, qpi))
+        if moved:
+            heapq.heapify(still)
+            self._backoff = still
+        for key in [
+            k
+            for k, q in self._unschedulable.items()
+            if gang_name_of(q.pod.labels) == gang
+        ]:
+            self._push_active(self._unschedulable.pop(key))
 
     def _push_active(self, qpi: QueuedPodInfo) -> None:
         if qpi.added_unix == 0.0:
@@ -155,6 +197,94 @@ class SchedulingQueue:
                     waits.append(remaining)
                 self._cond.wait(timeout=min(waits) if waits else None)
 
+    def pop_matching(
+        self,
+        pred: Callable[[PodSpec], bool],
+        limit: int | None = None,
+        *,
+        include_backoff: bool = False,
+    ) -> list[QueuedPodInfo]:
+        """Pop every ACTIVE entry whose pod satisfies ``pred``, in queue
+        order (priority, FIFO) — the gang-aware gather next to the
+        scheduler's ``_pop_burst``: when a popped pod is a gang member,
+        its co-queued siblings are pulled out so the whole gang runs
+        back-to-back in one fused pass instead of one cycle per loop turn.
+        Non-blocking; expired backoff entries are flushed first so a
+        sibling whose retry timer just lapsed is gathered too.
+
+        ``include_backoff`` additionally pulls matching entries whose
+        backoff timer is STILL TICKING (appended after the active matches,
+        ready-time order): a gang member's pop can fuse siblings that
+        bounced into timed backoff one retry earlier, instead of leaving
+        them to the gang-arrival signal or the backoff ladder."""
+        with self._cond:
+            self._flush_backoff_locked()
+            taken: list[_HeapItem] = []
+            keep: list[_HeapItem] = []
+            for item in self._active:
+                if pred(item.qpi.pod) and (limit is None or len(taken) < limit):
+                    taken.append(item)
+                else:
+                    keep.append(item)
+            if taken:
+                heapq.heapify(keep)
+                self._active = keep
+            taken.sort()  # heap-internal order -> queue order
+            out = [item.qpi for item in taken]
+            if include_backoff:
+                still: list[tuple[float, int, QueuedPodInfo]] = []
+                moved = False
+                for entry in sorted(self._backoff):
+                    if (limit is None or len(out) < limit) and pred(entry[2].pod):
+                        out.append(entry[2])
+                        moved = True
+                    else:
+                        still.append(entry)
+                if moved:
+                    heapq.heapify(still)
+                    self._backoff = still
+        for qpi in out:
+            qpi.attempts += 1
+        return out
+
+    def pending_gangs(self) -> "dict[str, tuple[int, int]]":
+        """gang name -> (queued member count, min attempts over them),
+        across all three pools: which gangs are WHOLE in the queue and
+        have already failed (the view a spillover pass reads)."""
+        with self._lock:
+            out: dict[str, tuple[int, int]] = {}
+            entries = (
+                [item.qpi for item in self._active]
+                + [qpi for _, _, qpi in self._backoff]
+                + list(self._unschedulable.values())
+            )
+            for qpi in entries:
+                gang = gang_name_of(qpi.pod.labels)
+                if gang:
+                    n, a = out.get(gang, (0, 1 << 30))
+                    out[gang] = (n + 1, min(a, qpi.attempts))
+            return out
+
+    def readd(self, qpi: QueuedPodInfo) -> None:
+        """Return an entry taken out of the queue without a scheduling
+        cycle to the active queue untouched (unlike :meth:`restore`, no
+        attempt decrement)."""
+        with self._cond:
+            self._push_active(qpi)
+            self._cond.notify()
+        self._fire_activity()
+
+    def restore(self, qpi: QueuedPodInfo) -> None:
+        """Return a popped-but-unscheduled entry to the active queue (the
+        burst pop un-pops gang members it encounters so their own pop runs
+        the gang gather; the joint pass restores a gang it parks whole).
+        The pop's attempt increment is reverted — no scheduling cycle
+        ran."""
+        qpi.attempts = max(qpi.attempts - 1, 0)
+        with self._cond:
+            self._push_active(qpi)
+            self._cond.notify()
+
     def remove(self, uid: str) -> bool:
         """Drop every entry for the pod with this uid from all three pools
         — the delete-event fast path. Returns whether anything was
@@ -176,6 +306,8 @@ class SchedulingQueue:
             ]:
                 del self._unschedulable[key]
                 removed = True
+        if removed:
+            self._fire_activity()
         return removed
 
     def add_unschedulable(self, qpi: QueuedPodInfo, message: str = "") -> None:
@@ -225,3 +357,4 @@ class SchedulingQueue:
                     )
             self._unschedulable.clear()
             self._cond.notify_all()
+        self._fire_activity()

@@ -20,10 +20,16 @@ computation; ``vmap`` becomes a leading request axis K. On a CUDA device
 :class:`TorchFleetKernel` never runs it: it launches the hand-written CUDA
 kernel (ops/cuda_kernel.py), which is held against this version.
 
-Left out until a later slice: ``kernel_joint_plan`` / ``joint_fit_scan``,
-``stack_joint_burst`` and the joint evaluation helpers (gang path),
-``apply_row_update`` (the resident row scatter), ``NumpyFleetKernel``
-(the reference's degraded-mode rung; the port has no fallback chain).
+The gang path's joint evaluation is here too: the stacking helpers
+(:func:`stack_joint_burst`, :func:`joint_fit_vectors`), the plain
+PyTorch :func:`joint_fit_scan` (the reference's ``lax.scan``, held against
+the hand-written joint-fit kernel) and :func:`kernel_joint_plan`, the
+plain composition of the evaluation and the scan.
+
+Left out until a later slice: ``apply_row_update`` (the resident row
+scatter), ``NumpyFleetKernel`` (the reference's degraded-mode rung; the
+port has no fallback chain, so the numpy twin of the scan is not carried
+either).
 """
 
 from __future__ import annotations
@@ -367,32 +373,48 @@ def pack_request(request: KernelRequest) -> np.ndarray:
     )
 
 
+def inputs_size(n: int, k: int, extra: int = 0) -> int:
+    """Words of a :func:`pack_inputs` buffer for N nodes, K requests and
+    ``extra`` per-request side vectors."""
+    return 4 * n + k * n + 5 * k + extra * k
+
+
 def pack_inputs(
     dyn: np.ndarray,        # [4, N] int32
     host_ok_k: np.ndarray,  # [K, N] int32/bool
     reqs: np.ndarray,       # [K, 5] int32
+    *extra: np.ndarray,     # [K] int32 side vectors (the joint-fit inputs)
     out: np.ndarray | None = None,
 ) -> np.ndarray:
     """An evaluation's per-call inputs in ONE flat int32 buffer, so one
-    host-to-device copy moves them: dyn, then host_ok, then reqs, each
-    row-major. ``out`` (e.g. a pinned tensor's numpy view) receives them
-    when given. :func:`split_inputs` takes the buffer apart again."""
+    host-to-device copy moves them: dyn, then host_ok, then reqs, then
+    each ``extra`` vector, each row-major. ``out`` (e.g. a pinned tensor's
+    numpy view) receives them when given. :func:`split_inputs` takes the
+    buffer apart again."""
     n, k = dyn.shape[1], host_ok_k.shape[0]
-    buf = np.empty(4 * n + k * n + 5 * k, dtype=np.int32) if out is None else out
+    size = inputs_size(n, k, len(extra))
+    buf = np.empty(size, dtype=np.int32) if out is None else out
     buf[: 4 * n] = dyn.reshape(-1)
     buf[4 * n : (4 + k) * n] = host_ok_k.reshape(-1)
-    buf[(4 + k) * n :] = reqs.reshape(-1)
+    at = (4 + k) * n
+    buf[at : at + 5 * k] = reqs.reshape(-1)
+    for i, vec in enumerate(extra):
+        buf[at + (5 + i) * k : at + (6 + i) * k] = vec
     return buf
 
 
-def split_inputs(buf: torch.Tensor, n: int, k: int) -> tuple[torch.Tensor, ...]:
-    """Views (dyn [4, N], host_ok [K, N], reqs [K, 5]) of a
-    :func:`pack_inputs` buffer, on whatever device it lies."""
+def split_inputs(
+    buf: torch.Tensor, n: int, k: int, extra: int = 0
+) -> tuple[torch.Tensor, ...]:
+    """Views (dyn [4, N], host_ok [K, N], reqs [K, 5], then ``extra`` [K]
+    vectors) of a :func:`pack_inputs` buffer, on whatever device it
+    lies."""
+    at = (4 + k) * n
     return (
         buf[: 4 * n].view(4, n),
-        buf[4 * n : (4 + k) * n].view(k, n),
-        buf[(4 + k) * n :].view(k, 5),
-    )
+        buf[4 * n : at].view(k, n),
+        buf[at : at + 5 * k].view(k, 5),
+    ) + tuple(buf[at + (5 + i) * k : at + (6 + i) * k] for i in range(extra))
 
 
 def results_from_packed(names: list[str], packed: np.ndarray) -> list[KernelResult]:
@@ -415,6 +437,200 @@ def results_from_packed(names: list[str], packed: np.ndarray) -> list[KernelResu
             )
         )
     return results
+
+
+def burst_bucket(k: int, minimum: int = 1) -> int:
+    """Row count of a K-request joint stacking: the configured burst width
+    while K fits, else the next power of two — the reference's compile
+    bucket, kept so the stacked rows match it row for row (the card
+    compiles nothing per shape)."""
+    if k <= minimum:
+        return max(minimum, 1)
+    return 1 << max(k - 1, 1).bit_length()
+
+
+def stack_joint_burst(
+    host_ok_groups: "list[np.ndarray]",
+    request_groups: "list[list[KernelRequest]]",
+    minimum: int = 1,
+) -> "tuple[np.ndarray, list[KernelRequest], list[int]]":
+    """Stack G gangs' per-member rows into ONE padded burst (the cross-gang
+    joint dispatch): group g's members occupy flat rows
+    ``offsets[g]:offsets[g+1]`` of the returned [K, N] admission matrix and
+    K-long request list, padded to :func:`burst_bucket` (padding rows carry
+    all-False host_ok and are infeasible everywhere). ``host_ok_groups[g]``
+    is that gang's [k_g, N] admission rows. Returns (host_ok_k, requests,
+    offsets) with ``len(offsets) == G + 1``."""
+    flat_req: list[KernelRequest] = []
+    offsets = [0]
+    for reqs in request_groups:
+        flat_req.extend(reqs)
+        offsets.append(len(flat_req))
+    if not flat_req:
+        raise ValueError("stack_joint_burst needs at least one member row")
+    k = burst_bucket(len(flat_req), minimum)
+    n = int(host_ok_groups[0].shape[-1])
+    host_ok_k = np.zeros((k, n), dtype=np.int32)
+    row = 0
+    for ok_rows in host_ok_groups:
+        for r in np.asarray(ok_rows, dtype=np.int32).reshape(-1, n):
+            host_ok_k[row] = r
+            row += 1
+    pad = KernelRequest(1, 0, 0, 0, 0)
+    requests = flat_req + [pad] * (k - len(flat_req))
+    return host_ok_k, requests, offsets
+
+
+def evaluate_joint_via_burst(
+    kern,
+    dyn: np.ndarray,
+    host_ok_groups: "list[np.ndarray]",
+    request_groups: "list[list[KernelRequest]]",
+    minimum: int = 1,
+) -> "list[list[KernelResult]]":
+    """Evaluate G gangs' members in ONE round trip through a kernel's
+    ``evaluate_burst``: the per-gang rows are stacked into one padded burst
+    (:func:`stack_joint_burst`) and the flat results are regrouped per
+    gang."""
+    host_ok_k, requests, offsets = stack_joint_burst(
+        host_ok_groups, request_groups, minimum
+    )
+    flat = kern.evaluate_burst(dyn, host_ok_k, requests)
+    return [
+        flat[offsets[g] : offsets[g + 1]] for g in range(len(request_groups))
+    ]
+
+
+def joint_fit_vectors(
+    requests: "list[KernelRequest]", offsets: "list[int]"
+) -> "tuple[np.ndarray, np.ndarray, np.ndarray]":
+    """Per-row side inputs for :func:`joint_fit_scan`, aligned with a
+    :func:`stack_joint_burst` stacking: chip demand per member row
+    (``max(number, 1)``, the same floor the serve path applies), a
+    group-start flag at each ``offsets[g]``, and a validity flag (padding
+    rows are invalid: zero demand, never picked, and they cannot fail the
+    — nonexistent — gang they pad)."""
+    k = len(requests)
+    chips = np.array([max(r.number, 1) for r in requests], dtype=np.int32)
+    starts = np.zeros(k, dtype=np.int32)
+    valid = np.zeros(k, dtype=np.int32)
+    for g in range(len(offsets) - 1):
+        starts[offsets[g]] = 1
+    valid[: offsets[-1]] = 1
+    chips *= valid
+    return chips, starts, valid
+
+
+def joint_fit_scan(
+    feas_k: torch.Tensor,    # [K, N] feasible (bool or 0/1 int32)
+    scores_k: torch.Tensor,  # [K, N] int32 final scores
+    claim_k: torch.Tensor,   # [K, N] int32 claimable chips
+    chips_k: torch.Tensor,   # [K] int32 (joint_fit_vectors)
+    starts_k: torch.Tensor,  # [K] int32
+    valid_k: torch.Tensor,   # [K] int32
+) -> "tuple[torch.Tensor, torch.Tensor, torch.Tensor]":
+    """The joint fit gate for plain gangs as a scan over the stacked member
+    rows — the plain PyTorch version of the hand-written joint-fit kernel
+    (ops/cuda_kernel.py ``joint_fit``) and of the reference's ``lax.scan``
+    (yoda_tpu/ops/kernel.py ``joint_fit_scan``). Each gang starts from the
+    chips consumed by every earlier FITTING gang, each member greedily
+    claims the highest-scoring node with enough claimable chips left (ties
+    -> first index, as ``argmax``), and a gang with any unplaceable member
+    consumes nothing. Returns ``(picks [K] int32, group_ok [K] bool,
+    sim [N] int32)``: the node index each row claimed (-1 when it claimed
+    nothing), the gang's running fit verdict after each row (read it at
+    the gang's LAST row), and the chips consumed by all fitting gangs.
+    Runs on the tensors' device, one row at a time; int32 throughout."""
+    feas_k = feas_k != 0
+    k, n = feas_k.shape
+    dev = feas_k.device
+    sim = torch.zeros(n, dtype=torch.int32, device=dev)
+    tent = sim.clone()
+    gok = True
+    picks = torch.full((k,), -1, dtype=torch.int32)
+    gok_k = torch.zeros(k, dtype=torch.bool)
+    chips, starts, valid = (
+        v.tolist() for v in (chips_k, starts_k, valid_k)
+    )
+    for i in range(k):
+        if starts[i]:
+            # Group boundary: commit the previous gang iff it fit, then
+            # restart the tentative ledger from the committed state.
+            if gok:
+                sim = tent.clone()
+            gok = True
+            tent = sim.clone()
+        if valid[i]:
+            ok = feas_k[i] & ((claim_k[i] - tent) >= chips[i])
+            any_ok = bool(ok.any())
+            if any_ok and gok:
+                pick = int(torch.argmax(torch.where(ok, scores_k[i], -1)))
+                tent[pick] += chips[i]
+                picks[i] = pick
+            gok = gok and any_ok
+        gok_k[i] = gok
+    if gok:
+        sim = tent.clone()
+    return picks.to(dev), gok_k.to(dev), sim
+
+
+def kernel_joint_plan(
+    chips: torch.Tensor,
+    nodes: torch.Tensor,
+    dyn: torch.Tensor,
+    host_ok_k: torch.Tensor,
+    reqs_k: torch.Tensor,
+    chips_k: torch.Tensor,
+    starts_k: torch.Tensor,
+    valid_k: torch.Tensor,
+    weights: Weights,
+):
+    """Admission + score + block plan, plainly: the K-row evaluation
+    (:func:`kernel_packed_burst`) feeding the joint fit scan
+    (:func:`joint_fit_scan`) — the plain composition that
+    :meth:`TorchFleetKernel.evaluate_joint_plan` runs as two hand kernels
+    on the card. Returns ``(packed [K, 6, N], picks [K], group_ok [K]
+    int32, sim [N])``."""
+    packed = kernel_packed_burst(chips, nodes, dyn, host_ok_k, reqs_k, weights)
+    picks, gok_k, sim = joint_fit_scan(
+        packed[:, 0], packed[:, 3], packed[:, 5], chips_k, starts_k, valid_k
+    )
+    return packed, picks, _i32(gok_k), sim
+
+
+def evaluate_joint_plan_via_burst(
+    kern,
+    dyn: np.ndarray,
+    host_ok_groups: "list[np.ndarray]",
+    request_groups: "list[list[KernelRequest]]",
+    minimum: int = 1,
+) -> "tuple[list[list[KernelResult]], list[bool], list[np.ndarray]]":
+    """The fit-gated joint evaluation composed on the host: member rows go
+    through the kernel's own ``evaluate_burst`` (one round trip) and the
+    plain scan runs over the trimmed results on the CPU. The reference's
+    path for backends without a fused lowering; here it is the host
+    composition :meth:`TorchFleetKernel.evaluate_joint_plan` is held
+    against (it never runs on the serve path). Returns
+    ``(results_per_gang, fit_per_gang, picks_per_gang)``."""
+    host_ok_k, requests, offsets = stack_joint_burst(
+        host_ok_groups, request_groups, minimum
+    )
+    flat = kern.evaluate_burst(dyn, host_ok_k, requests)
+    chips_k, starts_k, valid_k = joint_fit_vectors(requests, offsets)
+    m = offsets[-1]
+    picks, gok_k, _sim = joint_fit_scan(
+        *(
+            torch.from_numpy(np.stack([getattr(r, f) for r in flat[:m]]))
+            for f in ("feasible", "scores", "claimable")
+        ),
+        *(torch.from_numpy(v[:m]) for v in (chips_k, starts_k, valid_k)),
+    )
+    picks, gok_k = picks.numpy(), gok_k.numpy()
+    g_count = len(request_groups)
+    grouped = [flat[offsets[g] : offsets[g + 1]] for g in range(g_count)]
+    fits = [bool(gok_k[offsets[g + 1] - 1]) for g in range(g_count)]
+    picks_g = [picks[offsets[g] : offsets[g + 1]] for g in range(g_count)]
+    return grouped, fits, picks_g
 
 
 def resolve_device(platform: str) -> torch.device:
@@ -443,9 +659,13 @@ class TorchFleetKernel:
     the [4, N] dynamics, the [K, N] admission rows and the [K, 5] requests
     into one buffer (:func:`pack_inputs`), makes ONE wrapper call and
     fetches one [K, 6, N] result. On a CUDA device that is one pinned
-    host-to-device copy, the hand-written kernel's one launch and one
-    device-to-host copy into pinned memory; on the CPU the same buffer
-    feeds the plain version (:func:`kernel_packed_burst`).
+    host-to-device copy, the hand-written kernel's launch (one per 128
+    rows) and one device-to-host copy into pinned memory; on the CPU the
+    same buffer feeds the plain version (:func:`kernel_packed_burst`).
+    :meth:`evaluate_joint_plan` adds the joint-fit scan to the same round
+    trip: its side inputs ride the same upload, the scan reads the
+    evaluation's rows where they lie, and its picks, verdicts and ledger
+    come back in the same download.
     """
 
     def __init__(self, weights: Weights, device: torch.device) -> None:
@@ -465,6 +685,31 @@ class TorchFleetKernel:
         self._chips = torch.from_numpy(chips).to(self.device)
         self._nodes = torch.from_numpy(nodes).to(self.device)
         self._names = list(arrays.names)
+
+    def _upload(self, size: int, fill) -> torch.Tensor:
+        """A flat int32 input buffer of ``size`` words on the device,
+        filled on the host by ``fill(numpy_view)``: one pinned
+        host-to-device copy on a CUDA device."""
+        if self.device.type == "cuda":
+            staged = torch.empty(size, dtype=torch.int32, pin_memory=True)
+            fill(staged.numpy())
+            inputs = torch.empty(size, dtype=torch.int32, device=self.device)
+            inputs.copy_(staged, non_blocking=True)
+            return inputs
+        buf = np.empty(size, dtype=np.int32)
+        fill(buf)
+        return torch.from_numpy(buf)
+
+    def _download(self, out: torch.Tensor) -> np.ndarray:
+        """``out`` on the host: one device-to-host copy into a FRESH pinned
+        tensor on a CUDA device — results are views of it, and a burst's
+        or joint pass's rows outlive later evaluations."""
+        if self.device.type == "cuda":
+            fetched = torch.empty(out.shape, dtype=torch.int32, pin_memory=True)
+            fetched.copy_(out, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+            out = fetched
+        return out.numpy()
 
     def evaluate(self, dyn: np.ndarray, request: KernelRequest) -> KernelResult:
         """One request; its admission row is ``dyn[3]`` (K = 1 of the burst)."""
@@ -487,23 +732,81 @@ class TorchFleetKernel:
         reqs = np.stack([pack_request(r) for r in requests])
         host_ok_k = np.asarray(host_ok_k)
         n, k = dyn.shape[1], len(requests)
-        dev = self.device
-        if dev.type == "cuda":
-            size = 4 * n + k * n + 5 * k
-            staged = torch.empty(size, dtype=torch.int32, pin_memory=True)
-            pack_inputs(dyn, host_ok_k, reqs, out=staged.numpy())
-            inputs = torch.empty(size, dtype=torch.int32, device=dev)
-            inputs.copy_(staged, non_blocking=True)
-        else:
-            inputs = torch.from_numpy(pack_inputs(dyn, host_ok_k, reqs))
+        inputs = self._upload(
+            inputs_size(n, k),
+            lambda buf: pack_inputs(dyn, host_ok_k, reqs, out=buf),
+        )
         out = fleet_eval(
             self._chips, self._nodes, *split_inputs(inputs, n, k), self.weights
         )
-        if dev.type == "cuda":
-            # A fresh pinned tensor every call: the results are views of it,
-            # and a burst's results outlive later evaluations.
-            fetched = torch.empty(out.shape, dtype=torch.int32, pin_memory=True)
-            fetched.copy_(out, non_blocking=True)
-            torch.cuda.current_stream(dev).synchronize()
-            out = fetched
-        return results_from_packed(self._names, out.numpy())
+        return results_from_packed(self._names, self._download(out))
+
+    def evaluate_joint(
+        self,
+        dyn: np.ndarray,
+        host_ok_groups: "list[np.ndarray]",
+        request_groups: "list[list[KernelRequest]]",
+        minimum: int = 1,
+    ) -> "list[list[KernelResult]]":
+        """G gangs' member rows in ONE round trip (the joint placement of
+        topology gangs, whose fit gate is the host block planner): stacked
+        into one padded burst and regrouped per gang
+        (:func:`evaluate_joint_via_burst`)."""
+        return evaluate_joint_via_burst(
+            self, dyn, host_ok_groups, request_groups, minimum
+        )
+
+    def evaluate_joint_plan(
+        self,
+        dyn: np.ndarray,
+        host_ok_groups: "list[np.ndarray]",
+        request_groups: "list[list[KernelRequest]]",
+        minimum: int = 1,
+    ) -> "tuple[list[list[KernelResult]], list[bool], list[np.ndarray]]":
+        """G plain gangs' admission + scoring + cross-gang fit gate in ONE
+        round trip: one upload (dynamics, admission rows, requests and the
+        :func:`joint_fit_vectors` side inputs), the fleet evaluation, the
+        joint-fit scan over its rows on the same device, and one download
+        of the [K, 6, N] rows, picks, verdicts and ledger. On a CUDA
+        device both steps are the hand kernels (``fleet_eval`` then
+        ``joint_fit`` on the same stream) or the call raises; on the CPU
+        their plain versions. Only the real member rows (``offsets[-1]``)
+        are evaluated: the reference's padding rows are invalid and change
+        no pick, verdict or ledger. Returns ``(results_per_gang,
+        fit_per_gang, picks_per_gang)``."""
+        from yoda_tpu_torch.ops.cuda_kernel import fleet_eval, joint_fit
+
+        if self._chips is None:
+            raise RuntimeError(
+                "put_static() must run before evaluate_joint_plan()"
+            )
+        host_ok_k, requests, offsets = stack_joint_burst(
+            host_ok_groups, request_groups, minimum
+        )
+        k = offsets[-1]
+        host_ok_k, requests = host_ok_k[:k], requests[:k]
+        side = joint_fit_vectors(requests, offsets)
+        reqs = np.stack([pack_request(r) for r in requests])
+        n = dyn.shape[1]
+        inputs = self._upload(
+            inputs_size(n, k, len(side)),
+            lambda buf: pack_inputs(dyn, host_ok_k, reqs, *side, out=buf),
+        )
+        d_dyn, d_ok, d_reqs, *d_side = split_inputs(inputs, n, k, len(side))
+        rows = k * 6 * n
+        res = torch.empty(rows + 2 * k + n, dtype=torch.int32, device=self.device)
+        packed = res[:rows].view(k, 6, n)
+        fleet_eval(
+            self._chips, self._nodes, d_dyn, d_ok, d_reqs, self.weights,
+            out=packed,
+        )
+        joint_fit(packed, *d_side, out=res[rows:])
+        host = self._download(res)
+        flat = results_from_packed(self._names, host[:rows].reshape(k, 6, n))
+        picks = host[rows : rows + k]
+        gok = host[rows + k : rows + 2 * k].astype(bool)
+        g_count = len(request_groups)
+        grouped = [flat[offsets[g] : offsets[g + 1]] for g in range(g_count)]
+        fits = [bool(gok[offsets[g + 1] - 1]) for g in range(g_count)]
+        picks_g = [picks[offsets[g] : offsets[g + 1]] for g in range(g_count)]
+        return grouped, fits, picks_g

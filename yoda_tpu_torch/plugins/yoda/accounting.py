@@ -13,7 +13,10 @@ pkg/yoda/scheduler.go has no Reserve hook; SURVEY.md §3.3). Model:
   on replay it re-counts bound pods.
 
 Counterpart of ``yoda_tpu/plugins/yoda/accounting.py``, ported as far as the
-singleton path reaches it. Left out until a later slice: the durable claim
+singleton and gang paths reach it: a gang's Permit rejection, cascade and
+bind rollback all release through ``unreserve`` (``release``), and an
+unbound pod's watch event leaves the claim for that release to drop, as
+in the reference. Left out until a later slice: the durable claim
 journal, the reservation delta feed, shard staging and the optimistic
 commit (``stage`` / ``commit_staged``), warm-start restore and the
 worker-side ``RemoteAccountant``.

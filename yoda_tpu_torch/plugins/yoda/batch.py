@@ -8,19 +8,27 @@ device, uploaded once per metrics version; a scheduling cycle transfers
 one packed [4, N] dynamics array, the [K, N] admission rows and the
 [K, 5] requests, and fetches one packed [K, 6, N] result
 (ops.kernel.TorchFleetKernel). On a CUDA device every evaluation is ONE
-call of the hand-written kernel (ops/cuda_kernel.py), for one pod
-(K = 1) or a K-pod burst.
+round trip through the hand-written kernels (ops/cuda_kernel.py): the
+fleet evaluation for one pod (K = 1) or a K-row burst, and for a joint
+gang pass the joint-fit scan right after it on the card.
 
 Counterpart of ``yoda_tpu/plugins/yoda/batch.py``, ported as far as the
-singleton path reaches it: the classic per-metrics-version static refresh
-with incremental row refills, the per-pod admission vector, the
-preference bonus, ``filter_and_score_batch``, and the multi-pod burst
-(``prepare_burst`` / ``_serve_burst`` with its serve-time spot-checks).
-Left out until a later slice: gang plans and gang / joint bursts, the
-device-resident ``FleetStateCache`` with its delta feeds, the
-cross-snapshot admission cache, the mesh-sharded kernel, and the dispatch
-fallback chain with its circuit breaker — on a CUDA device an evaluation
-runs on the hand kernel or raises. The reference's TPU-measured platform
+singleton and gang paths reach it: the classic per-metrics-version static
+refresh with incremental row refills, the per-pod admission vector, the
+preference bonus, ``filter_and_score_batch``, the multi-pod burst
+(``prepare_burst`` / ``_serve_burst`` with its serve-time spot-checks),
+the lazy whole-gang plan (``_GangPlan``), and the gang-fused and
+cross-gang joint dispatches with their fit gate (``prepare_gang_burst`` /
+``prepare_joint_burst``; plain gangs' gate runs in the joint-fit kernel,
+topology gangs' in the host block planner, as in the reference). Left out
+until a later slice: the device-resident ``FleetStateCache`` with its
+delta feeds and the epoch-skew set retention (``_retain_set``: a cached
+set drops on any fleet-version change), the cross-snapshot admission
+cache (the reference's ``_admission_vec``; admission here is the
+per-snapshot ``_host_admission``), the
+mesh-sharded kernel, the dispatch tracer, and the dispatch fallback chain
+with its circuit breaker — on a CUDA device an evaluation runs on the
+hand kernels or raises. The reference's TPU-measured platform
 policy (``_device_for`` / ``_dispatch_floor_ms`` and the
 ``AUTO_DEVICE_MIN_ELEMS`` / ``AUTO_REMOTE_FLOOR_MS`` cut-offs) is not
 carried over: ``kernel_platform`` picks the device outright
@@ -30,12 +38,14 @@ carried over: ``kernel_platform`` picks the device outright
 from __future__ import annotations
 
 import logging
+from collections import Counter
 from dataclasses import dataclass, field
 from typing import Callable, Sequence
 
 import numpy as np
 
 from yoda_tpu_torch.api.affinity import pod_has_inter_pod_terms
+from yoda_tpu_torch.api.requests import gang_name_of
 from yoda_tpu_torch.api.types import (
     PodSpec,
     pod_admits_on,
@@ -58,10 +68,13 @@ from yoda_tpu_torch.ops.kernel import (
     resolve_device,
 )
 from yoda_tpu_torch.plugins.yoda.filter_plugin import (
+    get_pending_ports,
+    get_pending_resources,
     get_request,
     node_fits_host_ports,
     node_fits_resources,
 )
+from yoda_tpu_torch.plugins.yoda.gang import ALLOWED_HOSTS_KEY, GANG_REMAINING_KEY
 
 log = logging.getLogger("yoda_tpu_torch.batch")
 
@@ -106,31 +119,45 @@ def _admission_key(pod: PodSpec) -> "tuple | None":
     return key
 
 
-def _node_admission_ok(name: str, snapshot: Snapshot, pod: PodSpec) -> bool:
+def _node_admission_ok(
+    name: str,
+    snapshot: Snapshot,
+    pod: PodSpec,
+    pending_res: dict | None = None,
+    pending_ports: dict | None = None,
+) -> bool:
     """ONE node's admission verdict: cordon + taints + nodeSelector +
-    required node affinity, resource fit and host ports."""
+    required node affinity, resource fit and host ports — in-flight gang
+    members' claims (``pending_res`` / ``pending_ports``) included."""
     if name not in snapshot:
         return True
     ni = snapshot.get(name)
     if not pod_admits_on(ni.node, pod)[0]:
         return False
-    if not node_fits_resources(ni, pod)[0]:
+    if not node_fits_resources(ni, pod, pending_res)[0]:
         return False
-    return not pod.host_ports or node_fits_host_ports(ni, pod)[0]
+    return not pod.host_ports or node_fits_host_ports(ni, pod, pending_ports)[0]
 
 
 def _host_admission(
-    static: FleetArrays, snapshot: Snapshot, pod: PodSpec
+    static: FleetArrays,
+    snapshot: Snapshot,
+    pod: PodSpec,
+    pending_res: dict | None = None,
+    pending_ports: dict | None = None,
 ) -> np.ndarray:
     """Per-pod Node-object admission vector (padding rows are masked by
     node_valid in the evaluation, so their value is irrelevant).
 
     Cached on the snapshot object keyed by (fleet arrays identity,
-    constraint tuple): every plain label-only pod of a burst shares one
-    key, so a K-pod burst pays the O(N) loop once. The snapshot is rebuilt
-    (and the cache with it) on any watch event."""
-    key = _admission_key(pod)
+    constraint tuple) when no in-flight claims are in play: every plain
+    label-only pod of a burst (and every gang member) shares one key, so a
+    K-pod burst pays the O(N) loop once. The snapshot is rebuilt (and the
+    cache with it) on any watch event."""
+    key = None
     cache = None
+    if not pending_res and not pending_ports:
+        key = _admission_key(pod)
     if key is not None:
         cache = getattr(snapshot, "_admission_cache", None)
         if cache is None:
@@ -139,7 +166,10 @@ def _host_admission(
         if hit is not None and hit[0] is static:
             return hit[1]
     vec = np.array(
-        [_node_admission_ok(name, snapshot, pod) for name in static.names]
+        [
+            _node_admission_ok(name, snapshot, pod, pending_res, pending_ports)
+            for name in static.names
+        ]
         + [True] * (static.node_valid.shape[0] - len(static.names)),
         dtype=bool,
     )
@@ -181,6 +211,37 @@ class _BurstSet:
     consumed: dict[str, int] = field(default_factory=dict)   # node -> chips
     # node -> [(pod uid, cpu milli, memory bytes)] taken by burst picks.
     res: dict[str, list[tuple[str, int, int]]] = field(default_factory=dict)
+    # Gang names sharing this set's dispatch baseline (cross-gang joint
+    # placement): the per-gang sets of one joint dispatch share the SAME
+    # consumed/res ledgers — gang g's members see capacity net of gangs
+    # 0..g-1's claims — so a validation failure on any one set means the
+    # common baseline is stale and the whole group drops.
+    group: tuple[str, ...] | None = None
+
+
+@dataclass
+class _GangPlan:
+    """One dispatch's placement plan for a whole gang.
+
+    Built when the FIRST unplaced member of a gang is evaluated: the
+    result's per-node ``claimable`` chips let the remaining members be
+    placed host-side against the SAME snapshot — one dispatch per gang
+    instead of one per member. Each sibling cycle is served from ``picks``
+    after validating that (a) the snapshot hasn't changed and (b) every
+    previously-served member actually reserved where predicted (``base`` +
+    chips x served picks on that node, via ``reserved_fn``) — any
+    divergence invalidates the plan and falls back to a fresh dispatch."""
+
+    gang: str
+    snapshot_version: int
+    request: KernelRequest              # members must request identically
+    constraints: tuple                  # ...and constrain identically
+    picks: list[str]                    # node per member, picks[0] = the
+                                        # dispatching member's own placement
+    base: dict[str, int]                # reserved_fn(node) at dispatch time
+    statuses: dict[str, Status]         # private copy of the dispatch's map
+    scores: dict[str, int]
+    next_idx: int = 1                   # picks[0] is consumed by the dispatch
 
 
 class YodaBatch(BatchFilterScorePlugin):
@@ -196,6 +257,7 @@ class YodaBatch(BatchFilterScorePlugin):
         platform: str = "auto",
         kernel_backend: str = "xla",
         batch_requests: int = 1,
+        pending_fn: Callable[[], list] | None = None,
         reserved_map_fn: "Callable[[], dict] | None" = None,
         claimed_map_fn: "Callable[[], dict] | None" = None,
         last_updated_map_fn: "Callable[[], dict] | None" = None,
@@ -250,6 +312,34 @@ class YodaBatch(BatchFilterScorePlugin):
         self.burst_dispatches = 0   # multi-pod kernel dispatches
         self.burst_served = 0       # cycles answered from a burst
         self.burst_invalidated = 0  # burst rows dropped by failed validation
+        # Gang members parked at Permit (GangPlugin.pending_placements):
+        # a burst is refused while one's cpu/memory/port claim is not yet
+        # visible in the snapshot (_pending_blocking).
+        self.pending_fn = pending_fn
+        # Whole-gang placement plans: gang name -> _GangPlan. One dispatch
+        # places every remaining member; siblings are served from the plan.
+        self._gang_plans: dict[str, _GangPlan] = {}
+        self.plan_served = 0       # sibling cycles answered from a gang plan
+        self.plan_invalidated = 0  # plans dropped by a failed validation
+        # Gang-fused dispatch: prepare_gang_burst evaluates a gathered
+        # gang's members — heterogeneous requests included — in ONE call;
+        # each member's cycle is served from its own row with siblings'
+        # claims deducted (_serve_joint_burst).
+        self._gang_bursts: dict[str, _BurstSet] = {}
+        self.gang_burst_dispatches = 0   # whole-gang kernel dispatches
+        self.gang_burst_served = 0       # member cycles answered from one
+        self.gang_burst_invalidated = 0  # rows dropped by failed validation
+        # Cross-gang joint dispatch: prepare_joint_burst evaluates SEVERAL
+        # co-queued gangs in one call; gang g's members are served net of
+        # gangs 0..g-1's claims (shared ledger), and a gang the joint plan
+        # cannot fit whole is parked untouched.
+        self.joint_dispatches = 0   # multi-gang kernel dispatches
+        self.joint_gangs = 0        # gangs whose rows came from a joint one
+        self.joint_parked = 0       # gangs parked whole by the joint fit gate
+        # Joint dispatches whose fit gate ran on the evaluation's device
+        # (TorchFleetKernel.evaluate_joint_plan: the joint-fit kernel on
+        # the card) instead of the host block planner.
+        self.fused_plan_dispatches = 0
         # (snapshot.version, flag) caches for fleet-wide scans.
         self._fleet_terms: tuple[int, bool] = (0, False)
         self._soft_taints: tuple[int, bool] = (0, False)
@@ -357,16 +447,30 @@ class YodaBatch(BatchFilterScorePlugin):
     ) -> tuple[dict[str, Status], dict[str, int]]:
         if len(snapshot) == 0:
             return {}, {}
-        reqk = KernelRequest.from_request(get_request(state))
-        if self._burst is not None:
+        req = get_request(state)
+        reqk = KernelRequest.from_request(req)
+        gang_name = req.gang.name if req.gang is not None else None
+        if gang_name is not None:
+            served = self._serve_joint_burst(state, pod, gang_name, snapshot, reqk)
+            if served is None:
+                served = self._serve_gang_plan(state, pod, gang_name, snapshot, reqk)
+            if served is not None:
+                return served
+        elif self._burst is not None:
             served = self._serve_burst(pod, snapshot, reqk)
             if served is not None:
                 return served
         static = self._refresh_static(snapshot)
         # Reservations/claims/freshness change cycle-to-cycle without a
-        # metrics bump, and Node-object admission is per (pod, cycle): one
-        # packed upload.
-        dyn = self._dyn_for(static, host_ok=_host_admission(static, snapshot, pod))
+        # metrics bump, and Node-object admission (in-flight gang claims
+        # included) is per (pod, cycle): one packed upload.
+        dyn = self._dyn_for(
+            static,
+            host_ok=_host_admission(
+                static, snapshot, pod,
+                get_pending_resources(state), get_pending_ports(state),
+            ),
+        )
         result = self._dispatch(lambda kern: kern.evaluate(dyn, reqk))
         self.dispatch_count += 1
         # Soft steering is a host-side additive term, per (pod, node).
@@ -382,6 +486,11 @@ class YodaBatch(BatchFilterScorePlugin):
                 # summarize_failure ("6 node(s): not enough ...").
                 reason = REASON_MESSAGES.get(int(result.reasons[i]), "infeasible")
                 statuses[name] = Status.unschedulable(reason)
+        if gang_name is not None:
+            self._build_gang_plan(
+                state, pod, gang_name, snapshot, reqk, static, result,
+                statuses, scores, pref_bonus,
+            )
         return statuses, scores
 
     def _preference_bonus(
@@ -465,6 +574,7 @@ class YodaBatch(BatchFilterScorePlugin):
             or len(snapshot) == 0
             or not snapshot.version
             or self.reserved_fn is None
+            or self._pending_blocking(snapshot)
             or self._fleet_has_terms(snapshot)
         ):
             return
@@ -523,6 +633,28 @@ class YodaBatch(BatchFilterScorePlugin):
             base_reserved=np.asarray(dyn[1]).copy(),
             entries=entries,
         )
+
+    def _pending_blocking(self, snapshot: Snapshot) -> bool:
+        """True when some Permit-parked placement's pod is NOT yet visible
+        in the snapshot AND claims more than chips (cpu/memory/hostPort/
+        PVC): a burst dispatch cannot see that claim, so serving from one
+        could overcommit. Chip-only members never refuse a burst — their
+        chips are read live through ``reserved_fn`` by every dispatch."""
+        if self.pending_fn is None:
+            return False
+        for host, spec in self.pending_fn():
+            if not (
+                spec.cpu_milli_request
+                or spec.memory_request
+                or spec.host_ports
+                or spec.pvc_names
+            ):
+                continue
+            if host not in snapshot:
+                return True
+            if all(p.uid != spec.uid for p in snapshot.get(host).pods):
+                return True
+        return False
 
     def _pick_checks(
         self, b: _BurstSet, pod: PodSpec, best: str, snapshot: Snapshot
@@ -625,3 +757,550 @@ class YodaBatch(BatchFilterScorePlugin):
             for nm, st in statuses.items()
         }
         return statuses, {best: scores[best]}
+
+    # --- gang-fused / cross-gang joint dispatch ---
+
+    def prepare_gang_burst(
+        self, pods: Sequence[PodSpec], snapshot: Snapshot
+    ) -> None:
+        """Evaluate a gathered gang — every co-queued member, handed over
+        by the scheduler's gang gather — against ONE snapshot in ONE
+        dispatch, so the whole gang places in a single pass. Member cycles
+        are served from their own rows by :meth:`_serve_joint_burst` with
+        inter-member capacity deduction. The single-group case of
+        :meth:`prepare_joint_burst` with no fit gate: a gang that cannot
+        complete parks through the normal admission path. Refused silently
+        under the same preconditions as ``prepare_burst``."""
+        if len(pods) < 2:
+            return
+        self._prepare_groups([list(pods)], snapshot, fit_gate=False)
+
+    def prepare_joint_burst(
+        self, groups: "Sequence[Sequence[PodSpec]]", snapshot: Snapshot
+    ) -> "list[str] | None":
+        """Cross-gang joint placement: evaluate SEVERAL co-queued gangs
+        (distinct names, priority order) in ONE dispatch and build per-gang
+        row sets that share one consumption ledger, so gang g's member
+        cycles see capacity net of gangs 0..g-1's claims. A fit gate walks
+        the groups in priority order — the host block planner for
+        topology gangs, the joint-fit scan for plain gangs (on the
+        evaluation's device) — and a gang that cannot place WHOLE net of
+        the earlier gangs' claims has its rows dropped before any cycle
+        runs. An unfit gang consumes nothing: gangs below it still see its
+        capacity.
+
+        Returns one verdict per group, in order: ``"fused"`` (rows built;
+        drive the members this turn), ``"solo"`` (ineligible for a fused
+        dispatch; schedule per-cycle), ``"park"`` (cannot fit whole;
+        restore untouched). None = the joint pass is refused entirely and
+        every gang falls back to the per-gang path."""
+        return self._prepare_groups(
+            [list(g) for g in groups], snapshot, fit_gate=True
+        )
+
+    def _prepare_groups(
+        self,
+        groups: "list[list[PodSpec]]",
+        snapshot: Snapshot,
+        *,
+        fit_gate: bool,
+    ) -> "list[str] | None":
+        gang_names: list[str] = []
+        for pods in groups:
+            gang = None
+            for pod in pods:
+                name = gang_name_of(pod.labels)
+                if name is None or (gang is not None and name != gang):
+                    return None  # not one gang per group: caller bug
+                gang = name
+            if gang is None or gang in gang_names:
+                return None  # empty group or duplicate gang: caller bug
+            gang_names.append(gang)
+        for name in gang_names:
+            self._drop_gang_burst(name)
+        if (
+            len(snapshot) == 0
+            or not snapshot.version
+            or self.reserved_fn is None
+            or self._pending_blocking(snapshot)
+            or self._fleet_has_terms(snapshot)
+        ):
+            return None
+        cands = [self._gang_candidates(pods) for pods in groups]
+        eligible = [i for i, c in enumerate(cands) if c]
+        if sum(len(cands[i]) for i in eligible) < 2:
+            return None  # nothing to amortize or deduct across
+        static = self._refresh_static(snapshot)
+        dyn = self._dyn_for(static)
+        n_pad = static.node_valid.shape[0]
+        host_ok_groups: list[np.ndarray] = []
+        request_groups: list[list[KernelRequest]] = []
+        for i in eligible:
+            ok = np.zeros((len(cands[i]), n_pad), dtype=np.int32)
+            for m, (pod, _req, _reqk) in enumerate(cands[i]):
+                ok[m] = _host_admission(static, snapshot, pod)
+            host_ok_groups.append(ok)
+            request_groups.append([reqk for _, _, reqk in cands[i]])
+        # With the fit gate on and no topology gang among the eligible
+        # groups, the per-member fit loop runs on the evaluation's device
+        # right after the evaluation (TorchFleetKernel.evaluate_joint_plan:
+        # the joint-fit kernel on the card). Topology gangs need the host
+        # block planner and take the classic split.
+        use_fused = fit_gate and all(
+            cands[i][0][1].gang is None or cands[i][0][1].gang.topology is None
+            for i in eligible
+        )
+
+        def run_joint(kern):
+            if use_fused:
+                grouped, fits, _picks = kern.evaluate_joint_plan(
+                    dyn, host_ok_groups, request_groups, self.batch_requests
+                )
+                return grouped, fits
+            return kern.evaluate_joint(
+                dyn, host_ok_groups, request_groups, self.batch_requests
+            ), None
+
+        grouped, joint_fits = self._dispatch(run_joint)
+        if joint_fits is not None:
+            self.fused_plan_dispatches += 1
+        self.dispatch_count += 1
+        if len(eligible) >= 2:
+            self.joint_dispatches += 1
+        else:
+            self.gang_burst_dispatches += 1
+        fleet_version = self._fleet_version(snapshot)
+        base_reserved = np.asarray(dyn[1]).copy()
+        index = {nm: i for i, nm in enumerate(static.names)}
+        # ONE ledger across the whole joint group: gang g's serves deduct
+        # from what gang g+1's serves (and spot-checks) see.
+        shared_consumed: dict[str, int] = {}
+        shared_res: dict[str, list[tuple[str, int, int]]] = {}
+        sim = np.zeros(len(static.names), dtype=np.int64)
+        verdicts: list[str] = []
+        fused: list[str] = []
+        gi = 0
+        for name, cand in zip(gang_names, cands):
+            if not cand:
+                verdicts.append("solo")
+                continue
+            rows = grouped[gi]
+            if not fit_gate:
+                fit_ok = True
+            elif joint_fits is not None:
+                fit_ok = joint_fits[gi]
+            else:
+                fit_ok = self._joint_gang_fits(cand, rows, static, snapshot, sim)
+            gi += 1
+            if not fit_ok:
+                verdicts.append("park")
+                self.joint_parked += 1
+                log.debug(
+                    "gang %s: joint plan cannot fit it whole net of %d "
+                    "higher-priority gang(s); parking untouched",
+                    name, len(fused),
+                )
+                continue
+            self._gang_bursts[name] = _BurstSet(
+                fleet_version=fleet_version,
+                names=list(static.names),
+                index=index,
+                base_reserved=base_reserved,
+                entries={
+                    pod.uid: _BurstEntry(
+                        request=reqk,
+                        constraints=_pod_constraints(pod),
+                        result=rows[m],
+                        pref_bonus=self._preference_bonus(static, snapshot, pod),
+                    )
+                    for m, (pod, _req, reqk) in enumerate(cand)
+                },
+                consumed=shared_consumed,
+                res=shared_res,
+            )
+            fused.append(name)
+            verdicts.append("fused")
+        if len(eligible) >= 2:
+            # Joint dispatch: count every gang it served rows for, and tag
+            # the sets as one group so invalidation drops them together.
+            self.joint_gangs += len(fused)
+        if len(fused) >= 2:
+            group = tuple(fused)
+            for name in fused:
+                self._gang_bursts[name].group = group
+        if len(self._gang_bursts) > 8:
+            # Bounded, like the gang plans: evict stale sets, oldest
+            # first, never this dispatch's own.
+            for stale in [g for g in self._gang_bursts if g not in fused]:
+                if len(self._gang_bursts) <= 8:
+                    break
+                self._drop_gang_burst(stale)
+        return verdicts
+
+    def _gang_candidates(
+        self, pods: "list[PodSpec]"
+    ) -> "list[tuple[PodSpec, object, KernelRequest]] | None":
+        """Validate one gathered gang for a fused dispatch: every member
+        parses and none carries per-cycle state a cached row cannot track
+        (inter-pod terms, spread, hostPorts, PVCs). One ineligible member
+        refuses the whole gang. Returns (pod, parsed request, kernel
+        request) per member, or None = ineligible (members schedule
+        per-cycle)."""
+        from yoda_tpu_torch.api.requests import LabelParseError, pod_request
+
+        out: list[tuple[PodSpec, object, KernelRequest]] = []
+        for pod in pods:
+            try:
+                req = pod_request(pod)
+            except LabelParseError:
+                return None  # the member's own cycle reports the parse error
+            if (
+                req.gang is None
+                or pod_has_inter_pod_terms(pod)
+                or pod.topology_spread
+                or pod.host_ports
+                or pod.pvc_names
+            ):
+                return None
+            out.append((pod, req, KernelRequest.from_request(req)))
+        return out
+
+    def _joint_gang_fits(
+        self,
+        cand: "list[tuple[PodSpec, object, KernelRequest]]",
+        rows: "list[KernelResult]",
+        static: FleetArrays,
+        snapshot: Snapshot,
+        sim: np.ndarray,
+    ) -> bool:
+        """Host-side fit simulation for one gang of a joint dispatch that
+        holds a topology gang: can every gathered member place, net of
+        ``sim`` (the chips earlier fitting gangs' members would claim)?
+        Fitting gangs consume into ``sim``; an unfit gang consumes nothing.
+        A PREDICATE, not a placement: the serve path re-validates every
+        pick. Topology gangs run the real block planner against the first
+        member's row; plain gangs greedily deduct each member's own row's
+        claimable in score order (the joint-fit scan's semantics)."""
+        from yoda_tpu_torch.plugins.yoda.topology import plan_multislice_placement
+
+        req0 = cand[0][1]
+        spec = getattr(req0, "gang", None)
+        chips0 = max(cand[0][2].number, 1)
+        if spec is not None and spec.topology is not None:
+            row0 = rows[0]
+            idx = {nm: i for i, nm in enumerate(static.names)}
+
+            def host_ok(ni) -> bool:
+                i = idx.get(ni.name)
+                return (
+                    i is not None
+                    and bool(row0.feasible[i])
+                    and int(row0.claimable[i]) - int(sim[i]) >= chips0
+                )
+
+            plan = plan_multislice_placement(
+                snapshot,
+                want_dims=spec.topology,
+                slices=spec.slices,
+                host_ok=host_ok,
+            )
+            if plan is None:
+                return False
+            # Gathered members claim one planned host each (partial gangs
+            # claim only what they will reserve this turn).
+            for host in sorted(plan)[: len(cand)]:
+                sim[idx[host]] += chips0
+            return True
+        tentative = sim.copy()
+        for (_pod, _req, reqk), row in zip(cand, rows):
+            chips = max(reqk.number, 1)
+            avail = row.claimable.astype(np.int64) - tentative
+            ok = row.feasible.astype(bool) & (avail >= chips)
+            if not ok.any():
+                return False
+            tentative[int(np.argmax(np.where(ok, row.scores, -1)))] += chips
+        sim[:] = tentative
+        return True
+
+    def _drop_gang_burst(self, gang: str) -> None:
+        b = self._gang_bursts.pop(gang, None)
+        if b is None:
+            return
+        self.gang_burst_invalidated += len(b.entries)
+        log.debug("gang %s: fused dispatch rows invalidated", gang)
+        # A joint group's sets share one dispatch baseline and ledger:
+        # stale for one gang means stale for every sibling gang.
+        for sibling in b.group or ():
+            s = self._gang_bursts.pop(sibling, None)
+            if s is not None:
+                self.gang_burst_invalidated += len(s.entries)
+
+    def _serve_joint_burst(
+        self,
+        state: CycleState,
+        pod: PodSpec,
+        gang: str,
+        snapshot: Snapshot,
+        reqk: KernelRequest,
+    ) -> tuple[dict[str, Status], dict[str, int]] | None:
+        """Serve a gang member's cycle from the gang-fused or joint
+        dispatch — its own row, minus what earlier members claimed
+        (``consumed``; shared across a joint group's gangs), pinned to the
+        gang's planned hosts when the PreFilter wrote them, and
+        spot-checked against the live accountant/Node state exactly like a
+        burst serve. None = dispatch fresh (a stale row must never park a
+        pod)."""
+        b = self._gang_bursts.get(gang)
+        if b is None:
+            return None
+        if self._fleet_version(snapshot) != b.fleet_version:
+            self._drop_gang_burst(gang)  # the fleet changed: rows are stale
+            return None
+        entry = b.entries.get(pod.uid)
+        if entry is None:
+            return None
+        if reqk != entry.request or _pod_constraints(pod) != entry.constraints:
+            # The pod changed between gather and its cycle (watch update).
+            del b.entries[pod.uid]
+            self.gang_burst_invalidated += 1
+            if not b.entries:
+                self._gang_bursts.pop(gang, None)
+            return None
+        allowed = (
+            state.read(ALLOWED_HOSTS_KEY).hosts
+            if state.contains(ALLOWED_HOSTS_KEY)
+            else None
+        )
+        chips = max(reqk.number, 1)
+        result = entry.result
+        statuses: dict[str, Status] = {}
+        scores: dict[str, int] = {}
+        sibling = Status.unschedulable(
+            "chips claimed by a gang sibling (gang-fused pass)"
+        )
+        outside = Status.unschedulable("host not in gang's planned ICI block")
+        for i, name in enumerate(b.names):
+            if result.feasible[i]:
+                if allowed is not None and name not in allowed:
+                    statuses[name] = outside
+                    continue
+                used = b.consumed.get(name, 0)
+                if used and result.claimable[i] - used < chips:
+                    statuses[name] = sibling
+                    continue
+                statuses[name] = Status.ok()
+                scores[name] = int(result.scores[i]) + int(entry.pref_bonus[i])
+            else:
+                reason = REASON_MESSAGES.get(int(result.reasons[i]), "infeasible")
+                statuses[name] = Status.unschedulable(reason)
+        del b.entries[pod.uid]
+        if not b.entries:
+            self._gang_bursts.pop(gang, None)
+        if not scores:
+            # Stale rows (a release between gather and this cycle frees
+            # chips without a metrics bump) must fall back to a fresh
+            # dispatch, never park the member.
+            return None
+        best = max(scores, key=lambda nm: (scores[nm], nm))
+        if not self._pick_checks(b, pod, best, snapshot):
+            self._drop_gang_burst(gang)
+            self.gang_burst_invalidated += 1  # this row, beyond the set
+            return None
+        b.consumed[best] = b.consumed.get(best, 0) + chips
+        b.res.setdefault(best, []).append(
+            (pod.uid, pod.cpu_milli_request, pod.memory_request)
+        )
+        self.gang_burst_served += 1
+        # Single-choice serving, as for bursts and the gang plan.
+        held = Status.unschedulable("chips held for gang siblings (gang-fused pass)")
+        statuses = {
+            nm: (st if not st.success else (Status.ok() if nm == best else held))
+            for nm, st in statuses.items()
+        }
+        return statuses, {best: scores[best]}
+
+    # --- whole-gang batched placement (the lazy gang plan) ---
+
+    def _build_gang_plan(
+        self,
+        state: CycleState,
+        pod: PodSpec,
+        gang: str,
+        snapshot: Snapshot,
+        reqk: KernelRequest,
+        static: FleetArrays,
+        result: KernelResult,
+        statuses: dict[str, Status],
+        scores: dict[str, int],
+        pref_bonus: np.ndarray,
+    ) -> None:
+        """Place every remaining gang member host-side from THIS dispatch's
+        result: greedy argmax by (score, name) — identical to the scheduler's
+        pick — decrementing per-node ``claimable`` chips between members
+        (and, for topology gangs, consuming one planned host per member).
+        picks[0] reproduces the scheduler's choice for the dispatching member;
+        the rest are served to sibling cycles by :meth:`_serve_gang_plan`."""
+        self._gang_plans.pop(gang, None)
+        if (
+            self.reserved_fn is None
+            or result.claimable is None
+            or not snapshot.version  # 0 = uncacheable snapshot
+        ):
+            return
+        # Inter-pod terms and spread constraints are evaluated per cycle;
+        # a plan built from one dispatch cannot track them.
+        if pod_has_inter_pod_terms(pod) or pod.topology_spread:
+            return
+        k = (
+            state.read(GANG_REMAINING_KEY).count
+            if state.contains(GANG_REMAINING_KEY)
+            else 0
+        )
+        if k <= 1:
+            return
+        chips = max(reqk.number, 1)
+        names = static.names
+        n = len(names)
+        one_per_host = False
+        eligible = result.feasible[:n].astype(bool).copy()
+        if state.contains(ALLOWED_HOSTS_KEY):
+            hosts = state.read(ALLOWED_HOSTS_KEY).hosts
+            eligible &= np.fromiter(
+                (nm in hosts for nm in names), dtype=bool, count=n
+            )
+            one_per_host = True  # topology plans are one member per host
+        avail = result.claimable[:n].astype(np.int64).copy()
+        pending_res = get_pending_resources(state)
+
+        def members_cap(name: str) -> int | None:
+            """How many ADDITIONAL identical members the node can take by
+            cpu/memory/pod-count allocatable (None = unconstrained): chips
+            alone are not the only capacity a plan must respect."""
+            if pod.host_ports:
+                # Identical siblings claiming a hostPort always conflict
+                # with each other: one member per node.
+                return 1
+            if name not in snapshot:
+                return None
+            ni = snapshot.get(name)
+            node = ni.node
+            if node is None:
+                return None
+            p_cpu, p_mem, p_n = (
+                pending_res.get(name, (0, 0, 0)) if pending_res else (0, 0, 0)
+            )
+            cap: int | None = None
+            if node.alloc_pods:
+                cap = node.alloc_pods - len(ni.pods) - p_n
+            if pod.cpu_milli_request and node.alloc_cpu_milli:
+                used = sum(p.cpu_milli_request for p in ni.pods) + p_cpu
+                c = (node.alloc_cpu_milli - used) // pod.cpu_milli_request
+                cap = c if cap is None else min(cap, c)
+            if pod.memory_request and node.alloc_memory:
+                used = sum(p.memory_request for p in ni.pods) + p_mem
+                c = (node.alloc_memory - used) // pod.memory_request
+                cap = c if cap is None else min(cap, c)
+            return cap
+
+        # One vectorized descending (score, name) ranking, then a walk:
+        # scores never change between picks, so the greedy argmax is always
+        # the first still-eligible node in this order.
+        order = np.lexsort(
+            (np.array(names), result.scores[:n] + pref_bonus[:n])
+        )[::-1]
+        picks: list[str] = []
+        for i in order:
+            if not eligible[i]:
+                continue
+            cap = members_cap(names[i])
+            taken = 0
+            while (
+                len(picks) < k
+                and avail[i] >= chips
+                and (cap is None or taken < cap)
+            ):
+                picks.append(names[i])
+                avail[i] -= chips
+                taken += 1
+                if one_per_host:
+                    break
+            if len(picks) >= k:
+                break
+        if len(picks) < 2:
+            return  # nothing to serve beyond the current member
+        self._gang_plans[gang] = _GangPlan(
+            gang=gang,
+            snapshot_version=snapshot.version,
+            request=reqk,
+            constraints=_pod_constraints(pod),
+            picks=picks,
+            # Copies: the runtime owns and may mutate the returned dicts.
+            base={nm: self.reserved_fn(nm) for nm in set(picks)},
+            statuses=dict(statuses),
+            scores=dict(scores),
+        )
+        if len(self._gang_plans) > 16:
+            # Bounded: evict the oldest LIVE plan (counted as an
+            # invalidation).
+            self._invalidate_plan(next(iter(self._gang_plans)))
+
+    def _serve_gang_plan(
+        self,
+        state: CycleState,
+        pod: PodSpec,
+        gang: str,
+        snapshot: Snapshot,
+        reqk: KernelRequest,
+    ) -> tuple[dict[str, Status], dict[str, int]] | None:
+        """Serve a sibling member its pre-planned node — after validating
+        the plan still describes reality. None = dispatch normally."""
+        plan = self._gang_plans.get(gang)
+        if plan is None:
+            return None
+        if plan.next_idx >= len(plan.picks) or self.reserved_fn is None:
+            # Defensive only — a benign drop, not a validation failure.
+            self._gang_plans.pop(gang, None)
+            return None
+        if (
+            snapshot.version != plan.snapshot_version
+            or reqk != plan.request  # members must request identically
+            or _pod_constraints(pod) != plan.constraints  # and constrain so
+        ):
+            self._invalidate_plan(gang)
+            return None
+        node = plan.picks[plan.next_idx]
+        # Every previously-served member must have reserved where predicted,
+        # and the node about to be served must hold exactly its predicted
+        # reservations — a foreign pod reserving onto ANY planned node
+        # invalidates the plan.
+        chips = max(plan.request.number, 1)
+        served = Counter(plan.picks[: plan.next_idx])
+        for nm in set(plan.picks[: plan.next_idx]) | {node}:
+            if self.reserved_fn(nm) != plan.base[nm] + chips * served[nm]:
+                self._invalidate_plan(gang)
+                return None
+        if state.contains(ALLOWED_HOSTS_KEY) and node not in state.read(
+            ALLOWED_HOSTS_KEY
+        ).hosts:
+            self._invalidate_plan(gang)  # the gang re-planned
+            return None
+        plan.next_idx += 1
+        self.plan_served += 1
+        if plan.next_idx >= len(plan.picks):
+            # Fully served: release the plan now, so a later gang reusing
+            # the same name does not count as an invalidation.
+            self._gang_plans.pop(gang, None)
+        held = Status.unschedulable(
+            "chips held for gang siblings (batched placement)"
+        )
+        ok = Status.ok()
+        statuses = {
+            nm: (st if not st.success else (ok if nm == node else held))
+            for nm, st in plan.statuses.items()
+        }
+        return statuses, {node: plan.scores.get(node, 0)}
+
+    def _invalidate_plan(self, gang: str) -> None:
+        if self._gang_plans.pop(gang, None) is not None:
+            self.plan_invalidated += 1
+            log.debug("gang %s: placement plan invalidated", gang)

@@ -7,9 +7,10 @@ with bounded jittered exponential backoff before it is reported as a
 scheduling failure.
 
 Counterpart of ``yoda_tpu/plugins/yoda/binder.py``, ported as far as the
-singleton path reaches it. Left out until a later slice: worker-side
-leader fencing, the interruptible (stop-event) backoff of the bind
-executor, the bind wall-time hook and ``unbind`` (gang rollback).
+singleton and gang paths reach it, ``unbind`` (the gang rollback)
+included. Left out until a later slice: worker-side leader fencing, the
+interruptible (stop-event) backoff of the bind executor and the bind
+wall-time hook.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ class ClusterBinder(BindPlugin):
         self.rng = rng or random.Random()
         self.sleep = sleep
         self.retries = 0
+        self.unbinds = 0
 
     def bind(self, state: CycleState, pod: PodSpec, node_name: str) -> Status:
         def on_retry(attempt: int, e: BaseException) -> None:
@@ -68,4 +70,35 @@ class ClusterBinder(BindPlugin):
             )
         except Exception as e:  # retries exhausted or genuinely infeasible
             return Status.error(f"binding {pod.key} to {node_name}: {e}")
+        return Status.ok()
+
+    def unbind(self, state: CycleState, pod: PodSpec, node_name: str) -> Status:
+        """Reverse a bind (gang rollback). Best-effort with the same
+        transient-retry policy; backends without any rollback surface
+        report an error and the caller logs the stranded pod."""
+        target = getattr(self.cluster, "unbind_pod", None)
+        if target is None:
+            # No unbind and no delete: nothing this backend can do.
+            target = getattr(self.cluster, "delete_pod", None)
+            if target is None:
+                return Status.error(
+                    f"backend cannot roll back binding of {pod.key}"
+                )
+            call = lambda: target(pod.key)  # noqa: E731
+        else:
+            call = lambda: target(pod.key, node_name)  # noqa: E731
+        try:
+            call_with_retries(
+                call,
+                policy=self.policy,
+                rng=self.rng,
+                sleep=self.sleep,
+                on_retry=lambda a, e: log.warning(
+                    "unbind %s from %s failed transiently (attempt %d: %s); "
+                    "retrying", pod.key, node_name, a + 1, e,
+                ),
+            )
+        except Exception as e:  # noqa: BLE001 — rollback must not raise
+            return Status.error(f"unbinding {pod.key} from {node_name}: {e}")
+        self.unbinds += 1
         return Status.ok()

@@ -3,12 +3,15 @@
 
 Counterpart of ``yoda_tpu/standalone.py``: a single-stack ``build_stack``
 that wires only the parts this port has — informer snapshot →
-``YodaPreFilter`` → ``YodaBatch`` dispatch (the hand CUDA kernel on the
-card) → Reserve on ``ChipAccountant`` → bind. Left out until a later
-slice: the gang plugin, preemption, the speculative placement cache, node
-health, the rebalancer, the reconciler, the bind executor, tracing /
-metrics / SLO / overload, batched ingest, tenancy, the durable journal,
-profiles, shards and federation.
+``YodaPreFilter`` → ``GangPlugin`` admission → ``YodaBatch`` dispatch (the
+hand CUDA kernels on the card: the fleet evaluation, and the joint-fit
+scan for joint gang passes) → Reserve on ``ChipAccountant`` → Permit (the
+gang barrier) → bind, with the gang plugin watching pods and hosts
+(delete fast path, host-death marks, restart reconstruction). Left out
+until a later slice: preemption, the speculative placement cache, node
+health, the rebalancer, the reconciler, the bind executor (binds run
+inline), tracing / metrics / SLO / overload, batched ingest, tenancy, the
+durable journal, profiles, shards and federation.
 
 A knob of such a subsystem loads (``config.SchedulerConfig`` keeps every
 knob of the reference), but ``build_stack`` raises ``NotImplementedError``
@@ -29,7 +32,7 @@ from yoda_tpu_torch.config import SchedulerConfig
 from yoda_tpu_torch.framework.queue import SchedulingQueue
 from yoda_tpu_torch.framework.runtime import Framework
 from yoda_tpu_torch.framework.scheduler import Scheduler
-from yoda_tpu_torch.plugins.yoda import YodaBatch, default_plugins
+from yoda_tpu_torch.plugins.yoda import GangPlugin, YodaBatch, default_plugins
 from yoda_tpu_torch.plugins.yoda.accounting import ChipAccountant
 from yoda_tpu_torch.plugins.yoda.binder import ClusterBinder
 
@@ -47,6 +50,7 @@ PORTED_KNOBS = frozenset(
         "bind_retry_base_s",
         "bind_retry_cap_s",
         "immediate_retry_attempts",
+        "gang_permit_timeout_s",
     }
 )
 
@@ -94,6 +98,7 @@ class Stack:
     scheduler: Scheduler
     binder: ClusterBinder
     batch: YodaBatch
+    gang: GangPlugin
 
 
 def build_stack(
@@ -101,13 +106,15 @@ def build_stack(
     config: SchedulerConfig | None = None,
     *,
     clock=time.monotonic,
+    extra_plugins: "list | None" = None,
 ) -> Stack:
     """Build a fully-wired scheduler stack against ``cluster`` (a fresh
     FakeCluster by default). Watchers are registered list-then-watch, so a
-    stack built against a populated cluster reconstructs accounting state
-    from existing bound pods. The fleet evaluation runs on the CUDA device
-    unless ``config.kernel_platform`` is "cpu"; with no card present the
-    default raises."""
+    stack built against a populated cluster reconstructs accounting and
+    gang membership from existing bound pods. The fleet evaluation runs on
+    the CUDA device unless ``config.kernel_platform`` is "cpu"; with no
+    card present the default raises. ``extra_plugins`` join the set ahead
+    of the binder (a bind plugin there answers first)."""
     cluster = cluster or FakeCluster()
     config = config or SchedulerConfig()
     unported = unported_settings(config)
@@ -116,6 +123,10 @@ def build_stack(
             "not yet ported to yoda_tpu_torch: " + ", ".join(unported)
         )
     accountant = ChipAccountant(scheduler_name=config.scheduler_name)
+    gang = GangPlugin(
+        timeout_s=config.gang_permit_timeout_s,
+        reserved_fn=accountant.chips_in_use,
+    )
     plugins = default_plugins(
         weights=config.effective_weights(),
         reserved_fn=accountant.chips_in_use,
@@ -123,10 +134,16 @@ def build_stack(
         kernel_platform=config.kernel_platform,
         kernel_backend=config.kernel_backend,
         batch_requests=config.batch_requests,
+        # Gang members parked at Permit: their claims stay visible to
+        # admission and to the burst gate.
+        pending_fn=gang.pending_placements,
         # Bulk accountant read: one lock per dispatch, not N.
         reserved_map_fn=accountant.chips_by_node,
     )
+    plugins.append(gang)
     plugins.append(accountant)
+    if extra_plugins:
+        plugins.extend(extra_plugins)
     binder = ClusterBinder(
         cluster,
         retry_attempts=config.bind_retry_attempts,
@@ -135,6 +152,7 @@ def build_stack(
     )
     plugins.append(binder)
     framework = Framework(plugins)
+    gang.attach_framework(framework)
     queue = SchedulingQueue(
         framework.queue_sort,
         clock=clock,
@@ -149,7 +167,9 @@ def build_stack(
 
     def on_change_batch(events: "list[Event]") -> None:
         """ONE reactivation decision per applied batch; a pod deleted while
-        queued leaves the queue now."""
+        queued leaves the queue now (the Permit-parked half of this fast
+        path lives in GangPlugin.handle: the deleted member's wait is
+        rejected and the cascade releases the gang immediately)."""
         for event in events:
             if event.kind == "Pod" and event.type == "deleted":
                 queue.remove(event.obj.uid)
@@ -166,9 +186,10 @@ def build_stack(
     batch.claimed_fn = informer.claimed_hbm_mib
     batch.claimed_map_fn = informer.claimed_hbm_mib_map
     batch.last_updated_map_fn = informer.last_updated_map
-    # Accountant before informer: reservation releases precede the
-    # informer's view of the same event.
+    # Accountant and gang before informer: reservation releases and
+    # membership changes precede the informer's view of the same event.
     cluster.add_watcher(accountant.handle)
+    cluster.add_watcher(gang.handle)
     cluster.add_watcher(informer.handle, batch_fn=informer.handle_batch)
     scheduler = Scheduler(
         framework,
@@ -179,5 +200,6 @@ def build_stack(
         burst_size=config.batch_requests,
     )
     return Stack(
-        cluster, informer, accountant, framework, queue, scheduler, binder, batch
+        cluster, informer, accountant, framework, queue, scheduler, binder,
+        batch, gang,
     )
