@@ -19,18 +19,28 @@ Phases, each of which makes the script exit non-zero when it fails:
      version's, the bound (the bytes the function must move over the
      card's 3.35 TB/s) and an nvidia-smi sample of SM clock and power. At
      the main path's shapes and 65,536 nodes also the kernel's device time
-     and the CUDA launches per call from a torch.profiler window (which
-     must be 1), and at the main path's shapes the host round trip of
+     and the CUDA launches per call from a torch.profiler window (one per
+     call: the kernel's events equal to the calls and to the wrapper's own
+     launch count over the window, no other device event; a window in
+     which the tracer lost kernel events is reopened, up to three, and
+     printed), and at the main path's shapes the host round trip of
      TorchFleetKernel.evaluate_burst (pack, upload, launch, fetch), back
      to back and after 5 ms of sleep or of host work between calls.
    - joint_fit: seeded [K, 6, N] rows with heavy score ties, padding rows
      and gangs that fail at their first row, part-way and after a fit, at
-     (K, N) = (1, 1), (3, 37), (16, 5000), (64, 8192), (256, 8192) and
-     (64, 65,536) (the last keeps its ledgers in global memory); picks,
-     group verdicts and the ledger must be equal. Per shape the same
-     times, the device time and launches per call from the profiler, and
-     the bound. The scan is a dependent chain of K block-wide arg-maxes,
-     so the bytes bound is far below what a sequential design reaches.
+     (K, N) = (1, 1), (3, 37), (16, 5000), (64, 8192), (256, 8192),
+     (64, 65,536), (16, 262,144) (past the shared-memory ledgers: tent in
+     a global scratch) and (64, 8191) (every row misaligned for the bulk
+     copies); plus run (c)'s plain gangs as the scan sees them (8 gangs x
+     16 identical rows, each taking a whole 8-chip host: every pick the
+     next-best host) and equal top scores on both sides of every slice
+     edge. Picks, group verdicts and the ledger must be equal. Per shape:
+     the cluster plan (blocks, threads, ring stages, shared bytes, shared
+     ledgers), the times as above, the device time and launches per call
+     from the profiler, us per row, the bound, and beside them the device
+     ms of the one-block design that this one replaced, as PERF.md records
+     it from an earlier run (not measured here). The scan is a dependent chain of K cluster-wide arg-maxes, so
+     the bytes bound is far below what any sequential design reaches.
 3. The main path: the port's build_stack over its FakeCluster, a
    5,000-node fleet published by its FakeTpuAgent (512 v5p 2x2x1 slices =
    2,048 hosts x 4 chips, each a v5p-32, plus 2,952 v5e hosts x 8 chips),
@@ -63,7 +73,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    pods/s, per-pod p50/p99, gang completion p50/p99 (first member's cycle
    start to the last member's bind, on the scheduler's clock), evaluation
    ms per call, and for (c)/(d) the joint_fit device ms on the inputs the
-   run gave it.
+   run gave it (and us per row; per recorded launch where the tracer lost
+   kernel records, with every profiler window it opened).
 4. One line {"kernels": [...]} with each kernel's launches on the main
    path, its largest difference from the plain version and its times
    ("not measured" where the profiler saw no device activity).
@@ -102,8 +113,20 @@ KERNEL_SHAPES = [  # (real nodes, padded nodes, requests K)
 # fleet_eval past one launch's 128 requests: chunked, still exact.
 CHUNKED_SHAPES = [(5000, 8192, 144), (5000, 8192, 256)]
 MAIN_PATH_SHAPE = (5000, 8192, 16)
-JOINT_SHAPES = [(1, 1), (3, 37), (16, 5000), (64, 8192), (256, 8192), (64, 65536)]
+JOINT_SHAPES = [
+    (1, 1), (3, 37), (16, 5000), (64, 8192), (256, 8192), (64, 65536),
+    (16, 262144),  # past the shared-memory ledgers
+    (64, 8191),    # rows misaligned for the bulk copies
+]
 JOINT_MAIN_SHAPE = (64, 8192)  # run (d)'s joint pass
+# The one-block design that joint_fit.cu's cluster design replaced: its
+# device ms per call as PERF.md records them from the run that measured it
+# (H100 80GB HBM3 at 700 W). Not measured here: printed beside this run's
+# times on the per-shape lines only, never in the kernels line.
+ONE_BLOCK_DEVICE_MS = {
+    (1, 1): 0.0022, (3, 37): 0.0041, (16, 5000): 0.0416, (64, 8192): 0.2207,
+    (256, 8192): 0.8783, (64, 65536): 2.3456, "run c": 0.403, "run d": 0.047,
+}
 # Shapes whose device time the profiler reads: the main path's two and a
 # fleet of 65,536 nodes.
 PROFILED_SHAPES = [(5000, 8192, 1), (5000, 8192, 16), (65536, 65536, 16)]
@@ -191,33 +214,74 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
 
 
 def profiled_ms(
-    fn, calls: int = 20, kernel: str = "fleet_eval"
-) -> tuple[float | None, float | None]:
-    """Device time of ``kernel`` per call and CUDA launches (kernels and
-    memsets) per call, from a torch.profiler window over ``calls`` calls of
-    ``fn``; (None, None) when the profiler records no device activity."""
+    fn, counter, calls: int = 20, kernel: str = "fleet_eval", windows: int = 3,
+    short_ok: bool = False,
+) -> tuple[float | None, float | None, list[dict]]:
+    """Device time of ``kernel`` per launch and its CUDA launches per call,
+    from a torch.profiler window over ``calls`` calls of ``fn``, and what
+    each window opened saw; (None, None, windows) when the profiler records
+    no device activity. ``counter()`` reads the wrapper's own launch count.
+
+    Each window is held against two counts besides its kernel events: the
+    wrapper's own launches over it, which must equal ``calls``, and the
+    launch calls (cudaLaunch*) that the tracer recorded on the host. It
+    raises on any device event but ``kernel``'s (a memset, another kernel)
+    and on more kernel events or launch calls than ``calls``. The first
+    window with exactly ``calls`` kernel events gives the times; a short
+    one is reopened, up to ``windows`` windows, and when none is exact it
+    raises. With ``short_ok``, for inputs on which the tracer was seen to
+    lose kernel records (on an H100 80GB HBM3, 1 or all 20 of them on the
+    gang runs' inputs, while both counts said 20), the fullest short window
+    whose host launch calls equal ``calls`` gives the device time per
+    recorded launch instead, and the launches per call are those launch
+    calls per call. Each window opens 50 ms before its first call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kernel_us, device_events = None, 0
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA or evt.key.startswith("Memcpy"):
-            continue
-        device_events += evt.count
-        if kernel in evt.key:
+    seen, fullest = [], None
+    for _ in range(windows):
+        before = counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernel_us, events, launch_calls, others = 0.0, 0, 0, {}
+        for evt in prof.key_averages():
+            if evt.device_type != DeviceType.CUDA:
+                if evt.key.startswith("cudaLaunch"):
+                    launch_calls += evt.count
+                continue
+            if evt.key.startswith("Memcpy"):
+                continue
+            if kernel not in evt.key:
+                others[evt.key] = evt.count
+                continue
+            events += evt.count
             total = getattr(evt, "self_device_time_total", None)
             if total is None:
                 total = evt.self_cuda_time_total
-            kernel_us = (kernel_us or 0.0) + total
-    if kernel_us is None:
-        return None, None
-    return kernel_us / calls / 1e3, device_events / calls
+            kernel_us += total
+        window = dict(kernel_events=events, wrapper_launches=counter() - before,
+                      host_launch_calls=launch_calls)
+        seen.append(window)
+        if others or max(events, launch_calls) > calls or window["wrapper_launches"] != calls:
+            raise AssertionError(
+                f"{kernel}: not one launch per call in {calls} calls: {window}, "
+                f"other device events {others}"
+            )
+        if events == calls:
+            return kernel_us / calls / 1e3, events / calls, seen
+        if events and launch_calls == calls and (fullest is None or events > fullest[1]):
+            fullest = (kernel_us, events, launch_calls)
+    if short_ok and fullest is not None:
+        kernel_us, events, launch_calls = fullest
+        return kernel_us / events / 1e3, launch_calls / calls, seen
+    if any(window["kernel_events"] for window in seen):
+        raise AssertionError(f"{kernel}: no profiler window held {calls} launches: {seen}")
+    return None, None, seen
 
 
 def smi_sample() -> str:
@@ -336,6 +400,43 @@ def joint_case(k: int, n: int, seed: int):
     return (packed, *joint_fit_vectors(requests, offsets))
 
 
+def identical_rows_case(n_hosts: int = 5000, n: int = 8192, gangs: int = 8,
+                        size: int = 16, seed: int = 31):
+    """Run (c)'s plain gangs as the scan sees them: ``gangs`` gangs of
+    ``size`` rows with the same feasibility and scores, each row demanding
+    a whole 8-chip host on 8-chip hosts (claimable 8), with score ties."""
+    from yoda_tpu_torch.ops.kernel import KernelRequest, joint_fit_vectors
+
+    rng = np.random.default_rng(seed)
+    packed = np.zeros((gangs * size, 6, n), dtype=np.int32)
+    feas = np.zeros(n, dtype=np.int32)
+    feas[:n_hosts] = rng.random(n_hosts) > 0.1
+    packed[:, 0] = feas
+    packed[:, 3] = rng.integers(0, 40, size=n)
+    packed[:, 5] = 8 * (np.arange(n) < n_hosts)
+    requests = [KernelRequest(8, 0, 0, 0, 0)] * (gangs * size)
+    return (packed, *joint_fit_vectors(requests, list(range(0, gangs * size + 1, size))))
+
+
+def slice_edge_case(k: int, n: int, slice_words: int, seed: int = 41):
+    """Equal top scores on both sides of every slice edge e (nodes e - 1
+    and e), e - 1 infeasible for the first gang's rows, one-chip demands
+    on one-chip nodes."""
+    from yoda_tpu_torch.ops.kernel import KernelRequest, joint_fit_vectors
+
+    rng = np.random.default_rng(seed)
+    packed = np.zeros((k, 6, n), dtype=np.int32)
+    packed[:, 0] = rng.random((k, n)) > 0.05
+    packed[:, 3] = rng.integers(0, 50, size=(k, n))
+    packed[:, 5] = 1
+    for e in range(slice_words, n, slice_words):
+        packed[:, 3, e - 1] = packed[:, 3, e] = 1000
+        packed[:, 0, e] = 1
+        packed[: k // 2, 0, e - 1] = 0
+    requests = [KernelRequest(1, 0, 0, 0, 0)] * k
+    return (packed, *joint_fit_vectors(requests, [0, k // 2, k]))
+
+
 def joint_bound_ms(k: int, n: int) -> float:
     """Least time for the scan: rows 0, 3 and 5 of [K, 6, N] read once, the
     three [K] side inputs read once, picks and verdicts [K] and the ledger
@@ -345,16 +446,21 @@ def joint_bound_ms(k: int, n: int) -> float:
 
 
 def phase_joint_fit() -> list[dict]:
-    """joint_fit against its plain version at the JOINT_SHAPES."""
+    """joint_fit against its plain version at the JOINT_SHAPES, on the
+    identical-rows case and on ties across slice edges."""
+    from yoda_tpu_torch.ops import cuda_kernel
     from yoda_tpu_torch.ops.cuda_kernel import joint_fit, joint_fit_plan
     from yoda_tpu_torch.ops.kernel import joint_fit_scan
 
     dev = torch.device("cuda", 0)
+    cases = [((k, n), joint_case(k, n, seed=k * 7 + n)) for k, n in JOINT_SHAPES]
+    cases.append(("identical rows", identical_rows_case()))
+    edge_slice = joint_fit_plan(8192, dev)["slice"]
+    cases.append(("slice-edge ties", slice_edge_case(64, 8192, edge_slice)))
     rows = []
-    for k, n in JOINT_SHAPES:
-        packed, chips, starts, valid = (
-            torch.from_numpy(x).to(dev) for x in joint_case(k, n, seed=k * 7 + n)
-        )
+    for name, case in cases:
+        packed, chips, starts, valid = (torch.from_numpy(x).to(dev) for x in case)
+        k, _, n = packed.shape
         got = joint_fit(packed, chips, starts, valid)
 
         def plain():
@@ -369,21 +475,31 @@ def phase_joint_fit() -> list[dict]:
             for g, w in zip(got, want)
         )
         if err or not all(torch.equal(g, w.to(torch.int32)) for g, w in zip(got, want)):
-            raise AssertionError(f"joint_fit != plain at K={k} N={n}: max |diff| {err}")
+            raise AssertionError(f"joint_fit != plain on {name} (K={k} N={n}): max |diff| {err}")
+        if name == "identical rows":
+            feas, scores = case[0][0, 0], case[0][0, 3]
+            order = sorted(np.flatnonzero(feas), key=lambda j: (-int(scores[j]), j))
+            if got[0].cpu().tolist() != order[:k]:
+                raise AssertionError("identical rows: a pick is not the next-best host")
+        plan = joint_fit_plan(n, dev)
+        if n == 65536 and not plan["shared_ledgers"]:
+            raise AssertionError(f"ledgers in global memory at 65,536 nodes: {plan}")
         row = dict(
-            k=k, n=n, max_abs_err=err, tolerance=0, plan=joint_fit_plan(n, dev),
+            case=name if isinstance(name, str) else "seeded", k=k, n=n,
+            max_abs_err=err, tolerance=0, plan=plan,
             taken=int((got[0] >= 0).sum()), gangs_fit=int(got[1].sum()),
             bound_ms=joint_bound_ms(k, n),
             ms=cuda_ms(lambda: joint_fit(packed, chips, starts, valid)),
             plain_ms=cuda_ms(plain, warmup=1, iters=3),
         )
-        row["device_ms"], row["launches_per_call"] = profiled_ms(
-            lambda: joint_fit(packed, chips, starts, valid), kernel="joint_fit"
+        row["device_ms"], row["launches_per_call"], row["profiler_windows"] = profiled_ms(
+            lambda: joint_fit(packed, chips, starts, valid),
+            lambda: cuda_kernel.joint_fit_launches, kernel="joint_fit",
         )
-        if row["launches_per_call"] not in (None, 1):
-            raise AssertionError(
-                f"{row['launches_per_call']} CUDA launches per joint_fit call"
-            )
+        if row["device_ms"] is not None:
+            row["us_per_row"] = 1e3 * row["device_ms"] / k
+        if name in ONE_BLOCK_DEVICE_MS:
+            row["one_block_device_ms_earlier_run"] = ONE_BLOCK_DEVICE_MS[name]
         row["smi"] = smi_sample()
         rows.append(row)
         print("joint_fit", json.dumps(row))
@@ -392,6 +508,7 @@ def phase_joint_fit() -> list[dict]:
 
 def phase_kernel() -> tuple[list[dict], dict]:
     from yoda_tpu_torch.config import SchedulerConfig
+    from yoda_tpu_torch.ops import cuda_kernel
     from yoda_tpu_torch.ops.cuda_kernel import fleet_eval, launch_plan
     from yoda_tpu_torch.ops.kernel import kernel_packed_burst
 
@@ -441,14 +558,10 @@ def phase_kernel() -> tuple[list[dict], dict]:
                     lambda: kernel_packed_burst(*args, w), iters=10
                 )
                 if (n_real, n_pad, k) in PROFILED_SHAPES:
-                    row["device_ms"], row["launches_per_call"] = profiled_ms(
-                        lambda: fleet_eval(*args, w)
+                    (row["device_ms"], row["launches_per_call"],
+                     row["profiler_windows"]) = profiled_ms(
+                        lambda: fleet_eval(*args, w), lambda: cuda_kernel.launches
                     )
-                    if row["launches_per_call"] not in (None, 1):
-                        raise AssertionError(
-                            f"{row['launches_per_call']} CUDA launches per "
-                            f"fleet_eval call at nodes={n_pad} K={k}, not 1"
-                        )
                     if n_pad == 8192:
                         row["round_trips_ms"] = round_trip_ms(
                             chips, nodes, dyn, host_ok, reqs
@@ -740,21 +853,24 @@ def run_gang_path(platform: str, run: str) -> dict:
     )
 
 
-def joint_device_ms(inputs: list[tuple]) -> float | None:
+def joint_device_ms(inputs: list[tuple]) -> tuple[float | None, list[dict]]:
     """joint_fit's device time per call on the inputs a run gave it, from a
-    profiler window over one call per input (after the run's counts were
-    read: these launches are not the main path's)."""
-    from yoda_tpu_torch.ops.cuda_kernel import joint_fit
+    profiler window of 20 calls per input (after the run's counts were
+    read: these launches are not the main path's), and the windows the
+    profiler opened."""
+    from yoda_tpu_torch.ops import cuda_kernel
 
-    if not inputs:
-        return None
-    total = 0.0
+    total, seen = 0.0, []
     for args in inputs:
-        ms, _launches = profiled_ms(lambda: joint_fit(*args), calls=5, kernel="joint_fit")
+        ms, _per_call, windows = profiled_ms(
+            lambda: cuda_kernel.joint_fit(*args), lambda: cuda_kernel.joint_fit_launches,
+            kernel="joint_fit", short_ok=True,
+        )
+        seen += windows
         if ms is None:
-            return None
+            return None, seen
         total += ms
-    return total / len(inputs)
+    return (total / len(inputs) if inputs else None), seen
 
 
 def check_gang_run(g: dict, c: dict) -> None:
@@ -812,7 +928,14 @@ def phase_gang_path(smi: str) -> dict:
     out = {}
     for run in ("c", "d"):
         g = run_gang_path("auto", run)
-        g["joint_fit_device_ms"] = joint_device_ms(g.pop("joint_inputs"))
+        inputs = g.pop("joint_inputs")
+        g["joint_fit_device_ms"], g["joint_fit_profiler_windows"] = joint_device_ms(inputs)
+        g["joint_fit_rows"] = [int(args[0].shape[0]) for args in inputs]
+        if g["joint_fit_device_ms"] is not None and inputs:
+            g["joint_fit_us_per_row"] = (
+                1e3 * g["joint_fit_device_ms"] * len(inputs) / sum(g["joint_fit_rows"])
+            )
+        g["joint_fit_one_block_device_ms_earlier_run"] = ONE_BLOCK_DEVICE_MS[f"run {run}"]
         c = run_gang_path("cpu", run)
         c.pop("joint_inputs")
         summary = {
@@ -898,7 +1021,10 @@ def main() -> None:
     main_row = next(
         r for r in profiled if (r["nodes"], r["padded"], r["k"]) == MAIN_PATH_SHAPE
     )
-    joint_main = next(r for r in joint_rows if (r["k"], r["n"]) == JOINT_MAIN_SHAPE)
+    joint_main = next(
+        r for r in joint_rows
+        if r["case"] == "seeded" and (r["k"], r["n"]) == JOINT_MAIN_SHAPE
+    )
     kernels = {
         "kernels": [
             {
@@ -953,8 +1079,8 @@ def main() -> None:
                 "shapes": [
                     {
                         key: not_measured(r.get(key))
-                        for key in ("k", "n", "ms", "device_ms", "plain_ms",
-                                    "bound_ms", "plan", "smi")
+                        for key in ("case", "k", "n", "ms", "device_ms", "us_per_row",
+                                    "plain_ms", "bound_ms", "plan", "smi")
                     }
                     for r in joint_rows
                 ],

@@ -1,16 +1,27 @@
-"""Where the fleet-evaluation kernel's device time goes, phase by phase.
+"""Where the hand kernels' device time goes, phase by phase.
 
     python3 kernel_phases.py
 
-Needs one CUDA card and nvcc. Builds a copy of
-yoda_tpu_torch/csrc/fleet_eval.cu into build/kernels/ with one read of the
-card's %globaltimer by thread 0 of every block at the kernel's start and
-after each block or grid barrier (the shipped kernel has none), launches it
-at the main path's shapes and at 65,536 nodes, checks its output against
-the plain PyTorch version (exactly equal), and prints per phase the median
-over 5 launches of how far that phase moved the latest block's end (from
-the earliest block's start), in us, beside an nvidia-smi sample of SM clock
-and power. The instrumentation is 14 global stores per block per launch.
+Needs one CUDA card and nvcc. Two parts:
+
+- fleet_eval: builds a copy of yoda_tpu_torch/csrc/fleet_eval.cu into
+  build/kernels/ with one read of the card's %globaltimer by thread 0 of
+  every block at the kernel's start and after each block or grid barrier
+  (the shipped kernel has none), launches it at the main path's shapes and
+  at 65,536 nodes, checks its output against the plain PyTorch version
+  (exactly equal), and prints per phase the median over 5 launches of how
+  far that phase moved the latest block's end (from the earliest block's
+  start), in us, beside an nvidia-smi sample of SM clock and power. The
+  instrumentation is 14 global stores per block per launch.
+- joint_fit: builds a copy of yoda_tpu_torch/csrc/joint_fit.cu in which
+  thread 0 of every block of the cluster reads its SM's clock64 at six
+  marks of each valid row (row start, row's stages arrived and scanned,
+  warp reduced, pairs sent, exchange arrived, merged and claimed) and sums
+  the cycles between marks in registers, written once at the end (7 global
+  stores per block). It runs through the wrapper at the joint shapes of
+  chip_smoke.py, checks the result against the plain scan (exactly equal),
+  and prints per phase the cycles per row (median over blocks, and the
+  largest block's) and us per row at the SM clock nvidia-smi reads.
 """
 
 from __future__ import annotations
@@ -24,10 +35,12 @@ import sys
 import numpy as np
 import torch
 
-from chip_smoke import CHIPS, REQUEST_TABLE, random_fleet, smi_sample
+from chip_smoke import (
+    CHIPS, REQUEST_TABLE, identical_rows_case, joint_case, random_fleet, smi_sample,
+)
 from yoda_tpu_torch.config import SchedulerConfig
 from yoda_tpu_torch.ops import cuda_kernel
-from yoda_tpu_torch.ops.kernel import kernel_packed_burst
+from yoda_tpu_torch.ops.kernel import joint_fit_scan, kernel_packed_burst
 
 SHAPES = [(5000, 8192, 1), (5000, 8192, 16), (65536, 65536, 16)]
 # Boundaries, in kernel order, after the trace point at the kernel's start.
@@ -101,6 +114,116 @@ def build() -> ctypes.CDLL:
     return so
 
 
+JOINT_SHAPES = [(64, 8192), (256, 8192), (64, 65536), (16, 262144)]
+JOINT_PHASES = [
+    "start + side inputs", "stage wait + scan", "warp reduce", "send", "exchange wait",
+    "merge + claim",
+]
+
+
+def traced_joint_source() -> str:
+    """joint_fit.cu with a trace pointer in Args and per-row clock64 sums
+    kept by thread 0 of every block."""
+    src = cuda_kernel.JOINT_SOURCE.read_text()
+
+    def sub(old: str, new: str, count: int = 1) -> None:
+        nonlocal src
+        if src.count(old) != count:
+            raise RuntimeError(f"joint_fit.cu changed: {old!r} found {src.count(old)} times")
+        src = src.replace(old, new)
+
+    def after(anchor: str, mark: int) -> None:
+        sub(anchor, f"{anchor}      TRACE({mark});\n")
+
+    sub("4 nodes a group\n};", "4 nodes a group\n  long long* trace;\n};")
+    sub("namespace {\n", "namespace {\n"
+        "#define TRACE(p) if (a.trace && threadIdx.x == 0) { const long long t_ = clock64(); "
+        "acc_[p] += t_ - last_; last_ = t_; }\n"
+        "long long* g_trace = nullptr;\n")
+    sub("    bool gok = true;  // uniform",
+        "    long long acc_[8] = {};\n    long long last_ = clock64();\n"
+        "    bool gok = true;  // uniform")
+    after("        continue;\n      }\n", 0)
+    after("        release_stage(st);\n      }\n", 1)
+    after("      int any = __any_sync(kFull, cur.ok);\n", 2)
+    sub("      bar_wait(bar, (v >> 1) & 1);\n",
+        "      TRACE(3);\n      bar_wait(bar, (v >> 1) & 1);\n      TRACE(4);\n")
+    after("      ++v;\n", 5)
+    sub("    for_own([&](int l) {\n      const int32_t final_word",
+        "    if (a.trace && threadIdx.x == 0) {\n"
+        f"      for (int p_ = 0; p_ < {len(JOINT_PHASES)}; ++p_) "
+        "a.trace[blockIdx.x * 8 + p_] = acc_[p_];\n"
+        "      a.trace[blockIdx.x * 8 + 7] = v;\n    }\n"
+        "    for_own([&](int l) {\n      const int32_t final_word")
+    sub("    const Args a{", "    Args a{")
+    sub("    cudaLaunchConfig_t cfg = {};\n    cudaLaunchAttribute attr[1];\n"
+        "    attr[0].id = cudaLaunchAttributeClusterDimension;\n    attr[0].val.clusterDim.x = p.blocks;\n"
+        "    attr[0].val.clusterDim.y = 1;\n    attr[0].val.clusterDim.z = 1;\n    cfg.gridDim",
+        "    a.trace = g_trace;\n"
+        "    cudaLaunchConfig_t cfg = {};\n    cudaLaunchAttribute attr[1];\n"
+        "    attr[0].id = cudaLaunchAttributeClusterDimension;\n    attr[0].val.clusterDim.x = p.blocks;\n"
+        "    attr[0].val.clusterDim.y = 1;\n    attr[0].val.clusterDim.z = 1;\n    cfg.gridDim")
+    return src + '\nextern "C" void joint_fit_set_trace(long long* p) { g_trace = p; }\n'
+
+
+def joint_main() -> None:
+    """Per-phase cycles of joint_fit's row loop at the joint shapes."""
+    cuda_kernel.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    source = cuda_kernel.BUILD_DIR / "joint_fit_traced.cu"
+    lib = cuda_kernel.BUILD_DIR / "libjoint_fit_traced.so"
+    source.write_text(traced_joint_source())
+    subprocess.run(
+        [cuda_kernel._nvcc(), *cuda_kernel.NVCC_FLAGS, "-o", str(lib), str(source)],
+        check=True, capture_output=True, text=True,
+    )
+    so = ctypes.CDLL(str(lib))
+    cuda_kernel._declare(so, cuda_kernel.JOINT_SOURCE)
+    so.joint_fit_set_trace.argtypes = [ctypes.c_void_p]
+    dev = torch.device("cuda", 0)
+    shipped = cuda_kernel._libs.get(cuda_kernel.JOINT_SOURCE)
+    cuda_kernel._libs[cuda_kernel.JOINT_SOURCE] = so
+    cuda_kernel._joint_plans.clear()
+    cases = [(f"{k}x{n}", joint_case(k, n, seed=k * 7 + n)) for k, n in JOINT_SHAPES]
+    cases.append(("identical rows 128x8192", identical_rows_case()))
+    try:
+        for name, case in cases:
+            packed, chips, starts, valid = (torch.from_numpy(x).to(dev) for x in case)
+            n = packed.shape[2]
+            plan = cuda_kernel.joint_fit_plan(n, dev)
+            trace = torch.zeros(plan["blocks"] * 8, dtype=torch.int64, device=dev)
+            got = cuda_kernel.joint_fit(packed, chips, starts, valid)  # warm-up
+            so.joint_fit_set_trace(ctypes.c_void_p(trace.data_ptr()))
+            got = cuda_kernel.joint_fit(packed, chips, starts, valid)
+            torch.cuda.synchronize()
+            so.joint_fit_set_trace(None)
+            want = joint_fit_scan(packed[:, 0], packed[:, 3], packed[:, 5], chips, starts, valid)
+            if not all(torch.equal(g, w.to(torch.int32)) for g, w in zip(got, want)):
+                raise AssertionError(f"traced joint_fit != plain on {name}")
+            t = trace.view(plan["blocks"], 8).cpu().numpy()
+            rows = int(t[0, 7])
+            per_row = t[:, : len(JOINT_PHASES)] / max(rows, 1)
+            smi = smi_sample()
+            mhz = float(smi.split()[0])
+            med = np.median(per_row, axis=0)
+            print("joint_fit", json.dumps({
+                "case": name, "rows": rows, "blocks": plan["blocks"],
+                "threads": plan["threads"], "stages": plan["stages"],
+                "shared_ledgers": plan["shared_ledgers"],
+                "cycles_per_row": {p: round(float(v), 1) for p, v in zip(JOINT_PHASES, med)},
+                "max_block_cycles_per_row": {
+                    p: round(float(v), 1) for p, v in zip(JOINT_PHASES, per_row.max(axis=0))
+                },
+                "us_per_row": round(float(med.sum()) / mhz, 4),
+                "smi": smi,
+            }))
+    finally:
+        if shipped is None:
+            cuda_kernel._libs.pop(cuda_kernel.JOINT_SOURCE, None)
+        else:
+            cuda_kernel._libs[cuda_kernel.JOINT_SOURCE] = shipped
+        cuda_kernel._joint_plans.clear()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("no CUDA device: kernel_phases.py needs one NVIDIA GPU", file=sys.stderr)
@@ -151,6 +274,7 @@ def main() -> None:
             "phases_us": {p: round(float(v), 2) for p, v in zip(PHASES, med)},
             "smi": smi_sample(),
         }))
+    joint_main()
 
 
 if __name__ == "__main__":

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import identical_rows_case, joint_case, slice_edge_case
 from yoda_tpu_torch.agent.fake_publisher import FakeTpuAgent
 from yoda_tpu_torch.api.types import PodSpec
 from yoda_tpu_torch.config import SchedulerConfig, Weights
@@ -21,7 +22,6 @@ from yoda_tpu_torch.ops.kernel import (
     KernelRequest,
     TorchFleetKernel,
     joint_fit_scan,
-    joint_fit_vectors,
     kernel_packed_burst,
 )
 from yoda_tpu_torch.standalone import build_stack
@@ -102,27 +102,6 @@ def widen_metrics(inputs, seed: int):
     chips[3] = np.where(valid, chips[4] - rng.integers(0, 10**7, size=chips[4].shape), 0)
     chips[2] = chips[3] < chips[4]
     return inputs
-
-
-def joint_case(k: int, n: int, seed: int):
-    """Seeded joint-fit inputs: a [K, 6, N] block whose rows 0, 3, 5 are
-    feasible / score / claimable, with heavy score ties (scores in 0..3),
-    gangs of 1-6 rows, the last K // 8 rows padding, and demands that make
-    gangs fail at their first row, part-way and after an earlier fit."""
-    rng = np.random.default_rng(seed)
-    packed = rng.integers(-9, 9, size=(k, 6, n)).astype(np.int32)
-    packed[:, 0] = rng.random((k, n)) > 0.4
-    packed[:, 3] = rng.integers(0, 4, size=(k, n))
-    packed[:, 5] = rng.integers(0, 9, size=(k, n))
-    m = k - k // 8
-    offsets = [0]
-    while offsets[-1] < m:
-        offsets.append(min(m, offsets[-1] + int(rng.integers(1, 7))))
-    requests = [
-        KernelRequest(int(rng.choice([1, 2, 4, 8, 40])), 0, 0, 0, 0)
-        for _ in range(m)
-    ] + [KernelRequest(1, 0, 0, 0, 0)] * (k - m)
-    return (packed, *joint_fit_vectors(requests, offsets))
 
 
 @pytest.fixture
@@ -324,27 +303,60 @@ class TestHandKernel:
         assert stack.batch.dispatch_errors == 0
 
 
+def assert_joint_equal(card, packed, chips, starts, valid):
+    before = cuda_kernel.joint_fit_launches
+    got = joint_fit(packed, chips, starts, valid)
+    assert cuda_kernel.joint_fit_launches == before + 1
+    want = joint_fit_scan(packed[:, 0], packed[:, 3], packed[:, 5], chips, starts, valid)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w.to(torch.int32)), tuple(packed.shape)
+    return got
+
+
 @pytest.mark.cuda
 class TestJointFitKernel:
     @pytest.mark.parametrize(
         "k,n",
-        [(1, 1), (3, 37), (16, 5000), (64, 8192), (256, 8192), (64, 65536)],
+        [
+            (1, 1), (3, 37), (16, 5000), (64, 8192), (256, 8192), (64, 65536),
+            (16, 262144),  # past the shared-memory ledgers
+            (64, 8191),    # rows misaligned for the bulk copies
+        ],
     )
     def test_equals_plain(self, card, k, n):
-        packed, chips, starts, valid = (
-            torch.from_numpy(x).to(card) for x in joint_case(k, n, seed=k + n)
+        assert_joint_equal(
+            card, *(torch.from_numpy(x).to(card) for x in joint_case(k, n, seed=k + n))
         )
-        before = cuda_kernel.joint_fit_launches
-        got = joint_fit(packed, chips, starts, valid)
-        assert cuda_kernel.joint_fit_launches == before + 1
-        want = joint_fit_scan(packed[:, 0], packed[:, 3], packed[:, 5], chips, starts, valid)
-        torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            assert torch.equal(g, w.to(torch.int32)), (k, n)
+
+    def test_identical_rows_take_the_next_best_host(self, card):
+        args = [torch.from_numpy(x).to(card) for x in identical_rows_case()]
+        picks, gok, _sim = assert_joint_equal(card, *args)
+        feas, scores = args[0][0, 0].cpu().numpy(), args[0][0, 3].cpu().numpy()
+        order = sorted(np.flatnonzero(feas), key=lambda j: (-int(scores[j]), j))
+        assert picks.cpu().tolist() == order[: len(picks)]
+        assert bool(gok.all())
+
+    def test_top_score_ties_across_slice_edges(self, card):
+        n = 8192
+        slice_words = cuda_kernel.joint_fit_plan(n, card)["slice"]
+        args = [torch.from_numpy(x).to(card) for x in slice_edge_case(64, n, slice_words)]
+        picks = assert_joint_equal(card, *args)[0].cpu().tolist()
+        edges = list(range(slice_words, n, slice_words))
+        half = min(len(edges), 32)
+        assert picks[:half] == edges[:half]  # e - 1 infeasible: e wins
 
     def test_plan_moves_ledgers_to_global_past_the_shared_ceiling(self, card):
-        assert cuda_kernel.joint_fit_plan(8192, card)["shared_ledgers"] == 1
-        assert cuda_kernel.joint_fit_plan(65536, card)["shared_ledgers"] == 0
+        optin = torch.cuda.get_device_properties(card).shared_memory_per_block_optin
+        for n, shared in ((1, 1), (37, 1), (8192, 1), (65536, 1), (262144, 0)):
+            plan = cuda_kernel.joint_fit_plan(n, card)
+            assert plan["shared_ledgers"] == shared, (n, plan)
+            assert plan["blocks"] in (1, 2, 4, 8, 16)
+            assert plan["slice"] % 4 == 0 and plan["blocks"] * plan["slice"] >= n
+            assert plan["chunks"] * plan["chunk"] >= plan["slice"]
+            assert 1 <= plan["stages"] <= 8 and plan["smem_bytes"] <= optin
+        assert cuda_kernel.joint_fit_plan(1, card)["blocks"] == 1
+        assert cuda_kernel.joint_fit_plan(65536, card)["blocks"] in (8, 16)
 
     @pytest.mark.parametrize("k", [144, 256])
     def test_fleet_eval_chunks_past_128_requests(self, card, k):

@@ -12,8 +12,14 @@
 - ``TorchFleetKernel(device="cpu").evaluate_joint_plan`` (and
   ``evaluate_joint``) against ``DeviceFleetKernel``.
 
-The hand CUDA joint-fit kernel is held against the plain version on the
-card by tests/test_torch_cuda.py and chip_smoke.py."""
+- the hand kernel's decomposition of the scan, emulated here: node slices
+  of a cluster's blocks, each cut between owner threads, whose packed-key
+  maxima are merged by unsigned maximum, with ledgers per slice, against
+  the plain scan and the reference's numpy twin, ragged slices and ties
+  across slice edges included.
+
+The hand CUDA joint-fit kernel itself is held against the plain version
+on the card by tests/test_torch_cuda.py and chip_smoke.py."""
 
 import dataclasses
 
@@ -169,6 +175,124 @@ class TestJointFitScan:
             (picks.numpy(), gok.numpy(), sim.numpy()),
             port_scan(feas, scores, claim, chips, starts, valid),
         )
+
+
+MASK32 = 0xFFFFFFFF
+
+
+def pack_key(score: int, index: int) -> int:
+    """joint_fit.cu's key: unsigned maximum = highest score, then lowest
+    index."""
+    return (((score & MASK32) ^ 0x80000000) << 32) | (~index & MASK32)
+
+
+def sliced_scan(feas, scores, claim, chips, starts, valid, blocks: int, owners: int = 3):
+    """The kernel's decomposition of the scan, in plain PyTorch: ``blocks``
+    slices of round4(ceil(N / blocks)) nodes, each cut into ``owners``
+    strided parts (the threads). Every part keeps its largest packed key
+    and whether any of its nodes is ok for a row; a row's pick is the
+    unsigned maximum of the parts' keys. Ledgers are per slice."""
+    feas, scores, claim = (torch.from_numpy(np.asarray(x)) for x in (feas, scores, claim))
+    k, n = feas.shape
+    size = -(-(-(-n // blocks)) // 4) * 4
+    slices = [(lo, max(lo, min(n, lo + size))) for lo in range(0, blocks * size, size)]
+    parts = [
+        torch.arange(lo, hi)[o::owners] for lo, hi in slices for o in range(owners)
+    ]
+    tent = [torch.zeros(hi - lo, dtype=torch.int32) for lo, hi in slices]
+    sim = [t.clone() for t in tent]
+
+    def held(nodes):
+        out = torch.zeros(len(nodes), dtype=torch.int32)
+        for x, j in enumerate(nodes.tolist()):
+            out[x] = tent[j // size][j - j // size * size]
+        return out
+
+    def part_of(r, nodes):
+        """One owner's (largest key, any ok) over its nodes for row r."""
+        ok = (feas[r, nodes] != 0) & ((claim[r, nodes] - held(nodes)) >= int(chips[r]))
+        masked = torch.where(ok, scores[r, nodes], -1)
+        keys = [pack_key(int(sc), int(j)) for sc, j in zip(masked, nodes)]
+        return max(keys, default=0), bool(ok.any())
+
+    gok = True
+    picks = np.full(k, -1, dtype=np.int32)
+    gok_k = np.zeros(k, dtype=bool)
+    for i in range(k):
+        if starts[i]:
+            if gok:
+                sim = [t.clone() for t in tent]
+            else:
+                tent = [t.clone() for t in sim]
+            gok = True
+        if not valid[i]:
+            gok_k[i] = gok
+            continue
+        row = [part_of(i, nodes) for nodes in parts]
+        best = max(key for key, _ in row)
+        take = gok and any(ok for _, ok in row)
+        pick = ~best & MASK32
+        if take:
+            b, off = divmod(pick, size)
+            tent[b][off] += int(chips[i])
+        picks[i] = pick if take else -1
+        gok_k[i] = gok = take
+    if gok:
+        sim = tent
+    return picks, gok_k, torch.cat(sim).numpy()
+
+
+class TestSlicedScan:
+    @pytest.mark.parametrize(
+        "seed,k,n,blocks,ties,pad",
+        [
+            (0, 1, 1, 1, False, 0),
+            (1, 3, 37, 4, True, 0),      # ragged: 37 nodes in slices of 12
+            (2, 16, 50, 16, True, 3),    # more blocks than nodes / 4: empty slices
+            (3, 24, 64, 4, True, 2),
+            (4, 24, 61, 8, False, 5),
+            (5, 40, 100, 16, True, 8),
+            (6, 12, 33, 2, True, 0),
+            (7, 32, 130, 8, True, 4),
+        ],
+    )
+    def test_matches_plain_scan_and_reference(self, seed, k, n, blocks, ties, pad):
+        case = scan_case(seed, k, n, ties=ties, pad=pad)
+        got = sliced_scan(*case, blocks=blocks)
+        assert_scan_equal(got, port_scan(*case))
+        assert_scan_equal(got, ref.joint_fit_scan(*case, xp=np))
+
+    @pytest.mark.parametrize("blocks", [2, 4, 8])
+    def test_equal_top_scores_across_slice_edges_take_the_lower_index(self, blocks):
+        k, n = 12, 64
+        size = -(-(n // blocks) // 4) * 4
+        feas = np.ones((k, n), dtype=np.int32)
+        scores = np.zeros((k, n), dtype=np.int32)
+        claim = np.ones((k, n), dtype=np.int32)
+        for edge in range(size, n, size):
+            scores[:, edge - 1] = scores[:, edge] = 9
+        feas[:6, size - 1] = 0  # the first gang must take the edge's upper side
+        requests = [port.KernelRequest(1, 0, 0, 0, 0)] * k
+        side = port.joint_fit_vectors(requests, [0, 6, k])
+        got = sliced_scan(feas, scores, claim, *side, blocks=blocks)
+        assert_scan_equal(got, port_scan(feas, scores, claim, *side))
+        assert_scan_equal(got, ref.joint_fit_scan(feas, scores, claim, *side, xp=np))
+        assert got[0][0] == size
+
+    def test_identical_rows_take_distinct_hosts(self):
+        # Gangs of identical rows: each pick fills its host, so the next
+        # row's pick is the next-best key, often in another owner's part.
+        k, n = 24, 40
+        rng = np.random.default_rng(8)
+        feas = np.tile(rng.random(n) > 0.2, (k, 1)).astype(np.int32)
+        scores = np.tile(rng.integers(0, 5, size=n), (k, 1)).astype(np.int32)
+        claim = np.full((k, n), 8, dtype=np.int32)
+        requests = [port.KernelRequest(8, 0, 0, 0, 0)] * k
+        side = port.joint_fit_vectors(requests, [0, 8, 16, k])
+        for blocks in (1, 4):
+            got = sliced_scan(feas, scores, claim, *side, blocks=blocks)
+            assert_scan_equal(got, port_scan(feas, scores, claim, *side))
+            assert len(set(got[0].tolist())) == k
 
 
 def joint_inputs(seed: int, n_nodes: int, sizes: list[int]):

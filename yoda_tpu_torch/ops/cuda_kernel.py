@@ -10,7 +10,11 @@
 - ``joint_fit`` (``yoda_tpu_torch/csrc/joint_fit.cu``), counterpart of the
   reference's ``lax.scan`` ``joint_fit_scan`` inside ``kernel_joint_plan``
   (yoda_tpu/ops/kernel.py): the gang path's cross-gang fit gate, run over
-  ``fleet_eval``'s output where it lies on the device.
+  ``fleet_eval``'s output where it lies on the device. One launch of one
+  thread-block cluster (up to 16 blocks, each holding a node slice's
+  ledgers in shared memory, its rows fed ahead by bulk asynchronous
+  copies, one exchange of arg-max keys across the cluster per row);
+  :func:`joint_fit_plan` reports its shape.
 
 Each source's header says what bounds it on an H100 and how the design
 answers that. Each is compiled at first use with ``nvcc -gencode
@@ -273,21 +277,30 @@ def fleet_eval(
     return out
 
 
-_joint_plans: "dict[tuple[int, int], tuple[int, int, int]]" = {}
+JOINT_PLAN_FIELDS = (
+    "blocks", "threads", "stages", "smem_bytes", "shared_ledgers", "slice",
+    "chunk", "chunks",
+)
+_joint_plans: "dict[tuple[int, int], tuple[int, ...]]" = {}
 
 
 def joint_fit_plan(n: int, device: torch.device) -> dict:
-    """The launch joint_fit makes for ``n`` nodes on ``device``: threads of
-    its one block, dynamic shared-memory bytes, and whether the tent/sim
-    ledgers live in shared memory (else tent takes a global scratch)."""
+    """The launch joint_fit makes for ``n`` nodes on ``device``: blocks of
+    its one cluster (16 where the card admits such a cluster, else 8; fewer
+    for small fleets), threads per block (consumer warps and one producer
+    warp), ring stages, dynamic shared-memory bytes per block, whether the
+    tent/sim ledgers live in shared memory (else tent takes a global
+    scratch and sim the output), nodes per block's slice, words of a row
+    slice per ring stage and stages per row. Raises when the card admits
+    no cluster of the plan."""
     key = (n, device.index)
     plan = _joint_plans.get(key)
     if plan is None:
         lib = _load(JOINT_SOURCE)
-        row = (ctypes.c_int * 3)()
+        row = (ctypes.c_int * len(JOINT_PLAN_FIELDS))()
         _raise_for(lib, lib.joint_fit_plan(n, device.index, row), "plan", "joint_fit")
         plan = _joint_plans[key] = tuple(row)
-    return dict(zip(("threads", "smem_bytes", "shared_ledgers"), plan))
+    return dict(zip(JOINT_PLAN_FIELDS, plan))
 
 
 def joint_fit(
