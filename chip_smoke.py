@@ -603,7 +603,7 @@ def run_main_path(platform: str, pods_a, pods_b) -> dict:
 
     out = {}
     for run, pods, burst in (("a", pods_a, 1), ("b", pods_b, 16)):
-        stack = build_fleet(platform, burst)
+        stack, _agent = build_fleet(platform, burst)
         n_nodes = len(stack.informer.snapshot())
         for name, labels in pods:
             stack.cluster.create_pod(PodSpec(name, labels=dict(labels)))
@@ -650,6 +650,7 @@ def run_main_path(platform: str, pods_a, pods_b) -> dict:
             overcommitted=over, launches=launches,
             dispatch_count=b.dispatch_count, burst_dispatches=b.burst_dispatches,
             burst_served=b.burst_served, dispatch_errors=b.dispatch_errors,
+            **resident_counts(b),
             wall_s=wall, eval_s=sum(eval_s),
             eval_ms_per_call=1e3 * sum(eval_s) / max(len(eval_s), 1),
             eval_ms_median=1e3 * statistics.median(eval_s) if eval_s else None,
@@ -661,8 +662,8 @@ def run_main_path(platform: str, pods_a, pods_b) -> dict:
 
 
 def build_fleet(platform: str, burst: int):
-    """The 5,000-node fleet's stack: 512 v5p 2x2x1 slices and 2,952 v5e
-    hosts, published by the port's FakeTpuAgent."""
+    """The 5,000-node fleet's stack and its agent: 512 v5p 2x2x1 slices and
+    2,952 v5e hosts, published by the port's FakeTpuAgent."""
     from yoda_tpu_torch.agent.fake_publisher import FakeTpuAgent
     from yoda_tpu_torch.config import SchedulerConfig
     from yoda_tpu_torch.standalone import build_stack
@@ -676,7 +677,23 @@ def build_fleet(platform: str, burst: int):
     for h in range(2952):
         agent.add_host(f"v5e-{h:04d}", generation="v5e", chips=8)
     agent.publish_all()
-    return stack
+    return stack, agent
+
+
+def resident_counts(b) -> dict:
+    """The resident fleet state's counters on a run's batch plugin. A run
+    with one re-stack (the boot) reports that re-stack's wall ms, the
+    fleet's first lowering and upload."""
+    r = b._resident
+    if r is None:
+        raise AssertionError("the stack did not ride the resident fleet state")
+    return dict(
+        restacks=b.restacks, delta_syncs=r.delta_syncs, rows_applied=r.rows_applied,
+        sets_retained=b.sets_retained, burst_invalidated=b.burst_invalidated,
+        admission_reuse=b.admission_reuse, admission_patched=b.admission_patched,
+        admission_rebuilds=b.admission_rebuilds,
+        first_restack_ms=r.last_restack_ms if r.restacks == 1 else None,
+    )
 
 
 def gang_script(seed: int):
@@ -734,7 +751,7 @@ def run_gang_path(platform: str, run: str) -> dict:
     from yoda_tpu_torch.api.types import K8sNode, PodSpec
     from yoda_tpu_torch.ops import cuda_kernel
 
-    stack = build_fleet(platform, 16)
+    stack, _agent = build_fleet(platform, 16)
     if run == "c":
         waves, gangs = gang_script(seed=1)
     else:
@@ -839,6 +856,7 @@ def run_gang_path(platform: str, run: str) -> dict:
             "gang_burst_dispatches", "gang_burst_served", "joint_dispatches",
             "joint_gangs", "joint_parked", "fused_plan_dispatches", "plan_served",
             "dispatch_errors")},
+        **resident_counts(b),
         wall_s=wall, eval_s=sum(eval_s),
         eval_ms_per_call=1e3 * sum(eval_s) / max(len(eval_s), 1),
         pods_per_s=len(lat) / wall if wall else 0.0,
@@ -994,6 +1012,351 @@ def phase_main_path(smi: str) -> dict:
     return gpu
 
 
+UPDATE_FLEETS = [(5000, 8192), (65536, 65536)]  # (real nodes, padded nodes)
+UPDATE_ROWS = [1, 3, 64, 2048]
+UPDATE_MAIN_SHAPE = (8192, 64)  # (padded nodes, rows) in the kernels line
+
+
+def fleet_arrays(chips, nodes, dyn):
+    """A FleetArrays host mirror of a :func:`random_fleet` in the device
+    layout."""
+    from yoda_tpu_torch.ops.arrays import FleetArrays
+    from yoda_tpu_torch.ops.kernel import CHIP_KEYS, STATIC_NODE_KEYS
+
+    n_real = int(nodes[0].sum())
+    fields = {key: chips[i].T for i, key in enumerate(CHIP_KEYS)}
+    fields.update({key: nodes[i] for i, key in enumerate(STATIC_NODE_KEYS)})
+    fields.update(
+        names=[f"n{i}" for i in range(n_real)], fresh=dyn[0],
+        reserved_chips=dyn[1], claimed_hbm_mib=dyn[2], host_ok=dyn[0],
+        last_updated=np.zeros(dyn.shape[1]),
+    )
+    return FleetArrays.from_numpy(fields)
+
+
+def update_rows_case(n_real: int, r: int, seed: int) -> list[int]:
+    """``r`` distinct rows in a ragged (unsorted) order, row 0 and the last
+    real row among them when ``r`` allows."""
+    rng = np.random.default_rng(seed)
+    ends = [0, n_real - 1][:r]
+    middle = rng.choice(np.arange(1, n_real - 1), size=r - len(ends), replace=False)
+    rows = [int(x) for x in middle] + ends
+    return [rows[i] for i in rng.permutation(len(rows))]
+
+
+def update_bound_ms(r: int, c: int = CHIPS) -> float:
+    """Least time for a row update: the rows' payload read once and the
+    rows written once, 2 x R x (9 C + 4) int32 words, over the memory
+    rate."""
+    return 2 * r * (9 * c + 4) * 4 / MEM_BYTES_PER_S * 1e3
+
+
+def update_rows_check(n_real: int, n_pad: int, r: int, dev: torch.device):
+    """One case of the row-update phase: a seeded fleet uploaded whole,
+    ``r`` rows (update_rows_case) refilled on the host from another seed
+    and applied with TorchFleetKernel.update_rows, then held against a
+    fresh put_static of the refilled fleet, tolerance 0. Returns (the
+    updated kernel, the fresh one, the refilled arrays, the rows, the
+    largest absolute difference between the two)."""
+    from yoda_tpu_torch.config import SchedulerConfig
+    from yoda_tpu_torch.ops.kernel import CHIP_KEYS, STATIC_NODE_KEYS, TorchFleetKernel
+
+    weights = SchedulerConfig().effective_weights()
+    arrays = fleet_arrays(*random_fleet(n_real, n_pad, seed=n_pad))
+    new = fleet_arrays(*random_fleet(n_real, n_pad, seed=n_pad + 1))
+    rows = update_rows_case(n_real, r, seed=n_pad + r)
+    kern = TorchFleetKernel(weights, dev)
+    kern.put_static(arrays)
+    before = kern._chips.clone()
+    for key in CHIP_KEYS + STATIC_NODE_KEYS:
+        getattr(arrays, key)[rows] = getattr(new, key)[rows]
+    kern.update_rows(arrays, rows)
+    fresh = TorchFleetKernel(weights, dev)
+    fresh.put_static(arrays)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    err = max(
+        int((kern._chips - fresh._chips).abs().max()),
+        int((kern._nodes - fresh._nodes).abs().max()),
+    )
+    if err:
+        raise AssertionError(f"update_rows != put_static at {n_pad} nodes, {r} rows: {err}")
+    changed = (kern._chips != before).any(dim=0).any(dim=0).nonzero().flatten()
+    if not set(changed.tolist()) <= set(rows):
+        raise AssertionError(f"update_rows wrote outside its rows at {n_pad} nodes, {r} rows")
+    return kern, fresh, arrays, rows, err
+
+
+def phase_update_rows() -> list[dict]:
+    """TorchFleetKernel.update_rows against a fresh put_static at every
+    fleet and row set (update_rows_check), with the times of both and of
+    the index_copy_ pair alone on a payload already on the card."""
+    from yoda_tpu_torch.ops.kernel import apply_row_update, pack_row_update
+
+    dev = torch.device("cuda", 0)
+    out = []
+    for n_real, n_pad in UPDATE_FLEETS:
+        for r in UPDATE_ROWS:
+            kern, fresh, arrays, rows, err = update_rows_check(n_real, n_pad, r, dev)
+            payload = torch.from_numpy(pack_row_update(arrays, rows)).to(dev)
+            row = dict(
+                nodes=n_real, padded=n_pad, rows=r, max_abs_err=err, tolerance=0,
+                ms=cuda_ms(lambda: kern.update_rows(arrays, rows)),
+                put_static_ms=cuda_ms(lambda: fresh.put_static(arrays), iters=10),
+                library_ms=cuda_ms(
+                    lambda: apply_row_update(kern._chips, kern._nodes, payload, r)
+                ),
+                bound_ms=update_bound_ms(r),
+            )
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["smi"] = smi_sample()
+            out.append(row)
+            print("update_rows", json.dumps(row))
+    return out
+
+
+def churn_flip_hosts(b, rng, names: list[str], event: int) -> list[str]:
+    """The 4 hosts of a health-flip event: with a live burst set, the even
+    ``event``s (counted over events that found a live set) take 4 hosts
+    the set does not reference (infeasible for every remaining entry,
+    untouched by its ledger: the set is retained) and the odd ones 2
+    referenced and 2 unreferenced (the set drops); with none, 4 seeded
+    hosts."""
+    burst = b._burst
+    if burst is None:
+        return [names[i] for i in rng.choice(len(names), 4, replace=False)]
+    mask = np.zeros(len(burst.names), dtype=bool)
+    for e in burst.entries.values():
+        mask |= e.result.feasible[: len(burst.names)].astype(bool)
+    live = set(names)
+    refd = [nm for i, nm in enumerate(burst.names)
+            if (mask[i] or nm in burst.consumed) and nm in live]
+    unref = [nm for i, nm in enumerate(burst.names)
+             if not mask[i] and nm not in burst.consumed and nm in live]
+    take_ref = 0 if event % 2 == 0 else min(2, len(refd))
+    take_unref = min(4 - take_ref, len(unref))
+    pick = [refd[i] for i in rng.choice(len(refd), take_ref, replace=False)]
+    pick += [unref[i] for i in rng.choice(len(unref), take_unref, replace=False)]
+    return pick
+
+
+def run_churn(platform: str, pods, *, classic: bool = False) -> dict:
+    """Run (e): ``pods`` singletons at batch_requests 16 on the 5,000-node
+    fleet, drained loop turn by loop turn and cycle by cycle. Between loop
+    turns the agent republishes every host bound during the turn (a
+    value-changing CR: the bound pod's HBM is now charged); every 8th
+    cycle it flips one chip's health on 4 hosts (churn_flip_hosts); at
+    the first turn boundary past half the pods it removes one idle v5e
+    host (a structural delta). A republish of a bound host lands between
+    turns because mid-turn it would always drop the live burst set (the
+    host is in its ledger), leaving the retention branch unreachable.
+    ``classic`` unsets the four delta feeds after build_stack: the classic
+    per-version refresh, for comparison only."""
+    from yoda_tpu_torch.api.types import PodSpec
+    from yoda_tpu_torch.ops import cuda_kernel
+    from yoda_tpu_torch.ops import kernel as kernel_mod
+    from yoda_tpu_torch.ops.arrays import FleetArrays
+    from yoda_tpu_torch.ops.kernel import stack_static
+
+    stack, agent = build_fleet(platform, 16)
+    b, inf = stack.batch, stack.informer
+    if classic:
+        b.changes_fn = b.reserved_delta_fn = None
+        b.claimed_delta_fn = b.admission_changes_fn = None
+    for name, labels in pods:
+        stack.cluster.create_pod(PodSpec(name, labels=dict(labels)))
+    names = sorted(t.name for t in stack.cluster.list_tpu_metrics())
+    timers: dict[str, list[float]] = {"eval": [], "dyn": [], "admission": [], "refresh": []}
+
+    def timed(key, inner):
+        def call(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return inner(*args, **kw)
+            finally:
+                timers[key].append(time.perf_counter() - t)
+        return call
+
+    b._kern.evaluate_burst = timed("eval", b._kern.evaluate_burst)
+    b._dyn_for = timed("dyn", b._dyn_for)
+    b._admission_vec = timed("admission", b._admission_vec)
+    b._refresh_static = timed("refresh", b._refresh_static)
+    rng = np.random.default_rng(7)
+    sched, queue = stack.scheduler, stack.scheduler.queue
+    state = dict(cycle=0, flips=0, live_flips=0, republishes=0, expected_rows=0,
+                 syncs=(0, 0))
+    pending: set[str] = set()   # hosts changed since the last sync
+    delta_ms: list[float] = []
+    first_restack_ms = None
+    removed = None
+
+    def publish(host: str) -> None:
+        before = inf.metrics_version
+        agent.refresh(host)
+        if inf.metrics_version != before:
+            pending.add(host)
+            state["republishes"] += 1
+
+    def note_sync() -> None:
+        nonlocal first_restack_ms
+        r = b._resident
+        if r is None:
+            return
+        if first_restack_ms is None and r.restacks:
+            first_restack_ms = r.last_restack_ms
+        syncs = (r.delta_syncs, r.restacks)
+        if syncs == state["syncs"]:
+            return
+        if r.restacks != state["syncs"][1]:
+            pending.clear()  # the re-stack absorbed them
+        else:
+            state["expected_rows"] += len(pending)
+            pending.clear()
+            delta_ms.append(r.last_delta_ms)
+        state["syncs"] = syncs
+
+    def bound_hosts() -> set:
+        return {p.node_name for p in stack.cluster.list_pods() if p.node_name}
+
+    cuda_kernel.launches = kernel_mod.row_update_launches = 0
+    seen, bound_at_retry = bound_hosts(), -1
+    t0 = time.monotonic()
+    while True:
+        for host in sorted(bound_hosts() - seen):
+            publish(host)
+        seen = bound_hosts()
+        n_bound = sum(1 for p in stack.cluster.list_pods() if p.node_name)
+        if removed is None and n_bound >= len(pods) // 2:
+            removed = next(
+                nm for nm in names if nm.startswith("v5e")
+                and stack.accountant.chips_in_use(nm) == 0 and nm not in seen
+            )
+            agent.remove_host(removed)
+            names.remove(removed)
+        qpi = queue.pop(timeout=0)
+        if qpi is None:
+            if not queue.pending_retry_count() or n_bound == bound_at_retry:
+                break
+            bound_at_retry = n_bound
+            queue.move_all_to_active(force=True)
+            continue
+        batch = sched._pop_batch(qpi)
+        note_sync()
+        for q in batch:
+            sched.schedule_one(q)
+            note_sync()
+            state["cycle"] += 1
+            if state["cycle"] % 8 == 0:
+                live = b._burst is not None
+                for host in churn_flip_hosts(b, rng, names, state["live_flips"]):
+                    chip = int(rng.integers(0, 4))
+                    h = agent._hosts[host]
+                    agent.set_chip_health(host, chip, chip in h.unhealthy)
+                    publish(host)
+                state["flips"] += 1
+                state["live_flips"] += live
+    if platform != "cpu":
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches, row_launches = cuda_kernel.launches, kernel_mod.row_update_launches
+    bindings = {name: stack.cluster.get_pod(f"default/{name}").node_name for name, _ in pods}
+    lat = sorted(r.latency_s for r in sched.stats.results if r.outcome == "bound")
+    # Against every chip of a host: a health flip may take a chip out from
+    # under a pod that is already running there.
+    capacity = {t.name: len(t.chips) for t in stack.cluster.list_tpu_metrics()}
+    over = [h for h, cap in capacity.items() if stack.accountant.chips_in_use(h) > cap]
+    out = dict(
+        platform=platform, classic=classic, pods=len(pods),
+        bound=sum(v is not None for v in bindings.values()), bindings=bindings,
+        overcommitted=over, cycles=state["cycle"], flip_events=state["flips"],
+        live_set_flip_events=state["live_flips"],
+        republishes=state["republishes"], removed_host=removed,
+        launches=launches, row_update_launches=row_launches,
+        dispatch_count=b.dispatch_count, burst_dispatches=b.burst_dispatches,
+        burst_served=b.burst_served, burst_invalidated=b.burst_invalidated,
+        sets_retained=b.sets_retained, restacks=b.restacks,
+        dispatch_errors=b.dispatch_errors,
+        admission_reuse=b.admission_reuse, admission_patched=b.admission_patched,
+        admission_rebuilds=b.admission_rebuilds,
+        wall_s=wall, pods_per_s=len(lat) / wall if wall else 0.0,
+        p50_ms=1e3 * lat[len(lat) // 2] if lat else None,
+        p99_ms=1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))] if lat else None,
+        eval_ms_per_call=1e3 * statistics.mean(timers["eval"]) if timers["eval"] else None,
+        refresh_ms_per_call=1e3 * statistics.mean(timers["refresh"]),
+        dyn_ms_per_dispatch=1e3 * sum(timers["dyn"]) / max(b.dispatch_count, 1),
+        admission_ms_per_dispatch=1e3 * sum(timers["admission"]) / max(b.dispatch_count, 1),
+    )
+    r = b._resident
+    if r is not None:
+        out.update(
+            delta_syncs=r.delta_syncs, rows_applied=r.rows_applied,
+            expected_rows=state["expected_rows"],
+            delta_sync_ms_median=statistics.median(delta_ms) if delta_ms else None,
+            first_restack_ms=first_restack_ms, last_restack_ms=r.last_restack_ms,
+        )
+        # One closing sync brings the resident state to the final snapshot;
+        # it must equal a cold lowering and upload of that snapshot.
+        snap = inf.snapshot()
+        b._refresh_static(snap)
+        chips, nodes = stack_static(FleetArrays.from_snapshot(snap))
+        out["resident_equals_cold"] = bool(
+            torch.equal(b._kern._chips.cpu(), torch.from_numpy(chips))
+            and torch.equal(b._kern._nodes.cpu(), torch.from_numpy(nodes))
+        )
+    return out
+
+
+def check_churn(g: dict, c: dict) -> None:
+    if g["bound"] != g["pods"]:
+        raise AssertionError(f"run e: {g['bound']}/{g['pods']} pods bound")
+    if g["bindings"] != c["bindings"]:
+        diff = [p for p in g["bindings"] if g["bindings"][p] != c["bindings"][p]]
+        raise AssertionError(f"run e: {len(diff)} pods bound differently on cuda vs cpu")
+    for run in (g, c):
+        name = f"run e ({run['platform']})"
+        if run["overcommitted"]:
+            raise AssertionError(f"{name}: over-committed {run['overcommitted']}")
+        if run["restacks"] != 2:
+            raise AssertionError(f"{name}: {run['restacks']} re-stacks, want 2")
+        if not run["delta_syncs"] or run["rows_applied"] != run["expected_rows"]:
+            raise AssertionError(
+                f"{name}: {run['delta_syncs']} delta syncs, {run['rows_applied']} rows "
+                f"applied for {run['expected_rows']} value-changing republishes"
+            )
+        if not (run["sets_retained"] > 0 and run["burst_invalidated"] > 0):
+            raise AssertionError(
+                f"{name}: sets_retained {run['sets_retained']}, burst_invalidated "
+                f"{run['burst_invalidated']} (want both branches of _retain_set)"
+            )
+        if run["dispatch_errors"]:
+            raise AssertionError(f"{name}: {run['dispatch_errors']} dispatch errors")
+        if not run["resident_equals_cold"]:
+            raise AssertionError(f"{name}: resident tensors != cold put_static")
+    if not 0 < g["launches"] == g["dispatch_count"]:
+        raise AssertionError(
+            f"run e: {g['launches']} fleet_eval launches for {g['dispatch_count']} dispatches"
+        )
+    if g["row_update_launches"] != g["delta_syncs"]:
+        raise AssertionError(
+            f"run e: {g['row_update_launches']} row updates for {g['delta_syncs']} delta syncs"
+        )
+    if c["launches"] or c["row_update_launches"]:
+        raise AssertionError("run e: the CPU run launched on the card")
+
+
+def phase_churn(smi: str) -> dict:
+    pods = fleet_and_pods(seed=2)[1]  # 256 singletons, drawn as run (b)'s
+    g = run_churn("auto", pods)
+    c = run_churn("cpu", pods)
+    classic = run_churn("auto", pods, classic=True)
+    for run in (g, c, classic):
+        summary = {k: v for k, v in run.items() if k != "bindings"}
+        print(f"churn (e) {run['platform']}{' classic' if run['classic'] else ''} [{smi}]:",
+              json.dumps(summary))
+    check_churn(g, c)
+    return g
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one NVIDIA GPU", file=sys.stderr)
@@ -1011,6 +1374,10 @@ def main() -> None:
     except Exception as e:  # noqa: BLE001
         fail("joint_fit vs plain", e)
     try:
+        update_rows = phase_update_rows()
+    except Exception as e:  # noqa: BLE001
+        fail("update_rows vs put_static", e)
+    try:
         gpu = phase_main_path(smi)
     except Exception as e:  # noqa: BLE001
         fail("main path", e)
@@ -1018,12 +1385,19 @@ def main() -> None:
         gangs = phase_gang_path(smi)
     except Exception as e:  # noqa: BLE001
         fail("gang path", e)
+    try:
+        churn = phase_churn(smi)
+    except Exception as e:  # noqa: BLE001
+        fail("churn run (e)", e)
     main_row = next(
         r for r in profiled if (r["nodes"], r["padded"], r["k"]) == MAIN_PATH_SHAPE
     )
     joint_main = next(
         r for r in joint_rows
         if r["case"] == "seeded" and (r["k"], r["n"]) == JOINT_MAIN_SHAPE
+    )
+    update_main = next(
+        r for r in update_rows if (r["padded"], r["rows"]) == UPDATE_MAIN_SHAPE
     )
     kernels = {
         "kernels": [
@@ -1036,7 +1410,7 @@ def main() -> None:
                     "yoda_tpu/ops/pallas_kernel.py:299 (_pallas_eval_burst)"
                 ),
                 "launches": sum(run["launches"] for run in (
-                    gpu["a"], gpu["b"], gangs["c"], gangs["d"])),
+                    gpu["a"], gpu["b"], gangs["c"], gangs["d"], churn)),
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": main_row["ms"],
                 "plain_ms": main_row["plain_ms"],
@@ -1085,7 +1459,31 @@ def main() -> None:
                     for r in joint_rows
                 ],
             },
-        ]
+        ],
+        # The resident row update is a torch op, not a hand kernel (the
+        # reference's XLA scatter, yoda_tpu/ops/kernel.py:662): launches are
+        # run (e)'s update_rows calls on the card, times at the main path's
+        # fleet with 64 rows.
+        "torch_ops": [
+            {
+                "name": "update_rows",
+                "route": "torch",
+                "source": "yoda_tpu_torch/ops/kernel.py (TorchFleetKernel.update_rows)",
+                "replaces": "yoda_tpu/ops/kernel.py:662 apply_row_update (jitted :671)",
+                "launches": churn["row_update_launches"],
+                "max_abs_err": max(r["max_abs_err"] for r in update_rows),
+                "ms": update_main["ms"],
+                "plain_ms": update_main["put_static_ms"],
+                "bound_ms": update_main["bound_ms"],
+                "bound_by": "bytes",
+                "library_ms": update_main["library_ms"],
+                "shapes": [
+                    {key: r[key] for key in ("padded", "rows", "ms", "put_static_ms",
+                                             "library_ms", "bound_ms", "smi")}
+                    for r in update_rows
+                ],
+            },
+        ],
     }
     print(json.dumps(kernels))
     print(smi)

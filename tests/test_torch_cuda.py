@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels (yoda_tpu_torch/csrc/fleet_eval.cu and
 joint_fit.cu) against their plain PyTorch versions on the same tensors,
-tolerance 0 (everything is int32), and the wrappers' contracts.
+tolerance 0 (everything is int32), and the wrappers' contracts; and the
+resident state's in-place row update (TorchFleetKernel.update_rows)
+against a fresh put_static, at chip_smoke.py's fleets and row sets.
 
 Tests marked ``cuda`` need the card and skip without one; run them there
 with ``python -m pytest -m cuda tests/test_torch_cuda.py``. This file
@@ -12,11 +14,19 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import identical_rows_case, joint_case, slice_edge_case
+from chip_smoke import (
+    UPDATE_FLEETS,
+    UPDATE_ROWS,
+    identical_rows_case,
+    joint_case,
+    slice_edge_case,
+    update_rows_check,
+)
 from yoda_tpu_torch.agent.fake_publisher import FakeTpuAgent
 from yoda_tpu_torch.api.types import PodSpec
 from yoda_tpu_torch.config import SchedulerConfig, Weights
 from yoda_tpu_torch.ops import cuda_kernel
+from yoda_tpu_torch.ops import kernel as kernel_mod
 from yoda_tpu_torch.ops.cuda_kernel import fleet_eval, joint_fit
 from yoda_tpu_torch.ops.kernel import (
     KernelRequest,
@@ -428,3 +438,39 @@ class TestJointFitKernel:
         for g in range(3):
             nodes = [stack.cluster.get_pod(f"default/g{g}-{i}").node_name for i in range(4)]
             assert all(nodes) or not any(nodes)
+
+
+@pytest.mark.cuda
+class TestRowUpdateOnCard:
+    @pytest.mark.parametrize("n_real, n_pad", UPDATE_FLEETS)
+    @pytest.mark.parametrize("r", UPDATE_ROWS)
+    def test_update_rows_equals_put_static(self, card, n_real, n_pad, r):
+        before = kernel_mod.row_update_launches
+        update_rows_check(n_real, n_pad, r, card)
+        assert kernel_mod.row_update_launches == before + 1
+
+    def test_stack_delta_syncs_update_rows_on_card(self, card):
+        stack = build_stack(config=SchedulerConfig(batch_requests=4))
+        agent = FakeTpuAgent(stack.cluster)
+        for h in range(6):
+            agent.add_host(f"h{h}", chips=8)
+        agent.publish_all()
+        stack.cluster.create_pod(PodSpec("warm", labels={"tpu/chips": "1"}))
+        stack.scheduler.run_until_idle(max_wall_s=30)
+        before = kernel_mod.row_update_launches
+        for h in range(3):
+            agent.set_chip_health(f"h{h}", 0, False)
+            agent.refresh(f"h{h}")
+            stack.cluster.create_pod(PodSpec(f"p{h}", labels={"tpu/chips": "2"}))
+            stack.scheduler.run_until_idle(max_wall_s=30)
+        r = stack.batch._resident
+        assert r is not None and r.restacks == 1 and r.delta_syncs >= 3
+        assert kernel_mod.row_update_launches - before == r.delta_syncs
+
+
+class TestRowUpdateOnCpu:
+    @pytest.mark.parametrize("r", [1, 3, 40])
+    def test_update_rows_equals_put_static(self, r):
+        before = kernel_mod.row_update_launches
+        update_rows_check(300, 512, r, torch.device("cpu"))
+        assert kernel_mod.row_update_launches == before  # counts the card only

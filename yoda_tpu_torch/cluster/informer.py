@@ -8,15 +8,18 @@ The scheduler reads ONLY this cache during a cycle. The cache maintains:
 - incrementally-maintained claimed-HBM per node,
 - two monotonic versions: ``version`` (any change — snapshot cache key) and
   ``metrics_version`` (TPU CR changes only — fleet-array cache key, so pod
-  binds do not force an O(nodes x chips) array rebuild).
+  binds do not force an O(nodes x chips) array rebuild),
+- an epoch/delta feed over ``metrics_version`` (:meth:`changes_since`):
+  the device-resident fleet state (ops/resident.py FleetStateCache) asks
+  "which nodes changed since epoch E" and refills only those rows, plus
+  the claimed-HBM feed (:meth:`claimed_changes_since`) and the admission
+  feed (:meth:`admission_changes_since`) that the batch plugin's
+  dynamics row and cross-snapshot admission cache read.
 
-Counterpart of ``yoda_tpu/cluster/informer.py``, ported as far as the
-singleton path reaches it. Left out until a later slice: the Namespace /
-PersistentVolumeClaim / PersistentVolume / PodDisruptionBudget watches,
-the epoch/delta feeds (``changes_since``, ``claimed_changes_since``,
-``admission_changes_since``) that the device-resident fleet state reads,
-shard partitioning, the node-health fence hook and the watch-staleness
-clock.
+Counterpart of ``yoda_tpu/cluster/informer.py``. Left out until a later
+slice: the Namespace / PersistentVolumeClaim / PersistentVolume /
+PodDisruptionBudget watches, shard partitioning, the node-health fence
+hook and the watch-staleness clock.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from __future__ import annotations
 import bisect
 import threading
 import time
+from collections import deque
+from dataclasses import dataclass
 from typing import Callable
 
 from yoda_tpu_torch.api.requests import LabelParseError, pod_request
@@ -32,6 +37,20 @@ from yoda_tpu_torch.cluster.fake import Event
 from yoda_tpu_torch.framework.interfaces import NodeInfo, Snapshot
 
 MIB = 1 << 20
+
+
+@dataclass(frozen=True)
+class FleetDelta:
+    """What changed in the metrics-relevant fleet between two epochs
+    (:meth:`InformerCache.changes_since`). ``epoch`` is the current metrics
+    epoch the delta brings the consumer up to; ``changed`` names nodes
+    whose CR VALUES changed in place (row refill suffices); ``structural``
+    means the candidate-node SET itself changed (CR or Node object added or
+    deleted): row indices may have shifted and the consumer re-stacks."""
+
+    epoch: int
+    changed: frozenset
+    structural: bool
 
 
 class InformerCache:
@@ -76,13 +95,30 @@ class InformerCache:
         self._version = 1
         self._metrics_version = 1
         self._snapshot_cache: Snapshot | None = None
+        # Epoch/delta feed over metrics_version: one ring entry per node
+        # per bump, (epoch-after-bump, kind, node name), kind "modified"
+        # (row refill suffices) or "structural" (node set changed). The
+        # ring covers epochs (ring[0].epoch - 1, current]; a consumer
+        # further behind gets None and re-stacks.
+        self._delta_ring: deque[tuple[int, str, str]] = deque(maxlen=4096)
+        # Claimed-HBM delta feed (dynamics row 2 of the resident state):
+        # epoch bumped per claimed-total change, ring of (epoch, node).
+        self._claim_epoch = 0
+        self._claim_ring: deque[tuple[int, str]] = deque(maxlen=65536)
+        # Admission delta feed: epoch bumped per change that can flip a
+        # node's admission verdict without touching the metrics feed —
+        # every Node-object event and every per-node pod-set change. The
+        # batch plugin's cross-snapshot admission cache patches only these
+        # nodes' rows.
+        self._admission_epoch = 0
+        self._admission_ring: deque[tuple[int, str]] = deque(maxlen=65536)
         # NodeInfo reuse across snapshots for nodes whose CR / Node object /
         # pod set did not change.
         self._ni_cache: dict[str, NodeInfo] = {}
         # Per-batch accumulators written by the _handle_* internals (lock
         # held); handle_batch bumps each version at most once per batch.
         self._batch_dirty = False
-        self._batch_metrics = False
+        self._batch_metrics: list[tuple[str, str]] = []  # (kind, node)
         self._batch_pending: list[PodSpec] = []
 
     # --- watch sink ---
@@ -92,13 +128,14 @@ class InformerCache:
 
     def handle_batch(self, events) -> None:
         """Apply a run of watch events under ONE lock acquisition, with one
-        ``version`` bump, one ``metrics_version`` bump and one snapshot
-        invalidation. Pending-pod and change callbacks fire after the batch
+        ``version`` bump, one ``metrics_version`` bump (the delta ring gets
+        one entry per metrics-relevant node, all at the new epoch) and one
+        snapshot invalidation. Pending-pod and change callbacks fire after the batch
         is fully applied, outside the lock."""
         relevant_events: list[Event] = []
         with self._lock:
             self._batch_dirty = False
-            self._batch_metrics = False
+            self._batch_metrics = []
             self._batch_pending = []
             for event in events:
                 relevant = True
@@ -117,6 +154,8 @@ class InformerCache:
                 self._snapshot_cache = None
             if self._batch_metrics:
                 self._metrics_version += 1
+                for kind, name in self._batch_metrics:
+                    self._delta_ring.append((self._metrics_version, kind, name))
             pending = self._batch_pending
             self._batch_pending = []
         if self.on_pod_pending is not None:
@@ -134,11 +173,15 @@ class InformerCache:
             self._nodes[node.name] = node
         self._ni_cache.pop(node.name, None)
         self._batch_dirty = True
+        # EVERY Node event (modified included) feeds the admission ring:
+        # cordon/taint/label flips change admission verdicts even though
+        # the metrics arrays don't care.
+        self._note_admission(node.name)
         if event.type in ("added", "deleted"):
             # The candidate-node SET changed, which invalidates the fleet
             # arrays keyed on metrics_version. A cordon/taint flip does
             # not: admission is evaluated per cycle, not baked into arrays.
-            self._batch_metrics = True
+            self._batch_metrics.append(("structural", node.name))
 
     def _handle_tpu(self, event: Event) -> bool:
         """Returns whether the event carries schedulability-relevant change.
@@ -151,12 +194,13 @@ class InformerCache:
                 i = bisect.bisect_left(self._tpu_order, tpu.name)
                 if i < len(self._tpu_order) and self._tpu_order[i] == tpu.name:
                     del self._tpu_order[i]
-            relevant = True
+            relevant = structural = True
         else:
             prev = self._tpus.get(tpu.name)
             self._tpus[tpu.name] = tpu
             if prev is None:
                 bisect.insort(self._tpu_order, tpu.name)
+            structural = prev is None  # CR added: node set changed
             relevant = prev is None or not prev.values_equal(tpu)
             if not relevant and self.staleness_s > 0:
                 age = self.now_fn() - prev.last_updated_unix
@@ -164,7 +208,9 @@ class InformerCache:
         self._ni_cache.pop(tpu.name, None)
         self._batch_dirty = True
         if relevant:
-            self._batch_metrics = True
+            self._batch_metrics.append(
+                ("structural" if structural else "modified", tpu.name)
+            )
         return relevant
 
     def _handle_pod(self, event: Event) -> None:
@@ -206,12 +252,27 @@ class InformerCache:
         self._pod_nodes[pod.uid] = (node, claim)
         self._claimed_mib[node] = self._claimed_mib.get(node, 0) + claim
         self._ni_cache.pop(node, None)
+        self._note_pod_set(node, claim)
 
     def _uncount_pod(self, uid: str) -> None:
         node, claim = self._pod_nodes.pop(uid)
         self._pods_by_node.get(node, {}).pop(uid, None)
         self._claimed_mib[node] = max(self._claimed_mib.get(node, 0) - claim, 0)
         self._ni_cache.pop(node, None)
+        self._note_pod_set(node, claim)
+
+    def _note_admission(self, node: str) -> None:
+        self._admission_epoch += 1
+        self._admission_ring.append((self._admission_epoch, node))
+
+    def _note_pod_set(self, node: str, claim: int) -> None:
+        """A pod joined or left ``node``: its admission inputs (pod count,
+        cpu, memory, host ports) moved, and its claimed-HBM total too when
+        the pod claims any."""
+        self._note_admission(node)
+        if claim:
+            self._claim_epoch += 1
+            self._claim_ring.append((self._claim_epoch, node))
 
     # --- readers ---
 
@@ -224,6 +285,72 @@ class InformerCache:
     def metrics_version(self) -> int:
         with self._lock:
             return self._metrics_version
+
+    def changes_since(self, epoch: int) -> "FleetDelta | None":
+        """The epoch/delta feed over ``metrics_version``: which nodes
+        changed in epochs ``(epoch, current]``. None when the consumer is
+        too far behind (the bounded ring no longer covers its epoch) or
+        ahead (epoch skew, e.g. state inherited from another informer):
+        either way it must re-stack from a snapshot."""
+        with self._lock:
+            cur = self._metrics_version
+            if epoch == cur:
+                return FleetDelta(cur, frozenset(), False)
+            if epoch > cur or not self._delta_ring:
+                return None
+            if self._delta_ring[0][0] > epoch + 1:
+                return None  # ring evicted past the consumer's epoch
+            changed: set[str] = set()
+            structural = False
+            for e, kind, name in reversed(self._delta_ring):
+                if e <= epoch:
+                    break
+                if kind == "structural":
+                    structural = True
+                else:
+                    changed.add(name)
+            return FleetDelta(cur, frozenset(changed), structural)
+
+    @property
+    def claimed_epoch(self) -> int:
+        with self._lock:
+            return self._claim_epoch
+
+    def claimed_changes_since(
+        self, epoch: int
+    ) -> "tuple[int, dict[str, int] | None]":
+        """Delta feed over the per-node claimed-HBM totals: ``(current
+        epoch, {node: claimed_mib})`` for nodes whose total changed in
+        epochs ``(epoch, current]``, or ``(current epoch, None)`` when the
+        ring no longer reaches back (or the consumer is ahead): the
+        consumer then rebuilds from :meth:`claimed_hbm_mib_map`."""
+        with self._lock:
+            cur = self._claim_epoch
+            nodes = ring_since(self._claim_ring, epoch, cur)
+            if nodes is None:
+                return cur, None
+            return cur, {n: self._claimed_mib.get(n, 0) for n in nodes}
+
+    @property
+    def admission_epoch(self) -> int:
+        with self._lock:
+            return self._admission_epoch
+
+    def admission_changes_since(
+        self, epoch: int
+    ) -> "tuple[int, frozenset[str] | None]":
+        """Delta feed over admission-relevant node state (Node-object events
+        and per-node pod-set changes — what the metrics ring elides that
+        can still flip an admission verdict): ``(current epoch,
+        changed_nodes)`` for epochs ``(epoch, current]``, or ``(current
+        epoch, None)`` when the ring no longer reaches back (or the
+        consumer is ahead). Consumers read the snapshot-stamped epoch
+        (``snapshot.admission_epoch``), not this live one, so a patched
+        vector is exactly as fresh as the snapshot it was patched from."""
+        with self._lock:
+            cur = self._admission_epoch
+            nodes = ring_since(self._admission_ring, epoch, cur)
+            return cur, None if nodes is None else frozenset(nodes)
 
     def claimed_hbm_mib(self, node_name: str) -> int:
         with self._lock:
@@ -287,8 +414,29 @@ class InformerCache:
                 order.append(name)
             snap = Snapshot(nodes, order=order, version=self._version)
             snap.metrics_version = self._metrics_version
+            # The admission-feed epoch AT BUILD, under the same lock: a
+            # consumer that patches a cached vector from this snapshot
+            # stamps this epoch, so events landing after the build are
+            # re-applied on the next patch instead of skipped.
+            snap.admission_epoch = self._admission_epoch
             self._snapshot_cache = snap
             return snap
+
+
+def ring_since(ring: deque, epoch: int, cur: int) -> "set[str] | None":
+    """The nodes of an ``(epoch, node)`` ring entered in epochs ``(epoch,
+    cur]``; None when the ring cannot answer (consumer ahead, or the ring
+    evicted past its epoch)."""
+    if epoch == cur:
+        return set()
+    if epoch > cur or not ring or ring[0][0] > epoch + 1:
+        return None
+    nodes: set[str] = set()
+    for e, name in reversed(ring):
+        if e <= epoch:
+            break
+        nodes.add(name)
+    return nodes
 
 
 def _pod_claim_mib(pod: PodSpec) -> int:

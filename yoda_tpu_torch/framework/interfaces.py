@@ -124,6 +124,11 @@ class Snapshot:
         # The informer's metrics epoch at build (TPU CR changes only): the
         # fleet-array cache key, so pod binds do not force a re-stack.
         self.metrics_version = 0
+        # The informer's admission-feed epoch at build (Node-object and
+        # pod-set changes): the cross-snapshot admission cache carries a
+        # vector to a later snapshot by patching only the nodes changed in
+        # between. None = no feed stamped this snapshot (bare constructions).
+        self.admission_epoch: int | None = None
 
     def get(self, name: str) -> NodeInfo:
         return self._nodes[name]

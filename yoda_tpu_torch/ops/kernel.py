@@ -26,10 +26,14 @@ PyTorch :func:`joint_fit_scan` (the reference's ``lax.scan``, held against
 the hand-written joint-fit kernel) and :func:`kernel_joint_plan`, the
 plain composition of the evaluation and the scan.
 
-Left out until a later slice: ``apply_row_update`` (the resident row
-scatter), ``NumpyFleetKernel`` (the reference's degraded-mode rung; the
-port has no fallback chain, so the numpy twin of the scan is not carried
-either).
+The resident state's in-place row update is here as well:
+:func:`pack_row_update` and :func:`apply_row_update` (the reference's
+donated XLA scatter, as ``index_copy_`` along the node axis), driven by
+:meth:`TorchFleetKernel.update_rows`.
+
+Left out until a later slice: ``NumpyFleetKernel`` (the reference's
+degraded-mode rung; the port has no fallback chain, so the numpy twin of
+the scan is not carried either).
 """
 
 from __future__ import annotations
@@ -95,6 +99,10 @@ STATIC_NODE_KEYS = ("node_valid", "in_slice", "generation_rank", "ext_chips")
 DYN_KEYS = ("fresh", "reserved_chips", "claimed_hbm_mib", "host_ok")
 
 _BIG = np.iinfo(np.int32).max
+
+# TorchFleetKernel.update_rows calls that updated resident rows on a CUDA
+# device: one host-to-device copy and the index_copy_ pair each.
+row_update_launches = 0
 _BOOL_KEYS = frozenset(
     {"node_valid", "in_slice", "fresh", "host_ok", "chip_valid",
      "chip_healthy", "chip_used"}
@@ -439,6 +447,57 @@ def results_from_packed(names: list[str], packed: np.ndarray) -> list[KernelResu
     return results
 
 
+def row_update_size(n_rows: int, c: int) -> int:
+    """Words of a :func:`pack_row_update` buffer for ``n_rows`` rows of a
+    fleet with ``c`` chip columns."""
+    return n_rows * (1 + len(CHIP_KEYS) * c + len(STATIC_NODE_KEYS))
+
+
+def pack_row_update(
+    arrays: FleetArrays, rows: "list[int]", out: np.ndarray | None = None
+) -> np.ndarray:
+    """Host-side payload of an in-place static row update in ONE flat int32
+    buffer (``out`` receives it when given): the R row indices, then the
+    rows' chip grids as [9, C, R], then their static node values as
+    [4, R] — the device layout (:func:`stack_static`) restricted to the
+    rows. The reference pads the rows to a power of two for its compile
+    cache; the port compiles nothing per shape and sends them as they are."""
+    idx = np.asarray(rows, dtype=np.int64)
+    r = len(idx)
+    c = arrays.padded_shape[1]
+    buf = np.empty(row_update_size(r, c), dtype=np.int32) if out is None else out
+    buf[:r] = idx
+    at = r
+    for k in CHIP_KEYS:
+        buf[at : at + c * r].reshape(c, r)[:] = np.asarray(getattr(arrays, k))[idx].T
+        at += c * r
+    for k in STATIC_NODE_KEYS:
+        buf[at : at + r] = np.asarray(getattr(arrays, k))[idx]
+        at += r
+    return buf
+
+
+def apply_row_update(
+    chips: torch.Tensor, nodes: torch.Tensor, payload: torch.Tensor, n_rows: int
+) -> None:
+    """Scatter a :func:`pack_row_update` payload (on the tensors' device)
+    into the resident [9, C, N] chip grids and [4, N] static node rows, in
+    place, along the node axis (the last). The reference's jitted
+    ``.at[idx].set`` with the old buffers donated; here ``index_copy_``
+    writes into the same storage. With duplicate indices ``index_copy_`` on
+    CUDA is nondeterministic in which row wins, so callers pass distinct
+    rows (FleetStateCache does)."""
+    r = n_rows
+    c = chips.shape[1]
+    idx = payload[:r].to(torch.int64)
+    chips.index_copy_(
+        2, idx, payload[r : r + len(CHIP_KEYS) * c * r].view(len(CHIP_KEYS), c, r)
+    )
+    nodes.index_copy_(
+        1, idx, payload[r + len(CHIP_KEYS) * c * r :].view(len(STATIC_NODE_KEYS), r)
+    )
+
+
 def burst_bucket(k: int, minimum: int = 1) -> int:
     """Row count of a K-request joint stacking: the configured burst width
     while K fits, else the next power of two — the reference's compile
@@ -685,6 +744,31 @@ class TorchFleetKernel:
         self._chips = torch.from_numpy(chips).to(self.device)
         self._nodes = torch.from_numpy(nodes).to(self.device)
         self._names = list(arrays.names)
+
+    def update_rows(self, arrays: FleetArrays, rows: "list[int]") -> None:
+        """Apply ONLY the given (already refilled, distinct) rows of
+        ``arrays`` to the device-resident static state, in place: one
+        pinned host-to-device copy of the rows' payload
+        (:func:`pack_row_update`, a fresh pinned buffer per update, as
+        :meth:`_upload` stages every copy) and :func:`apply_row_update` on
+        the current stream — O(changed x C) bytes moved instead of the
+        O(N x C) of :meth:`put_static`. The caller guarantees that names
+        and buckets are unchanged since the last put_static
+        (FleetStateCache re-stacks otherwise)."""
+        global row_update_launches
+        if self._chips is None:
+            self.put_static(arrays)
+            return
+        if not rows:
+            return
+        r = len(rows)
+        payload = self._upload(
+            row_update_size(r, self._chips.shape[1]),
+            lambda buf: pack_row_update(arrays, rows, out=buf),
+        )
+        apply_row_update(self._chips, self._nodes, payload, r)
+        if self.device.type == "cuda":
+            row_update_launches += 1
 
     def _upload(self, size: int, fill) -> torch.Tensor:
         """A flat int32 input buffer of ``size`` words on the device,

@@ -31,11 +31,14 @@ def default_plugins(
     batch_requests: int = 1,
     pending_fn: Callable | None = None,
     reserved_map_fn: Callable | None = None,
+    reserved_delta_fn: Callable | None = None,
 ) -> list:
     """Assemble the standard plugin set for ``mode="batch"``: the fused
     evaluation fast path (one device computation per pod or burst).
     ``pending_fn`` (GangPlugin.pending_placements) feeds in-flight gang
-    members' claims to admission and to the burst gate."""
+    members' claims to admission and to the burst gate;
+    ``reserved_delta_fn`` (ChipAccountant.reserved_changes_since) keeps the
+    resident dynamics row current in O(changed)."""
     return [
         YodaSort(),
         YodaPreFilter(pending_fn=pending_fn),
@@ -48,6 +51,7 @@ def default_plugins(
             batch_requests=batch_requests,
             pending_fn=pending_fn,
             reserved_map_fn=reserved_map_fn,
+            reserved_delta_fn=reserved_delta_fn,
         ),
     ]
 

@@ -16,20 +16,24 @@ Counterpart of ``yoda_tpu/plugins/yoda/accounting.py``, ported as far as the
 singleton and gang paths reach it: a gang's Permit rejection, cascade and
 bind rollback all release through ``unreserve`` (``release``), and an
 unbound pod's watch event leaves the claim for that release to drop, as
-in the reference. Left out until a later slice: the durable claim
-journal, the reservation delta feed, shard staging and the optimistic
-commit (``stage`` / ``commit_staged``), warm-start restore and the
-worker-side ``RemoteAccountant``.
+in the reference; the reservation delta feed
+(:meth:`ChipAccountant.reserved_changes_since`) keeps the resident
+dynamics row current in O(changed). Left out until a later slice: the
+durable claim journal, shard staging and the optimistic commit
+(``stage`` / ``commit_staged``), warm-start restore and the worker-side
+``RemoteAccountant``.
 """
 
 from __future__ import annotations
 
 import threading
+from collections import deque
 from dataclasses import dataclass
 
 from yoda_tpu_torch.api.requests import LabelParseError, pod_request
 from yoda_tpu_torch.api.types import PodSpec
 from yoda_tpu_torch.cluster.fake import Event
+from yoda_tpu_torch.cluster.informer import ring_since
 from yoda_tpu_torch.framework.cyclestate import CycleState
 from yoda_tpu_torch.framework.interfaces import ReservePlugin, Status
 from yoda_tpu_torch.plugins.yoda.filter_plugin import get_request
@@ -56,6 +60,12 @@ class ChipAccountant(ReservePlugin):
         self._lock = threading.Lock()
         self._claims: dict[str, _Claim] = {}  # pod uid -> claim
         self._in_use: dict[str, int] = {}     # node -> chips
+        # Reservation delta feed (dynamics row 1 of the device-resident
+        # fleet state, ops/resident.py): epoch bumped per node-total
+        # change, bounded ring of (epoch, node), so a consumer applies only
+        # the nodes whose reservations moved since its last sync.
+        self._epoch = 0
+        self._changes: deque[tuple[int, str]] = deque(maxlen=65536)
 
     # --- ReservePlugin ---
 
@@ -98,6 +108,11 @@ class ChipAccountant(ReservePlugin):
 
     # --- internals / readers ---
 
+    def _note(self, node: str) -> None:
+        """Record a node-total change on the delta feed (lock held)."""
+        self._epoch += 1
+        self._changes.append((self._epoch, node))
+
     def _claim(self, uid: str, node: str, chips: int) -> None:
         with self._lock:
             existing = self._claims.get(uid)
@@ -105,8 +120,10 @@ class ChipAccountant(ReservePlugin):
                 return  # reserve->bind transition: single claim
             if existing is not None:
                 self._in_use[existing.node] -= existing.chips
+                self._note(existing.node)
             self._claims[uid] = _Claim(node, chips)
             self._in_use[node] = self._in_use.get(node, 0) + chips
+            self._note(node)
 
     def release(self, uid: str) -> None:
         with self._lock:
@@ -115,6 +132,7 @@ class ChipAccountant(ReservePlugin):
                 self._in_use[claim.node] = max(
                     self._in_use.get(claim.node, 0) - claim.chips, 0
                 )
+                self._note(claim.node)
 
     def chips_in_use(self, node_name: str) -> int:
         with self._lock:
@@ -126,3 +144,23 @@ class ChipAccountant(ReservePlugin):
         per dispatch."""
         with self._lock:
             return dict(self._in_use)
+
+    @property
+    def reservation_epoch(self) -> int:
+        with self._lock:
+            return self._epoch
+
+    def reserved_changes_since(
+        self, epoch: int
+    ) -> "tuple[int, dict[str, int] | None]":
+        """Delta feed over the per-node reservation totals: ``(current
+        epoch, {node: chips})`` for nodes whose total changed in epochs
+        ``(epoch, current]``, or ``(current epoch, None)`` when the ring no
+        longer reaches back (or the consumer is ahead): the consumer then
+        rebuilds from :meth:`chips_by_node`."""
+        with self._lock:
+            cur = self._epoch
+            nodes = ring_since(self._changes, epoch, cur)
+            if nodes is None:
+                return cur, None
+            return cur, {n: self._in_use.get(n, 0) for n in nodes}

@@ -13,20 +13,20 @@ fleet evaluation for one pod (K = 1) or a K-row burst, and for a joint
 gang pass the joint-fit scan right after it on the card.
 
 Counterpart of ``yoda_tpu/plugins/yoda/batch.py``, ported as far as the
-singleton and gang paths reach it: the classic per-metrics-version static
-refresh with incremental row refills, the per-pod admission vector, the
-preference bonus, ``filter_and_score_batch``, the multi-pod burst
-(``prepare_burst`` / ``_serve_burst`` with its serve-time spot-checks),
-the lazy whole-gang plan (``_GangPlan``), and the gang-fused and
-cross-gang joint dispatches with their fit gate (``prepare_gang_burst`` /
-``prepare_joint_burst``; plain gangs' gate runs in the joint-fit kernel,
-topology gangs' in the host block planner, as in the reference). Left out
-until a later slice: the device-resident ``FleetStateCache`` with its
-delta feeds and the epoch-skew set retention (``_retain_set``: a cached
-set drops on any fleet-version change), the cross-snapshot admission
-cache (the reference's ``_admission_vec``; admission here is the
-per-snapshot ``_host_admission``), the
-mesh-sharded kernel, the dispatch tracer, and the dispatch fallback chain
+singleton and gang paths reach it: the device-resident fleet state
+(ops/resident.py ``FleetStateCache``, fed by the informer's and the
+accountant's delta feeds, which ``standalone.build_stack`` wires) with the
+classic per-metrics-version refresh and its incremental row refills kept
+for bare constructions, the per-pod admission vector and its
+cross-snapshot cache (``_admission_vec``), the preference bonus,
+``filter_and_score_batch``, the multi-pod burst (``prepare_burst`` /
+``_serve_burst`` with its serve-time spot-checks), the lazy whole-gang
+plan (``_GangPlan``), the gang-fused and cross-gang joint dispatches with
+their fit gate (``prepare_gang_burst`` / ``prepare_joint_burst``; plain
+gangs' gate runs in the joint-fit kernel, topology gangs' in the host
+block planner, as in the reference), and the retention of cached sets
+across epoch bumps on nodes they do not reference (``_retain_set``). Left
+out until a later slice: the mesh-sharded kernel, the dispatch tracer, and the dispatch fallback chain
 with its circuit breaker — on a CUDA device an evaluation runs on the
 hand kernels or raises. The reference's TPU-measured platform
 policy (``_device_for`` / ``_dispatch_floor_ms`` and the
@@ -67,6 +67,7 @@ from yoda_tpu_torch.ops.kernel import (
     TorchFleetKernel,
     resolve_device,
 )
+from yoda_tpu_torch.ops.resident import FleetStateCache
 from yoda_tpu_torch.plugins.yoda.filter_plugin import (
     get_pending_ports,
     get_pending_resources,
@@ -122,13 +123,19 @@ def _admission_key(pod: PodSpec) -> "tuple | None":
 def _node_admission_ok(
     name: str,
     snapshot: Snapshot,
+    fenced: "frozenset | None",
     pod: PodSpec,
     pending_res: dict | None = None,
     pending_ports: dict | None = None,
 ) -> bool:
-    """ONE node's admission verdict: cordon + taints + nodeSelector +
-    required node affinity, resource fit and host ports — in-flight gang
-    members' claims (``pending_res`` / ``pending_ports``) included."""
+    """ONE node's admission verdict: the fence, cordon + taints +
+    nodeSelector + required node affinity, resource fit and host ports —
+    in-flight gang members' claims (``pending_res`` / ``pending_ports``)
+    included. The per-row unit of :func:`_host_admission`, which the
+    cross-snapshot cache (YodaBatch._admission_vec) re-runs for single
+    rows."""
+    if fenced and name in fenced:
+        return False
     if name not in snapshot:
         return True
     ni = snapshot.get(name)
@@ -165,9 +172,12 @@ def _host_admission(
         hit = cache.get(key)
         if hit is not None and hit[0] is static:
             return hit[1]
+    # The port has no node-health fence yet: a snapshot without the
+    # reference's ``fenced`` set fences nothing.
+    fenced = getattr(snapshot, "fenced", None)
     vec = np.array(
         [
-            _node_admission_ok(name, snapshot, pod, pending_res, pending_ports)
+            _node_admission_ok(name, snapshot, fenced, pod, pending_res, pending_ports)
             for name in static.names
         ]
         + [True] * (static.node_valid.shape[0] - len(static.names)),
@@ -261,6 +271,10 @@ class YodaBatch(BatchFilterScorePlugin):
         reserved_map_fn: "Callable[[], dict] | None" = None,
         claimed_map_fn: "Callable[[], dict] | None" = None,
         last_updated_map_fn: "Callable[[], dict] | None" = None,
+        changes_fn: "Callable | None" = None,
+        reserved_delta_fn: "Callable | None" = None,
+        claimed_delta_fn: "Callable | None" = None,
+        admission_changes_fn: "Callable | None" = None,
     ) -> None:
         if batch_requests < 1:
             raise ValueError(f"batch_requests must be >= 1, got {batch_requests}")
@@ -300,8 +314,32 @@ class YodaBatch(BatchFilterScorePlugin):
         # Per-row CR object tags for incremental static updates
         # (_incremental_update): row i was built from _row_src[i].
         self._row_src: "list | None" = None
-        self.snapshot_reuse = 0   # static refreshes answered from cache
-        self.restacks = 0         # full fleet re-stacks + uploads
+        # Device-resident incremental fleet state (ops/resident.py):
+        # active when the informer's epoch/delta feed is wired alongside
+        # live claims — watch deltas then refill only the changed rows and
+        # scatter them into the resident tensors in place, and the delta
+        # feeds below maintain the dynamics vector the same way. Without
+        # the feed the classic per-snapshot refresh above serves.
+        self.changes_fn = changes_fn
+        self.reserved_delta_fn = reserved_delta_fn
+        self.claimed_delta_fn = claimed_delta_fn
+        self._resident: FleetStateCache | None = None  # built lazily
+        # Classic-path counts; the properties below add the resident ones.
+        self._reuse_count = 0
+        self._restack_count = 0
+        # Cross-snapshot admission-vector cache: constraint key -> [static,
+        # metrics epoch, admission epoch, fenced set, vec]. Valid only while
+        # the admission delta feed (InformerCache.admission_changes_since)
+        # is wired; entries are patched per changed host instead of rebuilt
+        # per snapshot.
+        self.admission_changes_fn = admission_changes_fn
+        self._adm_cache: dict = {}
+        self._adm_index: "tuple | None" = None
+        self.admission_reuse = 0      # vectors carried across snapshots
+        self.admission_patched = 0    # rows re-checked during carries
+        self.admission_rebuilds = 0   # full O(N) loop runs
+        self.sets_retained = 0        # burst/joint sets kept across an
+                                      # unrelated-node epoch bump
         self.dispatch_count = 0   # real kernel dispatches
         self.dispatch_errors = 0  # dispatches that raised (none are retried)
         # Multi-pod burst dispatch: prepare_burst evaluates up to
@@ -344,6 +382,28 @@ class YodaBatch(BatchFilterScorePlugin):
         self._fleet_terms: tuple[int, bool] = (0, False)
         self._soft_taints: tuple[int, bool] = (0, False)
 
+    # --- fleet-state counters (classic and resident paths summed) ---
+
+    @property
+    def snapshot_reuse(self) -> int:
+        """Static refreshes answered without touching the fleet (epoch or
+        version unchanged)."""
+        r = self._resident
+        return self._reuse_count + (r.reuse if r is not None else 0)
+
+    @property
+    def restacks(self) -> int:
+        """Full fleet re-stacks (from_snapshot + whole-fleet upload)."""
+        r = self._resident
+        return self._restack_count + (r.restacks if r is not None else 0)
+
+    @property
+    def delta_apply_ms(self) -> float:
+        """Wall ms of the most recent delta sync (row refill + in-place
+        update on the device); 0 until the resident path served one."""
+        r = self._resident
+        return r.last_delta_ms if r is not None else 0.0
+
     def _dispatch(self, call):
         """Run ``call`` on the kernel. A failure is counted and re-raised:
         there is no demotion to another backend."""
@@ -356,8 +416,12 @@ class YodaBatch(BatchFilterScorePlugin):
     def _dyn_for(
         self, static: FleetArrays, host_ok: "np.ndarray | None" = None
     ) -> np.ndarray:
-        """The per-dispatch [4, N] dynamics array, rebuilt from the live
-        sources (the bulk map snapshots when wired)."""
+        """The per-dispatch [4, N] dynamics array: maintained in place by the
+        resident cache's delta feeds when it serves ``static`` (O(changed)
+        per cycle), else rebuilt from the live sources (the bulk map
+        snapshots when wired)."""
+        if self._resident is not None and self._resident.arrays is static:
+            return self._resident.dyn_packed(host_ok=host_ok)
         return static.dyn_packed(
             self.reserved_map_fn() if self.reserved_map_fn else self.reserved_fn,
             self.claimed_map_fn() if self.claimed_map_fn else self.claimed_fn,
@@ -378,17 +442,47 @@ class YodaBatch(BatchFilterScorePlugin):
             return snapshot.metrics_version or snapshot.version
         return snapshot.version
 
+    def _resident_active(self, snapshot: Snapshot) -> bool:
+        """The device-resident delta path needs the informer's epoch feed,
+        live claims (so _fleet_version IS the metrics epoch), accounting,
+        and a metrics-versioned snapshot."""
+        return (
+            self.changes_fn is not None
+            and self.claimed_fn is not None
+            and self.reserved_fn is not None
+            and bool(snapshot.metrics_version)
+        )
+
     def _refresh_static(self, snapshot: Snapshot) -> FleetArrays:
+        if self._resident_active(snapshot):
+            if self._resident is None:
+                self._resident = FleetStateCache(
+                    changes_fn=self.changes_fn,
+                    kern_fn=lambda _arrays: self._kern,
+                    max_metrics_age_s=self.max_metrics_age_s,
+                    reserved_delta_fn=self.reserved_delta_fn,
+                    reserved_map_fn=self.reserved_map_fn,
+                    reserved_fn=self.reserved_fn,
+                    claimed_delta_fn=self.claimed_delta_fn,
+                    claimed_map_fn=self.claimed_map_fn,
+                    claimed_fn=self.claimed_fn,
+                    last_updated_map_fn=self.last_updated_map_fn,
+                )
+            static = self._resident.sync(snapshot)
+            self._static = static
+            self._cache_version = self._resident.epoch
+            self._row_src = None  # the delta feed replaces the identity diff
+            return static
         version = self._fleet_version(snapshot)
         if version and self._cache_version == version and self._static is not None:
-            self.snapshot_reuse += 1
+            self._reuse_count += 1
             return self._static
         incremental = self._incremental_update(snapshot)
         static = incremental or FleetArrays.from_snapshot(
             snapshot, max_metrics_age_s=self.max_metrics_age_s
         )
         if incremental is None:
-            self.restacks += 1
+            self._restack_count += 1
         self._kern.put_static(static)
         if version:
             self._cache_version = version
@@ -466,7 +560,7 @@ class YodaBatch(BatchFilterScorePlugin):
         # included) is per (pod, cycle): one packed upload.
         dyn = self._dyn_for(
             static,
-            host_ok=_host_admission(
+            host_ok=self._admission_vec(
                 static, snapshot, pod,
                 get_pending_resources(state), get_pending_ports(state),
             ),
@@ -606,7 +700,7 @@ class YodaBatch(BatchFilterScorePlugin):
         host_ok_k = np.zeros((k, n_pad), dtype=np.int32)
         requests: list[KernelRequest] = []
         for i, (pod, reqk) in enumerate(candidates):
-            host_ok_k[i] = _host_admission(static, snapshot, pod)
+            host_ok_k[i] = self._admission_vec(static, snapshot, pod)
             requests.append(reqk)
         # Pad to the fixed burst width: all-False host_ok rows are
         # infeasible everywhere and their results are never read.
@@ -689,6 +783,37 @@ class YodaBatch(BatchFilterScorePlugin):
             and node_fits_resources(ni, pod, {best: (p_cpu, p_mem, p_cnt)})[0]
         )
 
+    def _retain_set(self, b: _BurstSet, ver: int) -> bool:
+        """Epoch-skew tolerance for cached dispatch sets: the fleet epoch
+        moved past the set's baseline, but if every node that changed is
+        UNREFERENCED by the set — infeasible for every remaining entry and
+        untouched by its consumption ledger — the rows' capacity math is
+        intact and the set keeps serving (its baseline advances to
+        ``ver``). Structural deltas (node add/delete: row indices may have
+        moved) and feed gaps always drop. Changed-but-unreferenced nodes
+        can only have become more attractive; missing that is bounded
+        staleness, and every pick is still spot-checked live
+        (_pick_checks)."""
+        if self.changes_fn is None or self.claimed_fn is None:
+            return False  # fleet_version is not a metrics epoch here
+        delta = self.changes_fn(b.fleet_version)
+        if delta is None or delta.structural:
+            return False
+        if delta.changed:
+            mask = np.zeros(len(b.names), dtype=bool)
+            for e in b.entries.values():
+                mask |= e.result.feasible[: len(b.names)].astype(bool)
+            for nm in delta.changed:
+                if nm in b.consumed:
+                    return False
+                i = b.index.get(nm)
+                if i is not None and mask[i]:
+                    return False
+        b.fleet_version = ver
+        self.sets_retained += 1
+        log.debug("cached dispatch set retained across unrelated epoch bump")
+        return True
+
     def _drop_burst(self) -> None:
         if self._burst is not None:
             self.burst_invalidated += len(self._burst.entries)
@@ -701,8 +826,9 @@ class YodaBatch(BatchFilterScorePlugin):
         for sibling consumption and validating the accountant still matches
         the dispatch baseline on the chosen node. None = dispatch fresh."""
         b = self._burst
-        if self._fleet_version(snapshot) != b.fleet_version:
-            self._drop_burst()  # the fleet changed: rows are stale
+        ver = self._fleet_version(snapshot)
+        if ver != b.fleet_version and not self._retain_set(b, ver):
+            self._drop_burst()  # a referenced node changed: rows are stale
             return None
         entry = b.entries.get(pod.uid)
         if entry is None:
@@ -798,6 +924,75 @@ class YodaBatch(BatchFilterScorePlugin):
             [list(g) for g in groups], snapshot, fit_gate=True
         )
 
+    def _admission_vec(
+        self,
+        static: FleetArrays,
+        snapshot: Snapshot,
+        pod: PodSpec,
+        pending_res: dict | None = None,
+        pending_ports: dict | None = None,
+    ) -> np.ndarray:
+        """:func:`_host_admission` with a CROSS-SNAPSHOT cache: entries key
+        on the pod's constraint tuple and carry the informer epochs stamped
+        on the snapshot they were built from. A later snapshot whose deltas
+        touch none of the fleet's hosts reuses the vector as is; one that
+        touches a few re-checks only those rows. Three signals together
+        cover every input of the per-node check: the metrics delta feed
+        (candidate-set changes are structural: full rebuild), the admission
+        delta feed (Node-object and pod-set changes per node) and the
+        snapshot's fence set, diffed directly. Falls back to the
+        per-snapshot cache when a feed or a snapshot stamp is missing (bare
+        constructions) or on ring-behind/structural deltas."""
+        if pending_res or pending_ports:
+            # Per-cycle inputs a cached row cannot track: full loop.
+            return _host_admission(static, snapshot, pod, pending_res, pending_ports)
+        key = _admission_key(pod)
+        m_epoch = snapshot.metrics_version
+        a_epoch = snapshot.admission_epoch
+        if (
+            key is None
+            or self.changes_fn is None
+            or self.admission_changes_fn is None
+            or not m_epoch
+            or a_epoch is None
+        ):
+            return _host_admission(static, snapshot, pod)
+        fenced = getattr(snapshot, "fenced", None) or frozenset()
+        entry = self._adm_cache.get(key)
+        if entry is not None and entry[0] is static:
+            _e_static, e_m, e_a, e_fenced, vec = entry
+            if e_m == m_epoch and e_a == a_epoch and e_fenced == fenced:
+                self.admission_reuse += 1
+                return vec
+            mdelta = self.changes_fn(e_m)
+            _acur, achanged = self.admission_changes_fn(e_a)
+            if mdelta is not None and not mdelta.structural and achanged is not None:
+                idx = self._adm_index
+                if idx is None or idx[0] is not static:
+                    idx = (static, {nm: i for i, nm in enumerate(static.names)})
+                    self._adm_index = idx
+                touched = set(mdelta.changed) | set(achanged)
+                touched |= fenced ^ e_fenced
+                for nm in touched:
+                    i = idx[1].get(nm)
+                    if i is not None:
+                        vec[i] = _node_admission_ok(nm, snapshot, fenced, pod)
+                        self.admission_patched += 1
+                # Stamp the SNAPSHOT's epochs, not the feeds' live ones:
+                # events landing after this snapshot's build are re-patched
+                # on the next carry.
+                entry[1] = m_epoch
+                entry[2] = a_epoch
+                entry[3] = fenced
+                self.admission_reuse += 1
+                return vec
+        vec = _host_admission(static, snapshot, pod)
+        self.admission_rebuilds += 1
+        if len(self._adm_cache) >= 256:  # constraint-diversity backstop
+            self._adm_cache.clear()
+        self._adm_cache[key] = [static, m_epoch, a_epoch, fenced, vec.copy()]
+        return vec
+
     def _prepare_groups(
         self,
         groups: "list[list[PodSpec]]",
@@ -838,7 +1033,7 @@ class YodaBatch(BatchFilterScorePlugin):
         for i in eligible:
             ok = np.zeros((len(cands[i]), n_pad), dtype=np.int32)
             for m, (pod, _req, _reqk) in enumerate(cands[i]):
-                ok[m] = _host_admission(static, snapshot, pod)
+                ok[m] = self._admission_vec(static, snapshot, pod)
             host_ok_groups.append(ok)
             request_groups.append([reqk for _, _, reqk in cands[i]])
         # With the fit gate on and no topology gang among the eligible
@@ -1053,8 +1248,9 @@ class YodaBatch(BatchFilterScorePlugin):
         b = self._gang_bursts.get(gang)
         if b is None:
             return None
-        if self._fleet_version(snapshot) != b.fleet_version:
-            self._drop_gang_burst(gang)  # the fleet changed: rows are stale
+        ver = self._fleet_version(snapshot)
+        if ver != b.fleet_version and not self._retain_set(b, ver):
+            self._drop_gang_burst(gang)  # a referenced node changed
             return None
         entry = b.entries.get(pod.uid)
         if entry is None:

@@ -2,8 +2,9 @@
 + scheduler loop).
 
 Counterpart of ``yoda_tpu/standalone.py``: a single-stack ``build_stack``
-that wires only the parts this port has — informer snapshot →
-``YodaPreFilter`` → ``GangPlugin`` admission → ``YodaBatch`` dispatch (the
+that wires only the parts this port has — informer snapshot and delta feeds →
+``YodaPreFilter`` → ``GangPlugin`` admission → ``YodaBatch`` dispatch over
+the device-resident fleet state (the
 hand CUDA kernels on the card: the fleet evaluation, and the joint-fit
 scan for joint gang passes) → Reserve on ``ChipAccountant`` → Permit (the
 gang barrier) → bind, with the gang plugin watching pods and hosts
@@ -139,6 +140,9 @@ def build_stack(
         pending_fn=gang.pending_placements,
         # Bulk accountant read: one lock per dispatch, not N.
         reserved_map_fn=accountant.chips_by_node,
+        # Reservation delta feed: the device-resident dynamics row applies
+        # only the nodes whose totals moved since the last dispatch.
+        reserved_delta_fn=accountant.reserved_changes_since,
     )
     plugins.append(gang)
     plugins.append(accountant)
@@ -185,7 +189,17 @@ def build_stack(
     (batch,) = framework.batch_plugins
     batch.claimed_fn = informer.claimed_hbm_mib
     batch.claimed_map_fn = informer.claimed_hbm_mib_map
+    batch.claimed_delta_fn = informer.claimed_changes_since
     batch.last_updated_map_fn = informer.last_updated_map
+    # The informer's epoch/delta feed makes the batch plugin's fleet state
+    # DEVICE-RESIDENT (ops/resident.py): watch deltas refill only the
+    # changed rows and update them on the device in place; a full re-stack
+    # happens only on epoch skew, node add/delete or bucket growth.
+    batch.changes_fn = informer.changes_since
+    # Companion admission feed (Node-object events and pod-set changes the
+    # metrics ring elides): the admission cache survives snapshot rebuilds
+    # by patching only the touched rows.
+    batch.admission_changes_fn = informer.admission_changes_since
     # Accountant and gang before informer: reservation releases and
     # membership changes precede the informer's view of the same event.
     cluster.add_watcher(accountant.handle)
