@@ -13,13 +13,17 @@ Phases, each of which makes the script exit non-zero when it fails:
    - fleet_eval: seeded fleets of 8 chips per node from 1 node to 262,144
      (smaller than one tile, ragged tiles, the main path's shapes, blocks
      walking several tiles) and K = 144 / 256 requests (launched as 128-row
-     chunks), default and most-allocated weights; all six output rows must
-     be equal. Per shape: the launch plan, the wrapper's time (median of
+     chunks), and past one 32-bit chip mask (the wide instantiation):
+     8,192 x 64 chips at K = 1, 16 and 144 and 1,024 x 128 at K = 16;
+     default and most-allocated weights; all six output rows must be
+     equal. Per shape: the launch plan, the wrapper's time (median of
      CUDA-event timings around each call after warm-up), the plain
      version's, the bound (the bytes the function must move over the
-     card's 3.35 TB/s) and an nvidia-smi sample of SM clock and power. At
-     the main path's shapes and 65,536 nodes also the kernel's device time
-     and the CUDA launches per call from a torch.profiler window (one per
+     card's 3.35 TB/s, or its integer operations over the card's 32-bit
+     rate where those take longer) and an nvidia-smi sample of SM clock
+     and power. At the main path's shapes, 65,536 nodes and the wide
+     shapes also the kernel's device time per call and the CUDA launches
+     per call from a torch.profiler window (one per 128-row chunk per
      call: the kernel's events equal to the calls and to the wrapper's own
      launch count over the window, no other device event; a window in
      which the tracer lost kernel events is reopened, up to three, and
@@ -60,7 +64,9 @@ Phases, each of which makes the script exit non-zero when it fails:
    (d) contention at the joint fit gate: Node objects labelled
        pool=contended on 52 v5e hosts and 4 plain gangs of 16 v5e members
        x 8 chips selecting that pool, co-queued: three fit (48 hosts), the
-       fourth must park whole at the gate with nothing bound or reserved.
+       fourth must park whole at the gate with nothing bound or reserved
+       (it has no lower-priority victim, so preemption evicts nothing).
+   Preemption is on in every run, as build_stack builds it by default.
    Each run: every pod binds (in (d) all but the parked gang) without
    over-committing a host, every gang is all-or-nothing, topology members
    land one per host on one slice and multislice members on two, every
@@ -75,8 +81,23 @@ Phases, each of which makes the script exit non-zero when it fails:
    ms per call, and for (c)/(d) the joint_fit device ms on the inputs the
    run gave it (and us per row; per recorded launch where the tracer lost
    kernel records, with every profiler window it opened).
-4. One line {"kernels": [...]} with each kernel's launches on the main
-   path, its largest difference from the plain version and its times
+   Then: TorchFleetKernel.update_rows against a fresh put_static; run (e),
+   256 singletons under agent churn (docstring of run_churn); run (f),
+   preemption at full width (BASELINE config 5): every host has a Node
+   object, 64 v5e hosts are pool=mixed-e and 4 v5p-32 slices pool=mixed-p;
+   wave 1 (priority 1) fills both with 256 pods of 2 chips and 16 of 4,
+   the agent republishes the bound hosts, and wave 2 (batch_requests 16)
+   brings 2 plain gangs of 16 x 8 chips (priority 100) and 8 singletons of
+   8 chips (priority 50) on mixed-e and 2 topology gangs 2x2x1 (priority
+   100) on mixed-p. Its bindings, evicted pods, evictions, nominations,
+   re-stacks and delta syncs must equal the CPU run's, every wave-2 pod
+   binds (gangs whole, topology gangs on one slice), no host is over its
+   healthy chips, and it prints wave 2's pods/s, p50/p99, gang p50/p99
+   and PostFilter ms per call. Last, a fleet of 40-chip and 8-chip hosts
+   (the wide kernel on the main path) at K = 1 and 16 must bind as on the
+   CPU.
+4. One line {"kernels": [...]} with each kernel's launches over every run
+   above, its largest difference from the plain version and its times
    ("not measured" where the profiler saw no device activity).
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -112,6 +133,14 @@ KERNEL_SHAPES = [  # (real nodes, padded nodes, requests K)
 ]
 # fleet_eval past one launch's 128 requests: chunked, still exact.
 CHUNKED_SHAPES = [(5000, 8192, 144), (5000, 8192, 256)]
+# Past 32 chips a node (one 33-chip host pads every node to 64): the wide
+# instantiation, (real nodes, padded nodes, K, chips). 8,192 x 64 stages its
+# tiles at K = 1 and 16 and reads global memory at K = 144 (two 128-row
+# chunks); 1,024 x 128 reads global memory.
+WIDE_SHAPES = [
+    (5000, 8192, 1, 64), (5000, 8192, 16, 64), (5000, 8192, 144, 64),
+    (1000, 1024, 16, 128),
+]
 MAIN_PATH_SHAPE = (5000, 8192, 16)
 JOINT_SHAPES = [
     (1, 1), (3, 37), (16, 5000), (64, 8192), (256, 8192), (64, 65536),
@@ -146,16 +175,16 @@ def fail(phase: str, err: BaseException | str) -> None:
     sys.exit(1)
 
 
-def random_fleet(n_real: int, n_pad: int, seed: int):
+def random_fleet(n_real: int, n_pad: int, seed: int, chips: int = CHIPS):
     """Seeded stacked fleet in the device layout: chips [9, C, N], static
     nodes [4, N], dynamics [4, N] (rows >= n_real are padding)."""
     rng = np.random.default_rng(seed)
     valid = np.zeros(n_pad, dtype=np.int32)
     valid[:n_real] = 1
-    grid = (CHIPS, n_pad)
+    grid = (chips, n_pad)
     total = np.full(grid, 16 * 1024, dtype=np.int32)
     free = (total - rng.integers(0, 16 * 1024, size=grid)).astype(np.int32)
-    chips = np.stack(
+    chip_rows = np.stack(
         [
             np.broadcast_to(valid, grid),
             valid * (rng.random(grid) > 0.1),
@@ -184,17 +213,19 @@ def random_fleet(n_real: int, n_pad: int, seed: int):
             np.zeros(n_pad),
         ]
     ).astype(np.int32)
-    return chips, nodes, dyn
+    return chip_rows, nodes, dyn
 
 
-def bound_ms(n: int, k: int, c: int = CHIPS) -> float:
-    """Least time for the evaluation: each input read once, each output
-    written once, over the memory rate (the operations' time is far
-    smaller)."""
+def bound(n: int, k: int, c: int = CHIPS) -> tuple[float, str]:
+    """Least time for the evaluation in ms, and what sets it: each input
+    read once and each output written once over the memory rate, against
+    the integer operations per (chip, request) pair over the card's 32-bit
+    rate (bytes at 8 chips; operations at 64 chips and K = 144)."""
     in_bytes = (9 * c * n + 4 * n + 4 * n + k * n + 5 * k) * 4
     out_bytes = 6 * k * n * 4
+    bytes_s = (in_bytes + out_bytes) / MEM_BYTES_PER_S
     ops_s = OPS_PER_CHIP_ELEMENT * c * n * k / INT32_OPS_PER_S
-    return max((in_bytes + out_bytes) / MEM_BYTES_PER_S, ops_s) * 1e3
+    return max(bytes_s, ops_s) * 1e3, "bytes" if bytes_s >= ops_s else "operations"
 
 
 def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
@@ -215,19 +246,21 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
 
 def profiled_ms(
     fn, counter, calls: int = 20, kernel: str = "fleet_eval", windows: int = 3,
-    short_ok: bool = False,
+    short_ok: bool = False, per_call: int = 1,
 ) -> tuple[float | None, float | None, list[dict]]:
-    """Device time of ``kernel`` per launch and its CUDA launches per call,
+    """Device time of ``kernel`` per call (summed over the call's
+    ``per_call`` launches: 128-row chunks) and its CUDA launches per call,
     from a torch.profiler window over ``calls`` calls of ``fn``, and what
     each window opened saw; (None, None, windows) when the profiler records
     no device activity. ``counter()`` reads the wrapper's own launch count.
 
     Each window is held against two counts besides its kernel events: the
-    wrapper's own launches over it, which must equal ``calls``, and the
-    launch calls (cudaLaunch*) that the tracer recorded on the host. It
-    raises on any device event but ``kernel``'s (a memset, another kernel)
-    and on more kernel events or launch calls than ``calls``. The first
-    window with exactly ``calls`` kernel events gives the times; a short
+    wrapper's own launches over it, which must equal ``calls`` x
+    ``per_call``, and the launch calls (cudaLaunch*) that the tracer
+    recorded on the host. It raises on any device event but ``kernel``'s (a
+    memset, another kernel) and on more kernel events or launch calls than
+    that. The first window with exactly that many kernel events gives the
+    times; a short
     one is reopened, up to ``windows`` windows, and when none is exact it
     raises. With ``short_ok``, for inputs on which the tracer was seen to
     lose kernel records (on an H100 80GB HBM3, 1 or all 20 of them on the
@@ -241,6 +274,7 @@ def profiled_ms(
     fn()
     torch.cuda.synchronize()
     seen, fullest = [], None
+    expected = calls * per_call
     for _ in range(windows):
         before = counter()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -267,14 +301,15 @@ def profiled_ms(
         window = dict(kernel_events=events, wrapper_launches=counter() - before,
                       host_launch_calls=launch_calls)
         seen.append(window)
-        if others or max(events, launch_calls) > calls or window["wrapper_launches"] != calls:
+        if (others or max(events, launch_calls) > expected
+                or window["wrapper_launches"] != expected):
             raise AssertionError(
-                f"{kernel}: not one launch per call in {calls} calls: {window}, "
-                f"other device events {others}"
+                f"{kernel}: not {per_call} launch(es) per call in {calls} calls: "
+                f"{window}, other device events {others}"
             )
-        if events == calls:
+        if events == expected:
             return kernel_us / calls / 1e3, events / calls, seen
-        if events and launch_calls == calls and (fullest is None or events > fullest[1]):
+        if events and launch_calls == expected and (fullest is None or events > fullest[1]):
             fullest = (kernel_us, events, launch_calls)
     if short_ok and fullest is not None:
         kernel_us, events, launch_calls = fullest
@@ -520,8 +555,9 @@ def phase_kernel() -> tuple[list[dict], dict]:
         ).effective_weights(),
     }
     rows = []
-    for n_real, n_pad, k in KERNEL_SHAPES + CHUNKED_SHAPES:
-        chips, nodes, dyn = random_fleet(n_real, n_pad, seed=n_pad + k)
+    cases = [(*s, CHIPS) for s in KERNEL_SHAPES + CHUNKED_SHAPES] + WIDE_SHAPES
+    for n_real, n_pad, k, c in cases:
+        chips, nodes, dyn = random_fleet(n_real, n_pad, seed=n_pad + k + c, chips=c)
         rng = np.random.default_rng(k)
         host_ok = (rng.random((k, n_pad)) > 0.2).astype(np.int32)
         if k > 1:
@@ -539,30 +575,34 @@ def phase_kernel() -> tuple[list[dict], dict]:
             if not torch.equal(got, want):
                 bad = (got != want).nonzero()[:5].tolist()
                 raise AssertionError(
-                    f"kernel != plain at nodes={n_real} K={k} {wname}: "
+                    f"kernel != plain at nodes={n_real} C={c} K={k} {wname}: "
                     f"max |diff| {err}, first [k, row, node] {bad}"
                 )
             if k > 1 and int(got[-1, 0].sum()) != 0:
                 raise AssertionError("padding row came out feasible")
             row = dict(
-                nodes=n_real, padded=n_pad, k=k, weights=wname, max_abs_err=err,
-                tolerance=0, bound_ms=bound_ms(n_pad, k),
+                nodes=n_real, padded=n_pad, k=k, chips=c, weights=wname,
+                max_abs_err=err, tolerance=0,
             )
-            if wname == "least-allocated" and (n_real, n_pad, k) in CHUNKED_SHAPES:
+            row["bound_ms"], row["bound_by"] = bound(n_pad, k, c)
+            wide = c > CHIPS
+            if wname == "least-allocated" and not wide and (n_real, n_pad, k) in CHUNKED_SHAPES:
                 row["ms"] = cuda_ms(lambda: fleet_eval(*args, w))
                 row["smi"] = smi_sample()
             elif wname == "least-allocated":
-                row["plan"] = launch_plan(n_pad, CHIPS, k, dev)
+                row["plan"] = launch_plan(n_pad, c, min(k, cuda_kernel.MAX_REQUESTS), dev)
                 row["ms"] = cuda_ms(lambda: fleet_eval(*args, w))
                 row["plain_ms"] = cuda_ms(
-                    lambda: kernel_packed_burst(*args, w), iters=10
+                    lambda: kernel_packed_burst(*args, w), iters=3 if wide else 10
                 )
-                if (n_real, n_pad, k) in PROFILED_SHAPES:
+                if wide or (n_real, n_pad, k) in PROFILED_SHAPES:
                     (row["device_ms"], row["launches_per_call"],
                      row["profiler_windows"]) = profiled_ms(
-                        lambda: fleet_eval(*args, w), lambda: cuda_kernel.launches
+                        lambda: fleet_eval(*args, w), lambda: cuda_kernel.launches,
+                        per_call=-(-k // cuda_kernel.MAX_REQUESTS),
                     )
-                    if n_pad == 8192:
+                    row["profiled"] = True
+                    if n_pad == 8192 and not wide:
                         row["round_trips_ms"] = round_trip_ms(
                             chips, nodes, dyn, host_ok, reqs
                         )
@@ -570,8 +610,7 @@ def phase_kernel() -> tuple[list[dict], dict]:
                 row["smi"] = smi_sample()
             rows.append(row)
             print("kernel", json.dumps(row))
-    timed = [r for r in rows if "ms" in r]
-    main = [r for r in timed if (r["nodes"], r["padded"], r["k"]) in PROFILED_SHAPES]
+    main = [r for r in rows if r.get("profiled")]
     return rows, main
 
 
@@ -661,10 +700,13 @@ def run_main_path(platform: str, pods_a, pods_b) -> dict:
     return out
 
 
-def build_fleet(platform: str, burst: int):
+def build_fleet(platform: str, burst: int, pools: "dict[str, str] | None" = None):
     """The 5,000-node fleet's stack and its agent: 512 v5p 2x2x1 slices and
-    2,952 v5e hosts, published by the port's FakeTpuAgent."""
+    2,952 v5e hosts, published by the port's FakeTpuAgent. With ``pools``
+    every host gets a Node object, labelled pool=<its pool> where ``pools``
+    names it."""
     from yoda_tpu_torch.agent.fake_publisher import FakeTpuAgent
+    from yoda_tpu_torch.api.types import K8sNode
     from yoda_tpu_torch.config import SchedulerConfig
     from yoda_tpu_torch.standalone import build_stack
 
@@ -672,10 +714,16 @@ def build_fleet(platform: str, burst: int):
         config=SchedulerConfig(kernel_platform=platform, batch_requests=burst)
     )
     agent = FakeTpuAgent(stack.cluster)
+    hosts = []
     for s in range(512):
-        agent.add_slice(f"v5p-{s:03d}", generation="v5p", host_topology=(2, 2, 1))
+        hosts += agent.add_slice(f"v5p-{s:03d}", generation="v5p", host_topology=(2, 2, 1))
     for h in range(2952):
         agent.add_host(f"v5e-{h:04d}", generation="v5e", chips=8)
+        hosts.append(f"v5e-{h:04d}")
+    if pools is not None:
+        for name in hosts:
+            pool = pools.get(name)
+            stack.cluster.put_node(K8sNode(name, labels={"pool": pool} if pool else {}))
     agent.publish_all()
     return stack, agent
 
@@ -747,7 +795,6 @@ def contended_script():
 def run_gang_path(platform: str, run: str) -> dict:
     """Run (c) or (d) on one kernel_platform; the bindings, counters and
     latencies."""
-    from yoda_tpu_torch.api.requests import gang_name_of
     from yoda_tpu_torch.api.types import K8sNode, PodSpec
     from yoda_tpu_torch.ops import cuda_kernel
 
@@ -804,28 +851,11 @@ def run_gang_path(platform: str, run: str) -> dict:
     wall = time.monotonic() - t0
     launches, joint_launches = cuda_kernel.launches, cuda_kernel.joint_fit_launches
     pods = [name for wave in waves for name, _, _ in wave]
-    bound = {n: stack.cluster.get_pod(f"default/{n}").node_name for n in pods}
-    # On the scheduler's clock: a pod's first cycle start, and when it was
-    # bound — its own "bound" cycle, or for a gang member the end of the
-    # cycle whose Permit released the gang (the last member's).
-    first: dict[str, float] = {}
-    span: dict[str, tuple[float, float]] = {}
-    bound_at: dict[str, float] = {}
-    for r in stack.scheduler.stats.results:
-        name = r.pod_key.split("/", 1)[1]
-        first.setdefault(name, r.completed_at - r.latency_s)
-        g = gang_name_of(stack.cluster.get_pod(r.pod_key).labels)
-        if g is not None and bound[name]:
-            lo, hi = span.get(g, (float("inf"), 0.0))
-            span[g] = (min(lo, first[name]), max(hi, r.completed_at))
-        elif r.outcome == "bound":
-            bound_at[name] = r.completed_at
-    for name in pods:
-        g = gang_name_of(stack.cluster.get_pod(f"default/{name}").labels)
-        if g in span:
-            bound_at[name] = span[g][1]
-    lat = sorted(bound_at[n] - first[n] for n in bound_at)
-    completion = sorted(hi - lo for lo, hi in span.values())
+    bound = bindings_of(stack, pods)
+    lat, completion = bind_latencies(
+        stack.scheduler.stats.results,
+        {name: labels for wave in waves for name, labels, _ in wave}, bound,
+    )
     capacity = {
         t.name: sum(c.healthy for c in t.chips) for t in stack.cluster.list_tpu_metrics()
     }
@@ -851,24 +881,69 @@ def run_gang_path(platform: str, run: str) -> dict:
         chunks=sum(-(-k // cuda_kernel.MAX_REQUESTS) for k in fleet_calls),
         max_rows=max(fleet_calls, default=0), joint_fit_launches=joint_launches,
         waiting=len(stack.framework.waiting_pods()),
-        **{c: getattr(b, c) for c in (
-            "dispatch_count", "burst_dispatches", "burst_served",
-            "gang_burst_dispatches", "gang_burst_served", "joint_dispatches",
-            "joint_gangs", "joint_parked", "fused_plan_dispatches", "plan_served",
-            "dispatch_errors")},
+        **{c: getattr(b, c) for c in GANG_COUNTERS},
         **resident_counts(b),
         wall_s=wall, eval_s=sum(eval_s),
         eval_ms_per_call=1e3 * sum(eval_s) / max(len(eval_s), 1),
         pods_per_s=len(lat) / wall if wall else 0.0,
-        p50_ms=1e3 * lat[len(lat) // 2] if lat else None,
-        p99_ms=1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))] if lat else None,
-        gang_p50_ms=1e3 * completion[len(completion) // 2] if completion else None,
-        gang_p99_ms=(
-            1e3 * completion[min(len(completion) - 1, int(0.99 * len(completion)))]
-            if completion else None
-        ),
+        p50_ms=pct_ms(lat, 0.5), p99_ms=pct_ms(lat, 0.99),
+        gang_p50_ms=pct_ms(completion, 0.5), gang_p99_ms=pct_ms(completion, 0.99),
         joint_inputs=joint_inputs,
     )
+
+
+GANG_COUNTERS = (
+    "dispatch_count", "burst_dispatches", "burst_served", "gang_burst_dispatches",
+    "gang_burst_served", "joint_dispatches", "joint_gangs", "joint_parked",
+    "fused_plan_dispatches", "plan_served", "dispatch_errors",
+)
+
+
+def pct_ms(sorted_s: list[float], q: float) -> float | None:
+    """The q-quantile (nearest rank below) of sorted seconds, in ms."""
+    if not sorted_s:
+        return None
+    return 1e3 * sorted_s[min(len(sorted_s) - 1, int(q * len(sorted_s)))]
+
+
+def bindings_of(stack, pods: list[str]) -> dict:
+    """Each pod's node, None while pending, "evicted" once preemption took
+    it."""
+    out = {}
+    for name in pods:
+        pod = stack.cluster.get_pod(f"default/{name}")
+        out[name] = "evicted" if pod is None else pod.node_name
+    return out
+
+
+def bind_latencies(results, labels_of: dict, bound: dict) -> tuple[list, list]:
+    """Sorted per-pod latencies and per-gang completion times, seconds on
+    the scheduler's clock, of the pods in ``labels_of``: a pod's first cycle
+    start to its bind — its own "bound" cycle, or for a gang member the end
+    of the cycle whose Permit released the gang (the last member's)."""
+    from yoda_tpu_torch.api.requests import gang_name_of
+
+    first: dict[str, float] = {}
+    span: dict[str, tuple[float, float]] = {}
+    bound_at: dict[str, float] = {}
+    for r in results:
+        name = r.pod_key.split("/", 1)[1]
+        if name not in labels_of:
+            continue
+        first.setdefault(name, r.completed_at - r.latency_s)
+        g = gang_name_of(labels_of[name])
+        if g is not None and bound[name] not in (None, "evicted"):
+            lo, hi = span.get(g, (float("inf"), 0.0))
+            span[g] = (min(lo, first[name]), max(hi, r.completed_at))
+        elif r.outcome == "bound":
+            bound_at[name] = r.completed_at
+    for name, labels in labels_of.items():
+        g = gang_name_of(labels)
+        if g in span and bound[name] not in (None, "evicted"):
+            bound_at[name] = span[g][1]
+    lat = sorted(bound_at[n] - first[n] for n in bound_at)
+    completion = sorted(hi - lo for lo, hi in span.values())
+    return lat, completion
 
 
 def joint_device_ms(inputs: list[tuple]) -> tuple[float | None, list[dict]]:
@@ -1357,6 +1432,272 @@ def phase_churn(smi: str) -> dict:
     return g
 
 
+# Run (f)'s pools on the 5,000-node fleet: 64 v5e hosts (512 chips) and 4
+# v5p-32 slices (16 hosts x 4 chips).
+MIXED_E = [f"v5e-{h * 41:04d}" for h in range(64)]
+MIXED_P = [f"v5p-{s * 128:03d}-{i}" for s in range(4) for i in range(4)]
+
+
+def preemption_script():
+    """Run (f)'s two waves of (name, labels, pool) and its gangs (name ->
+    (kind, size)). Wave 1 (priority 1) fills both pools exactly; wave 2
+    needs 40 of the 64 v5e hosts whole and 2 of the 4 slices."""
+    wave1 = [(f"inf-e{i:03d}", {"tpu/chips": "2", "tpu/priority": "1"}, "mixed-e")
+             for i in range(256)]
+    wave1 += [(f"inf-p{i:02d}", {"tpu/chips": "4", "tpu/priority": "1"}, "mixed-p")
+              for i in range(16)]
+    gangs: dict[str, tuple[str, int]] = {}
+    wave2 = []
+    for g in range(2):
+        gangs[f"train{g}"] = ("plain", 16)
+        wave2 += [(f"train{g}-{m:02d}", {
+            "tpu/gang": f"train{g}", "tpu/gang-size": "16", "tpu/chips": "8",
+            "tpu/priority": "100"}, "mixed-e") for m in range(16)]
+    wave2 += [(f"solo{i}", {"tpu/chips": "8", "tpu/priority": "50"}, "mixed-e")
+              for i in range(8)]
+    for g in range(2):
+        gangs[f"topo{g}"] = ("topology", 4)
+        wave2 += [(f"topo{g}-{m}", {
+            "tpu/gang": f"topo{g}", "tpu/topology": "2x2x1", "tpu/chips": "4",
+            "tpu/priority": "100"}, "mixed-p") for m in range(4)]
+    return [wave1, wave2], gangs
+
+
+def run_preemption(platform: str) -> dict:
+    """Run (f) on one kernel_platform: wave 1, the agent republishing every
+    bound host (their usage becomes metrics-visible: delta syncs), then
+    wave 2, timed. Bindings (evictions included), counters and wave 2's
+    latencies."""
+    from yoda_tpu_torch.api.types import PodSpec
+    from yoda_tpu_torch.ops import cuda_kernel
+    from yoda_tpu_torch.ops import kernel as kernel_mod
+
+    pools = {h: "mixed-e" for h in MIXED_E} | {h: "mixed-p" for h in MIXED_P}
+    stack, agent = build_fleet(platform, 16, pools=pools)
+    waves, gangs = preemption_script()
+    plugin = stack.preemption
+    post_filter_ms: list[float] = []
+    fleet_calls: list[int] = []
+    inner_post_filter, real_fleet_eval = plugin.post_filter, cuda_kernel.fleet_eval
+
+    def timed_post_filter(*args, **kw):
+        t = time.perf_counter()
+        try:
+            return inner_post_filter(*args, **kw)
+        finally:
+            post_filter_ms.append(1e3 * (time.perf_counter() - t))
+
+    def counted_fleet_eval(*args, **kw):
+        fleet_calls.append(args[4].shape[0])
+        return real_fleet_eval(*args, **kw)
+
+    plugin.post_filter = timed_post_filter
+    cuda_kernel.fleet_eval = counted_fleet_eval
+    cuda_kernel.launches = cuda_kernel.joint_fit_launches = 0
+    kernel_mod.row_update_launches = 0
+    try:
+        for name, labels, pool in waves[0]:
+            stack.cluster.create_pod(
+                PodSpec(name, labels=dict(labels), node_selector={"pool": pool})
+            )
+        stack.scheduler.run_until_idle(max_wall_s=300)
+        for host in sorted({p.node_name for p in stack.cluster.list_pods() if p.node_name}):
+            agent.refresh(host)
+        first_wave2 = len(stack.scheduler.stats.results)
+        t0 = time.monotonic()
+        for name, labels, pool in waves[1]:
+            stack.cluster.create_pod(
+                PodSpec(name, labels=dict(labels), node_selector={"pool": pool})
+            )
+        stack.scheduler.run_until_idle(max_wall_s=300)
+        if platform != "cpu":
+            torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        cuda_kernel.fleet_eval = real_fleet_eval
+    pods = [name for wave in waves for name, _, _ in wave]
+    bound = bindings_of(stack, pods)
+    wave2 = {name: labels for name, labels, _ in waves[1]}
+    lat, completion = bind_latencies(
+        stack.scheduler.stats.results[first_wave2:], wave2, bound
+    )
+    capacity = {
+        t.name: sum(c.healthy for c in t.chips) for t in stack.cluster.list_tpu_metrics()
+    }
+    slice_of = {t.name: t.slice_id for t in stack.cluster.list_tpu_metrics()}
+    verdicts = {}
+    for g, (kind, size) in gangs.items():
+        nodes = [bound[n] for n in pods if n.startswith(f"{g}-")]
+        placed = [x for x in nodes if x not in (None, "evicted")]
+        verdicts[g] = dict(kind=kind, size=size, bound=len(placed), hosts=len(set(placed)),
+                           slices=len({slice_of[x] for x in placed}))
+    b, r = stack.batch, stack.batch._resident
+    return dict(
+        platform=platform, pods=len(pods), bindings=bound, verdicts=verdicts,
+        wave2_bound=sum(bound[n] not in (None, "evicted") for n in wave2),
+        evicted=sorted(n for n, v in bound.items() if v == "evicted"),
+        preempted_total=plugin.preempted_total,
+        nominations=stack.scheduler.stats.preempt_nominations,
+        nominated={p.name: p.nominated_node_name for p in stack.cluster.list_pods()
+                   if p.nominated_node_name},
+        overcommitted=[h for h, c in capacity.items() if stack.accountant.chips_in_use(h) > c],
+        waiting=len(stack.framework.waiting_pods()),
+        launches=cuda_kernel.launches, fleet_calls=len(fleet_calls),
+        chunks=sum(-(-k // cuda_kernel.MAX_REQUESTS) for k in fleet_calls),
+        joint_fit_launches=cuda_kernel.joint_fit_launches,
+        row_update_launches=kernel_mod.row_update_launches,
+        **{c: getattr(b, c) for c in GANG_COUNTERS},
+        restacks=b.restacks, delta_syncs=r.delta_syncs, rows_applied=r.rows_applied,
+        post_filter_calls=len(post_filter_ms),
+        post_filter_ms_median=statistics.median(post_filter_ms) if post_filter_ms else None,
+        post_filter_ms_max=max(post_filter_ms, default=None),
+        wall_s=wall, pods_per_s=len(lat) / wall if wall else 0.0,
+        p50_ms=pct_ms(lat, 0.5), p99_ms=pct_ms(lat, 0.99),
+        gang_p50_ms=pct_ms(completion, 0.5), gang_p99_ms=pct_ms(completion, 0.99),
+    )
+
+
+PREEMPTION_PARITY = (
+    "bindings", "evicted", "preempted_total", "nominations", "nominated", "restacks",
+    "delta_syncs", "rows_applied", "dispatch_count", "joint_parked",
+)
+
+
+def check_preemption(g: dict, c: dict) -> None:
+    diff = {k: (g[k], c[k]) for k in PREEMPTION_PARITY if g[k] != c[k]}
+    if diff:
+        short = {k: v if k != "bindings" else "differ" for k, v in diff.items()}
+        raise AssertionError(f"run f: cuda != cpu in {short}")
+    for run in (g, c):
+        name = f"run f ({run['platform']})"
+        if run["overcommitted"]:
+            raise AssertionError(f"{name}: over-committed {run['overcommitted']}")
+        if run["waiting"] or run["dispatch_errors"]:
+            raise AssertionError(f"{name}: {run['waiting']} left at Permit, "
+                                 f"{run['dispatch_errors']} dispatch errors")
+        if run["wave2_bound"] != 48:
+            raise AssertionError(f"{name}: {run['wave2_bound']}/48 wave-2 pods bound")
+        if run["preempted_total"] != len(run["evicted"]) or not run["evicted"]:
+            raise AssertionError(
+                f"{name}: {run['preempted_total']} evictions counted, "
+                f"{len(run['evicted'])} pods gone"
+            )
+        if any(not n.startswith("inf-") for n in run["evicted"]):
+            raise AssertionError(f"{name}: a wave-2 pod was evicted: {run['evicted']}")
+        if not run["nominations"] or run["restacks"] != 1 or not run["delta_syncs"]:
+            raise AssertionError(
+                f"{name}: nominations {run['nominations']}, restacks "
+                f"{run['restacks']}, delta syncs {run['delta_syncs']} (want > 0, 1, > 0)"
+            )
+        for gang, v in run["verdicts"].items():
+            if v["bound"] != v["size"] or (
+                v["kind"] == "topology" and (v["hosts"] != 4 or v["slices"] != 1)
+            ):
+                raise AssertionError(f"{name}: gang {gang} not placed whole: {v}")
+    if not 0 < g["launches"] == g["chunks"] or g["fleet_calls"] != g["dispatch_count"]:
+        raise AssertionError(
+            f"run f: {g['launches']} fleet_eval launches for {g['chunks']} chunks "
+            f"of {g['fleet_calls']} calls, {g['dispatch_count']} dispatches"
+        )
+    if g["joint_fit_launches"] != g["fused_plan_dispatches"]:
+        raise AssertionError(
+            f"run f: {g['joint_fit_launches']} joint_fit launches for "
+            f"{g['fused_plan_dispatches']} fused dispatches"
+        )
+    if g["row_update_launches"] != g["delta_syncs"]:
+        raise AssertionError(
+            f"run f: {g['row_update_launches']} row updates for {g['delta_syncs']} delta syncs"
+        )
+    if c["launches"] or c["joint_fit_launches"] or c["row_update_launches"]:
+        raise AssertionError("run f: the CPU run launched on the card")
+
+
+def phase_preemption(smi: str) -> dict:
+    g = run_preemption("auto")
+    c = run_preemption("cpu")
+    for run in (g, c):
+        summary = {k: v for k, v in run.items()
+                   if k not in ("bindings", "evicted", "nominated", "verdicts")}
+        summary["evicted"] = len(run["evicted"])
+        print(f"preemption (f) {run['platform']} [{smi}]:", json.dumps(summary))
+    check_preemption(g, c)
+    return g
+
+
+def wide_fleet_script(seed: int = 5):
+    """A fleet of 16 hosts of 40 chips (the lowering pads every node to 64)
+    and 48 of 8, and 96 singletons of 1-32 chips, some with HBM or clock
+    floors."""
+    rng = np.random.default_rng(seed)
+    hosts = [(f"big-{h:02d}", 40) for h in range(16)] + [(f"v5e-{h:02d}", 8) for h in range(48)]
+    pods = []
+    for i in range(96):
+        labels = {"tpu/chips": str(int(rng.choice([1, 2, 4, 8, 16, 32])))}
+        if rng.random() < 0.5:
+            labels["tpu/hbm"] = f"{int(rng.integers(1, 16))}Gi"
+        if rng.random() < 0.2:
+            labels["tpu/clock"] = "900"
+        pods.append((f"w{i:02d}", labels))
+    return hosts, pods
+
+
+def run_wide_fleet(platform: str, burst: int) -> dict:
+    """The wide fleet's singletons through build_stack on one platform:
+    bindings, launches and dispatches."""
+    from yoda_tpu_torch.agent.fake_publisher import FakeTpuAgent
+    from yoda_tpu_torch.api.types import PodSpec
+    from yoda_tpu_torch.config import SchedulerConfig
+    from yoda_tpu_torch.ops import cuda_kernel
+    from yoda_tpu_torch.standalone import build_stack
+
+    stack = build_stack(
+        config=SchedulerConfig(kernel_platform=platform, batch_requests=burst)
+    )
+    agent = FakeTpuAgent(stack.cluster)
+    hosts, pods = wide_fleet_script()
+    for name, chips in hosts:
+        agent.add_host(name, generation="v5e", chips=chips)
+    agent.publish_all()
+    for name, labels in pods:
+        stack.cluster.create_pod(PodSpec(name, labels=dict(labels)))
+    cuda_kernel.launches = 0
+    stack.scheduler.run_until_idle(max_wall_s=120)
+    if platform != "cpu":
+        torch.cuda.synchronize()
+    b = stack.batch
+    return dict(
+        platform=platform, burst=burst, chip_bucket=int(b._static.hbm_free_mib.shape[1]),
+        bindings=bindings_of(stack, [n for n, _ in pods]),
+        launches=cuda_kernel.launches, dispatch_count=b.dispatch_count,
+        dispatch_errors=b.dispatch_errors,
+    )
+
+
+def phase_wide_fleet(smi: str) -> list[dict]:
+    """The 40-chip stack check: bindings on the card equal the CPU run's,
+    every evaluation launched the wide kernel."""
+    out = []
+    for burst in (1, 16):
+        g, c = run_wide_fleet("auto", burst), run_wide_fleet("cpu", burst)
+        bound = sum(v is not None for v in g["bindings"].values())
+        print(f"wide fleet (40 + 8 chips, K = {burst}) [{smi}]:", json.dumps(
+            {k: v for k, v in g.items() if k != "bindings"} | {"bound": bound}))
+        if g["bindings"] != c["bindings"]:
+            diff = [p for p in g["bindings"] if g["bindings"][p] != c["bindings"][p]]
+            raise AssertionError(f"wide fleet: {len(diff)} pods bound differently, e.g. {diff[:3]}")
+        if g["chip_bucket"] != 64 or not 0 < bound < len(g["bindings"]):
+            raise AssertionError(f"wide fleet: bucket {g['chip_bucket']}, {bound} bound")
+        if g["dispatch_errors"] or not 0 < g["launches"] == g["dispatch_count"]:
+            raise AssertionError(
+                f"wide fleet: {g['launches']} launches for {g['dispatch_count']} "
+                f"dispatches, {g['dispatch_errors']} errors"
+            )
+        if c["launches"]:
+            raise AssertionError("wide fleet: the CPU run launched the kernel")
+        out.append(g)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one NVIDIA GPU", file=sys.stderr)
@@ -1389,8 +1730,17 @@ def main() -> None:
         churn = phase_churn(smi)
     except Exception as e:  # noqa: BLE001
         fail("churn run (e)", e)
+    try:
+        preemption = phase_preemption(smi)
+    except Exception as e:  # noqa: BLE001
+        fail("preemption run (f)", e)
+    try:
+        wide = phase_wide_fleet(smi)
+    except Exception as e:  # noqa: BLE001
+        fail("wide fleet", e)
     main_row = next(
-        r for r in profiled if (r["nodes"], r["padded"], r["k"]) == MAIN_PATH_SHAPE
+        r for r in profiled
+        if (r["nodes"], r["padded"], r["k"]) == MAIN_PATH_SHAPE and r["chips"] == CHIPS
     )
     joint_main = next(
         r for r in joint_rows
@@ -1410,12 +1760,13 @@ def main() -> None:
                     "yoda_tpu/ops/pallas_kernel.py:299 (_pallas_eval_burst)"
                 ),
                 "launches": sum(run["launches"] for run in (
-                    gpu["a"], gpu["b"], gangs["c"], gangs["d"], churn)),
+                    gpu["a"], gpu["b"], gangs["c"], gangs["d"], churn, preemption,
+                    *wide)),
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": main_row["ms"],
                 "plain_ms": main_row["plain_ms"],
                 "bound_ms": main_row["bound_ms"],
-                "bound_by": "bytes",
+                "bound_by": main_row["bound_by"],
                 "library_ms": None,
                 "device_ms": not_measured(main_row["device_ms"]),
                 "round_trip_ms": main_row["round_trip_ms"],
@@ -1423,8 +1774,9 @@ def main() -> None:
                 "shapes": [
                     {
                         key: not_measured(r.get(key))
-                        for key in ("padded", "k", "ms", "device_ms", "plain_ms",
-                                    "bound_ms", "round_trips_ms", "smi")
+                        for key in ("padded", "chips", "k", "ms", "device_ms",
+                                    "launches_per_call", "plain_ms", "bound_ms",
+                                    "bound_by", "plan", "round_trips_ms", "smi")
                     }
                     for r in profiled
                 ],
@@ -1438,7 +1790,7 @@ def main() -> None:
                     "(lax.scan in kernel_joint_plan, :581)"
                 ),
                 "launches": gangs["c"]["joint_fit_launches"]
-                + gangs["d"]["joint_fit_launches"],
+                + gangs["d"]["joint_fit_launches"] + preemption["joint_fit_launches"],
                 "max_abs_err": max(r["max_abs_err"] for r in joint_rows),
                 "ms": joint_main["ms"],
                 "device_ms": not_measured(joint_main["device_ms"]),
@@ -1462,15 +1814,16 @@ def main() -> None:
         ],
         # The resident row update is a torch op, not a hand kernel (the
         # reference's XLA scatter, yoda_tpu/ops/kernel.py:662): launches are
-        # run (e)'s update_rows calls on the card, times at the main path's
-        # fleet with 64 rows.
+        # runs (e) and (f)'s update_rows calls on the card, times at the
+        # main path's fleet with 64 rows.
         "torch_ops": [
             {
                 "name": "update_rows",
                 "route": "torch",
                 "source": "yoda_tpu_torch/ops/kernel.py (TorchFleetKernel.update_rows)",
                 "replaces": "yoda_tpu/ops/kernel.py:662 apply_row_update (jitted :671)",
-                "launches": churn["row_update_launches"],
+                "launches": churn["row_update_launches"]
+                + preemption["row_update_launches"],
                 "max_abs_err": max(r["max_abs_err"] for r in update_rows),
                 "ms": update_main["ms"],
                 "plain_ms": update_main["put_static_ms"],

@@ -7,8 +7,9 @@ Needs one CUDA card and nvcc. Two parts:
 - fleet_eval: builds a copy of yoda_tpu_torch/csrc/fleet_eval.cu into
   build/kernels/ with one read of the card's %globaltimer by thread 0 of
   every block at the kernel's start and after each block or grid barrier
-  (the shipped kernel has none), launches it at the main path's shapes and
-  at 65,536 nodes, checks its output against the plain PyTorch version
+  (the shipped kernel has none), launches it at the main path's shapes, at
+  65,536 nodes and at 8,192 nodes x 64 chips (the wide instantiation,
+  K = 16), checks its output against the plain PyTorch version
   (exactly equal), and prints per phase the median over 5 launches of how
   far that phase moved the latest block's end (from the earliest block's
   start), in us, beside an nvidia-smi sample of SM clock and power. The
@@ -42,7 +43,12 @@ from yoda_tpu_torch.config import SchedulerConfig
 from yoda_tpu_torch.ops import cuda_kernel
 from yoda_tpu_torch.ops.kernel import joint_fit_scan, kernel_packed_burst
 
-SHAPES = [(5000, 8192, 1), (5000, 8192, 16), (65536, 65536, 16)]
+# (real nodes, padded nodes, K, chips): the main path's shapes, 65,536
+# nodes, and the wide instantiation at 64 chips a node.
+SHAPES = [
+    (5000, 8192, 1, CHIPS), (5000, 8192, 16, CHIPS), (65536, 65536, 16, CHIPS),
+    (5000, 8192, 16, 64),
+]
 # Boundaries, in kernel order, after the trace point at the kernel's start.
 PHASES = [
     "stage", "filter", "partials + sync 1", "reduce maxima", "divisors",
@@ -233,8 +239,8 @@ def main() -> None:
     weights = SchedulerConfig().effective_weights()
     row = cuda_kernel._host_weights(weights)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for n_real, n, k in SHAPES:
-        chips, nodes, dyn = random_fleet(n_real, n, seed=n + k)
+    for n_real, n, k, c in SHAPES:
+        chips, nodes, dyn = random_fleet(n_real, n, seed=n + k, chips=c)
         host_ok = (np.random.default_rng(k).random((k, n)) > 0.2).astype(np.int32)
         reqs = REQUEST_TABLE[np.arange(k) % len(REQUEST_TABLE)]
         args = [
@@ -242,7 +248,7 @@ def main() -> None:
             for x in (chips, nodes, dyn, host_ok, reqs)
         ]
         plan = (ctypes.c_int * 5)()
-        if so.fleet_eval_plan(n, CHIPS, k, plan):
+        if so.fleet_eval_plan(n, c, k, plan):
             raise RuntimeError("fleet_eval_plan failed")
         grid = plan[0]
         words = cuda_kernel.SCRATCH_WORDS * k * -(-n // cuda_kernel.TILE_NODES)
@@ -254,7 +260,7 @@ def main() -> None:
             so.fleet_eval_set_trace(ctypes.c_void_p(trace.data_ptr()) if i >= 3 else None)
             rc = so.fleet_eval_launch(
                 *(t.data_ptr() for t in args), out.data_ptr(), scratch.data_ptr(),
-                words, n, CHIPS, k, ctypes.addressof(row), 0, stream,
+                words, n, c, k, ctypes.addressof(row), 0, stream,
             )
             if rc:
                 raise RuntimeError(f"launch failed: CUDA error {rc}")
@@ -266,10 +272,10 @@ def main() -> None:
                 totals.append(ends[-1] / 1e3)
         so.fleet_eval_set_trace(None)
         if not torch.equal(out, kernel_packed_burst(*args, weights)):
-            raise AssertionError(f"traced kernel != plain at nodes={n} K={k}")
+            raise AssertionError(f"traced kernel != plain at nodes={n} C={c} K={k}")
         med = np.median(np.array(spans), axis=0)
         print(json.dumps({
-            "nodes": n, "k": k, "grid": grid, "threads": plan[1],
+            "nodes": n, "chips": c, "k": k, "grid": grid, "threads": plan[1],
             "total_us": float(np.median(totals)),
             "phases_us": {p: round(float(v), 2) for p, v in zip(PHASES, med)},
             "smi": smi_sample(),

@@ -19,6 +19,7 @@ from chip_smoke import (
     UPDATE_ROWS,
     identical_rows_case,
     joint_case,
+    run_wide_fleet,
     slice_edge_case,
     update_rows_check,
 )
@@ -213,16 +214,26 @@ class TestHandKernel:
         with pytest.raises(ValueError, match="contiguous"):
             fleet_eval(*strided, Weights())
 
-    @pytest.mark.parametrize("chips", [4, 16, 32])
-    def test_chip_counts_equal_plain(self, card, chips):
-        args = on(card, stacked_fleet(300, 512, 4, seed=chips, chips=chips))
+    @pytest.mark.parametrize(
+        "chips,k",
+        [(4, 4), (16, 4), (32, 4), (32, 16),
+         # Past one 32-bit mask: the wide instantiation, staged at K = 1 and
+         # 16 (64 chips), from global memory at K = 144 (128-row chunks past
+         # the shared-memory slot) and at 128 chips.
+         (64, 1), (64, 16), (64, 144), (128, 1), (128, 16), (128, 144)],
+    )
+    def test_chip_counts_equal_plain(self, card, chips, k):
+        args = on(card, stacked_fleet(300, 512, k, seed=chips + k, chips=chips))
         for w in (Weights(), MOST_ALLOCATED):
             assert torch.equal(fleet_eval(*args, w), kernel_packed_burst(*args, w))
+        if chips > 32:
+            plan = cuda_kernel.launch_plan(512, chips, min(k, 128), card)
+            assert plan["resident"] == (1 if chips == 64 and k <= 16 else 0), plan
 
-    def test_more_than_32_chips_are_refused(self, card):
-        args = on(card, stacked_fleet(8, 8, 1, seed=4, chips=64))
-        with pytest.raises(ValueError, match="32 chips"):
-            fleet_eval(*args, Weights())
+    def test_wide_nodes_at_the_int32_edges(self, card):
+        args = on(card, widen_metrics(stacked_fleet(300, 512, 16, seed=14, chips=64), seed=14))
+        for w in (Weights(hbm_bandwidth=900, actual=7), MOST_ALLOCATED):
+            assert torch.equal(fleet_eval(*args, w), kernel_packed_burst(*args, w))
 
     def test_large_fleet_walks_tiles(self, card):
         plan = cuda_kernel.launch_plan(262144, 8, 4, card)
@@ -293,6 +304,57 @@ class TestHandKernel:
         for r, k in zip(first, kept):
             for f in dataclasses.fields(r):
                 np.testing.assert_array_equal(getattr(r, f.name), getattr(k, f.name))
+
+    @pytest.mark.parametrize("burst", [1, 16])
+    def test_wide_fleet_stack_binds_as_on_cpu(self, card, burst):
+        """Hosts of 40 chips beside hosts of 8: the fleet pads to 64 chips a
+        node and every evaluation takes the wide kernel."""
+        got, want = run_wide_fleet("auto", burst), run_wide_fleet("cpu", burst)
+        assert got["chip_bucket"] == 64
+        assert got["bindings"] == want["bindings"]
+        assert got["launches"] == got["dispatch_count"] > 0
+        assert got["dispatch_errors"] == 0
+
+    @pytest.mark.parametrize("burst", [1, 8])
+    def test_config5_preemption_as_on_cpu(self, card, burst):
+        """BASELINE config 5 through the card: two training gangs displace
+        the inference pods that fill the pool, with the CPU run's bindings
+        and evictions."""
+
+        def run(platform):
+            stack = build_stack(config=SchedulerConfig(
+                kernel_platform=platform, batch_requests=burst))
+            agent = FakeTpuAgent(stack.cluster)
+            for h in range(8):
+                agent.add_host(f"v5e-{h}", generation="v5e", chips=8)
+            agent.publish_all()
+            names = [f"infer-{i}" for i in range(32)]
+            for name in names:
+                stack.cluster.create_pod(
+                    PodSpec(name, labels={"tpu/chips": "2", "tpu/priority": "1"}))
+            stack.scheduler.run_until_idle(max_wall_s=30)
+            for g in range(2):
+                for m in range(4):
+                    names.append(f"train{g}-{m}")
+                    stack.cluster.create_pod(PodSpec(names[-1], labels={
+                        "tpu/gang": f"job-{g}", "tpu/gang-size": "4", "tpu/chips": "8",
+                        "tpu/priority": "100"}))
+            before = cuda_kernel.launches
+            stack.scheduler.run_until_idle(max_wall_s=60)
+            pods = {n: stack.cluster.get_pod(f"default/{n}") for n in names}
+            return dict(
+                bindings={n: p.node_name if p else "evicted" for n, p in pods.items()},
+                preempted=stack.preemption.preempted_total,
+                nominations=stack.scheduler.stats.preempt_nominations,
+                launches=cuda_kernel.launches - before,
+            )
+
+        got, want = run("auto"), run("cpu")
+        assert got["launches"] > 0 and want["launches"] == 0
+        got.pop("launches"), want.pop("launches")
+        assert got == want
+        assert got["preempted"] == 32
+        assert all(got["bindings"][f"train{g}-{m}"] for g in range(2) for m in range(4))
 
     @pytest.mark.parametrize("burst", [1, 8])
     def test_stack_schedules_through_the_kernel(self, card, burst):

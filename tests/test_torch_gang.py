@@ -12,9 +12,10 @@ all-or-nothing through yoda_tpu_torch.standalone.build_stack.
   slices (2x2x1 and 2x2x2 host grids) and v5e hosts with cordons, pool
   labels and random chip health, and scripts that mix the four gang kinds
   with singletons, co-queued and arriving in two waves, at batch_requests
-  1 and 16. Bindings, per-gang verdicts and the gang counters must be
-  equal. The reference runs with preemption and the speculative placement
-  cache off, as in tests/test_torch_stack.py."""
+  1 and 16, with preemption off and on in both. Bindings (evictions
+  included), per-gang verdicts and the gang counters must be equal. The
+  reference runs with the speculative placement cache off, as in
+  tests/test_torch_stack.py."""
 
 import itertools
 import math
@@ -1327,10 +1328,12 @@ def run_waves(types, stack, hosts, waves) -> dict:
                               node_selector={"pool": pool} if pool else {})
             )
         stack.scheduler.run_until_idle(max_wall_s=10)
-    return {
-        name: stack.cluster.get_pod(f"default/{name}").node_name
-        for wave in waves for name, _, _ in wave
-    }
+    out = {}
+    for wave in waves:
+        for name, _, _ in wave:
+            pod = stack.cluster.get_pod(f"default/{name}")
+            out[name] = pod.node_name if pod is not None else "evicted"
+    return out
 
 
 GANG_COUNTERS = (
@@ -1346,9 +1349,10 @@ class TestGangStackParity:
     # take the host block planner); seeds 3-4 hold plain and coscheduling
     # gangs only, so their joint passes run the joint-fit scan and contend
     # at its gate.
+    @pytest.mark.parametrize("preemption", [False, True])
     @pytest.mark.parametrize("seed", [0, 1, 2, 3, 4])
     @pytest.mark.parametrize("batch_requests", [1, 16])
-    def test_same_bindings_verdicts_and_counters(self, seed, batch_requests):
+    def test_same_bindings_verdicts_and_counters(self, seed, batch_requests, preemption):
         hosts = parity_fleet(seed)
         waves = (
             parity_script(seed, ("plain", "cosched", "plain"))
@@ -1359,12 +1363,14 @@ class TestGangStackParity:
         ref = ref_build_stack(
             config=RefConfig(
                 kernel_platform="cpu", batch_requests=batch_requests,
-                enable_preemption=False, spec_enabled=False,
+                enable_preemption=preemption, spec_enabled=False,
             ),
             clock=ref_clock,
         )
         want = run_waves(ref_types, ref, hosts, waves)
-        port, _agent = make_stack(port_clock, batch_requests=batch_requests)
+        port, _agent = make_stack(
+            port_clock, batch_requests=batch_requests, enable_preemption=preemption
+        )
         got = run_waves(port_types, port, hosts, waves)
         assert got == want
         (ref_batch,) = ref.framework.batch_plugins
@@ -1372,11 +1378,16 @@ class TestGangStackParity:
             c: getattr(ref_batch, c) for c in GANG_COUNTERS
         }
         assert port.batch.dispatch_errors == 0
-        # Every gang is all-or-nothing, the same ones bind in both, and
-        # both outcomes occur.
+        if preemption:
+            assert port.preemption.preempted_total == ref.preemption.preempted_total
+            assert (port.scheduler.stats.preempt_nominations
+                    == ref.scheduler.stats.preempt_nominations)
+        # Every gang is all-or-nothing (an evicted member aside: a victim
+        # set may take part of a lower-priority gang), the same ones bind
+        # in both, and both outcomes occur.
         by_gang: dict[str, list] = {}
         for name, node in got.items():
-            if "s" not in name.split("-")[0][2:3]:
+            if "s" not in name.split("-")[0][2:3] and node != "evicted":
                 by_gang.setdefault(name.rsplit("-", 1)[0], []).append(node)
         verdicts = {g: all(v) for g, v in by_gang.items()}
         for g, nodes in by_gang.items():

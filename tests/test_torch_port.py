@@ -195,6 +195,30 @@ class TestUnportedKnobs:
         build_stack(config=cfg)
 
 
+class TestPreemptionKnob:
+    """Preemption is ported: on by default as in the reference, off when
+    asked, and never named as an unported setting."""
+
+    def test_on_by_default(self):
+        stack = build_stack(config=SchedulerConfig(kernel_platform="cpu"))
+        assert stack.preemption is not None
+        assert stack.preemption in stack.framework.post_filter_plugins
+        # Victim selection shares the scheduler's cycle lock.
+        assert stack.preemption.select_lock is stack.scheduler.cycle_lock
+
+    def test_off_when_asked(self):
+        stack = build_stack(
+            config=SchedulerConfig(kernel_platform="cpu", enable_preemption=False)
+        )
+        assert stack.preemption is None
+        assert stack.framework.post_filter_plugins == []
+
+    @pytest.mark.parametrize("value", [True, False])
+    def test_never_unported(self, value):
+        cfg = SchedulerConfig(kernel_platform="cpu", enable_preemption=value)
+        assert not [s for s in unported_settings(cfg) if "preemption" in s]
+
+
 class TestGangPodsRefused:
     """The first slice refused every gang pod as not ported; the gang path
     is ported now, so the same four cases assert the new behaviour: a

@@ -395,14 +395,17 @@ class TestDeltaFeed:
 # --- the wired stacks ---
 
 
-def ref_stack(**knobs):
+def ref_stack(enable_preemption=False, **knobs):
     return ref_build_stack(config=RefConfig(
-        kernel_platform="cpu", enable_preemption=False, spec_enabled=False, **knobs,
+        kernel_platform="cpu", enable_preemption=enable_preemption, spec_enabled=False,
+        **knobs,
     ))
 
 
-def port_stack(**knobs):
-    return build_stack(config=SchedulerConfig(kernel_platform="cpu", **knobs))
+def port_stack(enable_preemption=False, **knobs):
+    return build_stack(config=SchedulerConfig(
+        kernel_platform="cpu", enable_preemption=enable_preemption, **knobs,
+    ))
 
 
 STACKS = {"port": (port_stack, port_types, FakeTpuAgent),
@@ -550,13 +553,13 @@ def churn_pods(seed: int) -> list[tuple[str, dict]]:
     return [p for i in order for p in pods[i]]
 
 
-def run_churn(which: str, burst: int, seed: int) -> dict:
+def run_churn(which: str, burst: int, seed: int, preemption: bool = False) -> dict:
     """Drive one stack cycle by cycle: pop a loop turn's batch, then run
     its cycles one by one; between cycles the agent republishes every host
     bound since the last cycle, and every 5th cycle it flips a chip's
     health on a seeded host."""
     build, types, agent_cls = STACKS[which]
-    stack = build(batch_requests=burst)
+    stack = build(batch_requests=burst, enable_preemption=preemption)
     agent = agent_cls(stack.cluster, now_fn=lambda: 0.0)
     hosts = [f"v5e-{i:02d}" for i in range(16)] + [f"v5p-{i:02d}" for i in range(6)]
     for h in hosts:
@@ -597,6 +600,7 @@ def run_churn(which: str, burst: int, seed: int) -> dict:
         bindings={p.name: p.node_name for p in stack.cluster.list_pods()},
         gangs={g: stack.gang.gang_status(g) for g in ("g0", "g1", "g2")},
         cycles=cycle,
+        preempted=stack.preemption.preempted_total if stack.preemption else None,
         delta_syncs=resident.delta_syncs, rows_applied=resident.rows_applied,
         **{c: getattr(yb, c) for c in CHURN_COUNTERS},
     )
@@ -607,10 +611,11 @@ class TestStackParityUnderChurn:
     stack re-stacked on every refresh and dropped every cached set on any
     fleet change, so these counters differed from the reference's."""
 
+    @pytest.mark.parametrize("preemption", [False, True])
     @pytest.mark.parametrize("burst", [1, 16])
-    def test_bindings_verdicts_and_counters_equal_reference(self, burst):
-        got = run_churn("port", burst, seed=5)
-        want = run_churn("ref", burst, seed=5)
+    def test_bindings_verdicts_and_counters_equal_reference(self, burst, preemption):
+        got = run_churn("port", burst, seed=5, preemption=preemption)
+        want = run_churn("ref", burst, seed=5, preemption=preemption)
         assert got == want
         assert sum(v is not None for v in got["bindings"].values()) > 30
         assert got["restacks"] == 1 and got["delta_syncs"] > 0

@@ -5,9 +5,9 @@ cases of tests/test_e2e.py (BASELINE configs 1-4).
 Parity: one seeded fleet of mixed v5e/v5p hosts (random chip health, HBM
 already in use, cordons, taints, node labels) and one script of singleton
 pods go through both stacks; every pod must land on the same node (or stay
-pending in both), with equal dispatch and burst counters. The reference
-runs with the default-on subsystems the port lacks switched off where they
-could change a binding (preemption, the speculative placement cache)."""
+pending, or be evicted, in both), with equal dispatch and burst counters,
+with preemption off and on in both. The reference runs with the
+speculative placement cache, which the port lacks, switched off."""
 
 import dataclasses
 import time
@@ -123,10 +123,11 @@ def run_script(types, stack, hosts, pods) -> dict:
             )
         )
     stack.scheduler.run_until_idle(max_wall_s=60)
-    return {
-        p["name"]: stack.cluster.get_pod(f"default/{p['name']}").node_name
-        for p in pods
-    }
+    out = {}
+    for p in pods:
+        pod = stack.cluster.get_pod(f"default/{p['name']}")
+        out[p["name"]] = pod.node_name if pod is not None else "evicted"
+    return out
 
 
 def counters(batch) -> tuple:
@@ -139,25 +140,25 @@ def counters(batch) -> tuple:
 
 
 class TestStackParity:
+    @pytest.mark.parametrize("preemption", [False, True])
     @pytest.mark.parametrize("batch_requests", [1, 8])
     @pytest.mark.parametrize("strategy", ["least-allocated", "most-allocated"])
-    def test_same_bindings_and_counters(self, batch_requests, strategy):
+    def test_same_bindings_and_counters(self, batch_requests, strategy, preemption):
         hosts, pods = fleet_script(seed=batch_requests)
-        knobs = dict(batch_requests=batch_requests, scoring_strategy=strategy)
+        knobs = dict(
+            batch_requests=batch_requests, scoring_strategy=strategy,
+            enable_preemption=preemption,
+        )
         ref = ref_build_stack(
-            config=RefConfig(
-                kernel_platform="cpu",
-                enable_preemption=False,
-                spec_enabled=False,
-                **knobs,
-            )
+            config=RefConfig(kernel_platform="cpu", spec_enabled=False, **knobs)
         )
         want = run_script(ref_types, ref, hosts, pods)
         port = build_stack(config=SchedulerConfig(kernel_platform="cpu", **knobs))
         got = run_script(port_types, port, hosts, pods)
         assert got == want
         # The script exercises both outcomes.
-        assert 0 < sum(v is not None for v in got.values()) < len(pods)
+        assert 0 < sum(v not in (None, "evicted") for v in got.values()) < len(pods)
+        assert (port.preemption is None) == (not preemption)
         (ref_batch,) = ref.framework.batch_plugins
         assert counters(port.batch) == counters(ref_batch)
         if batch_requests > 1:

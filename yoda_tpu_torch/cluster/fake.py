@@ -6,10 +6,12 @@ binding — the subset of the Kubernetes API the scheduler touches.
 Thread-safe.
 
 Counterpart of ``yoda_tpu/cluster/fake.py``, ported as far as the
-singleton path reaches it. Left out until a later slice: the Namespace /
-PersistentVolumeClaim / PersistentVolume / PodDisruptionBudget stores,
-eviction and nomination (preemption), Events, node-death helpers and the
-watch-drop / staleness probes.
+singleton, gang and preemption paths reach it: eviction (``evict_pod``,
+refused for the keys in ``eviction_blocked``) and the nomination status
+patch (``set_nominated_node``). Left out until a later slice: the
+Namespace / PersistentVolumeClaim / PersistentVolume / PodDisruptionBudget
+stores (so an eviction checks no budget), Events, node-death helpers and
+the watch-drop / staleness probes.
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ class FakeCluster:
         self._nodes: dict[str, K8sNode] = {}
         self._watchers: list[Callable[[Event], None]] = []
         self._rv = 0
+        # Pod keys whose eviction a PodDisruptionBudget would block (tests).
+        self.eviction_blocked: set[str] = set()
 
     # --- watch ---
 
@@ -131,6 +135,27 @@ class FakeCluster:
             pod = self._pods.pop(pod_key, None)
             if pod is not None:
                 self._emit(Event("deleted", "Pod", pod))
+
+    def set_nominated_node(self, pod_key: str, node_name: str | None) -> None:
+        """The pods/status nominatedNodeName patch, fake-side (no-op for
+        missing pods)."""
+        with self._lock:
+            pod = self._pods.get(pod_key)
+            if pod is None:
+                return
+            pod.nominated_node_name = node_name
+            self._emit(Event("modified", "Pod", pod))
+
+    def evict_pod(self, pod_key: str) -> bool:
+        """The pods/eviction subresource, fake-side: deletes the pod unless
+        the test marked it protected via ``eviction_blocked`` (False: the
+        eviction was refused). There is no PodDisruptionBudget store yet, so
+        no budget is checked."""
+        with self._lock:
+            if pod_key in self.eviction_blocked:
+                return False
+        self.delete_pod(pod_key)
+        return True
 
     def get_pod(self, pod_key: str) -> PodSpec | None:
         with self._lock:

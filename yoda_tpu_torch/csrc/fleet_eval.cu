@@ -35,10 +35,19 @@
 //     admission rows (18 KB + (7 + K) * 256 B at C = 8). Every request and
 //     every phase reads them there, and per-(node, request) feasible and
 //     raw stay beside them between phases: the inputs are read from device
-//     memory once per call. A node's healthy and used chips, and each
-//     request's qualifying chips, are bit masks (so C <= 32): phase 1
-//     counts with popc and hands the qualifying mask to phase 2, which
-//     scores only those chips. Tiles beyond R (fleets larger than the grid's
+//     memory once per call. Up to 32 chips a node, a node's healthy and
+//     used chips, and each request's qualifying chips, are bit masks:
+//     phase 1 counts with popc and hands the qualifying mask to phase 2,
+//     which scores only those chips. Past 32 chips (the lowering pads
+//     chips to a power of two, so one 33-chip host makes every node 64
+//     wide) the kernel is instantiated wide (kWide): phase 1 counts chip by
+//     chip in one pass and phase 2 recomputes each chip's qualification
+//     (healthy, free >= hbm, clock >= clk) from the staged chip rows, so no
+//     mask is handed over and any C is exact. At C = 64 a slot is 158 KB
+//     at K = 16; where a slot exceeds the ~210 KB of shared memory a block
+//     may take beside its static arrays (C = 64 past K = 85, every K from
+//     C = 128), nothing is staged and every phase reads global memory
+//     (through L2). Tiles beyond R (fleets larger than the grid's
 //     shared memory holds, ~100k nodes x 8 chips at K = 16) are read from
 //     global memory in each phase and their feasible / raw re-read from the
 //     output rows; the 50 MB L2 keeps those re-reads on chip up to ~170k
@@ -71,7 +80,7 @@ namespace {
 constexpr int kTileNodes = 64;      // nodes per tile: two warps per lane
 constexpr int kMaxLanes = 16;       // request lanes per block
 constexpr int kMaxRequests = 128;   // SchedulerConfig.batch_requests bound
-constexpr int kMaxChips = 32;       // chips per node: one bit each in a mask
+constexpr int kMaskChips = 32;      // chips per node in one bit mask; above, kWide
 constexpr int kScratchWords = 11;   // int32 scratch words per (block, request)
 constexpr int kNodeRows = 7;        // staged rows per node: 4 static + 3 dynamic
 constexpr int32_t kBig = 2147483647;
@@ -348,6 +357,89 @@ __device__ __forceinline__ void filter_tile(const Args& a, int w, int32_t* dsm, 
   }
 }
 
+// filter_tile for nodes of more than 32 chips: the same counts, chip by
+// chip in one pass per request (the qualifying chips' maxima kept on the
+// way and dropped when the pair is infeasible); nothing is handed to
+// phase 2, which recomputes each chip's qualification.
+template <bool kStaged>
+__device__ __forceinline__ void filter_tile_wide(const Args& a, int w, int32_t* dsm, int lane,
+                                                 int lanes, const int32_t* s_req,
+                                                 int32_t* s_max) {
+  const Tile<kStaged> t = tile_at<kStaged>(a, w, dsm);
+  int32_t healthy_n = 0, used_n = 0;
+  int32_t ext = 0, reserved = 0, gen_rank = 0;
+  bool node_valid = false, fresh = false;
+  if (t.real) {
+    for (int c = 0; c < a.c; ++c) {
+      const bool healthy = (t.chip(0, c) != 0) & (t.chip(1, c) != 0);
+      healthy_n += healthy;
+      used_n += healthy & (t.chip(2, c) != 0);
+    }
+    node_valid = t.nodes[0] != 0;
+    gen_rank = t.nodes[2 * t.stride];
+    ext = t.nodes[3 * t.stride];
+    fresh = t.dyn[0] != 0;
+    reserved = t.dyn[t.stride];
+  }
+  for (int k = lane; k < a.k; k += lanes) {  // warp-uniform
+    int32_t mx[6] = {0, 0, 0, 0, 0, 0};      // bw, clock, tflops, power, free, total
+    if (t.real) {
+      const int32_t* req = s_req + k * 5;
+      const int32_t number = req[0], hbm = req[1], clk = req[2], gen = req[3];
+      int32_t hbm_n = 0, clock_n = 0, qual_unused_n = 0, cand_n = 0;
+      for (int c = 0; c < a.c; ++c) {
+        if ((t.chip(0, c) == 0) | (t.chip(1, c) == 0)) continue;
+        const int32_t free = t.chip(3, c), total = t.chip(4, c), clock = t.chip(5, c);
+        const bool used = t.chip(2, c) != 0;
+        const bool hbm_ok = free >= hbm, clock_ok = clock >= clk;
+        hbm_n += hbm_ok;
+        clock_n += clock_ok;
+        cand_n += used & clock_ok & (total >= hbm);
+        if (!(hbm_ok & clock_ok)) continue;
+        qual_unused_n += !used;
+        mx[0] = max(mx[0], t.chip(6, c));
+        mx[1] = max(mx[1], clock);
+        mx[2] = max(mx[2], t.chip(7, c));
+        mx[3] = max(mx[3], t.chip(8, c));
+        mx[4] = max(mx[4], free);
+        mx[5] = max(mx[5], total);
+      }
+      const int32_t absorbable = max(wsub(used_n, ext), 0);
+      const int32_t invisible = max(wsub(reserved, absorbable), 0);
+      const int32_t stale_freed = max(wsub(absorbable, reserved), 0);
+      const int32_t cand = max(wsub(cand_n, ext), 0);
+      const int32_t freed = min(stale_freed, max(wsub(cand, reserved), 0));
+      const int32_t avail = wsub(wadd(qual_unused_n, freed), invisible);
+
+      const bool host_ok = t.host_ok[k * t.stride] != 0;
+      const bool fits_gen = gen_rank >= gen;
+      const bool fits_chips = healthy_n >= number;
+      const bool fits_hbm = hbm == 0 || wadd(hbm_n, freed) >= number;
+      const bool fits_clock = clk == 0 || clock_n >= number;
+      const bool fits_reserved = avail >= number;
+      const bool feasible = node_valid && host_ok && fresh && fits_gen && fits_chips &&
+                            fits_hbm && fits_clock && fits_reserved;
+      const int32_t reason = !node_valid ? 1 : !host_ok ? 8 : !fresh ? 2 : !fits_gen ? 3
+                           : !fits_chips ? 4 : !fits_hbm ? 5 : !fits_clock ? 6
+                           : !fits_reserved ? 7 : 0;
+      int32_t* out = a.out + k * 6 * a.n;
+      out[t.node] = feasible;
+      out[a.n + t.node] = reason;
+      out[5 * a.n + t.node] = max(avail, 0);
+      if (kStaged) t.feasible[k * t.pair_stride] = feasible;
+      if (!feasible) {
+#pragma unroll
+        for (int j = 0; j < 6; ++j) mx[j] = 0;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      const int32_t v = warp_max(mx[j]);
+      if ((threadIdx.x & 31) == 0 && v > 0) atomicMax(s_max + k * 6 + j, v);
+    }
+  }
+}
+
 // Phase 2 for one tile: the raw score of each feasible (node, request)
 // against the cluster maxima; raw lo / hi / any into s_lohi, all three as
 // maxima (lo complemented), so one reduction serves them.
@@ -383,6 +475,69 @@ __device__ __forceinline__ void score_tile(const Args& a, int w, int32_t* dsm, i
         int32_t basic = 0;
         for (int c = 0; c < a.c; ++c) {
           if (!((qual_m >> c) & 1u)) continue;
+          int32_t s = wmul(norm100(t.chip(6, c), m[0]), wt.bw);
+          s = wadd(s, wmul(norm100(t.chip(5, c), m[1]), wt.clock));
+          s = wadd(s, wmul(norm100(t.chip(7, c), m[2]), wt.tflops));
+          s = wadd(s, wmul(norm100(t.chip(8, c), m[3]), wt.power));
+          s = wadd(s, wmul(norm100(t.chip(3, c), m[4]), wt.hbm_free));
+          s = wadd(s, wmul(norm100(t.chip(4, c), m[5]), wt.hbm_total));
+          basic = wadd(basic, s);
+        }
+        raw = wadd(wadd(basic, actual), allocate);
+        hi = bias(raw);
+        lo = ~hi;
+      }
+      a.out[(k * 6 + 2) * a.n + t.node] = raw;
+      if (kStaged) t.raw[k * t.pair_stride] = raw;
+    }
+    lo = warp_max(lo);
+    hi = warp_max(hi);
+    if (__any_sync(kFull, feasible) && (threadIdx.x & 31) == 0) {
+      atomicMax(s_lohi + k, lo);
+      atomicMax(s_lohi + a.k + k, hi);
+      atomicMax(s_lohi + 2 * a.k + k, 1u);
+    }
+  }
+}
+
+// score_tile for nodes of more than 32 chips: a chip qualifies for request
+// k when it is healthy, its free HBM covers the request's and its clock the
+// request's, read again from the chip rows (filter_tile_wide hands over no
+// mask).
+template <bool kStaged>
+__device__ __forceinline__ void score_tile_wide(const Args& a, int w, int32_t* dsm, int lane,
+                                                int lanes, const int32_t* s_req,
+                                                const Divisor* s_div, uint32_t* s_lohi) {
+  const Tile<kStaged> t = tile_at<kStaged>(a, w, dsm);
+  const Weights& wt = a.w;
+  int32_t actual = 0, allocate = 0;
+  if (t.real) {
+    int32_t free_sum = 0, total_sum = 0;
+    for (int c = 0; c < a.c; ++c) {
+      if (t.chip(0, c) == 0) continue;
+      free_sum = wadd(free_sum, t.chip(3, c));
+      total_sum = wadd(total_sum, t.chip(4, c));
+    }
+    const int32_t safe_total = max(total_sum, 1);
+    actual = wmul(total_sum > 0 ? floordiv(wmul(free_sum, 100), safe_total) : 0, wt.actual);
+    const int32_t headroom = max(wsub(total_sum, t.dyn[2 * t.stride]), 0);
+    allocate =
+        wmul(total_sum > 0 ? floordiv(wmul(headroom, 100), safe_total) : 0, wt.allocate);
+  }
+  for (int k = lane; k < a.k; k += lanes) {  // warp-uniform
+    bool feasible = false;
+    uint32_t lo = 0u, hi = 0u;
+    if (t.real) {
+      feasible = t.feasible[k * t.pair_stride] != 0;
+      int32_t raw = 0;
+      if (feasible) {
+        const int32_t hbm = s_req[k * 5 + 1], clk = s_req[k * 5 + 2];
+        const Divisor* m = s_div + k * 6;  // bw, clock, tflops, power, free, total
+        int32_t basic = 0;
+        for (int c = 0; c < a.c; ++c) {
+          if ((t.chip(0, c) == 0) | (t.chip(1, c) == 0) | (t.chip(3, c) < hbm) |
+              (t.chip(5, c) < clk))
+            continue;
           int32_t s = wmul(norm100(t.chip(6, c), m[0]), wt.bw);
           s = wadd(s, wmul(norm100(t.chip(5, c), m[1]), wt.clock));
           s = wadd(s, wmul(norm100(t.chip(7, c), m[2]), wt.tflops));
@@ -448,6 +603,9 @@ __device__ __forceinline__ void finalize_tile(const Args& a, int w, int32_t* dsm
       phase<false>(a, w, dsm, lane, lanes, __VA_ARGS__);            \
   }
 
+// kWide: nodes of more than kMaskChips chips (filter_tile_wide,
+// score_tile_wide); otherwise the mask phases.
+template <bool kWide>
 __global__ void __launch_bounds__(kTileNodes * kMaxLanes) fleet_eval_kernel(Args a) {
   extern __shared__ int32_t dsm[];  // ``resident`` slots, see Tile
   __shared__ unsigned long long s_key[kMaxRequests];
@@ -471,7 +629,11 @@ __global__ void __launch_bounds__(kTileNodes * kMaxLanes) fleet_eval_kernel(Args
   __syncthreads();
 
   // 1. Filter + maxima.
-  FOR_EACH_TILE(filter_tile, s_req, s_max);
+  if constexpr (kWide) {
+    FOR_EACH_TILE(filter_tile_wide, s_req, s_max);
+  } else {
+    FOR_EACH_TILE(filter_tile, s_req, s_max);
+  }
   __syncthreads();
   for (int s = threadIdx.x; s < 6 * K; s += blockDim.x) {
     a.part_max[blockIdx.x * 6 * K + s] = s_max[s];
@@ -486,7 +648,11 @@ __global__ void __launch_bounds__(kTileNodes * kMaxLanes) fleet_eval_kernel(Args
   __syncthreads();
 
   // 2. Raw scores + raw lo / hi.
-  FOR_EACH_TILE(score_tile, s_div, s_lohi);
+  if constexpr (kWide) {
+    FOR_EACH_TILE(score_tile_wide, s_req, s_div, s_lohi);
+  } else {
+    FOR_EACH_TILE(score_tile, s_div, s_lohi);
+  }
   __syncthreads();
   for (int s = threadIdx.x; s < 3 * K; s += blockDim.x) {
     a.part_lohi[blockIdx.x * 3 * K + s] = s_lohi[s];
@@ -549,7 +715,14 @@ struct DeviceInfo {
 
 struct OccupancyEntry {
   int device, threads, smem, blocks;
+  bool wide;
 };
+
+// The instantiation for nodes of c chips.
+const void* kernel_for(int c) {
+  return c > kMaskChips ? reinterpret_cast<const void*>(fleet_eval_kernel<true>)
+                        : reinterpret_cast<const void*>(fleet_eval_kernel<false>);
+}
 
 constexpr int kMaxDevices = 16;
 constexpr int kOccupancyCache = 64;
@@ -559,8 +732,9 @@ DeviceInfo g_devices[kMaxDevices];
 OccupancyEntry g_occupancy[kOccupancyCache];
 int g_occupancy_n = 0;
 
-// Device properties and the kernel's shared-memory ceiling, set once per
-// device. Caller holds g_mu.
+// Device properties and the kernels' shared-memory ceiling (both
+// instantiations have the same static arrays), set once per device.
+// Caller holds g_mu.
 cudaError_t device_info(int device, const DeviceInfo** out) {
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   DeviceInfo& d = g_devices[device];
@@ -574,36 +748,40 @@ cudaError_t device_info(int device, const DeviceInfo** out) {
         (e = cudaDeviceGetAttribute(&d.reserved_per_block,
                                     cudaDevAttrReservedSharedMemoryPerBlock, device)) ||
         (e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                                    device)) ||
-        (e = cudaFuncGetAttributes(&attr, fleet_eval_kernel)))
+                                    device)))
       return e;
-    d.static_smem = static_cast<int>(attr.sharedSizeBytes);
+    for (const int c : {1, kMaskChips + 1}) {
+      if ((e = cudaFuncGetAttributes(&attr, kernel_for(c)))) return e;
+      const int bytes = static_cast<int>(attr.sharedSizeBytes);
+      if (bytes > d.static_smem) d.static_smem = bytes;
+    }
     d.max_dynamic_smem = optin - d.static_smem;
-    if ((e = cudaFuncSetAttribute(fleet_eval_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  d.max_dynamic_smem)))
-      return e;
+    for (const int c : {1, kMaskChips + 1})
+      if ((e = cudaFuncSetAttribute(kernel_for(c), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    d.max_dynamic_smem)))
+        return e;
     d.ready = true;
   }
   *out = &d;
   return cudaSuccess;
 }
 
-// Blocks of ``threads`` and ``smem`` dynamic bytes one SM holds. Caller
-// holds g_mu.
-cudaError_t occupancy(int device, int threads, int smem, int* blocks) {
+// Blocks of ``threads`` and ``smem`` dynamic bytes one SM holds, for the
+// instantiation of c chips. Caller holds g_mu.
+cudaError_t occupancy(int device, int c, int threads, int smem, int* blocks) {
+  const bool wide = c > kMaskChips;
   for (int i = 0; i < g_occupancy_n; ++i) {
     const OccupancyEntry& e = g_occupancy[i];
-    if (e.device == device && e.threads == threads && e.smem == smem) {
+    if (e.device == device && e.threads == threads && e.smem == smem && e.wide == wide) {
       *blocks = e.blocks;
       return cudaSuccess;
     }
   }
   cudaError_t e =
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fleet_eval_kernel, threads, smem);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel_for(c), threads, smem);
   if (e) return e;
   if (g_occupancy_n < kOccupancyCache)
-    g_occupancy[g_occupancy_n++] = OccupancyEntry{device, threads, smem, *blocks};
+    g_occupancy[g_occupancy_n++] = OccupancyEntry{device, threads, smem, *blocks, wide};
   return cudaSuccess;
 }
 
@@ -641,7 +819,7 @@ cudaError_t make_plan(int n, int c, int k, Plan* p) {
     for (; resident >= 0; --resident) {  // the occupancy calculator decides
       const int smem = static_cast<int>(resident * slot);
       int blocks = 0;
-      if ((e = occupancy(device, threads, smem, &blocks))) return e;
+      if ((e = occupancy(device, c, threads, smem, &blocks))) return e;
       if (blocks >= per_sm) {
         *p = Plan{grid, threads, walk, static_cast<int>(resident), smem};
         return cudaSuccess;
@@ -651,12 +829,12 @@ cudaError_t make_plan(int n, int c, int k, Plan* p) {
   return cudaErrorCooperativeLaunchTooLarge;
 }
 
-// The shapes the kernel takes: chip masks of 32 bits, the shared-memory
-// accumulators' request bound, and int offsets (9 * C * N, 6 * K * N).
+// The shapes the kernel takes: the shared-memory accumulators' request
+// bound and int offsets (9 * C * N, 6 * K * N); any chip count.
 bool supported(int n, int c, int k) {
   const long long cap = 2147483647LL;
-  return n > 0 && c > 0 && c <= kMaxChips && k > 0 && k <= kMaxRequests &&
-         9LL * c * n < cap && 6LL * k * n < cap;
+  return n > 0 && c > 0 && k > 0 && k <= kMaxRequests && 9LL * c * n < cap &&
+         6LL * k * n < cap;
 }
 
 // The launch on the current device (fleet_eval_launch's body).
@@ -678,8 +856,7 @@ cudaError_t launch(const int32_t* chips, const int32_t* nodes, const int32_t* dy
          Weights{weights[0], weights[1], weights[2], weights[3], weights[4],
                  weights[5], weights[6], weights[7], weights[8]}};
   void* params[] = {&a};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fleet_eval_kernel),
-                                  dim3(p.grid), dim3(p.threads), params,
+  e = cudaLaunchCooperativeKernel(kernel_for(c), dim3(p.grid), dim3(p.threads), params,
                                   static_cast<size_t>(p.smem), stream);
   if (e) return e;
   return cudaGetLastError();

@@ -7,9 +7,9 @@ ScoreExtensions (reference pkg/yoda/scheduler.go:29-33); this framework adds
 the extension points the reference lacks and the BASELINE configs require:
 PreFilter, modern PostFilter (preemption), Reserve/Unreserve, Permit, Bind.
 
-Counterpart of ``yoda_tpu/framework/interfaces.py``. The PostFilter
-extension point waits for the port of preemption; the snapshot carries no
-volume, namespace or fence data yet. Permit (``PermitPlugin``) serves the
+Counterpart of ``yoda_tpu/framework/interfaces.py``. PostFilter
+(``PostFilterPlugin``) serves preemption; the snapshot carries no volume,
+namespace or fence data yet. Permit (``PermitPlugin``) serves the
 gang plugin; the runtime reaches its waitlist hooks (``on_pod_waiting``,
 ``on_pod_resolved``, ``on_pod_bound``, ``on_bind_failed``,
 ``on_unbind_failed``) by name, as the reference does.
@@ -167,6 +167,20 @@ class PreFilterPlugin(Plugin):
 
 class FilterPlugin(Plugin):
     def filter(self, state: "CycleState", pod: PodSpec, node: NodeInfo) -> Status:
+        raise NotImplementedError
+
+
+class PostFilterPlugin(Plugin):
+    """Modern PostFilter: runs when NO node passed Filter — preemption."""
+
+    def post_filter(
+        self,
+        state: "CycleState",
+        pod: PodSpec,
+        snapshot: Snapshot,
+        filtered_statuses: Mapping[str, Status],
+    ) -> tuple[str | None, Status]:
+        """Returns (nominated_node_name or None, status)."""
         raise NotImplementedError
 
 

@@ -14,18 +14,19 @@ The batch fast path (``BatchFilterScorePlugin``) replaces the per-node
 filter/score loops with one fused computation.
 
 Counterpart of ``yoda_tpu/framework/runtime.py``, ported as far as the
-singleton and gang paths reach it: the Permit waitlist (``WaitingPod``,
-expiry and cancellation), the gang-fused and joint pre-evaluation hooks
-and unbind. Left out until a later slice: PostFilter and the per-node
-filter loop (preemption, loop mode), the bind executor (``BindExecutor``,
-so every bind runs inline on the scheduling thread) and bind tracing.
+singleton, gang and preemption paths reach it: the Permit waitlist
+(``WaitingPod``, expiry and cancellation), the gang-fused and joint
+pre-evaluation hooks, PostFilter (``run_post_filter``) and unbind. Left out
+until a later slice: the per-node filter loop (loop mode), the bind
+executor (``BindExecutor``, so every bind runs inline on the scheduling
+thread) and bind tracing.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, Sequence
+from typing import Callable, Mapping, Sequence
 
 from yoda_tpu_torch.api.types import PodSpec
 from yoda_tpu_torch.framework.cyclestate import CycleState
@@ -36,6 +37,7 @@ from yoda_tpu_torch.framework.interfaces import (
     FilterPlugin,
     PermitPlugin,
     Plugin,
+    PostFilterPlugin,
     PreFilterPlugin,
     PreScorePlugin,
     QueueSortPlugin,
@@ -95,6 +97,7 @@ class Framework:
         )
         self.pre_filter_plugins = [p for p in plugins if isinstance(p, PreFilterPlugin)]
         self.filter_plugins = [p for p in plugins if isinstance(p, FilterPlugin)]
+        self.post_filter_plugins = [p for p in plugins if isinstance(p, PostFilterPlugin)]
         self.pre_score_plugins = [p for p in plugins if isinstance(p, PreScorePlugin)]
         self.score_plugins = [p for p in plugins if isinstance(p, ScorePlugin)]
         self.batch_plugins = [p for p in plugins if isinstance(p, BatchFilterScorePlugin)]
@@ -202,6 +205,24 @@ class Framework:
             n: totals.get(n, 0) for n, st in statuses.items() if st.success
         }
         return statuses, feasible_scores
+
+    def run_post_filter(
+        self,
+        state: CycleState,
+        pod: PodSpec,
+        snapshot: Snapshot,
+        statuses: Mapping[str, Status],
+    ) -> tuple[str | None, Status]:
+        """PostFilter plugins in order, when no node passed Filter: the
+        first that makes room nominates its node; an error stops the
+        chain."""
+        for p in self.post_filter_plugins:
+            nominated, st = p.post_filter(state, pod, snapshot, statuses)
+            if st.success and nominated:
+                return nominated, st
+            if st.code == Code.ERROR:
+                return None, st
+        return None, Status.unschedulable("no postfilter plugin could make room")
 
     def run_pre_score(
         self, state: CycleState, pod: PodSpec, snapshot: Snapshot, feasible: Sequence[str]

@@ -7,15 +7,19 @@ the loop — waiting pods park on the framework waitlist and are bound from
 the resolution callback (gang scheduling).
 
 Counterpart of ``yoda_tpu/framework/scheduler.py``, ported as far as the
-singleton and gang paths reach it: ``schedule_one`` with the Permit step,
-the multi-pod burst pop, the gang gather and cross-gang joint pass
-(``_gather_gangs``), the transactional gang rollback (``_rollback_bound``)
-and the event-bound ``run_until_idle`` with permit expiry — with no metrics
-registry and no tracer. Left out until a later slice: PostFilter
-preemption and nominations, the speculative placement cache, shard
-staging and commits, leader fencing, the bind executor (every bind runs
-inline, so a gang's rollback needs no completion barrier) and
-``serve_forever``.
+singleton, gang and preemption paths reach it: ``schedule_one`` with the
+Permit step, PostFilter preemption at both of its call sites (a PreFilter
+rejection that is not unresolvable, and no feasible node) with the
+"nominated" outcome and the nomination status patch (``on_nominated``,
+cleared when the pod binds elsewhere), the multi-pod burst pop, the gang
+gather and cross-gang joint pass (``_gather_gangs``), the transactional
+gang rollback (``_rollback_bound``) and the event-bound ``run_until_idle``
+with permit expiry — with no metrics registry and no tracer. As in the
+reference, the cycle lock is released before PostFilter: preemption's
+victim selection takes the same lock. Left out until a later slice: the
+speculative placement cache, shard staging and commits, leader fencing,
+the bind executor (every bind runs inline, so a gang's rollback needs no
+completion barrier) and ``serve_forever``.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ from yoda_tpu_torch.framework.runtime import Framework, WaitingPod
 @dataclass
 class ScheduleResult:
     pod_key: str
-    outcome: str  # "bound" | "waiting" | "unschedulable" | "error" | "gone"
+    outcome: str  # "bound" | "waiting" | "unschedulable" | "error" | "nominated" | "gone"
     node: str | None = None
     message: str = ""
     latency_s: float = 0.0
@@ -57,6 +61,7 @@ class ScheduleResult:
 class SchedulerStats:
     results: list[ScheduleResult] = field(default_factory=list)
     binds: int = 0
+    preempt_nominations: int = 0
 
 
 class Scheduler:
@@ -69,7 +74,9 @@ class Scheduler:
         clock: Callable[[], float] = time.monotonic,
         on_bound: Callable[[PodSpec, str], None] | None = None,
         on_unschedulable: Callable[[PodSpec, str], None] | None = None,
+        on_nominated: Callable[[PodSpec, "str | None"], None] | None = None,
         cycle_lock: "threading.Lock | None" = None,
+        post_filter_lock: "threading.Lock | None" = None,
         pod_alive: Callable[[PodSpec], bool] | None = None,
         burst_size: int = 1,
     ) -> None:
@@ -80,7 +87,14 @@ class Scheduler:
         self.stats = SchedulerStats()
         self.on_bound = on_bound
         self.on_unschedulable = on_unschedulable
+        self.on_nominated = on_nominated
+        # Covers snapshot -> Filter -> Reserve. Not reentrant: preemption's
+        # victim selection takes the same lock, so the cycle releases it
+        # before PostFilter.
         self.cycle_lock = cycle_lock or threading.Lock()
+        # Serializes PostFilter preemption only (victim selection and the
+        # evictions), taken after the cycle lock is released.
+        self.post_filter_lock = post_filter_lock or threading.Lock()
         self.pod_alive = pod_alive
         # Multi-pod fused dispatch (config batch_requests): pop up to this
         # many queue entries at once and pre-evaluate them in ONE kernel
@@ -95,15 +109,36 @@ class Scheduler:
         self._activity = threading.Condition()
         self._activity_seq = 0
         queue.on_activity = self._signal_activity
+        # pod uid -> node nominated by preemption: a pod that binds to a
+        # DIFFERENT node gets its stale status.nominatedNodeName cleared.
+        # Entries drop on bind or deletion.
+        self._nominated: dict[str, str] = {}
         self._lock = threading.Lock()
 
     # --- one pod ---
 
     def schedule_one(self, qpi: QueuedPodInfo) -> ScheduleResult:
-        with self.cycle_lock:
-            return self._schedule_one_locked(qpi)
+        # The lock covers snapshot -> Filter -> Reserve; the body releases
+        # it before PostFilter (whose victim selection takes it again) and
+        # after Reserve.
+        self.cycle_lock.acquire()
+        released = [False]
 
-    def _schedule_one_locked(self, qpi: QueuedPodInfo) -> ScheduleResult:
+        def release_cycle_lock() -> None:
+            if not released[0]:
+                released[0] = True
+                self.cycle_lock.release()
+
+        try:
+            return self._schedule_one_locked(qpi, release_cycle_lock)
+        finally:
+            release_cycle_lock()
+
+    def _schedule_one_locked(
+        self,
+        qpi: QueuedPodInfo,
+        release_cycle_lock: Callable[[], None] = lambda: None,
+    ) -> ScheduleResult:
         pod = qpi.pod
         t0 = self.clock()
 
@@ -114,12 +149,18 @@ class Scheduler:
             *,
             unresolvable: bool = False,
         ) -> ScheduleResult:
+            # Nothing below needs the cycle lock (stats, queue operations,
+            # the nomination patch); no-op when already released.
+            release_cycle_lock()
             now = self.clock()
             r = ScheduleResult(
                 pod.key, outcome, node, message, now - t0, completed_at=now
             )
             if outcome == "bound":
                 log.info("bound %s -> %s (%.1f ms)", pod.key, node, r.latency_s * 1e3)
+                self._clear_stale_nomination(pod, node)
+            elif outcome == "nominated":
+                log.info("nominated %s -> %s: %s", pod.key, node, message)
             elif outcome == "unschedulable":
                 log.info("unschedulable %s: %s", pod.key, message)
             elif outcome == "error":
@@ -141,10 +182,28 @@ class Scheduler:
                 self.queue.add_unschedulable(qpi, message)
                 if self.on_unschedulable:
                     self.on_unschedulable(pod, message)
+            elif outcome == "nominated":
+                # Preemption made room; the pod requeues and a later cycle
+                # places it (after its backoff, on the next cluster event,
+                # or run_until_idle's forced retry: the victims' deletions
+                # landed before this requeue). The nomination is surfaced
+                # as status.nominatedNodeName, patched only when it
+                # changes (every retry re-nominates while victims drain).
+                self.queue.add_unschedulable(qpi, message)
+                with self._lock:
+                    self.stats.preempt_nominations += 1
+                if node is not None:
+                    with self._lock:
+                        changed = self._nominated.get(pod.uid) != node
+                        self._nominated[pod.uid] = node
+                    if changed and self.on_nominated is not None:
+                        self.on_nominated(pod, node)
             return r
 
         # A pod deleted (or already bound, or gated) while queued is dropped.
         if self.pod_alive is not None and not self.pod_alive(pod):
+            with self._lock:
+                self._nominated.pop(pod.uid, None)
             return done("gone")
         if pod.scheduling_gates:
             return done(
@@ -156,6 +215,18 @@ class Scheduler:
         snapshot = self.snapshot_fn()
         st = self.framework.run_pre_filter(state, pod, snapshot)
         if not st.success:
+            if st.code == Code.UNSCHEDULABLE:
+                # A PreFilter rejection (gang admission: no room for the
+                # whole gang) reaches PostFilter too: preemption is how a
+                # training gang displaces inference pods. No Reserve
+                # happened, so the cycle lock goes before the evictions.
+                release_cycle_lock()
+                with self.post_filter_lock:
+                    nominated, pf_st = self.framework.run_post_filter(
+                        state, pod, snapshot, {}
+                    )
+                if nominated:
+                    return done("nominated", node=nominated, message=pf_st.message)
             return done(
                 "unschedulable",
                 message=st.message,
@@ -174,6 +245,14 @@ class Scheduler:
         statuses, batch_scores = batch
         feasible = sorted(batch_scores)
         if not feasible:
+            # As above: no Reserve on this path, the lock goes first.
+            release_cycle_lock()
+            with self.post_filter_lock:
+                nominated, pf_st = self.framework.run_post_filter(
+                    state, pod, snapshot, statuses
+                )
+            if nominated:
+                return done("nominated", node=nominated, message=pf_st.message)
             return done("unschedulable", message=summarize_failure(statuses))
 
         st = self.framework.run_pre_score(state, pod, snapshot, feasible)
@@ -198,6 +277,8 @@ class Scheduler:
         st = self.framework.run_reserve(state, pod, best)
         if not st.success:
             return done("unschedulable", node=best, message=st.message)
+        # Reservation charged: the rest of the cycle needs no lock.
+        release_cycle_lock()
 
         st = self.framework.run_permit(
             state, pod, best, self._on_permit_resolved, now=self.clock()
@@ -220,6 +301,19 @@ class Scheduler:
         if self.queue.has_parked():
             self.queue.move_all_to_active()
         return done("bound", node=best)
+
+    def _clear_stale_nomination(self, pod: PodSpec, node: str) -> None:
+        """On any successful bind (direct or permit-released): drop the
+        nomination record, and clear status.nominatedNodeName when the pod
+        landed on a DIFFERENT node."""
+        with self._lock:
+            nominated = self._nominated.pop(pod.uid, None)
+        if (
+            nominated is not None
+            and nominated != node
+            and self.on_nominated is not None
+        ):
+            self.on_nominated(pod, None)
 
     # --- permit resolution and the transactional gang rollback ---
 
@@ -249,6 +343,7 @@ class Scheduler:
                     self.stats.binds += 1
                 if self.on_bound:
                     self.on_bound(pod, wp.node_name)
+                self._clear_stale_nomination(pod, wp.node_name)
                 if self.queue.has_parked():  # see the bind path: skip empty sweeps
                     self.queue.move_all_to_active()
                 return

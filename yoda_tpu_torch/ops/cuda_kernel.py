@@ -62,7 +62,6 @@ NVCC_FLAGS = (
 # more blocks than tiles, which bounds the scratch it needs.
 TILE_NODES = 64
 SCRATCH_WORDS = 11  # int32 scratch words per (block, request)
-MAX_CHIPS = 32      # chips per node (kMaxChips: one bit each in a mask)
 MAX_REQUESTS = 128  # requests per launch (kMaxRequests); calls chunk by it
 
 # CUDA kernel launches, one count per kernel: fleet_eval adds one per
@@ -242,11 +241,6 @@ def fleet_eval(
     _check("dyn", dyn, (4, n), device)
     _check("host_ok_k", host_ok_k, (k, n), device)
     _check("reqs_k", reqs_k, (k, 5), device)
-    if c > MAX_CHIPS:
-        raise ValueError(
-            f"the CUDA fleet evaluation takes at most {MAX_CHIPS} chips per "
-            f"node, got {c}"
-        )
     # The partials of the three grid-wide reductions, shared by the chunks
     # (every scratch word a launch reads it first writes in that launch,
     # and the chunks run one after the other on one stream); in the same

@@ -6,10 +6,11 @@ Counterpart of ``yoda_tpu/plugins/yoda/__init__.py``. The port assembles
 (``filter_plugin.YodaPreFilter``) and the fused Filter+PreScore+Score batch
 plugin (``batch.YodaBatch``); ``standalone.build_stack`` adds the gang
 plugin (``gang.GangPlugin``: PreFilter admission, the Filter pin of
-topology gangs, Permit), the accountant and the binder. The per-node
-loop-mode plugins (YodaFilter, YodaPreScore, YodaScore, SliceProtectScore,
+topology gangs, Permit), the accountant, the preemption PostFilter
+(``preemption.TpuPreemption``) and the binder. The per-node loop-mode
+plugins (YodaFilter, YodaPreScore, YodaScore, SliceProtectScore,
 PreferredAffinityScore, ImageLocalityScore) wait for the port of loop
-mode, and the preemption plugin for its own.
+mode.
 """
 
 from typing import Callable
@@ -18,6 +19,7 @@ from yoda_tpu_torch.config import Weights
 from yoda_tpu_torch.plugins.yoda.batch import YodaBatch
 from yoda_tpu_torch.plugins.yoda.filter_plugin import YodaPreFilter
 from yoda_tpu_torch.plugins.yoda.gang import GangPlugin
+from yoda_tpu_torch.plugins.yoda.preemption import TpuPreemption
 from yoda_tpu_torch.plugins.yoda.sort import YodaSort
 
 
@@ -56,4 +58,7 @@ def default_plugins(
     ]
 
 
-__all__ = ["GangPlugin", "YodaBatch", "YodaPreFilter", "YodaSort", "default_plugins"]
+__all__ = [
+    "GangPlugin", "TpuPreemption", "YodaBatch", "YodaPreFilter", "YodaSort",
+    "default_plugins",
+]

@@ -8,11 +8,14 @@ the device-resident fleet state (the
 hand CUDA kernels on the card: the fleet evaluation, and the joint-fit
 scan for joint gang passes) → Reserve on ``ChipAccountant`` → Permit (the
 gang barrier) → bind, with the gang plugin watching pods and hosts
-(delete fast path, host-death marks, restart reconstruction). Left out
-until a later slice: preemption, the speculative placement cache, node
-health, the rebalancer, the reconciler, the bind executor (binds run
-inline), tracing / metrics / SLO / overload, batched ingest, tenancy, the
-durable journal, profiles, shards and federation.
+(delete fast path, host-death marks, restart reconstruction), and
+PostFilter preemption (``TpuPreemption``, on by default: evictions through
+``FakeCluster.evict_pod``, nominations written to pod status). Left out
+until a later slice: the speculative placement cache, node health, the
+rebalancer, the reconciler, the bind executor (binds run inline), tracing
+/ metrics / SLO / overload (so preemption has no eviction counter hook),
+batched ingest, tenancy, the durable journal, profiles, shards and
+federation.
 
 A knob of such a subsystem loads (``config.SchedulerConfig`` keeps every
 knob of the reference), but ``build_stack`` raises ``NotImplementedError``
@@ -24,6 +27,7 @@ turns the subsystem off, which is what this port already does
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from dataclasses import dataclass
 
@@ -33,7 +37,12 @@ from yoda_tpu_torch.config import SchedulerConfig
 from yoda_tpu_torch.framework.queue import SchedulingQueue
 from yoda_tpu_torch.framework.runtime import Framework
 from yoda_tpu_torch.framework.scheduler import Scheduler
-from yoda_tpu_torch.plugins.yoda import GangPlugin, YodaBatch, default_plugins
+from yoda_tpu_torch.plugins.yoda import (
+    GangPlugin,
+    TpuPreemption,
+    YodaBatch,
+    default_plugins,
+)
 from yoda_tpu_torch.plugins.yoda.accounting import ChipAccountant
 from yoda_tpu_torch.plugins.yoda.binder import ClusterBinder
 
@@ -52,6 +61,7 @@ PORTED_KNOBS = frozenset(
         "bind_retry_cap_s",
         "immediate_retry_attempts",
         "gang_permit_timeout_s",
+        "enable_preemption",
     }
 )
 
@@ -59,7 +69,6 @@ PORTED_KNOBS = frozenset(
 # keep its default or take one of these values, each of which switches
 # that part off (the port's behaviour either way).
 UNPORTED_KNOB_VALUES = {
-    "enable_preemption": (False,),
     "bind_workers": (0,),
     "bind_pipeline": ("off",),
     "reconcile_period_s": (0,),
@@ -100,6 +109,8 @@ class Stack:
     binder: ClusterBinder
     batch: YodaBatch
     gang: GangPlugin
+    # None when config.enable_preemption is off.
+    preemption: TpuPreemption | None = None
 
 
 def build_stack(
@@ -146,6 +157,20 @@ def build_stack(
     )
     plugins.append(gang)
     plugins.append(accountant)
+    # Preemption's victim selection takes THE scheduler's cycle lock, so it
+    # is made here and handed to both.
+    cycle_lock = threading.Lock()
+    preemption = None
+    if config.enable_preemption:
+        preemption = TpuPreemption(
+            cluster.evict_pod,
+            scheduler_name=config.scheduler_name,
+            select_lock=cycle_lock,
+            reserved_fn=accountant.chips_in_use,
+            gang_status_fn=gang.gang_status,
+            gang_plan_fn=gang.planned_unassigned_hosts,
+        )
+        plugins.append(preemption)
     if extra_plugins:
         plugins.extend(extra_plugins)
     binder = ClusterBinder(
@@ -210,10 +235,13 @@ def build_stack(
         informer.snapshot,
         queue,
         clock=clock,
+        cycle_lock=cycle_lock,
+        # status.nominatedNodeName write (upstream preemption parity).
+        on_nominated=lambda pod, node: cluster.set_nominated_node(pod.key, node),
         pod_alive=informer.pod_schedulable,
         burst_size=config.batch_requests,
     )
     return Stack(
         cluster, informer, accountant, framework, queue, scheduler, binder,
-        batch, gang,
+        batch, gang, preemption,
     )
