@@ -93,9 +93,37 @@ Phases, each of which makes the script exit non-zero when it fails:
    re-stacks and delta syncs must equal the CPU run's, every wave-2 pod
    binds (gangs whole, topology gangs on one slice), no host is over its
    healthy chips, and it prints wave 2's pods/s, p50/p99, gang p50/p99
-   and PostFilter ms per call. Last, a fleet of 40-chip and 8-chip hosts
-   (the wide kernel on the main path) at K = 1 and 16 must bind as on the
-   CPU.
+   and PostFilter ms per call. Then run (g), inter-pod affinity, topology
+   spread, volumes and budgets on the same fleet: every host has a Node
+   object with its hostname and one of four zones (each v5p slice wholly in
+   one, the v5e hosts in four blocks of 738), and wave 1 (batch_requests
+   16) brings, in this order, 24 volume pods (16 claims labelled for a
+   zone and bound to CSI PVs whose nodeAffinity names it, two zone-2 hosts
+   with local SSD and an attach limit of 1 that zone 2's volume pods
+   prefer; 4 WaitForFirstConsumer claims with their selected node; 4 pods
+   sharing a ReadWriteOnce claim that a Running pod mounts), 64 plain
+   singletons in run (b)'s mix, 48 llm-serve replicas (v5e, 4 chips,
+   required anti-affinity over hostname, a DoNotSchedule zone spread with
+   maxSkew 1 and matchLabelKeys pod-template-hash), 48 kv-cache pods with
+   preferred affinity (weight 100) to them, 4 team-b pods with required
+   zone affinity to them through a namespaceSelector, and gangs ft-a (8 x
+   4 chips, self anti-affinity over hostname) and ft-b (8 x 8 chips, self
+   affinity over zone). Wave 2: 32 tainted v5e hosts of pool mixed-g
+   filled at priority 1, half of the pods under a budget that allows no
+   disruption, the agent republishing every bound host, a priority-100
+   gang of 16 x 8 chips on the pool (it may evict only the unprotected
+   half) and a priority-50 singleton of 8 chips (its eviction is refused).
+   Its bindings, evictions, refused evictions, nominations and counters
+   must equal the CPU run's, and every placement must hold (replicas on
+   distinct hosts with zone skew <= 1, ft-a on 8 hosts, ft-b in one zone,
+   volume pods where their claims allow, no attach limit exceeded, no
+   protected pod evicted). Printed: both waves' pods/s and p50/p99, gang
+   p50/p99, host ms per call of the evaluator builds, of the admission row
+   with an AffinityData and of the preference bonus, PostFilter ms,
+   fleet_eval's device ms at K = 1 on an input of the run, and the parts
+   build_stack did not build (Stack.not_built). Last, a fleet of 40-chip
+   and 8-chip hosts (the wide kernel on the main path) at K = 1 and 16
+   must bind as on the CPU.
 4. One line {"kernels": [...]} with each kernel's launches over every run
    above, its largest difference from the plain version and its times
    ("not measured" where the profiler saw no device activity).
@@ -700,11 +728,20 @@ def run_main_path(platform: str, pods_a, pods_b) -> dict:
     return out
 
 
-def build_fleet(platform: str, burst: int, pools: "dict[str, str] | None" = None):
+def build_fleet(
+    platform: str,
+    burst: int,
+    pools: "dict[str, str] | None" = None,
+    *,
+    node_fn=None,
+    slices: int = 512,
+    v5e_hosts: int = 2952,
+):
     """The 5,000-node fleet's stack and its agent: 512 v5p 2x2x1 slices and
     2,952 v5e hosts, published by the port's FakeTpuAgent. With ``pools``
     every host gets a Node object, labelled pool=<its pool> where ``pools``
-    names it."""
+    names it; with ``node_fn`` every host gets ``node_fn(name)``. Smaller
+    fleets for the card tests through ``slices`` and ``v5e_hosts``."""
     from yoda_tpu_torch.agent.fake_publisher import FakeTpuAgent
     from yoda_tpu_torch.api.types import K8sNode
     from yoda_tpu_torch.config import SchedulerConfig
@@ -715,15 +752,18 @@ def build_fleet(platform: str, burst: int, pools: "dict[str, str] | None" = None
     )
     agent = FakeTpuAgent(stack.cluster)
     hosts = []
-    for s in range(512):
+    for s in range(slices):
         hosts += agent.add_slice(f"v5p-{s:03d}", generation="v5p", host_topology=(2, 2, 1))
-    for h in range(2952):
+    for h in range(v5e_hosts):
         agent.add_host(f"v5e-{h:04d}", generation="v5e", chips=8)
         hosts.append(f"v5e-{h:04d}")
     if pools is not None:
+        node_fn = lambda name: K8sNode(  # noqa: E731
+            name, labels={"pool": pools[name]} if name in pools else {}
+        )
+    if node_fn is not None:
         for name in hosts:
-            pool = pools.get(name)
-            stack.cluster.put_node(K8sNode(name, labels={"pool": pool} if pool else {}))
+            stack.cluster.put_node(node_fn(name))
     agent.publish_all()
     return stack, agent
 
@@ -1624,6 +1664,459 @@ def phase_preemption(smi: str) -> dict:
     return g
 
 
+# Run (g): inter-pod affinity, topology spread, volumes and budgets on the
+# 5,000-node fleet. Four zones: each v5p slice lies wholly in one (128
+# slices a zone), the v5e hosts in four contiguous blocks of 738. The
+# smaller size is the card tests' copy of the same script.
+HOST_KEY = "kubernetes.io/hostname"
+ZONE_KEY = "topology.kubernetes.io/zone"
+ACCEL_KEY = "cloud.google.com/gke-tpu-accelerator"
+V5E_ACCEL = "tpu-v5-lite-podslice"
+CSI_DRIVER = "pd.csi.storage.gke.io"
+AFFINITY_FULL = dict(slices=512, v5e_hosts=2952, replicas=48, kv=48, plain=64,
+                     ft_a=8, ft_b=8, team_b=4, zonal=16, wffc=4, rwo=4, pool=32)
+AFFINITY_SMALL = dict(slices=16, v5e_hosts=96, replicas=12, kv=12, plain=16,
+                      ft_a=4, ft_b=4, team_b=4, zonal=8, wffc=4, rwo=4, pool=8)
+
+
+def affinity_layout(size: dict) -> dict:
+    """Run (g)'s fleet layout: each host's zone, the mixed-g pool (every
+    other pool host's fill pod is budget-protected), the two local-SSD
+    hosts of zone 2 with an attach limit of 1, the WaitForFirstConsumer
+    claims' selected nodes and the ReadWriteOnce claim's host."""
+    slices, v5e = size["slices"], size["v5e_hosts"]
+    block = v5e // 4
+    zone = {f"v5p-{s:03d}-{i}": s * 4 // slices for s in range(slices) for i in range(4)}
+    zone |= {f"v5e-{h:04d}": min(h // block, 3) for h in range(v5e)}
+    pool = [f"v5e-{i * v5e // size['pool'] + 7:04d}" for i in range(size["pool"])]
+    return dict(
+        zone=zone, pool=pool,
+        ssd=[f"v5e-{2 * block + 5:04d}", f"v5e-{2 * block + 11:04d}"],
+        wffc=[f"v5e-{(i % 4) * block + block // 2 + i:04d}" for i in range(size["wffc"])],
+        rwo_host=f"v5e-{block + 30:04d}",
+    )
+
+
+def affinity_script(size: dict):
+    """Run (g)'s objects: (Node objects by host, Namespaces, claims and
+    volumes, the bound ReadWriteOnce holder, wave 1's pods, wave 2's fill,
+    the budget, the preempting gang and the singleton). Everything in the
+    port's own types."""
+    from yoda_tpu_torch.api.affinity import (
+        LabelSelector,
+        PodAffinityTerm,
+        TopologySpreadConstraint,
+    )
+    from yoda_tpu_torch.api.types import (
+        K8sNamespace,
+        K8sNode,
+        K8sPdb,
+        K8sPv,
+        K8sPvc,
+        NodeSelectorRequirement,
+        NodeSelectorTerm,
+        PodSpec,
+        Taint,
+        Toleration,
+    )
+
+    lay = affinity_layout(size)
+    pool, ssd = set(lay["pool"]), set(lay["ssd"])
+
+    def node(name: str):
+        labels = {HOST_KEY: name, ZONE_KEY: f"zone-{lay['zone'][name]}",
+                  ACCEL_KEY: "tpu-v5p-slice" if name.startswith("v5p") else V5E_ACCEL}
+        taints, attach = [], {}
+        if name in pool:
+            labels["pool"] = "mixed-g"
+            taints = [Taint("dedicated", "mixed-g", "NoSchedule")]
+        if name in ssd:
+            labels["storage"] = "local-ssd"
+            attach = {f"csi-{CSI_DRIVER}": 1}
+        return K8sNode(name, labels=labels, taints=taints, attach_limits=attach)
+
+    def sel(**labels):
+        return LabelSelector(match_labels=tuple(sorted(labels.items())))
+
+    def zone_term(z: str):
+        return NodeSelectorTerm(match_expressions=(NodeSelectorRequirement(ZONE_KEY, "In", (z,)),))
+
+    v5e = {ACCEL_KEY: V5E_ACCEL}
+    namespaces = [K8sNamespace("default", {"tier": "serving"}),
+                  K8sNamespace("team-b", {"tier": "research"})]
+    # Wave 1 in creation (and so queue) order: the volume pods, then the
+    # plain singletons (bursts, while no bound pod declares terms), then
+    # the serving replicas, their caches, team-b's pods and the two gangs.
+    volumes, vol_pods, wave1 = [], [], []
+    for name, labels in fleet_and_pods(seed=3)[0][: size["plain"]]:
+        wave1.append(PodSpec(f"g-{name}", labels=dict(labels)))
+    serve = sel(app="llm-serve")
+    for i in range(size["replicas"]):
+        wave1.append(PodSpec(
+            f"llm-serve-{i:02d}", node_selector=dict(v5e),
+            labels={"app": "llm-serve", "pod-template-hash": "5d8c7b9f4", "tpu/chips": "4"},
+            pod_anti_affinity=(PodAffinityTerm(HOST_KEY, serve),),
+            topology_spread=(TopologySpreadConstraint(
+                1, ZONE_KEY, "DoNotSchedule", serve, ("pod-template-hash",)),),
+        ))
+    for i in range(size["kv"]):
+        wave1.append(PodSpec(
+            f"kv-cache-{i:02d}", node_selector=dict(v5e),
+            labels={"app": "kv-cache", "tpu/chips": "2"},
+            preferred_pod_affinity=((100, PodAffinityTerm(HOST_KEY, serve)),),
+        ))
+    for i in range(size["team_b"]):
+        wave1.append(PodSpec(
+            f"eval-{i}", namespace="team-b", labels={"app": "eval", "tpu/chips": "2"},
+            pod_affinity=(PodAffinityTerm(
+                ZONE_KEY, serve, namespace_selector=sel(tier="serving")),),
+        ))
+    for gang, n, chips, term in (
+        ("ft-a", size["ft_a"], "4", "anti"), ("ft-b", size["ft_b"], "8", "aff"),
+    ):
+        own = PodAffinityTerm(HOST_KEY if term == "anti" else ZONE_KEY, sel(app=gang))
+        for m in range(n):
+            wave1.append(PodSpec(
+                f"{gang}-{m}",
+                labels={"app": gang, "tpu/gang": gang, "tpu/gang-size": str(n),
+                        "tpu/chips": chips},
+                pod_anti_affinity=(own,) if term == "anti" else (),
+                pod_affinity=(own,) if term == "aff" else (),
+            ))
+    for i in range(size["zonal"]):
+        z = f"zone-{i % 4}"
+        volumes += [
+            K8sPv(f"pv-zonal-{i}", node_affinity=(zone_term(z),),
+                  claim_ref=f"default/zonal-{i}", driver=CSI_DRIVER),
+            K8sPvc(f"zonal-{i}", zone=z, access_modes=("ReadWriteOnce",),
+                   volume_name=f"pv-zonal-{i}"),
+        ]
+        prefer_ssd = ()
+        if z == "zone-2":
+            prefer_ssd = ((100, NodeSelectorTerm(match_expressions=(
+                NodeSelectorRequirement("storage", "In", ("local-ssd",)),))),)
+        vol_pods.append(PodSpec(f"vol-zonal-{i:02d}", labels={"tpu/chips": "1"},
+                                pvc_names=(f"zonal-{i}",),
+                                preferred_node_affinity=prefer_ssd))
+    for i, host in enumerate(lay["wffc"]):
+        volumes.append(K8sPvc(f"wffc-{i}", selected_node=host,
+                              access_modes=("ReadWriteOnce",)))
+        vol_pods.append(PodSpec(f"vol-wffc-{i}", labels={"tpu/chips": "2"},
+                                pvc_names=(f"wffc-{i}",)))
+    volumes.append(K8sPvc("shared-rwo", access_modes=("ReadWriteOnce",)))
+    holder = PodSpec("rwo-holder", labels={"tpu/chips": "1"}, pvc_names=("shared-rwo",),
+                     node_name=lay["rwo_host"], phase="Running")
+    for i in range(size["rwo"]):
+        vol_pods.append(PodSpec(f"vol-rwo-{i}", labels={"tpu/chips": "1"},
+                                pvc_names=("shared-rwo",)))
+    wave1 = vol_pods + wave1
+    tolerate = [Toleration("dedicated", "Equal", "mixed-g", "NoSchedule")]
+    on_pool = {"pool": "mixed-g"}
+    fill = [
+        PodSpec(f"fill-{i:02d}", node_selector=dict(on_pool), tolerations=list(tolerate),
+                labels={"app": "batch-protected" if i % 2 == 0 else "batch",
+                        "tpu/chips": "8", "tpu/priority": "1"})
+        for i in range(size["pool"])
+    ]
+    budget = K8sPdb("batch-protected", selector=sel(app="batch-protected"),
+                    disruptions_allowed=0)
+    half = size["pool"] // 2
+    gang = [
+        PodSpec(f"ft-pre-{m:02d}", node_selector=dict(on_pool), tolerations=list(tolerate),
+                labels={"tpu/gang": "ft-pre", "tpu/gang-size": str(half),
+                        "tpu/chips": "8", "tpu/priority": "100"})
+        for m in range(half)
+    ]
+    solo = PodSpec("solo-50", node_selector=dict(on_pool), tolerations=list(tolerate),
+                   labels={"tpu/chips": "8", "tpu/priority": "50"})
+    return dict(node=node, namespaces=namespaces, volumes=volumes, holder=holder,
+                wave1=wave1, fill=fill, budget=budget, gang=gang, solo=solo, layout=lay)
+
+
+def run_affinity(platform: str, size: dict = AFFINITY_FULL) -> dict:
+    """Run (g) on one kernel_platform: Namespaces, claims, volumes and the
+    bound ReadWriteOnce holder, then wave 1 at batch_requests 16 (timed),
+    then wave 2 (timed): the pool's fill and its budget, the agent
+    republishing every bound host, the priority-100 gang and the
+    priority-50 singleton. Bindings, evictions, counters and the host and
+    device times the run's affinity pods cost."""
+    from yoda_tpu_torch.api import affinity as aff_mod
+    from yoda_tpu_torch.ops import cuda_kernel
+    from yoda_tpu_torch.ops import kernel as kernel_mod
+    from yoda_tpu_torch.plugins.yoda import batch as batch_mod
+
+    script = affinity_script(size)
+    stack, agent = build_fleet(platform, 16, node_fn=script["node"], slices=size["slices"],
+                               v5e_hosts=size["v5e_hosts"])
+    cluster, plugin, b = stack.cluster, stack.preemption, stack.batch
+    for ns in script["namespaces"]:
+        cluster.put_namespace(ns)
+    for obj in script["volumes"]:
+        (cluster.put_pv if hasattr(obj, "driver") else cluster.put_pvc)(obj)
+    cluster.create_pod(script["holder"])
+
+    times: dict[str, list[float]] = {"evaluators": [], "admission": [], "bonus": [],
+                                     "post_filter": []}
+    fleet_calls: list[int] = []
+    refused: list[str] = []
+    k1_args: list = []
+
+    def timed(key, fn, when=lambda *a, **kw: True):
+        def wrapper(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                if when(*args, **kw):
+                    times[key].append(1e3 * (time.perf_counter() - t))
+        return wrapper
+
+    def counted_fleet_eval(*args, **kw):
+        fleet_calls.append(args[4].shape[0])
+        if args[4].shape[0] == 1 and platform != "cpu":
+            k1_args[:] = [a.clone() for a in args[:5]] + [args[5]]
+        return real_fleet_eval(*args, **kw)
+
+    def counted_evict(key):
+        ok = real_evict(key)
+        if ok is False:
+            refused.append(key)
+        return ok
+
+    builds = {cls: cls.__dict__["build"] for cls in (aff_mod.InterPodEvaluator,
+                                                     aff_mod.SpreadEvaluator)}
+    real_fleet_eval, real_admission = cuda_kernel.fleet_eval, batch_mod._host_admission
+    real_evict = plugin.evict_fn
+    for cls, build in builds.items():
+        setattr(cls, "build", timed("evaluators", build.__get__(None, cls)))
+    batch_mod._host_admission = timed(
+        "admission", real_admission, lambda *a, **kw: len(a) > 3 and a[3] is not None)
+    b._preference_bonus = timed(
+        "bonus", b._preference_bonus, lambda *a, **kw: len(a) > 3 and a[3] is not None)
+    plugin.post_filter = timed("post_filter", plugin.post_filter)
+    plugin.evict_fn = counted_evict
+    cuda_kernel.fleet_eval = counted_fleet_eval
+    cuda_kernel.launches = cuda_kernel.joint_fit_launches = 0
+    kernel_mod.row_update_launches = 0
+    walls = []
+    try:
+        t0 = time.monotonic()
+        for pod in script["wave1"]:
+            cluster.create_pod(pod)
+        stack.scheduler.run_until_idle(max_wall_s=600)
+        walls.append(time.monotonic() - t0)
+        first_wave2 = len(stack.scheduler.stats.results)
+        t0 = time.monotonic()
+        cluster.put_pdb(script["budget"])
+        for pod in script["fill"]:
+            cluster.create_pod(pod)
+        stack.scheduler.run_until_idle(max_wall_s=300)
+        for host in sorted({p.node_name for p in cluster.list_pods() if p.node_name}):
+            agent.refresh(host)
+        for pod in script["gang"]:
+            cluster.create_pod(pod)
+        stack.scheduler.run_until_idle(max_wall_s=300)
+        cluster.create_pod(script["solo"])
+        stack.scheduler.run_until_idle(max_wall_s=300)
+        if platform != "cpu":
+            torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+    finally:
+        cuda_kernel.fleet_eval = real_fleet_eval
+        batch_mod._host_admission = real_admission
+        for cls, build in builds.items():
+            setattr(cls, "build", build)
+    launches = cuda_kernel.launches
+    device_k1, windows = None, []
+    if k1_args:
+        # The tracer was seen to lose kernel records on this input (16 of
+        # 20 in every window, while both counts said 20): the fullest short
+        # window gives the time per recorded launch.
+        device_k1, _per_call, windows = profiled_ms(
+            lambda: cuda_kernel.fleet_eval(*k1_args), lambda: cuda_kernel.launches,
+            short_ok=True)
+    waves = {"wave1": script["wave1"],
+             "wave2": script["fill"] + script["gang"] + [script["solo"]]}
+    pods = [script["holder"]] + waves["wave1"] + waves["wave2"]
+    bound = {}
+    for p in pods:
+        live = cluster.get_pod(p.key)
+        bound[p.name] = "evicted" if live is None else live.node_name
+    results = stack.scheduler.stats.results
+    lat = {}
+    for wave, start, end in (("wave1", 0, first_wave2), ("wave2", first_wave2, None)):
+        labels_of = {p.name: p.labels for p in waves[wave]}
+        lat[wave] = bind_latencies(results[start:end], labels_of, bound)
+    capacity = {t.name: sum(c.healthy for c in t.chips) for t in cluster.list_tpu_metrics()}
+    snap = stack.informer.snapshot()
+    r = b._resident
+
+    def ms(key):
+        xs = times[key]
+        return dict(calls=len(xs), median=statistics.median(xs) if xs else None,
+                    max=max(xs, default=None))
+
+    out = dict(
+        platform=platform, nodes=len(snap), bindings=bound,
+        evicted=sorted(n for n, v in bound.items() if v == "evicted"),
+        preempted_total=plugin.preempted_total, refused_evictions=len(refused),
+        nominations=stack.scheduler.stats.preempt_nominations,
+        nominated={p.name: p.nominated_node_name for p in cluster.list_pods()
+                   if p.nominated_node_name},
+        overcommitted=[h for h, c in capacity.items() if stack.accountant.chips_in_use(h) > c],
+        waiting=len(stack.framework.waiting_pods()),
+        launches=launches, fleet_calls=len(fleet_calls),
+        fleet_calls_k1=sum(k == 1 for k in fleet_calls),
+        chunks=sum(-(-k // cuda_kernel.MAX_REQUESTS) for k in fleet_calls),
+        joint_fit_launches=cuda_kernel.joint_fit_launches,
+        row_update_launches=kernel_mod.row_update_launches,
+        **{c: getattr(b, c) for c in GANG_COUNTERS},
+        restacks=b.restacks, delta_syncs=r.delta_syncs, rows_applied=r.rows_applied,
+        admission_reuse=b.admission_reuse, admission_rebuilds=b.admission_rebuilds,
+        evaluator_build_ms=ms("evaluators"), admission_row_with_aff_ms=ms("admission"),
+        preference_bonus_ms=ms("bonus"), post_filter_ms=ms("post_filter"),
+        fleet_eval_k1_device_ms=device_k1, fleet_eval_k1_profiler_windows=windows,
+        not_built=list(stack.not_built),
+    )
+    for wave, wall in zip(("wave1", "wave2"), walls):
+        per_pod, gangs = lat[wave]
+        out[wave] = dict(wall_s=wall, pods=len(waves[wave]),
+                         pods_per_s=len(per_pod) / wall if wall else 0.0,
+                         p50_ms=pct_ms(per_pod, 0.5), p99_ms=pct_ms(per_pod, 0.99),
+                         gang_p50_ms=pct_ms(gangs, 0.5), gang_p99_ms=pct_ms(gangs, 0.99))
+    out["checks"] = affinity_checks(stack, snap, script, bound)
+    return out
+
+
+def affinity_checks(stack, snap, script, bound) -> dict:
+    """Run (g)'s placement facts, read off one run's final state."""
+    from yoda_tpu_torch.plugins.yoda.filter_plugin import (
+        node_fits_attach_limits,
+        node_fits_volumes,
+        resolve_volumes,
+    )
+
+    lay = script["layout"]
+    zone_of = {h: f"zone-{z}" for h, z in lay["zone"].items()}
+
+    def placed(prefix):
+        return [v for n, v in bound.items() if n.startswith(prefix)]
+
+    serve = placed("llm-serve-")
+    per_zone = [sum(zone_of.get(h) == f"zone-{z}" for h in serve) for z in range(4)]
+    kv_with_serve = sum(h in set(serve) for h in placed("kv-cache-"))
+    volume_misplaced, attach_over = [], []
+    for ni in snap.infos():
+        for p in ni.pods:
+            if p.pvc_names and p.name != "rwo-holder":
+                claims, missing = resolve_volumes(snap, p)
+                # A pod's own ReadWriteOnce claim pins it to where it (and
+                # its co-users) mount it: checked below by name.
+                claims = [c for c in claims if c.allowed_nodes is None]
+                if missing is not None or not node_fits_volumes(claims, ni)[0]:
+                    volume_misplaced.append(p.name)
+        if not node_fits_attach_limits((), ni, snap.pvcs or {}, snap.pvs or {})[0]:
+            attach_over.append(ni.name)
+    if any(h != lay["rwo_host"] for h in placed("vol-rwo-")):
+        volume_misplaced.append("vol-rwo")
+    if any(bound[f"vol-wffc-{i}"] != h for i, h in enumerate(lay["wffc"])):
+        volume_misplaced.append("vol-wffc")
+    wave1 = [p.name for p in script["wave1"]]
+    eval_zones = {zone_of.get(h) for h in placed("eval-")}
+    return dict(
+        wave1_unbound=[n for n in wave1 if bound[n] in (None, "evicted")],
+        serve_hosts_distinct=len(set(serve)) == len(serve),
+        serve_per_zone=per_zone, serve_skew=max(per_zone) - min(per_zone),
+        kv_cache_beside_serve=kv_with_serve,
+        eval_in_serve_zones=eval_zones <= {zone_of.get(h) for h in serve},
+        ft_a_hosts=len(set(placed("ft-a-"))), ft_b_zones=len({zone_of.get(h) for h in placed("ft-b-")}),
+        ssd_hosts_used=sorted(set(placed("vol-zonal-")) & set(lay["ssd"])),
+        volume_misplaced=volume_misplaced, attach_over=attach_over,
+        protected_evicted=[n for n in bound if bound[n] == "evicted"
+                           and n.startswith("fill-") and int(n[5:]) % 2 == 0],
+        gang_bound=sum(h not in (None, "evicted") for h in placed("ft-pre-")),
+        gang_on_pool=all(h in set(lay["pool"]) for h in placed("ft-pre-")),
+        solo=bound["solo-50"],
+    )
+
+
+AFFINITY_PARITY = (
+    "bindings", "evicted", "preempted_total", "refused_evictions", "nominations",
+    "nominated", "dispatch_count", "burst_dispatches", "burst_served", "restacks",
+    "delta_syncs", "rows_applied", "joint_parked", "checks",
+)
+
+
+def check_affinity_run(run: dict, size: dict) -> None:
+    """Run (g)'s invariants on one platform's run."""
+    name, c = f"run g ({run['platform']})", run["checks"]
+    want_gang = size["pool"] // 2
+    failures = []
+    if run["overcommitted"]:
+        failures.append(f"over-committed {run['overcommitted']}")
+    if run["waiting"] or run["dispatch_errors"]:
+        failures.append(f"{run['waiting']} left at Permit, {run['dispatch_errors']} errors")
+    if c["wave1_unbound"]:
+        failures.append(f"wave 1 left unbound: {c['wave1_unbound']}")
+    if not c["serve_hosts_distinct"] or c["serve_skew"] > 1:
+        failures.append(f"llm-serve replicas share a host or skew: {c['serve_per_zone']}")
+    if not c["eval_in_serve_zones"]:
+        failures.append("a team-b pod sits in a zone without an llm-serve replica")
+    if c["ft_a_hosts"] != size["ft_a"] or c["ft_b_zones"] != 1:
+        failures.append(f"ft-a on {c['ft_a_hosts']} hosts, ft-b in {c['ft_b_zones']} zones")
+    if c["volume_misplaced"] or c["attach_over"]:
+        failures.append(f"volumes misplaced {c['volume_misplaced']}, "
+                        f"attach limits exceeded on {c['attach_over']}")
+    if c["protected_evicted"]:
+        failures.append(f"budget-protected pods evicted: {c['protected_evicted']}")
+    if c["gang_bound"] != want_gang or not c["gang_on_pool"]:
+        failures.append(f"preempting gang: {c['gang_bound']}/{want_gang} bound")
+    if run["preempted_total"] != want_gang or len(run["evicted"]) != want_gang:
+        failures.append(f"{run['preempted_total']} evictions, {len(run['evicted'])} pods gone "
+                        f"(want {want_gang})")
+    if c["solo"] is not None or not run["refused_evictions"]:
+        failures.append(f"solo-50 on {c['solo']}, {run['refused_evictions']} refused evictions")
+    if failures:
+        raise AssertionError(f"{name}: " + "; ".join(failures))
+
+
+def check_affinity(g: dict, c: dict, size: dict) -> None:
+    diff = {k: (g[k], c[k]) for k in AFFINITY_PARITY if g[k] != c[k]}
+    if diff:
+        short = {k: v if k != "bindings" else "differ" for k, v in diff.items()}
+        raise AssertionError(f"run g: cuda != cpu in {short}")
+    for run in (g, c):
+        check_affinity_run(run, size)
+    if not 0 < g["launches"] == g["chunks"] or g["fleet_calls"] != g["dispatch_count"]:
+        raise AssertionError(
+            f"run g: {g['launches']} fleet_eval launches for {g['chunks']} chunks "
+            f"of {g['fleet_calls']} calls, {g['dispatch_count']} dispatches"
+        )
+    if g["joint_fit_launches"] != g["fused_plan_dispatches"]:
+        raise AssertionError(
+            f"run g: {g['joint_fit_launches']} joint_fit launches for "
+            f"{g['fused_plan_dispatches']} fused dispatches"
+        )
+    if g["row_update_launches"] != g["delta_syncs"]:
+        raise AssertionError(
+            f"run g: {g['row_update_launches']} row updates for {g['delta_syncs']} delta syncs"
+        )
+    if c["launches"] or c["joint_fit_launches"] or c["row_update_launches"]:
+        raise AssertionError("run g: the CPU run launched on the card")
+
+
+def phase_affinity(smi: str) -> dict:
+    g = run_affinity("auto")
+    c = run_affinity("cpu")
+    for run in (g, c):
+        summary = {k: v for k, v in run.items()
+                   if k not in ("bindings", "evicted", "nominated")}
+        summary["evicted"] = len(run["evicted"])
+        print(f"affinity (g) {run['platform']} [{smi}]:", json.dumps(summary))
+    check_affinity(g, c, AFFINITY_FULL)
+    return g
+
+
 def wide_fleet_script(seed: int = 5):
     """A fleet of 16 hosts of 40 chips (the lowering pads every node to 64)
     and 48 of 8, and 96 singletons of 1-32 chips, some with HBM or clock
@@ -1735,6 +2228,10 @@ def main() -> None:
     except Exception as e:  # noqa: BLE001
         fail("preemption run (f)", e)
     try:
+        affinity = phase_affinity(smi)
+    except Exception as e:  # noqa: BLE001
+        fail("affinity run (g)", e)
+    try:
         wide = phase_wide_fleet(smi)
     except Exception as e:  # noqa: BLE001
         fail("wide fleet", e)
@@ -1761,7 +2258,9 @@ def main() -> None:
                 ),
                 "launches": sum(run["launches"] for run in (
                     gpu["a"], gpu["b"], gangs["c"], gangs["d"], churn, preemption,
-                    *wide)),
+                    affinity, *wide)),
+                "launches_run_g": affinity["launches"],
+                "run_g_k1_device_ms": not_measured(affinity["fleet_eval_k1_device_ms"]),
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": main_row["ms"],
                 "plain_ms": main_row["plain_ms"],
@@ -1790,7 +2289,8 @@ def main() -> None:
                     "(lax.scan in kernel_joint_plan, :581)"
                 ),
                 "launches": gangs["c"]["joint_fit_launches"]
-                + gangs["d"]["joint_fit_launches"] + preemption["joint_fit_launches"],
+                + gangs["d"]["joint_fit_launches"] + preemption["joint_fit_launches"]
+                + affinity["joint_fit_launches"],
                 "max_abs_err": max(r["max_abs_err"] for r in joint_rows),
                 "ms": joint_main["ms"],
                 "device_ms": not_measured(joint_main["device_ms"]),
@@ -1814,8 +2314,8 @@ def main() -> None:
         ],
         # The resident row update is a torch op, not a hand kernel (the
         # reference's XLA scatter, yoda_tpu/ops/kernel.py:662): launches are
-        # runs (e) and (f)'s update_rows calls on the card, times at the
-        # main path's fleet with 64 rows.
+        # runs (e), (f) and (g)'s update_rows calls on the card, times at
+        # the main path's fleet with 64 rows.
         "torch_ops": [
             {
                 "name": "update_rows",
@@ -1823,7 +2323,7 @@ def main() -> None:
                 "source": "yoda_tpu_torch/ops/kernel.py (TorchFleetKernel.update_rows)",
                 "replaces": "yoda_tpu/ops/kernel.py:662 apply_row_update (jitted :671)",
                 "launches": churn["row_update_launches"]
-                + preemption["row_update_launches"],
+                + preemption["row_update_launches"] + affinity["row_update_launches"],
                 "max_abs_err": max(r["max_abs_err"] for r in update_rows),
                 "ms": update_main["ms"],
                 "plain_ms": update_main["put_static_ms"],

@@ -15,10 +15,13 @@ import pytest
 import torch
 
 from chip_smoke import (
+    AFFINITY_SMALL,
     UPDATE_FLEETS,
     UPDATE_ROWS,
     identical_rows_case,
+    check_affinity,
     joint_case,
+    run_affinity,
     run_wide_fleet,
     slice_edge_case,
     update_rows_check,
@@ -304,6 +307,15 @@ class TestHandKernel:
         for r, k in zip(first, kept):
             for f in dataclasses.fields(r):
                 np.testing.assert_array_equal(getattr(r, f.name), getattr(k, f.name))
+
+    def test_affinity_run_binds_as_on_cpu(self, card):
+        """chip_smoke's run (g) on a fleet of 160 hosts: inter-pod
+        affinity, spread, volume and budget pods bind, evict and are
+        refused on the card as on the CPU, and every evaluation launched
+        the kernel."""
+        got, want = run_affinity("auto", AFFINITY_SMALL), run_affinity("cpu", AFFINITY_SMALL)
+        check_affinity(got, want, AFFINITY_SMALL)
+        assert got["fleet_calls_k1"] > 0
 
     @pytest.mark.parametrize("burst", [1, 16])
     def test_wide_fleet_stack_binds_as_on_cpu(self, card, burst):

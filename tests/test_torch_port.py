@@ -13,6 +13,7 @@
 
 import ast
 import dataclasses
+import logging
 from pathlib import Path
 
 import pytest
@@ -23,7 +24,11 @@ from yoda_tpu.config import SchedulerConfig as RefConfig
 from yoda_tpu_torch.api.types import PodSpec
 from yoda_tpu_torch.agent.fake_publisher import FakeTpuAgent
 from yoda_tpu_torch.config import SchedulerConfig
-from yoda_tpu_torch.standalone import build_stack, unported_settings
+from yoda_tpu_torch.standalone import (
+    UNPORTED_KNOB_VALUES,
+    build_stack,
+    unported_settings,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -193,6 +198,29 @@ class TestUnportedKnobs:
         )
         assert unported_settings(cfg) == []
         build_stack(config=cfg)
+
+
+class TestNotBuilt:
+    """The parts yoda_tpu builds by default and this port does not: named
+    once in a warning and listed on the stack, never silently absent."""
+
+    def test_defaults_are_named(self, caplog):
+        with caplog.at_level(logging.WARNING, logger="yoda_tpu_torch.standalone"):
+            stack = build_stack(config=SchedulerConfig(kernel_platform="cpu"))
+        knobs = sorted(part.split("(")[1].split("=")[0] for part in stack.not_built)
+        assert knobs == sorted(UNPORTED_KNOB_VALUES)
+        assert "speculative placement cache (spec_enabled=True)" in stack.not_built
+        warnings = [r for r in caplog.records if r.levelno == logging.WARNING]
+        assert len(warnings) == 1
+        assert all(part in warnings[0].getMessage() for part in stack.not_built)
+
+    def test_switched_off_parts_are_not_named(self, caplog):
+        off = {knob: values[0] for knob, (_part, values) in UNPORTED_KNOB_VALUES.items()}
+        cfg = dataclasses.replace(SchedulerConfig(kernel_platform="cpu"), **off)
+        with caplog.at_level(logging.WARNING, logger="yoda_tpu_torch.standalone"):
+            stack = build_stack(config=cfg)
+        assert stack.not_built == ()
+        assert not [r for r in caplog.records if r.levelno == logging.WARNING]
 
 
 class TestPreemptionKnob:

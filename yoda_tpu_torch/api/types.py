@@ -24,10 +24,10 @@ and ``last_updated_unix`` (staleness detection — the reference never checks
 freshness, see SURVEY.md §5 failure-detection row).
 
 Counterpart of ``yoda_tpu/api/types.py``, ported as far as the singleton
-path reaches it. Left out until a later slice: the API-server wire format
-(``to_obj`` / ``from_obj`` on every type and the container-spec parsers
-behind them), the PersistentVolumeClaim / PersistentVolume /
-PodDisruptionBudget / Namespace models, and ``make_node``.
+path reaches it, with the PersistentVolumeClaim / PersistentVolume /
+PodDisruptionBudget / Namespace models. Left out until a later slice: the
+API-server wire format (``to_obj`` / ``from_obj`` on every type and the
+container-spec parsers behind them) and ``make_node``.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from __future__ import annotations
 import itertools
 import time
 from dataclasses import dataclass, field
-from typing import Mapping, Sequence
+from typing import Any, Mapping, Sequence
 
 HEALTHY = "Healthy"
 
@@ -257,6 +257,149 @@ def host_ports_conflict(
 
 
 @dataclass
+class K8sPvc:
+    """The scheduler-relevant slice of a v1.PersistentVolumeClaim — minimal
+    volume awareness (the reference inherited upstream's VolumeBinding and
+    volume-zone filters, reference pkg/register/register.go:10):
+
+    - ``selected_node``: the ``volume.kubernetes.io/selected-node``
+      annotation the volume binder writes for WaitForFirstConsumer claims —
+      once set, pods using the claim may only land there.
+    - ``zone``: the claim's ``topology.kubernetes.io/zone`` label (the
+      minimal stand-in for the bound PV's node-affinity zone): nodes
+      labeled with a DIFFERENT zone are rejected.
+    - ``access_modes``: ``spec.accessModes`` — the upstream
+      VolumeRestrictions inputs: a ``ReadWriteOnce`` claim already mounted
+      by pods on some node forces co-location there (single-node
+      attachment); ``ReadWriteOncePod`` additionally forbids any second
+      pod at all.
+    """
+
+    name: str
+    namespace: str = "default"
+    selected_node: str | None = None
+    zone: str | None = None
+    access_modes: tuple[str, ...] = ()
+    # spec.volumeName — the bound PersistentVolume. When the PV watch is
+    # live, the filter resolves this to the PV's REAL spec.nodeAffinity
+    # (superseding the zone-label stand-in above).
+    volume_name: str | None = None
+
+    @property
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+@dataclass
+class K8sPv:
+    """The scheduler-relevant slice of a v1.PersistentVolume: its REAL
+    ``spec.nodeAffinity`` (a local volume's node pin, a regional disk's
+    zone set) and the claim it is bound to. The reference inherited the full
+    upstream VolumeBinding filter (reference pkg/register/register.go:10),
+    whose hard predicate is exactly the bound PV's node affinity."""
+
+    name: str  # cluster-scoped
+    # spec.nodeAffinity.required.nodeSelectorTerms — terms OR, a term's
+    # expressions AND (the NodeSelectorTerm type used by pod nodeAffinity).
+    node_affinity: tuple["NodeSelectorTerm", ...] = ()
+    claim_ref: str | None = None  # "namespace/name" of the bound claim
+    # spec.csi.driver — which attach limit (K8sNode.attach_limits) this
+    # volume counts against (upstream NodeVolumeLimits). None: not a
+    # CSI volume, exempt from attach counting.
+    driver: str | None = None
+
+    def allows_node(self, node: "K8sNode | None") -> tuple[bool, str]:
+        """Hard VolumeBinding predicate. Fail-closed when the PV
+        constrains but the Node object is unknown (the pod_admits_on
+        convention: scheduling onto an unlabeled mystery node would
+        strand the workload next to a volume it cannot mount)."""
+        if not self.node_affinity:
+            return True, ""
+        if node is None:
+            return False, (
+                f"pv {self.name} has node affinity but the node object "
+                "is unknown"
+            )
+        if any(
+            term.matches(node.labels, node.name) for term in self.node_affinity
+        ):
+            return True, ""
+        return False, f"node fails pv {self.name}'s node affinity"
+
+
+@dataclass
+class K8sPdb:
+    """The scheduler-relevant slice of a policy/v1 PodDisruptionBudget.
+
+    Upstream DefaultPreemption (inherited by the reference via
+    pkg/register/register.go:10) prefers candidate victim sets that
+    violate no PDB; this type carries what that check needs: the pod
+    selector and the disruption allowance. ``disruptions_allowed`` is
+    ``status.disruptionsAllowed`` when the disruption controller has
+    published it — the authoritative number; otherwise the allowance is
+    derived from spec against the CURRENT matching-pod count (an
+    approximation of the controller's expectedPods, adequate for victim
+    *preference* — the eviction API remains the enforcement point).
+
+    policy/v1 selector semantics: an empty selector ({}) matches every
+    pod in the namespace; an absent selector matches none (modeled as
+    ``selector=None``)."""
+
+    name: str
+    namespace: str = "default"
+    selector: "Any | None" = None            # affinity.LabelSelector | None
+    min_available: "int | str | None" = None      # int or "N%"
+    max_unavailable: "int | str | None" = None    # int or "N%"
+    disruptions_allowed: int | None = None        # status, when published
+
+    @property
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+    def matches(self, pod: "PodSpec") -> bool:
+        if pod.namespace != self.namespace or self.selector is None:
+            return False
+        return self.selector.matches(pod.labels)
+
+    def allowed_disruptions(self, matching_running: int) -> int:
+        """How many matching pods may be evicted right now. Percentage
+        fields scale against ``matching_running`` (minAvailable rounds
+        up, maxUnavailable rounds down — upstream's conservative
+        directions)."""
+        if self.disruptions_allowed is not None:
+            return max(int(self.disruptions_allowed), 0)
+
+        def scaled(v, *, round_up: bool) -> int:
+            if isinstance(v, str) and v.endswith("%"):
+                pct = int(v[:-1])
+                exact = matching_running * pct / 100.0
+                return int(-(-exact // 1)) if round_up else int(exact)
+            return int(v)
+
+        if self.max_unavailable is not None:
+            return max(
+                min(scaled(self.max_unavailable, round_up=False), matching_running),
+                0,
+            )
+        if self.min_available is not None:
+            return max(
+                matching_running - scaled(self.min_available, round_up=True), 0
+            )
+        return matching_running  # no constraint declared
+
+
+@dataclass
+class K8sNamespace:
+    """The scheduler-relevant slice of a v1.Namespace: its labels, which
+    pod-affinity ``namespaceSelector`` terms select over (api.affinity).
+    The reference's upstream scheduler watched namespaces for the same
+    reason."""
+
+    name: str
+    labels: dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
 class K8sNode:
     """The scheduler-relevant slice of a v1.Node.
 
@@ -290,8 +433,6 @@ class K8sNode:
     # status.allocatable "attachable-volumes-*" keys: limit-key suffix ->
     # max attachable volumes (upstream NodeVolumeLimits inputs, e.g.
     # "csi-pd.csi.storage.gke.io" -> 127). Empty = no declared limits.
-    # Not enforced by this port yet (volume constraints are refused at
-    # PreFilter).
     attach_limits: dict[str, int] = field(default_factory=dict)
 
 
@@ -464,8 +605,8 @@ class PodSpec:
     # (host_ports_conflict).
     host_ports: tuple[tuple[int, str, str], ...] = ()
     # spec.volumes[].persistentVolumeClaim.claimName — minimal volume
-    # awareness (upstream VolumeBinding/volume-zone parity). This port
-    # refuses such pods at PreFilter until volume resolution is ported.
+    # awareness (upstream VolumeBinding/volume-zone parity), enforced by
+    # filter_plugin.node_fits_volumes against the PVC watch.
     pvc_names: tuple[str, ...] = ()
     # spec.containers[].image (regular containers, upstream ImageLocality's
     # scoring inputs — init containers run once and are not scored).

@@ -1,17 +1,17 @@
 """In-memory fake API server with watch semantics.
 
-Stores pods, TpuNodeMetrics CRs and Node objects, delivers create/update/
+Stores pods, TpuNodeMetrics CRs, Node, Namespace, PersistentVolumeClaim,
+PersistentVolume and PodDisruptionBudget objects, delivers create/update/
 delete events to watchers synchronously (the informer), and implements pod
 binding — the subset of the Kubernetes API the scheduler touches.
 Thread-safe.
 
 Counterpart of ``yoda_tpu/cluster/fake.py``, ported as far as the
-singleton, gang and preemption paths reach it: eviction (``evict_pod``,
-refused for the keys in ``eviction_blocked``) and the nomination status
-patch (``set_nominated_node``). Left out until a later slice: the
-Namespace / PersistentVolumeClaim / PersistentVolume / PodDisruptionBudget
-stores (so an eviction checks no budget), Events, node-death helpers and
-the watch-drop / staleness probes.
+singleton, gang, preemption, affinity and volume paths reach it: eviction
+(``evict_pod``, refused where a stored budget would be violated or for the
+keys in ``eviction_blocked``) and the nomination status patch
+(``set_nominated_node``). Left out until a later slice: Events,
+node-death helpers and the watch-drop / staleness probes.
 """
 
 from __future__ import annotations
@@ -21,7 +21,15 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Literal
 
-from yoda_tpu_torch.api.types import K8sNode, PodSpec, TpuNodeMetrics
+from yoda_tpu_torch.api.types import (
+    K8sNamespace,
+    K8sNode,
+    K8sPdb,
+    K8sPv,
+    K8sPvc,
+    PodSpec,
+    TpuNodeMetrics,
+)
 
 EventType = Literal["added", "modified", "deleted"]
 
@@ -29,7 +37,7 @@ EventType = Literal["added", "modified", "deleted"]
 @dataclass(frozen=True)
 class Event:
     type: EventType
-    kind: str  # "Pod" | "TpuNodeMetrics" | "Node"
+    kind: str  # "Pod" | "TpuNodeMetrics" | "Node" | "Namespace" | ...
     obj: object
 
 
@@ -42,6 +50,15 @@ class FakeCluster:
         self._pods: dict[str, PodSpec] = {}
         self._tpus: dict[str, TpuNodeMetrics] = {}
         self._nodes: dict[str, K8sNode] = {}
+        self._namespaces: dict[str, K8sNamespace] = {}
+        self._pvcs: dict[str, K8sPvc] = {}  # "namespace/name" -> claim
+        self._pvs: dict[str, K8sPv] = {}    # name -> persistent volume
+        self._pdbs: dict[str, K8sPdb] = {}  # "namespace/name" -> budget
+        # Evictions consumed against a PUBLISHED status.disruptionsAllowed
+        # since the budget object last changed: the real API decrements the
+        # status as it admits evictions. Reset by put_pdb (the disruption
+        # controller republishing).
+        self._pdb_used: dict[str, int] = {}
         self._watchers: list[Callable[[Event], None]] = []
         self._rv = 0
         # Pod keys whose eviction a PodDisruptionBudget would block (tests).
@@ -72,7 +89,11 @@ class FakeCluster:
 
     def _replay_events(self) -> "list[Event]":
         return (
-            [Event("added", "Node", node) for node in self._nodes.values()]
+            [Event("added", "Namespace", ns) for ns in self._namespaces.values()]
+            + [Event("added", "PersistentVolumeClaim", c) for c in self._pvcs.values()]
+            + [Event("added", "PersistentVolume", pv) for pv in self._pvs.values()]
+            + [Event("added", "PodDisruptionBudget", b) for b in self._pdbs.values()]
+            + [Event("added", "Node", node) for node in self._nodes.values()]
             + [Event("added", "TpuNodeMetrics", t) for t in self._tpus.values()]
             + [Event("added", "Pod", pod) for pod in self._pods.values()]
         )
@@ -147,13 +168,36 @@ class FakeCluster:
             self._emit(Event("modified", "Pod", pod))
 
     def evict_pod(self, pod_key: str) -> bool:
-        """The pods/eviction subresource, fake-side: deletes the pod unless
-        the test marked it protected via ``eviction_blocked`` (False: the
-        eviction was refused). There is no PodDisruptionBudget store yet, so
-        no budget is checked."""
+        """The pods/eviction subresource, fake-side: deletes unless the
+        eviction would violate a stored PodDisruptionBudget (the real API
+        server's enforcement) or the test marked the pod protected via
+        ``eviction_blocked`` (False: the eviction was refused)."""
         with self._lock:
             if pod_key in self.eviction_blocked:
                 return False
+            pod = self._pods.get(pod_key)
+            consumed: list[str] = []
+            if pod is not None:
+                for pdb in self._pdbs.values():
+                    if not pdb.matches(pod):
+                        continue
+                    # Only BOUND pods count toward the budget (the real API
+                    # derives disruptionsAllowed from running pods: a
+                    # pending replica protects nothing).
+                    matching = sum(
+                        1 for p in self._pods.values() if p.node_name and pdb.matches(p)
+                    )
+                    allowed = pdb.allowed_disruptions(matching) - self._pdb_used.get(
+                        pdb.key, 0
+                    )
+                    if allowed < 1:
+                        return False
+                    consumed.append(pdb.key)
+                for key in consumed:
+                    # Decrement only budgets with a PUBLISHED status (the
+                    # derived path self-corrects via the matching count).
+                    if self._pdbs[key].disruptions_allowed is not None:
+                        self._pdb_used[key] = self._pdb_used.get(key, 0) + 1
         self.delete_pod(pod_key)
         return True
 
@@ -184,6 +228,65 @@ class FakeCluster:
     def list_tpu_metrics(self) -> list[TpuNodeMetrics]:
         with self._lock:
             return list(self._tpus.values())
+
+    # --- Namespaces, volumes and disruption budgets ---
+
+    def put_namespace(self, ns: K8sNamespace) -> None:
+        with self._lock:
+            is_new = ns.name not in self._namespaces
+            self._namespaces[ns.name] = ns
+            self._emit(Event("added" if is_new else "modified", "Namespace", ns))
+
+    def delete_namespace(self, name: str) -> None:
+        with self._lock:
+            ns = self._namespaces.pop(name, None)
+            if ns is not None:
+                self._emit(Event("deleted", "Namespace", ns))
+
+    def put_pvc(self, pvc: K8sPvc) -> None:
+        with self._lock:
+            is_new = pvc.key not in self._pvcs
+            self._pvcs[pvc.key] = pvc
+            self._emit(
+                Event("added" if is_new else "modified", "PersistentVolumeClaim", pvc)
+            )
+
+    def delete_pvc(self, key: str) -> None:
+        with self._lock:
+            pvc = self._pvcs.pop(key, None)
+            if pvc is not None:
+                self._emit(Event("deleted", "PersistentVolumeClaim", pvc))
+
+    def put_pv(self, pv: K8sPv) -> None:
+        with self._lock:
+            is_new = pv.name not in self._pvs
+            self._pvs[pv.name] = pv
+            self._emit(Event("added" if is_new else "modified", "PersistentVolume", pv))
+
+    def delete_pv(self, name: str) -> None:
+        with self._lock:
+            pv = self._pvs.pop(name, None)
+            if pv is not None:
+                self._emit(Event("deleted", "PersistentVolume", pv))
+
+    def put_pdb(self, pdb: K8sPdb) -> None:
+        with self._lock:
+            is_new = pdb.key not in self._pdbs
+            self._pdbs[pdb.key] = pdb
+            self._pdb_used.pop(pdb.key, None)  # controller republished
+            self._emit(
+                Event("added" if is_new else "modified", "PodDisruptionBudget", pdb)
+            )
+
+    def delete_pdb(self, key: str) -> None:
+        with self._lock:
+            pdb = self._pdbs.pop(key, None)
+            if pdb is not None:
+                self._emit(Event("deleted", "PodDisruptionBudget", pdb))
+
+    def list_pdbs(self) -> list[K8sPdb]:
+        with self._lock:
+            return list(self._pdbs.values())
 
     # --- Node objects (cordon / taints / lifecycle) ---
 

@@ -16,10 +16,15 @@ The scheduler reads ONLY this cache during a cycle. The cache maintains:
   feed (:meth:`admission_changes_since`) that the batch plugin's
   dynamics row and cross-snapshot admission cache read.
 
+It also keeps the Namespace labels, PersistentVolumeClaims,
+PersistentVolumes and PodDisruptionBudgets: the first three are stamped on
+each snapshot (``None`` unless the matching watch is live), the budgets
+are read by preemption (:meth:`list_pdbs`).
+
 Counterpart of ``yoda_tpu/cluster/informer.py``. Left out until a later
-slice: the Namespace / PersistentVolumeClaim / PersistentVolume /
-PodDisruptionBudget watches, shard partitioning, the node-health fence
-hook and the watch-staleness clock.
+slice: the "synced" liveness sentinels of the API-server client (the
+``watches_*`` flags are set by the caller), shard partitioning, the
+node-health fence hook and the watch-staleness clock.
 """
 
 from __future__ import annotations
@@ -32,7 +37,14 @@ from dataclasses import dataclass
 from typing import Callable
 
 from yoda_tpu_torch.api.requests import LabelParseError, pod_request
-from yoda_tpu_torch.api.types import K8sNode, PodSpec, TpuNodeMetrics
+from yoda_tpu_torch.api.types import (
+    K8sNode,
+    K8sPdb,
+    K8sPv,
+    K8sPvc,
+    PodSpec,
+    TpuNodeMetrics,
+)
 from yoda_tpu_torch.cluster.fake import Event
 from yoda_tpu_torch.framework.interfaces import NodeInfo, Snapshot
 
@@ -60,6 +72,9 @@ class InformerCache:
         scheduler_name: str = "yoda-tpu",
         on_pod_pending: Callable[[PodSpec], None] | None = None,
         on_change_batch: "Callable[[list[Event]], None] | None" = None,
+        watches_pvcs: bool = False,
+        watches_pvs: bool = False,
+        watches_pdbs: bool = False,
         staleness_s: float = 0.0,
         now_fn: Callable[[], float] = time.time,
     ) -> None:
@@ -69,6 +84,20 @@ class InformerCache:
         # events (build_stack wires the delete fast path and ONE
         # move_all_to_active decision here).
         self.on_change_batch = on_change_batch
+        # True when the backend streams PersistentVolumeClaim events: then
+        # an empty PVC store means "no claims exist" (pods referencing one
+        # wait), while False means "no PVC data" (volume constraints are
+        # not enforced: snapshot.pvcs stays None).
+        self.watches_pvcs = watches_pvcs
+        # Same contract for PodDisruptionBudgets: True = preemption's
+        # victim preference may trust the (possibly empty) store; False =
+        # no budget data, the preference is skipped and budgets act only
+        # through refused evictions.
+        self.watches_pdbs = watches_pdbs
+        # And for PersistentVolumes: True = bound claims resolve to their
+        # PV's real nodeAffinity; False = the claim's zone-label stand-in
+        # applies (snapshot.pvs stays None).
+        self.watches_pvs = watches_pvs
         # The scheduler's max_metrics_age_s, used ONLY to classify
         # timestamp-only republishes: a node whose publish gap exceeded
         # this had gone stale, so its refresh must reactivate parked pods.
@@ -80,6 +109,10 @@ class InformerCache:
         # snapshot() hands the pre-sorted list to Snapshot(order=...).
         self._tpu_order: list[str] = []
         self._nodes: dict[str, K8sNode] = {}
+        self._namespaces: dict[str, dict[str, str]] = {}  # name -> labels
+        self._pvcs: dict[str, K8sPvc] = {}  # "namespace/name" -> claim
+        self._pvs: dict[str, K8sPv] = {}
+        self._pdbs: dict[str, K8sPdb] = {}
         # True once any Node event arrived: from then on a TPU CR without a
         # live Node object is excluded from snapshots (node deleted).
         self._node_informed = False
@@ -145,6 +178,14 @@ class InformerCache:
                     self._handle_pod(event)
                 elif event.kind == "Node":
                     self._handle_node(event)
+                elif event.kind == "Namespace":
+                    self._handle_namespace(event)
+                elif event.kind == "PersistentVolumeClaim":
+                    self._handle_pvc(event)
+                elif event.kind == "PersistentVolume":
+                    self._handle_pv(event)
+                elif event.kind == "PodDisruptionBudget":
+                    self._handle_pdb(event)
                 # Timestamp-only heartbeats are NOT propagated as cluster
                 # changes (upstream's queueing-hint discipline).
                 if relevant:
@@ -163,6 +204,39 @@ class InformerCache:
                 self.on_pod_pending(pod)
         if relevant_events and self.on_change_batch is not None:
             self.on_change_batch(relevant_events)
+
+    def _handle_pvc(self, event: Event) -> None:
+        pvc: K8sPvc = event.obj  # type: ignore[assignment]
+        if event.type == "deleted":
+            self._pvcs.pop(pvc.key, None)
+        else:
+            self._pvcs[pvc.key] = pvc
+        self._batch_dirty = True
+
+    def _handle_pv(self, event: Event) -> None:
+        pv: K8sPv = event.obj  # type: ignore[assignment]
+        if event.type == "deleted":
+            self._pvs.pop(pv.name, None)
+        else:
+            self._pvs[pv.name] = pv
+        self._batch_dirty = True
+
+    def _handle_pdb(self, event: Event) -> None:
+        pdb: K8sPdb = event.obj  # type: ignore[assignment]
+        if event.type == "deleted":
+            self._pdbs.pop(pdb.key, None)
+        else:
+            self._pdbs[pdb.key] = pdb
+        # No version bump: budgets steer victim PREFERENCE inside
+        # preemption, not filtering or scoring.
+
+    def _handle_namespace(self, event: Event) -> None:
+        ns = event.obj
+        if event.type == "deleted":
+            self._namespaces.pop(ns.name, None)
+        else:
+            self._namespaces[ns.name] = dict(ns.labels)
+        self._batch_dirty = True
 
     def _handle_node(self, event: Event) -> None:
         node: K8sNode = event.obj  # type: ignore[assignment]
@@ -370,6 +444,15 @@ class InformerCache:
                 name: t.last_updated_unix for name, t in self._tpus.items()
             }
 
+    def list_pdbs(self) -> "list[K8sPdb] | None":
+        """The cached PodDisruptionBudgets, or None when no budget watch is
+        live (preemption then skips the violation preference entirely —
+        distinct from an empty list, which means no budgets exist)."""
+        with self._lock:
+            if not (self.watches_pdbs or self._pdbs):
+                return None
+            return list(self._pdbs.values())
+
     def pod_alive(self, pod: PodSpec) -> bool:
         """False once the watch saw the pod's deletion (by uid)."""
         with self._lock:
@@ -412,7 +495,14 @@ class InformerCache:
                     cache[name] = ni
                 nodes[name] = ni
                 order.append(name)
-            snap = Snapshot(nodes, order=order, version=self._version)
+            snap = Snapshot(
+                nodes,
+                order=order,
+                version=self._version,
+                namespaces=self._namespaces or None,
+                pvcs=self._pvcs if (self.watches_pvcs or self._pvcs) else None,
+                pvs=self._pvs if (self.watches_pvs or self._pvs) else None,
+            )
             snap.metrics_version = self._metrics_version
             # The admission-feed epoch AT BUILD, under the same lock: a
             # consumer that patches a cached vector from this snapshot

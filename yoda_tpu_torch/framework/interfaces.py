@@ -8,8 +8,9 @@ the extension points the reference lacks and the BASELINE configs require:
 PreFilter, modern PostFilter (preemption), Reserve/Unreserve, Permit, Bind.
 
 Counterpart of ``yoda_tpu/framework/interfaces.py``. PostFilter
-(``PostFilterPlugin``) serves preemption; the snapshot carries no volume,
-namespace or fence data yet. Permit (``PermitPlugin``) serves the
+(``PostFilterPlugin``) serves preemption; the snapshot carries the
+Namespace, PersistentVolumeClaim and PersistentVolume data but no fence set
+yet (the node health monitor is not ported). Permit (``PermitPlugin``) serves the
 gang plugin; the runtime reaches its waitlist hooks (``on_pod_waiting``,
 ``on_pod_resolved``, ``on_pod_bound``, ``on_bind_failed``,
 ``on_unbind_failed``) by name, as the reference does.
@@ -110,6 +111,9 @@ class Snapshot:
         nodes: Mapping[str, NodeInfo],
         *,
         version: int = 0,
+        namespaces: "Mapping[str, Mapping[str, str]] | None" = None,
+        pvcs: "Mapping[str, object] | None" = None,
+        pvs: "Mapping[str, object] | None" = None,
         order: "list[str] | None" = None,
     ) -> None:
         self._nodes = dict(nodes)
@@ -129,6 +133,20 @@ class Snapshot:
         # vector to a later snapshot by patching only the nodes changed in
         # between. None = no feed stamped this snapshot (bare constructions).
         self.admission_epoch: int | None = None
+        # Namespace name -> labels (from the Namespace watch), consumed by
+        # pod-affinity namespaceSelector terms (api.affinity). None = no
+        # Namespace data available.
+        self.namespaces = dict(namespaces) if namespaces else None
+        # "namespace/name" -> K8sPvc (from the PVC watch), consumed by the
+        # volume filter (filter_plugin.node_fits_volumes). None = no PVC
+        # data (volume constraints are not enforced); an EMPTY dict means
+        # the watch is live and no claims exist, so only a true None
+        # collapses to None.
+        self.pvcs = dict(pvcs) if pvcs is not None else None
+        # PV name -> K8sPv (from the PersistentVolume watch): a bound
+        # claim's REAL PV nodeAffinity instead of the claim's zone-label
+        # stand-in. Same None-versus-empty contract as pvcs.
+        self.pvs = dict(pvs) if pvs is not None else None
 
     def get(self, name: str) -> NodeInfo:
         return self._nodes[name]

@@ -13,13 +13,14 @@ fleet evaluation for one pod (K = 1) or a K-row burst, and for a joint
 gang pass the joint-fit scan right after it on the card.
 
 Counterpart of ``yoda_tpu/plugins/yoda/batch.py``, ported as far as the
-singleton and gang paths reach it: the device-resident fleet state
-(ops/resident.py ``FleetStateCache``, fed by the informer's and the
-accountant's delta feeds, which ``standalone.build_stack`` wires) with the
-classic per-metrics-version refresh and its incremental row refills kept
-for bare constructions, the per-pod admission vector and its
-cross-snapshot cache (``_admission_vec``), the preference bonus,
-``filter_and_score_batch``, the multi-pod burst (``prepare_burst`` /
+singleton, gang, affinity and volume paths reach it: the device-resident
+fleet state (ops/resident.py ``FleetStateCache``, fed by the informer's
+and the accountant's delta feeds, which ``standalone.build_stack`` wires)
+with the classic per-metrics-version refresh and its incremental row
+refills kept for bare constructions, the per-pod admission vector and its
+cross-snapshot cache (``_admission_vec``; a pod with an ``AffinityData``
+bypasses both caches), the preference bonus with its inter-pod and spread
+terms, ``filter_and_score_batch``, the multi-pod burst (``prepare_burst`` /
 ``_serve_burst`` with its serve-time spot-checks), the lazy whole-gang
 plan (``_GangPlan``), the gang-fused and cross-gang joint dispatches with
 their fit gate (``prepare_gang_burst`` / ``prepare_joint_burst``; plain
@@ -69,7 +70,8 @@ from yoda_tpu_torch.ops.kernel import (
 )
 from yoda_tpu_torch.ops.resident import FleetStateCache
 from yoda_tpu_torch.plugins.yoda.filter_plugin import (
-    get_pending_ports,
+    AffinityData,
+    get_affinity,
     get_pending_resources,
     get_request,
     node_fits_host_ports,
@@ -125,12 +127,13 @@ def _node_admission_ok(
     snapshot: Snapshot,
     fenced: "frozenset | None",
     pod: PodSpec,
+    aff: "AffinityData | None" = None,
     pending_res: dict | None = None,
-    pending_ports: dict | None = None,
 ) -> bool:
     """ONE node's admission verdict: the fence, cordon + taints +
-    nodeSelector + required node affinity, resource fit and host ports —
-    in-flight gang members' claims (``pending_res`` / ``pending_ports``)
+    nodeSelector + required node affinity, resource fit, host ports and —
+    with an ``AffinityData`` — volume pins, attach limits, inter-pod
+    affinity and topology spread, in-flight gang members' claims
     included. The per-row unit of :func:`_host_admission`, which the
     cross-snapshot cache (YodaBatch._admission_vec) re-runs for single
     rows."""
@@ -143,27 +146,33 @@ def _node_admission_ok(
         return False
     if not node_fits_resources(ni, pod, pending_res)[0]:
         return False
-    return not pod.host_ports or node_fits_host_ports(ni, pod, pending_ports)[0]
+    if pod.host_ports and not node_fits_host_ports(
+        ni, pod, aff.pending_ports if aff is not None else None
+    )[0]:
+        return False
+    return aff is None or aff.feasible(ni)[0]
 
 
 def _host_admission(
     static: FleetArrays,
     snapshot: Snapshot,
     pod: PodSpec,
+    aff: "AffinityData | None" = None,
     pending_res: dict | None = None,
-    pending_ports: dict | None = None,
 ) -> np.ndarray:
     """Per-pod Node-object admission vector (padding rows are masked by
-    node_valid in the evaluation, so their value is irrelevant).
+    node_valid in the evaluation, so their value is irrelevant). With an
+    ``AffinityData`` every row also runs its volume, attach-limit,
+    inter-pod and spread checks: one O(N) Python loop per pod.
 
     Cached on the snapshot object keyed by (fleet arrays identity,
-    constraint tuple) when no in-flight claims are in play: every plain
-    label-only pod of a burst (and every gang member) shares one key, so a
-    K-pod burst pays the O(N) loop once. The snapshot is rebuilt (and the
-    cache with it) on any watch event."""
+    constraint tuple) when neither an AffinityData nor in-flight claims
+    are in play: every plain label-only pod of a burst (and every gang
+    member) shares one key, so a K-pod burst pays the O(N) loop once. The
+    snapshot is rebuilt (and the cache with it) on any watch event."""
     key = None
     cache = None
-    if not pending_res and not pending_ports:
+    if aff is None and not pending_res:
         key = _admission_key(pod)
     if key is not None:
         cache = getattr(snapshot, "_admission_cache", None)
@@ -177,7 +186,7 @@ def _host_admission(
     fenced = getattr(snapshot, "fenced", None)
     vec = np.array(
         [
-            _node_admission_ok(name, snapshot, fenced, pod, pending_res, pending_ports)
+            _node_admission_ok(name, snapshot, fenced, pod, aff, pending_res)
             for name in static.names
         ]
         + [True] * (static.node_valid.shape[0] - len(static.names)),
@@ -555,20 +564,22 @@ class YodaBatch(BatchFilterScorePlugin):
             if served is not None:
                 return served
         static = self._refresh_static(snapshot)
+        aff = get_affinity(state)
+        pending_res = get_pending_resources(state)
         # Reservations/claims/freshness change cycle-to-cycle without a
-        # metrics bump, and Node-object admission (in-flight gang claims
-        # included) is per (pod, cycle): one packed upload.
+        # metrics bump, and Node-object admission (cordon + taints +
+        # inter-pod affinity/spread + resource fit + host ports + volume
+        # pins vs THIS pod, in-flight gang claims included) is per (pod,
+        # cycle): one packed upload.
         dyn = self._dyn_for(
             static,
-            host_ok=self._admission_vec(
-                static, snapshot, pod,
-                get_pending_resources(state), get_pending_ports(state),
-            ),
+            host_ok=self._admission_vec(static, snapshot, pod, aff, pending_res),
         )
         result = self._dispatch(lambda kern: kern.evaluate(dyn, reqk))
         self.dispatch_count += 1
-        # Soft steering is a host-side additive term, per (pod, node).
-        pref_bonus = self._preference_bonus(static, snapshot, pod)
+        # Soft steering (preferred node affinity, preferred pod affinity,
+        # spread balance) is a host-side additive term, per (pod, node).
+        pref_bonus = self._preference_bonus(static, snapshot, pod, aff)
         statuses: dict[str, Status] = {}
         scores: dict[str, int] = {}
         for i, name in enumerate(static.names):
@@ -588,11 +599,17 @@ class YodaBatch(BatchFilterScorePlugin):
         return statuses, scores
 
     def _preference_bonus(
-        self, static: FleetArrays, snapshot: Snapshot, pod: PodSpec
+        self,
+        static: FleetArrays,
+        snapshot: Snapshot,
+        pod: PodSpec,
+        aff: AffinityData | None = None,
     ) -> np.ndarray:
         """[n_nodes] int64 soft score per real node row: preferred node
         affinity bonus minus the PreferNoSchedule penalty (100 per
-        untolerated soft taint), plus ImageLocality — api.types semantics."""
+        untolerated soft taint), plus the signed preferred
+        pod-(anti-)affinity sum, the [0,100] spread-balance score and
+        ImageLocality — api.types / api.affinity semantics."""
         n = len(static.names)
         out = np.zeros(n, dtype=np.int64)
         w_pref = self.weights.preferred_affinity
@@ -601,6 +618,23 @@ class YodaBatch(BatchFilterScorePlugin):
             if self._fleet_has_soft_taints(snapshot)
             else 0
         )
+        w_pod = self.weights.pod_affinity
+        w_spread = self.weights.topology_spread
+        # Gate on actual contribution, not evaluator existence: an
+        # evaluator built only for the symmetry filter has no preferred
+        # terms and must not bring in the O(N) loop.
+        inter = (
+            aff.inter
+            if (aff is not None and w_pod and aff.inter is not None
+                and aff.inter.has_preferences)
+            else None
+        )
+        spread = (
+            aff.spread
+            if (aff is not None and w_spread and aff.spread is not None
+                and aff.spread.has_soft)
+            else None
+        )
         w_image = self.weights.image_locality
         image_spread = None
         if w_image and pod.container_images:
@@ -608,7 +642,13 @@ class YodaBatch(BatchFilterScorePlugin):
 
             image_spread = build_image_spread(snapshot, pod)
         want_pref = w_pref and pod.preferred_node_affinity
-        if not want_pref and not w_taint and image_spread is None:
+        if (
+            not want_pref
+            and not w_taint
+            and inter is None
+            and spread is None
+            and image_spread is None
+        ):
             # The common case (no preferences, taint-free fleet) pays no
             # O(N) Python loop.
             return out
@@ -622,8 +662,13 @@ class YodaBatch(BatchFilterScorePlugin):
                 v += preferred_affinity_score(node, pod) * w_pref
             if w_taint:
                 v -= 100 * w_taint * untolerated_soft_taints(node, pod)
-            if ni is not None and image_spread is not None:
-                v += image_locality_score(pod, ni, image_spread) * w_image
+            if ni is not None:
+                if inter is not None:
+                    v += inter.preference(ni) * w_pod
+                if spread is not None:
+                    v += spread.score(ni) * w_spread
+                if image_spread is not None:
+                    v += image_locality_score(pod, ni, image_spread) * w_image
             out[i] = v
         return out
 
@@ -929,8 +974,8 @@ class YodaBatch(BatchFilterScorePlugin):
         static: FleetArrays,
         snapshot: Snapshot,
         pod: PodSpec,
+        aff: "AffinityData | None" = None,
         pending_res: dict | None = None,
-        pending_ports: dict | None = None,
     ) -> np.ndarray:
         """:func:`_host_admission` with a CROSS-SNAPSHOT cache: entries key
         on the pod's constraint tuple and carry the informer epochs stamped
@@ -943,9 +988,11 @@ class YodaBatch(BatchFilterScorePlugin):
         snapshot's fence set, diffed directly. Falls back to the
         per-snapshot cache when a feed or a snapshot stamp is missing (bare
         constructions) or on ring-behind/structural deltas."""
-        if pending_res or pending_ports:
-            # Per-cycle inputs a cached row cannot track: full loop.
-            return _host_admission(static, snapshot, pod, pending_res, pending_ports)
+        if aff is not None or pending_res:
+            # Per-cycle inputs a cached row cannot track (bound pods'
+            # inter-pod terms, spread counts, claim attachments, in-flight
+            # claims): full loop.
+            return _host_admission(static, snapshot, pod, aff, pending_res)
         key = _admission_key(pod)
         m_epoch = snapshot.metrics_version
         a_epoch = snapshot.admission_epoch

@@ -35,15 +35,18 @@ hosts (one member per host).
 Counterpart of ``yoda_tpu/plugins/yoda/gang.py``: admission for plain and
 topology gangs, the Filter pin, Permit and the waitlist callbacks, the
 transactional bind rollback, the watch handler (host-death marks, delete
-fast path, restart reconstruction) and the introspection surfaces. Left
-out until a later slice: elastic resize (``set_effective_size`` — an
-elastic gang binds at its declared size, since nothing resizes it),
-shard commits (``collect_commits``), the bind pipeline's parallel release
-and completion barrier (``collect_rollbacks``: every bind here runs inline,
-so ``on_bind_failed`` hands the landed binds back directly), the
-inter-pod self-affinity admission caps (the port's PreFilter refuses
-pods with inter-pod terms), the Event recorder's rollback hook and the
-tracer / why-pending surfaces.
+fast path, restart reconstruction), the introspection surfaces, and plain
+gangs' inter-pod admission: the PreFilter's AffinityData gates each node,
+and a required term matching the gang's own labels caps the slots (self
+anti-affinity: one member per domain; self affinity: the largest single
+domain, with the members steered into domains that hold the whole
+remainder). Left out until a later slice: elastic resize
+(``set_effective_size`` — an elastic gang binds at its declared size,
+since nothing resizes it), shard commits (``collect_commits``), the bind
+pipeline's parallel release and completion barrier (``collect_rollbacks``:
+every bind here runs inline, so ``on_bind_failed`` hands the landed binds
+back directly), the node-health fence, the Event recorder's rollback hook
+and the tracer / why-pending surfaces.
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ from yoda_tpu_torch.framework.interfaces import (
 )
 from yoda_tpu_torch.plugins.yoda.filter_plugin import (
     available_chips,
+    get_affinity,
     get_pending_resources,
     get_request,
     node_fits_resources,
@@ -229,16 +233,96 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
                 # plus the other remaining members must all fit somewhere.
                 # The scan short-circuits at `remaining` — admission only
                 # needs enough slots, not the fleet total.
+                aff = get_affinity(state)
                 pending_res = get_pending_resources(state)
+                # Gang members share labels, so a required term matching the
+                # pod's OWN labels constrains the gang against itself and
+                # caps admission — without a cap the surplus member holds
+                # its siblings' reservations until the permit timeout:
+                # - self ANTI-affinity: at most one member per domain of the
+                #   term's key (keyless nodes belong to no domain and keep
+                #   their full slot count — upstream semantics);
+                # - self AFFINITY: every member must land in ONE domain, so
+                #   the gang gets max-per-domain slots, not the fleet sum
+                #   (keyless nodes contribute nothing: api.affinity rejects
+                #   bootstrapping a group onto a keyless node).
+                ns_labels = snapshot.namespaces
+                anti_self = [
+                    t for t in pod.pod_anti_affinity
+                    if t.matches_pod(pod, pod.namespace, ns_labels)
+                ]
+                aff_self = [
+                    t for t in pod.pod_affinity
+                    if t.matches_pod(pod, pod.namespace, ns_labels)
+                ]
+
+                def admits(ni: NodeInfo) -> bool:
+                    return (
+                        pod_admits_on(ni.node, pod)[0]
+                        and node_fits_resources(ni, pod, pending_res)[0]
+                        and (aff is None or aff.feasible(ni)[0])
+                    )
+
                 slots = 0
-                for ni in snapshot.infos():
-                    if not pod_admits_on(ni.node, pod)[0]:
-                        continue
-                    if not node_fits_resources(ni, pod, pending_res)[0]:
-                        continue
-                    slots += self._member_slots(ni, req, exclude_hosts=set())
-                    if slots >= remaining:
-                        break
+                if not anti_self and not aff_self:
+                    # No domain cap possible: keep the short-circuit at
+                    # `remaining` even when an evaluator exists (it only
+                    # filters nodes, it cannot cap the sum).
+                    for ni in snapshot.infos():
+                        if not admits(ni):
+                            continue
+                        slots += self._member_slots(ni, req, exclude_hosts=set())
+                        if slots >= remaining:
+                            break
+                else:
+                    # Domain caps need the whole feasible set: no
+                    # short-circuit (self-constrained gangs are rare).
+                    contributing: list[tuple[NodeInfo, int]] = []
+                    for ni in snapshot.infos():
+                        if not admits(ni):
+                            continue
+                        n = self._member_slots(ni, req, exclude_hosts=set())
+                        if n > 0:
+                            contributing.append((ni, n))
+                    slots = sum(n for _, n in contributing)
+                    for term in anti_self:
+                        keyed: set[str] = set()
+                        keyless = 0
+                        for ni, n in contributing:
+                            labels = ni.node.labels if ni.node is not None else {}
+                            v = labels.get(term.topology_key)
+                            if v is None:
+                                keyless += n
+                            else:
+                                keyed.add(v)
+                        slots = min(slots, len(keyed) + keyless)
+                    viable: set[str] | None = None
+                    for term in aff_self:
+                        per_domain: dict[str, int] = {}
+                        node_domain: dict[str, str] = {}
+                        for ni, n in contributing:
+                            labels = ni.node.labels if ni.node is not None else {}
+                            v = labels.get(term.topology_key)
+                            if v is not None:
+                                per_domain[v] = per_domain.get(v, 0) + n
+                                node_domain[ni.name] = v
+                        slots = min(slots, max(per_domain.values()) if per_domain else 0)
+                        # Steer every member into a domain that can hold the
+                        # WHOLE remainder: without this the first member
+                        # binds to the best-scoring node even when its
+                        # domain is too small for the gang.
+                        fits = {
+                            name for name, v in node_domain.items()
+                            if per_domain[v] >= remaining
+                        }
+                        viable = fits if viable is None else (viable & fits)
+                    if aff_self and viable is not None:
+                        if not viable:
+                            slots = 0  # no single domain fits the remainder
+                        else:
+                            state.write(
+                                ALLOWED_HOSTS_KEY, _AllowedHosts(frozenset(viable))
+                            )
                 if slots < remaining:
                     st = Status.unschedulable(
                         f"gang {req.gang.name}: {remaining} members still "
@@ -761,9 +845,10 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
         """(assigned host, member spec) for every member with a live
         assignment — parked at Permit (reserved but unbound) OR released
         and binding, until the bind's watch event lands. Both are invisible
-        in the snapshot's per-node pod lists, so YodaPreFilter feeds their
-        resource and hostPort claims to admission, and YodaBatch refuses a
-        burst while such a claim is invisible."""
+        in the snapshot's per-node pod lists, so YodaPreFilter feeds them to
+        the inter-pod and spread evaluators and their resource, hostPort
+        and volume claims to admission, and YodaBatch refuses a burst while
+        such a claim is invisible."""
         with self._lock:
             out: list[tuple[str, PodSpec]] = []
             for gs in self._gangs.values():

@@ -25,21 +25,16 @@ Capacity simulation assumes a victim's chips return via the accountant's
 release-on-delete (plugins/yoda/accounting.py), i.e. ``reserved`` shrinks by
 the victim's effective chips immediately.
 
-Counterpart of ``yoda_tpu/plugins/yoda/preemption.py``, whole but for the
-parts of the scheduler this port does not have yet:
+Volume pins and required pod affinity make a node ineligible (eviction
+cannot cure them); CSI attach limits are simulated like chips (a victim's
+eviction detaches its volumes). PodDisruptionBudgets steer victim
+preference through ``pdbs_fn`` (the informer's budget list): victim sets
+that violate no budget win, and the eviction API stays the enforcement
+point.
 
-- No volume, CSI attach-limit or inter-pod checks (the reference's
-  ``_attach_fits``, ``_attach_possible``, ``_fits_attach_after``,
-  ``volumes_feasible`` and required pod affinity). Pods that need them are
-  refused as unresolvable by the port's PreFilter
-  (``filter_plugin.unported_constraint``), so they never reach PostFilter.
-- The Permit-parked hostPort claims come from the PreFilter's own feed
-  (``filter_plugin.get_pending_ports``): the port has no AffinityData.
-- No PodDisruptionBudget watch yet: ``pdbs_fn`` stays None, so the
-  disruption-allowance preference (``_PdbLedger``) is skipped and budgets
-  act only through refused evictions — the reference's own path when no
-  PDB watch is live.
-- No leader fencing: ``fenced_fn`` stays None.
+Counterpart of ``yoda_tpu/plugins/yoda/preemption.py``, whole but for
+leader fencing (``fenced_fn`` stays None: the port has no leader
+election) and the eviction metrics hook.
 """
 
 from __future__ import annotations
@@ -67,8 +62,10 @@ from yoda_tpu_torch.plugins.yoda.filter_plugin import (
     REQUEST_KEY,
     apparently_used_chips,
     available_chips,
-    get_pending_ports,
+    AffinityData,
+    get_affinity,
     get_request,
+    node_fits_attach_limits,
     node_fits_host_ports,
     qualifying_chips,
 )
@@ -76,10 +73,6 @@ from yoda_tpu_torch.plugins.yoda.sort import pod_priority
 from yoda_tpu_torch.plugins.yoda.topology import plan_multislice_placement
 
 log = logging.getLogger("yoda_tpu_torch.preemption")
-
-# Permit-parked hostPort claims per node (filter_plugin.get_pending_ports).
-PendingPorts = dict[str, tuple] | None
-
 
 @dataclass(frozen=True)
 class Victim:
@@ -194,17 +187,33 @@ class TpuPreemption(PostFilterPlugin):
         out.sort(key=lambda v: v.eviction_order)
         return out
 
-    def _node_eligible(self, ni: NodeInfo, req: TpuRequest, pod: PodSpec) -> bool:
+    def _node_eligible(
+        self,
+        ni: NodeInfo,
+        req: TpuRequest,
+        pod: PodSpec,
+        aff: AffinityData | None = None,
+    ) -> bool:
         """Eviction can only ever help on nodes the preemptor could pass
-        Filter on once capacity frees up: generation and cordon/taints are
+        Filter on once capacity frees up: generation, cordon/taints, volume
+        pins (a claim's selected-node/zone never changes by evicting pods)
+        and required pod affinity (eviction only removes matching pods) are
         immutable within this cycle, and a node whose non-victim floor
-        exceeds allocatable never fits. hostPort conflicts are NOT checked
-        here: eviction cures them (:meth:`_port_blockers`)."""
+        exceeds allocatable or saturates an attach limit never fits.
+        hostPort conflicts are NOT checked here: eviction cures them
+        (:meth:`_port_blockers`)."""
         return (
             ni.tpu is not None
             and ni.tpu.generation_rank >= req.min_generation_rank
             and pod_admits_on(ni.node, pod)[0]
+            and (aff is None or aff.volumes_feasible(ni)[0])
+            and (
+                aff is None
+                or aff.inter is None
+                or aff.inter.required_affinity_feasible(ni)
+            )
             and self._resources_possible(ni, req, pod)
+            and self._attach_possible(ni, req, aff)
         )
 
     def _port_blockers(
@@ -212,7 +221,7 @@ class TpuPreemption(PostFilterPlugin):
         ni: NodeInfo,
         pod: PodSpec,
         max_priority: int,
-        pending_ports: PendingPorts = None,
+        aff: AffinityData | None = None,
     ) -> "list[Victim] | None":
         """The victims whose eviction cures the preemptor's hostPort
         conflicts on this node. [] = no conflict; None = incurable: a holder
@@ -220,8 +229,8 @@ class TpuPreemption(PostFilterPlugin):
         in-flight Permit-parked placement, which cannot be evicted."""
         if not pod.host_ports:
             return []
-        if pending_ports:
-            for theirs in pending_ports.get(ni.name, ()):
+        if aff is not None and aff.pending_ports:
+            for theirs in aff.pending_ports.get(ni.name, ()):
                 if any(
                     host_ports_conflict(ours, theirs) for ours in pod.host_ports
                 ):
@@ -284,6 +293,45 @@ class TpuPreemption(PostFilterPlugin):
         ):
             return False
         return True
+
+    def _attach_fits(self, ni: NodeInfo, pods, aff: AffinityData) -> bool:
+        """node_fits_attach_limits against a hypothetical pod set (the node
+        with some victims removed). Permit-parked siblings' pending volumes
+        count exactly as the Filter path counts them
+        (AffinityData.feasible)."""
+        pend = aff.pending_volumes.get(ni.name, ()) if aff.pending_volumes else ()
+        view = NodeInfo(ni.name, tpu=ni.tpu, pods=list(pods), node=ni.node)
+        return node_fits_attach_limits(
+            aff.pv_volumes + tuple(pend), view, *aff.claim_maps
+        )[0]
+
+    def _attach_possible(
+        self, ni: NodeInfo, req: TpuRequest, aff: AffinityData | None
+    ) -> bool:
+        """Could the preemptor's CSI attach limits be satisfied after
+        evicting EVERY eligible victim? Non-victim volume holders keep their
+        attachments; if that floor alone saturates the limit, eviction is
+        waste on this node."""
+        if aff is None or not aff.pv_volumes or aff.claim_maps is None:
+            return True
+        keep = []
+        for p in ni.pods:
+            v = self._victim_of(p, ni.name)
+            if v is not None and v.priority < req.priority:
+                continue  # evictable: its attachments can be freed
+            keep.append(p)
+        return self._attach_fits(ni, keep, aff)
+
+    def _fits_attach_after(
+        self, ni: NodeInfo, chosen: "list[Victim]", aff: AffinityData | None
+    ) -> bool:
+        """Do the attach limits fit once exactly ``chosen`` are evicted?
+        _minimal_set keeps buying victims until chips, resources and
+        attachments fit (a victim's eviction detaches its volumes)."""
+        if aff is None or not aff.pv_volumes or aff.claim_maps is None:
+            return True
+        gone = {v.pod.uid for v in chosen}
+        return self._attach_fits(ni, [p for p in ni.pods if p.uid not in gone], aff)
 
     def _fits_resources_after(
         self, ni: NodeInfo, pod: PodSpec, chosen: "list[Victim]"
@@ -360,7 +408,7 @@ class TpuPreemption(PostFilterPlugin):
         needed: int,
         max_priority: int,
         pod: PodSpec,
-        pending_ports: PendingPorts = None,
+        aff: AffinityData | None = None,
         ledger: "_PdbLedger | None" = None,
     ) -> list[Victim] | None:
         """Smallest victim set making ``needed`` member slots of ``req``
@@ -368,9 +416,9 @@ class TpuPreemption(PostFilterPlugin):
         mandatory members; the rest are bought in eviction order, except
         that victims whose eviction would violate a budget are deferred
         behind every non-violating one."""
-        if not self._node_eligible(ni, req, pod):
+        if not self._node_eligible(ni, req, pod, aff):
             return None
-        blockers = self._port_blockers(ni, pod, max_priority, pending_ports)
+        blockers = self._port_blockers(ni, pod, max_priority, aff)
         if blockers is None:
             return None
         forced = {b.pod.uid for b in blockers}
@@ -406,6 +454,7 @@ class TpuPreemption(PostFilterPlugin):
             if (
                 self._avail_after(ni, req, freed) >= want
                 and self._fits_resources_after(ni, pod, chosen)
+                and self._fits_attach_after(ni, chosen, aff)
             ):
                 return chosen
         return None
@@ -453,24 +502,27 @@ class TpuPreemption(PostFilterPlugin):
             return None, Status.unschedulable(
                 f"{pod.key} has preemptionPolicy=Never; not evicting"
             )
-        pending_ports = get_pending_ports(state)
+        # Required pod-affinity domains and volume pins are immutable under
+        # eviction, so nodes failing them are never worth evicting on (the
+        # generation/cordon class of guard in _node_eligible).
+        aff = get_affinity(state)
         if req.gang is not None:
-            return self._preempt_for_gang(pod, req, snapshot, pending_ports)
-        return self._preempt_for_pod(pod, req, snapshot, pending_ports)
+            return self._preempt_for_gang(pod, req, snapshot, aff)
+        return self._preempt_for_pod(pod, req, snapshot, aff)
 
     def _preempt_for_pod(
         self,
         pod: PodSpec,
         req: TpuRequest,
         snapshot: Snapshot,
-        pending_ports: PendingPorts = None,
+        aff: AffinityData | None = None,
     ) -> tuple[str | None, Status]:
         best: tuple[tuple[int, int, int, int, str], list[Victim], str] | None = None
         with self.select_lock:
             ledger = self._ledger(snapshot)
             for ni in snapshot.infos():
                 victims = self._minimal_set(
-                    ni, req, 1, req.priority, pod, pending_ports, ledger
+                    ni, req, 1, req.priority, pod, aff, ledger
                 )
                 if not victims:
                     continue
@@ -506,7 +558,7 @@ class TpuPreemption(PostFilterPlugin):
         pod: PodSpec,
         req: TpuRequest,
         snapshot: Snapshot,
-        pending_ports: PendingPorts = None,
+        aff: AffinityData | None = None,
     ) -> tuple[str | None, Status]:
         gang = req.gang
         assert gang is not None
@@ -518,8 +570,8 @@ class TpuPreemption(PostFilterPlugin):
         remaining = max(gang.size - bound - waiting, 1)
         if gang.topology is not None:
             if waiting:
-                return self._preempt_on_planned_hosts(pod, req, snapshot, pending_ports)
-            return self._preempt_for_topology_gang(pod, req, snapshot, pending_ports)
+                return self._preempt_on_planned_hosts(pod, req, snapshot, aff)
+            return self._preempt_for_topology_gang(pod, req, snapshot, aff)
 
         # Plain gang: evict globally-cheapest victims until enough slots,
         # selection under the shared select lock.
@@ -528,13 +580,15 @@ class TpuPreemption(PostFilterPlugin):
             per_node: dict[str, list[Victim]] = {}
             slots = 0
             for ni in snapshot.infos():
-                if not self._node_eligible(ni, req, pod):
+                if not self._node_eligible(ni, req, pod, aff):
                     continue
                 # Conservative port rule for PLAIN gangs only: members share
                 # host_ports, so several can never co-land on one node and
                 # the slot math does not model forced port victims — skip
                 # conflicted nodes.
-                if not node_fits_host_ports(ni, pod, pending_ports)[0]:
+                if not node_fits_host_ports(
+                    ni, pod, aff.pending_ports if aff is not None else None
+                )[0]:
                     continue
                 slots += self._avail_after(ni, req, 0) // max(req.effective_chips, 1)
                 per_node[ni.name] = self._victims_on(ni, req.priority)
@@ -557,13 +611,14 @@ class TpuPreemption(PostFilterPlugin):
                         continue
                     ni = snapshot.get(name)
                     freed = freed_by_node.get(name, 0)
-                    base = self._member_slots_after(ni, req, freed, pod)
+                    base = self._member_slots_after(ni, req, freed, pod, aff)
                     acc, prefix = 0, []
                     for v in vs:
                         prefix.append(v)
                         acc += v.chips
                         gained = (
-                            self._member_slots_after(ni, req, freed + acc, pod) - base
+                            self._member_slots_after(ni, req, freed + acc, pod, aff)
+                            - base
                         )
                         if gained > 0:
                             # Budget violations dominate the slot price,
@@ -606,9 +661,14 @@ class TpuPreemption(PostFilterPlugin):
         )
 
     def _member_slots_after(
-        self, ni: NodeInfo, req: TpuRequest, freed: int, pod: PodSpec
+        self,
+        ni: NodeInfo,
+        req: TpuRequest,
+        freed: int,
+        pod: PodSpec,
+        aff: AffinityData | None = None,
     ) -> int:
-        if not self._node_eligible(ni, req, pod):
+        if not self._node_eligible(ni, req, pod, aff):
             return 0
         return self._avail_after(ni, req, freed) // max(req.effective_chips, 1)
 
@@ -617,7 +677,7 @@ class TpuPreemption(PostFilterPlugin):
         pod: PodSpec,
         req: TpuRequest,
         snapshot: Snapshot,
-        pending_ports: PendingPorts = None,
+        aff: AffinityData | None = None,
     ) -> tuple[str | None, Status]:
         """Mid-flight topology gang: members wait at Permit, the plan is
         frozen — evict squatters from the plan's unreserved hosts only."""
@@ -637,7 +697,7 @@ class TpuPreemption(PostFilterPlugin):
                 if h not in snapshot:
                     continue
                 vs = self._minimal_set(
-                    snapshot.get(h), req, 1, req.priority, pod, pending_ports, ledger
+                    snapshot.get(h), req, 1, req.priority, pod, aff, ledger
                 )
                 if vs is None:
                     continue
@@ -667,7 +727,7 @@ class TpuPreemption(PostFilterPlugin):
         pod: PodSpec,
         req: TpuRequest,
         snapshot: Snapshot,
-        pending_ports: PendingPorts = None,
+        aff: AffinityData | None = None,
     ) -> tuple[str | None, Status]:
         gang = req.gang
         assert gang is not None and gang.topology is not None
@@ -687,7 +747,7 @@ class TpuPreemption(PostFilterPlugin):
         def host_ok(ni: NodeInfo) -> bool:
             if ni.name not in sets:
                 sets[ni.name] = self._minimal_set(
-                    ni, req, 1, req.priority, pod, pending_ports, ledger
+                    ni, req, 1, req.priority, pod, aff, ledger
                 )
             return sets[ni.name] is not None
 

@@ -10,7 +10,10 @@ scan for joint gang passes) → Reserve on ``ChipAccountant`` → Permit (the
 gang barrier) → bind, with the gang plugin watching pods and hosts
 (delete fast path, host-death marks, restart reconstruction), and
 PostFilter preemption (``TpuPreemption``, on by default: evictions through
-``FakeCluster.evict_pod``, nominations written to pod status). Left out
+``FakeCluster.evict_pod``, nominations written to pod status, victim
+preference by the informer's PodDisruptionBudgets). The informer watches
+Namespaces, PersistentVolumeClaims, PersistentVolumes and budgets as the
+cluster offers them, and their events reactivate parked pods. Left out
 until a later slice: the speculative placement cache, node health, the
 rebalancer, the reconciler, the bind executor (binds run inline), tracing
 / metrics / SLO / overload (so preemption has no eviction counter hook),
@@ -21,12 +24,15 @@ A knob of such a subsystem loads (``config.SchedulerConfig`` keeps every
 knob of the reference), but ``build_stack`` raises ``NotImplementedError``
 naming it when it is set away from its default — except to the value that
 turns the subsystem off, which is what this port already does
-(``UNPORTED_KNOB_VALUES``).
+(``UNPORTED_KNOB_VALUES``). Where the default turns such a part ON (the
+reference builds it), ``build_stack`` logs one warning naming every such
+part and lists them in ``Stack.not_built``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import threading
 import time
 from dataclasses import dataclass
@@ -45,6 +51,8 @@ from yoda_tpu_torch.plugins.yoda import (
 )
 from yoda_tpu_torch.plugins.yoda.accounting import ChipAccountant
 from yoda_tpu_torch.plugins.yoda.binder import ClusterBinder
+
+log = logging.getLogger("yoda_tpu_torch.standalone")
 
 # Knobs this port honours, at any valid value.
 PORTED_KNOBS = frozenset(
@@ -67,18 +75,19 @@ PORTED_KNOBS = frozenset(
 
 # Every other knob belongs to a part this port does not have yet; it must
 # keep its default or take one of these values, each of which switches
-# that part off (the port's behaviour either way).
+# that part off (the port's behaviour either way). Each is listed with the
+# part it turns on, for ``Stack.not_built``.
 UNPORTED_KNOB_VALUES = {
-    "bind_workers": (0,),
-    "bind_pipeline": ("off",),
-    "reconcile_period_s": (0,),
-    "rebalance_period_s": (0,),
-    "spec_enabled": (False,),
-    "node_repair": (False,),
-    "node_health_period_s": (0,),
-    "trace_sample_rate": (0,),
-    "slo_enabled": (False,),
-    "overload_period_s": (0,),
+    "bind_workers": ("bind executor", (0,)),
+    "bind_pipeline": ("bind pipeline", ("off",)),
+    "reconcile_period_s": ("reconciler", (0,)),
+    "rebalance_period_s": ("rebalancer", (0,)),
+    "spec_enabled": ("speculative placement cache", (False,)),
+    "node_repair": ("node repair", (False,)),
+    "node_health_period_s": ("node health monitor", (0,)),
+    "trace_sample_rate": ("tracing", (0,)),
+    "slo_enabled": ("SLO engine", (False,)),
+    "overload_period_s": ("overload controller", (0,)),
 }
 
 
@@ -92,10 +101,20 @@ def unported_settings(config: SchedulerConfig) -> list[str]:
         value = getattr(config, f.name)
         if value == getattr(default, f.name):
             continue
-        if value in UNPORTED_KNOB_VALUES.get(f.name, ()):
+        if value in UNPORTED_KNOB_VALUES.get(f.name, ("", ()))[1]:
             continue
         out.append(f"{f.name}={value!r}")
     return out
+
+
+def not_built_parts(config: SchedulerConfig) -> tuple[str, ...]:
+    """The parts ``config`` turns on (the reference would build them) that
+    this port does not build, each named with its knob."""
+    return tuple(
+        f"{part} ({knob}={getattr(config, knob)!r})"
+        for knob, (part, off) in UNPORTED_KNOB_VALUES.items()
+        if getattr(config, knob) not in off
+    )
 
 
 @dataclass
@@ -111,6 +130,9 @@ class Stack:
     gang: GangPlugin
     # None when config.enable_preemption is off.
     preemption: TpuPreemption | None = None
+    # Parts the config turns on that this port does not build
+    # (not_built_parts); build_stack logs them once.
+    not_built: tuple[str, ...] = ()
 
 
 def build_stack(
@@ -133,6 +155,13 @@ def build_stack(
     if unported:
         raise NotImplementedError(
             "not yet ported to yoda_tpu_torch: " + ", ".join(unported)
+        )
+    not_built = not_built_parts(config)
+    if not_built:
+        log.warning(
+            "build_stack: the config turns on parts this port does not build, "
+            "so they do not run: %s",
+            ", ".join(not_built),
         )
     accountant = ChipAccountant(scheduler_name=config.scheduler_name)
     gang = GangPlugin(
@@ -190,9 +219,21 @@ def build_stack(
 
     def _reactivates(event: Event) -> bool:
         # New/changed TPU metrics may make parked pods schedulable; pod
-        # deletions free chips; Node changes re-open hosts. Binds already
-        # reactivate via the scheduler.
-        return event.kind in ("TpuNodeMetrics", "Node") or event.type == "deleted"
+        # deletions free chips; Node changes re-open hosts; Namespace label
+        # changes can open namespaceSelector scopes; a claim or volume
+        # appearing (or changing) re-resolves pods parked on it. Binds
+        # already reactivate via the scheduler.
+        return (
+            event.kind
+            in (
+                "TpuNodeMetrics",
+                "Node",
+                "Namespace",
+                "PersistentVolumeClaim",
+                "PersistentVolume",
+            )
+            or event.type == "deleted"
+        )
 
     def on_change_batch(events: "list[Event]") -> None:
         """ONE reactivation decision per applied batch; a pod deleted while
@@ -209,8 +250,19 @@ def build_stack(
         scheduler_name=config.scheduler_name,
         on_pod_pending=queue.add,
         on_change_batch=on_change_batch,
+        # A backend with a claim / volume / budget surface enforces them
+        # (an empty store then means "none exist"); without one, volume
+        # constraints are not enforced and budgets act only through
+        # refused evictions.
+        watches_pvcs=hasattr(cluster, "put_pvc"),
+        watches_pvs=hasattr(cluster, "put_pv"),
+        watches_pdbs=hasattr(cluster, "put_pdb"),
         staleness_s=config.max_metrics_age_s,
     )
+    if preemption is not None:
+        # Victim preference reads the informer's budget cache (None until a
+        # budget watch is live).
+        preemption.pdbs_fn = informer.list_pdbs
     (batch,) = framework.batch_plugins
     batch.claimed_fn = informer.claimed_hbm_mib
     batch.claimed_map_fn = informer.claimed_hbm_mib_map
@@ -243,5 +295,5 @@ def build_stack(
     )
     return Stack(
         cluster, informer, accountant, framework, queue, scheduler, binder,
-        batch, gang, preemption,
+        batch, gang, preemption, not_built,
     )
