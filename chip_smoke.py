@@ -121,12 +121,46 @@ Phases, each of which makes the script exit non-zero when it fails:
    p50/p99, host ms per call of the evaluator builds, of the admission row
    with an AffinityData and of the preference bonus, PostFilter ms,
    fleet_eval's device ms at K = 1 on an input of the run, and the parts
-   build_stack did not build (Stack.not_built). Last, a fleet of 40-chip
+   build_stack did not build (Stack.not_built). Then a fleet of 40-chip
    and 8-chip hosts (the wide kernel on the main path) at K = 1 and 16
-   must bind as on the CPU.
+   must bind as on the CPU. Last, run (h), the background path on the
+   5,000-node fleet (``run_background``, ``BACKGROUND_FULL``; the tests
+   run ``BACKGROUND_SMALL``):
+   (h1) 256 v5e singletons of 1, 2, 4 and 8 chips at K = 1 in 16 waves of
+       16, one ``speculate_once`` before each: the speculative cache's
+       private TorchFleetKernel evaluates on its own CUDA stream and the
+       serve path binds hot shapes from its plans. Printed: hits, misses,
+       invalidations, ms per speculate_once, ms per consumed plan's bind,
+       pods/s and p50/p99, the private kernel's launches, and fleet_eval
+       at K = 1 on the private stream alone and while a second thread
+       launches what the serve path launches on the default stream
+       (fleet_eval at K = 16, joint_fit on 64 x 8,192 rows): device ms
+       and overlap in time from a profiler window of each, both threads'
+       results held against the plain version;
+   (h2) 64 v5e hosts filled at priority 1, 1x1x1 topology gangs on 4 v5p
+       slices with each slice's diagonal deleted, an elastic gang (min 4,
+       max 16, size 8) and a parked priority-100 gang of 16 x 8 chips in
+       a stack with preemption off: ``resync`` and ``run_once`` until a
+       pass changes nothing (preemption, resize and repack moves);
+   (h3) a stack rebuilt over (h2)'s cluster with a half-bound gang left
+       by the dead leader (adopted, completes), then a ghost binding, a
+       dropped deletion and a leaked claim for the drift pass;
+   (h4) ``run_forever`` on a second thread (1 s passes, 50 ms speculation
+       ticks) while the main thread serves 256 singletons and four plain
+       gangs (two joint passes of two gangs) at K = 16 over about 4 s:
+       invariants only (capacity, accounting, whole gangs, every consumed
+       plan's node admits its pod, both threads launched fleet_eval and
+       the serve thread joint_fit, counted per kernel object from zero
+       just before the window, no error logged).
+   (h1)-(h3) must equal the same script on kernel_platform "cpu" in
+   bindings, plans, counters and reports; that CPU run goes on in a
+   second process (two threads), started once the kernels are built, so
+   it overlaps the card's phases. (h4) runs on the card only.
 4. One line {"kernels": [...]} with each kernel's launches over every run
-   above, its largest difference from the plain version and its times
-   ("not measured" where the profiler saw no device activity).
+   above (run (h)'s also by part, and the speculation thread's apart),
+   its largest difference from the plain version and its times ("not
+   measured" where the profiler saw no device activity). Before it, one
+   line of each phase's wall seconds.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits non-zero and prints no result.
@@ -134,6 +168,7 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -736,19 +771,21 @@ def build_fleet(
     node_fn=None,
     slices: int = 512,
     v5e_hosts: int = 2952,
+    **knobs,
 ):
     """The 5,000-node fleet's stack and its agent: 512 v5p 2x2x1 slices and
     2,952 v5e hosts, published by the port's FakeTpuAgent. With ``pools``
     every host gets a Node object, labelled pool=<its pool> where ``pools``
     names it; with ``node_fn`` every host gets ``node_fn(name)``. Smaller
-    fleets for the card tests through ``slices`` and ``v5e_hosts``."""
+    fleets for the card tests through ``slices`` and ``v5e_hosts``; other
+    SchedulerConfig knobs through ``knobs``."""
     from yoda_tpu_torch.agent.fake_publisher import FakeTpuAgent
     from yoda_tpu_torch.api.types import K8sNode
     from yoda_tpu_torch.config import SchedulerConfig
     from yoda_tpu_torch.standalone import build_stack
 
     stack = build_stack(
-        config=SchedulerConfig(kernel_platform=platform, batch_requests=burst)
+        config=SchedulerConfig(kernel_platform=platform, batch_requests=burst, **knobs)
     )
     agent = FakeTpuAgent(stack.cluster)
     hosts = []
@@ -2191,167 +2228,926 @@ def phase_wide_fleet(smi: str) -> list[dict]:
     return out
 
 
+# Run (h): the background path on the 5,000-node fleet — the speculative
+# placement cache, the rebalancer, the reconciler, and all of them on a
+# second thread while the serve loop runs. The smaller size is the tests'
+# copy of the same script.
+BACKGROUND_FULL = dict(slices=512, v5e_hosts=2952, waves=16, wave=16, pool=64,
+                       frag_slices=4, gang=16, threaded_pods=256, threaded_s=4.0,
+                       period_s=1.0)
+BACKGROUND_SMALL = dict(slices=16, v5e_hosts=96, waves=4, wave=8, pool=24,
+                        frag_slices=4, gang=4, threaded_pods=32, threaded_s=1.0,
+                        period_s=0.1)
+# (h1)'s four hot shapes: v5e pods of 1, 2, 4 and 8 chips.
+HOT_SHAPES = (1, 2, 4, 8)
+
+
+def hot_pod(name: str, chips: int):
+    from yoda_tpu_torch.api.types import PodSpec
+
+    return PodSpec(name, labels={"tpu/chips": str(chips), "tpu/generation": "v5e"})
+
+
+def singleton_latencies(stack, names: "list[str]") -> list[float]:
+    """Sorted seconds from each bound singleton's first cycle start to its
+    bind (bind_latencies over pods without gang labels)."""
+    labels = {n: stack.cluster.get_pod(f"default/{n}").labels for n in names}
+    return bind_latencies(stack.scheduler.stats.results, labels,
+                          bindings_of(stack, names))[0]
+
+
+def over_capacity(stack) -> list[str]:
+    capacity = {
+        t.name: sum(c.healthy for c in t.chips) for t in stack.cluster.list_tpu_metrics()
+    }
+    return [h for h, c in capacity.items() if stack.accountant.chips_in_use(h) > c]
+
+
+def accounting_gap(stack) -> dict:
+    """Nodes whose reserved chips differ from the chips of their bound pods."""
+    from yoda_tpu_torch.api.requests import pod_request
+
+    bound: dict[str, int] = {}
+    for p in stack.cluster.list_pods():
+        if p.node_name:
+            bound[p.node_name] = bound.get(p.node_name, 0) + pod_request(p).effective_chips
+    held = {n: c for n, c in stack.accountant.chips_by_node().items() if c}
+    return {n: (held.get(n, 0), bound.get(n, 0))
+            for n in set(held) | set(bound) if held.get(n, 0) != bound.get(n, 0)}
+
+
+def update_rows_device_ms(spec, rows: int = 64, calls: int = 20) -> dict:
+    """The private mirror's ``update_rows`` on its own stream: device ms per
+    call of ``rows`` rows (its index_copy_ pair; the pinned upload is a
+    copy, counted apart) from a profiler window over ``calls`` calls, and
+    the host's ms per call by CUDA events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    kern, arrays = spec.kernel, spec._fleet.arrays
+    picked = list(range(0, min(rows * 37, len(arrays.names)), 37))[:rows]
+    with torch.cuda.stream(spec._stream):
+        kern.update_rows(arrays, picked)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                kern.update_rows(arrays, picked)
+            torch.cuda.synchronize()
+        host_ms = cuda_ms(lambda: kern.update_rows(arrays, picked))
+    kernel_us = copy_us = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        total = getattr(evt, "self_device_time_total", None)
+        if total is None:
+            total = evt.self_cuda_time_total
+        if evt.key.startswith("Memcpy"):
+            copy_us += total
+        else:
+            kernel_us += total
+    if not kernel_us:
+        return dict(rows=len(picked), device_ms=None, copy_ms=None, ms=host_ms)
+    return dict(rows=len(picked), device_ms=kernel_us / calls / 1e3,
+                copy_ms=copy_us / calls / 1e3, ms=host_ms)
+
+
+def stream_kernels(prof, kernel: str) -> "dict[int, list[tuple[int, int]]]":
+    """(start, end) ns of every device record of ``kernel`` in a profiler
+    window, by the stream the tracer saw it on."""
+    from torch.autograd import DeviceType
+
+    out: dict[int, list[tuple[int, int]]] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and kernel in e.name():
+            start = e.start_ns()
+            out.setdefault(e.device_resource_id(), []).append((start, start + e.duration_ns()))
+    return out
+
+
+def concurrent_eval(stack, spec, spec_inputs, calls: int = 40) -> dict:
+    """fleet_eval at K = 1 on the speculation cache's stream, alone and while
+    a second thread launches, in a loop on the default stream, what the
+    serve path launches: fleet_eval at K = 16 and joint_fit on run (c)'s
+    seeded 64 x 8,192 rows (JOINT_MAIN_SHAPE, one cluster of up to 16
+    blocks). CUDA-event ms per call on the private stream (from the host's
+    enqueue to the kernel's end: a wait for the card's SMs, or for the
+    interpreter lock the other thread holds, shows there); from a profiler
+    window of each, the private kernel's own device ms and how many of its
+    launches overlapped a serve-stream fleet_eval or joint_fit in time; and
+    every result of both threads held against the plain version of the
+    same inputs."""
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from yoda_tpu_torch.ops.cuda_kernel import fleet_eval, joint_fit
+    from yoda_tpu_torch.ops.kernel import joint_fit_scan, kernel_packed_burst, pack_request
+
+    kern = spec.kernel
+    dyn, request = spec_inputs
+    dev = kern.device
+    d_dyn = torch.from_numpy(np.ascontiguousarray(dyn)).to(dev)
+    spec_args = (kern._chips, kern._nodes, d_dyn, d_dyn[3:4].contiguous(),
+                 torch.from_numpy(pack_request(request)[None]).to(dev), kern.weights)
+    serve = stack.batch._kern
+    rng = np.random.default_rng(7)
+    n = serve._chips.shape[2]
+    host_ok = (rng.random((16, n)) < 0.5).astype(np.int32)
+    reqs = REQUEST_TABLE[rng.integers(0, len(REQUEST_TABLE), 16)]
+    serve_dyn = np.ascontiguousarray(dyn)
+    serve_args = (serve._chips, serve._nodes, torch.from_numpy(serve_dyn).to(dev),
+                  torch.from_numpy(host_ok).to(dev), torch.from_numpy(reqs).to(dev),
+                  serve.weights)
+    k, jn = JOINT_MAIN_SHAPE
+    joint_args = tuple(torch.from_numpy(x).to(dev)
+                       for x in joint_case(k, jn, seed=k * 7 + jn))
+    plain = [kernel_packed_burst(*(t.cpu() if torch.is_tensor(t) else t for t in args))
+             for args in (spec_args, serve_args)]
+    packed_cpu = joint_args[0].cpu()
+    plain_joint = [w.to(torch.int32) for w in joint_fit_scan(
+        packed_cpu[:, 0], packed_cpu[:, 3], packed_cpu[:, 5],
+        *(t.cpu() for t in joint_args[1:]))]
+    bad: list[str] = []
+
+    def timed(label: str) -> float:
+        times = []
+        with torch.cuda.stream(spec._stream):
+            for _ in range(calls):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fleet_eval(*spec_args)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+                if not torch.equal(out.cpu(), plain[0]):
+                    bad.append(label)
+        return statistics.median(times)
+
+    alone = timed("alone")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        timed("alone, profiled")
+    alone_kernels = [iv for ivs in stream_kernels(prof, "fleet_eval").values() for iv in ivs]
+    stop = threading.Event()
+    serve_calls = [0]
+    errors: list[BaseException] = []
+
+    def serve_loop():
+        try:
+            while not stop.is_set():
+                out = fleet_eval(*serve_args)
+                got = joint_fit(*joint_args)
+                torch.cuda.current_stream(dev).synchronize()
+                if not torch.equal(out.cpu(), plain[1]):
+                    bad.append("serve thread fleet_eval")
+                if not all(torch.equal(g.cpu(), w) for g, w in zip(got, plain_joint)):
+                    bad.append("serve thread joint_fit")
+                serve_calls[0] += 1
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    thread = threading.Thread(target=serve_loop, daemon=True)
+    thread.start()
+    try:
+        time.sleep(0.05)
+        before = serve_calls[0]
+        concurrent = timed("concurrent")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            timed("concurrent, profiled")
+        during = serve_calls[0] - before
+    finally:
+        stop.set()
+        thread.join(timeout=30)
+    by_stream = stream_kernels(prof, "fleet_eval")
+    joints = [iv for ivs in stream_kernels(prof, "joint_fit").values() for iv in ivs]
+    if thread.is_alive() or errors or bad or not during:
+        raise AssertionError(
+            f"concurrent fleet_eval: alive {thread.is_alive()}, errors {errors}, "
+            f"serve-thread passes during the windows {during}, results that "
+            f"differ from the plain version: {sorted(set(bad))}"
+        )
+    # The private stream is the one whose kernels ran alone at K = 1: its
+    # records are the shortest. The other stream's are the serve thread's.
+    private = min(by_stream, default=None,
+                  key=lambda s: statistics.mean(b - a for a, b in by_stream[s]))
+    mine = by_stream.get(private, [])
+    theirs = [iv for s, ivs in by_stream.items() if s != private for iv in ivs]
+
+    def device_ms(ivs):
+        return statistics.mean(b - a for a, b in ivs) / 1e6 if ivs else None
+
+    def overlapping(others):
+        return sum(any(a < d and c < b for c, d in others) for a, b in mine)
+
+    return dict(
+        alone_ms=alone, concurrent_ms=concurrent, calls=calls,
+        serve_thread_calls=serve_calls[0], serve_thread_calls_in_windows=during,
+        alone_device_ms=device_ms(alone_kernels), profiled_alone=len(alone_kernels),
+        concurrent_device_ms=device_ms(mine),
+        serve_device_ms=device_ms(theirs), joint_fit_device_ms=device_ms(joints),
+        profiled_private=len(mine), profiled_serve=len(theirs),
+        profiled_joint_fit=len(joints), streams=len(by_stream),
+        overlapped=overlapping(theirs), overlapped_joint_fit=overlapping(joints),
+    )
+
+
+def run_speculation(platform: str, size: dict) -> dict:
+    """(h1): hot-shape singletons at K = 1 in ``waves`` waves of ``wave``,
+    one speculate_once before each; after each wave the agent republishes
+    the hosts it bound (their usage becomes metrics-visible: both mirrors
+    take delta syncs, the private one with update_rows on its stream).
+    Bindings, every tick's plans, the cache's counters, times and the
+    private kernel's launches."""
+    from yoda_tpu_torch.ops import cuda_kernel
+    from yoda_tpu_torch.ops import kernel as kernel_mod
+
+    stack, agent = build_fleet(platform, 1, slices=size["slices"],
+                               v5e_hosts=size["v5e_hosts"])
+    spec = stack.speculation
+    rng = np.random.default_rng(8)
+    bind_ms: list[float] = []
+    spec.bind_observe = bind_ms.append
+    kept: list = []
+    inner_evaluate = spec.kernel.evaluate
+
+    def kept_evaluate(dyn, request):
+        kept[:] = [(np.array(dyn), request)]
+        return inner_evaluate(dyn, request)
+
+    spec.kernel.evaluate = kept_evaluate
+    cuda_kernel.launches = cuda_kernel.joint_fit_launches = 0
+    kernel_mod.row_update_launches = 0
+    tick_ms, plans, names = [], [], []
+    t0 = time.monotonic()
+    for w in range(size["waves"]):
+        t = time.perf_counter()
+        produced = spec.speculate_once()
+        if platform != "cpu":
+            torch.cuda.synchronize()
+        tick_ms.append(1e3 * (time.perf_counter() - t))
+        plans.append((produced, sorted(
+            (int(k[1].number), p.node, p.base_reserved) for k, p in spec._plans.items()
+        )))
+        wave = []
+        for i in range(size["wave"]):
+            wave.append(f"sp{w:02d}-{i:02d}")
+            stack.cluster.create_pod(hot_pod(wave[-1], int(rng.choice(HOT_SHAPES))))
+        stack.scheduler.run_until_idle(max_wall_s=300)
+        names += wave
+        for host in sorted({stack.cluster.get_pod(f"default/{n}").node_name for n in wave}):
+            agent.refresh(host)
+    if platform != "cpu":
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    lat = singleton_latencies(stack, names)
+    out = dict(
+        platform=platform, pods=len(names), bindings=bindings_of(stack, names),
+        plans=plans, stats=spec.stats(),
+        launches=cuda_kernel.launches, spec_launches=spec.kernel.launches,
+        spec_row_updates=spec.kernel.row_updates,
+        serve_launches=stack.batch._kern.launches,
+        row_update_launches=kernel_mod.row_update_launches,
+        dispatch_count=stack.batch.dispatch_count, dispatch_errors=stack.batch.dispatch_errors,
+        spec_restacks=spec._fleet.restacks, spec_delta_syncs=spec._fleet.delta_syncs,
+        overcommitted=over_capacity(stack), accounting_gap=accounting_gap(stack),
+        speculate_ms_median=statistics.median(tick_ms),
+        speculate_ms_max=max(tick_ms),
+        spec_bind_ms_median=statistics.median(bind_ms) if bind_ms else None,
+        spec_bind_ms_max=max(bind_ms, default=None),
+        wall_s=wall, pods_per_s=len(lat) / wall if wall else 0.0,
+        p50_ms=pct_ms(lat, 0.5), p99_ms=pct_ms(lat, 0.99),
+    )
+    spec.kernel.evaluate = inner_evaluate
+    if platform != "cpu" and kept:
+        out["update_rows"] = update_rows_device_ms(spec)
+        out["concurrent"] = concurrent_eval(stack, spec, kept[0])
+    return out
+
+
+def rebalance_layout(size: dict) -> "tuple[dict[str, str], list[str]]":
+    """(h2)'s pools: ``pool`` v5e hosts (rb-e), and the hosts of
+    ``frag_slices`` v5p slices (rb-p, in slice order)."""
+    step = max(size["v5e_hosts"] // size["pool"], 1)
+    pools = {f"v5e-{h * step:04d}": "rb-e" for h in range(size["pool"])}
+    frag = [f"v5p-{s * (size['slices'] // size['frag_slices']):03d}-{i}"
+            for s in range(size["frag_slices"]) for i in range(4)]
+    pools.update({h: "rb-p" for h in frag})
+    return pools, frag
+
+
+def run_rebalance(platform: str, size: dict):
+    """(h2): the rb-e pool filled at priority 1, 1x1x1 topology gangs on
+    the rb-p slices with the gangs on each slice's diagonal deleted (two
+    free islands a slice), an elastic gang (min 4, max 16, size 8; 16
+    members), both at priority 5, and a parked priority-100 plain gang of
+    ``gang`` x 8 chips on rb-e (preemption off in this stack: only the
+    rebalancer can admit it, through at most 32 victims); then
+    resync and rebalance passes until one changes nothing. Returns the run
+    and its stack (the reconciler run rebuilds a stack over its cluster)."""
+    from yoda_tpu_torch.api.types import PodSpec
+    from yoda_tpu_torch.ops import cuda_kernel
+    from yoda_tpu_torch.ops import kernel as kernel_mod
+
+    pools, frag = rebalance_layout(size)
+    stack, _agent = build_fleet(
+        platform, 16, pools=pools, slices=size["slices"], v5e_hosts=size["v5e_hosts"],
+        enable_preemption=False, rebalance_max_victims=32, rebalance_min_gain=1e-4,
+    )
+    cuda_kernel.launches = cuda_kernel.joint_fit_launches = 0
+    kernel_mod.row_update_launches = 0
+    names: list[str] = []
+
+    def create(pods, selector=None):
+        for name, labels in pods:
+            names.append(name)
+            stack.cluster.create_pod(
+                PodSpec(name, labels=dict(labels), node_selector=selector or {})
+            )
+        stack.scheduler.run_until_idle(max_wall_s=300)
+
+    create([(f"fill{i:03d}", {"tpu/chips": "8", "tpu/priority": "1"})
+            for i in range(size["pool"])], {"pool": "rb-e"})
+    create([(f"t{i:02d}-0", {"tpu/gang": f"t{i:02d}", "tpu/topology": "1x1x1",
+                             "tpu/chips": "4", "tpu/priority": "5"})
+            for i in range(len(frag))],
+           {"pool": "rb-p"})
+    diagonal = {h for h in frag if h.endswith(("-0", "-3"))}
+    for p in list(stack.cluster.list_pods()):
+        if p.name.startswith("t") and p.node_name in diagonal:
+            stack.cluster.delete_pod(p.key)
+    stack.scheduler.run_until_idle(max_wall_s=60)
+    create([(f"el-{i:02d}", {"tpu/gang": "el", "tpu/gang-size": "8",
+                             "tpu/min-members": "4", "tpu/max-members": "16",
+                             "tpu/chips": "4", "tpu/generation": "v5e",
+                             "tpu/priority": "5"})
+            for i in range(16)])
+    create([(f"hi-{i:02d}", {"tpu/gang": "hi", "tpu/gang-size": str(size["gang"]),
+                             "tpu/chips": "8", "tpu/priority": "100"})
+            for i in range(size["gang"])], {"pool": "rb-e"})
+    parked = sum(stack.cluster.get_pod(f"default/hi-{i:02d}").node_name is None
+                 for i in range(size["gang"]))
+    t = time.perf_counter()
+    resync = stack.reconciler.resync()
+    resync_ms = 1e3 * (time.perf_counter() - t)
+    passes, pass_ms, admitted_at = [], [], None
+    for _ in range(12):
+        t_clock = stack.scheduler.clock()
+        t = time.perf_counter()
+        report = stack.rebalancer.run_once()
+        pass_ms.append(1e3 * (time.perf_counter() - t))
+        view = dataclasses.asdict(report)
+        passes.append(view)
+        if report.admitted_gangs and admitted_at is None:
+            admitted_at = t_clock
+        stack.scheduler.run_until_idle(max_wall_s=300)
+        if not (report.moves or report.aborted_moves or report.preempted or report.resizes):
+            break
+    if platform != "cpu":
+        torch.cuda.synchronize()
+    hi_done = [r.completed_at for r in stack.scheduler.stats.results
+               if r.pod_key.startswith("default/hi-") and r.node is not None
+               and r.outcome in ("bound", "waiting")]
+    bound = bindings_of(stack, names)
+    hi_bound = sum(bound[f"hi-{i:02d}"] is not None for i in range(size["gang"]))
+    out = dict(
+        platform=platform, pods=len(names), bindings=bound, passes=passes,
+        resync=dataclasses.asdict(resync) | {"duration_ms": None},
+        resync_ms=resync_ms, pass_ms=pass_ms, parked_before=parked, hi_bound=hi_bound,
+        el_bound=sum(bound[f"el-{i:02d}"] is not None for i in range(16)),
+        effective_el=stack.gang.effective_size("el"),
+        gang_completion_ms=(1e3 * (max(hi_done) - admitted_at)
+                            if admitted_at is not None and hi_done else None),
+        unbinds=stack.binder.unbinds, launches=cuda_kernel.launches,
+        joint_fit_launches=cuda_kernel.joint_fit_launches,
+        row_update_launches=kernel_mod.row_update_launches,
+        dispatch_count=stack.batch.dispatch_count, dispatch_errors=stack.batch.dispatch_errors,
+        overcommitted=over_capacity(stack), accounting_gap=accounting_gap(stack),
+        waiting=len(stack.framework.waiting_pods()),
+    )
+    return out, stack
+
+
+def run_reconcile(platform: str, size: dict, cluster) -> dict:
+    """(h3): the leader that ran (h2) dies with a plain gang half bound (2 of
+    4 members bound, written to the cluster as its last act); a new stack
+    is built over the same cluster, resyncs (the gang is adopted and
+    completes), and after a ghost binding, a dropped deletion and a leaked
+    claim the drift pass repairs them. Both reports and each pass's ms."""
+    from yoda_tpu_torch.api.types import PodSpec
+    from yoda_tpu_torch.config import SchedulerConfig
+    from yoda_tpu_torch.ops import cuda_kernel
+    from yoda_tpu_torch.ops import kernel as kernel_mod
+    from yoda_tpu_torch.standalone import build_stack
+
+    cuda_kernel.launches = cuda_kernel.joint_fit_launches = 0
+    kernel_mod.row_update_launches = 0
+
+    def free_hosts(n: int) -> list[str]:
+        held = {p.node_name for p in cluster.list_pods() if p.node_name}
+        return [f"v5e-{h:04d}" for h in range(size["v5e_hosts"] - 1, 0, -1)
+                if f"v5e-{h:04d}" not in held][:n]
+
+    free = free_hosts(2)
+    labels = {"tpu/gang": "orphan", "tpu/gang-size": "4", "tpu/chips": "8",
+              "tpu/generation": "v5e"}
+    for i in range(4):
+        pod = PodSpec(f"orphan-{i}", labels=dict(labels))
+        if i < 2:
+            pod.node_name, pod.phase = free[i], "Running"
+        cluster.create_pod(pod)
+    t = time.perf_counter()
+    stack = build_stack(cluster=cluster, config=SchedulerConfig(
+        kernel_platform=platform, batch_requests=16, enable_preemption=False))
+    build_ms = 1e3 * (time.perf_counter() - t)
+    t = time.perf_counter()
+    resync = stack.reconciler.resync()
+    resync_ms = 1e3 * (time.perf_counter() - t)
+    stack.scheduler.run_until_idle(max_wall_s=300)
+    orphan = {f"orphan-{i}": stack.cluster.get_pod(f"default/orphan-{i}").node_name
+              for i in range(4)}
+    free = free_hosts(2)
+    ghost = PodSpec("ghost", labels={"tpu/chips": "8", "tpu/generation": "v5e"})
+    ghost.node_name, ghost.phase = free[0], "Running"
+    dropped = next(p for p in cluster.list_pods()
+                   if p.node_name and p.name.startswith("fill"))
+    cluster.suppress_kinds.add("Pod")
+    try:
+        cluster.create_pod(ghost)
+        cluster.delete_pod(dropped.key)
+    finally:
+        cluster.suppress_kinds.clear()
+    stack.accountant._claim("leaked-uid", free[1], 8)
+    t = time.perf_counter()
+    drift = stack.reconciler.reconcile()
+    reconcile_ms = 1e3 * (time.perf_counter() - t)
+    stack.scheduler.run_until_idle(max_wall_s=60)
+    return dict(
+        platform=platform, orphan=orphan, dropped=dropped.name,
+        resync=dataclasses.asdict(resync) | {"duration_ms": None},
+        drift=dataclasses.asdict(drift), build_ms=build_ms, resync_ms=resync_ms,
+        reconcile_ms=reconcile_ms, overcommitted=over_capacity(stack),
+        accounting_gap=accounting_gap(stack), launches=cuda_kernel.launches,
+        joint_fit_launches=cuda_kernel.joint_fit_launches,
+        row_update_launches=kernel_mod.row_update_launches,
+    )
+
+
+def run_threaded(platform: str, size: dict) -> dict:
+    """(h4): the rebalancer's run_forever on a second thread (passes every
+    ``period_s``, 50 ms speculation ticks) while the main thread serves
+    ``threaded_pods`` hot-shape singletons at K = 16 in 16 waves over about
+    ``threaded_s`` seconds, and in two of the waves two plain gangs each,
+    which the serve path places in one joint pass (fleet_eval, then
+    joint_fit). Every kernel object's launch counts are zeroed just before
+    the window. Invariants only: timing decides who wins a race, so the
+    bindings are not compared with any other run."""
+    import logging
+    import threading
+
+    from yoda_tpu_torch.api.types import PodSpec, pod_admits_on
+    from yoda_tpu_torch.ops import cuda_kernel
+    from yoda_tpu_torch.ops import kernel as kernel_mod
+
+    stack, _agent = build_fleet(platform, 16, slices=size["slices"],
+                                v5e_hosts=size["v5e_hosts"])
+    spec, rb = stack.speculation, stack.rebalancer
+    errors: list[str] = []
+
+    class Errors(logging.Handler):
+        def emit(self, record):
+            errors.append(record.getMessage())
+
+    handler = Errors(level=logging.ERROR)
+    logging.getLogger("yoda_tpu_torch").addHandler(handler)
+    consumed: list = []
+    inner_revalidate = spec.revalidate
+
+    def noted_revalidate(plan, pod, snapshot):
+        ok = inner_revalidate(plan, pod, snapshot)
+        if ok:
+            consumed.append((pod, plan.node))
+        return ok
+
+    spec.revalidate = noted_revalidate
+    rng = np.random.default_rng(9)
+    names = []
+    for i in range(16):  # warm: the shapes are seen, the fleet is resident
+        names.append(f"warm{i:02d}")
+        stack.cluster.create_pod(hot_pod(names[-1], int(rng.choice(HOT_SHAPES))))
+    stack.scheduler.run_until_idle(max_wall_s=300)
+    stack.reconciler.resync()
+    serve = stack.batch._kern
+    for kern in (serve, spec.kernel):
+        kern.launches = kern.joint_fit_launches = kern.row_updates = 0
+    cuda_kernel.launches = cuda_kernel.joint_fit_launches = 0
+    kernel_mod.row_update_launches = 0
+    stop = threading.Event()
+    thread = threading.Thread(
+        target=rb.run_forever, args=(stop,),
+        kwargs={"period_s": size["period_s"], "spec_period_s": 0.05}, daemon=True,
+    )
+    per_wave = size["threaded_pods"] // 16
+    gang_waves = {5: ("tg0", "tg1"), 11: ("tg2", "tg3")}
+    t0 = time.monotonic()
+    thread.start()
+    try:
+        for w in range(16):
+            for i in range(per_wave):
+                names.append(f"th{w:02d}-{i:02d}")
+                stack.cluster.create_pod(hot_pod(names[-1], int(rng.choice(HOT_SHAPES))))
+            for g in gang_waves.get(w, ()):
+                for m in range(4):
+                    names.append(f"{g}-{m}")
+                    stack.cluster.create_pod(PodSpec(names[-1], labels={
+                        "tpu/gang": g, "tpu/gang-size": "4", "tpu/chips": "8",
+                        "tpu/generation": "v5e"}))
+            stack.scheduler.run_until_idle(max_wall_s=300)
+            time.sleep(max(t0 + (w + 1) * size["threaded_s"] / 16 - time.monotonic(), 0))
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+        spec.revalidate = inner_revalidate
+        logging.getLogger("yoda_tpu_torch").removeHandler(handler)
+    if platform != "cpu":
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    snap = stack.informer.snapshot()
+    bad_plans = []
+    for pod, node in consumed:
+        live = stack.cluster.get_pod(pod.key)
+        if live is None or live.node_name != node:
+            continue  # Reserve lost the race: the full path placed it
+        ni = snap.get(node) if node in snap else None
+        if (ni is None or ni.tpu is None or ni.tpu.generation != "v5e"
+                or not pod_admits_on(ni.node, pod)[0]):
+            bad_plans.append((pod.name, node))
+    gangs = {g: sum(stack.cluster.get_pod(f"default/{g}-{m}").node_name is not None
+                    for m in range(4)) for pair in gang_waves.values() for g in pair}
+    lat = singleton_latencies(stack, [n for n in names if n.startswith("th")])
+    return dict(
+        platform=platform, pods=len(names), alive=thread.is_alive(), errors=errors[:5],
+        bound=sum(v is not None for v in bindings_of(stack, names).values()),
+        gangs=gangs, consumed=len(consumed), bad_plans=bad_plans,
+        stats=spec.stats(), rebalance_passes=rb.passes,
+        serve_launches=serve.launches, spec_launches=spec.kernel.launches,
+        serve_joint_fit_launches=serve.joint_fit_launches,
+        spec_joint_fit_launches=spec.kernel.joint_fit_launches,
+        fused_plan_dispatches=stack.batch.fused_plan_dispatches,
+        launches=cuda_kernel.launches, joint_fit_launches=cuda_kernel.joint_fit_launches,
+        row_update_launches=kernel_mod.row_update_launches,
+        dispatch_errors=stack.batch.dispatch_errors,
+        overcommitted=over_capacity(stack), accounting_gap=accounting_gap(stack),
+        wall_s=wall, pods_per_s=len(lat) / wall if wall else 0.0,
+        p50_ms=pct_ms(lat, 0.5), p99_ms=pct_ms(lat, 0.99),
+    )
+
+
+def run_background(platform: str, size: dict = BACKGROUND_FULL,
+                   threaded: bool = True) -> dict:
+    """Run (h) on one kernel_platform: (h1)-(h3), and (h4) when asked."""
+    t = time.monotonic()
+    h1 = run_speculation(platform, size)
+    h1["part_s"], t = time.monotonic() - t, time.monotonic()
+    h2, stack = run_rebalance(platform, size)
+    h2["part_s"], t = time.monotonic() - t, time.monotonic()
+    h3 = run_reconcile(platform, size, stack.cluster)
+    h3["part_s"], t = time.monotonic() - t, time.monotonic()
+    h4 = run_threaded(platform, size) if threaded else None
+    if h4 is not None:
+        h4["part_s"] = time.monotonic() - t
+    return dict(h1=h1, h2=h2, h3=h3, h4=h4)
+
+
+BACKGROUND_PARITY = {
+    "h1": ("bindings", "plans", "stats", "dispatch_count", "spec_restacks",
+           "spec_delta_syncs"),
+    "h2": ("bindings", "passes", "resync", "parked_before", "hi_bound", "el_bound",
+           "effective_el", "unbinds", "dispatch_count"),
+    "h3": ("orphan", "dropped", "resync", "drift"),
+}
+
+
+def check_background_run(run: dict, size: dict) -> None:
+    """The checks of one run (h) that need no second run."""
+    name = f"run h ({run['h1']['platform']})"
+    for part in ("h1", "h2", "h3") + (("h4",) if run["h4"] else ()):
+        r = run[part]
+        if r["overcommitted"] or r["accounting_gap"]:
+            raise AssertionError(f"{name} {part}: over capacity {r['overcommitted']}, "
+                                 f"accounting != bound pods at {r['accounting_gap']}")
+    h1, h2, h3, h4 = run["h1"], run["h2"], run["h3"], run["h4"]
+    if h1["dispatch_errors"] or any(v is None for v in h1["bindings"].values()):
+        raise AssertionError(f"{name} h1: unbound pods or dispatch errors")
+    if not h1["stats"]["hits"] or h1["stats"]["ticks"] != size["waves"]:
+        raise AssertionError(f"{name} h1: no speculative hit: {h1['stats']}")
+    if h1["dispatch_count"] + h1["stats"]["hits"] != h1["pods"]:
+        raise AssertionError(
+            f"{name} h1: {h1['dispatch_count']} dispatches + {h1['stats']['hits']} "
+            f"hits for {h1['pods']} pods"
+        )
+    if not h2["parked_before"] or h2["hi_bound"] != size["gang"]:
+        raise AssertionError(f"{name} h2: gang hi parked {h2['parked_before']}, "
+                             f"bound after the passes {h2['hi_bound']}")
+    passes = h2["passes"]
+    if not any(p["preempted"] for p in passes) or not any(p["resizes"] for p in passes):
+        raise AssertionError(f"{name} h2: no preemption or no resize: {passes}")
+    if passes[-1]["moves"] or passes[-1]["preempted"] or passes[-1]["resizes"]:
+        raise AssertionError(f"{name} h2: the passes did not settle: {passes[-1]}")
+    if h2["waiting"] or h2["dispatch_errors"]:
+        raise AssertionError(f"{name} h2: {h2['waiting']} at Permit, "
+                             f"{h2['dispatch_errors']} dispatch errors")
+    if h3["resync"]["adopted_gangs"] != ["orphan"] or None in h3["orphan"].values():
+        raise AssertionError(f"{name} h3: the half-bound gang: {h3['resync']}, {h3['orphan']}")
+    d = h3["drift"]
+    if (d["ghost_pods"], d["leaked_reservations"]) != (2, 1):
+        raise AssertionError(f"{name} h3: drift report {d}")
+    if h4 is not None:
+        if h4["alive"] or h4["errors"] or h4["dispatch_errors"] or h4["bad_plans"]:
+            raise AssertionError(
+                f"{name} h4: thread alive {h4['alive']}, errors {h4['errors']}, "
+                f"dispatch errors {h4['dispatch_errors']}, plans that do not admit "
+                f"their pod {h4['bad_plans']}"
+            )
+        if h4["bound"] != h4["pods"] or set(h4["gangs"].values()) != {4}:
+            raise AssertionError(f"{name} h4: {h4['bound']}/{h4['pods']} bound, gangs {h4['gangs']}")
+        if not h4["rebalance_passes"] or not h4["stats"]["ticks"]:
+            raise AssertionError(f"{name} h4: the background thread did not run: {h4}")
+        if not h4["fused_plan_dispatches"]:
+            raise AssertionError(f"{name} h4: the serve thread took no joint pass")
+
+
+def check_background(g: dict, c: dict, size: dict) -> None:
+    """Run (h) on the card against the same script on the CPU: the
+    deterministic parts equal, every check of each run, and the card run's
+    launches where they must be."""
+    for part, keys in BACKGROUND_PARITY.items():
+        diff = [k for k in keys if g[part][k] != c[part][k]]
+        if diff:
+            raise AssertionError(f"run h {part}: cuda != cpu in {diff}")
+    check_background_run(g, size)
+    check_background_run(c, size)
+    h1 = g["h1"]
+    if h1["spec_launches"] < h1["stats"]["speculations"] or not h1["spec_launches"]:
+        raise AssertionError(f"run h1: {h1['spec_launches']} private fleet_eval launches "
+                             f"for {h1['stats']['speculations']} plans")
+    if not 0 < h1["spec_row_updates"] <= h1["spec_delta_syncs"]:
+        raise AssertionError(f"run h1: {h1['spec_row_updates']} private update_rows for "
+                             f"{h1['spec_delta_syncs']} delta syncs")
+    if h1["launches"] != h1["spec_launches"] + h1["serve_launches"]:
+        raise AssertionError(f"run h1: {h1['launches']} launches, {h1['spec_launches']} "
+                             f"private + {h1['serve_launches']} serve")
+    h4 = g["h4"]
+    if h4 and not (h4["serve_launches"] and h4["spec_launches"]
+                   and h4["launches"] == h4["serve_launches"] + h4["spec_launches"]):
+        raise AssertionError(f"run h4: {h4['launches']} launches, serve thread "
+                             f"{h4['serve_launches']}, speculation thread "
+                             f"{h4['spec_launches']}")
+    if h4 and not (0 < h4["serve_joint_fit_launches"] == h4["joint_fit_launches"]
+                   == h4["fused_plan_dispatches"] and not h4["spec_joint_fit_launches"]):
+        raise AssertionError(f"run h4: {h4['joint_fit_launches']} joint_fit launches, "
+                             f"serve thread {h4['serve_joint_fit_launches']}, "
+                             f"speculation thread {h4['spec_joint_fit_launches']}, "
+                             f"{h4['fused_plan_dispatches']} fused dispatches")
+    for part in ("h1", "h2"):
+        if c[part]["launches"] or c[part]["row_update_launches"]:
+            raise AssertionError(f"run {part}: the CPU run launched on the card")
+
+
+def print_background(run: dict, smi: str) -> None:
+    """One line per part of a run (h), less its bindings and plans; the
+    rebalance passes as counts."""
+    for part in ("h1", "h2", "h3", "h4"):
+        if run[part] is None:
+            continue
+        summary = {k: v for k, v in run[part].items()
+                   if k not in ("bindings", "plans", "passes")}
+        if "passes" in run[part]:
+            summary["passes"] = [
+                {k: (len(v) if isinstance(v, (list, dict)) else v) for k, v in p.items()}
+                for p in run[part]["passes"]
+            ]
+        print(f"background ({part}) {run['h1']['platform']} [{smi}]:", json.dumps(summary))
+
+
+# Threads of the process that reruns run (h) on the CPU beside the card's
+# phases: the card's are host-bound on one core, and the machine has eight.
+CPU_RERUN_THREADS = 2
+
+
+def cpu_rerun_child(conn, size: dict) -> None:
+    """The body of the CPU rerun process: run (h)'s (h1)-(h3) on
+    kernel_platform "cpu", sent back whole or as the error that stopped it."""
+    torch.set_num_threads(CPU_RERUN_THREADS)
+    try:
+        conn.send(("ok", run_background("cpu", size, threaded=False)))
+    except BaseException as e:  # noqa: BLE001 — the parent reports it
+        conn.send(("error", f"{type(e).__name__}: {e}"))
+    conn.close()
+
+
+class CpuRerun:
+    """Run (h)'s CPU run in a second process (spawned: the parent holds a
+    CUDA context), started when the kernels are built so that it overlaps
+    the card's phases instead of following them; :meth:`result` waits for
+    it and :meth:`stop` ends it if it still runs."""
+
+    def __init__(self, size: dict = BACKGROUND_FULL) -> None:
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self._recv, send = ctx.Pipe(duplex=False)
+        self._proc = ctx.Process(target=cpu_rerun_child, args=(send, size), daemon=True)
+        self._proc.start()
+        send.close()
+
+    def result(self, timeout_s: float = 600.0) -> dict:
+        if not self._recv.poll(timeout_s):
+            raise TimeoutError(f"the CPU rerun of run (h) sent nothing in {timeout_s} s")
+        status, value = self._recv.recv()
+        self._proc.join(timeout=30)
+        if status != "ok":
+            raise RuntimeError(f"the CPU rerun of run (h) failed: {value}")
+        return value
+
+    def stop(self) -> None:
+        if self._proc.is_alive():
+            self._proc.terminate()
+            self._proc.join(timeout=10)
+
+
+def phase_background(smi: str, rerun: CpuRerun) -> dict:
+    g = run_background("auto")
+    c = rerun.result()
+    print_background(g, smi)
+    print_background(c, smi)
+    check_background(g, c, BACKGROUND_FULL)
+    return g
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one NVIDIA GPU", file=sys.stderr)
         sys.exit(2)
+    seconds: dict[str, float] = {}
+
+    def phase(label: str, fn, *args):
+        t = time.monotonic()
+        try:
+            out = fn(*args)
+        except Exception as e:  # noqa: BLE001 — report the failing phase
+            fail(label, e)
+        seconds[label] = time.monotonic() - t
+        return out
+
+    kind, smi = phase("device/build", phase_device)
+    rerun = CpuRerun()
     try:
-        kind, smi = phase_device()
-    except Exception as e:  # noqa: BLE001 — report the failing phase
-        fail("device/build", e)
-    try:
-        rows, profiled = phase_kernel()
-    except Exception as e:  # noqa: BLE001
-        fail("kernel vs plain", e)
-    try:
-        joint_rows = phase_joint_fit()
-    except Exception as e:  # noqa: BLE001
-        fail("joint_fit vs plain", e)
-    try:
-        update_rows = phase_update_rows()
-    except Exception as e:  # noqa: BLE001
-        fail("update_rows vs put_static", e)
-    try:
-        gpu = phase_main_path(smi)
-    except Exception as e:  # noqa: BLE001
-        fail("main path", e)
-    try:
-        gangs = phase_gang_path(smi)
-    except Exception as e:  # noqa: BLE001
-        fail("gang path", e)
-    try:
-        churn = phase_churn(smi)
-    except Exception as e:  # noqa: BLE001
-        fail("churn run (e)", e)
-    try:
-        preemption = phase_preemption(smi)
-    except Exception as e:  # noqa: BLE001
-        fail("preemption run (f)", e)
-    try:
-        affinity = phase_affinity(smi)
-    except Exception as e:  # noqa: BLE001
-        fail("affinity run (g)", e)
-    try:
-        wide = phase_wide_fleet(smi)
-    except Exception as e:  # noqa: BLE001
-        fail("wide fleet", e)
-    main_row = next(
-        r for r in profiled
-        if (r["nodes"], r["padded"], r["k"]) == MAIN_PATH_SHAPE and r["chips"] == CHIPS
-    )
-    joint_main = next(
-        r for r in joint_rows
-        if r["case"] == "seeded" and (r["k"], r["n"]) == JOINT_MAIN_SHAPE
-    )
-    update_main = next(
-        r for r in update_rows if (r["padded"], r["rows"]) == UPDATE_MAIN_SHAPE
-    )
-    kernels = {
-        "kernels": [
-            {
-                "name": "fleet_eval",
-                "route": "cuda",
-                "source": "yoda_tpu_torch/csrc/fleet_eval.cu",
-                "replaces": (
-                    "yoda_tpu/ops/pallas_kernel.py:268 (_pallas_eval) + "
-                    "yoda_tpu/ops/pallas_kernel.py:299 (_pallas_eval_burst)"
-                ),
-                "launches": sum(run["launches"] for run in (
-                    gpu["a"], gpu["b"], gangs["c"], gangs["d"], churn, preemption,
-                    affinity, *wide)),
-                "launches_run_g": affinity["launches"],
-                "run_g_k1_device_ms": not_measured(affinity["fleet_eval_k1_device_ms"]),
-                "max_abs_err": max(r["max_abs_err"] for r in rows),
-                "ms": main_row["ms"],
-                "plain_ms": main_row["plain_ms"],
-                "bound_ms": main_row["bound_ms"],
-                "bound_by": main_row["bound_by"],
-                "library_ms": None,
-                "device_ms": not_measured(main_row["device_ms"]),
-                "round_trip_ms": main_row["round_trip_ms"],
-                "cuda_launches_per_call": not_measured(main_row["launches_per_call"]),
-                "shapes": [
-                    {
-                        key: not_measured(r.get(key))
-                        for key in ("padded", "chips", "k", "ms", "device_ms",
-                                    "launches_per_call", "plain_ms", "bound_ms",
-                                    "bound_by", "plan", "round_trips_ms", "smi")
-                    }
-                    for r in profiled
-                ],
-            },
-            {
-                "name": "joint_fit",
-                "route": "cuda",
-                "source": "yoda_tpu_torch/csrc/joint_fit.cu",
-                "replaces": (
-                    "yoda_tpu/ops/kernel.py:500 joint_fit_scan "
-                    "(lax.scan in kernel_joint_plan, :581)"
-                ),
-                "launches": gangs["c"]["joint_fit_launches"]
-                + gangs["d"]["joint_fit_launches"] + preemption["joint_fit_launches"]
-                + affinity["joint_fit_launches"],
-                "max_abs_err": max(r["max_abs_err"] for r in joint_rows),
-                "ms": joint_main["ms"],
-                "device_ms": not_measured(joint_main["device_ms"]),
-                "plain_ms": joint_main["plain_ms"],
-                "bound_ms": joint_main["bound_ms"],
-                "bound_by": "bytes",
-                "library_ms": None,
-                "main_path_device_ms": {
-                    run: not_measured(gangs[run]["joint_fit_device_ms"])
-                    for run in ("c", "d")
-                },
-                "shapes": [
-                    {
-                        key: not_measured(r.get(key))
-                        for key in ("case", "k", "n", "ms", "device_ms", "us_per_row",
-                                    "plain_ms", "bound_ms", "plan", "smi")
-                    }
-                    for r in joint_rows
-                ],
-            },
-        ],
-        # The resident row update is a torch op, not a hand kernel (the
-        # reference's XLA scatter, yoda_tpu/ops/kernel.py:662): launches are
-        # runs (e), (f) and (g)'s update_rows calls on the card, times at
-        # the main path's fleet with 64 rows.
-        "torch_ops": [
-            {
-                "name": "update_rows",
-                "route": "torch",
-                "source": "yoda_tpu_torch/ops/kernel.py (TorchFleetKernel.update_rows)",
-                "replaces": "yoda_tpu/ops/kernel.py:662 apply_row_update (jitted :671)",
-                "launches": churn["row_update_launches"]
-                + preemption["row_update_launches"] + affinity["row_update_launches"],
-                "max_abs_err": max(r["max_abs_err"] for r in update_rows),
-                "ms": update_main["ms"],
-                "plain_ms": update_main["put_static_ms"],
-                "bound_ms": update_main["bound_ms"],
-                "bound_by": "bytes",
-                "library_ms": update_main["library_ms"],
-                "shapes": [
-                    {key: r[key] for key in ("padded", "rows", "ms", "put_static_ms",
-                                             "library_ms", "bound_ms", "smi")}
-                    for r in update_rows
-                ],
-            },
-        ],
-    }
-    print(json.dumps(kernels))
-    print(smi)
-    print(
-        json.dumps(
-            {
-                "ok": True,
-                "device": {
-                    "platform": "gpu",
-                    "kind": kind,
-                    "count": torch.cuda.device_count(),
-                },
-            }
+        rows, profiled = phase("kernel vs plain", phase_kernel)
+        joint_rows = phase("joint_fit vs plain", phase_joint_fit)
+        update_rows = phase("update_rows vs put_static", phase_update_rows)
+        gpu = phase("main path", phase_main_path, smi)
+        gangs = phase("gang path", phase_gang_path, smi)
+        churn = phase("churn run (e)", phase_churn, smi)
+        preemption = phase("preemption run (f)", phase_preemption, smi)
+        affinity = phase("affinity run (g)", phase_affinity, smi)
+        wide = phase("wide fleet", phase_wide_fleet, smi)
+        background = phase("background run (h)", phase_background, smi, rerun)
+        print("phase seconds:", json.dumps(seconds))
+        h_runs = [background[part] for part in ("h1", "h2", "h3", "h4")]
+        main_row = next(
+            r for r in profiled
+            if (r["nodes"], r["padded"], r["k"]) == MAIN_PATH_SHAPE and r["chips"] == CHIPS
         )
-    )
+        joint_main = next(
+            r for r in joint_rows
+            if r["case"] == "seeded" and (r["k"], r["n"]) == JOINT_MAIN_SHAPE
+        )
+        update_main = next(
+            r for r in update_rows if (r["padded"], r["rows"]) == UPDATE_MAIN_SHAPE
+        )
+        kernels = {
+            "kernels": [
+                {
+                    "name": "fleet_eval",
+                    "route": "cuda",
+                    "source": "yoda_tpu_torch/csrc/fleet_eval.cu",
+                    "replaces": (
+                        "yoda_tpu/ops/pallas_kernel.py:268 (_pallas_eval) + "
+                        "yoda_tpu/ops/pallas_kernel.py:299 (_pallas_eval_burst)"
+                    ),
+                    "launches": sum(run["launches"] for run in (
+                        gpu["a"], gpu["b"], gangs["c"], gangs["d"], churn, preemption,
+                        affinity, *wide, *h_runs)),
+                    "launches_run_g": affinity["launches"],
+                    "run_g_k1_device_ms": not_measured(affinity["fleet_eval_k1_device_ms"]),
+                    "launches_run_h": {
+                        part: background[part]["launches"] for part in ("h1", "h2", "h3", "h4")
+                    },
+                    "launches_run_h_speculation": {
+                        "h1": background["h1"]["spec_launches"],
+                        "h4": background["h4"]["spec_launches"],
+                    },
+                    "run_h_spec_k1_device_ms": not_measured(
+                        background["h1"]["concurrent"]["alone_device_ms"]),
+                    "run_h_concurrent_k1_ms": {
+                        k: not_measured(v) for k, v in background["h1"]["concurrent"].items()
+                    },
+                    "max_abs_err": max(r["max_abs_err"] for r in rows),
+                    "ms": main_row["ms"],
+                    "plain_ms": main_row["plain_ms"],
+                    "bound_ms": main_row["bound_ms"],
+                    "bound_by": main_row["bound_by"],
+                    "library_ms": None,
+                    "device_ms": not_measured(main_row["device_ms"]),
+                    "round_trip_ms": main_row["round_trip_ms"],
+                    "cuda_launches_per_call": not_measured(main_row["launches_per_call"]),
+                    "shapes": [
+                        {
+                            key: not_measured(r.get(key))
+                            for key in ("padded", "chips", "k", "ms", "device_ms",
+                                        "launches_per_call", "plain_ms", "bound_ms",
+                                        "bound_by", "plan", "round_trips_ms", "smi")
+                        }
+                        for r in profiled
+                    ],
+                },
+                {
+                    "name": "joint_fit",
+                    "route": "cuda",
+                    "source": "yoda_tpu_torch/csrc/joint_fit.cu",
+                    "replaces": (
+                        "yoda_tpu/ops/kernel.py:500 joint_fit_scan "
+                        "(lax.scan in kernel_joint_plan, :581)"
+                    ),
+                    "launches": gangs["c"]["joint_fit_launches"]
+                    + gangs["d"]["joint_fit_launches"] + preemption["joint_fit_launches"]
+                    + affinity["joint_fit_launches"]
+                    + sum(run["joint_fit_launches"] for run in h_runs[1:]),
+                    "max_abs_err": max(r["max_abs_err"] for r in joint_rows),
+                    "ms": joint_main["ms"],
+                    "device_ms": not_measured(joint_main["device_ms"]),
+                    "plain_ms": joint_main["plain_ms"],
+                    "bound_ms": joint_main["bound_ms"],
+                    "bound_by": "bytes",
+                    "library_ms": None,
+                    "main_path_device_ms": {
+                        run: not_measured(gangs[run]["joint_fit_device_ms"])
+                        for run in ("c", "d")
+                    },
+                    "shapes": [
+                        {
+                            key: not_measured(r.get(key))
+                            for key in ("case", "k", "n", "ms", "device_ms", "us_per_row",
+                                        "plain_ms", "bound_ms", "plan", "smi")
+                        }
+                        for r in joint_rows
+                    ],
+                },
+            ],
+            # The resident row update is a torch op, not a hand kernel (the
+            # reference's XLA scatter, yoda_tpu/ops/kernel.py:662): launches are
+            # runs (e)-(h)'s update_rows calls on the card, times at the main
+            # path's fleet with 64 rows.
+            "torch_ops": [
+                {
+                    "name": "update_rows",
+                    "route": "torch",
+                    "source": "yoda_tpu_torch/ops/kernel.py (TorchFleetKernel.update_rows)",
+                    "replaces": "yoda_tpu/ops/kernel.py:662 apply_row_update (jitted :671)",
+                    "launches": churn["row_update_launches"]
+                    + preemption["row_update_launches"] + affinity["row_update_launches"]
+                    + sum(run["row_update_launches"] for run in h_runs),
+                    "launches_run_h_speculation": background["h1"]["spec_row_updates"],
+                    "max_abs_err": max(r["max_abs_err"] for r in update_rows),
+                    "ms": update_main["ms"],
+                    "plain_ms": update_main["put_static_ms"],
+                    "bound_ms": update_main["bound_ms"],
+                    "bound_by": "bytes",
+                    "library_ms": update_main["library_ms"],
+                    "shapes": [
+                        {key: r[key] for key in ("padded", "rows", "ms", "put_static_ms",
+                                                 "library_ms", "bound_ms", "smi")}
+                        for r in update_rows
+                    ],
+                },
+            ],
+        }
+        print(json.dumps(kernels))
+        print(smi)
+        print(
+            json.dumps(
+                {
+                    "ok": True,
+                    "device": {
+                        "platform": "gpu",
+                        "kind": kind,
+                        "count": torch.cuda.device_count(),
+                    },
+                }
+            )
+        )
+    finally:
+        rerun.stop()
 
 
 if __name__ == "__main__":

@@ -15,7 +15,8 @@ tolerance 0.
   batch_requests 1 and 16 and as gangs with self anti-affinity and self
   affinity: bindings, the last cycle outcome and message of every pod, and
   the dispatch, burst, admission-cache and gang counters must be equal.
-  The reference runs with the speculative placement cache off.
+  Both packages build their speculative placement cache (inter-pod and
+  volume pods are out of its scope).
 - The two faults the port had before inter-pod affinity was ported: a
   Deployment's anti-affinity replicas were refused, and one bound pod with
   anti-affinity made the port refuse every later pod.
@@ -434,14 +435,13 @@ def run_stack(side: Side, hosts, waves, *, batch_requests=1, preemption=True,
     (kind, dict) items, applied in order: ("pvc" | "pv" | "pdb" |
     "namespace", object) puts the object, ("delete", pod) deletes the pod.
     Returns the observation."""
-    kw = {"spec_enabled": False} if side is REF else {}
     build, config, agent_cls = (
         (ref_build_stack, RefConfig, RefAgent) if side is REF
         else (build_stack, SchedulerConfig, FakeTpuAgent)
     )
     stack = build(
         config=config(kernel_platform="cpu", batch_requests=batch_requests,
-                      enable_preemption=preemption, gang_permit_timeout_s=5, **kw),
+                      enable_preemption=preemption, gang_permit_timeout_s=5),
     )
     agent = agent_cls(stack.cluster)
     for ns, labels in NAMESPACES.items():

@@ -2,7 +2,9 @@
 joint_fit.cu) against their plain PyTorch versions on the same tensors,
 tolerance 0 (everything is int32), and the wrappers' contracts; and the
 resident state's in-place row update (TorchFleetKernel.update_rows)
-against a fresh put_static, at chip_smoke.py's fleets and row sets.
+against a fresh put_static, at chip_smoke.py's fleets and row sets; and
+the speculative placement cache's private kernel on its own stream, alone
+and beside the serve path's launches from a second thread (run (h)).
 
 Tests marked ``cuda`` need the card and skip without one; run them there
 with ``python -m pytest -m cuda tests/test_torch_cuda.py``. This file
@@ -16,6 +18,12 @@ import torch
 
 from chip_smoke import (
     AFFINITY_SMALL,
+    BACKGROUND_SMALL,
+    build_fleet,
+    check_background,
+    concurrent_eval,
+    hot_pod,
+    run_background,
     UPDATE_FLEETS,
     UPDATE_ROWS,
     identical_rows_case,
@@ -141,6 +149,13 @@ class TestWrapperOnCpu:
         assert fleet_eval(*args, Weights(), out=out) is out
         assert cuda_kernel.launches == before
         assert torch.equal(out, kernel_packed_burst(*args, Weights()))
+
+    def test_cpu_calls_leave_the_owner_count(self):
+        owner = TorchFleetKernel(Weights(), torch.device("cpu"))
+        fleet_eval(*on("cpu", stacked_fleet(37, 64, 150, seed=3)), Weights(), counter=owner)
+        case = [torch.from_numpy(x) for x in joint_case(8, 64, seed=3)]
+        joint_fit(*case, counter=owner)
+        assert (owner.launches, owner.joint_fit_launches) == (0, 0)
 
     def test_other_devices_are_refused(self):
         args = [t.to("meta") for t in on("cpu", stacked_fleet(8, 8, 1, seed=2))]
@@ -548,3 +563,86 @@ class TestRowUpdateOnCpu:
         before = kernel_mod.row_update_launches
         update_rows_check(300, 512, r, torch.device("cpu"))
         assert kernel_mod.row_update_launches == before  # counts the card only
+
+
+def small_spec_stack(platform: str):
+    """chip_smoke's fleet at the tests' size with one K = 1 pod of each hot
+    shape served, so the cache tracks the four shapes."""
+    stack, _agent = build_fleet(platform, 1, slices=BACKGROUND_SMALL["slices"],
+                                v5e_hosts=BACKGROUND_SMALL["v5e_hosts"])
+    for i, chips in enumerate((1, 2, 4, 8)):
+        stack.cluster.create_pod(hot_pod(f"seen{i}", chips))
+    stack.scheduler.run_until_idle(max_wall_s=60)
+    return stack
+
+
+def plan_view(spec) -> list:
+    return sorted((int(k[1].number), p.node, p.base_reserved, p.score)
+                  for k, p in spec._plans.items())
+
+
+@pytest.mark.cuda
+class TestSpeculationOnCard:
+    def test_private_kernel_runs_on_its_own_stream(self, card, monkeypatch):
+        stack = small_spec_stack("auto")
+        spec = stack.speculation
+        assert spec.kernel.device.type == "cuda"
+        assert spec._stream is not None
+        assert spec._stream != torch.cuda.default_stream(card)
+        seen = []
+        real = cuda_kernel.fleet_eval
+
+        def noting(*args, **kw):
+            seen.append(torch.cuda.current_stream(card))
+            return real(*args, **kw)
+
+        monkeypatch.setattr(cuda_kernel, "fleet_eval", noting)
+        before, serve_before = spec.kernel.launches, stack.batch._kern.launches
+        assert spec.speculate_once() == 4
+        assert spec.kernel.launches - before == 4  # one K = 1 launch a shape
+        assert stack.batch._kern.launches == serve_before
+        assert seen and all(s == spec._stream for s in seen)
+
+    def test_plans_equal_a_cpu_cache(self, card):
+        got, want = small_spec_stack("auto"), small_spec_stack("cpu")
+        for stack in (got, want):
+            stack.speculation.speculate_once()
+        assert plan_view(got.speculation) == plan_view(want.speculation)
+        assert got.speculation.stats() == want.speculation.stats()
+        assert want.speculation.kernel.launches == 0
+
+    def test_two_threads_get_the_plain_result(self, card):
+        """fleet_eval from the cache's stream while a second thread launches
+        fleet_eval at K = 16 and joint_fit on the default stream: every
+        result of both threads equals the plain version (concurrent_eval
+        raises otherwise)."""
+        stack = small_spec_stack("auto")
+        spec = stack.speculation
+        spec.speculate_once()
+        kept = []
+        inner = spec.kernel.evaluate
+        spec.kernel.evaluate = lambda dyn, req: kept.append((np.array(dyn), req)) or inner(dyn, req)
+        spec.speculate_once()
+        spec.kernel.evaluate = inner
+        got = concurrent_eval(stack, spec, kept[-1], calls=20)
+        assert got["serve_thread_calls_in_windows"] > 0
+
+    def test_run_h_small_as_on_cpu(self, card):
+        """chip_smoke's run (h) at the tests' size: (h1)-(h3) equal to the
+        CPU run, (h4) holds its invariants with both threads launching."""
+        got = run_background("auto", BACKGROUND_SMALL)
+        want = run_background("cpu", BACKGROUND_SMALL, threaded=False)
+        check_background(got, want, BACKGROUND_SMALL)
+        assert got["h4"]["serve_joint_fit_launches"] > 0
+
+    def test_owner_counts_move_at_the_launch(self, card):
+        """A wrapper given a ``counter`` adds each launch to it: one per
+        128-row chunk of fleet_eval, one per joint_fit."""
+        owner = TorchFleetKernel(Weights(), card)
+        chips, nodes, dyn, host_ok, reqs = on(card, stacked_fleet(300, 512, 144, seed=5))
+        packed = fleet_eval(chips, nodes, dyn, host_ok, reqs, Weights(), counter=owner)
+        assert (owner.launches, owner.joint_fit_launches) == (2, 0)
+        case = [torch.from_numpy(x).to(card) for x in joint_case(16, 512, seed=5)]
+        joint_fit(*case, counter=owner)
+        assert (owner.launches, owner.joint_fit_launches) == (2, 1)
+        assert packed.shape == (144, 6, 512)

@@ -13,9 +13,9 @@ all-or-nothing through yoda_tpu_torch.standalone.build_stack.
   labels and random chip health, and scripts that mix the four gang kinds
   with singletons, co-queued and arriving in two waves, at batch_requests
   1 and 16, with preemption off and on in both. Bindings (evictions
-  included), per-gang verdicts and the gang counters must be equal. The
-  reference runs with the speculative placement cache off, as in
-  tests/test_torch_stack.py."""
+  included), per-gang verdicts and the gang counters must be equal. Both
+  packages build their speculative placement cache (gang pods are out of
+  its scope), as in tests/test_torch_stack.py."""
 
 import itertools
 import math
@@ -1363,7 +1363,7 @@ class TestGangStackParity:
         ref = ref_build_stack(
             config=RefConfig(
                 kernel_platform="cpu", batch_requests=batch_requests,
-                enable_preemption=preemption, spec_enabled=False,
+                enable_preemption=preemption,
             ),
             clock=ref_clock,
         )

@@ -209,7 +209,10 @@ class TestNotBuilt:
             stack = build_stack(config=SchedulerConfig(kernel_platform="cpu"))
         knobs = sorted(part.split("(")[1].split("=")[0] for part in stack.not_built)
         assert knobs == sorted(UNPORTED_KNOB_VALUES)
-        assert "speculative placement cache (spec_enabled=True)" in stack.not_built
+        # The background parts are ported: built, and never named.
+        for part in ("speculative placement cache", "reconciler", "rebalancer"):
+            assert not [p for p in stack.not_built if p.startswith(part)]
+        assert "node health monitor (node_health_period_s=5.0)" in stack.not_built
         warnings = [r for r in caplog.records if r.levelno == logging.WARNING]
         assert len(warnings) == 1
         assert all(part in warnings[0].getMessage() for part in stack.not_built)
@@ -221,6 +224,63 @@ class TestNotBuilt:
             stack = build_stack(config=cfg)
         assert stack.not_built == ()
         assert not [r for r in caplog.records if r.levelno == logging.WARNING]
+
+
+class TestBackgroundParts:
+    """The reconciler, the rebalancer and the speculative placement cache
+    are built by default, wired as the reference wires them, and their
+    knobs are honoured at every valid value."""
+
+    def test_built_and_wired(self):
+        stack = build_stack(config=SchedulerConfig(kernel_platform="cpu"))
+        assert stack.reconciler is not None and stack.rebalancer is not None
+        assert stack.scheduler.speculation is stack.speculation
+        assert stack.rebalancer.speculator is stack.speculation
+        assert stack.speculation.device == stack.batch.device
+        assert stack.speculation.enabled
+        assert stack.rebalancer.draining_fn is None  # no node health monitor
+        assert not stack.rebalancer.gate_fn()  # until the first resync
+
+    @pytest.mark.parametrize(
+        "knob,value,attr",
+        [
+            ("spec_enabled", False, ("speculation", "enabled")),
+            ("spec_cache_size", 4, ("speculation", "size")),
+            ("spec_shapes_max", 8, ("speculation", "shapes_max")),
+            ("rebalance_min_gain", 0.2, ("rebalancer", "min_gain")),
+            ("rebalance_max_moves", 3, ("rebalancer", "max_moves")),
+            ("rebalance_max_victims", 2, ("rebalancer", "max_victims")),
+            ("rebalance_preemption", False, ("rebalancer", "enable_preemption")),
+            ("rebalance_elastic", False, ("rebalancer", "enable_elastic")),
+            ("failover_adopt_window_s", 0, ("reconciler", "adopt_window_s")),
+            ("reconcile_period_s", 0, None),
+            ("reconcile_period_s", 5.0, None),
+            ("rebalance_period_s", 0, None),
+            ("rebalance_period_s", 10.0, None),
+        ],
+    )
+    def test_knob_honoured(self, knob, value, attr):
+        cfg = dataclasses.replace(
+            SchedulerConfig(kernel_platform="cpu"), **{knob: value}
+        )
+        assert unported_settings(cfg) == []
+        stack = build_stack(config=cfg)
+        if attr is not None:
+            part, name = attr
+            assert getattr(getattr(stack, part), name) == value
+        assert not [p for p in stack.not_built if knob in p]
+
+    @pytest.mark.parametrize(
+        "module",
+        [
+            "framework/speculation.py", "framework/reconciler.py",
+            "rebalance/__init__.py", "rebalance/score.py", "rebalance/rebalancer.py",
+        ],
+    )
+    def test_background_modules_are_guarded(self, module):
+        path = REPO / "yoda_tpu_torch" / module
+        assert path in set((REPO / "yoda_tpu_torch").rglob("*.py"))
+        assert not [m for m in _imports(path) if _forbidden(m)]
 
 
 class TestPreemptionKnob:

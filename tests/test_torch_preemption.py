@@ -3,12 +3,13 @@ wiring) held against the JAX package's on the CPU, tolerance 0.
 
 Every scenario is one script run against yoda_tpu.standalone.build_stack
 and the port's, both with kernel_platform "cpu", preemption on (unless the
-case turns it off), the speculative placement cache off and a hand-driven
-scheduling clock. The script asserts what tests/test_preemption.py asserts
+case turns it off), the speculative placement cache built (as by default)
+and a hand-driven scheduling clock. The script asserts what tests/test_preemption.py asserts
 of the reference (batch mode; loop mode is not ported), and then the two
 runs must agree on every pod's binding (or its eviction), the nominated
 node on every surviving pod's status, ``preempted_total``,
-``preempt_nominations`` and the sequence of cycle outcomes. Pods are
+``preempt_nominations``, the sequence of cycle outcomes and the speculative
+cache's ``stats()``. Pods are
 created in the same order on both sides: victims are ordered by
 ``creation_seq``.
 
@@ -61,7 +62,7 @@ class Ctx:
         build, config, self.types, agent = SIDES[side]
         self.clock = FakeClock() if fake_clock else time.monotonic
         self.stack = build(
-            config=config(kernel_platform="cpu", spec_enabled=False, **cfg),
+            config=config(kernel_platform="cpu", **cfg),
             clock=self.clock,
         )
         self.agent = agent(self.stack.cluster)
@@ -104,6 +105,7 @@ class Ctx:
             preempted_total=st.preemption.preempted_total if st.preemption else None,
             nominations=st.scheduler.stats.preempt_nominations,
             outcomes=[(r.pod_key, r.outcome, r.node) for r in st.scheduler.stats.results],
+            speculation=st.speculation.stats(),
         )
 
 
@@ -627,7 +629,7 @@ def test_fleet_script_equals_reference(seed, batch_requests, strategy):
     of priority 0-2, some unschedulable), preemption on in both packages."""
     hosts, pods = fleet_script(seed=seed)
     knobs = dict(batch_requests=batch_requests, scoring_strategy=strategy)
-    ref = ref_build_stack(config=RefConfig(kernel_platform="cpu", spec_enabled=False, **knobs))
+    ref = ref_build_stack(config=RefConfig(kernel_platform="cpu", **knobs))
     want = run_script(ref_types, ref, hosts, pods)
     port = build_stack(config=SchedulerConfig(kernel_platform="cpu", **knobs))
     got = run_script(port_types, port, hosts, pods)

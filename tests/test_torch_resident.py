@@ -397,8 +397,7 @@ class TestDeltaFeed:
 
 def ref_stack(enable_preemption=False, **knobs):
     return ref_build_stack(config=RefConfig(
-        kernel_platform="cpu", enable_preemption=enable_preemption, spec_enabled=False,
-        **knobs,
+        kernel_platform="cpu", enable_preemption=enable_preemption, **knobs,
     ))
 
 

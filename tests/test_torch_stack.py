@@ -6,8 +6,9 @@ Parity: one seeded fleet of mixed v5e/v5p hosts (random chip health, HBM
 already in use, cordons, taints, node labels) and one script of singleton
 pods go through both stacks; every pod must land on the same node (or stay
 pending, or be evicted, in both), with equal dispatch and burst counters,
-with preemption off and on in both. The reference runs with the
-speculative placement cache, which the port lacks, switched off."""
+with preemption off and on in both, and equal speculative cache
+``stats()`` (both packages build the cache; nothing here ticks it, so
+every lookup is a miss that records its shape)."""
 
 import dataclasses
 import time
@@ -150,7 +151,7 @@ class TestStackParity:
             enable_preemption=preemption,
         )
         ref = ref_build_stack(
-            config=RefConfig(kernel_platform="cpu", spec_enabled=False, **knobs)
+            config=RefConfig(kernel_platform="cpu", **knobs)
         )
         want = run_script(ref_types, ref, hosts, pods)
         port = build_stack(config=SchedulerConfig(kernel_platform="cpu", **knobs))
@@ -161,6 +162,7 @@ class TestStackParity:
         assert (port.preemption is None) == (not preemption)
         (ref_batch,) = ref.framework.batch_plugins
         assert counters(port.batch) == counters(ref_batch)
+        assert port.speculation.stats() == ref.speculation.stats()
         if batch_requests > 1:
             assert port.batch.burst_served > 0
         assert port.batch.dispatch_errors == 0

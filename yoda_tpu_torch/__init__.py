@@ -9,8 +9,11 @@ caller asks for the CPU. The port keeps the reference's module layout
 (``yoda_tpu_torch/X`` is the counterpart of ``yoda_tpu/X``) and imports
 nothing of ``yoda_tpu`` or JAX.
 
-The port runs the singleton and gang paths: ``standalone.build_stack``,
-``agent.fake_publisher.FakeTpuAgent`` and ``cluster.fake.FakeCluster``.
+The port runs the singleton and gang paths, preemption, inter-pod
+affinity, spread, volumes and budgets, and the background path (the
+speculative placement cache, the rebalancer and the reconciler):
+``standalone.build_stack``, ``agent.fake_publisher.FakeTpuAgent`` and
+``cluster.fake.FakeCluster``.
 Each module's docstring names what it leaves out; ROADMAP.md lists the
 modules still to port.
 """

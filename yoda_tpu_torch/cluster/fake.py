@@ -10,8 +10,9 @@ Counterpart of ``yoda_tpu/cluster/fake.py``, ported as far as the
 singleton, gang, preemption, affinity and volume paths reach it: eviction
 (``evict_pod``, refused where a stored budget would be violated or for the
 keys in ``eviction_blocked``) and the nomination status patch
-(``set_nominated_node``). Left out until a later slice: Events,
-node-death helpers and the watch-drop / staleness probes.
+(``set_nominated_node``), and the watch-drop injection the reconciler's
+tests use (``suppress_kinds``). Left out until a later slice: Events,
+node-death helpers and the staleness probe.
 """
 
 from __future__ import annotations
@@ -63,6 +64,12 @@ class FakeCluster:
         self._rv = 0
         # Pod keys whose eviction a PodDisruptionBudget would block (tests).
         self.eviction_blocked: set[str] = set()
+        # Watch-drop injection (reconciler tests): events of these kinds
+        # mutate the store but are NOT delivered to watchers — the store
+        # (cluster truth) and the informer caches diverge exactly the way a
+        # dropped watch stream makes them diverge, and the drift
+        # reconciler's repair is what re-converges them.
+        self.suppress_kinds: set[str] = set()
 
     # --- watch ---
 
@@ -99,6 +106,8 @@ class FakeCluster:
         )
 
     def _emit(self, event: Event) -> None:
+        if event.kind in self.suppress_kinds:
+            return  # injected watch drop: store updated, stream silent
         for fn in list(self._watchers):
             fn(event)
 

@@ -458,6 +458,19 @@ class InformerCache:
         with self._lock:
             return pod.uid in self._live_uids
 
+    def counts_bound(self, uid: str) -> bool:
+        """True when this cache charges the pod to a node — the failover
+        reconciler compares this against cluster truth to find GHOST
+        bindings (bind events the watch stream dropped)."""
+        with self._lock:
+            return uid in self._pod_nodes
+
+    def live_uid_set(self) -> set[str]:
+        """Every pod uid the cache believes alive (any phase, any node).
+        A uid here that cluster truth lacks is a dropped deletion."""
+        with self._lock:
+            return set(self._live_uids)
+
     def pod_schedulable(self, pod: PodSpec) -> bool:
         """Should a popped queue entry actually be scheduled? False for
         deleted pods, pods already counted as BOUND, and pods held by

@@ -7,13 +7,14 @@ backoff / unschedulable pools, event-driven re-activation) from upstream;
 this module is the from-scratch equivalent of that machinery.
 
 Counterpart of ``yoda_tpu/framework/queue.py``, ported as far as the
-singleton and gang paths reach it: one tenant-blind active heap, the
-backoff heap, the unresolvable pool, the gang-arrival promotion, the gang
-gather (``pop_matching``, ``restore``), ``readd``, ``pending_gangs`` and the
-activity signal the scheduler's drain waits on. Left out until a later
-slice: per-tenant DRF fair queuing and quota parking, the overload shed
-hook, ``take_gang`` (federation spillover), ``all_entries`` / ``find``
-(shard reroute, drift reconciler) and ``close``.
+singleton, gang and background paths reach it: one tenant-blind active
+heap, the backoff heap, the unresolvable pool, the gang-arrival promotion,
+the gang gather (``pop_matching``, ``restore``), ``pending_gangs``,
+``take_gang`` / ``readd`` (the rebalancer's transactional move), ``find``
+(the drift reconciler) and the activity signal the scheduler's drain waits
+on. Left out until a later slice: per-tenant DRF fair queuing and quota
+parking, the overload shed hook, ``all_entries`` (shard reroute) and
+``close``.
 """
 
 from __future__ import annotations
@@ -265,10 +266,62 @@ class SchedulingQueue:
                     out[gang] = (n + 1, min(a, qpi.attempts))
             return out
 
+    def find(self, uid: str) -> "PodSpec | None":
+        """The queued spec for a pod uid, wherever it is parked (active /
+        backoff / unresolvable) — the drift reconciler recovers the full
+        object this way when it must replay a dropped deletion for a pod
+        that exists nowhere else anymore."""
+        with self._lock:
+            for item in self._active:
+                if item.qpi.pod.uid == uid:
+                    return item.qpi.pod
+            for _, _, qpi in self._backoff:
+                if qpi.pod.uid == uid:
+                    return qpi.pod
+            for qpi in self._unschedulable.values():
+                if qpi.pod.uid == uid:
+                    return qpi.pod
+        return None
+
+    def take_gang(self, gang: str) -> list[QueuedPodInfo]:
+        """Atomically remove EVERY entry of ``gang`` from all three pools
+        and return them (attempt counts untouched — no scheduling cycle
+        runs on this path), in pool order: active heap, backoff heap,
+        unresolvable pool. While taken, this queue cannot pop or bind the
+        members: the rebalancer's move holds them while it unbinds the
+        gang. Give the entries back with :meth:`readd`."""
+        taken: list[QueuedPodInfo] = []
+        with self._cond:
+            kept: list[_HeapItem] = []
+            for item in self._active:
+                if gang_name_of(item.qpi.pod.labels) == gang:
+                    taken.append(item.qpi)
+                else:
+                    kept.append(item)
+            if len(kept) != len(self._active):
+                heapq.heapify(kept)
+                self._active = kept
+            keep_backoff: list[tuple[float, int, QueuedPodInfo]] = []
+            for entry in self._backoff:
+                if gang_name_of(entry[2].pod.labels) == gang:
+                    taken.append(entry[2])
+                else:
+                    keep_backoff.append(entry)
+            if len(keep_backoff) != len(self._backoff):
+                heapq.heapify(keep_backoff)
+                self._backoff = keep_backoff
+            for key in [
+                k
+                for k, q in self._unschedulable.items()
+                if gang_name_of(q.pod.labels) == gang
+            ]:
+                taken.append(self._unschedulable.pop(key))
+        return taken
+
     def readd(self, qpi: QueuedPodInfo) -> None:
         """Return an entry taken out of the queue without a scheduling
-        cycle to the active queue untouched (unlike :meth:`restore`, no
-        attempt decrement)."""
+        cycle (:meth:`take_gang`) to the active queue untouched (unlike
+        :meth:`restore`, no attempt decrement)."""
         with self._cond:
             self._push_active(qpi)
             self._cond.notify()

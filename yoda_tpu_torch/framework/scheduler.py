@@ -7,19 +7,24 @@ the loop — waiting pods park on the framework waitlist and are bound from
 the resolution callback (gang scheduling).
 
 Counterpart of ``yoda_tpu/framework/scheduler.py``, ported as far as the
-singleton, gang and preemption paths reach it: ``schedule_one`` with the
-Permit step, PostFilter preemption at both of its call sites (a PreFilter
-rejection that is not unresolvable, and no feasible node) with the
-"nominated" outcome and the nomination status patch (``on_nominated``,
-cleared when the pod binds elsewhere), the multi-pod burst pop, the gang
-gather and cross-gang joint pass (``_gather_gangs``), the transactional
-gang rollback (``_rollback_bound``) and the event-bound ``run_until_idle``
-with permit expiry — with no metrics registry and no tracer. As in the
-reference, the cycle lock is released before PostFilter: preemption's
-victim selection takes the same lock. Left out until a later slice: the
-speculative placement cache, shard staging and commits, leader fencing,
-the bind executor (every bind runs inline, so a gang's rollback needs no
-completion barrier) and ``serve_forever``.
+singleton, gang, preemption and background paths reach it:
+``schedule_one`` with the Permit step, the speculative placement cache's
+consume chain (lookup -> leader fence -> epoch check -> spot check ->
+consume -> Reserve, falling through to the full path on any miss),
+PostFilter preemption at both of its call sites (a PreFilter rejection
+that is not unresolvable, and no feasible node) with the "nominated"
+outcome and the nomination status patch (``on_nominated``, cleared when
+the pod binds elsewhere), the multi-pod burst pop, the gang gather and
+cross-gang joint pass (``_gather_gangs``), the transactional gang
+rollback (``_rollback_bound``), the leader fence (``fence_fn`` /
+``_fenced``: a fenced scheduler aborts binds before the API write) and
+the event-bound ``run_until_idle`` with permit expiry — with no metrics
+registry and no tracer. As in the reference, the cycle lock is released
+before PostFilter: preemption's victim selection takes the same lock.
+``on_serve_start`` is held for ``serve_forever``, which is not ported
+yet, so nothing calls it. Left out until a later slice: shard staging and
+commits, the bind executor (every bind runs inline, so a gang's rollback
+needs no completion barrier) and ``serve_forever``.
 """
 
 from __future__ import annotations
@@ -79,6 +84,7 @@ class Scheduler:
         post_filter_lock: "threading.Lock | None" = None,
         pod_alive: Callable[[PodSpec], bool] | None = None,
         burst_size: int = 1,
+        fence_fn: Callable[[], bool] | None = None,
     ) -> None:
         self.framework = framework
         self.snapshot_fn = snapshot_fn
@@ -109,11 +115,36 @@ class Scheduler:
         self._activity = threading.Condition()
         self._activity_seq = 0
         queue.on_activity = self._signal_activity
+        # Leader fencing: when wired, a False return FENCES the scheduler —
+        # binds are aborted BEFORE the API write and the rebalancer does
+        # nothing. Settable post-construction.
+        self.fence_fn = fence_fn
+        # Speculative placement cache (framework/speculation.py): wired by
+        # build_stack; None disables the fast path entirely. The
+        # consume chain in _schedule_one_locked (lookup -> fence ->
+        # epoch_valid -> revalidate -> consume_plan) is the only reader.
+        self.speculation = None
+        # Warm-start gate: serve_forever (not ported yet) calls this ONCE
+        # before its first queue pop — the reconciler's resync.
+        self.on_serve_start: "Callable[[], None] | None" = None
         # pod uid -> node nominated by preemption: a pod that binds to a
         # DIFFERENT node gets its stale status.nominatedNodeName cleared.
         # Entries drop on bind or deletion.
         self._nominated: dict[str, str] = {}
         self._lock = threading.Lock()
+
+    def _fenced(self) -> bool:
+        """True when a leader gate is wired and this process does NOT hold
+        leadership right now: no bind may hit the API. A raising fence
+        check counts as fenced — fail closed."""
+        fn = self.fence_fn
+        if fn is None:
+            return False
+        try:
+            return not fn()
+        except Exception:  # noqa: BLE001 — fail closed
+            log.exception("fence check failed; treating scheduler as fenced")
+            return True
 
     # --- one pod ---
 
@@ -233,50 +264,82 @@ class Scheduler:
                 unresolvable=st.code == Code.UNSCHEDULABLE_AND_UNRESOLVABLE,
             )
 
-        try:
-            batch = self.framework.run_batch_filter_score(state, pod, snapshot)
-        except Exception as e:  # noqa: BLE001 — keep the loop serving
-            log.exception("batch filter/score failed for %s", pod.key)
-            return done("error", message=f"batch filter/score failed: {e}")
-        if batch is None:
-            return done(
-                "error", message="no batch filter/score plugin is registered"
-            )
-        statuses, batch_scores = batch
-        feasible = sorted(batch_scores)
-        if not feasible:
-            # As above: no Reserve on this path, the lock goes first.
-            release_cycle_lock()
-            with self.post_filter_lock:
-                nominated, pf_st = self.framework.run_post_filter(
-                    state, pod, snapshot, statuses
+        # Speculative placement cache (framework/speculation.py): a hot,
+        # constraint-free shape can bind from a plan the rebalancer thread
+        # pre-validated between cycles, skipping the fleet evaluation.
+        # Consumption is gated on the leader fence, the plan's epoch
+        # validity against BOTH informer delta feeds, and an O(1)
+        # admission + reserved-chip spot check on the single chosen node;
+        # a failed Reserve falls through to the full path below — a
+        # speculative miss never parks the pod.
+        best: str | None = None
+        spec = self.speculation
+        if spec is not None and spec.enabled:
+            t_spec = self.clock()
+            node = None
+            plan = spec.lookup(pod)
+            if (
+                plan is not None
+                and not self._fenced()
+                and spec.epoch_valid(plan)
+                and spec.revalidate(plan, pod, snapshot)
+            ):
+                node = spec.consume_plan(plan)
+            if node is not None:
+                st = self.framework.run_reserve(state, pod, node)
+                if st.success:
+                    best = node
+                    spec.record_bound((self.clock() - t_spec) * 1e3)
+                else:
+                    # A foreign claim raced the window between the spot
+                    # check and Reserve; the plan was already consumed.
+                    spec.reserve_rejected(plan)
+
+        if best is None:
+            try:
+                batch = self.framework.run_batch_filter_score(state, pod, snapshot)
+            except Exception as e:  # noqa: BLE001 — keep the loop serving
+                log.exception("batch filter/score failed for %s", pod.key)
+                return done("error", message=f"batch filter/score failed: {e}")
+            if batch is None:
+                return done(
+                    "error", message="no batch filter/score plugin is registered"
                 )
-            if nominated:
-                return done("nominated", node=nominated, message=pf_st.message)
-            return done("unschedulable", message=summarize_failure(statuses))
+            statuses, batch_scores = batch
+            feasible = sorted(batch_scores)
+            if not feasible:
+                # As above: no Reserve on this path, the lock goes first.
+                release_cycle_lock()
+                with self.post_filter_lock:
+                    nominated, pf_st = self.framework.run_post_filter(
+                        state, pod, snapshot, statuses
+                    )
+                if nominated:
+                    return done("nominated", node=nominated, message=pf_st.message)
+                return done("unschedulable", message=summarize_failure(statuses))
 
-        st = self.framework.run_pre_score(state, pod, snapshot, feasible)
-        totals: dict[str, int] = {}
-        if st.success:
-            totals, st = self.framework.run_scores(state, pod, snapshot, feasible)
-        if not st.success:
-            return done("error", message=st.message)
-        if self.framework.score_plugins:
-            # Combining with per-node plugins: bring the batch total onto
-            # the same [0,100] scale.
-            normalized = _normalize(batch_scores)
-            for n in feasible:
-                totals[n] = totals.get(n, 0) + normalized[n]
-        else:
-            # Batch is the only scorer: its scores are already
-            # normalized+tiered; re-normalizing would only quantize away
-            # within-tier ordering.
-            totals = dict(batch_scores)
-        best = max(feasible, key=lambda n: (totals.get(n, 0), n))
+            st = self.framework.run_pre_score(state, pod, snapshot, feasible)
+            totals: dict[str, int] = {}
+            if st.success:
+                totals, st = self.framework.run_scores(state, pod, snapshot, feasible)
+            if not st.success:
+                return done("error", message=st.message)
+            if self.framework.score_plugins:
+                # Combining with per-node plugins: bring the batch total onto
+                # the same [0,100] scale.
+                normalized = _normalize(batch_scores)
+                for n in feasible:
+                    totals[n] = totals.get(n, 0) + normalized[n]
+            else:
+                # Batch is the only scorer: its scores are already
+                # normalized+tiered; re-normalizing would only quantize away
+                # within-tier ordering.
+                totals = dict(batch_scores)
+            best = max(feasible, key=lambda n: (totals.get(n, 0), n))
 
-        st = self.framework.run_reserve(state, pod, best)
-        if not st.success:
-            return done("unschedulable", node=best, message=st.message)
+            st = self.framework.run_reserve(state, pod, best)
+            if not st.success:
+                return done("unschedulable", node=best, message=st.message)
         # Reservation charged: the rest of the cycle needs no lock.
         release_cycle_lock()
 
@@ -289,6 +352,16 @@ class Scheduler:
             self.framework.run_unreserve(state, pod, best)
             return done("unschedulable", node=best, message=st.message)
 
+        if self._fenced():
+            # Leader fencing: abort BEFORE the API write. The reservation
+            # rolls back and the pod requeues.
+            self.framework.run_unreserve(state, pod, best)
+            return done(
+                "unschedulable",
+                node=best,
+                message="scheduler fenced (not leader); bind aborted before "
+                "the API write",
+            )
         st = self.framework.run_bind(state, pod, best)
         if not st.success:
             self.framework.run_unreserve(state, pod, best)
@@ -335,7 +408,16 @@ class Scheduler:
     def _do_permit_resolved(self, wp: WaitingPod, status: Status) -> None:
         pod = wp.pod
         if status.success:
-            st = self.framework.run_bind(wp.state, pod, wp.node_name)
+            if self._fenced():
+                # Leader fencing between permit release and bind: abort
+                # before the API write; the gang rolls back transactionally
+                # below, exactly as a bind failure would.
+                st = Status.unschedulable(
+                    "scheduler fenced (lost leadership); bind aborted "
+                    "before the API write"
+                )
+            else:
+                st = self.framework.run_bind(wp.state, pod, wp.node_name)
             if st.success:
                 self._confirm_bound(wp)
                 log.info("bound %s -> %s (permit released)", pod.key, wp.node_name)
@@ -547,7 +629,12 @@ class Scheduler:
                 seq = self._activity_seq  # pre-check capture: a resolution
                 # landing between the checks below and the wait bumps the
                 # seq and turns the wait into a no-op (no lost wakeup).
-            qpi = self.queue.pop(timeout=0.0)
+            if self._fenced():
+                # Leader fencing: park the queue — nothing is popped or
+                # bound while fenced.
+                qpi = None
+            else:
+                qpi = self.queue.pop(timeout=0.0)
             if qpi is not None:
                 for q in self._pop_batch(qpi):
                     self.schedule_one(q)

@@ -28,6 +28,17 @@ PyTorch versions (``ops.kernel.kernel_packed_burst``,
 ``ops.kernel.joint_fit_scan``) only for tensors on the CPU. For a CUDA
 tensor they launch the kernel or raise (a failed build, a refused launch,
 a CUDA error): there is no fallback.
+
+Two threads may launch at once, each on its own stream (the serve loop on
+the default stream, the speculative placement cache on its private one).
+chip_smoke.py's run (h) measures on an H100 the two pairs the port makes:
+``fleet_eval`` at K = 1 on the private stream beside the serve thread's
+``fleet_eval`` at K = 16 and beside its ``joint_fit`` cluster. Each result
+is held against the plain version and the overlap in time is reported; the
+wrappers take no launch lock on the strength of that run. Only the launch
+counters are guarded: the module-wide ones below and, where a wrapper is
+given a ``counter`` (the :class:`~yoda_tpu_torch.ops.kernel.TorchFleetKernel`
+that launched), that owner's, both bumped where the kernel launches.
 """
 
 from __future__ import annotations
@@ -66,9 +77,11 @@ MAX_REQUESTS = 128  # requests per launch (kMaxRequests); calls chunk by it
 
 # CUDA kernel launches, one count per kernel: fleet_eval adds one per
 # cooperative launch (one per 128-request chunk), joint_fit one per launch.
-# Plain-version calls on CPU tensors do not count.
+# Plain-version calls on CPU tensors do not count. Bumped under _count_lock:
+# the serve loop and the speculation thread launch concurrently.
 launches = 0
 joint_fit_launches = 0
+_count_lock = threading.Lock()
 
 _libs: "dict[Path, ctypes.CDLL]" = {}
 _lib_lock = threading.Lock()
@@ -218,12 +231,14 @@ def fleet_eval(
     reqs_k: torch.Tensor,     # [K, 5] int32 request rows
     weights: Weights,
     out: "torch.Tensor | None" = None,  # [K, 6, N] int32 to write into
+    counter=None,  # an owner whose ``launches`` also counts this call's
 ) -> torch.Tensor:
     """The fleet evaluation of K requests -> [K, 6, N] int32 (rows
     feasible, reasons, raw, final, best, claimable), into ``out`` when
     given (e.g. a view of a larger buffer that one download fetches): the
-    hand kernel for CUDA tensors — one launch per 128 requests — and the
-    plain version for CPU tensors."""
+    hand kernel for CUDA tensors — one launch per 128 requests, each added
+    to ``launches`` and to ``counter.launches`` — and the plain version for
+    CPU tensors."""
     global launches
     if chips.device.type == "cpu":
         packed = kernel_packed_burst(chips, nodes, dyn, host_ok_k, reqs_k, weights)
@@ -267,7 +282,10 @@ def fleet_eval(
             weight_row, device.index, stream,
         )
         _raise_for(lib, rc, "launch")
-        launches += 1
+        with _count_lock:
+            launches += 1
+            if counter is not None:
+                counter.launches += 1
     return out
 
 
@@ -303,12 +321,14 @@ def joint_fit(
     starts_k: torch.Tensor,  # [K] int32 group-start flags
     valid_k: torch.Tensor,   # [K] int32 real-row flags
     out: "torch.Tensor | None" = None,  # [2K + N] int32 to write into
+    counter=None,  # an owner whose ``joint_fit_launches`` also counts it
 ) -> "tuple[torch.Tensor, torch.Tensor, torch.Tensor]":
     """The joint fit scan over the rows of one fleet evaluation ->
     (picks [K], group_ok [K], sim [N]) int32 views of ``out`` (a fresh
     [2K + N] buffer when not given): the hand kernel for CUDA tensors,
-    launched on the current stream after whatever wrote ``packed``, and
-    the plain version (ops.kernel.joint_fit_scan) for CPU tensors."""
+    launched on the current stream after whatever wrote ``packed`` and
+    counted in ``joint_fit_launches`` and ``counter.joint_fit_launches``,
+    and the plain version (ops.kernel.joint_fit_scan) for CPU tensors."""
     global joint_fit_launches
     k, _, n = packed.shape
     device = packed.device
@@ -341,5 +361,8 @@ def joint_fit(
         torch.cuda.current_stream(device).cuda_stream,
     )
     _raise_for(lib, rc, "launch", "joint_fit")
-    joint_fit_launches += 1
+    with _count_lock:
+        joint_fit_launches += 1
+        if counter is not None:
+            counter.joint_fit_launches += 1
     return picks, gok, sim

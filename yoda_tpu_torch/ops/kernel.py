@@ -38,6 +38,7 @@ the scan is not carried either).
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -101,8 +102,10 @@ DYN_KEYS = ("fresh", "reserved_chips", "claimed_hbm_mib", "host_ok")
 _BIG = np.iinfo(np.int32).max
 
 # TorchFleetKernel.update_rows calls that updated resident rows on a CUDA
-# device: one host-to-device copy and the index_copy_ pair each.
+# device: one host-to-device copy and the index_copy_ pair each. Bumped
+# under _count_lock: the serve loop and the speculation thread both update.
 row_update_launches = 0
+_count_lock = threading.Lock()
 _BOOL_KEYS = frozenset(
     {"node_valid", "in_slice", "fresh", "host_ok", "chip_valid",
      "chip_healthy", "chip_used"}
@@ -725,6 +728,15 @@ class TorchFleetKernel:
     trip: its side inputs ride the same upload, the scan reads the
     evaluation's rows where they lie, and its picks, verdicts and ledger
     come back in the same download.
+
+    Every call runs on the calling thread's current stream: a caller that
+    owns a stream (the speculative placement cache) wraps its calls in
+    ``torch.cuda.stream``, and the result fetch synchronizes that stream
+    only. Per instance, ``launches``, ``joint_fit_launches`` and
+    ``row_updates`` count the CUDA work this kernel object issued, each
+    bumped where that work is launched (the wrappers take this object as
+    their ``counter``; their module-wide counts cover every instance), so a
+    run can tell the serve path's launches from another owner's.
     """
 
     def __init__(self, weights: Weights, device: torch.device) -> None:
@@ -733,6 +745,9 @@ class TorchFleetKernel:
         self._chips: torch.Tensor | None = None
         self._nodes: torch.Tensor | None = None
         self._names: list[str] = []
+        self.launches = 0            # fleet_eval launches (128-row chunks)
+        self.joint_fit_launches = 0
+        self.row_updates = 0         # update_rows calls on the card
 
     @property
     def names(self) -> list[str]:
@@ -768,7 +783,9 @@ class TorchFleetKernel:
         )
         apply_row_update(self._chips, self._nodes, payload, r)
         if self.device.type == "cuda":
-            row_update_launches += 1
+            with _count_lock:
+                row_update_launches += 1
+                self.row_updates += 1
 
     def _upload(self, size: int, fill) -> torch.Tensor:
         """A flat int32 input buffer of ``size`` words on the device,
@@ -821,7 +838,8 @@ class TorchFleetKernel:
             lambda buf: pack_inputs(dyn, host_ok_k, reqs, out=buf),
         )
         out = fleet_eval(
-            self._chips, self._nodes, *split_inputs(inputs, n, k), self.weights
+            self._chips, self._nodes, *split_inputs(inputs, n, k), self.weights,
+            counter=self,
         )
         return results_from_packed(self._names, self._download(out))
 
@@ -882,9 +900,9 @@ class TorchFleetKernel:
         packed = res[:rows].view(k, 6, n)
         fleet_eval(
             self._chips, self._nodes, d_dyn, d_ok, d_reqs, self.weights,
-            out=packed,
+            out=packed, counter=self,
         )
-        joint_fit(packed, *d_side, out=res[rows:])
+        joint_fit(packed, *d_side, out=res[rows:], counter=self)
         host = self._download(res)
         flat = results_from_packed(self._names, host[:rows].reshape(k, 6, n))
         picks = host[rows : rows + k]

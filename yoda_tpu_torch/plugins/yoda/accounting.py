@@ -138,6 +138,17 @@ class ChipAccountant(ReservePlugin):
         with self._lock:
             return self._in_use.get(node_name, 0)
 
+    def has_claim(self, uid: str) -> bool:
+        with self._lock:
+            return uid in self._claims
+
+    def claimed_uids(self) -> set[str]:
+        """Every pod uid currently holding a reservation — the failover
+        reconciler diffs this against cluster truth to find LEAKED claims
+        (reservations whose pod deletion the watch stream dropped)."""
+        with self._lock:
+            return set(self._claims)
+
     def chips_by_node(self) -> dict[str, int]:
         """One consistent copy of the whole reservation map under a single
         lock acquisition — the evaluation's dynamics build reads every node

@@ -40,9 +40,11 @@ gangs' inter-pod admission: the PreFilter's AffinityData gates each node,
 and a required term matching the gang's own labels caps the slots (self
 anti-affinity: one member per domain; self affinity: the largest single
 domain, with the members steered into domains that hold the whole
-remainder). Left out until a later slice: elastic resize
-(``set_effective_size`` — an elastic gang binds at its declared size,
-since nothing resizes it), shard commits (``collect_commits``), the bind
+remainder), and the rebalancer surface: elastic resize
+(``set_effective_size`` / ``effective_size``: admission and the Permit
+barrier count to the effective size, and a surplus member parks until a
+resize-up), ``install_plan`` and ``bound_members``. Left out until a later
+slice: shard commits (``collect_commits``), the bind
 pipeline's parallel release and completion barrier (``collect_rollbacks``:
 every bind here runs inline, so ``on_bind_failed`` hands the landed binds
 back directly), the node-health fence, the Event recorder's rollback hook
@@ -126,6 +128,10 @@ class _GangState:
     # caught by on_pod_waiting; cleared ONLY per kind on host re-add, so
     # zombie-pod watch events cannot resurrect a lost membership.
     dead_hosts: dict[str, set[str]] = field(default_factory=dict)
+    # Elastic gangs: the CURRENT effective size, moved by the rebalancer
+    # (set_effective_size). None = the declared spec.size. The Permit
+    # barrier releases at it and admission admits up to it.
+    eff_size: int | None = None
 
 
 class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
@@ -153,6 +159,13 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
         self._framework = framework
 
     # --- helpers ---
+
+    @staticmethod
+    def _eff(gs: _GangState) -> int:
+        """The gang's CURRENT effective size: the member count the Permit
+        barrier releases at and admission admits up to. spec.size unless
+        an elastic resize (set_effective_size) moved it."""
+        return gs.eff_size if gs.eff_size is not None else gs.spec.size
 
     def _member_slots(self, ni: NodeInfo, req, *, exclude_hosts: set[str]) -> int:
         """How many members of ``req`` the node could take right now."""
@@ -216,12 +229,17 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
                 # re-admitting.
                 gs.bound.discard(pod.key)
                 gs.assigned.pop(pod.key, None)
-            remaining = gs.spec.size - len(gs.bound) - len(gs.waiting)
+            remaining = self._eff(gs) - len(gs.bound) - len(gs.waiting)
             if gs.spec.elastic and remaining <= 0:
-                # Surplus member of an elastic gang already at its size.
+                # Surplus member of an elastic gang: the gang already runs
+                # at its effective size — park until a resize-up
+                # (Rebalancer) raises it (the resize calls
+                # move_all_to_active, which reactivates this entry).
                 return Status.unschedulable(
-                    f"gang {req.gang.name}: already at its size "
-                    f"{gs.spec.size}; surplus member parked"
+                    f"gang {req.gang.name}: already at its effective size "
+                    f"{self._eff(gs)} (elastic {gs.spec.floor}.."
+                    f"{gs.spec.ceiling}); surplus member parked until a "
+                    "resize-up"
                 )
             state.write(GANG_REMAINING_KEY, _GangRemaining(remaining))
             if gs.spec.topology is not None:
@@ -480,7 +498,7 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
                 return
             gs = self._gangs[gang_name]
             dead = gs.assigned.get(wp.pod.key) in gs.dead_hosts
-            complete = len(gs.waiting) + len(gs.bound) >= gs.spec.size
+            complete = len(gs.waiting) + len(gs.bound) >= self._eff(gs)
             targets = list(gs.waiting) if complete and not dead else []
             if targets:
                 # Release starts: arm the transactional-bind cohort. Any
@@ -528,7 +546,7 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
             gs.waiting.discard(wp.pod.key)
             if status.success:
                 gs.bound.add(wp.pod.key)
-                if len(gs.bound) >= gs.spec.size:
+                if len(gs.bound) >= self._eff(gs):
                     gs.assigned = {
                         k: v for k, v in gs.assigned.items() if k in gs.bound
                     }
@@ -788,6 +806,28 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
             self._reject_waiting(key, reason)
 
     # --- rebalancer surface ---
+
+    def set_effective_size(self, name: str, n: int) -> int | None:
+        """Elastic resize: set the gang's effective size, clamped to
+        [spec.floor, spec.ceiling]. Returns the size actually set, or None
+        when the gang is unknown or not elastic (rigid gangs cannot be
+        resized). The caller (Rebalancer) reactivates parked surplus
+        members via ``queue.move_all_to_active`` after a resize-up; a
+        resize-down of a BOUND gang additionally unbinds the surplus
+        members through the standard rollback path."""
+        with self._lock:
+            gs = self._gangs.get(name)
+            if gs is None or not gs.spec.elastic:
+                return None
+            n = max(gs.spec.floor, min(gs.spec.ceiling, n))
+            gs.eff_size = n
+            return n
+
+    def effective_size(self, name: str) -> int | None:
+        """The gang's current effective size (None when unknown here)."""
+        with self._lock:
+            gs = self._gangs.get(name)
+            return self._eff(gs) if gs is not None else None
 
     def install_plan(
         self,

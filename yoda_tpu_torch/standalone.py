@@ -13,12 +13,21 @@ PostFilter preemption (``TpuPreemption``, on by default: evictions through
 ``FakeCluster.evict_pod``, nominations written to pod status, victim
 preference by the informer's PodDisruptionBudgets). The informer watches
 Namespaces, PersistentVolumeClaims, PersistentVolumes and budgets as the
-cluster offers them, and their events reactivate parked pods. Left out
-until a later slice: the speculative placement cache, node health, the
-rebalancer, the reconciler, the bind executor (binds run inline), tracing
-/ metrics / SLO / overload (so preemption has no eviction counter hook),
-batched ingest, tenancy, the durable journal, profiles, shards and
-federation.
+cluster offers them, and their events reactivate parked pods.
+
+The background parts are built, as in the reference, but not started: the
+warm-start and drift ``Reconciler``, the ``Rebalancer`` (gated on the
+leader fence and the reconciler's resync; ``draining_fn`` None without a
+node health monitor) and the ``SpeculativeCache``, whose private mirror
+evaluates on the batch plugin's device (on the card, on a stream of its
+own) and whose plans the scheduler's serve path consumes. A caller drives
+``reconciler.resync()`` / ``reconcile()``, ``rebalancer.run_once()`` or
+``rebalancer.run_forever(stop)`` (which ticks the cache) and
+``speculation.speculate_once()``. Left out until a later slice: node
+health, the bind executor (binds run inline), tracing / metrics / SLO /
+overload (so preemption has no eviction counter hook), live
+reconfiguration (``apply_reloadable``), batched ingest, tenancy, the
+durable journal, profiles, shards and federation.
 
 A knob of such a subsystem loads (``config.SchedulerConfig`` keeps every
 knob of the reference), but ``build_stack`` raises ``NotImplementedError``
@@ -41,8 +50,10 @@ from yoda_tpu_torch.cluster.fake import Event, FakeCluster
 from yoda_tpu_torch.cluster.informer import InformerCache
 from yoda_tpu_torch.config import SchedulerConfig
 from yoda_tpu_torch.framework.queue import SchedulingQueue
+from yoda_tpu_torch.framework.reconciler import Reconciler
 from yoda_tpu_torch.framework.runtime import Framework
 from yoda_tpu_torch.framework.scheduler import Scheduler
+from yoda_tpu_torch.framework.speculation import SpeculativeCache
 from yoda_tpu_torch.plugins.yoda import (
     GangPlugin,
     TpuPreemption,
@@ -51,6 +62,7 @@ from yoda_tpu_torch.plugins.yoda import (
 )
 from yoda_tpu_torch.plugins.yoda.accounting import ChipAccountant
 from yoda_tpu_torch.plugins.yoda.binder import ClusterBinder
+from yoda_tpu_torch.rebalance import Rebalancer
 
 log = logging.getLogger("yoda_tpu_torch.standalone")
 
@@ -70,6 +82,17 @@ PORTED_KNOBS = frozenset(
         "immediate_retry_attempts",
         "gang_permit_timeout_s",
         "enable_preemption",
+        "spec_enabled",
+        "spec_cache_size",
+        "spec_shapes_max",
+        "reconcile_period_s",
+        "rebalance_period_s",
+        "rebalance_min_gain",
+        "rebalance_max_moves",
+        "rebalance_max_victims",
+        "rebalance_preemption",
+        "rebalance_elastic",
+        "failover_adopt_window_s",
     }
 )
 
@@ -80,9 +103,6 @@ PORTED_KNOBS = frozenset(
 UNPORTED_KNOB_VALUES = {
     "bind_workers": ("bind executor", (0,)),
     "bind_pipeline": ("bind pipeline", ("off",)),
-    "reconcile_period_s": ("reconciler", (0,)),
-    "rebalance_period_s": ("rebalancer", (0,)),
-    "spec_enabled": ("speculative placement cache", (False,)),
     "node_repair": ("node repair", (False,)),
     "node_health_period_s": ("node health monitor", (0,)),
     "trace_sample_rate": ("tracing", (0,)),
@@ -130,6 +150,12 @@ class Stack:
     gang: GangPlugin
     # None when config.enable_preemption is off.
     preemption: TpuPreemption | None = None
+    # Built always, started by nobody: the caller drives them.
+    reconciler: Reconciler | None = None
+    rebalancer: Rebalancer | None = None
+    # Produced by the rebalancer's tick (or speculate_once), consumed by
+    # the serve path; spec_enabled=False builds it disabled.
+    speculation: SpeculativeCache | None = None
     # Parts the config turns on that this port does not build
     # (not_built_parts); build_stack logs them once.
     not_built: tuple[str, ...] = ()
@@ -293,7 +319,70 @@ def build_stack(
         pod_alive=informer.pod_schedulable,
         burst_size=config.batch_requests,
     )
+    # Crash-safe failover: the warm-start resync + drift reconciler for
+    # this stack. Built but NOT started.
+    reconciler = Reconciler(
+        cluster=cluster,
+        informer=informer,
+        accountant=accountant,
+        gang=gang,
+        framework=framework,
+        queue=queue,
+        scheduler=scheduler,
+        adopt_window_s=config.failover_adopt_window_s,
+        scheduler_names=(config.scheduler_name,),
+        clock=clock,
+    )
+    # Goodput-driven rebalancer: background ICI defragmentation + priority
+    # preemption + elastic resize. Built but NOT started. The gate composes
+    # leadership (the scheduler's live fence) with the warm-start contract:
+    # no rebalancing on un-resynced state.
+    rebalancer = Rebalancer(
+        cluster=cluster,
+        informer=informer,
+        accountant=accountant,
+        gang=gang,
+        framework=framework,
+        queue=queue,
+        scheduler=scheduler,
+        clock=clock,
+        min_gain=config.rebalance_min_gain,
+        max_moves=config.rebalance_max_moves,
+        preemption=config.rebalance_preemption,
+        elastic=config.rebalance_elastic,
+        max_victims=config.rebalance_max_victims,
+        gate_fn=lambda: (
+            not scheduler._fenced() and reconciler.resynced.is_set()
+        ),
+    )
+    # Speculative placement cache: the rebalancer thread's sub-tick
+    # pre-validates one placement per recently-seen single-pod shape
+    # against a PRIVATE resident mirror on the batch plugin's device; the
+    # serve loop's fast path consumes plans behind the fence + epoch +
+    # reserved-chip revalidation chain. Wired to the SAME feeds the batch
+    # plugin uses so the two views cannot diverge on sourcing. The
+    # reference hands it config.weights, not the effective (strategy)
+    # weights the batch plugin gets; so does the port.
+    speculation = SpeculativeCache(
+        snapshot_fn=informer.snapshot,
+        changes_fn=informer.changes_since,
+        admission_changes_fn=informer.admission_changes_since,
+        reserved_fn=accountant.chips_in_use,
+        reserved_map_fn=accountant.chips_by_node,
+        claimed_fn=informer.claimed_hbm_mib,
+        claimed_map_fn=informer.claimed_hbm_mib_map,
+        last_updated_map_fn=informer.last_updated_map,
+        weights=config.weights,
+        max_metrics_age_s=config.max_metrics_age_s,
+        enabled=config.spec_enabled,
+        size=config.spec_cache_size,
+        shapes_max=config.spec_shapes_max,
+        device=batch.device,
+    )
+    scheduler.speculation = speculation
+    rebalancer.speculator = speculation
     return Stack(
         cluster, informer, accountant, framework, queue, scheduler, binder,
-        batch, gang, preemption, not_built,
+        batch, gang, preemption, reconciler, rebalancer, speculation,
+        not_built,
     )
