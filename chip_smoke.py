@@ -147,7 +147,8 @@ Phases, each of which makes the script exit non-zero when it fails:
        dropped deletion and a leaked claim for the drift pass;
    (h4) ``run_forever`` on a second thread (1 s passes, 50 ms speculation
        ticks) while the main thread serves 256 singletons and four plain
-       gangs (two joint passes of two gangs) at K = 16 over about 4 s:
+       gangs (two joint passes of two gangs) at K = 16 over about 8 s,
+       with at least one rebalance pass begun inside that window:
        invariants only (capacity, accounting, whole gangs, every consumed
        plan's node admits its pod, both threads launched fleet_eval and
        the serve thread joint_fit, counted per kernel object from zero
@@ -155,12 +156,49 @@ Phases, each of which makes the script exit non-zero when it fails:
    (h1)-(h3) must equal the same script on kernel_platform "cpu" in
    bindings, plans, counters and reports; that CPU run goes on in a
    second process (two threads), started once the kernels are built, so
-   it overlaps the card's phases. (h4) runs on the card only.
+   it overlaps the card's phases. (h4) runs on the card only, twice: as
+   above and with the speculative cache off (``spec_enabled=False``),
+   each printing the burst rows that failed the serve-time check and
+   the serve path's dispatches and launches per pod.
+   Then run (i), the node health path on the same fleet
+   (``run_nodehealth``, ``NODEHEALTH_FULL``; the tests run
+   ``NODEHEALTH_SMALL``), every host with a Node object: an elastic gang
+   (16 x 8 chips, min 8) on a 16-host pool, two plain gangs of 16 x 8 on
+   a 32-host pool, then 16 topology gangs (2x1x1 x 4 chips, each on a
+   v5p slice of its own), 6 more plain gangs of 16 x 8 and 128
+   singletons, at K = 16 with ``bind_workers`` 0 (unbinds in order). One
+   fake wall clock drives the agent's stamps and the monitor's ladder,
+   and a stepped scheduling clock the queue, so both platforms take the
+   same decisions; the monitor is driven by ``run_once``:
+   (i1) 64 heartbeats holding gang members and singletons stop and the
+       clock passes ``node_suspect_after_s``: 64 rows fenced (a probe
+       dispatch right after counts the admission rows patched, with no
+       re-stack and no row update); 256 singletons served at K = 16,
+       none on a fenced host; 32 heartbeats resume (a flap: no repair);
+       the other 32 pass ``node_down_after_s``, and one pass patches the
+       topology and plain gangs, shrinks the elastic gang and requeues the
+       singletons;
+   (i2) ``kill_node`` under a topology gang (its claims released at event
+       time) and ``set_node_ready(False)`` under a plain gang, repaired;
+   (i3) a drain under a topology gang that the rebalancer's pass migrates,
+       and a drain with deadline 0 that the next pass evacuates;
+   (i4) 18 hosts under the two pool gangs go silent past the down
+       threshold: both requeue whole and park; the heartbeats resume, the
+       fence opens, and both gangs bind in one fused joint pass (the
+       ``joint_fit`` launch).
+   Bindings after each part, node states, fence sets and every pass's
+   RepairReport must equal the CPU run (in the rerun process above); no
+   pod may bind on a host while fenced, no host over its chips, no gang
+   split, no claim leaked, and on the card every ``fleet_eval`` and
+   ``joint_fit`` call of the run equals its plain version on the same
+   inputs. Printed: ms per pass, each repair's ``durations_ms``, host ms
+   from a pass to each repaired gang's last re-bind, the counters across
+   each fence flip and the launches by part.
 4. One line {"kernels": [...]} with each kernel's launches over every run
-   above (run (h)'s also by part, and the speculation thread's apart),
-   its largest difference from the plain version and its times ("not
-   measured" where the profiler saw no device activity). Before it, one
-   line of each phase's wall seconds.
+   above (runs (h)'s and (i)'s also by part, and the speculation thread's
+   apart), its largest difference from the plain version and its times
+   ("not measured" where the profiler saw no device activity). Before it,
+   one line of each phase's wall seconds.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits non-zero and prints no result.
@@ -771,23 +809,27 @@ def build_fleet(
     node_fn=None,
     slices: int = 512,
     v5e_hosts: int = 2952,
+    clock=None,
+    now_fn=None,
     **knobs,
 ):
     """The 5,000-node fleet's stack and its agent: 512 v5p 2x2x1 slices and
     2,952 v5e hosts, published by the port's FakeTpuAgent. With ``pools``
     every host gets a Node object, labelled pool=<its pool> where ``pools``
     names it; with ``node_fn`` every host gets ``node_fn(name)``. Smaller
-    fleets for the card tests through ``slices`` and ``v5e_hosts``; other
-    SchedulerConfig knobs through ``knobs``."""
+    fleets for the card tests through ``slices`` and ``v5e_hosts``; the
+    stack's scheduling clock through ``clock``, the agent's wall clock
+    through ``now_fn``; other SchedulerConfig knobs through ``knobs``."""
     from yoda_tpu_torch.agent.fake_publisher import FakeTpuAgent
     from yoda_tpu_torch.api.types import K8sNode
     from yoda_tpu_torch.config import SchedulerConfig
     from yoda_tpu_torch.standalone import build_stack
 
     stack = build_stack(
-        config=SchedulerConfig(kernel_platform=platform, batch_requests=burst, **knobs)
+        config=SchedulerConfig(kernel_platform=platform, batch_requests=burst, **knobs),
+        **({} if clock is None else {"clock": clock}),
     )
-    agent = FakeTpuAgent(stack.cluster)
+    agent = FakeTpuAgent(stack.cluster, **({} if now_fn is None else {"now_fn": now_fn}))
     hosts = []
     for s in range(slices):
         hosts += agent.add_slice(f"v5p-{s:03d}", generation="v5p", host_topology=(2, 2, 1))
@@ -1964,7 +2006,7 @@ def run_affinity(platform: str, size: dict = AFFINITY_FULL) -> dict:
         for cls, build in builds.items():
             setattr(cls, "build", build)
     launches = cuda_kernel.launches
-    device_k1, windows = None, []
+    device_k1, windows, k1_ms, k1_plain_ms = None, [], None, None
     if k1_args:
         # The tracer was seen to lose kernel records on this input (16 of
         # 20 in every window, while both counts said 20): the fullest short
@@ -1972,6 +2014,11 @@ def run_affinity(platform: str, size: dict = AFFINITY_FULL) -> dict:
         device_k1, _per_call, windows = profiled_ms(
             lambda: cuda_kernel.fleet_eval(*k1_args), lambda: cuda_kernel.launches,
             short_ok=True)
+        from yoda_tpu_torch.ops.kernel import kernel_packed_burst
+
+        k1_ms = cuda_ms(lambda: cuda_kernel.fleet_eval(*k1_args))
+        cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in k1_args]
+        k1_plain_ms = cuda_ms(lambda: kernel_packed_burst(*cpu_args), warmup=1, iters=3)
     waves = {"wave1": script["wave1"],
              "wave2": script["fill"] + script["gang"] + [script["solo"]]}
     pods = [script["holder"]] + waves["wave1"] + waves["wave2"]
@@ -2013,6 +2060,7 @@ def run_affinity(platform: str, size: dict = AFFINITY_FULL) -> dict:
         evaluator_build_ms=ms("evaluators"), admission_row_with_aff_ms=ms("admission"),
         preference_bonus_ms=ms("bonus"), post_filter_ms=ms("post_filter"),
         fleet_eval_k1_device_ms=device_k1, fleet_eval_k1_profiler_windows=windows,
+        fleet_eval_k1_ms=k1_ms, fleet_eval_k1_plain_ms=k1_plain_ms,
         not_built=list(stack.not_built),
     )
     for wave, wall in zip(("wave1", "wave2"), walls):
@@ -2233,7 +2281,7 @@ def phase_wide_fleet(smi: str) -> list[dict]:
 # second thread while the serve loop runs. The smaller size is the tests'
 # copy of the same script.
 BACKGROUND_FULL = dict(slices=512, v5e_hosts=2952, waves=16, wave=16, pool=64,
-                       frag_slices=4, gang=16, threaded_pods=256, threaded_s=4.0,
+                       frag_slices=4, gang=16, threaded_pods=256, threaded_s=8.0,
                        period_s=1.0)
 BACKGROUND_SMALL = dict(slices=16, v5e_hosts=96, waves=4, wave=8, pool=24,
                         frag_slices=4, gang=4, threaded_pods=32, threaded_s=1.0,
@@ -2363,6 +2411,8 @@ def concurrent_eval(stack, spec, spec_inputs, calls: int = 40) -> dict:
                        for x in joint_case(k, jn, seed=k * 7 + jn))
     plain = [kernel_packed_burst(*(t.cpu() if torch.is_tensor(t) else t for t in args))
              for args in (spec_args, serve_args)]
+    cpu_spec_args = [t.cpu() if torch.is_tensor(t) else t for t in spec_args]
+    plain_ms = cuda_ms(lambda: kernel_packed_burst(*cpu_spec_args), warmup=1, iters=3)
     packed_cpu = joint_args[0].cpu()
     plain_joint = [w.to(torch.int32) for w in joint_fit_scan(
         packed_cpu[:, 0], packed_cpu[:, 3], packed_cpu[:, 5],
@@ -2440,7 +2490,7 @@ def concurrent_eval(stack, spec, spec_inputs, calls: int = 40) -> dict:
         return sum(any(a < d and c < b for c, d in others) for a, b in mine)
 
     return dict(
-        alone_ms=alone, concurrent_ms=concurrent, calls=calls,
+        alone_ms=alone, concurrent_ms=concurrent, calls=calls, plain_ms=plain_ms,
         serve_thread_calls=serve_calls[0], serve_thread_calls_in_windows=during,
         alone_device_ms=device_ms(alone_kernels), profiled_alone=len(alone_kernels),
         concurrent_device_ms=device_ms(mine),
@@ -2692,15 +2742,20 @@ def run_reconcile(platform: str, size: dict, cluster) -> dict:
     )
 
 
-def run_threaded(platform: str, size: dict) -> dict:
+def run_threaded(platform: str, size: dict, spec_enabled: bool = True) -> dict:
     """(h4): the rebalancer's run_forever on a second thread (passes every
     ``period_s``, 50 ms speculation ticks) while the main thread serves
     ``threaded_pods`` hot-shape singletons at K = 16 in 16 waves over about
     ``threaded_s`` seconds, and in two of the waves two plain gangs each,
     which the serve path places in one joint pass (fleet_eval, then
-    joint_fit). Every kernel object's launch counts are zeroed just before
-    the window. Invariants only: timing decides who wins a race, so the
-    bindings are not compared with any other run."""
+    joint_fit). The start of every rebalance pass is recorded, so the
+    check can require one that began inside the serve window.
+    Every kernel object's launch counts are zeroed just before the window;
+    pods/s and latencies count the serve waves only. Invariants only: timing decides who wins a race, so the
+    bindings are not compared with any other run. Counted over the window
+    too: the burst rows whose serve-time check failed (``_pick_checks``
+    False) and the serve path's dispatches; ``spec_enabled=False`` runs
+    the same window with the speculative cache off."""
     import logging
     import threading
 
@@ -2709,9 +2764,18 @@ def run_threaded(platform: str, size: dict) -> dict:
     from yoda_tpu_torch.ops import kernel as kernel_mod
 
     stack, _agent = build_fleet(platform, 16, slices=size["slices"],
-                                v5e_hosts=size["v5e_hosts"])
+                                v5e_hosts=size["v5e_hosts"], spec_enabled=spec_enabled)
     spec, rb = stack.speculation, stack.rebalancer
     errors: list[str] = []
+    pick_failures = [0]
+    inner_pick = stack.batch._pick_checks
+
+    def counted_pick(*args, **kw):
+        ok = inner_pick(*args, **kw)
+        pick_failures[0] += not ok
+        return ok
+
+    stack.batch._pick_checks = counted_pick
 
     class Errors(logging.Handler):
         def emit(self, record):
@@ -2729,6 +2793,14 @@ def run_threaded(platform: str, size: dict) -> dict:
         return ok
 
     spec.revalidate = noted_revalidate
+    pass_starts: list[float] = []
+    inner_pass = rb.run_once
+
+    def timed_pass():
+        pass_starts.append(time.monotonic())
+        return inner_pass()
+
+    rb.run_once = timed_pass
     rng = np.random.default_rng(9)
     names = []
     for i in range(16):  # warm: the shapes are seen, the fleet is resident
@@ -2741,6 +2813,9 @@ def run_threaded(platform: str, size: dict) -> dict:
         kern.launches = kern.joint_fit_launches = kern.row_updates = 0
     cuda_kernel.launches = cuda_kernel.joint_fit_launches = 0
     kernel_mod.row_update_launches = 0
+    pick_failures[0] = 0
+    b = stack.batch
+    window_base = (b.dispatch_count, b.burst_dispatches, b.burst_served, b.burst_invalidated)
     stop = threading.Event()
     thread = threading.Thread(
         target=rb.run_forever, args=(stop,),
@@ -2763,14 +2838,16 @@ def run_threaded(platform: str, size: dict) -> dict:
                         "tpu/generation": "v5e"}))
             stack.scheduler.run_until_idle(max_wall_s=300)
             time.sleep(max(t0 + (w + 1) * size["threaded_s"] / 16 - time.monotonic(), 0))
+        serve_end = time.monotonic()
     finally:
         stop.set()
         thread.join(timeout=60)
         spec.revalidate = inner_revalidate
+        rb.run_once = inner_pass
         logging.getLogger("yoda_tpu_torch").removeHandler(handler)
     if platform != "cpu":
         torch.cuda.synchronize()
-    wall = time.monotonic() - t0
+    wall = serve_end - t0
     snap = stack.informer.snapshot()
     bad_plans = []
     for pod, node in consumed:
@@ -2784,11 +2861,22 @@ def run_threaded(platform: str, size: dict) -> dict:
     gangs = {g: sum(stack.cluster.get_pod(f"default/{g}-{m}").node_name is not None
                     for m in range(4)) for pair in gang_waves.values() for g in pair}
     lat = singleton_latencies(stack, [n for n in names if n.startswith("th")])
+    window_pods = sum(n.startswith(("th", "tg")) for n in names)
+    dispatches, bursts, served, invalidated = (
+        now - then for now, then in zip(
+            (b.dispatch_count, b.burst_dispatches, b.burst_served, b.burst_invalidated),
+            window_base))
     return dict(
-        platform=platform, pods=len(names), alive=thread.is_alive(), errors=errors[:5],
+        platform=platform, spec_enabled=spec_enabled, window_pods=window_pods,
+        pick_check_failures=pick_failures[0], burst_invalidated=invalidated,
+        burst_dispatches=bursts, burst_served=served, serve_dispatches=dispatches,
+        serve_dispatches_per_pod=dispatches / window_pods,
+        serve_launches_per_pod=serve.launches / window_pods,
+        pods=len(names), alive=thread.is_alive(), errors=errors[:5],
         bound=sum(v is not None for v in bindings_of(stack, names).values()),
         gangs=gangs, consumed=len(consumed), bad_plans=bad_plans,
         stats=spec.stats(), rebalance_passes=rb.passes,
+        passes_begun_in_window=sum(t < serve_end for t in pass_starts),
         serve_launches=serve.launches, spec_launches=spec.kernel.launches,
         serve_joint_fit_launches=serve.joint_fit_launches,
         spec_joint_fit_launches=spec.kernel.joint_fit_launches,
@@ -2870,8 +2958,9 @@ def check_background_run(run: dict, size: dict) -> None:
             )
         if h4["bound"] != h4["pods"] or set(h4["gangs"].values()) != {4}:
             raise AssertionError(f"{name} h4: {h4['bound']}/{h4['pods']} bound, gangs {h4['gangs']}")
-        if not h4["rebalance_passes"] or not h4["stats"]["ticks"]:
-            raise AssertionError(f"{name} h4: the background thread did not run: {h4}")
+        if not h4["passes_begun_in_window"] or not h4["stats"]["ticks"]:
+            raise AssertionError(
+                f"{name} h4: no rebalance pass began beside the serve loop: {h4}")
         if not h4["fused_plan_dispatches"]:
             raise AssertionError(f"{name} h4: the serve thread took no joint pass")
 
@@ -2929,50 +3018,599 @@ def print_background(run: dict, smi: str) -> None:
         print(f"background ({part}) {run['h1']['platform']} [{smi}]:", json.dumps(summary))
 
 
+# Run (i): the node health path on the 5,000-node fleet — the health
+# ladder on stopped heartbeats, fencing through the admission rows the card
+# reads, condition signals, drains and gang-whole repair. The smaller size
+# is the tests' copy of the same script.
+NODEHEALTH_FULL = dict(slices=512, v5e_hosts=2952, topo=16, plain=8, gang=16,
+                       singles=128, serve=256, stop=64)
+NODEHEALTH_SMALL = dict(slices=16, v5e_hosts=96, topo=4, plain=4, gang=4,
+                        singles=16, serve=32, stop=16)
+# How long one drain of the queue may take before run (i) fails: its
+# scheduling clock is stepped by hand, so a pod left at Permit would hold a
+# drain for all of it.
+NODEHEALTH_DRAIN_S = 120.0
+
+
+class SteppedClock:
+    """A clock the script advances by hand: run (i)'s wall clock of the
+    agents' publish stamps (the monitor's ladder reads it) and its
+    scheduling clock (queue backoff, Permit deadlines, drain deadlines).
+    Stepping both by hand makes the card and CPU runs take the same
+    decisions whatever their speed."""
+
+    def __init__(self, t: float) -> None:
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance(self, dt: float) -> None:
+        self.t += dt
+
+
+def nodehealth_pools(size: dict) -> "dict[str, str]":
+    """Run (i)'s pools: ``gang`` v5e hosts for the elastic gang (nh-el),
+    ``2 * gang`` for the two plain gangs of (i4) (nh-q), and one v5p slice
+    per topology gang (nh-t<i>, slices spread over the fleet), so each
+    2x1x1 gang leaves its slice two free hosts to be patched or drained
+    into."""
+    g = size["gang"]
+    pools = {f"v5e-{h:04d}": "nh-el" for h in range(g)}
+    pools.update({f"v5e-{h:04d}": "nh-q" for h in range(g, 3 * g)})
+    step = size["slices"] // size["topo"]
+    for t in range(size["topo"]):
+        pools.update({f"v5p-{t * step:03d}-{i}": f"nh-t{t:02d}" for i in range(4)})
+    return pools
+
+
+def nodehealth_waves(size: dict, seed: int = 12):
+    """Run (i)'s two waves of (name, labels, node selector) and each gang's
+    (kind, members): first the pool-bound gangs (the elastic gang el, the
+    plain gangs p0 and p1), then the topology gangs (2x1x1 on v5p), the
+    other plain gangs and the singletons."""
+    rng = np.random.default_rng(seed)
+    g = size["gang"]
+    v5e = {"tpu/chips": "8", "tpu/generation": "v5e"}
+    gangs = {"el": ("elastic", g)}
+    first = [(f"el-{i:02d}", {"tpu/gang": "el", "tpu/gang-size": str(g),
+                              "tpu/min-members": str(g // 2),
+                              "tpu/max-members": str(g), **v5e}, {"pool": "nh-el"})
+             for i in range(g)]
+    for j in (0, 1):
+        gangs[f"p{j}"] = ("plain", g)
+        first += [(f"p{j}-{i:02d}", {"tpu/gang": f"p{j}", "tpu/gang-size": str(g), **v5e},
+                   {"pool": "nh-q"}) for i in range(g)]
+    second = []
+    for t in range(size["topo"]):
+        gangs[f"t{t:02d}"] = ("topology", 2)
+        second += [(f"t{t:02d}-{i}", {"tpu/gang": f"t{t:02d}", "tpu/topology": "2x1x1",
+                                      "tpu/chips": "4"}, {"pool": f"nh-t{t:02d}"})
+                   for i in range(2)]
+    for j in range(2, size["plain"]):
+        gangs[f"p{j}"] = ("plain", g)
+        second += [(f"p{j}-{i:02d}", {"tpu/gang": f"p{j}", "tpu/gang-size": str(g), **v5e},
+                    None) for i in range(g)]
+    second += [(f"s{i:03d}", {"tpu/chips": str(int(rng.choice(HOT_SHAPES))),
+                              "tpu/generation": "v5e"}, None)
+               for i in range(size["singles"])]
+    return [first, second], gangs
+
+
+def abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
+    """The largest absolute difference of two integer or bool tensors (on
+    any devices), 0 when empty."""
+    if not want.numel():
+        return 0
+    return int((got.cpu().to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def gang_of(name: str) -> "str | None":
+    """The gang a run (i) pod belongs to, None for a singleton."""
+    return None if name.startswith(("s", "serve", "probe")) else name.rsplit("-", 1)[0]
+
+
+def run_nodehealth(platform: str, size: dict = NODEHEALTH_FULL) -> dict:
+    """Run (i) on one kernel_platform (module docstring): bindings, node
+    states, fence sets and every monitor pass's RepairReport for the
+    comparison with the other platform; pass and repair times, the counters
+    across each fence flip and the kernels' launches; and on the card every
+    ``fleet_eval`` and ``joint_fit`` call's result against its plain
+    version."""
+    from yoda_tpu_torch.api.types import PodSpec
+    from yoda_tpu_torch.ops import cuda_kernel
+    from yoda_tpu_torch.ops import kernel as kernel_mod
+
+    now, clock = SteppedClock(1_000_000.0), SteppedClock(1_000.0)
+    # bind_workers 0: every unbind inline and in order, so both platforms
+    # requeue in one order (tests/test_torch_nodehealth.py holds the
+    # default fan-out against the reference on what no order changes).
+    stack, agent = build_fleet(
+        platform, 16, pools=nodehealth_pools(size), slices=size["slices"],
+        v5e_hosts=size["v5e_hosts"], clock=clock, now_fn=now, bind_workers=0,
+    )
+    monitor, batch = stack.nodehealth, stack.batch
+    monitor.now_fn = now
+    # The monitor's own clock times the repairs (RepairReport.durations_ms)
+    # and no deadline of this script can pass on it: the first drain's
+    # window is 300 s, the second's 0, and every patch completes in the
+    # drain after its pass, long before patch_grace_s.
+    monitor.clock = time.monotonic
+    suspect_s, down_s = monitor.suspect_after_s, monitor.down_after_s
+    binds: list[tuple[float, str, str]] = []  # (host time, pod, node)
+    inner_bind = stack.cluster.bind_pod
+
+    def noted_bind(key, node):
+        inner_bind(key, node)
+        binds.append((time.perf_counter(), key.split("/", 1)[1], node))
+
+    stack.cluster.bind_pod = noted_bind
+    kept_fleet: list = []
+    kept_joint: list = []
+    real_fleet_eval, real_joint_fit = cuda_kernel.fleet_eval, cuda_kernel.joint_fit
+
+    def kept_fleet_eval(chips, nodes, dyn, host_ok, reqs, weights, out=None, counter=None):
+        got = real_fleet_eval(chips, nodes, dyn, host_ok, reqs, weights, out=out,
+                              counter=counter)
+        if chips.is_cuda:
+            kept_fleet.append((tuple(t.clone() for t in (chips, nodes, dyn, host_ok, reqs)),
+                               weights, got.clone()))
+        return got
+
+    def kept_joint_fit(packed, chips_k, starts_k, valid_k, out=None, counter=None):
+        got = real_joint_fit(packed, chips_k, starts_k, valid_k, out=out, counter=counter)
+        if packed.is_cuda:
+            kept_joint.append((tuple(t.clone() for t in (packed, chips_k, starts_k, valid_k)),
+                               tuple(t.clone() for t in got)))
+        return got
+
+    names: list[str] = []
+
+    def create(pods):
+        for name, labels, selector in pods:
+            names.append(name)
+            stack.cluster.create_pod(
+                PodSpec(name, labels=dict(labels), node_selector=selector or {}))
+        drain()
+
+    def drain():
+        stack.scheduler.run_until_idle(max_wall_s=NODEHEALTH_DRAIN_S)
+        if stack.framework.waiting_pods():
+            raise AssertionError(f"run i ({platform}): pods left at Permit: "
+                                 f"{[w.pod.name for w in stack.framework.waiting_pods()]}")
+
+    def bound() -> dict:
+        return {p.name: p.node_name for p in stack.cluster.list_pods()}
+
+    def counters() -> dict:
+        return dict(restacks=batch.restacks,
+                    row_update_launches=kernel_mod.row_update_launches,
+                    admission_patched=batch.admission_patched,
+                    fleet_eval=cuda_kernel.launches, joint_fit=cuda_kernel.joint_fit_launches)
+
+    fence_log: list = []
+
+    def note_fence():
+        fence_log.append((time.perf_counter(), monitor.fenced_nodes()))
+
+    flips: list[dict] = []
+
+    def flip(label: str, fn):
+        """A fence-changing step and the counters across it."""
+        before = counters()
+        out = fn()
+        note_fence()
+        after = counters()
+        flips.append(dict(step=label, fenced=len(monitor.fenced_nodes()),
+                          **{k: after[k] - before[k] for k in before}))
+        return out
+
+    passes: list[dict] = []
+
+    def monitor_pass(label: str):
+        t = time.perf_counter()
+        report = flip(label, monitor.run_once)
+        ms = 1e3 * (time.perf_counter() - t)
+        passes.append(dict(
+            step=label, ms=ms, start=t,
+            report={k: (sorted(v) if k == "durations_ms" else v)
+                    for k, v in dataclasses.asdict(report).items()},
+            durations_ms=dict(report.durations_ms),
+            states={n: s.value for n, s in sorted(monitor.states().items())
+                    if s.value != "healthy"},
+            fenced=sorted(monitor.fenced_nodes()),
+        ))
+        return report
+
+    def rebind_ms(p: dict, gangs_of_pass: list) -> dict:
+        """Host ms from the pass's start to each repaired gang's last
+        member bind after it (None while a member is unbound)."""
+        out = {}
+        for gname in gangs_of_pass:
+            after = [t for t, n, _ in binds if t > p["start"] and gang_of(n) == gname]
+            out[gname] = 1e3 * (max(after) - p["start"]) if after else None
+        singles = [t for t, n, _ in binds if t > p["start"] and gang_of(n) is None]
+        if p["report"]["singles"]:
+            out["singletons"] = 1e3 * (max(singles) - p["start"]) if singles else None
+        return out
+
+    cuda_kernel.fleet_eval, cuda_kernel.joint_fit = kept_fleet_eval, kept_joint_fit
+    cuda_kernel.launches = cuda_kernel.joint_fit_launches = 0
+    kernel_mod.row_update_launches = 0
+    phase_launches: dict[str, dict] = {}
+    phase_bindings: dict[str, dict] = {}
+    t0 = time.monotonic()
+    try:
+        waves, gangs = nodehealth_waves(size)
+        base = counters()
+        for wave in waves:
+            create(wave)
+        agent.publish_all()
+        note_fence()
+        start = bound()
+        if None in start.values():
+            raise AssertionError(f"run i ({platform}): the fleet did not bind: "
+                                 f"{[n for n, v in start.items() if v is None][:5]}")
+        phase_bindings["i0"] = start
+        phase_launches["i0"] = counters()
+        note_fence()
+        # (i1) the silence ladder on 64 hosts holding gang members and
+        # singletons; half flap back inside the debounce window.
+        gang_hosts = {h for n, h in start.items() if gang_of(n)}
+        topo_hosts = [start[f"t{t:02d}-0"] for t in range(size["topo"])]
+        plain_hosts = [(start[f"p{j}-00"], start[f"p{j}-01"]) for j in range(2, size["plain"])]
+        el_hosts = [start[f"el-{i:02d}"] for i in range(size["gang"] // 4)]
+        single_hosts = sorted({h for n, h in start.items() if not gang_of(n)} - gang_hosts)
+        half = size["stop"] // 2
+        n_single = size["stop"] - len(topo_hosts) - 2 * len(plain_hosts) - len(el_hosts)
+        if len(single_hosts) < n_single:
+            raise AssertionError(f"run i: {len(single_hosts)} singleton hosts, want {n_single}")
+        down = (topo_hosts[: len(topo_hosts) // 2] + [a for a, _ in plain_hosts] + el_hosts)
+        down += single_hosts[: half - len(down)]
+        stopped = topo_hosts + [h for pair in plain_hosts for h in pair] + el_hosts
+        stopped += single_hosts[:n_single]
+        flap = [h for h in stopped if h not in down]
+        # The probes ask for more chips than any host has, under the plain
+        # singletons' admission key: the first folds every change so far
+        # into the cached admission row, the second dispatches right after
+        # the flip, so the row's patch count is the flip's alone.
+        probe = {"tpu/chips": "9", "tpu/generation": "v5e"}
+        create([("probe-0", probe, None)])
+        for h in stopped:
+            agent.stop_heartbeat(h)
+        now.advance(suspect_s + 1.0)
+        agent.publish_all()
+        note_fence()
+        monitor_pass("i1 suspect")
+        flip("i1 probe", lambda: create([("probe-1", probe, None)]))
+        for n in ("probe-0", "probe-1"):
+            stack.cluster.delete_pod(f"default/{n}")
+            names.remove(n)
+        fenced = set(monitor.fenced_nodes())
+        if fenced != set(stopped):
+            raise AssertionError(f"run i ({platform}): fenced {len(fenced)} hosts, "
+                                 f"stopped {len(stopped)}")
+        rng = np.random.default_rng(13)
+        t = time.monotonic()
+        create([(f"serve{i:03d}", {"tpu/chips": str(int(rng.choice(HOT_SHAPES))),
+                                   "tpu/generation": "v5e"}, None)
+                for i in range(size["serve"])])
+        serve_s = time.monotonic() - t
+        for h in flap:
+            agent.resume_heartbeat(h)
+        note_fence()
+        monitor_pass("i1 flap")
+        now.advance(down_s - suspect_s)
+        agent.publish_all()
+        note_fence()
+        monitor_pass("i1 down")
+        drain()
+        passes[-1]["rebind_ms"] = rebind_ms(
+            passes[-1], passes[-1]["report"]["patched"] + passes[-1]["report"]["requeued"])
+        phase_launches["i1"] = counters()
+        phase_bindings["i1"] = bound()
+        # (i2) condition signals at event time.
+        now_bound = bound()
+        killed = now_bound[f"t{size['topo'] - 1:02d}-1"]
+        not_ready = now_bound[f"p{size['plain'] - 1}-02"]
+        agent.stop_heartbeat(killed)  # the host is gone: its agent too
+        flip("i2 kill", lambda: stack.cluster.kill_node(killed))
+        ghost_left = stack.accountant.chips_in_use(killed)
+        flip("i2 not ready", lambda: stack.cluster.set_node_ready(not_ready, False))
+        event_states = {h: monitor.state_of(h).value for h in (killed, not_ready)}
+        monitor_pass("i2 repair")
+        drain()
+        passes[-1]["rebind_ms"] = rebind_ms(
+            passes[-1], passes[-1]["report"]["patched"] + passes[-1]["report"]["requeued"])
+        phase_launches["i2"] = counters()
+        phase_bindings["i2"] = bound()
+        # (i3) a drain the rebalancer migrates, then one past its deadline.
+        now_bound = bound()
+        drained_host = now_bound[f"t{size['topo'] - 2:02d}-0"]
+        flip("i3 drain", lambda: monitor.drain(drained_host))
+        t = time.perf_counter()
+        rb = flip("i3 rebalance", stack.rebalancer.run_once)
+        rebalance_ms = 1e3 * (time.perf_counter() - t)
+        drain()
+        evacuated = bound()[f"p{size['plain'] - 2}-03"]
+        flip("i3 deadline 0", lambda: monitor.drain(evacuated, deadline_s=0.0))
+        monitor_pass("i3 evacuate")
+        drain()
+        phase_launches["i3"] = counters()
+        phase_bindings["i3"] = bound()
+        # (i4) whole requeue of the two pool gangs, then the fence reopens.
+        now_bound = bound()
+        k = size["gang"] // 2 + 1
+        lost = [now_bound[f"p{j}-{i:02d}"] for j in (0, 1) for i in range(k)]
+        for h in lost:
+            agent.stop_heartbeat(h)
+        now.advance(down_s + 1.0)
+        agent.publish_all()
+        note_fence()
+        monitor_pass("i4 down")
+        drain()
+        parked = {g: sum(bound()[f"{g}-{i:02d}"] is not None for i in range(size["gang"]))
+                  for g in ("p0", "p1")}
+        flip("i4 resume", lambda: [agent.resume_heartbeat(h) for h in lost])
+        monitor_pass("i4 reopen")
+        fused_before, joint_before = batch.fused_plan_dispatches, cuda_kernel.joint_fit_launches
+        t = time.perf_counter()
+        drain()
+        reopen_ms = 1e3 * (time.perf_counter() - t)
+        reopen_fused = batch.fused_plan_dispatches - fused_before
+        reopen_joint_fit = cuda_kernel.joint_fit_launches - joint_before
+        phase_launches["i4"] = counters()
+        phase_bindings["i4"] = bound()
+    finally:
+        cuda_kernel.fleet_eval, cuda_kernel.joint_fit = real_fleet_eval, real_joint_fit
+        stack.cluster.bind_pod = inner_bind
+    if platform != "cpu":
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    final = bound()
+    # Invariants.
+    violations = []
+    for t, name, node in binds:
+        in_force = [f for ft, f in fence_log if ft <= t]
+        if in_force and node in in_force[-1]:
+            violations.append((name, node))
+    members: dict[str, list] = {}
+    for name, node in final.items():
+        g = gang_of(name)
+        if g:
+            members.setdefault(g, []).append(node)
+    split = {}
+    for g, nodes in members.items():
+        n = sum(x is not None for x in nodes)
+        eff = stack.gang.effective_size(g)
+        kind, size_g = gangs[g]
+        lo = size_g // 2 if kind == "elastic" else size_g
+        if n and not lo <= n <= size_g:
+            split[g] = n
+        if n and eff is not None and n != eff:
+            split[g] = (n, eff)
+    live = {p.uid for p in stack.cluster.list_pods()}
+    leaked = sorted(stack.accountant.claimed_uids() - live)
+    max_err = {"fleet_eval": 0, "joint_fit": 0}
+    for args, weights, got in kept_fleet:
+        want = kernel_mod.kernel_packed_burst(*(a.cpu() for a in args), weights)
+        max_err["fleet_eval"] = max(max_err["fleet_eval"], abs_err(got, want))
+    for (packed, chips_k, starts_k, valid_k), got in kept_joint:
+        p = packed.cpu()
+        want = kernel_mod.joint_fit_scan(p[:, 0], p[:, 3], p[:, 5], chips_k.cpu(),
+                                         starts_k.cpu(), valid_k.cpu())
+        for g_t, w_t in zip(got, want):
+            max_err["joint_fit"] = max(max_err["joint_fit"], abs_err(g_t, w_t))
+    unbound = sorted(n for n, v in final.items() if v is None)
+    return dict(
+        platform=platform, pods=len(names), bindings=final, phase_bindings=phase_bindings,
+        passes=[{k: v for k, v in p.items() if k not in ("ms", "start", "durations_ms",
+                                                          "rebind_ms")} for p in passes],
+        pass_ms={p["step"]: p["ms"] for p in passes},
+        durations_ms={p["step"]: p["durations_ms"] for p in passes},
+        rebind_ms={p["step"]: p["rebind_ms"] for p in passes if "rebind_ms" in p},
+        flips=flips, stopped=len(stopped), down=len(down), flap=len(flap),
+        event_states=event_states, ghost_left=ghost_left,
+        drained=rb.drained, drain_moves=rb.moves, parked_after_requeue=parked,
+        reopen_fused=reopen_fused, reopen_joint_fit=reopen_joint_fit,
+        unbound=unbound, violations=violations, split=split, leaked=leaked,
+        overcommitted=over_capacity(stack), accounting_gap=accounting_gap(stack),
+        effective_el=stack.gang.effective_size("el"),
+        launches=cuda_kernel.launches, joint_fit_launches=cuda_kernel.joint_fit_launches,
+        row_update_launches=kernel_mod.row_update_launches,
+        phase_launches={
+            p: {k: c[k] - prev[k] for k in ("fleet_eval", "joint_fit")}
+            for (p, c), prev in zip(phase_launches.items(),
+                                    [base, *phase_launches.values()])
+        },
+        # The launches of the calls held against the plain versions: one
+        # fleet_eval launch per MAX_REQUESTS request rows, one joint_fit a call.
+        kept_launches={
+            "fleet_eval": sum(-(-args[4].shape[0] // cuda_kernel.MAX_REQUESTS)
+                              for args, _, _ in kept_fleet),
+            "joint_fit": len(kept_joint),
+        },
+        max_abs_err=max_err, dispatch_errors=batch.dispatch_errors,
+        dispatch_count=batch.dispatch_count, serve_s=serve_s,
+        serve_pods_per_s=size["serve"] / serve_s if serve_s else 0.0,
+        rebalance_ms=rebalance_ms, reopen_ms=reopen_ms, wall_s=wall,
+    )
+
+
+NODEHEALTH_PARITY = ("bindings", "phase_bindings", "passes", "stopped", "down", "flap",
+                     "event_states", "ghost_left", "drained", "drain_moves",
+                     "parked_after_requeue", "reopen_fused", "unbound", "effective_el",
+                     "dispatch_count")
+
+
+def check_nodehealth_run(run: dict, size: dict) -> None:
+    """The checks of one run (i) that need no second run."""
+    name = f"run i ({run['platform']})"
+    for key in ("violations", "split", "leaked", "overcommitted", "accounting_gap"):
+        if run[key]:
+            raise AssertionError(f"{name}: {key} {run[key]}")
+    if run["dispatch_errors"]:
+        raise AssertionError(f"{name}: {run['dispatch_errors']} dispatch errors")
+    passes = {p["step"]: p for p in run["passes"]}
+    empty = dict(patched=[], shrunk=[], requeued=[], deferred=[], singles=[],
+                 durations_ms=[])
+    if passes["i1 suspect"]["report"] != empty or passes["i1 flap"]["report"] != empty:
+        raise AssertionError(f"{name}: the suspect or flap pass repaired: "
+                             f"{passes['i1 suspect']['report']}, {passes['i1 flap']['report']}")
+    if len(passes["i1 suspect"]["fenced"]) != size["stop"]:
+        raise AssertionError(f"{name}: {len(passes['i1 suspect']['fenced'])} fenced")
+    if len(passes["i1 flap"]["fenced"]) != run["down"]:
+        raise AssertionError(f"{name}: the flapped hosts stayed fenced")
+    rep = passes["i1 down"]["report"]
+    plain = {f"p{j}" for j in range(2, size["plain"])}
+    topo = {f"t{t:02d}" for t in range(size["topo"] // 2)}
+    if (rep["shrunk"] != ["el"] or not plain <= set(rep["patched"])
+            or set(rep["patched"]) | set(rep["requeued"]) != plain | topo
+            or not rep["singles"]):
+        raise AssertionError(f"{name}: the down pass repaired {rep}")
+    flips = {f["step"]: f for f in run["flips"]}
+    pure = flips["i1 probe"]
+    if pure["restacks"] or pure["row_update_launches"] or pure["admission_patched"] != size["stop"]:
+        raise AssertionError(f"{name}: the fence flip moved {pure}")
+    if run["ghost_left"] or set(run["event_states"].values()) != {"down"}:
+        raise AssertionError(f"{name}: ghost claims {run['ghost_left']}, "
+                             f"states at event time {run['event_states']}")
+    if run["drained"] != [f"t{size['topo'] - 2:02d}"]:
+        raise AssertionError(f"{name}: the rebalancer drained {run['drained']}")
+    if passes["i3 evacuate"]["report"]["patched"] != [f"p{size['plain'] - 2}"]:
+        raise AssertionError(f"{name}: the deadline pass {passes['i3 evacuate']['report']}")
+    if (passes["i4 down"]["report"]["requeued"] != ["p0", "p1"]
+            or set(run["parked_after_requeue"].values()) != {0}):
+        raise AssertionError(f"{name}: (i4) requeued {passes['i4 down']['report']}, "
+                             f"bound after {run['parked_after_requeue']}")
+    if not run["reopen_fused"]:
+        raise AssertionError(f"{name}: the reopened gangs took no fused joint pass")
+    lost_el = size["gang"] // 4
+    if (run["effective_el"] != size["gang"] - lost_el
+            or len(run["unbound"]) != lost_el
+            or not all(n.startswith("el-") for n in run["unbound"])):
+        raise AssertionError(f"{name}: unbound {run['unbound']}, el at {run['effective_el']}")
+
+
+def check_nodehealth(g: dict, c: dict, size: dict) -> None:
+    """Run (i) on the card against the same script on the CPU: every
+    decision equal, every check of each run, the card run's kernels where
+    they must launch and equal to their plain versions."""
+    diff = [k for k in NODEHEALTH_PARITY if g[k] != c[k]]
+    if diff:
+        raise AssertionError(f"run i: cuda != cpu in {diff}")
+    patched = [(f["step"], f["admission_patched"]) for f in g["flips"]]
+    if patched != [(f["step"], f["admission_patched"]) for f in c["flips"]]:
+        raise AssertionError("run i: admission rows patched differently on cuda and cpu")
+    check_nodehealth_run(g, size)
+    check_nodehealth_run(c, size)
+    if c["launches"] or c["joint_fit_launches"] or c["row_update_launches"]:
+        raise AssertionError("run i: the CPU run launched on the card")
+    if not (g["phase_launches"]["i1"]["fleet_eval"] and g["reopen_joint_fit"]):
+        raise AssertionError(f"run i: launches {g['phase_launches']}, "
+                             f"joint_fit at the reopen {g['reopen_joint_fit']}")
+    launched = {"fleet_eval": g["launches"], "joint_fit": g["joint_fit_launches"]}
+    if g["kept_launches"] != launched:
+        raise AssertionError(f"run i: {g['kept_launches']} launches held against the "
+                             f"plain versions, {launched} launched")
+    if g["max_abs_err"] != {"fleet_eval": 0, "joint_fit": 0}:
+        raise AssertionError(f"run i: kernels differ from their plain versions: "
+                             f"{g['max_abs_err']}")
+
+
+def print_nodehealth(run: dict, smi: str) -> None:
+    """Run (i)'s measurements, less its bindings, states and reports."""
+    summary = {k: v for k, v in run.items()
+               if k not in ("bindings", "phase_bindings", "passes")}
+    summary["reports"] = {p["step"]: {k: v for k, v in p["report"].items() if v}
+                          for p in run["passes"]}
+    print(f"node health (i) {run['platform']} [{smi}]:", json.dumps(summary))
+
+
 # Threads of the process that reruns run (h) on the CPU beside the card's
 # phases: the card's are host-bound on one core, and the machine has eight.
 CPU_RERUN_THREADS = 2
 
 
-def cpu_rerun_child(conn, size: dict) -> None:
-    """The body of the CPU rerun process: run (h)'s (h1)-(h3) on
-    kernel_platform "cpu", sent back whole or as the error that stopped it."""
+def cpu_rerun_child(conn, size: dict, nodehealth_size: "dict | None") -> None:
+    """The body of the CPU rerun process: run (h)'s (h1)-(h3) and, given its
+    size, run (i) on kernel_platform "cpu", sent back whole ({"h": ...,
+    "i": ... or None}) or as the error that stopped them."""
     torch.set_num_threads(CPU_RERUN_THREADS)
     try:
-        conn.send(("ok", run_background("cpu", size, threaded=False)))
+        h = run_background("cpu", size, threaded=False)
+        i = None if nodehealth_size is None else run_nodehealth("cpu", nodehealth_size)
+        conn.send(("ok", {"h": h, "i": i}))
     except BaseException as e:  # noqa: BLE001 — the parent reports it
         conn.send(("error", f"{type(e).__name__}: {e}"))
     conn.close()
 
 
 class CpuRerun:
-    """Run (h)'s CPU run in a second process (spawned: the parent holds a
-    CUDA context), started when the kernels are built so that it overlaps
-    the card's phases instead of following them; :meth:`result` waits for
-    it and :meth:`stop` ends it if it still runs."""
+    """The CPU runs of run (h) and, given ``nodehealth_size``, run (i) in a
+    second process (spawned: the parent holds a CUDA context), started when
+    the kernels are built so that it overlaps the card's phases instead of
+    following them; :meth:`result` waits for it and returns run (h),
+    :meth:`nodehealth` returns run (i), and :meth:`stop` ends the process
+    if it still runs."""
 
-    def __init__(self, size: dict = BACKGROUND_FULL) -> None:
+    def __init__(self, size: dict = BACKGROUND_FULL,
+                 nodehealth_size: "dict | None" = None) -> None:
         import multiprocessing
 
         ctx = multiprocessing.get_context("spawn")
         self._recv, send = ctx.Pipe(duplex=False)
-        self._proc = ctx.Process(target=cpu_rerun_child, args=(send, size), daemon=True)
+        self._proc = ctx.Process(target=cpu_rerun_child,
+                                 args=(send, size, nodehealth_size), daemon=True)
         self._proc.start()
         send.close()
+        self._value: "dict | None" = None
+
+    def _wait(self, timeout_s: float) -> dict:
+        if self._value is None:
+            if not self._recv.poll(timeout_s):
+                raise TimeoutError(f"the CPU rerun sent nothing in {timeout_s} s")
+            status, value = self._recv.recv()
+            self._proc.join(timeout=30)
+            if status != "ok":
+                raise RuntimeError(f"the CPU rerun failed: {value}")
+            self._value = value
+        return self._value
 
     def result(self, timeout_s: float = 600.0) -> dict:
-        if not self._recv.poll(timeout_s):
-            raise TimeoutError(f"the CPU rerun of run (h) sent nothing in {timeout_s} s")
-        status, value = self._recv.recv()
-        self._proc.join(timeout=30)
-        if status != "ok":
-            raise RuntimeError(f"the CPU rerun of run (h) failed: {value}")
-        return value
+        return self._wait(timeout_s)["h"]
+
+    def nodehealth(self, timeout_s: float = 600.0) -> "dict | None":
+        return self._wait(timeout_s)["i"]
 
     def stop(self) -> None:
         if self._proc.is_alive():
             self._proc.terminate()
             self._proc.join(timeout=10)
+
+
+def check_threaded_nospec(run: dict) -> None:
+    """(h4) with the speculative cache off: the serve path's invariants,
+    and no launch or plan from the cache."""
+    name = "run h4 (speculation off)"
+    if run["overcommitted"] or run["accounting_gap"]:
+        raise AssertionError(f"{name}: over capacity {run['overcommitted']}, "
+                             f"accounting != bound pods at {run['accounting_gap']}")
+    if run["alive"] or run["errors"] or run["dispatch_errors"]:
+        raise AssertionError(f"{name}: thread alive {run['alive']}, errors "
+                             f"{run['errors']}, dispatch errors {run['dispatch_errors']}")
+    if run["bound"] != run["pods"] or set(run["gangs"].values()) != {4}:
+        raise AssertionError(f"{name}: {run['bound']}/{run['pods']} bound, gangs {run['gangs']}")
+    if run["spec_launches"] or run["consumed"] or not run["serve_launches"]:
+        raise AssertionError(f"{name}: {run['spec_launches']} speculation launches, "
+                             f"{run['consumed']} plans consumed, {run['serve_launches']} "
+                             f"serve launches")
+
+
+Q9_KEYS = ("spec_enabled", "window_pods", "pick_check_failures", "burst_invalidated",
+           "burst_dispatches", "burst_served", "serve_dispatches",
+           "serve_dispatches_per_pod", "serve_launches", "serve_launches_per_pod",
+           "consumed", "spec_launches", "pods_per_s", "p50_ms", "p99_ms", "wall_s")
 
 
 def phase_background(smi: str, rerun: CpuRerun) -> dict:
@@ -2981,6 +3619,21 @@ def phase_background(smi: str, rerun: CpuRerun) -> dict:
     print_background(g, smi)
     print_background(c, smi)
     check_background(g, c, BACKGROUND_FULL)
+    # PERF.md section 7, Q9: the same (h4) window with speculation off.
+    g["h4_nospec"] = run_threaded("auto", BACKGROUND_FULL, spec_enabled=False)
+    check_threaded_nospec(g["h4_nospec"])
+    for run in (g["h4"], g["h4_nospec"]):
+        print(f"background (h4) serve-time checks [{smi}]:",
+              json.dumps({k: run[k] for k in Q9_KEYS}))
+    return g
+
+
+def phase_nodehealth(smi: str, rerun: CpuRerun) -> dict:
+    g = run_nodehealth("auto")
+    c = rerun.nodehealth()
+    print_nodehealth(g, smi)
+    print_nodehealth(c, smi)
+    check_nodehealth(g, c, NODEHEALTH_FULL)
     return g
 
 
@@ -3000,7 +3653,7 @@ def main() -> None:
         return out
 
     kind, smi = phase("device/build", phase_device)
-    rerun = CpuRerun()
+    rerun = CpuRerun(BACKGROUND_FULL, NODEHEALTH_FULL)
     try:
         rows, profiled = phase("kernel vs plain", phase_kernel)
         joint_rows = phase("joint_fit vs plain", phase_joint_fit)
@@ -3012,8 +3665,9 @@ def main() -> None:
         affinity = phase("affinity run (g)", phase_affinity, smi)
         wide = phase("wide fleet", phase_wide_fleet, smi)
         background = phase("background run (h)", phase_background, smi, rerun)
+        nodehealth = phase("node health run (i)", phase_nodehealth, smi, rerun)
         print("phase seconds:", json.dumps(seconds))
-        h_runs = [background[part] for part in ("h1", "h2", "h3", "h4")]
+        h_runs = [background[part] for part in ("h1", "h2", "h3", "h4", "h4_nospec")]
         main_row = next(
             r for r in profiled
             if (r["nodes"], r["padded"], r["k"]) == MAIN_PATH_SHAPE and r["chips"] == CHIPS
@@ -3037,11 +3691,17 @@ def main() -> None:
                     ),
                     "launches": sum(run["launches"] for run in (
                         gpu["a"], gpu["b"], gangs["c"], gangs["d"], churn, preemption,
-                        affinity, *wide, *h_runs)),
+                        affinity, *wide, *h_runs, nodehealth)),
                     "launches_run_g": affinity["launches"],
+                    "launches_run_i": {
+                        part: n["fleet_eval"] for part, n in nodehealth["phase_launches"].items()
+                    },
                     "run_g_k1_device_ms": not_measured(affinity["fleet_eval_k1_device_ms"]),
+                    "run_g_k1_ms": not_measured(affinity["fleet_eval_k1_ms"]),
+                    "run_g_k1_plain_ms": not_measured(affinity["fleet_eval_k1_plain_ms"]),
                     "launches_run_h": {
-                        part: background[part]["launches"] for part in ("h1", "h2", "h3", "h4")
+                        part: background[part]["launches"]
+                        for part in ("h1", "h2", "h3", "h4", "h4_nospec")
                     },
                     "launches_run_h_speculation": {
                         "h1": background["h1"]["spec_launches"],
@@ -3052,7 +3712,8 @@ def main() -> None:
                     "run_h_concurrent_k1_ms": {
                         k: not_measured(v) for k, v in background["h1"]["concurrent"].items()
                     },
-                    "max_abs_err": max(r["max_abs_err"] for r in rows),
+                    "max_abs_err": max(max(r["max_abs_err"] for r in rows),
+                                       nodehealth["max_abs_err"]["fleet_eval"]),
                     "ms": main_row["ms"],
                     "plain_ms": main_row["plain_ms"],
                     "bound_ms": main_row["bound_ms"],
@@ -3082,8 +3743,13 @@ def main() -> None:
                     "launches": gangs["c"]["joint_fit_launches"]
                     + gangs["d"]["joint_fit_launches"] + preemption["joint_fit_launches"]
                     + affinity["joint_fit_launches"]
-                    + sum(run["joint_fit_launches"] for run in h_runs[1:]),
-                    "max_abs_err": max(r["max_abs_err"] for r in joint_rows),
+                    + sum(run["joint_fit_launches"] for run in h_runs[1:])
+                    + nodehealth["joint_fit_launches"],
+                    "launches_run_i": {
+                        part: n["joint_fit"] for part, n in nodehealth["phase_launches"].items()
+                    },
+                    "max_abs_err": max(max(r["max_abs_err"] for r in joint_rows),
+                                       nodehealth["max_abs_err"]["joint_fit"]),
                     "ms": joint_main["ms"],
                     "device_ms": not_measured(joint_main["device_ms"]),
                     "plain_ms": joint_main["plain_ms"],
@@ -3116,7 +3782,8 @@ def main() -> None:
                     "replaces": "yoda_tpu/ops/kernel.py:662 apply_row_update (jitted :671)",
                     "launches": churn["row_update_launches"]
                     + preemption["row_update_launches"] + affinity["row_update_launches"]
-                    + sum(run["row_update_launches"] for run in h_runs),
+                    + sum(run["row_update_launches"] for run in h_runs)
+                    + nodehealth["row_update_launches"],
                     "launches_run_h_speculation": background["h1"]["spec_row_updates"],
                     "max_abs_err": max(r["max_abs_err"] for r in update_rows),
                     "ms": update_main["ms"],

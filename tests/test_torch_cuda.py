@@ -4,7 +4,10 @@ tolerance 0 (everything is int32), and the wrappers' contracts; and the
 resident state's in-place row update (TorchFleetKernel.update_rows)
 against a fresh put_static, at chip_smoke.py's fleets and row sets; and
 the speculative placement cache's private kernel on its own stream, alone
-and beside the serve path's launches from a second thread (run (h)).
+and beside the serve path's launches from a second thread (run (h)); and
+the node health path (run (i)): a fence flip patches the admission rows
+the card's kernels read, with no re-stack and no row update, and the
+whole run decides as on the CPU.
 
 Tests marked ``cuda`` need the card and skip without one; run them there
 with ``python -m pytest -m cuda tests/test_torch_cuda.py``. This file
@@ -19,11 +22,14 @@ import torch
 from chip_smoke import (
     AFFINITY_SMALL,
     BACKGROUND_SMALL,
+    NODEHEALTH_SMALL,
     build_fleet,
     check_background,
+    check_nodehealth,
     concurrent_eval,
     hot_pod,
     run_background,
+    run_nodehealth,
     UPDATE_FLEETS,
     UPDATE_ROWS,
     identical_rows_case,
@@ -646,3 +652,31 @@ class TestSpeculationOnCard:
         joint_fit(*case, counter=owner)
         assert (owner.launches, owner.joint_fit_launches) == (2, 1)
         assert packed.shape == (144, 6, 512)
+
+
+@pytest.mark.cuda
+class TestNodeHealthOnCard:
+    def test_fence_flip_patches_rows_on_the_card(self, card):
+        """One (i1)-style flip at the tests' size on the card and on the
+        CPU: the stopped hosts are fenced, the probe dispatch right after
+        patches exactly their admission rows, nothing re-stacks, no
+        ``update_rows`` launches, and the K = 16 serve wave that follows
+        launches ``fleet_eval`` and binds as on the CPU, off every fenced
+        host."""
+        got = run_nodehealth("auto", NODEHEALTH_SMALL)
+        want = run_nodehealth("cpu", NODEHEALTH_SMALL)
+        flips = {f["step"]: f for f in got["flips"]}
+        assert flips["i1 probe"]["admission_patched"] == NODEHEALTH_SMALL["stop"]
+        assert flips["i1 probe"]["restacks"] == flips["i1 probe"]["row_update_launches"] == 0
+        assert flips["i1 probe"]["fleet_eval"] > 0
+        assert got["phase_bindings"]["i1"] == want["phase_bindings"]["i1"]
+        assert not got["violations"]
+
+    def test_run_i_small_as_on_cpu(self, card):
+        """chip_smoke's run (i) at the tests' size: every decision equal to
+        the CPU run, every invariant, ``fleet_eval`` in (i1) and
+        ``joint_fit`` at the reopen, every call equal to its plain
+        version."""
+        got = run_nodehealth("auto", NODEHEALTH_SMALL)
+        want = run_nodehealth("cpu", NODEHEALTH_SMALL)
+        check_nodehealth(got, want, NODEHEALTH_SMALL)

@@ -190,6 +190,8 @@ class TestUnportedKnobs:
             ("bind_workers", 0),
             ("trace_sample_rate", 0.0),
             ("node_health_period_s", 0),
+            ("slo_enabled", False),
+            ("overload_period_s", 0),
         ],
     )
     def test_switching_an_absent_part_off_is_accepted(self, knob, value):
@@ -212,7 +214,15 @@ class TestNotBuilt:
         # The background parts are ported: built, and never named.
         for part in ("speculative placement cache", "reconciler", "rebalancer"):
             assert not [p for p in stack.not_built if p.startswith(part)]
-        assert "node health monitor (node_health_period_s=5.0)" in stack.not_built
+        # So are the node health monitor, node repair and the bind
+        # executor: built by default and absent from not_built.
+        assert stack.nodehealth is not None and stack.nodehealth.repair
+        assert stack.bind_executor is not None and stack.bind_executor.workers == 8
+        for part in ("node health monitor", "node repair", "bind executor"):
+            assert not [p for p in stack.not_built if p.startswith(part)]
+        assert sorted(p.split(" (")[0] for p in stack.not_built) == [
+            "SLO engine", "bind pipeline", "overload controller", "tracing",
+        ]
         warnings = [r for r in caplog.records if r.levelno == logging.WARNING]
         assert len(warnings) == 1
         assert all(part in warnings[0].getMessage() for part in stack.not_built)
@@ -227,9 +237,10 @@ class TestNotBuilt:
 
 
 class TestBackgroundParts:
-    """The reconciler, the rebalancer and the speculative placement cache
-    are built by default, wired as the reference wires them, and their
-    knobs are honoured at every valid value."""
+    """The reconciler, the rebalancer, the speculative placement cache, the
+    node health monitor and the bind executor are built by default, wired
+    as the reference wires them, and their knobs are honoured at every
+    valid value."""
 
     def test_built_and_wired(self):
         stack = build_stack(config=SchedulerConfig(kernel_platform="cpu"))
@@ -238,8 +249,11 @@ class TestBackgroundParts:
         assert stack.rebalancer.speculator is stack.speculation
         assert stack.speculation.device == stack.batch.device
         assert stack.speculation.enabled
-        assert stack.rebalancer.draining_fn is None  # no node health monitor
+        # The drain pass reads the node health monitor's draining nodes.
+        assert stack.rebalancer.draining_fn == stack.nodehealth.draining_nodes
+        assert stack.informer.fence_fn == stack.nodehealth.fenced_nodes
         assert not stack.rebalancer.gate_fn()  # until the first resync
+        assert not stack.nodehealth.gate_fn()
 
     @pytest.mark.parametrize(
         "knob,value,attr",
@@ -257,6 +271,14 @@ class TestBackgroundParts:
             ("reconcile_period_s", 5.0, None),
             ("rebalance_period_s", 0, None),
             ("rebalance_period_s", 10.0, None),
+            ("bind_workers", 3, ("bind_executor", "workers")),
+            ("bind_workers", 0, ("bind_executor", None)),
+            ("node_suspect_after_s", 5.0, ("nodehealth", "suspect_after_s")),
+            ("node_down_after_s", 90.0, ("nodehealth", "down_after_s")),
+            ("node_drain_deadline_s", 10.0, ("nodehealth", "drain_deadline_s")),
+            ("node_repair", False, ("nodehealth", "repair")),
+            ("node_health_period_s", 0, None),
+            ("node_health_period_s", 2.0, None),
         ],
     )
     def test_knob_honoured(self, knob, value, attr):
@@ -267,7 +289,8 @@ class TestBackgroundParts:
         stack = build_stack(config=cfg)
         if attr is not None:
             part, name = attr
-            assert getattr(getattr(stack, part), name) == value
+            obj = getattr(stack, part)
+            assert (obj is None) if name is None else getattr(obj, name) == value
         assert not [p for p in stack.not_built if knob in p]
 
     @pytest.mark.parametrize(
@@ -275,6 +298,7 @@ class TestBackgroundParts:
         [
             "framework/speculation.py", "framework/reconciler.py",
             "rebalance/__init__.py", "rebalance/score.py", "rebalance/rebalancer.py",
+            "nodehealth/__init__.py", "nodehealth/monitor.py",
         ],
     )
     def test_background_modules_are_guarded(self, module):

@@ -6,9 +6,10 @@ HBM consumption: on ``refresh``, free HBM per chip reflects the pods bound to
 the host (greedy whole-chip assignment, mirroring the exclusive-chip model of
 the accountant).
 
-Counterpart of ``yoda_tpu/agent/fake_publisher.py``; the node-death and
-chip-degrade injections (``stop_heartbeat`` / ``resume_heartbeat``,
-``fail_chips`` / ``heal_chips``) wait for the port of node health.
+Counterpart of ``yoda_tpu/agent/fake_publisher.py``, whole: with the
+node-death and chip-degrade injections the node health monitor's tests
+drive (``stop_heartbeat`` / ``resume_heartbeat``, ``fail_chips`` /
+``heal_chips``).
 """
 
 from __future__ import annotations
@@ -78,6 +79,11 @@ class FakeTpuAgent:
         self.cluster = cluster  # needs put_tpu_metrics / list_pods
         self.now_fn = now_fn
         self._hosts: dict[str, _Host] = {}
+        # Hosts whose heartbeat is stopped (node death without deleting
+        # anything: the CR simply ages until the health monitor's silence
+        # ladder fires). publish_all() skips them; an explicit
+        # refresh(name) still publishes (a single late packet).
+        self._stopped: set[str] = set()
 
     # --- fleet construction ---
 
@@ -138,15 +144,47 @@ class FakeTpuAgent:
         h = self._hosts[host]
         (h.unhealthy.discard if healthy else h.unhealthy.add)(chip_index)
 
+    def fail_chips(self, host: str, idxs, *, publish: bool = True) -> None:
+        """Mark chips Unhealthy and (by default) publish the CR — the
+        chip-degrade injection: the agent is alive and says so, but some of
+        its silicon is not (health ladder: DEGRADED)."""
+        for i in idxs:
+            self.set_chip_health(host, i, False)
+        if publish and host not in self._stopped:
+            self.refresh(host)
+
+    def heal_chips(self, host: str, idxs, *, publish: bool = True) -> None:
+        for i in idxs:
+            self.set_chip_health(host, i, True)
+        if publish and host not in self._stopped:
+            self.refresh(host)
+
+    def stop_heartbeat(self, name: str) -> None:
+        """Stop publishing for ``name`` — host death without deletion (a
+        wedged kubelet, a dead DaemonSet pod): the stored CR ages until the
+        node health monitor's silence ladder fences and eventually repairs
+        the node. Nothing is deleted."""
+        self._stopped.add(name)
+
+    def resume_heartbeat(self, name: str, *, publish: bool = True) -> None:
+        """Resume publishing (the flap or recovery half): by default a
+        fresh CR goes out at once, which returns a SUSPECT node to HEALTHY
+        inside the debounce window."""
+        self._stopped.discard(name)
+        if publish and name in self._hosts:
+            self.refresh(name)
+
     def remove_host(self, name: str) -> None:
         self._hosts.pop(name, None)
+        self._stopped.discard(name)
         self.cluster.delete_tpu_metrics(name)
 
     # --- publishing ---
 
     def publish_all(self) -> None:
         for name in self._hosts:
-            self.refresh(name)
+            if name not in self._stopped:
+                self.refresh(name)
 
     def refresh(self, name: str) -> None:
         """Recompute and publish one host's CR, accounting for bound pods'

@@ -11,8 +11,9 @@ singleton, gang, preemption, affinity and volume paths reach it: eviction
 (``evict_pod``, refused where a stored budget would be violated or for the
 keys in ``eviction_blocked``) and the nomination status patch
 (``set_nominated_node``), and the watch-drop injection the reconciler's
-tests use (``suppress_kinds``). Left out until a later slice: Events,
-node-death helpers and the staleness probe.
+tests use (``suppress_kinds``), and the node-death helpers the health
+monitor's tests drive (``set_node_ready``, ``kill_node``, ``delete_node``).
+Left out until a later slice: Events and the staleness probe.
 """
 
 from __future__ import annotations
@@ -304,3 +305,31 @@ class FakeCluster:
             is_new = node.name not in self._nodes
             self._nodes[node.name] = node
             self._emit(Event("added" if is_new else "modified", "Node", node))
+
+    def set_node_ready(self, name: str, ready: bool) -> None:
+        """Node-condition helper: flip the stored Node's Ready condition
+        (what the node controller does when a kubelet stops responding),
+        creating a bare Node object if none exists. The node health monitor
+        treats NotReady as DOWN."""
+        with self._lock:
+            node = self._nodes.get(name) or K8sNode(name=name)
+            node.ready = ready
+        self.put_node(node)
+
+    def kill_node(self, name: str) -> None:
+        """Full host death in one call: the Node object AND the TPU CR
+        deleted (a cloud provider's node deletion on the watch stream).
+        Bound pods stay in place — node GC owns them; the health monitor's
+        ghost release and repair handle the fallout."""
+        self.delete_node(name)
+        self.delete_tpu_metrics(name)
+
+    def delete_node(self, name: str) -> None:
+        with self._lock:
+            node = self._nodes.pop(name, None)
+            if node is not None:
+                self._emit(Event("deleted", "Node", node))
+
+    def list_nodes(self) -> list[K8sNode]:
+        with self._lock:
+            return list(self._nodes.values())

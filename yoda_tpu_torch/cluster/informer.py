@@ -21,10 +21,12 @@ PersistentVolumes and PodDisruptionBudgets: the first three are stamped on
 each snapshot (``None`` unless the matching watch is live), the budgets
 are read by preemption (:meth:`list_pdbs`).
 
-Counterpart of ``yoda_tpu/cluster/informer.py``. Left out until a later
+Counterpart of ``yoda_tpu/cluster/informer.py``, with the node-health
+fence hook (``fence_fn``, stamped on every snapshot as ``Snapshot.fenced``,
+and :meth:`InformerCache.invalidate_snapshot`). Left out until a later
 slice: the "synced" liveness sentinels of the API-server client (the
-``watches_*`` flags are set by the caller), shard partitioning, the
-node-health fence hook and the watch-staleness clock.
+``watches_*`` flags are set by the caller), shard partitioning and the
+watch-staleness clock.
 """
 
 from __future__ import annotations
@@ -103,6 +105,11 @@ class InformerCache:
         # this had gone stale, so its refresh must reactivate parked pods.
         self.staleness_s = staleness_s
         self.now_fn = now_fn
+        # Node-health fence hook (yoda_tpu_torch/nodehealth): returns the
+        # node names currently fenced from NEW placements; stamped onto
+        # every snapshot (Snapshot.fenced) so the admission call sites veto
+        # them. The monitor calls invalidate_snapshot() on fence flips.
+        self.fence_fn: "Callable[[], frozenset] | None" = None
         self._lock = threading.RLock()
         self._tpus: dict[str, TpuNodeMetrics] = {}
         # _tpus keys kept sorted incrementally (bisect on CR add/delete):
@@ -522,8 +529,24 @@ class InformerCache:
             # stamps this epoch, so events landing after the build are
             # re-applied on the next patch instead of skipped.
             snap.admission_epoch = self._admission_epoch
+            if self.fence_fn is not None:
+                try:
+                    snap.fenced = frozenset(self.fence_fn())
+                except Exception:  # noqa: BLE001 — a bad hook must not
+                    pass           # wedge snapshot builds; fail open
             self._snapshot_cache = snap
             return snap
+
+    def invalidate_snapshot(self) -> None:
+        """An EXTERNAL schedulability input changed (the node health
+        monitor's fence set): bump the snapshot version and drop the cached
+        snapshot so the next cycle rebuilds it, and with it the
+        per-snapshot admission rows. ``metrics_version`` is NOT bumped: the
+        fleet arrays are fence-independent (the veto rides the host_ok
+        row, not the static arrays), so a fence flip never re-stacks."""
+        with self._lock:
+            self._version += 1
+            self._snapshot_cache = None
 
 
 def ring_since(ring: deque, epoch: int, cur: int) -> "set[str] | None":

@@ -9,8 +9,8 @@ PreFilter, modern PostFilter (preemption), Reserve/Unreserve, Permit, Bind.
 
 Counterpart of ``yoda_tpu/framework/interfaces.py``. PostFilter
 (``PostFilterPlugin``) serves preemption; the snapshot carries the
-Namespace, PersistentVolumeClaim and PersistentVolume data but no fence set
-yet (the node health monitor is not ported). Permit (``PermitPlugin``) serves the
+Namespace, PersistentVolumeClaim and PersistentVolume data and the node
+health monitor's fence set. Permit (``PermitPlugin``) serves the
 gang plugin; the runtime reaches its waitlist hooks (``on_pod_waiting``,
 ``on_pod_resolved``, ``on_pod_bound``, ``on_bind_failed``,
 ``on_unbind_failed``) by name, as the reference does.
@@ -147,6 +147,13 @@ class Snapshot:
         # claim's REAL PV nodeAffinity instead of the claim's zone-label
         # stand-in. Same None-versus-empty contract as pvcs.
         self.pvs = dict(pvs) if pvs is not None else None
+        # Node names fenced from NEW placements by the node health monitor
+        # (SUSPECT / DRAINING / DOWN — yoda_tpu_torch/nodehealth), stamped
+        # by the informer's fence_fn at build; the admission call sites
+        # (the batch plugin's admission row, gang planning, the
+        # rebalancer's fit checks, speculation) veto these hosts. Fence
+        # flips invalidate the snapshot, so the set is never stale.
+        self.fenced: frozenset = frozenset()
 
     def get(self, name: str) -> NodeInfo:
         return self._nodes[name]

@@ -16,14 +16,18 @@ filter/score loops with one fused computation.
 Counterpart of ``yoda_tpu/framework/runtime.py``, ported as far as the
 singleton, gang and preemption paths reach it: the Permit waitlist
 (``WaitingPod``, expiry and cancellation), the gang-fused and joint
-pre-evaluation hooks, PostFilter (``run_post_filter``) and unbind. Left out
-until a later slice: the per-node filter loop (loop mode), the bind
-executor (``BindExecutor``, so every bind runs inline on the scheduling
-thread) and bind tracing.
+pre-evaluation hooks, PostFilter (``run_post_filter``) and unbind, and the
+bind executor (``BindExecutor`` over ``_DaemonPool``), which the node
+health monitor and the rebalancer fan their unbinds out on. Left out until
+a later slice: the per-node filter loop (loop mode), the bind pipeline
+that would put the scheduler's own binds on the executor (so every bind of
+a scheduling cycle runs inline on the scheduling thread) with the
+executor's completion bookkeeping, and bind tracing.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from typing import Callable, Mapping, Sequence
@@ -46,6 +50,8 @@ from yoda_tpu_torch.framework.interfaces import (
     Snapshot,
     Status,
 )
+
+log = logging.getLogger("yoda_tpu_torch.framework")
 
 
 class WaitingPod:
@@ -88,6 +94,151 @@ class WaitingPod:
                 return
             self._resolved = Status.unschedulable(message)
         self._on_resolved(self, Status.unschedulable(message))
+
+
+class _DaemonPool:
+    """Minimal ``ThreadPoolExecutor`` stand-in with DAEMON worker
+    threads and the same Future-returning ``submit`` contract.
+
+    stdlib pools join their (non-daemon) workers at interpreter
+    shutdown; for bind I/O that policy inverts the failure mode that
+    matters — an executor whose owner dropped it without ``shutdown()``
+    keeps idle non-daemon workers alive forever (the tests' thread
+    hygiene gate flags exactly this), and a stalled round trip can then
+    block process exit. Unbind tasks need no exit-time draining: in-flight
+    work is bounded by the API client's request timeout and reservations
+    roll back through resync."""
+
+    def __init__(self, max_workers: int, thread_name_prefix: str) -> None:
+        import queue as _queue
+
+        self._max_workers = max_workers
+        self._prefix = thread_name_prefix
+        self._q: "_queue.SimpleQueue" = _queue.SimpleQueue()
+        self._threads: "list[threading.Thread]" = []
+        self._lock = threading.Lock()
+        self._down = False
+
+    def submit(self, fn: Callable[[], object]):
+        from concurrent.futures import Future
+
+        fut: Future = Future()
+        with self._lock:
+            if self._down:
+                raise RuntimeError("cannot submit after shutdown")
+            self._q.put((fut, fn))
+            if len(self._threads) < self._max_workers:
+                t = threading.Thread(
+                    target=self._worker,
+                    name=f"{self._prefix}_{len(self._threads)}",
+                    daemon=True,
+                )
+                self._threads.append(t)
+                t.start()
+        return fut
+
+    def _worker(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            fut, fn = item
+            if not fut.set_running_or_notify_cancel():
+                continue
+            try:
+                fut.set_result(fn())
+            except BaseException as e:  # noqa: BLE001 — future carries it
+                fut.set_exception(e)
+
+    def shutdown(self) -> None:
+        """Refuse new work and end every worker after the tasks already
+        queued (one sentinel each); does not wait for them."""
+        with self._lock:
+            self._down = True
+            threads = list(self._threads)
+        for _ in threads:
+            self._q.put(None)
+
+
+class BindExecutor:
+    """Bounded-concurrency unbind fan-out (config ``bind_workers``).
+
+    A persistent thread pool that carries unbind API round trips off the
+    calling thread. ``build_stack`` makes one when ``bind_workers`` > 0 and
+    hands it to the node health monitor and the rebalancer, whose repairs
+    and moves put every member's unbind here through :func:`unbind_all`
+    and wait for all of them, so the round trips overlap.
+
+    The reference's executor also keeps completion bookkeeping
+    (``inflight()``, ``on_settled``) and a ``stop_event`` for its bind
+    pipeline and CLI; neither is ported, so neither is here.
+
+    Workers are created lazily on the first submit, so stacks that never
+    repair or move anything never pay the threads. They are DAEMON
+    threads (see ``_DaemonPool``): an executor whose owner forgot
+    ``shutdown()`` must never wedge interpreter exit.
+    """
+
+    def __init__(self, workers: int = 8, *, name: str = "bind") -> None:
+        self.workers = max(int(workers), 1)
+        self._name = name
+        self._lock = threading.Lock()
+        self._pool: _DaemonPool | None = None
+
+    def submit(self, fn: Callable[[], None]):
+        """Run ``fn`` on a worker; returns the Future. ``fn``'s exceptions
+        are logged, never propagated — unbind failures are reported through
+        the rollback path, not the future."""
+        with self._lock:
+            if self._pool is None:
+                self._pool = _DaemonPool(
+                    max_workers=self.workers,
+                    thread_name_prefix=f"{self._name}-worker",
+                )
+            pool = self._pool
+
+        def run() -> None:
+            try:
+                fn()
+            except Exception:  # noqa: BLE001 — workers must never die silently
+                log.exception("bind executor task failed")
+
+        return pool.submit(run)
+
+    def shutdown(self) -> None:
+        """Stop the workers; the next submit starts a fresh pool."""
+        with self._lock:
+            pool, self._pool = self._pool, None
+        if pool is not None:
+            pool.shutdown()
+
+
+def unbind_all(
+    scheduler,
+    bind_executor: BindExecutor | None,
+    items: "list[tuple[PodSpec, str]]",
+    why: str,
+) -> None:
+    """Unbind every (pod, host) through the scheduler's standard rollback
+    path (unbind -> unreserve -> requeue). With an executor and more than
+    one item every rollback is submitted there and the caller waits for
+    all of them, so the API round trips overlap; otherwise they run inline.
+    The node health monitor's repairs and the rebalancer's moves both call
+    this from their own (background) thread — the serve loop never waits."""
+    if bind_executor is not None and len(items) > 1:
+        futures = [
+            bind_executor.submit(
+                lambda pod=pod, host=host: scheduler._rollback_bound(
+                    pod, host, None, why
+                )
+            )
+            for pod, host in items
+        ]
+        for f in futures:
+            f.result()
+    else:
+        for pod, host in items:
+            scheduler._rollback_bound(pod, host, None, why)
 
 
 class Framework:

@@ -47,8 +47,11 @@ resize-up), ``install_plan`` and ``bound_members``. Left out until a later
 slice: shard commits (``collect_commits``), the bind
 pipeline's parallel release and completion barrier (``collect_rollbacks``:
 every bind here runs inline, so ``on_bind_failed`` hands the landed binds
-back directly), the node-health fence, the Event recorder's rollback hook
-and the tracer / why-pending surfaces.
+back directly), the Event recorder's rollback hook and the tracer /
+why-pending surfaces (among them the why-pending walk that names fenced
+hosts when a topology gang parks). The node-health fence is here: a host in
+``snapshot.fenced`` (SUSPECT / DRAINING / DOWN) never counts toward a plain
+gang's slots and never enters a topology plan.
 """
 
 from __future__ import annotations
@@ -182,7 +185,13 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
         assigned_hosts: set[str],
         pod: PodSpec,
         pending_res: dict | None = None,
+        fenced: frozenset = frozenset(),
     ) -> bool:
+        # Node-health fence (yoda_tpu_torch/nodehealth): a SUSPECT /
+        # DRAINING / DOWN host must never enter a gang plan — the fence
+        # gates planning exactly as it gates the admission row.
+        if ni.name in fenced:
+            return False
         # Node-object admission (cordon / untolerated taints / selector /
         # required affinity) gates planning the same way it gates Filter —
         # a planned block must never include a host the members cannot
@@ -253,6 +262,7 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
                 # needs enough slots, not the fleet total.
                 aff = get_affinity(state)
                 pending_res = get_pending_resources(state)
+                fenced = getattr(snapshot, "fenced", frozenset())
                 # Gang members share labels, so a required term matching the
                 # pod's OWN labels constrains the gang against itself and
                 # caps admission — without a cap the surplus member holds
@@ -276,7 +286,8 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
 
                 def admits(ni: NodeInfo) -> bool:
                     return (
-                        pod_admits_on(ni.node, pod)[0]
+                        ni.name not in fenced
+                        and pod_admits_on(ni.node, pod)[0]
                         and node_fits_resources(ni, pod, pending_res)[0]
                         and (aff is None or aff.feasible(ni)[0])
                     )
@@ -359,6 +370,7 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
     ) -> Status:
         assigned_hosts = set(gs.assigned.values())
         pending_res = get_pending_resources(state)
+        fenced = getattr(snapshot, "fenced", frozenset())
         plan_hosts_free = (
             set(gs.plan) - assigned_hosts if gs.plan is not None else set()
         )
@@ -394,7 +406,8 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
             or not plan_hosts_free
             or not all(
                 self._host_fits_member(
-                    snapshot.get(h), req, assigned_hosts, pod, pending_res
+                    snapshot.get(h), req, assigned_hosts, pod, pending_res,
+                    fenced,
                 )
                 for h in plan_hosts_free
                 if h in snapshot
@@ -426,7 +439,7 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
                 want_dims=gs.spec.topology,
                 slices=gs.spec.slices,
                 host_ok=lambda ni: self._host_fits_member(
-                    ni, req, assigned_hosts, pod, pending_res
+                    ni, req, assigned_hosts, pod, pending_res, fenced
                 ),
                 pinned=pinned,
             )

@@ -55,11 +55,11 @@ pass cannot race the joint dispatch either.
 
 Counterpart of ``yoda_tpu/rebalance/rebalancer.py``: every pass, the
 victim selection, the move primitive and ``run_forever`` with the
-speculation sub-tick. The port has no bind executor, so every unbind runs
-inline on the rebalancer's thread (the reference's own path without one);
-no registry, so no counters, gauge or lifecycle trace; and no node
-health monitor, so ``draining_fn`` stays None in ``build_stack`` and the
-drain pass returns at once (its code is here for a monitor to drive).
+speculation sub-tick. Unbinds fan out on the bind executor when
+``build_stack`` hands one over (``bind_workers`` > 0) and run inline on the
+rebalancer's thread without one; ``draining_fn`` is the node health
+monitor's ``draining_nodes``, which makes the drain pass live. The port has
+no registry, so no counters, gauge or lifecycle trace.
 """
 
 from __future__ import annotations
@@ -73,6 +73,7 @@ from typing import Callable
 from yoda_tpu_torch.api.requests import LabelParseError, gang_name_of, pod_request
 from yoda_tpu_torch.api.types import PodSpec, pod_admits_on
 from yoda_tpu_torch.framework.queue import QueuedPodInfo
+from yoda_tpu_torch.framework.runtime import unbind_all
 from yoda_tpu_torch.plugins.yoda.sort import pod_priority
 from yoda_tpu_torch.plugins.yoda.topology import plan_multislice_placement
 from yoda_tpu_torch.rebalance.score import FleetOccupancy
@@ -143,6 +144,7 @@ class Rebalancer:
         framework,
         queue,
         scheduler,
+        bind_executor=None,
         clock: Callable[[], float] = time.monotonic,
         min_gain: float = 0.05,
         max_moves: int = 1,
@@ -159,6 +161,7 @@ class Rebalancer:
         self.framework = framework
         self.queue = queue
         self.scheduler = scheduler
+        self.bind_executor = bind_executor
         self.clock = clock
         self.min_gain = min_gain
         self.max_moves = max_moves
@@ -266,11 +269,7 @@ class Rebalancer:
     def _unbind_all(
         self, items: "list[tuple[PodSpec, str]]", why: str
     ) -> None:
-        """Unbind every (pod, host) through the standard rollback path,
-        inline on this (background) thread — the serve loop never waits on
-        it."""
-        for pod, host in items:
-            self.scheduler._rollback_bound(pod, host, None, why)
+        unbind_all(self.scheduler, self.bind_executor, items, why)
 
     def _bound_by_gang(
         self, snapshot

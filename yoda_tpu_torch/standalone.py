@@ -17,17 +17,24 @@ cluster offers them, and their events reactivate parked pods.
 
 The background parts are built, as in the reference, but not started: the
 warm-start and drift ``Reconciler``, the ``Rebalancer`` (gated on the
-leader fence and the reconciler's resync; ``draining_fn`` None without a
-node health monitor) and the ``SpeculativeCache``, whose private mirror
-evaluates on the batch plugin's device (on the card, on a stream of its
-own) and whose plans the scheduler's serve path consumes. A caller drives
-``reconciler.resync()`` / ``reconcile()``, ``rebalancer.run_once()`` or
-``rebalancer.run_forever(stop)`` (which ticks the cache) and
-``speculation.speculate_once()``. Left out until a later slice: node
-health, the bind executor (binds run inline), tracing / metrics / SLO /
-overload (so preemption has no eviction counter hook), live
-reconfiguration (``apply_reloadable``), batched ingest, tenancy, the
-durable journal, profiles, shards and federation.
+leader fence and the reconciler's resync; its drain pass reads the node
+health monitor's draining nodes), the ``SpeculativeCache``, whose private
+mirror evaluates on the batch plugin's device (on the card, on a stream of
+its own) and whose plans the scheduler's serve path consumes, and the
+``NodeHealthMonitor`` (the health ladder, fed at event time through
+``on_change_batch``; its fence set stamped on every snapshot through the
+informer's ``fence_fn``, so the admission rows the card's kernels read
+veto fenced hosts; gang-whole repair and drains). With ``bind_workers`` >
+0 a ``BindExecutor`` carries the monitor's and the rebalancer's unbind
+fan-out. A caller drives ``reconciler.resync()`` / ``reconcile()``,
+``rebalancer.run_once()`` or ``rebalancer.run_forever(stop)`` (which ticks
+the cache), ``speculation.speculate_once()`` and ``nodehealth.run_once()``
+/ ``run_forever(stop)`` / ``drain(name)``. Left out until a later slice:
+the bind pipeline (the scheduler's own binds run inline), tracing /
+metrics / SLO / overload (so preemption has no eviction counter hook and
+the monitor no metrics), live reconfiguration (``apply_reloadable``),
+batched ingest, tenancy, the durable journal, profiles, shards and
+federation.
 
 A knob of such a subsystem loads (``config.SchedulerConfig`` keeps every
 knob of the reference), but ``build_stack`` raises ``NotImplementedError``
@@ -51,9 +58,10 @@ from yoda_tpu_torch.cluster.informer import InformerCache
 from yoda_tpu_torch.config import SchedulerConfig
 from yoda_tpu_torch.framework.queue import SchedulingQueue
 from yoda_tpu_torch.framework.reconciler import Reconciler
-from yoda_tpu_torch.framework.runtime import Framework
+from yoda_tpu_torch.framework.runtime import BindExecutor, Framework
 from yoda_tpu_torch.framework.scheduler import Scheduler
 from yoda_tpu_torch.framework.speculation import SpeculativeCache
+from yoda_tpu_torch.nodehealth import NodeHealthMonitor
 from yoda_tpu_torch.plugins.yoda import (
     GangPlugin,
     TpuPreemption,
@@ -93,6 +101,12 @@ PORTED_KNOBS = frozenset(
         "rebalance_preemption",
         "rebalance_elastic",
         "failover_adopt_window_s",
+        "bind_workers",
+        "node_suspect_after_s",
+        "node_down_after_s",
+        "node_repair",
+        "node_drain_deadline_s",
+        "node_health_period_s",
     }
 )
 
@@ -101,10 +115,7 @@ PORTED_KNOBS = frozenset(
 # that part off (the port's behaviour either way). Each is listed with the
 # part it turns on, for ``Stack.not_built``.
 UNPORTED_KNOB_VALUES = {
-    "bind_workers": ("bind executor", (0,)),
     "bind_pipeline": ("bind pipeline", ("off",)),
-    "node_repair": ("node repair", (False,)),
-    "node_health_period_s": ("node health monitor", (0,)),
     "trace_sample_rate": ("tracing", (0,)),
     "slo_enabled": ("SLO engine", (False,)),
     "overload_period_s": ("overload controller", (0,)),
@@ -156,6 +167,11 @@ class Stack:
     # Produced by the rebalancer's tick (or speculate_once), consumed by
     # the serve path; spec_enabled=False builds it disabled.
     speculation: SpeculativeCache | None = None
+    # Built always, started by nobody: the caller drives run_once /
+    # run_forever; node_repair=False keeps the ladder and fence, no repair.
+    nodehealth: NodeHealthMonitor | None = None
+    # None when config.bind_workers is 0: unbinds then run inline.
+    bind_executor: BindExecutor | None = None
     # Parts the config turns on that this port does not build
     # (not_built_parts); build_stack logs them once.
     not_built: tuple[str, ...] = ()
@@ -190,6 +206,11 @@ def build_stack(
             ", ".join(not_built),
         )
     accountant = ChipAccountant(scheduler_name=config.scheduler_name)
+    # The bounded executor the node health monitor and the rebalancer fan
+    # their unbinds out on. Threads are made at the first submit.
+    bind_executor = (
+        BindExecutor(config.bind_workers) if config.bind_workers > 0 else None
+    )
     gang = GangPlugin(
         timeout_s=config.gang_permit_timeout_s,
         reserved_fn=accountant.chips_in_use,
@@ -271,6 +292,14 @@ def build_stack(
                 queue.remove(event.obj.uid)
         if any(map(_reactivates, events)) and queue.has_parked():
             queue.move_all_to_active()
+        # Node failure domains: condition signals (TPU CR / Node
+        # deletions, NotReady) and per-chip health feed the health ladder
+        # at EVENT TIME, and a deleted node's still-bound pods have their
+        # ghost reservations released now. State only on this (watch)
+        # thread; repair I/O runs in the monitor's pass. `nodehealth` is
+        # assigned below, before any watcher registers, so the closure
+        # never sees it unbound.
+        nodehealth.observe_events(events)
 
     informer = InformerCache(
         scheduler_name=config.scheduler_name,
@@ -285,6 +314,27 @@ def build_stack(
         watches_pdbs=hasattr(cluster, "put_pdb"),
         staleness_s=config.max_metrics_age_s,
     )
+    # The per-node health ladder, built BEFORE any watcher registers so
+    # the replayed events already flow through observe_events. Fencing
+    # rides the existing host_ok admission row: the monitor's fence set is
+    # stamped onto every snapshot (informer.fence_fn) and the admission
+    # call sites veto it. The scheduler handle (repair's unbind path and
+    # leader check) is wired after construction below.
+    nodehealth = NodeHealthMonitor(
+        cluster=cluster,
+        informer=informer,
+        accountant=accountant,
+        gang=gang,
+        framework=framework,
+        queue=queue,
+        bind_executor=bind_executor,
+        suspect_after_s=config.node_suspect_after_s,
+        down_after_s=config.node_down_after_s,
+        drain_deadline_s=config.node_drain_deadline_s,
+        repair=config.node_repair,
+        clock=clock,
+    )
+    informer.fence_fn = nodehealth.fenced_nodes
     if preemption is not None:
         # Victim preference reads the informer's budget cache (None until a
         # budget watch is live).
@@ -345,6 +395,7 @@ def build_stack(
         framework=framework,
         queue=queue,
         scheduler=scheduler,
+        bind_executor=bind_executor,
         clock=clock,
         min_gain=config.rebalance_min_gain,
         max_moves=config.rebalance_max_moves,
@@ -354,6 +405,10 @@ def build_stack(
         gate_fn=lambda: (
             not scheduler._fenced() and reconciler.resynced.is_set()
         ),
+        # Graceful drain: the pass migrates bound gangs off DRAINING nodes
+        # proactively, before the monitor's deadline forces a DOWN-style
+        # evacuation.
+        draining_fn=nodehealth.draining_nodes,
     )
     # Speculative placement cache: the rebalancer thread's sub-tick
     # pre-validates one placement per recently-seen single-pod shape
@@ -381,8 +436,18 @@ def build_stack(
     )
     scheduler.speculation = speculation
     rebalancer.speculator = speculation
+    # Late wiring (the scheduler and reconciler are built after the
+    # informer the monitor hangs off): repair runs through the scheduler's
+    # unbind path, and run_forever's gate composes leadership with the
+    # warm-start contract — no repair on un-resynced state. The
+    # reference's gate also waits out the overload controller's
+    # repairs_paused(), which comes with that controller.
+    nodehealth.scheduler = scheduler
+    nodehealth.gate_fn = lambda: (
+        not scheduler._fenced() and reconciler.resynced.is_set()
+    )
     return Stack(
         cluster, informer, accountant, framework, queue, scheduler, binder,
         batch, gang, preemption, reconciler, rebalancer, speculation,
-        not_built,
+        nodehealth, bind_executor, not_built,
     )
