@@ -194,11 +194,50 @@ Phases, each of which makes the script exit non-zero when it fails:
    inputs. Printed: ms per pass, each repair's ``durations_ms``, host ms
    from a pass to each repaired gang's last re-bind, the counters across
    each fence flip and the launches by part.
+   Then run (j), observability at its defaults on the same fleet
+   (``run_observability``, ``OBSERVABILITY_FULL``; the tests run
+   ``OBSERVABILITY_SMALL``):
+   (j1) run (b)'s 256 singletons at K = 16, then run (c)'s two gang
+       waves, on a stepped scheduling clock, with a ``ConfigReloader``
+       reload between the waves (``trace_sample_rate``,
+       ``spec_cache_size``, ``rebalance_max_moves``,
+       ``overload_queue_high`` and the immutable ``scheduler_name``).
+       Bindings, every ``/metrics`` sample (less the values of the
+       wall-clock families), the phase histogram's counts, the
+       why-pending summary and each pending key's explanation, the SLO
+       evaluation, the multiset of (subject, span, parent span), the
+       number of trace entries and the reload's report and live values
+       must equal the CPU run's (a second spawned process, ``ObsRerun``).
+       Then the same
+       script on the wall clock, card only: each phase's p50/p99, the
+       Perfetto trace under ``build/`` and its spans per track, every
+       gang-dispatch / joint-dispatch span held against the CUDA-event
+       time of the launches inside it, every endpoint fetched from a
+       thread during the run and again after it ((j4)), the median ms of a
+       ``/metrics`` scrape, of the bin-packing gauge and of one SLO
+       evaluation at 5,000 nodes;
+   (j2) the ladder on a stepped clock (``overload_queue_high`` 64, the
+       cycle signal off): 320 spot singletons and a spot gang with one
+       member at Permit climb it to SHED in three evaluations; SHED parks
+       the spot pods (``overload-shed``) and admits the gang's second
+       member and 8 prod pods; stepping down, BROWNOUT admits 10 and
+       quota-parks the rest, and everything binds. Levels, gates, the
+       tracer's rate, parks and bindings at every step equal the CPU run;
+   (j3) card only, reported: the ladder's ``run_forever`` at the default
+       1 s period and 250 ms threshold on its own thread beside a K = 1
+       serve of run (a)'s pods, then 3 s more: the ``total`` p50/p99,
+       every evaluation's signals, each transition and the seconds at
+       each level;
+   and tracing's cost, card only, reported: run (b) in five alternating
+   pairs, ``trace_sample_rate`` 1.0 then 0, with each side's median
+   pods/s and p99 and their ranges. Every ``fleet_eval`` and
+   ``joint_fit`` call of run (j) is held against its plain version, and
+   the launches held must equal the module's counts, part by part.
 4. One line {"kernels": [...]} with each kernel's launches over every run
-   above (runs (h)'s and (i)'s also by part, and the speculation thread's
-   apart), its largest difference from the plain version and its times
-   ("not measured" where the profiler saw no device activity). Before it,
-   one line of each phase's wall seconds.
+   above (runs (h)'s, (i)'s and (j)'s also by part, and the speculation
+   thread's apart), its largest difference from the plain version and
+   its times ("not measured" where the profiler saw no device activity).
+   Before it, one line of each phase's wall seconds.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits non-zero and prints no result.
@@ -211,6 +250,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -3145,25 +3185,7 @@ def run_nodehealth(platform: str, size: dict = NODEHEALTH_FULL) -> dict:
         binds.append((time.perf_counter(), key.split("/", 1)[1], node))
 
     stack.cluster.bind_pod = noted_bind
-    kept_fleet: list = []
-    kept_joint: list = []
-    real_fleet_eval, real_joint_fit = cuda_kernel.fleet_eval, cuda_kernel.joint_fit
-
-    def kept_fleet_eval(chips, nodes, dyn, host_ok, reqs, weights, out=None, counter=None):
-        got = real_fleet_eval(chips, nodes, dyn, host_ok, reqs, weights, out=out,
-                              counter=counter)
-        if chips.is_cuda:
-            kept_fleet.append((tuple(t.clone() for t in (chips, nodes, dyn, host_ok, reqs)),
-                               weights, got.clone()))
-        return got
-
-    def kept_joint_fit(packed, chips_k, starts_k, valid_k, out=None, counter=None):
-        got = real_joint_fit(packed, chips_k, starts_k, valid_k, out=out, counter=counter)
-        if packed.is_cuda:
-            kept_joint.append((tuple(t.clone() for t in (packed, chips_k, starts_k, valid_k)),
-                               tuple(t.clone() for t in got)))
-        return got
-
+    kept = KeptKernels()
     names: list[str] = []
 
     def create(pods):
@@ -3234,8 +3256,7 @@ def run_nodehealth(platform: str, size: dict = NODEHEALTH_FULL) -> dict:
             out["singletons"] = 1e3 * (max(singles) - p["start"]) if singles else None
         return out
 
-    cuda_kernel.fleet_eval, cuda_kernel.joint_fit = kept_fleet_eval, kept_joint_fit
-    cuda_kernel.launches = cuda_kernel.joint_fit_launches = 0
+    kept.install()
     kernel_mod.row_update_launches = 0
     phase_launches: dict[str, dict] = {}
     phase_bindings: dict[str, dict] = {}
@@ -3362,7 +3383,7 @@ def run_nodehealth(platform: str, size: dict = NODEHEALTH_FULL) -> dict:
         phase_launches["i4"] = counters()
         phase_bindings["i4"] = bound()
     finally:
-        cuda_kernel.fleet_eval, cuda_kernel.joint_fit = real_fleet_eval, real_joint_fit
+        kept.restore()
         stack.cluster.bind_pod = inner_bind
     if platform != "cpu":
         torch.cuda.synchronize()
@@ -3391,16 +3412,7 @@ def run_nodehealth(platform: str, size: dict = NODEHEALTH_FULL) -> dict:
             split[g] = (n, eff)
     live = {p.uid for p in stack.cluster.list_pods()}
     leaked = sorted(stack.accountant.claimed_uids() - live)
-    max_err = {"fleet_eval": 0, "joint_fit": 0}
-    for args, weights, got in kept_fleet:
-        want = kernel_mod.kernel_packed_burst(*(a.cpu() for a in args), weights)
-        max_err["fleet_eval"] = max(max_err["fleet_eval"], abs_err(got, want))
-    for (packed, chips_k, starts_k, valid_k), got in kept_joint:
-        p = packed.cpu()
-        want = kernel_mod.joint_fit_scan(p[:, 0], p[:, 3], p[:, 5], chips_k.cpu(),
-                                         starts_k.cpu(), valid_k.cpu())
-        for g_t, w_t in zip(got, want):
-            max_err["joint_fit"] = max(max_err["joint_fit"], abs_err(g_t, w_t))
+    held = kept.errors()
     unbound = sorted(n for n, v in final.items() if v is None)
     return dict(
         platform=platform, pods=len(names), bindings=final, phase_bindings=phase_bindings,
@@ -3423,14 +3435,9 @@ def run_nodehealth(platform: str, size: dict = NODEHEALTH_FULL) -> dict:
             for (p, c), prev in zip(phase_launches.items(),
                                     [base, *phase_launches.values()])
         },
-        # The launches of the calls held against the plain versions: one
-        # fleet_eval launch per MAX_REQUESTS request rows, one joint_fit a call.
-        kept_launches={
-            "fleet_eval": sum(-(-args[4].shape[0] // cuda_kernel.MAX_REQUESTS)
-                              for args, _, _ in kept_fleet),
-            "joint_fit": len(kept_joint),
-        },
-        max_abs_err=max_err, dispatch_errors=batch.dispatch_errors,
+        # The launches of the calls held against the plain versions.
+        kept_launches=held["kept"], max_abs_err=held["max_abs_err"],
+        dispatch_errors=batch.dispatch_errors,
         dispatch_count=batch.dispatch_count, serve_s=serve_s,
         serve_pods_per_s=size["serve"] / serve_s if serve_s else 0.0,
         rebalance_ms=rebalance_ms, reopen_ms=reopen_ms, wall_s=wall,
@@ -3637,6 +3644,719 @@ def phase_nodehealth(smi: str, rerun: CpuRerun) -> dict:
     return g
 
 
+# --- run (j): observability -------------------------------------------------
+
+OBSERVABILITY_FULL = dict(slices=512, v5e_hosts=2952, spot=320, prod=8, pairs=5,
+                          hold_s=3.0, scrapes=20)
+OBSERVABILITY_SMALL = dict(slices=32, v5e_hosts=160, spot=272, prod=4, pairs=1,
+                           hold_s=1.2, scrapes=3)
+# Families whose values are wall-clock readings or name the device: their
+# sample counts are compared, their values are not.
+OBS_WALL = ("yoda_bind_wall_ms", "yoda_delta_apply_ms", "yoda_kernel_on_accelerator")
+PHASES = ("prefilter", "spec", "filter", "score", "reserve", "permit", "postfilter",
+          "total")
+TRACE_DIR = "build"
+
+
+def scrape_values(text: str) -> dict:
+    """A /metrics page as {sample: value}, less the values of OBS_WALL
+    families (their _count samples stay)."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        sample, value = line.rsplit(" ", 1)
+        name = sample.split("{", 1)[0]
+        if name.startswith(OBS_WALL) and not name.endswith("_count"):
+            continue
+        out[sample] = float(value)
+    return out
+
+
+def span_shape(tracer) -> list:
+    """The tracer's records as a sorted multiset of (subject, span, parent
+    span, "" for a root). Inline ``bind`` spans pass a wall-time gate, so
+    they are left out."""
+    recs = tracer.records()
+    by_id = {r.span_id: r for r in recs}
+    counts: dict = {}
+    for r in recs:
+        if r.name == "bind":
+            continue
+        parent = by_id[r.parent_id].name if r.parent_id in by_id else ""
+        key = (r.subject, r.name, parent)
+        counts[key] = counts.get(key, 0) + 1
+    return sorted([*k, n] for k, n in counts.items())
+
+
+def no_wall(obj):
+    """A why-pending record without its wall-clock stamps."""
+    if isinstance(obj, dict):
+        return {k: no_wall(v) for k, v in obj.items() if not k.endswith("_wall_unix")}
+    if isinstance(obj, list):
+        return [no_wall(v) for v in obj]
+    return obj
+
+
+def pending_view(pending) -> dict:
+    summary = no_wall(pending.summary())
+    summary["pending"].sort(key=lambda row: row["key"])
+    return {"summary": summary,
+            "explain": {row["key"]: no_wall(pending.explain(row["key"]))
+                        for row in summary["pending"]}}
+
+
+class KeptKernels:
+    """While installed (or entered), every ``fleet_eval`` / ``joint_fit``
+    call on the card keeps its inputs and result, to be held against the
+    plain versions (:meth:`errors`); the launch counts are zeroed on
+    install."""
+
+    def __enter__(self):
+        self.install()
+        return self
+
+    def __exit__(self, *exc):
+        self.restore()
+        return False
+
+    def install(self) -> None:
+        from yoda_tpu_torch.ops import cuda_kernel
+
+        self.mod = cuda_kernel
+        self.fleet, self.joint = [], []
+        self.real = (cuda_kernel.fleet_eval, cuda_kernel.joint_fit)
+        real_fleet, real_joint = self.real
+
+        def fleet_eval(chips, nodes, dyn, host_ok, reqs, weights, out=None, counter=None):
+            got = real_fleet(chips, nodes, dyn, host_ok, reqs, weights, out=out,
+                             counter=counter)
+            if chips.is_cuda:
+                self.fleet.append((tuple(t.clone() for t in (chips, nodes, dyn, host_ok,
+                                                              reqs)), weights, got.clone()))
+            return got
+
+        def joint_fit(packed, chips_k, starts_k, valid_k, out=None, counter=None):
+            got = real_joint(packed, chips_k, starts_k, valid_k, out=out, counter=counter)
+            if packed.is_cuda:
+                self.joint.append((tuple(t.clone() for t in (packed, chips_k, starts_k,
+                                                             valid_k)),
+                                   tuple(t.clone() for t in got)))
+            return got
+
+        cuda_kernel.fleet_eval, cuda_kernel.joint_fit = fleet_eval, joint_fit
+        cuda_kernel.launches = cuda_kernel.joint_fit_launches = 0
+
+    def restore(self) -> None:
+        self.mod.fleet_eval, self.mod.joint_fit = self.real
+        self.launches = {"fleet_eval": self.mod.launches,
+                         "joint_fit": self.mod.joint_fit_launches}
+
+    def errors(self) -> dict:
+        """Launches made, launches held against the plain versions and the
+        largest difference, per kernel."""
+        from yoda_tpu_torch.ops import kernel as kernel_mod
+
+        err = {"fleet_eval": 0, "joint_fit": 0}
+        for args, weights, got in self.fleet:
+            want = kernel_mod.kernel_packed_burst(*(a.cpu() for a in args), weights)
+            err["fleet_eval"] = max(err["fleet_eval"], abs_err(got, want))
+        for (packed, chips_k, starts_k, valid_k), got in self.joint:
+            p = packed.cpu()
+            want = kernel_mod.joint_fit_scan(p[:, 0], p[:, 3], p[:, 5], chips_k.cpu(),
+                                             starts_k.cpu(), valid_k.cpu())
+            for g_t, w_t in zip(got, want):
+                err["joint_fit"] = max(err["joint_fit"], abs_err(g_t, w_t))
+        kept = {"fleet_eval": sum(-(-args[4].shape[0] // self.mod.MAX_REQUESTS)
+                                  for args, _, _ in self.fleet),
+                "joint_fit": len(self.joint)}
+        return {"launches": self.launches, "kept": kept, "max_abs_err": err}
+
+
+def obs_script():
+    """Run (j1)'s pods: run (b)'s 256 singletons, then run (c)'s two gang
+    waves (plain, coscheduling, topology and multislice gangs with 64
+    singletons)."""
+    from yoda_tpu_torch.api.types import PodSpec
+
+    waves, gangs = gang_script(seed=1)
+    singles = [PodSpec(n, labels=dict(l)) for n, l in fleet_and_pods(0)[1]]
+    gang_waves = [[PodSpec(n, labels=dict(l)) for n, l, _ in w] for w in waves]
+    return singles, gang_waves, gangs
+
+
+def obs_reload(stack):
+    """Run (j4)'s mid-serve reload: four reloadable knobs and one immutable
+    knob change; returns the reloader's report and the live values."""
+    from yoda_tpu_torch.config import SchedulerConfig
+    from yoda_tpu_torch.overload import ConfigReloader, LiveConfig
+    from yoda_tpu_torch.standalone import apply_reloadable
+
+    base = SchedulerConfig(kernel_platform=stack.batch.platform, batch_requests=16)
+    live = LiveConfig(base)
+    candidate = dataclasses.replace(
+        base, trace_sample_rate=0.5, spec_cache_size=8, rebalance_max_moves=2,
+        overload_queue_high=5000, scheduler_name="renamed-scheduler",
+    )
+    report = ConfigReloader(lambda: candidate, live,
+                            lambda cfg: apply_reloadable([stack], cfg)).reload()
+    m = stack.metrics
+    values = dict(
+        trace_sample_rate=m.tracer.sample_rate, spec_cache_size=stack.speculation.size,
+        rebalance_max_moves=stack.rebalancer.max_moves,
+        overload_queue_high=m.overload.queue_high,
+        scheduler_name=live.current.scheduler_name, generation=live.generation,
+    )
+    return {"report": report, "live": values}
+
+
+def run_obs_serve(platform: str, size: dict, *, stepped: bool = True,
+                  scrape: bool = False) -> dict:
+    """Run (j1) on one kernel_platform: run (b)'s singletons at K = 16, then
+    run (c)'s two gang waves, with observability at its defaults. With
+    ``stepped`` the scheduling clock moves only between steps (so both
+    platforms observe the same phase histogram, SLO windows and spans) and
+    the mid-serve reload of (j4) runs between the gang waves; without it
+    the run is on the wall clock, for the phase times, the Perfetto trace,
+    the dispatch spans against the device time inside them and (with
+    ``scrape``) every endpoint fetched from a thread during the run and
+    again after it."""
+    import urllib.request
+
+    from yoda_tpu_torch.metrics_server import MetricsServer
+
+    clock = SteppedClock(10_000.0) if stepped else None
+    stack, _agent = build_fleet(platform, 16, slices=size["slices"],
+                                v5e_hosts=size["v5e_hosts"],
+                                **({"clock": clock} if stepped else {}))
+    m = stack.metrics
+    stack.reconciler.resync()
+    singles, gang_waves, gangs = obs_script()
+    dispatch_calls: list = []  # (host t0, host t1, CUDA-event ms) per gang dispatch
+    if platform != "cpu" and not stepped:
+        kern = stack.batch._kern
+
+        def evented(inner):
+            def call(*args, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.monotonic()
+                start.record()
+                try:
+                    return inner(*args, **kw)
+                finally:
+                    end.record()
+                    end.synchronize()
+                    dispatch_calls.append((t0, time.monotonic(), start.elapsed_time(end)))
+            return call
+
+        kern.evaluate_joint_plan = evented(kern.evaluate_joint_plan)
+        kern.evaluate_joint = evented(kern.evaluate_joint)
+    server = stop = scraper = None
+    fetched: dict = {}
+    errors: list = []
+    endpoints = ("/metrics", "/healthz", "/readyz", "/trace?n=20",
+                 "/debug/traces?n=50", "/debug/traces?n=50&format=perfetto",
+                 "/debug/pending", "/debug/slo", "/debug/journal", "/debug/shards")
+    if scrape:
+        server = MetricsServer(m, host="127.0.0.1", port=0)
+        server.start()
+        base = f"http://127.0.0.1:{server.port}"
+        stop = threading.Event()
+
+        def scrape_loop():
+            # One round of every endpoint a second: an unpaced loop would
+            # take the interpreter lock from the serve loop it watches
+            # (a /metrics scrape walks the 5,000-node fleet in Python).
+            try:
+                while not stop.wait(1.0):
+                    for path in endpoints:
+                        with urllib.request.urlopen(base + path, timeout=30) as r:
+                            fetched[path] = fetched.get(path, 0) + (r.status == 200)
+            except Exception as e:  # noqa: BLE001 — reported by the checks
+                errors.append(f"{type(e).__name__}: {e}")
+
+        scraper = threading.Thread(target=scrape_loop, name="scraper", daemon=True)
+        scraper.start()
+    out: dict = {"platform": platform, "stepped": stepped}
+    t0 = time.monotonic()
+    with KeptKernels() as kept:
+        for i, pod in enumerate(singles):
+            stack.cluster.create_pod(pod)
+            if clock is not None:
+                clock.advance(0.01)
+        stack.scheduler.run_until_idle(max_wall_s=600)
+        for w, wave in enumerate(gang_waves):
+            if clock is not None:
+                clock.advance(5.0)
+            for pod in wave:
+                stack.cluster.create_pod(pod)
+                if clock is not None:
+                    clock.advance(0.01)
+            stack.scheduler.run_until_idle(max_wall_s=600)
+            if w == 0 and stepped:
+                out["reload"] = obs_reload(stack)
+        if platform != "cpu":
+            torch.cuda.synchronize()
+    out["wall_s"] = time.monotonic() - t0
+    if clock is not None:
+        clock.advance(30.0)
+    if scrape:
+        stop.set()
+        scraper.join(timeout=60)
+        after, times = {}, []
+        for path in endpoints:
+            with urllib.request.urlopen(base + path, timeout=30) as r:
+                after[path] = r.status
+        key = next(row["key"] for row in m.pending.summary()["pending"]) \
+            if m.pending.summary()["pending"] else None
+        if key is not None:
+            with urllib.request.urlopen(f"{base}/debug/pending/{key}", timeout=30) as r:
+                after["/debug/pending/<key>"] = r.status
+        for _ in range(size["scrapes"]):
+            t = time.perf_counter()
+            with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+                r.read()
+            times.append(1e3 * (time.perf_counter() - t))
+        t = time.perf_counter()
+        for _ in range(size["scrapes"]):
+            m.binpack_efficiency.value()
+        chips_ms = 1e3 * (time.perf_counter() - t) / size["scrapes"]
+        t = time.perf_counter()
+        m.slo.cache_ttl_s = 0.0
+        m.slo.evaluate()
+        slo_ms = 1e3 * (time.perf_counter() - t)
+        server.stop()
+        out["scrape"] = dict(during=fetched, after=after, errors=errors,
+                             metrics_ms_median=statistics.median(times),
+                             metrics_ms=times, binpack_gauge_ms=chips_ms,
+                             slo_evaluate_ms=slo_ms)
+    names = [p.name for p in singles] + [p.name for w in gang_waves for p in w]
+    bound = bindings_of(stack, names)
+    out.update(
+        pods=len(names), bound=sum(v not in (None, "evicted") for v in bound.values()),
+        bindings=bound, overcommitted=over_capacity(stack),
+        accounting_gap=accounting_gap(stack),
+        waiting=len(stack.framework.waiting_pods()),
+        dispatch_errors=stack.batch.dispatch_errors,
+        gangs={g: sum(bound[n] not in (None, "evicted") for n in names
+                      if n.startswith(f"{g}-")) for g in gangs},
+        **kept.errors(),
+    )
+    if stepped:
+        out.update(
+            metrics=scrape_values(m.registry.render_prometheus()),
+            phases={ph: m.latency.count(phase=ph) for ph in PHASES},
+            pending=pending_view(m.pending),
+            slo=m.slo.evaluate(now=clock()),
+            spans=span_shape(m.tracer),
+            traces=len(m.recent_traces(100_000)),
+        )
+    else:
+        recs = m.tracer.records()
+        tracks: dict = {}
+        for r in recs:
+            tracks[r.track] = tracks.get(r.track, 0) + 1
+        spans = [(r.t0_ms / 1e3, (r.t0_ms + r.dur_ms) / 1e3, r.name) for r in recs
+                 if r.name in ("gang-dispatch", "joint-dispatch")]
+        uncovered = []
+        for s0, s1, name in {(s0, s1, n) for s0, s1, n in spans}:
+            inside = [c for c in dispatch_calls if s0 <= c[0] and c[1] <= s1]
+            if platform != "cpu" and (not inside
+                                      or (s1 - s0) * 1e3 < sum(c[2] for c in inside)):
+                uncovered.append((name, (s1 - s0) * 1e3, [c[2] for c in inside]))
+        import os
+
+        os.makedirs(TRACE_DIR, exist_ok=True)
+        path = os.path.join(TRACE_DIR, f"trace_run_j_{platform}.json")
+        with open(path, "w") as f:
+            json.dump(m.tracer.to_perfetto(recs), f)
+        out.update(
+            phase_ms={ph: {"count": m.latency.count(phase=ph),
+                           "p50": 1e3 * m.latency.quantile(0.5, phase=ph),
+                           "p99": 1e3 * m.latency.quantile(0.99, phase=ph)}
+                      for ph in PHASES},
+            spans_per_track=tracks, span_records=len(recs), perfetto=path,
+            dispatch_spans=len({(s0, s1) for s0, s1, _ in spans}),
+            dispatch_event_ms=[c[2] for c in dispatch_calls],
+            dispatch_uncovered=uncovered,
+            pods_per_s=out["bound"] / out["wall_s"] if out["wall_s"] else 0.0,
+        )
+    return out
+
+
+def run_obs_ladder(platform: str, size: dict) -> dict:
+    """Run (j2) on one kernel_platform: the overload ladder driven by queue
+    depth (``overload_queue_high`` 64, the cycle signal off) on a stepped
+    clock. A spot gang's first member parks at Permit, ``size["spot"]``
+    spot singletons (priority 0, below ``overload_shed_priority``) queue,
+    three evaluations climb to SHED; the gang's second member and
+    ``size["prod"]`` prod pods (priority 100; fewer than the BROWNOUT
+    bucket's 10 tokens, which SHED keeps applying) arrive and the queue
+    drains;
+    then the clock steps 10 s per evaluation until the ladder is NOMINAL
+    and the queue empty. Each step records the level, the gates, the
+    tracer's rate, the parks and the bindings."""
+    from yoda_tpu_torch.api.types import PodSpec
+
+    clock = SteppedClock(20_000.0)
+    stack, _agent = build_fleet(platform, 16, slices=size["slices"],
+                                v5e_hosts=size["v5e_hosts"], clock=clock,
+                                overload_queue_high=64, overload_cycle_ms_high=0,
+                                bind_workers=0)
+    m, ov, q = stack.metrics, stack.metrics.overload, stack.queue
+    stack.reconciler.resync()
+    steps: list = []
+
+    def step(tag: str) -> None:
+        pods = stack.cluster.list_pods()
+        steps.append(dict(
+            tag=tag, level=ov.level, transitions=ov.transitions,
+            pressure=round(ov.last_pressure, 6), shed_total=ov.shed_total,
+            shed_parks=q.shed_parks, quota_parks=q.quota_parks,
+            sample_rate=m.tracer.sample_rate, rebalancer_gate=stack.rebalancer.gate_fn(),
+            nodehealth_gate=stack.nodehealth.gate_fn(), depth=q.overload_depth(),
+            bound=sorted(p.name for p in pods if p.node_name),
+            pending=m.pending.summary()["by_kind"],
+        ))
+
+    spot_gang = {"tpu/gang": "spotg", "tpu/gang-size": "2", "tpu/chips": "8",
+                 "tpu/generation": "v5e", "tpu/priority": "0"}
+    with KeptKernels() as kept:
+        step("start")
+        stack.cluster.create_pod(PodSpec("spotg-0", labels=dict(spot_gang)))
+        stack.scheduler.run_until_idle(max_wall_s=1.0)
+        for i in range(size["spot"]):
+            stack.cluster.create_pod(PodSpec(
+                f"spot-{i:03d}", labels={"tpu/chips": "1", "tpu/priority": "0"}))
+        for _ in range(3):
+            clock.advance(1.0)
+            ov.evaluate()
+            step("climb")
+        stack.cluster.create_pod(PodSpec("spotg-1", labels=dict(spot_gang)))
+        for i in range(size["prod"]):
+            stack.cluster.create_pod(PodSpec(
+                f"prod-{i:02d}", labels={"tpu/chips": "2", "tpu/priority": "100"}))
+        # Every drain runs to its end (no Permit waiter is left after the
+        # gang's second member binds): a drain cut by wall time would leave
+        # queued pods that push the ladder back up on a slow host.
+        stack.scheduler.run_until_idle(max_wall_s=600)
+        step("shed")
+        for _ in range(12):
+            clock.advance(10.0)
+            ov.evaluate()
+            stack.scheduler.run_until_idle(max_wall_s=600)
+            step("down")
+            if ov.level == "NOMINAL" and not len(q):
+                break
+        if platform != "cpu":
+            torch.cuda.synchronize()
+    names = (["spotg-0", "spotg-1"] + [f"spot-{i:03d}" for i in range(size["spot"])]
+             + [f"prod-{i:02d}" for i in range(size["prod"])])
+    return dict(
+        platform=platform, steps=steps, pods=len(names),
+        bindings=bindings_of(stack, names), overcommitted=over_capacity(stack),
+        accounting_gap=accounting_gap(stack), dispatch_errors=stack.batch.dispatch_errors,
+        **kept.errors(),
+    )
+
+
+def run_obs_cycle_signal(platform: str, size: dict) -> dict:
+    """Run (j3), reported and not compared: the ladder's own
+    ``run_forever`` at the default 1 s period and 250 ms cycle threshold on
+    a thread of its own, beside a K = 1 serve of run (a)'s pods on the
+    wall clock, then ``size["hold_s"]`` more seconds of ladder. Returns
+    the ``total`` p50/p99, every transition and the seconds at each
+    level."""
+    from yoda_tpu_torch.api.types import PodSpec
+
+    stack, _agent = build_fleet(platform, 1, slices=size["slices"],
+                                v5e_hosts=size["v5e_hosts"])
+    m, ov = stack.metrics, stack.metrics.overload
+    stack.reconciler.resync()
+    t_start = time.monotonic()
+    changes = [(0.0, ov.level, 0.0)]
+    evaluations: list = []
+    real_transition, real_evaluate = ov._transition_locked, ov.evaluate
+
+    def noted_transition(new_idx):
+        real_transition(new_idx)
+        changes.append((time.monotonic() - t_start, ov.level, ov.last_pressure))
+
+    def noted_evaluate(now=None):
+        level = real_evaluate(now)
+        sig = ov.pressure()
+        evaluations.append(dict(at_s=round(time.monotonic() - t_start, 3), level=level,
+                                cycle_p99_ms=1e3 * m.latency.quantile(0.99, phase="total"),
+                                signals={k: round(v, 4) for k, v in sig.items()}))
+        return level
+
+    ov._transition_locked, ov.evaluate = noted_transition, noted_evaluate
+    stop = threading.Event()
+    ladder = threading.Thread(target=ov.run_forever, args=(stop,), name="overload",
+                              daemon=True)
+    ladder.start()
+    with KeptKernels() as kept:
+        for name, labels in fleet_and_pods(0)[0]:
+            stack.cluster.create_pod(PodSpec(name, labels=dict(labels)))
+        stack.scheduler.run_until_idle(max_wall_s=600)
+        if platform != "cpu":
+            torch.cuda.synchronize()
+        serve_s = time.monotonic() - t_start
+        time.sleep(size["hold_s"])
+    stop.set()
+    ladder.join(timeout=10)
+    end = time.monotonic() - t_start
+    at_level: dict = {}
+    for (t, level, _p), nxt in zip(changes, [*changes[1:], (end, None, None)]):
+        at_level[level] = at_level.get(level, 0.0) + nxt[0] - t
+    return dict(
+        platform=platform, serve_s=serve_s, wall_s=end, alive=ladder.is_alive(),
+        total_p50_ms=1e3 * m.latency.quantile(0.5, phase="total"),
+        total_p99_ms=1e3 * m.latency.quantile(0.99, phase="total"),
+        cycles=m.latency.count(phase="total"), transitions=changes,
+        seconds_at_level=at_level, evaluations=evaluations,
+        repairs_paused_at_end=ov.repairs_paused(), sample_rate_at_end=m.tracer.sample_rate,
+        first_restack_ms=stack.batch._resident.last_restack_ms
+        if stack.batch._resident is not None else None,
+        bound=sum(1 for p in stack.cluster.list_pods() if p.node_name),
+        **kept.errors(),
+    )
+
+
+def run_trace_cost(platform: str, size: dict) -> dict:
+    """Tracing's cost, reported and not claimed: run (b) (256 singletons at
+    K = 16 on a fresh stack) in ``size["pairs"]`` alternating pairs,
+    ``trace_sample_rate`` 1.0 then 0, on the wall clock: pods/s and p99
+    per run and their medians and spreads per side."""
+    from yoda_tpu_torch.api.types import PodSpec
+
+    runs: dict = {1.0: [], 0.0: []}
+    with KeptKernels() as kept:
+        for _pair in range(size["pairs"]):
+            for rate in (1.0, 0.0):
+                stack, _agent = build_fleet(platform, 16, slices=size["slices"],
+                                            v5e_hosts=size["v5e_hosts"],
+                                            trace_sample_rate=rate)
+                names = []
+                for name, labels in fleet_and_pods(0)[1]:
+                    stack.cluster.create_pod(PodSpec(name, labels=dict(labels)))
+                    names.append(name)
+                t0 = time.monotonic()
+                stack.scheduler.run_until_idle(max_wall_s=600)
+                if platform != "cpu":
+                    torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+                lat = singleton_latencies(stack, names)
+                runs[rate].append(dict(pods_per_s=len(lat) / wall if wall else 0.0,
+                                       p99_ms=pct_ms(lat, 0.99),
+                                       spans=len(stack.metrics.tracer.records())))
+
+    def side(rows):
+        pps = [r["pods_per_s"] for r in rows]
+        p99 = [r["p99_ms"] for r in rows]
+        return dict(pods_per_s_median=statistics.median(pps),
+                    pods_per_s_range=[min(pps), max(pps)],
+                    p99_ms_median=statistics.median(p99), p99_ms_range=[min(p99), max(p99)],
+                    spans=[r["spans"] for r in rows], runs=rows)
+
+    return dict(platform=platform, pairs=size["pairs"], traced=side(runs[1.0]),
+                untraced=side(runs[0.0]), **kept.errors())
+
+
+def run_observability(platform: str, size: dict = OBSERVABILITY_FULL, *,
+                      reported: bool = True) -> dict:
+    """Run (j) on one kernel_platform: (j1) and (j2), compared across
+    platforms, and with ``reported`` the measured parts: (j1) on the wall
+    clock with the endpoints scraped during and after it ((j4)), (j3) and
+    tracing's cost."""
+    parts = {"j1": lambda: run_obs_serve(platform, size),
+             "j2": lambda: run_obs_ladder(platform, size)}
+    if reported:
+        parts.update(
+            j1_wall=lambda: run_obs_serve(platform, size, stepped=False, scrape=True),
+            j3=lambda: run_obs_cycle_signal(platform, size),
+            cost=lambda: run_trace_cost(platform, size),
+        )
+    out: dict = {}
+    for part, fn in parts.items():
+        t = time.monotonic()
+        out[part] = fn()
+        out[part]["part_s"] = time.monotonic() - t
+    return out
+
+
+OBS_PARITY = {
+    "j1": ("bindings", "metrics", "phases", "pending", "slo", "spans", "traces", "reload"),
+    "j2": ("steps", "bindings"),
+}
+
+
+def check_observability_run(run: dict, size: dict) -> None:
+    """The checks each platform's run (j) must pass on its own."""
+    from yoda_tpu_torch.config import SchedulerConfig
+
+    name = f"run j ({run['j1']['platform']})"
+    full = size is OBSERVABILITY_FULL
+    parts = [p for p in ("j1", "j1_wall", "j2", "j3", "cost") if p in run]
+    for part in parts:
+        r = run[part]
+        if r.get("overcommitted") or r.get("accounting_gap") or r.get("dispatch_errors"):
+            raise AssertionError(f"{name} {part}: over capacity {r.get('overcommitted')}, "
+                                 f"accounting {r.get('accounting_gap')}, dispatch errors "
+                                 f"{r.get('dispatch_errors')}")
+        if r["kept"] != r["launches"] or any(r["max_abs_err"].values()):
+            raise AssertionError(f"{name} {part}: {r['kept']} launches held against the "
+                                 f"plain versions of {r['launches']}, differences "
+                                 f"{r['max_abs_err']}")
+    j1 = run["j1"]
+    if j1["waiting"] or (full and j1["bound"] != j1["pods"]):
+        raise AssertionError(f"{name} j1: {j1['bound']}/{j1['pods']} bound, "
+                             f"{j1['waiting']} waiting")
+    if any(n and n != gang_size for n, gang_size in
+           ((j1["gangs"][g], obs_script()[2][g][1]) for g in j1["gangs"])):
+        raise AssertionError(f"{name} j1: split gang {j1['gangs']}")
+    if not (j1["phases"]["total"] and j1["phases"]["filter"] and j1["phases"]["permit"]):
+        raise AssertionError(f"{name} j1: phase histogram {j1['phases']}")
+    kinds = {s[1] for s in j1["spans"]}
+    want = {"enqueue", "cycle", "permit-park", "bound", "gather", "gang-release",
+            "gang-dispatch" if not full else "joint-dispatch", "resync"}
+    if not want <= kinds:
+        raise AssertionError(f"{name} j1: spans {sorted(kinds)} lack {sorted(want - kinds)}")
+    rep = j1["reload"]
+    if (rep["report"]["applied"] != ["overload_queue_high", "rebalance_max_moves",
+                                     "spec_cache_size", "trace_sample_rate"]
+            or rep["report"]["immutable"] != ["scheduler_name"]
+            or rep["live"]["trace_sample_rate"] != 0.5
+            or rep["live"]["scheduler_name"] != SchedulerConfig().scheduler_name):
+        raise AssertionError(f"{name} j4 reload: {rep}")
+    steps = run["j2"]["steps"]
+    levels = [s["level"] for s in steps]
+    if levels[:4] != ["NOMINAL", "ELEVATED", "BROWNOUT", "SHED"] or levels[-1] != "NOMINAL":
+        raise AssertionError(f"{name} j2: levels {levels}")
+    elevated = steps[1]
+    if elevated["sample_rate"] != 0.0 or elevated["rebalancer_gate"] \
+            or elevated["nodehealth_gate"]:
+        raise AssertionError(f"{name} j2: ELEVATED did not pause the features {elevated}")
+    shed = next(s for s in steps if s["tag"] == "shed")
+    prod = {f"prod-{i:02d}" for i in range(size["prod"])}
+    if not prod <= set(shed["bound"]) or not {"spotg-0", "spotg-1"} <= set(shed["bound"]) \
+            or any(n.startswith("spot-") for n in shed["bound"]) \
+            or shed["pending"].get("overload-shed") != size["spot"]:
+        raise AssertionError(f"{name} j2: SHED {shed['pending']}, bound "
+                             f"{len(shed['bound'])}")
+    prev = shed
+    for s in steps[steps.index(shed) + 1:]:
+        if s["level"] == "BROWNOUT" and prev["level"] != "NOMINAL":
+            if len(s["bound"]) - len(prev["bound"]) > 10 or not s["quota_parks"]:
+                raise AssertionError(f"{name} j2: BROWNOUT admitted "
+                                     f"{len(s['bound']) - len(prev['bound'])}, quota parks "
+                                     f"{s['quota_parks']}")
+        prev = s
+    final = steps[-1]
+    if final["sample_rate"] != 1.0 or not final["rebalancer_gate"] \
+            or len(final["bound"]) != run["j2"]["pods"]:
+        raise AssertionError(f"{name} j2: after the step-down {final['sample_rate']}, "
+                             f"{len(final['bound'])}/{run['j2']['pods']} bound")
+    if "j1_wall" in run:
+        w = run["j1_wall"]
+        sc = w["scrape"]
+        if sc["errors"] or any(v != 200 for v in sc["after"].values()) \
+                or set(sc["after"]) - {"/debug/pending/<key>"} != set(sc["during"]):
+            raise AssertionError(f"{name} j4 scrapes: {sc['errors']} {sc['after']} "
+                                 f"{sc['during']}")
+        if w["dispatch_uncovered"] or not w["dispatch_spans"]:
+            raise AssertionError(f"{name} j1: dispatch spans {w['dispatch_spans']}, not "
+                                 f"covering their device time {w['dispatch_uncovered']}")
+        j3 = run["j3"]
+        if j3["alive"] or j3["bound"] != 64 or not j3["evaluations"]:
+            raise AssertionError(f"{name} j3: ladder alive {j3['alive']}, bound "
+                                 f"{j3['bound']}, evaluations {len(j3['evaluations'])}")
+
+
+def check_observability(g: dict, c: dict, size: dict) -> None:
+    """Run (j) on the card against the same script on the CPU."""
+    diff = [f"{part}.{k}" for part, keys in OBS_PARITY.items() for k in keys
+            if g[part][k] != c[part][k]]
+    if diff:
+        raise AssertionError(f"run j: cuda != cpu in {diff}")
+    check_observability_run(g, size)
+    check_observability_run(c, size)
+    for part in OBS_PARITY:
+        if any(c[part]["launches"].values()):
+            raise AssertionError(f"run j {part}: the CPU run launched on the card")
+        if not g[part]["launches"]["fleet_eval"]:
+            raise AssertionError(f"run j {part}: no fleet_eval launch on the card")
+    if not g["j1"]["launches"]["joint_fit"]:
+        raise AssertionError("run j1: no joint_fit launch on the card")
+
+
+def print_observability(run: dict, smi: str) -> None:
+    """Run (j)'s measurements, less its bindings, samples and spans."""
+    summary = {}
+    for part, r in run.items():
+        summary[part] = {k: v for k, v in r.items()
+                         if k not in ("bindings", "metrics", "pending", "spans", "steps",
+                                      "slo", "transitions", "evaluations")}
+        if part == "j2":
+            summary[part]["levels"] = [(s["tag"], s["level"], len(s["bound"]),
+                                        s["quota_parks"], s["shed_parks"])
+                                       for s in r["steps"]]
+        if part == "j3":
+            summary[part]["transitions"] = r["transitions"]
+            summary[part]["evaluations"] = r["evaluations"][:12]
+    print(f"observability (j) {run['j1']['platform']} [{smi}]:", json.dumps(summary))
+
+
+def obs_rerun_child(conn, size: dict) -> None:
+    """The body of run (j)'s CPU rerun process: (j1) and (j2) on
+    kernel_platform "cpu", sent back whole or as the error."""
+    torch.set_num_threads(CPU_RERUN_THREADS)
+    try:
+        conn.send(("ok", run_observability("cpu", size, reported=False)))
+    except BaseException as e:  # noqa: BLE001 — the parent reports it
+        conn.send(("error", f"{type(e).__name__}: {e}"))
+    conn.close()
+
+
+class ObsRerun:
+    """Run (j)'s CPU run in a process of its own (spawned, like
+    :class:`CpuRerun`), started when the kernels are built so that it
+    overlaps the card's phases; :meth:`result` waits for it."""
+
+    def __init__(self, size: dict = OBSERVABILITY_FULL) -> None:
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self._recv, send = ctx.Pipe(duplex=False)
+        self._proc = ctx.Process(target=obs_rerun_child, args=(send, size), daemon=True)
+        self._proc.start()
+        send.close()
+
+    def result(self, timeout_s: float = 900.0) -> dict:
+        if not self._recv.poll(timeout_s):
+            raise TimeoutError(f"run (j)'s CPU rerun sent nothing in {timeout_s} s")
+        status, value = self._recv.recv()
+        self._proc.join(timeout=30)
+        if status != "ok":
+            raise RuntimeError(f"run (j)'s CPU rerun failed: {value}")
+        return value
+
+    def stop(self) -> None:
+        if self._proc.is_alive():
+            self._proc.terminate()
+            self._proc.join(timeout=10)
+
+
+def phase_observability(smi: str, rerun: ObsRerun) -> dict:
+    g = run_observability("auto")
+    c = rerun.result()
+    print_observability(g, smi)
+    print_observability(c, smi)
+    check_observability(g, c, OBSERVABILITY_FULL)
+    return g
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one NVIDIA GPU", file=sys.stderr)
@@ -3654,6 +4374,7 @@ def main() -> None:
 
     kind, smi = phase("device/build", phase_device)
     rerun = CpuRerun(BACKGROUND_FULL, NODEHEALTH_FULL)
+    obs_rerun = ObsRerun(OBSERVABILITY_FULL)
     try:
         rows, profiled = phase("kernel vs plain", phase_kernel)
         joint_rows = phase("joint_fit vs plain", phase_joint_fit)
@@ -3666,7 +4387,9 @@ def main() -> None:
         wide = phase("wide fleet", phase_wide_fleet, smi)
         background = phase("background run (h)", phase_background, smi, rerun)
         nodehealth = phase("node health run (i)", phase_nodehealth, smi, rerun)
+        observability = phase("observability run (j)", phase_observability, smi, obs_rerun)
         print("phase seconds:", json.dumps(seconds))
+        j_parts = ("j1", "j1_wall", "j2", "j3", "cost")
         h_runs = [background[part] for part in ("h1", "h2", "h3", "h4", "h4_nospec")]
         main_row = next(
             r for r in profiled
@@ -3691,8 +4414,12 @@ def main() -> None:
                     ),
                     "launches": sum(run["launches"] for run in (
                         gpu["a"], gpu["b"], gangs["c"], gangs["d"], churn, preemption,
-                        affinity, *wide, *h_runs, nodehealth)),
+                        affinity, *wide, *h_runs, nodehealth))
+                    + sum(observability[p]["launches"]["fleet_eval"] for p in j_parts),
                     "launches_run_g": affinity["launches"],
+                    "launches_run_j": {
+                        p: observability[p]["launches"]["fleet_eval"] for p in j_parts
+                    },
                     "launches_run_i": {
                         part: n["fleet_eval"] for part, n in nodehealth["phase_launches"].items()
                     },
@@ -3713,7 +4440,9 @@ def main() -> None:
                         k: not_measured(v) for k, v in background["h1"]["concurrent"].items()
                     },
                     "max_abs_err": max(max(r["max_abs_err"] for r in rows),
-                                       nodehealth["max_abs_err"]["fleet_eval"]),
+                                       nodehealth["max_abs_err"]["fleet_eval"],
+                                       *(observability[p]["max_abs_err"]["fleet_eval"]
+                                         for p in j_parts)),
                     "ms": main_row["ms"],
                     "plain_ms": main_row["plain_ms"],
                     "bound_ms": main_row["bound_ms"],
@@ -3744,12 +4473,18 @@ def main() -> None:
                     + gangs["d"]["joint_fit_launches"] + preemption["joint_fit_launches"]
                     + affinity["joint_fit_launches"]
                     + sum(run["joint_fit_launches"] for run in h_runs[1:])
-                    + nodehealth["joint_fit_launches"],
+                    + nodehealth["joint_fit_launches"]
+                    + sum(observability[p]["launches"]["joint_fit"] for p in j_parts),
                     "launches_run_i": {
                         part: n["joint_fit"] for part, n in nodehealth["phase_launches"].items()
                     },
+                    "launches_run_j": {
+                        p: observability[p]["launches"]["joint_fit"] for p in j_parts
+                    },
                     "max_abs_err": max(max(r["max_abs_err"] for r in joint_rows),
-                                       nodehealth["max_abs_err"]["joint_fit"]),
+                                       nodehealth["max_abs_err"]["joint_fit"],
+                                       *(observability[p]["max_abs_err"]["joint_fit"]
+                                         for p in j_parts)),
                     "ms": joint_main["ms"],
                     "device_ms": not_measured(joint_main["device_ms"]),
                     "plain_ms": joint_main["plain_ms"],
@@ -3815,6 +4550,7 @@ def main() -> None:
         )
     finally:
         rerun.stop()
+        obs_rerun.stop()
 
 
 if __name__ == "__main__":

@@ -14,6 +14,7 @@ with ``python -m pytest -m cuda tests/test_torch_cuda.py``. This file
 imports neither JAX nor yoda_tpu, so it runs on a machine without JAX."""
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -680,3 +681,54 @@ class TestNodeHealthOnCard:
         got = run_nodehealth("auto", NODEHEALTH_SMALL)
         want = run_nodehealth("cpu", NODEHEALTH_SMALL)
         check_nodehealth(got, want, NODEHEALTH_SMALL)
+
+
+@pytest.mark.cuda
+class TestDispatchSpanOnCard:
+    """Run (j)'s claim that the dispatch spans cover the card's work:
+    ``TorchFleetKernel.evaluate_joint_plan`` (and ``evaluate_joint``) copy
+    their results back to pinned host memory and synchronize before they
+    return, so the span the batch plugin closes after ``_dispatch`` lasts
+    at least as long as the device time of the launches inside it."""
+
+    def test_dispatch_span_covers_its_launches(self, card):
+        stack = build_stack(config=SchedulerConfig(batch_requests=16))
+        agent = FakeTpuAgent(stack.cluster)
+        for i in range(48):
+            agent.add_host(f"h{i:02d}", generation="v5e", chips=8)
+        agent.publish_all()
+        kern = stack.batch._kern
+        calls = []
+
+        def evented(inner):
+            def call(*args, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.monotonic()
+                start.record()
+                try:
+                    return inner(*args, **kw)
+                finally:
+                    end.record()
+                    end.synchronize()
+                    calls.append((t0, time.monotonic(), start.elapsed_time(end)))
+            return call
+
+        kern.evaluate_joint_plan = evented(kern.evaluate_joint_plan)
+        kern.evaluate_joint = evented(kern.evaluate_joint)
+        launches = cuda_kernel.joint_fit_launches
+        for g in range(2):
+            labels = {"tpu/gang": f"g{g}", "tpu/gang-size": "8", "tpu/chips": "8"}
+            for m in range(8):
+                stack.cluster.create_pod(PodSpec(f"g{g}-{m}", labels=dict(labels)))
+        stack.scheduler.run_until_idle(max_wall_s=30)
+        assert sum(1 for p in stack.cluster.list_pods() if p.node_name) == 16
+        assert cuda_kernel.joint_fit_launches > launches
+        spans = [r for r in stack.metrics.tracer.records()
+                 if r.name in ("gang-dispatch", "joint-dispatch")]
+        assert spans and calls
+        for r in spans:
+            t0, t1 = r.t0_ms / 1e3, (r.t0_ms + r.dur_ms) / 1e3
+            inside = [c for c in calls if t0 <= c[0] and c[1] <= t1]
+            assert inside, (r.name, t0, t1, calls)
+            assert r.dur_ms >= sum(c[2] for c in inside), (r.dur_ms, inside)

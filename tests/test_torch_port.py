@@ -220,12 +220,41 @@ class TestNotBuilt:
         assert stack.bind_executor is not None and stack.bind_executor.workers == 8
         for part in ("node health monitor", "node repair", "bind executor"):
             assert not [p for p in stack.not_built if p.startswith(part)]
+        # Tracing, the SLO engine and the overload controller are ported:
+        # only the bind pipeline is still named.
         assert sorted(p.split(" (")[0] for p in stack.not_built) == [
-            "SLO engine", "bind pipeline", "overload controller", "tracing",
+            "bind pipeline",
         ]
         warnings = [r for r in caplog.records if r.levelno == logging.WARNING]
         assert len(warnings) == 1
         assert all(part in warnings[0].getMessage() for part in stack.not_built)
+
+    @pytest.mark.parametrize(
+        "part,knob", [
+            ("tracing", "trace_sample_rate"),
+            ("SLO engine", "slo_enabled"),
+            ("overload controller", "overload_period_s"),
+        ],
+    )
+    def test_observability_part_built(self, part, knob):
+        # Each part the reference builds by default is built and wired on
+        # stack.metrics, and never named in not_built.
+        stack = build_stack(config=SchedulerConfig(kernel_platform="cpu"))
+        m = stack.metrics
+        assert not [p for p in stack.not_built if p.startswith(part)]
+        assert knob not in UNPORTED_KNOB_VALUES
+        if part == "tracing":
+            assert m.tracer.enabled and m.tracer.sample_rate == 1.0
+            assert stack.framework.tracer is m.tracer
+            assert stack.gang.tracer is m.tracer and stack.batch.tracer is m.tracer
+            assert stack.gang.pending is m.pending
+        elif part == "SLO engine":
+            assert m.slo.enabled and stack.queue in m.slo._queues
+            assert m.slo.goodput_fn is not None
+        else:
+            assert m.overload.period_s == 1.0
+            assert stack.queue in m.overload._queues
+            assert m.overload.tracer is m.tracer and m.overload.slo is m.slo
 
     def test_switched_off_parts_are_not_named(self, caplog):
         off = {knob: values[0] for knob, (_part, values) in UNPORTED_KNOB_VALUES.items()}
@@ -305,6 +334,45 @@ class TestBackgroundParts:
         path = REPO / "yoda_tpu_torch" / module
         assert path in set((REPO / "yoda_tpu_torch").rglob("*.py"))
         assert not [m for m in _imports(path) if _forbidden(m)]
+
+
+class TestObservabilityModules:
+    """The observability modules exist, are covered by the import guard,
+    and their knobs are honoured at any valid value."""
+
+    @pytest.mark.parametrize(
+        "module",
+        [
+            "tracing.py", "observability.py", "overload.py", "metrics_server.py",
+            "logging_setup.py", "slo/__init__.py", "slo/engine.py",
+            "framework/tenancy.py",
+        ],
+    )
+    def test_observability_modules_are_guarded(self, module):
+        path = REPO / "yoda_tpu_torch" / module
+        assert path in set((REPO / "yoda_tpu_torch").rglob("*.py"))
+        assert not [m for m in _imports(path) if _forbidden(m)]
+
+    @pytest.mark.parametrize(
+        "knob,value,read",
+        [
+            ("trace_sample_rate", 0.25, lambda m: m.tracer.sample_rate),
+            ("trace_capacity", 64, lambda m: m.tracer.capacity),
+            ("pending_index_max", 32, lambda m: m.pending.capacity),
+            ("slo_enabled", False, lambda m: m.slo.enabled),
+            ("slo_burn_threshold", 3.0, lambda m: m.slo.burn_threshold),
+            ("overload_period_s", 0.5, lambda m: m.overload.period_s),
+            ("overload_queue_high", 7, lambda m: m.overload.queue_high),
+            ("overload_cycle_ms_high", 0.0, lambda m: m.overload.cycle_ms_high),
+            ("overload_shed_priority", 3, lambda m: m.overload.shed_priority_floor),
+        ],
+    )
+    def test_knob_honoured(self, knob, value, read):
+        cfg = dataclasses.replace(
+            SchedulerConfig(kernel_platform="cpu"), **{knob: value}
+        )
+        assert unported_settings(cfg) == []
+        assert read(build_stack(config=cfg).metrics) == value
 
 
 class TestPreemptionKnob:

@@ -1,0 +1,103 @@
+"""Run the JAX package's own test cases against either package.
+
+A reference test module (``tests/test_observability.py`` and its
+siblings) is compiled from its source once per package: for
+``yoda_tpu_torch`` every ``yoda_tpu`` import is pointed at the port (the
+test harness's own helpers under ``yoda_tpu.testing`` stay the
+reference's: a stepped clock is not part of the port), and the port's
+``build_stack`` runs its kernels on the host (``kernel_platform: cpu``)
+where the case leaves the platform at "auto", as every port test does on
+a machine without a card. The case body, its inputs and its assertions
+are the reference's own, unchanged, so a case passing on both packages
+holds the port to exactly what the reference is held to.
+
+``cases(path, skip)`` lists ``(case id, class, method)`` triples for
+``pytest.mark.parametrize``; ``run_case(pkg, path, case, request,
+monkeypatch)`` runs one, resolving the method's fixtures through
+``request``.
+"""
+
+from __future__ import annotations
+
+import ast
+import dataclasses
+import inspect
+import re
+import types
+from pathlib import Path
+
+PACKAGES = ("yoda_tpu", "yoda_tpu_torch")
+TESTS = Path(__file__).resolve().parent
+
+# Reference modules the port side keeps: test harness helpers, not the
+# system under test.
+_KEEP = ("yoda_tpu.testing",)
+
+
+def cases(name: str, skip: "dict[str, str]") -> "list[tuple[str, str, str]]":
+    """Every test case of ``tests/<name>`` as (id, class, method), minus
+    ``skip`` (id -> the unported part it needs)."""
+    tree = ast.parse((TESTS / name).read_text())
+    out = []
+    for node in tree.body:
+        if isinstance(node, ast.ClassDef) and node.name.startswith("Test"):
+            for item in node.body:
+                if isinstance(item, ast.FunctionDef) and item.name.startswith("test"):
+                    out.append((f"{node.name}::{item.name}", node.name, item.name))
+        elif isinstance(node, ast.FunctionDef) and node.name.startswith("test"):
+            out.append((node.name, "", node.name))
+    unknown = set(skip) - {c[0] for c in out}
+    assert not unknown, f"skip names no case of {name}: {sorted(unknown)}"
+    return [c for c in out if c[0] not in skip]
+
+
+def _port_source(src: str) -> str:
+    def swap(m: re.Match) -> str:
+        mod = m.group(2)
+        if mod.startswith(_KEEP):
+            return m.group(0)
+        return m.group(1) + "yoda_tpu_torch" + mod[len("yoda_tpu"):]
+
+    return re.sub(
+        r"(\bfrom\s+)(yoda_tpu(?:\.[\w.]+)?)(?=\s+import\b)", swap, src
+    )
+
+
+def _cpu_build_stack(real):
+    def build_stack(cluster=None, config=None, **kw):
+        from yoda_tpu_torch.config import SchedulerConfig
+
+        config = config or SchedulerConfig()
+        if config.kernel_platform == "auto":
+            config = dataclasses.replace(config, kernel_platform="cpu")
+        return real(cluster, config, **kw)
+
+    return build_stack
+
+
+def load(pkg: str, name: str, monkeypatch) -> types.ModuleType:
+    path = TESTS / name
+    src = path.read_text()
+    if pkg == "yoda_tpu_torch":
+        import yoda_tpu_torch.standalone as standalone
+
+        monkeypatch.setattr(
+            standalone, "build_stack", _cpu_build_stack(standalone.build_stack)
+        )
+        src = _port_source(src)
+    mod = types.ModuleType(f"{path.stem}__{pkg}")
+    mod.__file__ = str(path)
+    exec(compile(src, str(path), "exec"), mod.__dict__)
+    return mod
+
+
+def run_case(pkg: str, name: str, case, request, monkeypatch) -> None:
+    _id, cls, meth = case
+    mod = load(pkg, name, monkeypatch)
+    owner = getattr(mod, cls)() if cls else mod
+    fn = getattr(owner, meth)
+    kwargs = {
+        a: request.getfixturevalue(a)
+        for a in inspect.signature(fn).parameters
+    }
+    fn(**kwargs)

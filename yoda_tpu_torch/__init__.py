@@ -10,10 +10,12 @@ caller asks for the CPU. The port keeps the reference's module layout
 nothing of ``yoda_tpu`` or JAX.
 
 The port runs the singleton and gang paths, preemption, inter-pod
-affinity, spread, volumes and budgets, and the background path (the
-speculative placement cache, the rebalancer and the reconciler):
-``standalone.build_stack``, ``agent.fake_publisher.FakeTpuAgent`` and
-``cluster.fake.FakeCluster``.
+affinity, spread, volumes and budgets, the background path (the
+speculative placement cache, the rebalancer and the reconciler), the node
+health monitor, and observability (the metrics registry, lifecycle
+tracing and why-pending, the SLO engine, the overload ladder and the
+metrics endpoint): ``standalone.build_stack``, ``agent.FakeTpuAgent``,
+``cluster.fake.FakeCluster`` and ``metrics_server.MetricsServer``.
 Each module's docstring names what it leaves out; ROADMAP.md lists the
 modules still to port.
 """

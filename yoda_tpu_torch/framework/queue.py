@@ -11,10 +11,17 @@ singleton, gang and background paths reach it: one tenant-blind active
 heap, the backoff heap, the unresolvable pool, the gang-arrival promotion,
 the gang gather (``pop_matching``, ``restore``), ``pending_gangs``,
 ``take_gang`` / ``readd`` (the rebalancer's transactional move), ``find``
-(the drift reconciler) and the activity signal the scheduler's drain waits
-on. Left out until a later slice: per-tenant DRF fair queuing and quota
-parking, the overload shed hook, ``all_entries`` (shard reroute) and
-``close``.
+(the drift reconciler), the activity signal the scheduler's drain waits
+on, and the hooks the overload ladder and the SLO engine read, in their
+tenant-blind form: ``shed_fn`` / ``on_shed`` (SHED parks non-prod draws
+at pop time), ``quota_fn`` / ``on_quota_park`` (BROWNOUT's admission cap,
+probed once per gather as in the reference), ``overload_depth``,
+``tenant_wait_stats`` and the ``shed_parks`` / ``quota_parks`` counters.
+Everything bills to the one tenant ``""``, which is the reference's queue
+with no ``tenant_of`` hook; a queue built without the hooks pops in
+exactly the order it did before them. Left out until a later slice:
+per-tenant DRF fair queuing (``tenant_of`` / ``share_fn`` and the
+per-tenant heaps), ``all_entries`` (shard reroute) and ``close``.
 """
 
 from __future__ import annotations
@@ -80,6 +87,10 @@ class SchedulingQueue:
         *,
         clock: Callable[[], float] = time.monotonic,
         immediate_retry_attempts: int = IMMEDIATE_RETRY_ATTEMPTS,
+        quota_fn: "Callable[[str, PodSpec], str | None] | None" = None,
+        on_quota_park: "Callable[[QueuedPodInfo, str], None] | None" = None,
+        shed_fn: "Callable[[PodSpec], str | None] | None" = None,
+        on_shed: "Callable[[QueuedPodInfo, str], None] | None" = None,
     ) -> None:
         if sort_plugin is not None:
             self._less = sort_plugin.less
@@ -88,6 +99,25 @@ class SchedulingQueue:
         self._clock = clock
         # 0 = strict upstream semantics (every event move respects backoff).
         self.immediate_retry_attempts = immediate_retry_attempts
+        # quota_fn(tenant, pod): why-pending verdict when admitting the pod
+        # would exceed the tenant's cap (None = admit) — the overload
+        # ladder's BROWNOUT token bucket. Verdicted entries park in the
+        # unresolvable pool and re-enter through move_all_to_active.
+        # on_quota_park(qpi, why): observability callback (counter +
+        # pending index), fired under the queue lock — it must not
+        # re-enter the queue.
+        self._quota_fn = quota_fn
+        self.on_quota_park = on_quota_park
+        self.quota_parks = 0  # total entries quota-parked (metrics)
+        # shed_fn(pod): why-pending message when the entry must PARK at
+        # pop time instead of scheduling (the ladder's SHED level) —
+        # checked per ITEM (the verdict depends on the pod's tier), into
+        # the unresolvable pool so the entry requeues on the ladder's
+        # step-down (an explicit move_all_to_active). on_shed(qpi, why)
+        # is the observability hook, fired under the queue lock.
+        self._shed_fn = shed_fn
+        self.on_shed = on_shed
+        self.shed_parks = 0  # lifetime shed count
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         self._seq = itertools.count()
@@ -99,6 +129,88 @@ class SchedulingQueue:
         # event-bound drain (Scheduler.run_until_idle) waits on it instead
         # of polling.
         self.on_activity: Callable[[], None] | None = None
+
+    # --- overload hooks (tenant-blind: every entry bills to "") ---
+
+    def _shed(self, pod: PodSpec) -> "str | None":
+        if self._shed_fn is None:
+            return None
+        try:
+            return self._shed_fn(pod)
+        except Exception:  # noqa: BLE001 — a bad hook must never wedge pops
+            return None
+
+    def _shed_park_locked(self, qpi: QueuedPodInfo, why: str) -> None:
+        """Park a shed entry in the unresolvable pool (lock held): it
+        re-enters on the ladder's step-down (move_all_to_active) or any
+        capacity event, and re-takes the shed check at its next pop."""
+        qpi.unschedulable_message = why
+        self._unschedulable[qpi.pod.key] = qpi
+        self.shed_parks += 1
+        if self.on_shed is not None:
+            try:
+                self.on_shed(qpi, why)
+            except Exception:  # noqa: BLE001 — observability must not wedge pops
+                pass
+
+    def _quota_park_locked(self, qpi: QueuedPodInfo, why: str) -> None:
+        """Park an over-quota entry in the unresolvable pool (lock held):
+        no backoff ladder — it re-enters the active queue on the next
+        capacity-freeing cluster event and re-takes the quota check."""
+        qpi.unschedulable_message = why
+        self._unschedulable[qpi.pod.key] = qpi
+        self.quota_parks += 1
+        if self.on_quota_park is not None:
+            try:
+                self.on_quota_park(qpi, why)
+            except Exception:  # noqa: BLE001 — observability must not wedge pops
+                pass
+
+    def _pop_active_locked(self) -> "QueuedPodInfo | None":
+        """Next admissible entry in (priority, FIFO) order, shed- and
+        quota-parking heads along the way. Lock held."""
+        while self._active:
+            item = heapq.heappop(self._active)
+            shed_why = self._shed(item.qpi.pod)
+            if shed_why is not None:
+                self._shed_park_locked(item.qpi, shed_why)
+                continue
+            if self._quota_fn is not None:
+                why = self._quota_fn("", item.qpi.pod)
+                if why is not None:
+                    self._quota_park_locked(item.qpi, why)
+                    continue
+            return item.qpi
+        return None
+
+    def overload_depth(self) -> int:
+        """Entries actively contending for the serve path (active +
+        backoff) — the overload monitor's queue-pressure signal. The
+        parked-unresolvable pool is EXCLUDED on purpose: shed and
+        quota-capped work is already parked by the ladder itself, and
+        counting it would wedge the step-down that requeues it."""
+        with self._lock:
+            return len(self._active) + len(self._backoff)
+
+    def tenant_wait_stats(self) -> "dict[str, tuple[int, float | None]]":
+        """tenant -> (queued entries across all three pools, oldest
+        ``added_unix`` on the queue clock, None when unknown) — the
+        pending/starvation side of the SLO engine's SLIs. Tenant-blind:
+        everything reports under ``""``. One locked sweep, on evaluation
+        demand only."""
+        with self._lock:
+            n, oldest = 0, None
+            entries = (
+                [item.qpi for item in self._active]
+                + [qpi for _, _, qpi in self._backoff]
+                + list(self._unschedulable.values())
+            )
+            for qpi in entries:
+                n += 1
+                t = qpi.added_unix if qpi.added_unix > 0.0 else None
+                if t is not None and (oldest is None or t < oldest):
+                    oldest = t
+            return {"": (n, oldest)} if n else {}
 
     def __len__(self) -> int:
         with self._lock:
@@ -184,8 +296,8 @@ class SchedulingQueue:
         with self._cond:
             while True:
                 self._flush_backoff_locked()
-                if self._active:
-                    qpi = heapq.heappop(self._active).qpi
+                qpi = self._pop_active_locked()
+                if qpi is not None:
                     qpi.attempts += 1
                     return qpi
                 waits = []
@@ -217,17 +329,39 @@ class SchedulingQueue:
         backoff timer is STILL TICKING (appended after the active matches,
         ready-time order): a gang member's pop can fuse siblings that
         bounced into timed backoff one retry earlier, instead of leaving
-        them to the gang-arrival signal or the backoff ladder."""
+        them to the gang-arrival signal or the backoff ladder.
+
+        With the overload hooks wired, a matching entry whose shed verdict
+        fires is shed-parked instead (per item), and when the quota probe
+        (one verdict per pass, on the first matching entry: usage only
+        moves at bind time) refuses, every matching entry is quota-parked
+        — a gang gathers whole or parks whole."""
         with self._cond:
             self._flush_backoff_locked()
+            quota_why = None
+            if self._quota_fn is not None:
+                probe = next(
+                    (it.qpi.pod for it in self._active if pred(it.qpi.pod)),
+                    None,
+                )
+                if probe is not None:
+                    quota_why = self._quota_fn("", probe)
             taken: list[_HeapItem] = []
             keep: list[_HeapItem] = []
             for item in self._active:
-                if pred(item.qpi.pod) and (limit is None or len(taken) < limit):
+                if not pred(item.qpi.pod):
+                    keep.append(item)
+                    continue
+                shed_why = self._shed(item.qpi.pod)
+                if shed_why is not None:
+                    self._shed_park_locked(item.qpi, shed_why)
+                elif quota_why is not None:
+                    self._quota_park_locked(item.qpi, quota_why)
+                elif limit is None or len(taken) < limit:
                     taken.append(item)
                 else:
                     keep.append(item)
-            if taken:
+            if len(keep) != len(self._active):
                 heapq.heapify(keep)
                 self._active = keep
             taken.sort()  # heap-internal order -> queue order
@@ -237,8 +371,14 @@ class SchedulingQueue:
                 moved = False
                 for entry in sorted(self._backoff):
                     if (limit is None or len(out) < limit) and pred(entry[2].pod):
-                        out.append(entry[2])
-                        moved = True
+                        shed_why = self._shed(entry[2].pod)
+                        if shed_why is not None:
+                            # As in the reference: the backoff heap is
+                            # rebuilt only when something was taken.
+                            self._shed_park_locked(entry[2], shed_why)
+                        else:
+                            out.append(entry[2])
+                            moved = True
                     else:
                         still.append(entry)
                 if moved:

@@ -37,8 +37,10 @@ the API re-LIST the reference asks a watch-caching backend for is not
 there (``relist`` is accepted and changes nothing). Left out: the journal
 warm start (the reference's divergence check against a replayed claim
 journal, and its staged-claim resume) and the shard-commit residue repair,
-since the journal and shards are not ported; and the counters and
-lifecycle trace, since the port has no registry.
+since the journal and shards are not ported. With ``metrics`` wired
+(``build_stack`` does) both passes feed the reference's counters —
+``yoda_resync_*`` and ``yoda_reconciler_*`` — and land their spans on the
+``reconciler`` track.
 """
 
 from __future__ import annotations
@@ -100,6 +102,7 @@ class Reconciler:
         framework,
         queue,
         scheduler,
+        metrics=None,
         adopt_window_s: float = 60.0,
         scheduler_names: "tuple[str, ...] | None" = None,
         clock: Callable[[], float] = time.monotonic,
@@ -111,6 +114,7 @@ class Reconciler:
         self.framework = framework
         self.queue = queue
         self.scheduler = scheduler
+        self.metrics = metrics
         self.adopt_window_s = adopt_window_s
         self.scheduler_names = frozenset(
             scheduler_names or (informer.scheduler_name,)
@@ -119,6 +123,9 @@ class Reconciler:
         # Set after the first successful resync: the rebalancer's gate
         # waits on it (no rebalancing on un-resynced state).
         self.resynced = threading.Event()
+        # Lifecycle tracer shortcut (metrics.tracer when wired): repairs
+        # land events on the affected gang's own trace.
+        self._tracer = getattr(metrics, "tracer", None)
         self._lock = threading.Lock()
         # gang name -> clock deadline by which an ADOPTED partial gang
         # must have completed whole, or the drift pass rolls it back.
@@ -155,9 +162,17 @@ class Reconciler:
             "failover: rolling back partial gang %s (%d bound member(s)): %s",
             name, len(bound), why,
         )
+        if self._tracer is not None and self._tracer.enabled:
+            self._tracer.add(
+                f"gang:{name}", "resync-rollback",
+                track="reconciler",
+                attrs={"members": len(bound), "why": why[:200]},
+            )
         for pod in bound:
             self.gang.drop_membership(pod)
             self.scheduler._rollback_bound(pod, pod.node_name, None, why)
+        if self.metrics is not None:
+            self.metrics.resync_rolled_back.inc()
 
     def _gang_truth(
         self, pods: "list[PodSpec]"
@@ -235,6 +250,14 @@ class Reconciler:
                     "%.0fs to complete before rollback)",
                     name, len(bound), size, self.adopt_window_s,
                 )
+                if self._tracer is not None and self._tracer.enabled:
+                    self._tracer.add(
+                        f"gang:{name}", "resync-adopt",
+                        track="reconciler",
+                        attrs={"bound": len(bound), "size": size},
+                    )
+                if self.metrics is not None:
+                    self.metrics.resync_adopted.inc()
             else:
                 why = (
                     f"failover resync: gang {name} partially bound "
@@ -249,6 +272,22 @@ class Reconciler:
                 report.rolled_back_gangs.append(name)
 
         report.duration_ms = (self.clock() - t0) * 1e3
+        if self._tracer is not None and self._tracer.enabled:
+            self._tracer.add(
+                "loop:reconciler", "resync",
+                track="reconciler",
+                attrs={
+                    "rebuilt": report.rebuilt_reservations,
+                    "released": report.released_reservations,
+                    "adopted": len(report.adopted_gangs),
+                    "rolled_back": len(report.rolled_back_gangs),
+                    "ms": round(report.duration_ms, 2),
+                },
+            )
+        if self.metrics is not None:
+            self.metrics.resync_rebuilt.inc(report.rebuilt_reservations)
+            self.metrics.reconciler_leaked.inc(report.released_reservations)
+            self.metrics.resync_duration_ms.set(report.duration_ms)
         self.resynced.set()
         log.info(
             "warm-start resync: %d reservation(s) rebuilt, %d released, "
@@ -336,6 +375,28 @@ class Reconciler:
             )
             report.expired_adoptions.append(name)
 
+        if self._tracer is not None and self._tracer.enabled and (
+            report.leaked_reservations
+            or report.ghost_pods
+            or report.stranded_waits
+            or report.expired_adoptions
+        ):
+            # Only non-no-op rounds are recorded: an idle drift loop must
+            # not age real lifecycle spans out of the ring.
+            self._tracer.add(
+                "loop:reconciler", "reconcile",
+                track="reconciler",
+                attrs={
+                    "leaked": report.leaked_reservations,
+                    "ghosts": report.ghost_pods,
+                    "stranded": report.stranded_waits,
+                    "expired": len(report.expired_adoptions),
+                },
+            )
+        if self.metrics is not None:
+            self.metrics.reconciler_leaked.inc(report.leaked_reservations)
+            self.metrics.reconciler_ghosts.inc(report.ghost_pods)
+            self.metrics.reconciler_stranded.inc(report.stranded_waits)
         if (
             report.leaked_reservations
             or report.ghost_pods

@@ -22,7 +22,10 @@ health monitor and the rebalancer fan their unbinds out on. Left out until
 a later slice: the per-node filter loop (loop mode), the bind pipeline
 that would put the scheduler's own binds on the executor (so every bind of
 a scheduling cycle runs inline on the scheduling thread) with the
-executor's completion bookkeeping, and bind tracing.
+executor's completion bookkeeping. ``Framework.tracer`` (wired by
+``build_stack``) records the bind and unbind spans on whichever thread runs
+them: the scheduling thread, or an executor worker for the monitor's and
+the rebalancer's unbind fan-out.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from typing import Callable, Mapping, Sequence
 
 from yoda_tpu_torch.api.types import PodSpec
 from yoda_tpu_torch.framework.cyclestate import CycleState
+from yoda_tpu_torch.tracing import subject_of
 from yoda_tpu_torch.framework.interfaces import (
     BatchFilterScorePlugin,
     BindPlugin,
@@ -66,11 +70,13 @@ class WaitingPod:
         pending_plugins: set[str],
         deadline: float,
         on_resolved: Callable[["WaitingPod", Status], None],
+        parked_at: float | None = None,
     ) -> None:
         self.pod = pod
         self.node_name = node_name
         self.state = state
         self.deadline = deadline
+        self.parked_at = parked_at  # clock time the pod entered the waitlist
         self._pending = set(pending_plugins)
         self._on_resolved = on_resolved
         self._lock = threading.Lock()
@@ -184,6 +190,11 @@ class BindExecutor:
         self._name = name
         self._lock = threading.Lock()
         self._pool: _DaemonPool | None = None
+        self._inflight = 0  # submitted, not yet settled (yoda_bind_inflight)
+
+    def inflight(self) -> int:
+        with self._lock:
+            return self._inflight
 
     def submit(self, fn: Callable[[], None]):
         """Run ``fn`` on a worker; returns the Future. ``fn``'s exceptions
@@ -196,12 +207,16 @@ class BindExecutor:
                     thread_name_prefix=f"{self._name}-worker",
                 )
             pool = self._pool
+            self._inflight += 1
 
         def run() -> None:
             try:
                 fn()
             except Exception:  # noqa: BLE001 — workers must never die silently
                 log.exception("bind executor task failed")
+            finally:
+                with self._lock:
+                    self._inflight -= 1
 
         return pool.submit(run)
 
@@ -243,6 +258,11 @@ def unbind_all(
 
 class Framework:
     def __init__(self, plugins: Sequence[Plugin]) -> None:
+        # Lifecycle tracer (tracing.py), wired by standalone.build_stack:
+        # run_bind/run_unbind record spans on WHICHEVER thread executes
+        # them, so the Perfetto view puts executor-side unbinds on their
+        # worker's own track.
+        self.tracer = None
         self.queue_sort = next(
             (p for p in plugins if isinstance(p, QueueSortPlugin)), None
         )
@@ -450,6 +470,7 @@ class Framework:
             waiting_plugins,
             deadline=now + max_timeout,
             on_resolved=lambda w, s: self._finish_waiting(w, s, on_resolved),
+            parked_at=now,
         )
         with self._waiting_lock:
             self._waiting[pod.key] = wp
@@ -502,7 +523,35 @@ class Framework:
             w.reject(f"permit wait timed out for pod {w.pod.key}")
         return len(expired)
 
+    # An inline bind cheaper than this adds no information beyond its
+    # cycle span (whose wall already contains it) — recording it would be
+    # pure hot-path cost. Executor-side binds record regardless (their
+    # wall lives on a worker track the cycle span cannot show).
+    BIND_SPAN_MIN_S = 0.0005
+
     def run_bind(self, state: CycleState, pod: PodSpec, node_name: str) -> Status:
+        tracer = self.tracer
+        if tracer is None or not tracer.enabled:
+            return self._run_bind_inner(state, pod, node_name)
+        t0 = time.monotonic()
+        st = self._run_bind_inner(state, pod, node_name)
+        t1 = time.monotonic()
+        track = threading.current_thread().name
+        if (
+            t1 - t0 >= self.BIND_SPAN_MIN_S
+            or not st.success
+            or track.startswith("bind-")
+        ):
+            tracer.add(
+                subject_of(pod), "bind",
+                t0=t0, t1=t1, track=track,
+                attrs={"pod": pod.key, "node": node_name, "ok": st.success},
+            )
+        return st
+
+    def _run_bind_inner(
+        self, state: CycleState, pod: PodSpec, node_name: str
+    ) -> Status:
         for p in self.bind_plugins:
             st = p.bind(state, pod, node_name)
             if st.code != Code.SKIP:
@@ -515,6 +564,21 @@ class Framework:
         including no plugin implementing it — means the pod may be
         stranded bound; the caller logs it and the watch stream remains
         the source of truth."""
+        tracer = self.tracer
+        if tracer is not None and tracer.enabled:
+            t0 = time.monotonic()
+            st = self._run_unbind_inner(state, pod, node_name)
+            tracer.add(
+                subject_of(pod), "unbind",
+                t0=t0, t1=time.monotonic(),
+                attrs={"pod": pod.key, "node": node_name, "ok": st.success},
+            )
+            return st
+        return self._run_unbind_inner(state, pod, node_name)
+
+    def _run_unbind_inner(
+        self, state: CycleState, pod: PodSpec, node_name: str
+    ) -> Status:
         for p in self.bind_plugins:
             unbind = getattr(p, "unbind", None)
             if unbind is not None:

@@ -18,8 +18,18 @@ the pod binds elsewhere), the multi-pod burst pop, the gang gather and
 cross-gang joint pass (``_gather_gangs``), the transactional gang
 rollback (``_rollback_bound``), the leader fence (``fence_fn`` /
 ``_fenced``: a fenced scheduler aborts binds before the API write) and
-the event-bound ``run_until_idle`` with permit expiry — with no metrics
-registry and no tracer. As in the reference, the cycle lock is released
+the event-bound ``run_until_idle`` with permit expiry, and the
+observability the reference feeds from its ``metrics`` (a
+``SchedulingMetrics``): the per-phase ``PhaseTimer`` spans (prefilter,
+spec, filter, score, reserve, permit, postfilter) into
+``yoda_scheduling_latency_seconds{phase}`` with the whole cycle as
+``phase="total"``, ``attempts{result}``, the ``TraceEntry`` ring, binds,
+fenced binds, gang Permit waits, transactional rollbacks, the SLO
+engine's bound edge at both bind sites, the why-pending records and
+resolutions, and the cycle / permit-park / bound / permit-rejected /
+gather / joint-park spans. ``yoda_overlap_cycles_total`` (the bind
+pipeline) and ``yoda_shard_commit_rollbacks_total`` (shards) are never
+fed here and stay at 0. As in the reference, the cycle lock is released
 before PostFilter: preemption's victim selection takes the same lock.
 ``on_serve_start`` is held for ``serve_forever``, which is not ported
 yet, so nothing calls it. Left out until a later slice: shard staging and
@@ -49,6 +59,8 @@ from yoda_tpu_torch.framework.interfaces import (
 )
 from yoda_tpu_torch.framework.queue import QueuedPodInfo, SchedulingQueue
 from yoda_tpu_torch.framework.runtime import Framework, WaitingPod
+from yoda_tpu_torch.observability import PhaseTimer, SchedulingMetrics, TraceEntry
+from yoda_tpu_torch.tracing import subject_of
 
 
 @dataclass
@@ -82,6 +94,7 @@ class Scheduler:
         on_nominated: Callable[[PodSpec, "str | None"], None] | None = None,
         cycle_lock: "threading.Lock | None" = None,
         post_filter_lock: "threading.Lock | None" = None,
+        metrics: SchedulingMetrics | None = None,
         pod_alive: Callable[[PodSpec], bool] | None = None,
         burst_size: int = 1,
         fence_fn: Callable[[], bool] | None = None,
@@ -101,6 +114,7 @@ class Scheduler:
         # Serializes PostFilter preemption only (victim selection and the
         # evictions), taken after the cycle lock is released.
         self.post_filter_lock = post_filter_lock or threading.Lock()
+        self.metrics = metrics
         self.pod_alive = pod_alive
         # Multi-pod fused dispatch (config batch_requests): pop up to this
         # many queue entries at once and pre-evaluate them in ONE kernel
@@ -172,6 +186,39 @@ class Scheduler:
     ) -> ScheduleResult:
         pod = qpi.pod
         t0 = self.clock()
+        # A pod deleted (or already bound, or gated) while queued is
+        # dropped: counted as a "gone" attempt, no cycle bookkeeping.
+        if self.pod_alive is not None and not self.pod_alive(pod):
+            log.debug(
+                "pod %s no longer schedulable (deleted/bound/gated); "
+                "dropping queue entry", pod.key,
+            )
+            with self._lock:
+                self._nominated.pop(pod.uid, None)
+            now = self.clock()
+            r = ScheduleResult(
+                pod.key, "gone", latency_s=now - t0, completed_at=now
+            )
+            with self._lock:
+                self.stats.results.append(r)
+            if self.metrics is not None:
+                self.metrics.attempts.inc(result="gone")
+            return r
+        state = CycleState()
+        snapshot = self.snapshot_fn()
+        timer = PhaseTimer(self.clock)
+        feasible_count = 0
+        # Pre-bound for done()'s closure: the filter section rebinds it
+        # with the real per-node verdict map; prefilter-path exits see {}.
+        statuses: dict[str, Status] = {}
+        # Lifecycle tracing (tracing.py): one "cycle" span per scheduling
+        # attempt on the pod/gang's trace, with the outcome, chosen node
+        # and per-phase wall splits as attributes. None when tracing is
+        # off — the only cost then is this attribute read.
+        tracer = self.metrics.tracer if self.metrics is not None else None
+        if tracer is not None and not tracer.enabled:
+            tracer = None
+        subject = subject_of(pod) if tracer is not None else None
 
         def done(
             outcome: str,
@@ -188,7 +235,11 @@ class Scheduler:
                 pod.key, outcome, node, message, now - t0, completed_at=now
             )
             if outcome == "bound":
-                log.info("bound %s -> %s (%.1f ms)", pod.key, node, r.latency_s * 1e3)
+                log.info(
+                    "bound %s -> %s (%d/%d nodes feasible, %.1f ms)",
+                    pod.key, node, feasible_count, len(snapshot),
+                    r.latency_s * 1e3,
+                )
                 self._clear_stale_nomination(pod, node)
             elif outcome == "nominated":
                 log.info("nominated %s -> %s: %s", pod.key, node, message)
@@ -196,10 +247,70 @@ class Scheduler:
                 log.info("unschedulable %s: %s", pod.key, message)
             elif outcome == "error":
                 log.warning("error scheduling %s: %s", pod.key, message)
-            elif outcome == "waiting":
+            else:
                 log.debug("pod %s waiting at permit on %s", pod.key, node)
             with self._lock:
                 self.stats.results.append(r)
+            if self.metrics is not None:
+                self.metrics.attempts.inc(result=outcome)
+                self.metrics.latency.observe(r.latency_s, phase="total")
+                timer.observe_into(self.metrics.latency)
+                self.metrics.trace(
+                    TraceEntry(
+                        pod_key=pod.key,
+                        outcome=outcome,
+                        node=node,
+                        nodes_total=len(snapshot),
+                        nodes_feasible=feasible_count,
+                        message=message,
+                        phases_ms=dict(timer.phases_ms),
+                    )
+                )
+            if tracer is not None:
+                # timer.phases_ms is handed over as-is (the timer dies
+                # with this cycle).
+                cycle_id = tracer.add(
+                    subject, "cycle", t0=t0, t1=now,
+                    attrs={
+                        "pod": pod.key,
+                        "outcome": outcome,
+                        "node": node or "",
+                        "message": message[:200],
+                        "phases_ms": timer.phases_ms,
+                    },
+                )
+                if outcome == "waiting":
+                    tracer.add(
+                        subject, "permit-park", parent=cycle_id,
+                        attrs={"pod": pod.key, "node": node or ""},
+                    )
+                elif outcome == "bound" and gang_name_of(pod.labels):
+                    # Gang members bound directly (the last member's own
+                    # cycle) mark the edge explicitly; singleton cycles
+                    # already say outcome=bound on the cycle span.
+                    tracer.add(
+                        subject, "bound", parent=cycle_id,
+                        attrs={"pod": pod.key, "node": node or ""},
+                    )
+            if self.metrics is not None:
+                # Why-pending index: every rejection verdict aggregates
+                # per pod AND per gang; a bind retires the entry.
+                gang = gang_name_of(pod.labels)
+                if outcome in ("unschedulable", "error", "nominated"):
+                    self.metrics.pending.record(
+                        pod.key,
+                        kind=outcome,
+                        message=message,
+                        gang=gang,
+                        node_reasons={
+                            n: s.message
+                            for n, s in statuses.items()
+                            if not s.success
+                        }
+                        or None,
+                    )
+                elif outcome == "bound":
+                    self.metrics.pending.resolve(pod.key, gang=gang)
             if outcome == "unschedulable":
                 if unresolvable:
                     self.queue.park_unresolvable(qpi, message)
@@ -231,20 +342,16 @@ class Scheduler:
                         self.on_nominated(pod, node)
             return r
 
-        # A pod deleted (or already bound, or gated) while queued is dropped.
-        if self.pod_alive is not None and not self.pod_alive(pod):
-            with self._lock:
-                self._nominated.pop(pod.uid, None)
-            return done("gone")
         if pod.scheduling_gates:
+            # Defensive (the informer keeps gated pods out of the queue):
+            # a gated copy parks through the standard unresolvable path.
             return done(
                 "unschedulable",
                 message="pod has scheduling gates; not ready to schedule",
                 unresolvable=True,
             )
-        state = CycleState()
-        snapshot = self.snapshot_fn()
-        st = self.framework.run_pre_filter(state, pod, snapshot)
+        with timer.span("prefilter"):
+            st = self.framework.run_pre_filter(state, pod, snapshot)
         if not st.success:
             if st.code == Code.UNSCHEDULABLE:
                 # A PreFilter rejection (gang admission: no room for the
@@ -252,7 +359,7 @@ class Scheduler:
                 # training gang displaces inference pods. No Reserve
                 # happened, so the cycle lock goes before the evictions.
                 release_cycle_lock()
-                with self.post_filter_lock:
+                with timer.span("postfilter"), self.post_filter_lock:
                     nominated, pf_st = self.framework.run_post_filter(
                         state, pod, snapshot, {}
                     )
@@ -276,19 +383,22 @@ class Scheduler:
         spec = self.speculation
         if spec is not None and spec.enabled:
             t_spec = self.clock()
-            node = None
-            plan = spec.lookup(pod)
-            if (
-                plan is not None
-                and not self._fenced()
-                and spec.epoch_valid(plan)
-                and spec.revalidate(plan, pod, snapshot)
-            ):
-                node = spec.consume_plan(plan)
+            with timer.span("spec"):
+                node = None
+                plan = spec.lookup(pod)
+                if (
+                    plan is not None
+                    and not self._fenced()
+                    and spec.epoch_valid(plan)
+                    and spec.revalidate(plan, pod, snapshot)
+                ):
+                    node = spec.consume_plan(plan)
             if node is not None:
-                st = self.framework.run_reserve(state, pod, node)
+                with timer.span("reserve"):
+                    st = self.framework.run_reserve(state, pod, node)
                 if st.success:
                     best = node
+                    feasible_count = 1
                     spec.record_bound((self.clock() - t_spec) * 1e3)
                 else:
                     # A foreign claim raced the window between the spot
@@ -296,21 +406,28 @@ class Scheduler:
                     spec.reserve_rejected(plan)
 
         if best is None:
-            try:
-                batch = self.framework.run_batch_filter_score(state, pod, snapshot)
-            except Exception as e:  # noqa: BLE001 — keep the loop serving
-                log.exception("batch filter/score failed for %s", pod.key)
-                return done("error", message=f"batch filter/score failed: {e}")
-            if batch is None:
-                return done(
-                    "error", message="no batch filter/score plugin is registered"
-                )
-            statuses, batch_scores = batch
-            feasible = sorted(batch_scores)
+            with timer.span("filter"):
+                try:
+                    batch = self.framework.run_batch_filter_score(
+                        state, pod, snapshot
+                    )
+                except Exception as e:  # noqa: BLE001 — keep the loop serving
+                    log.exception("batch filter/score failed for %s", pod.key)
+                    return done(
+                        "error", message=f"batch filter/score failed: {e}"
+                    )
+                if batch is None:
+                    return done(
+                        "error",
+                        message="no batch filter/score plugin is registered",
+                    )
+                statuses, batch_scores = batch
+                feasible = sorted(batch_scores)
+            feasible_count = len(feasible)
             if not feasible:
                 # As above: no Reserve on this path, the lock goes first.
                 release_cycle_lock()
-                with self.post_filter_lock:
+                with timer.span("postfilter"), self.post_filter_lock:
                     nominated, pf_st = self.framework.run_post_filter(
                         state, pod, snapshot, statuses
                     )
@@ -318,10 +435,15 @@ class Scheduler:
                     return done("nominated", node=nominated, message=pf_st.message)
                 return done("unschedulable", message=summarize_failure(statuses))
 
-            st = self.framework.run_pre_score(state, pod, snapshot, feasible)
-            totals: dict[str, int] = {}
-            if st.success:
-                totals, st = self.framework.run_scores(state, pod, snapshot, feasible)
+            with timer.span("score"):
+                st = self.framework.run_pre_score(state, pod, snapshot, feasible)
+                totals: dict[str, int] = {}
+                if st.success:
+                    totals, st = self.framework.run_scores(
+                        state, pod, snapshot, feasible
+                    )
+            # Outside the span: returning from inside it would drop the
+            # score phase from this cycle's trace entry and histogram.
             if not st.success:
                 return done("error", message=st.message)
             if self.framework.score_plugins:
@@ -337,15 +459,17 @@ class Scheduler:
                 totals = dict(batch_scores)
             best = max(feasible, key=lambda n: (totals.get(n, 0), n))
 
-            st = self.framework.run_reserve(state, pod, best)
+            with timer.span("reserve"):
+                st = self.framework.run_reserve(state, pod, best)
             if not st.success:
                 return done("unschedulable", node=best, message=st.message)
         # Reservation charged: the rest of the cycle needs no lock.
         release_cycle_lock()
 
-        st = self.framework.run_permit(
-            state, pod, best, self._on_permit_resolved, now=self.clock()
-        )
+        with timer.span("permit"):
+            st = self.framework.run_permit(
+                state, pod, best, self._on_permit_resolved, now=self.clock()
+            )
         if st.code == Code.WAIT:
             return done("waiting", node=best)
         if not st.success:
@@ -355,6 +479,8 @@ class Scheduler:
         if self._fenced():
             # Leader fencing: abort BEFORE the API write. The reservation
             # rolls back and the pod requeues.
+            if self.metrics is not None:
+                self.metrics.fenced_binds.inc()
             self.framework.run_unreserve(state, pod, best)
             return done(
                 "unschedulable",
@@ -368,6 +494,10 @@ class Scheduler:
             return done("unschedulable", node=best, message=st.message)
         with self._lock:
             self.stats.binds += 1
+        if self.metrics is not None:
+            self.metrics.binds.inc()
+            # SLO engine: close the enqueue->bound admission-wait edge.
+            self.metrics.slo.observe_bound(pod, now=self.clock())
         if self.on_bound:
             self.on_bound(pod, best)
         # Cluster changed: retry parked pods (skipped when nothing parked).
@@ -407,11 +537,15 @@ class Scheduler:
 
     def _do_permit_resolved(self, wp: WaitingPod, status: Status) -> None:
         pod = wp.pod
+        if self.metrics is not None and wp.parked_at is not None:
+            self.metrics.gang_wait.observe(max(self.clock() - wp.parked_at, 0.0))
         if status.success:
             if self._fenced():
                 # Leader fencing between permit release and bind: abort
                 # before the API write; the gang rolls back transactionally
                 # below, exactly as a bind failure would.
+                if self.metrics is not None:
+                    self.metrics.fenced_binds.inc()
                 st = Status.unschedulable(
                     "scheduler fenced (lost leadership); bind aborted "
                     "before the API write"
@@ -423,6 +557,18 @@ class Scheduler:
                 log.info("bound %s -> %s (permit released)", pod.key, wp.node_name)
                 with self._lock:
                     self.stats.binds += 1
+                if self.metrics is not None:
+                    self.metrics.binds.inc()
+                    # SLO engine: permit-released members close their
+                    # admission-wait edge here.
+                    self.metrics.slo.observe_bound(pod, now=self.clock())
+                    gang = gang_name_of(pod.labels)
+                    self.metrics.pending.resolve(pod.key, gang=gang)
+                    if self.metrics.tracer.enabled:
+                        self.metrics.tracer.add(
+                            subject_of(pod), "bound",
+                            attrs={"pod": pod.key, "node": wp.node_name},
+                        )
                 if self.on_bound:
                     self.on_bound(pod, wp.node_name)
                 self._clear_stale_nomination(pod, wp.node_name)
@@ -435,6 +581,22 @@ class Scheduler:
             "permit rejected %s on %s: %s", pod.key, wp.node_name, status.message
         )
         self.framework.run_unreserve(wp.state, pod, wp.node_name)
+        if self.metrics is not None:
+            self.metrics.pending.record(
+                pod.key,
+                kind="permit-rejected",
+                message=status.message,
+                gang=gang_name_of(pod.labels),
+            )
+            if self.metrics.tracer.enabled:
+                self.metrics.tracer.add(
+                    subject_of(pod), "permit-rejected",
+                    attrs={
+                        "pod": pod.key,
+                        "node": wp.node_name,
+                        "message": status.message[:200],
+                    },
+                )
         self.queue.add_unschedulable(QueuedPodInfo(pod=pod), status.message)
         if self.on_unschedulable:
             self.on_unschedulable(pod, status.message)
@@ -455,14 +617,21 @@ class Scheduler:
         reservations) and hands back the siblings whose binds already
         landed, which are unbound, unreserved and requeued here. Every
         bind runs inline on this thread, so the landed set is final when
-        the hook returns. The failing member itself goes through the
-        caller's standard rejection path."""
+        the hook returns (None: no rollback was initiated). The failing
+        member itself goes through the caller's standard rejection path."""
+        initiated = False
         for p in self.framework.permit_plugins:
             hook = getattr(p, "on_bind_failed", None)
             if hook is None:
                 continue
-            for spec, node, why in hook(self.framework, wp, st) or ():
+            landed = hook(self.framework, wp, st)
+            if landed is None:
+                continue
+            initiated = True
+            for spec, node, why in landed:
                 self._rollback_bound(spec, node, None, why)
+        if initiated and self.metrics is not None:
+            self.metrics.recovery_rollbacks.inc()
 
     def _rollback_bound(
         self, pod: PodSpec, node_name: str, state, why: str
@@ -548,6 +717,10 @@ class Scheduler:
                     )
             return batch
         ordered = list(groups.items())
+        tracer = self.metrics.tracer if self.metrics is not None else None
+        if tracer is not None and not tracer.enabled:
+            tracer = None
+        tg0 = self.clock()
         verdicts = None
         try:
             verdicts = self.framework.prepare_joint(
@@ -559,6 +732,16 @@ class Scheduler:
             log.exception(
                 "joint gang pre-evaluation failed; scheduling gangs per-gang"
             )
+        if tracer is not None:
+            # The gather edge: one span per gathered gang, so each gang's
+            # trace shows the joint pass it rode (same wall window).
+            names = ",".join(n for n, _ in ordered)
+            for name, g in ordered:
+                tracer.add(
+                    f"gang:{name}", "gather",
+                    t0=tg0, t1=self.clock(),
+                    attrs={"gangs": names, "members": len(g)},
+                )
         if verdicts is None:
             return [q for _, g in ordered for q in g]
         batch: list[QueuedPodInfo] = []
@@ -573,6 +756,24 @@ class Scheduler:
                     "gang %s: does not fit the joint plan; restored "
                     "untouched (%d member(s))", name, len(g),
                 )
+                why = (
+                    f"gang {name}: joint fit gate — cannot place whole "
+                    "net of higher-priority co-queued gangs; restored "
+                    "untouched"
+                )
+                if tracer is not None:
+                    tracer.add(
+                        f"gang:{name}", "joint-park",
+                        attrs={"members": len(g), "behind": i},
+                    )
+                if self.metrics is not None:
+                    for q in g:
+                        self.metrics.pending.record(
+                            q.pod.key,
+                            kind="joint-park",
+                            message=why,
+                            gang=name,
+                        )
                 for q in g:
                     self.queue.restore(q)
             else:

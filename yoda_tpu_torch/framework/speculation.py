@@ -52,9 +52,10 @@ pulled off the delta feeds, never pushed by an informer callback).
 Counterpart of ``yoda_tpu/framework/speculation.py``. The reference runs
 the mirror on its host-side ``NumpyFleetKernel``; the port has no such
 kernel and runs the mirror on the device the caller names instead (see
-above). Left out: the ``yoda_spec_*`` metric families (``bind_observe``
-stays None without a metrics registry) and the live reconfiguration hook
-that calls :meth:`SpeculativeCache.configure` (``apply_reloadable``).
+above). ``build_stack`` wires ``bind_observe`` to ``yoda_spec_bind_ms``
+and registers the ``yoda_spec_cache_*`` families over this cache's
+counters; ``standalone.apply_reloadable`` calls
+:meth:`SpeculativeCache.configure` on a live reload.
 """
 
 from __future__ import annotations

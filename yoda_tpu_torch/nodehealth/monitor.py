@@ -62,10 +62,12 @@ mid-repair leaves at most a partially-bound gang — exactly what the
 reconciler's warm-start resync classifies adopt-or-rolled-back-whole.
 
 Counterpart of ``yoda_tpu/nodehealth/monitor.py``, whole, with the same
-decisions. Observability is not ported, so ``build_stack`` passes no
-``metrics``: every counter, gauge, why-pending record and trace span
-below sits behind its ``is not None`` guard and does not run, and
-:attr:`RepairReport.durations_ms` is what measures a repair here. Two
+decisions. ``build_stack`` passes its ``metrics``, which the ladder,
+the ghost releases and every repair feed (``yoda_node_state``,
+``yoda_node_transitions_total``, ``yoda_gang_repairs_total``,
+``yoda_repair_duration_ms``, the why-pending records, the trace spans and
+the SLO engine's repair rate); a monitor built by hand without one skips
+them behind their ``is not None`` guards. Two
 clocks: ``now_fn`` is the wall clock of the agents' ``last_updated_unix``
 stamps (the ladder reads it), ``clock`` the stack's monotonic clock (drain
 deadlines and ``patch_grace_s`` read it).

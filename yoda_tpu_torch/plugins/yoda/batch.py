@@ -26,9 +26,12 @@ plan (``_GangPlan``), the gang-fused and cross-gang joint dispatches with
 their fit gate (``prepare_gang_burst`` / ``prepare_joint_burst``; plain
 gangs' gate runs in the joint-fit kernel, topology gangs' in the host
 block planner, as in the reference), and the retention of cached sets
-across epoch bumps on nodes they do not reference (``_retain_set``). Left
-out until a later slice: the mesh-sharded kernel, the dispatch tracer, and the dispatch fallback chain
-with its circuit breaker — on a CUDA device an evaluation runs on the
+across epoch bumps on nodes they do not reference (``_retain_set``), and
+the dispatch tracer (``tracer``, wired by ``build_stack``: a gang-dispatch
+or joint-dispatch span on each gathered gang's trace, from before the
+kernel launches to after their results are back on the host). Left out
+until a later slice: the mesh-sharded kernel and the dispatch fallback
+chain with its circuit breaker — on a CUDA device an evaluation runs on the
 hand kernels or raises. The reference's TPU-measured platform
 policy (``_device_for`` / ``_dispatch_floor_ms`` and the
 ``AUTO_DEVICE_MIN_ELEMS`` / ``AUTO_REMOTE_FLOOR_MS`` cut-offs) is not
@@ -39,6 +42,7 @@ carried over: ``kernel_platform`` picks the device outright
 from __future__ import annotations
 
 import logging
+import time
 from collections import Counter
 from dataclasses import dataclass, field
 from typing import Callable, Sequence
@@ -390,6 +394,11 @@ class YodaBatch(BatchFilterScorePlugin):
         # (snapshot.version, flag) caches for fleet-wide scans.
         self._fleet_terms: tuple[int, bool] = (0, False)
         self._soft_taints: tuple[int, bool] = (0, False)
+        # Lifecycle tracer (tracing.py), wired by build_stack: gang-fused
+        # and joint kernel dispatches record a span on each gathered
+        # gang's trace, which lands the dispatch wall time on the gang's
+        # own timeline.
+        self.tracer = None
 
     # --- fleet-state counters (classic and resident paths summed) ---
 
@@ -1103,6 +1112,11 @@ class YodaBatch(BatchFilterScorePlugin):
                 dyn, host_ok_groups, request_groups, self.batch_requests
             ), None
 
+        # The span closes after _dispatch returns, and both kernel entry
+        # points return host arrays copied back from the device (the
+        # pinned copy is synchronized before they return), so [td0, td1]
+        # covers the launches and their results on the card.
+        td0 = time.monotonic()
         grouped, joint_fits = self._dispatch(run_joint)
         if joint_fits is not None:
             self.fused_plan_dispatches += 1
@@ -1111,6 +1125,20 @@ class YodaBatch(BatchFilterScorePlugin):
             self.joint_dispatches += 1
         else:
             self.gang_burst_dispatches += 1
+        if self.tracer is not None and self.tracer.enabled:
+            td1 = time.monotonic()
+            kind = "joint-dispatch" if len(eligible) >= 2 else "gang-dispatch"
+            rows = sum(len(cands[i]) for i in eligible)
+            for i in eligible:
+                self.tracer.add(
+                    f"gang:{gang_names[i]}", kind,
+                    t0=td0, t1=td1,
+                    attrs={
+                        "gangs": ",".join(gang_names),
+                        "rows": rows,
+                        "fit_gate": fit_gate,
+                    },
+                )
         fleet_version = self._fleet_version(snapshot)
         base_reserved = np.asarray(dyn[1]).copy()
         index = {nm: i for i, nm in enumerate(static.names)}

@@ -8,9 +8,10 @@ scheduling failure.
 
 Counterpart of ``yoda_tpu/plugins/yoda/binder.py``, ported as far as the
 singleton and gang paths reach it, ``unbind`` (the gang rollback)
-included. Left out until a later slice: worker-side leader fencing, the
-interruptible (stop-event) backoff of the bind executor and the bind
-wall-time hook.
+included, and the bind wall-time hook (``observe_wall_ms``, which
+``build_stack`` wires to ``yoda_bind_wall_ms``). Left out until a later
+slice: worker-side leader fencing and the interruptible (stop-event)
+backoff of the bind executor.
 """
 
 from __future__ import annotations
@@ -49,6 +50,9 @@ class ClusterBinder(BindPlugin):
         # Seedable for deterministic replays; fresh entropy otherwise.
         self.rng = rng or random.Random()
         self.sleep = sleep
+        # Per-bind wall time (retries + backoff included), in ms — feeds
+        # yoda_bind_wall_ms (build_stack wires the histogram).
+        self.observe_wall_ms = None
         self.retries = 0
         self.unbinds = 0
 
@@ -60,6 +64,7 @@ class ClusterBinder(BindPlugin):
                 "retrying with backoff", pod.key, node_name, attempt + 1, e,
             )
 
+        t0 = time.monotonic()
         try:
             call_with_retries(
                 lambda: self.cluster.bind_pod(pod.key, node_name),
@@ -70,6 +75,9 @@ class ClusterBinder(BindPlugin):
             )
         except Exception as e:  # retries exhausted or genuinely infeasible
             return Status.error(f"binding {pod.key} to {node_name}: {e}")
+        finally:
+            if self.observe_wall_ms is not None:
+                self.observe_wall_ms((time.monotonic() - t0) * 1e3)
         return Status.ok()
 
     def unbind(self, state: CycleState, pod: PodSpec, node_name: str) -> Status:

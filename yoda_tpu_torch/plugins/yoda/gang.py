@@ -47,9 +47,12 @@ resize-up), ``install_plan`` and ``bound_members``. Left out until a later
 slice: shard commits (``collect_commits``), the bind
 pipeline's parallel release and completion barrier (``collect_rollbacks``:
 every bind here runs inline, so ``on_bind_failed`` hands the landed binds
-back directly), the Event recorder's rollback hook and the tracer /
-why-pending surfaces (among them the why-pending walk that names fenced
-hosts when a topology gang parks). The node-health fence is here: a host in
+back directly) and the Event recorder's rollback hook. The tracer and
+the why-pending index are here (``tracer`` / ``pending``, wired by
+``build_stack``): gang-release and gang-rollback spans on the gang's
+trace, and a topology park's verdict with a walk over the fleet naming
+each host's reason — fenced, no metrics, cannot take a member, or
+feasible but outside any free block. The node-health fence is here: a host in
 ``snapshot.fenced`` (SUSPECT / DRAINING / DOWN) never counts toward a plain
 gang's slots and never enters a topology plan.
 """
@@ -151,6 +154,13 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
         # Transactional bind rollbacks initiated (a member's bind failed
         # after the binder's retries and the release was rolled back).
         self.bind_rollbacks = 0
+        # Observability surfaces, wired by build_stack: the lifecycle
+        # tracer (gang-release / gang-rollback events on the gang's
+        # trace) and the why-pending index (topology admission parks
+        # record the REAL per-node reason — infeasible host vs
+        # feasible-but-no-contiguous-block).
+        self.tracer = None
+        self.pending = None
         self._lock = threading.RLock()
         self._gangs: dict[str, _GangState] = {}
         self._framework = None
@@ -457,12 +467,60 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
                 set(gs.plan) - set(pinned) if gs.plan else set()
             )
         if not plan_hosts_free:
-            return Status.unschedulable(
+            msg = (
                 f"gang {gs.spec.name}: no slice has a free contiguous "
                 f"{'x'.join(map(str, gs.spec.topology))} host block"
             )
+            self._note_topology_park(
+                snapshot, gs, req, pod, pending_res, assigned_hosts, msg
+            )
+            return Status.unschedulable(msg)
         state.write(ALLOWED_HOSTS_KEY, _AllowedHosts(frozenset(plan_hosts_free)))
         return Status.ok()
+
+    def _note_topology_park(
+        self, snapshot, gs: _GangState, req, pod, pending_res,
+        assigned_hosts: set, msg: str,
+    ) -> None:
+        """Why-pending evidence for a topology admission park: classify
+        every node — fenced, without metrics, member-infeasible
+        (admission/resources/chips) or feasible-but-outside-any-free-
+        contiguous-block — so the operator sees WHICH hosts block the
+        block, not just "no block". Only runs when the index is wired and
+        only on the park path, so the serve loop pays nothing in the
+        steady state."""
+        if self.pending is None:
+            return
+        shape = "x".join(map(str, gs.spec.topology))
+        fenced = getattr(snapshot, "fenced", frozenset())
+        reasons: dict[str, str] = {}
+        for ni in snapshot.infos():
+            if ni.name in fenced:
+                reasons[ni.name] = (
+                    f"node {ni.name} is fenced by the health monitor "
+                    "(suspect/draining/down)"
+                )
+            elif ni.tpu is None:
+                reasons[ni.name] = f"node {ni.name} has no TPU metrics"
+            elif not self._host_fits_member(
+                ni, req, assigned_hosts, pod, pending_res
+            ):
+                reasons[ni.name] = (
+                    f"node {ni.name} cannot take a gang member "
+                    "(admission/resources/free chips)"
+                )
+            else:
+                reasons[ni.name] = (
+                    f"node {ni.name} is feasible but no free contiguous "
+                    f"{shape} block contains it"
+                )
+        self.pending.record(
+            pod.key,
+            kind="admission-park",
+            message=msg,
+            gang=gs.spec.name,
+            node_reasons=reasons,
+        )
 
     # --- Filter: pin topology-gang members to planned hosts ---
 
@@ -530,6 +588,11 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
                 "gang %s complete: releasing %d waiting member(s)",
                 gang_name, len(targets),
             )
+            if self.tracer is not None and self.tracer.enabled:
+                self.tracer.add(
+                    f"gang:{gang_name}", "gang-release",
+                    attrs={"members": len(targets)},
+                )
         waiters = [
             w
             for key in targets
@@ -612,7 +675,7 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
 
     def on_bind_failed(
         self, framework, wp, status: Status
-    ) -> "list[tuple[PodSpec, str, str]]":
+    ) -> "list[tuple[PodSpec, str, str]] | None":
         """Framework hook: a permit-released member's bind FAILED after the
         binder's transient retries. Makes the gang bind transactional —
         the all-or-nothing contract extended through the bind phase:
@@ -620,10 +683,11 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
         their reservations) and the gang's bookkeeping forgets the release
         so the WHOLE gang re-queues untouched. Returns the (spec, host,
         why) of the siblings whose binds already landed in this release:
-        the scheduler unbinds, unreserves and requeues them."""
+        the scheduler unbinds, unreserves and requeues them. None when no
+        rollback was initiated (not a gang member, or an unknown gang)."""
         gang_name = gang_name_of(wp.pod.labels)
         if not gang_name:
-            return []
+            return None
         why = (
             f"member {wp.pod.key} failed to bind: {status.message}; "
             "rolling the gang back"
@@ -631,7 +695,7 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
         with self._lock:
             gs = self._gangs.get(gang_name)
             if gs is None:
-                return []
+                return None
             # The member resolved SUCCESS at Permit, so on_pod_resolved
             # counted it bound — undo that; the caller's standard
             # rejection path unreserves and requeues the member itself.
@@ -655,6 +719,15 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
             "cascading %d waiting member(s)",
             gang_name, wp.pod.key, len(rollbacks), len(targets),
         )
+        if self.tracer is not None and self.tracer.enabled:
+            self.tracer.add(
+                f"gang:{gang_name}", "gang-rollback",
+                attrs={
+                    "trigger": wp.pod.key,
+                    "landed": len(rollbacks),
+                    "cascaded": len(targets),
+                },
+            )
         for key in targets:
             w = framework.get_waiting_pod(key)
             if w is not None:

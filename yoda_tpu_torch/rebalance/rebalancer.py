@@ -58,8 +58,11 @@ victim selection, the move primitive and ``run_forever`` with the
 speculation sub-tick. Unbinds fan out on the bind executor when
 ``build_stack`` hands one over (``bind_workers`` > 0) and run inline on the
 rebalancer's thread without one; ``draining_fn`` is the node health
-monitor's ``draining_nodes``, which makes the drain pass live. The port has
-no registry, so no counters, gauge or lifecycle trace.
+monitor's ``draining_nodes``, which makes the drain pass live. With
+``metrics`` wired (``build_stack`` does) the passes feed the reference's
+fragmentation gauge, move / abort / resize / preemption counters, the
+drain repairs and the SLO engine's preemption and repair rates, and trace
+each move and preemption on the ``rebalancer`` track.
 """
 
 from __future__ import annotations
@@ -77,6 +80,7 @@ from yoda_tpu_torch.framework.runtime import unbind_all
 from yoda_tpu_torch.plugins.yoda.sort import pod_priority
 from yoda_tpu_torch.plugins.yoda.topology import plan_multislice_placement
 from yoda_tpu_torch.rebalance.score import FleetOccupancy
+from yoda_tpu_torch.tracing import subject_of
 
 log = logging.getLogger("yoda_tpu_torch.rebalance")
 
@@ -144,6 +148,7 @@ class Rebalancer:
         framework,
         queue,
         scheduler,
+        metrics=None,
         bind_executor=None,
         clock: Callable[[], float] = time.monotonic,
         min_gain: float = 0.05,
@@ -161,6 +166,7 @@ class Rebalancer:
         self.framework = framework
         self.queue = queue
         self.scheduler = scheduler
+        self.metrics = metrics
         self.bind_executor = bind_executor
         self.clock = clock
         self.min_gain = min_gain
@@ -195,6 +201,8 @@ class Rebalancer:
             snapshot, self.accountant.chips_by_node()
         )
         report.fragmentation_before = occ.score()
+        if self.metrics is not None:
+            self.metrics.fragmentation.set(report.fragmentation_before)
         self._drain_pass(snapshot, occ, report)
         if self.enable_preemption:
             self._preempt_pass(snapshot, occ, report)
@@ -206,6 +214,8 @@ class Rebalancer:
         report.fragmentation_after = FleetOccupancy.from_snapshot(
             self.informer.snapshot(), self.accountant.chips_by_node()
         ).score()
+        if self.metrics is not None:
+            self.metrics.fragmentation.set(report.fragmentation_after)
         with self._lock:
             self.passes += 1
         if (
@@ -436,6 +446,9 @@ class Rebalancer:
                     for host in plan:
                         occ.occupy(host, chips)
                     report.drained.append(name)
+                    if self.metrics is not None:
+                        self.metrics.gang_repairs.inc(mode="drain")
+                        self.metrics.slo.observe_repair(now=self.clock())
                 continue
             # Plain/elastic gang: requeue whole — admission re-places it
             # off the fenced node. Only when live capacity fits it now
@@ -456,6 +469,9 @@ class Rebalancer:
                     self.queue.readd(q)
                 self.queue.move_all_to_active()
             report.drained.append(name)
+            if self.metrics is not None:
+                self.metrics.gang_repairs.inc(mode="drain")
+                self.metrics.slo.observe_repair(now=self.clock())
             log.info(
                 "rebalance: drained gang %s off %s (requeued whole)",
                 name, sorted({h for _, h in members if h in draining}),
@@ -542,6 +558,8 @@ class Rebalancer:
                                 if new_eff is not None:
                                     report.resizes[name] = (target, new_eff)
                                     report.admitted_gangs.append(name)
+                                    if self.metrics is not None:
+                                        self.metrics.rebalance_resizes.inc()
                                     log.info(
                                         "rebalance: shrank parked elastic "
                                         "gang %s %d -> %d to fit free "
@@ -677,6 +695,36 @@ class Rebalancer:
             "admit gang %s",
             sum(len(u.members) for u in chosen), len(chosen), weight, for_gang,
         )
+        tr = self._tracer()
+        if tr is not None:
+            tr.add(
+                f"gang:{for_gang}", "preempt-admit",
+                track="rebalancer",
+                attrs={
+                    "victims": sum(len(u.members) for u in chosen),
+                    "weight": weight,
+                },
+            )
+            for unit in chosen:
+                for pod, host in unit.members:
+                    tr.add(
+                        subject_of(pod), "preempted",
+                        track="rebalancer",
+                        attrs={
+                            "for_gang": for_gang,
+                            "host": host,
+                            "unit": unit.kind,
+                        },
+                    )
+        if self.metrics is not None:
+            n_preempted = sum(len(u.members) for u in chosen)
+            self.metrics.rebalance_preemptions.inc(n_preempted)
+            self.metrics.preempted_weight.inc(weight)
+            # SLO engine: priority preemptions feed the fleet
+            # preemption-rate SLI alongside PostFilter evictions.
+            self.metrics.slo.observe_preemption(
+                n_preempted, now=self.clock()
+            )
 
     # --- (2) elastic resize up ---
 
@@ -714,6 +762,8 @@ class Rebalancer:
                 if new_eff is not None and new_eff != eff:
                     resized = True
                     report.resizes[name] = (eff, new_eff)
+                    if self.metrics is not None:
+                        self.metrics.rebalance_resizes.inc()
                     log.info(
                         "rebalance: grew elastic gang %s %d -> %d into free "
                         "capacity", name, eff, new_eff,
@@ -776,23 +826,50 @@ class Rebalancer:
                 for host in plan:
                     occ.occupy(host, chips)
 
+    def _tracer(self):
+        tr = getattr(self.metrics, "tracer", None)
+        return tr if tr is not None and tr.enabled else None
+
     def _execute_move(
         self, name: str, spec, members, plan, report: RebalanceReport
     ) -> bool:
-        """The transactional move primitive: take -> unbind -> install plan
-        -> readd. Any member left bound (unbind refused, fence flipped)
-        aborts the plan install — the unbound members requeue and the gang
-        replans around the stragglers through the normal admission path,
-        never split, never oversubscribed."""
+        """The transactional move primitive: take -> unbind (overlapped)
+        -> install plan -> readd. Any member left bound (unbind refused,
+        fence flipped) aborts the plan install — the unbound members
+        requeue and the gang replans around the stragglers through the
+        normal admission path, never split, never oversubscribed.
+
+        Traced as one ``rebalance-move`` span on the gang's lifecycle
+        trace with a child event per step, so a Perfetto view of the gang
+        shows the move sitting between its two bound epochs and WHICH
+        step aborted when one does."""
+        tr = self._tracer()
+        subj = f"gang:{name}"
+        move_id = tr.new_span_id() if tr is not None else None
+        t0 = time.monotonic()
+
+        def step(step_name: str, **attrs) -> None:
+            if tr is not None:
+                tr.add(
+                    subj, step_name, parent=move_id, track="rebalancer",
+                    attrs=attrs,
+                )
+
+        aborted = ""
         qpis = self.queue.take_gang(name)
+        step("move-take", members=len(qpis))
         try:
             if self.scheduler._fenced():
+                aborted = "fenced"
                 report.aborted_moves.append(name)
+                if self.metrics is not None:
+                    self.metrics.rebalance_aborted.inc()
                 return False
             why = f"rebalance: repacking gang {name} onto a tighter ICI block"
             for pod, _host in members:
                 self.gang.drop_membership(pod)
             self._unbind_all(list(members), why)
+            step("move-unbind", members=len(members))
             stranded = []
             for pod, _host in members:
                 try:
@@ -807,10 +884,16 @@ class Rebalancer:
                     "could not be unbound (%s); gang will replan normally",
                     name, len(stranded), stranded[:3],
                 )
+                aborted = f"stranded:{len(stranded)}"
                 report.aborted_moves.append(name)
+                if self.metrics is not None:
+                    self.metrics.rebalance_aborted.inc()
                 return False
             self.gang.install_plan(name, spec, plan)
+            step("move-install-plan", hosts=",".join(sorted(plan)))
             report.moves.append(name)
+            if self.metrics is not None:
+                self.metrics.rebalance_moves.inc()
             log.info(
                 "rebalance: moved gang %s onto block %s (was %s)",
                 name, sorted(plan), sorted({h for _, h in members}),
@@ -820,3 +903,15 @@ class Rebalancer:
             for q in qpis:
                 self.queue.readd(q)
             self.queue.move_all_to_active()
+            step("move-readd", members=len(qpis))
+            if tr is not None:
+                tr.add(
+                    subj, "rebalance-move",
+                    t0=t0, t1=time.monotonic(),
+                    span_id=move_id, track="rebalancer",
+                    attrs={
+                        "from": ",".join(sorted({h for _, h in members})),
+                        "to": ",".join(sorted(plan)),
+                        "aborted": aborted,
+                    },
+                )

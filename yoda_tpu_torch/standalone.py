@@ -29,12 +29,24 @@ veto fenced hosts; gang-whole repair and drains). With ``bind_workers`` >
 fan-out. A caller drives ``reconciler.resync()`` / ``reconcile()``,
 ``rebalancer.run_once()`` or ``rebalancer.run_forever(stop)`` (which ticks
 the cache), ``speculation.speculate_once()`` and ``nodehealth.run_once()``
-/ ``run_forever(stop)`` / ``drain(name)``. Left out until a later slice:
-the bind pipeline (the scheduler's own binds run inline), tracing /
-metrics / SLO / overload (so preemption has no eviction counter hook and
-the monitor no metrics), live reconfiguration (``apply_reloadable``),
-batched ingest, tenancy, the durable journal, profiles, shards and
-federation.
+/ ``run_forever(stop)`` / ``drain(name)``.
+
+Observability is built as the reference builds it (``Stack.metrics``, a
+``SchedulingMetrics`` from ``_metrics_from_config``): the lifecycle tracer
+and the why-pending index (wired into the framework, the gang plugin and
+the batch plugin), the ``SloEngine`` (fed by the enqueue hook, both bind
+sites, evictions, the rebalancer's preemptions and every repair; a pending
+pod's deletion retires its record) and the ``OverloadMonitor`` (the
+queue's shed and quota hooks, with their why-pending records; its
+``repairs_paused()`` gates the rebalancer and the node health monitor).
+Every family the reference registers renders, the ones of parts this port
+lacks at 0. ``build_stack`` starts no thread: a caller runs the ladder's
+``overload.run_forever(stop)`` and serves ``metrics_server.MetricsServer``.
+``apply_reloadable`` re-applies the reloadable knobs to a running stack
+(the target of ``overload.ConfigReloader``). Left out until a later slice:
+the bind pipeline (the scheduler's own binds run inline), the Event
+recorder, batched ingest, tenancy, the durable journal, profiles, shards
+and federation.
 
 A knob of such a subsystem loads (``config.SchedulerConfig`` keeps every
 knob of the reference), but ``build_stack`` raises ``NotImplementedError``
@@ -53,7 +65,9 @@ import threading
 import time
 from dataclasses import dataclass
 
+from yoda_tpu_torch.api.requests import gang_name_of
 from yoda_tpu_torch.cluster.fake import Event, FakeCluster
+from yoda_tpu_torch.cluster.retry import BackoffPolicy
 from yoda_tpu_torch.cluster.informer import InformerCache
 from yoda_tpu_torch.config import SchedulerConfig
 from yoda_tpu_torch.framework.queue import SchedulingQueue
@@ -62,6 +76,8 @@ from yoda_tpu_torch.framework.runtime import BindExecutor, Framework
 from yoda_tpu_torch.framework.scheduler import Scheduler
 from yoda_tpu_torch.framework.speculation import SpeculativeCache
 from yoda_tpu_torch.nodehealth import NodeHealthMonitor
+from yoda_tpu_torch.observability import SchedulingMetrics
+from yoda_tpu_torch.overload import OverloadMonitor
 from yoda_tpu_torch.plugins.yoda import (
     GangPlugin,
     TpuPreemption,
@@ -71,6 +87,8 @@ from yoda_tpu_torch.plugins.yoda import (
 from yoda_tpu_torch.plugins.yoda.accounting import ChipAccountant
 from yoda_tpu_torch.plugins.yoda.binder import ClusterBinder
 from yoda_tpu_torch.rebalance import Rebalancer
+from yoda_tpu_torch.slo import SloEngine
+from yoda_tpu_torch.tracing import PendingIndex, Tracer, subject_of
 
 log = logging.getLogger("yoda_tpu_torch.standalone")
 
@@ -107,6 +125,24 @@ PORTED_KNOBS = frozenset(
         "node_repair",
         "node_drain_deadline_s",
         "node_health_period_s",
+        "trace_sample_rate",
+        "trace_capacity",
+        "trace_sink",
+        "trace_sink_max_bytes",
+        "pending_index_max",
+        "slo_enabled",
+        "slo_targets",
+        "slo_starvation_window_s",
+        "slo_burn_fast_window_s",
+        "slo_burn_slow_window_s",
+        "slo_burn_threshold",
+        "overload_period_s",
+        "overload_queue_high",
+        "overload_ingest_high",
+        "overload_cycle_ms_high",
+        "overload_step_down_hold_s",
+        "overload_brownout_admit_per_s",
+        "overload_shed_priority",
     }
 )
 
@@ -116,9 +152,6 @@ PORTED_KNOBS = frozenset(
 # part it turns on, for ``Stack.not_built``.
 UNPORTED_KNOB_VALUES = {
     "bind_pipeline": ("bind pipeline", ("off",)),
-    "trace_sample_rate": ("tracing", (0,)),
-    "slo_enabled": ("SLO engine", (False,)),
-    "overload_period_s": ("overload controller", (0,)),
 }
 
 
@@ -136,6 +169,41 @@ def unported_settings(config: SchedulerConfig) -> list[str]:
             continue
         out.append(f"{f.name}={value!r}")
     return out
+
+
+def _metrics_from_config(
+    config: SchedulerConfig, clock=time.monotonic
+) -> SchedulingMetrics:
+    """One SchedulingMetrics with the config-derived tracer, fleet SLO
+    engine, overload monitor and why-pending index."""
+    return SchedulingMetrics(
+        tracer=Tracer(
+            sample_rate=config.trace_sample_rate,
+            capacity=config.trace_capacity,
+            sink=config.trace_sink or None,
+            sink_max_bytes=config.trace_sink_max_bytes,
+        ),
+        pending=PendingIndex(capacity=config.pending_index_max),
+        slo=SloEngine(
+            targets=config.slo_targets,
+            enabled=config.slo_enabled,
+            starvation_window_s=config.slo_starvation_window_s,
+            fast_window_s=config.slo_burn_fast_window_s,
+            slow_window_s=config.slo_burn_slow_window_s,
+            burn_threshold=config.slo_burn_threshold,
+            clock=clock,
+        ),
+        overload=OverloadMonitor(
+            queue_high=config.overload_queue_high,
+            ingest_high=config.overload_ingest_high,
+            cycle_ms_high=config.overload_cycle_ms_high,
+            step_down_hold_s=config.overload_step_down_hold_s,
+            brownout_admit_per_s=config.overload_brownout_admit_per_s,
+            shed_priority_floor=config.overload_shed_priority,
+            period_s=config.overload_period_s,
+            clock=clock,
+        ),
+    )
 
 
 def not_built_parts(config: SchedulerConfig) -> tuple[str, ...]:
@@ -172,6 +240,9 @@ class Stack:
     nodehealth: NodeHealthMonitor | None = None
     # None when config.bind_workers is 0: unbinds then run inline.
     bind_executor: BindExecutor | None = None
+    # The registry, tracer, why-pending index, SLO engine and overload
+    # ladder (metrics.tracer / .pending / .slo / .overload).
+    metrics: SchedulingMetrics | None = None
     # Parts the config turns on that this port does not build
     # (not_built_parts); build_stack logs them once.
     not_built: tuple[str, ...] = ()
@@ -206,6 +277,7 @@ def build_stack(
             ", ".join(not_built),
         )
     accountant = ChipAccountant(scheduler_name=config.scheduler_name)
+    metrics = _metrics_from_config(config, clock)
     # The bounded executor the node health monitor and the rebalancer fan
     # their unbinds out on. Threads are made at the first submit.
     bind_executor = (
@@ -245,6 +317,13 @@ def build_stack(
             reserved_fn=accountant.chips_in_use,
             gang_status_fn=gang.gang_status,
             gang_plan_fn=gang.planned_unassigned_hosts,
+            # Eviction counter + the SLO engine's preemption-rate SLI in
+            # one hook (the rebalancer's priority preemptions feed the
+            # same SLI from its own pass).
+            on_evicted=lambda n: (
+                metrics.preemptions.inc(n),
+                metrics.slo.observe_preemption(n),
+            ),
         )
         plugins.append(preemption)
     if extra_plugins:
@@ -258,11 +337,77 @@ def build_stack(
     plugins.append(binder)
     framework = Framework(plugins)
     gang.attach_framework(framework)
+    # Lifecycle tracing + why-pending: every hook that emits spans or
+    # rejection verdicts reads the tracer / index off the metrics object —
+    # bind/unbind spans land on whichever thread runs them (executor
+    # workers included), gang releases/rollbacks and topology admission
+    # parks annotate the gang's own trace.
+    framework.tracer = metrics.tracer
+    gang.tracer = metrics.tracer
+    gang.pending = metrics.pending
+
+    # Overload brownout ladder (overload.py): the monitor rides the
+    # queue's verdict hooks — BROWNOUT caps admission through the quota
+    # path, SHED parks non-prod draws per item. At NOMINAL both hooks are
+    # one attribute compare.
+    overload = metrics.overload
+
+    def quota_fn(tenant: str, pod) -> "str | None":
+        return overload.quota_verdict(tenant)
+
+    def on_quota_park(qpi, why: str) -> None:
+        # Fired under the queue lock: counter bump + why-pending verdict
+        # only, never back into the queue.
+        metrics.tenant_quota_parks.inc()
+        metrics.pending.record(
+            qpi.pod.key,
+            kind="quota-park",
+            message=why,
+            gang=gang_name_of(qpi.pod.labels),
+        )
+
+    def shed_fn(pod) -> "str | None":
+        # Lock order: the queue lock (held by the caller), then the gang
+        # plugin's own lock inside gang_status — the same order as the
+        # reference; nothing under the gang lock takes the queue lock.
+        why = overload.shed_verdict(pod)
+        if why is None:
+            return None
+        g = gang_name_of(pod.labels)
+        if g:
+            status = gang.gang_status(g)
+            if status is not None and (status[1] or status[2]):
+                # Members already mid-flight (Permit-parked or bound):
+                # shedding the rest would strand the barrier until the
+                # permit timeout — admit instead, the whole-gang atomicity
+                # half of the shed contract.
+                return None
+        return why
+
+    def on_shed(qpi, why: str) -> None:
+        overload.note_shed()
+        metrics.pending.record(
+            qpi.pod.key,
+            kind="overload-shed",
+            message=why,
+            gang=gang_name_of(qpi.pod.labels),
+        )
+
     queue = SchedulingQueue(
         framework.queue_sort,
         clock=clock,
         immediate_retry_attempts=config.immediate_retry_attempts,
+        quota_fn=quota_fn,
+        on_quota_park=on_quota_park,
+        shed_fn=shed_fn,
+        on_shed=on_shed,
     )
+    # The queue is a pressure source for the ladder (its overload_depth
+    # excludes already-shed entries) and a step-down reactivation target,
+    # and it feeds the SLO engine's pending/starvation side.
+    overload.add_queue(queue)
+    metrics.slo.add_queue(queue)
+    _register_stack_families(metrics, queue, binder, accountant, bind_executor)
 
     def _reactivates(event: Event) -> bool:
         # New/changed TPU metrics may make parked pods schedulable; pod
@@ -290,6 +435,9 @@ def build_stack(
         for event in events:
             if event.kind == "Pod" and event.type == "deleted":
                 queue.remove(event.obj.uid)
+                # SLO engine: a pod deleted while pending retires its
+                # enqueue record — a cancelled ask is not an admission.
+                metrics.slo.observe_retired(event.obj)
         if any(map(_reactivates, events)) and queue.has_parked():
             queue.move_all_to_active()
         # Node failure domains: condition signals (TPU CR / Node
@@ -301,9 +449,22 @@ def build_stack(
         # never sees it unbound.
         nodehealth.observe_events(events)
 
+    # Enqueue edge of the lifecycle trace: the pod's (or its gang's) trace
+    # ROOT — everything later (gather, dispatch, cycles, binds, moves)
+    # parents back to it.
+    tracer = metrics.tracer
+
+    def on_pod_pending(pod) -> None:
+        if tracer.enabled:
+            tracer.add(subject_of(pod), "enqueue", attrs={"pod": pod.key})
+        # SLO engine: the enqueue half of the admission-wait SLI (the
+        # bound half fires in the scheduler's bind completion paths).
+        metrics.slo.observe_enqueue(pod)
+        queue.add(pod)
+
     informer = InformerCache(
         scheduler_name=config.scheduler_name,
-        on_pod_pending=queue.add,
+        on_pod_pending=on_pod_pending,
         on_change_batch=on_change_batch,
         # A backend with a claim / volume / budget surface enforces them
         # (an empty store then means "none exist"); without one, volume
@@ -327,6 +488,7 @@ def build_stack(
         gang=gang,
         framework=framework,
         queue=queue,
+        metrics=metrics,
         bind_executor=bind_executor,
         suspect_after_s=config.node_suspect_after_s,
         down_after_s=config.node_down_after_s,
@@ -340,6 +502,7 @@ def build_stack(
         # budget watch is live).
         preemption.pdbs_fn = informer.list_pdbs
     (batch,) = framework.batch_plugins
+    batch.tracer = metrics.tracer
     batch.claimed_fn = informer.claimed_hbm_mib
     batch.claimed_map_fn = informer.claimed_hbm_mib_map
     batch.claimed_delta_fn = informer.claimed_changes_since
@@ -353,22 +516,30 @@ def build_stack(
     # metrics ring elides): the admission cache survives snapshot rebuilds
     # by patching only the touched rows.
     batch.admission_changes_fn = informer.admission_changes_since
+    _register_batch_families(metrics, batch)
     # Accountant and gang before informer: reservation releases and
     # membership changes precede the informer's view of the same event.
     cluster.add_watcher(accountant.handle)
     cluster.add_watcher(gang.handle)
     cluster.add_watcher(informer.handle, batch_fn=informer.handle_batch)
+    # Fleet gauges (chips total/free, bin-packing efficiency, duty cycle),
+    # collected at scrape time; the SLO engine samples the efficiency
+    # gauge as its goodput SLI.
+    metrics.attach_fleet(informer.snapshot, accountant.chips_in_use)
+    metrics.slo.goodput_fn = metrics.binpack_efficiency.value
     scheduler = Scheduler(
         framework,
         informer.snapshot,
         queue,
         clock=clock,
+        metrics=metrics,
         cycle_lock=cycle_lock,
         # status.nominatedNodeName write (upstream preemption parity).
         on_nominated=lambda pod, node: cluster.set_nominated_node(pod.key, node),
         pod_alive=informer.pod_schedulable,
         burst_size=config.batch_requests,
     )
+    binder.observe_wall_ms = metrics.bind_wall.observe
     # Crash-safe failover: the warm-start resync + drift reconciler for
     # this stack. Built but NOT started.
     reconciler = Reconciler(
@@ -379,14 +550,17 @@ def build_stack(
         framework=framework,
         queue=queue,
         scheduler=scheduler,
+        metrics=metrics,
         adopt_window_s=config.failover_adopt_window_s,
         scheduler_names=(config.scheduler_name,),
         clock=clock,
     )
     # Goodput-driven rebalancer: background ICI defragmentation + priority
     # preemption + elastic resize. Built but NOT started. The gate composes
-    # leadership (the scheduler's live fence) with the warm-start contract:
-    # no rebalancing on un-resynced state.
+    # leadership (the scheduler's live fence) with the warm-start contract
+    # (no rebalancing on un-resynced state) and the overload ladder's
+    # first degradation step: at ELEVATED and above the pass yields its
+    # cycles to the serve loop.
     rebalancer = Rebalancer(
         cluster=cluster,
         informer=informer,
@@ -395,6 +569,7 @@ def build_stack(
         framework=framework,
         queue=queue,
         scheduler=scheduler,
+        metrics=metrics,
         bind_executor=bind_executor,
         clock=clock,
         min_gain=config.rebalance_min_gain,
@@ -403,7 +578,9 @@ def build_stack(
         elastic=config.rebalance_elastic,
         max_victims=config.rebalance_max_victims,
         gate_fn=lambda: (
-            not scheduler._fenced() and reconciler.resynced.is_set()
+            not scheduler._fenced()
+            and reconciler.resynced.is_set()
+            and not overload.repairs_paused()
         ),
         # Graceful drain: the pass migrates bound gangs off DRAINING nodes
         # proactively, before the monitor's deadline forces a DOWN-style
@@ -434,20 +611,386 @@ def build_stack(
         shapes_max=config.spec_shapes_max,
         device=batch.device,
     )
+    speculation.bind_observe = metrics.spec_bind.observe
     scheduler.speculation = speculation
     rebalancer.speculator = speculation
+    _register_speculation_families(metrics, speculation)
     # Late wiring (the scheduler and reconciler are built after the
     # informer the monitor hangs off): repair runs through the scheduler's
     # unbind path, and run_forever's gate composes leadership with the
-    # warm-start contract — no repair on un-resynced state. The
-    # reference's gate also waits out the overload controller's
-    # repairs_paused(), which comes with that controller.
+    # warm-start contract and the overload ladder's repair pause.
     nodehealth.scheduler = scheduler
     nodehealth.gate_fn = lambda: (
-        not scheduler._fenced() and reconciler.resynced.is_set()
+        not scheduler._fenced()
+        and reconciler.resynced.is_set()
+        and not overload.repairs_paused()
     )
     return Stack(
         cluster, informer, accountant, framework, queue, scheduler, binder,
         batch, gang, preemption, reconciler, rebalancer, speculation,
-        nodehealth, bind_executor, not_built,
+        nodehealth, bind_executor, metrics, not_built,
     )
+
+
+def _register_stack_families(metrics, queue, binder, accountant, bind_executor):
+    """The families the reference's build_stack registers around the queue,
+    the binder, the commit point, the journal and the shard loops, with the
+    reference's names, help strings and types. Parts this port lacks render
+    their reference's empty value: no tenants (the dominant-share family
+    has no series), no journal and no shards (the counters read 0, the
+    per-shard gauges have no series)."""
+    r = metrics.registry
+    r.gauge(
+        "yoda_tenant_dominant_share",
+        "Per-tenant dominant resource share (max of chip and HBM "
+        "fractions of fleet capacity) — the DRF ordering key: "
+        "pops draw from the lowest-share tenant first",
+        lambda: {},
+    )
+    r.gauge(
+        "yoda_queue_active_pods",
+        "Pods ready to be scheduled right now, across profiles",
+        lambda: queue.depths()[0],
+    )
+    r.gauge(
+        "yoda_queue_backoff_pods",
+        "Pods waiting out their retry backoff (deep = chronic "
+        "unschedulables throttled past immediate_retry_attempts)",
+        lambda: queue.depths()[1],
+    )
+    r.gauge(
+        "yoda_queue_parked_pods",
+        "Pods parked unresolvable until a cluster event (bad labels, "
+        "missing claims, gang capacity)",
+        lambda: queue.depths()[2],
+    )
+    r.counter(
+        "yoda_recovery_bind_retries_total",
+        "Bind attempts retried after a transient API error (409 "
+        "conflict / 429 throttle / 5xx / timeout) with jittered "
+        "backoff, instead of failing the pod",
+        lambda: binder.retries,
+    )
+    r.counter(
+        "yoda_recovery_unbinds_total",
+        "Landed binds reversed by the transactional gang rollback "
+        "(unbind or delete-for-recreate, backend-dependent)",
+        lambda: binder.unbinds,
+    )
+    r.counter(
+        "yoda_shard_commit_commits_total",
+        "Optimistic shard-commit groups validated and committed at "
+        "the shared accountant (a singleton's pre-bind commit or a "
+        "gang's fully-landed release cohort)",
+        lambda: 0,
+    )
+    r.counter(
+        "yoda_shard_commit_conflicts_total",
+        "Shard commits REFUSED by validation (an earlier-staged "
+        "claim owned the chips): the losing shard unreserves (or "
+        "rolls landed binds back) and requeues the gang whole",
+        lambda: 0,
+    )
+    r.counter(
+        "yoda_journal_appends_total",
+        "Records appended to the durable claim journal (staged-claim"
+        " / commit / rollback / release / snapshot): every commit-"
+        "point state mutation, write-ahead of the in-memory apply",
+        lambda: 0,
+    )
+    r.counter(
+        "yoda_journal_bytes_total",
+        "Bytes appended to the journal (length-prefixed, CRC-"
+        "checksummed frames); divide by appends for mean record size",
+        lambda: 0,
+    )
+    r.counter(
+        "yoda_journal_fsyncs_total",
+        "fsync calls issued by the journal — rate tracks appends "
+        "under journal_sync=always, commit edges + every ~64 appends"
+        " under batch, and stays flat under off",
+        lambda: 0,
+    )
+    r.counter(
+        "yoda_journal_replay_ms_total",
+        "Wall milliseconds spent replaying the journal at open "
+        "(warm-start promotion cost; compare yoda_resync_duration_ms"
+        " for the cold-path blackout it replaces)",
+        lambda: 0,
+    )
+    r.counter(
+        "yoda_journal_torn_records_total",
+        "Torn/corrupt records repaired by truncate at replay (short "
+        "header, truncated payload, or CRC mismatch; later segments "
+        "discarded). Nonzero after a crash is normal; climbing "
+        "during steady state means disk trouble",
+        lambda: 0,
+    )
+    r.counter(
+        "yoda_journal_compactions_total",
+        "Segment rotations compacted into a snapshot-headed fresh "
+        "segment (older segments deleted — journal size stays flat)",
+        lambda: 0,
+    )
+    r.gauge(
+        "yoda_shard_queue_depth",
+        "Queued pods per scheduler shard (active + backoff + parked "
+        "pools of the shard's DRF queue); series follow the live "
+        "shard set",
+        lambda: {},
+    )
+    r.gauge(
+        "yoda_shard_cycles",
+        "Scheduling cycles completed per shard serve loop "
+        "(monotonic; series follow the live shard set)",
+        lambda: {},
+    )
+    r.gauge(
+        "yoda_shard_binds",
+        "Pods bound per shard serve loop (monotonic; series follow "
+        "the live shard set)",
+        lambda: {},
+    )
+    if bind_executor is not None:
+        r.gauge(
+            "yoda_bind_inflight",
+            "Bind API calls currently in flight on the bind executor "
+            "(the pipeline's overlap window; 0 = no pending binds)",
+            lambda: float(bind_executor.inflight()),
+        )
+
+
+def _register_batch_families(metrics, p):
+    """The batch plugin's lazy counters, as the reference registers them.
+    The mesh-sharded backend and the dispatch fallback chain are not
+    ported: their families read 0 (an evaluation on the card runs on the
+    hand kernels or raises, so nothing is ever demoted)."""
+    r = metrics.registry
+    r.counter(
+        "yoda_kernel_dispatches_total",
+        "Real fused-kernel dispatches (gang siblings served from a "
+        "placement plan do not dispatch)",
+        lambda: p.dispatch_count,
+    )
+    r.counter(
+        "yoda_gang_plan_served_total",
+        "Gang member cycles answered from a whole-gang placement plan",
+        lambda: p.plan_served,
+    )
+    r.counter(
+        "yoda_gang_plan_invalidated_total",
+        "Live gang placement plans dropped before being fully served "
+        "(validation failure or concurrent-gang eviction)",
+        lambda: p.plan_invalidated,
+    )
+    r.counter(
+        "yoda_gang_fused_dispatches_total",
+        "Whole-gang kernel dispatches (the gang-fused pass: every "
+        "gathered member evaluated in one burst-kernel call)",
+        lambda: p.gang_burst_dispatches,
+    )
+    r.counter(
+        "yoda_gang_fused_served_total",
+        "Gang member cycles answered from a gang-fused dispatch "
+        "(sibling claims deducted host-side)",
+        lambda: p.gang_burst_served,
+    )
+    r.counter(
+        "yoda_gang_fused_invalidated_total",
+        "Gang-fused dispatch rows dropped by a failed serve-time "
+        "validation (foreign reservation, metrics republish, "
+        "allocatable conflict)",
+        lambda: p.gang_burst_invalidated,
+    )
+    r.counter(
+        "yoda_joint_dispatches_total",
+        "Cross-gang joint kernel dispatches (several co-queued "
+        "gangs evaluated in one kernel call, serving disjoint "
+        "blocks)",
+        lambda: p.joint_dispatches,
+    )
+    r.counter(
+        "yoda_joint_gangs_fused_total",
+        "Gangs whose placement rows came from a cross-gang joint "
+        "dispatch",
+        lambda: p.joint_gangs,
+    )
+    r.counter(
+        "yoda_joint_gangs_parked_total",
+        "Gangs the joint fit gate parked whole (restored to the "
+        "queue untouched instead of reserving and cascading)",
+        lambda: p.joint_parked,
+    )
+    r.counter(
+        "yoda_burst_dispatches_total",
+        "Multi-pod burst kernel dispatches (config batch_requests: "
+        "one dispatch pre-evaluates up to K pending pods)",
+        lambda: p.burst_dispatches,
+    )
+    r.counter(
+        "yoda_burst_served_total",
+        "Scheduling cycles answered from a multi-pod burst dispatch",
+        lambda: p.burst_served,
+    )
+    r.counter(
+        "yoda_burst_invalidated_total",
+        "Burst rows dropped by a failed validation (metrics "
+        "republish, foreign reservation, allocatable conflict) — a "
+        "high rate means the amortization is being lost to churn",
+        lambda: p.burst_invalidated,
+    )
+    r.gauge(
+        "yoda_kernel_dispatch_floor_ms",
+        "Measured default-device per-dispatch floor (0 until the "
+        "auto platform policy probes it; ~0.1 locally-attached, "
+        "~100 over a tunnel/RPC transport)",
+        lambda: 0.0,
+    )
+    r.counter(
+        "yoda_dispatch_errors_total",
+        "Kernel dispatch exceptions caught by the fallback chain "
+        "(each one demoted the dispatch a backend level instead "
+        "of crashing the scheduling loop)",
+        lambda: p.dispatch_errors,
+    )
+    r.counter(
+        "yoda_dispatch_fallback_total",
+        "Dispatches completed on a DEMOTED kernel backend "
+        "(primary -> XLA host kernel -> numpy evaluator) — "
+        "nonzero means degraded-mode operation",
+        lambda: 0,
+    )
+    r.gauge(
+        "yoda_dispatch_backend_level",
+        "Circuit-breaker backend pin: 0 = primary kernel, 1 = XLA "
+        "host fallback, 2 = numpy evaluator (max over profiles; "
+        "nonzero = a backend was pinned down after repeated "
+        "dispatch failures)",
+        lambda: 0,
+    )
+    r.counter(
+        "yoda_snapshot_reuse_total",
+        "Static fleet refreshes answered without touching the "
+        "fleet (metrics epoch unchanged since the last dispatch) "
+        "— the device-resident state's steady-state hit path",
+        lambda: p.snapshot_reuse,
+    )
+    r.counter(
+        "yoda_admission_cache_reuse_total",
+        "Host-admission vectors reused ACROSS snapshot rebuilds "
+        "(both informer feeds report the entry's epochs current)",
+        lambda: p.admission_reuse,
+    )
+    r.counter(
+        "yoda_admission_cache_patched_total",
+        "Host-admission vectors carried across snapshots by "
+        "re-checking only the delta-feed-touched rows",
+        lambda: p.admission_patched,
+    )
+    r.counter(
+        "yoda_admission_cache_rebuilds_total",
+        "Full O(fleet) host-admission rebuilds (structural churn, "
+        "feed ring eviction, or first sight of a shape)",
+        lambda: p.admission_rebuilds,
+    )
+    r.counter(
+        "yoda_restack_total",
+        "Full fleet re-stacks (snapshot -> host arrays -> whole-"
+        "fleet device upload): epoch skew, node add/delete, or "
+        "bucket growth. At low churn this should sit near the "
+        "boot count — a climbing rate means the delta feed is "
+        "being outrun",
+        lambda: p.restacks,
+    )
+    r.gauge(
+        "yoda_delta_apply_ms",
+        "Wall milliseconds of the most recent incremental fleet "
+        "delta apply (changed-row refill + in-place device "
+        "scatter); independent of fleet size at low churn",
+        lambda: p.delta_apply_ms,
+    )
+    r.counter(
+        "yoda_sharded_dispatches_total",
+        "Kernel dispatches served by the node-axis mesh-sharded "
+        "backend (config mesh_devices; the fallback chain demotes "
+        "to single-device XLA / numpy below it)",
+        lambda: 0,
+    )
+    r.gauge(
+        "yoda_kernel_on_accelerator",
+        "1 when some fused kernel currently targets the process "
+        "default accelerator device (0 = pinned to host CPU by the "
+        "platform policy or config)",
+        lambda: int(p.device.type != "cpu"),
+    )
+
+
+def _register_speculation_families(metrics, spec):
+    r = metrics.registry
+    r.counter(
+        "yoda_spec_cache_hits_total",
+        "Serve cycles bound from a speculative placement plan (the "
+        "sub-millisecond fast path: filter/score spans skipped)",
+        lambda: spec.hits,
+    )
+    r.counter(
+        "yoda_spec_cache_misses_total",
+        "Speculation lookups finding no plan for an in-scope shape "
+        "(the miss records the shape for the next producer tick)",
+        lambda: spec.misses,
+    )
+    r.counter(
+        "yoda_spec_cache_invalidations_total",
+        "Speculative plans dropped before consumption (delta-feed "
+        "touch, failed revalidation, Reserve race, flush) — staleness "
+        "caught, never bound",
+        lambda: spec.invalidations,
+    )
+
+
+def apply_reloadable(stacks: "list[Stack]", config: SchedulerConfig) -> None:
+    """Apply every RELOADABLE knob of ``config`` to RUNNING stacks (the
+    ``apply_fn`` of ``overload.ConfigReloader``). Each assignment lands on
+    an attribute its consumer re-reads at use time, so the apply is atomic
+    per knob — no consumer ever sees a half-reloaded composite. The
+    journal's knobs are not applied: the port has no journal."""
+    metrics = stacks[0].metrics
+    ov = metrics.overload
+    ov.period_s = float(config.overload_period_s)
+    ov.queue_high = int(config.overload_queue_high)
+    ov.ingest_high = int(config.overload_ingest_high)
+    ov.cycle_ms_high = float(config.overload_cycle_ms_high)
+    ov.step_down_hold_s = float(config.overload_step_down_hold_s)
+    ov.brownout_admit_per_s = float(config.overload_brownout_admit_per_s)
+    ov.shed_priority_floor = int(config.overload_shed_priority)
+    # Routed through the monitor so a reload during a feature-pause
+    # updates the step-down restore value instead of unpausing tracing.
+    ov.set_base_sample_rate(config.trace_sample_rate)
+    metrics.slo.enabled = config.slo_enabled
+    metrics.slo.burn_threshold = config.slo_burn_threshold
+    metrics.pending.capacity = max(config.pending_index_max, 16)
+    for st in stacks:
+        st.queue.immediate_retry_attempts = config.immediate_retry_attempts
+        if st.binder is not None:
+            st.binder.policy = BackoffPolicy(
+                attempts=max(config.bind_retry_attempts, 0),
+                base_s=config.bind_retry_base_s,
+                cap_s=config.bind_retry_cap_s,
+            )
+        if st.rebalancer is not None:
+            st.rebalancer.min_gain = config.rebalance_min_gain
+            st.rebalancer.max_moves = config.rebalance_max_moves
+            st.rebalancer.max_victims = config.rebalance_max_victims
+            st.rebalancer.enable_preemption = config.rebalance_preemption
+            st.rebalancer.enable_elastic = config.rebalance_elastic
+        if st.nodehealth is not None:
+            st.nodehealth.repair = config.node_repair
+            st.nodehealth.drain_deadline_s = config.node_drain_deadline_s
+        if st.speculation is not None:
+            # configure() flushes on disable and evicts on shrink, so a
+            # live reload can never leave plans beyond the new bounds.
+            st.speculation.configure(
+                enabled=config.spec_enabled,
+                size=config.spec_cache_size,
+                shapes_max=config.spec_shapes_max,
+            )
