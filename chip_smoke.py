@@ -207,7 +207,7 @@ Phases, each of which makes the script exit non-zero when it fails:
        why-pending summary and each pending key's explanation, the SLO
        evaluation, the multiset of (subject, span, parent span), the
        number of trace entries and the reload's report and live values
-       must equal the CPU run's (a second spawned process, ``ObsRerun``).
+       must equal the CPU run's (a second spawned process, ``SpawnedRerun``).
        Then the same
        script on the wall clock, card only: each phase's p50/p99, the
        Perfetto trace under ``build/`` and its spans per track, every
@@ -233,10 +233,53 @@ Phases, each of which makes the script exit non-zero when it fails:
    pods/s and p99 and their ranges. Every ``fleet_eval`` and
    ``joint_fit`` call of run (j) is held against its plain version, and
    the launches held must equal the module's counts, part by part.
+   Then run (k), the stack the shipped ConfigMap describes
+   (deploy/yoda-tpu-scheduler.yaml, read by ``configmap_config``: 2 ms
+   ingest window, batch max 256, tenant fairness, K = 1), with only the
+   platform (and in (k2) the quota) overridden, on the same fleet
+   (``run_tenancy``, ``TENANCY_FULL``; the tests run ``TENANCY_SMALL``):
+   256 one-chip singletons of a flooding tenant, then three light
+   tenants' pods, each 16 singletons of 1-4 chips and 2 plain gangs of
+   8 x 4 chips, in a seeded order (the traffic's depth is cut: see
+   ``TENANCY_FULL``):
+   (k1) on a stepped clock: each step the agent republishes 256 hosts in
+       turn, 4 bound flood pods are deleted, and up to 16 loop turns run
+       with the batcher flushed before each, so the batches at every
+       dispatch are the same on both platforms. Bindings, pop order,
+       Events (reason, pod, count), ``/metrics`` samples (less the
+       wall-clock values and the batch-size histogram, which follows the
+       drain thread), per-step shares, quota parks and why-pending
+       counts, ``rows_applied`` / ``delta_syncs`` and each tenant's bind
+       latency on the stepped clock must equal the CPU run; then the same
+       script with ``tenant_fairness: false`` (card only, reported: the
+       light tenants must wait longer);
+   (k2) (k1)'s script with ``tenant_quota_chips`` 128 for 32 steps: the
+       flood parks at its quota (its bound chips never past 128, the
+       why-pending verdict names the quota), each step's deletions retire
+       parks, every light tenant binds; equal to the CPU run;
+   (k3) on the wall clock with the batcher's own 2 ms drain thread: a
+       publisher thread republishes every host once per 10 s (the
+       agent's interval: 500 CRs/s) and, 2 s in, all 5,000 hosts within
+       1 s (an agent rollout), ticking the overload ladder each second,
+       while the main thread serves the pods with ``run_until_idle``.
+       Reported: pods/s, each tenant's p50/p99, ingest batch sizes, raw
+       and coalesced events, the largest backlog, ``update_rows`` calls
+       and rows per call, the ladder's levels and ingest signal, Events
+       written and dropped. Checked on both platforms, order-free (the
+       ladder reads the wall clock, so what it parks differs): every pod
+       bound or pending for a recorded reason, no host over its healthy
+       chips, gangs whole, one ``Scheduled`` Event per bound pod.
+   Every ``fleet_eval`` / ``joint_fit`` call and every ``update_rows``
+   launch of run (k) is held against its plain version
+   (``KeptKernels``, ``KeptRowUpdates``: the whole resident state after
+   the update against ``stack_static`` of the refilled fleet). The CPU
+   run of (k1)-(k3) goes on in a third spawned process
+   (``SpawnedRerun``).
 4. One line {"kernels": [...]} with each kernel's launches over every run
-   above (runs (h)'s, (i)'s and (j)'s also by part, and the speculation
-   thread's apart), its largest difference from the plain version and
-   its times ("not measured" where the profiler saw no device activity).
+   above (runs (h)'s, (i)'s, (j)'s and (k)'s also by part, and the
+   speculation thread's apart), its largest difference from the plain
+   version and its times ("not measured" where the profiler saw no device
+   activity).
    Before it, one line of each phase's wall seconds.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -851,6 +894,7 @@ def build_fleet(
     v5e_hosts: int = 2952,
     clock=None,
     now_fn=None,
+    config=None,
     **knobs,
 ):
     """The 5,000-node fleet's stack and its agent: 512 v5p 2x2x1 slices and
@@ -859,16 +903,19 @@ def build_fleet(
     names it; with ``node_fn`` every host gets ``node_fn(name)``. Smaller
     fleets for the card tests through ``slices`` and ``v5e_hosts``; the
     stack's scheduling clock through ``clock``, the agent's wall clock
-    through ``now_fn``; other SchedulerConfig knobs through ``knobs``."""
+    through ``now_fn``; the SchedulerConfig through ``config`` (its
+    platform replaced by ``platform``, ``burst`` ignored) or else built
+    from ``burst``; other SchedulerConfig knobs through ``knobs``."""
     from yoda_tpu_torch.agent.fake_publisher import FakeTpuAgent
     from yoda_tpu_torch.api.types import K8sNode
     from yoda_tpu_torch.config import SchedulerConfig
     from yoda_tpu_torch.standalone import build_stack
 
-    stack = build_stack(
-        config=SchedulerConfig(kernel_platform=platform, batch_requests=burst, **knobs),
-        **({} if clock is None else {"clock": clock}),
-    )
+    if config is not None:
+        config = dataclasses.replace(config, kernel_platform=platform, **knobs)
+    else:
+        config = SchedulerConfig(kernel_platform=platform, batch_requests=burst, **knobs)
+    stack = build_stack(config=config, **({} if clock is None else {"clock": clock}))
     agent = FakeTpuAgent(stack.cluster, **({} if now_fn is None else {"now_fn": now_fn}))
     hosts = []
     for s in range(slices):
@@ -884,6 +931,8 @@ def build_fleet(
         for name in hosts:
             stack.cluster.put_node(node_fn(name))
     agent.publish_all()
+    if stack.ingestor is not None:
+        stack.ingestor.flush()
     return stack, agent
 
 
@@ -4308,38 +4357,41 @@ def print_observability(run: dict, smi: str) -> None:
     print(f"observability (j) {run['j1']['platform']} [{smi}]:", json.dumps(summary))
 
 
-def obs_rerun_child(conn, size: dict) -> None:
-    """The body of run (j)'s CPU rerun process: (j1) and (j2) on
-    kernel_platform "cpu", sent back whole or as the error."""
+def rerun_child(conn, run: str, size: dict) -> None:
+    """The body of a CPU rerun process: ``run`` (a run function of this
+    script) on kernel_platform "cpu" without its reported parts, sent back
+    whole or as the error."""
     torch.set_num_threads(CPU_RERUN_THREADS)
     try:
-        conn.send(("ok", run_observability("cpu", size, reported=False)))
+        conn.send(("ok", globals()[run]("cpu", size, reported=False)))
     except BaseException as e:  # noqa: BLE001 — the parent reports it
         conn.send(("error", f"{type(e).__name__}: {e}"))
     conn.close()
 
 
-class ObsRerun:
-    """Run (j)'s CPU run in a process of its own (spawned, like
-    :class:`CpuRerun`), started when the kernels are built so that it
-    overlaps the card's phases; :meth:`result` waits for it."""
+class SpawnedRerun:
+    """One run's CPU run in a process of its own (spawned, like
+    :class:`CpuRerun`): runs (j) and (k), each started when the kernels
+    are built so that it overlaps the card's phases; :meth:`result` waits
+    for it."""
 
-    def __init__(self, size: dict = OBSERVABILITY_FULL) -> None:
+    def __init__(self, run: str, size: dict, what: str) -> None:
         import multiprocessing
 
+        self.what = what
         ctx = multiprocessing.get_context("spawn")
         self._recv, send = ctx.Pipe(duplex=False)
-        self._proc = ctx.Process(target=obs_rerun_child, args=(send, size), daemon=True)
+        self._proc = ctx.Process(target=rerun_child, args=(send, run, size), daemon=True)
         self._proc.start()
         send.close()
 
     def result(self, timeout_s: float = 900.0) -> dict:
         if not self._recv.poll(timeout_s):
-            raise TimeoutError(f"run (j)'s CPU rerun sent nothing in {timeout_s} s")
+            raise TimeoutError(f"{self.what}'s CPU rerun sent nothing in {timeout_s} s")
         status, value = self._recv.recv()
         self._proc.join(timeout=30)
         if status != "ok":
-            raise RuntimeError(f"run (j)'s CPU rerun failed: {value}")
+            raise RuntimeError(f"{self.what}'s CPU rerun failed: {value}")
         return value
 
     def stop(self) -> None:
@@ -4348,12 +4400,567 @@ class ObsRerun:
             self._proc.join(timeout=10)
 
 
-def phase_observability(smi: str, rerun: ObsRerun) -> dict:
+def phase_observability(smi: str, rerun: SpawnedRerun) -> dict:
     g = run_observability("auto")
     c = rerun.result()
     print_observability(g, smi)
     print_observability(c, smi)
     check_observability(g, c, OBSERVABILITY_FULL)
+    return g
+
+
+# --- run (k): the shipped ConfigMap -----------------------------------------
+
+CONFIGMAP_PATH = "deploy/yoda-tpu-scheduler.yaml"
+TEAMS = ("team-a", "team-b", "team-c")
+# The full fleet, with the traffic's depth cut to fit the phase: every
+# launch is held against its plain version on the host (~8 ms a K = 1
+# call at 8,192 rows) beside ~28 ms a K = 1 cycle, so the flood is 256
+# pods (not 2,048), each light tenant 16 singletons and 2 gangs (not 64
+# and 4), and 16 turns a step (not 64). The quota (512 at the full depth)
+# is 128: under it fits each light tenant's whole ask (at most 16 x 4 +
+# 2 x 8 x 4 chips), and 4 deletions a step (not 32) let the flood's bound
+# chips reach it.
+TENANCY_FULL = dict(slices=512, v5e_hosts=2952, flood=256, singles=16, gangs=2,
+                    gang_size=8, republish=256, deletes=4, turns=16, quota=128,
+                    quota_steps=32, publish_period_s=10.0, rollout_at_s=2.0,
+                    rollout_s=1.0)
+TENANCY_SMALL = dict(slices=16, v5e_hosts=96, flood=128, singles=8, gangs=1,
+                     gang_size=4, republish=16, deletes=4, turns=8, quota=48,
+                     quota_steps=24, publish_period_s=1.0, rollout_at_s=0.2,
+                     rollout_s=0.2)
+# Families whose samples follow the ingest drain thread's timing (where the
+# batch boundaries fall): compared on the stepped runs less these.
+INGEST_TIMED = ("yoda_ingest_batch_size",)
+
+
+def _yaml_scalar(text: str):
+    if text in ("true", "false"):
+        return text == "true"
+    if text in ("null", "~"):
+        return None
+    if len(text) > 1 and text[0] in "'\"" and text[-1] == text[0]:
+        return text[1:-1]
+    for cast in (int, float):
+        try:
+            return cast(text)
+        except ValueError:
+            pass
+    return text
+
+
+def configmap_config(path: str = CONFIGMAP_PATH) -> dict:
+    """The scheduler config the shipped ConfigMap carries under its
+    ``config.yaml`` key, read with a parser for the block mappings,
+    scalars and comments it is written in (no YAML package is needed on
+    the card's machine; tests/test_torch_tenancy.py holds this equal to
+    ``yaml.safe_load``)."""
+    lines = open(path).read().splitlines()
+    start = next(i for i, line in enumerate(lines) if line.strip() == "config.yaml: |")
+    base = len(lines[start]) - len(lines[start].lstrip())
+    root: dict = {}
+    parents = [(base, root)]
+    for line in lines[start + 1:]:
+        body = "" if line.lstrip().startswith("#") else line.split(" #", 1)[0].rstrip()
+        if not body.strip():
+            continue
+        indent = len(body) - len(body.lstrip())
+        if indent <= base:
+            break
+        key, _, value = body.strip().partition(":")
+        while parents[-1][0] >= indent:
+            parents.pop()
+        value = value.strip()
+        if value:
+            parents[-1][1][key] = _yaml_scalar(value)
+        else:
+            parents[-1][1][key] = {}
+            parents.append((indent, parents[-1][1][key]))
+    return root
+
+
+def tenancy_script(size: dict, seed: int = 11):
+    """Run (k)'s pods as (name, namespace, labels): the flood's one-chip
+    singletons, and the three light tenants' pods in a seeded order, each
+    tenant ``singles`` singletons of 1-4 chips and ``gangs`` plain gangs
+    of ``gang_size`` x 4 chips."""
+    rng = np.random.default_rng(seed)
+    flood = [(f"f-{i:04d}", "flood", {"tpu/chips": "1"}) for i in range(size["flood"])]
+    teams = []
+    for t in TEAMS:
+        for i in range(size["singles"]):
+            teams.append((f"{t}-s{i:02d}", t, {"tpu/chips": str(int(rng.integers(1, 5)))}))
+        for g in range(size["gangs"]):
+            teams += [(f"{t}-g{g}-{m}", t, {"tpu/chips": "4", "tpu/gang": f"{t}-g{g}",
+                                            "tpu/gang-size": str(size["gang_size"])})
+                      for m in range(size["gang_size"])]
+    return flood, [teams[i] for i in rng.permutation(len(teams))]
+
+
+def tenancy_stack(platform: str, size: dict, clock=None, **overrides):
+    """The stack the shipped ConfigMap describes, on ``platform`` (and with
+    ``overrides``), over the fleet of ``size``."""
+    from yoda_tpu_torch.config import SchedulerConfig
+
+    cfg = SchedulerConfig.from_dict(configmap_config())
+    return build_fleet(platform, cfg.batch_requests, config=cfg, slices=size["slices"],
+                       v5e_hosts=size["v5e_hosts"], clock=clock, **overrides)
+
+
+def pcts(values: "list[float]") -> dict:
+    v = sorted(values)
+    if not v:
+        return {"n": 0, "p50": None, "p99": None}
+    return {"n": len(v), "p50": v[len(v) // 2], "p99": v[min(len(v) - 1, int(0.99 * len(v)))]}
+
+
+def tenant_latencies(created: dict, bound_at: dict) -> dict:
+    """Per tenant: p50 / p99 of bind time less creation time, for the pods
+    that bound."""
+    out = {}
+    for tenant in ("flood", *TEAMS):
+        out[tenant] = pcts([bound_at[k] - created[k] for k in bound_at
+                            if k.startswith(tenant + "/")])
+    return out
+
+
+class KeptRowUpdates:
+    """While entered, every ``TorchFleetKernel.update_rows`` that launches on
+    the card is held against its plain version: the host lowering of the
+    whole refilled fleet (``stack_static``, what ``put_static`` uploads),
+    which the resident state must equal once the rows are applied. The
+    module's launch count is zeroed on entry."""
+
+    def __enter__(self):
+        from yoda_tpu_torch.ops import kernel as kernel_mod
+
+        self.mod = kernel_mod
+        self.real = real = kernel_mod.TorchFleetKernel.update_rows
+        self.held = self.rows = self.max_abs_err = 0
+
+        def update_rows(kern, arrays, rows):
+            before = kern.row_updates
+            real(kern, arrays, rows)
+            if kern.row_updates != before:
+                chips, nodes = kernel_mod.stack_static(arrays)
+                err = max(abs_err(kern._chips, torch.from_numpy(chips)),
+                          abs_err(kern._nodes, torch.from_numpy(nodes)))
+                self.held += 1
+                self.rows += len(rows)
+                self.max_abs_err = max(self.max_abs_err, err)
+
+        kernel_mod.TorchFleetKernel.update_rows = update_rows
+        kernel_mod.row_update_launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.TorchFleetKernel.update_rows = self.real
+        self.launches = self.mod.row_update_launches
+        return False
+
+
+def kept_counts(kept: KeptKernels, rows: KeptRowUpdates) -> dict:
+    """Launches made and held against the plain versions, per kernel, with
+    the largest difference."""
+    err = kept.errors()
+    err["launches"]["update_rows"] = rows.launches
+    err["kept"]["update_rows"] = rows.held
+    err["max_abs_err"]["update_rows"] = rows.max_abs_err
+    return err
+
+
+def event_rows(stack) -> list:
+    """Every Event the stack wrote as [reason, namespace/pod, count]."""
+    if not stack.events.flush(60.0):
+        raise AssertionError("the Event recorder did not drain")
+    return sorted([e["reason"], f"{e['involvedObject']['namespace']}/"
+                   f"{e['involvedObject']['name']}", e["count"]]
+                  for e in stack.cluster.list_events())
+
+
+def gang_split(stack, pods: list) -> dict:
+    """Gangs bound partly: gang -> (bound members, size)."""
+    from yoda_tpu_torch.api.requests import gang_name_of
+
+    bound: dict = {}
+    for _name, _ns, labels in pods:
+        g = gang_name_of(labels)
+        if g:
+            bound.setdefault(g, [0, int(labels["tpu/gang-size"])])
+    for p in stack.cluster.list_pods():
+        g = gang_name_of(p.labels)
+        if g in bound and p.node_name:
+            bound[g][0] += 1
+    return {g: tuple(v) for g, v in bound.items() if v[0] not in (0, v[1])}
+
+
+def run_tenancy_stepped(platform: str, size: dict, *, fairness: bool = True,
+                        quota: int = 0) -> dict:
+    """Run (k1) (or, with ``quota``, (k2)) on one kernel_platform: the
+    ConfigMap's stack on a stepped scheduling clock (1 s per step). Step 0
+    creates the flood, step 1 the light tenants' pods; every later step
+    the agent republishes ``republish`` hosts in turn and ``deletes`` bound
+    flood pods are deleted. Each step then runs up to ``turns`` loop turns
+    (a pop, its batch, one cycle per entry), the batcher flushed before
+    each turn, so batch boundaries at every dispatch are the script's on
+    both platforms. The run ends when a step pops nothing and nothing
+    waits for a retry, or after ``quota_steps`` steps with a quota."""
+    from yoda_tpu_torch.api.types import PodSpec
+
+    over = {}
+    if not fairness:
+        over["tenant_fairness"] = False
+    if quota:
+        over["tenant_quota_chips"] = quota
+    clock = SteppedClock(10_000.0)
+    stack, agent = tenancy_stack(platform, size, clock=clock, **over)
+    ing, sched, queue, m = stack.ingestor, stack.scheduler, stack.queue, stack.metrics
+    flood, teams = tenancy_script(size)
+    hosts = sorted(t.name for t in stack.cluster.list_tpu_metrics())
+    created, bound_at, pops, steps = {}, {}, [], []
+    quota_explain = None
+    t0 = time.monotonic()
+    try:
+        with KeptKernels() as kept, KeptRowUpdates() as rows:
+            def create(script):
+                for name, ns, labels in script:
+                    stack.cluster.create_pod(PodSpec(name, namespace=ns, labels=dict(labels)))
+                    created[f"{ns}/{name}"] = clock()
+
+            create(flood)
+            step = 0
+            while step < (size["quota_steps"] if quota else 1000):
+                if step == 1:
+                    create(teams)
+                if step:
+                    at = (step - 1) * size["republish"] % len(hosts)
+                    for h in (hosts + hosts)[at:at + size["republish"]]:
+                        agent.refresh(h)
+                    for key in sorted(k for k in bound_at if k.startswith("flood/")
+                                      and stack.cluster.get_pod(k))[:size["deletes"]]:
+                        stack.cluster.delete_pod(key)
+                turns = 0
+                while turns < size["turns"]:
+                    ing.flush()
+                    qpi = queue.pop(timeout=0)
+                    if qpi is None:
+                        break
+                    for q in sched._pop_batch(qpi):
+                        pops.append(q.pod.key)
+                        sched.schedule_one(q)
+                    turns += 1
+                ing.flush()
+                for p in stack.cluster.list_pods():
+                    if p.node_name and p.key not in bound_at:
+                        bound_at[p.key] = clock()
+                steps.append(dict(
+                    turns=turns, bound=len(bound_at),
+                    shares=stack.tenants.shares() if stack.tenants else {},
+                    flood_usage=stack.tenants.usage("flood")[0] if stack.tenants else None,
+                    quota_parks=m.tenant_quota_parks.value(),
+                    pending=m.pending.summary()["by_kind"],
+                ))
+                if quota and quota_explain is None:
+                    parked = sorted(row["key"] for row in m.pending.summary()["pending"]
+                                    if row["kind"] == "quota-park")
+                    if parked:
+                        quota_explain = no_wall(m.pending.explain(parked[0]))
+                clock.advance(1.0)
+                step += 1
+                if not quota and step > 1 and turns == 0 \
+                        and not queue.pending_retry_count():
+                    break
+            if platform != "cpu":
+                torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        r = stack.batch._resident
+        out = dict(
+            platform=platform, fairness=fairness, quota=quota, steps=steps,
+            pods=len(created), bound=len(bound_at), pops=pops,
+            bindings={k: p.node_name for k in created
+                      if (p := stack.cluster.get_pod(k)) is not None},
+            events=event_rows(stack), events_dropped=stack.events.dropped_total,
+            metrics={k: v for k, v in scrape_values(
+                m.registry.render_prometheus()).items()
+                if not k.startswith(INGEST_TIMED)},
+            latency_s=tenant_latencies(created, bound_at),
+            rows_applied=r.rows_applied if r else None,
+            delta_syncs=r.delta_syncs if r else None,
+            restacks=stack.batch.restacks,
+            ingest_events_in=ing.events_in,
+            ingest=dict(events_out=ing.events_out, batches=ing.batches),
+            quota_parked=max(s["pending"].get("quota-park", 0) for s in steps),
+            quota_explain=quota_explain,
+            overcommitted=over_capacity(stack), accounting_gap=accounting_gap(stack),
+            split_gangs=gang_split(stack, flood + teams),
+            dispatch_errors=stack.batch.dispatch_errors, wall_s=wall,
+            **kept_counts(kept, rows),
+        )
+    finally:
+        stack.close()
+    return out
+
+
+def run_tenancy_wall(platform: str, size: dict) -> dict:
+    """Run (k3) on one kernel_platform: the ConfigMap's stack on the wall
+    clock with the batcher's own drain thread at the 2 ms window. A
+    publisher thread republishes every host's metrics CR once per
+    ``publish_period_s`` (the agent's 10 s interval: 500 CRs/s over 5,000
+    hosts), and once, ``rollout_at_s`` in, every host within
+    ``rollout_s`` (an agent rollout); it also ticks the overload ladder
+    once a second and samples the batcher's backlog after every publish.
+    The main thread creates (k1)'s pods and serves them with
+    ``run_until_idle``."""
+    from yoda_tpu_torch.api.types import PodSpec
+
+    stack, agent = tenancy_stack(platform, size)
+    ing, sched, m = stack.ingestor, stack.scheduler, stack.metrics
+    ov = m.overload
+    flood, teams = tenancy_script(size)
+    hosts = sorted(t.name for t in stack.cluster.list_tpu_metrics())
+    bound_wall: dict = {}
+
+    def on_event(e) -> None:
+        if e.kind == "Pod" and e.type != "deleted" and e.obj.node_name:
+            bound_wall.setdefault(e.obj.key, time.monotonic())
+
+    stack.cluster.add_watcher(on_event)
+    batches: list = []
+    real_on_batch = ing.on_batch
+
+    def on_batch(raw: int, applied: int) -> None:
+        batches.append((raw, applied))
+        real_on_batch(raw, applied)
+
+    ing.on_batch = on_batch
+    stop = threading.Event()
+    pub = dict(published=0, backlog_max=0, ladder=[], errors=[], rollout_s=None)
+
+    def publisher() -> None:
+        start = time.monotonic()
+        gap = size["publish_period_s"] / len(hosts)
+        next_eval, i, rolled = start + 1.0, 0, False
+        try:
+            while not stop.is_set():
+                now = time.monotonic()
+                if not rolled and now - start >= size["rollout_at_s"]:
+                    t_roll = time.monotonic()
+                    for j, h in enumerate(hosts):
+                        agent.refresh(h)
+                        pub["backlog_max"] = max(pub["backlog_max"], ing.backlog())
+                        ahead = t_roll + (j + 1) * size["rollout_s"] / len(hosts) \
+                            - time.monotonic()
+                        if ahead > 0:
+                            stop.wait(ahead)
+                    pub["published"] += len(hosts)
+                    pub["rollout_s"] = time.monotonic() - t_roll
+                    rolled = True
+                    continue
+                agent.refresh(hosts[i % len(hosts)])
+                i += 1
+                pub["published"] += 1
+                pub["backlog_max"] = max(pub["backlog_max"], ing.backlog())
+                if now >= next_eval:
+                    level = ov.evaluate()
+                    p = ov.pressure()
+                    pub["ladder"].append(dict(t_s=now - start, level=level,
+                                              ingest=p.get("ingest"), max=p["max"]))
+                    next_eval += 1.0
+                ahead = start + i * gap - time.monotonic()
+                if ahead > 0:
+                    stop.wait(ahead)
+        except Exception as e:  # noqa: BLE001 — reported, and fails the run
+            pub["errors"].append(f"{type(e).__name__}: {e}")
+
+    created = {}
+    try:
+        with KeptKernels() as kept, KeptRowUpdates() as rows:
+            thread = threading.Thread(target=publisher, name="k3-publisher", daemon=True)
+            t0 = time.monotonic()
+            thread.start()
+            for name, ns, labels in flood + teams:
+                stack.cluster.create_pod(PodSpec(name, namespace=ns, labels=dict(labels)))
+                created[f"{ns}/{name}"] = time.monotonic()
+            ing.flush()
+            sched.run_until_idle(max_wall_s=600.0)
+            wall = time.monotonic() - t0
+            while time.monotonic() - t0 < size["rollout_at_s"] + size["rollout_s"] + 1.0:
+                time.sleep(0.05)  # the rollout lands in every run
+            stop.set()
+            thread.join(timeout=30)
+            ing.flush()
+            if platform != "cpu":
+                torch.cuda.synchronize()
+        r = stack.batch._resident
+        events = event_rows(stack)
+        scheduled = {}
+        for reason, key, count in events:
+            if reason == "Scheduled":
+                scheduled[key] = scheduled.get(key, 0) + count
+        bound = sorted(k for k in created if (p := stack.cluster.get_pod(k)) and p.node_name)
+        pending_keys = {row["key"] for row in m.pending.summary()["pending"]}
+        sizes = sorted(a for _, a in batches if a)
+        out = dict(
+            platform=platform, pods=len(created), bound=bound,
+            unbound_without_reason=sorted(set(created) - set(bound) - pending_keys),
+            pods_per_s=len(bound) / wall, wall_s=wall,
+            latency_ms={t: {k: (None if v is None else 1e3 * v) if k != "n" else v
+                            for k, v in d.items()}
+                        for t, d in tenant_latencies(created, bound_wall).items()},
+            batches=len(batches), batch_p50=sizes[len(sizes) // 2] if sizes else None,
+            batch_max=sizes[-1] if sizes else None,
+            events_in=ing.events_in, events_out=ing.events_out,
+            backlog_max=pub["backlog_max"], published=pub["published"],
+            rollout_s=pub["rollout_s"], ladder=pub["ladder"],
+            publisher_errors=pub["errors"], publisher_alive=thread.is_alive(),
+            update_rows_calls=r.delta_syncs if r else None,
+            rows_per_update=(r.rows_applied / r.delta_syncs) if r and r.delta_syncs else None,
+            events_written=len(events), events_dropped=stack.events.dropped_total,
+            scheduled_events_not_one=sorted(k for k in bound if scheduled.get(k) != 1),
+            overcommitted=over_capacity(stack), accounting_gap=accounting_gap(stack),
+            split_gangs=gang_split(stack, flood + teams),
+            dispatch_errors=stack.batch.dispatch_errors,
+            **kept_counts(kept, rows),
+        )
+    finally:
+        stop.set()
+        stack.close()
+    return out
+
+
+def run_tenancy(platform: str, size: dict = TENANCY_FULL, *, reported: bool = True) -> dict:
+    """Run (k) on one kernel_platform: (k1), (k2) and (k3), compared across
+    platforms, and with ``reported`` (k1) again with tenant fairness off,
+    whose latencies are printed beside the fair run's."""
+    parts = {"k1": lambda: run_tenancy_stepped(platform, size),
+             "k2": lambda: run_tenancy_stepped(platform, size, quota=size["quota"]),
+             "k3": lambda: run_tenancy_wall(platform, size)}
+    if reported:
+        parts["k1_unfair"] = lambda: run_tenancy_stepped(platform, size, fairness=False)
+    out: dict = {}
+    for part, fn in parts.items():
+        t = time.monotonic()
+        out[part] = fn()
+        out[part]["part_s"] = time.monotonic() - t
+    return out
+
+
+TENANCY_PARITY = {
+    "k1": ("bindings", "pops", "events", "metrics", "steps", "rows_applied",
+           "delta_syncs", "restacks", "ingest_events_in", "latency_s"),
+    "k2": ("bindings", "pops", "events", "metrics", "steps", "rows_applied",
+           "delta_syncs", "quota_parked", "quota_explain", "latency_s"),
+}
+
+
+def check_tenancy_run(run: dict, size: dict) -> None:
+    """The checks each platform's run (k) must pass on its own."""
+    name = f"run k ({run['k1']['platform']})"
+    for part in [p for p in ("k1", "k2", "k3", "k1_unfair") if p in run]:
+        r = run[part]
+        if r["overcommitted"] or r["accounting_gap"] or r["dispatch_errors"] \
+                or r["split_gangs"]:
+            raise AssertionError(f"{name} {part}: over capacity {r['overcommitted']}, "
+                                 f"accounting {r['accounting_gap']}, dispatch errors "
+                                 f"{r['dispatch_errors']}, split gangs {r['split_gangs']}")
+        if r["kept"] != r["launches"] or any(r["max_abs_err"].values()):
+            raise AssertionError(f"{name} {part}: {r['kept']} launches held against the "
+                                 f"plain versions of {r['launches']}, differences "
+                                 f"{r['max_abs_err']}")
+    for part in [p for p in ("k1", "k1_unfair") if p in run]:
+        r = run[part]
+        if r["bound"] != r["pods"]:
+            raise AssertionError(f"{name} {part}: {r['bound']}/{r['pods']} bound")
+        scheduled = sum(c for reason, _k, c in r["events"] if reason == "Scheduled")
+        if scheduled != r["pods"] or r["events_dropped"]:
+            raise AssertionError(f"{name} {part}: {scheduled} Scheduled events for "
+                                 f"{r['pods']} binds, {r['events_dropped']} dropped")
+    k1 = run["k1"]
+    if set(k1["steps"][-1]["shares"]) != {"flood", *TEAMS}:
+        raise AssertionError(f"{name} k1: dominant shares {k1['steps'][-1]['shares']}")
+    # DRF orders by dominant share, not arrival: a light tenant whose gangs
+    # bound can sit above the flood's share for a while, so its tail may
+    # wait; its median may not.
+    light = [k1["latency_s"][t]["p50"] for t in TEAMS]
+    if max(light) >= k1["latency_s"]["flood"]["p50"]:
+        raise AssertionError(f"{name} k1: light tenants' p50 {light} not under the "
+                             f"flood's {k1['latency_s']['flood']}")
+    if not sum(run[p]["launches"]["update_rows"] for p in ("k1", "k2", "k3")) and \
+            run["k1"]["platform"] != "cpu":
+        raise AssertionError(f"{name}: no update_rows launch in run (k)")
+    if "k1_unfair" in run:
+        unfair = [run["k1_unfair"]["latency_s"][t]["p50"] for t in TEAMS]
+        fair = [k1["latency_s"][t]["p50"] for t in TEAMS]
+        if not all(f < u for f, u in zip(fair, unfair)):
+            raise AssertionError(f"{name}: fairness off did not delay the light "
+                                 f"tenants (p50 fair {fair}, unfair {unfair})")
+    k2 = run["k2"]
+    usage = [s["flood_usage"] for s in k2["steps"]]
+    first_park = next((i for i, s in enumerate(k2["steps"]) if s["quota_parks"]), None)
+    if first_park is None or not k2["quota_parked"] \
+            or max(usage) > size["quota"] \
+            or "over chip quota" not in (k2["quota_explain"] or {}).get("last_message", ""):
+        raise AssertionError(f"{name} k2: parks {[s['quota_parks'] for s in k2['steps']]}, "
+                             f"flood chips {usage}, explain {k2['quota_explain']}")
+    bound = [s["bound"] for s in k2["steps"]]
+    if not bound[-1] > bound[first_park]:
+        raise AssertionError(f"{name} k2: no parked pod bound after the deletions {bound}")
+    for team in TEAMS:
+        if k2["latency_s"][team]["n"] != size["singles"] + size["gangs"] * size["gang_size"]:
+            raise AssertionError(f"{name} k2: tenant {team} {k2['latency_s'][team]}")
+    k3 = run["k3"]
+    if k3["unbound_without_reason"] or k3["scheduled_events_not_one"] \
+            or k3["publisher_errors"] or k3["publisher_alive"] \
+            or not k3["rollout_s"] or not k3["ladder"]:
+        raise AssertionError(f"{name} k3: unbound without a verdict "
+                             f"{k3['unbound_without_reason'][:5]}, Scheduled events not "
+                             f"one {k3['scheduled_events_not_one'][:5]}, publisher "
+                             f"{k3['publisher_errors']} alive {k3['publisher_alive']}, "
+                             f"rollout {k3['rollout_s']}, ladder {k3['ladder'][:2]}")
+
+
+def check_tenancy(g: dict, c: dict, size: dict) -> None:
+    """Run (k) on the card against the same script on the CPU."""
+    diff = [f"{part}.{k}" for part, keys in TENANCY_PARITY.items() for k in keys
+            if g[part][k] != c[part][k]]
+    if diff:
+        raise AssertionError(f"run k: cuda != cpu in {diff}")
+    check_tenancy_run(g, size)
+    check_tenancy_run(c, size)
+    for part in ("k1", "k2", "k3"):
+        if any(c[part]["launches"].values()):
+            raise AssertionError(f"run k {part}: the CPU run launched on the card")
+        if not g[part]["launches"]["fleet_eval"]:
+            raise AssertionError(f"run k {part}: launches {g[part]['launches']}")
+    if not g["k3"]["launches"]["update_rows"]:
+        raise AssertionError("run k3: the rollout moved no resident row")
+    if not g["k1"]["launches"]["joint_fit"]:
+        raise AssertionError("run k1: no joint_fit launch on the card")
+
+
+def print_tenancy(run: dict, smi: str) -> None:
+    """Run (k)'s measurements, less its bindings, pops, events and samples."""
+    summary = {}
+    for part, r in run.items():
+        summary[part] = {k: v for k, v in r.items()
+                         if k not in ("bindings", "pops", "events", "metrics", "steps",
+                                      "bound", "ladder")}
+        if "steps" in r:
+            summary[part]["steps"] = len(r["steps"])
+            summary[part]["final_shares"] = r["steps"][-1]["shares"]
+            summary[part]["quota_parks_by_step"] = [s["quota_parks"] for s in r["steps"]]
+        if part == "k3":
+            summary[part]["bound"] = len(r["bound"])
+            summary[part]["ladder"] = r["ladder"][:12]
+    print(f"tenancy (k) {run['k1']['platform']} [{smi}]:", json.dumps(summary))
+
+
+def phase_tenancy(smi: str, rerun: SpawnedRerun) -> dict:
+    g = run_tenancy("auto")
+    c = rerun.result()
+    print_tenancy(g, smi)
+    print_tenancy(c, smi)
+    check_tenancy(g, c, TENANCY_FULL)
     return g
 
 
@@ -4374,7 +4981,8 @@ def main() -> None:
 
     kind, smi = phase("device/build", phase_device)
     rerun = CpuRerun(BACKGROUND_FULL, NODEHEALTH_FULL)
-    obs_rerun = ObsRerun(OBSERVABILITY_FULL)
+    obs_rerun = SpawnedRerun("run_observability", OBSERVABILITY_FULL, "run (j)")
+    tenancy_rerun = SpawnedRerun("run_tenancy", TENANCY_FULL, "run (k)")
     try:
         rows, profiled = phase("kernel vs plain", phase_kernel)
         joint_rows = phase("joint_fit vs plain", phase_joint_fit)
@@ -4388,8 +4996,10 @@ def main() -> None:
         background = phase("background run (h)", phase_background, smi, rerun)
         nodehealth = phase("node health run (i)", phase_nodehealth, smi, rerun)
         observability = phase("observability run (j)", phase_observability, smi, obs_rerun)
+        tenancy = phase("tenancy run (k)", phase_tenancy, smi, tenancy_rerun)
         print("phase seconds:", json.dumps(seconds))
         j_parts = ("j1", "j1_wall", "j2", "j3", "cost")
+        k_parts = ("k1", "k1_unfair", "k2", "k3")
         h_runs = [background[part] for part in ("h1", "h2", "h3", "h4", "h4_nospec")]
         main_row = next(
             r for r in profiled
@@ -4415,10 +5025,14 @@ def main() -> None:
                     "launches": sum(run["launches"] for run in (
                         gpu["a"], gpu["b"], gangs["c"], gangs["d"], churn, preemption,
                         affinity, *wide, *h_runs, nodehealth))
-                    + sum(observability[p]["launches"]["fleet_eval"] for p in j_parts),
+                    + sum(observability[p]["launches"]["fleet_eval"] for p in j_parts)
+                    + sum(tenancy[p]["launches"]["fleet_eval"] for p in k_parts),
                     "launches_run_g": affinity["launches"],
                     "launches_run_j": {
                         p: observability[p]["launches"]["fleet_eval"] for p in j_parts
+                    },
+                    "launches_run_k": {
+                        p: tenancy[p]["launches"]["fleet_eval"] for p in k_parts
                     },
                     "launches_run_i": {
                         part: n["fleet_eval"] for part, n in nodehealth["phase_launches"].items()
@@ -4442,7 +5056,9 @@ def main() -> None:
                     "max_abs_err": max(max(r["max_abs_err"] for r in rows),
                                        nodehealth["max_abs_err"]["fleet_eval"],
                                        *(observability[p]["max_abs_err"]["fleet_eval"]
-                                         for p in j_parts)),
+                                         for p in j_parts),
+                                       *(tenancy[p]["max_abs_err"]["fleet_eval"]
+                                         for p in k_parts)),
                     "ms": main_row["ms"],
                     "plain_ms": main_row["plain_ms"],
                     "bound_ms": main_row["bound_ms"],
@@ -4474,17 +5090,23 @@ def main() -> None:
                     + affinity["joint_fit_launches"]
                     + sum(run["joint_fit_launches"] for run in h_runs[1:])
                     + nodehealth["joint_fit_launches"]
-                    + sum(observability[p]["launches"]["joint_fit"] for p in j_parts),
+                    + sum(observability[p]["launches"]["joint_fit"] for p in j_parts)
+                    + sum(tenancy[p]["launches"]["joint_fit"] for p in k_parts),
                     "launches_run_i": {
                         part: n["joint_fit"] for part, n in nodehealth["phase_launches"].items()
                     },
                     "launches_run_j": {
                         p: observability[p]["launches"]["joint_fit"] for p in j_parts
                     },
+                    "launches_run_k": {
+                        p: tenancy[p]["launches"]["joint_fit"] for p in k_parts
+                    },
                     "max_abs_err": max(max(r["max_abs_err"] for r in joint_rows),
                                        nodehealth["max_abs_err"]["joint_fit"],
                                        *(observability[p]["max_abs_err"]["joint_fit"]
-                                         for p in j_parts)),
+                                         for p in j_parts),
+                                       *(tenancy[p]["max_abs_err"]["joint_fit"]
+                                         for p in k_parts)),
                     "ms": joint_main["ms"],
                     "device_ms": not_measured(joint_main["device_ms"]),
                     "plain_ms": joint_main["plain_ms"],
@@ -4507,8 +5129,9 @@ def main() -> None:
             ],
             # The resident row update is a torch op, not a hand kernel (the
             # reference's XLA scatter, yoda_tpu/ops/kernel.py:662): launches are
-            # runs (e)-(h)'s update_rows calls on the card, times at the main
-            # path's fleet with 64 rows.
+            # runs (e)-(i)'s and (k)'s update_rows calls on the card (run (k)'s
+            # each held against the plain lowering), times at the main path's
+            # fleet with 64 rows.
             "torch_ops": [
                 {
                     "name": "update_rows",
@@ -4518,9 +5141,15 @@ def main() -> None:
                     "launches": churn["row_update_launches"]
                     + preemption["row_update_launches"] + affinity["row_update_launches"]
                     + sum(run["row_update_launches"] for run in h_runs)
-                    + nodehealth["row_update_launches"],
+                    + nodehealth["row_update_launches"]
+                    + sum(tenancy[p]["launches"]["update_rows"] for p in k_parts),
                     "launches_run_h_speculation": background["h1"]["spec_row_updates"],
-                    "max_abs_err": max(r["max_abs_err"] for r in update_rows),
+                    "launches_run_k": {
+                        p: tenancy[p]["launches"]["update_rows"] for p in k_parts
+                    },
+                    "max_abs_err": max(max(r["max_abs_err"] for r in update_rows),
+                                       *(tenancy[p]["max_abs_err"]["update_rows"]
+                                         for p in k_parts)),
                     "ms": update_main["ms"],
                     "plain_ms": update_main["put_static_ms"],
                     "bound_ms": update_main["bound_ms"],
@@ -4551,6 +5180,7 @@ def main() -> None:
     finally:
         rerun.stop()
         obs_rerun.stop()
+        tenancy_rerun.stop()
 
 
 if __name__ == "__main__":

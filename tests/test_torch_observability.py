@@ -6,18 +6,16 @@ runs on both packages from the reference's own source
 (``torch_refcases.run_case``), with its exact assertions. Left out, with
 the part they wait for (ROADMAP queue 1):
 
-- ``TestIngestAndTenantMetrics`` (both cases), ``TestSloSeries::
-  test_slo_series_populated_with_real_values`` and
-  ``TestBoundedGaugeCardinality::test_tenant_share_series_retires_with_last_pod``:
-  batched ingest and tenant fairness, item 8;
 - ``TestFailoverMetrics::test_federation_series_move_with_health_and_spillover``
   and ``TestQueueDepthGauges::test_profiles_sum_into_one_family``:
   federation and profiles, item 9;
 - ``TestFailoverMetrics::test_sharded_dispatch_counter_moves_in_mesh_mode``:
-  the mesh-sharded kernel, item 13;
-- ``TestAllFamiliesRegistered::test_checker_list_matches_code``: it lints
-  the yoda_tpu source tree; running the lint passes over the port is
-  item 14. ``TestSchema`` holds the port's rendered families instead.
+  the mesh-sharded kernel, item 13.
+
+``TestAllFamiliesRegistered::test_checker_list_matches_code`` lints the
+yoda_tpu source tree on both sides; ``tests/test_torch_lint.py`` runs the
+same lint passes over the port, and ``TestSchema`` holds the port's
+rendered families.
 
 Beside them: a default stack's ``/metrics`` renders the same families,
 types and label keys in both packages; a seeded sweep of mixed
@@ -55,21 +53,11 @@ import yoda_tpu_torch.standalone as port_standalone
 
 REF = "test_observability.py"
 SKIP = {
-    "TestIngestAndTenantMetrics::test_ingest_series_populated_when_batching_on":
-        "batched ingest (item 8)",
-    "TestIngestAndTenantMetrics::test_tenant_share_labeled_and_quota_parks_counted":
-        "tenant fairness (item 8)",
-    "TestSloSeries::test_slo_series_populated_with_real_values":
-        "tenant fairness (item 8)",
-    "TestBoundedGaugeCardinality::test_tenant_share_series_retires_with_last_pod":
-        "tenant fairness (item 8)",
     "TestFailoverMetrics::test_federation_series_move_with_health_and_spillover":
         "federation (item 9)",
     "TestQueueDepthGauges::test_profiles_sum_into_one_family": "profiles (item 9)",
     "TestFailoverMetrics::test_sharded_dispatch_counter_moves_in_mesh_mode":
         "mesh-sharded kernel (item 13)",
-    "TestAllFamiliesRegistered::test_checker_list_matches_code":
-        "lint passes over the port (item 14)",
 }
 
 

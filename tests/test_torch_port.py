@@ -6,7 +6,8 @@
   rejected alike, with equal effective weights;
 - entry points run on the card unless asked for the CPU: "auto" raises
   without a GPU;
-- knobs of parts the port lacks are refused by build_stack; gang pods,
+- knobs of parts the port lacks are refused by build_stack, and the
+  shipped ConfigMap sets none of them; gang pods,
   refused by the first slice, now schedule whole (tests/test_torch_gang.py
   holds the gang path against the JAX package).
 """
@@ -132,15 +133,21 @@ class TestConfigParity:
             f.name for f in dataclasses.fields(want)
         ]
 
-    def test_configmap_parses_and_names_what_is_not_ported(self):
-        # The shipped ConfigMap turns on batched ingest and tenant fairness,
-        # which this port does not have yet: it loads, and build_stack
-        # names exactly those two knobs.
+    def test_configmap_is_ported_and_builds_a_stack(self):
+        # The shipped ConfigMap turns on batched ingest and tenant fairness:
+        # every knob it sets is ported, and build_stack builds the stack it
+        # describes (on the CPU here), leaving out only the bind pipeline.
         cfg = SchedulerConfig.from_dict(_configmap())
-        assert sorted(s.split("=")[0] for s in unported_settings(cfg)) == [
-            "ingest_batch_window_ms",
-            "tenant_fairness",
-        ]
+        assert unported_settings(cfg) == []
+        stack = build_stack(config=dataclasses.replace(cfg, kernel_platform="cpu"))
+        try:
+            assert stack.ingestor is not None and stack.tenants is not None
+            assert stack.events is not None
+            assert stack.ingestor.window_s == cfg.ingest_batch_window_ms / 1000.0
+            assert stack.ingestor.batch_max == cfg.ingest_batch_max
+            assert [p.split(" (")[0] for p in stack.not_built] == ["bind pipeline"]
+        finally:
+            stack.close()
 
 
 class TestDevicePolicy:
@@ -169,8 +176,6 @@ class TestUnportedKnobs:
             ("kernel_device_min_elems", 1024),
             ("shard_count", 2),
             ("journal_path", "/var/lib/yoda"),
-            ("tenant_fairness", True),
-            ("ingest_batch_window_ms", 5.0),
             ("bind_pipeline", "on"),
             ("percentage_nodes_to_score", 50),
         ],
@@ -373,6 +378,70 @@ class TestObservabilityModules:
         )
         assert unported_settings(cfg) == []
         assert read(build_stack(config=cfg).metrics) == value
+
+
+def _quota_ask(stack, chips: int, hbm_mib: int = 0) -> "str | None":
+    """The queue's quota verdict for a pod of tenant "t" asking ``chips``
+    chips (and ``hbm_mib`` MiB of HBM per chip)."""
+    labels = {"tpu/chips": str(chips)}
+    if hbm_mib:
+        labels["tpu/hbm"] = str(hbm_mib)
+    return stack.queue._quota_fn("t", PodSpec("ask", namespace="t", labels=labels))
+
+
+class TestTenancyAndIngest:
+    """Tenancy, batched ingest and the Event recorder are ported: their
+    modules are under the import guard, and their knobs are honoured at
+    any valid value."""
+
+    @pytest.mark.parametrize(
+        "module",
+        ["cluster/__init__.py", "cluster/ingest.py", "cluster/events.py",
+         "framework/tenancy.py", "framework/queue.py"],
+    )
+    def test_modules_are_guarded(self, module):
+        path = REPO / "yoda_tpu_torch" / module
+        assert path in set((REPO / "yoda_tpu_torch").rglob("*.py"))
+        assert not [m for m in _imports(path) if _forbidden(m)]
+
+    def test_events_built_by_default(self):
+        stack = build_stack(config=SchedulerConfig(kernel_platform="cpu"))
+        assert stack.events is not None
+        assert stack.gang.on_rollback == stack.events.gang_rollback
+        assert stack.scheduler.on_bound == stack.events.scheduled
+        assert stack.scheduler.on_unschedulable == stack.events.failed_scheduling
+        assert stack.preemption.on_victim is not None
+        assert stack.ingestor is None and stack.tenants is None
+        stack.close()
+
+    @pytest.mark.parametrize(
+        "knob,value,extra,read",
+        [
+            ("tenant_fairness", True, {},
+             lambda st: st.tenants is not None and st.queue._tenant_of is not None),
+            ("ingest_batch_window_ms", 2.0, {},
+             lambda st: st.ingestor.window_s * 1000.0),
+            ("ingest_batch_max", 64, {"ingest_batch_window_ms": 2.0},
+             lambda st: st.ingestor.batch_max),
+            ("tenant_quota_chips", 512, {"tenant_fairness": True},
+             lambda st: (_quota_ask(st, 512) is None) * 512
+             + (_quota_ask(st, 513) is None)),
+            ("tenant_quota_hbm_gib", 2.0, {"tenant_fairness": True},
+             lambda st: (_quota_ask(st, 1, 2048) is None) * 2.0
+             + (_quota_ask(st, 1, 2049) is None)),
+        ],
+    )
+    def test_knob_honoured(self, knob, value, extra, read):
+        cfg = dataclasses.replace(
+            SchedulerConfig(kernel_platform="cpu"), **{knob: value, **extra}
+        )
+        assert unported_settings(cfg) == []
+        stack = build_stack(config=cfg)
+        try:
+            assert read(stack) == value
+            assert not [p for p in stack.not_built if knob in p]
+        finally:
+            stack.close()
 
 
 class TestPreemptionKnob:

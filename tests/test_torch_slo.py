@@ -5,14 +5,11 @@ both packages from the reference's own source
 (``torch_refcases.run_case``), with its fake clocks and exact
 assertions. Left out, with the part they wait for (ROADMAP queue 1):
 
-- ``TestEngineWiredIntoStack::test_queue_pending_feeds_tenant_stats``:
-  tenant fairness (``tenant_fairness: true``), item 8. The tenant-blind
-  pending side runs here (``TestPendingSide``);
 - ``TestSloHttpAndCli`` (both cases): the ``slo`` CLI command, item 10.
   ``/debug/slo`` runs here (``TestDebugSloHttp``);
 - ``TestTraceReplayDeterminism`` (four cases): the trace generator and
   replay of ``yoda_tpu.testing.tracegen`` (item 12), which build the
-  reference's own stacks and drive batched ingest (item 8).
+  reference's own stacks.
 """
 
 from __future__ import annotations
@@ -36,18 +33,16 @@ import yoda_tpu_torch.standalone as port_standalone
 
 REF = "test_slo.py"
 SKIP = {
-    "TestEngineWiredIntoStack::test_queue_pending_feeds_tenant_stats":
-        "tenant fairness (item 8)",
     "TestSloHttpAndCli::test_debug_slo_endpoint_and_cli": "CLI (item 10)",
     "TestSloHttpAndCli::test_cli_slo_unreachable": "CLI (item 10)",
     "TestTraceReplayDeterminism::test_identical_seeds_identical_sli_output":
-        "tracegen replay (items 8, 12)",
+        "tracegen replay (item 12)",
     "TestTraceReplayDeterminism::test_different_seeds_differ":
-        "tracegen replay (items 8, 12)",
+        "tracegen replay (item 12)",
     "TestTraceReplayDeterminism::test_generator_is_deterministic_and_lazy":
         "tracegen (item 12)",
     "TestTraceReplayDeterminism::test_replay_drives_batched_ingest":
-        "tracegen replay (items 8, 12)",
+        "tracegen replay (item 12)",
 }
 
 

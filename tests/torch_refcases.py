@@ -12,9 +12,11 @@ are the reference's own, unchanged, so a case passing on both packages
 holds the port to exactly what the reference is held to.
 
 ``cases(path, skip)`` lists ``(case id, class, method)`` triples for
-``pytest.mark.parametrize``; ``run_case(pkg, path, case, request,
-monkeypatch)`` runs one, resolving the method's fixtures through
-``request``.
+``pytest.mark.parametrize``, a case the reference marks ``slow`` (on its
+class or on itself) wrapped in ``pytest.param`` with the same mark, so it
+stays out of the tier-1 run as it does in the reference;
+``run_case(pkg, path, case, request, monkeypatch)`` runs one, resolving
+the method's fixtures through ``request``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ import re
 import types
 from pathlib import Path
 
+import pytest
+
 PACKAGES = ("yoda_tpu", "yoda_tpu_torch")
 TESTS = Path(__file__).resolve().parent
 
@@ -34,21 +38,32 @@ TESTS = Path(__file__).resolve().parent
 _KEEP = ("yoda_tpu.testing",)
 
 
-def cases(name: str, skip: "dict[str, str]") -> "list[tuple[str, str, str]]":
+def _slow(node: "ast.ClassDef | ast.FunctionDef") -> bool:
+    """Whether the reference decorates ``node`` with ``pytest.mark.slow``."""
+    return any(ast.unparse(d) == "pytest.mark.slow" for d in node.decorator_list)
+
+
+def cases(name: str, skip: "dict[str, str]") -> list:
     """Every test case of ``tests/<name>`` as (id, class, method), minus
-    ``skip`` (id -> the unported part it needs)."""
+    ``skip`` (id -> the unported part it needs); a case the reference
+    marks slow comes as a ``pytest.param`` carrying that mark."""
     tree = ast.parse((TESTS / name).read_text())
     out = []
     for node in tree.body:
         if isinstance(node, ast.ClassDef) and node.name.startswith("Test"):
             for item in node.body:
                 if isinstance(item, ast.FunctionDef) and item.name.startswith("test"):
-                    out.append((f"{node.name}::{item.name}", node.name, item.name))
+                    out.append(((f"{node.name}::{item.name}", node.name, item.name),
+                                _slow(node) or _slow(item)))
         elif isinstance(node, ast.FunctionDef) and node.name.startswith("test"):
-            out.append((node.name, "", node.name))
-    unknown = set(skip) - {c[0] for c in out}
+            out.append(((node.name, "", node.name), _slow(node)))
+    unknown = set(skip) - {c[0] for c, _ in out}
     assert not unknown, f"skip names no case of {name}: {sorted(unknown)}"
-    return [c for c in out if c[0] not in skip]
+    return [
+        pytest.param(c, marks=pytest.mark.slow) if slow else c
+        for c, slow in out
+        if c[0] not in skip
+    ]
 
 
 def _port_source(src: str) -> str:

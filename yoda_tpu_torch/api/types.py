@@ -25,9 +25,11 @@ freshness, see SURVEY.md §5 failure-detection row).
 
 Counterpart of ``yoda_tpu/api/types.py``, ported as far as the singleton
 path reaches it, with the PersistentVolumeClaim / PersistentVolume /
-PodDisruptionBudget / Namespace models. Left out until a later slice: the
-API-server wire format (``to_obj`` / ``from_obj`` on every type and the
-container-spec parsers behind them) and ``make_node``.
+PodDisruptionBudget / Namespace models and ``make_node`` (the metrics
+CR's convenience constructor the tenancy and ingest tests build fleets
+with). Left out until a later slice: the API-server wire format
+(``to_obj`` / ``from_obj`` on every type and the container-spec parsers
+behind them).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from __future__ import annotations
 import itertools
 import time
 from dataclasses import dataclass, field
-from typing import Any, Mapping, Sequence
+from typing import Any, Iterable, Mapping, Sequence
 
 HEALTHY = "Healthy"
 
@@ -620,3 +622,47 @@ class PodSpec:
     @property
     def key(self) -> str:
         return f"{self.namespace}/{self.name}"
+
+
+def make_node(
+    name: str,
+    *,
+    chips: int = 4,
+    hbm_per_chip: int = 16 << 30,
+    hbm_free_per_chip: int | None = None,
+    generation: str = "v5e",
+    clock_mhz: int = 940,
+    hbm_bandwidth_gbps: int = 819,
+    tflops_bf16: int = 197,
+    power_w: int = 170,
+    slice_id: str = "",
+    topology_coords: tuple[int, int, int] = (0, 0, 0),
+    accel_type: str = "",
+    unhealthy: Iterable[int] = (),
+    now: float | None = None,
+) -> TpuNodeMetrics:
+    """Convenience constructor used by tests: one host's metrics CR with
+    ``chips`` identical chips (``unhealthy`` indexes marked Unhealthy)."""
+    free = hbm_per_chip if hbm_free_per_chip is None else hbm_free_per_chip
+    bad = set(unhealthy)
+    return TpuNodeMetrics(
+        name=name,
+        generation=generation,
+        accel_type=accel_type or f"{generation}-{chips}",
+        slice_id=slice_id,
+        topology_coords=topology_coords,
+        last_updated_unix=time.time() if now is None else now,
+        chips=[
+            TpuChip(
+                index=i,
+                health=("Unhealthy" if i in bad else HEALTHY),
+                hbm_free=free,
+                hbm_total=hbm_per_chip,
+                clock_mhz=clock_mhz,
+                hbm_bandwidth_gbps=hbm_bandwidth_gbps,
+                tflops_bf16=tflops_bf16,
+                power_w=power_w,
+            )
+            for i in range(chips)
+        ],
+    )

@@ -12,8 +12,9 @@ singleton, gang, preemption, affinity and volume paths reach it: eviction
 keys in ``eviction_blocked``) and the nomination status patch
 (``set_nominated_node``), and the watch-drop injection the reconciler's
 tests use (``suppress_kinds``), and the node-death helpers the health
-monitor's tests drive (``set_node_ready``, ``kill_node``, ``delete_node``).
-Left out until a later slice: Events and the staleness probe.
+monitor's tests drive (``set_node_ready``, ``kill_node``, ``delete_node``),
+and the Events the recorder writes (``write_event`` / ``list_events``).
+Left out until a later slice: the staleness probe.
 """
 
 from __future__ import annotations
@@ -33,7 +34,10 @@ from yoda_tpu_torch.api.types import (
     TpuNodeMetrics,
 )
 
-EventType = Literal["added", "modified", "deleted"]
+# "synced" is a per-kind liveness sentinel a real API server's client emits
+# once a kind's LIST succeeded; this store never emits one, but batched
+# ingest passes such sentinels through as barriers.
+EventType = Literal["added", "modified", "deleted", "synced"]
 
 
 @dataclass(frozen=True)
@@ -55,6 +59,7 @@ class FakeCluster:
         self._namespaces: dict[str, K8sNamespace] = {}
         self._pvcs: dict[str, K8sPvc] = {}  # "namespace/name" -> claim
         self._pvs: dict[str, K8sPv] = {}    # name -> persistent volume
+        self._events: dict[str, dict] = {}  # namespace/name -> Event object
         self._pdbs: dict[str, K8sPdb] = {}  # "namespace/name" -> budget
         # Evictions consumed against a PUBLISHED status.disruptionsAllowed
         # since the budget object last changed: the real API decrements the
@@ -238,6 +243,18 @@ class FakeCluster:
     def list_tpu_metrics(self) -> list[TpuNodeMetrics]:
         with self._lock:
             return list(self._tpus.values())
+
+    # --- Events (written by cluster.events.EventRecorder) ---
+
+    def write_event(self, obj: dict, update: bool = False) -> None:
+        md = obj.get("metadata", {})
+        key = f"{md.get('namespace', 'default')}/{md['name']}"
+        with self._lock:
+            self._events[key] = obj
+
+    def list_events(self) -> list[dict]:
+        with self._lock:
+            return list(self._events.values())
 
     # --- Namespaces, volumes and disruption budgets ---
 

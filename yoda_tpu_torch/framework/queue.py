@@ -1,27 +1,34 @@
-"""Scheduling queue: active heap ordered by the QueueSort plugin, with
-backoff for unschedulable pods.
+"""Scheduling queue: active heaps ordered by the QueueSort plugin, with
+backoff for unschedulable pods and per-tenant DRF fair queuing.
 
 The reference supplies only the ordering function (``Less``, reference
 pkg/yoda/sort/sort.go:8-18) and inherits the queue machinery (active /
 backoff / unschedulable pools, event-driven re-activation) from upstream;
-this module is the from-scratch equivalent of that machinery.
+this module is the from-scratch equivalent of that machinery, grown a
+tenant model: the active pool is sharded per tenant
+(``framework/tenancy.tenant_of`` — namespace, overridable via the
+``tpu/tenant`` label), and every pop draws from the LOWEST
+dominant-resource-share tenant first (DRF over chips/HBM,
+``TenantLedger.dominant_share``), so a flooding tenant's backlog cannot
+starve anyone. Per-tenant quota admission parks over-quota entries in the
+unresolvable pool with a why-pending verdict; they retire when capacity
+frees (the freeing event's ``move_all_to_active`` re-admits them through a
+fresh quota check). With no ``tenant_of`` hook (fairness off, the
+default) everything lives under one tenant key and behavior is
+bit-identical to the single-queue implementation.
 
 Counterpart of ``yoda_tpu/framework/queue.py``, ported as far as the
-singleton, gang and background paths reach it: one tenant-blind active
-heap, the backoff heap, the unresolvable pool, the gang-arrival promotion,
-the gang gather (``pop_matching``, ``restore``), ``pending_gangs``,
-``take_gang`` / ``readd`` (the rebalancer's transactional move), ``find``
-(the drift reconciler), the activity signal the scheduler's drain waits
-on, and the hooks the overload ladder and the SLO engine read, in their
-tenant-blind form: ``shed_fn`` / ``on_shed`` (SHED parks non-prod draws
-at pop time), ``quota_fn`` / ``on_quota_park`` (BROWNOUT's admission cap,
-probed once per gather as in the reference), ``overload_depth``,
-``tenant_wait_stats`` and the ``shed_parks`` / ``quota_parks`` counters.
-Everything bills to the one tenant ``""``, which is the reference's queue
-with no ``tenant_of`` hook; a queue built without the hooks pops in
-exactly the order it did before them. Left out until a later slice:
-per-tenant DRF fair queuing (``tenant_of`` / ``share_fn`` and the
-per-tenant heaps), ``all_entries`` (shard reroute) and ``close``.
+singleton, gang, background and tenancy paths reach it: the per-tenant
+active heaps with ``tenant_of`` / ``share_fn``, the backoff heap, the
+unresolvable pool, the gang-arrival promotion, the tenant-ordered gang
+gather (``pop_matching``, one quota verdict per tenant per pass,
+``restore``), ``pending_gangs``, ``take_gang`` / ``readd`` (the
+rebalancer's transactional move), ``find`` (the drift reconciler), the
+activity signal the scheduler's drain waits on, and the hooks the overload
+ladder and the SLO engine read: ``shed_fn`` / ``on_shed``, ``quota_fn`` /
+``on_quota_park``, ``overload_depth``, ``tenant_wait_stats`` and the
+``shed_parks`` / ``quota_parks`` counters. Left out until a later slice:
+``all_entries`` (shard reroute) and ``close`` (the process's shutdown).
 """
 
 from __future__ import annotations
@@ -87,6 +94,8 @@ class SchedulingQueue:
         *,
         clock: Callable[[], float] = time.monotonic,
         immediate_retry_attempts: int = IMMEDIATE_RETRY_ATTEMPTS,
+        tenant_of: "Callable[[PodSpec], str] | None" = None,
+        share_fn: "Callable[[str], float] | None" = None,
         quota_fn: "Callable[[str, PodSpec], str | None] | None" = None,
         on_quota_park: "Callable[[QueuedPodInfo, str], None] | None" = None,
         shed_fn: "Callable[[PodSpec], str | None] | None" = None,
@@ -99,13 +108,22 @@ class SchedulingQueue:
         self._clock = clock
         # 0 = strict upstream semantics (every event move respects backoff).
         self.immediate_retry_attempts = immediate_retry_attempts
-        # quota_fn(tenant, pod): why-pending verdict when admitting the pod
-        # would exceed the tenant's cap (None = admit) — the overload
-        # ladder's BROWNOUT token bucket. Verdicted entries park in the
-        # unresolvable pool and re-enter through move_all_to_active.
-        # on_quota_park(qpi, why): observability callback (counter +
-        # pending index), fired under the queue lock — it must not
-        # re-enter the queue.
+        # Tenant fair queuing (off when tenant_of is None — everything
+        # shares the "" tenant and ordering is the classic single heap):
+        # - tenant_of(pod): which tenant an entry bills to;
+        # - share_fn(tenant): dominant resource share in [0,1] — pops
+        #   draw from the LOWEST share first (DRF); missing/raising hook
+        #   reads as share 0 (FIFO among tenants);
+        # - quota_fn(tenant, pod): why-pending verdict when admitting the
+        #   pod would exceed the tenant's quota or the overload ladder's
+        #   BROWNOUT token bucket (None = admit). Verdicted entries park in
+        #   the unresolvable pool and re-enter through move_all_to_active
+        #   when capacity frees;
+        # - on_quota_park(qpi, why): observability callback (counter +
+        #   pending index). Fired under the queue lock — must not
+        #   re-enter the queue.
+        self._tenant_of = tenant_of
+        self._share_fn = share_fn
         self._quota_fn = quota_fn
         self.on_quota_park = on_quota_park
         self.quota_parks = 0  # total entries quota-parked (metrics)
@@ -121,7 +139,9 @@ class SchedulingQueue:
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         self._seq = itertools.count()
-        self._active: list[_HeapItem] = []
+        # tenant -> active heap. Fairness off: single "" key, identical
+        # ordering to the pre-tenant single heap.
+        self._active: dict[str, list[_HeapItem]] = {}
         self._backoff: list[tuple[float, int, QueuedPodInfo]] = []  # (ready_at, seq, qpi)
         self._unschedulable: dict[str, QueuedPodInfo] = {}  # pod key -> qpi
         # Optional listener fired (outside the queue lock) whenever work
@@ -130,7 +150,39 @@ class SchedulingQueue:
         # of polling.
         self.on_activity: Callable[[], None] | None = None
 
-    # --- overload hooks (tenant-blind: every entry bills to "") ---
+    # --- tenant helpers ---
+
+    def _tenant(self, pod: PodSpec) -> str:
+        if self._tenant_of is None:
+            return ""
+        try:
+            return self._tenant_of(pod)
+        except Exception:  # noqa: BLE001 — a bad hook must not wedge the queue
+            return ""
+
+    def _share(self, tenant: str) -> float:
+        if self._share_fn is None:
+            return 0.0
+        try:
+            return float(self._share_fn(tenant))
+        except Exception:  # noqa: BLE001
+            return 0.0
+
+    def _tenant_order(self) -> "list[str]":
+        """Non-empty tenants, lowest dominant share first (name tiebreak
+        for determinism). One entry when fairness is off."""
+        tenants = [t for t, h in self._active.items() if h]
+        if self._tenant_of is None or len(tenants) <= 1:
+            return tenants
+        return sorted(tenants, key=lambda t: (self._share(t), t))
+
+    def _active_count(self) -> int:
+        return sum(len(h) for h in self._active.values())
+
+    def _active_entries(self) -> "list[QueuedPodInfo]":
+        return [item.qpi for h in self._active.values() for item in h]
+
+    # --- overload hooks ---
 
     def _shed(self, pod: PodSpec) -> "str | None":
         if self._shed_fn is None:
@@ -167,21 +219,27 @@ class SchedulingQueue:
                 pass
 
     def _pop_active_locked(self) -> "QueuedPodInfo | None":
-        """Next admissible entry in (priority, FIFO) order, shed- and
-        quota-parking heads along the way. Lock held."""
-        while self._active:
-            item = heapq.heappop(self._active)
+        """Next admissible entry in (tenant share, priority, FIFO) order,
+        shed- and quota-parking heads along the way. Lock held."""
+        while True:
+            order = self._tenant_order()
+            if not order:
+                return None
+            tenant = order[0]
+            heap = self._active[tenant]
+            item = heapq.heappop(heap)
+            if not heap:
+                del self._active[tenant]
             shed_why = self._shed(item.qpi.pod)
             if shed_why is not None:
                 self._shed_park_locked(item.qpi, shed_why)
                 continue
             if self._quota_fn is not None:
-                why = self._quota_fn("", item.qpi.pod)
+                why = self._quota_fn(tenant, item.qpi.pod)
                 if why is not None:
                     self._quota_park_locked(item.qpi, why)
                     continue
             return item.qpi
-        return None
 
     def overload_depth(self) -> int:
         """Entries actively contending for the serve path (active +
@@ -190,46 +248,48 @@ class SchedulingQueue:
         quota-capped work is already parked by the ladder itself, and
         counting it would wedge the step-down that requeues it."""
         with self._lock:
-            return len(self._active) + len(self._backoff)
+            return self._active_count() + len(self._backoff)
 
     def tenant_wait_stats(self) -> "dict[str, tuple[int, float | None]]":
         """tenant -> (queued entries across all three pools, oldest
         ``added_unix`` on the queue clock, None when unknown) — the
-        pending/starvation side of the SLO engine's SLIs. Tenant-blind:
-        everything reports under ``""``. One locked sweep, on evaluation
-        demand only."""
+        pending/starvation side of the SLO engine's SLIs. With fairness
+        off everything reports under the single ``""`` tenant. One locked
+        sweep, on evaluation demand only."""
         with self._lock:
-            n, oldest = 0, None
+            out: dict[str, tuple[int, float | None]] = {}
             entries = (
-                [item.qpi for item in self._active]
+                self._active_entries()
                 + [qpi for _, _, qpi in self._backoff]
                 + list(self._unschedulable.values())
             )
             for qpi in entries:
-                n += 1
+                tenant = self._tenant(qpi.pod)
+                n, oldest = out.get(tenant, (0, None))
                 t = qpi.added_unix if qpi.added_unix > 0.0 else None
                 if t is not None and (oldest is None or t < oldest):
                     oldest = t
-            return {"": (n, oldest)} if n else {}
+                out[tenant] = (n + 1, oldest)
+            return out
 
     def __len__(self) -> int:
         with self._lock:
             return (
-                len(self._active) + len(self._backoff) + len(self._unschedulable)
+                self._active_count() + len(self._backoff) + len(self._unschedulable)
             )
 
     def depths(self) -> tuple[int, int, int]:
         """(active, backoff, parked-unresolvable) pool sizes."""
         with self._lock:
             return (
-                len(self._active), len(self._backoff), len(self._unschedulable)
+                self._active_count(), len(self._backoff), len(self._unschedulable)
             )
 
     def pending_retry_count(self) -> int:
         """Pods that will re-enter the active queue without an external
         event (active + backoff); excludes the parked-unresolvable pool."""
         with self._lock:
-            return len(self._active) + len(self._backoff)
+            return self._active_count() + len(self._backoff)
 
     def has_parked(self) -> bool:
         """Anything waiting on an event or a timer (backoff OR
@@ -279,9 +339,8 @@ class SchedulingQueue:
     def _push_active(self, qpi: QueuedPodInfo) -> None:
         if qpi.added_unix == 0.0:
             qpi.added_unix = self._clock()
-        heapq.heappush(
-            self._active, _HeapItem(qpi, next(self._seq), self._less)
-        )
+        heap = self._active.setdefault(self._tenant(qpi.pod), [])
+        heapq.heappush(heap, _HeapItem(qpi, next(self._seq), self._less))
 
     def _flush_backoff_locked(self) -> None:
         now = self._clock()
@@ -290,8 +349,9 @@ class SchedulingQueue:
             self._push_active(qpi)
 
     def pop(self, timeout: float | None = None) -> QueuedPodInfo | None:
-        """Pop the highest-priority active pod; blocks up to ``timeout``
-        (forever if None) until one is available."""
+        """Pop the highest-priority active pod of the lowest-share tenant;
+        blocks up to ``timeout`` (forever if None) until one is
+        available."""
         deadline = None if timeout is None else self._clock() + timeout
         with self._cond:
             while True:
@@ -318,12 +378,15 @@ class SchedulingQueue:
         include_backoff: bool = False,
     ) -> list[QueuedPodInfo]:
         """Pop every ACTIVE entry whose pod satisfies ``pred``, in queue
-        order (priority, FIFO) — the gang-aware gather next to the
-        scheduler's ``_pop_burst``: when a popped pod is a gang member,
-        its co-queued siblings are pulled out so the whole gang runs
-        back-to-back in one fused pass instead of one cycle per loop turn.
-        Non-blocking; expired backoff entries are flushed first so a
-        sibling whose retry timer just lapsed is gathered too.
+        order — (tenant share, priority, FIFO): tenants are visited lowest
+        dominant share first, so the gang gather (and therefore the joint
+        pass's placement precedence) inherits DRF fairness. This is the
+        gang-aware gather next to the scheduler's ``_pop_burst``: when a
+        popped pod is a gang member, its co-queued siblings are pulled out
+        so the whole gang runs back-to-back in one fused pass instead of
+        one cycle per loop turn. Non-blocking; expired backoff entries are
+        flushed first so a sibling whose retry timer just lapsed is
+        gathered too.
 
         ``include_backoff`` additionally pulls matching entries whose
         backoff timer is STILL TICKING (appended after the active matches,
@@ -331,41 +394,49 @@ class SchedulingQueue:
         bounced into timed backoff one retry earlier, instead of leaving
         them to the gang-arrival signal or the backoff ladder.
 
-        With the overload hooks wired, a matching entry whose shed verdict
-        fires is shed-parked instead (per item), and when the quota probe
-        (one verdict per pass, on the first matching entry: usage only
-        moves at bind time) refuses, every matching entry is quota-parked
-        — a gang gathers whole or parks whole."""
+        A matching entry whose shed verdict fires is shed-parked instead
+        (per item: the verdict is tier-dependent), and over-quota tenants'
+        matching entries are quota-parked, never gathered — usage only
+        moves at bind time, so every member of a gang sees one consistent
+        verdict within this single locked pass (one probe per tenant: the
+        whole gang gathers or the whole gang parks)."""
         with self._cond:
             self._flush_backoff_locked()
-            quota_why = None
-            if self._quota_fn is not None:
-                probe = next(
-                    (it.qpi.pod for it in self._active if pred(it.qpi.pod)),
-                    None,
-                )
-                if probe is not None:
-                    quota_why = self._quota_fn("", probe)
-            taken: list[_HeapItem] = []
-            keep: list[_HeapItem] = []
-            for item in self._active:
-                if not pred(item.qpi.pod):
-                    keep.append(item)
+            out: list[QueuedPodInfo] = []
+            for tenant in self._tenant_order():
+                heap = self._active.get(tenant)
+                if not heap:
                     continue
-                shed_why = self._shed(item.qpi.pod)
-                if shed_why is not None:
-                    self._shed_park_locked(item.qpi, shed_why)
-                elif quota_why is not None:
-                    self._quota_park_locked(item.qpi, quota_why)
-                elif limit is None or len(taken) < limit:
-                    taken.append(item)
-                else:
-                    keep.append(item)
-            if len(keep) != len(self._active):
-                heapq.heapify(keep)
-                self._active = keep
-            taken.sort()  # heap-internal order -> queue order
-            out = [item.qpi for item in taken]
+                quota_why = None
+                if self._quota_fn is not None:
+                    probe = next(
+                        (it.qpi.pod for it in heap if pred(it.qpi.pod)), None
+                    )
+                    if probe is not None:
+                        quota_why = self._quota_fn(tenant, probe)
+                t_taken: list[_HeapItem] = []
+                keep: list[_HeapItem] = []
+                for item in heap:
+                    if not pred(item.qpi.pod):
+                        keep.append(item)
+                        continue
+                    shed_why = self._shed(item.qpi.pod)
+                    if shed_why is not None:
+                        self._shed_park_locked(item.qpi, shed_why)
+                    elif quota_why is not None:
+                        self._quota_park_locked(item.qpi, quota_why)
+                    elif limit is None or len(out) + len(t_taken) < limit:
+                        t_taken.append(item)
+                    else:
+                        keep.append(item)
+                if len(keep) != len(heap):
+                    if keep:
+                        heapq.heapify(keep)
+                        self._active[tenant] = keep
+                    else:
+                        del self._active[tenant]
+                t_taken.sort()  # heap-internal order -> queue order
+                out.extend(item.qpi for item in t_taken)
             if include_backoff:
                 still: list[tuple[float, int, QueuedPodInfo]] = []
                 moved = False
@@ -395,7 +466,7 @@ class SchedulingQueue:
         with self._lock:
             out: dict[str, tuple[int, int]] = {}
             entries = (
-                [item.qpi for item in self._active]
+                self._active_entries()
                 + [qpi for _, _, qpi in self._backoff]
                 + list(self._unschedulable.values())
             )
@@ -412,9 +483,9 @@ class SchedulingQueue:
         object this way when it must replay a dropped deletion for a pod
         that exists nowhere else anymore."""
         with self._lock:
-            for item in self._active:
-                if item.qpi.pod.uid == uid:
-                    return item.qpi.pod
+            for qpi in self._active_entries():
+                if qpi.pod.uid == uid:
+                    return qpi.pod
             for _, _, qpi in self._backoff:
                 if qpi.pod.uid == uid:
                     return qpi.pod
@@ -432,15 +503,19 @@ class SchedulingQueue:
         gang. Give the entries back with :meth:`readd`."""
         taken: list[QueuedPodInfo] = []
         with self._cond:
-            kept: list[_HeapItem] = []
-            for item in self._active:
-                if gang_name_of(item.qpi.pod.labels) == gang:
-                    taken.append(item.qpi)
-                else:
-                    kept.append(item)
-            if len(kept) != len(self._active):
-                heapq.heapify(kept)
-                self._active = kept
+            for tenant, heap in list(self._active.items()):
+                kept: list[_HeapItem] = []
+                for item in heap:
+                    if gang_name_of(item.qpi.pod.labels) == gang:
+                        taken.append(item.qpi)
+                    else:
+                        kept.append(item)
+                if len(kept) != len(heap):
+                    if kept:
+                        heapq.heapify(kept)
+                        self._active[tenant] = kept
+                    else:
+                        del self._active[tenant]
             keep_backoff: list[tuple[float, int, QueuedPodInfo]] = []
             for entry in self._backoff:
                 if gang_name_of(entry[2].pod.labels) == gang:
@@ -484,11 +559,15 @@ class SchedulingQueue:
         removed."""
         removed = False
         with self._cond:
-            kept = [it for it in self._active if it.qpi.pod.uid != uid]
-            if len(kept) != len(self._active):
-                heapq.heapify(kept)
-                self._active = kept
-                removed = True
+            for tenant, heap in list(self._active.items()):
+                kept = [it for it in heap if it.qpi.pod.uid != uid]
+                if len(kept) != len(heap):
+                    removed = True
+                    if kept:
+                        heapq.heapify(kept)
+                        self._active[tenant] = kept
+                    else:
+                        del self._active[tenant]
             backoff = [e for e in self._backoff if e[2].pod.uid != uid]
             if len(backoff) != len(self._backoff):
                 heapq.heapify(backoff)

@@ -27,17 +27,18 @@ renders the Prometheus text exposition format for the /metrics endpoint
 
 Counterpart of ``yoda_tpu/observability.py``, whole: every family of
 ``SchedulingMetrics`` registers with the reference's name, help string
-and type, so one scrape schema holds across both packages. Families whose
-source the port does not have yet register all the same and read 0:
-``yoda_ingest_events_total`` and ``yoda_ingest_batch_size`` (batched
-ingest), ``yoda_shard_commit_rollbacks_total``, the
-``yoda_commit_rpc_*`` families, ``yoda_commit_term`` and
-``yoda_standby_lag_frames`` (shards, the commit RPC, standby failover),
-``yoda_cluster_state``, ``yoda_cluster_transitions_total`` and
-``yoda_spillover_gangs_total`` (federation), ``yoda_overlap_cycles_total``
-(the bind pipeline) and ``yoda_events_dropped_total`` (no
-``EventRecorder`` yet). ``yoda_tenant_quota_parks_total`` counts the
-overload ladder's BROWNOUT parks only: there are no per-tenant quotas yet.
+and type, so one scrape schema holds across both packages.
+``build_stack`` feeds ``yoda_ingest_events_total`` and
+``yoda_ingest_batch_size`` from its ``EventBatcher`` (batched ingest on),
+``yoda_events_dropped_total`` from the ``EventRecorder``'s backlog sheds,
+and ``yoda_tenant_quota_parks_total`` from the overload ladder's BROWNOUT
+parks and the per-tenant quotas alike. Families whose source the port
+does not have yet register all the same and read 0:
+``yoda_shard_commit_rollbacks_total``, the ``yoda_commit_rpc_*``
+families, ``yoda_commit_term`` and ``yoda_standby_lag_frames`` (shards,
+the commit RPC, standby failover), ``yoda_cluster_state``,
+``yoda_cluster_transitions_total`` and ``yoda_spillover_gangs_total``
+(federation) and ``yoda_overlap_cycles_total`` (the bind pipeline).
 """
 
 from __future__ import annotations

@@ -43,6 +43,7 @@ that launched), that owner's, both bumped where the kernel launches.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -84,6 +85,11 @@ joint_fit_launches = 0
 _count_lock = threading.Lock()
 
 _libs: "dict[Path, ctypes.CDLL]" = {}
+# One build guard per source: the first caller of a source not loaded yet
+# claims its build and runs nvcc OUTSIDE _lib_lock; later callers of the
+# same source wait on the claim's future, and a launch of a source already
+# loaded never waits on another source's cold build.
+_builds: "dict[Path, concurrent.futures.Future]" = {}
 _lib_lock = threading.Lock()
 
 
@@ -169,11 +175,27 @@ def _declare(lib: ctypes.CDLL, source: Path) -> None:
 def _load(source: Path = SOURCE) -> ctypes.CDLL:
     with _lib_lock:
         lib = _libs.get(source)
-        if lib is None:
-            lib = ctypes.CDLL(str(build(source)))
-            _declare(lib, source)
-            _libs[source] = lib
-        return lib
+        if lib is not None:
+            return lib
+        claim = _builds.get(source)
+        owner = claim is None
+        if owner:
+            claim = _builds[source] = concurrent.futures.Future()
+    if not owner:
+        return claim.result()
+    try:
+        lib = ctypes.CDLL(str(build(source)))
+        _declare(lib, source)
+    except BaseException as e:
+        with _lib_lock:
+            _builds.pop(source, None)
+        claim.set_exception(e)
+        raise
+    with _lib_lock:
+        _libs[source] = lib
+        _builds.pop(source, None)
+    claim.set_result(lib)
+    return lib
 
 
 def _raise_for(lib: ctypes.CDLL, rc: int, what: str, name: str = "fleet_eval") -> None:

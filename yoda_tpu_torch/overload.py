@@ -45,11 +45,12 @@ only the monitor's own state. Signal collection (:meth:`evaluate`)
 runs on the monitor's background thread and takes component locks one
 at a time, never while holding its own.
 
-Counterpart of ``yoda_tpu/overload.py``, whole. What the port lacks
-around it: no batched ingest, so no ingestor registers and the ingest
-signal reads 0; a tenant-blind queue, so BROWNOUT's token bucket is the
-one tenant ``""`` (the reference's queue with fairness off); no shard
-set, so ``shard_count`` reports as requires-drain (no ``resize_fn``);
+Counterpart of ``yoda_tpu/overload.py``, whole. ``build_stack``
+registers its ``EventBatcher`` (batched ingest on) as an ingestor, so the
+``ingest`` signal reads the batchers' coalesced ``backlog()`` against
+``ingest_high``; BROWNOUT's token bucket is per tenant when the queue is
+(``tenant_fairness``), else the one tenant ``""``. What the port lacks
+around it: no shard set, so ``shard_count`` reports as requires-drain (no ``resize_fn``);
 no CLI, so nothing here installs SIGHUP or a ConfigMap watch — a caller
 runs :meth:`ConfigReloader.reload` and starts :meth:`OverloadMonitor.
 run_forever` on a thread of its own.

@@ -181,12 +181,13 @@ def _host_admission(
     if key is not None:
         cache = getattr(snapshot, "_admission_cache", None)
         if cache is None:
+            # yodalint: ok snapshot-immutability memoization keyed on snapshot identity, not a fleet-state mutation; rebuilt with the snapshot on every watch event
             cache = snapshot._admission_cache = {}
         hit = cache.get(key)
         if hit is not None and hit[0] is static:
             return hit[1]
-    # The port has no node-health fence yet: a snapshot without the
-    # reference's ``fenced`` set fences nothing.
+    # A snapshot without a ``fenced`` set (one built outside the informer)
+    # fences nothing.
     fenced = getattr(snapshot, "fenced", None)
     vec = np.array(
         [

@@ -43,12 +43,13 @@ domain, with the members steered into domains that hold the whole
 remainder), and the rebalancer surface: elastic resize
 (``set_effective_size`` / ``effective_size``: admission and the Permit
 barrier count to the effective size, and a surplus member parks until a
-resize-up), ``install_plan`` and ``bound_members``. Left out until a later
-slice: shard commits (``collect_commits``), the bind
-pipeline's parallel release and completion barrier (``collect_rollbacks``:
-every bind here runs inline, so ``on_bind_failed`` hands the landed binds
-back directly) and the Event recorder's rollback hook. The tracer and
-the why-pending index are here (``tracer`` / ``pending``, wired by
+resize-up), ``install_plan`` and ``bound_members``, and the Event
+recorder's rollback hook (``on_rollback``, called on the triggering member
+and on every member the rollback touches). Left out until a later slice:
+shard commits (``collect_commits``), the bind pipeline's parallel release
+and completion barrier (``collect_rollbacks``: every bind here runs
+inline, so ``on_bind_failed`` hands the landed binds back directly). The
+tracer and the why-pending index are here (``tracer`` / ``pending``, wired by
 ``build_stack``): gang-release and gang-rollback spans on the gang's
 trace, and a topology park's verdict with a walk over the fleet naming
 each host's reason — fenced, no metrics, cannot take a member, or
@@ -148,9 +149,13 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
         *,
         timeout_s: float = 120.0,
         reserved_fn: Callable[[str], int] | None = None,
+        on_rollback: Callable[[PodSpec, str, str], None] | None = None,
     ) -> None:
         self.timeout_s = timeout_s
         self.reserved_fn = reserved_fn
+        # (member pod, gang name, why) — build_stack wires the Event
+        # recorder's GangRollback reason here.
+        self.on_rollback = on_rollback
         # Transactional bind rollbacks initiated (a member's bind failed
         # after the binder's retries and the release was rolled back).
         self.bind_rollbacks = 0
@@ -641,6 +646,7 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
                 return
             gs.failing = True
             targets = list(gs.waiting)
+            had_bound = bool(gs.bound)
         why = f"member {wp.pod.key} was rejected: {status.message}"
         if targets:
             log.warning(
@@ -648,9 +654,16 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
                 "member(s)",
                 gs.spec.name, wp.pod.key, status.message, len(targets),
             )
+        if self.on_rollback is not None and (targets or had_bound):
+            # The gang-level reason, on the TRIGGERING member too — its own
+            # FailedScheduling row only says what happened to it, not that
+            # it took the gang down.
+            self.on_rollback(wp.pod, gs.spec.name, why)
         for key in targets:
             w = framework.get_waiting_pod(key)
             if w is not None:
+                if self.on_rollback is not None:
+                    self.on_rollback(w.pod, gs.spec.name, why)
                 w.reject(f"gang {why}")
         with self._lock:
             if not gs.waiting:
@@ -728,9 +741,15 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
                     "cascaded": len(targets),
                 },
             )
+        if self.on_rollback is not None:
+            self.on_rollback(wp.pod, gang_name, why)
+            for spec, _host, _why in rollbacks:
+                self.on_rollback(spec, gang_name, why)
         for key in targets:
             w = framework.get_waiting_pod(key)
             if w is not None:
+                if self.on_rollback is not None:
+                    self.on_rollback(w.pod, gang_name, why)
                 w.reject(f"gang {why}")
         return rollbacks
 

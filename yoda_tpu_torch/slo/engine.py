@@ -28,11 +28,11 @@ config's ``slo_targets`` knob) and ``SloEngine``.
 The engine rides :class:`~yoda_tpu_torch.observability.SchedulingMetrics`
 like the tracer and the why-pending index, and is served at
 ``GET /debug/slo`` and as the ``yoda_slo_*`` Prometheus series. Tenants
-come from ``framework.tenancy.tenant_of``; the port's queue is
-tenant-blind (per-tenant heaps and DRF are not ported yet), so its
-pending side reports everything under the ``""`` tenant, as the
-reference's queue does with fairness off. Left out: nothing of this
-module; the CLI's ``slo`` command waits for the CLI.
+come from ``framework.tenancy.tenant_of``; the pending side reads the
+queues' ``tenant_wait_stats``, which report per tenant with
+``tenant_fairness`` on and everything under the ``""`` tenant with it
+off. Left out: nothing of this module; the CLI's ``slo`` command waits
+for the CLI.
 
 Everything is stdlib-only; evaluation is on-demand (scrape / HTTP) and
 cached for ``cache_ttl_s`` on the engine clock so one scrape's eight

@@ -43,10 +43,23 @@ Every family the reference registers renders, the ones of parts this port
 lacks at 0. ``build_stack`` starts no thread: a caller runs the ladder's
 ``overload.run_forever(stop)`` and serves ``metrics_server.MetricsServer``.
 ``apply_reloadable`` re-applies the reloadable knobs to a running stack
-(the target of ``overload.ConfigReloader``). Left out until a later slice:
-the bind pipeline (the scheduler's own binds run inline), the Event
-recorder, batched ingest, tenancy, the durable journal, profiles, shards
-and federation.
+(the target of ``overload.ConfigReloader``).
+
+Scheduling Events are recorded as the reference records them
+(``Stack.events``, an ``EventRecorder`` over the cluster's
+``write_event``): ``Scheduled`` and ``FailedScheduling`` from the
+scheduler, ``Preempted`` from preemption's victims, ``GangRollback`` from
+the gang plugin. With ``tenant_fairness`` the watch-driven
+``TenantLedger`` (``Stack.tenants``) orders the queue's pops by dominant
+share and, with a quota, parks over-quota tenants' entries; with
+``ingest_batch_window_ms`` > 0 one ``EventBatcher`` (``Stack.ingestor``,
+its drain thread started) coalesces the watch stream and applies each
+batch through the same handler chain, the informer taking it under one
+lock with one epoch bump, so the device-resident fleet state applies each
+batch's changed rows once. ``Stack.close`` stops the batcher's drain
+thread and the recorder's worker. Left out until a later slice: the bind
+pipeline (the scheduler's own binds run inline), the durable journal,
+profiles, shards and federation.
 
 A knob of such a subsystem loads (``config.SchedulerConfig`` keeps every
 knob of the reference), but ``build_stack`` raises ``NotImplementedError``
@@ -66,15 +79,18 @@ import time
 from dataclasses import dataclass
 
 from yoda_tpu_torch.api.requests import gang_name_of
+from yoda_tpu_torch.cluster.events import EventRecorder
 from yoda_tpu_torch.cluster.fake import Event, FakeCluster
-from yoda_tpu_torch.cluster.retry import BackoffPolicy
 from yoda_tpu_torch.cluster.informer import InformerCache
+from yoda_tpu_torch.cluster.ingest import EventBatcher
+from yoda_tpu_torch.cluster.retry import BackoffPolicy
 from yoda_tpu_torch.config import SchedulerConfig
 from yoda_tpu_torch.framework.queue import SchedulingQueue
 from yoda_tpu_torch.framework.reconciler import Reconciler
 from yoda_tpu_torch.framework.runtime import BindExecutor, Framework
 from yoda_tpu_torch.framework.scheduler import Scheduler
 from yoda_tpu_torch.framework.speculation import SpeculativeCache
+from yoda_tpu_torch.framework.tenancy import TenantLedger, tenant_of
 from yoda_tpu_torch.nodehealth import NodeHealthMonitor
 from yoda_tpu_torch.observability import SchedulingMetrics
 from yoda_tpu_torch.overload import OverloadMonitor
@@ -143,6 +159,11 @@ PORTED_KNOBS = frozenset(
         "overload_step_down_hold_s",
         "overload_brownout_admit_per_s",
         "overload_shed_priority",
+        "tenant_fairness",
+        "tenant_quota_chips",
+        "tenant_quota_hbm_gib",
+        "ingest_batch_window_ms",
+        "ingest_batch_max",
     }
 )
 
@@ -246,6 +267,25 @@ class Stack:
     # Parts the config turns on that this port does not build
     # (not_built_parts); build_stack logs them once.
     not_built: tuple[str, ...] = ()
+    # Scheduling Events (None when the cluster has no write_event).
+    events: EventRecorder | None = None
+    # Batched watch ingest: the coalescing batcher between the cluster's
+    # watch delivery and the handler chain. None with
+    # ingest_batch_window_ms = 0 (per-event delivery, the default).
+    ingestor: EventBatcher | None = None
+    # Per-tenant DRF ledger (tenant_fairness); None with fairness off.
+    tenants: TenantLedger | None = None
+
+    def close(self) -> None:
+        """Stop the stack's threads: the batcher's drain thread (its
+        residue applied first) and the Event recorder's worker (its
+        backlog written first)."""
+        if self.ingestor is not None:
+            if self.metrics is not None:
+                self.metrics.overload.remove_ingestor(self.ingestor)
+            self.ingestor.stop()
+        if self.events is not None:
+            self.events.close()
 
 
 def build_stack(
@@ -278,6 +318,12 @@ def build_stack(
         )
     accountant = ChipAccountant(scheduler_name=config.scheduler_name)
     metrics = _metrics_from_config(config, clock)
+    # Scheduling Events (kubectl describe pod): the loop emits its own.
+    recorder = (
+        EventRecorder(cluster.write_event, on_drop=metrics.events_dropped.inc)
+        if hasattr(cluster, "write_event")
+        else None
+    )
     # The bounded executor the node health monitor and the rebalancer fan
     # their unbinds out on. Threads are made at the first submit.
     bind_executor = (
@@ -286,6 +332,7 @@ def build_stack(
     gang = GangPlugin(
         timeout_s=config.gang_permit_timeout_s,
         reserved_fn=accountant.chips_in_use,
+        on_rollback=recorder.gang_rollback if recorder else None,
     )
     plugins = default_plugins(
         weights=config.effective_weights(),
@@ -324,6 +371,11 @@ def build_stack(
                 metrics.preemptions.inc(n),
                 metrics.slo.observe_preemption(n),
             ),
+            on_victim=(
+                (lambda v: recorder.preempted(v.pod, v.node))
+                if recorder
+                else None
+            ),
         )
         plugins.append(preemption)
     if extra_plugins:
@@ -345,15 +397,36 @@ def build_stack(
     framework.tracer = metrics.tracer
     gang.tracer = metrics.tracer
     gang.pending = metrics.pending
+    # Per-tenant DRF fair queuing: the watch-driven TenantLedger feeds
+    # dominant-share ordering and quota admission into the queue. Off (the
+    # default) the queue runs tenant-blind, bit-identical to the
+    # pre-tenant behavior.
+    ledger = None
+    tenant_quota_fn = None
+    if config.tenant_fairness:
+        ledger = TenantLedger()
+        if config.tenant_quota_chips or config.tenant_quota_hbm_gib:
+            hbm_cap_mib = int(config.tenant_quota_hbm_gib * 1024)
+            tenant_quota_fn = lambda tenant, pod: ledger.quota_verdict(  # noqa: E731
+                tenant,
+                pod,
+                chips_cap=config.tenant_quota_chips,
+                hbm_cap_mib=hbm_cap_mib,
+            )
 
     # Overload brownout ladder (overload.py): the monitor rides the
-    # queue's verdict hooks — BROWNOUT caps admission through the quota
-    # path, SHED parks non-prod draws per item. At NOMINAL both hooks are
-    # one attribute compare.
+    # queue's verdict hooks — BROWNOUT caps per-tenant admission through
+    # the quota path, SHED parks non-prod draws per item. At NOMINAL both
+    # hooks are one attribute compare.
     overload = metrics.overload
 
     def quota_fn(tenant: str, pod) -> "str | None":
-        return overload.quota_verdict(tenant)
+        why = overload.quota_verdict(tenant)
+        if why is not None:
+            return why
+        if tenant_quota_fn is not None:
+            return tenant_quota_fn(tenant, pod)
+        return None
 
     def on_quota_park(qpi, why: str) -> None:
         # Fired under the queue lock: counter bump + why-pending verdict
@@ -397,6 +470,8 @@ def build_stack(
         framework.queue_sort,
         clock=clock,
         immediate_retry_attempts=config.immediate_retry_attempts,
+        tenant_of=tenant_of if ledger is not None else None,
+        share_fn=ledger.dominant_share if ledger is not None else None,
         quota_fn=quota_fn,
         on_quota_park=on_quota_park,
         shed_fn=shed_fn,
@@ -407,7 +482,7 @@ def build_stack(
     # and it feeds the SLO engine's pending/starvation side.
     overload.add_queue(queue)
     metrics.slo.add_queue(queue)
-    _register_stack_families(metrics, queue, binder, accountant, bind_executor)
+    _register_stack_families(metrics, queue, binder, accountant, bind_executor, ledger)
 
     def _reactivates(event: Event) -> bool:
         # New/changed TPU metrics may make parked pods schedulable; pod
@@ -517,11 +592,51 @@ def build_stack(
     # by patching only the touched rows.
     batch.admission_changes_fn = informer.admission_changes_since
     _register_batch_families(metrics, batch)
-    # Accountant and gang before informer: reservation releases and
-    # membership changes precede the informer's view of the same event.
-    cluster.add_watcher(accountant.handle)
-    cluster.add_watcher(gang.handle)
-    cluster.add_watcher(informer.handle, batch_fn=informer.handle_batch)
+    # Watcher wiring. Per-event handlers run in registration order
+    # (accountant and gang before the informer: reservation releases and
+    # membership changes precede the informer's view of the same event).
+    # With batched ingest ON (ingest_batch_window_ms > 0) ONE watcher — the
+    # EventBatcher — is registered instead: it buffers + coalesces the
+    # stream and applies each batch through the same chain, the informer
+    # taking the whole list under one lock acquisition (handle_batch) with
+    # one epoch bump and one reactivation decision.
+    per_event_sinks = [accountant.handle, gang.handle]
+    if ledger is not None:
+        per_event_sinks.append(ledger.handle)
+    ingestor = None
+    if config.ingest_batch_window_ms > 0:
+
+        def apply_batch(events: "list[Event]") -> None:
+            for event in events:
+                for sink in per_event_sinks:
+                    sink(event)
+            informer.handle_batch(events)
+            if recorder is not None:
+                for event in events:
+                    recorder.handle(event)
+
+        def on_ingest_batch(raw: int, applied: int) -> None:
+            metrics.ingest_events.inc(raw)
+            if applied:
+                metrics.ingest_batch.observe(applied)
+
+        ingestor = EventBatcher(
+            apply_batch,
+            batch_max=config.ingest_batch_max,
+            window_s=config.ingest_batch_window_ms / 1000.0,
+            on_batch=on_ingest_batch,
+        )
+        cluster.add_watcher(ingestor.offer, batch_fn=ingestor.offer_batch)
+        overload.add_ingestor(ingestor)
+    else:
+        for sink in per_event_sinks:
+            cluster.add_watcher(sink)
+        # batch_fn lets the list-shaped startup replay apply under one
+        # informer lock even with the live stream per-event.
+        cluster.add_watcher(informer.handle, batch_fn=informer.handle_batch)
+        if recorder is not None:
+            # Prune aggregation state for deleted pods.
+            cluster.add_watcher(recorder.handle)
     # Fleet gauges (chips total/free, bin-packing efficiency, duty cycle),
     # collected at scrape time; the SLO engine samples the efficiency
     # gauge as its goodput SLI.
@@ -536,6 +651,8 @@ def build_stack(
         cycle_lock=cycle_lock,
         # status.nominatedNodeName write (upstream preemption parity).
         on_nominated=lambda pod, node: cluster.set_nominated_node(pod.key, node),
+        on_bound=recorder.scheduled if recorder else None,
+        on_unschedulable=recorder.failed_scheduling if recorder else None,
         pod_alive=informer.pod_schedulable,
         burst_size=config.batch_requests,
     )
@@ -629,23 +746,36 @@ def build_stack(
         cluster, informer, accountant, framework, queue, scheduler, binder,
         batch, gang, preemption, reconciler, rebalancer, speculation,
         nodehealth, bind_executor, metrics, not_built,
+        events=recorder, ingestor=ingestor, tenants=ledger,
     )
 
 
-def _register_stack_families(metrics, queue, binder, accountant, bind_executor):
+def _register_stack_families(
+    metrics, queue, binder, accountant, bind_executor, ledger
+):
     """The families the reference's build_stack registers around the queue,
-    the binder, the commit point, the journal and the shard loops, with the
-    reference's names, help strings and types. Parts this port lacks render
-    their reference's empty value: no tenants (the dominant-share family
-    has no series), no journal and no shards (the counters read 0, the
-    per-shard gauges have no series)."""
+    the tenant ledger, the binder, the commit point, the journal and the
+    shard loops, with the reference's names, help strings and types. Parts
+    this port lacks render their reference's empty value: no journal and no
+    shards (the counters read 0, the per-shard gauges have no series). The
+    dominant-share family renders empty with fairness off, keeping one
+    scrape schema across configurations."""
     r = metrics.registry
+
+    def tenant_shares():
+        if ledger is None:
+            return {}
+        return {
+            (("tenant", tenant),): share
+            for tenant, share in ledger.shares().items()
+        }
+
     r.gauge(
         "yoda_tenant_dominant_share",
         "Per-tenant dominant resource share (max of chip and HBM "
         "fractions of fleet capacity) — the DRF ordering key: "
         "pops draw from the lowest-share tenant first",
-        lambda: {},
+        tenant_shares,
     )
     r.gauge(
         "yoda_queue_active_pods",
