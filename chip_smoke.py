@@ -275,8 +275,47 @@ Phases, each of which makes the script exit non-zero when it fails:
    the update against ``stack_static`` of the refilled fleet). The CPU
    run of (k1)-(k3) goes on in a third spawned process
    (``SpawnedRerun``).
+   Then run (l), the scheduler process (``yoda_tpu_torch.cli``) through
+   its entry point, on the card (``run_wire``, ``run_failover``,
+   ``run_pipeline``, ``run_demo_pair``; ``PROCESS_FULL`` /
+   ``PIPELINE_FULL``, the tests run the small sizes on the CPU):
+   (l1) the port's ``FakeKubeApiServer`` holding the 5,000-node fleet as
+       TpuNodeMetrics CRs and Node objects; ``cli.main(["--leader-elect",
+       ...], stop=)`` on a thread with ``YODA_KUBE_API_URL`` set (its
+       stack recorded and instrumented through the ``standalone`` module
+       attribute, ``Replicas``); 4 plain gangs of 16 x 8 v5e created
+       before it starts (its first pop is a joint pass of them alone),
+       then, once ``/readyz`` answers 200, 256 singletons (run (b)'s mix),
+       4 coscheduling gangs of 4 x 4 and 8 topology gangs (2x2x1, 4 x 4
+       v5p) over HTTP (run (c)'s mix at a quarter of its gangs), while a
+       thread republishes every CR each 10 s (the agents). Gates: the bind pipeline on through ``auto`` with 8 workers,
+       every pod bound or pending with a why-pending verdict, no host over
+       its healthy chips, gangs whole (topology gangs on one slice), one
+       binding POST per pod and no 409 (the server's binding log),
+       ``yoda_overlap_cycles_total`` > 0 on ``/metrics``, the resync once
+       before the first pop, every launch equal to its plain version.
+       Reported: the nvcc build, informer sync, lease acquire to first
+       bind, first cycle, pods/s, per-pod p50/p99 (API creation to
+       binding), gang completion p50/p99, ``yoda_bind_wall_ms`` p50/p99,
+       the largest in-flight bind count, the launches;
+   (l2) two replicas in one process (own stop and lease identity each):
+       the leader binds 128 singletons, is stopped, 128 more are created;
+       the standby (``/readyz`` not 200 until then) takes the lease, runs
+       its resync once before its first pop and binds the rest, no pod
+       bound twice. Reported: the leader's stop to the standby's first
+       bind;
+   (l3) ``build_stack`` over ``FakeCluster(bind_latency_s=0.002)`` at the
+       default 8 workers (pipelined by ``auto``): gang waves and
+       singletons, and one plain gang alone whose first member's bind
+       fails once after every sibling has landed (``FailingCluster``):
+       bindings (gangs as host lists), the pods the rollback unbound and
+       the Events must equal the CPU run (a fourth spawned process);
+   (l4) ``cli.main(["--demo"])`` on the card prints the placements of
+       ``--demo --device cpu``.
+   Every ``fleet_eval`` / ``joint_fit`` / ``update_rows`` launch of run
+   (l) is held against its plain version.
 4. One line {"kernels": [...]} with each kernel's launches over every run
-   above (runs (h)'s, (i)'s, (j)'s and (k)'s also by part, and the
+   above (runs (h)'s, (i)'s, (j)'s, (k)'s and (l)'s also by part, and the
    speculation thread's apart), its largest difference from the plain
    version and its times ("not measured" where the profiler saw no device
    activity).
@@ -2769,9 +2808,10 @@ def run_rebalance(platform: str, size: dict):
 def run_reconcile(platform: str, size: dict, cluster) -> dict:
     """(h3): the leader that ran (h2) dies with a plain gang half bound (2 of
     4 members bound, written to the cluster as its last act); a new stack
-    is built over the same cluster, resyncs (the gang is adopted and
-    completes), and after a ghost binding, a dropped deletion and a leaked
-    claim the drift pass repairs them. Both reports and each pass's ms."""
+    (on a held scheduling clock) is built over the same cluster, resyncs
+    (the gang is adopted and completes), and after a ghost binding, a
+    dropped deletion and a leaked claim the drift pass repairs them. Both
+    reports and each pass's ms."""
     from yoda_tpu_torch.api.types import PodSpec
     from yoda_tpu_torch.config import SchedulerConfig
     from yoda_tpu_torch.ops import cuda_kernel
@@ -2795,8 +2835,14 @@ def run_reconcile(platform: str, size: dict, cluster) -> dict:
             pod.node_name, pod.phase = free[i], "Running"
         cluster.create_pod(pod)
     t = time.perf_counter()
+    # A held scheduling clock: the leftover fill pods' retry backoff then
+    # never expires by wall time, so whether a fill burst pops (and, as a
+    # gang member, re-queues behind its sibling) an orphan member cannot
+    # depend on the host's speed — on the wall clock a slow run flipped
+    # the two members' hosts between the card and the CPU.
     stack = build_stack(cluster=cluster, config=SchedulerConfig(
-        kernel_platform=platform, batch_requests=16, enable_preemption=False))
+        kernel_platform=platform, batch_requests=16, enable_preemption=False),
+        clock=SteppedClock(0.0))
     build_ms = 1e3 * (time.perf_counter() - t)
     t = time.perf_counter()
     resync = stack.reconciler.resync()
@@ -3758,8 +3804,8 @@ def pending_view(pending) -> dict:
 class KeptKernels:
     """While installed (or entered), every ``fleet_eval`` / ``joint_fit``
     call on the card keeps its inputs and result, to be held against the
-    plain versions (:meth:`errors`); the launch counts are zeroed on
-    install."""
+    plain versions (:meth:`errors`), and the name of the thread that
+    launched it (``threads``); the launch counts are zeroed on install."""
 
     def __enter__(self):
         self.install()
@@ -3774,6 +3820,7 @@ class KeptKernels:
 
         self.mod = cuda_kernel
         self.fleet, self.joint = [], []
+        self.threads: set = set()
         self.real = (cuda_kernel.fleet_eval, cuda_kernel.joint_fit)
         real_fleet, real_joint = self.real
 
@@ -3783,6 +3830,7 @@ class KeptKernels:
             if chips.is_cuda:
                 self.fleet.append((tuple(t.clone() for t in (chips, nodes, dyn, host_ok,
                                                               reqs)), weights, got.clone()))
+                self.threads.add(threading.current_thread().name)
             return got
 
         def joint_fit(packed, chips_k, starts_k, valid_k, out=None, counter=None):
@@ -3791,6 +3839,7 @@ class KeptKernels:
                 self.joint.append((tuple(t.clone() for t in (packed, chips_k, starts_k,
                                                              valid_k)),
                                    tuple(t.clone() for t in got)))
+                self.threads.add(threading.current_thread().name)
             return got
 
         cuda_kernel.fleet_eval, cuda_kernel.joint_fit = fleet_eval, joint_fit
@@ -4538,10 +4587,13 @@ class KeptRowUpdates:
         self.real = real = kernel_mod.TorchFleetKernel.update_rows
         self.held = self.rows = self.max_abs_err = 0
 
+        self.threads: set = set()
+
         def update_rows(kern, arrays, rows):
             before = kern.row_updates
             real(kern, arrays, rows)
             if kern.row_updates != before:
+                self.threads.add(threading.current_thread().name)
                 chips, nodes = kernel_mod.stack_static(arrays)
                 err = max(abs_err(kern._chips, torch.from_numpy(chips)),
                           abs_err(kern._nodes, torch.from_numpy(nodes)))
@@ -4566,6 +4618,7 @@ def kept_counts(kept: KeptKernels, rows: KeptRowUpdates) -> dict:
     err["launches"]["update_rows"] = rows.launches
     err["kept"]["update_rows"] = rows.held
     err["max_abs_err"]["update_rows"] = rows.max_abs_err
+    err["launch_threads"] = sorted(kept.threads | rows.threads)
     return err
 
 
@@ -4964,6 +5017,884 @@ def phase_tenancy(smi: str, rerun: SpawnedRerun) -> dict:
     return g
 
 
+# --- run (l): the scheduler process -----------------------------------------
+
+# (l1) / (l2) over the wire. The fleet is the 5,000-node one; the traffic's
+# depth is cut (run (c)'s gang mix at a quarter of its gangs, run (b)'s
+# singletons) so the phase stays near a minute of card time.
+PROCESS_FULL = dict(slices=512, v5e_hosts=2952, singles=256, plain=4, plain_size=16,
+                    cosched=4, topo=8, failover=256)
+PROCESS_SMALL = dict(slices=8, v5e_hosts=40, singles=16, plain=2, plain_size=4,
+                     cosched=2, topo=2, failover=16)
+# (l3): the stepped pipeline, the same fleet over FakeCluster(bind_latency_s).
+PIPELINE_FULL = dict(slices=512, v5e_hosts=2952, plain=4, plain_size=16, topo=8,
+                     singles=64, latency_s=0.002)
+PIPELINE_SMALL = dict(slices=8, v5e_hosts=40, plain=2, plain_size=4, topo=2,
+                      singles=8, latency_s=0.002)
+PIPELINE_PARITY = ("bindings", "gang_hosts", "rollbacks", "events", "failed_binds")
+LEASE = "kube-system/yoda-tpu-scheduler"
+
+
+def process_fleet(size: dict) -> "tuple[list[tuple[str, dict, dict]], dict, dict]":
+    """The fleet of ``size`` as API objects: (host, TpuNodeMetrics CR, Node)
+    per host, published by the port's FakeTpuAgent into a scratch
+    FakeCluster; and each host's healthy chips and slice."""
+    from yoda_tpu_torch.agent.fake_publisher import FakeTpuAgent
+    from yoda_tpu_torch.api.types import K8sNode
+    from yoda_tpu_torch.cluster.fake import FakeCluster
+
+    scratch = FakeCluster()
+    agent = FakeTpuAgent(scratch)
+    for s in range(size["slices"]):
+        agent.add_slice(f"v5p-{s:03d}", generation="v5p", host_topology=(2, 2, 1))
+    for h in range(size["v5e_hosts"]):
+        agent.add_host(f"v5e-{h:04d}", generation="v5e", chips=8)
+    agent.publish_all()
+    out, capacity, slice_of = [], {}, {}
+    for t in scratch.list_tpu_metrics():
+        node = K8sNode(t.name, labels={HOST_KEY: t.name, "pool": t.generation})
+        out.append((t.name, t.to_obj(), node.to_obj()))
+        capacity[t.name] = sum(c.healthy for c in t.chips)
+        slice_of[t.name] = t.slice_id
+    return out, capacity, slice_of
+
+
+def process_pods(size: dict, seed: int = 21):
+    """(l1)'s pods as (name, labels) in a seeded order: run (b)'s singleton
+    mix, then plain gangs of v5e x 8 chips, coscheduling-alias gangs of 4 x
+    4 chips and topology gangs (2x2x1, 4 v5p x 4 chips) as run (c) makes
+    them; and the gangs, name -> (kind, size)."""
+    rng = np.random.default_rng(seed)
+    singles = fleet_and_pods(seed)[1][: size["singles"]]
+    pods = [(f"s-{n}", labels) for n, labels in singles]
+    gangs: dict[str, tuple[str, int]] = {}
+    for g in range(size["plain"]):
+        name = f"plain{g}"
+        gangs[name] = ("plain", size["plain_size"])
+        pods += [(f"{name}-{i:02d}", {"tpu/gang": name, "tpu/gang-size": str(size["plain_size"]),
+                                      "tpu/chips": "8", "tpu/generation": "v5e"})
+                 for i in range(size["plain_size"])]
+    for g in range(size["cosched"]):
+        name = f"cosched{g}"
+        gangs[name] = ("cosched", 4)
+        pods += [(f"{name}-{i:02d}", {"pod-group.scheduling.sigs.k8s.io/name": name,
+                                      "pod-group.scheduling.sigs.k8s.io/min-available": "4",
+                                      "tpu/chips": "4"}) for i in range(4)]
+    for g in range(size["topo"]):
+        name = f"topo{g}"
+        gangs[name] = ("topology", 4)
+        pods += [(f"{name}-{i:02d}", {"tpu/gang": name, "tpu/topology": "2x2x1",
+                                      "tpu/chips": "4", "tpu/generation": "v5p"})
+                 for i in range(4)]
+    return [pods[i] for i in rng.permutation(len(pods))], gangs
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_get(url: str, timeout: float = 5.0) -> "tuple[int, str]":
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, ""
+    except OSError:
+        return 0, ""
+
+
+def wait_for(cond, timeout_s: float, what: str, poll_s: float = 0.02) -> float:
+    """Poll ``cond`` until true; the monotonic instant it held. Raises after
+    ``timeout_s``."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if cond():
+            return time.monotonic()
+        time.sleep(poll_s)
+    raise AssertionError(f"timed out after {timeout_s} s waiting for {what}")
+
+
+class Replicas:
+    """CLI replicas (``yoda_tpu_torch.cli.main``), each on a thread of its
+    own with its own stop event, against one API server. While entered,
+    ``standalone.build_stack`` — which the CLI reaches through the module
+    attribute — records each replica's stack (by its thread's name) and
+    instruments it: the warm-start resync's end and the first pop's start
+    on the monotonic clock, and the bind executor's largest in-flight
+    count. ``cli._build_kube_cluster`` and ``cli._init_device`` are timed
+    the same way."""
+
+    def __init__(self, base_url: str) -> None:
+        self.base_url = base_url
+        self.stacks: dict = {}
+        self.timing: dict = {}
+        self.threads: dict = {}
+        self.stops: dict = {}
+        self.rc: dict = {}
+
+    def __enter__(self):
+        import os
+
+        from yoda_tpu_torch import cli, standalone
+
+        self.cli, self.standalone = cli, standalone
+        self.real = (standalone.build_stack, cli._build_kube_cluster, cli._init_device)
+        real_build, real_sync, real_init = self.real
+        self.env = os.environ.get("YODA_KUBE_API_URL")
+        os.environ["YODA_KUBE_API_URL"] = self.base_url
+
+        def timing() -> dict:
+            return self.timing.setdefault(threading.current_thread().name, {})
+
+        def build_stack(*args, **kw):
+            stack = real_build(*args, **kw)
+            me = threading.current_thread().name
+            t = timing()
+            resync = stack.reconciler.resync
+
+            def timed_resync():
+                t["resync_start"] = time.monotonic()
+                out = resync()
+                t["resync_end"] = time.monotonic()
+                t["resyncs"] = t.get("resyncs", 0) + 1
+                return out
+
+            stack.reconciler.resync = timed_resync
+            schedule_one = stack.scheduler.schedule_one
+
+            def first_pop(qpi):
+                t.setdefault("first_pop", time.monotonic())
+                return schedule_one(qpi)
+
+            stack.scheduler.schedule_one = first_pop
+            ex = stack.bind_executor
+            if ex is not None:
+                submit = ex.submit
+
+                def counted(fn):
+                    fut = submit(fn)
+                    t["max_inflight"] = max(t.get("max_inflight", 0), ex.inflight())
+                    return fut
+
+                ex.submit = counted
+            self.stacks[me] = stack
+            return stack
+
+        def build_kube_cluster(*args, **kw):
+            t0 = time.monotonic()
+            out = real_sync(*args, **kw)
+            timing()["sync_ms"] = 1e3 * (time.monotonic() - t0)
+            return out
+
+        def init_device(platform):
+            t0 = time.monotonic()
+            out = real_init(platform)
+            timing()["device_init_s"] = time.monotonic() - t0
+            return out
+
+        standalone.build_stack = build_stack
+        cli._build_kube_cluster, cli._init_device = build_kube_cluster, init_device
+        return self
+
+    def start(self, name: str, argv: "list[str]") -> None:
+        stop = threading.Event()
+
+        def run():
+            try:
+                self.rc[name] = self.cli.main(argv, stop=stop)
+            except BaseException as e:  # noqa: BLE001 — the phase reports it
+                self.rc[name] = f"{type(e).__name__}: {e}"
+
+        t = threading.Thread(target=run, name=name, daemon=True)
+        self.threads[name], self.stops[name] = t, stop
+        t.start()
+
+    def stop(self, name: str, timeout_s: float = 60.0) -> None:
+        self.stops[name].set()
+        self.threads[name].join(timeout=timeout_s)
+        if self.threads[name].is_alive():
+            raise AssertionError(f"replica {name} did not stop in {timeout_s} s")
+
+    def __exit__(self, *exc):
+        import os
+
+        for name in self.threads:
+            self.stops[name].set()
+        for t in self.threads.values():
+            t.join(timeout=60)
+        self.standalone.build_stack = self.real[0]
+        self.cli._build_kube_cluster, self.cli._init_device = self.real[1:]
+        if self.env is None:
+            os.environ.pop("YODA_KUBE_API_URL", None)
+        else:
+            os.environ["YODA_KUBE_API_URL"] = self.env
+        return False
+
+
+def publish(server, fleet) -> None:
+    for name, cr, node in fleet:
+        server.put_object("TpuNodeMetrics", name, cr)
+        server.put_object("Node", name, node)
+
+
+class Republisher:
+    """The node agents' heartbeat while entered: a thread republishes
+    every host's CR with a fresh ``lastUpdatedUnix`` once per
+    ``period_s`` (the agent's default interval), spread evenly over the
+    period, into the API server — without it the health monitor's ladder
+    fences every host 15 s in."""
+
+    def __init__(self, server, fleet, period_s: float = 10.0, tick_s: float = 0.1) -> None:
+        self.server, self.fleet = server, fleet
+        self.period_s, self.tick_s = period_s, tick_s
+        self.stop = threading.Event()
+        self.published = 0
+
+    def run(self) -> None:
+        per_tick = max(1, int(len(self.fleet) * self.tick_s / self.period_s))
+        i = 0
+        while not self.stop.wait(self.tick_s):
+            for _ in range(per_tick):
+                name, cr, _node = self.fleet[i % len(self.fleet)]
+                cr["status"]["lastUpdatedUnix"] = time.time()
+                self.server.put_object("TpuNodeMetrics", name, cr)
+                i += 1
+            self.published = i
+
+    def __enter__(self):
+        self.thread = threading.Thread(target=self.run, name="republisher", daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(timeout=10)
+        return False
+
+
+def api_server_child(conn, size: dict, period_s: float) -> None:
+    """The body of the API server's process: the port's FakeKubeApiServer
+    holding the fleet of ``size``, its agents' heartbeat
+    (:class:`Republisher`), and the parent's queries over ``conn`` until
+    "stop"."""
+    from yoda_tpu_torch.testing import FakeKubeApiServer
+
+    fleet, capacity, slice_of = process_fleet(size)
+    server = FakeKubeApiServer().start()
+    publish(server, fleet)
+    ops = {"get_object": server.get_object, "bindings": server.bindings,
+           "bound": lambda keys: bound_nodes(server, keys)}
+    conn.send((server.base_url, len(fleet), capacity, slice_of))
+    with Republisher(server, fleet, period_s=period_s) as agents:
+        while True:
+            op, args = conn.recv()
+            if op == "stop":
+                break
+            try:
+                conn.send(("ok", ops[op](*args)))
+            except Exception as e:  # noqa: BLE001 — the parent raises it
+                conn.send(("error", f"{type(e).__name__}: {e}"))
+        published = agents.published
+    server.stop()
+    conn.send(("ok", published))
+    conn.close()
+
+
+class ApiServerProcess:
+    """The API server in a process of its own (spawned), as a cluster's
+    API server is: its HTTP threads, watch streams and the agents' 500
+    CR republishes a second at 5,000 hosts do not take the scheduler's
+    interpreter lock. The parent reads it through the same methods as a
+    ``FakeKubeApiServer`` (``get_object``, ``bindings``) plus ``bound``;
+    ``republished`` counts the heartbeats once it has stopped."""
+
+    def __init__(self, size: dict, period_s: float = 10.0) -> None:
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, child = ctx.Pipe()
+        self._proc = ctx.Process(target=api_server_child, args=(child, size, period_s),
+                                 daemon=True)
+        self.size, self.republished = size, None
+
+    def __enter__(self):
+        self._proc.start()
+        if not self._conn.poll(300):
+            raise TimeoutError("the API server process sent nothing in 300 s")
+        self.base_url, self.nodes, self.capacity, self.slice_of = self._conn.recv()
+        return self
+
+    def _call(self, op: str, *args):
+        self._conn.send((op, args))
+        if not self._conn.poll(120):
+            raise TimeoutError(f"the API server process did not answer {op}")
+        status, value = self._conn.recv()
+        if status != "ok":
+            raise RuntimeError(f"API server process: {value}")
+        return value
+
+    def get_object(self, kind: str, key: str):
+        return self._call("get_object", kind, key)
+
+    def bindings(self) -> list:
+        return self._call("bindings")
+
+    def bound(self, keys) -> dict:
+        return self._call("bound", list(keys))
+
+    def __exit__(self, *exc):
+        try:
+            self._conn.send(("stop", ()))
+            if self._conn.poll(60):
+                self.republished = self._conn.recv()[1]
+        finally:
+            self._proc.join(timeout=30)
+            if self._proc.is_alive():
+                self._proc.terminate()
+                self._proc.join(timeout=10)
+        return False
+
+
+def seed_client(server):
+    from yoda_tpu_torch.cluster import KubeApiClient, KubeApiConfig, KubeCluster
+
+    return KubeCluster(KubeApiClient(KubeApiConfig(base_url=server.base_url)),
+                       kinds=("Pod",))
+
+
+def create_pods(client, pods) -> dict:
+    """POST each (name, labels) pod; its creation instant (monotonic, just
+    before the POST) by pod key."""
+    from yoda_tpu_torch.api.types import PodSpec
+
+    created = {}
+    for name, labels in pods:
+        created[f"default/{name}"] = time.monotonic()
+        client.create_pod(PodSpec(name, labels=dict(labels)))
+    return created
+
+
+def bound_nodes(server, keys) -> dict:
+    out = {}
+    for key in keys:
+        obj = server.get_object("Pod", key) or {}
+        out[key] = (obj.get("spec") or {}).get("nodeName")
+    return out
+
+
+def binding_counts(log) -> "tuple[dict, dict, int]":
+    """From the API server's binding log: per pod, binding POSTs and the
+    first accepted POST's monotonic instant; and the 409 answers."""
+    posts, at, conflicts = {}, {}, 0
+    for key, _node, status, mono, _wall in log:
+        posts[key] = posts.get(key, 0) + 1
+        if status == 201:
+            at.setdefault(key, mono)
+        elif status == 409:
+            conflicts += 1
+    return posts, at, conflicts
+
+
+def pending_why(stack, keys, labels_of: dict) -> dict:
+    """Each key's why-pending verdict kind (its own record, else its
+    gang's), None where nothing is recorded."""
+    from yoda_tpu_torch.api.requests import gang_name_of
+
+    out = {}
+    for key in keys:
+        e = stack.metrics.pending.explain(key)
+        g = gang_name_of(labels_of[key])
+        if e is None and g is not None:
+            e = stack.metrics.pending.explain(g)
+        out[key] = None if e is None else e["kind"]
+    return out
+
+
+def wire_checks(bound: dict, labels_of: dict, gangs: dict, capacity: dict,
+                slice_of: dict, posts: dict, why: "dict | None" = None) -> dict:
+    """The placement invariants of a run over the wire: every pod bound or
+    pending for a recorded reason (``why``), no host over its healthy
+    chips, gangs whole (topology gangs on four hosts of one slice), one
+    binding POST per pod."""
+    from yoda_tpu_torch.api.requests import gang_name_of
+
+    used: dict = {}
+    for key, node in bound.items():
+        if node is not None:
+            used[node] = used.get(node, 0) + int(labels_of[key].get("tpu/chips", "1"))
+    members: dict = {}
+    for key, labels in labels_of.items():
+        g = gang_name_of(labels)
+        if g is not None:
+            members.setdefault(g, []).append(bound[key])
+    split, misplaced = [], []
+    for g, nodes in members.items():
+        placed = [n for n in nodes if n is not None]
+        if len(placed) not in (0, len(nodes)):
+            split.append(g)
+        if placed and gangs[g][0] == "topology" and (
+                len(set(placed)) != 4 or len({slice_of[n] for n in placed}) != 1):
+            misplaced.append(g)
+    return dict(
+        unbound=sorted(k for k, v in bound.items()
+                       if v is None and not (why or {}).get(k)),
+        over=sorted(h for h, n in used.items() if n > capacity[h]),
+        split=sorted(split), misplaced=sorted(misplaced),
+        double_posts=sorted(k for k, n in posts.items() if n > 1),
+        unposted=sorted(k for k, v in bound.items() if v is not None and k not in posts),
+    )
+
+
+def scrape(port: int) -> dict:
+    status, text = http_get(f"http://127.0.0.1:{port}/metrics")
+    if status != 200:
+        raise AssertionError(f"/metrics answered {status}")
+    return scrape_values(text)
+
+
+def run_wire(platform: str, size: dict = PROCESS_FULL) -> dict:
+    """(l1): one CLI replica with --leader-elect against the port's fake
+    API server (in its own process) holding the fleet of ``size``: the
+    plain gangs created before the replica starts (so the
+    lease-to-first-bind time is the process's own, and its first pop is a
+    joint pass), the rest over HTTP once /readyz answers 200."""
+    from yoda_tpu_torch.api.requests import gang_name_of
+    from yoda_tpu_torch.cluster.lease import _parse_micro
+
+    pods, gangs = process_pods(size)
+    # The plain gangs wait in the queue before the replica starts, so its
+    # first pop gathers them (and nothing else) into one joint pass: the
+    # joint-fit gate on the card.
+    pre = [p for p in pods if p[0].startswith("plain")]
+    pods = [p for p in pods if not p[0].startswith("plain")]
+    labels_of = {f"default/{n}": lab for n, lab in pre + pods}
+    port = free_port()
+    argv = ["--leader-elect", "--lease-identity", "replica-l1",
+            "--metrics-port", str(port)] + (["--device", "cpu"] if platform == "cpu" else [])
+    with ApiServerProcess(size) as server:
+        client = seed_client(server)
+        created = create_pods(client, pre)
+        with KeptKernels() as kept, KeptRowUpdates() as rows, \
+                Replicas(server.base_url) as reps:
+            t_start = time.monotonic()
+            reps.start("l1", argv)
+            t_ready = wait_for(lambda: http_get(f"http://127.0.0.1:{port}/readyz")[0] == 200,
+                               300, "/readyz 200")
+            stack = reps.stacks["l1"]
+            created.update(create_pods(client, pods))
+            try:
+                wait_for(lambda: all(v is not None for v in server.bound(labels_of).values()),
+                         180, "every pod bound", poll_s=0.05)
+            except AssertionError:
+                pass  # the pods left pending are explained below
+            wait_for(lambda: stack.bind_executor.inflight() == 0, 60, "binds settled")
+            bound = server.bound(labels_of)
+            why = pending_why(stack, [k for k, v in bound.items() if v is None], labels_of)
+            values = scrape(port)
+            bind_wall = (stack.metrics.bind_wall.quantile(0.5),
+                         stack.metrics.bind_wall.quantile(0.99))
+            first_cycle_ms = 1e3 * stack.scheduler.stats.results[0].latency_s
+            pipeline = dict(parallel_release=stack.gang.parallel_release,
+                            workers=stack.bind_executor.workers)
+            b = stack.batch
+            joint = dict(joint_dispatches=b.joint_dispatches, joint_gangs=b.joint_gangs,
+                         fused_plan_dispatches=b.fused_plan_dispatches)
+            lease = server.get_object("Lease", LEASE) or {}
+            reps.stop("l1")
+            rc = reps.rc.get("l1")
+            timing = reps.timing["l1"]
+        log = server.bindings()
+    posts, bound_at, conflicts = binding_counts(log)
+    checks = wire_checks(bound, labels_of, gangs, server.capacity, server.slice_of, posts, why)
+    main_keys = [f"default/{n}" for n, _ in pods]
+    lat = sorted(bound_at[k] - created[k] for k in main_keys if k in bound_at)
+    spans: dict = {}
+    for k in main_keys:
+        g = gang_name_of(labels_of[k])
+        if g is not None and k in bound_at:
+            lo, hi = spans.get(g, (float("inf"), 0.0))
+            spans[g] = (min(lo, created[k]), max(hi, bound_at[k]))
+    completion = sorted(hi - lo for lo, hi in spans.values())
+    t_acq = _parse_micro((lease.get("spec") or {}).get("acquireTime"))
+    first_bind_wall = min(w for _k, _n, s, _m, w in log if s == 201)
+    done = [bound_at[k] for k in main_keys if k in bound_at]
+    t_first = min(created[k] for k in main_keys)
+    return dict(
+        platform=platform, nodes=server.nodes, pods=len(labels_of), gangs=len(gangs),
+        rc=rc, checks=checks, pipeline=pipeline, conflicts=conflicts,
+        republished=server.republished,
+        bound=sum(v is not None for v in bound.values()),
+        pending_why={k: sum(1 for v in why.values() if v == k) for k in set(why.values())},
+        overload_level=values.get("yoda_overload_level"),
+        holder=(lease.get("spec") or {}).get("holderIdentity"),
+        device_init_s=timing.get("device_init_s"), informer_sync_ms=timing.get("sync_ms"),
+        start_to_ready_s=t_ready - t_start,
+        lease_to_first_bind_ms=None if t_acq is None else 1e3 * (first_bind_wall - t_acq),
+        first_cycle_ms=first_cycle_ms,
+        pods_per_s=len(done) / (max(done) - t_first) if done else 0.0,
+        p50_ms=pct_ms(lat, 0.5), p99_ms=pct_ms(lat, 0.99),
+        gang_p50_ms=pct_ms(completion, 0.5), gang_p99_ms=pct_ms(completion, 0.99),
+        bind_wall_p50_ms=bind_wall[0], bind_wall_p99_ms=bind_wall[1],
+        max_bind_inflight=timing.get("max_inflight", 0),
+        overlap_cycles=values.get("yoda_overlap_cycles_total", 0.0),
+        resyncs=timing.get("resyncs", 0),
+        resync_before_first_pop=timing.get("resync_end", float("inf"))
+        <= timing.get("first_pop", float("-inf")),
+        **joint,
+        **kept_counts(kept, rows),
+    )
+
+
+def run_failover(platform: str, size: dict = PROCESS_FULL) -> dict:
+    """(l2): two replicas in one process, each with its own stop and lease
+    identity. The leader binds the first half of ``failover`` singletons;
+    then it is stopped and the second half created: the standby takes the
+    lease, runs its resync before its first pop and binds the rest."""
+    singles = fleet_and_pods(22)[1][: size["failover"]]
+    half = len(singles) // 2
+    first = [(f"a-{n}", lab) for n, lab in singles[:half]]
+    second = [(f"b-{n}", lab) for n, lab in singles[half:]]
+    labels_of = {f"default/{n}": lab for n, lab in first + second}
+    ports = {"a": free_port(), "b": free_port()}
+    dev = ["--device", "cpu"] if platform == "cpu" else []
+
+    def holder():
+        return ((server.get_object("Lease", LEASE) or {}).get("spec") or {}).get(
+            "holderIdentity")
+
+    with ApiServerProcess(size) as server:
+        client = seed_client(server)
+        with KeptKernels() as kept, KeptRowUpdates() as rows, \
+                Replicas(server.base_url) as reps:
+            for r in ("a", "b"):
+                reps.start(r, ["--leader-elect", "--lease-identity", f"replica-{r}",
+                               "--metrics-port", str(ports[r])] + dev)
+                if r == "a":
+                    wait_for(lambda: http_get(f"http://127.0.0.1:{ports['a']}/readyz")[0]
+                             == 200, 300, "replica a ready")
+            wait_for(lambda: http_get(f"http://127.0.0.1:{ports['b']}/healthz")[0] == 200,
+                     300, "replica b up (standby)")
+            standby_ready = http_get(f"http://127.0.0.1:{ports['b']}/readyz")[0]
+            holder_before = holder()
+            create_pods(client, first)
+            wait_for(lambda: all(v is not None for v in
+                                 server.bound([f"default/{n}" for n, _ in first]).values()),
+                     180, "the leader bound the first half", poll_s=0.05)
+            t_stop = time.monotonic()
+            reps.stops["a"].set()
+            created = create_pods(client, second)
+            reps.stop("a")
+            wait_for(lambda: all(v is not None for v in server.bound(labels_of).values()),
+                     180, "the standby bound the rest", poll_s=0.05)
+            wait_for(lambda: reps.stacks["b"].bind_executor.inflight() == 0, 60, "settled")
+            # A bind lands on the server just before its cycle counts it.
+            wait_for(lambda: sum(reps.stacks[r].scheduler.stats.binds for r in ("a", "b"))
+                     >= len(labels_of), 10, "every bind counted")
+            binds = {r: reps.stacks[r].scheduler.stats.binds for r in ("a", "b")}
+            holder_after = holder()
+            reps.stop("b")
+            rc = dict(reps.rc)
+            timing = dict(reps.timing)
+        bound = server.bound(labels_of)
+        log = server.bindings()
+    posts, bound_at, conflicts = binding_counts(log)
+    checks = wire_checks(bound, labels_of, {}, server.capacity, server.slice_of, posts)
+    second_keys = [f"default/{n}" for n, _ in second]
+    tb = timing.get("b", {})
+    return dict(
+        platform=platform, pods=len(labels_of), rc=rc, checks=checks, conflicts=conflicts,
+        holder_before=holder_before, holder_after=holder_after,
+        standby_readyz=standby_ready, binds=binds,
+        standby_resyncs=tb.get("resyncs", 0),
+        standby_resync_before_first_pop=tb.get("resync_end", float("inf"))
+        <= tb.get("first_pop", float("-inf")),
+        leader_resync_before_first_pop=timing.get("a", {}).get("resync_end", float("inf"))
+        <= timing.get("a", {}).get("first_pop", float("-inf")),
+        stop_to_standby_first_bind_ms=1e3 * (min(bound_at[k] for k in second_keys) - t_stop),
+        stop_to_standby_resync_ms=1e3 * (tb.get("resync_end", t_stop) - t_stop),
+        second_half_p50_ms=pct_ms(sorted(bound_at[k] - created[k] for k in second_keys), 0.5),
+        **kept_counts(kept, rows),
+    )
+
+
+def pipeline_script(size: dict, seed: int = 23):
+    """(l3)'s waves of (name, labels): wave 0 plain and topology gangs with
+    singletons in a seeded order, wave 1 one plain gang alone (its first
+    member's bind fails once), wave 2 singletons; and the failing pod."""
+    rng = np.random.default_rng(seed)
+    singles = fleet_and_pods(seed)[1]
+
+    def plain(name):
+        return [(f"{name}-{i:02d}", {"tpu/gang": name, "tpu/gang-size": str(size["plain_size"]),
+                                     "tpu/chips": "8", "tpu/generation": "v5e"})
+                for i in range(size["plain_size"])]
+
+    wave0 = [(f"w0-s{i}", lab) for i, (_n, lab) in enumerate(singles[: size["singles"]])]
+    for g in range(size["plain"]):
+        wave0 += plain(f"w0-plain{g}")
+    for g in range(size["topo"]):
+        wave0 += [(f"w0-topo{g}-{i:02d}", {"tpu/gang": f"w0-topo{g}", "tpu/topology": "2x2x1",
+                                           "tpu/chips": "4", "tpu/generation": "v5p"})
+                  for i in range(4)]
+    wave1 = plain("w1-fail")
+    wave2 = [(f"w2-s{i}", lab)
+             for i, (_n, lab) in enumerate(singles[size["singles"]: 2 * size["singles"]])]
+    waves = [[w[i] for i in rng.permutation(len(w))] for w in (wave0, wave1, wave2)]
+    return waves, "default/w1-fail-00"
+
+
+def failing_cluster_class(base):
+    """A FakeCluster subclass whose bind of one pod (``fail_key``) fails
+    once, non-retryably — after every other member of its gang has bound,
+    so the whole rest of the release has landed when it fails and the
+    rollback unbinds all of them, whatever the workers' timing. Unbinds
+    are logged."""
+
+    class FailingCluster(base):
+        def __init__(self, *, fail_key: str, siblings: "list[str]", **kw) -> None:
+            super().__init__(**kw)
+            self.fail_key, self.siblings = fail_key, siblings
+            self.failed = 0
+            self.unbinds: list = []
+
+        def bind_pod(self, pod_key, node_name):
+            if pod_key == self.fail_key and not self.failed:
+                deadline = time.monotonic() + 60
+                while time.monotonic() < deadline and not all(
+                        (p := self.get_pod(k)) is not None and p.node_name
+                        for k in self.siblings):
+                    time.sleep(0.001)
+                self.failed += 1
+                raise ValueError(f"injected bind failure of {pod_key}")
+            super().bind_pod(pod_key, node_name)
+
+        def unbind_pod(self, pod_key, node_name):
+            self.unbinds.append((pod_key, node_name))
+            super().unbind_pod(pod_key, node_name)
+
+    return FailingCluster
+
+
+def port_modules() -> dict:
+    from yoda_tpu_torch import standalone
+    from yoda_tpu_torch.agent import fake_publisher
+    from yoda_tpu_torch.api import requests, types
+    from yoda_tpu_torch.cluster import fake
+    from yoda_tpu_torch.config import SchedulerConfig
+
+    return dict(standalone=standalone, agent=fake_publisher, types=types, fake=fake,
+                requests=requests, SchedulerConfig=SchedulerConfig)
+
+
+def run_pipeline(platform: str, size: dict = PIPELINE_FULL, *, reported: bool = True,
+                 mods: "dict | None" = None) -> dict:
+    """(l3): ``build_stack`` over a FakeCluster with ``bind_latency_s`` at
+    the default 8 workers (so ``bind_pipeline: auto`` pipelines it), the
+    fleet of ``size`` and :func:`pipeline_script`'s three waves, each
+    drained with ``run_until_idle``; the failing gang's release rolls back
+    whole and binds again. ``mods`` (default the port's) picks the
+    package, so the tests run the same drive on the reference."""
+    m = mods or port_modules()
+    waves, fail_key = pipeline_script(size)
+    siblings = [f"default/{n}" for n, _ in waves[1] if f"default/{n}" != fail_key]
+    cluster = failing_cluster_class(m["fake"].FakeCluster)(
+        fail_key=fail_key, siblings=siblings, bind_latency_s=size["latency_s"])
+    stack = m["standalone"].build_stack(
+        cluster, m["SchedulerConfig"](kernel_platform=platform))
+    try:
+        agent = m["agent"].FakeTpuAgent(stack.cluster)
+        for s in range(size["slices"]):
+            agent.add_slice(f"v5p-{s:03d}", generation="v5p", host_topology=(2, 2, 1))
+        for h in range(size["v5e_hosts"]):
+            agent.add_host(f"v5e-{h:04d}", generation="v5e", chips=8)
+        agent.publish_all()
+        pipelined = stack.gang.parallel_release and stack.bind_executor.workers == 8
+        t0 = time.monotonic()
+        for wave in waves:
+            for name, labels in wave:
+                stack.cluster.create_pod(m["types"].PodSpec(name, labels=dict(labels)))
+            stack.scheduler.run_until_idle(max_wall_s=600)
+            deadline = time.monotonic() + 60
+            while stack.bind_executor.inflight() and time.monotonic() < deadline:
+                time.sleep(0.005)
+        wall = time.monotonic() - t0
+        names = [n for w in waves for n, _ in w]
+        bound = {n: stack.cluster.get_pod(f"default/{n}").node_name for n in names}
+        gang_of = {n: m["requests"].gang_name_of(lab) for w in waves for n, lab in w}
+        gang_hosts: dict = {}
+        for n, g in gang_of.items():
+            if g is not None:
+                gang_hosts.setdefault(g, []).append(bound[n])
+        events = event_rows(stack)
+        out = dict(
+            platform=platform, pods=len(names), pipelined=pipelined,
+            bindings={n: v for n, v in bound.items() if gang_of[n] is None},
+            gang_hosts={g: sorted(h or "" for h in hs) for g, hs in gang_hosts.items()},
+            rollbacks=sorted(k for k, _node in cluster.unbinds),
+            failed_binds=cluster.failed, events=events,
+            unbound=sorted(n for n, v in bound.items() if v is None),
+            overlap_cycles=stack.metrics.overlap_cycles.total(),
+            bind_rollbacks=stack.gang.bind_rollbacks, wall_s=wall,
+            inflight_after=stack.bind_executor.inflight(),
+        )
+    finally:
+        close_stack(stack)
+    return out
+
+
+def close_stack(stack) -> None:
+    """Stop a stack's threads (the reference's Stack has no ``close``)."""
+    if hasattr(stack, "close"):
+        stack.close()
+        return
+    stack.gang.close()
+    if stack.events is not None:
+        stack.events.close()
+
+
+def check_pipeline_run(run: dict) -> None:
+    if not run["pipelined"]:
+        raise AssertionError("run (l3): bind_pipeline auto did not pipeline the stack")
+    if run["unbound"] or run["inflight_after"]:
+        raise AssertionError(f"run (l3): unbound {run['unbound'][:5]}, "
+                             f"{run['inflight_after']} binds in flight at the end")
+    if run["failed_binds"] != 1 or run["bind_rollbacks"] != 1:
+        raise AssertionError(f"run (l3): {run['failed_binds']} injected failures, "
+                             f"{run['bind_rollbacks']} gang rollbacks (want 1 and 1)")
+    fail_gang = [k for k in run["rollbacks"] if not k.startswith("default/w1-fail-")]
+    if fail_gang or not run["rollbacks"]:
+        raise AssertionError(f"run (l3): rollbacks {run['rollbacks'][:5]}")
+
+
+def check_pipeline(g: dict, c: dict) -> None:
+    check_pipeline_run(g)
+    check_pipeline_run(c)
+    diff = [k for k in PIPELINE_PARITY if g[k] != c[k]]
+    if diff:
+        raise AssertionError(f"run (l3): the card and the CPU differ in {diff}")
+
+
+def demo_output(argv: "list[str]") -> "tuple[int, str]":
+    import contextlib
+    import io
+
+    from yoda_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def run_demo_pair() -> dict:
+    """(l4): ``--demo`` on the card and ``--demo --device cpu``: the
+    placements table (the output before the attempts)."""
+    rc_g, out_g = demo_output(["--demo", "-v", "0"])
+    rc_c, out_c = demo_output(["--demo", "--device", "cpu", "-v", "0"])
+    table = lambda text: text.split("\n\n")[0].splitlines()  # noqa: E731
+    return dict(rc=(rc_g, rc_c), card=table(out_g), cpu=table(out_c))
+
+
+def check_wire_run(run: dict, what: str) -> None:
+    bad = {k: v[:5] for k, v in run["checks"].items() if v}
+    if bad:
+        raise AssertionError(f"{what}: {bad}")
+    if run["conflicts"]:
+        raise AssertionError(f"{what}: the server answered {run['conflicts']} binds with 409")
+    for kernel, n in run["launches"].items():
+        if run["kept"].get(kernel, n) != n:
+            raise AssertionError(f"{what}: {n} {kernel} launches, {run['kept'][kernel]} held")
+    if any(run["max_abs_err"].values()):
+        raise AssertionError(f"{what}: a launch differs from its plain version: "
+                             f"{run['max_abs_err']}")
+    check_no_worker_launch(run, what)
+
+
+def check_no_worker_launch(run: dict, what: str) -> None:
+    """No kernel and no row update launched on a bind-executor worker: the
+    pipelined binds and their rollbacks only change host state that the
+    serve thread's next dispatch applies."""
+    bad = [n for n in run["launch_threads"] if n.startswith("bind-worker")]
+    if bad:
+        raise AssertionError(f"{what}: launches on bind workers {bad}")
+
+
+def check_process(l1: dict, l2: dict, card: bool) -> None:
+    check_wire_run(l1, "run (l1)")
+    if l1["rc"] != 0 or l1["holder"] != "replica-l1":
+        raise AssertionError(f"run (l1): rc {l1['rc']}, lease holder {l1['holder']}")
+    if l1["pipeline"] != {"parallel_release": True, "workers": 8}:
+        raise AssertionError(f"run (l1): the bind pipeline is {l1['pipeline']}")
+    if not l1["overlap_cycles"] > 0:
+        raise AssertionError("run (l1): yoda_overlap_cycles_total is 0 on /metrics")
+    if l1["resyncs"] != 1 or not l1["resync_before_first_pop"]:
+        raise AssertionError("run (l1): the resync did not run once before the first pop")
+    if card and not (l1["launches"]["fleet_eval"] and l1["launches"]["joint_fit"]):
+        raise AssertionError(f"run (l1): kernels not launched: {l1['launches']}")
+    check_wire_run(l2, "run (l2)")
+    if l2["rc"] != {"a": 0, "b": 0}:
+        raise AssertionError(f"run (l2): replicas returned {l2['rc']}")
+    if (l2["holder_before"], l2["holder_after"]) != ("replica-a", "replica-b"):
+        raise AssertionError(f"run (l2): lease {l2['holder_before']} -> {l2['holder_after']}")
+    if l2["standby_readyz"] == 200:
+        raise AssertionError("run (l2): the standby answered /readyz 200")
+    half = l2["pods"] // 2
+    if l2["binds"] != {"a": half, "b": l2["pods"] - half}:
+        raise AssertionError(f"run (l2): binds {l2['binds']}")
+    if l2["standby_resyncs"] != 1 or not l2["standby_resync_before_first_pop"]:
+        raise AssertionError("run (l2): the standby did not resync once before its first pop")
+    if card and not l2["launches"]["fleet_eval"]:
+        raise AssertionError(f"run (l2): kernels not launched: {l2['launches']}")
+
+
+def print_process(name: str, run: dict, smi: str) -> None:
+    skip = {"bindings", "events", "gang_hosts", "rollbacks", "card", "cpu"}
+    print(f"process run ({name}) {run.get('platform', '')} [{smi}]:",
+          json.dumps({k: v for k, v in run.items() if k not in skip}, default=str))
+
+
+def phase_process(smi: str, rerun: "SpawnedRerun", build_s: float) -> dict:
+    """Run (l) on the card: (l1)-(l4); (l3) held against its CPU run.
+    ``build_s``: the device phase's nvcc build (both kernels, in
+    parallel), which the CLI's own device init then finds built."""
+    out = {}
+    out["l1"] = run_wire("auto")
+    out["l1"]["nvcc_build_s"] = build_s
+    print_process("l1", out["l1"], smi)
+    out["l2"] = run_failover("auto")
+    print_process("l2", out["l2"], smi)
+    check_process(out["l1"], out["l2"], card=True)
+    with KeptKernels() as kept, KeptRowUpdates() as rows:
+        g = run_pipeline("auto")
+    g.update(kept_counts(kept, rows))
+    c = rerun.result()
+    print_process("l3", g, smi)
+    print_process("l3 cpu", c, smi)
+    check_pipeline(g, c)
+    check_no_worker_launch(g, "run (l3)")
+    if any(g["max_abs_err"].values()) or not g["launches"]["fleet_eval"]:
+        raise AssertionError(f"run (l3): launches {g['launches']}, err {g['max_abs_err']}")
+    out["l3"] = g
+    with KeptKernels() as kept, KeptRowUpdates() as rows:
+        demo = run_demo_pair()
+    demo.update(kept_counts(kept, rows))
+    print_process("l4", demo, smi)
+    print("demo on the card:\n  " + "\n  ".join(demo["card"]))
+    if demo["rc"] != (0, 0) or demo["card"] != demo["cpu"] or len(demo["card"]) != 6:
+        raise AssertionError(f"run (l4): card {demo['card']} vs cpu {demo['cpu']}")
+    if any(demo["max_abs_err"].values()) or not demo["launches"]["fleet_eval"]:
+        raise AssertionError(f"run (l4): launches {demo['launches']}")
+    out["l4"] = demo
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one NVIDIA GPU", file=sys.stderr)
@@ -4983,6 +5914,7 @@ def main() -> None:
     rerun = CpuRerun(BACKGROUND_FULL, NODEHEALTH_FULL)
     obs_rerun = SpawnedRerun("run_observability", OBSERVABILITY_FULL, "run (j)")
     tenancy_rerun = SpawnedRerun("run_tenancy", TENANCY_FULL, "run (k)")
+    pipeline_rerun = SpawnedRerun("run_pipeline", PIPELINE_FULL, "run (l3)")
     try:
         rows, profiled = phase("kernel vs plain", phase_kernel)
         joint_rows = phase("joint_fit vs plain", phase_joint_fit)
@@ -4997,7 +5929,10 @@ def main() -> None:
         nodehealth = phase("node health run (i)", phase_nodehealth, smi, rerun)
         observability = phase("observability run (j)", phase_observability, smi, obs_rerun)
         tenancy = phase("tenancy run (k)", phase_tenancy, smi, tenancy_rerun)
+        process = phase("process run (l)", phase_process, smi, pipeline_rerun,
+                        seconds["device/build"])
         print("phase seconds:", json.dumps(seconds))
+        l_parts = ("l1", "l2", "l3", "l4")
         j_parts = ("j1", "j1_wall", "j2", "j3", "cost")
         k_parts = ("k1", "k1_unfair", "k2", "k3")
         h_runs = [background[part] for part in ("h1", "h2", "h3", "h4", "h4_nospec")]
@@ -5026,8 +5961,12 @@ def main() -> None:
                         gpu["a"], gpu["b"], gangs["c"], gangs["d"], churn, preemption,
                         affinity, *wide, *h_runs, nodehealth))
                     + sum(observability[p]["launches"]["fleet_eval"] for p in j_parts)
-                    + sum(tenancy[p]["launches"]["fleet_eval"] for p in k_parts),
+                    + sum(tenancy[p]["launches"]["fleet_eval"] for p in k_parts)
+                    + sum(process[p]["launches"]["fleet_eval"] for p in l_parts),
                     "launches_run_g": affinity["launches"],
+                    "launches_run_l": {
+                        p: process[p]["launches"]["fleet_eval"] for p in l_parts
+                    },
                     "launches_run_j": {
                         p: observability[p]["launches"]["fleet_eval"] for p in j_parts
                     },
@@ -5058,7 +5997,9 @@ def main() -> None:
                                        *(observability[p]["max_abs_err"]["fleet_eval"]
                                          for p in j_parts),
                                        *(tenancy[p]["max_abs_err"]["fleet_eval"]
-                                         for p in k_parts)),
+                                         for p in k_parts),
+                                       *(process[p]["max_abs_err"]["fleet_eval"]
+                                         for p in l_parts)),
                     "ms": main_row["ms"],
                     "plain_ms": main_row["plain_ms"],
                     "bound_ms": main_row["bound_ms"],
@@ -5091,7 +6032,11 @@ def main() -> None:
                     + sum(run["joint_fit_launches"] for run in h_runs[1:])
                     + nodehealth["joint_fit_launches"]
                     + sum(observability[p]["launches"]["joint_fit"] for p in j_parts)
-                    + sum(tenancy[p]["launches"]["joint_fit"] for p in k_parts),
+                    + sum(tenancy[p]["launches"]["joint_fit"] for p in k_parts)
+                    + sum(process[p]["launches"]["joint_fit"] for p in l_parts),
+                    "launches_run_l": {
+                        p: process[p]["launches"]["joint_fit"] for p in l_parts
+                    },
                     "launches_run_i": {
                         part: n["joint_fit"] for part, n in nodehealth["phase_launches"].items()
                     },
@@ -5106,7 +6051,9 @@ def main() -> None:
                                        *(observability[p]["max_abs_err"]["joint_fit"]
                                          for p in j_parts),
                                        *(tenancy[p]["max_abs_err"]["joint_fit"]
-                                         for p in k_parts)),
+                                         for p in k_parts),
+                                       *(process[p]["max_abs_err"]["joint_fit"]
+                                         for p in l_parts)),
                     "ms": joint_main["ms"],
                     "device_ms": not_measured(joint_main["device_ms"]),
                     "plain_ms": joint_main["plain_ms"],
@@ -5129,9 +6076,9 @@ def main() -> None:
             ],
             # The resident row update is a torch op, not a hand kernel (the
             # reference's XLA scatter, yoda_tpu/ops/kernel.py:662): launches are
-            # runs (e)-(i)'s and (k)'s update_rows calls on the card (run (k)'s
-            # each held against the plain lowering), times at the main path's
-            # fleet with 64 rows.
+            # runs (e)-(i)'s, (k)'s and (l)'s update_rows calls on the card
+            # (runs (k)'s and (l)'s each held against the plain lowering),
+            # times at the main path's fleet with 64 rows.
             "torch_ops": [
                 {
                     "name": "update_rows",
@@ -5142,14 +6089,20 @@ def main() -> None:
                     + preemption["row_update_launches"] + affinity["row_update_launches"]
                     + sum(run["row_update_launches"] for run in h_runs)
                     + nodehealth["row_update_launches"]
-                    + sum(tenancy[p]["launches"]["update_rows"] for p in k_parts),
+                    + sum(tenancy[p]["launches"]["update_rows"] for p in k_parts)
+                    + sum(process[p]["launches"]["update_rows"] for p in l_parts),
                     "launches_run_h_speculation": background["h1"]["spec_row_updates"],
+                    "launches_run_l": {
+                        p: process[p]["launches"]["update_rows"] for p in l_parts
+                    },
                     "launches_run_k": {
                         p: tenancy[p]["launches"]["update_rows"] for p in k_parts
                     },
                     "max_abs_err": max(max(r["max_abs_err"] for r in update_rows),
                                        *(tenancy[p]["max_abs_err"]["update_rows"]
-                                         for p in k_parts)),
+                                         for p in k_parts),
+                                       *(process[p]["max_abs_err"]["update_rows"]
+                                         for p in l_parts)),
                     "ms": update_main["ms"],
                     "plain_ms": update_main["put_static_ms"],
                     "bound_ms": update_main["bound_ms"],
@@ -5181,6 +6134,7 @@ def main() -> None:
         rerun.stop()
         obs_rerun.stop()
         tenancy_rerun.stop()
+        pipeline_rerun.stop()
 
 
 if __name__ == "__main__":

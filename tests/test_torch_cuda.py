@@ -732,3 +732,24 @@ class TestDispatchSpanOnCard:
             inside = [c for c in calls if t0 <= c[0] and c[1] <= t1]
             assert inside, (r.name, t0, t1, calls)
             assert r.dur_ms >= sum(c[2] for c in inside), (r.dur_ms, inside)
+
+
+@pytest.mark.cuda
+class TestProcessOnCard:
+    """chip_smoke's run (l) at the tests' size on the card: the CLI over
+    the wire and the failover hold every check, with ``fleet_eval`` and
+    ``joint_fit`` launched and equal to their plain versions; the
+    pipelined drive equals its CPU run."""
+
+    def test_run_l_small(self, card):
+        from chip_smoke import (
+            PIPELINE_PARITY, PIPELINE_SMALL, PROCESS_SMALL, check_pipeline_run,
+            check_process, run_failover, run_pipeline, run_wire,
+        )
+
+        check_process(run_wire("auto", PROCESS_SMALL),
+                      run_failover("auto", PROCESS_SMALL), card=True)
+        got = run_pipeline("auto", PIPELINE_SMALL)
+        want = run_pipeline("cpu", PIPELINE_SMALL)
+        check_pipeline_run(got)
+        assert {k: got[k] for k in PIPELINE_PARITY} == {k: want[k] for k in PIPELINE_PARITY}

@@ -3,12 +3,9 @@ against yoda_tpu.
 
 Every case of ``tests/test_events.py`` that needs no unported part runs on
 both packages from the reference's own source
-(``torch_refcases.run_case``), with its exact assertions. Left out, with
-the part they wait for (ROADMAP queue 1):
-
-- ``TestWireEvents`` (three cases): ``KubeCluster.write_event`` over real
-  HTTP needs ``KubeCluster`` (item 10b) and the reference's fake kube API
-  server under ``yoda_tpu.testing`` (item 12).
+(``torch_refcases.run_case``), with its exact assertions. None is left
+out: ``TestWireEvents`` (three cases) runs ``KubeCluster.write_event``
+over real HTTP against each package's own fake API server.
 
 Beside them: a default stack (``kernel_platform: cpu``, ``bind_workers``
 0) with one 4-chip v5e host, a 2-chip pod and a 64-chip pod writes
@@ -33,12 +30,7 @@ import yoda_tpu_torch.config as port_config
 import yoda_tpu_torch.standalone as port_standalone
 
 REF = "test_events.py"
-SKIP = {
-    "TestWireEvents::test_create_then_aggregate": "KubeCluster (items 10b, 12)",
-    "TestWireEvents::test_ttl_reaped_event_is_recreated": "KubeCluster (items 10b, 12)",
-    "TestWireEvents::test_conflicting_create_falls_through_to_update":
-        "KubeCluster (items 10b, 12)",
-}
+SKIP: "dict[str, str]" = {}
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)

@@ -16,9 +16,11 @@ has no registry); the binds count comes from the scheduler's stats. The
 wire-format round trip of a NotReady Node becomes the same condition
 carried through the informer's snapshot (the port has no wire format), and
 the chaos plan of the seeded sweep becomes a numpy-seeded fault script
-applied to both packages alike. One test has no counterpart:
-``TestDownDuringBindFanout`` needs ``bind_pipeline: on``, which the port
-does not have yet.
+applied to both packages alike. ``TestDownDuringBindFanout`` (a host
+killed while a gang's binds are in flight on the pipeline, ``bind_pipeline:
+on``) is timing-dependent by design, so it runs from the reference's own
+source on both packages (``torch_refcases.run_case``) with its own
+whole-or-nothing assertions instead of a compared script.
 
 Also here: a pure fence flip moves neither the resident fleet's re-stacks
 nor its row updates and patches exactly the flipped admission rows; a
@@ -50,6 +52,7 @@ import yoda_tpu_torch.config as port_config
 import yoda_tpu_torch.nodehealth as port_nodehealth
 import yoda_tpu_torch.standalone as port_standalone
 from chip_smoke import NODEHEALTH_SMALL, check_nodehealth_run, run_nodehealth
+from torch_refcases import PACKAGES, run_case
 from yoda_tpu_torch.framework.runtime import BindExecutor
 
 REF = SimpleNamespace(
@@ -977,3 +980,16 @@ class TestRunI:
             rerun.stop()
         want = run_nodehealth("cpu", NODEHEALTH_SMALL)
         assert {k: got[k] for k in NODEHEALTH_PARITY} == {k: want[k] for k in NODEHEALTH_PARITY}
+
+
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_down_during_bind_fanout(pkg, request, monkeypatch):
+    """The reference's TestDownDuringBindFanout on either package: the
+    gang settles whole-or-nothing whatever interleaving lands, and later
+    monitor passes repair it whole."""
+    case = (
+        "TestDownDuringBindFanout::test_node_death_mid_fanout_never_splits_the_gang",
+        "TestDownDuringBindFanout",
+        "test_node_death_mid_fanout_never_splits_the_gang",
+    )
+    run_case(pkg, "test_node_health.py", case, request, monkeypatch)

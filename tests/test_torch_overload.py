@@ -4,14 +4,13 @@ yoda_tpu.
 Every case of ``tests/test_overload.py`` that needs no unported part runs
 on both packages from the reference's own source
 (``torch_refcases.run_case``), with its stepped ``ReplayClock`` and exact
-assertions. Left out, with the part they wait for (ROADMAP queue 1):
-
-- ``TestConfigReloader::test_end_to_end_from_yaml_file``: the CLI's
-  ``_load_config``, item 10. ``TestReloadEqual`` below drives a reload
-  from a candidate config through both packages' ``apply_reloadable``;
-- ``TestOverloadStormSweep``: the seeded chaos storm of
-  ``yoda_tpu.testing.chaos`` (item 12), which builds the reference's own
-  stack (and is ``-m slow`` in the reference).
+assertions (``TestConfigReloader::test_end_to_end_from_yaml_file``
+loads through the port CLI's ``_load_config``). Left out, with the part it
+waits for (ROADMAP queue 1): ``TestOverloadStormSweep``, the seeded chaos
+storm of ``yoda_tpu.testing.chaos`` (item 12), which builds the
+reference's own stack (and is ``-m slow`` in the reference).
+``TestReloadEqual`` below drives a reload from a candidate config through
+both packages' ``apply_reloadable``.
 """
 
 from __future__ import annotations
@@ -34,7 +33,6 @@ import yoda_tpu_torch.standalone as port_standalone
 
 REF = "test_overload.py"
 SKIP = {
-    "TestConfigReloader::test_end_to_end_from_yaml_file": "CLI (item 10)",
     "TestOverloadStormSweep::test_storm_sheds_spot_protects_prod_and_recovers":
         "chaos storm (item 12)",
 }

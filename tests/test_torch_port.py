@@ -58,6 +58,10 @@ class TestImportGuard:
         files = sorted((REPO / "yoda_tpu_torch").rglob("*.py"))
         files += [REPO / "chip_smoke.py", REPO / "kernel_phases.py"]
         assert len(files) > 20
+        # The process slice's modules are among them.
+        for rel in ("cli.py", "demo.py", "cluster/kube.py", "cluster/lease.py",
+                    "testing/__init__.py", "testing/fake_kube_api.py"):
+            assert REPO / "yoda_tpu_torch" / rel in files, rel
         bad = {
             f"{f.relative_to(REPO)}: {m}"
             for f in files
@@ -136,7 +140,7 @@ class TestConfigParity:
     def test_configmap_is_ported_and_builds_a_stack(self):
         # The shipped ConfigMap turns on batched ingest and tenant fairness:
         # every knob it sets is ported, and build_stack builds the stack it
-        # describes (on the CPU here), leaving out only the bind pipeline.
+        # describes (on the CPU here), leaving nothing out.
         cfg = SchedulerConfig.from_dict(_configmap())
         assert unported_settings(cfg) == []
         stack = build_stack(config=dataclasses.replace(cfg, kernel_platform="cpu"))
@@ -145,7 +149,7 @@ class TestConfigParity:
             assert stack.events is not None
             assert stack.ingestor.window_s == cfg.ingest_batch_window_ms / 1000.0
             assert stack.ingestor.batch_max == cfg.ingest_batch_max
-            assert [p.split(" (")[0] for p in stack.not_built] == ["bind pipeline"]
+            assert stack.not_built == ()
         finally:
             stack.close()
 
@@ -176,7 +180,7 @@ class TestUnportedKnobs:
             ("kernel_device_min_elems", 1024),
             ("shard_count", 2),
             ("journal_path", "/var/lib/yoda"),
-            ("bind_pipeline", "on"),
+            ("commit_endpoint", "127.0.0.1:7000"),
             ("percentage_nodes_to_score", 50),
         ],
     )
@@ -225,14 +229,13 @@ class TestNotBuilt:
         assert stack.bind_executor is not None and stack.bind_executor.workers == 8
         for part in ("node health monitor", "node repair", "bind executor"):
             assert not [p for p in stack.not_built if p.startswith(part)]
-        # Tracing, the SLO engine and the overload controller are ported:
-        # only the bind pipeline is still named.
-        assert sorted(p.split(" (")[0] for p in stack.not_built) == [
-            "bind pipeline",
-        ]
+        # Tracing, the SLO engine, the overload controller and the bind
+        # pipeline are ported: nothing is named, and nothing is warned.
+        assert stack.not_built == ()
+        assert "bind_pipeline" not in UNPORTED_KNOB_VALUES
+        assert stack.gang.bind_executor is stack.bind_executor
         warnings = [r for r in caplog.records if r.levelno == logging.WARNING]
-        assert len(warnings) == 1
-        assert all(part in warnings[0].getMessage() for part in stack.not_built)
+        assert warnings == []
 
     @pytest.mark.parametrize(
         "part,knob", [
@@ -268,6 +271,55 @@ class TestNotBuilt:
             stack = build_stack(config=cfg)
         assert stack.not_built == ()
         assert not [r for r in caplog.records if r.levelno == logging.WARNING]
+
+
+class TestBindPipeline:
+    """The bind pipeline is built as the reference builds it: the executor
+    carries the CLI's stop event, and a gang's release fans out on it when
+    ``bind_pipeline`` is "on", or "auto" with binds that are real I/O."""
+
+    @pytest.mark.parametrize(
+        "pipeline,latency,remote,workers,want",
+        [
+            ("auto", 0.0, False, 8, False),
+            ("auto", 0.002, False, 8, True),
+            ("auto", 0.0, True, 8, True),
+            ("on", 0.0, False, 8, True),
+            ("off", 0.002, True, 8, False),
+            ("on", 0.002, True, 0, False),
+        ],
+    )
+    def test_parallel_release_gate(self, pipeline, latency, remote, workers, want):
+        import threading
+
+        from yoda_tpu_torch.cluster.fake import FakeCluster
+
+        cluster = FakeCluster(bind_latency_s=latency)
+        if remote:
+            cluster.remote_binds = True
+        stop = threading.Event()
+        cfg = dataclasses.replace(
+            SchedulerConfig(kernel_platform="cpu"),
+            bind_pipeline=pipeline, bind_workers=workers,
+        )
+        assert unported_settings(cfg) == []
+        stack = build_stack(cluster, cfg, stop_event=stop)
+        try:
+            assert stack.gang.parallel_release is want
+            assert stack.not_built == ()
+            if workers:
+                assert stack.bind_executor.stop_event is stop
+                assert stack.binder.stop_event is stop
+                assert stack.scheduler.bind_executor is stack.bind_executor
+            else:
+                assert stack.bind_executor is None and stack.binder.stop_event is None
+            assert stack.binder.fenced_fn.__self__ is stack.scheduler
+            assert stack.preemption.fenced_fn.__self__ is stack.scheduler
+        finally:
+            stack.close()
+        if workers:
+            # Stack.close shuts the gang's executor down, its stop event set.
+            assert stop.is_set() and stack.gang.bind_executor is None
 
 
 class TestBackgroundParts:

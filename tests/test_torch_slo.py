@@ -5,8 +5,6 @@ both packages from the reference's own source
 (``torch_refcases.run_case``), with its fake clocks and exact
 assertions. Left out, with the part they wait for (ROADMAP queue 1):
 
-- ``TestSloHttpAndCli`` (both cases): the ``slo`` CLI command, item 10.
-  ``/debug/slo`` runs here (``TestDebugSloHttp``);
 - ``TestTraceReplayDeterminism`` (four cases): the trace generator and
   replay of ``yoda_tpu.testing.tracegen`` (item 12), which build the
   reference's own stacks.
@@ -33,8 +31,6 @@ import yoda_tpu_torch.standalone as port_standalone
 
 REF = "test_slo.py"
 SKIP = {
-    "TestSloHttpAndCli::test_debug_slo_endpoint_and_cli": "CLI (item 10)",
-    "TestSloHttpAndCli::test_cli_slo_unreachable": "CLI (item 10)",
     "TestTraceReplayDeterminism::test_identical_seeds_identical_sli_output":
         "tracegen replay (item 12)",
     "TestTraceReplayDeterminism::test_different_seeds_differ":

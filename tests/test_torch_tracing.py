@@ -3,16 +3,12 @@
 Every case of ``tests/test_tracing.py`` that needs no unported part runs
 on both packages from the reference's own source
 (``torch_refcases.run_case``), with its fake clocks and exact
-assertions. Left out, with the part they wait for (ROADMAP queue 1):
-
-- ``TestConnectedLifecycleTrace`` (both cases): the bind pipeline
-  (``bind_pipeline: on`` puts the release binds on executor workers),
-  item 10. ``TestConnectedTraceWithoutPipeline`` below walks the same
-  rebalanced gang with the pipeline off, on both packages;
-- ``TestWhyPending::test_explain_cli`` and ``TestPendingListing``'s
-  ``test_http_listing_and_cli_list``, ``test_cli_list_empty`` and
-  ``test_cli_requires_key_or_list``: the CLI, item 10. The HTTP half of
-  the listing runs here (``TestPendingHttp``).
+assertions. None is left out: ``TestConnectedLifecycleTrace`` runs with
+``bind_pipeline: on`` (the release binds on executor workers), and the
+``explain`` CLI cases run the port's ``cli.main``.
+``TestConnectedTraceWithoutPipeline`` below walks the same rebalanced
+gang with the pipeline off, on both packages, and ``TestPendingHttp`` the
+HTTP half of the listing.
 """
 
 from __future__ import annotations
@@ -36,16 +32,7 @@ import yoda_tpu_torch.metrics_server as port_server
 import yoda_tpu_torch.standalone as port_standalone
 
 REF = "test_tracing.py"
-SKIP = {
-    "TestConnectedLifecycleTrace::test_rebalanced_gang_is_one_connected_trace":
-        "bind pipeline (item 10)",
-    "TestConnectedLifecycleTrace::test_rebalanced_gang_perfetto_export_is_valid":
-        "bind pipeline (item 10)",
-    "TestWhyPending::test_explain_cli": "CLI (item 10)",
-    "TestPendingListing::test_http_listing_and_cli_list": "CLI (item 10)",
-    "TestPendingListing::test_cli_list_empty": "CLI (item 10)",
-    "TestPendingListing::test_cli_requires_key_or_list": "CLI (item 10)",
-}
+SKIP: "dict[str, str]" = {}
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)

@@ -2,9 +2,11 @@
 
 A reference test module (``tests/test_observability.py`` and its
 siblings) is compiled from its source once per package: for
-``yoda_tpu_torch`` every ``yoda_tpu`` import is pointed at the port (the
-test harness's own helpers under ``yoda_tpu.testing`` stay the
-reference's: a stepped clock is not part of the port), and the port's
+``yoda_tpu_torch`` every ``yoda_tpu`` import is pointed at the port
+(``yoda_tpu.testing``'s fake API server and ``wait_until`` included: the
+port has its own copies; only the harness helpers it lacks — the chaos
+plans, the fake libtpu service and the trace generator — stay the
+reference's), and the port's
 ``build_stack`` runs its kernels on the host (``kernel_platform: cpu``)
 where the case leaves the platform at "auto", as every port test does on
 a machine without a card. The case body, its inputs and its assertions
@@ -22,6 +24,7 @@ the method's fixtures through ``request``.
 from __future__ import annotations
 
 import ast
+import contextlib
 import dataclasses
 import inspect
 import re
@@ -33,9 +36,13 @@ import pytest
 PACKAGES = ("yoda_tpu", "yoda_tpu_torch")
 TESTS = Path(__file__).resolve().parent
 
-# Reference modules the port side keeps: test harness helpers, not the
-# system under test.
-_KEEP = ("yoda_tpu.testing",)
+# Reference modules the port side keeps: test harness helpers the port
+# has no copy of, not the system under test.
+_KEEP = (
+    "yoda_tpu.testing.chaos",
+    "yoda_tpu.testing.fake_libtpu",
+    "yoda_tpu.testing.tracegen",
+)
 
 
 def _slow(node: "ast.ClassDef | ast.FunctionDef") -> bool:
@@ -106,13 +113,48 @@ def load(pkg: str, name: str, monkeypatch) -> types.ModuleType:
     return mod
 
 
+def _fixture_function(obj):
+    """The function behind a ``pytest.fixture`` defined in a compiled
+    reference module (pytest does not collect those), or None."""
+    fn = getattr(obj, "_fixture_function", None)  # pytest >= 8.4
+    if fn is None and hasattr(obj, "_pytestfixturefunction"):
+        fn = getattr(obj, "__wrapped__", None)
+    return fn
+
+
 def run_case(pkg: str, name: str, case, request, monkeypatch) -> None:
+    """Run one case. Its arguments resolve through ``request``, except the
+    fixtures the reference module or the case's class defines itself (a
+    fake API server, a synced client, a CLI runner): those are built from
+    the compiled module's own definitions, their dependencies first, and torn down in
+    reverse order after the case, generator fixtures run to their end."""
     _id, cls, meth = case
     mod = load(pkg, name, monkeypatch)
     owner = getattr(mod, cls)() if cls else mod
     fn = getattr(owner, meth)
-    kwargs = {
-        a: request.getfixturevalue(a)
-        for a in inspect.signature(fn).parameters
-    }
-    fn(**kwargs)
+    with contextlib.ExitStack() as teardown:
+        values: dict = {}
+
+        def value(arg: str):
+            if arg in values:
+                return values[arg]
+            bound = ()
+            fixture = _fixture_function(getattr(type(owner), arg, None)) if cls else None
+            if fixture is not None:
+                bound = (owner,)  # a fixture method of the case's class
+            else:
+                fixture = _fixture_function(mod.__dict__.get(arg))
+            if fixture is None:
+                v = request.getfixturevalue(arg)
+            else:
+                params = list(inspect.signature(fixture).parameters)[len(bound):]
+                res = fixture(*bound, **{a: value(a) for a in params})
+                if inspect.isgenerator(res):
+                    v = next(res)
+                    teardown.callback(next, res, None)
+                else:
+                    v = res
+            values[arg] = v
+            return v
+
+        fn(**{a: value(a) for a in inspect.signature(fn).parameters})

@@ -1,52 +1,69 @@
 """Inter-pod affinity/anti-affinity and topology-spread constraints.
 
-The reference scheduler wrapped the whole upstream kube-scheduler, so pods
-it scheduled got the default plugin set's InterPodAffinity and
-PodTopologySpread behaviour alongside the yoda plugin. This module restores
-those first-party, on the same evaluation model upstream uses:
+The reference scheduler wrapped the whole upstream kube-scheduler
+(reference pkg/register/register.go:10), so pods it scheduled got the
+default plugin set's InterPodAffinity and PodTopologySpread behavior for
+free alongside the yoda plugin (reference deploy/yoda-scheduler.yaml:15-27
+enables yoda *in addition to* the defaults). This module restores those
+first-party, on the same evaluation model upstream uses:
 
 - **Required pod affinity**: the candidate node must share a topology
   domain (same value of ``topologyKey`` in node labels) with at least one
   existing pod matching the term's label selector. Upstream's first-pod
   rule applies: a term that matches NO existing pod anywhere, but whose
   selector matches the incoming pod itself (in its own namespace), is
-  treated as satisfied.
+  treated as satisfied — otherwise the first replica of a
+  self-affinitizing group could never schedule.
 - **Required pod anti-affinity**: the candidate node must NOT share a
   topology domain with any existing pod matching the term. A node without
-  the topology key belongs to no domain and never conflicts.
+  the topology key belongs to no domain and never conflicts (upstream
+  semantics).
 - **Anti-affinity symmetry**: an EXISTING pod's required anti-affinity
-  terms also repel the incoming pod.
-- **Preferred terms** contribute a signed weight sum for scoring, in both
-  directions: the incoming pod's own preferred terms over existing pods,
-  and existing pods' preferred (anti-)affinity terms matching the incoming
-  pod, each credited/debited in the existing pod's topology domain.
+  terms also repel the incoming pod (upstream checks both directions;
+  without this, "spread me" pods are only protected against later
+  arrivals, not earlier ones).
+- **Preferred terms** contribute a signed weight sum for scoring — in
+  BOTH directions, as upstream InterPodAffinity scores: the incoming
+  pod's own preferred terms over existing pods, and existing pods'
+  preferred (anti-)affinity terms matching the incoming pod, each
+  credited/debited in the existing pod's topology domain.
 - **Topology spread**: ``maxSkew``/``topologyKey``/``whenUnsatisfiable``
   over the pods matching the constraint's selector in the incoming pod's
   namespace. ``DoNotSchedule`` filters; ``ScheduleAnyway`` scores.
 
-Scope notes (divergences from upstream, as in the reference): only pods on
-nodes the scheduler snapshots are visible; in-flight (reserved-but-unbound)
-pods are visible when the caller feeds them via ``pending`` (gang members
-parked at Permit); ``minDomains`` applies to DoNotSchedule constraints; a
-non-empty ``namespaceSelector`` over a namespace with no data is out of
-scope for affinity and preferred terms but IN scope for required
-anti-affinity and its symmetry check.
+Scope notes (documented divergences from upstream):
 
-Evaluators are built once per (pod, scheduling cycle) — O(pods x terms) —
-and answer per-node queries from dict lookups, O(terms) per node.
+- Only pods on nodes the scheduler snapshots (TPU nodes) are visible; pods
+  on non-TPU nodes neither satisfy affinity nor trigger anti-affinity.
+- In-flight (reserved-but-unbound) pods ARE visible when the caller feeds
+  them via the ``pending`` argument (gang members parked at Permit —
+  GangPlugin.pending_placements); without that feed, enforcement is
+  against bound pods only.
+- ``minDomains`` is supported (DoNotSchedule constraints: global min is
+  0 while fewer eligible domains exist). ``namespaceSelector`` IS supported
+  (union with the explicit namespaces list, upstream semantics), resolved
+  against the Namespace watch. A non-empty selector over a namespace with
+  no data is treated DIRECTIONALLY: out of scope for affinity/preferred
+  terms (the pod just waits — safe), but IN scope for required
+  anti-affinity and its symmetry check (unknown namespaces still repel:
+  a hard separation constraint must not silently fail open).
 
-Counterpart of ``yoda_tpu/api/affinity.py``. Left out until a later slice:
-the API-server wire format (``to_obj`` / ``from_obj`` on every type here)
-and the v1.Pod spec parsers ``parse_pod_affinity`` /
-``parse_topology_spread``, which go with the API-server client.
+Evaluators are built once per (pod, scheduling cycle) — O(pods x terms)
+precomputation — and answer per-node queries from dict lookups, keeping
+the per-node cost O(terms) on the hot path (SURVEY.md §3.2's hot-loop
+discipline).
+
+Counterpart of ``yoda_tpu/api/affinity.py``, whole: the evaluators, the
+wire format of every type here (``to_obj`` / ``from_obj``) and the
+v1.Pod spec parsers ``parse_pod_affinity`` / ``parse_topology_spread``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import TYPE_CHECKING, Iterable, Mapping
+from typing import TYPE_CHECKING, Any, Iterable, Mapping
 
-from yoda_tpu_torch.api.types import NodeSelectorRequirement, PodSpec
+from yoda_tpu_torch.api.types import K8sNode, NodeSelectorRequirement, PodSpec
 
 if TYPE_CHECKING:  # the evaluators take duck-typed snapshot/NodeInfo views
     from yoda_tpu_torch.framework.interfaces import NodeInfo, Snapshot
@@ -65,6 +82,28 @@ class LabelSelector:
         if any(labels.get(k) != v for k, v in self.match_labels):
             return False
         return all(r.matches(labels) for r in self.match_expressions)
+
+    def to_obj(self) -> dict[str, Any]:
+        out: dict[str, Any] = {}
+        if self.match_labels:
+            out["matchLabels"] = dict(self.match_labels)
+        if self.match_expressions:
+            out["matchExpressions"] = [
+                r.to_obj() for r in self.match_expressions
+            ]
+        return out
+
+    @classmethod
+    def from_obj(cls, obj: Mapping[str, Any] | None) -> "LabelSelector | None":
+        if obj is None:
+            return None
+        return cls(
+            match_labels=tuple(sorted((obj.get("matchLabels") or {}).items())),
+            match_expressions=tuple(
+                NodeSelectorRequirement.from_obj(r)
+                for r in obj.get("matchExpressions") or ()
+            ),
+        )
 
 
 @dataclass(frozen=True)
@@ -129,6 +168,26 @@ class PodAffinityTerm:
             assume_unknown=assume_unknown,
         ) and self.selector.matches(other.labels)
 
+    def to_obj(self) -> dict[str, Any]:
+        out: dict[str, Any] = {"topologyKey": self.topology_key}
+        if self.selector is not None:
+            out["labelSelector"] = self.selector.to_obj()
+        if self.namespaces:
+            out["namespaces"] = list(self.namespaces)
+        if self.namespace_selector is not None:
+            out["namespaceSelector"] = self.namespace_selector.to_obj()
+        return out
+
+    @classmethod
+    def from_obj(cls, obj: Mapping[str, Any]) -> "PodAffinityTerm":
+        return cls(
+            topology_key=obj.get("topologyKey", ""),
+            selector=LabelSelector.from_obj(obj.get("labelSelector")),
+            namespaces=tuple(obj.get("namespaces") or ()),
+            namespace_selector=LabelSelector.from_obj(
+                obj.get("namespaceSelector")
+            ),
+        )
 
 
 @dataclass(frozen=True)
@@ -171,6 +230,79 @@ class TopologySpreadConstraint:
             match_labels=self.selector.match_labels,
             match_expressions=self.selector.match_expressions + extra,
         )
+
+    def to_obj(self) -> dict[str, Any]:
+        out: dict[str, Any] = {
+            "maxSkew": self.max_skew,
+            "topologyKey": self.topology_key,
+            "whenUnsatisfiable": self.when_unsatisfiable,
+        }
+        if self.selector is not None:
+            out["labelSelector"] = self.selector.to_obj()
+        if self.match_label_keys:
+            out["matchLabelKeys"] = list(self.match_label_keys)
+        if self.min_domains:
+            out["minDomains"] = self.min_domains
+        return out
+
+    @classmethod
+    def from_obj(cls, obj: Mapping[str, Any]) -> "TopologySpreadConstraint":
+        return cls(
+            max_skew=int(obj.get("maxSkew") or 1),
+            topology_key=obj.get("topologyKey", ""),
+            when_unsatisfiable=obj.get("whenUnsatisfiable", "DoNotSchedule"),
+            selector=LabelSelector.from_obj(obj.get("labelSelector")),
+            match_label_keys=tuple(obj.get("matchLabelKeys") or ()),
+            min_domains=int(obj.get("minDomains") or 0),
+        )
+
+
+# --- v1.Pod spec parsing helpers (used by PodSpec.from_obj) ---
+
+
+def parse_pod_affinity(
+    spec: Mapping[str, Any],
+) -> tuple[
+    tuple[PodAffinityTerm, ...],
+    tuple[PodAffinityTerm, ...],
+    tuple[tuple[int, PodAffinityTerm], ...],
+    tuple[tuple[int, PodAffinityTerm], ...],
+]:
+    """(required affinity, required anti-affinity, preferred affinity,
+    preferred anti-affinity) from a v1.Pod spec mapping."""
+    aff = spec.get("affinity") or {}
+
+    def _required(block: Mapping[str, Any]) -> tuple[PodAffinityTerm, ...]:
+        return tuple(
+            PodAffinityTerm.from_obj(t)
+            for t in block.get("requiredDuringSchedulingIgnoredDuringExecution")
+            or ()
+        )
+
+    def _preferred(
+        block: Mapping[str, Any],
+    ) -> tuple[tuple[int, PodAffinityTerm], ...]:
+        return tuple(
+            (
+                int(p.get("weight") or 0),
+                PodAffinityTerm.from_obj(p.get("podAffinityTerm") or {}),
+            )
+            for p in block.get("preferredDuringSchedulingIgnoredDuringExecution")
+            or ()
+        )
+
+    pa = aff.get("podAffinity") or {}
+    paa = aff.get("podAntiAffinity") or {}
+    return _required(pa), _required(paa), _preferred(pa), _preferred(paa)
+
+
+def parse_topology_spread(
+    spec: Mapping[str, Any],
+) -> tuple[TopologySpreadConstraint, ...]:
+    return tuple(
+        TopologySpreadConstraint.from_obj(c)
+        for c in spec.get("topologySpreadConstraints") or ()
+    )
 
 
 # --- evaluation ---

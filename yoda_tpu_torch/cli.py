@@ -1,0 +1,701 @@
+"""Binary entry point — the analog of the reference's ``cmd/scheduler/main.go``.
+
+The reference main seeds rand, builds the upstream scheduler command with the
+yoda plugin injected, and executes it (reference cmd/scheduler/main.go:12-21,
+pkg/register/register.go:9-13). Here one binary, selected by flags:
+
+    python -m yoda_tpu_torch.cli            in-cluster scheduler (KubeCluster)
+    python -m yoda_tpu_torch.cli --demo     in-memory fleet demo (FakeCluster)
+    python -m yoda_tpu_torch.cli explain …  why-pending query of a running one
+    python -m yoda_tpu_torch.cli slo …      SLO query of a running one
+
+``--config`` takes a YAML file whose top-level keys are ``SchedulerConfig``
+fields (weights, mode, gang_permit_timeout_s, ...), validated and used.
+
+The scheduler syncs its caches from the API server ``KubeApiConfig.from_env``
+names (``YODA_KUBE_API_URL``, else the in-cluster service account), builds
+one stack (``standalone.build_stack``, reached through the module attribute)
+with the CLI's stop event as the bind executor's, serves ``/metrics`` with
+``/readyz`` on the lease and the warm-start resync, and runs
+``Scheduler.serve_forever`` with the reconciler's resync as its
+``on_serve_start``. With ``--leader-elect`` every bind is fenced on the
+Lease. The background threads (reconciler, rebalancer, node health,
+overload ladder, config reload on SIGHUP or a changed file) start with
+leadership; the ``finally`` drain stops the gang's bind executor, the
+ingest thread, the Event recorder, the metrics server and the lease.
+
+The fleet evaluation runs on the CUDA card unless the caller asks for the
+host: ``--device cpu`` (or a config with ``kernel_platform: cpu``). With
+no flag the config's ``kernel_platform`` decides, and its default "auto"
+means the card: both kernel libraries are built before the informer sync
+(so nvcc never runs inside a lease-holding serve cycle), and on a machine
+without a card ``build_stack`` raises — the CLI never serves on the CPU by
+itself.
+
+Counterpart of ``yoda_tpu/cli.py``. Left out until a later slice, each
+refused with exit code 2 and a message naming it: federated mode
+(``--federate-url``), scheduler shards (``shard_count`` > 1), config
+``profiles``, and journal tailing (``commit_endpoint``) — ROADMAP item 9 —
+and the node agent (``--agent``, item 11). ``--jax-platform`` is not kept:
+``--device`` takes its place.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import signal
+import sys
+import threading
+import time
+
+# --device value -> config.kernel_platform
+_DEVICE_PLATFORM = {"cpu": "cpu", "cuda": "device"}
+
+
+def _load_config(path: str | None):
+    from yoda_tpu_torch.config import SchedulerConfig
+
+    if not path:
+        return SchedulerConfig()
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f) or {}
+    if not isinstance(raw, dict):
+        raise ValueError(f"scheduler config {path} must be a YAML mapping")
+    return SchedulerConfig.from_dict(raw)
+
+
+def _build_kube_cluster():
+    """A started, synced KubeCluster on the env-configured endpoint."""
+    from yoda_tpu_torch.cluster import KubeApiClient, KubeApiConfig, KubeCluster
+
+    cluster = KubeCluster(KubeApiClient(KubeApiConfig.from_env()))
+    cluster.start()
+    if not cluster.wait_for_sync(60.0):
+        cluster.stop()
+        raise RuntimeError("timed out syncing informer caches from the API server")
+    return cluster
+
+
+def _init_device(platform: str) -> "float | None":
+    """Build both kernel libraries when ``platform`` selects the card and
+    one is present; returns the build's wall seconds, or None when nothing
+    was built. On the host ("cpu") nothing is built; with no card the
+    stack build raises later (``ops.kernel.resolve_device``)."""
+    if platform == "cpu":
+        return None
+    import torch
+
+    if not torch.cuda.is_available():
+        return None
+    from yoda_tpu_torch.ops import cuda_kernel
+
+    t0 = time.perf_counter()
+    cuda_kernel.build_all()
+    return time.perf_counter() - t0
+
+
+def _unported_mode(args, config) -> "str | None":
+    """The first mode ``args`` / ``config`` ask for that the port does not
+    have, as the message the CLI exits 2 with; None when all is ported."""
+    if args.agent:
+        return (
+            "--agent (the node agent) is not ported to yoda_tpu_torch yet "
+            "(ROADMAP item 11: agent/native.py)"
+        )
+    if args.federate_url:
+        return (
+            "--federate-url (federated mode) is not ported to yoda_tpu_torch "
+            "yet (ROADMAP item 9: federation/)"
+        )
+    if config is None:
+        return None
+    if config.shard_count > 1:
+        return (
+            f"shard_count={config.shard_count} (scheduler shards) is not "
+            "ported to yoda_tpu_torch yet (ROADMAP item 9: "
+            "framework/shards.py)"
+        )
+    if config.profiles:
+        return (
+            "profiles (several scheduler profiles in one process) are not "
+            "ported to yoda_tpu_torch yet (ROADMAP item 9: "
+            "build_profile_stacks)"
+        )
+    if config.commit_endpoint:
+        return (
+            "commit_endpoint (journal tailing hot standby) is not ported to "
+            "yoda_tpu_torch yet (ROADMAP item 9: journal/tail.py)"
+        )
+    return None
+
+
+def _install_reload_handler(reload_event: threading.Event) -> None:
+    """SIGHUP -> config hot-reload (the classic daemon contract). Main
+    thread only, like the stop handlers; embedded callers trigger
+    reloads through the config file's mtime instead."""
+    if threading.current_thread() is not threading.main_thread():
+        return
+    sighup = getattr(signal, "SIGHUP", None)
+    if sighup is not None:
+        signal.signal(sighup, lambda *_: reload_event.set())
+
+
+def _config_reload_loop(
+    path: "str | None",
+    reload_event: threading.Event,
+    reloader,
+    stop: threading.Event,
+    *,
+    period_s: float = 2.0,
+) -> None:
+    """The hot-reload trigger loop: fires ``reloader.reload()`` on
+    SIGHUP (reload_event) or when the mounted config file's mtime moves
+    (a ConfigMap update re-projects the file — this IS the
+    ConfigMap-watch). A failed load keeps the running config; the
+    report is logged either way."""
+    last_mtime = None
+    if path:
+        try:
+            last_mtime = os.stat(path).st_mtime
+        except OSError:
+            last_mtime = None
+    while not stop.is_set():
+        if stop.wait(period_s):
+            return
+        trigger = reload_event.is_set()
+        if path:
+            try:
+                mtime = os.stat(path).st_mtime
+            except OSError:
+                mtime = last_mtime
+            if mtime != last_mtime:
+                last_mtime = mtime
+                trigger = True
+        if not trigger:
+            continue
+        reload_event.clear()
+        report = reloader.reload()
+        if report.get("error"):
+            print(
+                f"yoda-tpu-scheduler: config reload FAILED (kept the "
+                f"running config): {report['error']}",
+                file=sys.stderr,
+            )
+        else:
+            print(
+                "yoda-tpu-scheduler: config reload: "
+                f"applied={report['applied'] or '-'} "
+                f"requires-drain={report['requires_drain'] or '-'} "
+                f"immutable-kept={report['immutable'] or '-'}",
+                file=sys.stderr,
+            )
+
+
+def _install_stop_handlers(stop: threading.Event) -> None:
+    """SIGTERM/SIGINT -> orderly drain. Signals can only be bound from the
+    main thread; tests and chip_smoke drive main() from worker threads
+    and stop the loop through ``stop`` instead."""
+    if threading.current_thread() is not threading.main_thread():
+        return
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: stop.set())
+
+
+def _run_scheduler(args, stop: threading.Event) -> int:
+    """In-cluster scheduler: KubeCluster backend + full plugin stack +
+    metrics endpoint, running until SIGTERM/SIGINT (or ``stop`` is set by
+    an embedding caller). With ``--leader-elect``, the scheduling loop only
+    runs while this replica holds the Lease (the standby keeps its informer
+    caches warm for fast takeover); losing leadership exits nonzero so the
+    Deployment restarts the pod into standby."""
+    from yoda_tpu_torch import standalone
+    from yoda_tpu_torch.metrics_server import MetricsServer
+
+    config = _load_config(args.config)
+    unported = _unported_mode(args, config)
+    if unported is not None:
+        print(f"yoda-tpu-scheduler: {unported}", file=sys.stderr)
+        return 2
+    if args.device is not None:
+        config = dataclasses.replace(
+            config, kernel_platform=_DEVICE_PLATFORM[args.device]
+        )
+    build_s = _init_device(config.kernel_platform)
+    if build_s is not None:
+        print(
+            f"yoda-tpu-scheduler: kernels built in {build_s:.2f} s",
+            file=sys.stderr,
+        )
+    t_sync = time.perf_counter()
+    cluster = _build_kube_cluster()
+    print(
+        f"yoda-tpu-scheduler: informer sync "
+        f"{(time.perf_counter() - t_sync) * 1e3:.1f} ms",
+        file=sys.stderr,
+    )
+    try:
+        # `stop` doubles as the bind executor's stop event: a SIGTERM or a
+        # lost lease aborts pending bind-retry backoff sleeps immediately
+        # instead of draining up to bind_retry_cap_s per attempt.
+        stack = standalone.build_stack(cluster, config, stop_event=stop)
+    except BaseException:
+        cluster.stop()
+        raise
+
+    # Readiness (/readyz, distinct from /healthz liveness): ready =
+    # leadership held (the gate is swapped in below when --leader-elect is
+    # on) AND the warm-start resync has completed AND we are not draining.
+    # The informer-sync half is implied: _build_kube_cluster() blocked on
+    # wait_for_sync above.
+    leader_gate: list = [lambda: True]
+
+    def _ready() -> bool:
+        if stop.is_set() or not leader_gate[0]():
+            return False
+        return stack.reconciler.resynced.is_set()
+
+    metrics_srv = None
+    elector_thread = None
+    lost_leadership = threading.Event()
+    try:
+        if args.metrics_port >= 0:
+            metrics_srv = MetricsServer(
+                stack.metrics, port=args.metrics_port, ready_fn=_ready
+            )
+            metrics_srv.start()
+            print(f"metrics on :{metrics_srv.port}/metrics", file=sys.stderr)
+
+        # Warm-start resync: the serve loop runs the reconciler's resync
+        # pass ONCE, after the fence first admits leadership and before the
+        # first queue pop — cluster truth is re-listed, bound pods'
+        # reservations charged, and every partially-bound gang adopted or
+        # rolled back whole BEFORE any post-promotion bind can happen
+        # (/readyz flips only once this completes).
+        stack.scheduler.on_serve_start = stack.reconciler.resync
+        _install_stop_handlers(stop)
+
+        if args.leader_elect:
+            import socket
+
+            from yoda_tpu_torch.cluster.lease import LeaderElector
+
+            identity = (
+                args.lease_identity
+                or os.environ.get("HOSTNAME")
+                or socket.gethostname()
+            )
+            elector = LeaderElector(
+                cluster.api,
+                identity=identity,
+                namespace=args.lease_namespace,
+                name=args.lease_name,
+            )
+            # Leader fencing: the scheduler checks the lease BEFORE each
+            # bind API write (and the binder again on its worker) and parks
+            # its queue while not leading — the exit-on-loss below is
+            # seconds-grained, and an in-flight permit release in that
+            # window must not race the new leader's binds.
+            stack.scheduler.fence_fn = elector.is_leader
+            leader_gate[0] = elector.is_leader  # /readyz follows the lease
+            became_leader = threading.Event()
+
+            def _on_lost() -> None:
+                print(
+                    f"yoda-tpu-scheduler: lost leadership ({identity}); exiting",
+                    file=sys.stderr,
+                )
+                lost_leadership.set()
+                stop.set()
+
+            elector_thread = threading.Thread(
+                target=elector.run,
+                args=(stop,),
+                kwargs={
+                    "on_started_leading": became_leader.set,
+                    "on_stopped_leading": _on_lost,
+                },
+                name="leader-elector",
+                daemon=True,
+            )
+            elector_thread.start()
+            print(
+                f"yoda-tpu-scheduler: standby, waiting for lease "
+                f"{args.lease_namespace}/{args.lease_name} as {identity}",
+                file=sys.stderr,
+            )
+            while not stop.is_set() and not became_leader.wait(0.2):
+                pass
+            if stop.is_set() and not became_leader.is_set():
+                return 0  # stopped while standby
+
+        print(
+            f"yoda-tpu-scheduler: serving (mode={config.mode}, "
+            f"device={stack.batch.device}, "
+            f"nodes={len(cluster.list_tpu_metrics())}, "
+            f"pods={len(cluster.list_pods())})",
+            file=sys.stderr,
+        )
+        # Background drift reconciler, rebalancer and node health monitor,
+        # started with (or after) leadership — never on a standby, whose
+        # repairs would fight the live leader's state. Their per-tick gates
+        # re-check the live fence and the resync.
+        extra_threads = []
+        if config.reconcile_period_s > 0:
+            extra_threads.append(
+                threading.Thread(
+                    target=stack.reconciler.run_forever,
+                    args=(stop,),
+                    kwargs={"period_s": config.reconcile_period_s},
+                    name=f"reconciler-{config.scheduler_name}",
+                    daemon=True,
+                )
+            )
+        if config.rebalance_period_s > 0:
+            extra_threads.append(
+                threading.Thread(
+                    target=stack.rebalancer.run_forever,
+                    args=(stop,),
+                    kwargs={"period_s": config.rebalance_period_s},
+                    name=f"rebalance-{config.scheduler_name}",
+                    daemon=True,
+                )
+            )
+        if config.node_health_period_s > 0:
+            extra_threads.append(
+                threading.Thread(
+                    target=stack.nodehealth.run_forever,
+                    args=(stop,),
+                    kwargs={"period_s": config.node_health_period_s},
+                    name=f"nodehealth-{config.scheduler_name}",
+                    daemon=True,
+                )
+            )
+        # Overload brownout ladder: one evaluation loop. Not
+        # leadership-gated — a standby's ladder just reads empty queues.
+        # Started unconditionally: the loop idles at overload_period_s <= 0,
+        # and the knob is hot-reloadable.
+        extra_threads.append(
+            threading.Thread(
+                target=stack.metrics.overload.run_forever,
+                args=(stop,),
+                name="overload-monitor",
+                daemon=True,
+            )
+        )
+        # Config hot-reload: SIGHUP + ConfigMap-watch. Live (RELOADABLE)
+        # knobs apply atomically via apply_reloadable; requires-drain and
+        # immutable changes are reported and kept.
+        from yoda_tpu_torch.overload import ConfigReloader, LiveConfig
+
+        reload_event = threading.Event()
+        _install_reload_handler(reload_event)
+        reloader = ConfigReloader(
+            lambda: _load_config(args.config),
+            LiveConfig(config),
+            lambda cfg: standalone.apply_reloadable([stack], cfg),
+        )
+        extra_threads.append(
+            threading.Thread(
+                target=_config_reload_loop,
+                args=(args.config, reload_event, reloader, stop),
+                name="config-reload",
+                daemon=True,
+            )
+        )
+        for t in extra_threads:
+            t.start()
+        stack.scheduler.serve_forever(stop)
+        for t in extra_threads:
+            t.join(timeout=10)
+    finally:
+        # Release the bind-pipeline executor without waiting on a possibly
+        # stalled bind round trip (GangPlugin.close sets the shared stop
+        # event, aborting pending retry sleeps too), stop the ingest drain
+        # thread (its buffered residue applied) and drain pending Events so
+        # a SIGTERM right after a decision does not lose its trail.
+        stack.gang.close()
+        if stack.ingestor is not None:
+            stack.ingestor.stop()
+        if stack.events is not None:
+            stack.events.close(timeout_s=5.0)
+        if metrics_srv is not None:
+            metrics_srv.stop()
+        if elector_thread is not None:
+            elector_thread.join(timeout=5.0)  # lets the elector release the lease
+        cluster.stop()
+    return 1 if lost_leadership.is_set() else 0
+
+
+def _run_explain(argv: "list[str]") -> int:
+    """``explain <pod|gang>`` — the why-pending CLI: queries a running
+    scheduler's ``/debug/pending/<key>`` endpoint (metrics_server.py) and
+    renders the aggregated rejection summary — verdict kind, attempt count,
+    and the top per-node reasons."""
+    import json
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    p = argparse.ArgumentParser(
+        prog="yoda-tpu-scheduler explain",
+        description="explain why a pod (ns/name) or gang is still pending",
+    )
+    p.add_argument(
+        "key",
+        nargs="?",
+        default=None,
+        help="pod key (namespace/name) or gang name",
+    )
+    p.add_argument(
+        "--list",
+        action="store_true",
+        dest="list_pending",
+        help="list every currently-pending pod/gang key with its verdict "
+        "class instead of explaining one key",
+    )
+    p.add_argument(
+        "--url",
+        default="http://127.0.0.1:10259",
+        help="scheduler metrics endpoint base URL",
+    )
+    args = p.parse_args(argv)
+    if args.list_pending:
+        return _explain_list(args.url)
+    if not args.key:
+        p.error("a pod/gang key is required (or pass --list)")
+    url = (
+        f"{args.url.rstrip('/')}/debug/pending/"
+        f"{urllib.parse.quote(args.key, safe='/')}"
+    )
+    try:
+        data = json.loads(urllib.request.urlopen(url, timeout=10).read())
+    except urllib.error.HTTPError as e:
+        if e.code == 404:
+            print(
+                f"{args.key}: nothing pending under this key (bound, never "
+                "seen by this scheduler, or aged out)"
+            )
+            return 1
+        print(f"explain: {url} -> HTTP {e.code}", file=sys.stderr)
+        return 2
+    except (urllib.error.URLError, OSError) as e:
+        print(f"explain: cannot reach {args.url}: {e}", file=sys.stderr)
+        return 2
+    import datetime
+
+    age = ""
+    if data.get("last_wall_unix"):
+        dt = datetime.datetime.fromtimestamp(data["last_wall_unix"])
+        age = f" (last verdict {dt.isoformat(sep=' ', timespec='seconds')})"
+    shard = f" [shard {data['shard']}]" if data.get("shard") else ""
+    print(
+        f"{data['key']}: {data['kind']} after {data['attempts']} "
+        f"attempt(s){age}{shard}"
+    )
+    print(f"  last: {data['last_message']}")
+    if data.get("members"):
+        print(f"  members seen: {', '.join(data['members'])}")
+    reasons = data.get("top_reasons") or []
+    if reasons:
+        print("  top rejection reasons:")
+        for r in reasons:
+            nodes = f" [{', '.join(r['nodes'])}]" if r.get("nodes") else ""
+            print(f"    {r['count']:>4}x {r['reason']}{nodes}")
+    return 0
+
+
+def _explain_list(base_url: str) -> int:
+    """``explain --list`` — every currently-pending pod/gang key with its
+    verdict class, from ``GET /debug/pending``."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    url = f"{base_url.rstrip('/')}/debug/pending"
+    try:
+        data = json.loads(urllib.request.urlopen(url, timeout=10).read())
+    except (urllib.error.URLError, OSError) as e:
+        print(f"explain: cannot reach {base_url}: {e}", file=sys.stderr)
+        return 2
+    if not data.get("count"):
+        print("nothing pending (no rejection verdicts recorded)")
+        return 0
+    by_kind = data.get("by_kind") or {}
+    print(
+        f"{data['count']} pending key(s): "
+        + ", ".join(f"{k}={n}" for k, n in sorted(by_kind.items()))
+    )
+    for e in data.get("pending", []):
+        members = f" ({e['members']} member(s))" if e.get("members") else ""
+        print(
+            f"  {e['key']}: {e['kind']} after {e['attempts']} "
+            f"attempt(s){members}"
+        )
+    return 0
+
+
+def _run_slo(argv: "list[str]") -> int:
+    """``slo`` — the fleet SLO CLI: queries a running scheduler's
+    ``GET /debug/slo`` and renders the per-tenant and fleet SLIs, targets,
+    burn rates and firing alerts."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    p = argparse.ArgumentParser(
+        prog="yoda-tpu-scheduler slo",
+        description="per-tenant/fleet SLO status from a running scheduler",
+    )
+    p.add_argument(
+        "--url",
+        default="http://127.0.0.1:10259",
+        help="scheduler metrics endpoint base URL",
+    )
+    p.add_argument(
+        "--json",
+        action="store_true",
+        help="dump the raw /debug/slo JSON instead of the table",
+    )
+    args = p.parse_args(argv)
+    url = f"{args.url.rstrip('/')}/debug/slo"
+    try:
+        data = json.loads(urllib.request.urlopen(url, timeout=10).read())
+    except (urllib.error.URLError, OSError) as e:
+        print(f"slo: cannot reach {args.url}: {e}", file=sys.stderr)
+        return 2
+    if args.json:
+        print(json.dumps(data, indent=1))
+        return 1 if data.get("alerts") else 0
+    if not data.get("enabled", False):
+        print("SLO engine disabled (slo_enabled: false)")
+        return 0
+    t = data.get("targets", {})
+    w = data.get("windows", {})
+    print(
+        f"targets: admission p99 <= {t.get('admission_wait_p99_s', 0)}s "
+        f"(goal {t.get('admission_wait_slo', 0):.0%}), starved windows <= "
+        f"{t.get('starved_windows', 0)} "
+        f"(window {w.get('starvation_s', 0):.0f}s); burn alert needs both "
+        f"{w.get('burn_fast_s', 0):.0f}s and {w.get('burn_slow_s', 0):.0f}s "
+        f"windows >= {w.get('burn_threshold', 0)}x"
+    )
+    fleet = data.get("fleet", {})
+    goodput = fleet.get("goodput")
+    print(
+        f"fleet: admission p99 {fleet.get('admission_wait_p99_s', 0):.3f}s "
+        f"over {fleet.get('admissions_window', 0)} admission(s), "
+        f"starved windows {fleet.get('starved_windows', 0)}, "
+        f"preemptions/min {fleet.get('preemption_rate_per_min', 0):.2f}, "
+        f"repairs/min {fleet.get('repair_rate_per_min', 0):.2f}, "
+        f"goodput {goodput if goodput is not None else 'n/a'}"
+    )
+    tenants = data.get("tenants", {})
+    if tenants:
+        print(
+            f"{'tenant':<20} {'p99_s':>8} {'admits':>7} {'pending':>8} "
+            f"{'starved':>8} {'burn_f':>7} {'burn_s':>7} alert"
+        )
+        for name in sorted(tenants):
+            row = tenants[name]
+            print(
+                f"{(name or '(default)'):<20} "
+                f"{row['admission_wait_p99_s']:>8.3f} "
+                f"{row['admissions_window']:>7} {row['pending']:>8} "
+                f"{row['starved_windows']:>8} {row['burn_fast']:>7.2f} "
+                f"{row['burn_slow']:>7.2f} {row['alert']}"
+            )
+    alerts = data.get("alerts", [])
+    for a in alerts:
+        detail = ", ".join(
+            f"{k}={v}" for k, v in sorted(a.items()) if k not in ("sli",)
+        )
+        print(f"ALERT {a['sli']}: {detail}")
+    if not alerts:
+        print("no SLO alerts firing")
+    return 1 if alerts else 0
+
+
+def main(
+    argv: list[str] | None = None, *, stop: threading.Event | None = None
+) -> int:
+    """``stop`` lets an embedding caller (tests, chip_smoke, a supervising
+    process) terminate the scheduler loop; standalone runs get
+    SIGTERM/SIGINT handlers instead."""
+    argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] == "explain":
+        # An operator query against a RUNNING scheduler, not a serving
+        # mode, so it short-circuits before the main parser.
+        return _run_explain(argv[1:])
+    if argv and argv[0] == "slo":
+        return _run_slo(argv[1:])
+    parser = argparse.ArgumentParser(
+        prog="yoda-tpu-scheduler",
+        description="TPU-native Kubernetes scheduler (yoda-tpu), PyTorch/CUDA port",
+    )
+    parser.add_argument("--config", help="scheduler configuration YAML", default=None)
+    parser.add_argument("-v", "--verbosity", type=int, default=3)
+    parser.add_argument(
+        "--metrics-port",
+        type=int,
+        default=10259,
+        help="port for /metrics, /healthz, /readyz, /trace (-1 disables)",
+    )
+    parser.add_argument(
+        "--demo",
+        action="store_true",
+        help="run against an in-memory fake cluster with a synthetic TPU fleet",
+    )
+    parser.add_argument(
+        "--device",
+        choices=sorted(_DEVICE_PLATFORM),
+        default=None,
+        help="where the fleet evaluation runs: 'cuda' (the card; raises "
+        "without one) or 'cpu' (the host). Default: the config's "
+        "kernel_platform, whose default 'auto' means the card",
+    )
+    parser.add_argument(
+        "--federate-url",
+        action="append",
+        default=None,
+        metavar="NAME=URL",
+        help="federated mode (not ported yet: exits 2)",
+    )
+    ha = parser.add_argument_group("leader election")
+    ha.add_argument(
+        "--leader-elect",
+        action="store_true",
+        help="run scheduling only while holding the coordination.k8s.io Lease",
+    )
+    ha.add_argument("--lease-namespace", default="kube-system")
+    ha.add_argument("--lease-name", default="yoda-tpu-scheduler")
+    ha.add_argument(
+        "--lease-identity", default=None, help="defaults to $HOSTNAME"
+    )
+    parser.add_argument(
+        "--agent",
+        action="store_true",
+        help="node-agent mode (not ported yet: exits 2)",
+    )
+    args = parser.parse_args(argv)
+
+    if args.demo:
+        from yoda_tpu_torch.demo import run_demo
+
+        return run_demo(
+            verbosity=args.verbosity,
+            platform=_DEVICE_PLATFORM[args.device] if args.device else "auto",
+        )
+    unported = _unported_mode(args, None)
+    if unported is not None:
+        print(f"yoda-tpu-scheduler: {unported}", file=sys.stderr)
+        return 2
+    stop = stop if stop is not None else threading.Event()
+    return _run_scheduler(args, stop)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

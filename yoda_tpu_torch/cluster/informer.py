@@ -23,10 +23,11 @@ are read by preemption (:meth:`list_pdbs`).
 
 Counterpart of ``yoda_tpu/cluster/informer.py``, with the node-health
 fence hook (``fence_fn``, stamped on every snapshot as ``Snapshot.fenced``,
-and :meth:`InformerCache.invalidate_snapshot`). Left out until a later
-slice: the "synced" liveness sentinels of the API-server client (the
-``watches_*`` flags are set by the caller), shard partitioning and the
-watch-staleness clock.
+and :meth:`InformerCache.invalidate_snapshot`) and the "synced" liveness
+sentinels ``KubeCluster`` emits once a PersistentVolumeClaim,
+PersistentVolume or PodDisruptionBudget LIST succeeded (each turns its
+``watches_*`` flag on). Left out until a later slice: shard partitioning
+and the watch-staleness clock, which the federation health monitor reads.
 """
 
 from __future__ import annotations
@@ -213,6 +214,16 @@ class InformerCache:
             self.on_change_batch(relevant_events)
 
     def _handle_pvc(self, event: Event) -> None:
+        if event.type == "synced":
+            # KubeCluster emits this after a successful PVC LIST: the
+            # watch is genuinely live (RBAC granted), so an empty store now
+            # means "no claims exist" and enforcement is on. Without it
+            # (403: missing ClusterRole rule) volume constraints degrade to
+            # not-enforced instead of parking every PVC-referencing pod on
+            # "claim not found".
+            self.watches_pvcs = True
+            self._batch_dirty = True
+            return
         pvc: K8sPvc = event.obj  # type: ignore[assignment]
         if event.type == "deleted":
             self._pvcs.pop(pvc.key, None)
@@ -221,6 +232,10 @@ class InformerCache:
         self._batch_dirty = True
 
     def _handle_pv(self, event: Event) -> None:
+        if event.type == "synced":
+            self.watches_pvs = True
+            self._batch_dirty = True
+            return
         pv: K8sPv = event.obj  # type: ignore[assignment]
         if event.type == "deleted":
             self._pvs.pop(pv.name, None)
@@ -229,6 +244,11 @@ class InformerCache:
         self._batch_dirty = True
 
     def _handle_pdb(self, event: Event) -> None:
+        if event.type == "synced":
+            # PDB LIST succeeded (RBAC granted): enforcement on, as for
+            # _handle_pvc's sentinel.
+            self.watches_pdbs = True
+            return
         pdb: K8sPdb = event.obj  # type: ignore[assignment]
         if event.type == "deleted":
             self._pdbs.pop(pdb.key, None)

@@ -20,14 +20,19 @@ Genuine infeasibility (a 404 pod, a plain "already bound elsewhere"
 ValueError, a label parse error) is never retried: retry only buys time
 against errors where time helps.
 
-Counterpart of ``yoda_tpu/cluster/retry.py``; the interruptible backoff
-sleep (``interruptible_sleep`` / ``RetryAborted``) waits for the port of
-the bind executor.
+Backoff sleeps are interruptible: ``interruptible_sleep(stop)`` builds a
+sleeper that waits on a ``threading.Event`` instead of ``time.sleep``, and
+raises ``RetryAborted`` the moment the event fires — so shutdown or
+leadership loss aborts a pending retry immediately instead of draining up
+to ``cap_s`` per attempt on the scheduling thread.
+
+Counterpart of ``yoda_tpu/cluster/retry.py``, whole.
 """
 
 from __future__ import annotations
 
 import random
+import threading
 import time
 from dataclasses import dataclass
 from typing import Callable
@@ -54,6 +59,26 @@ def retryable_api_error(exc: BaseException) -> bool:
         e = e.__cause__
         seen += 1
     return False
+
+
+class RetryAborted(RuntimeError):
+    """A retry backoff sleep was interrupted (stop event fired): the call
+    is abandoned immediately. Never retryable by classification — no
+    ``status``, not an OSError — so it propagates out of
+    ``call_with_retries`` unchanged."""
+
+
+def interruptible_sleep(stop: "threading.Event") -> Callable[[float], None]:
+    """A ``sleep`` drop-in for ``call_with_retries`` that waits on
+    ``stop``: the full delay passes when the event stays clear; the event
+    firing raises ``RetryAborted`` at once (shutdown / leadership loss
+    must not be delayed by up to ``cap_s`` per pending attempt)."""
+
+    def _sleep(delay_s: float) -> None:
+        if stop.wait(delay_s):
+            raise RetryAborted("stop requested during retry backoff")
+
+    return _sleep
 
 
 @dataclass(frozen=True)

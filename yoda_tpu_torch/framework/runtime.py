@@ -17,15 +17,15 @@ Counterpart of ``yoda_tpu/framework/runtime.py``, ported as far as the
 singleton, gang and preemption paths reach it: the Permit waitlist
 (``WaitingPod``, expiry and cancellation), the gang-fused and joint
 pre-evaluation hooks, PostFilter (``run_post_filter``) and unbind, and the
-bind executor (``BindExecutor`` over ``_DaemonPool``), which the node
-health monitor and the rebalancer fan their unbinds out on. Left out until
-a later slice: the per-node filter loop (loop mode), the bind pipeline
-that would put the scheduler's own binds on the executor (so every bind of
-a scheduling cycle runs inline on the scheduling thread) with the
-executor's completion bookkeeping. ``Framework.tracer`` (wired by
-``build_stack``) records the bind and unbind spans on whichever thread runs
-them: the scheduling thread, or an executor worker for the monitor's and
-the rebalancer's unbind fan-out.
+bind executor (``BindExecutor`` over ``_DaemonPool``) with its completion
+bookkeeping (``inflight()``, ``on_settled``, ``submitted``) and its
+``stop_event``: the bind pipeline fans a gang's member binds out on it, and
+the node health monitor and the rebalancer fan their unbinds out on it.
+Left out until a later slice: the per-node filter loop (loop mode).
+``Framework.tracer`` (wired by ``build_stack``) records the bind and unbind
+spans on whichever thread runs them: the scheduling thread, or an executor
+worker for pipelined binds and for the monitor's and the rebalancer's
+unbind fan-out.
 """
 
 from __future__ import annotations
@@ -156,58 +156,92 @@ class _DaemonPool:
             except BaseException as e:  # noqa: BLE001 — future carries it
                 fut.set_exception(e)
 
-    def shutdown(self) -> None:
-        """Refuse new work and end every worker after the tasks already
-        queued (one sentinel each); does not wait for them."""
+    def shutdown(self, wait: bool = True, cancel_futures: bool = False) -> None:
+        import queue as _queue
+
         with self._lock:
             self._down = True
             threads = list(self._threads)
+        if cancel_futures:
+            while True:
+                try:
+                    item = self._q.get_nowait()
+                except _queue.Empty:
+                    break
+                if item is not None:
+                    item[0].cancel()
         for _ in threads:
             self._q.put(None)
+        if wait:
+            for t in threads:
+                t.join()
 
 
 class BindExecutor:
-    """Bounded-concurrency unbind fan-out (config ``bind_workers``).
+    """Bounded-concurrency bind fan-out — the bind pipeline (config
+    ``bind_workers``).
 
-    A persistent thread pool that carries unbind API round trips off the
-    calling thread. ``build_stack`` makes one when ``bind_workers`` > 0 and
-    hands it to the node health monitor and the rebalancer, whose repairs
-    and moves put every member's unbind here through :func:`unbind_all`
-    and wait for all of them, so the round trips overlap.
+    A persistent thread pool that carries bind API round-trips, and their
+    retry/backoff sleeps, OFF the scheduling thread: a gang's waitlist
+    release submits every member's allow-and-bind here and returns, so the
+    serve loop starts the next cycle's snapshot refresh and kernel dispatch
+    while the previous cycle's binds are still in flight. In-flight binds
+    stay charged to the accountant through their reservations, so the
+    overlapped dispatch already sees their capacity as consumed.
 
-    The reference's executor also keeps completion bookkeeping
-    (``inflight()``, ``on_settled``) and a ``stop_event`` for its bind
-    pipeline and CLI; neither is ported, so neither is here.
+    The executor is the pipeline's completion bookkeeping too:
 
-    Workers are created lazily on the first submit, so stacks that never
-    repair or move anything never pay the threads. They are DAEMON
-    threads (see ``_DaemonPool``): an executor whose owner forgot
-    ``shutdown()`` must never wedge interpreter exit.
+    - ``inflight()`` feeds the ``yoda_bind_inflight`` gauge and the drain
+      barrier (``Scheduler.run_until_idle`` treats pending binds as active
+      work instead of concluding idle under them);
+    - every settle fires ``on_settled`` (the scheduler wires its activity
+      signal) so drain waits are event-bound, not polled;
+    - ``stop_event`` is shared with the binder's interruptible backoff
+      sleeps: setting it (shutdown, leadership loss) aborts pending retry
+      waits promptly instead of draining up to ``retry_cap_s`` each.
+
+    Workers are created lazily on the first submit, so pipeline-disabled
+    stacks and tests never pay the threads. They are DAEMON threads (see
+    ``_DaemonPool``): an executor whose owner forgot ``shutdown()`` — a
+    dropped test stack, a SIGTERM mid-drain — must never wedge
+    interpreter exit or trip the tests' thread-hygiene gate; orderly
+    shutdown still exists and is what cli.py uses.
+
+    The node health monitor's repairs and the rebalancer's moves fan their
+    unbinds out on the same executor (:func:`unbind_all`).
     """
 
-    def __init__(self, workers: int = 8, *, name: str = "bind") -> None:
+    def __init__(
+        self,
+        workers: int = 8,
+        *,
+        stop_event: "threading.Event | None" = None,
+        name: str = "bind",
+    ) -> None:
         self.workers = max(int(workers), 1)
+        self.stop_event = stop_event if stop_event is not None else threading.Event()
+        # Fired (no args) after every task settles, successes and failures
+        # alike, AFTER the in-flight count dropped — a waiter woken by it
+        # observes the decrement.
+        self.on_settled: Callable[[], None] | None = None
         self._name = name
         self._lock = threading.Lock()
-        self._pool: _DaemonPool | None = None
-        self._inflight = 0  # submitted, not yet settled (yoda_bind_inflight)
-
-    def inflight(self) -> int:
-        with self._lock:
-            return self._inflight
+        self._pool = None
+        self._inflight = 0
+        self.submitted = 0  # lifetime task count (tests, introspection)
 
     def submit(self, fn: Callable[[], None]):
         """Run ``fn`` on a worker; returns the Future. ``fn``'s exceptions
-        are logged, never propagated — unbind failures are reported through
-        the rollback path, not the future."""
+        are logged, never propagated — bind failures are reported through
+        the resolution chain, not the future."""
         with self._lock:
             if self._pool is None:
                 self._pool = _DaemonPool(
                     max_workers=self.workers,
                     thread_name_prefix=f"{self._name}-worker",
                 )
-            pool = self._pool
             self._inflight += 1
+            self.submitted += 1
 
         def run() -> None:
             try:
@@ -217,15 +251,33 @@ class BindExecutor:
             finally:
                 with self._lock:
                     self._inflight -= 1
+                cb = self.on_settled
+                if cb is not None:
+                    cb()
 
-        return pool.submit(run)
+        return self._pool.submit(run)
+
+    def inflight(self) -> int:
+        with self._lock:
+            return self._inflight
 
     def shutdown(self) -> None:
-        """Stop the workers; the next submit starts a fresh pool."""
+        """Stop accepting work and abort pending retry sleeps. ``wait=False``
+        so a SIGTERM during a stalled bind round-trip does not block the
+        drain on the worker; the in-flight HTTP call is bounded by the API
+        client's request timeout either way."""
+        self.stop_event.set()
+        self.release()
+
+    def release(self) -> None:
+        """Shut the worker pool WITHOUT firing ``stop_event`` — the live
+        shard resize retires one lane's executor while the process-wide
+        stop event (shared by every lane's interruptible sleeps) must
+        stay unset. Idle daemon workers exit on their sentinels."""
         with self._lock:
             pool, self._pool = self._pool, None
         if pool is not None:
-            pool.shutdown()
+            pool.shutdown(wait=False, cancel_futures=True)
 
 
 def unbind_all(

@@ -27,14 +27,25 @@ spec, filter, score, reserve, permit, postfilter) into
 fenced binds, gang Permit waits, transactional rollbacks, the SLO
 engine's bound edge at both bind sites, the why-pending records and
 resolutions, and the cycle / permit-park / bound / permit-rejected /
-gather / joint-park spans. ``yoda_overlap_cycles_total`` (the bind
-pipeline) and ``yoda_shard_commit_rollbacks_total`` (shards) are never
-fed here and stay at 0. As in the reference, the cycle lock is released
-before PostFilter: preemption's victim selection takes the same lock.
-``on_serve_start`` is held for ``serve_forever``, which is not ported
-yet, so nothing calls it. Left out until a later slice: shard staging and
-commits, the bind executor (every bind runs inline, so a gang's rollback
-needs no completion barrier) and ``serve_forever``.
+gather / joint-park spans. As in the reference, the cycle lock is
+released before PostFilter: preemption's victim selection takes the same
+lock.
+
+The bind pipeline and the production loop are here too: with a
+``bind_executor`` wired, a gang's release fans its member binds out on the
+executor's workers and the loop goes on to the next turn while they are in
+flight (``yoda_overlap_cycles_total`` counts such turns, in both
+``run_until_idle`` and ``serve_forever``); every settle signals the drain
+condition (``bind_executor.on_settled``), ``run_until_idle`` treats
+in-flight binds as active work (the drain barrier), and the landed binds
+of a gang whose bind failed are unwound only once the whole release has
+settled (``_flush_deferred_rollbacks`` over the gang plugin's
+``collect_rollbacks``). ``serve_forever`` blocks on the queue, parks while
+fenced (permit expiry still sweeps) and runs ``on_serve_start`` (the
+reconciler's warm-start resync) once, after the fence first admits
+leadership and before the first pop. Left out until a later slice: shard
+staging and commits (``yoda_shard_commit_rollbacks_total`` stays at 0),
+retiring a shard's loop, and the per-node filter loop's search window.
 """
 
 from __future__ import annotations
@@ -80,6 +91,9 @@ class SchedulerStats:
     binds: int = 0
     preempt_nominations: int = 0
 
+    def latencies(self) -> list[float]:
+        return [r.latency_s for r in self.results]
+
 
 class Scheduler:
     def __init__(
@@ -98,6 +112,7 @@ class Scheduler:
         pod_alive: Callable[[PodSpec], bool] | None = None,
         burst_size: int = 1,
         fence_fn: Callable[[], bool] | None = None,
+        bind_executor=None,
     ) -> None:
         self.framework = framework
         self.snapshot_fn = snapshot_fn
@@ -138,14 +153,34 @@ class Scheduler:
         # consume chain in _schedule_one_locked (lookup -> fence ->
         # epoch_valid -> revalidate -> consume_plan) is the only reader.
         self.speculation = None
-        # Warm-start gate: serve_forever (not ported yet) calls this ONCE
-        # before its first queue pop — the reconciler's resync.
+        # Bind pipeline: when wired, gang releases fan their member binds
+        # out on this executor and the serve loop OVERLAPS the next cycle
+        # (snapshot refresh + kernel dispatch) with the in-flight binds.
+        # Pending binds are active work: run_until_idle never concludes
+        # idle under them, and every settle bumps the activity condition
+        # so drain waits stay event-bound.
+        self.bind_executor = bind_executor
+        if bind_executor is not None:
+            bind_executor.on_settled = self._signal_activity
+        # Warm-start gate (crash-safe failover): when wired (cli.py sets
+        # the stack reconciler's resync), serve_forever invokes this ONCE,
+        # after the fence first reports leadership but BEFORE the first
+        # queue pop — so the resync pass completes before any
+        # post-promotion bind can happen. A raising hook propagates:
+        # serving on un-resynced state risks double-placement, so the
+        # process fails closed and restarts into standby.
         self.on_serve_start: "Callable[[], None] | None" = None
         # pod uid -> node nominated by preemption: a pod that binds to a
         # DIFFERENT node gets its stale status.nominatedNodeName cleared.
         # Entries drop on bind or deletion.
         self._nominated: dict[str, str] = {}
         self._lock = threading.Lock()
+
+    def _bind_inflight(self) -> int:
+        """Binds currently in flight on the pipeline executor (0 when no
+        executor is wired — every bind then runs inline in its cycle)."""
+        ex = self.bind_executor
+        return ex.inflight() if ex is not None else 0
 
     def _fenced(self) -> bool:
         """True when a leader gate is wired and this process does NOT hold
@@ -527,13 +562,31 @@ class Scheduler:
 
     def _on_permit_resolved(self, wp: WaitingPod, status: Status) -> None:
         """Fires when a waiting pod is allowed (bind it) or rejected (roll
-        back its reservation and requeue), then signals the drain
-        condition — AFTER the bind, requeue and rollbacks landed, so a
-        woken ``run_until_idle`` never observes the half-resolved state."""
+        back its reservation and requeue) — on the pipelined release, from
+        a bind-executor worker. Flushes any gang rollbacks whose release
+        barrier this settle completed, then signals the drain condition —
+        AFTER the bind, requeue and rollbacks landed, so a woken
+        ``run_until_idle`` never observes the half-resolved state."""
         try:
             self._do_permit_resolved(wp, status)
         finally:
-            self._signal_activity()
+            try:
+                self._flush_deferred_rollbacks()
+            finally:
+                self._signal_activity()
+
+    def _flush_deferred_rollbacks(self) -> None:
+        """Completion-barrier flush: unwind landed binds of gangs whose
+        release cohort has FULLY settled after a bind failure (every
+        in-flight sibling bound, failed, or was cascade-rejected). Runs
+        after every settle, on whichever thread settled last — an unbind
+        never races a sibling's bind still mid-air."""
+        for p in self.framework.permit_plugins:
+            hook = getattr(p, "collect_rollbacks", None)
+            if hook is None:
+                continue
+            for spec, node, why in hook(self.framework):
+                self._rollback_bound(spec, node, None, why)
 
     def _do_permit_resolved(self, wp: WaitingPod, status: Status) -> None:
         pod = wp.pod
@@ -553,14 +606,26 @@ class Scheduler:
             else:
                 st = self.framework.run_bind(wp.state, pod, wp.node_name)
             if st.success:
-                self._confirm_bound(wp)
+                if not self._confirm_bound(wp):
+                    # The gang began a bind-failure rollback while this
+                    # member's bind was in flight (pipelined release): the
+                    # landed bind is unwound, not celebrated.
+                    self._rollback_bound(
+                        pod,
+                        wp.node_name,
+                        wp.state,
+                        "gang rolled back while this member's bind was in "
+                        "flight",
+                    )
+                    return
                 log.info("bound %s -> %s (permit released)", pod.key, wp.node_name)
                 with self._lock:
                     self.stats.binds += 1
                 if self.metrics is not None:
                     self.metrics.binds.inc()
                     # SLO engine: permit-released members close their
-                    # admission-wait edge here.
+                    # admission-wait edge here, on whichever thread
+                    # settled the bind.
                     self.metrics.slo.observe_bound(pod, now=self.clock())
                     gang = gang_name_of(pod.labels)
                     self.metrics.pending.resolve(pod.key, gang=gang)
@@ -601,35 +666,35 @@ class Scheduler:
         if self.on_unschedulable:
             self.on_unschedulable(pod, status.message)
 
-    def _confirm_bound(self, wp: WaitingPod) -> None:
+    def _confirm_bound(self, wp: WaitingPod) -> bool:
         """Let Permit plugins observe a landed permit-release bind
-        (transactional gang bookkeeping: a later sibling's bind failure
-        rolls it back)."""
+        (transactional gang bookkeeping). Any False verdict means the bind
+        must be rolled back — the gang failed while this bind was in
+        flight."""
+        keep = True
         for p in self.framework.permit_plugins:
             hook = getattr(p, "on_pod_bound", None)
-            if hook is not None:
-                hook(self.framework, wp)
+            if hook is not None and not hook(self.framework, wp):
+                keep = False
+        return keep
 
     def _handle_bind_failure(self, wp: WaitingPod, st: Status) -> None:
         """A permit-released bind failed after the binder's transient
-        retries: Permit plugins make the failure TRANSACTIONAL — the gang
-        plugin rejects still-waiting members (the cascade releases their
-        reservations) and hands back the siblings whose binds already
-        landed, which are unbound, unreserved and requeued here. Every
-        bind runs inline on this thread, so the landed set is final when
-        the hook returns (None: no rollback was initiated). The failing
-        member itself goes through the caller's standard rejection path."""
+        retries (or was fenced): Permit plugins make the failure
+        TRANSACTIONAL — the gang plugin rejects still-waiting members and
+        parks the siblings whose binds already landed for a deferred
+        unwind; the unbind / unreserve / requeue happens in
+        ``_flush_deferred_rollbacks`` once the release cohort has fully
+        settled (an unbind must never race a sibling's bind still mid-air
+        on the pipeline). The failing member itself goes through the
+        caller's standard rejection path."""
         initiated = False
         for p in self.framework.permit_plugins:
             hook = getattr(p, "on_bind_failed", None)
             if hook is None:
                 continue
-            landed = hook(self.framework, wp, st)
-            if landed is None:
-                continue
-            initiated = True
-            for spec, node, why in landed:
-                self._rollback_bound(spec, node, None, why)
+            if hook(self.framework, wp, st):
+                initiated = True
         if initiated and self.metrics is not None:
             self.metrics.recovery_rollbacks.inc()
 
@@ -817,12 +882,16 @@ class Scheduler:
 
     def run_until_idle(self, *, max_wall_s: float = 30.0) -> None:
         """Drain the queue, resolving Permit waits and expirations, until no
-        active work remains or ``max_wall_s`` passes. Test/demo entry point.
+        active work remains or ``max_wall_s`` passes. Test/demo entry point; the
+        production loop is ``serve_forever``.
 
         Event-bound: while Permit waiters exist the loop sleeps on the
-        activity condition — woken by permit resolutions and queue activity
-        (adds, event reactivations) — with a timeout no later than the
-        earliest permit deadline, so expiry still fires on time."""
+        activity condition — woken by permit resolutions (allow/reject from
+        any thread) and queue activity (adds, event reactivations) — with a
+        timeout no later than the earliest permit deadline, so expiry still
+        fires on time. The old fixed 2 ms settle poll made every gang's
+        drain latency a multiple of the poll interval; now it tracks the
+        resolving event itself."""
         deadline = time.monotonic() + max_wall_s
         binds_at_drain = -1  # binds count when the queue last went inactive
         while time.monotonic() < deadline:
@@ -832,21 +901,37 @@ class Scheduler:
                 # seq and turns the wait into a no-op (no lost wakeup).
             if self._fenced():
                 # Leader fencing: park the queue — nothing is popped or
-                # bound while fenced.
+                # bound while fenced. The drain's fixed-point checks below
+                # conclude quickly (no binds advance).
                 qpi = None
             else:
                 qpi = self.queue.pop(timeout=0.0)
             if qpi is not None:
+                if self.metrics is not None and self._bind_inflight() > 0:
+                    # Pipeline overlap: this cycle's snapshot + dispatch
+                    # runs while the previous release's binds are in
+                    # flight — the serialization the pipeline removes.
+                    self.metrics.overlap_cycles.inc()
                 for q in self._pop_batch(qpi):
                     self.schedule_one(q)
                 continue
             self.framework.expire_waiting(now=self.clock())
             waiters = self.framework.waiting_pods()
-            if waiters:
+            inflight = self._bind_inflight()
+            if waiters or inflight:
+                # Pending pipelined binds are active work: their pods left
+                # the waitlist when allow() fired, but the bind API write
+                # (and any rollback it triggers) has not landed. Each
+                # settle signals the activity condition.
                 now = self.clock()
+                next_deadline = (
+                    min(w.deadline for w in waiters)
+                    if waiters
+                    else now + self.DRAIN_WAIT_CAP_S
+                )
                 timeout = max(
                     min(
-                        min(w.deadline for w in waiters) - now,
+                        next_deadline - now,
                         deadline - time.monotonic(),
                         self.DRAIN_WAIT_CAP_S,
                     ),
@@ -861,10 +946,49 @@ class Scheduler:
             # Only backoff pods remain. Retrying them is useful only if the
             # cluster changed (a bind) since their last attempt; otherwise
             # this is a fixed point — leave them to the event-driven path.
+            # Forced: the settlement loop must not conclude "idle" while
+            # a CHRONIC pod (beyond the event-retry cutoff) could fit the
+            # freed capacity — bounded, since it only fires when binds
+            # advanced since the last drain.
             if self.stats.binds == binds_at_drain:
                 return
             binds_at_drain = self.stats.binds
             self.queue.move_all_to_active(force=True)
+
+    def serve_forever(self, stop: threading.Event, *, poll_s: float = 0.5) -> None:
+        """The production loop: block on the queue, schedule the popped
+        batch, then sweep permit expirations ONCE per iteration (the sweep
+        ran twice per iteration before — once after the pop and once per
+        scheduled entry — pure overhead, since expiry resolution only needs
+        to be poll_s-grained and each sweep walks the whole waitlist).
+
+        With the bind pipeline wired, a gang release returns before its
+        binds land: the next iteration's pop -> snapshot -> kernel dispatch
+        OVERLAPS the in-flight bind I/O (yoda_overlap_cycles_total counts
+        these turns). Correctness needs no extra synchronization — the
+        in-flight members' reservations stay charged to the accountant, so
+        the overlapped evaluation already sees their capacity as consumed."""
+        while not stop.is_set():
+            if self._fenced():
+                # Leader fencing: park the queue until leadership returns.
+                # Permit expirations still sweep so parked gangs cannot
+                # hold reservations past their deadlines while fenced.
+                self.framework.expire_waiting(now=self.clock())
+                stop.wait(poll_s)
+                continue
+            if self.on_serve_start is not None:
+                # Warm-start resync: runs exactly once, after the fence
+                # first admits leadership and before the first pop — no
+                # bind can precede it (the /readyz contract).
+                hook, self.on_serve_start = self.on_serve_start, None
+                hook()
+            qpi = self.queue.pop(timeout=poll_s)
+            if qpi is not None:
+                if self.metrics is not None and self._bind_inflight() > 0:
+                    self.metrics.overlap_cycles.inc()
+                for q in self._pop_batch(qpi):
+                    self.schedule_one(q)
+            self.framework.expire_waiting(now=self.clock())
 
 
 def _normalize(scores: dict[str, int]) -> dict[str, int]:

@@ -38,7 +38,8 @@ does not have yet register all the same and read 0:
 families, ``yoda_commit_term`` and ``yoda_standby_lag_frames`` (shards,
 the commit RPC, standby failover), ``yoda_cluster_state``,
 ``yoda_cluster_transitions_total`` and ``yoda_spillover_gangs_total``
-(federation) and ``yoda_overlap_cycles_total`` (the bind pipeline).
+(federation). ``yoda_overlap_cycles_total`` is fed by the scheduler's
+serve and drain loops (a turn popped while pipelined binds are in flight).
 """
 
 from __future__ import annotations

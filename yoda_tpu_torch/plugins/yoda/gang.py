@@ -45,10 +45,14 @@ remainder), and the rebalancer surface: elastic resize
 barrier count to the effective size, and a surplus member parks until a
 resize-up), ``install_plan`` and ``bound_members``, and the Event
 recorder's rollback hook (``on_rollback``, called on the triggering member
-and on every member the rollback touches). Left out until a later slice:
-shard commits (``collect_commits``), the bind pipeline's parallel release
-and completion barrier (``collect_rollbacks``: every bind here runs
-inline, so ``on_bind_failed`` hands the landed binds back directly). The
+and on every member the rollback touches), and the bind pipeline: with
+``parallel_release`` and a ``bind_executor`` a completed gang's member
+binds fan out on the executor and the release returns without draining
+them; a member's bind failure parks the landed siblings' unwinds behind
+the release barrier (``release_pending``) until every in-flight sibling
+has settled, and ``collect_rollbacks`` hands them to the scheduler;
+``close()`` shuts the executor. Left out until a later slice: shard
+commits (``collect_commits``). The
 tracer and the why-pending index are here (``tracer`` / ``pending``, wired by
 ``build_stack``): gang-release and gang-rollback spans on the gang's
 trace, and a topology park's verdict with a walk over the fleet naming
@@ -124,10 +128,20 @@ class _GangState:
     plan: dict[str, tuple[int, int, int]] | None = None  # host -> coord
     failing: bool = False
     # Transactional bind rollback: the member keys of the CURRENT waitlist
-    # release and the subset whose binds already landed (key -> host) —
-    # reset at each release start.
+    # release, the subset whose binds already landed (key -> host), and
+    # whether a bind in this release failed — reset at each release start.
     release_cohort: set[str] = field(default_factory=set)
     release_bound: dict[str, str] = field(default_factory=dict)
+    bind_failed: bool = False
+    # Completion barrier (the bind pipeline): members of the release whose
+    # bind has not SETTLED yet (landed, failed, or was cascade-rejected
+    # before binding). After a failure, the landed binds to unwind park in
+    # release_rollbacks until the barrier drains — rollback API writes
+    # fire only once every in-flight sibling has settled
+    # (collect_rollbacks), never while a bind is mid-air.
+    release_pending: set[str] = field(default_factory=set)
+    release_rollbacks: list = field(default_factory=list)  # (spec, host, why)
+    rollback_ready: bool = False
     # Hosts that died (value: which kinds' deletion marked them — a Node
     # deletion is only cleared by a Node re-add, not by the agent's CR
     # republish, and vice versa). Marked on EVERY gang so a death landing
@@ -150,9 +164,21 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
         timeout_s: float = 120.0,
         reserved_fn: Callable[[str], int] | None = None,
         on_rollback: Callable[[PodSpec, str, str], None] | None = None,
+        parallel_release: bool = False,
+        bind_executor=None,
     ) -> None:
         self.timeout_s = timeout_s
         self.reserved_fn = reserved_fn
+        # Pipelined release: with both a bind executor and
+        # parallel_release True, a completed gang's member binds FAN OUT
+        # on the executor and on_pod_waiting returns without draining
+        # them — the serve loop overlaps the next cycle with the in-flight
+        # binds. Only worth it when a bind is real I/O (KubeCluster's API
+        # round trips, injected bind latency; build_stack's bind_pipeline
+        # gate): against an in-process FakeCluster a bind is microseconds
+        # and the thread handoff costs more than it saves.
+        self.parallel_release = parallel_release
+        self.bind_executor = bind_executor
         # (member pod, gang name, why) — build_stack wires the Event
         # recorder's GangRollback reason here.
         self.on_rollback = on_rollback
@@ -577,11 +603,17 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
             complete = len(gs.waiting) + len(gs.bound) >= self._eff(gs)
             targets = list(gs.waiting) if complete and not dead else []
             if targets:
-                # Release starts: arm the transactional-bind cohort. Any
-                # member's bind failure from here rolls the whole cohort
-                # back (on_bind_failed).
+                # Release starts: arm the transactional-bind cohort AND
+                # the completion barrier. Any member's bind failure from
+                # here rolls the whole cohort back (on_bind_failed), but
+                # the unwind of landed binds waits until every in-flight
+                # sibling settles (release_pending drains).
                 gs.release_cohort = set(targets)
                 gs.release_bound = {}
+                gs.release_pending = set(targets)
+                gs.release_rollbacks = []
+                gs.rollback_ready = False
+                gs.bind_failed = False
         if dead:
             wp.reject(
                 f"assigned host {gs.assigned.get(wp.pod.key)} disappeared "
@@ -603,17 +635,55 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
             for key in targets
             if (w := framework.get_waiting_pod(key)) is not None
         ]
-        # Every member is observed before any failure re-raises: a raising
-        # resolution chain must not abandon the rest to the permit timeout.
+        if (
+            len(waiters) <= 1
+            or not self.parallel_release
+            or self.bind_executor is None
+        ):
+            self._observed_release(waiters, lambda w: w.allow(self.name))
+            return
+        # Pipelined release: each allow() runs the member's bind — an API
+        # round trip on real clusters, retry backoff included — and a gang
+        # of N pays N-1 of them here. Fan them out on the bounded bind
+        # executor and RETURN WITHOUT DRAINING: the serve loop goes on to
+        # the next cycle's snapshot refresh and kernel dispatch while these
+        # binds are in flight, bounded by bind_workers concurrent API
+        # writes. The executor is persistent, so the workers' per-thread
+        # keep-alive connections (KubeApiClient._pooled) amortize across
+        # gangs. Safety: each WaitingPod resolves exactly once under its
+        # own lock; in-flight members keep their reservations charged to
+        # the accountant, so overlapped dispatches see their capacity as
+        # consumed; a member's bind failure rolls the cohort back only
+        # after every in-flight sibling settles (release_pending barrier +
+        # collect_rollbacks).
+        for w in waiters:
+            self.bind_executor.submit(lambda w=w: w.allow(self.name))
+
+    @staticmethod
+    def _observed_release(waiters, invoke) -> None:
+        """Run ``invoke`` over every member, observing EVERY member before
+        any failure re-raises: a raising resolution chain must not abandon
+        the remaining members to the permit timeout."""
         first_error = None
         for w in waiters:
             try:
-                w.allow(self.name)
+                invoke(w)
             except Exception as e:  # noqa: BLE001
                 log.exception("releasing gang member %s failed", w.pod.key)
                 first_error = first_error or e
         if first_error is not None:
             raise first_error
+
+    def close(self) -> None:
+        """Release the bind executor (cli.py's drain path). Shutdown sets
+        the executor's stop event, which also aborts any pending
+        interruptible retry sleeps in the binder; workers are not joined
+        (a SIGTERM during a stalled bind round trip must not block the
+        drain — the in-flight HTTP call is bounded by
+        KubeApiConfig.request_timeout_s either way)."""
+        executor, self.bind_executor = self.bind_executor, None
+        if executor is not None:
+            executor.shutdown()
 
     def on_pod_resolved(self, framework, wp, status: Status) -> None:
         """Framework hook on waitlist resolution: success moves the member to
@@ -635,8 +705,13 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
                         k: v for k, v in gs.specs.items() if k in gs.bound
                     }
                 return
-            # Rejection: roll the rest of the gang back (once).
+            # Rejection: roll the rest of the gang back (once). A cohort
+            # member rejected BEFORE its bind (cascade, host death, permit
+            # expiry) settles its slot in the release barrier — it will
+            # never reach the API.
+            gs.release_pending.discard(wp.pod.key)
             gs.release_cohort.discard(wp.pod.key)
+            self._maybe_rollback_ready(gs)
             gs.assigned.pop(wp.pod.key, None)
             gs.specs.pop(wp.pod.key, None)
             if gs.failing:
@@ -672,32 +747,55 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
 
     # --- transactional bind rollback ---
 
-    def on_pod_bound(self, framework, wp) -> None:
+    def _maybe_rollback_ready(self, gs: _GangState) -> None:
+        """Under the lock: arm the deferred-rollback handoff once the
+        release cohort has FULLY settled after a failure — every in-flight
+        sibling bound, failed, or was rejected. collect_rollbacks then
+        hands the parked (spec, host, why) triples to the scheduler."""
+        if gs.bind_failed and not gs.release_pending and gs.release_rollbacks:
+            gs.rollback_ready = True
+
+    def on_pod_bound(self, framework, wp) -> bool:
         """Framework hook: a permit-released pod's bind SUCCEEDED. Records
         the member in its gang's release cohort so a later sibling's bind
-        failure rolls it back. (Binds run inline, one member after the
-        other, so none lands after a sibling's failure: that failure
-        rejects every member not yet bound.)"""
+        failure can roll it back, and settles the member's slot in the
+        release barrier. Returns False when the gang already began a
+        bind-failure rollback — the caller must then undo THIS bind too
+        (pipelined-release race: binds in flight concurrently, the first
+        failure wins and the stragglers are unwound)."""
         gang_name = gang_name_of(wp.pod.labels)
         if not gang_name:
-            return
+            return True
         with self._lock:
             gs = self._gangs.get(gang_name)
-            if gs is not None and wp.pod.key in gs.release_cohort:
-                gs.release_bound[wp.pod.key] = wp.node_name
+            if gs is None or wp.pod.key not in gs.release_cohort:
+                return True
+            gs.release_pending.discard(wp.pod.key)
+            if gs.bind_failed:
+                gs.bound.discard(wp.pod.key)
+                gs.assigned.pop(wp.pod.key, None)
+                gs.specs.pop(wp.pod.key, None)
+                gs.release_cohort.discard(wp.pod.key)
+                self._maybe_rollback_ready(gs)
+                return False
+            gs.release_bound[wp.pod.key] = wp.node_name
+            return True
 
-    def on_bind_failed(
-        self, framework, wp, status: Status
-    ) -> "list[tuple[PodSpec, str, str]] | None":
+    def on_bind_failed(self, framework, wp, status: Status) -> "bool | None":
         """Framework hook: a permit-released member's bind FAILED after the
         binder's transient retries. Makes the gang bind transactional —
-        the all-or-nothing contract extended through the bind phase:
-        still-waiting members are rejected (the standard cascade releases
-        their reservations) and the gang's bookkeeping forgets the release
-        so the WHOLE gang re-queues untouched. Returns the (spec, host,
-        why) of the siblings whose binds already landed in this release:
-        the scheduler unbinds, unreserves and requeues them. None when no
-        rollback was initiated (not a gang member, or an unknown gang)."""
+        the all-or-nothing contract the fit gate gives placement, extended
+        through the bind phase: siblings whose binds already landed this
+        release are parked for unbind/unreserve/requeue, still-waiting
+        members are rejected (the standard cascade releases their
+        reservations), and the gang's bookkeeping forgets the release so
+        the WHOLE gang re-queues untouched. The landed-bind unwinds are
+        DEFERRED behind the release barrier: the scheduler collects them
+        via ``collect_rollbacks`` once every in-flight sibling has settled
+        — an unbind must never race a sibling's bind still mid-air.
+        Returns True when this call initiated the rollback, None otherwise
+        (not a gang member, or the cohort is already rolling back — repeat
+        failures do only their own member bookkeeping)."""
         gang_name = gang_name_of(wp.pod.labels)
         if not gang_name:
             return None
@@ -709,6 +807,8 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
             gs = self._gangs.get(gang_name)
             if gs is None:
                 return None
+            already = gs.bind_failed
+            gs.bind_failed = True
             # The member resolved SUCCESS at Permit, so on_pod_resolved
             # counted it bound — undo that; the caller's standard
             # rejection path unreserves and requeues the member itself.
@@ -716,20 +816,26 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
             gs.assigned.pop(wp.pod.key, None)
             gs.specs.pop(wp.pod.key, None)
             gs.release_cohort.discard(wp.pod.key)
-            rollbacks: list[tuple[PodSpec, str, str]] = []
+            gs.release_pending.discard(wp.pod.key)
+            if already:
+                self._maybe_rollback_ready(gs)
+                return None
+            rollbacks: list[tuple[PodSpec, str]] = []
             for key, host in gs.release_bound.items():
                 spec = gs.specs.pop(key, None)
                 gs.bound.discard(key)
                 gs.assigned.pop(key, None)
                 if spec is not None:
-                    rollbacks.append((spec, host, why))
+                    rollbacks.append((spec, host))
+                    gs.release_rollbacks.append((spec, host, why))
             gs.release_bound = {}
             targets = list(gs.waiting)
             gs.plan = None
             self.bind_rollbacks += 1
+            self._maybe_rollback_ready(gs)
         log.warning(
-            "gang %s: bind failure on %s — rolling back %d landed member(s), "
-            "cascading %d waiting member(s)",
+            "gang %s: bind failure on %s — rolling back %d landed member(s) "
+            "once the release settles, cascading %d waiting member(s)",
             gang_name, wp.pod.key, len(rollbacks), len(targets),
         )
         if self.tracer is not None and self.tracer.enabled:
@@ -743,15 +849,32 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
             )
         if self.on_rollback is not None:
             self.on_rollback(wp.pod, gang_name, why)
-            for spec, _host, _why in rollbacks:
+            for spec, _host in rollbacks:
                 self.on_rollback(spec, gang_name, why)
+        # Outside the lock (reject re-enters the resolution chain — the
+        # standard collect-then-reject discipline of on_pod_resolved).
         for key in targets:
             w = framework.get_waiting_pod(key)
             if w is not None:
                 if self.on_rollback is not None:
                     self.on_rollback(w.pod, gang_name, why)
                 w.reject(f"gang {why}")
-        return rollbacks
+        return True
+
+    def collect_rollbacks(self, framework) -> "list[tuple[PodSpec, str, str]]":
+        """Framework hook, polled by the scheduler after every release
+        settle: the deferred (spec, host, why) unwinds of gangs whose
+        release cohort has FULLY settled after a bind failure. Each
+        rollback is returned exactly once; the scheduler unbinds,
+        unreserves, and requeues them (_rollback_bound)."""
+        out: list[tuple[PodSpec, str, str]] = []
+        with self._lock:
+            for gs in self._gangs.values():
+                if gs.rollback_ready:
+                    gs.rollback_ready = False
+                    out.extend(gs.release_rollbacks)
+                    gs.release_rollbacks = []
+        return out
 
     def drop_membership(self, pod: PodSpec) -> None:
         """Forget a BOUND member that is about to be rolled back elsewhere:

@@ -32,9 +32,9 @@ preference through ``pdbs_fn`` (the informer's budget list): victim sets
 that violate no budget win, and the eviction API stays the enforcement
 point.
 
-Counterpart of ``yoda_tpu/plugins/yoda/preemption.py``, whole but for
-leader fencing (``fenced_fn`` stays None: the port has no leader
-election) and the eviction metrics hook.
+Counterpart of ``yoda_tpu/plugins/yoda/preemption.py``, whole but for the
+eviction metrics hook. ``build_stack`` wires ``fenced_fn`` to the
+scheduler's leader fence, re-checked before every eviction.
 """
 
 from __future__ import annotations

@@ -26,7 +26,12 @@ its own) and whose plans the scheduler's serve path consumes, and the
 informer's ``fence_fn``, so the admission rows the card's kernels read
 veto fenced hosts; gang-whole repair and drains). With ``bind_workers`` >
 0 a ``BindExecutor`` carries the monitor's and the rebalancer's unbind
-fan-out. A caller drives ``reconciler.resync()`` / ``reconcile()``,
+fan-out and, when the bind pipeline is on, a gang release's member binds
+(``bind_pipeline`` "on", or "auto" with a cluster whose binds are real
+I/O: ``remote_binds`` or ``bind_latency_s`` > 0); ``stop_event`` (the
+CLI's serve stop) is the executor's stop event, so shutdown aborts
+pending bind retry sleeps. The binder and preemption re-check the
+scheduler's live leader fence before every API write. A caller drives ``reconciler.resync()`` / ``reconcile()``,
 ``rebalancer.run_once()`` or ``rebalancer.run_forever(stop)`` (which ticks
 the cache), ``speculation.speculate_once()`` and ``nodehealth.run_once()``
 / ``run_forever(stop)`` / ``drain(name)``.
@@ -57,9 +62,9 @@ its drain thread started) coalesces the watch stream and applies each
 batch through the same handler chain, the informer taking it under one
 lock with one epoch bump, so the device-resident fleet state applies each
 batch's changed rows once. ``Stack.close`` stops the batcher's drain
-thread and the recorder's worker. Left out until a later slice: the bind
-pipeline (the scheduler's own binds run inline), the durable journal,
-profiles, shards and federation.
+thread, the recorder's worker and the gang plugin's bind executor. Left
+out until a later slice: the durable journal, profiles, shards and
+federation.
 
 A knob of such a subsystem loads (``config.SchedulerConfig`` keeps every
 knob of the reference), but ``build_stack`` raises ``NotImplementedError``
@@ -67,7 +72,8 @@ naming it when it is set away from its default — except to the value that
 turns the subsystem off, which is what this port already does
 (``UNPORTED_KNOB_VALUES``). Where the default turns such a part ON (the
 reference builds it), ``build_stack`` logs one warning naming every such
-part and lists them in ``Stack.not_built``.
+part and lists them in ``Stack.not_built``; with every part of the
+default configuration ported, that list is empty.
 """
 
 from __future__ import annotations
@@ -136,6 +142,7 @@ PORTED_KNOBS = frozenset(
         "rebalance_elastic",
         "failover_adopt_window_s",
         "bind_workers",
+        "bind_pipeline",
         "node_suspect_after_s",
         "node_down_after_s",
         "node_repair",
@@ -170,10 +177,9 @@ PORTED_KNOBS = frozenset(
 # Every other knob belongs to a part this port does not have yet; it must
 # keep its default or take one of these values, each of which switches
 # that part off (the port's behaviour either way). Each is listed with the
-# part it turns on, for ``Stack.not_built``.
-UNPORTED_KNOB_VALUES = {
-    "bind_pipeline": ("bind pipeline", ("off",)),
-}
+# part it turns on, for ``Stack.not_built``. Every part the default
+# configuration turns on is ported, so none is listed.
+UNPORTED_KNOB_VALUES: "dict[str, tuple[str, tuple]]" = {}
 
 
 def unported_settings(config: SchedulerConfig) -> list[str]:
@@ -259,7 +265,9 @@ class Stack:
     # Built always, started by nobody: the caller drives run_once /
     # run_forever; node_repair=False keeps the ladder and fence, no repair.
     nodehealth: NodeHealthMonitor | None = None
-    # None when config.bind_workers is 0: unbinds then run inline.
+    # None when config.bind_workers is 0: binds and unbinds then run
+    # inline. The gang plugin's release fans out on it when the bind
+    # pipeline is on (gang.parallel_release).
     bind_executor: BindExecutor | None = None
     # The registry, tracer, why-pending index, SLO engine and overload
     # ladder (metrics.tracer / .pending / .slo / .overload).
@@ -277,9 +285,12 @@ class Stack:
     tenants: TenantLedger | None = None
 
     def close(self) -> None:
-        """Stop the stack's threads: the batcher's drain thread (its
-        residue applied first) and the Event recorder's worker (its
-        backlog written first)."""
+        """Stop the stack's threads: the gang plugin's bind executor (its
+        stop event set, so pending bind retry sleeps abort; in-flight
+        binds are not waited for), the batcher's drain thread (its residue
+        applied first) and the Event recorder's worker (its backlog
+        written first)."""
+        self.gang.close()
         if self.ingestor is not None:
             if self.metrics is not None:
                 self.metrics.overload.remove_ingestor(self.ingestor)
@@ -294,6 +305,7 @@ def build_stack(
     *,
     clock=time.monotonic,
     extra_plugins: "list | None" = None,
+    stop_event: "threading.Event | None" = None,
 ) -> Stack:
     """Build a fully-wired scheduler stack against ``cluster`` (a fresh
     FakeCluster by default). Watchers are registered list-then-watch, so a
@@ -301,7 +313,8 @@ def build_stack(
     gang membership from existing bound pods. The fleet evaluation runs on
     the CUDA device unless ``config.kernel_platform`` is "cpu"; with no
     card present the default raises. ``extra_plugins`` join the set ahead
-    of the binder (a bind plugin there answers first)."""
+    of the binder (a bind plugin there answers first). ``stop_event`` (the
+    CLI passes its serve stop) becomes the bind executor's stop event."""
     cluster = cluster or FakeCluster()
     config = config or SchedulerConfig()
     unported = unported_settings(config)
@@ -324,15 +337,36 @@ def build_stack(
         if hasattr(cluster, "write_event")
         else None
     )
-    # The bounded executor the node health monitor and the rebalancer fan
-    # their unbinds out on. Threads are made at the first submit.
+    # Bind pipeline: the bounded executor that fans gang releases out and
+    # carries bind retry/backoff sleeps off the scheduling thread (and the
+    # node health monitor's and the rebalancer's unbinds). `stop_event`
+    # doubles as the binder's interruptible-sleep event, so shutdown and
+    # leadership loss abort pending retries promptly. The release fans out
+    # only when binds are real I/O — remote API round trips or injected
+    # bind latency — unless forced by config; in-process microsecond binds
+    # stay synchronous (the thread handoff would cost more than it hides).
+    # Threads are made at the first submit.
     bind_executor = (
-        BindExecutor(config.bind_workers) if config.bind_workers > 0 else None
+        BindExecutor(config.bind_workers, stop_event=stop_event)
+        if config.bind_workers > 0
+        else None
+    )
+    pipelined = bind_executor is not None and (
+        config.bind_pipeline == "on"
+        or (
+            config.bind_pipeline == "auto"
+            and (
+                getattr(cluster, "remote_binds", False)
+                or getattr(cluster, "bind_latency_s", 0.0) > 0.0
+            )
+        )
     )
     gang = GangPlugin(
         timeout_s=config.gang_permit_timeout_s,
         reserved_fn=accountant.chips_in_use,
         on_rollback=recorder.gang_rollback if recorder else None,
+        parallel_release=pipelined,
+        bind_executor=bind_executor,
     )
     plugins = default_plugins(
         weights=config.effective_weights(),
@@ -385,6 +419,9 @@ def build_stack(
         retry_attempts=config.bind_retry_attempts,
         retry_base_s=config.bind_retry_base_s,
         retry_cap_s=config.bind_retry_cap_s,
+        # Interruptible backoff: the executor's stop event (set on
+        # shutdown / leadership loss) aborts pending retry sleeps.
+        stop_event=bind_executor.stop_event if bind_executor else None,
     )
     plugins.append(binder)
     framework = Framework(plugins)
@@ -655,8 +692,20 @@ def build_stack(
         on_unschedulable=recorder.failed_scheduling if recorder else None,
         pod_alive=informer.pod_schedulable,
         burst_size=config.batch_requests,
+        bind_executor=bind_executor,
     )
+    # Worker-side fencing + pipeline observability: the binder re-checks
+    # the scheduler's CURRENT fence immediately before every bind API
+    # write (fence_fn is settable post-construction — the CLI wires the
+    # leader elector later — so the indirection through _fenced reads the
+    # live value), and feeds the yoda_bind_wall_ms histogram.
+    binder.fenced_fn = scheduler._fenced
+    binder.on_fenced = metrics.fenced_binds.inc
     binder.observe_wall_ms = metrics.bind_wall.observe
+    # Same worker-side fence for preemption's evictions: victim selection
+    # runs under the cycle lock, the eviction round trips do not.
+    if preemption is not None:
+        preemption.fenced_fn = scheduler._fenced
     # Crash-safe failover: the warm-start resync + drift reconciler for
     # this stack. Built but NOT started.
     reconciler = Reconciler(
