@@ -314,11 +314,45 @@ Phases, each of which makes the script exit non-zero when it fails:
        ``--demo --device cpu``.
    Every ``fleet_eval`` / ``joint_fit`` / ``update_rows`` launch of run
    (l) is held against its plain version.
+   Then run (m), loop mode (``mode: loop``: the per-node plugins on the
+   host; ``run_loop``, ``LOOP_FULL``; the tests run ``LOOP_SMALL``) on the
+   5,000-node fleet:
+   (m1) run (a)'s 64 singletons, each created in a loop-mode stack and in
+       a default stack on the card over the same fleet and scheduled there
+       at K = 1 (one pop, one cycle): every outcome and node must agree, as
+       tests/test_ops.py's ``test_batch_and_loop_agree`` asserts on the CPU,
+       and the card's launches equal the default stack's dispatches;
+   (m2) a loop-mode stack at ``percentage_nodes_to_score`` 25 on a held
+       scheduling clock drains 4 plain gangs of 4 x 8 v5e chips, a topology
+       gang (2x2x1, 4 x 4 v5p chips) and 16 singletons: every pod bound,
+       gangs whole, the topology gang on one slice, no host over its
+       chips, nothing launched, bindings equal to the same script on
+       ``kernel_platform: cpu``. Loop mode filters and scores in host
+       Python, so the depth is cut (run (c)'s plain gangs have 16 members).
+   Printed: host ms per pod of both stacks, per filter call and per score
+   call.
+   Then run (n), the node-sharded evaluation (``parallel/sharded.py``,
+   the shard entry of fleet_eval.cu):
+   (n1) ``ShardedDeviceFleetKernel`` over 1 and 4 shards of the card at
+       8,192 x 8 (K = 1, 16) and 8,192 x 64 (K = 16), default and
+       most-allocated weights: every result equal to the unsharded
+       ``fleet_eval`` and to the plain shard version (on host shards, and
+       on the card's tensors), three launches per shard per 128 requests.
+       Per shape: ms per call (the phases and the combines, CUDA events),
+       the plain version's, the unsharded kernel's on the same inputs, the
+       device ms of each phase and of the combines (profiler) and the
+       bound;
+   (n2) a ``mesh_devices: 1`` stack binds run (b)'s 256 pods at K = 16 as
+       the default stack did in the main path, every sharded evaluation
+       held against the unsharded plain version on the same inputs, the
+       shard entry launched and ``fleet_eval`` not, every count zeroed
+       just before the drive;
+   (n3) ``mesh_devices`` past the card count raises at construction.
 4. One line {"kernels": [...]} with each kernel's launches over every run
    above (runs (h)'s, (i)'s, (j)'s, (k)'s and (l)'s also by part, and the
-   speculation thread's apart), its largest difference from the plain
-   version and its times ("not measured" where the profiler saw no device
-   activity).
+   speculation thread's apart; the shard entry's from run (n2)), its
+   largest difference from the plain version and its times ("not
+   measured" where the profiler saw no device activity).
    Before it, one line of each phase's wall seconds.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -329,6 +363,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -5895,6 +5930,494 @@ def phase_process(smi: str, rerun: "SpawnedRerun", build_s: float) -> dict:
     return out
 
 
+# --- run (m): loop mode ---
+
+# (m1) compares the first ``singles`` of run (a)'s singletons at K = 1 on a
+# loop-mode stack and a default stack over the same fleet; (m2) drives
+# ``plain`` plain gangs of ``plain_size`` x 8 v5e chips, one topology gang
+# (2x2x1, 4 v5p members x 4 chips) and ``singles2`` singletons through a
+# loop-mode stack at percentage_nodes_to_score 25. Loop mode filters and
+# scores every node in host Python, so the depth is cut to keep the phase
+# near a minute on the card's host: (m2)'s plain gangs have 4 members
+# where run (c)'s have 16.
+LOOP_FULL = dict(slices=512, v5e_hosts=2952, singles=64, plain=4, plain_size=4,
+                 singles2=16)
+LOOP_SMALL = dict(slices=4, v5e_hosts=40, singles=16, plain=2, plain_size=4,
+                  singles2=8)
+LOOP_PERCENTAGE = 25
+
+
+class PhaseClock:
+    """Host ms of a framework's per-node filter chain and score plugins,
+    per call, wrapped around ``run_filters`` and ``run_scores`` (on a
+    stepped scheduling clock the program's own phase histogram reads 0)."""
+
+    def __init__(self, framework) -> None:
+        self.filter_ms: list[float] = []
+        self.score_ms: list[float] = []
+        for name, sink in (("run_filters", self.filter_ms), ("run_scores", self.score_ms)):
+            inner = getattr(framework, name)
+
+            def timed(*args, _inner=inner, _sink=sink, **kw):
+                t = time.perf_counter()
+                try:
+                    return _inner(*args, **kw)
+                finally:
+                    _sink.append(1e3 * (time.perf_counter() - t))
+
+            setattr(framework, name, timed)
+
+    def summary(self) -> dict:
+        med = statistics.median
+        return dict(
+            filter_calls=len(self.filter_ms), score_calls=len(self.score_ms),
+            filter_ms_p50=med(self.filter_ms) if self.filter_ms else None,
+            score_ms_p50=med(self.score_ms) if self.score_ms else None,
+        )
+
+
+def run_loop_agree(platform: str, size: dict = LOOP_FULL) -> dict:
+    """(m1): each of run (a)'s first singletons created in a loop-mode
+    stack and in a default stack over the same fleet and scheduled there
+    at K = 1 (one pop and one cycle each, state advancing alike); every
+    outcome and node must agree, as tests/test_ops.py's
+    test_batch_and_loop_agree asserts."""
+    from yoda_tpu_torch.api.types import PodSpec
+    from yoda_tpu_torch.ops import cuda_kernel
+
+    fleet = dict(slices=size["slices"], v5e_hosts=size["v5e_hosts"])
+    loop, _ = build_fleet(platform, 1, mode="loop", **fleet)
+    batch, _ = build_fleet(platform, 1, **fleet)
+    if loop.batch is not None or loop.not_built or batch.not_built:
+        raise AssertionError("run (m1): the stacks are not loop mode and batch mode whole")
+    clock = PhaseClock(loop.framework)
+    pods = fleet_and_pods(seed=0)[0][: size["singles"]]
+    nodes: "dict[str, dict]" = {"loop": {}, "batch": {}}
+    cycle_ms: "dict[str, list]" = {"loop": [], "batch": []}
+    cuda_kernel.launches = 0
+    for name, labels in pods:
+        for side, stack in (("loop", loop), ("batch", batch)):
+            stack.cluster.create_pod(PodSpec(name, labels=dict(labels)))
+            qpi = stack.scheduler.queue.pop(timeout=0)
+            if qpi is None or qpi.pod.name != name:
+                raise AssertionError(f"run (m1): {side} popped {qpi} for {name}")
+            t = time.perf_counter()
+            r = stack.scheduler.schedule_one(qpi)
+            cycle_ms[side].append(1e3 * (time.perf_counter() - t))
+            nodes[side][name] = (r.outcome, r.node)
+    if platform != "cpu":
+        torch.cuda.synchronize()
+    launches = cuda_kernel.launches
+    disagree = [p for p in nodes["loop"] if nodes["loop"][p] != nodes["batch"][p]]
+    out = dict(
+        platform=platform, nodes=len(loop.informer.snapshot()), pods=len(pods),
+        bound=sum(o == "bound" for o, _ in nodes["loop"].values()),
+        disagree=disagree, loop_nodes=nodes["loop"], batch_nodes=nodes["batch"],
+        launches=launches, batch_dispatches=batch.batch.dispatch_count,
+        loop_ms_per_pod=statistics.median(cycle_ms["loop"]),
+        batch_ms_per_pod=statistics.median(cycle_ms["batch"]),
+        **clock.summary(),
+    )
+    for stack in (loop, batch):
+        stack.close()
+    return out
+
+
+def check_loop_agree(run: dict) -> None:
+    if run["disagree"]:
+        p = run["disagree"][0]
+        raise AssertionError(
+            f"run (m1): {len(run['disagree'])} pods differ, e.g. {p}: loop "
+            f"{run['loop_nodes'][p]} vs batch {run['batch_nodes'][p]}"
+        )
+    if run["bound"] != run["pods"]:
+        raise AssertionError(f"run (m1): {run['bound']}/{run['pods']} pods bound")
+    want = run["batch_dispatches"] if run["platform"] != "cpu" else 0
+    if run["launches"] != want or (run["platform"] != "cpu" and not want):
+        raise AssertionError(
+            f"run (m1): {run['launches']} launches for {run['batch_dispatches']} "
+            "batch dispatches (the loop stack must launch nothing)"
+        )
+
+
+def loop_gang_script(size: dict, seed: int = 17):
+    """(m2)'s pods in a seeded order: (name, labels), and each gang's
+    members."""
+    rng = np.random.default_rng(seed)
+    pods, gangs = [], {}
+    for g in range(size["plain"]):
+        names = [f"lp{g}-{i}" for i in range(size["plain_size"])]
+        gangs[f"lp{g}"] = names
+        pods += [(n, {"tpu/gang": f"lp{g}", "tpu/gang-size": str(size["plain_size"]),
+                      "tpu/chips": "8", "tpu/generation": "v5e"}) for n in names]
+    names = [f"lt-{i}" for i in range(4)]
+    gangs["lt"] = names
+    pods += [(n, {"tpu/gang": "lt", "tpu/topology": "2x2x1", "tpu/chips": "4",
+                  "tpu/generation": "v5p"}) for n in names]
+    pods += [(f"ls-{n}", labels) for n, (_, labels) in
+             enumerate(fleet_and_pods(seed)[0][: size["singles2"]])]
+    return [pods[i] for i in rng.permutation(len(pods))], gangs
+
+
+def run_loop_gangs(platform: str, size: dict = LOOP_FULL) -> dict:
+    """(m2): a loop-mode stack at percentage_nodes_to_score 25 on a held
+    scheduling clock (so card and CPU take the same decisions) drains the
+    gangs and singletons of :func:`loop_gang_script`; bindings, the checks'
+    inputs and host ms per pod, filter call and score call."""
+    from yoda_tpu_torch.api.types import PodSpec
+    from yoda_tpu_torch.ops import cuda_kernel
+
+    stack, _ = build_fleet(
+        platform, 1, slices=size["slices"], v5e_hosts=size["v5e_hosts"],
+        clock=SteppedClock(0.0), mode="loop",
+        percentage_nodes_to_score=LOOP_PERCENTAGE,
+    )
+    clock = PhaseClock(stack.framework)
+    pods, gangs = loop_gang_script(size)
+    for name, labels in pods:
+        stack.cluster.create_pod(PodSpec(name, labels=dict(labels)))
+    cuda_kernel.launches = 0
+    t0 = time.perf_counter()
+    stack.scheduler.run_until_idle(max_wall_s=600)
+    wall = time.perf_counter() - t0
+    bound = {n: stack.cluster.get_pod(f"default/{n}").node_name for n, _ in pods}
+    slice_of = {t.name: t.slice_id for t in stack.cluster.list_tpu_metrics()}
+    out = dict(
+        platform=platform, pods=len(pods), bindings=bound,
+        bound=sum(v is not None for v in bound.values()),
+        over_capacity=over_capacity(stack), launches=cuda_kernel.launches,
+        gangs_split=[g for g, names in gangs.items()
+                     if len({bound[n] is None for n in names}) != 1],
+        gangs_unbound=[g for g, names in gangs.items() if bound[names[0]] is None],
+        topology_slices=sorted({slice_of.get(bound[n]) for n in gangs["lt"]} - {None}),
+        waiting=len(stack.framework.waiting_pods()),
+        wall_s=wall, ms_per_pod=1e3 * wall / len(pods), **clock.summary(),
+    )
+    stack.close()
+    return out
+
+
+def check_loop_gangs(run: dict) -> None:
+    if run["bound"] != run["pods"] or run["gangs_split"] or run["gangs_unbound"]:
+        raise AssertionError(
+            f"run (m2) {run['platform']}: {run['bound']}/{run['pods']} bound, "
+            f"split {run['gangs_split']}, unbound {run['gangs_unbound']}"
+        )
+    if run["over_capacity"] or run["waiting"] or run["launches"]:
+        raise AssertionError(
+            f"run (m2) {run['platform']}: over capacity {run['over_capacity']}, "
+            f"{run['waiting']} waiting, {run['launches']} launches"
+        )
+    if len(run["topology_slices"]) != 1:
+        raise AssertionError(f"run (m2): topology gang on slices {run['topology_slices']}")
+
+
+def run_loop(platform: str, size: dict = LOOP_FULL) -> dict:
+    """Run (m): (m1) and (m2) on one platform, each checked."""
+    m1 = run_loop_agree(platform, size)
+    check_loop_agree(m1)
+    m2 = run_loop_gangs(platform, size)
+    check_loop_gangs(m2)
+    return {"m1": m1, "m2": m2}
+
+
+def phase_loop(smi: str) -> dict:
+    """Run (m) on the card, (m2) also on the CPU: bindings equal."""
+    g = run_loop("auto")
+    c = run_loop_gangs("cpu")
+    check_loop_gangs(c)
+    for name, run in (("m1", g["m1"]), ("m2", g["m2"]), ("m2 cpu", c)):
+        skip = {"loop_nodes", "batch_nodes", "bindings"}
+        print(f"loop run ({name}) {run['platform']} [{smi}]:",
+              json.dumps({k: v for k, v in run.items() if k not in skip}))
+    if g["m2"]["bindings"] != c["bindings"]:
+        diff = [p for p in c["bindings"] if g["m2"]["bindings"][p] != c["bindings"][p]]
+        raise AssertionError(f"run (m2): {len(diff)} pods bound differently, e.g. {diff[:3]}")
+    return g
+
+
+# --- run (n): the node-sharded evaluation ---
+
+# (real nodes, padded nodes, chips, K): the main path's K = 1 and K = 16 and
+# the wide fleet's 64 chips, each split into 1 and 4 shards of the card.
+SHARD_SHAPES = [(5000, 8192, 8, 1), (5000, 8192, 8, 16), (5000, 8192, 64, 16)]
+SHARD_SPLITS = (1, 4)
+SHARD_MAIN = (8192, 8, 16, 4)  # (padded, chips, K, shards) in the kernels line
+# (n2)'s fleet: the 5,000-node fleet; the tests run the small one.
+SHARD_FULL = dict(slices=512, v5e_hosts=2952)
+SHARD_SMALL = dict(slices=4, v5e_hosts=40)
+SHARD_KERNEL = re.compile(r"fleet_eval_shard_kernel<(?:true|false), ?(\d)>")
+
+
+class PlainShardEntry:
+    """Within the block, the sharded kernel's phases run the plain version
+    (ops.kernel.kernel_shard_phase) on the card's tensors instead of the
+    shard entry: the plain version's time and output on the same inputs.
+    It swaps the name ``parallel/sharded.py`` calls."""
+
+    def __enter__(self):
+        from yoda_tpu_torch.ops.kernel import kernel_shard_phase
+        from yoda_tpu_torch.parallel import sharded
+
+        self.saved = sharded.fleet_eval_shard
+
+        def plain(chips, nodes, dyn, host_ok, reqs, phase, globals_, out, partials,
+                  weights, counter=None):
+            kernel_shard_phase(chips, nodes, dyn, host_ok, reqs, phase, globals_, out,
+                               partials, weights)
+
+        sharded.fleet_eval_shard = plain
+        return self
+
+    def __exit__(self, *exc):
+        from yoda_tpu_torch.parallel import sharded
+
+        sharded.fleet_eval_shard = self.saved
+
+
+def shard_inputs(n_real: int, n_pad: int, c: int, k: int):
+    """Seeded fleet, admission rows (the last all-False when K > 1) and
+    requests, as phase_kernel makes them."""
+    from yoda_tpu_torch.ops.kernel import KernelRequest
+
+    chips, nodes, dyn = random_fleet(n_real, n_pad, seed=n_pad + k + c + 7, chips=c)
+    rng = np.random.default_rng(k + 7)
+    host_ok = (rng.random((k, n_pad)) > 0.2).astype(np.int32)
+    if k > 1:
+        host_ok[-1] = 0
+    reqs = [KernelRequest(*map(int, r)) for r in REQUEST_TABLE[np.arange(k) % 4]]
+    return fleet_arrays(chips, nodes, dyn), dyn, host_ok, reqs
+
+
+def results_err(got, want) -> int:
+    """Largest |difference| over every output row of two result lists."""
+    err = 0
+    for g, w in zip(got, want, strict=True):
+        for f in ("feasible", "reasons", "raw_scores", "scores", "claimable"):
+            a = np.asarray(getattr(g, f), dtype=np.int64)
+            b = np.asarray(getattr(w, f), dtype=np.int64)
+            err = max(err, int(np.abs(a - b).max()) if a.size else 0)
+        err = max(err, abs(g.best_index - w.best_index))
+    return err
+
+
+def shard_profile(fn, calls: int = 20) -> dict:
+    """Device ms per call of each phase's shard-entry kernels and of the
+    other device work (the combines and partial fills), from a
+    torch.profiler window over ``calls`` calls; None where the profiler
+    saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    phase_us, events, other_us, other = {1: 0.0, 2: 0.0, 3: 0.0}, 0, 0.0, 0
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA or evt.key.startswith("Memcpy"):
+            continue
+        total = getattr(evt, "self_device_time_total", None)
+        if total is None:
+            total = evt.self_cuda_time_total
+        m = SHARD_KERNEL.search(evt.key)
+        if m:
+            phase_us[int(m.group(1))] += total
+            events += evt.count
+        else:
+            other_us += total
+            other += evt.count
+    if not events:
+        return dict(phase_ms=None, device_ms=None, combine_ms=None, kernel_events=0)
+    return dict(
+        phase_ms={p: us / calls / 1e3 for p, us in phase_us.items()},
+        device_ms=sum(phase_us.values()) / calls / 1e3,
+        combine_ms=other_us / calls / 1e3,
+        kernel_events_per_call=events / calls, other_events_per_call=other / calls,
+    )
+
+
+def shard_case(n_real: int, n_pad: int, c: int, k: int, shards: int, weights,
+               dev: torch.device, timed: bool) -> dict:
+    """One shape and split: the shard entry on ``shards`` shards of ``dev``
+    against the unsharded ``fleet_eval`` and against the plain shard
+    version (on host shards, and on the card's tensors), bit for bit; with
+    ``timed`` the times, device ms per phase and the bound."""
+    from yoda_tpu_torch.ops import cuda_kernel
+    from yoda_tpu_torch.ops.kernel import TorchFleetKernel
+    from yoda_tpu_torch.parallel import ShardedDeviceFleetKernel
+
+    fa, dyn, host_ok, reqs = shard_inputs(n_real, n_pad, c, k)
+    single = TorchFleetKernel(weights, dev)
+    single.put_static(fa)
+    want = single.evaluate_burst(dyn, host_ok, reqs)
+    kern = ShardedDeviceFleetKernel(weights, mesh=[dev] * shards)
+    kern.put_static(fa)
+    got = kern.evaluate_burst(dyn, host_ok, reqs)
+    host = ShardedDeviceFleetKernel(weights, mesh=[torch.device("cpu")] * shards)
+    host.put_static(fa)
+    plain = host.evaluate_burst(dyn, host_ok, reqs)
+    with PlainShardEntry():
+        plain_card = kern.evaluate_burst(dyn, host_ok, reqs)
+    torch.cuda.synchronize()
+    row = dict(
+        padded=n_pad, chips=c, k=k, shards=shards,
+        max_abs_err=max(results_err(got, want), results_err(got, plain),
+                        results_err(got, plain_card)),
+        err_vs_unsharded=results_err(got, want), err_vs_plain=results_err(got, plain),
+        launches_per_call=kern.shard_launches,
+        expected_launches=3 * shards * -(-k // cuda_kernel.MAX_REQUESTS),
+    )
+    if timed:
+        staged = kern.stage(dyn, host_ok, reqs)
+        row["ms"] = cuda_ms(lambda: kern.run_phases(staged, k))
+        with PlainShardEntry():
+            row["plain_ms"] = cuda_ms(lambda: kern.run_phases(staged, k), iters=5)
+        if shards == 1:  # the same inputs through the one-launch evaluation
+            row["unsharded_ms"] = cuda_ms(
+                lambda: cuda_kernel.fleet_eval(kern._chips[0], kern._nodes[0], *staged[0],
+                                               weights)
+            )
+        row.update(shard_profile(lambda: kern.run_phases(staged, k)))
+        row["bound_ms"], row["bound_by"] = bound(n_pad, k, c)
+        row["smi"] = smi_sample()
+    return row
+
+
+def run_sharded_stack(platform: str, size: dict, pods, burst: int = 16) -> dict:
+    """(n2): a ``mesh_devices: 1`` stack drains ``pods`` at K = ``burst``;
+    every sharded evaluation is held against the unsharded plain version
+    on the same inputs (the shards' static state gathered on the host),
+    with every count zeroed just before the drive."""
+    from yoda_tpu_torch.api.types import PodSpec
+    from yoda_tpu_torch.ops import cuda_kernel
+    from yoda_tpu_torch.ops.kernel import kernel_packed_burst, pack_request
+    from yoda_tpu_torch.parallel import ShardedDeviceFleetKernel
+
+    stack, _ = build_fleet(platform, burst, slices=size["slices"],
+                           v5e_hosts=size["v5e_hosts"], mesh_devices=1)
+    kern = stack.batch._kern
+    if not isinstance(kern, ShardedDeviceFleetKernel) or stack.not_built:
+        raise AssertionError("run (n2): the stack does not hold the sharded kernel")
+    checked = {"calls": 0, "max_abs_err": 0}
+    inner = kern.evaluate_burst
+
+    def held(dyn, host_ok_k, requests):
+        got = inner(dyn, host_ok_k, requests)
+        chips = torch.cat([c.cpu() for c in kern._chips], dim=2)
+        nodes = torch.cat([n.cpu() for n in kern._nodes], dim=1)
+        want = kernel_packed_burst(
+            chips, nodes, torch.from_numpy(np.asarray(dyn, dtype=np.int32)),
+            torch.from_numpy(np.asarray(host_ok_k, dtype=np.int32)),
+            torch.from_numpy(np.stack([pack_request(r) for r in requests])),
+            kern.weights,
+        ).numpy()
+        n = len(kern.names)
+        for i, g in enumerate(got):
+            rows = np.stack([g.feasible.astype(np.int32), g.reasons, g.raw_scores,
+                             g.scores, g.claimable])
+            diff = np.abs(rows.astype(np.int64) - want[i][[0, 1, 2, 3, 5], :n]).max()
+            best = int(want[i][4][0])
+            checked["max_abs_err"] = max(
+                checked["max_abs_err"], int(diff),
+                abs(g.best_index - (best if 0 <= best < n else -1)),
+            )
+        checked["calls"] += 1
+        return got
+
+    kern.evaluate_burst = held
+    for name, labels in pods:
+        stack.cluster.create_pod(PodSpec(name, labels=dict(labels)))
+    cuda_kernel.launches = cuda_kernel.shard_launches = 0
+    t0 = time.perf_counter()
+    stack.scheduler.run_until_idle(max_wall_s=600)
+    if platform != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bound_nodes = {n: stack.cluster.get_pod(f"default/{n}").node_name for n, _ in pods}
+    b = stack.batch
+    out = dict(
+        platform=platform, pods=len(pods), bindings=bound_nodes,
+        bound=sum(v is not None for v in bound_nodes.values()),
+        over_capacity=over_capacity(stack), shard_launches=cuda_kernel.shard_launches,
+        fleet_eval_launches=cuda_kernel.launches, dispatch_count=b.dispatch_count,
+        sharded_dispatches=b.sharded_dispatches, burst_dispatches=b.burst_dispatches,
+        checked_calls=checked["calls"], max_abs_err=checked["max_abs_err"],
+        restacks=b.restacks, wall_s=wall, pods_per_s=len(pods) / wall,
+    )
+    stack.close()
+    return out
+
+
+def check_sharded_stack(run: dict, want_bindings: dict) -> None:
+    card = run["platform"] != "cpu"
+    if run["bindings"] != want_bindings:
+        diff = [p for p in want_bindings if run["bindings"].get(p) != want_bindings[p]]
+        raise AssertionError(f"run (n2): {len(diff)} pods bound unlike the default stack, "
+                             f"e.g. {diff[:3]}")
+    if run["bound"] != run["pods"] or run["over_capacity"] or run["max_abs_err"]:
+        raise AssertionError(f"run (n2): {json.dumps({k: v for k, v in run.items() if k != 'bindings'})}")
+    if run["sharded_dispatches"] != run["dispatch_count"] or not run["dispatch_count"]:
+        raise AssertionError("run (n2): a dispatch left the mesh kernel")
+    if run["checked_calls"] < run["dispatch_count"] or run["fleet_eval_launches"]:
+        raise AssertionError("run (n2): unchecked evaluations or a fleet_eval launch")
+    if card and not run["shard_launches"]:
+        raise AssertionError("run (n2): the shard entry was launched no time")
+    if not card and run["shard_launches"]:
+        raise AssertionError("run (n2): the CPU run launched the shard entry")
+
+
+def mesh_refused() -> str:
+    """(n3): ``mesh_devices: 2`` on one card raises at construction."""
+    from yoda_tpu_torch.config import SchedulerConfig
+    from yoda_tpu_torch.standalone import build_stack
+
+    try:
+        build_stack(config=SchedulerConfig(mesh_devices=torch.cuda.device_count() + 1))
+    except ValueError as e:
+        if "devices are available" not in str(e):
+            raise
+        return str(e)
+    raise AssertionError("run (n3): a mesh larger than the card count was built")
+
+
+def phase_sharded(smi: str, main_path: dict) -> dict:
+    """Run (n): (n1) the shard entry against the unsharded kernel and the
+    plain version at SHARD_SHAPES x SHARD_SPLITS; (n2) a ``mesh_devices:
+    1`` stack binds run (b)'s pods as the default stack did in the main
+    path; (n3) a mesh past the card count is refused."""
+    from yoda_tpu_torch.config import SchedulerConfig
+
+    dev = torch.device("cuda", 0)
+    weight_sets = {
+        "least-allocated": SchedulerConfig().effective_weights(),
+        "most-allocated": SchedulerConfig(scoring_strategy="most-allocated").effective_weights(),
+    }
+    rows = []
+    for n_real, n_pad, c, k in SHARD_SHAPES:
+        for shards in SHARD_SPLITS:
+            for wname, w in weight_sets.items():
+                row = shard_case(n_real, n_pad, c, k, shards, w, dev,
+                                 timed=wname == "least-allocated")
+                row["weights"] = wname
+                print("shard", json.dumps(row, default=str))
+                if row["max_abs_err"] or row["launches_per_call"] != row["expected_launches"]:
+                    raise AssertionError(f"run (n1): shard entry != reference at {row}")
+                rows.append(row)
+    pods_b = fleet_and_pods(seed=0)[1]
+    n2 = run_sharded_stack("auto", SHARD_FULL, pods_b)
+    print(f"sharded run (n2) [{smi}]:",
+          json.dumps({k: v for k, v in n2.items() if k != "bindings"}))
+    check_sharded_stack(n2, main_path["b"]["bindings"])
+    refused = mesh_refused()
+    print(f"sharded run (n3): {refused}")
+    main = next(r for r in rows if r.get("ms") is not None
+                and (r["padded"], r["chips"], r["k"], r["shards"]) == SHARD_MAIN)
+    return dict(rows=rows, n2=n2, refused=refused, main=main)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one NVIDIA GPU", file=sys.stderr)
@@ -5931,6 +6454,8 @@ def main() -> None:
         tenancy = phase("tenancy run (k)", phase_tenancy, smi, tenancy_rerun)
         process = phase("process run (l)", phase_process, smi, pipeline_rerun,
                         seconds["device/build"])
+        loop = phase("loop run (m)", phase_loop, smi)
+        sharded = phase("sharded run (n)", phase_sharded, smi, gpu)
         print("phase seconds:", json.dumps(seconds))
         l_parts = ("l1", "l2", "l3", "l4")
         j_parts = ("j1", "j1_wall", "j2", "j3", "cost")
@@ -5962,8 +6487,10 @@ def main() -> None:
                         affinity, *wide, *h_runs, nodehealth))
                     + sum(observability[p]["launches"]["fleet_eval"] for p in j_parts)
                     + sum(tenancy[p]["launches"]["fleet_eval"] for p in k_parts)
-                    + sum(process[p]["launches"]["fleet_eval"] for p in l_parts),
+                    + sum(process[p]["launches"]["fleet_eval"] for p in l_parts)
+                    + loop["m1"]["launches"],
                     "launches_run_g": affinity["launches"],
+                    "launches_run_m1": loop["m1"]["launches"],
                     "launches_run_l": {
                         p: process[p]["launches"]["fleet_eval"] for p in l_parts
                     },
@@ -6071,6 +6598,42 @@ def main() -> None:
                                         "plain_ms", "bound_ms", "plan", "smi")
                         }
                         for r in joint_rows
+                    ],
+                },
+                {
+                    "name": "fleet_eval_shard",
+                    "route": "cuda",
+                    "source": "yoda_tpu_torch/csrc/fleet_eval.cu (fleet_eval_shard_launch)",
+                    "replaces": (
+                        "yoda_tpu/parallel/sharded.py:94 (ShardedFleetKernel) + "
+                        ":146 / :155 (ShardedDeviceFleetKernel): kernel_impl under "
+                        "row-sharded NamedSharding"
+                    ),
+                    "launches": sharded["n2"]["shard_launches"],
+                    "launches_run_n": {
+                        "n1": sum(r["launches_per_call"] for r in sharded["rows"]),
+                        "n2": sharded["n2"]["shard_launches"],
+                    },
+                    "max_abs_err": max(max(r["max_abs_err"] for r in sharded["rows"]),
+                                       sharded["n2"]["max_abs_err"]),
+                    "ms": sharded["main"]["ms"],
+                    "plain_ms": sharded["main"]["plain_ms"],
+                    "bound_ms": sharded["main"]["bound_ms"],
+                    "bound_by": sharded["main"]["bound_by"],
+                    "library_ms": None,
+                    "device_ms": not_measured(sharded["main"]["device_ms"]),
+                    "device_ms_per_phase": not_measured(sharded["main"]["phase_ms"]),
+                    "combine_device_ms": not_measured(sharded["main"]["combine_ms"]),
+                    "cuda_launches_per_call": sharded["main"]["launches_per_call"],
+                    "shapes": [
+                        {
+                            key: not_measured(r.get(key))
+                            for key in ("padded", "chips", "k", "shards", "ms",
+                                        "unsharded_ms", "device_ms", "phase_ms",
+                                        "combine_ms", "launches_per_call", "plain_ms",
+                                        "bound_ms", "bound_by", "smi")
+                        }
+                        for r in sharded["rows"] if r.get("ms") is not None
                     ],
                 },
             ],

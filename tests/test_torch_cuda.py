@@ -753,3 +753,53 @@ class TestProcessOnCard:
         want = run_pipeline("cpu", PIPELINE_SMALL)
         check_pipeline_run(got)
         assert {k: got[k] for k in PIPELINE_PARITY} == {k: want[k] for k in PIPELINE_PARITY}
+
+
+@pytest.mark.cuda
+class TestShardEntryOnCard:
+    """The shard entry of fleet_eval.cu (chip_smoke.py's run (n)): 1 and 4
+    shards of the card, bit-equal to the unsharded kernel and to the plain
+    shard version, three launches per shard per 128 requests."""
+
+    @pytest.mark.parametrize(
+        "n_real,n_pad,c,k",
+        [(37, 64, 8, 1), (37, 64, 8, 150), (5000, 8192, 8, 16), (1000, 1024, 128, 16)],
+    )
+    @pytest.mark.parametrize("shards", [1, 4])
+    def test_equals_unsharded_kernel_and_plain(self, card, n_real, n_pad, c, k, shards):
+        from chip_smoke import shard_case
+
+        for w in (Weights(), MOST_ALLOCATED):
+            row = shard_case(n_real, n_pad, c, k, shards, w, card, timed=False)
+            assert row["max_abs_err"] == 0, row
+            assert row["launches_per_call"] == row["expected_launches"], row
+
+    def test_mesh_stack_binds_as_the_default_stack(self, card):
+        from chip_smoke import (
+            SHARD_SMALL,
+            check_sharded_stack,
+            fleet_and_pods,
+            mesh_refused,
+            run_sharded_stack,
+        )
+
+        pods = fleet_and_pods(seed=0)[1][:32]
+        stack, _ = build_fleet("auto", 16, **SHARD_SMALL)
+        for name, labels in pods:
+            stack.cluster.create_pod(PodSpec(name, labels=dict(labels)))
+        stack.scheduler.run_until_idle(max_wall_s=120)
+        want = {n: stack.cluster.get_pod(f"default/{n}").node_name for n, _ in pods}
+        stack.close()
+        check_sharded_stack(run_sharded_stack("auto", SHARD_SMALL, pods), want)
+        assert "devices are available" in mesh_refused()
+
+
+@pytest.mark.cuda
+class TestLoopOnCard:
+    def test_loop_run_holds_its_checks(self, card):
+        """Run (m) at its small size on the card: loop mode agrees with the
+        card's batch evaluation pod by pod and binds gangs whole."""
+        from chip_smoke import LOOP_SMALL, run_loop
+
+        out = run_loop("auto", LOOP_SMALL)
+        assert out["m1"]["launches"] == out["m1"]["batch_dispatches"] > 0

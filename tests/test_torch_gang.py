@@ -4,8 +4,10 @@
 all-or-nothing through yoda_tpu_torch.standalone.build_stack.
 
 - Port-side copies of the tests/test_gang.py and tests/test_gang_fused.py
-  scenarios the port covers (batch mode; the reference's loop mode, bind
-  pipeline, serve_forever and mesh cases are not ported). Permit expiry is
+  scenarios of the batch path (the reference's loop-mode and mesh cases run
+  in tests/test_torch_loop.py and tests/test_torch_parallel.py, its bind
+  pipeline and serve_forever cases in tests/test_torch_bind_pipeline.py and
+  tests/test_torch_cli.py). Permit expiry is
   driven through the stack's injected clock with a small
   ``gang_permit_timeout_s``: no test sleeps on a real timeout.
 - Stack parity with yoda_tpu.standalone.build_stack: seeded fleets of v5p

@@ -8,9 +8,7 @@ the part they wait for (ROADMAP queue 1):
 
 - ``TestFailoverMetrics::test_federation_series_move_with_health_and_spillover``
   and ``TestQueueDepthGauges::test_profiles_sum_into_one_family``:
-  federation and profiles, item 9;
-- ``TestFailoverMetrics::test_sharded_dispatch_counter_moves_in_mesh_mode``:
-  the mesh-sharded kernel, item 13.
+  federation and profiles, item 9.
 
 ``TestAllFamiliesRegistered::test_checker_list_matches_code`` lints the
 yoda_tpu source tree on both sides; ``tests/test_torch_lint.py`` runs the
@@ -56,8 +54,6 @@ SKIP = {
     "TestFailoverMetrics::test_federation_series_move_with_health_and_spillover":
         "federation (item 9)",
     "TestQueueDepthGauges::test_profiles_sum_into_one_family": "profiles (item 9)",
-    "TestFailoverMetrics::test_sharded_dispatch_counter_moves_in_mesh_mode":
-        "mesh-sharded kernel (item 13)",
 }
 
 

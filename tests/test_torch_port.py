@@ -60,7 +60,9 @@ class TestImportGuard:
         assert len(files) > 20
         # The process slice's modules are among them.
         for rel in ("cli.py", "demo.py", "cluster/kube.py", "cluster/lease.py",
-                    "testing/__init__.py", "testing/fake_kube_api.py"):
+                    "testing/__init__.py", "testing/fake_kube_api.py",
+                    "parallel/__init__.py", "parallel/sharded.py",
+                    "plugins/yoda/collection.py", "plugins/yoda/score.py"):
             assert REPO / "yoda_tpu_torch" / rel in files, rel
         bad = {
             f"{f.relative_to(REPO)}: {m}"
@@ -175,13 +177,10 @@ class TestUnportedKnobs:
     @pytest.mark.parametrize(
         "knob,value",
         [
-            ("mode", "loop"),
-            ("mesh_devices", 2),
             ("kernel_device_min_elems", 1024),
             ("shard_count", 2),
             ("journal_path", "/var/lib/yoda"),
             ("commit_endpoint", "127.0.0.1:7000"),
-            ("percentage_nodes_to_score", 50),
         ],
     )
     def test_raises_naming_the_knob(self, knob, value):
@@ -190,6 +189,29 @@ class TestUnportedKnobs:
         )
         with pytest.raises(NotImplementedError, match=knob):
             build_stack(config=cfg)
+
+    @pytest.mark.parametrize(
+        "knob,value",
+        [
+            ("mode", "loop"),
+            ("mesh_devices", 2),
+            ("percentage_nodes_to_score", 50),
+        ],
+    )
+    def test_evaluation_knob_builds_everything(self, knob, value):
+        """The knobs that pick how a pod is evaluated (loop mode, its
+        search cap, the node-sharded evaluation) are ported: each builds a
+        stack with nothing left out."""
+        cfg = dataclasses.replace(
+            SchedulerConfig(kernel_platform="cpu"), **{knob: value}
+        )
+        assert unported_settings(cfg) == []
+        stack = build_stack(config=cfg)
+        try:
+            assert stack.not_built == ()
+            assert (stack.batch is None) == (knob == "mode")
+        finally:
+            stack.close()
 
     @pytest.mark.parametrize(
         "knob,value",

@@ -5,7 +5,7 @@ Every scenario is one script run against yoda_tpu.standalone.build_stack
 and the port's, both with kernel_platform "cpu", preemption on (unless the
 case turns it off), the speculative placement cache built (as by default)
 and a hand-driven scheduling clock. The script asserts what tests/test_preemption.py asserts
-of the reference (batch mode; loop mode is not ported), and then the two
+of the reference (batch mode), and then the two
 runs must agree on every pod's binding (or its eviction), the nominated
 node on every surviving pod's status, ``preempted_total``,
 ``preempt_nominations``, the sequence of cycle outcomes and the speculative

@@ -9,14 +9,19 @@ plans, the fake libtpu service and the trace generator — stay the
 reference's), and the port's
 ``build_stack`` runs its kernels on the host (``kernel_platform: cpu``)
 where the case leaves the platform at "auto", as every port test does on
-a machine without a card. The case body, its inputs and its assertions
+a machine without a card; so do the port's other entry points that pick a
+device (``ops.kernel.resolve_device`` and its importers: the batch plugin
+a case builds itself, ``fused_filter_score``, ``parallel.default_mesh``,
+which then gives the host shards). The case body, its inputs and its assertions
 are the reference's own, unchanged, so a case passing on both packages
 holds the port to exactly what the reference is held to.
 
-``cases(path, skip)`` lists ``(case id, class, method)`` triples for
-``pytest.mark.parametrize``, a case the reference marks ``slow`` (on its
-class or on itself) wrapped in ``pytest.param`` with the same mark, so it
-stays out of the tier-1 run as it does in the reference;
+``cases(path, skip)`` lists ``(case id, class, method, params)`` for
+``pytest.mark.parametrize``, one per parameter set of a case the
+reference parametrizes (its id ``method[v1-v2]``), a case the reference
+marks ``slow`` (on its class or on itself) wrapped in ``pytest.param``
+with the same mark, so it stays out of the tier-1 run as it does in the
+reference;
 ``run_case(pkg, path, case, request, monkeypatch)`` runs one, resolving
 the method's fixtures through ``request``.
 """
@@ -28,6 +33,7 @@ import contextlib
 import dataclasses
 import inspect
 import re
+import sys
 import types
 from pathlib import Path
 
@@ -50,26 +56,55 @@ def _slow(node: "ast.ClassDef | ast.FunctionDef") -> bool:
     return any(ast.unparse(d) == "pytest.mark.slow" for d in node.decorator_list)
 
 
+def _param_sets(node: ast.FunctionDef) -> "list[dict]":
+    """The argument sets of the reference's ``pytest.mark.parametrize``
+    decorators on ``node`` (their cross product; one empty set when there
+    are none). Argument values are evaluated with builtins only."""
+    sets: list[dict] = [{}]
+    for d in node.decorator_list:
+        if not (isinstance(d, ast.Call) and ast.unparse(d.func) == "pytest.mark.parametrize"):
+            continue
+        names = ast.literal_eval(d.args[0])
+        if isinstance(names, str):
+            names = [n.strip() for n in names.split(",")]
+        values = eval(compile(ast.Expression(d.args[1]), "<parametrize>", "eval"), {})
+        rows = [v if len(names) > 1 else (v,) for v in values]
+        sets = [{**s, **dict(zip(names, row))} for s in sets for row in rows]
+    return sets
+
+
+def _expand(base: str, cls: str, node: ast.FunctionDef, slow: bool) -> list:
+    out = []
+    for params in _param_sets(node):
+        case_id = base
+        if params:
+            case_id += "[" + "-".join(str(v) for v in params.values()) + "]"
+        out.append(((case_id, cls, node.name, params), slow))
+    return out
+
+
 def cases(name: str, skip: "dict[str, str]") -> list:
-    """Every test case of ``tests/<name>`` as (id, class, method), minus
-    ``skip`` (id -> the unported part it needs); a case the reference
-    marks slow comes as a ``pytest.param`` carrying that mark."""
+    """Every test case of ``tests/<name>`` as (id, class, method, params),
+    minus ``skip`` (id, or the id of a parametrized case without its
+    parameters -> the unported part it needs); a case the reference marks
+    slow comes as a ``pytest.param`` carrying that mark."""
     tree = ast.parse((TESTS / name).read_text())
     out = []
     for node in tree.body:
         if isinstance(node, ast.ClassDef) and node.name.startswith("Test"):
             for item in node.body:
                 if isinstance(item, ast.FunctionDef) and item.name.startswith("test"):
-                    out.append(((f"{node.name}::{item.name}", node.name, item.name),
-                                _slow(node) or _slow(item)))
+                    out += _expand(f"{node.name}::{item.name}", node.name, item,
+                                   _slow(node) or _slow(item))
         elif isinstance(node, ast.FunctionDef) and node.name.startswith("test"):
-            out.append(((node.name, "", node.name), _slow(node)))
-    unknown = set(skip) - {c[0] for c, _ in out}
+            out += _expand(node.name, "", node, _slow(node))
+    known = {c[0] for c, _ in out} | {c[0].split("[")[0] for c, _ in out}
+    unknown = set(skip) - known
     assert not unknown, f"skip names no case of {name}: {sorted(unknown)}"
     return [
         pytest.param(c, marks=pytest.mark.slow) if slow else c
         for c, slow in out
-        if c[0] not in skip
+        if c[0] not in skip and c[0].split("[")[0] not in skip
     ]
 
 
@@ -97,15 +132,30 @@ def _cpu_build_stack(real):
     return build_stack
 
 
+def _cpu_resolve_device(real):
+    def resolve_device(platform: str):
+        return real("cpu" if platform == "auto" else platform)
+
+    return resolve_device
+
+
 def load(pkg: str, name: str, monkeypatch) -> types.ModuleType:
     path = TESTS / name
     src = path.read_text()
     if pkg == "yoda_tpu_torch":
+        import yoda_tpu_torch.ops.kernel as kernel
+        import yoda_tpu_torch.parallel.sharded  # noqa: F401 — patched below
         import yoda_tpu_torch.standalone as standalone
 
         monkeypatch.setattr(
             standalone, "build_stack", _cpu_build_stack(standalone.build_stack)
         )
+        real = kernel.resolve_device
+        for mod_name, mod in list(sys.modules.items()):
+            if mod_name.startswith("yoda_tpu_torch") and getattr(
+                mod, "resolve_device", None
+            ) is real:
+                monkeypatch.setattr(mod, "resolve_device", _cpu_resolve_device(real))
         src = _port_source(src)
     mod = types.ModuleType(f"{path.stem}__{pkg}")
     mod.__file__ = str(path)
@@ -128,7 +178,8 @@ def run_case(pkg: str, name: str, case, request, monkeypatch) -> None:
     fake API server, a synced client, a CLI runner): those are built from
     the compiled module's own definitions, their dependencies first, and torn down in
     reverse order after the case, generator fixtures run to their end."""
-    _id, cls, meth = case
+    _id, cls, meth, *rest = case
+    params = rest[0] if rest else {}
     mod = load(pkg, name, monkeypatch)
     owner = getattr(mod, cls)() if cls else mod
     fn = getattr(owner, meth)
@@ -157,4 +208,9 @@ def run_case(pkg: str, name: str, case, request, monkeypatch) -> None:
             values[arg] = v
             return v
 
-        fn(**{a: value(a) for a in inspect.signature(fn).parameters})
+        # Arguments with a default (a case's own ``seed=11``) keep it.
+        fn(**{
+            a: params[a] if a in params else value(a)
+            for a, prm in inspect.signature(fn).parameters.items()
+            if a in params or prm.default is inspect.Parameter.empty
+        })

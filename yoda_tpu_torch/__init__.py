@@ -12,9 +12,12 @@ nothing of ``yoda_tpu`` or JAX.
 The port runs the singleton and gang paths, preemption, inter-pod
 affinity, spread, volumes and budgets, the background path (the
 speculative placement cache, the rebalancer and the reconciler), the node
-health monitor, and observability (the metrics registry, lifecycle
-tracing and why-pending, the SLO engine, the overload ladder and the
-metrics endpoint): ``standalone.build_stack``, ``agent.FakeTpuAgent``,
+health monitor, observability (the metrics registry, lifecycle tracing
+and why-pending, the SLO engine, the overload ladder and the metrics
+endpoint), and every way the reference evaluates a pod: the fused
+evaluation on one card, row-sharded over several (``parallel/``, the
+shard entry of ``csrc/fleet_eval.cu``), or loop mode's per-node plugins
+on the host: ``standalone.build_stack``, ``agent.FakeTpuAgent``,
 ``cluster.fake.FakeCluster`` and ``metrics_server.MetricsServer``.
 Each module's docstring names what it leaves out; ROADMAP.md lists the
 modules still to port.

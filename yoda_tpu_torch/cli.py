@@ -334,7 +334,7 @@ def _run_scheduler(args, stop: threading.Event) -> int:
 
         print(
             f"yoda-tpu-scheduler: serving (mode={config.mode}, "
-            f"device={stack.batch.device}, "
+            f"device={stack.batch.device if stack.batch else 'host (loop mode)'}, "
             f"nodes={len(cluster.list_tpu_metrics())}, "
             f"pods={len(cluster.list_pods())})",
             file=sys.stderr,

@@ -208,9 +208,11 @@ class SchedulerConfig:
     # (ops/cuda_kernel.py); the plain PyTorch version runs only on CPU
     # tensors. The reference's cross-knob validation is kept below.
     kernel_backend: str = "xla"
-    # The reference's node-axis sharding of the fused kernel over a device
-    # mesh. Not yet ported: it loads, and build_stack refuses any value but
-    # None.
+    # Node-axis sharding of the fleet evaluation over the first N devices
+    # (parallel/sharded.py): contiguous row blocks of the resident state, the
+    # hand kernel's shard entry per block and the cross-shard reductions
+    # between its phases. N CUDA cards, or N host shards with
+    # kernel_platform "cpu"; None = one device.
     mesh_devices: int | None = None
     # Multi-pod fused dispatch: pop up to this many pending pods per loop
     # turn and evaluate them in ONE kernel call (YodaBatch.prepare_burst),

@@ -66,6 +66,26 @@
 //     maxima; the span in phase 3), so each block precomputes their
 //     multiply-shift magic numbers once: floordiv_by gives floordiv's int32
 //     result in eight integer instructions instead of ~25.
+//
+// The shard entry (fleet_eval_shard_launch) replaces the reference's
+// node-sharded evaluation, yoda_tpu/parallel/sharded.py (kernel_impl under
+// NamedSharding row shards, :94, :146, :155, whose global reductions XLA
+// turns into collectives). It runs ONE of the three phases above over ONE
+// shard's rows (a contiguous row block of the fleet, on its own device or
+// on the same card) for K requests, as a plain (non-cooperative) launch of
+// one block per tile, reusing the phase functions unstaged: phase 1
+// writes feasible, reason and claimable rows and the shard's six maxima;
+// phase 2 reads the combined maxima (``globals``, [K, 6]) and writes raw
+// and the shard's raw lowest / highest / any; phase 3 reads the combined
+// lowest and span ([K, 2]) and writes final and the shard's best key. The
+// caller combines the shards' partials between phases (cross-shard MAX,
+// MIN / MAX, the largest (final, global row)) and writes the best row.
+// Blocks fold their partials into the shard's with global atomics, so the
+// caller fills the partials with each reduction's identity before the
+// launch. Bound: the same bytes as the one-launch evaluation, read up to
+// three times (each phase reads its rows from global memory); at the main
+// path's shapes the floor is three launches per shard and the host's
+// combines between them, not bytes.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -702,6 +722,72 @@ __global__ void __launch_bounds__(kTileNodes * kMaxLanes) fleet_eval_kernel(Args
 
 #undef FOR_EACH_TILE
 
+// The shard entry: phase kPhase (1 filter + maxima, 2 raw + bounds, 3 final
+// + best key) over one shard's rows, one tile per block, nothing staged.
+// ``globals`` holds the combined values of the earlier phases: [K, 6]
+// maxima for phase 2, [K, 2] (lowest, span) for phase 3. ``partials``
+// receives the shard's reductions, pre-filled by the caller with their
+// identities: [K, 6] maxima (0), [K, 3] int32 lowest (INT32_MAX) / highest
+// (-INT32_MAX) / any (0), or [K] uint64 best keys (0) as [K, 2] int32.
+template <bool kWide, int kPhase>
+__global__ void __launch_bounds__(kTileNodes * kMaxLanes)
+    fleet_eval_shard_kernel(Args a, const int32_t* globals, int32_t* partials) {
+  extern __shared__ int32_t dsm[];  // unused: nothing is staged
+  __shared__ unsigned long long s_key[kMaxRequests];
+  __shared__ Divisor s_div[kMaxRequests * 6];
+  __shared__ int32_t s_max[kMaxRequests * 6];
+  __shared__ uint32_t s_lohi[kMaxRequests * 3];
+  __shared__ int32_t s_req[kMaxRequests * 5];
+  const int lanes = blockDim.x / kTileNodes;
+  const int lane = threadIdx.x / kTileNodes;
+  const int K = a.k;
+  for (int s = threadIdx.x; s < 5 * K; s += blockDim.x) s_req[s] = a.reqs[s];
+
+  if constexpr (kPhase == 1) {
+    for (int s = threadIdx.x; s < 6 * K; s += blockDim.x) s_max[s] = 0;
+    __syncthreads();
+    if constexpr (kWide) {
+      filter_tile_wide<false>(a, 0, dsm, lane, lanes, s_req, s_max);
+    } else {
+      filter_tile<false>(a, 0, dsm, lane, lanes, s_req, s_max);
+    }
+    __syncthreads();
+    for (int s = threadIdx.x; s < 6 * K; s += blockDim.x)
+      if (s_max[s] > 0) atomicMax(partials + s, s_max[s]);
+  } else if constexpr (kPhase == 2) {
+    // masked_max clamps to >= 1 (reference kernel_impl).
+    for (int s = threadIdx.x; s < 6 * K; s += blockDim.x) s_div[s] = divisor(max(globals[s], 1));
+    for (int s = threadIdx.x; s < 3 * K; s += blockDim.x) s_lohi[s] = 0u;
+    __syncthreads();
+    if constexpr (kWide) {
+      score_tile_wide<false>(a, 0, dsm, lane, lanes, s_req, s_div, s_lohi);
+    } else {
+      score_tile<false>(a, 0, dsm, lane, lanes, s_div, s_lohi);
+    }
+    __syncthreads();
+    for (int s = threadIdx.x; s < K; s += blockDim.x) {
+      if (s_lohi[2 * K + s] == 0u) continue;
+      atomicMin(partials + 3 * s, unbias(~s_lohi[s]));
+      atomicMax(partials + 3 * s + 1, unbias(s_lohi[K + s]));
+      atomicMax(partials + 3 * s + 2, 1);
+    }
+  } else {
+    // The maxima's slots hold lowest and span, as in fleet_eval_kernel.
+    int32_t* s_lowest = s_max;
+    Divisor* s_span = s_div;
+    for (int s = threadIdx.x; s < K; s += blockDim.x) {
+      s_lowest[s] = globals[2 * s];
+      s_span[s] = divisor(globals[2 * s + 1]);
+      s_key[s] = 0ull;
+    }
+    __syncthreads();
+    finalize_tile<false>(a, 0, dsm, lane, lanes, s_req, s_lowest, s_span, s_key);
+    __syncthreads();
+    unsigned long long* keys = reinterpret_cast<unsigned long long*>(partials);
+    for (int s = threadIdx.x; s < K; s += blockDim.x) atomicMax(keys + s, s_key[s]);
+  }
+}
+
 // --- host side: launch plan, cached per device ---
 
 struct DeviceInfo {
@@ -901,6 +987,47 @@ int fleet_eval_launch(const int32_t* chips, const int32_t* nodes, const int32_t*
   if (current != device && (e = cudaSetDevice(device))) return e;
   e = launch(chips, nodes, dyn, host_ok, reqs, out, scratch, scratch_words, n, c, k,
              weights, static_cast<cudaStream_t>(stream));
+  if (current != device) cudaSetDevice(current);
+  return e;
+}
+
+// Enqueues phase ``phase`` (1, 2 or 3) of the node-sharded evaluation over
+// one shard of n rows on ``stream`` of ``device``: one block of 64 nodes x
+// max(4, min(k, 16)) request lanes per 64-row tile. ``globals`` and
+// ``partials`` as fleet_eval_shard_kernel says (globals unused in phase 1);
+// ``out`` is the shard's [K, 6, n] rows, of which phase 1 writes feasible,
+// reason and claimable (and the qualifying-chip masks in the raw row),
+// phase 2 raw and phase 3 final. Returns a CUDA error code.
+int fleet_eval_shard_launch(const int32_t* chips, const int32_t* nodes, const int32_t* dyn,
+                            const int32_t* host_ok, const int32_t* reqs, int phase,
+                            const int32_t* globals, int32_t* out, int32_t* partials, int n,
+                            int c, int k, const int32_t* weights, int device, void* stream) {
+  if (n <= 0 || k <= 0) return static_cast<int>(cudaGetLastError());
+  if (!supported(n, c, k) || phase < 1 || phase > 3) return cudaErrorInvalidValue;
+  int current = 0;
+  cudaError_t e = cudaGetDevice(&current);
+  if (e) return e;
+  if (current != device && (e = cudaSetDevice(device))) return e;
+  const int tiles = (n + kTileNodes - 1) / kTileNodes;
+  const int lanes = k < 4 ? 4 : k < kMaxLanes ? k : kMaxLanes;
+  Args a{chips, nodes, dyn, host_ok, reqs, out, nullptr, nullptr, nullptr, n, c, k,
+         tiles, 0,
+         Weights{weights[0], weights[1], weights[2], weights[3], weights[4],
+                 weights[5], weights[6], weights[7], weights[8]}};
+  const bool wide = c > kMaskChips;
+  const dim3 grid(tiles), block(kTileNodes * lanes);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (phase == 1) {
+    if (wide) fleet_eval_shard_kernel<true, 1><<<grid, block, 0, s>>>(a, globals, partials);
+    else fleet_eval_shard_kernel<false, 1><<<grid, block, 0, s>>>(a, globals, partials);
+  } else if (phase == 2) {
+    if (wide) fleet_eval_shard_kernel<true, 2><<<grid, block, 0, s>>>(a, globals, partials);
+    else fleet_eval_shard_kernel<false, 2><<<grid, block, 0, s>>>(a, globals, partials);
+  } else {
+    if (wide) fleet_eval_shard_kernel<true, 3><<<grid, block, 0, s>>>(a, globals, partials);
+    else fleet_eval_shard_kernel<false, 3><<<grid, block, 0, s>>>(a, globals, partials);
+  }
+  e = cudaGetLastError();
   if (current != device) cudaSetDevice(current);
   return e;
 }

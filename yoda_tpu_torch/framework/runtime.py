@@ -21,7 +21,8 @@ bind executor (``BindExecutor`` over ``_DaemonPool``) with its completion
 bookkeeping (``inflight()``, ``on_settled``, ``submitted``) and its
 ``stop_event``: the bind pipeline fans a gang's member binds out on it, and
 the node health monitor and the rebalancer fan their unbinds out on it.
-Left out until a later slice: the per-node filter loop (loop mode).
+Loop mode's per-node filter loop (``run_filters``) is here too, with its
+truncated, rotating search and the node-health fence.
 ``Framework.tracer`` (wired by ``build_stack``) records the bind and unbind
 spans on whichever thread runs them: the scheduling thread, or an executor
 worker for pipelined binds and for the monitor's and the rebalancer's
@@ -338,6 +339,51 @@ class Framework:
             if not st.success and st.code != Code.SKIP:
                 return st
         return Status.ok()
+
+    def run_filters(
+        self,
+        state: CycleState,
+        pod: PodSpec,
+        snapshot: Snapshot,
+        *,
+        stop_after_feasible: int = 0,
+        start_index: int = 0,
+    ) -> dict[str, Status]:
+        """Run the FilterPlugin chain per node. ``stop_after_feasible > 0``
+        truncates the SEARCH once that many feasible nodes are found
+        (upstream percentageOfNodesToScore semantics: Filter work is
+        capped too, not just score fan-out), scanning from the rotating
+        ``start_index`` so the cap does not always favor the same
+        name-ordered prefix. Unscanned nodes are simply absent from the
+        returned map — preemption walks the snapshot itself, so PostFilter
+        is unaffected."""
+        statuses: dict[str, Status] = {}
+        infos = snapshot.infos()
+        n = len(infos)
+        feasible = 0
+        # Node-health fence (yoda_tpu/nodehealth): SUSPECT/DRAINING/DOWN
+        # hosts take no NEW placements — the loop-mode half of the veto
+        # the batch path applies in its cached admission vector.
+        fenced = getattr(snapshot, "fenced", None)
+        for i in range(n):
+            node = infos[(start_index + i) % n]
+            if fenced and node.name in fenced:
+                statuses[node.name] = Status.unschedulable(
+                    "node fenced by the health monitor (suspect/draining/"
+                    "down)"
+                )
+                continue
+            st = Status.ok()
+            for p in self.filter_plugins:
+                st = p.filter(state, pod, node)
+                if not st.success:
+                    break
+            statuses[node.name] = st
+            if st.success:
+                feasible += 1
+                if stop_after_feasible and feasible >= stop_after_feasible:
+                    break
+        return statuses
 
     @property
     def supports_burst(self) -> bool:

@@ -43,9 +43,13 @@ settled (``_flush_deferred_rollbacks`` over the gang plugin's
 ``collect_rollbacks``). ``serve_forever`` blocks on the queue, parks while
 fenced (permit expiry still sweeps) and runs ``on_serve_start`` (the
 reconciler's warm-start resync) once, after the fence first admits
-leadership and before the first pop. Left out until a later slice: shard
-staging and commits (``yoda_shard_commit_rollbacks_total`` stays at 0),
-retiring a shard's loop, and the per-node filter loop's search window.
+leadership and before the first pop. Loop mode is here as well: without a
+batch plugin a cycle runs the per-node filter chain
+(``Framework.run_filters``) over a search window that
+``percentage_nodes_to_score`` caps, from a rotating origin, then PreScore
+and the per-node Score plugins. Left out until a later slice: shard
+staging and commits (``yoda_shard_commit_rollbacks_total`` stays at 0) and
+retiring a shard's loop.
 """
 
 from __future__ import annotations
@@ -95,6 +99,12 @@ class SchedulerStats:
         return [r.latency_s for r in self.results]
 
 
+# Never score fewer feasible nodes than this when percentage_nodes_to_score
+# caps the set (the scaled-down analog of upstream's minFeasibleNodesToFind,
+# which is 100 — TPU fleets are 1-2 orders smaller than general clusters).
+MIN_FEASIBLE_TO_SCORE = 8
+
+
 class Scheduler:
     def __init__(
         self,
@@ -106,6 +116,7 @@ class Scheduler:
         on_bound: Callable[[PodSpec, str], None] | None = None,
         on_unschedulable: Callable[[PodSpec, str], None] | None = None,
         on_nominated: Callable[[PodSpec, "str | None"], None] | None = None,
+        percentage_nodes_to_score: int = 100,
         cycle_lock: "threading.Lock | None" = None,
         post_filter_lock: "threading.Lock | None" = None,
         metrics: SchedulingMetrics | None = None,
@@ -130,6 +141,7 @@ class Scheduler:
         # evictions), taken after the cycle lock is released.
         self.post_filter_lock = post_filter_lock or threading.Lock()
         self.metrics = metrics
+        self.percentage_nodes_to_score = percentage_nodes_to_score
         self.pod_alive = pod_alive
         # Multi-pod fused dispatch (config batch_requests): pop up to this
         # many queue entries at once and pre-evaluate them in ONE kernel
@@ -175,6 +187,7 @@ class Scheduler:
         # Entries drop on bind or deletion.
         self._nominated: dict[str, str] = {}
         self._lock = threading.Lock()
+        self._search_rotor = 0
 
     def _bind_inflight(self) -> int:
         """Binds currently in flight on the pipeline executor (0 when no
@@ -194,6 +207,31 @@ class Scheduler:
         except Exception:  # noqa: BLE001 — fail closed
             log.exception("fence check failed; treating scheduler as fenced")
             return True
+
+    def _search_limit(self, n_nodes: int) -> int:
+        """Upstream percentageOfNodesToScore, the SEARCH half: how many
+        feasible nodes the filter scan needs before it may stop. 0 = no
+        cap (the default 100%%, tiny fleets, or batch mode — the fused
+        evaluation filters the fleet in one dispatch where a cap would cost
+        placement quality and save nothing)."""
+        pct = self.percentage_nodes_to_score
+        if pct >= 100 or n_nodes <= MIN_FEASIBLE_TO_SCORE:
+            return 0
+        return max(-(-(n_nodes * pct) // 100), MIN_FEASIBLE_TO_SCORE)
+
+    def _search_start(self, n_nodes: int) -> int:
+        """Rotating scan origin (upstream nextStartNodeIndex). The rotor is
+        advanced AFTER the scan by the number of nodes actually visited
+        (:meth:`_advance_search`): a long infeasible run is skipped by the
+        next cycle instead of being re-filtered window-width at a time."""
+        if n_nodes <= 0 or self.percentage_nodes_to_score >= 100:
+            return 0
+        with self._lock:
+            return self._search_rotor % n_nodes
+
+    def _advance_search(self, visited: int) -> None:
+        with self._lock:
+            self._search_rotor += max(visited, 1)
 
     # --- one pod ---
 
@@ -451,14 +489,43 @@ class Scheduler:
                     return done(
                         "error", message=f"batch filter/score failed: {e}"
                     )
-                if batch is None:
-                    return done(
-                        "error",
-                        message="no batch filter/score plugin is registered",
+                if batch is not None:
+                    statuses, batch_scores = batch
+                    feasible = sorted(batch_scores)
+                else:
+                    # Loop mode: the per-node filter chain over the search
+                    # window.
+                    limit = self._search_limit(len(snapshot))
+                    statuses = self.framework.run_filters(
+                        state, pod, snapshot,
+                        stop_after_feasible=limit,
+                        start_index=self._search_start(len(snapshot)),
                     )
-                statuses, batch_scores = batch
-                feasible = sorted(batch_scores)
+                    if limit:
+                        # run_filters records a status per node VISITED, so
+                        # the map's size is the processed count (upstream
+                        # advances nextStartNodeIndex the same way).
+                        self._advance_search(len(statuses))
+                    batch_scores = {}
+                    feasible = sorted(
+                        n for n, s in statuses.items() if s.success
+                    )
             feasible_count = len(feasible)
+            # The reference's V(3) per-node decision detail (scheduler.go:67).
+            # Under search truncation, statuses covers only the scanned
+            # window — say so, or 12/1000 reads as 988 infeasible nodes.
+            if log.isEnabledFor(logging.DEBUG):
+                log.debug(
+                    "pod %s: %d/%d scanned nodes feasible (fleet %d)",
+                    pod.key, feasible_count, len(statuses), len(snapshot),
+                )
+                for n in sorted(statuses):
+                    s = statuses[n]
+                    if not s.success:
+                        log.debug(
+                            "pod %s: node %s rejected: %s",
+                            pod.key, n, s.message,
+                        )
             if not feasible:
                 # As above: no Reserve on this path, the lock goes first.
                 release_cycle_lock()
@@ -481,18 +548,30 @@ class Scheduler:
             # score phase from this cycle's trace entry and histogram.
             if not st.success:
                 return done("error", message=st.message)
-            if self.framework.score_plugins:
-                # Combining with per-node plugins: bring the batch total onto
-                # the same [0,100] scale.
-                normalized = _normalize(batch_scores)
-                for n in feasible:
-                    totals[n] = totals.get(n, 0) + normalized[n]
-            else:
-                # Batch is the only scorer: its scores are already
-                # normalized+tiered; re-normalizing would only quantize away
-                # within-tier ordering.
-                totals = dict(batch_scores)
+            if batch_scores:
+                if self.framework.score_plugins:
+                    # Combining with per-node plugins: bring the batch total
+                    # onto the same [0,100] scale.
+                    normalized = _normalize(batch_scores)
+                    for n in feasible:
+                        totals[n] = totals.get(n, 0) + normalized[n]
+                else:
+                    # Batch is the only scorer: its scores are already
+                    # normalized+tiered; re-normalizing would only quantize
+                    # away within-tier ordering.
+                    totals = dict(batch_scores)
             best = max(feasible, key=lambda n: (totals.get(n, 0), n))
+            # Final scores (the reference's V(3) score log, scheduler.go:143).
+            if log.isEnabledFor(logging.DEBUG):
+                ranked = sorted(
+                    ((totals.get(n, 0), n) for n in feasible), reverse=True
+                )
+                log.debug(
+                    "pod %s: scores %s -> %s",
+                    pod.key,
+                    [(n, s) for s, n in ranked[:8]],
+                    best,
+                )
 
             with timer.span("reserve"):
                 st = self.framework.run_reserve(state, pod, best)

@@ -15,6 +15,14 @@
   ledgers in shared memory, its rows fed ahead by bulk asynchronous
   copies, one exchange of arg-max keys across the cluster per row);
   :func:`joint_fit_plan` reports its shape.
+- ``fleet_eval_shard`` (the shard entry of ``fleet_eval.cu``), counterpart
+  of the reference's node-sharded evaluation
+  (``yoda_tpu/parallel/sharded.py``: ``kernel_impl`` under row-sharded
+  ``NamedSharding``): one of the evaluation's three phases over one
+  shard's rows, reading the values the caller combined across shards
+  after the earlier phases and writing the shard's own partials.
+  ``parallel.sharded`` drives it, three launches per shard per 128
+  requests.
 
 Each source's header says what bounds it on an H100 and how the design
 answers that. Each is compiled at first use with ``nvcc -gencode
@@ -57,9 +65,11 @@ import torch
 from yoda_tpu_torch.config import SLICE_PROTECT_TIER, Weights
 from yoda_tpu_torch.ops.kernel import (
     CHIP_KEYS,
+    INT32_MAX,
     STATIC_NODE_KEYS,
     joint_fit_scan,
     kernel_packed_burst,
+    kernel_shard_phase,
 )
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fleet_eval.cu"
@@ -82,6 +92,7 @@ MAX_REQUESTS = 128  # requests per launch (kMaxRequests); calls chunk by it
 # the serve loop and the speculation thread launch concurrently.
 launches = 0
 joint_fit_launches = 0
+shard_launches = 0  # fleet_eval_shard: one per phase per 128-request chunk
 _count_lock = threading.Lock()
 
 _libs: "dict[Path, ctypes.CDLL]" = {}
@@ -162,6 +173,10 @@ def _declare(lib: ctypes.CDLL, source: Path) -> None:
         lib.fleet_eval_launch.restype = i32
         lib.fleet_eval_plan.argtypes = [i32, i32, i32, ptr]
         lib.fleet_eval_plan.restype = i32
+        lib.fleet_eval_shard_launch.argtypes = (
+            [ptr] * 5 + [i32] + [ptr] * 3 + [i32] * 3 + [ptr, i32, ptr]
+        )
+        lib.fleet_eval_shard_launch.restype = i32
     else:
         lib.joint_fit_launch.argtypes = [ptr] * 8 + [i32] * 3 + [ptr]
         lib.joint_fit_launch.restype = i32
@@ -309,6 +324,99 @@ def fleet_eval(
             if counter is not None:
                 counter.launches += 1
     return out
+
+
+# Per phase of the shard entry: int32 words per request of the globals it
+# reads and of the partials it writes, and the partials' identities (what
+# the wrapper fills them with before the launch).
+SHARD_GLOBAL_WORDS = {1: 0, 2: 6, 3: 2}
+SHARD_PARTIAL_WORDS = {1: 6, 2: 3, 3: 2}
+SHARD_PARTIAL_IDENTITY = {1: (0,) * 6, 2: (INT32_MAX, -INT32_MAX, 0), 3: (0, 0)}
+
+
+_identities: "dict[tuple[torch.device, int], torch.Tensor]" = {}
+
+
+def _shard_identity(device: torch.device, phase: int) -> torch.Tensor:
+    """The phase's partial identities as a [pw] int32 tensor on ``device``
+    (made once per device and phase)."""
+    key = (device, phase)
+    ident = _identities.get(key)
+    if ident is None:
+        ident = _identities[key] = torch.tensor(
+            SHARD_PARTIAL_IDENTITY[phase], dtype=torch.int32, device=device
+        )
+    return ident
+
+
+def fleet_eval_shard(
+    chips: torch.Tensor,      # [9, C, n] int32: the shard's rows
+    nodes: torch.Tensor,      # [4, n] int32
+    dyn: torch.Tensor,        # [4, n] int32
+    host_ok_k: torch.Tensor,  # [K, n] int32
+    reqs_k: torch.Tensor,     # [K, 5] int32
+    phase: int,               # 1, 2 or 3
+    globals_: "torch.Tensor | None",  # [K, SHARD_GLOBAL_WORDS[phase]] int32
+    out: torch.Tensor,        # [K, 6, n] int32, the shard's output rows
+    partials: torch.Tensor,   # [K, SHARD_PARTIAL_WORDS[phase]] int32
+    weights: Weights,
+    counter=None,  # an owner whose ``shard_launches`` also counts this call's
+) -> None:
+    """One phase of the node-sharded fleet evaluation over one shard: the
+    shard entry of ``fleet_eval.cu`` for CUDA tensors — ``partials`` filled
+    with the phase's identities, then one launch per 128 requests, each
+    added to ``shard_launches`` and to ``counter.shard_launches`` — and
+    its plain version (ops.kernel.kernel_shard_phase) for CPU tensors.
+    Phase 1 writes ``out``'s feasible, reason and claimable rows and the
+    shard's six maxima; phase 2, given the combined maxima, raw and the
+    shard's (lowest, highest, any); phase 3, given the combined (lowest,
+    span), final and the shard's best key as (local row, score ^
+    INT32_MIN). The best row itself is the caller's combine."""
+    global shard_launches
+    if phase not in SHARD_PARTIAL_WORDS:
+        raise ValueError(f"phase must be 1, 2 or 3, got {phase!r}")
+    if chips.device.type == "cpu":
+        kernel_shard_phase(
+            chips, nodes, dyn, host_ok_k, reqs_k, phase, globals_, out, partials,
+            weights,
+        )
+        return
+    if chips.device.type != "cuda":
+        raise ValueError(f"no fleet evaluation for device {chips.device}")
+    _, c, n = chips.shape
+    k = reqs_k.shape[0]
+    device = chips.device
+    _check("chips", chips, (len(CHIP_KEYS), c, n), device)
+    _check("nodes", nodes, (len(STATIC_NODE_KEYS), n), device)
+    _check("dyn", dyn, (4, n), device)
+    _check("host_ok_k", host_ok_k, (k, n), device)
+    _check("reqs_k", reqs_k, (k, 5), device)
+    _check("out", out, (k, 6, n), device)
+    pw, gw = SHARD_PARTIAL_WORDS[phase], SHARD_GLOBAL_WORDS[phase]
+    _check("partials", partials, (k, pw), device)
+    if gw:
+        if globals_ is None:
+            raise ValueError(f"phase {phase} reads the combined values of phase {phase - 1}")
+        _check("globals", globals_, (k, gw), device)
+    partials.copy_(_shard_identity(device, phase).expand(k, pw))
+    lib = _load()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    weight_row = ctypes.addressof(_host_weights(weights))
+    gptr = globals_.data_ptr() if gw else 0
+    for lo in range(0, k, MAX_REQUESTS):
+        kc = min(MAX_REQUESTS, k - lo)
+        rc = lib.fleet_eval_shard_launch(
+            chips.data_ptr(), nodes.data_ptr(), dyn.data_ptr(),
+            host_ok_k.data_ptr() + 4 * lo * n, reqs_k.data_ptr() + 4 * lo * 5, phase,
+            (gptr + 4 * lo * gw) if gw else None, out.data_ptr() + 4 * lo * 6 * n,
+            partials.data_ptr() + 4 * lo * pw, n, c, kc, weight_row, device.index,
+            stream,
+        )
+        _raise_for(lib, rc, "shard launch")
+        with _count_lock:
+            shard_launches += 1
+            if counter is not None:
+                counter.shard_launches += 1
 
 
 JOINT_PLAN_FIELDS = (

@@ -31,6 +31,12 @@ The resident state's in-place row update is here as well:
 donated XLA scatter, as ``index_copy_`` along the node axis), driven by
 :meth:`TorchFleetKernel.update_rows`.
 
+The node-sharded evaluation's per-shard phases are here too:
+:func:`kernel_shard_phase`, the plain version of the hand kernel's shard
+entry (``parallel/sharded.py`` combines the shards between phases), built
+from the same phase functions as :func:`kernel_impl`; and the reference's
+one-shot :func:`fused_filter_score`.
+
 Left out until a later slice: ``NumpyFleetKernel`` (the reference's
 degraded-mode rung; the port has no fallback chain, so the numpy twin of
 the scan is not carried either).
@@ -99,7 +105,9 @@ CHIP_KEYS = (
 STATIC_NODE_KEYS = ("node_valid", "in_slice", "generation_rank", "ext_chips")
 DYN_KEYS = ("fresh", "reserved_chips", "claimed_hbm_mib", "host_ok")
 
-_BIG = np.iinfo(np.int32).max
+# The int32 bounds the kernels use as fillers and key offsets.
+INT32_MAX = int(np.iinfo(np.int32).max)
+INT32_MIN = -(2 ** 31)
 
 # TorchFleetKernel.update_rows calls that updated resident rows on a CUDA
 # device: one host-to-device copy and the index_copy_ pair each. Bumped
@@ -163,44 +171,50 @@ def _i32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int32)
 
 
-def kernel_impl(
-    a: dict, number, hbm_mib, clock_mhz, gen_rank, wants_topology,
-    weights: Weights,
-):
-    """The whole evaluation for K requests at once. ``a`` maps NODE_KEYS to
-    [N] or [K, N] tensors (per-request rows, e.g. ``host_ok``) and
-    CHIP_KEYS to [N, C] tensors (bool for the flags, int32 for the rest).
-    Request scalars are [K, 1] int32 tensors. Returns (feasible [K, N]
-    bool, reasons, raw, final, claimable [K, N] int32, best [K] int32) —
-    the reference's outputs with a leading request axis."""
-    number, hbm_mib, clock_mhz, gen_rank, wants_topology = (
+def _request_columns(number, hbm_mib, clock_mhz, gen_rank, wants_topology):
+    """Request scalars as [K, 1] int32 columns."""
+    return tuple(
         torch.as_tensor(v, dtype=torch.int32).reshape(-1, 1)
         for v in (number, hbm_mib, clock_mhz, gen_rank, wants_topology)
     )
-    # Request scalars against the [N, C] grids: [K, 1, 1].
-    hbm_c = hbm_mib[:, :, None]
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """Chip-axis count -> int32."""
+    return _i32(x.sum(dim=-1))
+
+
+def _qualifying(a: dict, hbm_mib: torch.Tensor, clock_mhz: torch.Tensor):
+    """(healthy [N, C], hbm_ok, clock_ok, qual [K, N, C]) for [K, 1]
+    request columns."""
+    healthy = a["chip_valid"] & a["chip_healthy"]
+    hbm_ok = healthy & (a["hbm_free_mib"] >= hbm_mib[:, :, None])
+    clock_ok = healthy & (a["clock_mhz"] >= clock_mhz[:, :, None])
+    return healthy, hbm_ok, clock_ok, hbm_ok & clock_ok
+
+
+def _phase_filter(a: dict, number, hbm_mib, clock_mhz, gen_rank):
+    """Phase 1 of the evaluation: feasibility, the first failing reason and
+    the claimable chips per (request, node), and the six maxima of the
+    feasible nodes' qualifying chips (0 where there are none; the caller
+    floors them at 1). Returns (feasible [K, N] bool, reasons, claimable
+    [K, N] int32, qual [K, N, C] bool, maxima [K, 6] int32 in the order
+    bandwidth, clock, tflops, power, free HBM, total HBM)."""
+    healthy, hbm_ok, clock_ok, qual = _qualifying(a, hbm_mib, clock_mhz)
     clock_c = clock_mhz[:, :, None]
-
-    def rows(x: torch.Tensor) -> torch.Tensor:  # chip-axis count -> int32
-        return _i32(x.sum(dim=-1))
-
-    healthy = a["chip_valid"] & a["chip_healthy"]            # [N, C]
-    hbm_ok = healthy & (a["hbm_free_mib"] >= hbm_c)          # [K, N, C]
-    clock_ok = healthy & (a["clock_mhz"] >= clock_c)         # [K, N, C]
-    qual = hbm_ok & clock_ok
-
-    count_healthy = rows(healthy)                            # [N]
-    count_hbm = rows(hbm_ok)                                 # [K, N]
-    count_clock = rows(clock_ok)
+    hbm_c = hbm_mib[:, :, None]
+    count_healthy = _rows(healthy)                           # [N]
+    count_hbm = _rows(hbm_ok)                                # [K, N]
+    count_clock = _rows(clock_ok)
 
     # Reservation corrections: reference kernel_impl (and
     # filter_plugin.available_chips / stale_freed_chips) parity.
     zero = torch.zeros((), dtype=torch.int32, device=healthy.device)
-    apparently_used = rows(healthy & a["chip_used"])
+    apparently_used = _rows(healthy & a["chip_used"])
     absorbable = torch.maximum(apparently_used - a["ext_chips"], zero)
     invisible = torch.maximum(a["reserved_chips"] - absorbable, zero)
     stale_freed = torch.maximum(absorbable - a["reserved_chips"], zero)
-    freed_candidates = rows(
+    freed_candidates = _rows(
         healthy
         & a["chip_used"]
         & (a["clock_mhz"] >= clock_c)
@@ -210,7 +224,7 @@ def kernel_impl(
     freed = torch.minimum(
         stale_freed, torch.maximum(freed_candidates - a["reserved_chips"], zero)
     )
-    count_avail = rows(qual & ~a["chip_used"])
+    count_avail = _rows(qual & ~a["chip_used"])
     fits_chips = count_healthy >= number
     fits_hbm = (hbm_mib == 0) | ((count_hbm + freed) >= number)
     fits_clock = (clock_mhz == 0) | (count_clock >= number)
@@ -247,19 +261,38 @@ def kernel_impl(
 
     # --- collection: per-request maxima over feasible nodes' qualifying chips
     cmask = feasible[:, :, None] & qual                      # [K, N, C]
+    maxima = torch.stack(
+        [
+            torch.where(cmask, a[key], zero).amax(dim=(-2, -1))
+            for key in _MAX_KEYS
+        ],
+        dim=-1,
+    )
+    claimable = torch.maximum(count_avail + freed - invisible, zero)
+    return feasible, reasons, claimable, qual, maxima
 
-    def masked_max(x: torch.Tensor) -> torch.Tensor:        # -> [K, 1, 1]
-        m = torch.where(cmask, x, zero).amax(dim=(-2, -1))
-        return m.clamp(min=1).reshape(-1, 1, 1)
 
+# The chip rows the six cluster maxima are taken over, in the order of the
+# maxima columns (bandwidth, clock, tflops, power, free HBM, total HBM).
+_MAX_KEYS = (
+    "hbm_bandwidth", "clock_mhz", "tflops", "power_w", "hbm_free_mib",
+    "hbm_total_mib",
+)
+
+
+def _phase_raw(a: dict, feasible, qual, maxima, weights: Weights) -> torch.Tensor:
+    """Phase 2: the raw score of every feasible (request, node) against the
+    cluster maxima ([K, 6], each at least 1); 0 elsewhere."""
     w = weights
+    zero = torch.zeros((), dtype=torch.int32, device=feasible.device)
+    m = maxima.reshape(-1, 6, 1, 1)
     chip_scores = (
-        _norm(a["hbm_bandwidth"], masked_max(a["hbm_bandwidth"])) * w.hbm_bandwidth
-        + _norm(a["clock_mhz"], masked_max(a["clock_mhz"])) * w.clock
-        + _norm(a["tflops"], masked_max(a["tflops"])) * w.tflops
-        + _norm(a["power_w"], masked_max(a["power_w"])) * w.power
-        + _norm(a["hbm_free_mib"], masked_max(a["hbm_free_mib"])) * w.hbm_free
-        + _norm(a["hbm_total_mib"], masked_max(a["hbm_total_mib"])) * w.hbm_total
+        _norm(a["hbm_bandwidth"], m[:, 0]) * w.hbm_bandwidth
+        + _norm(a["clock_mhz"], m[:, 1]) * w.clock
+        + _norm(a["tflops"], m[:, 2]) * w.tflops
+        + _norm(a["power_w"], m[:, 3]) * w.power
+        + _norm(a["hbm_free_mib"], m[:, 4]) * w.hbm_free
+        + _norm(a["hbm_total_mib"], m[:, 5]) * w.hbm_total
     )
     basic = _i32(torch.where(qual, chip_scores, zero).sum(dim=-1))
 
@@ -273,36 +306,136 @@ def kernel_impl(
     allocate = torch.where(
         total_sum > 0, _floordiv(headroom * 100, safe_total), zero
     ) * w.allocate
+    return torch.where(feasible, basic + actual + allocate, zero)
 
-    raw = torch.where(feasible, basic + actual + allocate, zero)
 
-    # --- normalize (min-max to [0,100], all-equal guard). Fillers sit
-    # outside both reductions' ranges: raw goes negative under
-    # most-allocated's negated weights.
-    big = torch.full((), _BIG, dtype=torch.int32, device=raw.device)
+def _raw_bounds(feasible, raw) -> "tuple[torch.Tensor, torch.Tensor]":
+    """The min-max normalization's lowest and highest raw score over the
+    feasible nodes, [K, 1] each. Fillers sit outside both reductions'
+    ranges: raw goes negative under most-allocated's negated weights."""
+    big = torch.full((), INT32_MAX, dtype=torch.int32, device=raw.device)
     lowest = torch.where(feasible, raw, big).amin(dim=-1, keepdim=True)
     highest = torch.where(feasible, raw, -big).amax(dim=-1, keepdim=True)
-    lowest = torch.where(highest == lowest, lowest - 1, lowest)
-    span = torch.maximum(highest - lowest, zero + 1)
-    normalized = torch.where(feasible, _floordiv((raw - lowest) * 100, span), zero)
+    return lowest, highest
 
-    # Anti-fragmentation tier, added AFTER normalization.
+
+def minmax_span(lowest, highest) -> "tuple[torch.Tensor, torch.Tensor]":
+    """The all-equal guard on the fleet-wide bounds: (lowest, span)."""
+    lowest = torch.where(highest == lowest, lowest - 1, lowest)
+    return lowest, torch.maximum(highest - lowest, torch.ones_like(lowest))
+
+
+def _phase_final(a: dict, feasible, raw, lowest, span, wants_topology,
+                 weights: Weights) -> torch.Tensor:
+    """Phase 3: min-max normalization to [0, 100] against the fleet-wide
+    ``lowest`` / ``span`` ([K, 1]), plus the anti-fragmentation tier,
+    added AFTER normalization; 0 where infeasible."""
+    zero = torch.zeros((), dtype=torch.int32, device=raw.device)
+    normalized = torch.where(feasible, _floordiv((raw - lowest) * 100, span), zero)
     protect = torch.where(
         (wants_topology == 0) & ~a["in_slice"],
-        SLICE_PROTECT_TIER * w.slice_protect,
+        SLICE_PROTECT_TIER * weights.slice_protect,
         0,
     ).to(torch.int32)
-    final = torch.where(feasible, normalized + protect, zero)
+    return torch.where(feasible, normalized + protect, zero)
 
-    # --- select: highest score, ties -> later row (argmax of the reversed
-    # row takes the FIRST max, i.e. the last one of the original order).
+
+def _best_row(feasible, final) -> "tuple[torch.Tensor, torch.Tensor]":
+    """Highest score, ties -> later row (argmax of the reversed row takes the
+    FIRST max, i.e. the last one of the original order), over
+    where(feasible, final, -1): (row [K] int32, its score [K] int32)."""
+    masked = torch.where(feasible, final, torch.full_like(final, -1))
     n = final.shape[-1]
-    masked = torch.where(feasible, final, zero - 1)
-    best = (n - 1 - torch.argmax(masked.flip(-1), dim=-1)).to(torch.int32)
-    best = torch.where(feasible.any(dim=-1), best, zero - 1)
+    row = (n - 1 - torch.argmax(masked.flip(-1), dim=-1)).to(torch.int32)
+    return row, masked.gather(-1, row.long()[:, None])[:, 0]
 
-    claimable = torch.maximum(count_avail + freed - invisible, zero)
+
+def kernel_impl(
+    a: dict, number, hbm_mib, clock_mhz, gen_rank, wants_topology,
+    weights: Weights,
+):
+    """The whole evaluation for K requests at once. ``a`` maps NODE_KEYS to
+    [N] or [K, N] tensors (per-request rows, e.g. ``host_ok``) and
+    CHIP_KEYS to [N, C] tensors (bool for the flags, int32 for the rest).
+    Request scalars are [K, 1] int32 tensors. Returns (feasible [K, N]
+    bool, reasons, raw, final, claimable [K, N] int32, best [K] int32) —
+    the reference's outputs with a leading request axis. It is the three
+    phases of :func:`kernel_shard_phase` over one shard, with the global
+    values computed in between."""
+    number, hbm_mib, clock_mhz, gen_rank, wants_topology = _request_columns(
+        number, hbm_mib, clock_mhz, gen_rank, wants_topology
+    )
+    feasible, reasons, claimable, qual, maxima = _phase_filter(
+        a, number, hbm_mib, clock_mhz, gen_rank
+    )
+    raw = _phase_raw(a, feasible, qual, maxima.clamp(min=1), weights)
+    lowest, span = minmax_span(*_raw_bounds(feasible, raw))
+    final = _phase_final(a, feasible, raw, lowest, span, wants_topology, weights)
+    best, _ = _best_row(feasible, final)
+    best = torch.where(feasible.any(dim=-1), best, torch.full_like(best, -1))
     return feasible, reasons, raw, final, claimable, best
+
+
+
+def kernel_shard_phase(
+    chips: torch.Tensor,      # [9, C, n] int32: one shard's rows
+    nodes: torch.Tensor,      # [4, n] int32
+    dyn: torch.Tensor,        # [4, n] int32
+    host_ok_k: torch.Tensor,  # [K, n] int32
+    reqs_k: torch.Tensor,     # [K, 5] int32
+    phase: int,
+    globals_: "torch.Tensor | None",
+    out: torch.Tensor,        # [K, 6, n] int32, the shard's output rows
+    partials: torch.Tensor,   # [K, words] int32
+    weights: Weights,
+) -> None:
+    """One phase of the node-sharded evaluation over one shard's rows — the
+    plain PyTorch version of the shard entry of the hand kernel
+    (ops/cuda_kernel.py ``fleet_eval_shard``), built from the same phase
+    functions as :func:`kernel_impl`. Phase 1 writes ``out``'s feasible,
+    reason and claimable rows and ``partials`` [K, 6], the shard's maxima
+    (0 where the shard has no feasible qualifying chip). Phase 2 reads the
+    cross-shard maxima ``globals_`` [K, 6] (floored at 1 here) and writes
+    raw and ``partials`` [K, 3]: the shard's lowest and highest feasible
+    raw score (fillers INT32_MAX and -INT32_MAX) and whether any row is
+    feasible. Phase 3 reads the combined ``globals_`` [K, 2] (lowest, span:
+    the all-equal guard already applied) and writes final and
+    ``partials`` [K, 2]: the shard's best local row (ties to the later row,
+    over where(feasible, final, -1)) and its score XOR INT32_MIN — the
+    little-endian words of the kernel's 64-bit key."""
+    a = _inputs_dict(chips, nodes, dyn, host_ok_k)
+    number, hbm_mib, clock_mhz, gen_rank, wants_topology = _request_columns(
+        *reqs_k.unbind(1)
+    )
+    if phase == 1:
+        feasible, reasons, claimable, _qual, maxima = _phase_filter(
+            a, number, hbm_mib, clock_mhz, gen_rank
+        )
+        out[:, 0] = _i32(feasible)
+        out[:, 1] = reasons
+        out[:, 5] = claimable
+        partials.copy_(maxima)
+    elif phase == 2:
+        feasible = out[:, 0] != 0
+        qual = _qualifying(a, hbm_mib, clock_mhz)[3]
+        raw = _phase_raw(a, feasible, qual, globals_.clamp(min=1), weights)
+        out[:, 2] = raw
+        lowest, highest = _raw_bounds(feasible, raw)
+        partials[:, 0] = lowest[:, 0]
+        partials[:, 1] = highest[:, 0]
+        partials[:, 2] = _i32(feasible.any(dim=-1))
+    elif phase == 3:
+        feasible = out[:, 0] != 0
+        final = _phase_final(
+            a, feasible, out[:, 2], globals_[:, 0:1], globals_[:, 1:2],
+            wants_topology, weights,
+        )
+        out[:, 3] = final
+        row, score = _best_row(feasible, final)
+        partials[:, 0] = row
+        partials[:, 1] = score ^ INT32_MIN
+    else:
+        raise ValueError(f"phase must be 1, 2 or 3, got {phase!r}")
 
 
 def _static_dict(chips: torch.Tensor, nodes: torch.Tensor) -> dict:
@@ -312,6 +445,17 @@ def _static_dict(chips: torch.Tensor, nodes: torch.Tensor) -> dict:
     a.update({k: nodes[i] for i, k in enumerate(STATIC_NODE_KEYS)})
     for k in _BOOL_KEYS & a.keys():
         a[k] = a[k] != 0
+    return a
+
+
+def _inputs_dict(chips, nodes, dyn, host_ok_k) -> dict:
+    """kernel_impl's dict of one call's device inputs: the static layout
+    (:func:`_static_dict`), the dynamics rows and the [K, N] admission."""
+    a = _static_dict(chips, nodes)
+    a["fresh"] = dyn[0] != 0
+    a["reserved_chips"] = dyn[1]
+    a["claimed_hbm_mib"] = dyn[2]
+    a["host_ok"] = host_ok_k != 0
     return a
 
 
@@ -327,11 +471,7 @@ def kernel_packed_burst(
     feasible, reasons, raw, final, best broadcast, claimable). The plain
     PyTorch version of the hand kernel (ops/cuda_kernel.py), on whatever
     device the tensors live on."""
-    a = _static_dict(chips, nodes)
-    a["fresh"] = dyn[0] != 0
-    a["reserved_chips"] = dyn[1]
-    a["claimed_hbm_mib"] = dyn[2]
-    a["host_ok"] = host_ok_k != 0
+    a = _inputs_dict(chips, nodes, dyn, host_ok_k)
     feasible, reasons, raw, final, claimable, best = kernel_impl(
         a, reqs_k[:, 0], reqs_k[:, 1], reqs_k[:, 2], reqs_k[:, 3], reqs_k[:, 4],
         weights=weights,
@@ -712,6 +852,34 @@ def resolve_device(platform: str) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def upload(device: torch.device, size: int, fill) -> torch.Tensor:
+    """A flat int32 input buffer of ``size`` words on ``device``, filled on
+    the host by ``fill(numpy_view)``: one pinned host-to-device copy (a
+    fresh pinned buffer per call) on a CUDA device."""
+    if device.type == "cuda":
+        staged = torch.empty(size, dtype=torch.int32, pin_memory=True)
+        fill(staged.numpy())
+        inputs = torch.empty(size, dtype=torch.int32, device=device)
+        inputs.copy_(staged, non_blocking=True)
+        return inputs
+    buf = np.empty(size, dtype=np.int32)
+    fill(buf)
+    return torch.from_numpy(buf)
+
+
+def download(out: torch.Tensor) -> np.ndarray:
+    """``out`` on the host: one device-to-host copy into a FRESH pinned
+    tensor on a CUDA device (its current stream synchronized) — results
+    are views of it, and a burst's or joint pass's rows outlive later
+    evaluations."""
+    if out.device.type == "cuda":
+        fetched = torch.empty(out.shape, dtype=torch.int32, pin_memory=True)
+        fetched.copy_(out, non_blocking=True)
+        torch.cuda.current_stream(out.device).synchronize()
+        out = fetched
+    return out.numpy()
+
+
 class TorchFleetKernel:
     """Evaluator with device-resident fleet state — the port's
     ``FleetKernelLike`` (reference kernel.py:701-816).
@@ -765,7 +933,7 @@ class TorchFleetKernel:
         ``arrays`` to the device-resident static state, in place: one
         pinned host-to-device copy of the rows' payload
         (:func:`pack_row_update`, a fresh pinned buffer per update, as
-        :meth:`_upload` stages every copy) and :func:`apply_row_update` on
+        :func:`upload` stages every copy) and :func:`apply_row_update` on
         the current stream — O(changed x C) bytes moved instead of the
         O(N x C) of :meth:`put_static`. The caller guarantees that names
         and buckets are unchanged since the last put_static
@@ -777,7 +945,8 @@ class TorchFleetKernel:
         if not rows:
             return
         r = len(rows)
-        payload = self._upload(
+        payload = upload(
+            self.device,
             row_update_size(r, self._chips.shape[1]),
             lambda buf: pack_row_update(arrays, rows, out=buf),
         )
@@ -786,31 +955,6 @@ class TorchFleetKernel:
             with _count_lock:
                 row_update_launches += 1
                 self.row_updates += 1
-
-    def _upload(self, size: int, fill) -> torch.Tensor:
-        """A flat int32 input buffer of ``size`` words on the device,
-        filled on the host by ``fill(numpy_view)``: one pinned
-        host-to-device copy on a CUDA device."""
-        if self.device.type == "cuda":
-            staged = torch.empty(size, dtype=torch.int32, pin_memory=True)
-            fill(staged.numpy())
-            inputs = torch.empty(size, dtype=torch.int32, device=self.device)
-            inputs.copy_(staged, non_blocking=True)
-            return inputs
-        buf = np.empty(size, dtype=np.int32)
-        fill(buf)
-        return torch.from_numpy(buf)
-
-    def _download(self, out: torch.Tensor) -> np.ndarray:
-        """``out`` on the host: one device-to-host copy into a FRESH pinned
-        tensor on a CUDA device — results are views of it, and a burst's
-        or joint pass's rows outlive later evaluations."""
-        if self.device.type == "cuda":
-            fetched = torch.empty(out.shape, dtype=torch.int32, pin_memory=True)
-            fetched.copy_(out, non_blocking=True)
-            torch.cuda.current_stream(self.device).synchronize()
-            out = fetched
-        return out.numpy()
 
     def evaluate(self, dyn: np.ndarray, request: KernelRequest) -> KernelResult:
         """One request; its admission row is ``dyn[3]`` (K = 1 of the burst)."""
@@ -833,7 +977,8 @@ class TorchFleetKernel:
         reqs = np.stack([pack_request(r) for r in requests])
         host_ok_k = np.asarray(host_ok_k)
         n, k = dyn.shape[1], len(requests)
-        inputs = self._upload(
+        inputs = upload(
+            self.device,
             inputs_size(n, k),
             lambda buf: pack_inputs(dyn, host_ok_k, reqs, out=buf),
         )
@@ -841,7 +986,7 @@ class TorchFleetKernel:
             self._chips, self._nodes, *split_inputs(inputs, n, k), self.weights,
             counter=self,
         )
-        return results_from_packed(self._names, self._download(out))
+        return results_from_packed(self._names, download(out))
 
     def evaluate_joint(
         self,
@@ -890,7 +1035,8 @@ class TorchFleetKernel:
         side = joint_fit_vectors(requests, offsets)
         reqs = np.stack([pack_request(r) for r in requests])
         n = dyn.shape[1]
-        inputs = self._upload(
+        inputs = upload(
+            self.device,
             inputs_size(n, k, len(side)),
             lambda buf: pack_inputs(dyn, host_ok_k, reqs, *side, out=buf),
         )
@@ -903,7 +1049,7 @@ class TorchFleetKernel:
             out=packed, counter=self,
         )
         joint_fit(packed, *d_side, out=res[rows:], counter=self)
-        host = self._download(res)
+        host = download(res)
         flat = results_from_packed(self._names, host[:rows].reshape(k, 6, n))
         picks = host[rows : rows + k]
         gok = host[rows + k : rows + 2 * k].astype(bool)
@@ -912,3 +1058,29 @@ class TorchFleetKernel:
         fits = [bool(gok[offsets[g + 1] - 1]) for g in range(g_count)]
         picks_g = [picks[offsets[g] : offsets[g + 1]] for g in range(g_count)]
         return grouped, fits, picks_g
+
+
+def own_dyn(arrays: FleetArrays) -> np.ndarray:
+    """The arrays' own [4, N] dynamics (their fresh, reserved, claimed and
+    admission rows, in DYN_KEYS order): what a one-shot evaluation reads."""
+    return np.stack(
+        [np.asarray(getattr(arrays, key), dtype=np.int32) for key in DYN_KEYS]
+    )
+
+
+def fused_filter_score(
+    arrays: FleetArrays,
+    request: "KernelRequest | TpuRequest",
+    *,
+    weights: Weights | None = None,
+) -> KernelResult:
+    """One-shot evaluation of one request against ``arrays`` as they stand
+    (:func:`own_dyn`): the reference's ``fused_filter_score``. It uploads
+    the fleet to the default device (ops.kernel.resolve_device("auto")),
+    evaluates and fetches; hold a :class:`TorchFleetKernel` to evaluate many
+    pods against one upload."""
+    if isinstance(request, TpuRequest):
+        request = KernelRequest.from_request(request)
+    kern = TorchFleetKernel(weights or Weights(), resolve_device("auto"))
+    kern.put_static(arrays)
+    return kern.evaluate(own_dyn(arrays), request)

@@ -25,10 +25,10 @@ replaces that with delta maintenance:
   churn a cycle applies O(changed) scalar writes instead of copying
   O(fleet) maps.
 
-Counterpart of ``yoda_tpu/ops/resident.py``. ``mesh_multiple`` (row
-buckets divisible by a mesh's shard count) stays None until the
-row-sharded evaluation (the reference's ``parallel/sharded.py``) is
-ported.
+Counterpart of ``yoda_tpu/ops/resident.py``. ``mesh_multiple`` (the batch
+plugin's ``mesh_devices``) rounds the row bucket up to a multiple of the
+mesh's shard count, so the node-sharded evaluation
+(``parallel/sharded.py``) splits the fleet into equal row blocks.
 """
 
 from __future__ import annotations
@@ -39,8 +39,7 @@ from typing import Callable
 import numpy as np
 
 from yoda_tpu_torch.ops.arrays import FleetArrays, bucket_rows
-
-_INT32_MAX = np.iinfo(np.int32).max
+from yoda_tpu_torch.ops.kernel import INT32_MAX
 
 
 class FleetStateCache:
@@ -268,7 +267,7 @@ class FleetStateCache:
         if has_claimed_src:
             self._claim_epoch = self._apply_row_delta(
                 dyn[2], self.claimed_delta_fn, self.claimed_map_fn,
-                self.claimed_fn, self._claim_epoch, cap=_INT32_MAX,
+                self.claimed_fn, self._claim_epoch, cap=INT32_MAX,
             )
         if self.max_metrics_age_s > 0:
             now = time.time()

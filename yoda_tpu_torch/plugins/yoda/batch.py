@@ -29,10 +29,13 @@ block planner, as in the reference), and the retention of cached sets
 across epoch bumps on nodes they do not reference (``_retain_set``), and
 the dispatch tracer (``tracer``, wired by ``build_stack``: a gang-dispatch
 or joint-dispatch span on each gathered gang's trace, from before the
-kernel launches to after their results are back on the host). Left out
-until a later slice: the mesh-sharded kernel and the dispatch fallback
-chain with its circuit breaker — on a CUDA device an evaluation runs on the
-hand kernels or raises. The reference's TPU-measured platform
+kernel launches to after their results are back on the host), and the
+node-sharded evaluation (``mesh_devices``: a
+``parallel.ShardedDeviceFleetKernel`` over contiguous row blocks of the
+resident state, counted in ``sharded_dispatches``). Left out until a later
+slice: the dispatch fallback chain with its circuit breaker — on a CUDA
+device an evaluation runs on the hand kernels or raises. The reference's
+TPU-measured platform
 policy (``_device_for`` / ``_dispatch_floor_ms`` and the
 ``AUTO_DEVICE_MIN_ELEMS`` / ``AUTO_REMOTE_FLOOR_MS`` cut-offs) is not
 carried over: ``kernel_platform`` picks the device outright
@@ -64,7 +67,7 @@ from yoda_tpu_torch.framework.interfaces import (
     Snapshot,
     Status,
 )
-from yoda_tpu_torch.ops.arrays import FleetArrays
+from yoda_tpu_torch.ops.arrays import FleetArrays, bucket_rows
 from yoda_tpu_torch.ops.kernel import (
     REASON_MESSAGES,
     KernelRequest,
@@ -279,6 +282,7 @@ class YodaBatch(BatchFilterScorePlugin):
         weights: Weights | None = None,
         max_metrics_age_s: float = 0.0,
         platform: str = "auto",
+        mesh_devices: int | None = None,
         kernel_backend: str = "xla",
         batch_requests: int = 1,
         pending_fn: Callable[[], list] | None = None,
@@ -296,10 +300,14 @@ class YodaBatch(BatchFilterScorePlugin):
             raise ValueError(
                 f"kernel_backend must be xla|pallas, got {kernel_backend!r}"
             )
+        if kernel_backend == "pallas" and mesh_devices:
+            raise ValueError("kernel_backend='pallas' excludes mesh_devices")
         if kernel_backend == "pallas" and platform != "auto":
             raise ValueError(
                 "kernel_backend='pallas' ignores platform; leave it 'auto'"
             )
+        if mesh_devices is not None and mesh_devices < 1:
+            raise ValueError(f"mesh_devices must be >= 1, got {mesh_devices}")
         # Bulk-map sources accelerate the dynamics build only; every other
         # consumer keys off the per-node fns, so a map without its fn would
         # silently disable those paths: refuse it.
@@ -317,12 +325,27 @@ class YodaBatch(BatchFilterScorePlugin):
         self.weights = weights or Weights()
         self.max_metrics_age_s = max_metrics_age_s
         self.platform = platform
+        self.mesh_devices = mesh_devices
         self.kernel_backend = kernel_backend
-        # The evaluation's device, chosen once: both kernel backends run
-        # the hand kernel on a CUDA device and the plain version on the
-        # CPU.
-        self.device = resolve_device(platform)
-        self._kern = TorchFleetKernel(self.weights, device=self.device)
+        if mesh_devices:
+            # Eager: an infeasible mesh (more devices than exist) fails at
+            # construction, not mid-cycle. The mesh is fixed for the
+            # plugin's lifetime; its first device is the plugin's device.
+            from yoda_tpu_torch.parallel.sharded import (
+                ShardedDeviceFleetKernel,
+                default_mesh,
+            )
+
+            self._kern = ShardedDeviceFleetKernel(
+                self.weights, mesh=default_mesh(mesh_devices, platform=platform)
+            )
+            self.device = self._kern.device
+        else:
+            # The evaluation's device, chosen once: both kernel backends
+            # run the hand kernel on a CUDA device and the plain version on
+            # the CPU.
+            self.device = resolve_device(platform)
+            self._kern = TorchFleetKernel(self.weights, device=self.device)
         self._cache_version: int | None = None
         self._static: FleetArrays | None = None
         # Per-row CR object tags for incremental static updates
@@ -356,6 +379,7 @@ class YodaBatch(BatchFilterScorePlugin):
                                       # unrelated-node epoch bump
         self.dispatch_count = 0   # real kernel dispatches
         self.dispatch_errors = 0  # dispatches that raised (none are retried)
+        self.sharded_dispatches = 0  # dispatches on the mesh kernel
         # Multi-pod burst dispatch: prepare_burst evaluates up to
         # batch_requests pending pods in one kernel call; their cycles are
         # then served from _burst.
@@ -425,12 +449,16 @@ class YodaBatch(BatchFilterScorePlugin):
 
     def _dispatch(self, call):
         """Run ``call`` on the kernel. A failure is counted and re-raised:
-        there is no demotion to another backend."""
+        there is no demotion to another backend. A dispatch on the mesh
+        kernel counts in ``sharded_dispatches``."""
         try:
-            return call(self._kern)
+            out = call(self._kern)
         except Exception:
             self.dispatch_errors += 1
             raise
+        if self.mesh_devices:
+            self.sharded_dispatches += 1
+        return out
 
     def _dyn_for(
         self, static: FleetArrays, host_ok: "np.ndarray | None" = None
@@ -479,6 +507,7 @@ class YodaBatch(BatchFilterScorePlugin):
                     changes_fn=self.changes_fn,
                     kern_fn=lambda _arrays: self._kern,
                     max_metrics_age_s=self.max_metrics_age_s,
+                    mesh_multiple=self.mesh_devices,
                     reserved_delta_fn=self.reserved_delta_fn,
                     reserved_map_fn=self.reserved_map_fn,
                     reserved_fn=self.reserved_fn,
@@ -498,7 +527,13 @@ class YodaBatch(BatchFilterScorePlugin):
             return self._static
         incremental = self._incremental_update(snapshot)
         static = incremental or FleetArrays.from_snapshot(
-            snapshot, max_metrics_age_s=self.max_metrics_age_s
+            snapshot,
+            max_metrics_age_s=self.max_metrics_age_s,
+            node_bucket=(
+                bucket_rows(len(snapshot), multiple_of=self.mesh_devices)
+                if self.mesh_devices
+                else None
+            ),
         )
         if incremental is None:
             self._restack_count += 1

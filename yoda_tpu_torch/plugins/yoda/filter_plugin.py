@@ -1,16 +1,16 @@
-"""PreFilter plugin and the per-node admission predicates the batch path
-applies.
+"""Feasibility predicates and the PreFilter / Filter plugins.
 
-Counterpart of ``yoda_tpu/plugins/yoda/filter_plugin.py``, ported as far as
-the batch path reaches it: label parsing and the per-cycle evaluators in
-``YodaPreFilter`` (inter-pod affinity, topology spread, volume claims and
-attach limits, carried in ``AffinityData``), the NodeResourcesFit,
-NodePorts, volume and attach-limit predicates, the claimable-chip count
-gang admission reads (``available_chips``), and the in-flight
-(Permit-parked gang member) resource, hostPort and volume feeds. Left out
-until a later slice: the per-node ``YodaFilter`` and its per-pod chip
-predicates (loop mode), and the ImageLocality spread that only loop mode
-reads from CycleState.
+Counterpart of ``yoda_tpu/plugins/yoda/filter_plugin.py``: label parsing
+and the per-cycle evaluators in ``YodaPreFilter`` (inter-pod affinity,
+topology spread, volume claims and attach limits, carried in
+``AffinityData``; the ImageLocality spread that loop mode's
+``ImageLocalityScore`` reads), the reference's per-pod chip predicates
+(``pod_fits_chips``, ``pod_fits_hbm``, ``pod_fits_clock``), the
+NodeResourcesFit, NodePorts, volume and attach-limit predicates, the
+claimable-chip count (``available_chips``), the in-flight (Permit-parked
+gang member) resource, hostPort and volume feeds, and loop mode's per-node
+``YodaFilter``. The batch path evaluates the same predicates for the whole
+fleet at once (ops/kernel.py).
 """
 
 from __future__ import annotations
@@ -30,9 +30,16 @@ from yoda_tpu_torch.api.types import (
     TpuChip,
     TpuNodeMetrics,
     host_ports_conflict,
+    pod_admits_on,
 )
 from yoda_tpu_torch.framework.cyclestate import CycleState
-from yoda_tpu_torch.framework.interfaces import PreFilterPlugin, Snapshot, Status
+from yoda_tpu_torch.framework.interfaces import (
+    FilterPlugin,
+    NodeInfo,
+    PreFilterPlugin,
+    Snapshot,
+    Status,
+)
 
 REQUEST_KEY = "yoda-tpu/request"
 AFFINITY_KEY = "yoda-tpu/affinity"
@@ -157,16 +164,55 @@ def get_pending_resources(
     return data.by_node
 
 
-# --- claimable chips (reference filter.go parity, exclusive-chip model) ---
+# --- pure predicates (reference filter.go parity) ---
+
+
+def chip_fits_hbm(hbm: int, chip: TpuChip) -> bool:
+    """Reference ``CardFitsMemory`` (filter.go:52-54)."""
+    return chip.healthy and chip.hbm_free >= hbm
+
+
+def chip_fits_clock(clock_mhz: int, chip: TpuChip) -> bool:
+    """Reference ``CardFitsClock`` (filter.go:56-58), with >= semantics."""
+    return chip.healthy and chip.clock_mhz >= clock_mhz
 
 
 def qualifying_chips(node: TpuNodeMetrics, req: TpuRequest) -> list[TpuChip]:
-    """Healthy chips meeting the per-chip HBM and clock constraints."""
+    """Healthy chips meeting the per-chip HBM and clock constraints — the
+    chip set both collection and scoring iterate."""
     return [
         c
         for c in node.chips
         if c.healthy and c.hbm_free >= req.hbm_per_chip and c.clock_mhz >= req.min_clock_mhz
     ]
+
+
+def pod_fits_chips(req: TpuRequest, node: TpuNodeMetrics) -> tuple[bool, int]:
+    """Reference ``PodFitsNumber`` (filter.go:11-16): an explicit count
+    must fit the healthy chips; the default is "node has at least one
+    healthy chip", count 1."""
+    healthy = len(node.healthy_chips())
+    if req.chips is not None:
+        return req.chips <= healthy, req.chips
+    return healthy > 0, 1
+
+
+def pod_fits_hbm(number: int, req: TpuRequest, node: TpuNodeMetrics) -> bool:
+    """Reference ``PodFitsMemory`` (filter.go:18-33): >= ``number`` healthy
+    chips each with enough free HBM."""
+    if req.hbm_per_chip == 0:
+        return True
+    return sum(1 for c in node.chips if chip_fits_hbm(req.hbm_per_chip, c)) >= number
+
+
+def pod_fits_clock(number: int, req: TpuRequest, node: TpuNodeMetrics) -> bool:
+    """Reference ``PodFitsClock`` (filter.go:35-50) with >= semantics."""
+    if req.min_clock_mhz == 0:
+        return True
+    return sum(1 for c in node.chips if chip_fits_clock(req.min_clock_mhz, c)) >= number
+
+
+# --- claimable chips (exclusive-chip model) ---
 
 
 def apparently_used_chips(node: TpuNodeMetrics) -> int:
@@ -524,7 +570,8 @@ class YodaPreFilter(PreFilterPlugin):
     direction) or preferred terms. Affinity-free fleets pay only a cached
     per-snapshot-version flag check here — nothing per node. The pod's
     volume claims are resolved here too; a claim that does not exist yet
-    parks the pod until the claim's watch event."""
+    parks the pod until the claim's watch event. In loop mode it writes
+    ImageLocality's fleet view too (``write_image_spread``)."""
 
     name = "yoda-prefilter"
 
@@ -532,11 +579,22 @@ class YodaPreFilter(PreFilterPlugin):
         self,
         *,
         pending_fn: Callable[[], list[tuple[str, PodSpec]]] | None = None,
+        image_locality_weight: int = 1,
+        write_image_spread: bool = True,
     ) -> None:
         # GangPlugin.pending_placements when gang scheduling is wired:
         # reserved-but-unbound members, visible to the evaluators so gang
         # siblings honour each other's inter-pod terms mid-flight.
         self.pending_fn = pending_fn
+        # Weights.image_locality: a zero weight skips the ImageLocality
+        # fleet walk entirely (the batch path gates the same way in
+        # _preference_bonus).
+        self.image_locality_weight = image_locality_weight
+        # False in batch mode: only loop mode's ImageLocalityScore reads
+        # the CycleState spread; the batch path computes its own inside
+        # _preference_bonus, so writing it here would be a duplicated
+        # O(fleet) walk.
+        self.write_image_spread = write_image_spread
         # (snapshot.version, any bound pod declares required anti-affinity
         #  or preferred inter-pod terms)
         self._inter_cache: tuple[int, bool] = (0, False)
@@ -618,5 +676,113 @@ class YodaPreFilter(PreFilterPlugin):
                     (snapshot.pvcs, snapshot.pvs) if pv_volumes else None,
                     pending_vols_by_node or None,
                 ),
+            )
+        if (
+            pod.container_images
+            and self.image_locality_weight
+            and self.write_image_spread
+        ):
+            # ImageLocality's fleet view (image_locality.py): one walk, only
+            # for image-naming pods on image-reporting fleets with the knob
+            # enabled.
+            from yoda_tpu_torch.plugins.yoda.image_locality import (
+                IMAGE_SPREAD_KEY,
+                build_image_spread,
+            )
+
+            image_spread = build_image_spread(snapshot, pod)
+            if image_spread is not None:
+                state.write(IMAGE_SPREAD_KEY, image_spread)
+        return Status.ok()
+
+
+class YodaFilter(FilterPlugin):
+    """Per-node feasibility — the reference's Filter hook
+    (pkg/yoda/scheduler.go:66-84) minus its per-node API round trip: the
+    node's TPU CR arrives on the NodeInfo from the informer snapshot.
+    Loop mode's filter; the batch path's evaluation computes the same
+    verdicts for the whole fleet at once.
+
+    ``reserved_chips_fn`` (the accountant's) reports chips already reserved
+    by in-flight pods on a node; ``max_metrics_age_s`` > 0 also rejects
+    nodes with stale metrics. The node-health fence is applied before this
+    plugin runs (``Framework.run_filters``)."""
+
+    name = "yoda-filter"
+
+    def __init__(
+        self,
+        reserved_chips_fn: Callable[[str], int] | None = None,
+        *,
+        max_metrics_age_s: float = 0.0,
+        now_fn: Callable[[], float] | None = None,
+    ) -> None:
+        self.reserved_chips_fn = reserved_chips_fn
+        self.max_metrics_age_s = max_metrics_age_s
+        self.now_fn = now_fn
+
+    def filter(self, state: CycleState, pod: PodSpec, node: NodeInfo) -> Status:
+        # Node-object admission first: cordon / untolerated hard taints make
+        # every capacity question moot.
+        admitted, why = pod_admits_on(node.node, pod)
+        if not admitted:
+            return Status.unschedulable(f"node {node.name}: {why}")
+        aff = get_affinity(state)
+        if aff is not None:
+            admitted, why = aff.feasible(node)
+            if not admitted:
+                return Status.unschedulable(f"node {node.name}: {why}")
+        admitted, why = node_fits_resources(
+            node, pod, get_pending_resources(state)
+        )
+        if not admitted:
+            return Status.unschedulable(f"node {node.name}: {why}")
+        admitted, why = node_fits_host_ports(
+            node, pod, aff.pending_ports if aff is not None else None
+        )
+        if not admitted:
+            return Status.unschedulable(f"node {node.name}: {why}")
+        tpu = node.tpu
+        if tpu is None:
+            # Reference: SCV Get error -> Unschedulable (scheduler.go:72-74).
+            return Status.unschedulable(f"node {node.name} has no TPU metrics")
+        if self.max_metrics_age_s > 0:
+            now = self.now_fn() if self.now_fn else None
+            if not tpu.fresh(max_age_s=self.max_metrics_age_s, now=now):
+                return Status.unschedulable(f"node {node.name} TPU metrics are stale")
+
+        req = get_request(state)
+        if req.min_generation_rank and tpu.generation_rank < req.min_generation_rank:
+            return Status.unschedulable(
+                f"node {node.name} generation {tpu.generation} below requested"
+            )
+
+        ok, number = pod_fits_chips(req, tpu)
+        if not ok:
+            return Status.unschedulable(
+                f"node {node.name} has {len(tpu.healthy_chips())} healthy chips, "
+                f"pod needs {number}"
+            )
+        reserved = (
+            self.reserved_chips_fn(node.name)
+            if self.reserved_chips_fn
+            else None
+        )
+        freed = stale_freed_chips(tpu, req, reserved)
+        # Freed-but-not-yet-rescraped chips will have full HBM, so they
+        # satisfy the per-chip HBM predicate (stale_freed_chips already
+        # required hbm_total >= the requirement).
+        if not pod_fits_hbm(max(number - freed, 0), req, tpu):
+            return Status.unschedulable(f"node {node.name} lacks free HBM on {number} chips")
+        if not pod_fits_clock(number, req, tpu):
+            return Status.unschedulable(
+                f"node {node.name} lacks {number} chips at >= {req.min_clock_mhz} MHz"
+            )
+
+        available = available_chips(tpu, req, reserved, freed=freed)
+        if available < number:
+            return Status.unschedulable(
+                f"node {node.name}: {reserved or 0} chips reserved in-flight, "
+                f"only {max(available, 0)} unoccupied qualifying chips"
             )
         return Status.ok()

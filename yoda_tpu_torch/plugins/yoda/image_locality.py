@@ -16,9 +16,10 @@ restore, so the default weight is deliberately small relative to the
 chip-metric weights — but the knob exists (config.Weights.image_locality)
 and the data flows (K8sNode.images from status.images via the Node watch).
 
-Counterpart of ``yoda_tpu/plugins/yoda/image_locality.py``: the batch
-path's half (``build_image_spread`` / ``image_locality_score``). The
-loop-mode ``ImageLocalityScore`` plugin waits for the port of loop mode.
+Counterpart of ``yoda_tpu/plugins/yoda/image_locality.py``, whole: the
+batch path's half (``build_image_spread`` / ``image_locality_score``, read
+by ``YodaBatch._preference_bonus``) and loop mode's ``ImageLocalityScore``
+plugin, which reads the spread ``YodaPreFilter`` writes to CycleState.
 """
 
 from __future__ import annotations
@@ -26,17 +27,23 @@ from __future__ import annotations
 from typing import Mapping
 
 from yoda_tpu_torch.api.types import PodSpec
-from yoda_tpu_torch.framework.interfaces import NodeInfo
+from yoda_tpu_torch.config import Weights
+from yoda_tpu_torch.framework.cyclestate import CycleState
+from yoda_tpu_torch.framework.interfaces import NodeInfo, ScorePlugin, Status
 
 MB = 1024 * 1024
 MIN_THRESHOLD_MB = 23      # upstream minThreshold per container
 MAX_THRESHOLD_MB = 1000    # upstream maxThreshold per container
 
+IMAGE_SPREAD_KEY = "yoda-tpu/image-spread"
+
+
 class ImageSpreadData:
     """Per-cycle fleet view for the pod's images: how many nodes hold
     each (the spread damping factor) and the fleet size. Built only when
     the pod names images AND any node reports image state — image-free
-    pods and fleets pay nothing."""
+    pods and fleets pay nothing; in loop mode YodaPreFilter writes it to
+    CycleState under ``IMAGE_SPREAD_KEY``."""
 
     def __init__(self, nodes_with: Mapping[str, int], total_nodes: int) -> None:
         self.nodes_with = dict(nodes_with)
@@ -104,3 +111,35 @@ def image_locality_score(
     max_t = MAX_THRESHOLD_MB * MB * n
     frac = (total - min_t) / (max_t - min_t)
     return int(max(0.0, min(1.0, frac)) * 100)
+
+
+class ImageLocalityScore(ScorePlugin):
+    """Loop-mode Score plugin; the batch path adds the same value through
+    YodaBatch._preference_bonus. Already on the final [0,100]-x-weight
+    scale — ``normalize`` is the identity (the PreferredAffinityScore
+    pattern)."""
+
+    name = "yoda-image-locality"
+
+    def __init__(self, weights: Weights | None = None) -> None:
+        self.weights = weights or Weights()
+
+    def score(
+        self, state: CycleState, pod: PodSpec, node: NodeInfo
+    ) -> tuple[int, Status]:
+        if not self.weights.image_locality or not state.contains(
+            IMAGE_SPREAD_KEY
+        ):
+            return 0, Status.ok()
+        spread = state.read(IMAGE_SPREAD_KEY)
+        assert isinstance(spread, ImageSpreadData)
+        return (
+            image_locality_score(pod, node, spread)
+            * self.weights.image_locality,
+            Status.ok(),
+        )
+
+    def normalize(
+        self, state: CycleState, pod: PodSpec, scores: dict[str, int]
+    ) -> Status:
+        return Status.ok()

@@ -13,7 +13,12 @@ PostFilter preemption (``TpuPreemption``, on by default: evictions through
 ``FakeCluster.evict_pod``, nominations written to pod status, victim
 preference by the informer's PodDisruptionBudgets). The informer watches
 Namespaces, PersistentVolumeClaims, PersistentVolumes and budgets as the
-cluster offers them, and their events reactivate parked pods.
+cluster offers them, and their events reactivate parked pods. Every knob
+that picks how a pod is evaluated is honoured: ``mesh_devices`` row-shards
+the evaluation over a device mesh (``parallel/sharded.py``), and ``mode:
+loop`` builds the reference's per-node plugins instead of ``YodaBatch``
+(``Stack.batch`` is None; the per-node filter chain runs on the host over a
+search window ``percentage_nodes_to_score`` caps).
 
 The background parts are built, as in the reference, but not started: the
 warm-start and drift ``Reconciler``, the ``Rebalancer`` (gated on the
@@ -118,6 +123,9 @@ log = logging.getLogger("yoda_tpu_torch.standalone")
 PORTED_KNOBS = frozenset(
     {
         "scheduler_name",
+        "mode",
+        "percentage_nodes_to_score",
+        "mesh_devices",
         "weights",
         "scoring_strategy",
         "max_metrics_age_s",
@@ -252,7 +260,9 @@ class Stack:
     queue: SchedulingQueue
     scheduler: Scheduler
     binder: ClusterBinder
-    batch: YodaBatch
+    # The fused evaluation's plugin; None in loop mode (mode: loop), whose
+    # per-node plugins evaluate on the host.
+    batch: YodaBatch | None
     gang: GangPlugin
     # None when config.enable_preemption is off.
     preemption: TpuPreemption | None = None
@@ -369,10 +379,12 @@ def build_stack(
         bind_executor=bind_executor,
     )
     plugins = default_plugins(
+        mode=config.mode,
         weights=config.effective_weights(),
         reserved_fn=accountant.chips_in_use,
         max_metrics_age_s=config.max_metrics_age_s,
         kernel_platform=config.kernel_platform,
+        mesh_devices=config.mesh_devices,
         kernel_backend=config.kernel_backend,
         batch_requests=config.batch_requests,
         # Gang members parked at Permit: their claims stay visible to
@@ -613,22 +625,28 @@ def build_stack(
         # Victim preference reads the informer's budget cache (None until a
         # budget watch is live).
         preemption.pdbs_fn = informer.list_pdbs
-    (batch,) = framework.batch_plugins
-    batch.tracer = metrics.tracer
-    batch.claimed_fn = informer.claimed_hbm_mib
-    batch.claimed_map_fn = informer.claimed_hbm_mib_map
-    batch.claimed_delta_fn = informer.claimed_changes_since
-    batch.last_updated_map_fn = informer.last_updated_map
-    # The informer's epoch/delta feed makes the batch plugin's fleet state
-    # DEVICE-RESIDENT (ops/resident.py): watch deltas refill only the
-    # changed rows and update them on the device in place; a full re-stack
-    # happens only on epoch skew, node add/delete or bucket growth.
-    batch.changes_fn = informer.changes_since
-    # Companion admission feed (Node-object events and pod-set changes the
-    # metrics ring elides): the admission cache survives snapshot rebuilds
-    # by patching only the touched rows.
-    batch.admission_changes_fn = informer.admission_changes_since
-    _register_batch_families(metrics, batch)
+    # Loop mode builds no batch plugin: nothing below is wired and its
+    # counters are not registered, as in the reference.
+    batch = next(
+        (p for p in framework.batch_plugins if isinstance(p, YodaBatch)), None
+    )
+    if batch is not None:
+        batch.tracer = metrics.tracer
+        batch.claimed_fn = informer.claimed_hbm_mib
+        batch.claimed_map_fn = informer.claimed_hbm_mib_map
+        batch.claimed_delta_fn = informer.claimed_changes_since
+        batch.last_updated_map_fn = informer.last_updated_map
+        # The informer's epoch/delta feed makes the batch plugin's fleet
+        # state DEVICE-RESIDENT (ops/resident.py): watch deltas refill only
+        # the changed rows and update them on the device in place; a full
+        # re-stack happens only on epoch skew, node add/delete or bucket
+        # growth.
+        batch.changes_fn = informer.changes_since
+        # Companion admission feed (Node-object events and pod-set changes
+        # the metrics ring elides): the admission cache survives snapshot
+        # rebuilds by patching only the touched rows.
+        batch.admission_changes_fn = informer.admission_changes_since
+        _register_batch_families(metrics, batch)
     # Watcher wiring. Per-event handlers run in registration order
     # (accountant and gang before the informer: reservation releases and
     # membership changes precede the informer's view of the same event).
@@ -685,6 +703,7 @@ def build_stack(
         queue,
         clock=clock,
         metrics=metrics,
+        percentage_nodes_to_score=config.percentage_nodes_to_score,
         cycle_lock=cycle_lock,
         # status.nominatedNodeName write (upstream preemption parity).
         on_nominated=lambda pod, node: cluster.set_nominated_node(pod.key, node),
@@ -775,7 +794,8 @@ def build_stack(
         enabled=config.spec_enabled,
         size=config.spec_cache_size,
         shapes_max=config.spec_shapes_max,
-        device=batch.device,
+        # Loop mode: the device kernel_platform names.
+        device=batch.device if batch is not None else config.kernel_platform,
     )
     speculation.bind_observe = metrics.spec_bind.observe
     scheduler.speculation = speculation
@@ -941,9 +961,9 @@ def _register_stack_families(
 
 def _register_batch_families(metrics, p):
     """The batch plugin's lazy counters, as the reference registers them.
-    The mesh-sharded backend and the dispatch fallback chain are not
-    ported: their families read 0 (an evaluation on the card runs on the
-    hand kernels or raises, so nothing is ever demoted)."""
+    The dispatch fallback chain is not ported: its families read 0 (an
+    evaluation on the card runs on the hand kernels or raises, so nothing
+    is ever demoted)."""
     r = metrics.registry
     r.counter(
         "yoda_kernel_dispatches_total",
@@ -1093,7 +1113,7 @@ def _register_batch_families(metrics, p):
         "Kernel dispatches served by the node-axis mesh-sharded "
         "backend (config mesh_devices; the fallback chain demotes "
         "to single-device XLA / numpy below it)",
-        lambda: 0,
+        lambda: p.sharded_dispatches,
     )
     r.gauge(
         "yoda_kernel_on_accelerator",
