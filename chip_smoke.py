@@ -126,8 +126,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    must bind as on the CPU. Last, run (h), the background path on the
    5,000-node fleet (``run_background``, ``BACKGROUND_FULL``; the tests
    run ``BACKGROUND_SMALL``):
-   (h1) 256 v5e singletons of 1, 2, 4 and 8 chips at K = 1 in 16 waves of
-       16, one ``speculate_once`` before each: the speculative cache's
+   (h1) 128 v5e singletons of 1, 2, 4 and 8 chips at K = 1 in 8 waves of
+       16 (cut from 16 waves to hold the script's time), one ``speculate_once`` before each: the speculative cache's
        private TorchFleetKernel evaluates on its own CUDA stream and the
        serve path binds hot shapes from its plans. Printed: hits, misses,
        invalidations, ms per speculate_once, ms per consumed plan's bind,
@@ -228,8 +228,8 @@ Phases, each of which makes the script exit non-zero when it fails:
        serve of run (a)'s pods, then 3 s more: the ``total`` p50/p99,
        every evaluation's signals, each transition and the seconds at
        each level;
-   and tracing's cost, card only, reported: run (b) in five alternating
-   pairs, ``trace_sample_rate`` 1.0 then 0, with each side's median
+   and tracing's cost, card only, reported: run (b) in two alternating
+   pairs (cut from five), ``trace_sample_rate`` 1.0 then 0, with each side's median
    pods/s and p99 and their ranges. Every ``fleet_eval`` and
    ``joint_fit`` call of run (j) is held against its plain version, and
    the launches held must equal the module's counts, part by part.
@@ -285,7 +285,8 @@ Phases, each of which makes the script exit non-zero when it fails:
        stack recorded and instrumented through the ``standalone`` module
        attribute, ``Replicas``); 4 plain gangs of 16 x 8 v5e created
        before it starts (its first pop is a joint pass of them alone),
-       then, once ``/readyz`` answers 200, 256 singletons (run (b)'s mix),
+       then, once ``/readyz`` answers 200, 128 singletons (run (b)'s mix;
+       cut from 256),
        4 coscheduling gangs of 4 x 4 and 8 topology gangs (2x2x1, 4 x 4
        v5p) over HTTP (run (c)'s mix at a quarter of its gangs), while a
        thread republishes every CR each 10 s (the agents). Gates: the bind pipeline on through ``auto`` with 8 workers,
@@ -299,7 +300,8 @@ Phases, each of which makes the script exit non-zero when it fails:
        binding), gang completion p50/p99, ``yoda_bind_wall_ms`` p50/p99,
        the largest in-flight bind count, the launches;
    (l2) two replicas in one process (own stop and lease identity each):
-       the leader binds 128 singletons, is stopped, 128 more are created;
+       the leader binds 64 singletons, is stopped, 64 more are created
+       (cut from 128 and 128);
        the standby (``/readyz`` not 200 until then) takes the lease, runs
        its resync once before its first pop and binds the rest, no pod
        bound twice. Reported: the leader's stop to the standby's first
@@ -348,21 +350,62 @@ Phases, each of which makes the script exit non-zero when it fails:
        shard entry launched and ``fleet_eval`` not, every count zeroed
        just before the drive;
    (n3) ``mesh_devices`` past the card count raises at construction.
+   Then run (o), the scheduler lanes, the durable journal and profiles
+   (``run_lanes``, ``LANES_FULL``; the tests run ``LANES_SMALL``) on the
+   5,000-node fleet with ``shard_count`` 4 (the shipped manifest's
+   recommendation): run (c)'s two gang waves, run (b)'s 256 singletons
+   split over them, and in the first wave a plain gang of 8-chip v5e
+   members one larger than any lane's v5e hosts (the router sends it to
+   the global lane); every pod's uid is its name. Every ``fleet_eval`` /
+   ``joint_fit`` launch of run (o) is held against its plain version.
+   (o1) ``build_sharded_stacks`` with the journal (``journal_sync:
+       batch``) on a held clock, lane after lane in a fixed order, binds
+       the first wave, and (o3) carries on to the second: each pod's lane
+       and node, the commits, conflicts and rollbacks and the journal
+       files byte for byte must equal the CPU run (a fifth spawned
+       process);
+   (o2) every lane's ``serve_forever`` on a thread of its own, wired as
+       the CLI wires them (the global lane resyncs first, its rebalancer
+       thread ticks its speculation, the rescue pass runs), on the wall
+       clock over the same pods, wave after wave, at a 15 s Permit timeout
+       (``O2_PERMIT_TIMEOUT_S``), under a profiler window
+       (CUDA activity): every pod bound, gangs whole, no host over its
+       chips, no pod bound twice, the accountant's claims exactly the
+       bound pods. Reported beside a one-stack run of the same script and
+       the same run with the journal off: pods/s, p50 / p99, each lane's
+       launches and first re-stack ms, the kernel records that overlap one
+       on another stream, commits and conflicts;
+   (o3) after (o1)'s first wave, with the lanes' commits cut off, a
+       topology gang binds (its claims left staged) and two members of
+       another park at Permit; the set is dropped without ``close``; a
+       new set over the same cluster and journal replays (``replayed``),
+       resyncs warm before any bind, commits the bound residue in a drift
+       pass and binds the second wave, no pod bound twice, equal to the
+       CPU run. Reported: replay ms, records, bytes, fsyncs;
+   (o4) ``build_profile_stacks`` with the base profile and
+       ``yoda-tpu-pack`` (most-allocated) over one accountant and one
+       cycle lock: run (b)'s singletons alternating between them and run
+       (c)'s topology gangs, drained profile after profile on a held
+       clock, equal to the CPU run with each profile's launches counted.
 4. One line {"kernels": [...]} with each kernel's launches over every run
-   above (runs (h)'s, (i)'s, (j)'s, (k)'s and (l)'s also by part, and the
-   speculation thread's apart; the shard entry's from run (n2)), its
+   above (runs (h)'s, (i)'s, (j)'s, (k)'s, (l)'s and (o)'s also by part,
+   run (o)'s by lane, and the speculation thread's apart; the shard
+   entry's from run (n2)), its
    largest difference from the plain version and its times ("not
    measured" where the profiler saw no device activity).
    Before it, one line of each phase's wall seconds.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
-script exits non-zero and prints no result.
+script exits non-zero and prints no result. The script re-executes itself
+once with ``PYTHONHASHSEED=0`` (the spawned CPU reruns inherit it): run
+(o)'s journal bytes follow the order of sets of pod keys.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -1026,11 +1069,14 @@ def resident_counts(b) -> dict:
     )
 
 
-def gang_script(seed: int):
+def gang_script(seed: int, *, plain: int = 8, plain_size: int = 16,
+                cosched: int = 4, topo: int = 16, multi: int = 4, singles: int = 64):
     """Run (c)'s two waves of (name, labels, node selector) and the gang
-    each gang member belongs to (name -> (kind, size))."""
+    each gang member belongs to (name -> (kind, size)). The counts cut the
+    script for smaller fleets (run (o) on the CPU); the defaults are run
+    (c)'s."""
     rng = np.random.default_rng(seed)
-    singles = fleet_and_pods(seed)[0]  # 64 singletons drawn as for run (a)
+    single_pods = fleet_and_pods(seed)[0][:singles]  # drawn as for run (a)
     gangs: dict[str, tuple[str, int]] = {}
 
     def members(name, kind, labels, size):
@@ -1038,25 +1084,26 @@ def gang_script(seed: int):
         return [(f"{name}-{i:02d}", dict(labels), None) for i in range(size)]
 
     wave1, wave2 = [], []
-    for g in range(8):
+    for g in range(plain):
         wave1 += members(f"plain{g}", "plain", {
-            "tpu/gang": f"plain{g}", "tpu/gang-size": "16", "tpu/chips": "8",
-            "tpu/generation": "v5e"}, 16)
-    for g in range(4):
+            "tpu/gang": f"plain{g}", "tpu/gang-size": str(plain_size), "tpu/chips": "8",
+            "tpu/generation": "v5e"}, plain_size)
+    for g in range(cosched):
         wave1 += members(f"cosched{g}", "cosched", {
             "pod-group.scheduling.sigs.k8s.io/name": f"cosched{g}",
             "pod-group.scheduling.sigs.k8s.io/min-available": "4",
             "tpu/chips": "4"}, 4)
-    for g in range(16):
+    for g in range(topo):
         wave2 += members(f"topo{g}", "topology", {
             "tpu/gang": f"topo{g}", "tpu/topology": "2x2x1", "tpu/chips": "4",
             "tpu/generation": "v5p"}, 4)
-    for g in range(4):
+    for g in range(multi):
         wave2 += members(f"multi{g}", "multislice", {
             "tpu/gang": f"multi{g}", "tpu/topology": "2x2x1",
             "tpu/multislice": "2", "tpu/chips": "4"}, 8)
-    wave1 += [(f"s{n}", labels, None) for n, labels in singles[:32]]
-    wave2 += [(f"s{n}", labels, None) for n, labels in singles[32:]]
+    half = len(single_pods) // 2
+    wave1 += [(f"s{n}", labels, None) for n, labels in single_pods[:half]]
+    wave2 += [(f"s{n}", labels, None) for n, labels in single_pods[half:]]
     waves = [[w[i] for i in rng.permutation(len(w))] for w in (wave1, wave2)]
     return waves, gangs
 
@@ -2443,7 +2490,7 @@ def phase_wide_fleet(smi: str) -> list[dict]:
 # placement cache, the rebalancer, the reconciler, and all of them on a
 # second thread while the serve loop runs. The smaller size is the tests'
 # copy of the same script.
-BACKGROUND_FULL = dict(slices=512, v5e_hosts=2952, waves=16, wave=16, pool=64,
+BACKGROUND_FULL = dict(slices=512, v5e_hosts=2952, waves=8, wave=16, pool=64,
                        frag_slices=4, gang=16, threaded_pods=256, threaded_s=8.0,
                        period_s=1.0)
 BACKGROUND_SMALL = dict(slices=16, v5e_hosts=96, waves=4, wave=8, pool=24,
@@ -3776,7 +3823,7 @@ def phase_nodehealth(smi: str, rerun: CpuRerun) -> dict:
 
 # --- run (j): observability -------------------------------------------------
 
-OBSERVABILITY_FULL = dict(slices=512, v5e_hosts=2952, spot=320, prod=8, pairs=5,
+OBSERVABILITY_FULL = dict(slices=512, v5e_hosts=2952, spot=320, prod=8, pairs=2,
                           hold_s=3.0, scrapes=20)
 OBSERVABILITY_SMALL = dict(slices=32, v5e_hosts=160, spot=272, prod=4, pairs=1,
                            hold_s=1.2, scrapes=3)
@@ -4217,8 +4264,8 @@ def run_obs_cycle_signal(platform: str, size: dict) -> dict:
         changes.append((time.monotonic() - t_start, ov.level, ov.last_pressure))
 
     def noted_evaluate(now=None):
+        sig = ov.pressure()  # what the evaluation reads: it marks the cycles seen
         level = real_evaluate(now)
-        sig = ov.pressure()
         evaluations.append(dict(at_s=round(time.monotonic() - t_start, 3), level=level,
                                 cycle_p99_ms=1e3 * m.latency.quantile(0.99, phase="total"),
                                 signals={k: round(v, 4) for k, v in sig.items()}))
@@ -4849,8 +4896,8 @@ def run_tenancy_wall(platform: str, size: dict) -> dict:
                 pub["published"] += 1
                 pub["backlog_max"] = max(pub["backlog_max"], ing.backlog())
                 if now >= next_eval:
-                    level = ov.evaluate()
                     p = ov.pressure()
+                    level = ov.evaluate()
                     pub["ladder"].append(dict(t_s=now - start, level=level,
                                               ingest=p.get("ingest"), max=p["max"]))
                     next_eval += 1.0
@@ -5055,10 +5102,11 @@ def phase_tenancy(smi: str, rerun: SpawnedRerun) -> dict:
 # --- run (l): the scheduler process -----------------------------------------
 
 # (l1) / (l2) over the wire. The fleet is the 5,000-node one; the traffic's
-# depth is cut (run (c)'s gang mix at a quarter of its gangs, run (b)'s
-# singletons) so the phase stays near a minute of card time.
-PROCESS_FULL = dict(slices=512, v5e_hosts=2952, singles=256, plain=4, plain_size=16,
-                    cosched=4, topo=8, failover=256)
+# depth is cut (run (c)'s gang mix at a quarter of its gangs, half of run
+# (b)'s singletons) so the phase stays under a minute of card
+# time.
+PROCESS_FULL = dict(slices=512, v5e_hosts=2952, singles=128, plain=4, plain_size=16,
+                    cosched=4, topo=8, failover=128)
 PROCESS_SMALL = dict(slices=8, v5e_hosts=40, singles=16, plain=2, plain_size=4,
                      cosched=2, topo=2, failover=16)
 # (l3): the stepped pipeline, the same fleet over FakeCluster(bind_latency_s).
@@ -6418,7 +6466,684 @@ def phase_sharded(smi: str, main_path: dict) -> dict:
     return dict(rows=rows, n2=n2, refused=refused, main=main)
 
 
+# --- run (o): scheduler lanes, the durable journal and profiles ------------
+
+# Run (o) at the 5,000-node fleet with the shipped manifest's recommended
+# shard_count (deploy/yoda-tpu-scheduler.yaml: "Raise to 2-4"); the small
+# size is what tests/test_torch_shards.py runs on the CPU.
+LANES_FULL = dict(slices=512, v5e_hosts=2952, shards=4, singles_b=256, script={})
+LANES_SMALL = dict(slices=16, v5e_hosts=96, shards=4, singles_b=32,
+                   script=dict(plain=2, plain_size=4, cosched=2, topo=4, multi=1,
+                               singles=16))
+PACK_PROFILE = "yoda-tpu-pack"   # run (o4)'s second profile: most-allocated
+# (o2)'s Permit timeout: a gang whose planned hosts another lane took
+# waits this long before it rejoins the queue whole (the default, 120 s,
+# would set the drive's wall and its p99).
+O2_PERMIT_TIMEOUT_S = 15.0
+LANE_RUN_DIR = "build/run_o"
+O1_PARITY = ("routes", "lanes", "bindings", "commits", "conflicts", "rollbacks",
+             "staged", "journal")
+O3_PARITY = ("bindings", "lanes", "replayed_claims", "replayed_gangs", "warm",
+             "residue", "commits", "conflicts", "staged", "journal")
+O4_PARITY = ("bindings", "profiles")
+
+
+def lane_waves(size: dict):
+    """Run (o)'s two waves of (name, labels, selector) and every gang's
+    (kind, size): run (c)'s two gang waves, run (b)'s singletons split over
+    them, and in the first wave one plain v5e gang of 8-chip members one
+    larger than any lane's v5e hosts, which only the global lane can host."""
+    from yoda_tpu_torch.framework.shards import ShardMap
+
+    waves, gangs = gang_script(seed=1, **size["script"])
+    singles = fleet_and_pods(seed=0)[1][: size["singles_b"]]
+    half = len(singles) // 2
+    waves[0] = waves[0] + [(f"b{n}", dict(labels), None) for n, labels in singles[:half]]
+    waves[1] = waves[1] + [(f"b{n}", dict(labels), None) for n, labels in singles[half:]]
+    smap = ShardMap(size["shards"])
+    per_lane: dict[int, int] = {}
+    for h in range(size["v5e_hosts"]):
+        lane = smap.shard_of_pool(f"host:v5e-{h:04d}")
+        per_lane[lane] = per_lane.get(lane, 0) + 1
+    wide = max(per_lane.values()) + 1
+    gangs["wide"] = ("plain", wide)
+    labels = {"tpu/gang": "wide", "tpu/gang-size": str(wide), "tpu/chips": "8",
+              "tpu/generation": "v5e"}
+    waves[0] = [(f"wide-{i:03d}", dict(labels), None) for i in range(wide)] + waves[0]
+    return waves, gangs
+
+
+def lane_config(platform: str, size: dict, journal_dir, **knobs):
+    from yoda_tpu_torch.config import SchedulerConfig
+
+    return SchedulerConfig(
+        kernel_platform=platform, batch_requests=16, shard_count=size["shards"],
+        journal_path=str(journal_dir) if journal_dir else "",
+        journal_sync="batch", **knobs,
+    )
+
+
+def lane_dir(platform: str, what: str):
+    """A fresh directory under the checkout's build/ for one run's journal."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    d = Path(LANE_RUN_DIR) / f"{what}-{platform}-{os.getpid()}"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def publish_fleet(cluster, size: dict, now_fn=None):
+    from yoda_tpu_torch.agent.fake_publisher import FakeTpuAgent
+
+    agent = FakeTpuAgent(cluster, **({} if now_fn is None else {"now_fn": now_fn}))
+    for s in range(size["slices"]):
+        agent.add_slice(f"v5p-{s:03d}", generation="v5p", host_topology=(2, 2, 1))
+    for h in range(size["v5e_hosts"]):
+        agent.add_host(f"v5e-{h:04d}", generation="v5e", chips=8)
+    agent.publish_all()
+    return agent
+
+
+def create_wave(cluster, wave, routes=None, router=None) -> None:
+    """Each pod with its own name as uid (a singleton routes on its uid,
+    which must not depend on what else the process built before)."""
+    from yoda_tpu_torch.api.types import PodSpec
+
+    for name, labels, selector in wave:
+        pod = PodSpec(name, labels=dict(labels), node_selector=selector or {},
+                      uid=f"default/{name}")
+        if routes is not None:
+            routes[name] = router.route(pod)
+        cluster.create_pod(pod)
+
+
+def track_lanes(stacks, bound_lane: dict) -> None:
+    """Record which lane (or profile) bound each pod, at the bind."""
+    for st in stacks:
+        lane = st.scheduler.shard or st.informer.scheduler_name
+        real = st.scheduler.on_bound
+
+        def on_bound(pod, node, _real=real, _lane=lane):
+            bound_lane[pod.name] = _lane
+            if _real is not None:
+                _real(pod, node)
+
+        st.scheduler.on_bound = on_bound
+
+
+class BindLog:
+    """Every binding POST and unbind through the cluster: ``double`` lists
+    each pod a bind reached while the pod was bound (a rolled-back gang's
+    member bound again after its unbind is not one)."""
+
+    def __init__(self, cluster) -> None:
+        self.binds = 0
+        self.double: list = []
+        self._bound: dict = {}
+        self._lock = threading.Lock()
+        real_bind, real_unbind = cluster.bind_pod, cluster.unbind_pod
+
+        def bind_pod(key, node):
+            with self._lock:
+                if key in self._bound:
+                    self.double.append(key)
+            out = real_bind(key, node)
+            with self._lock:
+                self._bound[key] = node
+                self.binds += 1
+            return out
+
+        def unbind_pod(key, node):
+            real_unbind(key, node)
+            with self._lock:
+                if self._bound.get(key) == node:
+                    del self._bound[key]
+
+        cluster.bind_pod, cluster.unbind_pod = bind_pod, unbind_pod
+
+
+def drain_stepped(stacks, clock, shard_set=None, rounds: int = 12) -> None:
+    """Drive every lane's (or profile's) run_until_idle in a fixed order on
+    the held clock, a second of it per round, until a round binds nothing
+    and moves nothing (ShardSet.run_until_idle's fixed point, lane after
+    lane instead of on threads)."""
+    last = -1
+    for _ in range(rounds):
+        moved = shard_set.rescue_starved(min_attempts=1) if shard_set else 0
+        for st in stacks:
+            st.scheduler.run_until_idle(max_wall_s=600)
+        moved += shard_set.rescue_starved(min_attempts=1) if shard_set else 0
+        binds = sum(st.scheduler.stats.binds for st in stacks)
+        parked = any(st.queue.has_parked() for st in stacks)
+        if moved == 0 and (not parked or binds == last):
+            return
+        last = binds
+        clock.advance(1.0)
+        for st in stacks:
+            st.framework.expire_waiting(now=clock())
+            if st.queue.has_parked():
+                st.queue.move_all_to_active(force=True)
+
+
+def journal_bytes(d) -> dict:
+    return {p.name: p.read_bytes() for p in sorted(d.iterdir())}
+
+
+def lane_state(ss, pods, bound_lane, routes) -> dict:
+    cluster = ss.global_stack.cluster
+    capacity = {t.name: len(t.healthy_chips()) for t in cluster.list_tpu_metrics()}
+    return dict(
+        routes=dict(routes),
+        lanes={n: bound_lane.get(n) for n in pods},
+        bindings=bindings_of(ss.global_stack, pods),
+        commits=ss.accountant.commit_commits,
+        conflicts=ss.accountant.commit_conflicts,
+        rollbacks=ss.metrics.shard_rollbacks.total(),
+        staged=sorted(ss.accountant.staged_uids()),
+        overcommitted=[h for h, cap in capacity.items()
+                       if ss.accountant.chips_in_use(h) > cap],
+    )
+
+
+def lane_launches(stacks) -> dict:
+    """Each lane's (or profile's) own launches: its batch kernel's and its
+    speculation kernel's (the counts the wrappers bump through
+    ``counter=``)."""
+    out = {}
+    for st in stacks:
+        lane = st.scheduler.shard or st.informer.scheduler_name
+        k, spec = st.batch._kern, st.speculation.kernel
+        out[lane] = dict(fleet_eval=k.launches + spec.launches,
+                         joint_fit=k.joint_fit_launches,
+                         update_rows=k.row_updates + spec.row_updates)
+    return out
+
+
+def gangs_whole(bindings: dict, gangs: dict) -> list:
+    """The gangs bound in part (some members bound, some not)."""
+    split = []
+    for g, (_kind, n) in gangs.items():
+        got = sum(1 for name, node in bindings.items()
+                  if name.startswith(f"{g}-") and node not in (None, "evicted"))
+        if got not in (0, n):
+            split.append((g, got, n))
+    return split
+
+
+def run_lanes_stepped(platform: str, size: dict) -> "tuple[dict, dict]":
+    """(o1) and (o3), one drive on a held clock, lane after lane. (o1):
+    ``build_sharded_stacks`` with ``shard_count`` lanes and the journal
+    (``journal_sync: batch``) binds the first wave. (o3) goes on from
+    there: with every lane's commit cut off, one topology gang of the
+    second wave binds on its lane (its claims left STAGED in the journal:
+    the bound residue) and two members of another park at Permit (staged,
+    unbound); the set is dropped without ``close`` (its journal detached
+    and its watchers gone, as a dead process's); a new set over the same
+    cluster and journal replays, resyncs warm before any bind, commits the
+    residue in a drift pass and binds the rest of the second wave. The
+    bindings, lanes, commits and the journal files cover both sets; every
+    launch of each set is kept and held against the plain versions."""
+    from yoda_tpu_torch.cluster.fake import FakeCluster
+    from yoda_tpu_torch.standalone import build_sharded_stacks
+
+    waves, gangs = lane_waves(size)
+    d = lane_dir(platform, "o1")
+    clock = SteppedClock(1000.0)
+    cfg = lane_config(platform, size, d)
+    kept_a, kept_b = KeptKernels(), KeptKernels()
+    kept_a.install()
+    try:
+        t0 = time.monotonic()
+        cluster = FakeCluster()
+        n_watchers = len(cluster._watchers)
+        a = build_sharded_stacks(cluster, cfg, clock=clock)
+        publish_fleet(cluster, size)
+        binds = BindLog(cluster)
+        bound_lane: dict = {}
+        routes: dict = {}
+        track_lanes(a.stacks, bound_lane)
+        create_wave(cluster, waves[0], routes, a.router)
+        drain_stepped(a.stacks, clock, a)
+        wall = time.monotonic() - t0
+        a_state = dict(
+            lane_launches=lane_launches(a.stacks),
+            restacks={st.scheduler.shard: (st.batch.restacks,
+                                           st.batch._resident.last_restack_ms)
+                      for st in a.stacks},
+            partition={st.scheduler.shard: len(st.informer.snapshot()) for st in a.stacks},
+        )
+        # Two topology gangs of the second wave on shard lanes: the first
+        # binds whole with its commit cut off, the second parks half.
+        topo = sorted({labels["tpu/gang"] for _, labels, _ in waves[1]
+                       if "tpu/topology" in labels and "tpu/multislice" not in labels})
+        lanes = {st.scheduler.shard: st for st in a.stacks}
+        residue_gang, parked_gang = [
+            g for g in topo if a.router.route(_probe_pod(waves[1], g)) != "global"][:2]
+        for st in a.stacks:
+            st.scheduler.commit_fn = lambda uids: (True, "")
+        first = [w for w in waves[1] if w[1].get("tpu/gang") == residue_gang]
+        create_wave(cluster, first, routes, a.router)
+        lanes[routes[first[0][0]]].scheduler.run_until_idle(max_wall_s=600)
+        half = [w for w in waves[1] if w[1].get("tpu/gang") == parked_gang][:2]
+        create_wave(cluster, half, routes, a.router)
+        # Cycle by cycle: run_until_idle would wait out its wall time
+        # behind the half gang's Permit barrier.
+        parked = lanes[routes[half[0][0]]]
+        while (qpi := parked.queue.pop(timeout=0.0)) is not None:
+            for q in parked.scheduler._pop_batch(qpi):
+                parked.scheduler.schedule_one(q)
+        if len(parked.framework.waiting_pods()) != 2:
+            raise AssertionError(
+                f"(o3): {len(parked.framework.waiting_pods())} members parked at Permit")
+        staged_at_crash = len(a.accountant.staged_uids())
+        if platform != "cpu":
+            torch.cuda.synchronize()
+    finally:
+        kept_a.restore()
+    # The crash: the journal's writer and every watch stream of the dead
+    # process end; nothing is closed.
+    journal_a = a.accountant.journal
+    a.accountant.journal = None
+    journal_a.close()
+    del cluster._watchers[n_watchers:]
+    kept_b.install()
+    try:
+        b = build_sharded_stacks(cluster, cfg, clock=clock)
+        track_lanes(b.stacks, bound_lane)
+        replayed = b.accountant.replayed
+        replayed_claims = len(b.accountant.claims_snapshot())
+        replayed_gangs = {g: len(u) for g, u in b.accountant.replayed_gangs.items()}
+        binds_before_resync = binds.binds
+        report = b.global_stack.reconciler.resync()
+        binds_at_resync = binds.binds
+        b.reroute()
+        bound_uids = {p.uid for p in cluster.list_pods() if p.node_name}
+        residue = sorted(u for u in b.accountant.staged_uids() if u in bound_uids)
+        b.global_stack.reconciler.reconcile(relist=False)
+        residue_left = sorted(u for u in b.accountant.staged_uids() if u in bound_uids)
+        done = {n for n, _, _ in first + half}
+        create_wave(cluster, [w for w in waves[1] if w[0] not in done], routes, b.router)
+        drain_stepped(b.stacks, clock, b)
+        if platform != "cpu":
+            torch.cuda.synchronize()
+    finally:
+        kept_b.restore()
+    b.accountant.journal.close()
+    pods = [n for w in waves for n, _, _ in w]
+    state = lane_state(b, pods, bound_lane, routes)
+    summary = b.accountant.journal.summary()
+    split = gangs_whole(state["bindings"], gangs)
+    o1 = dict(
+        state, platform=platform, pods=len(pods), gangs=gangs, wall_s=wall,
+        bound=sum(v not in (None, "evicted") for v in state["bindings"].values()),
+        split=split, double_binds=sorted(binds.double),
+        commits=a.accountant.commit_commits + b.accountant.commit_commits,
+        conflicts=a.accountant.commit_conflicts + b.accountant.commit_conflicts,
+        rollbacks=a.metrics.shard_rollbacks.total() + b.metrics.shard_rollbacks.total(),
+        journal=journal_bytes(d), journal_summary=journal_a.summary(),
+        kernels=kept_a.errors() if platform != "cpu" else None,
+        **a_state,
+    )
+    o3 = dict(
+        platform=platform, pods=len(pods), bindings=state["bindings"],
+        lanes=state["lanes"], bound=o1["bound"], split=split,
+        overcommitted=state["overcommitted"], double_binds=o1["double_binds"],
+        staged_at_crash=staged_at_crash, replayed=replayed,
+        replayed_claims=replayed_claims, replayed_gangs=replayed_gangs,
+        warm=report.warm, binds_before_resync=binds_before_resync,
+        binds_at_resync=binds_at_resync, residue=residue, residue_left=residue_left,
+        commits=b.accountant.commit_commits, conflicts=b.accountant.commit_conflicts,
+        staged=state["staged"], replay_ms=summary["replay_ms"],
+        records=summary["tail_seq"], journal_size=summary["size_bytes"],
+        fsyncs=summary["fsyncs"], journal=o1["journal"],
+        residue_gang=residue_gang, parked_gang=parked_gang,
+        lane_launches=lane_launches(b.stacks),
+        kernels=kept_b.errors() if platform != "cpu" else None,
+    )
+    # The dead set's threads, which its crash left running.
+    for st in a.stacks + b.stacks:
+        st.close()
+    return o1, o3
+
+
+def _probe_pod(wave, gang: str):
+    from yoda_tpu_torch.api.types import PodSpec
+
+    name, labels, _ = next(w for w in wave if w[1].get("tpu/gang") == gang)
+    return PodSpec(name, labels=dict(labels), uid=f"default/{name}")
+
+
+def run_profiles(platform: str, size: dict) -> dict:
+    """(o4): ``build_profile_stacks`` with the base profile (least-allocated)
+    and ``yoda-tpu-pack`` (most-allocated) over one accountant and one
+    cycle lock: run (b)'s singletons alternate between the two names and
+    each profile gets run (c)'s topology gangs of one wave, drained profile
+    by profile on a held clock."""
+    from yoda_tpu_torch.cluster.fake import FakeCluster
+    from yoda_tpu_torch.config import SchedulerConfig
+    from yoda_tpu_torch.standalone import build_profile_stacks
+
+    waves, gangs = gang_script(seed=1, **size["script"])
+    singles = fleet_and_pods(seed=0)[1][: size["singles_b"]]
+    pods = [(f"b{n}", dict(labels), None) for n, labels in singles]
+    pods += [w for w in waves[1] if "tpu/multislice" not in w[1]
+             and "tpu/topology" in w[1]]
+    names = ("yoda-tpu", PACK_PROFILE)
+    config = SchedulerConfig(
+        kernel_platform=platform, batch_requests=16,
+        profiles=(SchedulerConfig(scheduler_name=PACK_PROFILE, kernel_platform=platform,
+                                  batch_requests=16, scoring_strategy="most-allocated"),),
+    )
+    clock = SteppedClock(1000.0)
+    kept = KeptKernels()
+    kept.install()
+    try:
+        cluster = FakeCluster()
+        stacks = build_profile_stacks(cluster, config, clock=clock)
+        publish_fleet(cluster, size)
+        binds = BindLog(cluster)
+        bound_lane: dict = {}
+        track_lanes(stacks, bound_lane)
+        from yoda_tpu_torch.api.requests import gang_name_of
+        from yoda_tpu_torch.api.types import PodSpec
+
+        for i, (name, labels, _sel) in enumerate(pods):
+            g = gang_name_of(labels)
+            which = (sorted(gangs).index(g) if g else i) % 2
+            cluster.create_pod(PodSpec(name, labels=dict(labels), uid=f"default/{name}",
+                                       scheduler_name=names[which]))
+        t0 = time.monotonic()
+        drain_stepped(stacks, clock)
+        if platform != "cpu":
+            torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        kept.restore()
+    names_of = [n for n, _, _ in pods]
+    bindings = bindings_of(stacks[0], names_of)
+    capacity = {t.name: len(t.healthy_chips()) for t in cluster.list_tpu_metrics()}
+    out = dict(
+        platform=platform, pods=len(pods), wall_s=wall, bindings=bindings,
+        profiles={n: bound_lane.get(n) for n in names_of},
+        bound=sum(v not in (None, "evicted") for v in bindings.values()),
+        split=gangs_whole(bindings, {g: v for g, v in gangs.items()
+                                     if any(n.startswith(f"{g}-") for n in names_of)}),
+        overcommitted=[h for h, c in capacity.items()
+                       if stacks[0].accountant.chips_in_use(h) > c],
+        double_binds=sorted(binds.double),
+        shared=(len({id(st.accountant) for st in stacks}) == 1
+                and len({id(st.scheduler.cycle_lock) for st in stacks}) == 1),
+        lane_launches=lane_launches(stacks),
+        kernels=kept.errors() if platform != "cpu" else None,
+    )
+    for st in stacks:
+        st.close()
+    return out
+
+
+def run_lanes_wall(platform: str, size: dict, *, shards: int, journal: bool,
+                   profiled: bool = False) -> dict:
+    """(o2): every lane's ``serve_forever`` on a thread of its own (the
+    CLI's wiring: the global lane resyncs and reroutes before its first
+    pop, the shard lanes wait for that resync, the global lane's
+    rebalancer ticks its speculation, the shard set's rescue pass runs),
+    speculation on, on the wall clock over (o1)'s pods, wave after wave,
+    at a Permit timeout of ``O2_PERMIT_TIMEOUT_S``.
+    ``shards`` 1 builds one plain stack for the same script. With
+    ``profiled`` a torch.profiler window (CUDA activity only) covers the
+    drive and counts the kernel records that overlap one on another
+    stream."""
+    from yoda_tpu_torch.config import SchedulerConfig
+    from yoda_tpu_torch.standalone import build_sharded_stacks, build_stack
+
+    waves, gangs = lane_waves(size)
+    d = lane_dir(platform, f"o2-{shards}-{int(journal)}") if journal else None
+    cfg = lane_config(platform, size, d, gang_permit_timeout_s=O2_PERMIT_TIMEOUT_S)
+    if shards > 1:
+        ss = build_sharded_stacks(config=cfg)
+        stacks, cluster = ss.stacks, ss.global_stack.cluster
+    else:
+        ss = None
+        st = build_stack(config=dataclasses.replace(cfg, shard_count=1))
+        stacks, cluster = [st], st.cluster
+    publish_fleet(cluster, size)
+    binds = BindLog(cluster)
+    bound_lane: dict = {}
+    track_lanes(stacks, bound_lane)
+    pods = [n for w in waves for n, _, _ in w]
+    stop = threading.Event()
+    g = stacks[0]
+    if ss is not None:
+        def serve_start(rec=g.reconciler, s=ss):
+            rec.resync()
+            s.reroute()
+
+        g.scheduler.on_serve_start = serve_start
+        for st in stacks[1:]:
+            st.scheduler.fence_fn = g.reconciler.resynced.is_set
+    else:
+        g.scheduler.on_serve_start = g.reconciler.resync
+    threads = [threading.Thread(target=st.scheduler.serve_forever, args=(stop,),
+                                kwargs={"poll_s": 0.05}, daemon=True,
+                                name=f"lane-{st.scheduler.shard or 'single'}")
+               for st in stacks]
+    threads.append(threading.Thread(
+        target=g.rebalancer.run_forever, args=(stop,),
+        kwargs={"period_s": 3600.0, "spec_period_s": 0.05}, daemon=True,
+        name="rebalance-global"))
+    if ss is not None:
+        threads.append(threading.Thread(target=ss.run_forever, args=(stop,),
+                                        kwargs={"period_s": 0.5}, daemon=True,
+                                        name="shard-maintenance"))
+    kept = KeptKernels()
+    prof = None
+    if profiled and platform != "cpu":
+        from torch.profiler import ProfilerActivity, profile
+
+        prof = profile(activities=[ProfilerActivity.CUDA])
+    for st in stacks:  # every count zeroed just before the drive
+        st.batch._kern.launches = st.batch._kern.joint_fit_launches = 0
+        st.batch._kern.row_updates = 0
+        st.speculation.kernel.launches = st.speculation.kernel.row_updates = 0
+    kept.install()
+    if prof is not None:
+        prof.__enter__()
+    created: dict = {}
+    try:
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for wave in waves:
+            t_wave = time.monotonic()
+            create_wave(cluster, wave)
+            for n, _, _ in wave:
+                created[n] = t_wave
+            wait_for(lambda w=wave: all(
+                cluster.get_pod(f"default/{n}").node_name for n, _, _ in w),
+                600.0, "every pod of the wave bound", poll_s=0.05)
+        wall = time.monotonic() - t0
+        if platform != "cpu":
+            torch.cuda.synchronize()
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        kept.restore()
+    bindings = bindings_of(g, pods)
+    lat, completion = bind_latencies(
+        [r for st in stacks for r in st.scheduler.stats.results],
+        {n: labels for w in waves for n, labels, _ in w}, bindings)
+    capacity = {t.name: len(t.healthy_chips()) for t in cluster.list_tpu_metrics()}
+    claims = g.accountant.claims_snapshot()
+    bound_claims = {p.uid: (p.node_name, int(p.labels.get("tpu/chips", 1)))
+                    for p in cluster.list_pods() if p.node_name}
+    out = dict(
+        platform=platform, shards=shards, journal=journal, pods=len(pods),
+        bound=sum(v not in (None, "evicted") for v in bindings.values()),
+        wall_s=wall, pods_per_s=len(pods) / wall if wall else 0.0,
+        p50_ms=pct_ms(lat, 0.5), p99_ms=pct_ms(lat, 0.99),
+        gang_p50_ms=pct_ms(completion, 0.5), gang_p99_ms=pct_ms(completion, 0.99),
+        split=gangs_whole(bindings, gangs),
+        overcommitted=[h for h, c in capacity.items() if g.accountant.chips_in_use(h) > c],
+        double_binds=sorted(binds.double),
+        claims_equal_bound=claims == bound_claims,
+        alive=[t.name for t in threads if t.is_alive()],
+        lane_launches=lane_launches(stacks),
+        lanes=sorted({v for v in bound_lane.values() if v}),
+        first_restack_ms={st.scheduler.shard or "single": st.batch._resident.last_restack_ms
+                          for st in stacks},
+        restacks={st.scheduler.shard or "single": st.batch.restacks for st in stacks},
+        commits=g.accountant.commit_commits, conflicts=g.accountant.commit_conflicts,
+        rollbacks=g.metrics.shard_rollbacks.total(),
+        journal_summary=(g.accountant.journal.summary()
+                         if g.accountant.journal is not None else None),
+        kernels=kept.errors() if platform != "cpu" else None,
+        threads=sorted(kept.threads) if platform != "cpu" else [],
+    )
+    if prof is not None:
+        out["overlap"] = lane_overlap(prof)
+    if g.accountant.journal is not None:
+        g.accountant.journal.close()
+    for st in stacks:
+        st.close()
+    return out
+
+
+def lane_overlap(prof) -> dict:
+    """From a profiler window over (o2): the fleet_eval and joint_fit
+    device records per stream, and how many of them overlap in time a
+    record of either kernel on another stream (lanes launching side by
+    side on the card)."""
+    records = []
+    for kernel in ("fleet_eval", "joint_fit"):
+        for stream, ivs in stream_kernels(prof, kernel).items():
+            records += [(stream, a, b) for a, b in ivs]
+    records.sort(key=lambda r: r[1])
+    overlapped = 0
+    for i, (s, a, b) in enumerate(records):
+        if any(s2 != s and a2 < b and a < b2 for s2, a2, b2 in records[max(0, i - 64): i + 64]):
+            overlapped += 1
+    streams: dict = {}
+    for s, a, b in records:
+        streams[s] = streams.get(s, 0) + 1
+    return dict(records=len(records), streams=len(streams), per_stream=streams,
+                overlapped=overlapped,
+                device_ms=sum(b - a for _, a, b in records) / 1e6)
+
+
+def run_lanes(platform: str, size: dict = LANES_FULL, *, reported: bool = True) -> dict:
+    """Run (o): (o1), (o3) and (o4) on ``platform``; with ``reported`` also
+    (o2) (card only: its numbers are the card's)."""
+    o1, o3 = run_lanes_stepped(platform, size)
+    out = dict(o1=o1, o3=o3, o4=run_profiles(platform, size))
+    if reported:
+        out["o2"] = run_lanes_wall(platform, size, shards=size["shards"], journal=True,
+                                   profiled=True)
+        out["o2_single"] = run_lanes_wall(platform, size, shards=1, journal=True)
+        out["o2_nojournal"] = run_lanes_wall(platform, size, shards=size["shards"],
+                                             journal=False)
+    return out
+
+
+def check_lanes_run(run: dict, size: dict) -> None:
+    """The gates every part of run (o) holds on its own."""
+    o1, o3, o4 = run["o1"], run["o3"], run["o4"]
+    for name, part in (("o1", o1), ("o3", o3), ("o4", o4)):
+        if part["bound"] != part["pods"]:
+            missing = [n for n, v in part["bindings"].items() if v is None][:8]
+            raise AssertionError(f"({name}): {part['bound']}/{part['pods']} bound, "
+                                 f"pending {missing}")
+        for key in ("split", "overcommitted", "double_binds", "staged"):
+            if part.get(key):
+                raise AssertionError(f"({name}) {key}: {part[key]}")
+    if o1["routes"].get("wide-000") != "global" or o1["lanes"].get("wide-000") != "global":
+        raise AssertionError(f"(o1): the wide gang went to {o1['routes'].get('wide-000')}")
+    if len(set(o1["lanes"].values())) != size["shards"] + 1:
+        raise AssertionError(f"(o1): lanes that bound: {sorted(set(o1['lanes'].values()))}")
+    if not o1["commits"] or not o1["journal"]:
+        raise AssertionError("(o1): nothing committed or journaled")
+    if not (o3["replayed"] and o3["warm"] and o3["residue"] and not o3["residue_left"]):
+        raise AssertionError(
+            f"(o3): replayed {o3['replayed']}, warm {o3['warm']}, residue "
+            f"{len(o3['residue'])}, left after the drift pass {o3['residue_left']}")
+    if o3["binds_at_resync"] != o3["binds_before_resync"]:
+        raise AssertionError("(o3): a bind landed before the warm resync")
+    if o3["replayed_gangs"].get(o3["parked_gang"]) != 2:
+        raise AssertionError(f"(o3): replayed gangs {o3['replayed_gangs']}")
+    if not o4["shared"] or len(set(o4["profiles"].values())) != 2:
+        raise AssertionError(f"(o4): shared {o4['shared']}, profiles that bound "
+                             f"{sorted(set(map(str, o4['profiles'].values())))}")
+
+
+def check_lanes(g: dict, c: dict, size: dict) -> None:
+    """Run (o) on the card against the same script on the CPU: (o1), (o3)
+    and (o4) equal, journal files byte for byte; every card launch equal to
+    its plain version; (o2)'s gates."""
+    check_lanes_run(g, size)
+    check_lanes_run(c, size)
+    for part, keys in (("o1", O1_PARITY), ("o3", O3_PARITY), ("o4", O4_PARITY)):
+        for key in keys:
+            if g[part][key] != c[part][key]:
+                a, b = g[part][key], c[part][key]
+                diff = ([k for k in a if a[k] != b.get(k)][:8]
+                        if isinstance(a, dict) else (str(a)[:200], str(b)[:200]))
+                raise AssertionError(f"({part}) {key} differs from the CPU run: {diff}")
+    for part in ("o1", "o3", "o4", "o2", "o2_single", "o2_nojournal"):
+        if part not in g:
+            continue
+        err = g[part]["kernels"]
+        if any(err["max_abs_err"].values()) or err["kept"] != err["launches"]:
+            raise AssertionError(f"({part}) kernels: {err}")
+    for part in ("o2", "o2_single", "o2_nojournal"):
+        check_lanes_wall(g[part], part)
+    launched = {lane for lane, n in g["o2"]["lane_launches"].items() if n["fleet_eval"]}
+    if len(launched) != size["shards"] + 1:
+        raise AssertionError(f"(o2): lanes that launched fleet_eval {sorted(launched)}")
+
+
+def check_lanes_wall(run: dict, part: str) -> None:
+    """(o2)'s gates: every pod bound, gangs whole, no host over its chips,
+    no pod bound twice, the accountant's claims exactly the bound pods,
+    every thread ended."""
+    for key in ("split", "overcommitted", "double_binds", "alive"):
+        if run[key]:
+            raise AssertionError(f"({part}) {key}: {run[key]}")
+    if run["bound"] != run["pods"] or not run["claims_equal_bound"]:
+        raise AssertionError(f"({part}): bound {run['bound']}/{run['pods']}, "
+                             f"claims equal the bound pods {run['claims_equal_bound']}")
+
+
+def print_lanes(run: dict, smi: str) -> None:
+    drop = ("bindings", "lanes", "routes", "profiles", "journal", "gangs", "kernels")
+    for part in ("o1", "o3", "o4", "o2", "o2_single", "o2_nojournal"):
+        if part in run:
+            r = {k: v for k, v in run[part].items() if k not in drop}
+            print(f"lanes run ({part}) {run[part]['platform']} [{smi}]:",
+                  json.dumps(r, default=str))
+
+
+def phase_lanes(smi: str, rerun: "SpawnedRerun") -> dict:
+    g = run_lanes("auto")
+    c = rerun.result()
+    print_lanes(g, smi)
+    print_lanes(c, smi)
+    check_lanes(g, c, LANES_FULL)
+    return g
+
+
 def main() -> None:
+    # One string hash seed for this process and the CPU reruns it spawns:
+    # a gang's Permit waiters are released in set order, so the order of
+    # the uids in run (o)'s journal commit records follows the hash seed
+    # (the bindings do not). Re-executed once with the seed pinned.
+    if os.environ.get("PYTHONHASHSEED") != "0":
+        os.environ["PYTHONHASHSEED"] = "0"
+        os.execv(sys.executable, [sys.executable, *sys.argv])
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one NVIDIA GPU", file=sys.stderr)
         sys.exit(2)
@@ -6438,6 +7163,7 @@ def main() -> None:
     obs_rerun = SpawnedRerun("run_observability", OBSERVABILITY_FULL, "run (j)")
     tenancy_rerun = SpawnedRerun("run_tenancy", TENANCY_FULL, "run (k)")
     pipeline_rerun = SpawnedRerun("run_pipeline", PIPELINE_FULL, "run (l3)")
+    lanes_rerun = SpawnedRerun("run_lanes", LANES_FULL, "run (o)")
     try:
         rows, profiled = phase("kernel vs plain", phase_kernel)
         joint_rows = phase("joint_fit vs plain", phase_joint_fit)
@@ -6456,7 +7182,9 @@ def main() -> None:
                         seconds["device/build"])
         loop = phase("loop run (m)", phase_loop, smi)
         sharded = phase("sharded run (n)", phase_sharded, smi, gpu)
+        lanes = phase("lanes run (o)", phase_lanes, smi, lanes_rerun)
         print("phase seconds:", json.dumps(seconds))
+        o_parts = ("o1", "o3", "o4", "o2", "o2_single", "o2_nojournal")
         l_parts = ("l1", "l2", "l3", "l4")
         j_parts = ("j1", "j1_wall", "j2", "j3", "cost")
         k_parts = ("k1", "k1_unfair", "k2", "k3")
@@ -6488,7 +7216,15 @@ def main() -> None:
                     + sum(observability[p]["launches"]["fleet_eval"] for p in j_parts)
                     + sum(tenancy[p]["launches"]["fleet_eval"] for p in k_parts)
                     + sum(process[p]["launches"]["fleet_eval"] for p in l_parts)
-                    + loop["m1"]["launches"],
+                    + loop["m1"]["launches"]
+                    + sum(lanes[p]["kernels"]["launches"]["fleet_eval"] for p in o_parts),
+                    "launches_run_o": {
+                        p: lanes[p]["kernels"]["launches"]["fleet_eval"] for p in o_parts
+                    },
+                    "launches_run_o_by_lane": {
+                        p: {lane: n["fleet_eval"] for lane, n in lanes[p]["lane_launches"].items()}
+                        for p in o_parts
+                    },
                     "launches_run_g": affinity["launches"],
                     "launches_run_m1": loop["m1"]["launches"],
                     "launches_run_l": {
@@ -6526,7 +7262,9 @@ def main() -> None:
                                        *(tenancy[p]["max_abs_err"]["fleet_eval"]
                                          for p in k_parts),
                                        *(process[p]["max_abs_err"]["fleet_eval"]
-                                         for p in l_parts)),
+                                         for p in l_parts),
+                                       *(lanes[p]["kernels"]["max_abs_err"]["fleet_eval"]
+                                         for p in o_parts)),
                     "ms": main_row["ms"],
                     "plain_ms": main_row["plain_ms"],
                     "bound_ms": main_row["bound_ms"],
@@ -6560,9 +7298,17 @@ def main() -> None:
                     + nodehealth["joint_fit_launches"]
                     + sum(observability[p]["launches"]["joint_fit"] for p in j_parts)
                     + sum(tenancy[p]["launches"]["joint_fit"] for p in k_parts)
-                    + sum(process[p]["launches"]["joint_fit"] for p in l_parts),
+                    + sum(process[p]["launches"]["joint_fit"] for p in l_parts)
+                    + sum(lanes[p]["kernels"]["launches"]["joint_fit"] for p in o_parts),
                     "launches_run_l": {
                         p: process[p]["launches"]["joint_fit"] for p in l_parts
+                    },
+                    "launches_run_o": {
+                        p: lanes[p]["kernels"]["launches"]["joint_fit"] for p in o_parts
+                    },
+                    "launches_run_o_by_lane": {
+                        p: {lane: n["joint_fit"] for lane, n in lanes[p]["lane_launches"].items()}
+                        for p in o_parts
                     },
                     "launches_run_i": {
                         part: n["joint_fit"] for part, n in nodehealth["phase_launches"].items()
@@ -6580,7 +7326,9 @@ def main() -> None:
                                        *(tenancy[p]["max_abs_err"]["joint_fit"]
                                          for p in k_parts),
                                        *(process[p]["max_abs_err"]["joint_fit"]
-                                         for p in l_parts)),
+                                         for p in l_parts),
+                                       *(lanes[p]["kernels"]["max_abs_err"]["joint_fit"]
+                                         for p in o_parts)),
                     "ms": joint_main["ms"],
                     "device_ms": not_measured(joint_main["device_ms"]),
                     "plain_ms": joint_main["plain_ms"],
@@ -6653,8 +7401,14 @@ def main() -> None:
                     + sum(run["row_update_launches"] for run in h_runs)
                     + nodehealth["row_update_launches"]
                     + sum(tenancy[p]["launches"]["update_rows"] for p in k_parts)
-                    + sum(process[p]["launches"]["update_rows"] for p in l_parts),
+                    + sum(process[p]["launches"]["update_rows"] for p in l_parts)
+                    + sum(n["update_rows"] for p in o_parts
+                          for n in lanes[p]["lane_launches"].values()),
                     "launches_run_h_speculation": background["h1"]["spec_row_updates"],
+                    "launches_run_o": {
+                        p: sum(n["update_rows"] for n in lanes[p]["lane_launches"].values())
+                        for p in o_parts
+                    },
                     "launches_run_l": {
                         p: process[p]["launches"]["update_rows"] for p in l_parts
                     },
@@ -6698,6 +7452,7 @@ def main() -> None:
         obs_rerun.stop()
         tenancy_rerun.stop()
         pipeline_rerun.stop()
+        lanes_rerun.stop()
 
 
 if __name__ == "__main__":

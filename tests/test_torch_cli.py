@@ -10,12 +10,16 @@ staying 200 while the overload ladder sheds. Left out, with the part they
 wait for (ROADMAP queue 1):
 
 - ``TestAgentMode`` (three cases): the node agent, item 11;
-- ``TestFederatedSchedulerMode``: federation, item 9.
+- ``TestFederatedSchedulerMode``: federation, item 9c.
 
 Port-only cases: without ``--device cpu`` (and with a config that leaves
 ``kernel_platform`` at "auto") the CLI on a machine without a card exits
 nonzero naming the card, in a process of its own; every unported mode
 exits 2 naming its ROADMAP item before it touches the API server;
+``shard_count: 2`` (thread lanes) and ``profiles`` serve over the fake
+API server and bind a pod of every lane or profile, the reload of
+``shard_count`` resizing the lanes, with ``/debug/shards`` and
+``/debug/journal`` answering;
 ``--demo --device cpu`` prints the reference demo's placements; and
 chip_smoke's runs (l1) and (l2) at their small size on the CPU
 (``TestRunL``).
@@ -40,7 +44,7 @@ SKIP = {
     "TestAgentMode::test_agent_refuses_fake_without_flag": "node agent (item 11)",
     "TestAgentMode::test_agent_publishes_fake_profile": "node agent (item 11)",
     "TestFederatedSchedulerMode::test_readyz_follows_degraded_readiness_with_dead_remote":
-        "federation (item 9)",
+        "federation (item 9c)",
 }
 
 
@@ -74,15 +78,15 @@ def test_default_device_without_a_card_exits_nonzero_naming_the_card(tmp_path):
 
 UNPORTED = [
     (["--agent"], None, "item 11"),
-    (["--federate-url", "remote=http://127.0.0.1:1"], None, "item 9"),
-    ([], "shard_count: 2\n", "item 9"),
-    ([], "profiles:\n  - scheduler_name: other\n", "item 9"),
-    ([], "commit_endpoint: 127.0.0.1:1\n", "item 9"),
+    (["--federate-url", "remote=http://127.0.0.1:1"], None, "item 9c"),
+    ([], "shard_count: 2\nshard_mode: process\n", "item 9b"),
+    ([], "commit_listen: 127.0.0.1:0\n", "item 9b"),
+    ([], "commit_endpoint: 127.0.0.1:1\n", "item 9b"),
 ]
 
 
 @pytest.mark.parametrize(
-    "argv, config, item", UNPORTED, ids=["agent", "federate", "shards", "profiles", "tail"]
+    "argv, config, item", UNPORTED, ids=["agent", "federate", "process", "listen", "tail"]
 )
 def test_unported_mode_exits_2_naming_its_item(argv, config, item, tmp_path, capsys, monkeypatch):
     from yoda_tpu_torch.cli import main
@@ -126,3 +130,108 @@ class TestRunL:
         check_process(l1, l2, card=False)
         assert l1["bound"] == l1["pods"] and l1["fused_plan_dispatches"] == 1
         assert l1["launches"] == {"fleet_eval": 0, "joint_fit": 0, "update_rows": 0}
+
+
+LANES = [
+    "shard_count: 2\njournal_path: {journal}\n",
+    "profiles:\n  - scheduler_name: other\n    scoring_strategy: most-allocated\n",
+]
+
+
+@pytest.mark.parametrize("config", LANES, ids=["shards", "profiles"])
+def test_lanes_and_profiles_serve(config, tmp_path, monkeypatch):
+    """``shard_count: 2`` (thread lanes, with the journal) and ``profiles``
+    build, serve over the port's fake API server and bind a pod of every
+    lane or profile; ``/debug/shards`` lists the lanes under this pid and
+    ``/debug/journal`` the journal's summary; a ``shard_count`` reload
+    resizes the lanes."""
+    import json
+    import threading
+    import urllib.request
+
+    from yoda_tpu_torch.api.types import PodSpec, make_node
+    from yoda_tpu_torch.cli import main
+    from yoda_tpu_torch.cluster import KubeApiClient, KubeApiConfig, KubeCluster
+    from yoda_tpu_torch.testing import FakeKubeApiServer, wait_until
+
+    sharded = config.startswith("shard_count")
+    path = tmp_path / "config.yaml"
+    path.write_text(config.format(journal=tmp_path / "journal"))
+    with FakeKubeApiServer() as srv:
+        monkeypatch.setenv("YODA_KUBE_API_URL", srv.base_url)
+        seed = KubeCluster(
+            KubeApiClient(KubeApiConfig(base_url=srv.base_url, watch_timeout_s=2))
+        )
+        for s in range(4):
+            for i in range(4):
+                seed.put_tpu_metrics(make_node(
+                    f"s{s}-{i}", chips=4, slice_id=f"slice-{s}",
+                    topology_coords=(i % 2, i // 2, 0),
+                ))
+        port_file = tmp_path / "port"
+        from yoda_tpu_torch import metrics_server
+
+        real_start = metrics_server.MetricsServer.start
+
+        def start(self):
+            real_start(self)
+            port_file.write_text(str(self.port))
+
+        monkeypatch.setattr(metrics_server.MetricsServer, "start", start)
+        stop = threading.Event()
+        rc: list = []
+        t = threading.Thread(
+            target=lambda: rc.append(main(
+                ["--config", str(path), "--metrics-port", "0", "--device", "cpu"],
+                stop=stop,
+            )),
+            daemon=True,
+        )
+        t.start()
+        try:
+            names = ["yoda-tpu"] if sharded else ["yoda-tpu", "other"]
+            pods = [
+                PodSpec(f"p{i}", labels={"tpu/chips": "2"},
+                        scheduler_name=names[i % len(names)])
+                for i in range(8)
+            ] + [
+                PodSpec(f"g-{i}", labels={
+                    "tpu/gang": "g", "tpu/topology": "2x2x1", "tpu/chips": "4",
+                })
+                for i in range(4)
+            ]
+            for p in pods:
+                seed.create_pod(p)
+
+            def bound():
+                return all(
+                    (srv.get_object("Pod", f"default/{p.name}") or {})
+                    .get("spec", {}).get("nodeName")
+                    for p in pods
+                )
+
+            wait_until(bound, timeout_s=90.0, msg="every pod bound")
+            wait_until(port_file.exists, timeout_s=10.0, msg="metrics served")
+            base = f"http://127.0.0.1:{port_file.read_text()}"
+            shards = json.loads(urllib.request.urlopen(f"{base}/debug/shards").read())
+            journal = json.loads(urllib.request.urlopen(f"{base}/debug/journal").read())
+            if sharded:
+                assert shards["mode"] == "thread"
+                assert [w["lane"] for w in shards["workers"]] == ["s0", "s1"]
+                assert {w["pid"] for w in shards["workers"]} == {os.getpid()}
+                assert journal["enabled"] and journal["appends"] >= len(pods)
+                # A shard_count reload resizes the lanes in place.
+                path.write_text("shard_count: 3\njournal_path: {}\n".format(
+                    tmp_path / "journal"))
+                wait_until(
+                    lambda: len(json.loads(urllib.request.urlopen(
+                        f"{base}/debug/shards").read())["workers"]) == 3,
+                    timeout_s=30.0, msg="the reload resized the lanes",
+                )
+            else:
+                assert shards == {"enabled": False}
+                assert journal == {"enabled": False}
+        finally:
+            stop.set()
+            t.join(timeout=30)
+        assert rc == [0]

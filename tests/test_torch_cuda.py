@@ -803,3 +803,66 @@ class TestLoopOnCard:
 
         out = run_loop("auto", LOOP_SMALL)
         assert out["m1"]["launches"] == out["m1"]["batch_dispatches"] > 0
+
+
+@pytest.mark.cuda
+class TestLanesOnCard:
+    def test_two_lanes_launch_on_their_own_streams(self, card, monkeypatch):
+        """Two lanes' kernels (each a TorchFleetKernel on a stream of its
+        own, as ``build_stack(shard=...)`` gives every lane) evaluate from
+        two threads at once, 20 bursts of K = 16 each: every launch runs on
+        its lane's stream, counts on its lane, and equals the plain version
+        on the same inputs."""
+        import threading
+
+        streams = [torch.cuda.Stream(device=card) for _ in range(2)]
+        lanes = [TorchFleetKernel(Weights(), card, stream=s) for s in streams]
+        launched: list = []
+        real = cuda_kernel.fleet_eval
+
+        def kept(*args, **kw):
+            out = real(*args, **kw)
+            launched.append((kw["counter"], torch.cuda.current_stream(card),
+                             [a.clone() for a in args[:5]], out.clone()))
+            return out
+
+        monkeypatch.setattr(cuda_kernel, "fleet_eval", kept)
+        inputs = []
+        for i, kern in enumerate(lanes):
+            chips, nodes, dyn, host_ok, reqs = stacked_fleet(
+                3000 + 500 * i, 4096, 16, seed=20 + i)
+            kern._chips, kern._nodes = on(card, (chips, nodes))
+            kern._names = [f"n{j}" for j in range(chips.shape[2])]
+            inputs.append((dyn, host_ok, [KernelRequest(*map(int, r)) for r in reqs]))
+        errors: list = []
+
+        def drive(i: int) -> None:
+            try:
+                for _ in range(20):
+                    lanes[i].evaluate_burst(*inputs[i])
+            except BaseException as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=drive, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        torch.cuda.synchronize()
+        assert not errors
+        assert [k.launches for k in lanes] == [20, 20]
+        for kern, stream in zip(lanes, streams):
+            assert {s for owner, s, _a, _o in launched if owner is kern} == {stream}
+        for _owner, _s, args, out in launched:
+            want = kernel_packed_burst(*(a.cpu() for a in args), Weights())
+            assert torch.equal(out.cpu(), want)
+
+    def test_run_o_small_as_on_cpu(self, card):
+        """chip_smoke's run (o) at its small size: (o1), (o3) and (o4) equal
+        to the CPU run (journal files byte for byte), every launch equal to
+        its plain version, and (o2)'s gates with every lane launching."""
+        from chip_smoke import LANES_SMALL, check_lanes, run_lanes
+
+        got = run_lanes("auto", LANES_SMALL)
+        want = run_lanes("cpu", LANES_SMALL, reported=False)
+        check_lanes(got, want, LANES_SMALL)

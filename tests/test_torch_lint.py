@@ -9,10 +9,11 @@ constants name ``yoda_tpu/`` paths gets a port-side copy of them here:
 ``APPEND_EXEMPT``). Each pass must read at least one port module, so a
 pass keyed to a reference path cannot report zero without looking.
 
-The findings must be exactly the two ``reload-safety`` entries that wait
-for the durable journal (ROADMAP queue 1, item 9): ``journal_sync`` and
-``journal_segment_bytes`` are RELOADABLE and ``apply_reloadable`` skips
-them, because the port has no journal. Any other finding fails here.
+The port must have no finding at all. The last two, the ``reload-safety``
+entries for ``journal_sync`` and ``journal_segment_bytes`` (RELOADABLE
+knobs ``apply_reloadable`` skipped while the port had no journal), closed
+with the durable journal; ``journal-discipline`` now reads the port's
+journal package and its one writer, the accountant.
 """
 
 from __future__ import annotations
@@ -30,16 +31,7 @@ REPO = Path(__file__).resolve().parent.parent
 PORT = "yoda_tpu_torch"
 
 # (pass, file, message) of every finding the port is allowed today.
-EXPECTED = {
-    (
-        "reload-safety",
-        f"{PORT}/standalone.py",
-        f"knob {knob!r} is declared RELOADABLE but never re-applied in "
-        "apply_reloadable — a reload would report it applied while the old "
-        "value keeps serving",
-    )
-    for knob in ("journal_sync", "journal_segment_bytes")
-}
+EXPECTED: set = set()
 
 
 def _port_path(path: str) -> str:
@@ -111,6 +103,8 @@ class TestPortLint:
         assert visited[name], f"{name} read no module of {PORT}"
 
     def test_findings_are_the_journal_knobs_alone(self, lint):
+        """No finding at all (the journal knobs' two closed with the
+        journal)."""
         findings, _visited, _project = lint
         got = {(f.pass_name, f.file, f.message) for f in findings}
         assert got == EXPECTED, "\n".join(sorted(f.render() for f in findings))
@@ -120,6 +114,8 @@ class TestPortLint:
         [
             ("lock-discipline", "ops/cuda_kernel.py"),
             ("snapshot-immutability", "plugins/yoda/batch.py"),
+            ("reload-safety", "standalone.py"),
+            ("journal-discipline", "plugins/yoda/accounting.py"),
         ],
     )
     def test_repaired_findings_stay_gone(self, lint, name, where):

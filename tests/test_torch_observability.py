@@ -6,9 +6,8 @@ runs on both packages from the reference's own source
 (``torch_refcases.run_case``), with its exact assertions. Left out, with
 the part they wait for (ROADMAP queue 1):
 
-- ``TestFailoverMetrics::test_federation_series_move_with_health_and_spillover``
-  and ``TestQueueDepthGauges::test_profiles_sum_into_one_family``:
-  federation and profiles, item 9.
+- ``TestFailoverMetrics::test_federation_series_move_with_health_and_spillover``:
+  federation, item 9c.
 
 ``TestAllFamiliesRegistered::test_checker_list_matches_code`` lints the
 yoda_tpu source tree on both sides; ``tests/test_torch_lint.py`` runs the
@@ -52,8 +51,7 @@ import yoda_tpu_torch.standalone as port_standalone
 REF = "test_observability.py"
 SKIP = {
     "TestFailoverMetrics::test_federation_series_move_with_health_and_spillover":
-        "federation (item 9)",
-    "TestQueueDepthGauges::test_profiles_sum_into_one_family": "profiles (item 9)",
+        "federation (item 9c)",
 }
 
 

@@ -10,7 +10,9 @@ waits for (ROADMAP queue 1): ``TestOverloadStormSweep``, the seeded chaos
 storm of ``yoda_tpu.testing.chaos`` (item 12), which builds the
 reference's own stack (and is ``-m slow`` in the reference).
 ``TestReloadEqual`` below drives a reload from a candidate config through
-both packages' ``apply_reloadable``.
+both packages' ``apply_reloadable``. ``TestParkedQueueRepairs`` shows the
+port's two repairs of a loop left with every draw parked: the reference
+stays stuck where the port goes on.
 """
 
 from __future__ import annotations
@@ -23,11 +25,13 @@ from torch_refcases import PACKAGES, cases, run_case
 import yoda_tpu.agent as ref_agent
 import yoda_tpu.api.types as ref_types
 import yoda_tpu.config as ref_config
+import yoda_tpu.observability as ref_observability
 import yoda_tpu.overload as ref_overload
 import yoda_tpu.standalone as ref_standalone
 import yoda_tpu_torch.agent as port_agent
 import yoda_tpu_torch.api.types as port_types
 import yoda_tpu_torch.config as port_config
+import yoda_tpu_torch.observability as port_observability
 import yoda_tpu_torch.overload as port_overload
 import yoda_tpu_torch.standalone as port_standalone
 
@@ -191,3 +195,81 @@ class TestReloadEqual:
         ]
         assert report["immutable"] == ["scheduler_name"]
         assert live[:4] == (0.5, 4, 3, 77)
+
+
+class TestParkedQueueRepairs:
+    """A loop whose every draw is parked and no bind is in flight runs no
+    cycle and sees no cluster event. The reference then waits for good:
+    its cycle signal keeps the p99 of cycles long past, and BROWNOUT's
+    capped draws wait for an event. The port reads the cycle signal only
+    over new cycles and re-admits capped draws at each evaluation."""
+
+    def _monitor(self, pkg):
+        ov_mod = SIDES[pkg][4]
+        obs = {"yoda_tpu": ref_observability, "yoda_tpu_torch": port_observability}[pkg]
+        clock = SteppedClock()
+        mon = ov_mod.OverloadMonitor(clock=clock, cycle_ms_high=250.0, step_down_hold_s=5.0)
+        latency = obs.Histogram("cycle_seconds", "serve-cycle wall")
+        mon.attach(latency=latency)
+        return mon, latency, clock
+
+    def test_cycle_signal_reads_only_new_cycles(self):
+        levels = {}
+        for pkg in PACKAGES:
+            mon, latency, clock = self._monitor(pkg)
+            latency.observe(0.6, phase="total")  # one slow cycle: pressure 2.4
+            seen = []
+            for _ in range(6):
+                clock.now += 6.0
+                seen.append(mon.evaluate())
+            levels[pkg] = seen
+            if pkg == "yoda_tpu_torch":
+                assert mon.pressure()["cycle"] == 0.0
+                latency.observe(0.6, phase="total")
+                assert mon.pressure()["cycle"] == pytest.approx(2.4)
+                assert mon.evaluate() == "ELEVATED"
+        assert levels["yoda_tpu"] == ["ELEVATED"] + ["BROWNOUT"] * 5
+        assert levels["yoda_tpu_torch"] == ["ELEVATED", "ELEVATED", "NOMINAL"] + [
+            "NOMINAL"] * 3
+
+    def test_capped_draws_reenter_without_an_event(self):
+        bound = {}
+        for pkg in PACKAGES:
+            standalone, config, agent_mod, types, ov_mod = SIDES[pkg]
+            clock = SteppedClock()
+            cfg = config.SchedulerConfig(
+                kernel_platform="cpu", overload_queue_high=0, overload_cycle_ms_high=0,
+                overload_step_down_hold_s=1e9, overload_brownout_admit_per_s=2.0,
+                bind_workers=0,
+            )
+            stack = standalone.build_stack(config=cfg, clock=clock)
+            agent = agent_mod.FakeTpuAgent(stack.cluster)
+            for i in range(4):
+                agent.add_host(f"h{i}", generation="v5e", chips=8)
+            agent.publish_all()
+            stack.reconciler.resync()
+            ov = stack.metrics.overload
+            ov._transition_locked(ov_mod.ELEVATED)
+            ov._transition_locked(ov_mod.BROWNOUT)
+
+            def create(names):
+                for n in names:
+                    stack.cluster.create_pod(types.PodSpec(n, labels={"tpu/chips": "1"}))
+                stack.scheduler.run_until_idle(max_wall_s=60)
+
+            def n_bound():
+                return sum(1 for p in stack.cluster.list_pods() if p.node_name)
+
+            create(["a0", "a1"])  # the burst's two tokens
+            create([f"b{i}" for i in range(6)])  # no token left: all park
+            seen = [n_bound(), stack.queue.depths()[2]]
+            for _ in range(4):
+                clock.now += 1.0
+                ov.evaluate()
+                stack.scheduler.run_until_idle(max_wall_s=60)
+                seen.append(n_bound())
+            bound[pkg] = seen
+        # The reference leaves the six parked however long the cap holds.
+        assert bound["yoda_tpu"] == [2, 6, 2, 2, 2, 2]
+        # The port admits them at the cap's rate, two a second.
+        assert bound["yoda_tpu_torch"] == [2, 6, 4, 6, 8, 8]

@@ -25,8 +25,11 @@ from yoda_tpu.config import SchedulerConfig as RefConfig
 from yoda_tpu_torch.api.types import PodSpec
 from yoda_tpu_torch.agent.fake_publisher import FakeTpuAgent
 from yoda_tpu_torch.config import SchedulerConfig
+from yoda_tpu_torch.cluster.fake import FakeCluster
 from yoda_tpu_torch.standalone import (
     UNPORTED_KNOB_VALUES,
+    build_profile_stacks,
+    build_sharded_stacks,
     build_stack,
     unported_settings,
 )
@@ -62,7 +65,9 @@ class TestImportGuard:
         for rel in ("cli.py", "demo.py", "cluster/kube.py", "cluster/lease.py",
                     "testing/__init__.py", "testing/fake_kube_api.py",
                     "parallel/__init__.py", "parallel/sharded.py",
-                    "plugins/yoda/collection.py", "plugins/yoda/score.py"):
+                    "plugins/yoda/collection.py", "plugins/yoda/score.py",
+                    "journal/__init__.py", "journal/journal.py",
+                    "framework/shards.py"):
             assert REPO / "yoda_tpu_torch" / rel in files, rel
         bad = {
             f"{f.relative_to(REPO)}: {m}"
@@ -178,17 +183,78 @@ class TestUnportedKnobs:
         "knob,value",
         [
             ("kernel_device_min_elems", 1024),
-            ("shard_count", 2),
-            ("journal_path", "/var/lib/yoda"),
+            ("shard_mode", "process"),
+            ("commit_listen", "127.0.0.1:7000"),
             ("commit_endpoint", "127.0.0.1:7000"),
+            ("federation_spillover", False),
         ],
     )
     def test_raises_naming_the_knob(self, knob, value):
         cfg = dataclasses.replace(
+            SchedulerConfig(kernel_platform="cpu", shard_count=2), **{knob: value}
+        )
+        with pytest.raises(NotImplementedError, match=knob) as err:
+            build_stack(config=cfg)
+        item = {"kernel_device_min_elems": None, "federation_spillover": "9c"}.get(
+            knob, "9b"
+        )
+        if item:
+            assert f"ROADMAP item {item}" in str(err.value)
+
+    @pytest.mark.parametrize(
+        "knob,value",
+        [
+            ("shard_count", 2),
+            ("journal_path", None),
+            ("journal_sync", "always"),
+            ("profiles", None),
+        ],
+    )
+    def test_durability_knob_builds_everything(self, knob, value, tmp_path):
+        """The durable journal, the thread lanes and profiles are ported:
+        each knob builds its assembly on the host with nothing left out,
+        every lane or profile on the kernel_platform asked for."""
+        if knob == "journal_path":
+            value = str(tmp_path)
+        if knob == "profiles":
+            value = (SchedulerConfig(scheduler_name="b", kernel_platform="cpu"),)
+        cfg = dataclasses.replace(
             SchedulerConfig(kernel_platform="cpu"), **{knob: value}
         )
-        with pytest.raises(NotImplementedError, match=knob):
-            build_stack(config=cfg)
+        assert unported_settings(cfg) == []
+        if knob == "shard_count":
+            stacks = build_sharded_stacks(config=cfg).stacks
+            assert [st.scheduler.shard for st in stacks] == ["global", "s0", "s1"]
+        elif knob == "profiles":
+            stacks = build_profile_stacks(FakeCluster(), cfg)
+            assert len({id(st.accountant) for st in stacks}) == 1
+        else:
+            stacks = [build_stack(config=cfg)]
+            assert (stacks[0].journal is not None) == (knob == "journal_path")
+        try:
+            for st in stacks:
+                assert st.not_built == ()
+                assert st.batch.device == torch.device("cpu")
+        finally:
+            for st in stacks:
+                st.close()
+
+    @pytest.mark.parametrize("entry", ["sharded", "profiles"])
+    def test_assemblies_run_on_the_card_by_default(self, entry, monkeypatch):
+        """``build_sharded_stacks`` and ``build_profile_stacks`` keep the
+        card as their default: with none present they raise, never fall
+        back to the host lane by lane."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            if entry == "sharded":
+                build_sharded_stacks(config=SchedulerConfig(shard_count=2))
+            else:
+                build_profile_stacks(
+                    FakeCluster(),
+                    SchedulerConfig(
+                        profiles=(SchedulerConfig(scheduler_name="b"),)
+                    ),
+                )
 
     @pytest.mark.parametrize(
         "knob,value",

@@ -357,3 +357,45 @@ class TestRunForever:
         t.join(timeout=2)
         assert not t.is_alive()
         assert stack.accountant.chips_in_use("host-2") == 0
+
+
+# --- the re-LIST of a watch-caching backend ---
+
+
+def relists(side, journal_dir=None):
+    """Which passes ask the backend to re-LIST: a FakeCluster given the
+    ``resync_pods`` a watch-caching backend (KubeCluster) has, counting its
+    calls. The cold resync and every drift pass re-LIST; a drift pass with
+    ``relist=False`` and the warm resync (the accountant restored from a
+    journal replay) do not."""
+    cluster = side.fake.FakeCluster()
+    calls: list = []
+    cluster.resync_pods = lambda: calls.append(len(calls))
+    cfg = {"journal_path": str(journal_dir)} if journal_dir else {}
+    stack = make_stack(side, cluster=cluster, **cfg)
+    fleet(side, cluster)
+    cluster.create_pod(solo(side, "solo", 2))
+    stack.scheduler.run_until_idle(max_wall_s=5)
+    out = {"resync": (stack.reconciler.resync().warm, len(calls))}
+    stack.reconciler.reconcile()
+    out["reconcile"] = len(calls)
+    stack.reconciler.reconcile(relist=False)
+    out["reconcile_no_relist"] = len(calls)
+    if journal_dir:
+        stack.journal.close()
+    return out
+
+
+class TestRelist:
+    def test_cold_resync_and_drift_relist(self):
+        got = both(relists)
+        assert got == {"resync": (False, 1), "reconcile": 2, "reconcile_no_relist": 2}
+
+    def test_warm_resync_skips_the_relist(self, tmp_path):
+        """A restart over a journal: the standby's accountant is replayed,
+        so its resync reports warm and asks for no re-LIST."""
+        for side in (REF, PORT):
+            d = tmp_path / side.name
+            relists(side, d)  # the first leader writes the journal
+        got = both(lambda side: relists(side, tmp_path / side.name))
+        assert got["resync"] == (True, 0) and got["reconcile"] == 1

@@ -12,7 +12,11 @@ where the case leaves the platform at "auto", as every port test does on
 a machine without a card; so do the port's other entry points that pick a
 device (``ops.kernel.resolve_device`` and its importers: the batch plugin
 a case builds itself, ``fused_filter_score``, ``parallel.default_mesh``,
-which then gives the host shards). The case body, its inputs and its assertions
+which then gives the host shards) and the assemblies built from
+``build_stack`` (``build_sharded_stacks``, ``build_profile_stacks``), in
+the case's own process and in a script it runs in a fresh interpreter. The
+kept chaos module's faulty journal I/O is given the port's
+``RealJournalIO`` and ``JournalFault`` on the port's side. The case body, its inputs and its assertions
 are the reference's own, unchanged, so a case passing on both packages
 holds the port to exactly what the reference is held to.
 
@@ -139,6 +143,23 @@ def _cpu_resolve_device(real):
     return resolve_device
 
 
+# Prepended to a reference module's script strings that a case runs in a
+# fresh interpreter (``python -c``): the same "auto" -> "cpu" mapping of
+# ``build_stack`` as in-process.
+_CPU_PREAMBLE = """\
+import dataclasses as _dc
+import yoda_tpu_torch.standalone as _st
+from yoda_tpu_torch.config import SchedulerConfig as _Cfg
+_real_build_stack = _st.build_stack
+def _cpu_build_stack(cluster=None, config=None, **kw):
+    config = config or _Cfg()
+    if config.kernel_platform == "auto":
+        config = _dc.replace(config, kernel_platform="cpu")
+    return _real_build_stack(cluster, config, **kw)
+_st.build_stack = _cpu_build_stack
+"""
+
+
 def load(pkg: str, name: str, monkeypatch) -> types.ModuleType:
     path = TESTS / name
     src = path.read_text()
@@ -147,9 +168,20 @@ def load(pkg: str, name: str, monkeypatch) -> types.ModuleType:
         import yoda_tpu_torch.parallel.sharded  # noqa: F401 — patched below
         import yoda_tpu_torch.standalone as standalone
 
+        import yoda_tpu.journal as ref_journal
+        import yoda_tpu_torch.journal as port_journal
+
         monkeypatch.setattr(
             standalone, "build_stack", _cpu_build_stack(standalone.build_stack)
         )
+        # The kept chaos module builds its faulty journal I/O over
+        # ``yoda_tpu.journal.RealJournalIO`` and raises
+        # ``yoda_tpu.journal.JournalFault`` (both imported at call time):
+        # on the port's side those names are the port's classes, so the
+        # port's journal writes through its own I/O and its own
+        # ``except JournalFault`` is what catches the injected crash.
+        monkeypatch.setattr(ref_journal, "RealJournalIO", port_journal.RealJournalIO)
+        monkeypatch.setattr(ref_journal, "JournalFault", port_journal.JournalFault)
         real = kernel.resolve_device
         for mod_name, mod in list(sys.modules.items()):
             if mod_name.startswith("yoda_tpu_torch") and getattr(
@@ -160,6 +192,10 @@ def load(pkg: str, name: str, monkeypatch) -> types.ModuleType:
     mod = types.ModuleType(f"{path.stem}__{pkg}")
     mod.__file__ = str(path)
     exec(compile(src, str(path), "exec"), mod.__dict__)
+    if pkg == "yoda_tpu_torch":
+        for key, value in list(mod.__dict__.items()):
+            if isinstance(value, str) and "from yoda_tpu_torch.standalone import" in value:
+                setattr(mod, key, _CPU_PREAMBLE + value)
     return mod
 
 

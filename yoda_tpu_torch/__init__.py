@@ -17,8 +17,12 @@ and why-pending, the SLO engine, the overload ladder and the metrics
 endpoint), and every way the reference evaluates a pod: the fused
 evaluation on one card, row-sharded over several (``parallel/``, the
 shard entry of ``csrc/fleet_eval.cu``), or loop mode's per-node plugins
-on the host: ``standalone.build_stack``, ``agent.FakeTpuAgent``,
-``cluster.fake.FakeCluster`` and ``metrics_server.MetricsServer``.
+on the host; and the durable claim journal (``journal/``), scheduler
+lanes in one process (``standalone.build_sharded_stacks``, every lane
+evaluating its partition on the card on a stream of its own) and
+profiles (``standalone.build_profile_stacks``): ``standalone.build_stack``,
+``agent.FakeTpuAgent``, ``cluster.fake.FakeCluster`` and
+``metrics_server.MetricsServer``.
 Each module's docstring names what it leaves out; ROADMAP.md lists the
 modules still to port.
 """

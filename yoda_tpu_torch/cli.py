@@ -13,16 +13,25 @@ pkg/register/register.go:9-13). Here one binary, selected by flags:
 fields (weights, mode, gang_permit_timeout_s, ...), validated and used.
 
 The scheduler syncs its caches from the API server ``KubeApiConfig.from_env``
-names (``YODA_KUBE_API_URL``, else the in-cluster service account), builds
-one stack (``standalone.build_stack``, reached through the module attribute)
-with the CLI's stop event as the bind executor's, serves ``/metrics`` with
-``/readyz`` on the lease and the warm-start resync, and runs
-``Scheduler.serve_forever`` with the reconciler's resync as its
-``on_serve_start``. With ``--leader-elect`` every bind is fenced on the
-Lease. The background threads (reconciler, rebalancer, node health,
-overload ladder, config reload on SIGHUP or a changed file) start with
-leadership; the ``finally`` drain stops the gang's bind executor, the
-ingest thread, the Event recorder, the metrics server and the lease.
+names (``YODA_KUBE_API_URL``, else the in-cluster service account) and
+builds its stacks through the ``standalone`` module attribute (so a
+caller's patch of ``standalone.build_stack`` applies to every stack), with
+the CLI's stop event as each bind executor's: one stack per profile
+(``build_profile_stacks``; the base config alone is one profile), or, with
+``shard_count`` > 1, a ``ShardSet`` of thread lanes
+(``build_sharded_stacks``: the global lane, which alone resyncs and runs
+the background repair loops, and one lane per shard, fenced until that
+resync completed). It serves ``/metrics`` with ``/readyz`` on the lease
+and the warm-start resync, ``/debug/journal`` (the durable claim
+journal's summary) and ``/debug/shards`` (the lanes, under this pid), and
+runs the first stack's ``Scheduler.serve_forever`` here and every other
+stack's on a thread of its own. With ``--leader-elect`` every bind is
+fenced on the Lease. The background threads (reconciler, rebalancer,
+node health, overload ladder, the lanes' rescue pass, config reload on
+SIGHUP or a changed file, a ``shard_count`` reload resizing the lanes)
+start with leadership; the ``finally`` drain stops the bind executors,
+the ingest threads, the Event recorders, the journal, the metrics server
+and the lease.
 
 The fleet evaluation runs on the CUDA card unless the caller asks for the
 host: ``--device cpu`` (or a config with ``kernel_platform: cpu``). With
@@ -33,11 +42,11 @@ without a card ``build_stack`` raises — the CLI never serves on the CPU by
 itself.
 
 Counterpart of ``yoda_tpu/cli.py``. Left out until a later slice, each
-refused with exit code 2 and a message naming it: federated mode
-(``--federate-url``), scheduler shards (``shard_count`` > 1), config
-``profiles``, and journal tailing (``commit_endpoint``) — ROADMAP item 9 —
-and the node agent (``--agent``, item 11). ``--jax-platform`` is not kept:
-``--device`` takes its place.
+refused with exit code 2 and a message naming it: process-mode lanes
+(``shard_mode: process``), the commit transport and journal tailing
+(``commit_listen``, ``commit_endpoint``) — ROADMAP item 9b — federated
+mode (``--federate-url``, item 9c) and the node agent (``--agent``, item
+11). ``--jax-platform`` is not kept: ``--device`` takes its place.
 """
 
 from __future__ import annotations
@@ -109,26 +118,25 @@ def _unported_mode(args, config) -> "str | None":
     if args.federate_url:
         return (
             "--federate-url (federated mode) is not ported to yoda_tpu_torch "
-            "yet (ROADMAP item 9: federation/)"
+            "yet (ROADMAP item 9c: federation/)"
         )
     if config is None:
         return None
-    if config.shard_count > 1:
+    if config.shard_count > 1 and config.shard_mode == "process":
         return (
-            f"shard_count={config.shard_count} (scheduler shards) is not "
-            "ported to yoda_tpu_torch yet (ROADMAP item 9: "
-            "framework/shards.py)"
+            "shard_mode=process (shard lanes as worker processes) is not "
+            "ported to yoda_tpu_torch yet (ROADMAP item 9b: "
+            "framework/procserve.py)"
         )
-    if config.profiles:
+    if config.commit_listen:
         return (
-            "profiles (several scheduler profiles in one process) are not "
-            "ported to yoda_tpu_torch yet (ROADMAP item 9: "
-            "build_profile_stacks)"
+            "commit_listen (the commit RPC over TCP) is not ported to "
+            "yoda_tpu_torch yet (ROADMAP item 9b: framework/procserve.py)"
         )
     if config.commit_endpoint:
         return (
             "commit_endpoint (journal tailing hot standby) is not ported to "
-            "yoda_tpu_torch yet (ROADMAP item 9: journal/tail.py)"
+            "yoda_tpu_torch yet (ROADMAP item 9b: journal/tail.py)"
         )
     return None
 
@@ -206,10 +214,10 @@ def _install_stop_handlers(stop: threading.Event) -> None:
 
 
 def _run_scheduler(args, stop: threading.Event) -> int:
-    """In-cluster scheduler: KubeCluster backend + full plugin stack +
+    """In-cluster scheduler: KubeCluster backend + full plugin stacks +
     metrics endpoint, running until SIGTERM/SIGINT (or ``stop`` is set by
-    an embedding caller). With ``--leader-elect``, the scheduling loop only
-    runs while this replica holds the Lease (the standby keeps its informer
+    an embedding caller). With ``--leader-elect``, the scheduling loops only
+    run while this replica holds the Lease (the standby keeps its informer
     caches warm for fast takeover); losing leadership exits nonzero so the
     Deployment restarts the pod into standby."""
     from yoda_tpu_torch import standalone
@@ -221,8 +229,14 @@ def _run_scheduler(args, stop: threading.Event) -> int:
         print(f"yoda-tpu-scheduler: {unported}", file=sys.stderr)
         return 2
     if args.device is not None:
+        platform = _DEVICE_PLATFORM[args.device]
         config = dataclasses.replace(
-            config, kernel_platform=_DEVICE_PLATFORM[args.device]
+            config,
+            kernel_platform=platform,
+            profiles=tuple(
+                dataclasses.replace(p, kernel_platform=platform)
+                for p in config.profiles
+            ),
         )
     build_s = _init_device(config.kernel_platform)
     if build_s is not None:
@@ -237,26 +251,96 @@ def _run_scheduler(args, stop: threading.Event) -> int:
         f"{(time.perf_counter() - t_sync) * 1e3:.1f} ms",
         file=sys.stderr,
     )
+    shard_set = None
     try:
-        # `stop` doubles as the bind executor's stop event: a SIGTERM or a
+        # `stop` doubles as the bind executors' stop event: a SIGTERM or a
         # lost lease aborts pending bind-retry backoff sleeps immediately
         # instead of draining up to bind_retry_cap_s per attempt.
-        stack = standalone.build_stack(cluster, config, stop_event=stop)
+        if config.shard_count > 1:
+            # Scheduler shard-out: N parallel serve loops over rendezvous-
+            # partitioned slices/pools + the serialized global lane
+            # (stacks[0], which owns resync and the background repair
+            # loops), sharing one accountant through the optimistic
+            # claim->validate->commit protocol.
+            shard_set = standalone.build_sharded_stacks(
+                cluster, config, stop_event=stop
+            )
+            stacks = shard_set.stacks
+        else:
+            # Profiles: one process can serve several schedulerNames, each
+            # with its own plugin config (config `profiles:`). The base
+            # profile's stack owns the metrics endpoint and the leader
+            # gate.
+            stacks = standalone.build_profile_stacks(
+                cluster, config, stop_event=stop
+            )
     except BaseException:
         cluster.stop()
         raise
+    stack = stacks[0]
 
     # Readiness (/readyz, distinct from /healthz liveness): ready =
     # leadership held (the gate is swapped in below when --leader-elect is
-    # on) AND the warm-start resync has completed AND we are not draining.
-    # The informer-sync half is implied: _build_kube_cluster() blocked on
+    # on) AND every profile's warm-start resync has completed (sharded:
+    # the global lane's, the only one) AND we are not draining. The
+    # informer-sync half is implied: _build_kube_cluster() blocked on
     # wait_for_sync above.
     leader_gate: list = [lambda: True]
 
     def _ready() -> bool:
         if stop.is_set() or not leader_gate[0]():
             return False
-        return stack.reconciler.resynced.is_set()
+        if shard_set is not None:
+            return stacks[0].reconciler.resynced.is_set()
+        return all(st.reconciler.resynced.is_set() for st in stacks)
+
+    # /debug/shards: the in-process lanes under the shared pid; unsharded
+    # it reports {"enabled": false}.
+    shards_fn = None
+    if shard_set is not None:
+
+        def _thread_shards_view(ss=shard_set) -> dict:
+            staged_by_lane: dict = {}
+            for _uid, lane in ss.accountant.staged_uids().items():
+                staged_by_lane[lane] = staged_by_lane.get(lane, 0) + 1
+            rows = [
+                {
+                    "lane": st.scheduler.shard,
+                    "pid": os.getpid(),
+                    "alive": True,
+                    "queue_depth": len(st.queue),
+                    "cycles": len(st.scheduler.stats.results),
+                    "binds": st.scheduler.stats.binds,
+                    "staged": staged_by_lane.get(st.scheduler.shard, 0),
+                }
+                for st in ss.stacks[1:]
+            ]
+            return {"enabled": True, "mode": "thread", "workers": rows}
+
+        shards_fn = _thread_shards_view
+
+    # Warm-start resync: each profile's serve loop runs its reconciler's
+    # resync pass ONCE, after the fence first admits leadership and before
+    # the first queue pop — cluster truth is re-listed, bound pods'
+    # reservations charged, and every partially-bound gang adopted or
+    # rolled back whole BEFORE any post-promotion bind can happen (/readyz
+    # flips only once this completes). Sharded: ONLY the global lane
+    # resyncs (its informer sees the whole fleet), then reroutes the
+    # resync's requeues home; the shard loops stay fenced until it ran.
+    if shard_set is None:
+        for st in stacks:
+            st.scheduler.on_serve_start = st.reconciler.resync
+    else:
+        g_resynced = stacks[0].reconciler.resynced
+
+        def _sharded_serve_start(rec=stacks[0].reconciler, ss=shard_set):
+            rec.resync()
+            ss.reroute()
+
+        stacks[0].scheduler.on_serve_start = _sharded_serve_start
+        shard_set.shard_fence_fn = g_resynced.is_set
+        for st in stacks[1:]:
+            st.scheduler.fence_fn = g_resynced.is_set
 
     metrics_srv = None
     elector_thread = None
@@ -264,18 +348,16 @@ def _run_scheduler(args, stop: threading.Event) -> int:
     try:
         if args.metrics_port >= 0:
             metrics_srv = MetricsServer(
-                stack.metrics, port=args.metrics_port, ready_fn=_ready
+                stack.metrics,
+                port=args.metrics_port,
+                ready_fn=_ready,
+                # /debug/journal: the durable claim journal's summary
+                # (None = journal_path unset, served as {"enabled": false}).
+                journal_fn=lambda: stack.accountant.journal,
+                shards_fn=shards_fn,
             )
             metrics_srv.start()
             print(f"metrics on :{metrics_srv.port}/metrics", file=sys.stderr)
-
-        # Warm-start resync: the serve loop runs the reconciler's resync
-        # pass ONCE, after the fence first admits leadership and before the
-        # first queue pop — cluster truth is re-listed, bound pods'
-        # reservations charged, and every partially-bound gang adopted or
-        # rolled back whole BEFORE any post-promotion bind can happen
-        # (/readyz flips only once this completes).
-        stack.scheduler.on_serve_start = stack.reconciler.resync
         _install_stop_handlers(stop)
 
         if args.leader_elect:
@@ -294,12 +376,26 @@ def _run_scheduler(args, stop: threading.Event) -> int:
                 namespace=args.lease_namespace,
                 name=args.lease_name,
             )
-            # Leader fencing: the scheduler checks the lease BEFORE each
+            # Leader fencing: every scheduler checks the lease BEFORE each
             # bind API write (and the binder again on its worker) and parks
             # its queue while not leading — the exit-on-loss below is
             # seconds-grained, and an in-flight permit release in that
             # window must not race the new leader's binds.
-            stack.scheduler.fence_fn = elector.is_leader
+            if shard_set is not None:
+                # Lane fences compose the lease with the global lane's
+                # resync gate (a promoted replica's lanes must not bind
+                # before ITS resync ran); recorded on the shard set too,
+                # so lanes added by a live resize inherit it.
+                g_resynced = stacks[0].reconciler.resynced
+                stacks[0].scheduler.fence_fn = elector.is_leader
+                shard_set.shard_fence_fn = (
+                    lambda: elector.is_leader() and g_resynced.is_set()
+                )
+                for st in stacks[1:]:
+                    st.scheduler.fence_fn = shard_set.shard_fence_fn
+            else:
+                for st in stacks:
+                    st.scheduler.fence_fn = elector.is_leader
             leader_gate[0] = elector.is_leader  # /readyz follows the lease
             became_leader = threading.Event()
 
@@ -332,52 +428,88 @@ def _run_scheduler(args, stop: threading.Event) -> int:
             if stop.is_set() and not became_leader.is_set():
                 return 0  # stopped while standby
 
+        names = [config.scheduler_name] + [
+            p.scheduler_name for p in config.profiles
+        ]
         print(
             f"yoda-tpu-scheduler: serving (mode={config.mode}, "
             f"device={stack.batch.device if stack.batch else 'host (loop mode)'}, "
+            f"profiles={names}, lanes={len(stacks) if shard_set else 1}, "
             f"nodes={len(cluster.list_tpu_metrics())}, "
             f"pods={len(cluster.list_pods())})",
             file=sys.stderr,
         )
+        # Every other profile's (or lane's) serve loop on a thread of its
+        # own; the first stack's runs on this thread below.
+        extra_threads = [
+            threading.Thread(
+                target=st.scheduler.serve_forever,
+                args=(stop,),
+                name=(
+                    f"scheduler-{st.scheduler.shard}"
+                    if st.scheduler.shard is not None
+                    else f"scheduler-{st.informer.scheduler_name}"
+                ),
+                daemon=True,
+            )
+            for st in stacks[1:]
+        ]
         # Background drift reconciler, rebalancer and node health monitor,
         # started with (or after) leadership — never on a standby, whose
         # repairs would fight the live leader's state. Their per-tick gates
-        # re-check the live fence and the resync.
-        extra_threads = []
+        # re-check the live fence and the resync. Sharded: on the GLOBAL
+        # lane only — its informer sees the whole fleet; per-lane copies
+        # would each repair (and fight over) the same gangs.
+        bg_stacks = stacks[:1] if shard_set is not None else stacks
         if config.reconcile_period_s > 0:
-            extra_threads.append(
+            extra_threads.extend(
                 threading.Thread(
-                    target=stack.reconciler.run_forever,
+                    target=st.reconciler.run_forever,
                     args=(stop,),
                     kwargs={"period_s": config.reconcile_period_s},
-                    name=f"reconciler-{config.scheduler_name}",
+                    name=f"reconciler-{st.informer.scheduler_name}",
                     daemon=True,
                 )
+                for st in bg_stacks
             )
         if config.rebalance_period_s > 0:
-            extra_threads.append(
+            extra_threads.extend(
                 threading.Thread(
-                    target=stack.rebalancer.run_forever,
+                    target=st.rebalancer.run_forever,
                     args=(stop,),
                     kwargs={"period_s": config.rebalance_period_s},
-                    name=f"rebalance-{config.scheduler_name}",
+                    name=f"rebalance-{st.informer.scheduler_name}",
                     daemon=True,
                 )
+                for st in bg_stacks
             )
         if config.node_health_period_s > 0:
-            extra_threads.append(
+            extra_threads.extend(
                 threading.Thread(
-                    target=stack.nodehealth.run_forever,
+                    target=st.nodehealth.run_forever,
                     args=(stop,),
                     kwargs={"period_s": config.node_health_period_s},
-                    name=f"nodehealth-{config.scheduler_name}",
+                    name=f"nodehealth-{st.informer.scheduler_name}",
+                    daemon=True,
+                )
+                for st in bg_stacks
+            )
+        # Shard-set maintenance: the attempts-based rescue backstop
+        # (starved work to the global lane); reroutes ride the
+        # structural-event watcher registered at build time.
+        if shard_set is not None:
+            extra_threads.append(
+                threading.Thread(
+                    target=shard_set.run_forever,
+                    args=(stop,),
+                    name="shard-maintenance",
                     daemon=True,
                 )
             )
-        # Overload brownout ladder: one evaluation loop. Not
-        # leadership-gated — a standby's ladder just reads empty queues.
-        # Started unconditionally: the loop idles at overload_period_s <= 0,
-        # and the knob is hot-reloadable.
+        # Overload brownout ladder: one evaluation loop for the shared
+        # monitor. Not leadership-gated — a standby's ladder just reads
+        # empty queues. Started unconditionally: the loop idles at
+        # overload_period_s <= 0, and the knob is hot-reloadable.
         extra_threads.append(
             threading.Thread(
                 target=stack.metrics.overload.run_forever,
@@ -387,16 +519,33 @@ def _run_scheduler(args, stop: threading.Event) -> int:
             )
         )
         # Config hot-reload: SIGHUP + ConfigMap-watch. Live (RELOADABLE)
-        # knobs apply atomically via apply_reloadable; requires-drain and
+        # knobs apply atomically via apply_reloadable; shard_count goes
+        # through ShardSet.resize (sharded mode); requires-drain and
         # immutable changes are reported and kept.
         from yoda_tpu_torch.overload import ConfigReloader, LiveConfig
 
         reload_event = threading.Event()
         _install_reload_handler(reload_event)
+
+        def _start_resized_shard(st) -> None:
+            t = threading.Thread(
+                target=st.scheduler.serve_forever,
+                args=(stop,),
+                name=f"scheduler-{st.scheduler.shard}",
+                daemon=True,
+            )
+            t.start()
+            extra_threads.append(t)
+
         reloader = ConfigReloader(
             lambda: _load_config(args.config),
             LiveConfig(config),
-            lambda cfg: standalone.apply_reloadable([stack], cfg),
+            lambda cfg: standalone.apply_reloadable(stacks, cfg),
+            resize_fn=(
+                (lambda n: shard_set.resize(n, start_fn=_start_resized_shard))
+                if shard_set is not None
+                else None
+            ),
         )
         extra_threads.append(
             threading.Thread(
@@ -412,16 +561,25 @@ def _run_scheduler(args, stop: threading.Event) -> int:
         for t in extra_threads:
             t.join(timeout=10)
     finally:
-        # Release the bind-pipeline executor without waiting on a possibly
-        # stalled bind round trip (GangPlugin.close sets the shared stop
-        # event, aborting pending retry sleeps too), stop the ingest drain
-        # thread (its buffered residue applied) and drain pending Events so
-        # a SIGTERM right after a decision does not lose its trail.
-        stack.gang.close()
-        if stack.ingestor is not None:
-            stack.ingestor.stop()
-        if stack.events is not None:
-            stack.events.close(timeout_s=5.0)
+        for st in stacks:
+            # Release the bind-pipeline executor without waiting on a
+            # possibly stalled bind round trip (GangPlugin.close sets the
+            # shared stop event, aborting pending retry sleeps too), and
+            # stop the ingest drain thread (its buffered residue applied).
+            st.gang.close()
+            if st.ingestor is not None:
+                st.ingestor.stop()
+        for st in stacks:
+            if st.events is not None:
+                # Drain pending Events so a SIGTERM right after a decision
+                # does not lose its trail.
+                st.events.close(timeout_s=5.0)
+        # Graceful journal close AFTER every bind pipeline stopped: under
+        # journal_sync=batch this flushes + fsyncs the pending tail
+        # frames, so a clean shutdown never drops staged/commit records a
+        # crash would have recovered from the previous fsync.
+        if stack.accountant.journal is not None:
+            stack.accountant.journal.close()
         if metrics_srv is not None:
             metrics_srv.stop()
         if elector_thread is not None:

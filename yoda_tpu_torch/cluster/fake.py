@@ -100,6 +100,16 @@ class FakeCluster:
                     for event in events:
                         fn(event)
 
+    def remove_watcher(self, fn: Callable[[Event], None]) -> None:
+        """Unregister a watcher (live shard resize retiring a dissolved
+        lane's informer chain). Unknown fns are ignored — removal must
+        be idempotent across partially-wired stacks."""
+        with self._lock:
+            try:
+                self._watchers.remove(fn)
+            except ValueError:
+                pass
+
     def _replay_events(self) -> "list[Event]":
         return (
             [Event("added", "Namespace", ns) for ns in self._namespaces.values()]

@@ -26,8 +26,12 @@ fence hook (``fence_fn``, stamped on every snapshot as ``Snapshot.fenced``,
 and :meth:`InformerCache.invalidate_snapshot`) and the "synced" liveness
 sentinels ``KubeCluster`` emits once a PersistentVolumeClaim,
 PersistentVolume or PodDisruptionBudget LIST succeeded (each turns its
-``watches_*`` flag on). Left out until a later slice: shard partitioning
-and the watch-staleness clock, which the federation health monitor reads.
+``watches_*`` flag on), and the scheduler lanes' hooks: ``node_filter_fn``
+restricts a lane's snapshots (and so its resident arrays) to its
+partition, and a change to another lane's node does not re-stack it;
+``pod_route_fn`` queues only the lane's routed pods, failing closed when
+the hook raises. Left out until a later slice: the watch-staleness clock,
+which the federation health monitor reads (ROADMAP item 9c).
 """
 
 from __future__ import annotations
@@ -80,6 +84,8 @@ class InformerCache:
         watches_pdbs: bool = False,
         staleness_s: float = 0.0,
         now_fn: Callable[[], float] = time.time,
+        node_filter_fn: "Callable[[str, TpuNodeMetrics], bool] | None" = None,
+        pod_route_fn: "Callable[[PodSpec], bool] | None" = None,
     ) -> None:
         self.scheduler_name = scheduler_name
         self.on_pod_pending = on_pod_pending
@@ -106,6 +112,15 @@ class InformerCache:
         # this had gone stale, so its refresh must reactivate parked pods.
         self.staleness_s = staleness_s
         self.now_fn = now_fn
+        # Scheduler shard-out (framework/shards.py): a sharded stack's
+        # informer restricts its SNAPSHOT (and therefore its resident
+        # fleet arrays) to the shard's node partition, and routes only
+        # this shard's pods into the scheduling queue. Both hooks must be
+        # PURE functions of (name, CR) / pod labels — they run under the
+        # informer lock per snapshot build / delta read. None (default) =
+        # full fleet, every matching pod (the unsharded behavior).
+        self.node_filter_fn = node_filter_fn
+        self.pod_route_fn = pod_route_fn
         # Node-health fence hook (yoda_tpu_torch/nodehealth): returns the
         # node names currently fenced from NEW placements; stamped onto
         # every snapshot (Snapshot.fenced) so the admission call sites veto
@@ -336,7 +351,8 @@ class InformerCache:
         elif ours_unbound and pod.scheduling_gates:
             self._gated_uids.add(pod.uid)  # held, not schedulable
         elif event.type == "added" and ours_unbound:
-            self._batch_pending.append(pod)
+            if self._routes_here(pod):
+                self._batch_pending.append(pod)
         elif (
             event.type == "modified"
             and ours_unbound
@@ -344,8 +360,23 @@ class InformerCache:
         ):
             # Gates cleared: NOW the pod becomes schedulable.
             self._gated_uids.discard(pod.uid)
-            self._batch_pending.append(pod)
+            if self._routes_here(pod):
+                self._batch_pending.append(pod)
         self._batch_dirty = True
+
+    def _routes_here(self, pod: PodSpec) -> bool:
+        """Does this pending pod belong to THIS informer's scheduling
+        queue? True without a route hook (unsharded). Fail closed on a
+        raising hook — two shards queueing one pod is the double-bind the
+        router exists to prevent; the router's own fallback (global lane)
+        catches unroutable pods before this can drop them."""
+        fn = self.pod_route_fn
+        if fn is None:
+            return True
+        try:
+            return bool(fn(pod))
+        except Exception:  # noqa: BLE001 — fail closed (see docstring)
+            return False
 
     def _count_pod(self, pod: PodSpec, node: str) -> None:
         claim = _pod_claim_mib(pod)
@@ -403,9 +434,20 @@ class InformerCache:
                 return None  # ring evicted past the consumer's epoch
             changed: set[str] = set()
             structural = False
+            node_filter = self.node_filter_fn
             for e, kind, name in reversed(self._delta_ring):
                 if e <= epoch:
                     break
+                if node_filter is not None:
+                    # Shard partition: another shard's node changing must
+                    # not force THIS shard's resident arrays to re-stack
+                    # (a foreign name is absent from this snapshot, which
+                    # the consumer treats as epoch skew). A node the
+                    # filter cannot resolve anymore (CR deleted) stays
+                    # relevant — the restack it forces is the safe path.
+                    tpu = self._tpus.get(name)
+                    if tpu is not None and not node_filter(name, tpu):
+                        continue
                 if kind == "structural":
                     structural = True
                 else:
@@ -518,11 +560,18 @@ class InformerCache:
             cache = self._ni_cache
             nodes = {}
             order: list[str] = []
+            node_filter = self.node_filter_fn
             for name in self._tpu_order:
                 tpu = self._tpus[name]
                 # Once Node-informed, a CR whose Node is gone is a deleted
                 # node: never a candidate.
                 if self._node_informed and name not in self._nodes:
+                    continue
+                # Shard partition: a sharded stack's snapshot carries only
+                # its own nodes (the filter is a pure function of the
+                # slice/pool assignment, so the partition is identical
+                # across rebuilds until shard_count itself changes).
+                if node_filter is not None and not node_filter(name, tpu):
                     continue
                 ni = cache.get(name)
                 if ni is None or ni.tpu is not tpu:

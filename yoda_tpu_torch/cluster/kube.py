@@ -29,10 +29,11 @@ Pods, TpuNodeMetrics CRs, Nodes, Namespaces, PersistentVolumeClaims,
 PersistentVolumes and PodDisruptionBudgets with resourceVersion resume,
 410 relists and "synced" sentinels; the pods/binding subresource,
 evictions, nomination patches, Events; ``remote_binds = True``, which
-turns the bind pipeline on under ``bind_pipeline: auto``). Left out until
-a later slice, with the federation health monitor and live shard resize
-that read them (item 9): ``last_event_age_s``, ``probe``,
-``remove_watcher`` and the watch-failure count.
+turns the bind pipeline on under ``bind_pipeline: auto``), and
+``remove_watcher`` (a live shard resize retiring a lane). Left out until
+a later slice, with the federation health monitor that reads them
+(ROADMAP item 9c): ``last_event_age_s``, ``probe`` and the watch-failure
+count.
 """
 
 from __future__ import annotations
@@ -703,6 +704,14 @@ class KubeCluster:
         batched-ingest pipeline's list plumbing. Live watch events still
         deliver per-event via ``fn``."""
         self._do_add_watcher(fn, replay=replay, batch_fn=batch_fn)
+
+    def remove_watcher(self, fn) -> None:
+        """Unregister a watcher by its per-event fn (live shard resize
+        retiring a dissolved lane); unknown fns are ignored."""
+        with self._lock:
+            self._watchers = [
+                (f, b) for f, b in self._watchers if f is not fn
+            ]
 
     def _do_add_watcher(self, fn, *, replay: bool = True, batch_fn=None) -> None:
         with self._lock:

@@ -6,19 +6,36 @@ max-collection data into under key ``"Max"`` with explicit Lock/Unlock
 implement ``Clone`` (collection.go:23-28). Same contract here; the lock is a
 real RLock because binding and Permit approval run off the cycle thread.
 
-Counterpart of ``yoda_tpu/framework/cyclestate.py``; the shard tag waits
-for the port of scheduler shard-out.
+Counterpart of ``yoda_tpu/framework/cyclestate.py``, whole (with the
+scheduler lanes' shard tag).
 """
 
 from __future__ import annotations
 
 import threading
+from dataclasses import dataclass
 from typing import Protocol, runtime_checkable
 
 
 @runtime_checkable
 class StateData(Protocol):
     def clone(self) -> "StateData": ...
+
+
+# Scheduler shard-out (framework/shards.py): the cycle's owning shard,
+# written by a sharded Scheduler at cycle start and read by the shared
+# ChipAccountant's Reserve hook — a claim made under a shard tag is
+# STAGED (pending the optimistic commit validation) instead of final.
+# Absent on unsharded stacks, so shard_count=1 never stages anything.
+SHARD_STATE_KEY = "yoda-shard/id"
+
+
+@dataclass(frozen=True)
+class ShardTag:
+    shard: str
+
+    def clone(self) -> "ShardTag":
+        return self
 
 
 class CycleState:

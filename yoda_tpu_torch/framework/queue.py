@@ -27,8 +27,9 @@ rebalancer's transactional move), ``find`` (the drift reconciler), the
 activity signal the scheduler's drain waits on, and the hooks the overload
 ladder and the SLO engine read: ``shed_fn`` / ``on_shed``, ``quota_fn`` /
 ``on_quota_park``, ``overload_depth``, ``tenant_wait_stats`` and the
-``shed_parks`` / ``quota_parks`` counters. Left out until a later slice:
-``all_entries`` (shard reroute) and ``close`` (the process's shutdown).
+``shed_parks`` / ``quota_parks`` counters, and ``all_entries`` (the walk
+the scheduler lanes' reroute and rescue passes take). Left out until a
+later slice: ``close`` (a shard worker process's shutdown, ROADMAP item 9b).
 """
 
 from __future__ import annotations
@@ -475,6 +476,23 @@ class SchedulingQueue:
                 if gang:
                     n, a = out.get(gang, (0, 1 << 30))
                     out[gang] = (n + 1, min(a, qpi.attempts))
+            return out
+
+    def all_entries(self) -> "list[tuple[PodSpec, int]]":
+        """Every queued (pod, attempts) across the three pools (one
+        locked sweep) — the shard-set's reroute pass walks this to find
+        entries whose owning lane changed with the fleet, and its rescue
+        pass to find work a shard has repeatedly failed to place (hand
+        it to the global lane, which sees the whole fleet)."""
+        with self._lock:
+            out: "list[tuple[PodSpec, int]]" = [
+                (qpi.pod, qpi.attempts) for qpi in self._active_entries()
+            ]
+            out.extend((qpi.pod, qpi.attempts) for _, _, qpi in self._backoff)
+            out.extend(
+                (qpi.pod, qpi.attempts)
+                for qpi in self._unschedulable.values()
+            )
             return out
 
     def find(self, uid: str) -> "PodSpec | None":

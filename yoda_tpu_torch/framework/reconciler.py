@@ -31,13 +31,14 @@ every "gone" verdict is double-checked against ``cluster.get_pod`` before
 acting, so a pod created or deleted between the LIST and the check is
 never misclassified.
 
-Counterpart of ``yoda_tpu/framework/reconciler.py``: both passes and
-``run_forever``. The port's backend (``FakeCluster``) is its own truth, so
-the API re-LIST the reference asks a watch-caching backend for is not
-there (``relist`` is accepted and changes nothing). Left out: the journal
-warm start (the reference's divergence check against a replayed claim
-journal, and its staged-claim resume) and the shard-commit residue repair,
-since the journal and shards are not ported. With ``metrics`` wired
+Counterpart of ``yoda_tpu/framework/reconciler.py``, whole: both passes,
+``run_forever``, the API re-LIST a watch-caching backend
+(``KubeCluster.resync_pods``) is asked for, the journal warm start (when
+the accountant was restored from a journal replay, the resync skips the
+re-LIST and collapses to a divergence check against its claims, and a
+gang whose unbound members still hold STAGED claims resumes from them)
+and the shard-commit residue repair (a staged claim whose pod truth shows
+bound is committed). With ``metrics`` wired
 (``build_stack`` does) both passes feed the reference's counters —
 ``yoda_resync_*`` and ``yoda_reconciler_*`` — and land their spans on the
 ``reconciler`` track.
@@ -67,8 +68,8 @@ class ResyncReport:
     rebuilt_reservations: int = 0
     released_reservations: int = 0
     duration_ms: float = 0.0
-    # True when the pass ran as the reference's divergence check against a
-    # replayed claim journal; the port has no journal, so always False.
+    # True when the pass ran as the divergence check against a replayed
+    # claim journal (the accountant was restored from one).
     warm: bool = False
 
 
@@ -132,6 +133,24 @@ class Reconciler:
         self._adopt_deadlines: dict[str, float] = {}
 
     # --- shared plumbing ---
+
+    def _list_truth(self, *, relist: bool = False) -> list[PodSpec]:
+        """Cluster truth for pods. ``relist`` asks backends that cache a
+        watch stream (KubeCluster) to re-LIST from the API first — the
+        diff replays as corrective events through every registered
+        watcher, which is what repairs drops between the API server and
+        the local store. In-process backends' stores ARE the truth."""
+        if relist:
+            resync = getattr(self.cluster, "resync_pods", None)
+            if resync is not None:
+                try:
+                    resync()
+                except Exception:  # noqa: BLE001 — degraded, not fatal
+                    log.exception(
+                        "pod re-LIST failed; reconciling against the "
+                        "watch cache instead"
+                    )
+        return self.cluster.list_pods()
 
     def _repair_event(self, etype: str, pod: PodSpec) -> None:
         """Inject a corrective event through the same handlers the watch
@@ -211,39 +230,86 @@ class Reconciler:
         caches tracked the whole time resyncs to a no-op."""
         t0 = self.clock()
         report = ResyncReport()
-        pods = self.cluster.list_pods()
+        # Warm start (durable claim journal): when the accountant was
+        # seeded from a journal replay, the full-LIST from-scratch rebuild
+        # collapses to a DIVERGENCE CHECK — one bulk claims snapshot
+        # diffed against the watch cache's truth, repair events only for
+        # the (rare) divergent pods, and no API re-LIST blackout (the
+        # journal is the durable record; the periodic drift pass still
+        # re-LISTs as backstop).
+        warm = bool(getattr(self.accountant, "replayed", False))
+        report.warm = warm
+        pods = self._list_truth(relist=not warm)
         live = {p.uid for p in pods}
 
         # 1. Reservations: every bound pod must be charged. The watch
         # replay normally did this at stack build; this covers binds the
         # dead leader landed that the stream has not delivered yet.
-        for p in pods:
-            if not p.node_name:
-                continue
-            missing = not self.accountant.has_claim(p.uid)
-            if missing or not self.informer.counts_bound(p.uid):
-                self._repair_event("modified", p)
-            if missing and self.accountant.has_claim(p.uid):
-                report.rebuilt_reservations += 1
+        if warm:
+            claims = self.accountant.claims_snapshot()
+            for p in pods:
+                if not p.node_name:
+                    continue
+                c = claims.get(p.uid)
+                if c is None or c[0] != p.node_name:
+                    self._repair_event("modified", p)
+                    if c is None and self.accountant.has_claim(p.uid):
+                        report.rebuilt_reservations += 1
+        else:
+            for p in pods:
+                if not p.node_name:
+                    continue
+                missing = not self.accountant.has_claim(p.uid)
+                if missing or not self.informer.counts_bound(p.uid):
+                    self._repair_event("modified", p)
+                if missing and self.accountant.has_claim(p.uid):
+                    report.rebuilt_reservations += 1
 
         # 2. Claims with no live pod behind them (the dead leader reserved
         # and the pod is gone, or a drop): release.
         for uid in self.accountant.claimed_uids() - live:
             self.accountant.release(uid)
             report.released_reservations += 1
+        if warm:
+            # The dead leader's reserve that never reached a bind: a
+            # restored COMMITTED claim whose pod is live but UNBOUND.
+            # No bind event will ever finalize it, and no reserve is in
+            # flight this early (resync precedes the first queue pop),
+            # so it would sit as phantom usage forever — release; the
+            # promoted scheduler re-reserves when it pops the pod.
+            # STAGED claims stay: they are the mid-gang resume cohort
+            # that step 3 below adopts or rolls back whole.
+            bound_uids = {p.uid for p in pods if p.node_name}
+            staged_uids = set(self.accountant.staged_uids())
+            for uid in (
+                self.accountant.claimed_uids() - bound_uids - staged_uids
+            ):
+                self.accountant.release(uid)
+                report.released_reservations += 1
 
-        # 3. Partially-bound gangs: adopt or roll back whole.
+        # 3. Partially-bound gangs: adopt or roll back whole. With a
+        # journal replay, a gang whose unbound members still hold STAGED
+        # claims resumes from them — the mid-gang crash continues in
+        # place instead of rolling the whole gang back.
+        replayed_gangs = (
+            getattr(self.accountant, "replayed_gangs", {}) if warm else {}
+        )
         now = self.clock()
         hosts = {t.name for t in self.cluster.list_tpu_metrics()}
         for name, (size, bound, _unbound) in self._gang_truth(pods).items():
             if not bound or len(bound) >= size:
                 continue  # nothing placed yet, or already complete
             hosts_alive = all(p.node_name in hosts for p in bound)
-            if self.adopt_window_s > 0 and hosts_alive:
+            if (self.adopt_window_s > 0 or name in replayed_gangs) and hosts_alive:
+                window = (
+                    self.adopt_window_s
+                    if self.adopt_window_s > 0
+                    # Adoption disabled but the journal holds the gang's
+                    # staged claims: resume mid-gang anyway, bounded.
+                    else 60.0
+                )
                 with self._lock:
-                    self._adopt_deadlines.setdefault(
-                        name, now + self.adopt_window_s
-                    )
+                    self._adopt_deadlines.setdefault(name, now + window)
                 report.adopted_gangs.append(name)
                 log.info(
                     "failover: adopted partial gang %s (%d/%d bound; "
@@ -303,11 +369,9 @@ class Reconciler:
     def reconcile(self, *, relist: bool = True) -> DriftReport:
         """One drift-repair round. Safe against live scheduling: every
         repair is either an idempotent re-count or goes through the
-        standard rejection/rollback paths. ``relist`` is the reference's
-        re-LIST of a watch-caching backend; the port's backend store is its
-        own truth, so it changes nothing here."""
+        standard rejection/rollback paths."""
         report = DriftReport()
-        pods = self.cluster.list_pods()
+        pods = self._list_truth(relist=relist)
         truth_uids = {p.uid for p in pods}
 
         # Ghost bindings: cluster truth says bound, the cache does not —
@@ -351,6 +415,20 @@ class Reconciler:
                 continue  # the informer will release it through its path
             self.accountant.release(uid)
             report.leaked_reservations += 1
+
+        # Shard-commit residue (scheduler shard-out): a claim still
+        # STAGED whose pod cluster truth shows BOUND means the staging
+        # shard died between the bind landing and its commit — truth
+        # outranks the optimistic protocol, so finalize it (a staged
+        # claim for a pod that is gone releases through the leaked-claim
+        # path above; one that is merely unbound keeps its in-flight
+        # staging — its own commit or rollback is still coming).
+        staged = getattr(self.accountant, "staged_uids", None)
+        if staged:
+            bound_uids = {p.uid for p in pods if p.node_name}
+            for uid in staged():
+                if uid in bound_uids:
+                    self.accountant.commit_residue(uid)
 
         # Adopted gangs past their window and still partial: roll back.
         now = self.clock()

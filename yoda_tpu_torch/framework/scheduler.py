@@ -47,9 +47,13 @@ leadership and before the first pop. Loop mode is here as well: without a
 batch plugin a cycle runs the per-node filter chain
 (``Framework.run_filters``) over a search window that
 ``percentage_nodes_to_score`` caps, from a rotating origin, then PreScore
-and the per-node Score plugins. Left out until a later slice: shard
-staging and commits (``yoda_shard_commit_rollbacks_total`` stays at 0) and
-retiring a shard's loop.
+and the per-node Score plugins. A scheduler lane (``shard`` set by the
+sharded assembly) tags its cycles so the shared accountant STAGES their
+claims, validates a singleton's claim at ``commit_fn`` before its bind
+write and a gang's landed cohort after its last bind
+(``_flush_shard_commits``, rolling the gang back whole on a conflict and
+counting ``yoda_shard_commit_rollbacks_total``); ``retire`` fences a lane
+a live resize dissolved for good and ends its serve loop.
 """
 
 from __future__ import annotations
@@ -64,7 +68,11 @@ log = logging.getLogger("yoda_tpu_torch.scheduler")
 
 from yoda_tpu_torch.api.requests import gang_name_of
 from yoda_tpu_torch.api.types import PodSpec
-from yoda_tpu_torch.framework.cyclestate import CycleState
+from yoda_tpu_torch.framework.cyclestate import (
+    SHARD_STATE_KEY,
+    CycleState,
+    ShardTag,
+)
 from yoda_tpu_torch.framework.interfaces import (
     Code,
     MAX_NODE_SCORE,
@@ -182,6 +190,24 @@ class Scheduler:
         # serving on un-resynced state risks double-placement, so the
         # process fails closed and restarts into standby.
         self.on_serve_start: "Callable[[], None] | None" = None
+        # Scheduler shard-out (framework/shards.py): when this loop is one
+        # of N parallel shards, `shard` names it (cycles are tagged so the
+        # shared accountant STAGES their claims) and `commit_fn`
+        # (ChipAccountant.commit_staged) is the optimistic
+        # claim->validate->commit point — singletons validate immediately
+        # before their bind write; a gang's cohort validates once every
+        # member's bind has landed (_flush_shard_commits), rolling the
+        # gang back whole through the transactional unbind path on a
+        # conflict. Both None (the default) = the unsharded path,
+        # nothing staged, nothing committed.
+        self.shard: "str | None" = None
+        self.commit_fn: "Callable[[list], tuple[bool, str]] | None" = None
+        # Live shard resize (ShardSet.resize): a dissolved shard's loop
+        # is RETIRED — permanently fenced (no bind can start) and its
+        # serve_forever thread exits at the next turn. Queued work was
+        # already rerouted by the resizer; anything that straggles in
+        # parks fenced until the final reroute sweep moves it.
+        self.retired = threading.Event()
         # pod uid -> node nominated by preemption: a pod that binds to a
         # DIFFERENT node gets its stale status.nominatedNodeName cleared.
         # Entries drop on bind or deletion.
@@ -198,7 +224,10 @@ class Scheduler:
     def _fenced(self) -> bool:
         """True when a leader gate is wired and this process does NOT hold
         leadership right now: no bind may hit the API. A raising fence
-        check counts as fenced — fail closed."""
+        check counts as fenced — fail closed. A RETIRED loop (its shard
+        dissolved by a live resize) is fenced forever."""
+        if self.retired.is_set():
+            return True
         fn = self.fence_fn
         if fn is None:
             return False
@@ -278,6 +307,11 @@ class Scheduler:
                 self.metrics.attempts.inc(result="gone")
             return r
         state = CycleState()
+        if self.shard is not None:
+            # Tag the cycle so the shared accountant stages (rather than
+            # finalizes) this cycle's Reserve claims for the optimistic
+            # commit validation.
+            state.write(SHARD_STATE_KEY, ShardTag(self.shard))
         snapshot = self.snapshot_fn()
         timer = PhaseTimer(self.clock)
         feasible_count = 0
@@ -342,15 +376,19 @@ class Scheduler:
             if tracer is not None:
                 # timer.phases_ms is handed over as-is (the timer dies
                 # with this cycle).
+                cycle_attrs = {
+                    "pod": pod.key,
+                    "outcome": outcome,
+                    "node": node or "",
+                    "message": message[:200],
+                    "phases_ms": timer.phases_ms,
+                }
+                if self.shard is not None:
+                    # Lane spans: which serve loop ran this cycle — the
+                    # trace-side half of explain's shard tag.
+                    cycle_attrs["shard"] = self.shard
                 cycle_id = tracer.add(
-                    subject, "cycle", t0=t0, t1=now,
-                    attrs={
-                        "pod": pod.key,
-                        "outcome": outcome,
-                        "node": node or "",
-                        "message": message[:200],
-                        "phases_ms": timer.phases_ms,
-                    },
+                    subject, "cycle", t0=t0, t1=now, attrs=cycle_attrs,
                 )
                 if outcome == "waiting":
                     tracer.add(
@@ -381,6 +419,7 @@ class Scheduler:
                             if not s.success
                         }
                         or None,
+                        shard=self.shard,
                     )
                 elif outcome == "bound":
                     self.metrics.pending.resolve(pod.key, gang=gang)
@@ -602,6 +641,21 @@ class Scheduler:
                 message="scheduler fenced (not leader); bind aborted before "
                 "the API write",
             )
+        if self.commit_fn is not None:
+            # Optimistic shard commit, singleton form: validate this
+            # cycle's staged claim at the shared accountant BEFORE the
+            # bind write — a conflict (another shard's earlier-staged
+            # claim owns the chips) costs one unreserve + requeue, never
+            # an API write to roll back. The fence check above dominates
+            # this commit (yodalint fence-before-write).
+            ok, why = self.commit_fn([pod.uid])
+            if not ok:
+                self.framework.run_unreserve(state, pod, best)
+                return done(
+                    "unschedulable",
+                    node=best,
+                    message=f"shard commit conflict: {why}",
+                )
         st = self.framework.run_bind(state, pod, best)
         if not st.success:
             self.framework.run_unreserve(state, pod, best)
@@ -632,6 +686,12 @@ class Scheduler:
         ):
             self.on_nominated(pod, None)
 
+    def retire(self) -> None:
+        """Permanently fence this loop and make its serve thread exit
+        (a live shard resize dissolved its lane). Idempotent."""
+        self.retired.set()
+        self._signal_activity()
+
     # --- permit resolution and the transactional gang rollback ---
 
     def _signal_activity(self) -> None:
@@ -651,6 +711,7 @@ class Scheduler:
         finally:
             try:
                 self._flush_deferred_rollbacks()
+                self._flush_shard_commits()
             finally:
                 self._signal_activity()
 
@@ -666,6 +727,69 @@ class Scheduler:
                 continue
             for spec, node, why in hook(self.framework):
                 self._rollback_bound(spec, node, None, why)
+
+    def _flush_shard_commits(self) -> None:
+        """Optimistic shard commit, gang form: validate the staged claims
+        of every release cohort whose binds have FULLY landed (the gang
+        plugin arms ``collect_commits`` on the last settle). Runs on
+        whichever thread settled last — exactly the deferred-rollback
+        discipline. A validation conflict (or a fence flip: a new leader
+        owns the truth now) makes the shard the LOSER: every landed
+        member's bind rolls back through the transactional unbind path
+        and the gang requeues whole, counted in
+        ``yoda_shard_commit_rollbacks_total``."""
+        if self.commit_fn is None:
+            return
+        for p in self.framework.permit_plugins:
+            hook = getattr(p, "collect_commits", None)
+            if hook is None:
+                continue
+            for gang_name, cohort in hook(self.framework):
+                fenced = self._fenced()
+                if fenced:
+                    ok, why = False, (
+                        "scheduler fenced (lost leadership) before the "
+                        "shard commit; rolling the gang back"
+                    )
+                else:
+                    ok, why = self.commit_fn(
+                        [spec.uid for spec, _host in cohort]
+                    )
+                if ok:
+                    continue
+                why = f"gang {gang_name}: shard commit conflict: {why}"
+                log.warning(
+                    "%s — rolling back %d landed member(s)",
+                    why, len(cohort),
+                )
+                if self.metrics is not None:
+                    self.metrics.shard_rollbacks.inc(len(cohort))
+                    if self.metrics.tracer.enabled:
+                        self.metrics.tracer.add(
+                            f"gang:{gang_name}", "shard-commit-conflict",
+                            attrs={
+                                "members": len(cohort),
+                                "shard": self.shard or "",
+                                "message": why[:200],
+                            },
+                        )
+                    self.metrics.pending.record(
+                        gang_name,
+                        kind="unschedulable",
+                        message=why,
+                        shard=self.shard,
+                    )
+                # EVERY membership drops BEFORE any member requeues: a
+                # rolled-back member re-admitted while siblings still
+                # read as bound would find a satisfied-looking barrier
+                # and release alone — the split gang this path must
+                # never produce.
+                drop = getattr(p, "drop_membership", None)
+                if drop is not None:
+                    for spec, _host in cohort:
+                        drop(spec)
+                for spec, host in cohort:
+                    self._rollback_bound(spec, host, None, why)
 
     def _do_permit_resolved(self, wp: WaitingPod, status: Status) -> None:
         pod = wp.pod
@@ -731,6 +855,7 @@ class Scheduler:
                 kind="permit-rejected",
                 message=status.message,
                 gang=gang_name_of(pod.labels),
+                shard=self.shard,
             )
             if self.metrics.tracer.enabled:
                 self.metrics.tracer.add(
@@ -1048,6 +1173,10 @@ class Scheduler:
         in-flight members' reservations stay charged to the accountant, so
         the overlapped evaluation already sees their capacity as consumed."""
         while not stop.is_set():
+            if self.retired.is_set():
+                # Dissolved by a live shard resize: the thread exits; the
+                # resizer already rerouted this lane's queue.
+                return
             if self._fenced():
                 # Leader fencing: park the queue until leadership returns.
                 # Permit expirations still sweep so parked gangs cannot

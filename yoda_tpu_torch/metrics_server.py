@@ -57,11 +57,10 @@ endpoint is first-party and dependency-free (stdlib http.server):
                      shared pid. Covered in the "Multi-process shard
                      serve" runbook (docs/OPERATIONS.md).
 
-Counterpart of ``yoda_tpu/metrics_server.py``, whole. The port has no
-durable journal and no shard lanes yet, so ``/debug/journal`` and
-``/debug/shards`` answer ``{"enabled": false}`` (no ``journal_fn`` /
-``shards_fn`` is wired); the ``yoda-tpu-scheduler`` CLI commands named
-above wait for the CLI.
+Counterpart of ``yoda_tpu/metrics_server.py``, whole. The CLI wires
+``journal_fn`` (the accountant's journal) and, with thread lanes,
+``shards_fn`` (the lanes under this pid); the worker rows of process
+lanes wait for them (ROADMAP item 9b).
 """
 
 from __future__ import annotations

@@ -33,12 +33,17 @@ and type, so one scrape schema holds across both packages.
 ``yoda_events_dropped_total`` from the ``EventRecorder``'s backlog sheds,
 and ``yoda_tenant_quota_parks_total`` from the overload ladder's BROWNOUT
 parks and the per-tenant quotas alike. Families whose source the port
-does not have yet register all the same and read 0:
-``yoda_shard_commit_rollbacks_total``, the ``yoda_commit_rpc_*``
-families, ``yoda_commit_term`` and ``yoda_standby_lag_frames`` (shards,
-the commit RPC, standby failover), ``yoda_cluster_state``,
+does not have yet register all the same and read 0: the
+``yoda_commit_rpc_*`` families and ``yoda_standby_lag_frames`` (the
+commit RPC of process-mode lanes and the tailing standby, ROADMAP item
+9b), ``yoda_cluster_state``,
 ``yoda_cluster_transitions_total`` and ``yoda_spillover_gangs_total``
-(federation). ``yoda_overlap_cycles_total`` is fed by the scheduler's
+(federation, item 9c). ``yoda_shard_commit_rollbacks_total`` is fed by a
+scheduler lane's lost gang commits and ``yoda_commit_term`` by a replayed
+journal's term (``standalone.build_stack``); the per-lane gauges and the
+``yoda_shard_commit_*`` and ``yoda_journal_*`` counters are registered
+by ``standalone.build_stack`` over the live lanes and journals.
+``yoda_overlap_cycles_total`` is fed by the scheduler's
 serve and drain loops (a turn popped while pipelined binds are in flight).
 """
 

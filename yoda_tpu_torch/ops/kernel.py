@@ -44,6 +44,7 @@ the scan is not carried either).
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from dataclasses import dataclass
 
@@ -897,19 +898,26 @@ class TorchFleetKernel:
     evaluation's rows where they lie, and its picks, verdicts and ledger
     come back in the same download.
 
-    Every call runs on the calling thread's current stream: a caller that
-    owns a stream (the speculative placement cache) wraps its calls in
-    ``torch.cuda.stream``, and the result fetch synchronizes that stream
-    only. Per instance, ``launches``, ``joint_fit_launches`` and
+    Every call runs on the calling thread's current stream, or on
+    ``stream`` when one is given (a scheduler lane's kernel owns one, so
+    lanes on their own threads launch and fetch without waiting on each
+    other's work): a caller that owns a stream (the speculative placement
+    cache) may also wrap its calls in ``torch.cuda.stream``. The result
+    fetch synchronizes that stream only. Per instance, ``launches``, ``joint_fit_launches`` and
     ``row_updates`` count the CUDA work this kernel object issued, each
     bumped where that work is launched (the wrappers take this object as
     their ``counter``; their module-wide counts cover every instance), so a
     run can tell the serve path's launches from another owner's.
     """
 
-    def __init__(self, weights: Weights, device: torch.device) -> None:
+    def __init__(
+        self, weights: Weights, device: torch.device, stream=None
+    ) -> None:
         self.weights = weights
         self.device = torch.device(device)
+        # A torch.cuda.Stream every call of this kernel runs on; None =
+        # the calling thread's current stream.
+        self.stream = stream
         self._chips: torch.Tensor | None = None
         self._nodes: torch.Tensor | None = None
         self._names: list[str] = []
@@ -921,12 +929,19 @@ class TorchFleetKernel:
     def names(self) -> list[str]:
         return self._names
 
+    def _on_stream(self):
+        """The context every device call of this kernel runs in."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
     def put_static(self, arrays: FleetArrays) -> None:
         """Upload the metrics-version-static arrays to the device."""
-        chips, nodes = stack_static(arrays)
-        self._chips = torch.from_numpy(chips).to(self.device)
-        self._nodes = torch.from_numpy(nodes).to(self.device)
-        self._names = list(arrays.names)
+        with self._on_stream():
+            chips, nodes = stack_static(arrays)
+            self._chips = torch.from_numpy(chips).to(self.device)
+            self._nodes = torch.from_numpy(nodes).to(self.device)
+            self._names = list(arrays.names)
 
     def update_rows(self, arrays: FleetArrays, rows: "list[int]") -> None:
         """Apply ONLY the given (already refilled, distinct) rows of
@@ -939,22 +954,23 @@ class TorchFleetKernel:
         and buckets are unchanged since the last put_static
         (FleetStateCache re-stacks otherwise)."""
         global row_update_launches
-        if self._chips is None:
-            self.put_static(arrays)
-            return
-        if not rows:
-            return
-        r = len(rows)
-        payload = upload(
-            self.device,
-            row_update_size(r, self._chips.shape[1]),
-            lambda buf: pack_row_update(arrays, rows, out=buf),
-        )
-        apply_row_update(self._chips, self._nodes, payload, r)
-        if self.device.type == "cuda":
-            with _count_lock:
-                row_update_launches += 1
-                self.row_updates += 1
+        with self._on_stream():
+            if self._chips is None:
+                self.put_static(arrays)
+                return
+            if not rows:
+                return
+            r = len(rows)
+            payload = upload(
+                self.device,
+                row_update_size(r, self._chips.shape[1]),
+                lambda buf: pack_row_update(arrays, rows, out=buf),
+            )
+            apply_row_update(self._chips, self._nodes, payload, r)
+            if self.device.type == "cuda":
+                with _count_lock:
+                    row_update_launches += 1
+                    self.row_updates += 1
 
     def evaluate(self, dyn: np.ndarray, request: KernelRequest) -> KernelResult:
         """One request; its admission row is ``dyn[3]`` (K = 1 of the burst)."""
@@ -970,23 +986,24 @@ class TorchFleetKernel:
         """K requests in ONE call. Padding rows (all-False host_ok) are
         infeasible everywhere. Returns one trimmed KernelResult per
         request."""
-        from yoda_tpu_torch.ops.cuda_kernel import fleet_eval
+        with self._on_stream():
+            from yoda_tpu_torch.ops.cuda_kernel import fleet_eval
 
-        if self._chips is None:
-            raise RuntimeError("put_static() must run before evaluate_burst()")
-        reqs = np.stack([pack_request(r) for r in requests])
-        host_ok_k = np.asarray(host_ok_k)
-        n, k = dyn.shape[1], len(requests)
-        inputs = upload(
-            self.device,
-            inputs_size(n, k),
-            lambda buf: pack_inputs(dyn, host_ok_k, reqs, out=buf),
-        )
-        out = fleet_eval(
-            self._chips, self._nodes, *split_inputs(inputs, n, k), self.weights,
-            counter=self,
-        )
-        return results_from_packed(self._names, download(out))
+            if self._chips is None:
+                raise RuntimeError("put_static() must run before evaluate_burst()")
+            reqs = np.stack([pack_request(r) for r in requests])
+            host_ok_k = np.asarray(host_ok_k)
+            n, k = dyn.shape[1], len(requests)
+            inputs = upload(
+                self.device,
+                inputs_size(n, k),
+                lambda buf: pack_inputs(dyn, host_ok_k, reqs, out=buf),
+            )
+            out = fleet_eval(
+                self._chips, self._nodes, *split_inputs(inputs, n, k), self.weights,
+                counter=self,
+            )
+            return results_from_packed(self._names, download(out))
 
     def evaluate_joint(
         self,
@@ -1021,43 +1038,44 @@ class TorchFleetKernel:
         are evaluated: the reference's padding rows are invalid and change
         no pick, verdict or ledger. Returns ``(results_per_gang,
         fit_per_gang, picks_per_gang)``."""
-        from yoda_tpu_torch.ops.cuda_kernel import fleet_eval, joint_fit
+        with self._on_stream():
+            from yoda_tpu_torch.ops.cuda_kernel import fleet_eval, joint_fit
 
-        if self._chips is None:
-            raise RuntimeError(
-                "put_static() must run before evaluate_joint_plan()"
+            if self._chips is None:
+                raise RuntimeError(
+                    "put_static() must run before evaluate_joint_plan()"
+                )
+            host_ok_k, requests, offsets = stack_joint_burst(
+                host_ok_groups, request_groups, minimum
             )
-        host_ok_k, requests, offsets = stack_joint_burst(
-            host_ok_groups, request_groups, minimum
-        )
-        k = offsets[-1]
-        host_ok_k, requests = host_ok_k[:k], requests[:k]
-        side = joint_fit_vectors(requests, offsets)
-        reqs = np.stack([pack_request(r) for r in requests])
-        n = dyn.shape[1]
-        inputs = upload(
-            self.device,
-            inputs_size(n, k, len(side)),
-            lambda buf: pack_inputs(dyn, host_ok_k, reqs, *side, out=buf),
-        )
-        d_dyn, d_ok, d_reqs, *d_side = split_inputs(inputs, n, k, len(side))
-        rows = k * 6 * n
-        res = torch.empty(rows + 2 * k + n, dtype=torch.int32, device=self.device)
-        packed = res[:rows].view(k, 6, n)
-        fleet_eval(
-            self._chips, self._nodes, d_dyn, d_ok, d_reqs, self.weights,
-            out=packed, counter=self,
-        )
-        joint_fit(packed, *d_side, out=res[rows:], counter=self)
-        host = download(res)
-        flat = results_from_packed(self._names, host[:rows].reshape(k, 6, n))
-        picks = host[rows : rows + k]
-        gok = host[rows + k : rows + 2 * k].astype(bool)
-        g_count = len(request_groups)
-        grouped = [flat[offsets[g] : offsets[g + 1]] for g in range(g_count)]
-        fits = [bool(gok[offsets[g + 1] - 1]) for g in range(g_count)]
-        picks_g = [picks[offsets[g] : offsets[g + 1]] for g in range(g_count)]
-        return grouped, fits, picks_g
+            k = offsets[-1]
+            host_ok_k, requests = host_ok_k[:k], requests[:k]
+            side = joint_fit_vectors(requests, offsets)
+            reqs = np.stack([pack_request(r) for r in requests])
+            n = dyn.shape[1]
+            inputs = upload(
+                self.device,
+                inputs_size(n, k, len(side)),
+                lambda buf: pack_inputs(dyn, host_ok_k, reqs, *side, out=buf),
+            )
+            d_dyn, d_ok, d_reqs, *d_side = split_inputs(inputs, n, k, len(side))
+            rows = k * 6 * n
+            res = torch.empty(rows + 2 * k + n, dtype=torch.int32, device=self.device)
+            packed = res[:rows].view(k, 6, n)
+            fleet_eval(
+                self._chips, self._nodes, d_dyn, d_ok, d_reqs, self.weights,
+                out=packed, counter=self,
+            )
+            joint_fit(packed, *d_side, out=res[rows:], counter=self)
+            host = download(res)
+            flat = results_from_packed(self._names, host[:rows].reshape(k, 6, n))
+            picks = host[rows : rows + k]
+            gok = host[rows + k : rows + 2 * k].astype(bool)
+            g_count = len(request_groups)
+            grouped = [flat[offsets[g] : offsets[g + 1]] for g in range(g_count)]
+            fits = [bool(gok[offsets[g + 1] - 1]) for g in range(g_count)]
+            picks_g = [picks[offsets[g] : offsets[g + 1]] for g in range(g_count)]
+            return grouped, fits, picks_g
 
 
 def own_dyn(arrays: FleetArrays) -> np.ndarray:

@@ -30,7 +30,7 @@ under overload, and reconfiguration without a restart:
   tracer and the SLO engine.
 
 - :class:`ConfigReloader` + :class:`LiveConfig` — the hot-reload surface
-  behind SIGHUP and the ConfigMap-watch (the CLI, not ported yet): a candidate config is
+  behind SIGHUP and the ConfigMap-watch (the CLI): a candidate config is
   diffed against the running one (``SchedulerConfig.diff``), each
   changed knob classified reloadable-live / resize / requires-drain /
   immutable; reloadable knobs apply atomically through
@@ -49,11 +49,17 @@ Counterpart of ``yoda_tpu/overload.py``, whole. ``build_stack``
 registers its ``EventBatcher`` (batched ingest on) as an ingestor, so the
 ``ingest`` signal reads the batchers' coalesced ``backlog()`` against
 ``ingest_high``; BROWNOUT's token bucket is per tenant when the queue is
-(``tenant_fairness``), else the one tenant ``""``. What the port lacks
-around it: no shard set, so ``shard_count`` reports as requires-drain (no ``resize_fn``);
-no CLI, so nothing here installs SIGHUP or a ConfigMap watch — a caller
-runs :meth:`ConfigReloader.reload` and starts :meth:`OverloadMonitor.
-run_forever` on a thread of its own.
+(``tenant_fairness``), else the one tenant ``""``. The CLI installs SIGHUP
+and the ConfigMap watch and gives a sharded assembly's reloader
+``ShardSet.resize`` as its ``resize_fn``; without one ``shard_count``
+reports as requires-drain.
+
+Two repairs over the reference, both for a loop left with nothing to
+run (every draw parked, no bind in flight): the cycle signal reads 0
+when no cycle completed since the previous evaluation, so a stale p99
+cannot hold the ladder up; and draws the BROWNOUT cap parked re-enter
+the active queue at each evaluation, as their buckets refill. Without
+them such a queue waited for a cluster event that never came.
 """
 
 from __future__ import annotations
@@ -135,6 +141,11 @@ class OverloadMonitor:
         self._base_sample_rate: float | None = None
         # BROWNOUT token buckets: tenant -> [tokens, last_refill].
         self._buckets: dict[str, list] = {}
+        # A draw capped since the previous evaluation (re-admitted there
+        # to retake the cap), and the cycle count the previous evaluation
+        # saw (the cycle signal reads only newer cycles).
+        self._capped = False
+        self._cycle_mark = 0
 
     # --- wiring -------------------------------------------------------
 
@@ -223,6 +234,7 @@ class OverloadMonitor:
                 b[0] = tokens - 1.0
                 return None
             b[0] = tokens
+            self._capped = True
         return (
             f"overload brownout: tenant {tenant or '(default)'} admission "
             f"capped at {rate:g}/s until pressure subsides"
@@ -248,8 +260,15 @@ class OverloadMonitor:
             backlog = sum(b.backlog() for b in ingestors)
             signals["ingest"] = backlog / self.ingest_high
         if self.cycle_ms_high > 0 and self.latency is not None:
-            p99_ms = self.latency.quantile(0.99, phase="total") * 1e3
-            signals["cycle"] = p99_ms / self.cycle_ms_high
+            # Only a loop that completed a cycle since the previous
+            # evaluation is under cycle pressure: the ring keeps its p99
+            # while nothing runs, and a slow cycle before a parked queue
+            # would otherwise hold the ladder up (and the queue parked)
+            # for good.
+            signals["cycle"] = 0.0
+            if self.latency.count(phase="total") != self._cycle_mark:
+                p99_ms = self.latency.quantile(0.99, phase="total") * 1e3
+                signals["cycle"] = p99_ms / self.cycle_ms_high
         if self.slo is not None and getattr(self.slo, "enabled", False):
             try:
                 fast, slow = self.slo.burn_snapshot()
@@ -272,11 +291,14 @@ class OverloadMonitor:
         (strict order), step down one level only after
         ``step_down_hold_s`` of sustained calm. Returns the level."""
         now = self.clock() if now is None else now
+        mark = self.latency.count(phase="total") if self.latency is not None else 0
         p = self.pressure()["max"]
+        self._cycle_mark = mark
         self.last_pressure = p
         self.evaluations += 1
         step_down_to = None
         with self._lock:
+            capped, self._capped = self._capped, False
             idx = self.level_idx
             target = NOMINAL
             for lvl in (ELEVATED, BROWNOUT, SHED):
@@ -297,10 +319,13 @@ class OverloadMonitor:
             else:
                 self._below_since = None
             queues = list(self._queues)
-        if step_down_to is not None:
+        if step_down_to is not None or (capped and self.level_idx >= BROWNOUT):
             # Shed/brownout-parked entries re-enter the active queue NOW
             # (not at the next cluster event): the ladder stepping down
-            # IS the capacity event they were waiting for.
+            # IS the capacity event they were waiting for. Capped draws
+            # re-enter at every evaluation while the cap holds: their
+            # buckets have refilled since, and when no bind is left in
+            # flight nothing else would wake them.
             for q in queues:
                 try:
                     q.move_all_to_active()

@@ -18,10 +18,17 @@ bind rollback all release through ``unreserve`` (``release``), and an
 unbound pod's watch event leaves the claim for that release to drop, as
 in the reference; the reservation delta feed
 (:meth:`ChipAccountant.reserved_changes_since`) keeps the resident
-dynamics row current in O(changed). Left out until a later slice: the
-durable claim journal, shard staging and the optimistic commit
-(``stage`` / ``commit_staged``), warm-start restore and the worker-side
-``RemoteAccountant``.
+dynamics row current in O(changed). The durable claim journal is here
+(every claim mutation is recorded write-ahead, under the accountant's lock,
+through the attached ``CommitLog``), and so are the scheduler lanes'
+optimistic commit (a lane's Reserve STAGES its claim; ``commit_staged``
+validates first-staged-wins against per-node healthy capacity, which
+``track_capacity`` keeps from the TPU CR stream; ``hold_commits`` /
+``resume_commits`` quiesce it for a live resize; ``commit_residue``
+finalizes a crash's residue) and the warm start (``restore`` from a
+journal replay, ``adopt_warm`` from a tailer's mirror, ``replayed`` /
+``replayed_gangs`` for the reconciler). Left out until a later slice: the
+worker-side ``RemoteAccountant`` of process-mode lanes (ROADMAP item 9b).
 """
 
 from __future__ import annotations
@@ -30,11 +37,11 @@ import threading
 from collections import deque
 from dataclasses import dataclass
 
-from yoda_tpu_torch.api.requests import LabelParseError, pod_request
+from yoda_tpu_torch.api.requests import LabelParseError, gang_name_of, pod_request
 from yoda_tpu_torch.api.types import PodSpec
 from yoda_tpu_torch.cluster.fake import Event
 from yoda_tpu_torch.cluster.informer import ring_since
-from yoda_tpu_torch.framework.cyclestate import CycleState
+from yoda_tpu_torch.framework.cyclestate import SHARD_STATE_KEY, CycleState
 from yoda_tpu_torch.framework.interfaces import ReservePlugin, Status
 from yoda_tpu_torch.plugins.yoda.filter_plugin import get_request
 
@@ -43,6 +50,17 @@ from yoda_tpu_torch.plugins.yoda.filter_plugin import get_request
 class _Claim:
     node: str
     chips: int
+    # Scheduler shard-out (framework/shards.py): a claim made by a shard's
+    # cycle is STAGED — charged into _in_use immediately (its own shard's
+    # later cycles must see it) but pending the optimistic commit
+    # validation. ``shard`` is None for committed/legacy claims; ``seq``
+    # is the global stage order (first-staged wins at validation).
+    shard: "str | None" = None
+    seq: int = 0
+    # Gang name for staged claims (durable-journal records carry it so a
+    # promoted standby can resume a mid-gang crash from its staged
+    # claims instead of rolling the gang back); "" for singletons.
+    gang: str = ""
 
 
 class ChipAccountant(ReservePlugin):
@@ -54,23 +72,71 @@ class ChipAccountant(ReservePlugin):
         scheduler_name: str = "yoda-tpu",
         scheduler_names: "tuple[str, ...] | None" = None,
     ) -> None:
-        # All schedulerNames this process serves.
+        # All schedulerNames this process serves (profiles share ONE
+        # accountant — separate accountants would let two profiles
+        # double-book a node inside the reserve->bind-event window).
         self.scheduler_names = frozenset(scheduler_names or (scheduler_name,))
         self.scheduler_name = scheduler_name
         self._lock = threading.Lock()
         self._claims: dict[str, _Claim] = {}  # pod uid -> claim
         self._in_use: dict[str, int] = {}     # node -> chips
-        # Reservation delta feed (dynamics row 1 of the device-resident
-        # fleet state, ops/resident.py): epoch bumped per node-total
-        # change, bounded ring of (epoch, node), so a consumer applies only
-        # the nodes whose reservations moved since its last sync.
+        # Reservation delta feed (dyn row 1 of the device-resident fleet
+        # state, ops/resident.py): epoch bumped per node-total change,
+        # bounded ring of (epoch, node) so a consumer can apply only the
+        # nodes whose reservations moved since its last sync instead of
+        # copying the whole map per dispatch.
         self._epoch = 0
         self._changes: deque[tuple[int, str]] = deque(maxlen=65536)
+        # Optimistic claim->validate->commit (scheduler shard-out): the
+        # shared commit point N parallel serve loops validate
+        # their staged claims against. _staged indexes the (few) in-flight
+        # staged claims by uid; _stage_seq orders them (the validation's
+        # precedence: a later-staged claim loses to an earlier one on an
+        # oversubscribed node). track_capacity flips on in sharded
+        # assemblies only — it makes handle() maintain per-node healthy
+        # chip capacities from the TPU CR stream so commit_staged can
+        # validate without touching any other component's lock (the lock
+        # DAG forbids informer reads under the accountant lock).
+        self._staged: set[str] = set()
+        self._stage_seq = 0
+        # Live shard resize (ShardSet.resize): the commit QUIESCE
+        # barrier. Cleared, commit_staged waits (bounded) before
+        # validating, so the resizer gets one instant where no commit is
+        # mid-validation while it swaps the rendezvous map and reroutes
+        # queues. Staged claims themselves stay valid across the swap —
+        # validation is partition-agnostic — which is how in-flight
+        # gangs complete on their staged claims through a resize.
+        self._commit_gate = threading.Event()
+        self._commit_gate.set()
+        self.track_capacity = False
+        self._capacity: dict[str, int] = {}   # node -> healthy chips
+        self.commit_commits = 0               # committed stage groups
+        self.commit_conflicts = 0             # commits refused (validation)
+        # Durable claim journal (journal/): the
+        # CommitLog this accountant reports every state mutation to,
+        # WRITE-AHEAD (record durable before the in-memory mutation
+        # applies). None = journal off (`journal_path` unset): the guard
+        # below is one attribute test, zero new hot-path work.
+        self.journal = None
+        # True once restore() seeded state from a journal replay — the
+        # reconciler's warm resync diverges on this instead of
+        # rebuilding from scratch.
+        self.replayed = False
+        # gang name -> staged-claim uids from the replay (the mid-gang
+        # crash residue the warm resync adopts).
+        self.replayed_gangs: dict[str, set[str]] = {}
 
     # --- ReservePlugin ---
 
     def reserve(self, state: CycleState, pod: PodSpec, node_name: str) -> Status:
-        self._claim(pod.uid, node_name, get_request(state).effective_chips)
+        req = get_request(state)
+        shard = None
+        if state.contains(SHARD_STATE_KEY):
+            shard = state.read(SHARD_STATE_KEY).shard
+        self._claim(
+            pod.uid, node_name, req.effective_chips, shard=shard,
+            gang=gang_name_of(pod.labels) or "",
+        )
         return Status.ok()
 
     def unreserve(self, state: CycleState, pod: PodSpec, node_name: str) -> None:
@@ -79,6 +145,18 @@ class ChipAccountant(ReservePlugin):
     # --- lifecycle (watch events) ---
 
     def handle(self, event: Event) -> None:
+        if event.kind == "TpuNodeMetrics" and self.track_capacity:
+            # Sharded mode only: per-node healthy chip capacity, the
+            # commit validator's denominator. Maintained here (the
+            # accountant is already a watcher) instead of reading the
+            # informer at commit time — the lock-ordering DAG forbids an
+            # informer acquisition under the accountant lock.
+            tpu = event.obj
+            with self._lock:
+                if event.type == "deleted":
+                    self._capacity.pop(tpu.name, None)
+                else:
+                    self._capacity[tpu.name] = len(tpu.healthy_chips())
         if event.kind != "Pod":
             return
         pod: PodSpec = event.obj  # type: ignore[assignment]
@@ -87,14 +165,21 @@ class ChipAccountant(ReservePlugin):
         elif pod.node_name:
             # Bound pod (new bind, or replay after restart): ensure counted —
             # but only pods that occupy chips: ours (we reserve a chip even
-            # for label-less pods) or any pod that expresses a TPU request.
+            # for label-less pods, filter.go:14-15 semantics) or any pod that
+            # expresses a TPU request. Foreign non-TPU pods (daemonsets etc.)
+            # hold no chips.
             try:
                 req = pod_request(pod)
             except LabelParseError:
-                # Malformed tpu/* labels: a google.com/tpu resource limit
-                # attaches real chips no matter what the labels say.
+                # Malformed tpu/* labels: still account what is knowable.
+                # A google.com/tpu resource limit attaches real chips no
+                # matter what the labels say — dropping the claim would turn
+                # this pod's usage into stale-freed credit
+                # (filter_plugin.stale_freed_chips) and double-book it.
                 if pod.tpu_resource_limit > 0:
-                    self._claim(pod.uid, pod.node_name, pod.tpu_resource_limit)
+                    self._claim(
+                        pod.uid, pod.node_name, pod.tpu_resource_limit
+                    )
                     return
                 if pod.scheduler_name not in self.scheduler_names:
                     return
@@ -113,26 +198,244 @@ class ChipAccountant(ReservePlugin):
         self._epoch += 1
         self._changes.append((self._epoch, node))
 
-    def _claim(self, uid: str, node: str, chips: int) -> None:
+    def _claim(
+        self,
+        uid: str,
+        node: str,
+        chips: int,
+        *,
+        shard: "str | None" = None,
+        gang: str = "",
+        seq: "int | None" = None,
+    ) -> None:
         with self._lock:
             existing = self._claims.get(uid)
             if existing is not None and existing.node == node:
-                return  # reserve->bind transition: single claim
+                # reserve->bind transition: single claim. A STAGED
+                # claim stays staged through its own bind's watch
+                # event — only commit_staged (validation) or the
+                # reconciler's residue pass finalizes it.
+                return
+            if seq is None:
+                seq = self._stage_seq + 1 if shard is not None else 0
+            if self.journal is not None:
+                # Write-ahead: the record is durable before the state
+                # moves; a crash between the two is repaired by the
+                # standby's replay + divergence resync.
+                self.journal.record_stage(uid, node, chips, shard, seq, gang)
             if existing is not None:
                 self._in_use[existing.node] -= existing.chips
                 self._note(existing.node)
-            self._claims[uid] = _Claim(node, chips)
+                self._staged.discard(uid)
+            if shard is not None:
+                # max(), not assignment: a RemoteAccountant mirror
+                # applies PARENT-assigned seqs, which may arrive after a
+                # later local observation (another worker staged in
+                # between at the parent).
+                self._stage_seq = max(self._stage_seq, seq)
+                self._staged.add(uid)
+            self._claims[uid] = _Claim(
+                node, chips, shard=shard, seq=seq, gang=gang
+            )
             self._in_use[node] = self._in_use.get(node, 0) + chips
             self._note(node)
 
     def release(self, uid: str) -> None:
         with self._lock:
-            claim = self._claims.pop(uid, None)
+            claim = self._claims.get(uid)
             if claim is not None:
+                if self.journal is not None:
+                    # A staged claim's release is a ROLLBACK record, a
+                    # committed claim's a RELEASE — replay treats both
+                    # as claim removal; the split is operator forensics.
+                    if claim.shard is not None:
+                        self.journal.record_rollback(uid)
+                    else:
+                        self.journal.record_release(uid)
+                del self._claims[uid]
+                self._staged.discard(uid)
                 self._in_use[claim.node] = max(
                     self._in_use.get(claim.node, 0) - claim.chips, 0
                 )
                 self._note(claim.node)
+
+    # --- optimistic claim -> validate -> commit (scheduler shard-out) ---
+
+    def stage(
+        self,
+        uid: str,
+        node: str,
+        chips: int,
+        shard: str,
+        gang: str = "",
+    ) -> int:
+        """Stage one claim on behalf of a REMOTE shard worker — the
+        commit RPC server's entry point (framework/procserve.py;
+        multi-process shard serve). Identical semantics to a sharded
+        Reserve landing in-process: journaled write-ahead, charged into
+        ``_in_use`` immediately, ordered by the global stage seq.
+        Returns the assigned seq so the worker's local mirror orders
+        its claims exactly as the commit validator will."""
+        self._claim(uid, node, chips, shard=shard, gang=gang)
+        with self._lock:
+            c = self._claims.get(uid)
+            return c.seq if c is not None else 0
+
+    def commit_staged(self, uids) -> "tuple[bool, str]":
+        """Atomically validate-and-commit the STAGED claims of ``uids``
+        (one pod, or a whole gang's release cohort) — the shared commit
+        point of the sharded serve loops. Validation is first-staged-wins
+        under per-node capacity: a claim is valid when its node's total
+        usage, counting committed claims and staged claims staged NO
+        LATER than it, fits the node's healthy-chip capacity; a later
+        claim racing the same chips fails its own commit instead. All
+        claims commit or none do (the caller rolls a refused gang back
+        whole through the transactional unbind path). Claims already
+        committed — or uids with no claim at all — validate vacuously, so
+        unsharded stacks (nothing ever staged) pay one dict probe per
+        uid and the branch below never runs."""
+        # Resize quiesce: wait (never under any lock) while the barrier
+        # is held. Bounded — a wedged resizer must not wedge commits
+        # forever; after the timeout the commit proceeds, still correct
+        # (validation does not read the shard map).
+        if not self._commit_gate.is_set():
+            self._commit_gate.wait(timeout=10.0)
+        with self._lock:
+            mine = [
+                (u, self._claims[u])
+                for u in uids
+                if u in self._claims and self._claims[u].shard is not None
+            ]
+            if not mine:
+                return True, ""
+            staged = [self._claims[u] for u in self._staged]
+            for _u, c in mine:
+                cap = self._capacity.get(c.node)
+                if cap is None:
+                    continue  # capacity unknown (node gone): repair owns it
+                later = sum(
+                    s.chips
+                    for s in staged
+                    if s.node == c.node and s.seq > c.seq
+                )
+                if self._in_use.get(c.node, 0) - later > cap:
+                    self.commit_conflicts += 1
+                    return False, (
+                        f"node {c.node}: {self._in_use.get(c.node, 0)} "
+                        f"chips claimed (net of later stages: "
+                        f"{self._in_use.get(c.node, 0) - later}) > capacity "
+                        f"{cap}; an earlier-staged claim owns the chips"
+                    )
+            if self.journal is not None:
+                self.journal.record_commit([u for u, _c in mine])
+            for u, c in mine:
+                c.shard = None
+                c.seq = 0
+                self._staged.discard(u)
+            self.commit_commits += 1
+            return True, ""
+
+    def hold_commits(self) -> None:
+        """Close the resize quiesce barrier: commit_staged callers wait
+        (bounded) until :meth:`resume_commits`."""
+        self._commit_gate.clear()
+
+    def resume_commits(self) -> None:
+        self._commit_gate.set()
+
+    def staged_count(self) -> int:
+        with self._lock:
+            return len(self._staged)
+
+    def staged_uids(self) -> "dict[str, str]":
+        """uid -> staging shard for every claim still pending commit —
+        the drift reconciler's residue surface: a staged claim whose pod
+        cluster truth shows BOUND is committed (the shard died between
+        the bind landing and its commit), one with no live pod releases
+        through the standard leaked-claim path."""
+        with self._lock:
+            return {
+                u: self._claims[u].shard
+                for u in self._staged
+                if u in self._claims
+            }
+
+    def commit_residue(self, uid: str) -> bool:
+        """Commit ONE staged claim without validation — cluster truth
+        already shows its pod bound (the reconciler's crash-recovery
+        path; truth outranks the optimistic protocol). Returns whether a
+        staged claim was found."""
+        with self._lock:
+            c = self._claims.get(uid)
+            if c is None or c.shard is None:
+                return False
+            if self.journal is not None:
+                self.journal.record_commit([uid])
+            c.shard = None
+            c.seq = 0
+            self._staged.discard(uid)
+            return True
+
+    def restore(self, state) -> int:
+        """Seed accounting from a journal replay (a promoted standby,
+        BEFORE any watcher registers — the list-then-watch replay then
+        layers idempotently over this via handle's re-count no-op path).
+        Nothing here is journaled: the journal already holds these
+        records, and its mirror was rebuilt by the same replay. Returns
+        the number of claims restored."""
+        with self._lock:
+            in_use = self._in_use
+            # Replayed claims are the journal's wire-format 5-lists
+            # [node, chips, shard, seq, gang] (see journal/journal.py).
+            for uid, c in state.claims.items():
+                node, chips, shard_s, seq, gang = c
+                shard = shard_s or None
+                self._claims[uid] = _Claim(
+                    node, chips, shard=shard, seq=seq, gang=gang
+                )
+                in_use[node] = in_use.get(node, 0) + chips
+                if shard is not None:
+                    self._staged.add(uid)
+            # One delta-feed note per touched NODE, not per claim: the
+            # feed carries node granularity, and restore sits on the
+            # promotion blackout (100k claims = 100k appends otherwise).
+            for node in {c[0] for c in state.claims.values()}:
+                self._note(node)
+            self._stage_seq = max(self._stage_seq, state.stage_seq)
+            self.replayed = True
+            self.replayed_gangs = state.staged_gangs()
+            return len(state.claims)
+
+    def adopt_warm(
+        self, claims, in_use, staged, stage_seq, *, gangs=None
+    ) -> int:
+        """Seed accounting from a journal TAILER's warm mirror (standby
+        promotion, journal/tail.py) — the O(1)-handover sibling of
+        :meth:`restore`: the tailer built accountant-ready ``_Claim``
+        records incrementally while frames streamed in, so promotion
+        installs the dicts wholesale instead of constructing 100k claim
+        objects on the blackout path. Nothing here is journaled — the
+        promoted journal adopted the same mirror via
+        ``FileJournal.promote`` (write-ahead: term durable first).
+        Returns the number of claims adopted."""
+        with self._lock:
+            self._claims = claims
+            self._in_use = dict(in_use)
+            self._staged = set(staged)
+            self._stage_seq = max(self._stage_seq, int(stage_seq))
+            # One delta-feed note per node (restore()'s discipline).
+            for node in self._in_use:
+                self._note(node)
+            self.replayed = True
+            self.replayed_gangs = gangs if gangs is not None else {}
+            return len(claims)
+
+    def claims_snapshot(self) -> "dict[str, tuple[str, int]]":
+        """uid -> (node, chips) for every claim, one lock acquisition —
+        the warm resync's divergence check diffs cluster truth against
+        this instead of N locked per-pod probes."""
+        with self._lock:
+            return {u: (c.node, c.chips) for u, c in self._claims.items()}
 
     def chips_in_use(self, node_name: str) -> int:
         with self._lock:
@@ -151,8 +454,9 @@ class ChipAccountant(ReservePlugin):
 
     def chips_by_node(self) -> dict[str, int]:
         """One consistent copy of the whole reservation map under a single
-        lock acquisition — the evaluation's dynamics build reads every node
-        per dispatch."""
+        lock acquisition — the fleet-kernel dynamics build reads every
+        node per dispatch, and N locked ``chips_in_use`` calls would cost
+        more than the kernel itself at large fleets."""
         with self._lock:
             return dict(self._in_use)
 

@@ -51,8 +51,11 @@ binds fan out on the executor and the release returns without draining
 them; a member's bind failure parks the landed siblings' unwinds behind
 the release barrier (``release_pending``) until every in-flight sibling
 has settled, and ``collect_rollbacks`` hands them to the scheduler;
-``close()`` shuts the executor. Left out until a later slice: shard
-commits (``collect_commits``). The
+``close()`` shuts the executor; and the scheduler lanes' optimistic
+commit: on a lane's stack (``shard``, ``track_commits``) a release cohort
+whose binds all landed arms ``collect_commits``, which hands it to the
+scheduler's commit flush, and a park's why-pending verdict names the lane.
+The
 tracer and the why-pending index are here (``tracer`` / ``pending``, wired by
 ``build_stack``): gang-release and gang-rollback spans on the gang's
 trace, and a topology park's verdict with a walk over the fleet naming
@@ -142,6 +145,13 @@ class _GangState:
     release_pending: set[str] = field(default_factory=set)
     release_rollbacks: list = field(default_factory=list)  # (spec, host, why)
     rollback_ready: bool = False
+    # Optimistic shard commit (scheduler shard-out): armed when a release
+    # cohort FULLY lands (every bind settled, none failed) on a stack
+    # whose gang plugin tracks commits — the scheduler then validates the
+    # cohort's staged claims at the shared accountant and rolls the gang
+    # back whole on a conflict. Never set on unsharded stacks
+    # (track_commits False).
+    commit_ready: bool = False
     # Hosts that died (value: which kinds' deletion marked them — a Node
     # deletion is only cleared by a Node re-add, not by the agent's CR
     # republish, and vice versa). Marked on EVERY gang so a death landing
@@ -192,6 +202,13 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
         # feasible-but-no-contiguous-block).
         self.tracer = None
         self.pending = None
+        # Scheduler shard-out: which shard this plugin's stack serves
+        # (why-pending verdicts carry it so `explain` names the shard
+        # that parked a gang) and whether release cohorts arm the
+        # optimistic-commit handoff (collect_commits). Both wired by the
+        # sharded assembly only; default = unsharded behavior untouched.
+        self.shard: "str | None" = None
+        self.track_commits = False
         self._lock = threading.RLock()
         self._gangs: dict[str, _GangState] = {}
         self._framework = None
@@ -551,6 +568,7 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
             message=msg,
             gang=gs.spec.name,
             node_reasons=reasons,
+            shard=self.shard,
         )
 
     # --- Filter: pin topology-gang members to planned hosts ---
@@ -779,6 +797,15 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
                 self._maybe_rollback_ready(gs)
                 return False
             gs.release_bound[wp.pod.key] = wp.node_name
+            if (
+                self.track_commits
+                and not gs.release_pending
+                and gs.release_bound
+            ):
+                # The whole cohort LANDED (this settle was the last and
+                # none failed): hand the cohort to the scheduler's
+                # shard-commit flush for atomic validation.
+                gs.commit_ready = True
             return True
 
     def on_bind_failed(self, framework, wp, status: Status) -> "bool | None":
@@ -860,6 +887,31 @@ class GangPlugin(PreFilterPlugin, FilterPlugin, PermitPlugin):
                     self.on_rollback(w.pod, gang_name, why)
                 w.reject(f"gang {why}")
         return True
+
+    def collect_commits(
+        self, framework
+    ) -> "list[tuple[str, list[tuple[PodSpec, str]]]]":
+        """Framework hook, polled by a SHARDED scheduler after every
+        release settle: the (gang name, [(member spec, host), ...])
+        cohorts whose binds have fully landed and now need the optimistic
+        shard-commit validation at the shared accountant. Each cohort is
+        returned exactly once; the scheduler commits it — or, on a
+        validation conflict, rolls every landed member back through the
+        transactional unbind path and requeues the gang whole."""
+        out: "list[tuple[str, list[tuple[PodSpec, str]]]]" = []
+        with self._lock:
+            for name, gs in self._gangs.items():
+                if not gs.commit_ready:
+                    continue
+                gs.commit_ready = False
+                cohort = [
+                    (gs.specs[key], host)
+                    for key, host in gs.release_bound.items()
+                    if key in gs.specs
+                ]
+                if cohort:
+                    out.append((name, cohort))
+        return out
 
     def collect_rollbacks(self, framework) -> "list[tuple[PodSpec, str, str]]":
         """Framework hook, polled by the scheduler after every release

@@ -67,18 +67,36 @@ its drain thread started) coalesces the watch stream and applies each
 batch through the same handler chain, the informer taking it under one
 lock with one epoch bump, so the device-resident fleet state applies each
 batch's changed rows once. ``Stack.close`` stops the batcher's drain
-thread, the recorder's worker and the gang plugin's bind executor. Left
-out until a later slice: the durable journal, profiles, shards and
-federation.
+thread, the recorder's worker and the gang plugin's bind executor.
 
-A knob of such a subsystem loads (``config.SchedulerConfig`` keeps every
-knob of the reference), but ``build_stack`` raises ``NotImplementedError``
-naming it when it is set away from its default — except to the value that
-turns the subsystem off, which is what this port already does
-(``UNPORTED_KNOB_VALUES``). Where the default turns such a part ON (the
-reference builds it), ``build_stack`` logs one warning naming every such
-part and lists them in ``Stack.not_built``; with every part of the
-default configuration ported, that list is empty.
+Durability and the shard-out, as the reference wires them:
+``journal_path`` opens the durable claim journal (``journal/``) before any
+watcher registers, restores the accountant from its replay and attaches
+it, so every claim mutation is recorded write-ahead (``Stack.journal``,
+the ``yoda_journal_*`` counters, ``yoda_commit_term`` from a replayed
+term; ``apply_reloadable`` re-applies ``journal_sync`` and
+``journal_segment_bytes``). ``build_sharded_stacks`` builds a
+``ShardSet``: one global lane over the whole fleet and ``shard_count``
+lanes over rendezvous partitions (``framework/shards.py``), sharing one
+accountant (the optimistic commit point) and one metrics registry, each
+with its own queue, cycle lock, bind executor, resident fleet state and
+``TorchFleetKernel`` — on the card on a CUDA stream of its own, so lanes on
+their own threads launch ``fleet_eval`` and ``joint_fit`` side by side.
+``build_profile_stacks`` builds one stack per scheduler profile over one
+accountant, one cycle lock and one metrics registry.
+
+A knob of a part this port does not have yet loads
+(``config.SchedulerConfig`` keeps every knob of the reference), but
+``build_stack`` raises ``NotImplementedError`` naming it and the ROADMAP
+item it waits for when it is set away from its default — except to the
+value that turns the part off, which is what this port already does
+(``UNPORTED_KNOB_VALUES``). Those parts are the process-mode lanes and
+the commit transport (``shard_mode: process``, ``commit_listen``,
+``commit_endpoint``; item 9b) and federation (``federation_*``; item 9c).
+Where the default turns such a part ON (the reference builds it),
+``build_stack`` logs one warning naming every such part and lists them in
+``Stack.not_built``; with every part of the default configuration ported,
+that list is empty.
 """
 
 from __future__ import annotations
@@ -89,21 +107,31 @@ import threading
 import time
 from dataclasses import dataclass
 
-from yoda_tpu_torch.api.requests import gang_name_of
+import torch
+
+from yoda_tpu_torch.api.requests import LabelParseError, gang_name_of, pod_request
 from yoda_tpu_torch.cluster.events import EventRecorder
 from yoda_tpu_torch.cluster.fake import Event, FakeCluster
 from yoda_tpu_torch.cluster.informer import InformerCache
 from yoda_tpu_torch.cluster.ingest import EventBatcher
 from yoda_tpu_torch.cluster.retry import BackoffPolicy
 from yoda_tpu_torch.config import SchedulerConfig
-from yoda_tpu_torch.framework.queue import SchedulingQueue
+from yoda_tpu_torch.framework.queue import QueuedPodInfo, SchedulingQueue
 from yoda_tpu_torch.framework.reconciler import Reconciler
 from yoda_tpu_torch.framework.runtime import BindExecutor, Framework
 from yoda_tpu_torch.framework.scheduler import Scheduler
+from yoda_tpu_torch.framework.shards import (
+    GLOBAL_LANE,
+    ShardMap,
+    ShardRouter,
+    shard_name,
+)
 from yoda_tpu_torch.framework.speculation import SpeculativeCache
 from yoda_tpu_torch.framework.tenancy import TenantLedger, tenant_of
+from yoda_tpu_torch.journal import FileJournal
 from yoda_tpu_torch.nodehealth import NodeHealthMonitor
 from yoda_tpu_torch.observability import SchedulingMetrics
+from yoda_tpu_torch.ops.kernel import TorchFleetKernel
 from yoda_tpu_torch.overload import OverloadMonitor
 from yoda_tpu_torch.plugins.yoda import (
     GangPlugin,
@@ -113,6 +141,7 @@ from yoda_tpu_torch.plugins.yoda import (
 )
 from yoda_tpu_torch.plugins.yoda.accounting import ChipAccountant
 from yoda_tpu_torch.plugins.yoda.binder import ClusterBinder
+from yoda_tpu_torch.plugins.yoda.filter_plugin import YodaPreFilter
 from yoda_tpu_torch.rebalance import Rebalancer
 from yoda_tpu_torch.slo import SloEngine
 from yoda_tpu_torch.tracing import PendingIndex, Tracer, subject_of
@@ -179,8 +208,26 @@ PORTED_KNOBS = frozenset(
         "tenant_quota_hbm_gib",
         "ingest_batch_window_ms",
         "ingest_batch_max",
+        "journal_path",
+        "journal_sync",
+        "journal_segment_bytes",
+        "shard_count",
+        "profiles",
     }
 )
+
+# The ROADMAP item each knob of a part this port does not have yet waits
+# for; ``build_stack`` names it when such a knob is set.
+LATER_ITEMS = {
+    "shard_mode": "9b",
+    "commit_listen": "9b",
+    "commit_endpoint": "9b",
+    "federation_degraded_after_s": "9c",
+    "federation_partitioned_after_s": "9c",
+    "federation_lost_after_s": "9c",
+    "federation_probe_period_s": "9c",
+    "federation_spillover": "9c",
+}
 
 # Every other knob belongs to a part this port does not have yet; it must
 # keep its default or take one of these values, each of which switches
@@ -197,12 +244,17 @@ def unported_settings(config: SchedulerConfig) -> list[str]:
     for f in dataclasses.fields(config):
         if f.name in PORTED_KNOBS:
             continue
+        if f.name == "shard_mode" and config.shard_count <= 1:
+            continue  # one serve loop: the lanes' hosting changes nothing
         value = getattr(config, f.name)
         if value == getattr(default, f.name):
             continue
         if value in UNPORTED_KNOB_VALUES.get(f.name, ("", ()))[1]:
             continue
-        out.append(f"{f.name}={value!r}")
+        item = LATER_ITEMS.get(f.name)
+        out.append(
+            f"{f.name}={value!r}" + (f" (ROADMAP item {item})" if item else "")
+        )
     return out
 
 
@@ -239,6 +291,28 @@ def _metrics_from_config(
             clock=clock,
         ),
     )
+
+
+def _attach_journal(accountant: ChipAccountant, config: SchedulerConfig):
+    """Durable claim journal: when ``journal_path`` is set, open
+    (replaying + tail-repairing) the on-disk CommitLog, seed the
+    accountant from the replayed state, and attach the journal so every
+    later claim mutation is write-ahead recorded. MUST run before any
+    watcher registers — the list-then-watch replay then layers
+    idempotently over the restored claims. Returns the journal (or None,
+    journal off — the accountant keeps its in-memory-only behavior, zero
+    new hot-path work)."""
+    if not config.journal_path:
+        return None
+    journal = FileJournal(
+        config.journal_path,
+        sync=config.journal_sync,
+        segment_bytes=config.journal_segment_bytes,
+    )
+    state = journal.open()
+    accountant.restore(state)
+    accountant.journal = journal
+    return journal
 
 
 def not_built_parts(config: SchedulerConfig) -> tuple[str, ...]:
@@ -293,6 +367,14 @@ class Stack:
     ingestor: EventBatcher | None = None
     # Per-tenant DRF ledger (tenant_fairness); None with fairness off.
     tenants: TenantLedger | None = None
+    # The watcher fns build_stack registered on the cluster for THIS
+    # stack — what ShardSet.resize unregisters when it retires a
+    # dissolved shard lane (cluster.remove_watcher by fn identity).
+    watch_fns: tuple = ()
+    # Durable claim journal: the accountant's on-disk CommitLog, None with
+    # journal_path unset. Shared-accountant assemblies (profiles, shards)
+    # share one journal through the one accountant.
+    journal: object = None
 
     def close(self) -> None:
         """Stop the stack's threads: the gang plugin's bind executor (its
@@ -316,6 +398,14 @@ def build_stack(
     clock=time.monotonic,
     extra_plugins: "list | None" = None,
     stop_event: "threading.Event | None" = None,
+    accountant: ChipAccountant | None = None,
+    cycle_lock=None,
+    post_filter_lock=None,
+    metrics: SchedulingMetrics | None = None,
+    scheduler_names: "tuple[str, ...] | None" = None,
+    shard: "str | None" = None,
+    node_filter_fn=None,
+    pod_route_fn=None,
 ) -> Stack:
     """Build a fully-wired scheduler stack against ``cluster`` (a fresh
     FakeCluster by default). Watchers are registered list-then-watch, so a
@@ -324,7 +414,20 @@ def build_stack(
     the CUDA device unless ``config.kernel_platform`` is "cpu"; with no
     card present the default raises. ``extra_plugins`` join the set ahead
     of the binder (a bind plugin there answers first). ``stop_event`` (the
-    CLI passes its serve stop) becomes the bind executor's stop event."""
+    CLI passes its serve stop) becomes the bind executor's stop event.
+
+    A provided ``accountant``, ``cycle_lock`` / ``post_filter_lock`` and
+    ``metrics`` are SHARED with other stacks (profiles, scheduler lanes):
+    the caller registered the accountant's watcher and attached its
+    journal. ``shard`` (with ``node_filter_fn`` / ``pod_route_fn``) builds
+    the stack as ONE lane of a sharded assembly (build_sharded_stacks):
+    its informer restricts snapshots to the lane's node partition and
+    queues only the lane's routed pods, its scheduler tags cycles with the
+    lane and commits staged claims through the shared accountant's
+    optimistic claim->validate->commit, its gang plugin arms release
+    cohorts for the commit flush, and on the card its kernel runs on a
+    CUDA stream of its own. All default to None = the classic unsharded
+    stack."""
     cluster = cluster or FakeCluster()
     config = config or SchedulerConfig()
     unported = unported_settings(config)
@@ -339,8 +442,27 @@ def build_stack(
             "so they do not run: %s",
             ", ".join(not_built),
         )
-    accountant = ChipAccountant(scheduler_name=config.scheduler_name)
-    metrics = _metrics_from_config(config, clock)
+    # A provided accountant is SHARED across stacks (its watcher is
+    # registered by the caller, once): reservations made by any stack are
+    # visible to every other before the bind's watch event lands.
+    own_accountant = accountant is None
+    if own_accountant:
+        accountant = ChipAccountant(scheduler_name=config.scheduler_name)
+        # Durable claim journal: replay + restore BEFORE the watcher
+        # registration below — warm-start state must exist before the
+        # list-then-watch replay layers over it. Shared accountants had
+        # theirs attached by the assembly that shares them.
+        _attach_journal(accountant, config)
+    journal = accountant.journal
+    # A provided metrics registry is SHARED (one /metrics endpoint over
+    # every profile or lane; the tracer, why-pending index, SLO engine and
+    # overload ladder ride on it, so one gang's trace stays one trace).
+    if metrics is None:
+        metrics = _metrics_from_config(config, clock)
+    # Replayed epoch term: a journal that lived through a promotion
+    # replays its term, published from the first scrape on.
+    if journal is not None and journal.term:
+        metrics.commit_term.set(float(journal.term))
     # Scheduling Events (kubectl describe pod): the loop emits its own.
     recorder = (
         EventRecorder(cluster.write_event, on_drop=metrics.events_dropped.inc)
@@ -378,6 +500,9 @@ def build_stack(
         parallel_release=pipelined,
         bind_executor=bind_executor,
     )
+    if shard is not None:
+        gang.shard = shard
+        gang.track_commits = True
     plugins = default_plugins(
         mode=config.mode,
         weights=config.effective_weights(),
@@ -398,14 +523,16 @@ def build_stack(
     )
     plugins.append(gang)
     plugins.append(accountant)
-    # Preemption's victim selection takes THE scheduler's cycle lock, so it
-    # is made here and handed to both.
-    cycle_lock = threading.Lock()
+    # Preemption's victim selection takes THE scheduler's cycle lock (one
+    # lock across profiles when they share it), so it is normalized here
+    # and handed to both.
+    cycle_lock = cycle_lock or threading.Lock()
     preemption = None
     if config.enable_preemption:
         preemption = TpuPreemption(
             cluster.evict_pod,
             scheduler_name=config.scheduler_name,
+            scheduler_names=scheduler_names,
             select_lock=cycle_lock,
             reserved_fn=accountant.chips_in_use,
             gang_status_fn=gang.gang_status,
@@ -486,6 +613,7 @@ def build_stack(
             kind="quota-park",
             message=why,
             gang=gang_name_of(qpi.pod.labels),
+            shard=shard,
         )
 
     def shed_fn(pod) -> "str | None":
@@ -513,6 +641,7 @@ def build_stack(
             kind="overload-shed",
             message=why,
             gang=gang_name_of(qpi.pod.labels),
+            shard=shard,
         )
 
     queue = SchedulingQueue(
@@ -531,7 +660,9 @@ def build_stack(
     # and it feeds the SLO engine's pending/starvation side.
     overload.add_queue(queue)
     metrics.slo.add_queue(queue)
-    _register_stack_families(metrics, queue, binder, accountant, bind_executor, ledger)
+    _register_stack_families(
+        metrics, queue, binder, accountant, bind_executor, ledger, journal
+    )
 
     def _reactivates(event: Event) -> bool:
         # New/changed TPU metrics may make parked pods schedulable; pod
@@ -598,6 +729,10 @@ def build_stack(
         watches_pvs=hasattr(cluster, "put_pv"),
         watches_pdbs=hasattr(cluster, "put_pdb"),
         staleness_s=config.max_metrics_age_s,
+        # Scheduler lanes: partition-restricted snapshots + one-queue pod
+        # routing (both None on unsharded stacks).
+        node_filter_fn=node_filter_fn,
+        pod_route_fn=pod_route_fn,
     )
     # The per-node health ladder, built BEFORE any watcher registers so
     # the replayed events already flow through observe_events. Fencing
@@ -647,6 +782,15 @@ def build_stack(
         # rebuilds by patching only the touched rows.
         batch.admission_changes_fn = informer.admission_changes_since
         _register_batch_families(metrics, batch)
+        if (
+            shard is not None
+            and batch.device.type == "cuda"
+            and isinstance(batch._kern, TorchFleetKernel)
+        ):
+            # A lane launches and fetches on a stream of its own: on the
+            # default stream every lane's result copy would wait on every
+            # other lane's kernels.
+            batch._kern.stream = torch.cuda.Stream(device=batch.device)
     # Watcher wiring. Per-event handlers run in registration order
     # (accountant and gang before the informer: reservation releases and
     # membership changes precede the informer's view of the same event).
@@ -655,9 +799,13 @@ def build_stack(
     # stream and applies each batch through the same chain, the informer
     # taking the whole list under one lock acquisition (handle_batch) with
     # one epoch bump and one reactivation decision.
-    per_event_sinks = [accountant.handle, gang.handle]
+    per_event_sinks = []
+    if own_accountant:
+        per_event_sinks.append(accountant.handle)
+    per_event_sinks.append(gang.handle)
     if ledger is not None:
         per_event_sinks.append(ledger.handle)
+    registered_fns: list = []  # -> Stack.watch_fns (resize retirement)
     ingestor = None
     if config.ingest_batch_window_ms > 0:
 
@@ -682,21 +830,28 @@ def build_stack(
             on_batch=on_ingest_batch,
         )
         cluster.add_watcher(ingestor.offer, batch_fn=ingestor.offer_batch)
+        registered_fns.append(ingestor.offer)
         overload.add_ingestor(ingestor)
     else:
         for sink in per_event_sinks:
             cluster.add_watcher(sink)
+            registered_fns.append(sink)
         # batch_fn lets the list-shaped startup replay apply under one
         # informer lock even with the live stream per-event.
         cluster.add_watcher(informer.handle, batch_fn=informer.handle_batch)
+        registered_fns.append(informer.handle)
         if recorder is not None:
             # Prune aggregation state for deleted pods.
             cluster.add_watcher(recorder.handle)
-    # Fleet gauges (chips total/free, bin-packing efficiency, duty cycle),
-    # collected at scrape time; the SLO engine samples the efficiency
-    # gauge as its goodput SLI.
-    metrics.attach_fleet(informer.snapshot, accountant.chips_in_use)
-    metrics.slo.goodput_fn = metrics.binpack_efficiency.value
+            registered_fns.append(recorder.handle)
+    if not getattr(metrics, "_fleet_attached", False):
+        # Fleet gauges (chips total/free, bin-packing efficiency, duty
+        # cycle), collected at scrape time and attached once per registry
+        # (the first stack built against a shared one wins); the SLO
+        # engine samples the efficiency gauge as its goodput SLI.
+        metrics.attach_fleet(informer.snapshot, accountant.chips_in_use)
+        metrics._fleet_attached = True
+        metrics.slo.goodput_fn = metrics.binpack_efficiency.value
     scheduler = Scheduler(
         framework,
         informer.snapshot,
@@ -705,6 +860,7 @@ def build_stack(
         metrics=metrics,
         percentage_nodes_to_score=config.percentage_nodes_to_score,
         cycle_lock=cycle_lock,
+        post_filter_lock=post_filter_lock,
         # status.nominatedNodeName write (upstream preemption parity).
         on_nominated=lambda pod, node: cluster.set_nominated_node(pod.key, node),
         on_bound=recorder.scheduled if recorder else None,
@@ -721,6 +877,13 @@ def build_stack(
     binder.fenced_fn = scheduler._fenced
     binder.on_fenced = metrics.fenced_binds.inc
     binder.observe_wall_ms = metrics.bind_wall.observe
+    if shard is not None:
+        # Scheduler lane: tag this loop's cycles (the shared accountant
+        # stages their claims) and wire the optimistic commit point. The
+        # per-lane gauges pick the loop up here.
+        scheduler.shard = shard
+        scheduler.commit_fn = accountant.commit_staged
+        metrics._shard_loops.append((shard, scheduler, queue))
     # Same worker-side fence for preemption's evictions: victim selection
     # runs under the cycle lock, the eviction round trips do not.
     if preemption is not None:
@@ -816,343 +979,401 @@ def build_stack(
         batch, gang, preemption, reconciler, rebalancer, speculation,
         nodehealth, bind_executor, metrics, not_built,
         events=recorder, ingestor=ingestor, tenants=ledger,
+        watch_fns=tuple(registered_fns), journal=journal,
     )
 
 
+def _accumulator(metrics, name: str, register) -> list:
+    """The list of sources behind a family group on ``metrics``: made, and
+    the group registered by ``register(acc)``, by the first stack built
+    against this registry; later stacks sharing it (profiles, scheduler
+    lanes) append their own sources, so each family is registered ONCE
+    and sums over every stack — a duplicate family would break the whole
+    scrape."""
+    acc = getattr(metrics, name, None)
+    if acc is None:
+        acc = []
+        setattr(metrics, name, acc)
+        register(acc)
+    return acc
+
+
 def _register_stack_families(
-    metrics, queue, binder, accountant, bind_executor, ledger
+    metrics, queue, binder, accountant, bind_executor, ledger, journal
 ):
     """The families the reference's build_stack registers around the queue,
     the tenant ledger, the binder, the commit point, the journal and the
-    shard loops, with the reference's names, help strings and types. Parts
-    this port lacks render their reference's empty value: no journal and no
-    shards (the counters read 0, the per-shard gauges have no series). The
+    scheduler lanes, with the reference's names, help strings and types,
+    each summed over every stack sharing the registry. The journal
+    counters read 0 with the journal off, the commit counters on an
+    unsharded stack, and the per-lane gauges have no series there; the
     dominant-share family renders empty with fairness off, keeping one
     scrape schema across configurations."""
     r = metrics.registry
 
-    def tenant_shares():
-        if ledger is None:
-            return {}
-        return {
-            (("tenant", tenant),): share
-            for tenant, share in ledger.shares().items()
-        }
+    def tenants(acc):
+        def shares():
+            merged: dict = {}
+            for led in acc:
+                for tenant, share in led.shares().items():
+                    key = (("tenant", tenant),)
+                    merged[key] = max(merged.get(key, 0.0), share)
+            return merged
 
-    r.gauge(
-        "yoda_tenant_dominant_share",
-        "Per-tenant dominant resource share (max of chip and HBM "
-        "fractions of fleet capacity) — the DRF ordering key: "
-        "pops draw from the lowest-share tenant first",
-        tenant_shares,
-    )
-    r.gauge(
-        "yoda_queue_active_pods",
-        "Pods ready to be scheduled right now, across profiles",
-        lambda: queue.depths()[0],
-    )
-    r.gauge(
-        "yoda_queue_backoff_pods",
-        "Pods waiting out their retry backoff (deep = chronic "
-        "unschedulables throttled past immediate_retry_attempts)",
-        lambda: queue.depths()[1],
-    )
-    r.gauge(
-        "yoda_queue_parked_pods",
-        "Pods parked unresolvable until a cluster event (bad labels, "
-        "missing claims, gang capacity)",
-        lambda: queue.depths()[2],
-    )
-    r.counter(
-        "yoda_recovery_bind_retries_total",
-        "Bind attempts retried after a transient API error (409 "
-        "conflict / 429 throttle / 5xx / timeout) with jittered "
-        "backoff, instead of failing the pod",
-        lambda: binder.retries,
-    )
-    r.counter(
-        "yoda_recovery_unbinds_total",
-        "Landed binds reversed by the transactional gang rollback "
-        "(unbind or delete-for-recreate, backend-dependent)",
-        lambda: binder.unbinds,
-    )
-    r.counter(
-        "yoda_shard_commit_commits_total",
-        "Optimistic shard-commit groups validated and committed at "
-        "the shared accountant (a singleton's pre-bind commit or a "
-        "gang's fully-landed release cohort)",
-        lambda: 0,
-    )
-    r.counter(
-        "yoda_shard_commit_conflicts_total",
-        "Shard commits REFUSED by validation (an earlier-staged "
-        "claim owned the chips): the losing shard unreserves (or "
-        "rolls landed binds back) and requeues the gang whole",
-        lambda: 0,
-    )
-    r.counter(
-        "yoda_journal_appends_total",
-        "Records appended to the durable claim journal (staged-claim"
-        " / commit / rollback / release / snapshot): every commit-"
-        "point state mutation, write-ahead of the in-memory apply",
-        lambda: 0,
-    )
-    r.counter(
-        "yoda_journal_bytes_total",
-        "Bytes appended to the journal (length-prefixed, CRC-"
-        "checksummed frames); divide by appends for mean record size",
-        lambda: 0,
-    )
-    r.counter(
-        "yoda_journal_fsyncs_total",
-        "fsync calls issued by the journal — rate tracks appends "
-        "under journal_sync=always, commit edges + every ~64 appends"
-        " under batch, and stays flat under off",
-        lambda: 0,
-    )
-    r.counter(
-        "yoda_journal_replay_ms_total",
-        "Wall milliseconds spent replaying the journal at open "
-        "(warm-start promotion cost; compare yoda_resync_duration_ms"
-        " for the cold-path blackout it replaces)",
-        lambda: 0,
-    )
-    r.counter(
-        "yoda_journal_torn_records_total",
-        "Torn/corrupt records repaired by truncate at replay (short "
-        "header, truncated payload, or CRC mismatch; later segments "
-        "discarded). Nonzero after a crash is normal; climbing "
-        "during steady state means disk trouble",
-        lambda: 0,
-    )
-    r.counter(
-        "yoda_journal_compactions_total",
-        "Segment rotations compacted into a snapshot-headed fresh "
-        "segment (older segments deleted — journal size stays flat)",
-        lambda: 0,
-    )
-    r.gauge(
-        "yoda_shard_queue_depth",
-        "Queued pods per scheduler shard (active + backoff + parked "
-        "pools of the shard's DRF queue); series follow the live "
-        "shard set",
-        lambda: {},
-    )
-    r.gauge(
-        "yoda_shard_cycles",
-        "Scheduling cycles completed per shard serve loop "
-        "(monotonic; series follow the live shard set)",
-        lambda: {},
-    )
-    r.gauge(
-        "yoda_shard_binds",
-        "Pods bound per shard serve loop (monotonic; series follow "
-        "the live shard set)",
-        lambda: {},
-    )
-    if bind_executor is not None:
+        r.gauge(
+            "yoda_tenant_dominant_share",
+            "Per-tenant dominant resource share (max of chip and HBM "
+            "fractions of fleet capacity) — the DRF ordering key: "
+            "pops draw from the lowest-share tenant first",
+            shares,
+        )
+
+    def queues(acc):
+        r.gauge(
+            "yoda_queue_active_pods",
+            "Pods ready to be scheduled right now, across profiles",
+            lambda: sum(q.depths()[0] for q in acc),
+        )
+        r.gauge(
+            "yoda_queue_backoff_pods",
+            "Pods waiting out their retry backoff (deep = chronic "
+            "unschedulables throttled past immediate_retry_attempts)",
+            lambda: sum(q.depths()[1] for q in acc),
+        )
+        r.gauge(
+            "yoda_queue_parked_pods",
+            "Pods parked unresolvable until a cluster event (bad labels, "
+            "missing claims, gang capacity)",
+            lambda: sum(q.depths()[2] for q in acc),
+        )
+
+    def binders(acc):
+        r.counter(
+            "yoda_recovery_bind_retries_total",
+            "Bind attempts retried after a transient API error (409 "
+            "conflict / 429 throttle / 5xx / timeout) with jittered "
+            "backoff, instead of failing the pod",
+            lambda: sum(b.retries for b in acc),
+        )
+        r.counter(
+            "yoda_recovery_unbinds_total",
+            "Landed binds reversed by the transactional gang rollback "
+            "(unbind or delete-for-recreate, backend-dependent)",
+            lambda: sum(b.unbinds for b in acc),
+        )
+
+    def commits(acc):
+        r.counter(
+            "yoda_shard_commit_commits_total",
+            "Optimistic shard-commit groups validated and committed at "
+            "the shared accountant (a singleton's pre-bind commit or a "
+            "gang's fully-landed release cohort)",
+            lambda: sum(a.commit_commits for a in acc),
+        )
+        r.counter(
+            "yoda_shard_commit_conflicts_total",
+            "Shard commits REFUSED by validation (an earlier-staged "
+            "claim owned the chips): the losing shard unreserves (or "
+            "rolls landed binds back) and requeues the gang whole",
+            lambda: sum(a.commit_conflicts for a in acc),
+        )
+
+    def journals(acc):
+        r.counter(
+            "yoda_journal_appends_total",
+            "Records appended to the durable claim journal (staged-claim"
+            " / commit / rollback / release / snapshot): every commit-"
+            "point state mutation, write-ahead of the in-memory apply",
+            lambda: sum(j.appends for j in acc),
+        )
+        r.counter(
+            "yoda_journal_bytes_total",
+            "Bytes appended to the journal (length-prefixed, CRC-"
+            "checksummed frames); divide by appends for mean record size",
+            lambda: sum(j.bytes_written for j in acc),
+        )
+        r.counter(
+            "yoda_journal_fsyncs_total",
+            "fsync calls issued by the journal — rate tracks appends "
+            "under journal_sync=always, commit edges + every ~64 appends"
+            " under batch, and stays flat under off",
+            lambda: sum(j.fsyncs for j in acc),
+        )
+        r.counter(
+            "yoda_journal_replay_ms_total",
+            "Wall milliseconds spent replaying the journal at open "
+            "(warm-start promotion cost; compare yoda_resync_duration_ms"
+            " for the cold-path blackout it replaces)",
+            lambda: sum(j.replay_ms for j in acc),
+        )
+        r.counter(
+            "yoda_journal_torn_records_total",
+            "Torn/corrupt records repaired by truncate at replay (short "
+            "header, truncated payload, or CRC mismatch; later segments "
+            "discarded). Nonzero after a crash is normal; climbing "
+            "during steady state means disk trouble",
+            lambda: sum(j.torn_records for j in acc),
+        )
+        r.counter(
+            "yoda_journal_compactions_total",
+            "Segment rotations compacted into a snapshot-headed fresh "
+            "segment (older segments deleted — journal size stays flat)",
+            lambda: sum(j.compactions for j in acc),
+        )
+
+    def lanes(acc):
+        def per_lane(fn):
+            return lambda: {
+                (("shard", sh),): float(fn(sched, q)) for sh, sched, q in acc
+            }
+
+        r.gauge(
+            "yoda_shard_queue_depth",
+            "Queued pods per scheduler shard (active + backoff + parked "
+            "pools of the shard's DRF queue); series follow the live "
+            "shard set",
+            per_lane(lambda sched, q: len(q)),
+        )
+        r.gauge(
+            "yoda_shard_cycles",
+            "Scheduling cycles completed per shard serve loop "
+            "(monotonic; series follow the live shard set)",
+            per_lane(lambda sched, q: len(sched.stats.results)),
+        )
+        r.gauge(
+            "yoda_shard_binds",
+            "Pods bound per shard serve loop (monotonic; series follow "
+            "the live shard set)",
+            per_lane(lambda sched, q: sched.stats.binds),
+        )
+
+    def executors(acc):
         r.gauge(
             "yoda_bind_inflight",
             "Bind API calls currently in flight on the bind executor "
             "(the pipeline's overlap window; 0 = no pending binds)",
-            lambda: float(bind_executor.inflight()),
+            lambda: float(sum(e.inflight() for e in acc)),
         )
 
+    led_acc = _accumulator(metrics, "_tenant_ledgers", tenants)
+    if ledger is not None:
+        led_acc.append(ledger)
+    _accumulator(metrics, "_queues", queues).append(queue)
+    _accumulator(metrics, "_binders", binders).append(binder)
+    commit_acc = _accumulator(metrics, "_commit_accountants", commits)
+    if accountant not in commit_acc:
+        commit_acc.append(accountant)
+    journal_acc = _accumulator(metrics, "_journals", journals)
+    if journal is not None and journal not in journal_acc:
+        journal_acc.append(journal)
+    _accumulator(metrics, "_shard_loops", lanes)
+    if bind_executor is not None:
+        _accumulator(metrics, "_bind_executors", executors).append(bind_executor)
 
-def _register_batch_families(metrics, p):
-    """The batch plugin's lazy counters, as the reference registers them.
-    The dispatch fallback chain is not ported: its families read 0 (an
-    evaluation on the card runs on the hand kernels or raises, so nothing
-    is ever demoted)."""
+
+def _register_batch_families(metrics, batch):
+    """The batch plugin's lazy counters, as the reference registers them,
+    summed over every stack's plugin sharing the registry. The dispatch
+    fallback chain is not ported: its families read 0 (an evaluation on
+    the card runs on the hand kernels or raises, so nothing is ever
+    demoted)."""
     r = metrics.registry
-    r.counter(
-        "yoda_kernel_dispatches_total",
-        "Real fused-kernel dispatches (gang siblings served from a "
-        "placement plan do not dispatch)",
-        lambda: p.dispatch_count,
-    )
-    r.counter(
-        "yoda_gang_plan_served_total",
-        "Gang member cycles answered from a whole-gang placement plan",
-        lambda: p.plan_served,
-    )
-    r.counter(
-        "yoda_gang_plan_invalidated_total",
-        "Live gang placement plans dropped before being fully served "
-        "(validation failure or concurrent-gang eviction)",
-        lambda: p.plan_invalidated,
-    )
-    r.counter(
-        "yoda_gang_fused_dispatches_total",
-        "Whole-gang kernel dispatches (the gang-fused pass: every "
-        "gathered member evaluated in one burst-kernel call)",
-        lambda: p.gang_burst_dispatches,
-    )
-    r.counter(
-        "yoda_gang_fused_served_total",
-        "Gang member cycles answered from a gang-fused dispatch "
-        "(sibling claims deducted host-side)",
-        lambda: p.gang_burst_served,
-    )
-    r.counter(
-        "yoda_gang_fused_invalidated_total",
-        "Gang-fused dispatch rows dropped by a failed serve-time "
-        "validation (foreign reservation, metrics republish, "
-        "allocatable conflict)",
-        lambda: p.gang_burst_invalidated,
-    )
-    r.counter(
-        "yoda_joint_dispatches_total",
-        "Cross-gang joint kernel dispatches (several co-queued "
-        "gangs evaluated in one kernel call, serving disjoint "
-        "blocks)",
-        lambda: p.joint_dispatches,
-    )
-    r.counter(
-        "yoda_joint_gangs_fused_total",
-        "Gangs whose placement rows came from a cross-gang joint "
-        "dispatch",
-        lambda: p.joint_gangs,
-    )
-    r.counter(
-        "yoda_joint_gangs_parked_total",
-        "Gangs the joint fit gate parked whole (restored to the "
-        "queue untouched instead of reserving and cascading)",
-        lambda: p.joint_parked,
-    )
-    r.counter(
-        "yoda_burst_dispatches_total",
-        "Multi-pod burst kernel dispatches (config batch_requests: "
-        "one dispatch pre-evaluates up to K pending pods)",
-        lambda: p.burst_dispatches,
-    )
-    r.counter(
-        "yoda_burst_served_total",
-        "Scheduling cycles answered from a multi-pod burst dispatch",
-        lambda: p.burst_served,
-    )
-    r.counter(
-        "yoda_burst_invalidated_total",
-        "Burst rows dropped by a failed validation (metrics "
-        "republish, foreign reservation, allocatable conflict) — a "
-        "high rate means the amortization is being lost to churn",
-        lambda: p.burst_invalidated,
-    )
-    r.gauge(
-        "yoda_kernel_dispatch_floor_ms",
-        "Measured default-device per-dispatch floor (0 until the "
-        "auto platform policy probes it; ~0.1 locally-attached, "
-        "~100 over a tunnel/RPC transport)",
-        lambda: 0.0,
-    )
-    r.counter(
-        "yoda_dispatch_errors_total",
-        "Kernel dispatch exceptions caught by the fallback chain "
-        "(each one demoted the dispatch a backend level instead "
-        "of crashing the scheduling loop)",
-        lambda: p.dispatch_errors,
-    )
-    r.counter(
-        "yoda_dispatch_fallback_total",
-        "Dispatches completed on a DEMOTED kernel backend "
-        "(primary -> XLA host kernel -> numpy evaluator) — "
-        "nonzero means degraded-mode operation",
-        lambda: 0,
-    )
-    r.gauge(
-        "yoda_dispatch_backend_level",
-        "Circuit-breaker backend pin: 0 = primary kernel, 1 = XLA "
-        "host fallback, 2 = numpy evaluator (max over profiles; "
-        "nonzero = a backend was pinned down after repeated "
-        "dispatch failures)",
-        lambda: 0,
-    )
-    r.counter(
-        "yoda_snapshot_reuse_total",
-        "Static fleet refreshes answered without touching the "
-        "fleet (metrics epoch unchanged since the last dispatch) "
-        "— the device-resident state's steady-state hit path",
-        lambda: p.snapshot_reuse,
-    )
-    r.counter(
-        "yoda_admission_cache_reuse_total",
-        "Host-admission vectors reused ACROSS snapshot rebuilds "
-        "(both informer feeds report the entry's epochs current)",
-        lambda: p.admission_reuse,
-    )
-    r.counter(
-        "yoda_admission_cache_patched_total",
-        "Host-admission vectors carried across snapshots by "
-        "re-checking only the delta-feed-touched rows",
-        lambda: p.admission_patched,
-    )
-    r.counter(
-        "yoda_admission_cache_rebuilds_total",
-        "Full O(fleet) host-admission rebuilds (structural churn, "
-        "feed ring eviction, or first sight of a shape)",
-        lambda: p.admission_rebuilds,
-    )
-    r.counter(
-        "yoda_restack_total",
-        "Full fleet re-stacks (snapshot -> host arrays -> whole-"
-        "fleet device upload): epoch skew, node add/delete, or "
-        "bucket growth. At low churn this should sit near the "
-        "boot count — a climbing rate means the delta feed is "
-        "being outrun",
-        lambda: p.restacks,
-    )
-    r.gauge(
-        "yoda_delta_apply_ms",
-        "Wall milliseconds of the most recent incremental fleet "
-        "delta apply (changed-row refill + in-place device "
-        "scatter); independent of fleet size at low churn",
-        lambda: p.delta_apply_ms,
-    )
-    r.counter(
-        "yoda_sharded_dispatches_total",
-        "Kernel dispatches served by the node-axis mesh-sharded "
-        "backend (config mesh_devices; the fallback chain demotes "
-        "to single-device XLA / numpy below it)",
-        lambda: p.sharded_dispatches,
-    )
-    r.gauge(
-        "yoda_kernel_on_accelerator",
-        "1 when some fused kernel currently targets the process "
-        "default accelerator device (0 = pinned to host CPU by the "
-        "platform policy or config)",
-        lambda: int(p.device.type != "cpu"),
-    )
+
+    def register(acc):
+        r.counter(
+            "yoda_kernel_dispatches_total",
+            "Real fused-kernel dispatches (gang siblings served from a "
+            "placement plan do not dispatch)",
+            lambda: sum(p.dispatch_count for p in acc),
+        )
+        r.counter(
+            "yoda_gang_plan_served_total",
+            "Gang member cycles answered from a whole-gang placement plan",
+            lambda: sum(p.plan_served for p in acc),
+        )
+        r.counter(
+            "yoda_gang_plan_invalidated_total",
+            "Live gang placement plans dropped before being fully served "
+            "(validation failure or concurrent-gang eviction)",
+            lambda: sum(p.plan_invalidated for p in acc),
+        )
+        r.counter(
+            "yoda_gang_fused_dispatches_total",
+            "Whole-gang kernel dispatches (the gang-fused pass: every "
+            "gathered member evaluated in one burst-kernel call)",
+            lambda: sum(p.gang_burst_dispatches for p in acc),
+        )
+        r.counter(
+            "yoda_gang_fused_served_total",
+            "Gang member cycles answered from a gang-fused dispatch "
+            "(sibling claims deducted host-side)",
+            lambda: sum(p.gang_burst_served for p in acc),
+        )
+        r.counter(
+            "yoda_gang_fused_invalidated_total",
+            "Gang-fused dispatch rows dropped by a failed serve-time "
+            "validation (foreign reservation, metrics republish, "
+            "allocatable conflict)",
+            lambda: sum(p.gang_burst_invalidated for p in acc),
+        )
+        r.counter(
+            "yoda_joint_dispatches_total",
+            "Cross-gang joint kernel dispatches (several co-queued "
+            "gangs evaluated in one kernel call, serving disjoint "
+            "blocks)",
+            lambda: sum(p.joint_dispatches for p in acc),
+        )
+        r.counter(
+            "yoda_joint_gangs_fused_total",
+            "Gangs whose placement rows came from a cross-gang joint "
+            "dispatch",
+            lambda: sum(p.joint_gangs for p in acc),
+        )
+        r.counter(
+            "yoda_joint_gangs_parked_total",
+            "Gangs the joint fit gate parked whole (restored to the "
+            "queue untouched instead of reserving and cascading)",
+            lambda: sum(p.joint_parked for p in acc),
+        )
+        r.counter(
+            "yoda_burst_dispatches_total",
+            "Multi-pod burst kernel dispatches (config batch_requests: "
+            "one dispatch pre-evaluates up to K pending pods)",
+            lambda: sum(p.burst_dispatches for p in acc),
+        )
+        r.counter(
+            "yoda_burst_served_total",
+            "Scheduling cycles answered from a multi-pod burst dispatch",
+            lambda: sum(p.burst_served for p in acc),
+        )
+        r.counter(
+            "yoda_burst_invalidated_total",
+            "Burst rows dropped by a failed validation (metrics "
+            "republish, foreign reservation, allocatable conflict) — a "
+            "high rate means the amortization is being lost to churn",
+            lambda: sum(p.burst_invalidated for p in acc),
+        )
+        r.gauge(
+            "yoda_kernel_dispatch_floor_ms",
+            "Measured default-device per-dispatch floor (0 until the "
+            "auto platform policy probes it; ~0.1 locally-attached, "
+            "~100 over a tunnel/RPC transport)",
+            lambda: 0.0,
+        )
+        r.counter(
+            "yoda_dispatch_errors_total",
+            "Kernel dispatch exceptions caught by the fallback chain "
+            "(each one demoted the dispatch a backend level instead "
+            "of crashing the scheduling loop)",
+            lambda: sum(p.dispatch_errors for p in acc),
+        )
+        r.counter(
+            "yoda_dispatch_fallback_total",
+            "Dispatches completed on a DEMOTED kernel backend "
+            "(primary -> XLA host kernel -> numpy evaluator) — "
+            "nonzero means degraded-mode operation",
+            lambda: 0,
+        )
+        r.gauge(
+            "yoda_dispatch_backend_level",
+            "Circuit-breaker backend pin: 0 = primary kernel, 1 = XLA "
+            "host fallback, 2 = numpy evaluator (max over profiles; "
+            "nonzero = a backend was pinned down after repeated "
+            "dispatch failures)",
+            lambda: 0,
+        )
+        r.counter(
+            "yoda_snapshot_reuse_total",
+            "Static fleet refreshes answered without touching the "
+            "fleet (metrics epoch unchanged since the last dispatch) "
+            "— the device-resident state's steady-state hit path",
+            lambda: sum(p.snapshot_reuse for p in acc),
+        )
+        r.counter(
+            "yoda_admission_cache_reuse_total",
+            "Host-admission vectors reused ACROSS snapshot rebuilds "
+            "(both informer feeds report the entry's epochs current)",
+            lambda: sum(p.admission_reuse for p in acc),
+        )
+        r.counter(
+            "yoda_admission_cache_patched_total",
+            "Host-admission vectors carried across snapshots by "
+            "re-checking only the delta-feed-touched rows",
+            lambda: sum(p.admission_patched for p in acc),
+        )
+        r.counter(
+            "yoda_admission_cache_rebuilds_total",
+            "Full O(fleet) host-admission rebuilds (structural churn, "
+            "feed ring eviction, or first sight of a shape)",
+            lambda: sum(p.admission_rebuilds for p in acc),
+        )
+        r.counter(
+            "yoda_restack_total",
+            "Full fleet re-stacks (snapshot -> host arrays -> whole-"
+            "fleet device upload): epoch skew, node add/delete, or "
+            "bucket growth. At low churn this should sit near the "
+            "boot count — a climbing rate means the delta feed is "
+            "being outrun",
+            lambda: sum(p.restacks for p in acc),
+        )
+        r.gauge(
+            "yoda_delta_apply_ms",
+            "Wall milliseconds of the most recent incremental fleet "
+            "delta apply (changed-row refill + in-place device "
+            "scatter); independent of fleet size at low churn",
+            lambda: max((p.delta_apply_ms for p in acc), default=0.0),
+        )
+        r.counter(
+            "yoda_sharded_dispatches_total",
+            "Kernel dispatches served by the node-axis mesh-sharded "
+            "backend (config mesh_devices; the fallback chain demotes "
+            "to single-device XLA / numpy below it)",
+            lambda: sum(p.sharded_dispatches for p in acc),
+        )
+        r.gauge(
+            "yoda_kernel_on_accelerator",
+            "1 when some fused kernel currently targets the process "
+            "default accelerator device (0 = pinned to host CPU by the "
+            "platform policy or config)",
+            lambda: int(any(p.device.type != "cpu" for p in acc)),
+        )
+
+    _accumulator(metrics, "_batch_plugins", register).append(batch)
 
 
 def _register_speculation_families(metrics, spec):
     r = metrics.registry
-    r.counter(
-        "yoda_spec_cache_hits_total",
-        "Serve cycles bound from a speculative placement plan (the "
-        "sub-millisecond fast path: filter/score spans skipped)",
-        lambda: spec.hits,
-    )
-    r.counter(
-        "yoda_spec_cache_misses_total",
-        "Speculation lookups finding no plan for an in-scope shape "
-        "(the miss records the shape for the next producer tick)",
-        lambda: spec.misses,
-    )
-    r.counter(
-        "yoda_spec_cache_invalidations_total",
-        "Speculative plans dropped before consumption (delta-feed "
-        "touch, failed revalidation, Reserve race, flush) — staleness "
-        "caught, never bound",
-        lambda: spec.invalidations,
-    )
+
+    def register(acc):
+        r.counter(
+            "yoda_spec_cache_hits_total",
+            "Serve cycles bound from a speculative placement plan (the "
+            "sub-millisecond fast path: filter/score spans skipped)",
+            lambda: sum(s.hits for s in acc),
+        )
+        r.counter(
+            "yoda_spec_cache_misses_total",
+            "Speculation lookups finding no plan for an in-scope shape "
+            "(the miss records the shape for the next producer tick)",
+            lambda: sum(s.misses for s in acc),
+        )
+        r.counter(
+            "yoda_spec_cache_invalidations_total",
+            "Speculative plans dropped before consumption (delta-feed "
+            "touch, failed revalidation, Reserve race, flush) — staleness "
+            "caught, never bound",
+            lambda: sum(s.invalidations for s in acc),
+        )
+
+    _accumulator(metrics, "_speculations", register).append(spec)
 
 
 def apply_reloadable(stacks: "list[Stack]", config: SchedulerConfig) -> None:
-    """Apply every RELOADABLE knob of ``config`` to RUNNING stacks (the
+    """Apply every RELOADABLE knob of ``config`` to a RUNNING assembly
+    (profile stacks, shard lanes — ``stacks`` is the live list; the
     ``apply_fn`` of ``overload.ConfigReloader``). Each assignment lands on
     an attribute its consumer re-reads at use time, so the apply is atomic
-    per knob — no consumer ever sees a half-reloaded composite. The
-    journal's knobs are not applied: the port has no journal."""
+    per knob — no consumer ever sees a half-reloaded composite."""
     metrics = stacks[0].metrics
     ov = metrics.overload
     ov.period_s = float(config.overload_period_s)
@@ -1168,6 +1389,14 @@ def apply_reloadable(stacks: "list[Stack]", config: SchedulerConfig) -> None:
     metrics.slo.enabled = config.slo_enabled
     metrics.slo.burn_threshold = config.slo_burn_threshold
     metrics.pending.capacity = max(config.pending_index_max, 16)
+    # Durable claim journal: sync policy + rotation threshold are live
+    # attributes the journal re-reads per append (journal_path itself is
+    # IMMUTABLE — repointing a live log would split the durable record).
+    for st in stacks:
+        j = st.accountant.journal
+        if j is not None:
+            j.sync = config.journal_sync
+            j.segment_bytes = int(config.journal_segment_bytes)
     for st in stacks:
         st.queue.immediate_retry_attempts = config.immediate_retry_attempts
         if st.binder is not None:
@@ -1193,3 +1422,669 @@ def apply_reloadable(stacks: "list[Stack]", config: SchedulerConfig) -> None:
                 size=config.spec_cache_size,
                 shapes_max=config.spec_shapes_max,
             )
+
+
+@dataclass
+class ShardSet:
+    """N parallel shard stacks + the serialized global lane over ONE
+    cluster (scheduler shard-out). ``stacks[0]`` is the global
+    lane (full-fleet informer — it owns the fleet gauges, the started
+    reconciler/rebalancer/nodehealth loops, and every cross-shard gang);
+    ``stacks[1:]`` are the shards in index order. All share one
+    ChipAccountant (the optimistic commit point) and one metrics
+    registry; each has its OWN cycle lock, queue, bind executor, and
+    partition-restricted resident fleet state — that independence is the
+    whole point."""
+
+    stacks: "list[Stack]"
+    router: object            # framework.shards.ShardRouter
+    shard_map: object         # framework.shards.ShardMap
+    accountant: ChipAccountant
+    metrics: SchedulingMetrics
+    config: SchedulerConfig
+    # Live-resize plumbing: the assembly inputs resize() needs
+    # to build new shard stacks, and the fence new lanes inherit (cli
+    # sets it to its leadership+resync composition).
+    clock: object = time.monotonic
+    stop_event: "threading.Event | None" = None
+    shard_fence_fn: object = None
+
+    @property
+    def global_stack(self) -> Stack:
+        return self.stacks[0]
+
+    @property
+    def shard_stacks(self) -> "list[Stack]":
+        return self.stacks[1:]
+
+    def queue_depth(self, shard_idx: int) -> int:
+        """Live queue depth of shard ``s<idx>`` — the router's occupancy
+        tie-break signal (0 for unknown/retired lanes)."""
+        name = shard_name(shard_idx)
+        for st in self.stacks[1:]:
+            if st.scheduler.shard == name:
+                return len(st.queue)
+        return 0
+
+    def reroute(self) -> int:
+        """Move queued entries whose owning lane is not the router's
+        answer: a shard that lost its last feasible slice hands its
+        parked gangs to a lane that can still host them, and a
+        GLOBAL-lane entry that belongs to a shard (the reconciler's
+        resync/repair requeues land in the global stack's queue, while
+        never-bound siblings replay into their shard's — a gang must
+        never sit split across two lanes' barriers) moves home. Global
+        entries with attempts > 0 stay put: those are rescue_starved's
+        deliberate fallbacks, and rerouting them back to the shard that
+        starved them would ping-pong forever. Called from the shard
+        set's structural-event watcher and the rescue pass; cheap when
+        queues are shallow. Returns entries moved."""
+        lanes = {GLOBAL_LANE: self.stacks[0]}
+        for st in self.stacks[1:]:
+            lanes[st.scheduler.shard] = st
+        moved = 0
+        for st in self.stacks:
+            own = st.scheduler.shard
+            for pod, attempts in st.queue.all_entries():
+                if own == GLOBAL_LANE and attempts > 0:
+                    continue  # rescued work: the global lane owns it
+                want = self.router.route(pod)
+                if want == own:
+                    continue
+                target = lanes.get(want)
+                if target is None or not st.queue.remove(pod.uid):
+                    continue
+                if target.queue.find(pod.uid) is not None:
+                    # Already queued on the target lane (a replay or a
+                    # requeue raced the move): dropping the source entry
+                    # IS the dedupe — one pod, one queue entry.
+                    moved += 1
+                    continue
+                # Attempts PRESERVED across the move: resetting them
+                # would erase the rescue marker (global entries with
+                # attempts > 0 stay put) and ping-pong a rescued entry
+                # between the global lane and a full home shard forever.
+                target.queue.readd(
+                    QueuedPodInfo(pod=pod, attempts=attempts)
+                )
+                moved += 1
+        return moved
+
+    def rescue_starved(self, *, min_attempts: int = 3) -> int:
+        """Hand work a shard has REPEATEDLY failed to place to the
+        global lane. Static routing is capacity-shape feasibility only —
+        a gang can route to a shard whose slices are then occupied by
+        earlier work — so the dynamic half of the contract lives here:
+        a gang whose members are ALL queued (never mid-Permit: taking
+        half a gang would split its barrier across lanes) after
+        ``min_attempts`` local failures migrates whole via the
+        federation-spillover take_gang primitive; starved singletons
+        move individually. The global lane sees the whole fleet, so no
+        workload is ever wedged behind a partition boundary. Returns
+        entries moved."""
+        g = self.stacks[0]
+        # Misrouted entries first (a resync/repair requeue in the global
+        # queue whose siblings replay into a shard's): a gang must be
+        # whole in ONE lane before starvation can even be judged.
+        moved = self.reroute()
+        for st in self.shard_stacks:
+            for name, (count, attempts) in st.queue.pending_gangs().items():
+                if attempts < min_attempts:
+                    continue
+                probe = next(
+                    (
+                        pod
+                        for pod, _a in st.queue.all_entries()
+                        if gang_name_of(pod.labels) == name
+                    ),
+                    None,
+                )
+                if probe is None:
+                    continue
+                try:
+                    spec = pod_request(probe).gang
+                except LabelParseError:
+                    continue
+                if spec is None or count < spec.size:
+                    continue  # members mid-flight: never split the gang
+                taken = st.queue.take_gang(name)
+                for qpi in taken:
+                    g.queue.readd(qpi)
+                moved += len(taken)
+            for pod, attempts in st.queue.all_entries():
+                if attempts < min_attempts or gang_name_of(pod.labels):
+                    continue
+                if st.queue.remove(pod.uid):
+                    # Attempts preserved: they ARE the rescue marker
+                    # (reroute leaves global entries with attempts > 0
+                    # alone — see reroute's ping-pong note).
+                    g.queue.readd(
+                        QueuedPodInfo(pod=pod, attempts=attempts)
+                    )
+                    moved += 1
+        return moved
+
+    def resize(
+        self,
+        new_count: int,
+        *,
+        start_fn=None,
+        quiesce_timeout_s: float = 5.0,
+    ) -> dict:
+        """Live ``shard_count`` resize — zero downtime, no restart. The
+        sequence:
+
+        1. **Quiesce commits at the ChipAccountant barrier**: new
+           commit validations wait; in-flight bind fan-outs are given
+           ``quiesce_timeout_s`` to land. Staged claims stay valid
+           across the swap (validation never reads the shard map), so
+           in-flight gangs complete on their staged claims — nothing
+           mid-flight is aborted.
+        2. **Rebuild the rendezvous map**: a fresh ``ShardMap(n)``
+           swaps into the router (gang memos cleared, generation
+           bumped) and every surviving shard's informer gets its new
+           partition filter (snapshots invalidated, rebuilt lazily).
+        3. **Grow/shrink lanes**: new shard stacks are built against
+           the same cluster/accountant/metrics (``start_fn`` spawns
+           their serve threads in cli mode); dissolved lanes have their
+           Permit waiters force-expired — those gangs requeue WHOLE
+           through the standard rejection cascade (the only work a
+           resize requeues) — then retire: scheduler permanently
+           fenced, serve thread exits, watchers unregistered, metric
+           series and SLO/overload sources dropped.
+        4. **Reroute the moved ~1/N**: one reroute pass moves exactly
+           the queued entries whose rendezvous owner changed (the
+           movement bound the drill asserts); everything else stays put.
+        5. **Resume** commits.
+
+        Returns a report with the movement accounting."""
+        with self._resize_lock():
+            old_count = len(self.shard_stacks)
+            if new_count == old_count or new_count < 1:
+                return {
+                    "resized": False, "shards": old_count,
+                    "moved_entries": 0, "total_entries": 0,
+                    "pools_moved": 0, "pools_total": 0,
+                }
+            old_map = self.shard_map
+            cluster = self.global_stack.cluster
+            total_entries = sum(len(st.queue) for st in self.stacks)
+            self.accountant.hold_commits()
+            try:
+                deadline = time.monotonic() + quiesce_timeout_s
+                while time.monotonic() < deadline and any(
+                    st.bind_executor is not None
+                    and st.bind_executor.inflight() > 0
+                    for st in self.stacks
+                ):
+                    time.sleep(0.005)
+                pools = self.router.pools_snapshot()
+                new_map = ShardMap(new_count)
+                pools_moved = sum(
+                    1
+                    for p in pools
+                    if old_map.shard_of_pool(p) != new_map.shard_of_pool(p)
+                )
+                # Dissolving lanes: force-expire their Permit waiters
+                # BEFORE the swap — rejections cascade through the gang
+                # plugin (reservations released, members requeued whole
+                # into this lane's queue) and the reroute below carries
+                # them home. The resolutions run synchronously here.
+                retiring = (
+                    self.stacks[1 + new_count:]
+                    if new_count < old_count
+                    else []
+                )
+                for st in retiring:
+                    st.framework.expire_waiting(now=float("inf"))
+                # Grow FIRST, swap SECOND: a new lane's informer replays
+                # the cluster list-then-watch, and its pod_route_fn asks
+                # the router at replay time — with the OLD map still
+                # installed the router never answers a new lane's name,
+                # so the replay queues nothing and the reroute pass below
+                # is the single owner of every moved entry (no
+                # double-queued pods).
+                for i in range(old_count, new_count):
+                    name = shard_name(i)
+                    st = build_stack(
+                        cluster=cluster,
+                        config=self.config,
+                        accountant=self.accountant,
+                        metrics=self.metrics,
+                        clock=self.clock,
+                        stop_event=self.stop_event,
+                        shard=name,
+                        node_filter_fn=new_map.node_filter(i),
+                        pod_route_fn=(
+                            lambda pod, _n=name: self.router.route(pod) == _n
+                        ),
+                    )
+                    all_pending = getattr(self, "_all_pending", None)
+                    if all_pending is not None:
+                        _wire_stack_pending(st, all_pending)
+                    if self.shard_fence_fn is not None:
+                        st.scheduler.fence_fn = self.shard_fence_fn
+                    self.stacks.append(st)
+                    if start_fn is not None:
+                        start_fn(st)
+                # The swap: router first (event-time routing follows the
+                # new map immediately), then the surviving informers'
+                # partition filters (snapshots rebuilt lazily).
+                self.shard_map = new_map
+                self.router.swap_map(new_map)
+                for i, st in enumerate(self.stacks[1:]):
+                    if i < min(old_count, new_count):
+                        st.informer.node_filter_fn = new_map.node_filter(i)
+                        st.informer.invalidate_snapshot()
+                # Every lane's speculative plans were computed against
+                # the OLD partition map — a plan's node may no longer
+                # belong to its lane — so the resize flushes them
+                # wholesale rather than trusting per-plan revalidation
+                # to notice a boundary move.
+                for st in self.stacks:
+                    if st.speculation is not None:
+                        st.speculation.flush()
+                # Shrink: retire dissolved lanes.
+                for st in retiring:
+                    self.stacks.remove(st)
+                    st.scheduler.retire()
+                # Reroute queued entries whose owner changed — surviving
+                # lanes via the standard pass, dissolved lanes drained
+                # explicitly (they are no longer in self.stacks).
+                moved = self.reroute()
+                lanes = {GLOBAL_LANE: self.stacks[0]}
+                for st in self.stacks[1:]:
+                    lanes[st.scheduler.shard] = st
+                for st in retiring:
+                    for pod, attempts in st.queue.all_entries():
+                        if not st.queue.remove(pod.uid):
+                            continue
+                        want = self.router.route(pod)
+                        target = lanes.get(want, self.stacks[0])
+                        if target.queue.find(pod.uid) is not None:
+                            moved += 1
+                            continue
+                        target.queue.readd(
+                            QueuedPodInfo(pod=pod, attempts=attempts)
+                        )
+                        moved += 1
+                for st in retiring:
+                    self._retire_stack(st, cluster)
+            finally:
+                self.accountant.resume_commits()
+            return {
+                "resized": True,
+                "shards": new_count,
+                "moved_entries": moved,
+                "total_entries": total_entries,
+                "pools_moved": pools_moved,
+                "pools_total": len(pools),
+            }
+
+    def _resize_lock(self):
+        lock = getattr(self, "_resize_mutex", None)
+        if lock is None:
+            lock = self._resize_mutex = threading.Lock()
+        return lock
+
+    def _retire_stack(self, st: Stack, cluster) -> None:
+        """Detach a dissolved lane from every shared surface: watchers,
+        metric accumulators (its per-shard series retire on the next
+        scrape — bounded cardinality), SLO/overload
+        pressure sources, its ingest drain thread, and its executor pool
+        (released WITHOUT firing the shared stop event)."""
+        remove = getattr(cluster, "remove_watcher", None)
+        if remove is not None:
+            for fn in st.watch_fns:
+                remove(fn)
+        m = self.metrics
+        for acc_name, obj in (
+            ("_queues", st.queue),
+            ("_binders", st.binder),
+            ("_bind_executors", st.bind_executor),
+        ):
+            acc = getattr(m, acc_name, None)
+            if acc is not None and obj in acc:
+                acc.remove(obj)
+        sacc = getattr(m, "_shard_loops", None)
+        if sacc is not None:
+            sacc[:] = [
+                row for row in sacc if row[1] is not st.scheduler
+            ]
+        spacc = getattr(m, "_speculations", None)
+        if spacc is not None and st.speculation is not None:
+            spacc[:] = [s for s in spacc if s is not st.speculation]
+        bacc = getattr(m, "_batch_plugins", None)
+        if bacc is not None:
+            mine = {
+                id(p)
+                for p in st.framework.batch_plugins
+                if isinstance(p, YodaBatch)
+            }
+            bacc[:] = [p for p in bacc if id(p) not in mine]
+        m.slo.remove_queue(st.queue)
+        m.overload.remove_queue(st.queue)
+        if st.ingestor is not None:
+            m.overload.remove_ingestor(st.ingestor)
+            st.ingestor.stop()
+        if st.bind_executor is not None:
+            st.bind_executor.release()
+
+    def run_until_idle(self, *, max_wall_s: float = 30.0) -> None:
+        """Drive every lane to idle concurrently (tests and benches; the
+        production loops are cli-started serve_forever threads plus the
+        maintenance loop). Threads are required — a losing shard's
+        rollback requeues work that another lane must then pick up.
+        Starved work is rescued to the global lane between drain rounds,
+        so a capacity-imbalanced routing never wedges the drain."""
+        deadline = time.monotonic() + max_wall_s
+        last_binds = -1
+        while True:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                return
+            # Rescue BEFORE draining too (mirrors the production
+            # serve-start ordering): a resync/repair requeue sitting
+            # misrouted in the global queue must move home before any
+            # lane can admit half a gang to a Permit barrier.
+            self.rescue_starved(min_attempts=1)
+            threads = [
+                threading.Thread(
+                    target=st.scheduler.run_until_idle,
+                    kwargs={"max_wall_s": remaining},
+                    name=f"shard-drain-{st.scheduler.shard}",
+                    daemon=True,
+                )
+                for st in self.stacks
+            ]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=max(deadline - time.monotonic(), 0.0) + 5.0)
+            moved = self.rescue_starved(min_attempts=1)
+            # Cross-lane reactivation (the set-level fixed point): lane
+            # A binding — or rolling reservations back — changes what
+            # lane B's parked entries could fit, but no watch event
+            # carries "reservations moved"; each scheduler's own
+            # fixed-point check only sees its own binds. While ANY lane
+            # made progress this round, re-arm every parked queue and
+            # drain again; idle means no moves AND no new binds with
+            # work still parked.
+            total_binds = sum(
+                st.scheduler.stats.binds for st in self.stacks
+            )
+            parked = any(st.queue.has_parked() for st in self.stacks)
+            if moved == 0 and (
+                not parked or total_binds == last_binds
+            ):
+                return
+            last_binds = total_binds
+            if parked:
+                for st in self.stacks:
+                    if st.queue.has_parked():
+                        st.queue.move_all_to_active(force=True)
+
+    def run_forever(
+        self, stop: "threading.Event", *, period_s: float = 5.0
+    ) -> None:
+        """The shard-set maintenance loop (cli thread): periodically
+        rescue starved work to the global lane. Reroutes ride the
+        structural-event watcher; this loop is the attempts-based
+        backstop, cheap when queues are shallow."""
+        last_binds = -1
+        while not stop.is_set():
+            try:
+                self.rescue_starved()
+                # Cross-lane reactivation tick: another lane's binds or
+                # rollbacks change what this lane's parked entries could
+                # fit, and no watch event carries reservation movement.
+                # Only when binds advanced since the last tick (an idle
+                # fleet pays nothing), and through the event cutoff
+                # (never force) so chronic unschedulables stay bounded
+                # by their own backoff.
+                total_binds = sum(
+                    st.scheduler.stats.binds for st in self.stacks
+                )
+                if total_binds != last_binds:
+                    last_binds = total_binds
+                    for st in self.stacks:
+                        if st.queue.has_parked():
+                            st.queue.move_all_to_active()
+            except Exception:  # noqa: BLE001 — maintenance must not die
+                log.exception("shard-set rescue pass failed")
+            stop.wait(period_s)
+
+    def close(self) -> None:
+        """Stop every lane's threads (``Stack.close``)."""
+        for st in self.stacks:
+            st.close()
+
+
+def build_sharded_stacks(
+    cluster=None,
+    config: SchedulerConfig | None = None,
+    *,
+    clock=time.monotonic,
+    stop_event: "threading.Event | None" = None,
+    shard_map=None,
+) -> ShardSet:
+    """Assemble the sharded scheduler: ``config.shard_count`` parallel
+    serve loops over rendezvous-partitioned ICI slices/pools, plus the
+    serialized global lane, sharing one ChipAccountant through the
+    optimistic claim->validate->commit protocol (every lane — global
+    included — stages its Reserve claims and validates at commit; a
+    losing gang rolls back through the transactional unbind path and
+    requeues whole). ``shard_map`` overrides the default
+    ``ShardMap(config.shard_count)`` — the cross_shard_contention chaos
+    mode passes one with a pinned-open overlap window.
+
+    Every lane is built by ``build_stack`` and so runs on the card unless
+    ``config.kernel_platform`` is "cpu"; on the card each lane's kernel
+    has a CUDA stream of its own."""
+    cluster = cluster or FakeCluster()
+    config = config or SchedulerConfig()
+    shard_map = shard_map or ShardMap(config.shard_count)
+    router = ShardRouter(shard_map)
+    # The router's fleet registry must be current before any informer
+    # routes a pod from the same event batch: register it FIRST (watchers
+    # run in registration order), replay included.
+    cluster.add_watcher(router.observe, batch_fn=router.observe_batch)
+    # One accountant across every lane — the commit point. Registered
+    # before any stack's informer (build_profile_stacks discipline:
+    # reservation releases precede the informer's view of the same
+    # event); capacity tracking feeds the commit validator.
+    accountant = ChipAccountant(scheduler_name=config.scheduler_name)
+    accountant.track_capacity = True
+    # Durable journal before the watcher: replayed claims (per-lane
+    # staged residue included) must exist before the list-then-watch
+    # replay layers over them.
+    _attach_journal(accountant, config)
+    cluster.add_watcher(accountant.handle)
+    shared_metrics = _metrics_from_config(config, clock)
+    # Global lane first: full fleet view (it owns the fleet gauges), pods
+    # no shard can host, and the only started background repair loops.
+    stacks = [
+        build_stack(
+            cluster=cluster,
+            config=config,
+            accountant=accountant,
+            metrics=shared_metrics,
+            clock=clock,
+            stop_event=stop_event,
+            shard=GLOBAL_LANE,
+            pod_route_fn=lambda pod: router.route(pod) == GLOBAL_LANE,
+        )
+    ]
+    for i in range(config.shard_count):
+        name = shard_name(i)
+        stacks.append(
+            build_stack(
+                cluster=cluster,
+                config=config,
+                accountant=accountant,
+                metrics=shared_metrics,
+                clock=clock,
+                stop_event=stop_event,
+                shard=name,
+                node_filter_fn=shard_map.node_filter(i),
+                pod_route_fn=(
+                    lambda pod, _n=name: router.route(pod) == _n
+                ),
+            )
+        )
+    # Cross-lane pending-placement visibility (the build_profile_stacks
+    # contract): a gang member of ANY lane parked at Permit is invisible
+    # in snapshots, and every other lane's evaluators must see it. The
+    # closure walks the LIVE stacks list (the same object ShardSet
+    # mutates in place on a live resize), so lanes added or retired by
+    # resize() stay visible/invisible automatically.
+    def all_pending() -> list:
+        out: list = []
+        for st in stacks:
+            out.extend(st.gang.pending_placements())
+        return out
+
+    for st in stacks:
+        _wire_stack_pending(st, all_pending)
+    shard_set = ShardSet(
+        stacks=stacks,
+        router=router,
+        shard_map=shard_map,
+        accountant=accountant,
+        metrics=shared_metrics,
+        config=config,
+        clock=clock,
+        stop_event=stop_event,
+    )
+    shard_set._all_pending = all_pending
+    # Occupancy-aware routing: rendezvous ties
+    # break by live shard queue depth, so a starved shard stops
+    # attracting new gangs (and starved work stops defaulting to the
+    # serialized global lane). Reads the live lanes through the shard
+    # set, so a resize re-targets it automatically.
+    router.depth_fn = shard_set.queue_depth
+
+    # Structural fleet changes re-route queued entries whose owning lane
+    # changed (and keep the router's aggregates fresh). Registered LAST:
+    # by the time it fires, every informer has applied the same batch.
+    def on_fleet_event(event) -> None:
+        if event.kind in ("TpuNodeMetrics", "Node") and event.type in (
+            "added", "deleted",
+        ):
+            shard_set.reroute()
+
+    def on_fleet_batch(events) -> None:
+        if any(
+            e.kind in ("TpuNodeMetrics", "Node")
+            and e.type in ("added", "deleted")
+            for e in events
+        ):
+            shard_set.reroute()
+
+    cluster.add_watcher(
+        on_fleet_event, replay=False, batch_fn=on_fleet_batch
+    )
+    return shard_set
+
+
+def _wire_stack_pending(stack: Stack, all_pending) -> None:
+    """Point one stack's evaluators at the cross-lane pending view
+    (build_sharded_stacks at assembly; ShardSet.resize for lanes added
+    live)."""
+    for p in stack.framework.pre_filter_plugins:
+        if isinstance(p, YodaPreFilter):
+            p.pending_fn = all_pending
+    for p in stack.framework.batch_plugins:
+        if isinstance(p, YodaBatch):
+            p.pending_fn = all_pending
+
+
+def build_profile_stacks(
+    cluster,
+    config: SchedulerConfig,
+    *,
+    clock=time.monotonic,
+    stop_event: "threading.Event | None" = None,
+) -> "list[Stack]":
+    """One stack per scheduler profile (upstream KubeSchedulerConfiguration
+    profiles: one process, several schedulerNames with different plugin
+    configs), all sharing ``cluster``'s watch streams. The base config is
+    the first profile; ``config.profiles`` follow. Each stack schedules
+    only pods whose spec.schedulerName matches its profile (the informer
+    filters pending pods; accounting still tracks every TPU-holding pod,
+    so profiles see each other's reservations). Every stack is built by
+    ``build_stack`` and so evaluates on the card unless its profile's
+    ``kernel_platform`` is "cpu"."""
+    names = (config.scheduler_name,) + tuple(
+        p.scheduler_name for p in config.profiles
+    )
+    shared = ChipAccountant(
+        scheduler_name=config.scheduler_name, scheduler_names=names
+    )
+    # Durable journal before the watcher (same order as build_stack).
+    _attach_journal(shared, config)
+    # Registered once, before any stack's informer, so reservation releases
+    # precede the informer's view of the same event (build_stack's order).
+    cluster.add_watcher(shared.handle)
+    # One cycle at a time ACROSS profiles: without this, two profile loops
+    # can both pass Filter against the same free chips before either
+    # Reserves (upstream profiles share a single scheduleOne loop).
+    cycle_lock = threading.Lock()
+    # PostFilter preemption is serialized separately: two profiles must not
+    # both select victim sets before either evicts (overlapping victims =
+    # double intent). Victim selection additionally re-takes the cycle lock
+    # inside TpuPreemption so it is consistent with Reserve; only the
+    # eviction round-trips run lock-free.
+    post_filter_lock = threading.Lock()
+    shared_metrics = _metrics_from_config(config, clock)
+    stacks = [
+        build_stack(
+            cluster=cluster,
+            config=config,
+            accountant=shared,
+            cycle_lock=cycle_lock,
+            post_filter_lock=post_filter_lock,
+            metrics=shared_metrics,
+            scheduler_names=names,
+            clock=clock,
+            stop_event=stop_event,
+        )
+    ]
+    for prof in config.profiles:
+        stacks.append(
+            build_stack(
+                cluster=cluster,
+                config=prof,
+                accountant=shared,
+                cycle_lock=cycle_lock,
+                post_filter_lock=post_filter_lock,
+                metrics=shared_metrics,
+                scheduler_names=names,
+                clock=clock,
+                stop_event=stop_event,
+            )
+        )
+    # Pending-placement visibility must span profiles: a gang member of
+    # ANY profile parked at Permit is invisible in snapshots, and the
+    # inter-pod / pending-resource evaluators of every other profile need
+    # to see it (the same reason the accountant is shared).
+    gangs = [st.gang for st in stacks]
+
+    def all_pending() -> list:
+        out: list = []
+        for g in gangs:
+            out.extend(g.pending_placements())
+        return out
+
+    for st in stacks:
+        for p in st.framework.pre_filter_plugins:
+            if isinstance(p, YodaPreFilter):
+                p.pending_fn = all_pending
+        for p in st.framework.batch_plugins:
+            if isinstance(p, YodaBatch):
+                # The burst guard must see EVERY profile's Permit-parked
+                # members, not just this stack's: a foreign member's
+                # cpu/memory claim is invisible in snapshots, and a burst
+                # prepared without it could overcommit allocatable.
+                p.pending_fn = all_pending
+    return stacks

@@ -40,9 +40,10 @@ the reference's: enqueue, cycle, permit-park, bound, gather, joint-park,
 gang-dispatch and joint-dispatch (around the card's ``fleet_eval`` and
 ``joint_fit`` launches), bind and unbind (on whichever thread runs them),
 gang release and rollback, and the rebalancer's and repair's spans.
-Spans of parts the port does not have yet (federation spillover, shard
-commits) are never emitted; the CLI's ``explain`` command waits for the
-CLI.
+A scheduler lane's cycle spans carry its ``shard`` and a lost gang
+commit lands as ``shard-commit-conflict`` on the gang's trace; spans of
+parts the port does not have yet (federation spillover) are never
+emitted.
 """
 
 from __future__ import annotations
