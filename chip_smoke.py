@@ -140,8 +140,11 @@ Phases, each of which makes the script exit non-zero when it fails:
    (h2) 64 v5e hosts filled at priority 1, 1x1x1 topology gangs on 4 v5p
        slices with each slice's diagonal deleted, an elastic gang (min 4,
        max 16, size 8) and a parked priority-100 gang of 16 x 8 chips in
-       a stack with preemption off: ``resync`` and ``run_once`` until a
-       pass changes nothing (preemption, resize and repack moves);
+       a stack with preemption off, on a held scheduling clock:
+       ``resync`` and ``run_once`` until a pass changes nothing
+       (preemption, resize and repack moves); the gang's completion is
+       the wall time from the start of the pass that admits it to the end
+       of the drain after it;
    (h3) a stack rebuilt over (h2)'s cluster with a half-bound gang left
        by the dead leader (adopted, completes), then a ghost binding, a
        dropped deletion and a leaked claim for the drift pass;
@@ -387,10 +390,56 @@ Phases, each of which makes the script exit non-zero when it fails:
        cycle lock: run (b)'s singletons alternating between them and run
        (c)'s topology gangs, drained profile after profile on a held
        clock, equal to the CPU run with each profile's launches counted.
+   Then run (p), the lanes as worker processes and the commit transport
+   (``run_proc``; ``PROC_FULL`` / ``PROC_WIRE_FULL``, the tests run the
+   small sizes on the CPU), on the same fleet; the card's compute mode and
+   whether MPS runs are printed first:
+   (p1) this process is the parent (``build_proc_parent``, the journal at
+       ``journal_sync: batch``, a ``CommitRPCServer`` on a Unix socket and
+       a ``WorkerSupervisor``) of 4 spec worker processes, each spawned
+       through this script's own ``--spec-worker`` entry, which runs the
+       port's ``procserve._run_spec_worker`` on the card with every
+       ``fleet_eval`` / ``joint_fit`` launch kept and, at exit, writes its
+       launches, their largest difference from the plain versions and ms
+       per evaluation to a file. Each worker gets the hosts of its
+       ``ShardMap(4)`` partition (generation and chips only: the v5p
+       hosts come without slices) and the pods the parent's router sends
+       its lane (run (b)'s 256 singletons and run (c)'s 8 plain gangs of
+       16 x 8 chips), drains 8 warm-up singletons, waits at the start
+       barrier and drains the timed pods. Gates: every pod bound and
+       committed, gangs whole, no host over its chips, 0 staged residue,
+       0 leaked chips and 0 commit conflicts at the parent, every worker
+       launched ``fleet_eval`` and every launch equals its plain version;
+       each lane's journal records, the bindings, the parent's claims and
+       the reports equal the same run with ``--device cpu`` workers (in a
+       spawned process, after the card's). Reported: pods/s (timed pods
+       over the slowest worker's wall) against run (o2)'s thread lanes
+       and one stack, each worker's pods/s, admission p99 and ms per
+       evaluation, the commit RPC's p50 / p99 by op, ``os.cpu_count()``;
+   (p2) ``python -m yoda_tpu_torch.cli`` with ``shard_count`` 4,
+       ``shard_mode: process`` and the journal over run (l)'s API server
+       process: run (c)'s two gang waves with 128 of run (b)'s singletons
+       (cut from 256) split over them; the worker of lane s0 gets SIGKILL
+       once half of wave 1 is bound and every worker has run a cycle. Gates: every pod bound, gangs whole on valid blocks, no
+       host over its chips, no second bind refused (409), ``/debug/shards``
+       showing 4 workers alive and lane s0 restarted once, no staged
+       residue after the drift pass, every worker's pid among nvidia-smi's
+       compute apps before the kill and after the respawn,
+       ``yoda_commit_rpc_calls_total`` above 0. Reported: pods/s, p50 /
+       p99, the kill to the respawned lane's first bind;
+   (p3) a ``--leader-elect`` leader CLI with 2 process lanes and
+       ``commit_listen`` on a loopback port, and a standby CLI with
+       ``commit_endpoint`` pointing at it, in one process; the leader
+       binds 64 of 128 singletons, the standby's
+       ``yoda_standby_lag_frames`` reads 0, the leader is stopped: the
+       standby promotes its tailed mirror warm (the leader's claims) at
+       the old term + 1, the term bump first among its new frames, and
+       binds the rest, no pod bound twice. Reported: the lag, the stop to
+       the standby's first bind.
 4. One line {"kernels": [...]} with each kernel's launches over every run
    above (runs (h)'s, (i)'s, (j)'s, (k)'s, (l)'s and (o)'s also by part,
-   run (o)'s by lane, and the speculation thread's apart; the shard
-   entry's from run (n2)), its
+   run (o)'s by lane, run (p1)'s by worker process, and the speculation
+   thread's apart; the shard entry's from run (n2)), its
    largest difference from the plain version and its times ("not
    measured" where the profiler saw no device activity).
    Before it, one line of each phase's wall seconds.
@@ -2809,9 +2858,15 @@ def run_rebalance(platform: str, size: dict):
     from yoda_tpu_torch.ops import kernel as kernel_mod
 
     pools, frag = rebalance_layout(size)
+    # A held scheduling clock, as in (h3): a preempted victim's retry
+    # backoff then never expires by wall time, so how many dispatches its
+    # retries take cannot depend on the host's speed — on the wall clock a
+    # slow host retried victims the fast one did not, and the card's
+    # dispatch count left the CPU's.
     stack, _agent = build_fleet(
         platform, 16, pools=pools, slices=size["slices"], v5e_hosts=size["v5e_hosts"],
-        enable_preemption=False, rebalance_max_victims=32, rebalance_min_gain=1e-4,
+        clock=SteppedClock(0.0), enable_preemption=False, rebalance_max_victims=32,
+        rebalance_min_gain=1e-4,
     )
     cuda_kernel.launches = cuda_kernel.joint_fit_launches = 0
     kernel_mod.row_update_launches = 0
@@ -2849,24 +2904,20 @@ def run_rebalance(platform: str, size: dict):
     t = time.perf_counter()
     resync = stack.reconciler.resync()
     resync_ms = 1e3 * (time.perf_counter() - t)
-    passes, pass_ms, admitted_at = [], [], None
+    passes, pass_ms, gang_completion_ms = [], [], None
     for _ in range(12):
-        t_clock = stack.scheduler.clock()
         t = time.perf_counter()
         report = stack.rebalancer.run_once()
         pass_ms.append(1e3 * (time.perf_counter() - t))
         view = dataclasses.asdict(report)
         passes.append(view)
-        if report.admitted_gangs and admitted_at is None:
-            admitted_at = t_clock
         stack.scheduler.run_until_idle(max_wall_s=300)
+        if report.admitted_gangs and gang_completion_ms is None:
+            gang_completion_ms = 1e3 * (time.perf_counter() - t)
         if not (report.moves or report.aborted_moves or report.preempted or report.resizes):
             break
     if platform != "cpu":
         torch.cuda.synchronize()
-    hi_done = [r.completed_at for r in stack.scheduler.stats.results
-               if r.pod_key.startswith("default/hi-") and r.node is not None
-               and r.outcome in ("bound", "waiting")]
     bound = bindings_of(stack, names)
     hi_bound = sum(bound[f"hi-{i:02d}"] is not None for i in range(size["gang"]))
     out = dict(
@@ -2875,8 +2926,7 @@ def run_rebalance(platform: str, size: dict):
         resync_ms=resync_ms, pass_ms=pass_ms, parked_before=parked, hi_bound=hi_bound,
         el_bound=sum(bound[f"el-{i:02d}"] is not None for i in range(16)),
         effective_el=stack.gang.effective_size("el"),
-        gang_completion_ms=(1e3 * (max(hi_done) - admitted_at)
-                            if admitted_at is not None and hi_done else None),
+        gang_completion_ms=gang_completion_ms,
         unbinds=stack.binder.unbinds, launches=cuda_kernel.launches,
         joint_fit_launches=cuda_kernel.joint_fit_launches,
         row_update_launches=kernel_mod.row_update_launches,
@@ -7136,7 +7186,831 @@ def phase_lanes(smi: str, rerun: "SpawnedRerun") -> dict:
     return g
 
 
+# --- run (p): process lanes and the commit transport ------------------------
+
+# Run (p) on run (o)'s 5,000-node fleet with the manifest's shard_count 4;
+# the small size is what tests/test_torch_procserve.py runs on the CPU.
+# (p1): run (b)'s singletons and run (c)'s plain gangs (the spec worker's
+# host format carries generation and chips only, so v5p hosts come
+# without slices and topology gangs have no block to take); ``warmup``
+# singletons per worker before the timed round.
+PROC_FULL = dict(slices=512, v5e_hosts=2952, shards=4, singles_b=256, plain=8,
+                 plain_size=16, warmup=8)
+PROC_SMALL = dict(slices=16, v5e_hosts=96, shards=2, singles_b=32, plain=2,
+                  plain_size=4, warmup=2)
+# (p2): the CLI over the wire with run (c)'s two gang waves and half of
+# run (b)'s singletons (cut from 256 to hold the script's time); (p3):
+# the leader / tailing standby pair with ``failover`` singletons, the
+# leader stopped after half.
+PROC_WIRE_FULL = dict(slices=512, v5e_hosts=2952, shards=4, singles_b=128, script={},
+                      failover=128)
+PROC_WIRE_SMALL = dict(slices=16, v5e_hosts=96, shards=2, singles_b=16,
+                       script=dict(plain=2, plain_size=4, cosched=2, topo=2, multi=1,
+                                   singles=8), failover=16)
+PROC_RUN_DIR = "build/run_p"
+P1_PARITY = ("lanes", "bindings", "claims", "reports", "conflicts")
+# The fields of a spec worker's report that do not read a clock.
+P1_REPORT_KEYS = ("lane", "pods", "commit_conflicts", "staged_residue", "binds",
+                  "queue_depth", "staged")
+
+
+def proc_dir(what: str):
+    """A fresh directory under the checkout's build/ for one part of run
+    (p) (journals, specs, worker results and logs); relative, so a Unix
+    socket inside it stays well under the 107-byte path limit wherever the
+    checkout lies."""
+    import shutil
+    from pathlib import Path
+
+    d = Path(PROC_RUN_DIR) / f"{what}-{os.getpid()}"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def journal_frames(d) -> "list[str]":
+    """Every record payload of the journal in ``d``, segment by segment
+    (each frame: length and CRC, then the payload)."""
+    import struct
+
+    hdr = struct.Struct("<II")
+    out = []
+    for p in sorted(d.glob("seg-*.log")):
+        raw = p.read_bytes()
+        i = 0
+        while i + hdr.size <= len(raw):
+            n, _crc = hdr.unpack_from(raw, i)
+            out.append(raw[i + hdr.size: i + hdr.size + n].decode())
+            i += hdr.size + n
+    return out
+
+
+def lane_records(frames: "list[str]") -> "tuple[dict, dict]":
+    """The journal's claim records by the lane that staged them, in order,
+    without the parent's sequence numbers (which interleave the lanes):
+    ("S", pod, node, chips, gang), ("C", pods), ("R" | "B", pod); and each
+    pod's committed node. A pod is its key (the worker's uid less its
+    ``#n`` suffix)."""
+    lane_of: dict = {}
+    staged_at: dict = {}
+    lanes: dict = {}
+    bindings: dict = {}
+
+    def key(uid: str) -> str:
+        return uid.split("#", 1)[0]
+
+    for payload in frames:
+        f = payload.split("\x1f")
+        kind = f[0]
+        if kind == "S":
+            uid, node, chips, shard, gang = f[2], f[3], int(f[4]), f[5], f[7]
+            lane_of[uid], staged_at[uid] = shard, node
+            lanes.setdefault(shard, []).append(("S", key(uid), node, chips, gang))
+        elif kind == "C":
+            uids = f[2].split(",")
+            lanes.setdefault(lane_of.get(uids[0], ""), []).append(
+                ("C", tuple(key(u) for u in uids)))
+            for u in uids:
+                bindings[key(u)] = staged_at.get(u)
+        elif kind in ("R", "B"):
+            lanes.setdefault(lane_of.get(f[2], ""), []).append((kind, key(f[2])))
+    return lanes, bindings
+
+
+def proc_spec_script(size: dict, router) -> "tuple[dict, dict, list]":
+    """(p1)'s timed pods by lane, as the parent's router routes them (each
+    pod with its own name as uid): run (b)'s singletons, then run (c)'s
+    plain gangs; the gangs, name -> size; and the pods the router sent to
+    the global lane (none are expected)."""
+    from yoda_tpu_torch.api.types import PodSpec
+
+    waves, gangs = gang_script(seed=1, plain=size["plain"], plain_size=size["plain_size"],
+                               cosched=0, topo=0, multi=0, singles=0)
+    pods = [(f"b{n}", dict(labels))
+            for n, labels in fleet_and_pods(seed=0)[1][: size["singles_b"]]]
+    pods += [(n, dict(labels)) for n, labels, _ in waves[0]]
+    by_lane: dict = {}
+    global_lane = []
+    for name, labels in pods:
+        lane = router.route(PodSpec(name, labels=labels, uid=f"default/{name}"))
+        if lane == "global":
+            global_lane.append(name)
+        by_lane.setdefault(lane, []).append({"name": name, "labels": labels})
+    return by_lane, {g: n for g, (_kind, n) in gangs.items()}, global_lane
+
+
+def spec_worker_entry(argv: "list[str]") -> int:
+    """``chip_smoke.py --spec-worker SPEC OUT DEVICE``: run (p1)'s worker
+    process. It runs the port's own spec worker
+    (``procserve._run_spec_worker``) with, on the card, every
+    ``fleet_eval`` / ``joint_fit`` launch kept (:class:`KeptKernels`, the
+    counts zeroed as it installs) and the evaluation round trip timed; at
+    exit it writes the launches, the launches held against the plain
+    versions with the largest difference, and ms per evaluation to OUT."""
+    spec_path, out_path, device = argv
+    from yoda_tpu_torch.framework import procserve
+    from yoda_tpu_torch.ops.kernel import TorchFleetKernel
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    eval_s: list = []
+    real_eval = TorchFleetKernel.evaluate_burst
+
+    def timed(self, *args, **kw):
+        t = time.perf_counter()
+        try:
+            return real_eval(self, *args, **kw)
+        finally:
+            eval_s.append(time.perf_counter() - t)
+
+    TorchFleetKernel.evaluate_burst = timed
+    kept = KeptKernels() if device == "cuda" else None
+    out = dict(pid=os.getpid(), device=device, rc=None)
+    try:
+        if kept is not None:
+            kept.install()
+        try:
+            out["rc"] = procserve._run_spec_worker(spec, device)
+        finally:
+            if kept is not None:
+                kept.restore()
+                out["kernels"] = kept.errors()
+    except BaseException as e:  # noqa: BLE001 — written to OUT, then re-raised
+        out["error"] = f"{type(e).__name__}: {e}"
+        raise
+    finally:
+        out["eval_calls"] = len(eval_s)
+        out["eval_ms_per_call"] = 1e3 * sum(eval_s) / len(eval_s) if eval_s else None
+        with open(out_path, "w") as f:
+            json.dump(out, f)
+    return out["rc"]
+
+
+def run_proc_spec(platform: str, size: dict, what: str = "p1") -> dict:
+    """(p1): this process is the parent (``build_proc_parent``, the journal
+    on, ``journal_sync: batch``) with a ``CommitRPCServer`` on a Unix
+    socket and a ``WorkerSupervisor`` over ``shards`` spec workers, spawned
+    through :func:`spec_worker_entry`; each worker gets the hosts of its
+    ``ShardMap`` partition (generation and chips) and the pods the parent's
+    router sends its lane, drains ``warmup`` singletons, waits at the start
+    barrier and drains the timed pods. Returns each lane's journal
+    records, the committed bindings, the parent's claims, the reports and
+    the workers' own results."""
+    from yoda_tpu_torch.cluster.fake import FakeCluster
+    from yoda_tpu_torch.config import SchedulerConfig
+    from yoda_tpu_torch.framework.procserve import CommitRPCServer
+    from yoda_tpu_torch.framework.shards import ShardMap, WorkerSupervisor, shard_name
+    from yoda_tpu_torch.standalone import build_proc_parent
+
+    d = proc_dir(f"{what}-{platform}")
+    n = size["shards"]
+    cfg = SchedulerConfig(kernel_platform=platform, batch_requests=16, shard_count=n,
+                          shard_mode="process", journal_path=str(d / "journal"),
+                          journal_sync="batch")
+    ss = build_proc_parent(FakeCluster(), cfg)
+    cluster = ss.global_stack.cluster
+    publish_fleet(cluster, size)
+    smap = ShardMap(n)
+    hosts: dict = {}
+    capacity = {}
+    for t in cluster.list_tpu_metrics():
+        capacity[t.name] = len(t.healthy_chips())
+        lane = next(i for i in range(n) if smap.node_filter(i)(t.name, t))
+        hosts.setdefault(lane, []).append(
+            {"name": t.name, "generation": t.generation, "chips": len(t.chips)})
+    by_lane, gangs, global_lane = proc_spec_script(size, ss.router)
+    warm = [(n_, dict(labels)) for n_, labels in fleet_and_pods(seed=3)[0][: size["warmup"]]]
+    sock = str(d / "c.sock")
+    server = CommitRPCServer(ss.accountant, sock, metrics=ss.metrics,
+                             fence_fn=lambda: True, expected_workers=n)
+    server.start()
+    device = "cpu" if platform == "cpu" else "cuda"
+    results, procs = {}, {}
+
+    def spawn(i: int):
+        lane = shard_name(i)
+        spec = {"socket": sock, "shard_index": i, "workers": n, "barrier_timeout_s": 300.0,
+                "config": {"batch_requests": 16}, "hosts": hosts.get(i, []),
+                "warmup_pods": [{"name": f"warm-{lane}-{w}", "labels": labels}
+                                for w, labels in warm],
+                "pods": by_lane.get(lane, [])}
+        (d / f"{lane}.json").write_text(json.dumps(spec))
+        results[lane] = d / f"{lane}.out.json"
+        # One string hash seed for every worker, whoever runs this: a
+        # gang's Permit waiters are released in set order, and so are the
+        # uids of the parent's commit records.
+        with open(d / f"{lane}.log", "w") as log:
+            procs[lane] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--spec-worker",
+                 str(d / f"{lane}.json"), str(results[lane]), device],
+                stdout=log, stderr=subprocess.STDOUT,
+                env=dict(os.environ, PYTHONHASHSEED="0"))
+        return procs[lane]
+
+    sup = WorkerSupervisor(spawn, n, max_respawns=0)
+    t0 = time.monotonic()
+    try:
+        sup.start()
+        wait_for(lambda: sup.alive() == 0, 600, "every spec worker to exit", poll_s=0.1)
+    finally:
+        sup.stop()
+        reports = dict(server.reports)
+        server.stop()
+    wall = time.monotonic() - t0
+    rcs = {lane: p.returncode for lane, p in procs.items()}
+    workers = {}
+    for lane, path in results.items():
+        workers[lane] = json.loads(path.read_text()) if path.exists() else {}
+        if rcs.get(lane) != 0:
+            tail = (d / f"{lane}.log").read_text()[-3000:]
+            raise AssertionError(f"(p1) worker {lane} exited {rcs.get(lane)}:\n{tail}")
+    rpc = {op: dict(calls=ss.metrics.commit_rpc_latency.count(op=op, transport="unix"),
+                    p50_ms=ss.metrics.commit_rpc_latency.quantile(0.5, op=op, transport="unix"),
+                    p99_ms=ss.metrics.commit_rpc_latency.quantile(0.99, op=op,
+                                                                   transport="unix"))
+           for op in ("stage", "commit", "release", "heartbeat")}
+    staged, conflicts = ss.accountant.staged_count(), ss.accountant.commit_conflicts
+    claims = ss.accountant.claims_snapshot()
+    leaked = {h: c for h, c in ss.accountant.chips_by_node().items() if c}
+    ss.accountant.journal.close()
+    ss.close()
+    lanes, bindings = lane_records(journal_frames(d / "journal"))
+    timed = {lane: [p["name"] for p in pods] for lane, pods in by_lane.items()}
+    used: dict = {}
+    labels_of = {p["name"]: p["labels"] for pods in by_lane.values() for p in pods}
+    for name in labels_of:
+        node = bindings.get(f"default/{name}")
+        if node is not None:
+            used[node] = used.get(node, 0) + int(labels_of[name].get("tpu/chips", "1"))
+    split = [g for g, size_g in gangs.items()
+             if sum(1 for m in range(size_g) if f"default/{g}-{m:02d}" in bindings)
+             not in (0, size_g)]
+    slowest = max((r["wall_s"] for r in reports.values()), default=0.0)
+    pods = sum(len(v) for v in timed.values())
+    return dict(
+        platform=platform, workers_n=n, pods=pods, wall_s=wall, cpu_count=os.cpu_count(),
+        global_lane=global_lane, rcs=rcs,
+        unbound=sorted(nm for nm in labels_of if f"default/{nm}" not in bindings),
+        over=sorted(h for h, u in used.items() if u > capacity[h]), split=split,
+        staged_residue=staged, leaked=leaked, conflicts=conflicts,
+        lanes=lanes, bindings={nm: bindings.get(f"default/{nm}") for nm in sorted(labels_of)},
+        claims=claims,
+        reports={lane: {k: r.get(k) for k in P1_REPORT_KEYS} for lane, r in reports.items()},
+        timing={lane: dict(pods_per_s=r.get("pods_per_s"), wall_s=r.get("wall_s"),
+                           admission_p99_s=r.get("admission_p99_s"), pid=r.get("pid"),
+                           eval_ms_per_call=workers[lane].get("eval_ms_per_call"),
+                           eval_calls=workers[lane].get("eval_calls"))
+                for lane, r in reports.items()},
+        pods_per_s=pods / slowest if slowest else 0.0,
+        commit_rpc=rpc,
+        kernels={lane: w.get("kernels") for lane, w in workers.items()},
+    )
+
+
+def run_proc_threads(platform: str, size: dict) -> dict:
+    """(p1)'s script hosted as thread lanes: ``build_sharded_stacks`` with
+    ``shards`` lanes in this process over the hosts as the spec workers
+    see them (generation and chips, no slices), the pods as its own router
+    routes them; 8 warm-up singletons a lane drained and deleted, then the
+    timed pods drained by ``ShardSet.run_until_idle`` (every lane on a
+    thread of its own). Reported beside (p1): the interpreter lock's share
+    of the thread lanes' cost (Q17)."""
+    from yoda_tpu_torch.agent.fake_publisher import FakeTpuAgent
+    from yoda_tpu_torch.api.types import PodSpec
+    from yoda_tpu_torch.cluster.fake import FakeCluster
+    from yoda_tpu_torch.config import SchedulerConfig
+    from yoda_tpu_torch.standalone import build_sharded_stacks
+
+    cfg = SchedulerConfig(kernel_platform=platform, batch_requests=16,
+                          shard_count=size["shards"])
+    ss = build_sharded_stacks(FakeCluster(), cfg)
+    cluster = ss.global_stack.cluster
+    scratch = FakeCluster()
+    publish_fleet(scratch, size)
+    agent = FakeTpuAgent(cluster)
+    for t in scratch.list_tpu_metrics():
+        agent.add_host(t.name, generation=t.generation, chips=len(t.chips))
+    agent.publish_all()
+    by_lane, _gangs, _global = proc_spec_script(size, ss.router)
+    warm = [(f"warm-{i}-{n}", dict(labels)) for i in range(size["shards"])
+            for n, labels in fleet_and_pods(seed=3)[0][: size["warmup"]]]
+    for name, labels in warm:
+        cluster.create_pod(PodSpec(name, labels=labels, uid=f"default/{name}"))
+    ss.run_until_idle(max_wall_s=600)
+    for name, _ in warm:
+        cluster.delete_pod(f"default/{name}")
+    ss.run_until_idle(max_wall_s=60)
+    pods = [p for lane in by_lane.values() for p in lane]
+    for p in pods:
+        cluster.create_pod(PodSpec(p["name"], labels=p["labels"], uid=f"default/{p['name']}"))
+    t0 = time.monotonic()
+    ss.run_until_idle(max_wall_s=600)
+    wall = time.monotonic() - t0
+    bound = sum(1 for p in pods if cluster.get_pod(f"default/{p['name']}").node_name)
+    ss.close()
+    return dict(pods=len(pods), bound=bound, wall_s=wall,
+                pods_per_s=len(pods) / wall if wall else 0.0,
+                lanes={lane: len(v) for lane, v in by_lane.items()})
+
+
+def check_proc_spec_run(run: dict, size: dict) -> None:
+    """(p1)'s gates on one platform: every worker exited 0 and reported;
+    every pod bound and committed, gangs whole, no host over its chips;
+    no pod routed to the global lane (nothing serves it here); 0 staged
+    residue, 0 leaked chips and 0 commit conflicts at the parent."""
+    n = size["shards"]
+    if sorted(run["reports"]) != [f"s{i}" for i in range(n)]:
+        raise AssertionError(f"(p1) reports from {sorted(run['reports'])}")
+    for key in ("global_lane", "unbound", "over", "split", "leaked"):
+        if run[key]:
+            raise AssertionError(f"(p1) {key}: {str(run[key])[:300]}")
+    if run["staged_residue"] or run["conflicts"]:
+        raise AssertionError(f"(p1) staged residue {run['staged_residue']}, "
+                             f"conflicts {run['conflicts']}")
+    for lane, r in run["reports"].items():
+        if r["staged_residue"] or r["commit_conflicts"]:
+            raise AssertionError(f"(p1) {lane} report: {r}")
+    if sum(r["pods"] for r in run["reports"].values()) != run["pods"]:
+        raise AssertionError(f"(p1) reported pods {run['reports']} of {run['pods']}")
+
+
+def check_proc_spec(g: dict, c: dict, size: dict) -> None:
+    """(p1) on the card against its CPU run: both pass their gates; lanes'
+    journal records, bindings, the parent's claims, the reports and the
+    conflicts equal; every worker launched ``fleet_eval``, and every launch
+    equals its plain version."""
+    check_proc_spec_run(g, size)
+    check_proc_spec_run(c, size)
+    for key in P1_PARITY:
+        if g[key] != c[key]:
+            a, b = g[key], c[key]
+            diff = ([k for k in a if a[k] != b.get(k)][:8] if isinstance(a, dict)
+                    else (str(a)[:200], str(b)[:200]))
+            raise AssertionError(f"(p1) {key} differs from the CPU run: {diff}")
+    for lane, err in g["kernels"].items():
+        if err is None or not err["launches"]["fleet_eval"]:
+            raise AssertionError(f"(p1) worker {lane} launched no fleet_eval: {err}")
+        if any(err["max_abs_err"].values()) or err["kept"] != err["launches"]:
+            raise AssertionError(f"(p1) worker {lane} kernels: {err}")
+
+
+def smi_compute_apps() -> "list[tuple[int, str]]":
+    """The processes nvidia-smi sees on the card: (pid, used memory) per
+    CUDA context."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout
+    apps = []
+    for line in out.strip().splitlines():
+        pid, _, mem = line.partition(",")
+        if pid.strip().isdigit():
+            apps.append((int(pid), mem.strip()))
+    return apps
+
+
+def on_card(pid: int, apps: "list[tuple[int, str]]") -> dict:
+    """The evidence that process ``pid`` runs on the card: nvidia-smi lists
+    its pid among the compute apps (where nvidia-smi reports this pid
+    namespace's pids), it holds the card's device files open, and it has
+    the CUDA driver and the fleet_eval kernel library mapped."""
+    try:
+        fds = [os.readlink(f"/proc/{pid}/fd/{fd}") for fd in os.listdir(f"/proc/{pid}/fd")]
+        with open(f"/proc/{pid}/maps") as f:
+            maps = f.read()
+    except OSError:
+        fds, maps = [], ""
+    return dict(in_smi=pid in {p for p, _ in apps},
+                nvidia_fds=sum(1 for x in fds if x.startswith("/dev/nvidia")),
+                libcuda="libcuda.so" in maps, fleet_eval_lib="libfleet_eval-" in maps)
+
+
+def smi_compute_mode() -> dict:
+    """The card's compute mode, and whether an MPS server runs."""
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    names = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=process_name", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout
+    return dict(compute_mode=mode, mps="nvidia-cuda-mps-server" in names
+                or bool(os.environ.get("CUDA_MPS_PIPE_DIRECTORY")))
+
+
+class ParentCapture:
+    """While entered, ``standalone.build_proc_parent`` — which the CLI
+    reaches through the module attribute — records each parent it builds
+    (by the building thread's name): the shard set whose ``supervisor``
+    the CLI attaches."""
+
+    def __enter__(self):
+        from yoda_tpu_torch import standalone
+
+        self.mod, self.real, self.sets = standalone, standalone.build_proc_parent, {}
+
+        def build_proc_parent(*args, **kw):
+            ss = self.real(*args, **kw)
+            self.sets[threading.current_thread().name] = ss
+            return ss
+
+        standalone.build_proc_parent = build_proc_parent
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.build_proc_parent = self.real
+        return False
+
+
+def write_config(d, name: str, **knobs) -> str:
+    lines = [f"{k}: {json.dumps(v)}" for k, v in knobs.items()]
+    path = d / f"{name}.yaml"
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+def shards_view(port: int) -> dict:
+    status, text = http_get(f"http://127.0.0.1:{port}/debug/shards")
+    return json.loads(text) if status == 200 else {}
+
+
+def partition_of(slice_of: dict, n: int) -> "dict[str, int]":
+    """Each host's lane under ``ShardMap(n)`` (its slice, else itself, is
+    the pool)."""
+    from yoda_tpu_torch.framework.shards import ShardMap
+
+    smap = ShardMap(n)
+    return {h: smap.shard_of_pool(s or f"host:{h}") for h, s in slice_of.items()}
+
+
+def run_proc_wire(platform: str, size: dict = PROC_WIRE_FULL) -> dict:
+    """(p2): ``python -m yoda_tpu_torch.cli`` with ``shard_count`` 4,
+    ``shard_mode: process`` and the journal, over the port's fake API
+    server in its own process (run (l)'s harness) holding the fleet with
+    its slices; run (c)'s two gang waves with ``singles_b`` of run (b)'s
+    singletons split over them, over HTTP; the worker of lane s0 gets
+    SIGKILL once half of wave 1 is bound, and the supervisor respawns it."""
+    from collections import Counter
+
+    from yoda_tpu_torch.api.requests import gang_name_of
+
+    d = proc_dir(f"p2-{platform}")
+    n = size["shards"]
+    waves, gangs = gang_script(seed=1, **size["script"])
+    singles = fleet_and_pods(seed=0)[1][: size["singles_b"]]
+    half = len(singles) // 2
+    waves = [[(nm, dict(lab)) for nm, lab, _ in waves[0]]
+             + [(f"b{nm}", dict(lab)) for nm, lab in singles[:half]],
+             [(nm, dict(lab)) for nm, lab, _ in waves[1]]
+             + [(f"b{nm}", dict(lab)) for nm, lab in singles[half:]]]
+    labels_of = {f"default/{nm}": lab for w in waves for nm, lab in w}
+    config = write_config(d, "p2", shard_count=n, shard_mode="process",
+                          journal_path=str(d / "journal"), journal_sync="batch",
+                          batch_requests=16, gang_permit_timeout_s=O2_PERMIT_TIMEOUT_S,
+                          reconcile_period_s=5.0)
+    port = free_port()
+    argv = ["--config", config, "--metrics-port", str(port)] + (
+        ["--device", "cpu"] if platform == "cpu" else [])
+    apps_before, apps_after, cuda_before, cuda_after = [], [], {}, {}
+    self_in_smi = None
+    with ApiServerProcess(size) as server:
+        part = partition_of(server.slice_of, n)
+        client = seed_client(server)
+        with ParentCapture() as parents, Replicas(server.base_url) as reps:
+            t_start = time.monotonic()
+            reps.start("p2", argv)
+            wait_for(lambda: http_get(f"http://127.0.0.1:{port}/readyz")[0] == 200,
+                     300, "/readyz 200")
+            wait_for(lambda: sum(1 for r in shards_view(port).get("workers", [])
+                                 if r.get("heartbeat_age_s") is not None) == n,
+                     300, "every worker's heartbeat", poll_s=0.2)
+            t_ready = time.monotonic()
+            ss = parents.sets["p2"]
+            pids_before = {r["lane"]: r["pid"] for r in shards_view(port)["workers"]}
+            created = create_pods(client, waves[0])
+            keys0 = [f"default/{nm}" for nm, _ in waves[0]]
+            wait_for(lambda: sum(v is not None for v in server.bound(keys0).values())
+                     >= len(keys0) // 2, 300, "half of wave 1 bound", poll_s=0.05)
+            # Every worker has run a cycle (a worker makes its CUDA context
+            # and loads the kernel library at its first evaluation).
+            wait_for(lambda: all(r.get("cycles") for r in shards_view(port)["workers"]),
+                     120, "a cycle on every worker", poll_s=0.05)
+            if platform != "cpu":
+                apps_before = smi_compute_apps()
+                cuda_before = {lane: on_card(pid, apps_before)
+                               for lane, pid in pids_before.items()}
+            t_kill = time.monotonic()
+            ss.supervisor.kill(0)
+            wait_for(lambda: all(v is not None for v in server.bound(keys0).values()),
+                     300, "wave 1 bound", poll_s=0.05)
+            created.update(create_pods(client, waves[1]))
+            try:
+                wait_for(lambda: all(v is not None for v in server.bound(labels_of).values()),
+                         300, "every pod bound", poll_s=0.05)
+            except AssertionError as e:
+                left = sorted(k for k, v in server.bound(labels_of).items() if v is None)
+                raise AssertionError(f"{e}: {len(left)} left {left[:12]}, workers "
+                                     f"{shards_view(port).get('workers')}, staged "
+                                     f"{ss.accountant.staged_uids()}") from None
+            t_done = time.monotonic()
+
+            def respawned() -> bool:
+                rows = {r["lane"]: r for r in shards_view(port).get("workers", [])}
+                s0 = rows.get("s0", {})
+                return (len([r for r in rows.values() if r.get("alive")]) == n
+                        and s0.get("restarts") == 1 and s0.get("pid") != pids_before["s0"]
+                        and s0.get("heartbeat_age_s") is not None)
+
+            wait_for(respawned, 120, "the killed worker respawned", poll_s=0.2)
+            if platform != "cpu":
+                apps_after = smi_compute_apps()
+                cuda_after = {r["lane"]: on_card(r["pid"], apps_after)
+                              for r in shards_view(port)["workers"]}
+                self_in_smi = os.getpid() in {p for p, _ in apps_after}
+            # The drift pass (every reconcile_period_s) finalizes the
+            # killed worker's bound residue.
+            wait_for(lambda: ss.accountant.staged_count() == 0, 60,
+                     "no staged residue after the drift pass", poll_s=0.2)
+            view = shards_view(port)
+            values = scrape(port)
+            reps.stop("p2", timeout_s=120)
+            rc = reps.rc.get("p2")
+        bound = server.bound(labels_of)
+        log = server.bindings()
+    posts, bound_at, conflicts = binding_counts(log)
+    checks = wire_checks(bound, labels_of, gangs, server.capacity, server.slice_of, posts)
+    # A multislice gang's valid block: a member on each of 8 hosts, four
+    # on each of two slices.
+    checks["misplaced_multislice"] = sorted(
+        g for g, (kind, _n) in gangs.items() if kind == "multislice" and sorted(
+            Counter(server.slice_of[node] for k, node in bound.items()
+                    if node and k.startswith(f"default/{g}-")).values()) != [4, 4])
+    rebinds = sorted(k for k, c in posts.items() if c > 1)
+    checks.pop("double_posts")
+    lat = sorted(bound_at[k] - created[k] for k in labels_of if k in bound_at)
+    after_kill = [(m, node) for key, node, status, m, _w in log
+                  if status == 201 and m > t_kill and part.get(node) == 0]
+    spans: dict = {}
+    for k in labels_of:
+        g = gang_name_of(labels_of[k])
+        if g is not None and k in bound_at:
+            lo, hi = spans.get(g, (float("inf"), 0.0))
+            spans[g] = (min(lo, created[k]), max(hi, bound_at[k]))
+    completion = sorted(hi - lo for lo, hi in spans.values())
+    t_first = min(created.values())
+    rpc_calls = sum(v for k, v in values.items() if k.startswith("yoda_commit_rpc_calls_total"))
+    return dict(
+        platform=platform, pods=len(labels_of), rc=rc, checks=checks, conflicts=conflicts,
+        rebinds=len(rebinds), bound=sum(v is not None for v in bound.values()),
+        start_to_workers_s=t_ready - t_start,
+        workers=view.get("workers", []), pids_before=pids_before,
+        on_card_before=cuda_before, on_card_after=cuda_after,
+        smi_apps_before=apps_before, smi_apps_after=apps_after,
+        parent_pid=os.getpid(), parent_in_smi=self_in_smi,
+        kill_to_respawned_first_bind_ms=(1e3 * (min(m for m, _ in after_kill) - t_kill)
+                                         if after_kill else None),
+        pods_per_s=len(lat) / (t_done - t_first) if lat else 0.0,
+        p50_ms=pct_ms(lat, 0.5), p99_ms=pct_ms(lat, 0.99),
+        gang_p50_ms=pct_ms(completion, 0.5), gang_p99_ms=pct_ms(completion, 0.99),
+        commit_rpc_calls=rpc_calls,
+        commit_rpc_conflicts=sum(v for k, v in values.items()
+                                 if k.startswith("yoda_commit_rpc_conflicts_total")),
+    )
+
+
+def check_proc_wire(run: dict, size: dict, card: bool) -> None:
+    """(p2)'s gates: the CLI exited 0; every pod bound, gangs whole on a
+    valid block (a topology gang on four hosts of one slice, a multislice
+    gang four members on each of two slices), no host over its chips, no binding POST refused as a
+    second bind (409); four workers alive and lane s0 restarted once
+    (``/debug/shards``); the commit RPC carried calls; on the card every
+    worker, before the kill and after the respawn, running on the card:
+    among nvidia-smi's compute apps where nvidia-smi reports this pid
+    namespace (it lists the parent's own pid), and in any case holding
+    the card's device files open with the CUDA driver and the fleet_eval
+    library mapped, with nvidia-smi counting a context for each."""
+    if run["rc"] != 0:
+        raise AssertionError(f"(p2) the CLI returned {run['rc']}")
+    for key, bad in run["checks"].items():
+        if bad:
+            raise AssertionError(f"(p2) {key}: {bad[:8]}")
+    if run["conflicts"] or run["bound"] != run["pods"]:
+        raise AssertionError(f"(p2) bound {run['bound']}/{run['pods']}, "
+                             f"409s {run['conflicts']}")
+    rows = {r["lane"]: r for r in run["workers"]}
+    if (sorted(rows) != [f"s{i}" for i in range(size["shards"])]
+            or not all(r.get("alive") for r in rows.values())
+            or rows["s0"].get("restarts") != 1):
+        raise AssertionError(f"(p2) /debug/shards: {run['workers']}")
+    if not run["commit_rpc_calls"]:
+        raise AssertionError("(p2) yoda_commit_rpc_calls_total is 0")
+    if not card:
+        return
+    for when in ("before", "after"):
+        rows = run[f"on_card_{when}"]
+        bad = {lane: r for lane, r in rows.items()
+               if not (r["nvidia_fds"] and r["libcuda"] and r["fleet_eval_lib"])
+               or (run["parent_in_smi"] and not r["in_smi"])}
+        # The parent and every worker each hold a context.
+        if len(rows) != size["shards"] or bad or (
+                len(run[f"smi_apps_{when}"]) < size["shards"] + 1):
+            raise AssertionError(f"(p2) workers not on the card {when} the kill: {rows}, "
+                                 f"nvidia-smi {run[f'smi_apps_{when}']}")
+
+
+def run_proc_standby(platform: str, size: dict = PROC_WIRE_FULL) -> dict:
+    """(p3): a ``--leader-elect`` leader CLI with ``shard_count`` 2,
+    ``shard_mode: process`` and ``commit_listen`` on a free loopback port,
+    and a ``--leader-elect`` standby with ``commit_endpoint`` pointing at
+    it (its own journal, its own two workers, fenced), in one process;
+    the leader binds the first half of ``failover`` singletons, the
+    standby's tail reaches zero lag, the leader is stopped and the rest
+    created: the standby promotes its tailed mirror, bumps the term and
+    binds the rest."""
+    d = proc_dir(f"p3-{platform}")
+    singles = fleet_and_pods(23)[1][: size["failover"]]
+    half = len(singles) // 2
+    first = [(f"a-{nm}", lab) for nm, lab in singles[:half]]
+    second = [(f"b-{nm}", lab) for nm, lab in singles[half:]]
+    labels_of = {f"default/{nm}": lab for nm, lab in first + second}
+    listen = f"127.0.0.1:{free_port()}"
+    common = dict(shard_count=2, shard_mode="process", journal_sync="batch")
+    configs = {
+        "a": write_config(d, "leader", journal_path=str(d / "journal-a"),
+                          commit_listen=listen, **common),
+        "b": write_config(d, "standby", journal_path=str(d / "journal-b"),
+                          commit_endpoint=listen, **common),
+    }
+    ports = {"a": free_port(), "b": free_port()}
+    dev = ["--device", "cpu"] if platform == "cpu" else []
+
+    def lag() -> "float | None":
+        return scrape(ports["b"]).get("yoda_standby_lag_frames")
+
+    with ApiServerProcess(size) as server:
+        client = seed_client(server)
+        with ParentCapture() as parents, Replicas(server.base_url) as reps:
+            for r in ("a", "b"):
+                reps.start(r, ["--leader-elect", "--lease-identity", f"replica-{r}",
+                               "--metrics-port", str(ports[r]), "--config", configs[r]]
+                           + dev)
+                if r == "a":
+                    wait_for(lambda: http_get(f"http://127.0.0.1:{ports['a']}/readyz")[0]
+                             == 200, 300, "the leader ready")
+            wait_for(lambda: http_get(f"http://127.0.0.1:{ports['b']}/healthz")[0] == 200,
+                     300, "the standby up")
+            create_pods(client, first)
+            wait_for(lambda: all(v is not None for v in
+                                 server.bound([f"default/{nm}" for nm, _ in first]).values()),
+                     300, "the leader bound the first half", poll_s=0.05)
+            leader = parents.sets["a"]
+            wait_for(lambda: leader.accountant.staged_count() == 0, 60, "commits settled")
+            leader_claims = leader.accountant.claims_snapshot()
+            leader_journal = leader.accountant.journal.summary()
+            wait_for(lambda: lag() == 0.0, 60, "the standby's tail at zero lag", poll_s=0.1)
+            lag_before_stop = lag()
+            standby = parents.sets["b"]
+            # The standby's own journal head before the promotion (the
+            # bound pods its watch layered on); the promotion continues the
+            # shipped tail past it and the leader's.
+            before = max(standby.accountant.journal.summary()["tail_seq"],
+                         leader_journal["tail_seq"])
+            t_stop = time.monotonic()
+            reps.stops["a"].set()
+            created = create_pods(client, second)
+            reps.stop("a", timeout_s=120)
+            wait_for(lambda: all(v is not None for v in server.bound(labels_of).values()),
+                     300, "the standby bound the rest", poll_s=0.05)
+            promoted_claims = {u: c for u, c in standby.accountant.claims_snapshot().items()
+                               if u in leader_claims}
+            summary = standby.accountant.journal.summary()
+            # The standby's frames since the promotion: the first is its
+            # term bump (a deferred snapshot later rotates the segment
+            # that holds it away, so it is read from the ship ring).
+            shipped = standby.accountant.journal.frames_since(before)
+            values = scrape(ports["b"])
+            reps.stop("b", timeout_s=120)
+            rc = dict(reps.rc)
+        bound = server.bound(labels_of)
+        log = server.bindings()
+    first_frame = shipped[0][0].split("\x1f") if shipped and shipped[0] else []
+    posts, bound_at, conflicts = binding_counts(log)
+    checks = wire_checks(bound, labels_of, {}, server.capacity, server.slice_of, posts)
+    second_keys = [f"default/{nm}" for nm, _ in second]
+    return dict(
+        platform=platform, pods=len(labels_of), rc=rc, checks=checks, conflicts=conflicts,
+        bound=sum(v is not None for v in bound.values()),
+        lag_before_stop=lag_before_stop, leader_claims=len(leader_claims),
+        leader_journal_term=leader_journal["term"],
+        seq_before_promotion=before,
+        warm=promoted_claims == leader_claims,
+        standby_term=summary["term"], first_new_frame=first_frame,
+        standby_lag_after=values.get("yoda_standby_lag_frames"),
+        stop_to_standby_first_bind_ms=1e3 * (min(bound_at[k] for k in second_keys) - t_stop),
+        second_half_p50_ms=pct_ms(sorted(bound_at[k] - created[k] for k in second_keys), 0.5),
+    )
+
+
+def check_proc_standby(run: dict) -> None:
+    """(p3)'s gates: both CLIs returned 0; the standby's lag read 0 before
+    the stop; it promoted warm (the leader's claims adopted) at the old
+    term + 1, with the term bump as its journal's first frame; every pod
+    bound once on a host with room."""
+    if set(run["rc"].values()) != {0}:
+        raise AssertionError(f"(p3) the CLIs returned {run['rc']}")
+    if run["lag_before_stop"] != 0.0:
+        raise AssertionError(f"(p3) standby lag before the stop {run['lag_before_stop']}")
+    if not run["warm"] or not run["leader_claims"]:
+        raise AssertionError(f"(p3) not promoted warm ({run['leader_claims']} claims)")
+    old = max(1, run["leader_journal_term"])
+    first = run["first_new_frame"]
+    if (run["standby_term"] != old + 1 or len(first) != 3 or first[0] != "T"
+            or first[2] != str(old + 1) or int(first[1]) <= run["seq_before_promotion"]):
+        raise AssertionError(f"(p3) term {run['standby_term']}, first new frame {first} "
+                             f"(old term {old}, seq before {run['seq_before_promotion']})")
+    for key, bad in run["checks"].items():
+        if bad:
+            raise AssertionError(f"(p3) {key}: {bad[:8]}")
+    if run["conflicts"] or run["bound"] != run["pods"]:
+        raise AssertionError(f"(p3) bound {run['bound']}/{run['pods']}, "
+                             f"409s {run['conflicts']}")
+
+
+def run_proc(platform: str, size: dict = PROC_FULL, *, reported: bool = True) -> dict:
+    """Run (p): (p1) on ``platform``; with ``reported`` also (p2) and
+    (p3) (their numbers are the card's)."""
+    out = dict(p1=run_proc_spec(platform, size))
+    if reported:
+        wire = PROC_WIRE_FULL if size is PROC_FULL else PROC_WIRE_SMALL
+        out["p2"] = run_proc_wire(platform, wire)
+        out["p3"] = run_proc_standby(platform, wire)
+    return out
+
+
+def print_proc(run: dict, smi: str) -> None:
+    drop = ("lanes", "bindings", "claims", "reports", "kernels")
+    for part in ("p1", "p1_single", "p2", "p3"):
+        if part in run:
+            r = {k: v for k, v in run[part].items() if k not in drop}
+            print(f"process lanes run ({part}) {run[part]['platform']} [{smi}]:",
+                  json.dumps(r, default=str))
+
+
+def phase_proc(smi: str, lanes: dict) -> dict:
+    """Run (p) on the card: (p1), (p1)'s script as one worker process and
+    as thread lanes beside it (reported), (p1)'s CPU run (spawned only
+    then: its five processes beside the earlier phases slowed the host
+    that those phases time), then (p2) and (p3)."""
+    print("process lanes run (p): card", json.dumps(smi_compute_mode()))
+    seconds = {}
+    t = time.monotonic()
+    p1 = run_proc_spec("auto", PROC_FULL)
+    seconds["p1"] = time.monotonic() - t
+    print_proc(dict(p1=p1), smi)
+    t = time.monotonic()
+    single = run_proc_spec("auto", dict(PROC_FULL, shards=1), "p1-single")
+    check_proc_spec_run(single, dict(PROC_FULL, shards=1))
+    threads = run_proc_threads("auto", PROC_FULL)
+    if threads["bound"] != threads["pods"]:
+        raise AssertionError(f"(p1) thread lanes bound {threads['bound']}/{threads['pods']}")
+    seconds["p1_baselines"] = time.monotonic() - t
+    t = time.monotonic()
+    rerun = SpawnedRerun("run_proc", PROC_FULL, "run (p1)")
+    try:
+        c = rerun.result()
+    finally:
+        rerun.stop()
+    seconds["p1_cpu"] = time.monotonic() - t
+    print_proc(c, smi)
+    check_proc_spec(p1, c["p1"], PROC_FULL)
+    out = dict(p1=p1, p1_single=single, p1_threads=threads)
+    print_proc(dict(p1_single=single), smi)
+    print(f"process lanes run (p1) [{smi}]: {p1['pods_per_s']:.1f} pods/s over "
+          f"{p1['workers_n']} worker processes, {single['pods_per_s']:.1f} in one worker "
+          f"process, {threads['pods_per_s']:.1f} over {PROC_FULL['shards']} thread lanes "
+          f"and the global lane ({threads['pods']} pods, {threads['wall_s']:.3f} s)")
+    t = time.monotonic()
+    out["p2"] = run_proc_wire("auto", PROC_WIRE_FULL)
+    seconds["p2"] = time.monotonic() - t
+    print_proc(dict(p2=out["p2"]), smi)
+    check_proc_wire(out["p2"], PROC_WIRE_FULL, card=True)
+    t = time.monotonic()
+    out["p3"] = run_proc_standby("auto", PROC_WIRE_FULL)
+    seconds["p3"] = time.monotonic() - t
+    print_proc(dict(p3=out["p3"]), smi)
+    check_proc_standby(out["p3"])
+    print("process lanes run (p) seconds:", json.dumps(seconds))
+    o2 = lanes["o2"]["pods_per_s"], lanes["o2_single"]["pods_per_s"]
+    print(f"process lanes run (p1): {p1['pods_per_s']:.1f} pods/s over {p1['workers_n']} "
+          f"worker processes against run (o2)'s four thread lanes {o2[0]:.1f} and one "
+          f"stack {o2[1]:.1f} (run (o)'s script); os.cpu_count() {p1['cpu_count']}")
+    return out
+
+
 def main() -> None:
+    if sys.argv[1:2] == ["--spec-worker"]:
+        sys.exit(spec_worker_entry(sys.argv[2:]))
     # One string hash seed for this process and the CPU reruns it spawns:
     # a gang's Permit waiters are released in set order, so the order of
     # the uids in run (o)'s journal commit records follows the hash seed
@@ -7183,6 +8057,7 @@ def main() -> None:
         loop = phase("loop run (m)", phase_loop, smi)
         sharded = phase("sharded run (n)", phase_sharded, smi, gpu)
         lanes = phase("lanes run (o)", phase_lanes, smi, lanes_rerun)
+        proc = phase("process lanes run (p)", phase_proc, smi, lanes)
         print("phase seconds:", json.dumps(seconds))
         o_parts = ("o1", "o3", "o4", "o2", "o2_single", "o2_nojournal")
         l_parts = ("l1", "l2", "l3", "l4")
@@ -7217,7 +8092,12 @@ def main() -> None:
                     + sum(tenancy[p]["launches"]["fleet_eval"] for p in k_parts)
                     + sum(process[p]["launches"]["fleet_eval"] for p in l_parts)
                     + loop["m1"]["launches"]
-                    + sum(lanes[p]["kernels"]["launches"]["fleet_eval"] for p in o_parts),
+                    + sum(lanes[p]["kernels"]["launches"]["fleet_eval"] for p in o_parts)
+                    + sum(w["launches"]["fleet_eval"] for w in proc["p1"]["kernels"].values()),
+                    "launches_run_p1_by_worker": {
+                        lane: w["launches"]["fleet_eval"]
+                        for lane, w in proc["p1"]["kernels"].items()
+                    },
                     "launches_run_o": {
                         p: lanes[p]["kernels"]["launches"]["fleet_eval"] for p in o_parts
                     },
@@ -7264,7 +8144,9 @@ def main() -> None:
                                        *(process[p]["max_abs_err"]["fleet_eval"]
                                          for p in l_parts),
                                        *(lanes[p]["kernels"]["max_abs_err"]["fleet_eval"]
-                                         for p in o_parts)),
+                                         for p in o_parts),
+                                       *(w["max_abs_err"]["fleet_eval"]
+                                         for w in proc["p1"]["kernels"].values())),
                     "ms": main_row["ms"],
                     "plain_ms": main_row["plain_ms"],
                     "bound_ms": main_row["bound_ms"],
@@ -7299,7 +8181,12 @@ def main() -> None:
                     + sum(observability[p]["launches"]["joint_fit"] for p in j_parts)
                     + sum(tenancy[p]["launches"]["joint_fit"] for p in k_parts)
                     + sum(process[p]["launches"]["joint_fit"] for p in l_parts)
-                    + sum(lanes[p]["kernels"]["launches"]["joint_fit"] for p in o_parts),
+                    + sum(lanes[p]["kernels"]["launches"]["joint_fit"] for p in o_parts)
+                    + sum(w["launches"]["joint_fit"] for w in proc["p1"]["kernels"].values()),
+                    "launches_run_p1_by_worker": {
+                        lane: w["launches"]["joint_fit"]
+                        for lane, w in proc["p1"]["kernels"].items()
+                    },
                     "launches_run_l": {
                         p: process[p]["launches"]["joint_fit"] for p in l_parts
                     },
@@ -7328,7 +8215,9 @@ def main() -> None:
                                        *(process[p]["max_abs_err"]["joint_fit"]
                                          for p in l_parts),
                                        *(lanes[p]["kernels"]["max_abs_err"]["joint_fit"]
-                                         for p in o_parts)),
+                                         for p in o_parts),
+                                       *(w["max_abs_err"]["joint_fit"]
+                                         for w in proc["p1"]["kernels"].values())),
                     "ms": joint_main["ms"],
                     "device_ms": not_measured(joint_main["device_ms"]),
                     "plain_ms": joint_main["plain_ms"],

@@ -15,11 +15,13 @@ wait for (ROADMAP queue 1):
 Port-only cases: without ``--device cpu`` (and with a config that leaves
 ``kernel_platform`` at "auto") the CLI on a machine without a card exits
 nonzero naming the card, in a process of its own; every unported mode
-exits 2 naming its ROADMAP item before it touches the API server;
-``shard_count: 2`` (thread lanes) and ``profiles`` serve over the fake
-API server and bind a pod of every lane or profile, the reload of
-``shard_count`` resizing the lanes, with ``/debug/shards`` and
-``/debug/journal`` answering;
+(the node agent, federation) exits 2 naming its ROADMAP item before it
+touches the API server;
+``shard_count: 2`` (thread lanes), ``profiles`` and ``shard_mode:
+process`` (worker processes on the host, on a Unix socket and on TCP)
+serve over the fake API server and bind a pod of every lane or profile,
+the reload of ``shard_count`` resizing thread lanes, with
+``/debug/shards`` and ``/debug/journal`` answering;
 ``--demo --device cpu`` prints the reference demo's placements; and
 chip_smoke's runs (l1) and (l2) at their small size on the CPU
 (``TestRunL``).
@@ -28,6 +30,7 @@ chip_smoke's runs (l1) and (l2) at their small size on the CPU
 from __future__ import annotations
 
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -79,15 +82,10 @@ def test_default_device_without_a_card_exits_nonzero_naming_the_card(tmp_path):
 UNPORTED = [
     (["--agent"], None, "item 11"),
     (["--federate-url", "remote=http://127.0.0.1:1"], None, "item 9c"),
-    ([], "shard_count: 2\nshard_mode: process\n", "item 9b"),
-    ([], "commit_listen: 127.0.0.1:0\n", "item 9b"),
-    ([], "commit_endpoint: 127.0.0.1:1\n", "item 9b"),
 ]
 
 
-@pytest.mark.parametrize(
-    "argv, config, item", UNPORTED, ids=["agent", "federate", "process", "listen", "tail"]
-)
+@pytest.mark.parametrize("argv, config, item", UNPORTED, ids=["agent", "federate"])
 def test_unported_mode_exits_2_naming_its_item(argv, config, item, tmp_path, capsys, monkeypatch):
     from yoda_tpu_torch.cli import main
 
@@ -135,16 +133,24 @@ class TestRunL:
 LANES = [
     "shard_count: 2\njournal_path: {journal}\n",
     "profiles:\n  - scheduler_name: other\n    scoring_strategy: most-allocated\n",
+    "shard_count: 2\nshard_mode: process\njournal_path: {journal}\n",
+    "shard_count: 2\nshard_mode: process\njournal_path: {journal}\n"
+    "commit_listen: 127.0.0.1:0\n",
 ]
 
 
-@pytest.mark.parametrize("config", LANES, ids=["shards", "profiles"])
+@pytest.mark.parametrize(
+    "config", LANES, ids=["shards", "profiles", "process", "process-tcp"]
+)
 def test_lanes_and_profiles_serve(config, tmp_path, monkeypatch):
-    """``shard_count: 2`` (thread lanes, with the journal) and ``profiles``
-    build, serve over the port's fake API server and bind a pod of every
-    lane or profile; ``/debug/shards`` lists the lanes under this pid and
-    ``/debug/journal`` the journal's summary; a ``shard_count`` reload
-    resizes the lanes."""
+    """``shard_count: 2`` (thread lanes, with the journal), ``profiles``
+    and ``shard_mode: process`` (two worker processes on the host, given
+    the CLI's ``--device cpu``, over the commit RPC on a Unix socket or on
+    TCP at ``commit_listen``) build, serve over the port's fake API server
+    and bind a topology gang and singletons of every lane or profile;
+    ``/debug/shards`` lists the lanes (thread lanes under this pid, process
+    lanes as live workers of their own pids) and ``/debug/journal`` the
+    journal's summary; a ``shard_count`` reload resizes thread lanes."""
     import json
     import threading
     import urllib.request
@@ -155,6 +161,7 @@ def test_lanes_and_profiles_serve(config, tmp_path, monkeypatch):
     from yoda_tpu_torch.testing import FakeKubeApiServer, wait_until
 
     sharded = config.startswith("shard_count")
+    process = "shard_mode: process" in config
     path = tmp_path / "config.yaml"
     path.write_text(config.format(journal=tmp_path / "journal"))
     with FakeKubeApiServer() as srv:
@@ -215,7 +222,18 @@ def test_lanes_and_profiles_serve(config, tmp_path, monkeypatch):
             base = f"http://127.0.0.1:{port_file.read_text()}"
             shards = json.loads(urllib.request.urlopen(f"{base}/debug/shards").read())
             journal = json.loads(urllib.request.urlopen(f"{base}/debug/journal").read())
-            if sharded:
+            if process:
+                assert shards["mode"] == "process"
+                assert [w["lane"] for w in shards["workers"]] == ["s0", "s1"]
+                assert all(w["alive"] and w["restarts"] == 0 for w in shards["workers"])
+                assert os.getpid() not in {w["pid"] for w in shards["workers"]}
+                assert journal["enabled"] and journal["appends"] >= len(pods)
+                metrics = urllib.request.urlopen(f"{base}/metrics").read().decode()
+                kind = "tcp" if "commit_listen" in config else "unix"
+                assert re.search(
+                    r'yoda_commit_rpc_calls_total\{op="commit",shard="s[01]",'
+                    f'transport="{kind}"' + r'\} [1-9]', metrics)
+            elif sharded:
                 assert shards["mode"] == "thread"
                 assert [w["lane"] for w in shards["workers"]] == ["s0", "s1"]
                 assert {w["pid"] for w in shards["workers"]} == {os.getpid()}

@@ -7,7 +7,8 @@ the speculative placement cache's private kernel on its own stream, alone
 and beside the serve path's launches from a second thread (run (h)); and
 the node health path (run (i)): a fence flip patches the admission rows
 the card's kernels read, with no re-stack and no row update, and the
-whole run decides as on the CPU.
+whole run decides as on the CPU; and the lanes as worker processes (run
+(p) at its small size), each launching on the card.
 
 Tests marked ``cuda`` need the card and skip without one; run them there
 with ``python -m pytest -m cuda tests/test_torch_cuda.py``. This file
@@ -866,3 +867,22 @@ class TestLanesOnCard:
         got = run_lanes("auto", LANES_SMALL)
         want = run_lanes("cpu", LANES_SMALL, reported=False)
         check_lanes(got, want, LANES_SMALL)
+
+
+@pytest.mark.cuda
+class TestProcessLanesOnCard:
+    def test_run_p_small(self, card):
+        """chip_smoke's run (p) at its small size: (p1)'s worker processes
+        each launch on the card, every launch equal to its plain version,
+        and the run equal to its CPU run; (p2)'s CLI-spawned workers on
+        the card with one killed and respawned; (p3)'s tailing standby
+        promoting warm."""
+        from chip_smoke import (
+            PROC_SMALL, PROC_WIRE_SMALL, check_proc_spec, check_proc_standby,
+            check_proc_wire, run_proc_spec, run_proc_standby, run_proc_wire,
+        )
+
+        check_proc_spec(run_proc_spec("auto", PROC_SMALL), run_proc_spec("cpu", PROC_SMALL),
+                        PROC_SMALL)
+        check_proc_wire(run_proc_wire("auto", PROC_WIRE_SMALL), PROC_WIRE_SMALL, card=True)
+        check_proc_standby(run_proc_standby("auto", PROC_WIRE_SMALL))

@@ -28,6 +28,7 @@ from yoda_tpu_torch.config import SchedulerConfig
 from yoda_tpu_torch.cluster.fake import FakeCluster
 from yoda_tpu_torch.standalone import (
     UNPORTED_KNOB_VALUES,
+    build_proc_parent,
     build_profile_stacks,
     build_sharded_stacks,
     build_stack,
@@ -67,7 +68,8 @@ class TestImportGuard:
                     "parallel/__init__.py", "parallel/sharded.py",
                     "plugins/yoda/collection.py", "plugins/yoda/score.py",
                     "journal/__init__.py", "journal/journal.py",
-                    "framework/shards.py"):
+                    "journal/tail.py", "framework/shards.py",
+                    "framework/procserve.py"):
             assert REPO / "yoda_tpu_torch" / rel in files, rel
         bad = {
             f"{f.relative_to(REPO)}: {m}"
@@ -183,9 +185,6 @@ class TestUnportedKnobs:
         "knob,value",
         [
             ("kernel_device_min_elems", 1024),
-            ("shard_mode", "process"),
-            ("commit_listen", "127.0.0.1:7000"),
-            ("commit_endpoint", "127.0.0.1:7000"),
             ("federation_spillover", False),
         ],
     )
@@ -195,9 +194,7 @@ class TestUnportedKnobs:
         )
         with pytest.raises(NotImplementedError, match=knob) as err:
             build_stack(config=cfg)
-        item = {"kernel_device_min_elems": None, "federation_spillover": "9c"}.get(
-            knob, "9b"
-        )
+        item = {"kernel_device_min_elems": None, "federation_spillover": "9c"}[knob]
         if item:
             assert f"ROADMAP item {item}" in str(err.value)
 
@@ -208,12 +205,16 @@ class TestUnportedKnobs:
             ("journal_path", None),
             ("journal_sync", "always"),
             ("profiles", None),
+            ("shard_mode", "process"),
+            ("commit_listen", "127.0.0.1:7000"),
+            ("commit_endpoint", "127.0.0.1:7000"),
         ],
     )
     def test_durability_knob_builds_everything(self, knob, value, tmp_path):
-        """The durable journal, the thread lanes and profiles are ported:
-        each knob builds its assembly on the host with nothing left out,
-        every lane or profile on the kernel_platform asked for."""
+        """The durable journal, the thread lanes, profiles, the process
+        lanes' parent and the commit transport's knobs are ported: each
+        knob builds its assembly on the host with nothing left out, every
+        lane or profile on the kernel_platform asked for."""
         if knob == "journal_path":
             value = str(tmp_path)
         if knob == "profiles":
@@ -222,9 +223,17 @@ class TestUnportedKnobs:
             SchedulerConfig(kernel_platform="cpu"), **{knob: value}
         )
         assert unported_settings(cfg) == []
+        assert unported_settings(dataclasses.replace(cfg, shard_count=2)) == []
         if knob == "shard_count":
             stacks = build_sharded_stacks(config=cfg).stacks
             assert [st.scheduler.shard for st in stacks] == ["global", "s0", "s1"]
+        elif knob == "shard_mode":
+            # The parent of process lanes: only the global lane is built
+            # here; the shard lanes are worker processes.
+            ss = build_proc_parent(config=dataclasses.replace(cfg, shard_count=2))
+            stacks = ss.stacks
+            assert [st.scheduler.shard for st in stacks] == ["global"]
+            assert ss.supervisor is None
         elif knob == "profiles":
             stacks = build_profile_stacks(FakeCluster(), cfg)
             assert len({id(st.accountant) for st in stacks}) == 1
@@ -239,15 +248,19 @@ class TestUnportedKnobs:
             for st in stacks:
                 st.close()
 
-    @pytest.mark.parametrize("entry", ["sharded", "profiles"])
+    @pytest.mark.parametrize("entry", ["sharded", "profiles", "process"])
     def test_assemblies_run_on_the_card_by_default(self, entry, monkeypatch):
-        """``build_sharded_stacks`` and ``build_profile_stacks`` keep the
-        card as their default: with none present they raise, never fall
-        back to the host lane by lane."""
+        """``build_sharded_stacks``, ``build_profile_stacks`` and
+        ``build_proc_parent`` keep the card as their default: with none
+        present they raise, never fall back to the host lane by lane."""
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA device"):
             if entry == "sharded":
                 build_sharded_stacks(config=SchedulerConfig(shard_count=2))
+            elif entry == "process":
+                build_proc_parent(
+                    config=SchedulerConfig(shard_count=2, shard_mode="process")
+                )
             else:
                 build_profile_stacks(
                     FakeCluster(),

@@ -20,6 +20,7 @@ and 16: bindings, unbinds, reports, plan nodes and ``stats()`` equal."""
 
 import dataclasses
 import random
+import time
 from types import SimpleNamespace
 
 import pytest
@@ -647,3 +648,22 @@ class TestRunH:
         assert got["h4"] is None
         for part, keys in BACKGROUND_PARITY.items():
             assert {k: got[part][k] for k in keys} == {k: want[part][k] for k in keys}
+
+    def test_rebalance_dispatches_do_not_follow_the_host_speed(self, monkeypatch):
+        """(h2) runs on a held scheduling clock: with the victims' retry
+        backoff cut to 1 ms (a host a thousand times slower, as the backoff
+        sees it) the run takes the same dispatches and passes. On the wall
+        clock every expired backoff was retried until the drain's deadline,
+        so the card's dispatch count could leave the CPU's."""
+        from chip_smoke import BACKGROUND_SMALL, run_rebalance
+        from yoda_tpu_torch.framework import queue as queue_mod
+
+        want, stack = run_rebalance("cpu", BACKGROUND_SMALL)
+        held = stack.scheduler.clock()
+        time.sleep(0.01)
+        assert stack.scheduler.clock() == held
+        monkeypatch.setattr(queue_mod, "INITIAL_BACKOFF_S", 1e-3)
+        monkeypatch.setattr(queue_mod, "MAX_BACKOFF_S", 1e-3)
+        got, _ = run_rebalance("cpu", BACKGROUND_SMALL)
+        keys = ("dispatch_count", "passes", "unbinds", "hi_bound", "el_bound", "effective_el")
+        assert {k: got[k] for k in keys} == {k: want[k] for k in keys}

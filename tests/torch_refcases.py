@@ -16,7 +16,10 @@ which then gives the host shards) and the assemblies built from
 ``build_stack`` (``build_sharded_stacks``, ``build_profile_stacks``), in
 the case's own process and in a script it runs in a fresh interpreter. The
 kept chaos module's faulty journal I/O is given the port's
-``RealJournalIO`` and ``JournalFault`` on the port's side. The case body, its inputs and its assertions
+``RealJournalIO`` and ``JournalFault`` on the port's side, and a worker
+process that a case (or the chaos module's ``DriveWorker``) spawns as
+``python -m yoda_tpu.framework.procserve`` is the port's worker, given
+``--device cpu``. The case body, its inputs and its assertions
 are the reference's own, unchanged, so a case passing on both packages
 holds the port to exactly what the reference is held to.
 
@@ -60,10 +63,25 @@ def _slow(node: "ast.ClassDef | ast.FunctionDef") -> bool:
     return any(ast.unparse(d) == "pytest.mark.slow" for d in node.decorator_list)
 
 
-def _param_sets(node: ast.FunctionDef) -> "list[dict]":
+def _constants(body: list) -> dict:
+    """The plain constants a module or class body assigns (``NAME =
+    literal``), which a parametrize argument may name."""
+    out = {}
+    for stmt in body:
+        if (isinstance(stmt, ast.Assign) and len(stmt.targets) == 1
+                and isinstance(stmt.targets[0], ast.Name)):
+            try:
+                out[stmt.targets[0].id] = ast.literal_eval(stmt.value)
+            except ValueError:
+                pass
+    return out
+
+
+def _param_sets(node: ast.FunctionDef, scope: "dict | None" = None) -> "list[dict]":
     """The argument sets of the reference's ``pytest.mark.parametrize``
     decorators on ``node`` (their cross product; one empty set when there
-    are none). Argument values are evaluated with builtins only."""
+    are none). Argument values are evaluated with builtins and the plain
+    constants of ``scope`` (the module's and the case's class's) only."""
     sets: list[dict] = [{}]
     for d in node.decorator_list:
         if not (isinstance(d, ast.Call) and ast.unparse(d.func) == "pytest.mark.parametrize"):
@@ -71,15 +89,17 @@ def _param_sets(node: ast.FunctionDef) -> "list[dict]":
         names = ast.literal_eval(d.args[0])
         if isinstance(names, str):
             names = [n.strip() for n in names.split(",")]
-        values = eval(compile(ast.Expression(d.args[1]), "<parametrize>", "eval"), {})
+        values = eval(compile(ast.Expression(d.args[1]), "<parametrize>", "eval"),
+                      dict(scope or {}))
         rows = [v if len(names) > 1 else (v,) for v in values]
         sets = [{**s, **dict(zip(names, row))} for s in sets for row in rows]
     return sets
 
 
-def _expand(base: str, cls: str, node: ast.FunctionDef, slow: bool) -> list:
+def _expand(base: str, cls: str, node: ast.FunctionDef, slow: bool,
+            scope: dict) -> list:
     out = []
-    for params in _param_sets(node):
+    for params in _param_sets(node, scope):
         case_id = base
         if params:
             case_id += "[" + "-".join(str(v) for v in params.values()) + "]"
@@ -93,15 +113,17 @@ def cases(name: str, skip: "dict[str, str]") -> list:
     parameters -> the unported part it needs); a case the reference marks
     slow comes as a ``pytest.param`` carrying that mark."""
     tree = ast.parse((TESTS / name).read_text())
+    module_scope = _constants(tree.body)
     out = []
     for node in tree.body:
         if isinstance(node, ast.ClassDef) and node.name.startswith("Test"):
+            scope = {**module_scope, **_constants(node.body)}
             for item in node.body:
                 if isinstance(item, ast.FunctionDef) and item.name.startswith("test"):
                     out += _expand(f"{node.name}::{item.name}", node.name, item,
-                                   _slow(node) or _slow(item))
+                                   _slow(node) or _slow(item), scope)
         elif isinstance(node, ast.FunctionDef) and node.name.startswith("test"):
-            out += _expand(node.name, "", node, _slow(node))
+            out += _expand(node.name, "", node, _slow(node), module_scope)
     known = {c[0] for c, _ in out} | {c[0].split("[")[0] for c, _ in out}
     unknown = set(skip) - known
     assert not unknown, f"skip names no case of {name}: {sorted(unknown)}"
@@ -160,6 +182,33 @@ _st.build_stack = _cpu_build_stack
 """
 
 
+# The reference's worker entry, as a case spawns it (``python -m
+# yoda_tpu.framework.procserve``, in the case's own argv and in the kept
+# chaos module's ``DriveWorker``).
+_REF_WORKER = "yoda_tpu.framework.procserve"
+
+
+def port_worker_argv(args):
+    """``args`` with the reference's worker entry replaced by the port's,
+    given ``--device cpu`` (the port's worker runs on the card by
+    default); any other command unchanged."""
+    if isinstance(args, (list, tuple)):
+        args = list(args)
+        for i in range(len(args) - 1):
+            if args[i] == "-m" and args[i + 1] == _REF_WORKER:
+                args[i + 1] = "yoda_tpu_torch.framework.procserve"
+                return args + ["--device", "cpu"]
+    return args
+
+
+def _port_popen(real):
+    class Popen(real):
+        def __init__(self, args, *a, **kw):
+            super().__init__(port_worker_argv(args), *a, **kw)
+
+    return Popen
+
+
 def load(pkg: str, name: str, monkeypatch) -> types.ModuleType:
     path = TESTS / name
     src = path.read_text()
@@ -182,6 +231,11 @@ def load(pkg: str, name: str, monkeypatch) -> types.ModuleType:
         # ``except JournalFault`` is what catches the injected crash.
         monkeypatch.setattr(ref_journal, "RealJournalIO", port_journal.RealJournalIO)
         monkeypatch.setattr(ref_journal, "JournalFault", port_journal.JournalFault)
+        # A worker process a case spawns (``subprocess`` in the case, the
+        # kept chaos module's ``DriveWorker``) is the port's, on the host.
+        import subprocess
+
+        monkeypatch.setattr(subprocess, "Popen", _port_popen(subprocess.Popen))
         real = kernel.resolve_device
         for mod_name, mod in list(sys.modules.items()):
             if mod_name.startswith("yoda_tpu_torch") and getattr(

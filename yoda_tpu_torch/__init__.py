@@ -19,8 +19,11 @@ evaluation on one card, row-sharded over several (``parallel/``, the
 shard entry of ``csrc/fleet_eval.cu``), or loop mode's per-node plugins
 on the host; and the durable claim journal (``journal/``), scheduler
 lanes in one process (``standalone.build_sharded_stacks``, every lane
-evaluating its partition on the card on a stream of its own) and
-profiles (``standalone.build_profile_stacks``): ``standalone.build_stack``,
+evaluating its partition on the card on a stream of its own) or as worker
+processes (``standalone.build_proc_parent`` and
+``framework/procserve.py``, each worker on the card in a CUDA context of
+its own, behind the commit RPC; ``journal/tail.py``'s tailing standby)
+and profiles (``standalone.build_profile_stacks``): ``standalone.build_stack``,
 ``agent.FakeTpuAgent``, ``cluster.fake.FakeCluster`` and
 ``metrics_server.MetricsServer``.
 Each module's docstring names what it leaves out; ROADMAP.md lists the

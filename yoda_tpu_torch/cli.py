@@ -41,12 +41,23 @@ means the card: both kernel libraries are built before the informer sync
 without a card ``build_stack`` raises — the CLI never serves on the CPU by
 itself.
 
+With ``shard_count`` > 1 and ``shard_mode: process`` this process is the
+parent: the global lane, the journal-owning accountant behind a
+``CommitRPCServer`` (on a Unix socket, or on TCP at ``commit_listen``;
+serving at the journal's replayed term) and a ``WorkerSupervisor`` over
+one ``python -m yoda_tpu_torch.framework.procserve`` worker per lane, each
+given this process's ``--device`` (so each evaluates its partition on the
+card, in a CUDA context of its own, unless the caller asked for the
+host); ``/debug/shards`` then serves the workers' heartbeat rows merged
+with the supervisor's. A ``--leader-elect`` standby with
+``commit_endpoint`` tails the live leader's journal over that RPC while it
+waits for the Lease and promotes the warm mirror (a term bump first) when
+it takes it.
+
 Counterpart of ``yoda_tpu/cli.py``. Left out until a later slice, each
-refused with exit code 2 and a message naming it: process-mode lanes
-(``shard_mode: process``), the commit transport and journal tailing
-(``commit_listen``, ``commit_endpoint``) — ROADMAP item 9b — federated
-mode (``--federate-url``, item 9c) and the node agent (``--agent``, item
-11). ``--jax-platform`` is not kept: ``--device`` takes its place.
+refused with exit code 2 and a message naming it: federated mode
+(``--federate-url``, ROADMAP item 9c) and the node agent (``--agent``,
+item 11). ``--jax-platform`` is not kept: ``--device`` takes its place.
 """
 
 from __future__ import annotations
@@ -61,6 +72,22 @@ import time
 
 # --device value -> config.kernel_platform
 _DEVICE_PLATFORM = {"cpu": "cpu", "cuda": "device"}
+
+
+def _config_on_device(config, device: "str | None"):
+    """``config`` with every profile's ``kernel_platform`` set to what
+    ``device`` ("cpu" or "cuda") selects; unchanged when it is None."""
+    if device is None:
+        return config
+    platform = _DEVICE_PLATFORM[device]
+    return dataclasses.replace(
+        config,
+        kernel_platform=platform,
+        profiles=tuple(
+            dataclasses.replace(p, kernel_platform=platform)
+            for p in config.profiles
+        ),
+    )
 
 
 def _load_config(path: str | None):
@@ -107,9 +134,9 @@ def _init_device(platform: str) -> "float | None":
     return time.perf_counter() - t0
 
 
-def _unported_mode(args, config) -> "str | None":
-    """The first mode ``args`` / ``config`` ask for that the port does not
-    have, as the message the CLI exits 2 with; None when all is ported."""
+def _unported_mode(args) -> "str | None":
+    """The first mode ``args`` asks for that the port does not have, as
+    the message the CLI exits 2 with; None when all is ported."""
     if args.agent:
         return (
             "--agent (the node agent) is not ported to yoda_tpu_torch yet "
@@ -119,24 +146,6 @@ def _unported_mode(args, config) -> "str | None":
         return (
             "--federate-url (federated mode) is not ported to yoda_tpu_torch "
             "yet (ROADMAP item 9c: federation/)"
-        )
-    if config is None:
-        return None
-    if config.shard_count > 1 and config.shard_mode == "process":
-        return (
-            "shard_mode=process (shard lanes as worker processes) is not "
-            "ported to yoda_tpu_torch yet (ROADMAP item 9b: "
-            "framework/procserve.py)"
-        )
-    if config.commit_listen:
-        return (
-            "commit_listen (the commit RPC over TCP) is not ported to "
-            "yoda_tpu_torch yet (ROADMAP item 9b: framework/procserve.py)"
-        )
-    if config.commit_endpoint:
-        return (
-            "commit_endpoint (journal tailing hot standby) is not ported to "
-            "yoda_tpu_torch yet (ROADMAP item 9b: journal/tail.py)"
         )
     return None
 
@@ -213,6 +222,170 @@ def _install_stop_handlers(stop: threading.Event) -> None:
         signal.signal(sig, lambda *_: stop.set())
 
 
+def _start_process_lanes(args, config, cluster, stop: threading.Event):
+    """The parent of ``shard_mode: process``: ``build_proc_parent`` (the
+    global lane and the journal-owning accountant), a started
+    ``CommitRPCServer`` over that accountant at the journal's replayed
+    term, and a started ``WorkerSupervisor`` over one worker process per
+    lane, each given the device this process evaluates on. Returns
+    ``(shard_set, server)``."""
+    import subprocess
+    import tempfile
+
+    from yoda_tpu_torch import standalone
+    from yoda_tpu_torch.framework.procserve import CommitRPCServer
+    from yoda_tpu_torch.framework.shards import WorkerSupervisor
+
+    shard_set = standalone.build_proc_parent(cluster, config, stop_event=stop)
+    # Commit endpoint: `commit_listen` (host:port) lifts the commit point
+    # onto TCP so shard workers on OTHER hosts and a journal-tailing
+    # standby can reach it; unset keeps the per-process AF_UNIX socket.
+    sock_path = config.commit_listen or os.path.join(
+        tempfile.gettempdir(), f"yoda-commit-{os.getpid()}.sock"
+    )
+
+    def _worker_serve() -> bool:
+        # The heartbeat verdict workers fence on: the composed leadership
+        # + resync gate (shard_fence_fn is swapped in by the caller before
+        # any worker can pass resync). Fail-closed while unset or stopping.
+        fence = shard_set.shard_fence_fn
+        return not stop.is_set() and fence is not None and bool(fence())
+
+    # Resume at the journal's replayed epoch term: a restarted term-N
+    # parent serving at the default term 1 would be fenced as stale by any
+    # worker that saw N.
+    journal = shard_set.accountant.journal
+    server = CommitRPCServer(
+        shard_set.accountant,
+        sock_path,
+        metrics=shard_set.metrics,
+        fence_fn=_worker_serve,
+        expected_workers=config.shard_count,
+        term=max(1, journal.term if journal is not None else 0),
+    )
+    try:
+        server.start()
+        # Workers spawned HERE dial the endpoint as resolved after bind (a
+        # TCP listen on port 0 is only addressable once bound, and a
+        # 0.0.0.0 wildcard listen is dialed via loopback locally). Remote
+        # workers are launched by the operator with the same host:port.
+        worker_endpoint = server.endpoint
+        if worker_endpoint.startswith("0.0.0.0:"):
+            worker_endpoint = "127.0.0.1" + worker_endpoint[len("0.0.0.0"):]
+        # Every worker evaluates where this process does: on the card
+        # unless the caller asked for the host.
+        device = "cpu" if config.kernel_platform == "cpu" else "cuda"
+
+        def _spawn_worker(i: int):
+            cmd = [
+                sys.executable,
+                "-m",
+                "yoda_tpu_torch.framework.procserve",
+                "--socket",
+                worker_endpoint,
+                "--shard-index",
+                str(i),
+                "--shard-count",
+                str(config.shard_count),
+                "--device",
+                device,
+            ]
+            if args.config:
+                cmd += ["--config", args.config]
+            return subprocess.Popen(cmd)
+
+        shard_set.supervisor = WorkerSupervisor(_spawn_worker, config.shard_count)
+        shard_set.supervisor.start()
+    except BaseException:
+        server.stop()
+        shard_set.close()
+        raise
+    print(
+        f"yoda-tpu-scheduler: shard_mode=process — {config.shard_count} "
+        f"worker processes (device {device}) over {server.endpoint}",
+        file=sys.stderr,
+    )
+    return shard_set, server
+
+
+def _proc_shards_view(server, shard_set):
+    """The ``/debug/shards`` process view: the RPC server's worker rows
+    (heartbeat-fed) with each lane's liveness and restarts from the
+    supervisor, plus a row for each spawned worker that never said hello."""
+
+    def view() -> dict:
+        out = server.debug()
+        sup = (
+            {r["shard"]: r for r in shard_set.supervisor.debug()}
+            if shard_set.supervisor is not None
+            else {}
+        )
+        known = set()
+        for row in out["workers"]:
+            known.add(row["lane"])
+            s = sup.get(row["lane"])
+            if s is not None:
+                row["alive"] = s["alive"]
+                row["restarts"] = s["restarts"]
+        for lane in sorted(set(sup) - known):
+            # Spawned but never said hello (still importing, or died
+            # pre-handshake): the supervisor row is all there is, and
+            # hiding it would hide a crash loop.
+            s = sup[lane]
+            out["workers"].append(
+                {
+                    "lane": lane,
+                    "pid": s["pid"],
+                    "alive": s["alive"],
+                    "restarts": s["restarts"],
+                    "heartbeat_age_s": None,
+                    "staged": 0,
+                }
+            )
+        out["workers"].sort(key=lambda r: r["lane"])
+        return out
+
+    return view
+
+
+def _promote_tailed(tailer, client, accountant, proc_server) -> None:
+    """Lease acquired by a tailing standby: promote the warm mirror. The
+    term bump is written as the promoted journal's FIRST frame — durable
+    before anything serves — and the old leader's lingering socket is
+    fenced by it. A mirror that never completed a tail round trip is
+    empty, not warm, and a failed divergence check means a bad one:
+    either way the cold state replayed at build time serves instead."""
+    from yoda_tpu_torch.journal.tail import TailDiverged
+
+    try:
+        if not tailer.synced:
+            print(
+                "yoda-tpu-scheduler: standby tail never synced; "
+                "serving from cold-replayed state",
+                file=sys.stderr,
+            )
+            return
+        try:
+            new_term = tailer.promote_into(accountant, accountant.journal)
+        except TailDiverged as exc:
+            print(
+                f"yoda-tpu-scheduler: tailed mirror unusable ({exc}); "
+                "serving from cold-replayed state",
+                file=sys.stderr,
+            )
+            return
+        if proc_server is not None:
+            proc_server.set_term(new_term)
+        print(
+            f"yoda-tpu-scheduler: promoted warm from tailed journal (term "
+            f"{new_term}, {len(tailer.claims)} claims, lag "
+            f"{tailer.lag_frames} frames)",
+            file=sys.stderr,
+        )
+    finally:
+        client.close()
+
+
 def _run_scheduler(args, stop: threading.Event) -> int:
     """In-cluster scheduler: KubeCluster backend + full plugin stacks +
     metrics endpoint, running until SIGTERM/SIGINT (or ``stop`` is set by
@@ -223,21 +396,7 @@ def _run_scheduler(args, stop: threading.Event) -> int:
     from yoda_tpu_torch import standalone
     from yoda_tpu_torch.metrics_server import MetricsServer
 
-    config = _load_config(args.config)
-    unported = _unported_mode(args, config)
-    if unported is not None:
-        print(f"yoda-tpu-scheduler: {unported}", file=sys.stderr)
-        return 2
-    if args.device is not None:
-        platform = _DEVICE_PLATFORM[args.device]
-        config = dataclasses.replace(
-            config,
-            kernel_platform=platform,
-            profiles=tuple(
-                dataclasses.replace(p, kernel_platform=platform)
-                for p in config.profiles
-            ),
-        )
+    config = _config_on_device(_load_config(args.config), args.device)
     build_s = _init_device(config.kernel_platform)
     if build_s is not None:
         print(
@@ -252,11 +411,23 @@ def _run_scheduler(args, stop: threading.Event) -> int:
         file=sys.stderr,
     )
     shard_set = None
+    proc_server = None
     try:
         # `stop` doubles as the bind executors' stop event: a SIGTERM or a
         # lost lease aborts pending bind-retry backoff sleeps immediately
         # instead of draining up to bind_retry_cap_s per attempt.
-        if config.shard_count > 1:
+        if config.shard_count > 1 and config.shard_mode == "process":
+            # Multi-process shard serve: THIS process is the control
+            # plane — global lane, journal-owning accountant, repair
+            # loops, metrics. Each shard lane is a supervised worker
+            # process (framework/procserve.py) with its own informer,
+            # queue, bind executor and (on the card) CUDA context,
+            # reaching the commit point through the commit RPC; workers
+            # fence on leadership AND parent liveness, so they may start
+            # (and warm their caches) now.
+            shard_set, proc_server = _start_process_lanes(args, config, cluster, stop)
+            stacks = shard_set.stacks
+        elif config.shard_count > 1:
             # Scheduler shard-out: N parallel serve loops over rendezvous-
             # partitioned slices/pools + the serialized global lane
             # (stacks[0], which owns resync and the background repair
@@ -275,6 +446,10 @@ def _run_scheduler(args, stop: threading.Event) -> int:
                 cluster, config, stop_event=stop
             )
     except BaseException:
+        if shard_set is not None and shard_set.supervisor is not None:
+            shard_set.supervisor.stop()
+        if proc_server is not None:
+            proc_server.stop()
         cluster.stop()
         raise
     stack = stacks[0]
@@ -294,10 +469,14 @@ def _run_scheduler(args, stop: threading.Event) -> int:
             return stacks[0].reconciler.resynced.is_set()
         return all(st.reconciler.resynced.is_set() for st in stacks)
 
-    # /debug/shards: the in-process lanes under the shared pid; unsharded
-    # it reports {"enabled": false}.
+    # /debug/shards: process mode serves the commit RPC server's worker
+    # registry (heartbeat-fed) merged with the supervisor's
+    # liveness/restart rows; thread mode the in-process lanes under the
+    # shared pid; unsharded it reports {"enabled": false}.
     shards_fn = None
-    if shard_set is not None:
+    if proc_server is not None:
+        shards_fn = _proc_shards_view(proc_server, shard_set)
+    elif shard_set is not None:
 
         def _thread_shards_view(ss=shard_set) -> dict:
             staged_by_lane: dict = {}
@@ -423,10 +602,37 @@ def _run_scheduler(args, stop: threading.Event) -> int:
                 f"{args.lease_namespace}/{args.lease_name} as {identity}",
                 file=sys.stderr,
             )
+            # Journal-tailing hot standby: with a `commit_endpoint`
+            # configured, stream the live leader's committed journal
+            # frames into a warm mirror WHILE waiting on the lease, so
+            # promotion is a term bump + state handover instead of a cold
+            # re-replay of the whole journal.
+            standby_tailer = None
+            tail_client = None
+            if config.commit_endpoint:
+                from yoda_tpu_torch.framework.procserve import CommitRPCClient
+                from yoda_tpu_torch.journal.tail import JournalTailer
+
+                tail_client = CommitRPCClient(
+                    config.commit_endpoint, shard="standby", stop_event=stop
+                )
+                standby_tailer = JournalTailer(tail_client, metrics=stack.metrics)
+                standby_tailer.start()
+                print(
+                    f"yoda-tpu-scheduler: tailing leader journal at "
+                    f"{config.commit_endpoint}",
+                    file=sys.stderr,
+                )
             while not stop.is_set() and not became_leader.wait(0.2):
                 pass
+            if standby_tailer is not None:
+                standby_tailer.stop()
             if stop.is_set() and not became_leader.is_set():
+                if tail_client is not None:
+                    tail_client.close()
                 return 0  # stopped while standby
+            if standby_tailer is not None:
+                _promote_tailed(standby_tailer, tail_client, stack.accountant, proc_server)
 
         names = [config.scheduler_name] + [
             p.scheduler_name for p in config.profiles
@@ -434,7 +640,8 @@ def _run_scheduler(args, stop: threading.Event) -> int:
         print(
             f"yoda-tpu-scheduler: serving (mode={config.mode}, "
             f"device={stack.batch.device if stack.batch else 'host (loop mode)'}, "
-            f"profiles={names}, lanes={len(stacks) if shard_set else 1}, "
+            f"profiles={names}, "
+            f"lanes={1 + config.shard_count if shard_set else 1}, "
             f"nodes={len(cluster.list_tpu_metrics())}, "
             f"pods={len(cluster.list_pods())})",
             file=sys.stderr,
@@ -543,7 +750,10 @@ def _run_scheduler(args, stop: threading.Event) -> int:
             lambda cfg: standalone.apply_reloadable(stacks, cfg),
             resize_fn=(
                 (lambda n: shard_set.resize(n, start_fn=_start_resized_shard))
-                if shard_set is not None
+                # Process mode: lanes are OS processes, not stacks a live
+                # resize can build — shard_count changes report as
+                # requires-drain like any other topology change.
+                if shard_set is not None and proc_server is None
                 else None
             ),
         )
@@ -561,6 +771,14 @@ def _run_scheduler(args, stop: threading.Event) -> int:
         for t in extra_threads:
             t.join(timeout=10)
     finally:
+        # Process mode: workers first (SIGTERM, wait, SIGKILL), then the
+        # RPC server — a worker mid-commit gets its reply or a clean
+        # socket death, never a half-written frame; any staged residue
+        # is the journal's to recover on the next start.
+        if shard_set is not None and shard_set.supervisor is not None:
+            shard_set.supervisor.stop()
+        if proc_server is not None:
+            proc_server.stop()
         for st in stacks:
             # Release the bind-pipeline executor without waiting on a
             # possibly stalled bind round trip (GangPlugin.close sets the
@@ -847,7 +1065,7 @@ def main(
             verbosity=args.verbosity,
             platform=_DEVICE_PLATFORM[args.device] if args.device else "auto",
         )
-    unported = _unported_mode(args, None)
+    unported = _unported_mode(args)
     if unported is not None:
         print(f"yoda-tpu-scheduler: {unported}", file=sys.stderr)
         return 2

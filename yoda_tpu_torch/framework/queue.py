@@ -28,8 +28,9 @@ activity signal the scheduler's drain waits on, and the hooks the overload
 ladder and the SLO engine read: ``shed_fn`` / ``on_shed``, ``quota_fn`` /
 ``on_quota_park``, ``overload_depth``, ``tenant_wait_stats`` and the
 ``shed_parks`` / ``quota_parks`` counters, and ``all_entries`` (the walk
-the scheduler lanes' reroute and rescue passes take). Left out until a
-later slice: ``close`` (a shard worker process's shutdown, ROADMAP item 9b).
+the scheduler lanes' reroute and rescue passes take), and ``close``
+(which wakes a blocked ``pop`` empty-handed: a shard worker process's
+shutdown).
 """
 
 from __future__ import annotations
@@ -145,6 +146,7 @@ class SchedulingQueue:
         self._active: dict[str, list[_HeapItem]] = {}
         self._backoff: list[tuple[float, int, QueuedPodInfo]] = []  # (ready_at, seq, qpi)
         self._unschedulable: dict[str, QueuedPodInfo] = {}  # pod key -> qpi
+        self._closed = False
         # Optional listener fired (outside the queue lock) whenever work
         # arrives or parked pods are reactivated — the scheduler's
         # event-bound drain (Scheduler.run_until_idle) waits on it instead
@@ -351,8 +353,8 @@ class SchedulingQueue:
 
     def pop(self, timeout: float | None = None) -> QueuedPodInfo | None:
         """Pop the highest-priority active pod of the lowest-share tenant;
-        blocks up to ``timeout`` (forever if None) until one is
-        available."""
+        blocks up to ``timeout`` (forever if None) until one is available
+        or the queue is closed."""
         deadline = None if timeout is None else self._clock() + timeout
         with self._cond:
             while True:
@@ -361,6 +363,10 @@ class SchedulingQueue:
                 if qpi is not None:
                     qpi.attempts += 1
                     return qpi
+                if self._closed:
+                    return None
+                # Wake up when the earliest backoff expires, a pod arrives,
+                # or the caller's timeout passes.
                 waits = []
                 if self._backoff:
                     waits.append(max(self._backoff[0][0] - self._clock(), 0.0))
@@ -648,3 +654,8 @@ class SchedulingQueue:
             self._unschedulable.clear()
             self._cond.notify_all()
         self._fire_activity()
+
+    def close(self) -> None:
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()

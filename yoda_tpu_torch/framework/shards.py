@@ -36,9 +36,11 @@ Counterpart of ``yoda_tpu/framework/shards.py``: ``ShardMap``,
 ``ShardRouter``, ``shard_name`` and ``GLOBAL_LANE``, the reference's code,
 so both packages partition a fleet and route a pod alike. On the card
 every lane evaluates its own partition through the hand kernels, on a
-CUDA stream of its own (``standalone.build_stack(shard=...)``). Left out
-until a later slice: ``WorkerSupervisor``, the worker-process lifecycle
-of ``shard_mode: process`` (ROADMAP item 9b).
+CUDA stream of its own (``standalone.build_stack(shard=...)``). And
+``WorkerSupervisor``, the worker-process lifecycle of ``shard_mode:
+process`` (spawn, poll, respawn with backoff, stop); each worker
+process evaluates its partition on the card in a CUDA context of its
+own (``framework/procserve.py``).
 """
 
 from __future__ import annotations
@@ -382,3 +384,146 @@ class ShardRouter:
             candidates, key=lambda s: _digest("route", key, str(s))
         )
         return shard_name(chosen)
+
+
+class WorkerSupervisor:
+    """Shard worker process lifecycle for ``shard_mode=process``: spawn
+    one OS process per shard lane, poll liveness, respawn dead workers
+    with exponential backoff (a replacement warm-starts like a promoted
+    standby — its informer resyncs and its staged residue was already
+    the parent journal's to recover), and kill/stop on teardown.
+
+    ``spawn_fn(shard_index) -> subprocess.Popen`` is injected so the
+    supervisor never knows whether it is launching a production kube
+    worker, a bench spec worker, or a chaos driver.
+    """
+
+    RESPAWN_BACKOFF_S = 0.5
+    RESPAWN_BACKOFF_MAX_S = 15.0
+
+    def __init__(
+        self,
+        spawn_fn: "Callable[[int], object]",
+        shard_count: int,
+        *,
+        max_respawns: "int | None" = None,
+        clock=None,
+    ) -> None:
+        import time as _time
+
+        self.spawn_fn = spawn_fn
+        self.shard_count = int(shard_count)
+        self.max_respawns = max_respawns
+        self.clock = clock if clock is not None else _time.monotonic
+        self._lock = threading.Lock()
+        self._procs: "dict[int, object]" = {}
+        self._restarts: "dict[int, int]" = {}
+        self._next_spawn_at: "dict[int, float]" = {}
+        self._stopping = False
+
+    def start(self) -> None:
+        for i in range(self.shard_count):
+            self._spawn(i)
+
+    def _spawn(self, i: int) -> None:
+        proc = self.spawn_fn(i)
+        with self._lock:
+            self._procs[i] = proc
+            self._next_spawn_at.pop(i, None)
+
+    def poll(self) -> "list[int]":
+        """One supervision pass: respawn every dead worker whose
+        backoff has elapsed (and whose respawn budget remains).
+        Returns the shard indices respawned this pass."""
+        if self._stopping:
+            return []
+        respawned: "list[int]" = []
+        now = self.clock()
+        with self._lock:
+            rows = list(self._procs.items())
+        for i, proc in rows:
+            if proc is not None and proc.poll() is None:
+                continue  # alive
+            with self._lock:
+                restarts = self._restarts.get(i, 0)
+                if (
+                    self.max_respawns is not None
+                    and restarts >= self.max_respawns
+                ):
+                    continue
+                due = self._next_spawn_at.get(i)
+                if due is None:
+                    backoff = min(
+                        self.RESPAWN_BACKOFF_S * (2 ** restarts),
+                        self.RESPAWN_BACKOFF_MAX_S,
+                    )
+                    self._next_spawn_at[i] = now + backoff
+                    continue
+                if now < due:
+                    continue
+                self._restarts[i] = restarts + 1
+            self._spawn(i)
+            respawned.append(i)
+        return respawned
+
+    def alive(self) -> int:
+        with self._lock:
+            return sum(
+                1
+                for p in self._procs.values()
+                if p is not None and p.poll() is None
+            )
+
+    def kill(self, i: int, sig: "int | None" = None) -> None:
+        """Hard-kill one worker (chaos surface: SIGKILL by default)."""
+        import signal as _signal
+
+        with self._lock:
+            proc = self._procs.get(i)
+        if proc is None or proc.poll() is not None:
+            return
+        proc.send_signal(sig if sig is not None else _signal.SIGKILL)
+
+    def stop(self, *, timeout_s: float = 10.0) -> None:
+        """Graceful teardown: SIGTERM everyone, wait, then SIGKILL the
+        stragglers. No respawns after this."""
+        import signal as _signal
+
+        self._stopping = True
+        with self._lock:
+            procs = [
+                p
+                for p in self._procs.values()
+                if p is not None and p.poll() is None
+            ]
+        for p in procs:
+            try:
+                p.send_signal(_signal.SIGTERM)
+            except (OSError, ValueError):
+                pass
+        deadline = self.clock() + timeout_s
+        for p in procs:
+            remaining = max(deadline - self.clock(), 0.1)
+            try:
+                p.wait(timeout=remaining)
+            except Exception:  # noqa: BLE001 — straggler: escalate below
+                try:
+                    p.kill()
+                    p.wait(timeout=5.0)
+                except Exception:  # noqa: BLE001 — already gone
+                    pass
+
+    def debug(self) -> "list[dict]":
+        with self._lock:
+            rows = []
+            for i in sorted(self._procs):
+                p = self._procs[i]
+                rows.append(
+                    {
+                        "shard": shard_name(i),
+                        "pid": getattr(p, "pid", None),
+                        "alive": bool(p is not None and p.poll() is None),
+                        "restarts": self._restarts.get(i, 0),
+                    }
+                )
+        return rows

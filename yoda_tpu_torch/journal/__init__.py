@@ -6,10 +6,11 @@ behavior) and :class:`FileJournal` — an append-only, CRC-checksummed,
 segment-rotated on-disk log of every claim mutation, replayed on standby
 promotion to warm-start the accountant before the first queue pop.
 
-Counterpart of ``yoda_tpu/journal/__init__.py``. The journal-shipping hot
-standby (``journal/tail.py``: ``JournalTailer``, which streams committed
-frames from the live parent so promotion is a warm handover instead of a
-cold replay) is not ported yet.
+Counterpart of ``yoda_tpu/journal/__init__.py``. ``yoda_tpu_torch.journal.tail``
+(imported directly, not re-exported here — it pulls in the commit
+transport) holds :class:`~yoda_tpu_torch.journal.tail.JournalTailer`, the
+journal-shipping hot standby that streams committed frames from the live
+parent so promotion is a warm handover instead of a cold replay.
 """
 
 from yoda_tpu_torch.journal.journal import (

@@ -58,9 +58,9 @@ endpoint is first-party and dependency-free (stdlib http.server):
                      serve" runbook (docs/OPERATIONS.md).
 
 Counterpart of ``yoda_tpu/metrics_server.py``, whole. The CLI wires
-``journal_fn`` (the accountant's journal) and, with thread lanes,
-``shards_fn`` (the lanes under this pid); the worker rows of process
-lanes wait for them (ROADMAP item 9b).
+``journal_fn`` (the accountant's journal) and ``shards_fn``: with thread
+lanes the lanes under this pid, with process lanes the commit RPC
+server's worker rows merged with the supervisor's liveness and restarts.
 """
 
 from __future__ import annotations

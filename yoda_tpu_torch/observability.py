@@ -32,11 +32,12 @@ and type, so one scrape schema holds across both packages.
 ``yoda_ingest_batch_size`` from its ``EventBatcher`` (batched ingest on),
 ``yoda_events_dropped_total`` from the ``EventRecorder``'s backlog sheds,
 and ``yoda_tenant_quota_parks_total`` from the overload ladder's BROWNOUT
-parks and the per-tenant quotas alike. Families whose source the port
-does not have yet register all the same and read 0: the
-``yoda_commit_rpc_*`` families and ``yoda_standby_lag_frames`` (the
-commit RPC of process-mode lanes and the tailing standby, ROADMAP item
-9b), ``yoda_cluster_state``,
+parks and the per-tenant quotas alike. The ``yoda_commit_rpc_*``
+families are fed by the commit RPC server of process-mode lanes
+(``framework/procserve.py``: calls and latency per op and transport,
+refused commits per lane) and ``yoda_standby_lag_frames`` by the tailing
+standby (``journal/tail.py``). Families whose source the port does not
+have yet register all the same and read 0: ``yoda_cluster_state``,
 ``yoda_cluster_transitions_total`` and ``yoda_spillover_gangs_total``
 (federation, item 9c). ``yoda_shard_commit_rollbacks_total`` is fed by a
 scheduler lane's lost gang commits and ``yoda_commit_term`` by a replayed

@@ -27,8 +27,10 @@ validates first-staged-wins against per-node healthy capacity, which
 ``resume_commits`` quiesce it for a live resize; ``commit_residue``
 finalizes a crash's residue) and the warm start (``restore`` from a
 journal replay, ``adopt_warm`` from a tailer's mirror, ``replayed`` /
-``replayed_gangs`` for the reconciler). Left out until a later slice: the
-worker-side ``RemoteAccountant`` of process-mode lanes (ROADMAP item 9b).
+``replayed_gangs`` for the reconciler), and the worker-side
+``RemoteAccountant`` of process-mode lanes, whose every claim decision
+crosses the commit RPC (``framework/procserve.py``) to the parent's
+journal-owning accountant first.
 """
 
 from __future__ import annotations
@@ -479,3 +481,163 @@ class ChipAccountant(ReservePlugin):
             if nodes is None:
                 return cur, None
             return cur, {n: self._in_use.get(n, 0) for n in nodes}
+
+
+class RemoteAccountant(ChipAccountant):
+    """Worker-side accountant for multi-process shard serve
+    (``shard_mode=process``, framework/procserve.py).
+
+    The worker keeps a FULL local mirror (this class is a real
+    ChipAccountant: filters, depth functions, snapshot builds and the
+    worker's own cycles read it lock-locally — the read path pays zero
+    RPCs), but every claim-state DECISION crosses the commit RPC to the
+    parent's journal-owning accountant first:
+
+    - **stage** (a sharded Reserve): RPC to the parent — which journals
+      write-ahead and assigns the global stage seq — then the local
+      mirror applies with that parent seq, so first-staged-wins ordering
+      is identical on both sides.
+    - **commit** (``commit_staged``): the parent validates against its
+      capacity view and journals the C record; the mirror finalizes only
+      on an ok verdict. An RPC failure reports as a refused commit — the
+      scheduler requeues, exactly a conflict's path — never a crash.
+    - **release / rollback**: best-effort forward (the parent picks
+      rollback-vs-release from its OWN authoritative claim state), then
+      local. A dead parent cannot block local teardown: its journal
+      replay + reconciler own recovery of anything this worker held.
+
+    ``journal`` stays ``None`` here BY CONSTRUCTION — the parent is the
+    CommitLog's single writer (yodalint journal-discipline pass). The
+    ``rpc`` collaborator is duck-typed (``stage`` / ``commit`` /
+    ``release`` / ``residue``) to keep this module import-free of the
+    transport.
+    """
+
+    name = "yoda-accountant"
+
+    def __init__(
+        self,
+        rpc,
+        *,
+        scheduler_name: str = "yoda-tpu",
+        scheduler_names: "tuple[str, ...] | None" = None,
+    ) -> None:
+        super().__init__(
+            scheduler_name=scheduler_name, scheduler_names=scheduler_names
+        )
+        self._rpc = rpc
+
+    def _claim(
+        self,
+        uid: str,
+        node: str,
+        chips: int,
+        *,
+        shard: "str | None" = None,
+        gang: str = "",
+        seq: "int | None" = None,
+    ) -> None:
+        if shard is None or seq is not None:
+            # Committed/legacy claims (bound-pod watch layering) and
+            # already-sequenced applies stay local — the parent's own
+            # informer tracks bound pods independently.
+            super()._claim(uid, node, chips, shard=shard, gang=gang, seq=seq)
+            return
+        with self._lock:
+            existing = self._claims.get(uid)
+            if existing is not None and existing.node == node:
+                return  # reserve->bind duplicate: skip the RPC too
+        # The RPC runs OUTSIDE the accountant lock (lock-ordering DAG:
+        # no I/O under the commit-point lock); the serve loop is the
+        # only staging writer per worker, so the check-then-apply pair
+        # cannot interleave with another stage of the same uid.
+        parent_seq = self._rpc.stage(uid, node, chips, shard, gang)
+        super()._claim(
+            uid, node, chips, shard=shard, gang=gang, seq=parent_seq
+        )
+
+    def release(self, uid: str) -> None:
+        with self._lock:
+            known = uid in self._claims
+        if known:
+            try:
+                self._rpc.release(uid)
+            except Exception:
+                # Parent unreachable: the worker is (or is about to be)
+                # fenced; parent-side replay + reconciliation recover
+                # the claim. Local teardown must still proceed.
+                pass
+        super().release(uid)
+
+    def commit_staged(self, uids) -> "tuple[bool, str]":
+        with self._lock:
+            mine = [
+                u for u in uids
+                if u in self._claims and self._claims[u].shard is not None
+            ]
+        if not mine:
+            return True, ""
+        try:
+            ok, why = self._rpc.commit(mine)
+        except Exception as e:
+            # Indistinguishable from a lost-in-flight commit: refuse, let
+            # the scheduler roll back + requeue. If the parent DID land
+            # it, the journal holds the C record and the reconciler's
+            # residue pass converges the mirror after respawn.
+            return False, f"commit rpc failed: {e}"
+        if ok:
+            with self._lock:
+                for u in mine:
+                    c = self._claims.get(u)
+                    if c is not None:
+                        c.shard = None
+                        c.seq = 0
+                    self._staged.discard(u)
+                self.commit_commits += 1
+        else:
+            self.commit_conflicts += 1
+        return ok, why
+
+    def commit_residue(self, uid: str) -> bool:
+        try:
+            found = self._rpc.residue(uid)
+        except Exception:
+            found = False
+        with self._lock:
+            c = self._claims.get(uid)
+            if c is not None and c.shard is not None:
+                c.shard = None
+                c.seq = 0
+                self._staged.discard(uid)
+                return True
+        return found
+
+    # --- partition-residue proof (multi-host control plane) ---
+
+    def staged_intents(self) -> "list[dict]":
+        """The worker's local staged-intent log in wire form — every
+        claim still STAGED in the mirror. Shipped to a newly promoted
+        parent (``residue_sync``) on reconnect under a higher term, so
+        the parent reconciles this worker's partition residue at once
+        instead of waiting for the reconciler's warm path."""
+        with self._lock:
+            return [
+                {"uid": u, "node": c.node, "chips": c.chips, "gang": c.gang}
+                for u, c in self._claims.items()
+                if c.shard is not None
+            ]
+
+    def apply_residue_verdicts(self, verdicts: "dict[str, str]") -> None:
+        """Apply a promoted parent's ``residue_sync`` verdicts to the
+        local mirror: ``committed`` finalizes the claim locally (the
+        parent already holds — or replayed — the C record); ``staged``
+        keeps it staged for the normal commit path to finish."""
+        with self._lock:
+            for uid, verdict in verdicts.items():
+                if verdict != "committed":
+                    continue
+                c = self._claims.get(uid)
+                if c is not None and c.shard is not None:
+                    c.shard = None
+                    c.seq = 0
+                    self._staged.discard(uid)

@@ -82,6 +82,13 @@ accountant (the optimistic commit point) and one metrics registry, each
 with its own queue, cycle lock, bind executor, resident fleet state and
 ``TorchFleetKernel`` — on the card on a CUDA stream of its own, so lanes on
 their own threads launch ``fleet_eval`` and ``joint_fit`` side by side.
+``build_proc_parent`` builds the parent of process-mode lanes
+(``shard_mode: process``): the same head with only the global lane in
+this process, the shard lanes running in worker processes
+(``framework/procserve.py``, each evaluating its partition on the card in
+a CUDA context of its own) that reach the accountant through the commit
+RPC; ``commit_listen`` and ``commit_endpoint`` are read by the CLI, which
+wires the RPC server and the tailing standby.
 ``build_profile_stacks`` builds one stack per scheduler profile over one
 accountant, one cycle lock and one metrics registry.
 
@@ -90,9 +97,8 @@ A knob of a part this port does not have yet loads
 ``build_stack`` raises ``NotImplementedError`` naming it and the ROADMAP
 item it waits for when it is set away from its default — except to the
 value that turns the part off, which is what this port already does
-(``UNPORTED_KNOB_VALUES``). Those parts are the process-mode lanes and
-the commit transport (``shard_mode: process``, ``commit_listen``,
-``commit_endpoint``; item 9b) and federation (``federation_*``; item 9c).
+(``UNPORTED_KNOB_VALUES``). That part is federation (``federation_*``;
+item 9c).
 Where the default turns such a part ON (the reference builds it),
 ``build_stack`` logs one warning naming every such part and lists them in
 ``Stack.not_built``; with every part of the default configuration ported,
@@ -212,6 +218,9 @@ PORTED_KNOBS = frozenset(
         "journal_sync",
         "journal_segment_bytes",
         "shard_count",
+        "shard_mode",
+        "commit_listen",
+        "commit_endpoint",
         "profiles",
     }
 )
@@ -219,9 +228,6 @@ PORTED_KNOBS = frozenset(
 # The ROADMAP item each knob of a part this port does not have yet waits
 # for; ``build_stack`` names it when such a knob is set.
 LATER_ITEMS = {
-    "shard_mode": "9b",
-    "commit_listen": "9b",
-    "commit_endpoint": "9b",
     "federation_degraded_after_s": "9c",
     "federation_partitioned_after_s": "9c",
     "federation_lost_after_s": "9c",
@@ -244,8 +250,6 @@ def unported_settings(config: SchedulerConfig) -> list[str]:
     for f in dataclasses.fields(config):
         if f.name in PORTED_KNOBS:
             continue
-        if f.name == "shard_mode" and config.shard_count <= 1:
-            continue  # one serve loop: the lanes' hosting changes nothing
         value = getattr(config, f.name)
         if value == getattr(default, f.name):
             continue
@@ -1448,6 +1452,11 @@ class ShardSet:
     clock: object = time.monotonic
     stop_event: "threading.Event | None" = None
     shard_fence_fn: object = None
+    # shard_mode=process: the worker-process lifecycle
+    # (framework.shards.WorkerSupervisor). None in thread mode; when
+    # set, stacks holds ONLY the global lane — the shard serve loops
+    # live in the supervised worker processes.
+    supervisor: object = None
 
     @property
     def global_stack(self) -> Stack:
@@ -1834,6 +1843,11 @@ class ShardSet:
         last_binds = -1
         while not stop.is_set():
             try:
+                # Process mode: one supervision pass per tick — dead
+                # workers respawn with backoff; their staged residue was
+                # already recovered by journal replay + reconciliation.
+                if self.supervisor is not None:
+                    self.supervisor.poll()
                 self.rescue_starved()
                 # Cross-lane reactivation tick: another lane's binds or
                 # rollbacks change what this lane's parked entries could
@@ -1855,7 +1869,10 @@ class ShardSet:
             stop.wait(period_s)
 
     def close(self) -> None:
-        """Stop every lane's threads (``Stack.close``)."""
+        """Stop the worker processes (process mode) and every lane's
+        threads (``Stack.close``)."""
+        if self.supervisor is not None:
+            self.supervisor.stop()
         for st in self.stacks:
             st.close()
 
@@ -1984,6 +2001,72 @@ def build_sharded_stacks(
     cluster.add_watcher(
         on_fleet_event, replay=False, batch_fn=on_fleet_batch
     )
+    return shard_set
+
+
+def build_proc_parent(
+    cluster=None,
+    config: SchedulerConfig | None = None,
+    *,
+    clock=time.monotonic,
+    stop_event: "threading.Event | None" = None,
+    shard_map=None,
+) -> ShardSet:
+    """Assemble the PARENT control plane for ``shard_mode=process``:
+    the same head as :func:`build_sharded_stacks` — router
+    watcher, journal-owning track-capacity accountant, shared metrics —
+    but only the GLOBAL lane stack is built in this process. The shard
+    serve loops run in worker processes (``framework/procserve.py``)
+    that reach this accountant through the commit RPC; the caller wires
+    a ``CommitRPCServer`` around ``shard_set.accountant`` and attaches
+    a ``WorkerSupervisor`` as ``shard_set.supervisor``.
+
+    The parent keeps everything that must stay singular: the CommitLog
+    writer, the full-fleet informer + fleet gauges, the reconciler /
+    rebalancer / nodehealth repair loops, and the metrics server.
+    Workers own everything per-lane: informer, queue, BindExecutor, and
+    on the card a CUDA context and kernel of their own. The global lane
+    is built by ``build_stack`` and so runs on the card unless
+    ``config.kernel_platform`` is "cpu".
+    """
+    cluster = cluster or FakeCluster()
+    config = config or SchedulerConfig()
+    shard_map = shard_map or ShardMap(config.shard_count)
+    router = ShardRouter(shard_map)
+    cluster.add_watcher(router.observe, batch_fn=router.observe_batch)
+    # Single journal-owning accountant — the commit point every worker
+    # RPCs into. Same registration discipline as build_sharded_stacks:
+    # journal replay before the watcher, watcher before the informer.
+    accountant = ChipAccountant(scheduler_name=config.scheduler_name)
+    accountant.track_capacity = True
+    _attach_journal(accountant, config)
+    cluster.add_watcher(accountant.handle)
+    shared_metrics = _metrics_from_config(config, clock)
+    stacks = [
+        build_stack(
+            cluster=cluster,
+            config=config,
+            accountant=accountant,
+            metrics=shared_metrics,
+            clock=clock,
+            stop_event=stop_event,
+            shard=GLOBAL_LANE,
+            pod_route_fn=lambda pod: router.route(pod) == GLOBAL_LANE,
+        )
+    ]
+    shard_set = ShardSet(
+        stacks=stacks,
+        router=router,
+        shard_map=shard_map,
+        accountant=accountant,
+        metrics=shared_metrics,
+        config=config,
+        clock=clock,
+        stop_event=stop_event,
+    )
+    # No depth_fn: worker queue depths live in other processes; the
+    # router falls back to pure rendezvous, which is exactly what the
+    # workers themselves compute (same pure function, same answer).
     return shard_set
 
 
