@@ -374,8 +374,9 @@ Phases, each of which makes the script exit non-zero when it fails:
        (``O2_PERMIT_TIMEOUT_S``), under a profiler window
        (CUDA activity): every pod bound, gangs whole, no host over its
        chips, no pod bound twice, the accountant's claims exactly the
-       bound pods. Reported beside a one-stack run of the same script and
-       the same run with the journal off: pods/s, p50 / p99, each lane's
+       bound pods. Reported beside a one-stack run of the same script (and,
+       at the tests' small size, the same run with the journal off; cut
+       at the full size): pods/s, p50 / p99, each lane's
        launches and first re-stack ms, the kernel records that overlap one
        on another stream, commits and conflicts;
    (o3) after (o1)'s first wave, with the lanes' commits cut off, a
@@ -436,10 +437,36 @@ Phases, each of which makes the script exit non-zero when it fails:
        the old term + 1, the term bump first among its new frames, and
        binds the rest, no pod bound twice. Reported: the lag, the stop to
        the standby's first bind.
+   Then run (q), the port's trace replayer and chaos harness
+   (``run_chaos``, ``CHAOS_FULL``; the tests run ``CHAOS_SMALL`` on both
+   packages), each part against its CPU run (a spawned process beside the
+   card's), every ``fleet_eval`` / ``joint_fit`` / ``update_rows`` launch
+   held against its plain version and every stack on the card:
+   (q1) ``testing.tracegen.replay`` over the 5,000-node fleet with the
+       rebalancer driven (its default configuration, ``kernel_platform:
+       auto``, with ``bind_workers: 0``): two virtual minutes of three
+       tenants on a diurnal wave (team-a singletons at priority 5, team-b
+       singletons and plain gangs of 2-4, team-c 2x2x1 topology gangs), a
+       flash crowd, foreign churn, 4 hosts killed at 60 s, 8 drained at
+       80 s for 30 s. The fingerprint, the SLO evaluation, the counts and
+       every pod's nodes must equal the CPU run. Reported: the counts, the
+       SLO verdict, pods/s over the replay's wall time;
+   (q2) ``tests/test_chaos.py``'s shard crash mid-commit through
+       ``testing.chaos.build_cross_shard_contention`` (4 lanes, 4
+       contended slices, 2,952 v5e hosts): a plain gang of 4 x 4 chips,
+       the process crashed at its second bind, a respawned assembly over
+       the same backing cluster resyncs (rolling the half gang back) and
+       binds it whole; lane after lane on a held clock; the test's
+       invariants, bindings equal to the CPU run;
+   (q3) ``tests/test_overload.py``'s overload storm (seed 1337, 8 rounds,
+       then calm) through ``testing.chaos.build_overload_storm`` at its
+       own 4-host fleet: SHED reached, every pod bound in the end, the
+       ladder's level after each round, the shed count and every pod's
+       first node equal to the CPU run.
 4. One line {"kernels": [...]} with each kernel's launches over every run
-   above (runs (h)'s, (i)'s, (j)'s, (k)'s, (l)'s and (o)'s also by part,
-   run (o)'s by lane, run (p1)'s by worker process, and the speculation
-   thread's apart; the shard entry's from run (n2)), its
+   above (runs (h)'s, (i)'s, (j)'s, (k)'s, (l)'s, (o)'s and (q)'s also by
+   part, run (o)'s by lane, run (p1)'s by worker process, and the
+   speculation thread's apart; the shard entry's from run (n2)), its
    largest difference from the plain version and its times ("not
    measured" where the profiler saw no device activity).
    Before it, one line of each phase's wall seconds.
@@ -6521,10 +6548,15 @@ def phase_sharded(smi: str, main_path: dict) -> dict:
 # Run (o) at the 5,000-node fleet with the shipped manifest's recommended
 # shard_count (deploy/yoda-tpu-scheduler.yaml: "Raise to 2-4"); the small
 # size is what tests/test_torch_shards.py runs on the CPU.
-LANES_FULL = dict(slices=512, v5e_hosts=2952, shards=4, singles_b=256, script={})
+# ``nojournal``: (o2) also runs with the journal off. Cut at the full size
+# (PERF.md section 4): the comparison is recorded, and run (q) needed the
+# time.
+LANES_FULL = dict(slices=512, v5e_hosts=2952, shards=4, singles_b=256, script={},
+                  nojournal=False)
 LANES_SMALL = dict(slices=16, v5e_hosts=96, shards=4, singles_b=32,
                    script=dict(plain=2, plain_size=4, cosched=2, topo=4, multi=1,
-                               singles=16))
+                               singles=16), nojournal=True)
+O2_PARTS = ("o2", "o2_single", "o2_nojournal")
 PACK_PROFILE = "yoda-tpu-pack"   # run (o4)'s second profile: most-allocated
 # (o2)'s Permit timeout: a gang whose planned hosts another lane took
 # waits this long before it rejoins the queue whole (the default, 120 s,
@@ -7088,15 +7120,17 @@ def lane_overlap(prof) -> dict:
 
 def run_lanes(platform: str, size: dict = LANES_FULL, *, reported: bool = True) -> dict:
     """Run (o): (o1), (o3) and (o4) on ``platform``; with ``reported`` also
-    (o2) (card only: its numbers are the card's)."""
+    (o2) (card only: its numbers are the card's), with the journal off too
+    where ``size`` asks for it."""
     o1, o3 = run_lanes_stepped(platform, size)
     out = dict(o1=o1, o3=o3, o4=run_profiles(platform, size))
     if reported:
         out["o2"] = run_lanes_wall(platform, size, shards=size["shards"], journal=True,
                                    profiled=True)
         out["o2_single"] = run_lanes_wall(platform, size, shards=1, journal=True)
-        out["o2_nojournal"] = run_lanes_wall(platform, size, shards=size["shards"],
-                                             journal=False)
+        if size["nojournal"]:
+            out["o2_nojournal"] = run_lanes_wall(platform, size, shards=size["shards"],
+                                                 journal=False)
     return out
 
 
@@ -7143,14 +7177,15 @@ def check_lanes(g: dict, c: dict, size: dict) -> None:
                 diff = ([k for k in a if a[k] != b.get(k)][:8]
                         if isinstance(a, dict) else (str(a)[:200], str(b)[:200]))
                 raise AssertionError(f"({part}) {key} differs from the CPU run: {diff}")
-    for part in ("o1", "o3", "o4", "o2", "o2_single", "o2_nojournal"):
+    for part in ("o1", "o3", "o4") + O2_PARTS:
         if part not in g:
             continue
         err = g[part]["kernels"]
         if any(err["max_abs_err"].values()) or err["kept"] != err["launches"]:
             raise AssertionError(f"({part}) kernels: {err}")
-    for part in ("o2", "o2_single", "o2_nojournal"):
-        check_lanes_wall(g[part], part)
+    for part in O2_PARTS:
+        if part in g:
+            check_lanes_wall(g[part], part)
     launched = {lane for lane, n in g["o2"]["lane_launches"].items() if n["fleet_eval"]}
     if len(launched) != size["shards"] + 1:
         raise AssertionError(f"(o2): lanes that launched fleet_eval {sorted(launched)}")
@@ -7170,7 +7205,7 @@ def check_lanes_wall(run: dict, part: str) -> None:
 
 def print_lanes(run: dict, smi: str) -> None:
     drop = ("bindings", "lanes", "routes", "profiles", "journal", "gangs", "kernels")
-    for part in ("o1", "o3", "o4", "o2", "o2_single", "o2_nojournal"):
+    for part in ("o1", "o3", "o4") + O2_PARTS:
         if part in run:
             r = {k: v for k, v in run[part].items() if k not in drop}
             print(f"lanes run ({part}) {run[part]['platform']} [{smi}]:",
@@ -8008,6 +8043,411 @@ def phase_proc(smi: str, lanes: dict) -> dict:
     return out
 
 
+# --- run (q): the trace replayer and the chaos harness ----------------------
+
+# ``rate`` scales every arrival rate of run (q1)'s trace; ``kill`` and
+# ``drain`` are its failure burst's and rolling drain's host counts.
+CHAOS_FULL = dict(hosts=2952, slices=512, rate=1.0, kill=4, drain=8, shards=4, contended=4,
+                  contention_hosts=2952)
+CHAOS_SMALL = dict(hosts=64, slices=8, rate=0.25, kill=2, drain=4, shards=4, contended=4,
+                   contention_hosts=8)
+REPLAY_SEED = 16
+CRASH_SEED = 11
+STORM_SEED = 1337
+STORM_ROUNDS = 8
+REPLAY_COUNTS = ("lifecycles", "scheduled_created", "foreign_created", "deleted", "binds",
+                 "preemptions", "repairs", "ingest_events", "ingest_batches", "shed",
+                 "overload_peak_level", "killed_nodes", "drained_nodes", "drain_leftover")
+
+
+def port_testing() -> dict:
+    """The modules run (q) drives: the port's (the tests pass the JAX
+    package's under the same keys)."""
+    import yoda_tpu_torch.api.types as types
+    import yoda_tpu_torch.config as config
+    import yoda_tpu_torch.overload as overload
+    import yoda_tpu_torch.standalone as standalone
+    from yoda_tpu_torch.testing import chaos, tracegen
+
+    return {"tracegen": tracegen, "chaos": chaos, "standalone": standalone,
+            "config": config, "types": types, "overload": overload}
+
+
+class StackTap:
+    """While entered, every stack ``standalone.build_stack`` builds (alone,
+    or inside ``build_sharded_stacks``, which reaches it through the module
+    attribute) evaluates on ``platform`` where its configuration leaves
+    "auto" ("auto" itself is the card), runs on ``clock`` where its
+    builder left the wall clock (when a clock is given), is kept in
+    ``stacks``, and logs every bind through its cluster front in
+    ``binds`` (pod key -> the nodes it was bound to, in order)."""
+
+    def __init__(self, m: dict, platform: str, clock=None) -> None:
+        self.m, self.platform, self.clock = m, platform, clock
+        self.stacks: list = []
+        self.binds: dict = {}
+        self._fronts: set = set()
+
+    def __enter__(self):
+        standalone = self.m["standalone"]
+        real = self.real = standalone.build_stack
+
+        def build_stack(cluster=None, config=None, **kw):
+            config = config or self.m["config"].SchedulerConfig()
+            if config.kernel_platform == "auto" and self.platform != "auto":
+                config = dataclasses.replace(config, kernel_platform=self.platform)
+            if self.clock is not None and kw.get("clock", time.monotonic) is time.monotonic:
+                kw["clock"] = self.clock
+            stack = real(cluster, config, **kw)
+            self.stacks.append(stack)
+            self._log_binds(stack.cluster)
+            return stack
+
+        standalone.build_stack = build_stack
+        return self
+
+    def __exit__(self, *exc):
+        self.m["standalone"].build_stack = self.real
+        return False
+
+    def _log_binds(self, front) -> None:
+        if id(front) in self._fronts:
+            return
+        self._fronts.add(id(front))
+        real_bind = front.bind_pod
+
+        def bind_pod(key, node):
+            out = real_bind(key, node)
+            self.binds.setdefault(key, []).append(node)
+            return out
+
+        front.bind_pod = bind_pod
+
+    def devices(self) -> list:
+        """Where each kept stack's batch plugin evaluates (the port's
+        stacks; a stack without one says so)."""
+        return sorted({str(getattr(getattr(st, "batch", None), "device", "none"))
+                       for st in self.stacks})
+
+
+def replay_spec(tg, size: dict):
+    """Run (q1)'s trace: two minutes of three tenants' arrivals on a
+    diurnal wave, a flash crowd, foreign churn, a failure burst and a
+    rolling drain (``size`` scales the rates and the host counts)."""
+    rate = size["rate"]
+    return tg.TraceSpec(
+        seed=REPLAY_SEED, duration_s=120.0, base_rate_per_s=6.0 * rate,
+        diurnal_amplitude=0.4, diurnal_period_s=120.0, foreign_rate_per_s=20.0 * rate,
+        tenants=(
+            tg.TenantMix("team-a", priority=5, chips=(1, 2, 4)),
+            tg.TenantMix("team-b", gang_fraction=0.3, gang_sizes=(2, 4), chips=(4, 8)),
+            tg.TenantMix("team-c", weight=0.5, chips=(4,), gang_fraction=1.0,
+                         gang_sizes=(4,), topology="2x2x1"),
+        ),
+        flash_crowds=(tg.FlashCrowd(30.0, 20.0, 15.0 * rate, "team-a"),),
+        failure_bursts=((60.0, size["kill"]),),
+        drains=((80.0, size["drain"]),),
+        drain_recover_s=30.0,
+    )
+
+
+def run_replay(platform: str, size: dict, m: dict) -> dict:
+    """(q1): ``testing.tracegen.replay`` of :func:`replay_spec` over
+    ``size``'s fleet with the rebalancer driven, its stack built by the
+    replay itself on its default configuration (``kernel_platform: auto``,
+    the card) with ``bind_workers: 0``: the node health monitor and the
+    rebalancer fan their unbinds out on the bind workers, and the order in
+    which those land would decide the requeue order."""
+    tg = m["tracegen"]
+    config = dataclasses.replace(tg._default_config(), bind_workers=0)
+    with StackTap(m, platform) as tap:
+        report = tg.replay(replay_spec(tg, size), config=config, hosts=size["hosts"],
+                           slices=size["slices"], drive_rebalancer=True, max_wall_s=900.0)
+    return {
+        "fingerprint": report.fingerprint(),
+        "counts": {k: getattr(report, k) for k in REPLAY_COUNTS},
+        "slo": report.slo,
+        "verdict": [f"{a['sli']}:{a['tenant']}" for a in report.slo.get("alerts", [])] or "ok",
+        "binds": tap.binds,
+        "wall_s": report.wall_s,
+        "pods_per_s": report.binds / report.wall_s if report.wall_s else None,
+        "devices": tap.devices(),
+    }
+
+
+def contention_invariants(shard_set) -> list:
+    """``tests/test_chaos.py``'s ``TestCrossShardContention._invariants``:
+    no host over its healthy chips, no gang split, no claim of a pod that
+    is gone; the violations found."""
+    bad = []
+    acct = shard_set.accountant
+    cluster = shard_set.global_stack.cluster
+    for ni in shard_set.global_stack.informer.snapshot().infos():
+        used, cap = acct.chips_in_use(ni.name), len(ni.tpu.healthy_chips())
+        if used > cap:
+            bad.append(f"node {ni.name} oversubscribed {used} > {cap}")
+    per_gang: dict = {}
+    for p in cluster.list_pods():
+        g = p.labels.get("tpu/gang")
+        if g and p.node_name:
+            per_gang.setdefault(g, []).append(p.key)
+    bad += [f"gang {g} split: only {members} bound"
+            for g, members in per_gang.items() if len(members) != 4]
+    leaked = acct.claimed_uids() - {p.uid for p in cluster.list_pods()}
+    if leaked:
+        bad.append(f"leaked claims {sorted(leaked)}")
+    return bad
+
+
+def settle_lanes(tg, shard_set, clock, done=None, rounds: int = 64) -> int:
+    """Drain every lane in a fixed order with the replayer's ``_settle``
+    (cycle by cycle, never waiting on wall time: a gang left at Permit by
+    a crashed front waits for the clock), then the starved-work rescue;
+    a second of the held clock per round until a round moves nothing and
+    leaves no lane with active work, or ``done()`` holds. Returns the
+    rounds run."""
+    for r in range(1, rounds + 1):
+        for st in shard_set.stacks:
+            tg._settle(st, clock)
+        moved = shard_set.rescue_starved(min_attempts=1)
+        if done is not None and done():
+            return r
+        if done is None and moved == 0 and all(
+                st.queue.depths()[0] == 0 for st in shard_set.stacks):
+            return r
+        clock.advance(1.0)
+    return rounds
+
+
+def run_shard_crash(platform: str, size: dict, m: dict) -> dict:
+    """(q2): ``TestCrossShardContention::test_shard_crash_mid_commit_
+    resolves_via_resync`` through ``testing.chaos.build_cross_shard_
+    contention`` at ``size``'s fleet: a plain gang of 4 x 4 chips, the
+    process crashed mid-commit at its second bind, a respawned assembly
+    over the same backing cluster resynced and drained until the gang is
+    bound; lane after lane on a held clock (:func:`settle_lanes`)."""
+    chaos, config, tg = m["chaos"], m["config"], m["tracegen"]
+    clock = SteppedClock(0.0)
+    cfg = config.SchedulerConfig(shard_count=size["shards"], batch_requests=8,
+                                 failover_adopt_window_s=0.0)
+    plan = chaos.ChaosPlan([chaos.FaultSpec(op="shard_crash", at=1, kind="mid_commit")])
+    t0 = time.monotonic()
+    with StackTap(m, platform, clock) as tap:
+        ss, _agent, contended = chaos.build_cross_shard_contention(
+            CRASH_SEED, shards=size["shards"], contended_slices=size["contended"],
+            hosts=size["contention_hosts"], plan=plan, config=cfg)
+        front = ss.global_stack.cluster
+        labels = {"tpu/gang": "xg", "tpu/gang-size": "4", "tpu/chips": "4"}
+        for i in range(4):
+            front.create_pod(m["types"].PodSpec(f"xg-{i}", labels=dict(labels)))
+        settle_lanes(tg, ss, clock, rounds=12)
+        crashed = front.crashed.is_set()
+        fired = [list(f) for f in plan.fired]
+        ss.close()
+        front2 = front.respawn()
+        ss2 = m["standalone"].build_sharded_stacks(cluster=front2, config=cfg)
+        resync = ss2.global_stack.reconciler.resync()
+
+        def whole() -> bool:
+            return all(p.node_name for p in front2.inner.list_pods())
+
+        rounds = settle_lanes(tg, ss2, clock, whole)
+        bindings = {p.key: p.node_name for p in front2.inner.list_pods()}
+        violations = contention_invariants(ss2)
+        staged = sorted(ss2.accountant.staged_uids())
+        ss2.close()
+    return {
+        "crashed": crashed, "fired": fired, "contended": contended,
+        "bindings": bindings, "violations": violations, "staged": staged,
+        "rounds": rounds, "resync": {"adopted": list(resync.adopted_gangs),
+                   "rolled_back": list(resync.rolled_back_gangs)},
+        "wall_s": time.monotonic() - t0, "devices": tap.devices(),
+    }
+
+
+def run_storm(platform: str, m: dict) -> dict:
+    """(q3): ``tests/test_overload.py``'s ``TestOverloadStormSweep`` (seed
+    1337, 8 storm rounds, then calm) through ``testing.chaos.build_
+    overload_storm`` at its own 4-host fleet, with the sweep's
+    invariants; returns the ladder's level after each round, the shed
+    count and every pod's first node."""
+    chaos, overload = m["chaos"], m["overload"]
+    t0 = time.monotonic()
+    with StackTap(m, platform) as tap:
+        stack, _agent, clock = chaos.build_overload_storm(STORM_SEED)
+    ov, cluster = stack.metrics.overload, stack.cluster
+    created: list = []
+    prod_created: dict = {}
+    bound_rounds: dict = {}
+    first_node: dict = {}
+    levels: list = []
+    violations: list = []
+
+    def note_bound(key, r) -> None:
+        pod = cluster.get_pod(key)
+        if pod is not None and pod.node_name:
+            bound_rounds.setdefault(key, r)
+            first_node.setdefault(key, pod.node_name)
+
+    peak = 0
+    for r in range(STORM_ROUNDS):
+        prod_pods, spot_pods = chaos.storm_stream(STORM_SEED, r)
+        for p in prod_pods + spot_pods:
+            cluster.create_pod(p)
+            created.append(p.key)
+        for p in prod_pods:
+            prod_created[p.key] = r
+        clock.now += 2.0
+        ov.evaluate()
+        stack.scheduler.run_until_idle(max_wall_s=10.0)
+        peak = max(peak, ov.level_idx)
+        levels.append(ov.level_idx)
+        for key in list(bound_rounds):
+            if r - bound_rounds[key] >= 2:
+                cluster.delete_pod(key)
+                created.remove(key)
+                del bound_rounds[key]
+        for key in created:
+            note_bound(key, r)
+        for ni in stack.informer.snapshot().infos():
+            if stack.accountant.chips_in_use(ni.name) > len(ni.tpu.healthy_chips()):
+                violations.append(f"round {r}: {ni.name} oversubscribed")
+        for key, r0 in prod_created.items():
+            pod = cluster.get_pod(key)
+            if pod is not None and r - r0 >= 2 and not pod.node_name:
+                violations.append(f"round {r}: prod pod {key} waited past 2 rounds")
+    storm_shed = ov.shed_total
+    calm = 0
+    for calm in range(1, 101):
+        clock.now += 5.0
+        ov.evaluate()
+        stack.scheduler.run_until_idle(max_wall_s=10.0)
+        levels.append(ov.level_idx)
+        for key in list(bound_rounds):
+            cluster.delete_pod(key)
+            created.remove(key)
+            del bound_rounds[key]
+        for key in created:
+            note_bound(key, 99)
+        if ov.level_idx == overload.NOMINAL and not created:
+            break
+    out = {
+        "levels": levels, "peak": peak, "shed_total": ov.shed_total,
+        "storm_shed": storm_shed, "calm_rounds": calm, "left": len(created),
+        "final_level": ov.level_idx, "sample_rate": stack.metrics.tracer.sample_rate,
+        "staged": sorted(stack.accountant.staged_uids()), "bindings": first_node,
+        "violations": violations, "shed_level": overload.SHED,
+        "wall_s": time.monotonic() - t0, "devices": tap.devices(),
+    }
+    stack.gang.close()
+    return out
+
+
+def run_chaos(platform: str, size: dict = CHAOS_FULL, *, reported: bool = True,
+              mods: "dict | None" = None, parts=("q1", "q2", "q3")) -> dict:
+    """Run (q): (q1) the trace replay, (q2) the shard crash mid-commit and
+    (q3) the overload storm on ``platform`` (those of ``parts``). On the
+    card every ``fleet_eval`` / ``joint_fit`` / ``update_rows`` launch is
+    held against its plain version, the counts zeroed just before each
+    part."""
+    m = mods or port_testing()
+    out: dict = {}
+    for part, fn, args in (("q1", run_replay, (size,)), ("q2", run_shard_crash, (size,)),
+                           ("q3", run_storm, ())):
+        if part not in parts:
+            continue
+        if mods is None:
+            with KeptKernels() as kept, KeptRowUpdates() as rows:
+                out[part] = fn(platform, *args, m)
+            out[part]["kernels"] = kept_counts(kept, rows)
+        else:
+            out[part] = fn(platform, *args, m)
+    return out
+
+
+CHAOS_PARITY = {
+    "q1": ("fingerprint", "counts", "slo", "binds"),
+    "q2": ("crashed", "fired", "resync", "rounds", "bindings", "staged"),
+    "q3": ("levels", "peak", "shed_total", "storm_shed", "calm_rounds", "bindings"),
+}
+
+
+def check_chaos_run(run: dict, card: bool) -> None:
+    """One run (q)'s own gates, for the parts it ran: the replay bound pods
+    and killed hosts, the crash fired and the respawned assembly completed
+    the gang whole, the storm reached SHED, shed pods and came back to
+    NOMINAL with nothing left; on the card every stack evaluated there,
+    every part launched fleet_eval and every launch equals its plain
+    version."""
+    q1, q2, q3 = run.get("q1"), run.get("q2"), run.get("q3")
+    if q1 is not None and (q1["counts"]["binds"] <= 0 or not q1["counts"]["killed_nodes"]):
+        raise AssertionError(f"run q1: nothing bound or no host killed: {q1['counts']}")
+    if q2 is not None:
+        if not q2["crashed"] or q2["violations"] or q2["staged"]:
+            raise AssertionError(f"run q2: crashed {q2['crashed']}, violations "
+                                 f"{q2['violations']}, staged {q2['staged']}")
+        xg = [node for key, node in q2["bindings"].items() if key.startswith("default/xg-")]
+        if len(xg) != 4 or not all(xg):
+            raise AssertionError(f"run q2: gang xg not whole after the respawn: {xg}")
+    if q3 is not None and (
+            q3["peak"] != q3["shed_level"] or q3["shed_total"] <= 0 or q3["left"]
+            or q3["final_level"] != 0 or q3["sample_rate"] != 1.0 or q3["staged"]
+            or q3["violations"]):
+        raise AssertionError(f"run q3: peak {q3['peak']}, shed {q3['shed_total']}, left "
+                             f"{q3['left']}, level {q3['final_level']}, violations "
+                             f"{q3['violations'][:4]}")
+    if not card:
+        return
+    for part, r in run.items():
+        if r["devices"] != ["cuda:0"]:
+            raise AssertionError(f"run {part}: stacks evaluated on {r['devices']}")
+        k = r["kernels"]
+        if k["launches"]["fleet_eval"] <= 0:
+            raise AssertionError(f"run {part}: fleet_eval never launched")
+        for name in ("fleet_eval", "joint_fit", "update_rows"):
+            if k["kept"][name] != k["launches"][name] or k["max_abs_err"][name]:
+                raise AssertionError(f"run {part} {name}: {k['kept'][name]} of "
+                                     f"{k['launches'][name]} launches held, largest "
+                                     f"difference {k['max_abs_err'][name]}")
+
+
+def check_chaos(g: dict, c: dict) -> None:
+    """Run (q) on the card against its CPU run."""
+    check_chaos_run(g, card=True)
+    check_chaos_run(c, card=False)
+    for part, keys in CHAOS_PARITY.items():
+        bad = [k for k in keys if g[part][k] != c[part][k]]
+        if bad:
+            raise AssertionError(f"run {part}: cuda != cpu in {bad}")
+
+
+def print_chaos(run: dict, smi: str) -> None:
+    q1, q2, q3 = run["q1"], run["q2"], run["q3"]
+    print(f"run (q1) replay: {json.dumps(q1['counts'])} slo {q1['verdict']} "
+          f"fleet p99 {q1['fingerprint']['fleet_p99_s']} s, "
+          f"{q1['pods_per_s']:.1f} pods/s over {q1['wall_s']:.1f} s | {smi}")
+    print(f"run (q2) shard crash: fired {q2['fired']}, xg on "
+          f"{sorted(n for k, n in q2['bindings'].items() if k.startswith('default/xg-'))}, "
+          f"{q2['wall_s']:.1f} s | {smi}")
+    print(f"run (q3) storm: levels {q3['levels']}, shed {q3['shed_total']}, "
+          f"{len(q3['bindings'])} pods bound, {q3['wall_s']:.1f} s | {smi}")
+    if "kernels" in q1:
+        print("run (q) launches:", json.dumps(
+            {p: run[p]["kernels"]["launches"] for p in ("q1", "q2", "q3")}))
+
+
+def phase_chaos(smi: str, rerun: "SpawnedRerun") -> dict:
+    """Run (q) on the card; its CPU run is ``rerun``, spawned before run
+    (m), whose loop-mode and sharded runs and run (o)'s stepped drives it
+    overlaps."""
+    g = run_chaos("auto")
+    c = rerun.result()
+    print_chaos(g, smi)
+    print_chaos(c, smi)
+    check_chaos(g, c)
+    return g
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--spec-worker"]:
         sys.exit(spec_worker_entry(sys.argv[2:]))
@@ -8038,6 +8478,7 @@ def main() -> None:
     tenancy_rerun = SpawnedRerun("run_tenancy", TENANCY_FULL, "run (k)")
     pipeline_rerun = SpawnedRerun("run_pipeline", PIPELINE_FULL, "run (l3)")
     lanes_rerun = SpawnedRerun("run_lanes", LANES_FULL, "run (o)")
+    chaos_rerun = None
     try:
         rows, profiled = phase("kernel vs plain", phase_kernel)
         joint_rows = phase("joint_fit vs plain", phase_joint_fit)
@@ -8054,12 +8495,15 @@ def main() -> None:
         tenancy = phase("tenancy run (k)", phase_tenancy, smi, tenancy_rerun)
         process = phase("process run (l)", phase_process, smi, pipeline_rerun,
                         seconds["device/build"])
+        chaos_rerun = SpawnedRerun("run_chaos", CHAOS_FULL, "run (q)")
         loop = phase("loop run (m)", phase_loop, smi)
         sharded = phase("sharded run (n)", phase_sharded, smi, gpu)
         lanes = phase("lanes run (o)", phase_lanes, smi, lanes_rerun)
         proc = phase("process lanes run (p)", phase_proc, smi, lanes)
+        chaos = phase("chaos run (q)", phase_chaos, smi, chaos_rerun)
         print("phase seconds:", json.dumps(seconds))
-        o_parts = ("o1", "o3", "o4", "o2", "o2_single", "o2_nojournal")
+        q_parts = ("q1", "q2", "q3")
+        o_parts = tuple(p for p in ("o1", "o3", "o4") + O2_PARTS if p in lanes)
         l_parts = ("l1", "l2", "l3", "l4")
         j_parts = ("j1", "j1_wall", "j2", "j3", "cost")
         k_parts = ("k1", "k1_unfair", "k2", "k3")
@@ -8093,10 +8537,14 @@ def main() -> None:
                     + sum(process[p]["launches"]["fleet_eval"] for p in l_parts)
                     + loop["m1"]["launches"]
                     + sum(lanes[p]["kernels"]["launches"]["fleet_eval"] for p in o_parts)
-                    + sum(w["launches"]["fleet_eval"] for w in proc["p1"]["kernels"].values()),
+                    + sum(w["launches"]["fleet_eval"] for w in proc["p1"]["kernels"].values())
+                    + sum(chaos[p]["kernels"]["launches"]["fleet_eval"] for p in q_parts),
                     "launches_run_p1_by_worker": {
                         lane: w["launches"]["fleet_eval"]
                         for lane, w in proc["p1"]["kernels"].items()
+                    },
+                    "launches_run_q": {
+                        p: chaos[p]["kernels"]["launches"]["fleet_eval"] for p in q_parts
                     },
                     "launches_run_o": {
                         p: lanes[p]["kernels"]["launches"]["fleet_eval"] for p in o_parts
@@ -8146,7 +8594,9 @@ def main() -> None:
                                        *(lanes[p]["kernels"]["max_abs_err"]["fleet_eval"]
                                          for p in o_parts),
                                        *(w["max_abs_err"]["fleet_eval"]
-                                         for w in proc["p1"]["kernels"].values())),
+                                         for w in proc["p1"]["kernels"].values()),
+                                       *(chaos[p]["kernels"]["max_abs_err"]["fleet_eval"]
+                                         for p in q_parts)),
                     "ms": main_row["ms"],
                     "plain_ms": main_row["plain_ms"],
                     "bound_ms": main_row["bound_ms"],
@@ -8182,10 +8632,14 @@ def main() -> None:
                     + sum(tenancy[p]["launches"]["joint_fit"] for p in k_parts)
                     + sum(process[p]["launches"]["joint_fit"] for p in l_parts)
                     + sum(lanes[p]["kernels"]["launches"]["joint_fit"] for p in o_parts)
-                    + sum(w["launches"]["joint_fit"] for w in proc["p1"]["kernels"].values()),
+                    + sum(w["launches"]["joint_fit"] for w in proc["p1"]["kernels"].values())
+                    + sum(chaos[p]["kernels"]["launches"]["joint_fit"] for p in q_parts),
                     "launches_run_p1_by_worker": {
                         lane: w["launches"]["joint_fit"]
                         for lane, w in proc["p1"]["kernels"].items()
+                    },
+                    "launches_run_q": {
+                        p: chaos[p]["kernels"]["launches"]["joint_fit"] for p in q_parts
                     },
                     "launches_run_l": {
                         p: process[p]["launches"]["joint_fit"] for p in l_parts
@@ -8217,7 +8671,9 @@ def main() -> None:
                                        *(lanes[p]["kernels"]["max_abs_err"]["joint_fit"]
                                          for p in o_parts),
                                        *(w["max_abs_err"]["joint_fit"]
-                                         for w in proc["p1"]["kernels"].values())),
+                                         for w in proc["p1"]["kernels"].values()),
+                                       *(chaos[p]["kernels"]["max_abs_err"]["joint_fit"]
+                                         for p in q_parts)),
                     "ms": joint_main["ms"],
                     "device_ms": not_measured(joint_main["device_ms"]),
                     "plain_ms": joint_main["plain_ms"],
@@ -8292,7 +8748,11 @@ def main() -> None:
                     + sum(tenancy[p]["launches"]["update_rows"] for p in k_parts)
                     + sum(process[p]["launches"]["update_rows"] for p in l_parts)
                     + sum(n["update_rows"] for p in o_parts
-                          for n in lanes[p]["lane_launches"].values()),
+                          for n in lanes[p]["lane_launches"].values())
+                    + sum(chaos[p]["kernels"]["launches"]["update_rows"] for p in q_parts),
+                    "launches_run_q": {
+                        p: chaos[p]["kernels"]["launches"]["update_rows"] for p in q_parts
+                    },
                     "launches_run_h_speculation": background["h1"]["spec_row_updates"],
                     "launches_run_o": {
                         p: sum(n["update_rows"] for n in lanes[p]["lane_launches"].values())
@@ -8308,7 +8768,9 @@ def main() -> None:
                                        *(tenancy[p]["max_abs_err"]["update_rows"]
                                          for p in k_parts),
                                        *(process[p]["max_abs_err"]["update_rows"]
-                                         for p in l_parts)),
+                                         for p in l_parts),
+                                       *(chaos[p]["kernels"]["max_abs_err"]["update_rows"]
+                                         for p in q_parts)),
                     "ms": update_main["ms"],
                     "plain_ms": update_main["put_static_ms"],
                     "bound_ms": update_main["bound_ms"],
@@ -8342,6 +8804,8 @@ def main() -> None:
         tenancy_rerun.stop()
         pipeline_rerun.stop()
         lanes_rerun.stop()
+        if chaos_rerun is not None:
+            chaos_rerun.stop()
 
 
 if __name__ == "__main__":

@@ -4,9 +4,9 @@ warm resync), held against yoda_tpu.
 
 Every case of ``tests/test_journal.py`` runs on both packages from the
 reference's own source (``torch_refcases.run_case``), with its exact
-assertions; none is left out. ``TestChaosDiskFaults`` drives the kept
-chaos module's ``FaultyJournalIO``, which the harness gives the port's
-``RealJournalIO`` and ``JournalFault`` on the port's side.
+assertions; none is left out. ``TestChaosDiskFaults`` drives each
+package's own chaos module's ``FaultyJournalIO`` over that package's
+``RealJournalIO`` and ``JournalFault``.
 ``TestReplayVsColdResyncBench`` keeps the reference's ``slow`` mark.
 
 Beside them: the record format is the reference's byte for byte — one

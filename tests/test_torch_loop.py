@@ -56,8 +56,7 @@ def _class_skip(ref: str, reasons: "dict[str, str]") -> "dict[str, str]":
 
 
 OPS_SKIP = _class_skip("test_ops.py", {
-    "TestDeviceFleetKernel": "the reference's jitted single-device kernel; the "
-    "port's TorchFleetKernel is held against it in test_torch_kernel.py",
+    "TestDeviceFleetKernel": "run by test_torch_parity_ops.py",
     "TestBatchPlatformPolicy": "the TPU-measured auto platform policy, not "
     "carried over (ROADMAP B7)",
 })

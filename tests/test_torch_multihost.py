@@ -4,8 +4,9 @@ against yoda_tpu.
 
 Every case of ``tests/test_multihost.py`` runs on both packages from the
 reference's own source (``torch_refcases.run_case``), with its exact
-assertions; none is left out. The kept chaos module's ``ChaosTcpProxy``
-and ``ChaosPlan`` are harness, not the system under test.
+assertions; none is left out. Each package's side runs over its own
+chaos module's ``ChaosTcpProxy``, ``ChaosPlan`` and ``DriveWorker`` (the
+port's spawns the port's worker, on the host under the harness).
 
 Beside them, a tailer of each package follows a parent of each package
 over TCP to zero lag and promotes warm: every combination holds what the

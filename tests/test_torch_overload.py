@@ -5,10 +5,10 @@ Every case of ``tests/test_overload.py`` that needs no unported part runs
 on both packages from the reference's own source
 (``torch_refcases.run_case``), with its stepped ``ReplayClock`` and exact
 assertions (``TestConfigReloader::test_end_to_end_from_yaml_file``
-loads through the port CLI's ``_load_config``). Left out, with the part it
-waits for (ROADMAP queue 1): ``TestOverloadStormSweep``, the seeded chaos
-storm of ``yoda_tpu.testing.chaos`` (item 12), which builds the
-reference's own stack (and is ``-m slow`` in the reference).
+loads through the port CLI's ``_load_config``); none is left out.
+``TestOverloadStormSweep``, the seeded chaos storm, builds each package's
+own stack through its own ``testing.chaos`` and keeps the reference's
+``slow`` mark.
 ``TestReloadEqual`` below drives a reload from a candidate config through
 both packages' ``apply_reloadable``. ``TestParkedQueueRepairs`` shows the
 port's two repairs of a loop left with every draw parked: the reference
@@ -36,10 +36,7 @@ import yoda_tpu_torch.overload as port_overload
 import yoda_tpu_torch.standalone as port_standalone
 
 REF = "test_overload.py"
-SKIP = {
-    "TestOverloadStormSweep::test_storm_sheds_spot_protects_prod_and_recovers":
-        "chaos storm (item 12)",
-}
+SKIP: dict = {}
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)

@@ -1,0 +1,24 @@
+"""Every case of ``tests/test_e2e.py`` on both packages: the five BASELINE
+configs end to end in both modes and the informer's per-event
+``on_change`` hook (queue 3's F2: ``TestClockDomainMismatch`` built an
+``InformerCache(on_change=...)`` the port refused).
+
+Each case runs from the reference's own source through
+``torch_refcases.run_case`` (imports pointed at the port, the port's
+``kernel_platform: auto`` mapped to the host), with its exact assertions.
+Nothing is left out.
+"""
+
+from __future__ import annotations
+
+import pytest
+from torch_refcases import PACKAGES, cases, run_case
+
+REF = "test_e2e.py"
+SKIP: dict = {}
+
+
+@pytest.mark.parametrize("pkg", PACKAGES)
+@pytest.mark.parametrize("case", cases(REF, SKIP), ids=lambda c: c[0])
+def test_reference_case(pkg, case, request, monkeypatch):
+    run_case(pkg, REF, case, request, monkeypatch)

@@ -1,0 +1,24 @@
+"""Every case of ``tests/test_scale.py`` on both packages: large fleets:
+1,024 to 16,384 nodes; ``TestIncrementalAtScale`` is queue 3's F4, whose
+1,600 ms bound the port missed beside other test processes until the host
+evaluation bounded its thread pool (its ``slow`` cases stay slow).
+
+Each case runs from the reference's own source through
+``torch_refcases.run_case`` (imports pointed at the port, the port's
+``kernel_platform: auto`` mapped to the host), with its exact assertions.
+Nothing is left out.
+"""
+
+from __future__ import annotations
+
+import pytest
+from torch_refcases import PACKAGES, cases, run_case
+
+REF = "test_scale.py"
+SKIP: dict = {}
+
+
+@pytest.mark.parametrize("pkg", PACKAGES)
+@pytest.mark.parametrize("case", cases(REF, SKIP), ids=lambda c: c[0])
+def test_reference_case(pkg, case, request, monkeypatch):
+    run_case(pkg, REF, case, request, monkeypatch)

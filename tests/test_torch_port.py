@@ -69,7 +69,8 @@ class TestImportGuard:
                     "plugins/yoda/collection.py", "plugins/yoda/score.py",
                     "journal/__init__.py", "journal/journal.py",
                     "journal/tail.py", "framework/shards.py",
-                    "framework/procserve.py"):
+                    "framework/procserve.py", "testing/chaos.py",
+                    "testing/tracegen.py"):
             assert REPO / "yoda_tpu_torch" / rel in files, rel
         bad = {
             f"{f.relative_to(REPO)}: {m}"
@@ -180,6 +181,65 @@ class TestDevicePolicy:
         assert stack.batch.device == torch.device("cpu")
 
 
+class TestHostPool:
+    """A process evaluating on the host bounds torch's intra-op pool (the
+    six-process collapse of ROADMAP queue 3's F4); the card's kernels
+    leave it alone, and a wider pool is never lowered further than asked
+    nor raised."""
+
+    @pytest.fixture(autouse=True)
+    def _restore_pool(self):
+        before = torch.get_num_threads()
+        yield
+        torch.set_num_threads(before)
+
+    @pytest.mark.parametrize("cores,lanes,want", [(8, 1, 2), (8, 4, 2), (8, 5, 1),
+                                                  (1, 1, 1), (64, 16, 2)])
+    def test_threads_from_cores_and_lanes(self, cores, lanes, want, monkeypatch):
+        import os
+
+        from yoda_tpu_torch.ops import kernel
+
+        monkeypatch.setattr(os, "cpu_count", lambda: cores)
+        assert kernel.host_threads(lanes) == want
+
+    def test_host_kernel_bounds_the_card_kernel_does_not(self, monkeypatch):
+        import os
+
+        from yoda_tpu_torch.config import Weights
+        from yoda_tpu_torch.ops.kernel import DeviceFleetKernel, TorchFleetKernel
+
+        monkeypatch.setattr(os, "cpu_count", lambda: 8)
+        torch.set_num_threads(6)
+        TorchFleetKernel(Weights(), torch.device("cuda", 0))
+        assert torch.get_num_threads() == 6
+        DeviceFleetKernel(Weights(), torch.device("cpu"))
+        assert torch.get_num_threads() == 2
+        torch.set_num_threads(1)
+        TorchFleetKernel(Weights(), torch.device("cpu"))
+        assert torch.get_num_threads() == 1
+
+    def test_device_fleet_kernel_defaults_to_the_card(self, monkeypatch):
+        from yoda_tpu_torch.config import Weights
+        from yoda_tpu_torch.ops.kernel import DeviceFleetKernel
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            DeviceFleetKernel(Weights())
+
+    def test_worker_entry_bounds_on_the_host_only(self, monkeypatch):
+        import os
+
+        from yoda_tpu_torch.framework import procserve
+
+        monkeypatch.setattr(os, "cpu_count", lambda: 8)
+        for device, lanes, want in (("cuda", 8, 6), ("cpu", 8, 1)):
+            torch.set_num_threads(6)
+            with pytest.raises(SystemExit):
+                procserve.main(["--device", device, "--shard-count", str(lanes)])
+            assert torch.get_num_threads() == want
+
+
 class TestUnportedKnobs:
     @pytest.mark.parametrize(
         "knob,value",
@@ -248,14 +308,29 @@ class TestUnportedKnobs:
             for st in stacks:
                 st.close()
 
-    @pytest.mark.parametrize("entry", ["sharded", "profiles", "process"])
-    def test_assemblies_run_on_the_card_by_default(self, entry, monkeypatch):
-        """``build_sharded_stacks``, ``build_profile_stacks`` and
-        ``build_proc_parent`` keep the card as their default: with none
-        present they raise, never fall back to the host lane by lane."""
+    @pytest.mark.parametrize(
+        "entry", ["sharded", "profiles", "process", "drive_worker", "replay"]
+    )
+    def test_assemblies_run_on_the_card_by_default(self, entry, monkeypatch,
+                                                   tmp_path):
+        """``build_sharded_stacks``, ``build_profile_stacks``,
+        ``build_proc_parent``, the chaos harness's ``DriveWorker`` and the
+        trace replayer's ``replay`` keep the card as their default: with
+        none present they raise (the drive worker before it spawns), never
+        fall back to the host lane by lane."""
+        import subprocess
+
+        from yoda_tpu_torch.testing import chaos, tracegen
+
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        spawned = []
+        monkeypatch.setattr(subprocess, "Popen", lambda *a, **kw: spawned.append(a))
         with pytest.raises(RuntimeError, match="CUDA device"):
-            if entry == "sharded":
+            if entry == "drive_worker":
+                chaos.DriveWorker("sock", "s0", [], tmpdir=str(tmp_path))
+            elif entry == "replay":
+                tracegen.replay(tracegen.TraceSpec(duration_s=5.0), hosts=1)
+            elif entry == "sharded":
                 build_sharded_stacks(config=SchedulerConfig(shard_count=2))
             elif entry == "process":
                 build_proc_parent(
@@ -268,6 +343,7 @@ class TestUnportedKnobs:
                         profiles=(SchedulerConfig(scheduler_name="b"),)
                     ),
                 )
+        assert not spawned
 
     @pytest.mark.parametrize(
         "knob,value",

@@ -6,7 +6,7 @@ yoda_tpu.
 Every case of ``tests/test_procserve.py`` runs on both packages from the
 reference's own source (``torch_refcases.run_case``), with its exact
 assertions; none is left out. On the port's side a worker process a case
-spawns (its own spec worker, the kept chaos module's ``DriveWorker``) is
+spawns (its own spec worker, the port's chaos module's ``DriveWorker``) is
 the port's worker, on the host (``--device cpu``).
 
 Beside them: a seeded process drive (a parent and two spec worker

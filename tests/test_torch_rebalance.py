@@ -10,7 +10,9 @@ fragmentation scores and the binder's unbind count. Left out: the crash
 mid-migration case and the seeded chaos sweep (the chaos harness and
 ``serve_forever`` are not ported) and the metrics-registry assertions (no
 registry in the port). The aborted move refuses every unbind through a
-cluster whose ``unbind_pod`` raises, in place of the chaos plan.
+cluster whose ``unbind_pod`` raises, in place of the chaos plan. Every
+case of that file, those left out here included, also runs whole on both
+packages from its own source in test_torch_parity_rebalance.py.
 
 Also here: a seeded whole-stack script over a mixed fleet (v5p slices and
 v5e hosts) that drives ``reconciler.resync``, ``rebalancer.run_once``,

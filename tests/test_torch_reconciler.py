@@ -13,7 +13,9 @@ Left out: the chaos-driven crash cases (the chaos harness, the bind
 pipeline and ``serve_forever`` are not ported), the dead-leader write
 refusal (a chaos-cluster property) and the readiness endpoint cases (no
 metrics server in the port); the metrics-registry assertions (no registry
-in the port)."""
+in the port). Every case of that file, those left out here included, also
+runs whole on both packages from its own source in
+test_torch_parity_failover.py."""
 
 import dataclasses
 import threading

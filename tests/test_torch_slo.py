@@ -1,13 +1,11 @@
 """The fleet SLO engine, held against yoda_tpu.
 
-Every case of ``tests/test_slo.py`` that needs no unported part runs on
-both packages from the reference's own source
-(``torch_refcases.run_case``), with its fake clocks and exact
-assertions. Left out, with the part they wait for (ROADMAP queue 1):
-
-- ``TestTraceReplayDeterminism`` (four cases): the trace generator and
-  replay of ``yoda_tpu.testing.tracegen`` (item 12), which build the
-  reference's own stacks.
+Every case of ``tests/test_slo.py`` runs on both packages from the
+reference's own source (``torch_refcases.run_case``), with its fake
+clocks and exact assertions; none is left out.
+``TestTraceReplayDeterminism`` drives each package's own
+``testing.tracegen`` (its replay on the host, as the harness maps the
+port's "auto").
 """
 
 from __future__ import annotations
@@ -30,16 +28,7 @@ import yoda_tpu_torch.metrics_server as port_server
 import yoda_tpu_torch.standalone as port_standalone
 
 REF = "test_slo.py"
-SKIP = {
-    "TestTraceReplayDeterminism::test_identical_seeds_identical_sli_output":
-        "tracegen replay (item 12)",
-    "TestTraceReplayDeterminism::test_different_seeds_differ":
-        "tracegen replay (item 12)",
-    "TestTraceReplayDeterminism::test_generator_is_deterministic_and_lazy":
-        "tracegen (item 12)",
-    "TestTraceReplayDeterminism::test_replay_drives_batched_ingest":
-        "tracegen replay (item 12)",
-}
+SKIP: dict = {}
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)

@@ -3,9 +3,9 @@
 A reference test module (``tests/test_observability.py`` and its
 siblings) is compiled from its source once per package: for
 ``yoda_tpu_torch`` every ``yoda_tpu`` import is pointed at the port
-(``yoda_tpu.testing``'s fake API server and ``wait_until`` included: the
-port has its own copies; only the harness helpers it lacks — the chaos
-plans, the fake libtpu service and the trace generator — stay the
+(``yoda_tpu.testing``'s fake API server, ``wait_until``, chaos harness and
+trace generator included: the port has its own copies; only the fake
+libtpu service, which the port's agents do not read yet, stays the
 reference's), and the port's
 ``build_stack`` runs its kernels on the host (``kernel_platform: cpu``)
 where the case leaves the platform at "auto", as every port test does on
@@ -14,23 +14,25 @@ device (``ops.kernel.resolve_device`` and its importers: the batch plugin
 a case builds itself, ``fused_filter_score``, ``parallel.default_mesh``,
 which then gives the host shards) and the assemblies built from
 ``build_stack`` (``build_sharded_stacks``, ``build_profile_stacks``), in
-the case's own process and in a script it runs in a fresh interpreter. The
-kept chaos module's faulty journal I/O is given the port's
-``RealJournalIO`` and ``JournalFault`` on the port's side, and a worker
-process that a case (or the chaos module's ``DriveWorker``) spawns as
-``python -m yoda_tpu.framework.procserve`` is the port's worker, given
-``--device cpu``. The case body, its inputs and its assertions
+the case's own process and in a script it runs in a fresh interpreter
+(the port's chaos module's ``DriveWorker`` resolves its "auto" device
+through the same mapping, so it spawns the port's worker with ``--device
+cpu``). A worker process that a case spawns itself as ``python -m
+yoda_tpu.framework.procserve`` is the port's worker, given ``--device
+cpu``. The case body, its inputs and its assertions
 are the reference's own, unchanged, so a case passing on both packages
 holds the port to exactly what the reference is held to.
 
 ``cases(path, skip)`` lists ``(case id, class, method, params)`` for
 ``pytest.mark.parametrize``, one per parameter set of a case the
-reference parametrizes (its id ``method[v1-v2]``), a case the reference
-marks ``slow`` (on its class or on itself) wrapped in ``pytest.param``
-with the same mark, so it stays out of the tier-1 run as it does in the
-reference;
-``run_case(pkg, path, case, request, monkeypatch)`` runs one, resolving
-the method's fixtures through ``request``.
+reference parametrizes, on the method or on its class (its id
+``method[v1-v2]``, the method's values before the class's, as pytest
+orders them), a case the reference marks ``slow`` (on its class or on
+itself) wrapped in ``pytest.param`` with the same mark, so it stays out of
+the tier-1 run as it does in the reference;
+``run_case(pkg, path, case, request, monkeypatch)`` runs one between its
+class's ``setup_method`` and ``teardown_method``, resolving the method's
+fixtures through ``request``.
 """
 
 from __future__ import annotations
@@ -50,12 +52,9 @@ PACKAGES = ("yoda_tpu", "yoda_tpu_torch")
 TESTS = Path(__file__).resolve().parent
 
 # Reference modules the port side keeps: test harness helpers the port
-# has no copy of, not the system under test.
-_KEEP = (
-    "yoda_tpu.testing.chaos",
-    "yoda_tpu.testing.fake_libtpu",
-    "yoda_tpu.testing.tracegen",
-)
+# has no copy of, not the system under test (the fake libtpu service reads
+# through ``yoda_tpu.agent.tpu_metrics``, ROADMAP item 11).
+_KEEP = ("yoda_tpu.testing.fake_libtpu",)
 
 
 def _slow(node: "ast.ClassDef | ast.FunctionDef") -> bool:
@@ -77,11 +76,13 @@ def _constants(body: list) -> dict:
     return out
 
 
-def _param_sets(node: ast.FunctionDef, scope: "dict | None" = None) -> "list[dict]":
+def _param_sets(node: "ast.FunctionDef | ast.ClassDef",
+                scope: "dict | None" = None) -> "list[dict]":
     """The argument sets of the reference's ``pytest.mark.parametrize``
-    decorators on ``node`` (their cross product; one empty set when there
-    are none). Argument values are evaluated with builtins and the plain
-    constants of ``scope`` (the module's and the case's class's) only."""
+    decorators on ``node``, a method or its class (their cross product;
+    one empty set when there are none). Argument values are evaluated with
+    builtins and the plain constants of ``scope`` (the module's and the
+    case's class's) only."""
     sets: list[dict] = [{}]
     for d in node.decorator_list:
         if not (isinstance(d, ast.Call) and ast.unparse(d.func) == "pytest.mark.parametrize"):
@@ -97,40 +98,48 @@ def _param_sets(node: ast.FunctionDef, scope: "dict | None" = None) -> "list[dic
 
 
 def _expand(base: str, cls: str, node: ast.FunctionDef, slow: bool,
-            scope: dict) -> list:
+            scope: dict, class_sets: "list[dict] | None" = None) -> list:
+    """One case per parameter set: the method's own sets crossed with its
+    class's (``class_sets``), in pytest's order: the method's values first
+    in the id and in the outer loop, the class's after them."""
     out = []
-    for params in _param_sets(node, scope):
-        case_id = base
-        if params:
-            case_id += "[" + "-".join(str(v) for v in params.values()) + "]"
-        out.append(((case_id, cls, node.name, params), slow))
+    for own in _param_sets(node, scope):
+        for cls_params in class_sets or [{}]:
+            params = {**own, **cls_params}
+            case_id = base
+            if params:
+                case_id += "[" + "-".join(str(v) for v in params.values()) + "]"
+            out.append(((case_id, cls, node.name, params), slow))
     return out
 
 
 def cases(name: str, skip: "dict[str, str]") -> list:
     """Every test case of ``tests/<name>`` as (id, class, method, params),
-    minus ``skip`` (id, or the id of a parametrized case without its
-    parameters -> the unported part it needs); a case the reference marks
-    slow comes as a ``pytest.param`` carrying that mark."""
+    minus ``skip`` (id, the id of a parametrized case without its
+    parameters, or a test class's name -> the unported part it needs or
+    where it runs instead); a case the reference marks slow comes as a
+    ``pytest.param`` carrying that mark."""
     tree = ast.parse((TESTS / name).read_text())
     module_scope = _constants(tree.body)
     out = []
     for node in tree.body:
         if isinstance(node, ast.ClassDef) and node.name.startswith("Test"):
             scope = {**module_scope, **_constants(node.body)}
+            class_sets = _param_sets(node, module_scope)
             for item in node.body:
                 if isinstance(item, ast.FunctionDef) and item.name.startswith("test"):
                     out += _expand(f"{node.name}::{item.name}", node.name, item,
-                                   _slow(node) or _slow(item), scope)
+                                   _slow(node) or _slow(item), scope, class_sets)
         elif isinstance(node, ast.FunctionDef) and node.name.startswith("test"):
             out += _expand(node.name, "", node, _slow(node), module_scope)
-    known = {c[0] for c, _ in out} | {c[0].split("[")[0] for c, _ in out}
+    known = ({c[0] for c, _ in out} | {c[0].split("[")[0] for c, _ in out}
+             | {c[1] for c, _ in out if c[1]})
     unknown = set(skip) - known
     assert not unknown, f"skip names no case of {name}: {sorted(unknown)}"
     return [
         pytest.param(c, marks=pytest.mark.slow) if slow else c
         for c, slow in out
-        if c[0] not in skip and c[0].split("[")[0] not in skip
+        if c[0] not in skip and c[0].split("[")[0] not in skip and c[1] not in skip
     ]
 
 
@@ -182,9 +191,8 @@ _st.build_stack = _cpu_build_stack
 """
 
 
-# The reference's worker entry, as a case spawns it (``python -m
-# yoda_tpu.framework.procserve``, in the case's own argv and in the kept
-# chaos module's ``DriveWorker``).
+# The reference's worker entry, as a case spawns it in its own argv
+# (``python -m yoda_tpu.framework.procserve``).
 _REF_WORKER = "yoda_tpu.framework.procserve"
 
 
@@ -217,22 +225,11 @@ def load(pkg: str, name: str, monkeypatch) -> types.ModuleType:
         import yoda_tpu_torch.parallel.sharded  # noqa: F401 — patched below
         import yoda_tpu_torch.standalone as standalone
 
-        import yoda_tpu.journal as ref_journal
-        import yoda_tpu_torch.journal as port_journal
-
         monkeypatch.setattr(
             standalone, "build_stack", _cpu_build_stack(standalone.build_stack)
         )
-        # The kept chaos module builds its faulty journal I/O over
-        # ``yoda_tpu.journal.RealJournalIO`` and raises
-        # ``yoda_tpu.journal.JournalFault`` (both imported at call time):
-        # on the port's side those names are the port's classes, so the
-        # port's journal writes through its own I/O and its own
-        # ``except JournalFault`` is what catches the injected crash.
-        monkeypatch.setattr(ref_journal, "RealJournalIO", port_journal.RealJournalIO)
-        monkeypatch.setattr(ref_journal, "JournalFault", port_journal.JournalFault)
-        # A worker process a case spawns (``subprocess`` in the case, the
-        # kept chaos module's ``DriveWorker``) is the port's, on the host.
+        # A worker process a case spawns as the reference's entry is the
+        # port's, on the host.
         import subprocess
 
         monkeypatch.setattr(subprocess, "Popen", _port_popen(subprocess.Popen))
@@ -262,18 +259,35 @@ def _fixture_function(obj):
     return fn
 
 
+def _xunit(owner, hook: str, fn) -> None:
+    """Call the case's class's ``setup_method`` / ``teardown_method`` as
+    pytest does: with the test method when the hook takes it."""
+    method = getattr(owner, hook, None)
+    if method is None:
+        return
+    if inspect.signature(method).parameters:
+        method(fn)
+    else:
+        method()
+
+
 def run_case(pkg: str, name: str, case, request, monkeypatch) -> None:
-    """Run one case. Its arguments resolve through ``request``, except the
-    fixtures the reference module or the case's class defines itself (a
-    fake API server, a synced client, a CLI runner): those are built from
-    the compiled module's own definitions, their dependencies first, and torn down in
-    reverse order after the case, generator fixtures run to their end."""
+    """Run one case. Its class's ``setup_method`` runs first and its
+    ``teardown_method`` last, as under pytest. Its arguments resolve
+    through ``request``, except the fixtures the reference module or the
+    case's class defines itself (a fake API server, a synced client, a CLI
+    runner): those are built from the compiled module's own definitions,
+    their dependencies first, and torn down in reverse order after the
+    case, generator fixtures run to their end."""
     _id, cls, meth, *rest = case
     params = rest[0] if rest else {}
     mod = load(pkg, name, monkeypatch)
     owner = getattr(mod, cls)() if cls else mod
     fn = getattr(owner, meth)
     with contextlib.ExitStack() as teardown:
+        if cls:
+            _xunit(owner, "setup_method", fn)
+            teardown.callback(_xunit, owner, "teardown_method", fn)
         values: dict = {}
 
         def value(arg: str):

@@ -78,6 +78,7 @@ class InformerCache:
         *,
         scheduler_name: str = "yoda-tpu",
         on_pod_pending: Callable[[PodSpec], None] | None = None,
+        on_change: Callable[[Event], None] | None = None,
         on_change_batch: "Callable[[list[Event]], None] | None" = None,
         watches_pvcs: bool = False,
         watches_pvs: bool = False,
@@ -89,9 +90,11 @@ class InformerCache:
     ) -> None:
         self.scheduler_name = scheduler_name
         self.on_pod_pending = on_pod_pending
+        self.on_change = on_change
         # One call per applied batch with the schedulability-relevant
         # events (build_stack wires the delete fast path and ONE
-        # move_all_to_active decision here).
+        # move_all_to_active decision here). Falls back to one
+        # ``on_change`` call per relevant event when unset.
         self.on_change_batch = on_change_batch
         # True when the backend streams PersistentVolumeClaim events: then
         # an empty PVC store means "no claims exist" (pods referencing one
@@ -225,8 +228,12 @@ class InformerCache:
         if self.on_pod_pending is not None:
             for pod in pending:
                 self.on_pod_pending(pod)
-        if relevant_events and self.on_change_batch is not None:
-            self.on_change_batch(relevant_events)
+        if relevant_events:
+            if self.on_change_batch is not None:
+                self.on_change_batch(relevant_events)
+            elif self.on_change is not None:
+                for event in relevant_events:
+                    self.on_change(event)
 
     def _handle_pvc(self, event: Event) -> None:
         if event.type == "synced":

@@ -1175,6 +1175,12 @@ def main(argv=None) -> int:
         "the default; raises without one) or 'cpu' (the host)",
     )
     args = ap.parse_args(argv)
+    if args.device == "cpu":
+        # Several workers share the host: bound each one's intra-op pool
+        # before its first evaluation (the card's work is not affected).
+        from yoda_tpu_torch.ops.kernel import bound_host_pool
+
+        bound_host_pool(lanes=max(args.shard_count, 1))
     if args.serve_spec:
         with open(args.serve_spec) as f:
             return _run_spec_worker(json.load(f), args.device)

@@ -37,6 +37,10 @@ entry (``parallel/sharded.py`` combines the shards between phases), built
 from the same phase functions as :func:`kernel_impl`; and the reference's
 one-shot :func:`fused_filter_score`.
 
+:class:`DeviceFleetKernel` is the reference's single-device kernel name
+and signature over :class:`TorchFleetKernel`. A kernel on the host bounds
+torch's intra-op pool (:func:`bound_host_pool`).
+
 Left out until a later slice: ``NumpyFleetKernel`` (the reference's
 degraded-mode rung; the port has no fallback chain, so the numpy twin of
 the scan is not carried either).
@@ -45,6 +49,7 @@ the scan is not carried either).
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 from dataclasses import dataclass
 
@@ -853,6 +858,32 @@ def resolve_device(platform: str) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+# The host evaluation's intra-op pool. The plain version's tensors are
+# small (one int32 per node and chip), so extra threads buy little, and a
+# pool of one thread per core in each of several processes on one host
+# (scheduler lanes, test workers) spins them against each other, and each
+# process's evaluations slow down many times over (host_pool_drive.py).
+# The card's work is not affected, and nothing here chooses between the
+# card and the host.
+HOST_THREADS_CAP = 2
+
+
+def host_threads(lanes: int = 1) -> int:
+    """The intra-op thread count a process evaluating on the host keeps:
+    the host's cores shared among ``lanes`` processes, at most
+    :data:`HOST_THREADS_CAP`."""
+    share = (os.cpu_count() or 1) // max(int(lanes), 1)
+    return max(1, min(HOST_THREADS_CAP, share))
+
+
+def bound_host_pool(lanes: int = 1) -> None:
+    """Lower torch's intra-op pool to :func:`host_threads` (never raise
+    it)."""
+    n = host_threads(lanes)
+    if torch.get_num_threads() > n:
+        torch.set_num_threads(n)
+
+
 def upload(device: torch.device, size: int, fill) -> torch.Tensor:
     """A flat int32 input buffer of ``size`` words on ``device``, filled on
     the host by ``fill(numpy_view)``: one pinned host-to-device copy (a
@@ -915,6 +946,8 @@ class TorchFleetKernel:
     ) -> None:
         self.weights = weights
         self.device = torch.device(device)
+        if self.device.type == "cpu":
+            bound_host_pool()
         # A torch.cuda.Stream every call of this kernel runs on; None =
         # the calling thread's current stream.
         self.stream = stream
@@ -1076,6 +1109,20 @@ class TorchFleetKernel:
             fits = [bool(gok[offsets[g + 1] - 1]) for g in range(g_count)]
             picks_g = [picks[offsets[g] : offsets[g + 1]] for g in range(g_count)]
             return grouped, fits, picks_g
+
+
+class DeviceFleetKernel(TorchFleetKernel):
+    """The reference's single-device kernel by its name and signature
+    (reference ops/kernel.py:719): a :class:`TorchFleetKernel` on
+    ``device``, which defaults to ``resolve_device("auto")`` — the card,
+    raising without one, never a quiet host path."""
+
+    def __init__(self, weights: Weights, device=None, stream=None) -> None:
+        super().__init__(
+            weights,
+            resolve_device("auto") if device is None else device,
+            stream,
+        )
 
 
 def own_dyn(arrays: FleetArrays) -> np.ndarray:

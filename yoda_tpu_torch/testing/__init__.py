@@ -8,9 +8,11 @@ driven without a cluster — the single-process analog of the "kind cluster +
 fake TPU metrics DaemonSet" harness.
 
 Counterpart of ``yoda_tpu/testing``: ``FakeKubeApiServer`` and
-``wait_until``, on the standard library only. Left out until a later
-slice: the chaos harness (``chaos``), the fake libtpu metrics service
-(``fake_libtpu``) and the trace generator (``tracegen``).
+``wait_until``, on the standard library only, and the modules
+``chaos`` (the fault-injection harness) and ``tracegen`` (seeded traces
+and their replay through a whole stack). Left out until a later slice:
+the fake libtpu metrics service (``fake_libtpu``), which serves the
+agents' metrics reader (ROADMAP item 11).
 """
 
 import time
