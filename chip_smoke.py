@@ -370,13 +370,14 @@ Phases, each of which makes the script exit non-zero when it fails:
    (o2) every lane's ``serve_forever`` on a thread of its own, wired as
        the CLI wires them (the global lane resyncs first, its rebalancer
        thread ticks its speculation, the rescue pass runs), on the wall
-       clock over the same pods, wave after wave, at a 15 s Permit timeout
+       clock over the same pods, wave after wave (the first wave only at
+       the full size), at a 15 s Permit timeout
        (``O2_PERMIT_TIMEOUT_S``), under a profiler window
        (CUDA activity): every pod bound, gangs whole, no host over its
        chips, no pod bound twice, the accountant's claims exactly the
-       bound pods. Reported beside a one-stack run of the same script (and,
-       at the tests' small size, the same run with the journal off; cut
-       at the full size): pods/s, p50 / p99, each lane's
+       bound pods. Reported (at the tests' small size beside a one-stack
+       run of the same script and the same run with the journal off, both
+       cut at the full size): pods/s, p50 / p99, each lane's
        launches and first re-stack ms, the kernel records that overlap one
        on another stream, commits and conflicts;
    (o3) after (o1)'s first wave, with the lanes' commits cut off, a
@@ -415,8 +416,10 @@ Phases, each of which makes the script exit non-zero when it fails:
        the reports equal the same run with ``--device cpu`` workers (in a
        spawned process, after the card's). Reported: pods/s (timed pods
        over the slowest worker's wall) against run (o2)'s thread lanes
-       and one stack, each worker's pods/s, admission p99 and ms per
-       evaluation, the commit RPC's p50 / p99 by op, ``os.cpu_count()``;
+       (and, at the tests' small size, the same script in one worker
+       process and as thread lanes; cut at the full size), each worker's
+       pods/s, admission p99 and ms per evaluation, the commit RPC's p50 /
+       p99 by op, ``os.cpu_count()``;
    (p2) ``python -m yoda_tpu_torch.cli`` with ``shard_count`` 4,
        ``shard_mode: process`` and the journal over run (l)'s API server
        process: run (c)'s two gang waves with 128 of run (b)'s singletons
@@ -463,9 +466,62 @@ Phases, each of which makes the script exit non-zero when it fails:
        own 4-host fleet: SHED reached, every pod bound in the end, the
        ladder's level after each round, the shed count and every pod's
        first node equal to the CPU run.
+   Then run (r), federation and the node agent (``run_federation``,
+   ``FEDERATION_FULL``; the tests run ``FEDERATION_SMALL``, (r1) and (r3)
+   on both packages), each part against its CPU run (a spawned process
+   started beside run (q)'s), every ``fleet_eval`` / ``joint_fit`` /
+   ``update_rows`` launch held against its plain version and every stack
+   on the card:
+   (r1) ``standalone.build_federation`` over two ``testing.chaos``
+       ``ChaosCluster`` fronts, each a ``FakeCluster`` holding the
+       5,000-node layout (the secondary's from another seed), every host
+       with a Node object, 32 (home) and 48 (secondary) seeded v5e hosts
+       kept for the federated gangs (pool=train, a NoSchedule taint those
+       gangs tolerate), a one-chip occupant on the first host of every
+       home v5p slice and of all but 12 seeded secondary slices (bound
+       before the run, adopted by the first resync), on a held clock with
+       5 / 10 / 30 s health thresholds: a health pass; run (c)'s first
+       wave at home and 16 singletons at the secondary; 8 plain gangs of
+       16 v5e x 8 chips for the train hosts, then 8 2x2x1 topology gangs,
+       at home (home fits 2 plain gangs); a spillover pass in which the
+       secondary is partitioned at the first create of the third gang it
+       migrates (that gang rolls back whole, two stay migrated, the rest
+       cannot be created); health passes 4 s of the clock apart walk the
+       secondary UP -> DEGRADED -> PARTITIONED -> LOST while home binds
+       run (b)'s 256 singletons and, behind the partition, 4 of the
+       secondary's bound pods are deleted and 8 pods created; the heal,
+       a health pass (the rejoin resync releases the dropped deletions'
+       claims), the secondary's drain, a second spillover pass (the
+       rolled-back gang and the topology gangs migrate; the shared ledger
+       keeps the other plain gangs home, each of which fits the secondary
+       alone) and the drains. Gates: no bind by a fenced member, no pod
+       bound in two clusters, no host over its chips, every gang whole in
+       exactly one cluster, the secondary's first bind after the heal
+       after its resync. Equal to the CPU run: each cluster's bindings,
+       the states after every health pass, the passes' migrations, the
+       federation's series, the gangs the ledger kept, the resync's
+       report. Reported: ms per ``spillover_pass`` and ``health_pass``,
+       each migrated gang's completion, each member's launches;
+   (r2) ``python -m yoda_tpu_torch.cli --federate-url remote=URL`` on a
+       thread at default settings with small health thresholds in its
+       config, home run (l)'s API server process at 5,000 nodes, the
+       remote a second server process (40 hosts) stopped before the CLI
+       dials it: startup gives the remote's sync up at 5 s, ``/readyz``
+       turns 200, home binds 64 singletons, ``/metrics`` shows the remote
+       at LOST (3), nothing is written to it; then a ``--agent
+       --node-name agent-0`` process (``YODA_TPUINFO_SPEC`` a v6e host of
+       8 chips) publishes its CR to home and a v6e pod binds there;
+   (r3) a default stack at K = 16 over the 512 v5p slices and 2,952 v5e
+       hosts, each v5e host published by a ``NativeTpuAgent`` through the
+       native library (built from ``native/tpuinfo.cc``) under
+       ``YODA_TPUINFO_SPEC``: run (b)'s 256 singletons bind; every
+       agent's next ``run_once`` charges its bound pods' HBM (the row
+       updates); 256 more bind. CRs (timestamps masked) and bindings equal
+       to the CPU run.
 4. One line {"kernels": [...]} with each kernel's launches over every run
-   above (runs (h)'s, (i)'s, (j)'s, (k)'s, (l)'s, (o)'s and (q)'s also by
-   part, run (o)'s by lane, run (p1)'s by worker process, and the
+   above (runs (h)'s, (i)'s, (j)'s, (k)'s, (l)'s, (o)'s, (q)'s and (r)'s
+   also by part, run (r)'s by member stack, run (o)'s by lane, run (p1)'s
+   by worker process, and the
    speculation thread's apart; the shard entry's from run (n2)), its
    largest difference from the plain version and its times ("not
    measured" where the profiler saw no device activity).
@@ -4583,13 +4639,15 @@ class SpawnedRerun:
     are built so that it overlaps the card's phases; :meth:`result` waits
     for it."""
 
-    def __init__(self, run: str, size: dict, what: str) -> None:
+    def __init__(self, run: str, size: dict, what: str, *, daemon: bool = True) -> None:
         import multiprocessing
 
         self.what = what
         ctx = multiprocessing.get_context("spawn")
         self._recv, send = ctx.Pipe(duplex=False)
-        self._proc = ctx.Process(target=rerun_child, args=(send, run, size), daemon=True)
+        # A run that spawns processes of its own (run (r2)'s API servers)
+        # needs a process that may have children: not a daemon.
+        self._proc = ctx.Process(target=rerun_child, args=(send, run, size), daemon=daemon)
         self._proc.start()
         send.close()
 
@@ -5450,7 +5508,7 @@ def api_server_child(conn, size: dict, period_s: float) -> None:
     server = FakeKubeApiServer().start()
     publish(server, fleet)
     ops = {"get_object": server.get_object, "bindings": server.bindings,
-           "bound": lambda keys: bound_nodes(server, keys)}
+           "bound": lambda keys: bound_nodes(server, keys), "put_object": server.put_object}
     conn.send((server.base_url, len(fleet), capacity, slice_of))
     with Republisher(server, fleet, period_s=period_s) as agents:
         while True:
@@ -5505,6 +5563,9 @@ class ApiServerProcess:
 
     def bindings(self) -> list:
         return self._call("bindings")
+
+    def put_object(self, kind: str, key: str, obj: dict) -> None:
+        self._call("put_object", kind, key, obj)
 
     def bound(self, keys) -> dict:
         return self._call("bound", list(keys))
@@ -6548,14 +6609,17 @@ def phase_sharded(smi: str, main_path: dict) -> dict:
 # Run (o) at the 5,000-node fleet with the shipped manifest's recommended
 # shard_count (deploy/yoda-tpu-scheduler.yaml: "Raise to 2-4"); the small
 # size is what tests/test_torch_shards.py runs on the CPU.
-# ``nojournal``: (o2) also runs with the journal off. Cut at the full size
-# (PERF.md section 4): the comparison is recorded, and run (q) needed the
-# time.
+# ``nojournal``: (o2) also runs with the journal off; ``single``: (o2) also
+# runs as one stack. Both cut at the full size (PERF.md section 4): the
+# comparisons are recorded, and runs (q) and (r) needed the time.
+# ``wall_waves``: the waves (o2) drives; its second wave is cut at the full
+# size for run (r) (the first holds the global lane's wide gang and every
+# lane's singletons).
 LANES_FULL = dict(slices=512, v5e_hosts=2952, shards=4, singles_b=256, script={},
-                  nojournal=False)
+                  nojournal=False, single=False, wall_waves=1)
 LANES_SMALL = dict(slices=16, v5e_hosts=96, shards=4, singles_b=32,
                    script=dict(plain=2, plain_size=4, cosched=2, topo=4, multi=1,
-                               singles=16), nojournal=True)
+                               singles=16), nojournal=True, single=True, wall_waves=2)
 O2_PARTS = ("o2", "o2_single", "o2_nojournal")
 PACK_PROFILE = "yoda-tpu-pack"   # run (o4)'s second profile: most-allocated
 # (o2)'s Permit timeout: a gang whose planned hosts another lane took
@@ -6972,8 +7036,9 @@ def run_lanes_wall(platform: str, size: dict, *, shards: int, journal: bool,
     CLI's wiring: the global lane resyncs and reroutes before its first
     pop, the shard lanes wait for that resync, the global lane's
     rebalancer ticks its speculation, the shard set's rescue pass runs),
-    speculation on, on the wall clock over (o1)'s pods, wave after wave,
-    at a Permit timeout of ``O2_PERMIT_TIMEOUT_S``.
+    speculation on, on the wall clock over (o1)'s pods, wave after wave
+    (the first ``wall_waves`` of them), at a Permit timeout of
+    ``O2_PERMIT_TIMEOUT_S``.
     ``shards`` 1 builds one plain stack for the same script. With
     ``profiled`` a torch.profiler window (CUDA activity only) covers the
     drive and counts the kernel records that overlap one on another
@@ -6982,6 +7047,9 @@ def run_lanes_wall(platform: str, size: dict, *, shards: int, journal: bool,
     from yoda_tpu_torch.standalone import build_sharded_stacks, build_stack
 
     waves, gangs = lane_waves(size)
+    waves = waves[: size["wall_waves"]]
+    gangs = {g: v for g, v in gangs.items()
+             if any(n.startswith(f"{g}-") for w in waves for n, _, _ in w)}
     d = lane_dir(platform, f"o2-{shards}-{int(journal)}") if journal else None
     cfg = lane_config(platform, size, d, gang_permit_timeout_s=O2_PERMIT_TIMEOUT_S)
     if shards > 1:
@@ -7120,14 +7188,15 @@ def lane_overlap(prof) -> dict:
 
 def run_lanes(platform: str, size: dict = LANES_FULL, *, reported: bool = True) -> dict:
     """Run (o): (o1), (o3) and (o4) on ``platform``; with ``reported`` also
-    (o2) (card only: its numbers are the card's), with the journal off too
-    where ``size`` asks for it."""
+    (o2) (card only: its numbers are the card's), as one stack and with the
+    journal off too where ``size`` asks for them."""
     o1, o3 = run_lanes_stepped(platform, size)
     out = dict(o1=o1, o3=o3, o4=run_profiles(platform, size))
     if reported:
         out["o2"] = run_lanes_wall(platform, size, shards=size["shards"], journal=True,
                                    profiled=True)
-        out["o2_single"] = run_lanes_wall(platform, size, shards=1, journal=True)
+        if size["single"]:
+            out["o2_single"] = run_lanes_wall(platform, size, shards=1, journal=True)
         if size["nojournal"]:
             out["o2_nojournal"] = run_lanes_wall(platform, size, shards=size["shards"],
                                                  journal=False)
@@ -7229,10 +7298,13 @@ def phase_lanes(smi: str, rerun: "SpawnedRerun") -> dict:
 # host format carries generation and chips only, so v5p hosts come
 # without slices and topology gangs have no block to take); ``warmup``
 # singletons per worker before the timed round.
+# ``baselines``: (p1)'s script also in one worker process and as thread
+# lanes (reported); cut at the full size (PERF.md section 4): the
+# comparison is recorded in PERF.md, and run (r) needed the time.
 PROC_FULL = dict(slices=512, v5e_hosts=2952, shards=4, singles_b=256, plain=8,
-                 plain_size=16, warmup=8)
+                 plain_size=16, warmup=8, baselines=False)
 PROC_SMALL = dict(slices=16, v5e_hosts=96, shards=2, singles_b=32, plain=2,
-                  plain_size=4, warmup=2)
+                  plain_size=4, warmup=2, baselines=True)
 # (p2): the CLI over the wire with run (c)'s two gang waves and half of
 # run (b)'s singletons (cut from 256 to hold the script's time); (p3):
 # the leader / tailing standby pair with ``failover`` singletons, the
@@ -7994,7 +8066,8 @@ def print_proc(run: dict, smi: str) -> None:
 
 def phase_proc(smi: str, lanes: dict) -> dict:
     """Run (p) on the card: (p1), (p1)'s script as one worker process and
-    as thread lanes beside it (reported), (p1)'s CPU run (spawned only
+    as thread lanes beside it (reported; where ``PROC_FULL`` asks for
+    them), (p1)'s CPU run (spawned only
     then: its five processes beside the earlier phases slowed the host
     that those phases time), then (p2) and (p3)."""
     print("process lanes run (p): card", json.dumps(smi_compute_mode()))
@@ -8003,13 +8076,22 @@ def phase_proc(smi: str, lanes: dict) -> dict:
     p1 = run_proc_spec("auto", PROC_FULL)
     seconds["p1"] = time.monotonic() - t
     print_proc(dict(p1=p1), smi)
-    t = time.monotonic()
-    single = run_proc_spec("auto", dict(PROC_FULL, shards=1), "p1-single")
-    check_proc_spec_run(single, dict(PROC_FULL, shards=1))
-    threads = run_proc_threads("auto", PROC_FULL)
-    if threads["bound"] != threads["pods"]:
-        raise AssertionError(f"(p1) thread lanes bound {threads['bound']}/{threads['pods']}")
-    seconds["p1_baselines"] = time.monotonic() - t
+    out = dict(p1=p1)
+    if PROC_FULL["baselines"]:
+        t = time.monotonic()
+        single = run_proc_spec("auto", dict(PROC_FULL, shards=1), "p1-single")
+        check_proc_spec_run(single, dict(PROC_FULL, shards=1))
+        threads = run_proc_threads("auto", PROC_FULL)
+        if threads["bound"] != threads["pods"]:
+            raise AssertionError(
+                f"(p1) thread lanes bound {threads['bound']}/{threads['pods']}")
+        seconds["p1_baselines"] = time.monotonic() - t
+        out.update(p1_single=single, p1_threads=threads)
+        print_proc(dict(p1_single=single), smi)
+        print(f"process lanes run (p1) [{smi}]: {p1['pods_per_s']:.1f} pods/s over "
+              f"{p1['workers_n']} worker processes, {single['pods_per_s']:.1f} in one worker "
+              f"process, {threads['pods_per_s']:.1f} over {PROC_FULL['shards']} thread lanes "
+              f"and the global lane ({threads['pods']} pods, {threads['wall_s']:.3f} s)")
     t = time.monotonic()
     rerun = SpawnedRerun("run_proc", PROC_FULL, "run (p1)")
     try:
@@ -8019,12 +8101,6 @@ def phase_proc(smi: str, lanes: dict) -> dict:
     seconds["p1_cpu"] = time.monotonic() - t
     print_proc(c, smi)
     check_proc_spec(p1, c["p1"], PROC_FULL)
-    out = dict(p1=p1, p1_single=single, p1_threads=threads)
-    print_proc(dict(p1_single=single), smi)
-    print(f"process lanes run (p1) [{smi}]: {p1['pods_per_s']:.1f} pods/s over "
-          f"{p1['workers_n']} worker processes, {single['pods_per_s']:.1f} in one worker "
-          f"process, {threads['pods_per_s']:.1f} over {PROC_FULL['shards']} thread lanes "
-          f"and the global lane ({threads['pods']} pods, {threads['wall_s']:.3f} s)")
     t = time.monotonic()
     out["p2"] = run_proc_wire("auto", PROC_WIRE_FULL)
     seconds["p2"] = time.monotonic() - t
@@ -8036,10 +8112,10 @@ def phase_proc(smi: str, lanes: dict) -> dict:
     print_proc(dict(p3=out["p3"]), smi)
     check_proc_standby(out["p3"])
     print("process lanes run (p) seconds:", json.dumps(seconds))
-    o2 = lanes["o2"]["pods_per_s"], lanes["o2_single"]["pods_per_s"]
     print(f"process lanes run (p1): {p1['pods_per_s']:.1f} pods/s over {p1['workers_n']} "
-          f"worker processes against run (o2)'s four thread lanes {o2[0]:.1f} and one "
-          f"stack {o2[1]:.1f} (run (o)'s script); os.cpu_count() {p1['cpu_count']}")
+          f"worker processes against run (o2)'s four thread lanes "
+          f"{lanes['o2']['pods_per_s']:.1f} (run (o)'s script); os.cpu_count() "
+          f"{p1['cpu_count']}")
     return out
 
 
@@ -8448,6 +8524,814 @@ def phase_chaos(smi: str, rerun: "SpawnedRerun") -> dict:
     return g
 
 
+# --- run (r): federation and the node agent ---------------------------------
+
+# (r1): two cluster fronts, each the 5,000-node fleet. ``train`` v5e hosts
+# a front keeps for the federated plain gangs (Node label pool=train and a
+# dedicated=train NoSchedule taint the gangs tolerate, so no singleton
+# takes them): home's fit ``home_train // plain_size`` gangs, the
+# secondary's ``remote_train // plain_size``. Every home v5p slice holds a
+# one-chip occupant on its first host (bound before the run, adopted by
+# the first resync), so no 2x2x1 block is left at home; the secondary
+# keeps ``remote_free_slices`` whole slices (a seeded choice). ``wave1``
+# is run (c)'s first wave as ``gang_script`` cuts it; ``partition_at``
+# names the migration whose first create partitions the secondary;
+# ``remote_local`` singletons bind on the secondary before the partition,
+# ``dead`` of them are deleted and ``era`` created while it lasts.
+# (r2): the federated CLI over run (l)'s API server process at
+# ``cli_fleet``, ``cli_singles`` singletons. (r3): ``agents`` native
+# agents (the fleet's v5e pool) and ``agent_singles`` of run (b)'s
+# singletons in each of two rounds.
+FEDERATION_FULL = dict(
+    slices=512, v5e_hosts=2952, home_train=32, remote_train=48, remote_free_slices=12,
+    plain=8, plain_size=16, topo=8,
+    wave1=dict(plain=8, plain_size=16, cosched=4, topo=0, multi=0, singles=64),
+    singles_b=256, remote_local=16, dead=4, era=8, partition_at=3,
+    cli_fleet=dict(slices=512, v5e_hosts=2952), cli_remote=dict(slices=8, v5e_hosts=40),
+    cli_singles=64, agents=2952, agent_slices=512, agent_singles=256,
+)
+FEDERATION_SMALL = dict(
+    slices=16, v5e_hosts=96, home_train=8, remote_train=12, remote_free_slices=6,
+    plain=8, plain_size=4, topo=4,
+    wave1=dict(plain=2, plain_size=4, cosched=2, topo=0, multi=0, singles=16),
+    singles_b=32, remote_local=8, dead=2, era=4, partition_at=3,
+    cli_fleet=dict(slices=8, v5e_hosts=40), cli_remote=dict(slices=4, v5e_hosts=8),
+    cli_singles=16, agents=96, agent_slices=16, agent_singles=32,
+)
+# Health thresholds on (r1)'s held clock and in (r2)'s config (seconds).
+FED_THRESHOLDS = dict(federation_degraded_after_s=5.0, federation_partitioned_after_s=10.0,
+                      federation_lost_after_s=30.0)
+FED_CLI_THRESHOLDS = dict(federation_degraded_after_s=0.5,
+                          federation_partitioned_after_s=1.0,
+                          federation_lost_after_s=2.0, federation_probe_period_s=0.2)
+FED_STEP_S = 4.0      # the held clock's step between two health passes
+FED_SERIES = ("yoda_cluster_state", "yoda_cluster_transitions_total",
+              "yoda_spillover_gangs_total")
+TRAIN_TAINT = ("dedicated", "train")
+FED_RUN_DIR = "build/run_r"
+R1_PARITY = ("bindings", "states", "migrations", "passes", "series", "ledger_kept",
+             "resync", "gangs")
+R3_PARITY = ("bindings", "crs", "charged")
+AGENT_SPEC = "generation=v5e;chips=8"
+
+
+def port_federation() -> dict:
+    """The modules run (r) drives: the port's (the tests pass the JAX
+    package's under the same keys)."""
+    import yoda_tpu_torch.agent.fake_publisher as fake_publisher
+    import yoda_tpu_torch.agent.native as native
+    import yoda_tpu_torch.api.requests as requests
+    import yoda_tpu_torch.api.types as types
+    import yoda_tpu_torch.config as config
+    import yoda_tpu_torch.federation as federation
+    import yoda_tpu_torch.federation.federation as fed_impl
+    import yoda_tpu_torch.standalone as standalone
+    from yoda_tpu_torch.testing import chaos
+
+    return {"standalone": standalone, "config": config, "types": types, "chaos": chaos,
+            "requests": requests,
+            "fake_publisher": fake_publisher, "native": native, "federation": federation,
+            "fed_impl": fed_impl}
+
+
+def federation_front(m: dict, size: dict, *, home: bool, seed: int):
+    """One cluster front of run (r1): a ``ChaosCluster`` over a
+    ``FakeCluster`` holding the 5,000-node layout of ``build_fleet``, every
+    host with a Node object, the seeded ``train`` v5e hosts labelled and
+    tainted, and the v5p occupants bound in the store (see
+    ``FEDERATION_FULL``). Returns (front, train hosts, free slices)."""
+    types = m["types"]
+    front = m["chaos"].ChaosCluster()
+    inner = front.inner
+    agent = m["fake_publisher"].FakeTpuAgent(inner)
+    slices = {}
+    for s in range(size["slices"]):
+        slices[f"v5p-{s:03d}"] = agent.add_slice(f"v5p-{s:03d}", generation="v5p",
+                                                 host_topology=(2, 2, 1))
+    v5e = [f"v5e-{h:04d}" for h in range(size["v5e_hosts"])]
+    for name in v5e:
+        agent.add_host(name, generation="v5e", chips=8)
+    rng = np.random.default_rng(seed)
+    n_train = size["home_train"] if home else size["remote_train"]
+    train = sorted(v5e[i] for i in rng.permutation(len(v5e))[:n_train])
+    free = [] if home else sorted(
+        str(s) for s in rng.choice(sorted(slices), size["remote_free_slices"], replace=False))
+    taint = types.Taint(TRAIN_TAINT[0], TRAIN_TAINT[1])
+    for hosts in slices.values():
+        for name in hosts:
+            inner.put_node(types.K8sNode(name, labels={"pool": "v5p"}))
+    for name in v5e:
+        inner.put_node(types.K8sNode(name, labels={"pool": "train"}, taints=[taint])
+                       if name in train else types.K8sNode(name, labels={"pool": "v5e"}))
+    agent.publish_all()
+    for s, hosts in sorted(slices.items()):
+        if s in free:
+            continue
+        occ = types.PodSpec(f"occ-{s}", labels={"tpu/chips": "1"}, uid=f"occ-{s}")
+        inner.create_pod(occ)
+        inner.bind_pod(occ.key, sorted(hosts)[0])
+    return front, train, free
+
+
+def fed_pods(m: dict, size: dict) -> "tuple[list, list, dict]":
+    """The federated gangs (``plain`` plain gangs of ``plain_size`` v5e x 8
+    chips bound for the train hosts, ``topo`` 2x2x1 topology gangs of 4 v5p
+    x 4 chips) as PodSpecs, plain gangs first; and name -> size."""
+    types = m["types"]
+    tol = [types.Toleration(key=TRAIN_TAINT[0], value=TRAIN_TAINT[1])]
+    plain, topo, gangs = [], [], {}
+    for g in range(size["plain"]):
+        name = f"fed-p{g}"
+        gangs[name] = size["plain_size"]
+        plain += [types.PodSpec(f"{name}-{i:02d}", uid=f"{name}-{i:02d}", labels={
+            "tpu/gang": name, "tpu/gang-size": str(size["plain_size"]), "tpu/chips": "8",
+            "tpu/generation": "v5e"}, node_selector={"pool": "train"}, tolerations=list(tol))
+                  for i in range(size["plain_size"])]
+    for g in range(size["topo"]):
+        name = f"fed-t{g}"
+        gangs[name] = 4
+        topo += [types.PodSpec(f"{name}-{i}", uid=f"{name}-{i}", labels={
+            "tpu/gang": name, "tpu/topology": "2x2x1", "tpu/chips": "4",
+            "tpu/generation": "v5p"}) for i in range(4)]
+    return plain, topo, gangs
+
+
+def singleton_specs(m: dict, pods, prefix: str) -> list:
+    return [m["types"].PodSpec(f"{prefix}{n}", uid=f"{prefix}{n}", labels=dict(labels))
+            for n, labels in pods]
+
+
+class FedLog:
+    """Run (r1)'s event log, in order: every bind through a front (its
+    member's fence verdict at that instant, the monotonic time), every
+    completed resync, the heal, and each migration's first create on the
+    target."""
+
+    def __init__(self, fed) -> None:
+        self.rows: list = []
+        self.migrated_at: dict = {}
+        for member in fed.members:
+            self._wrap(member)
+
+    def _wrap(self, member) -> None:
+        front, rows = member.cluster, self.rows
+        real_bind = front.bind_pod
+        real_resync = member.stack.reconciler.resync
+
+        def bind_pod(key, node):
+            rows.append(("bind", member.name, key, bool(member.stack.scheduler.fence_fn()),
+                         time.monotonic()))
+            return real_bind(key, node)
+
+        def resync():
+            out = real_resync()
+            rows.append(("resync", member.name))
+            return out
+
+        front.bind_pod, member.stack.reconciler.resync = bind_pod, resync
+
+    def mark(self, what: str) -> None:
+        self.rows.append((what,))
+
+    def binds(self, name: str) -> list:
+        return [r for r in self.rows if r[0] == "bind" and r[1] == name]
+
+
+def partition_on_create(front, log: FedLog, at: int) -> dict:
+    """Partition ``front`` at the first create of the ``at``-th gang the
+    spillover migrates to it (a create mid-pass: that gang's migration
+    rolls back whole, the gangs migrated before it stay); records each
+    migrated gang's first create instant. Returns the state."""
+    state = {"gangs": [], "fired": None}
+    real = front.create_pod
+
+    def create_pod(pod):
+        gang = pod.labels.get("tpu/gang")
+        if gang is not None and gang not in state["gangs"]:
+            state["gangs"].append(gang)
+            log.migrated_at.setdefault(gang, time.monotonic())
+            if len(state["gangs"]) == at and state["fired"] is None:
+                state["fired"] = gang
+                front.partition()
+        return real(pod)
+
+    front.create_pod = create_pod
+    return state
+
+
+def fed_series(fed) -> list:
+    """The federation's metric samples (``FED_SERIES``), sorted."""
+    return sorted(line for line in fed.metrics.registry.render_prometheus().splitlines()
+                  if line.split("{")[0].split(" ")[0] in FED_SERIES)
+
+
+def cluster_bindings(front) -> dict:
+    """Every pod of the front's backing store but the occupants: name ->
+    node (None while pending)."""
+    return {p.name: p.node_name for p in front.inner.list_pods()
+            if not p.name.startswith("occ-")}
+
+
+def gang_ledger(m: dict, fed, gangs: dict) -> dict:
+    """Per gang of ``gangs``: each cluster holding pods of it, with its pods
+    and how many of them are bound there."""
+    out: dict = {}
+    for member in fed.members:
+        for p in member.cluster.inner.list_pods():
+            g = m["requests"].gang_name_of(p.labels)
+            if g in gangs:
+                row = out.setdefault(g, {}).setdefault(member.name, [0, 0])
+                row[0] += 1
+                row[1] += p.node_name is not None
+    return {g: {c: tuple(v) for c, v in sorted(rows.items())} for g, rows in sorted(out.items())}
+
+
+def stack_kernels(stack) -> list:
+    """A stack's kernel objects that count their launches: the serve
+    path's (the port's ``TorchFleetKernel``) and the speculative cache's
+    private one; none on a stack that counts nothing."""
+    kernels = (getattr(getattr(stack, "batch", None), "_kern", None),
+               getattr(getattr(stack, "speculation", None), "kernel", None))
+    return [k for k in kernels if hasattr(k, "launches")]
+
+
+def kernel_counts(stack) -> dict:
+    """The launches a stack's own kernel objects counted (0 where they
+    count none, as on the host)."""
+    kernels = stack_kernels(stack)
+    return {"fleet_eval": sum(k.launches for k in kernels),
+            "joint_fit": sum(getattr(k, "joint_fit_launches", 0) for k in kernels),
+            "update_rows": sum(k.row_updates for k in kernels)}
+
+
+def zero_counts(stack) -> None:
+    for kern in stack_kernels(stack):
+        kern.launches = kern.row_updates = 0
+        if hasattr(kern, "joint_fit_launches"):
+            kern.joint_fit_launches = 0
+
+
+def stack_device(stack) -> str:
+    return str(getattr(getattr(stack, "batch", None), "device", "none"))
+
+
+def drain_member(member, waiting: list, max_wall_s: float = 300.0) -> None:
+    """Drain one member's queue on the held clock; a member left with pods
+    at Permit (which only the held clock could expire) is recorded."""
+    member.stack.scheduler.run_until_idle(max_wall_s=max_wall_s)
+    left = member.stack.framework.waiting_pods()
+    if left:
+        waiting.append([member.name, len(left)])
+
+
+def run_federation_stepped(platform: str, size: dict, m: dict) -> dict:
+    """(r1): ``build_federation`` over two fronts (home, then the
+    secondary) on a held clock, driven by hand: a health pass, run (c)'s
+    first wave at home and the secondary's local singletons; the
+    federated plain gangs, then the topology gangs, at home; a spillover
+    pass whose ``partition_at``-th migration partitions the secondary at
+    its first create; health passes every ``FED_STEP_S`` of the clock
+    until the secondary is LOST, home binding run (b)'s singletons once it
+    is fenced while external actors delete ``dead`` of the secondary's
+    bound pods and create ``era`` more there; the heal, a health pass (the
+    rejoin resync), the secondary's drain, a second spillover pass and the
+    secondary's drain."""
+    cfg = m["config"].SchedulerConfig(kernel_platform=platform, batch_requests=16,
+                                      **FED_THRESHOLDS)
+    ClusterState = m["federation"].ClusterState
+    clock = SteppedClock(1000.0)
+    t0 = time.monotonic()
+    home, home_train, _ = federation_front(m, size, home=True, seed=31)
+    remote, remote_train, free_slices = federation_front(m, size, home=False, seed=32)
+    fed = m["standalone"].build_federation([("home", home), ("remote", remote)], cfg,
+                                           clock=clock)
+    build_s = time.monotonic() - t0
+    hm, rm = fed.members
+    for member in fed.members:
+        zero_counts(member.stack)
+    log = FedLog(fed)
+    waiting: list = []
+    states: list = []
+    health_ms: list = []
+    spill_ms: list = []
+    passes: list = []
+
+    def health_pass():
+        t = time.monotonic()
+        got = fed.health_pass()
+        health_ms.append(1e3 * (time.monotonic() - t))
+        states.append({k: v.value for k, v in got.items()})
+        return got
+
+    def spillover(what: str):
+        t = time.monotonic()
+        n = fed.spillover_pass()
+        spill_ms.append(1e3 * (time.monotonic() - t))
+        passes.append([what, n])
+        return n
+
+    health_pass()
+    waves, wave_gangs = gang_script(seed=1, **size["wave1"])
+    for name, labels, _sel in waves[0]:
+        home.create_pod(m["types"].PodSpec(name, uid=name, labels=dict(labels)))
+    drain_member(hm, waiting)
+    local = singleton_specs(m, fleet_and_pods(33)[1][: size["remote_local"]], "local-")
+    for p in local:
+        remote.create_pod(p)
+    drain_member(rm, waiting)
+    plain, topo, gangs = fed_pods(m, size)
+    gangs.update({g: n for g, (_kind, n) in wave_gangs.items()})
+    for p in plain:
+        home.create_pod(p)
+    drain_member(hm, waiting)
+    for p in topo:
+        home.create_pod(p)
+    drain_member(hm, waiting)
+    home_gangs_bound = sorted(g for g, rows in gang_ledger(m, fed, gangs).items()
+                              if rows.get("home", (0, 0))[1] == gangs[g])
+    injected = partition_on_create(remote, log, size["partition_at"])
+    spillover("pass 1, the partition mid-pass")
+    after_pass1 = gang_ledger(m, fed, gangs)
+    victim = injected["fired"]
+    singles_b = singleton_specs(m, fleet_and_pods(0)[1][: size["singles_b"]], "b-")
+    b_created = era_done = False
+    while True:
+        clock.advance(FED_STEP_S)
+        got = health_pass()
+        if not got["remote"].serving and not b_created:
+            # The secondary is fenced: home keeps serving, and the world
+            # moves on behind the partition (its events never arrive).
+            b_created = True
+            for p in singles_b:
+                home.create_pod(p)
+            drain_member(hm, waiting)
+        if got["remote"] is ClusterState.PARTITIONED and not era_done:
+            era_done = True
+            bound_local = sorted(k for k, v in cluster_bindings(remote).items()
+                                 if k.startswith("local-") and v)
+            for name in bound_local[: size["dead"]]:
+                remote.inner.delete_pod(f"default/{name}")
+            for p in singleton_specs(m, fleet_and_pods(34)[1][: size["era"]], "era-"):
+                remote.inner.create_pod(p)
+        if got["remote"] is ClusterState.LOST or len(states) > 40:
+            break
+    claimed_before_heal = len(rm.stack.accountant.claimed_uids())
+    remote.heal()
+    log.mark("heal")
+    health_pass()
+    resync_report = {"resynced": rm.stack.reconciler.resynced.is_set(),
+                     "claimed_before": claimed_before_heal,
+                     "claimed_after": len(rm.stack.accountant.claimed_uids())}
+    drain_member(rm, waiting)
+    spillover("pass 2, after the rejoin")
+    ledger_kept = sorted(
+        g for g, rows in gang_ledger(m, fed, gangs).items()
+        if set(rows) == {"home"} and rows["home"][1] == 0
+        and m["fed_impl"]._gang_fits(
+            rm.stack,
+            [p for p in home.inner.list_pods() if p.labels.get("tpu/gang") == g], {}))
+    drain_member(rm, waiting)
+    drain_member(hm, waiting)
+    health_pass()
+    wall_s = time.monotonic() - t0
+    live_remote = {p.uid for p in remote.inner.list_pods()}
+    resync_report["leaked"] = sorted(rm.stack.accountant.claimed_uids() - live_remote)
+    over = []
+    for member in fed.members:
+        inner = member.cluster.inner
+        for t in inner.list_tpu_metrics():
+            if member.stack.accountant.chips_in_use(t.name) > sum(c.healthy for c in t.chips):
+                over.append(f"{member.name}/{t.name}")
+    bindings = {member.name: cluster_bindings(member.cluster) for member in fed.members}
+    both = sorted(set(k for k, v in bindings["home"].items() if v)
+                  & set(k for k, v in bindings["remote"].items() if v))
+    rows = log.rows
+    heal_at = rows.index(("heal",))
+    after = rows[heal_at:]
+    first_bind = next((i for i, r in enumerate(after) if r[0] == "bind" and r[1] == "remote"),
+                      None)
+    first_resync = next((i for i, r in enumerate(after) if r == ("resync", "remote")), None)
+    last_bind_at: dict = {}
+    for r in rows:
+        if r[0] == "bind" and r[1] == "remote":
+            g = r[2].split("/")[-1].rsplit("-", 1)[0]
+            last_bind_at[g] = r[4]
+    completion_ms = {g: 1e3 * (last_bind_at[g] - t) for g, t in log.migrated_at.items()
+                     if g in last_bind_at}
+    ledger = gang_ledger(m, fed, gangs)
+    member_launches = {member.name: kernel_counts(member.stack) for member in fed.members}
+    devices = sorted({stack_device(member.stack) for member in fed.members})
+    for member in fed.members:
+        close_stack(member.stack)
+    return {
+        "bindings": bindings, "states": states, "passes": passes,
+        "migrations": fed.spillover_gangs, "series": fed_series(fed),
+        "ledger_kept": ledger_kept, "resync": resync_report, "gangs": ledger,
+        "home_gangs_bound": home_gangs_bound, "victim": victim,
+        "victim_after_pass1": after_pass1.get(victim),
+        "injected": injected["gangs"], "free_slices": free_slices,
+        "train": {"home": home_train, "remote": remote_train},
+        "fenced_binds": [list(r[:3]) for r in rows if r[0] == "bind" and not r[3]],
+        "waiting": waiting, "sizes": gangs, "wave_gangs": sorted(wave_gangs),
+        "bound_twice": both, "over": over,
+        "resync_before_bind": first_resync is not None and (
+            first_bind is None or first_resync < first_bind),
+        "remote_binds_after_heal": sum(1 for r in after if r[0] == "bind" and r[1] == "remote"),
+        "health_ms": health_ms, "spillover_ms": spill_ms, "completion_ms": completion_ms,
+        "member_launches": member_launches, "devices": devices,
+        "nodes": {member.name: len(member.stack.informer.snapshot()) for member in fed.members},
+        "build_s": build_s, "wall_s": wall_s,
+    }
+
+
+def run_fed_cli(platform: str, size: dict) -> dict:
+    """(r2): ``python -m yoda_tpu_torch.cli --federate-url remote=URL`` on a
+    thread (``Replicas``) at default settings with ``FED_CLI_THRESHOLDS``
+    in its config: run (l)'s API server process at ``cli_fleet`` is home;
+    a second server process (``cli_remote``) boots and is stopped before
+    the CLI dials it. ``cli_singles`` of run (b)'s singletons over HTTP once
+    ``/readyz`` answers 200; then a ``--agent --node-name agent-0`` process
+    under ``YODA_TPUINFO_SPEC`` (a v6e host of 8 chips) publishes its CR to
+    home (its Node object put there as the kubelet would) and a v6e pod,
+    which only that host satisfies, binds there."""
+    from yoda_tpu_torch.api.types import K8sNode
+
+    os.makedirs(FED_RUN_DIR, exist_ok=True)
+    cfg_path = os.path.join(FED_RUN_DIR, f"cli-{platform}.yaml")
+    with open(cfg_path, "w") as f:
+        f.write("".join(f"{k}: {v}\n" for k, v in FED_CLI_THRESHOLDS.items()))
+    with ApiServerProcess(size["cli_remote"]) as dead:
+        dead_url = dead.base_url
+    singles = fleet_and_pods(0)[1][: size["cli_singles"]]
+    pods = [(f"r2-{n}", labels) for n, labels in singles]
+    labels_of = {f"default/{n}": lab for n, lab in pods}
+    port = free_port()
+    argv = ["--config", cfg_path, "--metrics-port", str(port),
+            "--federate-url", f"remote={dead_url}"] + (
+        ["--device", "cpu"] if platform == "cpu" else [])
+    fed_box: list = []
+    remote_writes: list = []
+    sync_s: dict = {}
+    with ApiServerProcess(size["cli_fleet"]) as server:
+        client = seed_client(server)
+        with KeptKernels() as kept, KeptRowUpdates() as rows, \
+                Replicas(server.base_url) as reps:
+            real_fed = reps.standalone.build_federation
+            real_sync = reps.cli._build_kube_cluster
+
+            def build_federation(*a, **kw):
+                fed = real_fed(*a, **kw)
+                fed_box.append(fed)
+                return fed
+
+            def build_kube_cluster(*a, **kw):
+                t = time.monotonic()
+                cluster = real_sync(*a, **kw)
+                sync_s[kw.get("url") or "home"] = time.monotonic() - t
+                if kw.get("url"):
+                    request = cluster.api.request
+
+                    def logged(method, path, *ra, **rkw):
+                        if method != "GET":
+                            remote_writes.append([method, path])
+                        return request(method, path, *ra, **rkw)
+
+                    cluster.api.request = logged
+                return cluster
+
+            reps.standalone.build_federation = build_federation
+            reps.cli._build_kube_cluster = build_kube_cluster
+            try:
+                t_start = time.monotonic()
+                reps.start("r2", argv)
+                base = f"http://127.0.0.1:{port}"
+                t_ready = wait_for(lambda: http_get(f"{base}/readyz")[0] == 200, 300,
+                                   "/readyz 200 with a dead remote")
+                created = create_pods(client, pods)
+                wait_for(lambda: all(v is not None for v in server.bound(labels_of).values()),
+                         180, "every r2 singleton bound", poll_s=0.05)
+                bound = server.bound(labels_of)
+                wait_for(lambda: scrape(port).get('yoda_cluster_state{cluster="remote"}') == 3.0,
+                         60, "the remote at LOST on /metrics")
+                # The kubelet registers the agent's Node; the agent process
+                # publishes its TpuNodeMetrics CR.
+                server.put_object("Node", "agent-0", K8sNode(
+                    "agent-0", labels={HOST_KEY: "agent-0", "pool": "v6e"}).to_obj())
+                env = dict(os.environ, YODA_KUBE_API_URL=server.base_url,
+                           YODA_TPUINFO_SPEC="generation=v6e;chips=8")
+                env["PYTHONPATH"] = os.getcwd() + os.pathsep + env.get("PYTHONPATH", "")
+                agent = subprocess.Popen(
+                    [sys.executable, "-m", "yoda_tpu_torch.cli", "--agent", "--node-name",
+                     "agent-0", "--interval-s", "1"],
+                    env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+                try:
+                    t_agent = time.monotonic()
+                    wait_for(lambda: server.get_object("TpuNodeMetrics", "agent-0") is not None,
+                             120, "agent-0's CR at home")
+                    agent_cr_s = time.monotonic() - t_agent
+                    create_pods(client, [("r2-agent-pod", {"tpu/generation": "v6e",
+                                                           "tpu/chips": "8"})])
+                    wait_for(lambda: server.bound(["default/r2-agent-pod"])[
+                        "default/r2-agent-pod"] is not None, 60, "the v6e pod bound")
+                    agent_pod = server.bound(["default/r2-agent-pod"])["default/r2-agent-pod"]
+                finally:
+                    agent.terminate()
+                    try:
+                        _out, agent_err = agent.communicate(timeout=30)
+                    except subprocess.TimeoutExpired:
+                        agent.kill()
+                        _out, agent_err = agent.communicate()
+                cr = server.get_object("TpuNodeMetrics", "agent-0")["status"]
+                values = scrape(port)
+                fed = fed_box[0]
+                states = {m.name: m.health.state.value for m in fed.members}
+                members = {m.name: dict(device=stack_device(m.stack),
+                                        **kernel_counts(m.stack))
+                           for m in fed.members}
+                reps.stop("r2")
+                rc = reps.rc.get("r2")
+            finally:
+                reps.standalone.build_federation = real_fed
+        log = server.bindings()
+    posts, bound_at, conflicts = binding_counts(log)
+    used: dict = {}
+    for key, node in bound.items():
+        used[node] = used.get(node, 0) + int(labels_of[key].get("tpu/chips", "1"))
+    return dict(
+        platform=platform, rc=rc, nodes=server.nodes, pods=len(pods),
+        bound=sum(v is not None for v in bound.values()),
+        over=sorted(h for h, n in used.items() if n > server.capacity[h]),
+        double_posts=sorted(k for k, n in posts.items() if n > 1), conflicts=conflicts,
+        start_to_ready_s=t_ready - t_start, sync_s=sync_s,
+        remote_sync_s=sync_s.get(dead_url), remote_writes=remote_writes,
+        remote_state=values.get('yoda_cluster_state{cluster="remote"}'),
+        home_state=values.get('yoda_cluster_state{cluster="home"}'), states=states,
+        agent_rc=agent.returncode, agent_err=agent_err[-2000:], agent_cr_s=agent_cr_s,
+        agent_cr={k: cr[k] for k in ("generation", "chipCount", "source", "accelType")},
+        agent_pod=agent_pod, members=members,
+        devices=sorted({v["device"] for v in members.values()}),
+        p99_ms=pct_ms(sorted(bound_at[k] - created[k] for k in labels_of if k in bound_at),
+                      0.99),
+        kernels=kept_counts(kept, rows),
+    )
+
+
+def cr_view(tpu) -> dict:
+    """A CR as the API holds it, less its publish stamp and version."""
+    obj = tpu.to_obj()
+    obj["metadata"].pop("resourceVersion", None)
+    obj["status"].pop("lastUpdatedUnix", None)
+    return obj
+
+
+def run_agents(platform: str, size: dict, m: dict) -> dict:
+    """(r3): a default stack (K = 16) over ``agent_slices`` v5p slices from
+    the fake agent and ``agents`` v5e hosts, each published by a
+    ``NativeTpuAgent`` through the native library under
+    ``YODA_TPUINFO_SPEC`` (``AGENT_SPEC``); ``agent_singles`` of run (b)'s
+    singletons bind on those CRs; every agent's next ``run_once`` charges
+    its bound pods' HBM into its CR; a second ``agent_singles`` (another
+    seed) bind against the charged CRs."""
+    native = m["native"]
+    lib = native.load_library(m.get("tpuinfo_lib"))
+    if lib is None:
+        raise AssertionError("no native metrics library (no g++ to build native/)")
+    cfg = m["config"].SchedulerConfig(kernel_platform=platform, batch_requests=16)
+    saved = os.environ.get("YODA_TPUINFO_SPEC")
+    os.environ["YODA_TPUINFO_SPEC"] = AGENT_SPEC
+    try:
+        stack = m["standalone"].build_stack(config=cfg)
+        fake = m["fake_publisher"].FakeTpuAgent(stack.cluster)
+        for s in range(size["agent_slices"]):
+            fake.add_slice(f"v5p-{s:03d}", generation="v5p", host_topology=(2, 2, 1))
+        fake.publish_all()
+        agents = [native.NativeTpuAgent(stack.cluster, f"v5e-{h:04d}", lib=lib)
+                  for h in range(size["agents"])]
+        zero_counts(stack)
+        out: dict = {"run_once_ms": [], "drain_s": [], "sources": set()}
+        names: list = []
+        for round_, seed in ((1, 0), (2, 5)):
+            t = time.monotonic()
+            published = [a.run_once() for a in agents]
+            out["run_once_ms"].append(1e3 * (time.monotonic() - t) / len(agents))
+            out["sources"] |= {p.source for p in published if p is not None}
+            if round_ == 2:
+                import hashlib
+
+                out["crs"] = hashlib.sha256(json.dumps(
+                    [cr_view(p) for p in published], sort_keys=True).encode()).hexdigest()
+                out["charged"] = sorted(p.name for p in published
+                                        if p.hbm_free_sum < p.hbm_total_sum)
+                fake.publish_all()
+            pods = singleton_specs(m, fleet_and_pods(seed)[1][: size["agent_singles"]],
+                                   f"r3-{round_}-")
+            names += [p.name for p in pods]
+            for p in pods:
+                stack.cluster.create_pod(p)
+            t = time.monotonic()
+            stack.scheduler.run_until_idle(max_wall_s=600)
+            out["drain_s"].append(time.monotonic() - t)
+        bindings = bindings_of(stack, names)
+        out.update(
+            bindings=bindings, pods=len(names), bound=sum(v is not None for v in bindings.values()),
+            published=sum(p is not None for p in published), sources=sorted(out["sources"]),
+            over=over_capacity(stack),
+            devices=[stack_device(stack)],
+            member_launches={"stack": kernel_counts(stack)},
+            pods_per_s=[size["agent_singles"] / s if s else None for s in out["drain_s"]],
+        )
+        close_stack(stack)
+        return out
+    finally:
+        if saved is None:
+            os.environ.pop("YODA_TPUINFO_SPEC", None)
+        else:
+            os.environ["YODA_TPUINFO_SPEC"] = saved
+
+
+def run_federation(platform: str, size: dict = FEDERATION_FULL, *, reported: bool = True,
+                   mods: "dict | None" = None, parts=("r1", "r2", "r3")) -> dict:
+    """Run (r): (r1) the federation at full width, (r2) the federated CLI and
+    the agent process, (r3) the native agents at full width, on ``platform``
+    (those of ``parts``; (r2) only over the port's modules). On the card
+    every ``fleet_eval`` / ``joint_fit`` / ``update_rows`` launch is held
+    against its plain version, the counts zeroed just before each part."""
+    m = mods or port_federation()
+    runs = {"r1": run_federation_stepped, "r3": run_agents}
+    out: dict = {}
+    for part in parts:
+        t = time.monotonic()
+        if part == "r2":
+            if mods is not None:
+                continue  # the CLI is the port's alone
+            out["r2"] = run_fed_cli(platform, size)
+        elif mods is None:
+            with KeptKernels() as kept, KeptRowUpdates() as rows:
+                out[part] = runs[part](platform, size, m)
+            out[part]["kernels"] = kept_counts(kept, rows)
+        else:
+            out[part] = runs[part](platform, size, m)
+        out[part]["part_s"] = time.monotonic() - t
+    return out
+
+
+def check_federation_r1(r1: dict, size: dict) -> None:
+    """(r1)'s own gates: no bind by a fenced member, none in two clusters,
+    no host over its chips, every gang whole in exactly one cluster, the
+    partitioned gang rolled back whole at home, the shared ledger keeping a
+    gang home that fits the secondary alone, the ladder walked to LOST and
+    back, the rejoin resync releasing the dropped deletions before the
+    secondary's first bind, every pod of the waves bound, nothing left at
+    Permit."""
+    bad = []
+    if r1["fenced_binds"]:
+        bad.append(f"binds by a fenced member: {r1['fenced_binds'][:4]}")
+    if r1["bound_twice"] or r1["over"] or r1["waiting"]:
+        bad.append(f"bound twice {r1['bound_twice'][:4]}, over {r1['over'][:4]}, "
+                   f"waiting {r1['waiting']}")
+    for g, rows in r1["gangs"].items():
+        (cluster, (pods, bound)), *more = rows.items()
+        if more or pods != r1["sizes"][g] or bound not in (0, pods):
+            bad.append(f"gang {g} not whole in one cluster: {rows}")
+    if r1["victim"] is None or r1["victim_after_pass1"] != {"home": (r1["sizes"][r1["victim"]], 0)}:
+        bad.append(f"partitioned migration {r1['victim']}: {r1['victim_after_pass1']}")
+    if not r1["ledger_kept"]:
+        bad.append("no gang kept home by the shared ledger")
+    if r1["passes"][0][1] != size["partition_at"] - 1 or r1["passes"][1][1] < 1:
+        bad.append(f"spillover passes {r1['passes']}")
+    missing = sorted(set(r1["wave_gangs"]) - set(r1["home_gangs_bound"]))
+    if missing:
+        bad.append(f"run (c)'s first-wave gangs not bound at home: {missing}")
+    walk = [s["remote"] for s in r1["states"]]
+    seen = [w for i, w in enumerate(walk) if i == 0 or w != walk[i - 1]]
+    if seen != ["up", "degraded", "partitioned", "lost", "up"] or any(
+            s["home"] != "up" for s in r1["states"]):
+        bad.append(f"ladder {seen}")
+    res = r1["resync"]
+    if not (r1["resync_before_bind"] and r1["remote_binds_after_heal"] > 0 and res["resynced"]
+            and res["claimed_before"] - res["claimed_after"] == size["dead"]
+            and not res["leaked"]):
+        bad.append(f"rejoin: resync first {r1['resync_before_bind']}, {res}")
+    unbound = sorted(k for c in ("home", "remote") for k, v in r1["bindings"][c].items()
+                     if v is None and k.startswith(("b-", "local-", "era-", "spod-")))
+    if unbound:
+        bad.append(f"singletons unbound: {unbound[:6]}")
+    if bad:
+        raise AssertionError("run r1: " + "; ".join(bad))
+
+
+def check_federation_r2(r2: dict, size: dict, card: bool) -> None:
+    """(r2)'s gates: the remote's boot sync gave up within its 5 s, /readyz
+    turned 200, home bound every singleton and the v6e pod on agent-0, the
+    remote at LOST (3), nothing written to it, one binding POST per pod,
+    both processes exited 0, both member stacks on the card (card)."""
+    bad = []
+    if r2["rc"] != 0 or r2["agent_rc"] != 0:
+        bad.append(f"rc {r2['rc']}, agent rc {r2['agent_rc']}: {r2['agent_err'][-300:]}")
+    if r2["remote_sync_s"] is None or r2["remote_sync_s"] > 30:
+        bad.append(f"remote boot sync {r2['remote_sync_s']} s")
+    if r2["bound"] != r2["pods"] or r2["over"] or r2["double_posts"] or r2["conflicts"]:
+        bad.append(f"bound {r2['bound']}/{r2['pods']}, over {r2['over']}, double "
+                   f"{r2['double_posts'][:4]}, 409s {r2['conflicts']}")
+    if r2["agent_pod"] != "agent-0" or r2["agent_cr"]["generation"] != "v6e" \
+            or r2["agent_cr"]["source"] != "env":
+        bad.append(f"agent pod on {r2['agent_pod']}, CR {r2['agent_cr']}")
+    if r2["remote_state"] != 3.0 or r2["home_state"] != 0.0 or r2["remote_writes"]:
+        bad.append(f"remote state {r2['remote_state']}, home {r2['home_state']}, writes "
+                   f"{r2['remote_writes'][:4]}")
+    if card and (r2["devices"] != ["cuda:0"] or r2["members"]["home"]["fleet_eval"] <= 0):
+        bad.append(f"members {r2['members']}")
+    if bad:
+        raise AssertionError("run r2: " + "; ".join(bad))
+
+
+def check_federation_r3(r3: dict, size: dict) -> None:
+    if r3["bound"] != r3["pods"] or r3["over"] or r3["published"] != size["agents"] \
+            or r3["sources"] != ["env"] or not r3["charged"]:
+        raise AssertionError(f"run r3: bound {r3['bound']}/{r3['pods']}, over {r3['over']}, "
+                             f"published {r3['published']}, sources {r3['sources']}, "
+                             f"charged {len(r3['charged'])}")
+
+
+def check_federation_run(run: dict, size: dict, card: bool) -> None:
+    """One run (r)'s own gates, for the parts it ran; on the card every
+    stack on ``cuda:0``, every part launched ``fleet_eval``, (r1)
+    ``joint_fit`` and (r3) ``update_rows``, every launch equal to its
+    plain version."""
+    if "r1" in run:
+        check_federation_r1(run["r1"], size)
+    if "r2" in run:
+        check_federation_r2(run["r2"], size, card)
+    if "r3" in run:
+        check_federation_r3(run["r3"], size)
+    if not card:
+        return
+    need = {"r1": ("fleet_eval", "joint_fit"), "r2": ("fleet_eval",),
+            "r3": ("fleet_eval", "update_rows")}
+    for part, r in run.items():
+        if r["devices"] != ["cuda:0"]:
+            raise AssertionError(f"run {part}: stacks evaluated on {r['devices']}")
+        k = r["kernels"]
+        for name in need[part]:
+            if k["launches"][name] <= 0:
+                raise AssertionError(f"run {part}: {name} never launched")
+        for name in ("fleet_eval", "joint_fit", "update_rows"):
+            if k["kept"][name] != k["launches"][name] or k["max_abs_err"][name]:
+                raise AssertionError(f"run {part} {name}: {k['kept'][name]} of "
+                                     f"{k['launches'][name]} launches held, largest "
+                                     f"difference {k['max_abs_err'][name]}")
+        if part == "r1" and any(v["fleet_eval"] <= 0 for v in r["member_launches"].values()):
+            raise AssertionError(f"run r1: a member launched nothing: {r['member_launches']}")
+
+
+def check_federation(g: dict, c: dict, size: dict = FEDERATION_FULL) -> None:
+    """Run (r) on the card against its CPU run."""
+    check_federation_run(g, size, card=True)
+    check_federation_run(c, size, card=False)
+    for part, keys in (("r1", R1_PARITY), ("r3", R3_PARITY)):
+        bad = [k for k in keys if g[part][k] != c[part][k]]
+        if bad:
+            raise AssertionError(f"run {part}: cuda != cpu in {bad}")
+
+
+def print_federation(run: dict, smi: str) -> None:
+    r1, r2, r3 = run.get("r1"), run.get("r2"), run.get("r3")
+    if r1 is not None:
+        print(f"run (r1) federation, {r1['nodes']} nodes: passes {r1['passes']}, "
+              f"{r1['migrations']} migrated, kept home by the ledger {r1['ledger_kept']}, "
+              f"rolled back {r1['victim']}; ladder "
+              f"{[s['remote'] for s in r1['states']]}; spillover_pass ms "
+              f"{[round(x, 3) for x in r1['spillover_ms']]}, health_pass ms median "
+              f"{statistics.median(r1['health_ms']):.3f} (max {max(r1['health_ms']):.3f}); "
+              f"migrated gang completion ms "
+              f"{ {g: round(v, 1) for g, v in sorted(r1['completion_ms'].items())} }; "
+              f"launches by member {json.dumps(r1['member_launches'])}; build "
+              f"{r1['build_s']:.1f} s, run {r1['wall_s']:.1f} s | {smi}")
+    if r2 is not None:
+        print(f"run (r2) federated CLI: ready in {r2['start_to_ready_s']:.1f} s, remote boot "
+              f"sync {r2['remote_sync_s']:.1f} s, {r2['bound']}/{r2['pods']} bound (p99 "
+              f"{r2['p99_ms']} ms), states {r2['states']}, agent CR in "
+              f"{r2['agent_cr_s']:.1f} s, v6e pod on {r2['agent_pod']}; members "
+              f"{json.dumps(r2['members'])} | {smi}")
+    if r3 is not None:
+        print(f"run (r3) agents: {r3['published']} CRs ({r3['sources']}), run_once ms "
+              f"{[round(x, 3) for x in r3['run_once_ms']]}, {len(r3['charged'])} charged, "
+              f"{r3['bound']}/{r3['pods']} bound, pods/s "
+              f"{[round(x, 1) for x in r3['pods_per_s'] if x]}, launches "
+              f"{json.dumps(r3['member_launches'])} | {smi}")
+
+
+def phase_federation(smi: str, rerun: "SpawnedRerun") -> dict:
+    """Run (r) on the card; its CPU run is ``rerun``, spawned before run
+    (m) beside run (q)'s."""
+    g = run_federation("auto")
+    print_federation(g, smi)
+    c = rerun.result()
+    print_federation(c, smi)
+    check_federation(g, c)
+    return g
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--spec-worker"]:
         sys.exit(spec_worker_entry(sys.argv[2:]))
@@ -8470,6 +9354,7 @@ def main() -> None:
         except Exception as e:  # noqa: BLE001 — report the failing phase
             fail(label, e)
         seconds[label] = time.monotonic() - t
+        print(f"phase {label}: {seconds[label]:.1f} s", flush=True)
         return out
 
     kind, smi = phase("device/build", phase_device)
@@ -8478,7 +9363,7 @@ def main() -> None:
     tenancy_rerun = SpawnedRerun("run_tenancy", TENANCY_FULL, "run (k)")
     pipeline_rerun = SpawnedRerun("run_pipeline", PIPELINE_FULL, "run (l3)")
     lanes_rerun = SpawnedRerun("run_lanes", LANES_FULL, "run (o)")
-    chaos_rerun = None
+    chaos_rerun = fed_rerun = None
     try:
         rows, profiled = phase("kernel vs plain", phase_kernel)
         joint_rows = phase("joint_fit vs plain", phase_joint_fit)
@@ -8496,13 +9381,26 @@ def main() -> None:
         process = phase("process run (l)", phase_process, smi, pipeline_rerun,
                         seconds["device/build"])
         chaos_rerun = SpawnedRerun("run_chaos", CHAOS_FULL, "run (q)")
+        fed_rerun = SpawnedRerun("run_federation", FEDERATION_FULL, "run (r)", daemon=False)
         loop = phase("loop run (m)", phase_loop, smi)
         sharded = phase("sharded run (n)", phase_sharded, smi, gpu)
         lanes = phase("lanes run (o)", phase_lanes, smi, lanes_rerun)
         proc = phase("process lanes run (p)", phase_proc, smi, lanes)
         chaos = phase("chaos run (q)", phase_chaos, smi, chaos_rerun)
+        federation = phase("federation run (r)", phase_federation, smi, fed_rerun)
         print("phase seconds:", json.dumps(seconds))
         q_parts = ("q1", "q2", "q3")
+        r_parts = ("r1", "r2", "r3")
+
+        def r_launches(name: str) -> dict:
+            return {p: federation[p]["kernels"]["launches"][name] for p in r_parts}
+
+        def r_by_member(name: str) -> dict:
+            return {p: {member: n[name] for member, n in federation[p][
+                "members" if p == "r2" else "member_launches"].items()} for p in r_parts}
+
+        def r_err(name: str) -> list:
+            return [federation[p]["kernels"]["max_abs_err"][name] for p in r_parts]
         o_parts = tuple(p for p in ("o1", "o3", "o4") + O2_PARTS if p in lanes)
         l_parts = ("l1", "l2", "l3", "l4")
         j_parts = ("j1", "j1_wall", "j2", "j3", "cost")
@@ -8538,7 +9436,10 @@ def main() -> None:
                     + loop["m1"]["launches"]
                     + sum(lanes[p]["kernels"]["launches"]["fleet_eval"] for p in o_parts)
                     + sum(w["launches"]["fleet_eval"] for w in proc["p1"]["kernels"].values())
-                    + sum(chaos[p]["kernels"]["launches"]["fleet_eval"] for p in q_parts),
+                    + sum(chaos[p]["kernels"]["launches"]["fleet_eval"] for p in q_parts)
+                    + sum(r_launches("fleet_eval").values()),
+                    "launches_run_r": r_launches("fleet_eval"),
+                    "launches_run_r_by_member": r_by_member("fleet_eval"),
                     "launches_run_p1_by_worker": {
                         lane: w["launches"]["fleet_eval"]
                         for lane, w in proc["p1"]["kernels"].items()
@@ -8596,7 +9497,8 @@ def main() -> None:
                                        *(w["max_abs_err"]["fleet_eval"]
                                          for w in proc["p1"]["kernels"].values()),
                                        *(chaos[p]["kernels"]["max_abs_err"]["fleet_eval"]
-                                         for p in q_parts)),
+                                         for p in q_parts),
+                                       *r_err("fleet_eval")),
                     "ms": main_row["ms"],
                     "plain_ms": main_row["plain_ms"],
                     "bound_ms": main_row["bound_ms"],
@@ -8633,7 +9535,10 @@ def main() -> None:
                     + sum(process[p]["launches"]["joint_fit"] for p in l_parts)
                     + sum(lanes[p]["kernels"]["launches"]["joint_fit"] for p in o_parts)
                     + sum(w["launches"]["joint_fit"] for w in proc["p1"]["kernels"].values())
-                    + sum(chaos[p]["kernels"]["launches"]["joint_fit"] for p in q_parts),
+                    + sum(chaos[p]["kernels"]["launches"]["joint_fit"] for p in q_parts)
+                    + sum(r_launches("joint_fit").values()),
+                    "launches_run_r": r_launches("joint_fit"),
+                    "launches_run_r_by_member": r_by_member("joint_fit"),
                     "launches_run_p1_by_worker": {
                         lane: w["launches"]["joint_fit"]
                         for lane, w in proc["p1"]["kernels"].items()
@@ -8673,7 +9578,8 @@ def main() -> None:
                                        *(w["max_abs_err"]["joint_fit"]
                                          for w in proc["p1"]["kernels"].values()),
                                        *(chaos[p]["kernels"]["max_abs_err"]["joint_fit"]
-                                         for p in q_parts)),
+                                         for p in q_parts),
+                                       *r_err("joint_fit")),
                     "ms": joint_main["ms"],
                     "device_ms": not_measured(joint_main["device_ms"]),
                     "plain_ms": joint_main["plain_ms"],
@@ -8749,7 +9655,10 @@ def main() -> None:
                     + sum(process[p]["launches"]["update_rows"] for p in l_parts)
                     + sum(n["update_rows"] for p in o_parts
                           for n in lanes[p]["lane_launches"].values())
-                    + sum(chaos[p]["kernels"]["launches"]["update_rows"] for p in q_parts),
+                    + sum(chaos[p]["kernels"]["launches"]["update_rows"] for p in q_parts)
+                    + sum(r_launches("update_rows").values()),
+                    "launches_run_r": r_launches("update_rows"),
+                    "launches_run_r_by_member": r_by_member("update_rows"),
                     "launches_run_q": {
                         p: chaos[p]["kernels"]["launches"]["update_rows"] for p in q_parts
                     },
@@ -8770,7 +9679,8 @@ def main() -> None:
                                        *(process[p]["max_abs_err"]["update_rows"]
                                          for p in l_parts),
                                        *(chaos[p]["kernels"]["max_abs_err"]["update_rows"]
-                                         for p in q_parts)),
+                                         for p in q_parts),
+                                       *r_err("update_rows")),
                     "ms": update_main["ms"],
                     "plain_ms": update_main["put_static_ms"],
                     "bound_ms": update_main["bound_ms"],
@@ -8806,6 +9716,8 @@ def main() -> None:
         lanes_rerun.stop()
         if chaos_rerun is not None:
             chaos_rerun.stop()
+        if fed_rerun is not None:
+            fed_rerun.stop()
 
 
 if __name__ == "__main__":

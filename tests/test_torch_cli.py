@@ -1,22 +1,21 @@
 """The port's process entry point (yoda_tpu_torch/cli.py), held against
 yoda_tpu.
 
-Every case of ``tests/test_cli.py`` that needs no unported part runs on
-both packages from the reference's own source (``torch_refcases.run_case``)
-against each package's own fake API server: the scheduler binding a pod,
-a topology gang (with its Scheduled Events) and a selector-steered pod
-over real HTTP, a bad config rejected, and ``/healthz`` / ``/readyz``
-staying 200 while the overload ladder sheds. Left out, with the part they
-wait for (ROADMAP queue 1):
-
-- ``TestAgentMode`` (three cases): the node agent, item 11;
-- ``TestFederatedSchedulerMode``: federation, item 9c.
+Every case of ``tests/test_cli.py`` runs on both packages from the
+reference's own source (``torch_refcases.run_case``) against each
+package's own fake API server: the scheduler binding a pod, a topology
+gang (with its Scheduled Events) and a selector-steered pod over real
+HTTP, a bad config rejected, ``/healthz`` / ``/readyz`` staying 200 while
+the overload ladder sheds, the node agent (``TestAgentMode``: its
+refusals and a fake profile published) and federated mode with a dead
+remote (``TestFederatedSchedulerMode``: degraded readiness, a home bind,
+the remote at LOST). None is left out.
 
 Port-only cases: without ``--device cpu`` (and with a config that leaves
 ``kernel_platform`` at "auto") the CLI on a machine without a card exits
-nonzero naming the card, in a process of its own; every unported mode
-(the node agent, federation) exits 2 naming its ROADMAP item before it
-touches the API server;
+nonzero naming the card, in a process of its own; with ``--device cpu``
+federated mode (a dead remote) and the agent (the reader built from
+``native/``) each serve in a process of their own and exit 0 on SIGTERM;
 ``shard_count: 2`` (thread lanes), ``profiles`` and ``shard_mode:
 process`` (worker processes on the host, on a Unix socket and on TCP)
 serve over the fake API server and bind a pod of every lane or profile,
@@ -42,13 +41,7 @@ from torch_refcases import PACKAGES, cases, run_case
 REPO = Path(__file__).resolve().parent.parent
 
 REF = "test_cli.py"
-SKIP = {
-    "TestAgentMode::test_agent_requires_node_name": "node agent (item 11)",
-    "TestAgentMode::test_agent_refuses_fake_without_flag": "node agent (item 11)",
-    "TestAgentMode::test_agent_publishes_fake_profile": "node agent (item 11)",
-    "TestFederatedSchedulerMode::test_readyz_follows_degraded_readiness_with_dead_remote":
-        "federation (item 9c)",
-}
+SKIP: dict = {}
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)
@@ -79,26 +72,94 @@ def test_default_device_without_a_card_exits_nonzero_naming_the_card(tmp_path):
     assert "serving" not in proc.stderr
 
 
-UNPORTED = [
-    (["--agent"], None, "item 11"),
-    (["--federate-url", "remote=http://127.0.0.1:1"], None, "item 9c"),
-]
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
 
 
-@pytest.mark.parametrize("argv, config, item", UNPORTED, ids=["agent", "federate"])
-def test_unported_mode_exits_2_naming_its_item(argv, config, item, tmp_path, capsys, monkeypatch):
-    from yoda_tpu_torch.cli import main
+@pytest.mark.parametrize("mode", ["federate", "agent"])
+def test_federated_and_agent_modes_serve_in_a_process(mode, tmp_path):
+    """``python -m yoda_tpu_torch.cli --device cpu`` in a process of its
+    own, over the port's fake API server: with ``--federate-url`` naming a
+    dead remote it comes up, ``/readyz`` turns 200 once home resynced and
+    a pod binds at home while ``/metrics`` reports the remote LOST; with
+    ``--agent`` (the reader built from ``native/`` under
+    ``YODA_TPUINFO_SPEC``) it publishes the node's CR. Each exits 0 on
+    SIGTERM."""
+    import signal
+    import urllib.request
 
-    # No API server behind this URL: an unported mode must refuse before
-    # dialling one.
-    monkeypatch.setenv("YODA_KUBE_API_URL", "http://127.0.0.1:1")
-    if config is not None:
-        path = tmp_path / "config.yaml"
-        path.write_text(config)
-        argv = argv + ["--config", str(path)]
-    assert main(argv + ["--metrics-port", "-1", "--device", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert item in err and "not ported to yoda_tpu_torch" in err
+    from yoda_tpu_torch.api.types import PodSpec, make_node
+    from yoda_tpu_torch.cluster import KubeApiClient, KubeApiConfig, KubeCluster
+    from yoda_tpu_torch.testing import FakeKubeApiServer, wait_until
+
+    dead = FakeKubeApiServer().start()
+    dead_url = dead.base_url
+    dead.stop()
+    with FakeKubeApiServer() as srv:
+        env = dict(os.environ, YODA_KUBE_API_URL=srv.base_url)
+        env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+        port = _free_port()
+        if mode == "federate":
+            cfg = tmp_path / "config.yaml"
+            cfg.write_text(
+                "federation_degraded_after_s: 0.2\n"
+                "federation_partitioned_after_s: 0.4\n"
+                "federation_lost_after_s: 0.8\n"
+                "federation_probe_period_s: 0.1\n"
+            )
+            argv = ["--config", str(cfg), "--metrics-port", str(port), "--device", "cpu",
+                    "--federate-url", f"remote={dead_url}"]
+        else:
+            env["YODA_TPUINFO_SPEC"] = "generation=v5e;chips=8"
+            argv = ["--agent", "--node-name", "agent-0", "--interval-s", "0.2"]
+        seed = KubeCluster(
+            KubeApiClient(KubeApiConfig(base_url=srv.base_url, watch_timeout_s=2))
+        )
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "yoda_tpu_torch.cli", *argv],
+            env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True,
+        )
+        try:
+            if mode == "federate":
+                seed.put_tpu_metrics(make_node("fh-1", chips=4))
+                base = f"http://127.0.0.1:{port}"
+
+                def get(path: str) -> "tuple[int, str]":
+                    try:
+                        r = urllib.request.urlopen(f"{base}{path}", timeout=1)
+                        return r.status, r.read().decode()
+                    except Exception:  # noqa: BLE001 — not up yet / 503
+                        return 0, ""
+
+                wait_until(lambda: get("/readyz")[0] == 200, timeout_s=90.0,
+                           msg="/readyz 200 with a dead remote")
+                seed.create_pod(PodSpec("fed-pod", labels={"tpu/chips": "1"}))
+                wait_until(
+                    lambda: (srv.get_object("Pod", "default/fed-pod") or {})
+                    .get("spec", {}).get("nodeName") == "fh-1",
+                    timeout_s=60.0, msg="home bound the pod")
+                wait_until(
+                    lambda: 'yoda_cluster_state{cluster="remote"} 3' in get("/metrics")[1],
+                    timeout_s=60.0, msg="remote reported LOST")
+            else:
+                wait_until(
+                    lambda: srv.get_object("TpuNodeMetrics", "agent-0") is not None,
+                    timeout_s=60.0, msg="agent published its CR")
+                status = srv.get_object("TpuNodeMetrics", "agent-0")["status"]
+                assert status["chipCount"] == 8 and status["generation"] == "v5e"
+                assert status["source"] == "env"
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            _out, err = proc.communicate(timeout=60)
+            seed.stop()
+        assert proc.returncode == 0, err[-2000:]
+        assert ("clusters=['home', 'remote']" in err) if mode == "federate" else (
+            "publishing agent-0" in err)
 
 
 def test_demo_on_the_host_prints_the_reference_placements(capsys):

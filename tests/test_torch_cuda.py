@@ -8,7 +8,8 @@ and beside the serve path's launches from a second thread (run (h)); and
 the node health path (run (i)): a fence flip patches the admission rows
 the card's kernels read, with no re-stack and no row update, and the
 whole run decides as on the CPU; and the lanes as worker processes (run
-(p) at its small size), each launching on the card.
+(p) at its small size), each launching on the card; and federation and the
+node agents (run (r) at its small size), every member stack on the card.
 
 Tests marked ``cuda`` need the card and skip without one; run them there
 with ``python -m pytest -m cuda tests/test_torch_cuda.py``. This file
@@ -886,3 +887,18 @@ class TestProcessLanesOnCard:
                         PROC_SMALL)
         check_proc_wire(run_proc_wire("auto", PROC_WIRE_SMALL), PROC_WIRE_SMALL, card=True)
         check_proc_standby(run_proc_standby("auto", PROC_WIRE_SMALL))
+
+
+@pytest.mark.cuda
+class TestFederationOnCard:
+    def test_run_r_small(self, card):
+        """chip_smoke's run (r) at its small size: (r1) both member stacks of
+        the federation on the card, the spillover, the partition and the
+        rejoin, equal to its CPU run; (r2) the federated CLI and the agent
+        process; (r3) the native agents' CRs and bindings equal to the CPU
+        run; every launch equal to its plain version."""
+        from chip_smoke import FEDERATION_SMALL, check_federation, run_federation
+
+        check_federation(run_federation("auto", FEDERATION_SMALL),
+                         run_federation("cpu", FEDERATION_SMALL, reported=False),
+                         FEDERATION_SMALL)

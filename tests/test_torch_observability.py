@@ -1,13 +1,11 @@
 """The metrics registry, the scheduling trace and the metrics endpoint,
 held against yoda_tpu.
 
-Every case of ``tests/test_observability.py`` that needs no unported part
-runs on both packages from the reference's own source
-(``torch_refcases.run_case``), with its exact assertions. Left out, with
-the part they wait for (ROADMAP queue 1):
-
-- ``TestFailoverMetrics::test_federation_series_move_with_health_and_spillover``:
-  federation, item 9c.
+Every case of ``tests/test_observability.py`` runs on both packages from
+the reference's own source (``torch_refcases.run_case``), with its exact
+assertions, the federation's series (``yoda_cluster_state``,
+``yoda_cluster_transitions_total``, ``yoda_spillover_gangs_total``) among
+them. None is left out.
 
 ``TestAllFamiliesRegistered::test_checker_list_matches_code`` lints the
 yoda_tpu source tree on both sides; ``tests/test_torch_lint.py`` runs the
@@ -49,10 +47,7 @@ import yoda_tpu_torch.observability as port_observability
 import yoda_tpu_torch.standalone as port_standalone
 
 REF = "test_observability.py"
-SKIP = {
-    "TestFailoverMetrics::test_federation_series_move_with_health_and_spillover":
-        "federation (item 9c)",
-}
+SKIP: dict = {}
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)

@@ -20,8 +20,6 @@ REF = "test_chaos.py"
 SKIP = {
     "TestDispatchFallback":
         "the degraded-mode dispatch chain (ROADMAP item 15)",
-    "TestFederationPartitionSweep":
-        "federation (ROADMAP item 9c)",
 }
 
 

@@ -70,7 +70,10 @@ class TestImportGuard:
                     "journal/__init__.py", "journal/journal.py",
                     "journal/tail.py", "framework/shards.py",
                     "framework/procserve.py", "testing/chaos.py",
-                    "testing/tracegen.py"):
+                    "testing/tracegen.py", "federation/__init__.py",
+                    "federation/federation.py", "federation/health.py",
+                    "agent/native.py", "agent/runtime.py",
+                    "agent/tpu_metrics.py", "testing/fake_libtpu.py"):
             assert REPO / "yoda_tpu_torch" / rel in files, rel
         bad = {
             f"{f.relative_to(REPO)}: {m}"
@@ -241,22 +244,52 @@ class TestHostPool:
 
 
 class TestUnportedKnobs:
-    @pytest.mark.parametrize(
-        "knob,value",
-        [
-            ("kernel_device_min_elems", 1024),
-            ("federation_spillover", False),
-        ],
-    )
+    @pytest.mark.parametrize("knob,value", [("kernel_device_min_elems", 1024)])
     def test_raises_naming_the_knob(self, knob, value):
         cfg = dataclasses.replace(
             SchedulerConfig(kernel_platform="cpu", shard_count=2), **{knob: value}
         )
         with pytest.raises(NotImplementedError, match=knob) as err:
             build_stack(config=cfg)
-        item = {"kernel_device_min_elems": None, "federation_spillover": "9c"}[knob]
-        if item:
-            assert f"ROADMAP item {item}" in str(err.value)
+        assert "ROADMAP item" not in str(err.value)
+
+    @pytest.mark.parametrize(
+        "knob,value",
+        [
+            ("federation_degraded_after_s", 2.0),
+            ("federation_partitioned_after_s", 20.0),
+            ("federation_lost_after_s", 60.0),
+            ("federation_probe_period_s", 0.5),
+            ("federation_spillover", False),
+        ],
+    )
+    def test_federation_knob_builds_everything(self, knob, value):
+        """The ``federation_*`` knobs are ported: a stack takes each with
+        nothing left out, and ``build_federation`` hands it to the health
+        monitors and the spillover switch as the reference does."""
+        from yoda_tpu_torch.standalone import build_federation
+
+        cfg = dataclasses.replace(
+            SchedulerConfig(kernel_platform="cpu"), **{knob: value}
+        )
+        assert unported_settings(cfg) == []
+        stack = build_stack(config=cfg)
+        stack.close()
+        assert stack.not_built == ()
+        fed = build_federation([("home", FakeCluster()), ("remote", FakeCluster())], cfg)
+        try:
+            for m in fed.members:
+                assert m.stack.not_built == ()
+                assert m.stack.batch.device == torch.device("cpu")
+                assert (m.health.degraded_after_s, m.health.partitioned_after_s,
+                        m.health.lost_after_s) == (
+                    cfg.federation_degraded_after_s,
+                    cfg.federation_partitioned_after_s, cfg.federation_lost_after_s)
+            assert fed.spillover is cfg.federation_spillover
+            assert len({id(m.stack.metrics) for m in fed.members}) == 1
+        finally:
+            for m in fed.members:
+                m.stack.close()
 
     @pytest.mark.parametrize(
         "knob,value",
@@ -309,15 +342,17 @@ class TestUnportedKnobs:
                 st.close()
 
     @pytest.mark.parametrize(
-        "entry", ["sharded", "profiles", "process", "drive_worker", "replay"]
+        "entry",
+        ["sharded", "profiles", "process", "drive_worker", "replay", "federation"],
     )
     def test_assemblies_run_on_the_card_by_default(self, entry, monkeypatch,
                                                    tmp_path):
         """``build_sharded_stacks``, ``build_profile_stacks``,
-        ``build_proc_parent``, the chaos harness's ``DriveWorker`` and the
-        trace replayer's ``replay`` keep the card as their default: with
-        none present they raise (the drive worker before it spawns), never
-        fall back to the host lane by lane."""
+        ``build_proc_parent``, ``build_federation``, the chaos harness's
+        ``DriveWorker`` and the trace replayer's ``replay`` keep the card as
+        their default: with none present they raise naming the card (the
+        drive worker before it spawns), never fall back to the host lane by
+        lane or member by member."""
         import subprocess
 
         from yoda_tpu_torch.testing import chaos, tracegen
@@ -332,6 +367,10 @@ class TestUnportedKnobs:
                 tracegen.replay(tracegen.TraceSpec(duration_s=5.0), hosts=1)
             elif entry == "sharded":
                 build_sharded_stacks(config=SchedulerConfig(shard_count=2))
+            elif entry == "federation":
+                from yoda_tpu_torch.standalone import build_federation
+
+                build_federation([("home", FakeCluster()), ("remote", FakeCluster())])
             elif entry == "process":
                 build_proc_parent(
                     config=SchedulerConfig(shard_count=2, shard_mode="process")

@@ -3,10 +3,10 @@
 A reference test module (``tests/test_observability.py`` and its
 siblings) is compiled from its source once per package: for
 ``yoda_tpu_torch`` every ``yoda_tpu`` import is pointed at the port
-(``yoda_tpu.testing``'s fake API server, ``wait_until``, chaos harness and
-trace generator included: the port has its own copies; only the fake
-libtpu service, which the port's agents do not read yet, stays the
-reference's), and the port's
+(``yoda_tpu.testing``'s fake API server, ``wait_until``, chaos harness,
+trace generator and fake libtpu metrics service included: the port has its
+own copy of every one, so no reference import survives the rewrite), and
+the port's
 ``build_stack`` runs its kernels on the host (``kernel_platform: cpu``)
 where the case leaves the platform at "auto", as every port test does on
 a machine without a card; so do the port's other entry points that pick a
@@ -32,7 +32,9 @@ itself) wrapped in ``pytest.param`` with the same mark, so it stays out of
 the tier-1 run as it does in the reference;
 ``run_case(pkg, path, case, request, monkeypatch)`` runs one between its
 class's ``setup_method`` and ``teardown_method``, resolving the method's
-fixtures through ``request``.
+fixtures through ``request``; a case whose class or method the reference
+marks ``skipif`` with a condition that holds here (or ``skip``) skips with
+the reference's reason on both packages, as it does under pytest.
 """
 
 from __future__ import annotations
@@ -52,9 +54,8 @@ PACKAGES = ("yoda_tpu", "yoda_tpu_torch")
 TESTS = Path(__file__).resolve().parent
 
 # Reference modules the port side keeps: test harness helpers the port
-# has no copy of, not the system under test (the fake libtpu service reads
-# through ``yoda_tpu.agent.tpu_metrics``, ROADMAP item 11).
-_KEEP = ("yoda_tpu.testing.fake_libtpu",)
+# has no copy of. The port has a copy of every one, so none is kept.
+_KEEP: "tuple[str, ...]" = ()
 
 
 def _slow(node: "ast.ClassDef | ast.FunctionDef") -> bool:
@@ -271,6 +272,18 @@ def _xunit(owner, hook: str, fn) -> None:
         method()
 
 
+def _skip_reason(*targets) -> "str | None":
+    """The reason of the first ``skip`` mark, or ``skipif`` mark whose
+    (evaluated) condition holds, on ``targets`` (a case's class and
+    method, as compiled); None when the case runs."""
+    for target in targets:
+        for mark in getattr(target, "pytestmark", ()):
+            if mark.name == "skip" or (mark.name == "skipif" and mark.args
+                                       and mark.args[0] is True):
+                return mark.kwargs.get("reason", mark.name)
+    return None
+
+
 def run_case(pkg: str, name: str, case, request, monkeypatch) -> None:
     """Run one case. Its class's ``setup_method`` runs first and its
     ``teardown_method`` last, as under pytest. Its arguments resolve
@@ -284,6 +297,9 @@ def run_case(pkg: str, name: str, case, request, monkeypatch) -> None:
     mod = load(pkg, name, monkeypatch)
     owner = getattr(mod, cls)() if cls else mod
     fn = getattr(owner, meth)
+    reason = _skip_reason(getattr(mod, cls) if cls else None, fn)
+    if reason is not None:
+        pytest.skip(reason)
     with contextlib.ExitStack() as teardown:
         if cls:
             _xunit(owner, "setup_method", fn)

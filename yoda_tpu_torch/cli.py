@@ -6,6 +6,7 @@ pkg/register/register.go:9-13). Here one binary, selected by flags:
 
     python -m yoda_tpu_torch.cli            in-cluster scheduler (KubeCluster)
     python -m yoda_tpu_torch.cli --demo     in-memory fleet demo (FakeCluster)
+    python -m yoda_tpu_torch.cli --agent    node-agent publisher loop (DaemonSet)
     python -m yoda_tpu_torch.cli explain …  why-pending query of a running one
     python -m yoda_tpu_torch.cli slo …      SLO query of a running one
 
@@ -54,10 +55,29 @@ with the supervisor's. A ``--leader-elect`` standby with
 waits for the Lease and promotes the warm mirror (a term bump first) when
 it takes it.
 
-Counterpart of ``yoda_tpu/cli.py``. Left out until a later slice, each
-refused with exit code 2 and a message naming it: federated mode
-(``--federate-url``, ROADMAP item 9c) and the node agent (``--agent``,
-item 11). ``--jax-platform`` is not kept: ``--device`` takes its place.
+Federated mode (``--federate-url NAME=URL``, repeatable): the
+env-configured cluster is the HOME front and each URL a secondary front
+(same token and CA env), whose informer may fail to sync at boot without
+blocking startup. ``standalone.build_federation`` builds one stack per
+front (each on the card unless the caller asks for the host), the
+federation owns every member's warm-start resync and fence (leader gate,
+health state, resync gate), ``/readyz`` follows the degraded-readiness
+contract (home resynced; a remote resynced or verifiably PARTITIONED /
+LOST), each member's serve loop and background loops run on threads, and
+one more thread runs ``Federation.run_forever`` (health probes, rejoin
+resyncs, spillover) every ``federation_probe_period_s``. Profiles and
+``shard_count`` > 1 are ignored there, with a message, as in the
+reference.
+
+Agent mode (``--agent``) publishes this node's TpuNodeMetrics CR every
+``--interval-s`` through ``agent.native.NativeTpuAgent`` (the C++ reader,
+built at first use; ``--tpuinfo-lib`` names a library), with
+``--runtime-probe`` / ``--libtpu-metrics`` overlays and, only with
+``--allow-fake``, a synthetic host when no reader yields anything. It does
+no device work.
+
+Counterpart of ``yoda_tpu/cli.py``, whole. ``--jax-platform`` is not
+kept: ``--device`` takes its place.
 """
 
 from __future__ import annotations
@@ -104,16 +124,59 @@ def _load_config(path: str | None):
     return SchedulerConfig.from_dict(raw)
 
 
-def _build_kube_cluster():
-    """A started, synced KubeCluster on the env-configured endpoint."""
+def _build_kube_cluster(*, kinds=None, url=None, required=True):
+    """A started KubeCluster, synced unless it is a federation remote.
+    ``url`` overrides the env-derived endpoint (federation remotes share
+    the home token/CA env). ``required=False`` is the federation-remote
+    contract: a remote API server that cannot sync at boot must NOT block
+    startup — the health monitor will mark it PARTITIONED/LOST, readiness
+    will not wait for it (degraded readiness), and the first successful
+    rejoin resyncs it."""
     from yoda_tpu_torch.cluster import KubeApiClient, KubeApiConfig, KubeCluster
 
-    cluster = KubeCluster(KubeApiClient(KubeApiConfig.from_env()))
+    if url is None:
+        cfg = KubeApiConfig.from_env()
+    else:
+        cfg = KubeApiConfig(
+            base_url=url,
+            token=os.environ.get("YODA_KUBE_TOKEN", ""),
+            ca_file=os.environ.get("YODA_KUBE_CA_FILE") or None,
+            insecure_skip_verify=os.environ.get("YODA_KUBE_INSECURE") == "1",
+        )
+    if kinds is None:
+        cluster = KubeCluster(KubeApiClient(cfg))
+    else:
+        cluster = KubeCluster(KubeApiClient(cfg), kinds=kinds)
     cluster.start()
-    if not cluster.wait_for_sync(60.0):
-        cluster.stop()
-        raise RuntimeError("timed out syncing informer caches from the API server")
+    if not cluster.wait_for_sync(60.0 if required else 5.0):
+        if required:
+            cluster.stop()
+            raise RuntimeError(
+                "timed out syncing informer caches from the API server"
+            )
+        print(
+            f"yoda-tpu-scheduler: federation remote {url} not syncing; "
+            "continuing degraded (health monitor will gate it)",
+            file=sys.stderr,
+        )
     return cluster
+
+
+def _federate_specs(specs: "list[str]") -> "list[tuple[str, str]] | None":
+    """``--federate-url`` values as (name, url) pairs; None (after a
+    message) when one is not NAME=URL."""
+    out = []
+    for spec in specs:
+        name, sep, url = spec.partition("=")
+        if not sep or not name or not url:
+            print(
+                f"yoda-tpu-scheduler: --federate-url must be NAME=URL, "
+                f"got {spec!r}",
+                file=sys.stderr,
+            )
+            return None
+        out.append((name, url))
+    return out
 
 
 def _init_device(platform: str) -> "float | None":
@@ -132,22 +195,6 @@ def _init_device(platform: str) -> "float | None":
     t0 = time.perf_counter()
     cuda_kernel.build_all()
     return time.perf_counter() - t0
-
-
-def _unported_mode(args) -> "str | None":
-    """The first mode ``args`` asks for that the port does not have, as
-    the message the CLI exits 2 with; None when all is ported."""
-    if args.agent:
-        return (
-            "--agent (the node agent) is not ported to yoda_tpu_torch yet "
-            "(ROADMAP item 11: agent/native.py)"
-        )
-    if args.federate_url:
-        return (
-            "--federate-url (federated mode) is not ported to yoda_tpu_torch "
-            "yet (ROADMAP item 9c: federation/)"
-        )
-    return None
 
 
 def _install_reload_handler(reload_event: threading.Event) -> None:
@@ -397,6 +444,11 @@ def _run_scheduler(args, stop: threading.Event) -> int:
     from yoda_tpu_torch.metrics_server import MetricsServer
 
     config = _config_on_device(_load_config(args.config), args.device)
+    remote_specs = None
+    if args.federate_url:
+        remote_specs = _federate_specs(args.federate_url)
+        if remote_specs is None:
+            return 2
     build_s = _init_device(config.kernel_platform)
     if build_s is not None:
         print(
@@ -410,13 +462,45 @@ def _run_scheduler(args, stop: threading.Event) -> int:
         f"{(time.perf_counter() - t_sync) * 1e3:.1f} ms",
         file=sys.stderr,
     )
+    clusters = [cluster]
+    federation = None
     shard_set = None
     proc_server = None
     try:
         # `stop` doubles as the bind executors' stop event: a SIGTERM or a
         # lost lease aborts pending bind-retry backoff sleeps immediately
         # instead of draining up to bind_retry_cap_s per attempt.
-        if config.shard_count > 1 and config.shard_mode == "process":
+        if remote_specs is not None:
+            # Federated multi-cluster mode: the env-configured cluster is
+            # the HOME front; each --federate-url NAME=URL adds a secondary
+            # cluster front behind this one scheduler. Remotes are
+            # best-effort at boot — a dead remote degrades instead of
+            # blocking startup. The federation owns per-member fencing and
+            # warm-start resyncs, so profiles are not combined with it
+            # (the base profile serves every member).
+            if config.profiles:
+                print(
+                    "yoda-tpu-scheduler: config profiles are ignored in "
+                    "federated mode (base profile serves every cluster)",
+                    file=sys.stderr,
+                )
+            if config.shard_count > 1:
+                print(
+                    "yoda-tpu-scheduler: shard_count > 1 is ignored in "
+                    "federated mode (each cluster front serves one loop; "
+                    "shard within a cluster by running it unfederated)",
+                    file=sys.stderr,
+                )
+            remotes = []
+            for name, url in remote_specs:
+                remote = _build_kube_cluster(url=url, required=False)
+                clusters.append(remote)
+                remotes.append((name, remote))
+            federation = standalone.build_federation(
+                [("home", cluster), *remotes], config, stop_event=stop
+            )
+            stacks = [m.stack for m in federation.members]
+        elif config.shard_count > 1 and config.shard_mode == "process":
             # Multi-process shard serve: THIS process is the control
             # plane — global lane, journal-owning accountant, repair
             # loops, metrics. Each shard lane is a supervised worker
@@ -450,7 +534,8 @@ def _run_scheduler(args, stop: threading.Event) -> int:
             shard_set.supervisor.stop()
         if proc_server is not None:
             proc_server.stop()
-        cluster.stop()
+        for c in clusters:
+            c.stop()
         raise
     stack = stacks[0]
 
@@ -459,12 +544,17 @@ def _run_scheduler(args, stop: threading.Event) -> int:
     # on) AND every profile's warm-start resync has completed (sharded:
     # the global lane's, the only one) AND we are not draining. The
     # informer-sync half is implied: _build_kube_cluster() blocked on
-    # wait_for_sync above.
+    # wait_for_sync above. Federated mode swaps in the DEGRADED-READINESS
+    # contract (Federation.ready): ready once the HOME cluster has resynced
+    # even while a remote is PARTITIONED/LOST — an all-stacks-resynced
+    # gate would wedge the standby forever on a dead remote.
     leader_gate: list = [lambda: True]
 
     def _ready() -> bool:
         if stop.is_set() or not leader_gate[0]():
             return False
+        if federation is not None:
+            return federation.ready()
         if shard_set is not None:
             return stacks[0].reconciler.resynced.is_set()
         return all(st.reconciler.resynced.is_set() for st in stacks)
@@ -506,10 +596,14 @@ def _run_scheduler(args, stop: threading.Event) -> int:
     # flips only once this completes). Sharded: ONLY the global lane
     # resyncs (its informer sees the whole fleet), then reroutes the
     # resync's requeues home; the shard loops stay fenced until it ran.
-    if shard_set is None:
+    # Federated: the federation's control loop owns resyncs instead (each
+    # member's fence stays closed until its resync completes, and a
+    # rejoining cluster re-runs the pass) — an on_serve_start hook that
+    # raised on a dead remote would kill that member's serve loop for good.
+    if federation is None and shard_set is None:
         for st in stacks:
             st.scheduler.on_serve_start = st.reconciler.resync
-    else:
+    elif shard_set is not None:
         g_resynced = stacks[0].reconciler.resynced
 
         def _sharded_serve_start(rec=stacks[0].reconciler, ss=shard_set):
@@ -559,8 +653,13 @@ def _run_scheduler(args, stop: threading.Event) -> int:
             # bind API write (and the binder again on its worker) and parks
             # its queue while not leading — the exit-on-loss below is
             # seconds-grained, and an in-flight permit release in that
-            # window must not race the new leader's binds.
-            if shard_set is not None:
+            # window must not race the new leader's binds. Federated members
+            # compose the lease with their per-cluster health fence
+            # (Federation.set_leader_gate); overwriting fence_fn directly
+            # would drop the health half.
+            if federation is not None:
+                federation.set_leader_gate(elector.is_leader)
+            elif shard_set is not None:
                 # Lane fences compose the lease with the global lane's
                 # resync gate (a promoted replica's lanes must not bind
                 # before ITS resync ran); recorded on the shard set too,
@@ -642,6 +741,7 @@ def _run_scheduler(args, stop: threading.Event) -> int:
             f"device={stack.batch.device if stack.batch else 'host (loop mode)'}, "
             f"profiles={names}, "
             f"lanes={1 + config.shard_count if shard_set else 1}, "
+            f"clusters={[m.name for m in federation.members] if federation else ['home']}, "
             f"nodes={len(cluster.list_tpu_metrics())}, "
             f"pods={len(cluster.list_pods())})",
             file=sys.stderr,
@@ -765,6 +865,19 @@ def _run_scheduler(args, stop: threading.Event) -> int:
                 daemon=True,
             )
         )
+        # Federation control loop: health probes, rejoin resyncs, and
+        # spillover migration — ONE background thread, so degradation
+        # never serializes against any member's serve loop.
+        if federation is not None:
+            extra_threads.append(
+                threading.Thread(
+                    target=federation.run_forever,
+                    args=(stop,),
+                    kwargs={"period_s": config.federation_probe_period_s},
+                    name="federation",
+                    daemon=True,
+                )
+            )
         for t in extra_threads:
             t.start()
         stack.scheduler.serve_forever(stop)
@@ -795,15 +908,110 @@ def _run_scheduler(args, stop: threading.Event) -> int:
         # Graceful journal close AFTER every bind pipeline stopped: under
         # journal_sync=batch this flushes + fsyncs the pending tail
         # frames, so a clean shutdown never drops staged/commit records a
-        # crash would have recovered from the previous fsync.
-        if stack.accountant.journal is not None:
-            stack.accountant.journal.close()
+        # crash would have recovered from the previous fsync. Federation
+        # members each have their own accountant (and journal).
+        for journal in {id(st.accountant.journal): st.accountant.journal
+                        for st in stacks}.values():
+            if journal is not None:
+                journal.close()
         if metrics_srv is not None:
             metrics_srv.stop()
         if elector_thread is not None:
             elector_thread.join(timeout=5.0)  # lets the elector release the lease
-        cluster.stop()
+        for c in clusters:
+            c.stop()
     return 1 if lost_leadership.is_set() else 0
+
+
+def _run_agent(args, stop: threading.Event) -> int:
+    """Node-agent mode (the DaemonSet): publish this node's TpuNodeMetrics
+    CR every ``--interval-s``, via the native reader when available, else —
+    only if ``--allow-fake`` — a synthetic host profile. No device work:
+    the CR feeds the scheduler, whose stack evaluates on the card."""
+    from yoda_tpu_torch.agent.native import (
+        NativeTpuAgent,
+        collection_source,
+        load_library,
+    )
+
+    # Validate everything local BEFORE touching the API server: a
+    # misconfigured DaemonSet pod should fail with the actionable message
+    # immediately, not after a (up to 60 s) informer sync, and the refusal
+    # path must not leave watch threads running.
+    node_name = args.node_name or os.environ.get("NODE_NAME")
+    if not node_name:
+        print(
+            "yoda-tpu-scheduler --agent: --node-name or $NODE_NAME required",
+            file=sys.stderr,
+        )
+        return 2
+    lib = load_library(args.tpuinfo_lib)
+    if lib is None and not args.allow_fake and not args.runtime_probe:
+        print(
+            "yoda-tpu-scheduler --agent: libyoda_tpuinfo.so not found "
+            "(no g++ to build native/ or pass --tpuinfo-lib); refusing to "
+            "publish without --runtime-probe or --allow-fake",
+            file=sys.stderr,
+        )
+        return 2
+
+    # The agent reads only Pods (to charge bound pods' claims into the CR);
+    # it never list/watches TpuNodeMetrics or Nodes, so its RBAC needs just
+    # pod reads + the tpunodemetrics write verbs.
+    cluster = _build_kube_cluster(kinds=("Pod",))
+    try:
+        runtime_fn = None
+        if args.runtime_probe:
+            from yoda_tpu_torch.agent.runtime import probe_devices
+
+            runtime_fn = probe_devices
+        libtpu_fn = None
+        if args.libtpu_metrics:
+            from yoda_tpu_torch.agent.tpu_metrics import query_hbm
+
+            addr = args.libtpu_metrics_addr
+            # duty_cycle: one extra unary RPC per scrape, consumed as the
+            # per-chip duty_cycle_pct CR field -> /metrics fleet gauge.
+            libtpu_fn = lambda: query_hbm(addr, duty_cycle=True)  # noqa: E731
+        agent = NativeTpuAgent(
+            cluster,
+            node_name,
+            lib=lib,
+            runtime_devices_fn=runtime_fn,
+            libtpu_query_fn=libtpu_fn,
+        )
+        # Synthetic fallback, used per-iteration only when neither the
+        # native library nor the runtime probe yields anything — real data
+        # always wins over fake.
+        fake = None
+        if args.allow_fake and lib is None:
+            from yoda_tpu_torch.agent.fake_publisher import FakeTpuAgent
+
+            fake = FakeTpuAgent(cluster)
+            fake.add_host(
+                node_name, generation=args.fake_generation, chips=args.fake_chips
+            )
+
+        _install_stop_handlers(stop)
+        print(
+            f"yoda-tpu-agent: publishing {node_name} every {args.interval_s}s "
+            f"(native={collection_source(lib) if lib else 'unavailable'}"
+            f" runtime-probe={'on' if runtime_fn else 'off'}"
+            f" libtpu-metrics={args.libtpu_metrics_addr if libtpu_fn else 'off'}"
+            f" fake-fallback={'on' if fake else 'off'})",
+            file=sys.stderr,
+        )
+        while not stop.is_set():
+            try:
+                published = agent.run_once()
+                if published is None and fake is not None:
+                    fake.publish_all()
+            except Exception as e:  # keep the DaemonSet loop alive across blips
+                print(f"yoda-tpu-agent: publish failed: {e}", file=sys.stderr)
+            stop.wait(args.interval_s)
+    finally:
+        cluster.stop()
+    return 0
 
 
 def _run_explain(argv: "list[str]") -> int:
@@ -1033,12 +1241,19 @@ def main(
         "without one) or 'cpu' (the host). Default: the config's "
         "kernel_platform, whose default 'auto' means the card",
     )
-    parser.add_argument(
+    fedg = parser.add_argument_group("federation")
+    fedg.add_argument(
         "--federate-url",
         action="append",
         default=None,
         metavar="NAME=URL",
-        help="federated mode (not ported yet: exits 2)",
+        help="add a secondary cluster front (repeatable): NAME labels the "
+        "cluster in metrics/logs, URL is its API server (authenticated "
+        "with the same YODA_KUBE_TOKEN/CA env as the home cluster). The "
+        "env-configured cluster becomes the HOME front; gangs the home "
+        "cluster cannot fit whole spill over to healthy secondaries, and "
+        "a partitioned or lost secondary degrades to local-only placement "
+        "instead of blocking the scheduler",
     )
     ha = parser.add_argument_group("leader election")
     ha.add_argument(
@@ -1051,11 +1266,49 @@ def main(
     ha.add_argument(
         "--lease-identity", default=None, help="defaults to $HOSTNAME"
     )
-    parser.add_argument(
+    agent = parser.add_argument_group("agent mode")
+    agent.add_argument(
         "--agent",
         action="store_true",
-        help="node-agent mode (not ported yet: exits 2)",
+        help="run the node-agent publisher loop instead of the scheduler",
     )
+    agent.add_argument("--node-name", default=None, help="defaults to $NODE_NAME")
+    agent.add_argument("--interval-s", type=float, default=10.0)
+    agent.add_argument(
+        "--tpuinfo-lib",
+        default=None,
+        help="path to libyoda_tpuinfo.so (default: $YODA_TPUINFO_SO, else "
+        "native/tpuinfo.cc built at first use into build/native/)",
+    )
+    agent.add_argument(
+        "--allow-fake",
+        action="store_true",
+        help="publish a synthetic host profile when no TPU reader is available",
+    )
+    agent.add_argument(
+        "--runtime-probe",
+        action="store_true",
+        help="overlay per-chip values read through a live TPU runtime onto "
+        "the native inventory (the CR's source field records what was "
+        "hardware-read); this package reads no TPU runtime, so the probe "
+        "finds no devices and the native inventory stands",
+    )
+    agent.add_argument(
+        "--libtpu-metrics",
+        action="store_true",
+        help="read per-chip HBM total/usage with a typed GetRuntimeMetric "
+        "query against the libtpu runtime-metrics gRPC service (the "
+        "tpu-info endpoint) and overlay it onto the CR; the service is "
+        "served by whichever process owns the chips, so this initializes "
+        "no runtime; falls back silently when the service is unreachable",
+    )
+    agent.add_argument(
+        "--libtpu-metrics-addr",
+        default="127.0.0.1:8431",
+        help="address of the libtpu runtime-metrics gRPC service",
+    )
+    agent.add_argument("--fake-generation", default="v5e")
+    agent.add_argument("--fake-chips", type=int, default=4)
     args = parser.parse_args(argv)
 
     if args.demo:
@@ -1065,11 +1318,9 @@ def main(
             verbosity=args.verbosity,
             platform=_DEVICE_PLATFORM[args.device] if args.device else "auto",
         )
-    unported = _unported_mode(args)
-    if unported is not None:
-        print(f"yoda-tpu-scheduler: {unported}", file=sys.stderr)
-        return 2
     stop = stop if stop is not None else threading.Event()
+    if args.agent:
+        return _run_agent(args, stop)
     return _run_scheduler(args, stop)
 
 

@@ -13,8 +13,9 @@ keys in ``eviction_blocked``) and the nomination status patch
 (``set_nominated_node``), and the watch-drop injection the reconciler's
 tests use (``suppress_kinds``), and the node-death helpers the health
 monitor's tests drive (``set_node_ready``, ``kill_node``, ``delete_node``),
-and the Events the recorder writes (``write_event`` / ``list_events``).
-Left out until a later slice: the staleness probe.
+and the Events the recorder writes (``write_event`` / ``list_events``),
+and the federation health monitor's signals (``last_event_age_s``, the
+age of the last delivered event, and ``probe``).
 """
 
 from __future__ import annotations
@@ -70,6 +71,10 @@ class FakeCluster:
         self._rv = 0
         # Pod keys whose eviction a PodDisruptionBudget would block (tests).
         self.eviction_blocked: set[str] = set()
+        # Monotonic instant of the last event DELIVERED to watchers (not
+        # suppressed ones): the cluster-side half of the watch staleness
+        # clock the federation health monitor reads.
+        self._last_emit_mono: float | None = None
         # Watch-drop injection (reconciler tests): events of these kinds
         # mutate the store but are NOT delivered to watchers — the store
         # (cluster truth) and the informer caches diverge exactly the way a
@@ -124,8 +129,25 @@ class FakeCluster:
     def _emit(self, event: Event) -> None:
         if event.kind in self.suppress_kinds:
             return  # injected watch drop: store updated, stream silent
+        self._last_emit_mono = time.monotonic()
         for fn in list(self._watchers):
             fn(event)
+
+    def last_event_age_s(self) -> "float | None":
+        """Seconds since an event was last delivered to watchers (None
+        before the first): the health monitor's watch-staleness signal."""
+        with self._lock:
+            if self._last_emit_mono is None:
+                return None
+            return max(time.monotonic() - self._last_emit_mono, 0.0)
+
+    def probe(self) -> None:
+        """Cheap liveness probe (federation health monitor): an in-memory
+        store is reachable by construction. Fault-injecting fronts
+        (testing.chaos.ChaosCluster) override this to raise while the
+        cluster is partitioned or lost."""
+        with self._lock:
+            pass
 
     # --- pods ---
 

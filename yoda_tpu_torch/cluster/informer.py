@@ -30,8 +30,8 @@ PersistentVolume or PodDisruptionBudget LIST succeeded (each turns its
 restricts a lane's snapshots (and so its resident arrays) to its
 partition, and a change to another lane's node does not re-stack it;
 ``pod_route_fn`` queues only the lane's routed pods, failing closed when
-the hook raises. Left out until a later slice: the watch-staleness clock,
-which the federation health monitor reads (ROADMAP item 9c).
+the hook raises; and the watch-staleness clock the federation health
+monitor reads (:meth:`InformerCache.last_event_age_s`, on ``mono_fn``).
 """
 
 from __future__ import annotations
@@ -85,6 +85,7 @@ class InformerCache:
         watches_pdbs: bool = False,
         staleness_s: float = 0.0,
         now_fn: Callable[[], float] = time.time,
+        mono_fn: Callable[[], float] = time.monotonic,
         node_filter_fn: "Callable[[str, TpuNodeMetrics], bool] | None" = None,
         pod_route_fn: "Callable[[PodSpec], bool] | None" = None,
     ) -> None:
@@ -124,6 +125,13 @@ class InformerCache:
         # full fleet, every matching pod (the unsharded behavior).
         self.node_filter_fn = node_filter_fn
         self.pod_route_fn = pod_route_fn
+        # Watch-stream staleness clock (federation health signal, also a
+        # stuck-watch debugging probe): the monotonic instant the last watch
+        # event of ANY kind reached this cache. Separate clock domain from
+        # now_fn — event age is a local liveness measure, never compared
+        # against agent-stamped wall timestamps.
+        self.mono_fn = mono_fn
+        self._last_event_mono: float | None = None
         # Node-health fence hook (yoda_tpu_torch/nodehealth): returns the
         # node names currently fenced from NEW placements; stamped onto
         # every snapshot (Snapshot.fenced) so the admission call sites veto
@@ -193,6 +201,7 @@ class InformerCache:
         is fully applied, outside the lock."""
         relevant_events: list[Event] = []
         with self._lock:
+            self._last_event_mono = self.mono_fn()
             self._batch_dirty = False
             self._batch_metrics = []
             self._batch_pending = []
@@ -510,6 +519,20 @@ class InformerCache:
         """One consistent copy under a single lock acquisition."""
         with self._lock:
             return dict(self._claimed_mib)
+
+    def last_event_age_s(self) -> "float | None":
+        """Seconds since the last watch event of any kind reached this
+        cache, or None before the first event (a stack built list-then-
+        watch replays existing objects, so None means the watch source
+        never delivered anything at all). The federation health monitor's
+        primary staleness signal — a partitioned API server goes silent
+        here long before a probe times out — and a probe for stuck watch
+        streams (climbing while the cluster churns = the watch is dead,
+        not the cluster quiet)."""
+        with self._lock:
+            if self._last_event_mono is None:
+                return None
+            return max(self.mono_fn() - self._last_event_mono, 0.0)
 
     def last_updated_map(self) -> dict[str, float]:
         """Live per-node metric timestamps — the freshness source for the

@@ -30,10 +30,10 @@ PersistentVolumes and PodDisruptionBudgets with resourceVersion resume,
 410 relists and "synced" sentinels; the pods/binding subresource,
 evictions, nomination patches, Events; ``remote_binds = True``, which
 turns the bind pipeline on under ``bind_pipeline: auto``), and
-``remove_watcher`` (a live shard resize retiring a lane). Left out until
-a later slice, with the federation health monitor that reads them
-(ROADMAP item 9c): ``last_event_age_s``, ``probe`` and the watch-failure
-count.
+``remove_watcher`` (a live shard resize retiring a lane), and the
+signals the federation health monitor reads: ``last_event_age_s`` (the
+age of the last applied watch event), ``probe`` (a one-item pod LIST)
+and ``consecutive_watch_failures``.
 """
 
 from __future__ import annotations
@@ -418,6 +418,13 @@ class KubeCluster:
         self._nodes: dict[str, K8sNode] = {}
         self._nss: dict[str, K8sNamespace] = {}
         self._pvcs: dict[str, K8sPvc] = {}
+        # Watch-health signals for the federation monitor: when the last
+        # event was applied (staleness clock) and how many consecutive
+        # watch-loop failures have occurred since the last successful
+        # LIST (reset there) — a climbing count with a climbing event age
+        # is a partitioned or dying API server, not a quiet cluster.
+        self._last_event_mono: float | None = None
+        self.consecutive_watch_failures = 0
         self._pdbs: dict[str, K8sPdb] = {}
         self._pvs: dict[str, K8sPv] = {}
         self._rvs: dict[tuple[str, str], str] = {}  # (kind, key) -> resourceVersion
@@ -590,6 +597,7 @@ class KubeCluster:
         while not self._stop.is_set():
             try:
                 rv = self._list_rv(target)
+                self.consecutive_watch_failures = 0
                 target.listed.set()
                 target.synced.set()
                 if target.sentinel:
@@ -631,6 +639,7 @@ class KubeCluster:
             except Exception as e:
                 if self._stop.is_set():
                     return
+                self.consecutive_watch_failures += 1
                 if isinstance(e, KubeApiError) and e.status == 410:
                     # Resume window gone (the server answered the watch
                     # request itself with 410, not an in-band ERROR event):
@@ -767,6 +776,7 @@ class KubeCluster:
         # Callers hold self._lock (RLock) so store mutation + delivery are
         # atomic w.r.t. add_watcher replay, as in FakeCluster._emit.
         with self._lock:
+            self._last_event_mono = time.monotonic()
             for fn, _ in list(self._watchers):
                 fn(event)
 
@@ -776,12 +786,31 @@ class KubeCluster:
         if not events:
             return
         with self._lock:
+            self._last_event_mono = time.monotonic()
             for fn, batch_fn in list(self._watchers):
                 if batch_fn is not None:
                     batch_fn(events)
                 else:
                     for event in events:
                         fn(event)
+
+    def last_event_age_s(self) -> "float | None":
+        """Seconds since the last watch event was applied (None before the
+        first): the federation health monitor's watch-staleness signal,
+        mirroring FakeCluster.last_event_age_s."""
+        with self._lock:
+            if self._last_event_mono is None:
+                return None
+            return max(time.monotonic() - self._last_event_mono, 0.0)
+
+    def probe(self) -> None:
+        """One cheap authenticated round trip against the API server (the
+        federation health monitor's probe): a single-item pod LIST, so RBAC
+        already granted for the watch covers it. Raises on failure — the
+        monitor classifies the exception with cluster.retry's rules
+        (timeouts/5xx = connectivity loss driving PARTITIONED/LOST; other
+        API errors = reachable-but-broken, pinning DEGRADED)."""
+        self.api.request("GET", PODS_PATH, params={"limit": "1"})
 
     # --- FakeCluster surface: pods ---
 

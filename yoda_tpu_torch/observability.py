@@ -36,10 +36,11 @@ parks and the per-tenant quotas alike. The ``yoda_commit_rpc_*``
 families are fed by the commit RPC server of process-mode lanes
 (``framework/procserve.py``: calls and latency per op and transport,
 refused commits per lane) and ``yoda_standby_lag_frames`` by the tailing
-standby (``journal/tail.py``). Families whose source the port does not
-have yet register all the same and read 0: ``yoda_cluster_state``,
+standby (``journal/tail.py``). ``yoda_cluster_state``,
 ``yoda_cluster_transitions_total`` and ``yoda_spillover_gangs_total``
-(federation, item 9c). ``yoda_shard_commit_rollbacks_total`` is fed by a
+are fed by the federation (``federation/``, over the members' shared
+registry: each member's health state and transitions, each gang migrated
+whole). ``yoda_shard_commit_rollbacks_total`` is fed by a
 scheduler lane's lost gang commits and ``yoda_commit_term`` by a replayed
 journal's term (``standalone.build_stack``); the per-lane gauges and the
 ``yoda_shard_commit_*`` and ``yoda_journal_*`` counters are registered

@@ -90,15 +90,22 @@ a CUDA context of its own) that reach the accountant through the commit
 RPC; ``commit_listen`` and ``commit_endpoint`` are read by the CLI, which
 wires the RPC server and the tailing standby.
 ``build_profile_stacks`` builds one stack per scheduler profile over one
-accountant, one cycle lock and one metrics registry.
+accountant, one cycle lock and one metrics registry. ``build_federation``
+builds a ``federation.Federation``: one whole stack per cluster front over
+one shared metrics registry (each on the card unless ``kernel_platform:
+cpu``), each front watched by a ``ClusterHealthMonitor`` fed by the
+front's ``probe`` and its informer's ``last_event_age_s``, with the
+``federation_*`` knobs as the reference reads them.
 
 A knob of a part this port does not have yet loads
 (``config.SchedulerConfig`` keeps every knob of the reference), but
 ``build_stack`` raises ``NotImplementedError`` naming it and the ROADMAP
 item it waits for when it is set away from its default — except to the
 value that turns the part off, which is what this port already does
-(``UNPORTED_KNOB_VALUES``). That part is federation (``federation_*``;
-item 9c).
+(``UNPORTED_KNOB_VALUES``). The one such knob left is
+``kernel_device_min_elems``, the reference's host-or-device cut-off under
+``kernel_platform: auto`` (B7 in ROADMAP queue 2), which the port's "auto"
+(the card, or raise) does not read.
 Where the default turns such a part ON (the reference builds it),
 ``build_stack`` logs one warning naming every such part and lists them in
 ``Stack.not_built``; with every part of the default configuration ported,
@@ -222,18 +229,19 @@ PORTED_KNOBS = frozenset(
         "commit_listen",
         "commit_endpoint",
         "profiles",
+        "federation_degraded_after_s",
+        "federation_partitioned_after_s",
+        "federation_lost_after_s",
+        "federation_probe_period_s",
+        "federation_spillover",
     }
 )
 
 # The ROADMAP item each knob of a part this port does not have yet waits
-# for; ``build_stack`` names it when such a knob is set.
-LATER_ITEMS = {
-    "federation_degraded_after_s": "9c",
-    "federation_partitioned_after_s": "9c",
-    "federation_lost_after_s": "9c",
-    "federation_probe_period_s": "9c",
-    "federation_spillover": "9c",
-}
+# for; ``build_stack`` names it when such a knob is set. Every queue-1 item
+# with a knob is ported (``kernel_device_min_elems`` waits for a
+# measurement, not a module, and is named without one).
+LATER_ITEMS: "dict[str, str]" = {}
 
 # Every other knob belongs to a part this port does not have yet; it must
 # keep its default or take one of these values, each of which switches
@@ -733,6 +741,9 @@ def build_stack(
         watches_pvs=hasattr(cluster, "put_pv"),
         watches_pdbs=hasattr(cluster, "put_pdb"),
         staleness_s=config.max_metrics_age_s,
+        # The watch-staleness clock (last_event_age_s) runs on the stack's
+        # scheduling clock so held-clock drives can advance it.
+        mono_fn=clock,
         # Scheduler lanes: partition-restricted snapshots + one-queue pod
         # routing (both None on unsharded stacks).
         node_filter_fn=node_filter_fn,
@@ -1426,6 +1437,68 @@ def apply_reloadable(stacks: "list[Stack]", config: SchedulerConfig) -> None:
                 size=config.spec_cache_size,
                 shapes_max=config.spec_shapes_max,
             )
+
+
+def build_federation(
+    clusters: "list[tuple[str, object]]",
+    config: SchedulerConfig | None = None,
+    *,
+    clock=time.monotonic,
+    stop_event: "threading.Event | None" = None,
+):
+    """Assemble a federated multi-cluster scheduler: one fully-wired stack
+    per cluster front (own informer, accountant, gang plugin, and warm-start
+    reconciler — cluster capacity is disjoint, so only the metrics
+    registry is shared), each front watched by a health monitor fed from
+    the cluster's probe surface and the informer's watch-staleness clock.
+    ``clusters`` is ordered (name, cluster) pairs; the FIRST entry is the
+    HOME cluster — the front workloads arrive on, and the one spillover
+    migrates gangs off when it cannot fit them whole. Every member stack
+    evaluates on the card unless ``config.kernel_platform`` is "cpu"
+    ("auto", the default, raises without one). Each stack is built through
+    this module's ``build_stack`` attribute, so a caller's patch of it
+    applies to every member.
+
+    The returned ``Federation`` owns per-member fencing (health + resync
+    gate + leader gate) and the background control loop
+    (``Federation.run_forever``); member serve loops start fenced and open
+    once the first health pass completes their warm-start resync."""
+    from yoda_tpu_torch.federation import (
+        ClusterHealthMonitor,
+        Federation,
+        FederationMember,
+    )
+
+    config = config or SchedulerConfig()
+    shared_metrics = _metrics_from_config(config, clock)
+    members: list[FederationMember] = []
+    for name, cluster in clusters:
+        stack = build_stack(
+            cluster=cluster,
+            config=config,
+            metrics=shared_metrics,
+            clock=clock,
+            stop_event=stop_event,
+        )
+        health = ClusterHealthMonitor(
+            name,
+            # Probe the cluster front when it offers one (KubeCluster /
+            # FakeCluster / ChaosCluster all do); a front without a probe
+            # is judged on watch staleness alone.
+            probe_fn=getattr(cluster, "probe", None),
+            staleness_fn=stack.informer.last_event_age_s,
+            degraded_after_s=config.federation_degraded_after_s,
+            partitioned_after_s=config.federation_partitioned_after_s,
+            lost_after_s=config.federation_lost_after_s,
+            clock=clock,
+        )
+        members.append(FederationMember(name, cluster, stack, health))
+    return Federation(
+        members,
+        metrics=shared_metrics,
+        spillover=config.federation_spillover,
+        clock=clock,
+    )
 
 
 @dataclass

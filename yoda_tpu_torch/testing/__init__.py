@@ -7,12 +7,12 @@ HTTP server speaking the subset of the Kubernetes API the scheduler uses
 driven without a cluster — the single-process analog of the "kind cluster +
 fake TPU metrics DaemonSet" harness.
 
-Counterpart of ``yoda_tpu/testing``: ``FakeKubeApiServer`` and
+Counterpart of ``yoda_tpu/testing``, whole: ``FakeKubeApiServer`` and
 ``wait_until``, on the standard library only, and the modules
-``chaos`` (the fault-injection harness) and ``tracegen`` (seeded traces
-and their replay through a whole stack). Left out until a later slice:
-the fake libtpu metrics service (``fake_libtpu``), which serves the
-agents' metrics reader (ROADMAP item 11).
+``chaos`` (the fault-injection harness), ``tracegen`` (seeded traces
+and their replay through a whole stack) and ``fake_libtpu`` (the libtpu
+runtime-metrics gRPC service the native agent's ``--libtpu-metrics``
+overlay reads).
 """
 
 import time

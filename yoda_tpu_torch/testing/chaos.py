@@ -66,9 +66,8 @@ fault raises out of the batch plugin's evaluation (counted in
 another backend. :class:`DriveWorker` takes a ``device`` (a
 ``kernel_platform`` value: "auto", the default, is the card and raises
 without one; "cpu" is how a caller asks for the host) and spawns the
-port's worker entry with it. ``ChaosCluster.probe`` reaches
-the inner cluster's ``probe`` only where it has one (the federation
-health monitor's, item 9c).
+port's worker entry with it. ``ChaosCluster.probe`` (the federation
+health monitor's) reaches the inner cluster's ``probe`` where it has one.
 """
 
 from __future__ import annotations

@@ -41,9 +41,9 @@ gang-dispatch and joint-dispatch (around the card's ``fleet_eval`` and
 ``joint_fit`` launches), bind and unbind (on whichever thread runs them),
 gang release and rollback, and the rebalancer's and repair's spans.
 A scheduler lane's cycle spans carry its ``shard`` and a lost gang
-commit lands as ``shard-commit-conflict`` on the gang's trace; spans of
-parts the port does not have yet (federation spillover) are never
-emitted.
+commit lands as ``shard-commit-conflict`` on the gang's trace; a gang
+the federation migrates gets a ``spillover`` span on the ``federation``
+track, under the trace its home cycles recorded.
 """
 
 from __future__ import annotations
