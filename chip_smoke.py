@@ -231,9 +231,9 @@ Phases, each of which makes the script exit non-zero when it fails:
        serve of run (a)'s pods, then 3 s more: the ``total`` p50/p99,
        every evaluation's signals, each transition and the seconds at
        each level;
-   and tracing's cost, card only, reported: run (b) in two alternating
-   pairs (cut from five), ``trace_sample_rate`` 1.0 then 0, with each side's median
-   pods/s and p99 and their ranges. Every ``fleet_eval`` and
+   and tracing's cost, card only, reported: run (b) in one pair (cut from
+   five, then two), ``trace_sample_rate`` 1.0 then 0, with each side's
+   pods/s and p99. Every ``fleet_eval`` and
    ``joint_fit`` call of run (j) is held against its plain version, and
    the launches held must equal the module's counts, part by part.
    Then run (k), the stack the shipped ConfigMap describes
@@ -322,7 +322,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    Then run (m), loop mode (``mode: loop``: the per-node plugins on the
    host; ``run_loop``, ``LOOP_FULL``; the tests run ``LOOP_SMALL``) on the
    5,000-node fleet:
-   (m1) run (a)'s 64 singletons, each created in a loop-mode stack and in
+   (m1) run (a)'s first 32 singletons (cut from 64), each created in a
+       loop-mode stack and in
        a default stack on the card over the same fleet and scheduled there
        at K = 1 (one pop, one cycle): every outcome and node must agree, as
        tests/test_ops.py's ``test_batch_and_loop_agree`` asserts on the CPU,
@@ -373,7 +374,8 @@ Phases, each of which makes the script exit non-zero when it fails:
        clock over the same pods, wave after wave (the first wave only at
        the full size), at a 15 s Permit timeout
        (``O2_PERMIT_TIMEOUT_S``), under a profiler window
-       (CUDA activity): every pod bound, gangs whole, no host over its
+       (CUDA activity): every pod bound (a wave is done once every pod is
+       bound and no claim is left staged), gangs whole, no host over its
        chips, no pod bound twice, the accountant's claims exactly the
        bound pods. Reported (at the tests' small size beside a one-stack
        run of the same script and the same run with the journal off, both
@@ -422,8 +424,8 @@ Phases, each of which makes the script exit non-zero when it fails:
        p99 by op, ``os.cpu_count()``;
    (p2) ``python -m yoda_tpu_torch.cli`` with ``shard_count`` 4,
        ``shard_mode: process`` and the journal over run (l)'s API server
-       process: run (c)'s two gang waves with 128 of run (b)'s singletons
-       (cut from 256) split over them; the worker of lane s0 gets SIGKILL
+       process: run (c)'s two gang waves with 64 of run (b)'s singletons
+       (cut from 256, then 128) split over them; the worker of lane s0 gets SIGKILL
        once half of wave 1 is bound and every worker has run a cycle. Gates: every pod bound, gangs whole on valid blocks, no
        host over its chips, no second bind refused (409), ``/debug/shards``
        showing 4 workers alive and lane s0 restarted once, no staged
@@ -434,7 +436,7 @@ Phases, each of which makes the script exit non-zero when it fails:
    (p3) a ``--leader-elect`` leader CLI with 2 process lanes and
        ``commit_listen`` on a loopback port, and a standby CLI with
        ``commit_endpoint`` pointing at it, in one process; the leader
-       binds 64 of 128 singletons, the standby's
+       binds 32 of 64 singletons (cut from 64 of 128), the standby's
        ``yoda_standby_lag_frames`` reads 0, the leader is stopped: the
        standby promotes its tailed mirror warm (the leader's claims) at
        the old term + 1, the term bump first among its new frames, and
@@ -518,13 +520,54 @@ Phases, each of which makes the script exit non-zero when it fails:
        agent's next ``run_once`` charges its bound pods' HBM (the row
        updates); 256 more bind. CRs (timestamps masked) and bindings equal
        to the CPU run.
+   Last, run (s), the degraded-mode dispatch chain on the 5,000-node
+   fleet at default settings (``FALLBACK_FULL``; the tests run
+   ``FALLBACK_SMALL``), faults injected through the port's
+   ``testing.chaos`` (``install_chaos_kernel``; the fused plan through the
+   script's ``install_plan_fault``). The port demotes only a primary on
+   the host, so the chain runs on ``kernel_platform: cpu`` stacks
+   (``run_fallback``), every demoted call kept, and the card's stacks are
+   shown not to demote (``run_card_faults``):
+   (s1) one-shot faults, each installed alone and removed after: 16 run
+       (a) singletons at ``batch_requests`` 1, a K = 16 burst of run (b)'s
+       pods and a joint pass of two plain gangs of 16 x 8 v5e chips (the
+       fused plan; one gang alone takes the split pass) at
+       ``batch_requests`` 16, each after 8 warm-up singletons: each fault
+       served at level 1 (the plain version on a host copy) in its cycle,
+       the pin back at 0 and the primary serving the next dispatch;
+   (s2) a persistent fault (``count`` 100): three singletons pin level 1,
+       the plan's invocations stop, ``/metrics`` renders
+       ``yoda_dispatch_backend_level 1`` and the fallbacks, 64 singletons
+       bind at level 1; level 1 wrapped in a ``ChaosKernel`` too, 16
+       singletons pin level 2 (the numpy evaluator) and two plain gangs
+       bind there;
+   (s3) each demoted call again on the card's hand kernels on its own
+       inputs and rows: all six result rows, picks and fits equal
+       (tolerance 0); ms per call of levels 0, 1 and 2 on a K = 1 and a
+       K = 16 input of the run;
+   (s4) (s1)'s one-shot faults and a persistent fault over three
+       singletons on card stacks: every fault counted in
+       ``dispatch_errors`` and re-raised, nothing demoted, no pin, no host
+       level built, ``/metrics`` at level 0 with no fallback; the K = 1
+       pod's cycle ends in error, a failed burst or joint pre-evaluation
+       leaves its pods to their own dispatches on the card; every pod
+       binds on the card after its retry, and two more plain gangs take
+       the fused plan on the card.
+   Every other phase must leave every batch plugin's
+   ``dispatch_errors``, ``dispatch_fallbacks`` and ``backend_level`` at 0
+   (``DispatchWatch`` over every dispatch of this process, and each run's
+   own records; (p1)'s workers and (r1)'s member stacks report theirs).
+   Run (s) comes last, and lifts the bound its level-1 kernels put on
+   torch's intra-op pool when it ends.
 4. One line {"kernels": [...]} with each kernel's launches over every run
-   above (runs (h)'s, (i)'s, (j)'s, (k)'s, (l)'s, (o)'s, (q)'s and (r)'s
-   also by part, run (r)'s by member stack, run (o)'s by lane, run (p1)'s
-   by worker process, and the
+   above (runs (h)'s, (i)'s, (j)'s, (k)'s, (l)'s, (o)'s, (q)'s, (r)'s and
+   (s)'s also by part or apart, run (r)'s by member stack, run (o)'s by
+   lane, run (p1)'s by worker process, and the
    speculation thread's apart; the shard entry's from run (n2)), its
    largest difference from the plain version and its times ("not
-   measured" where the profiler saw no device activity).
+   measured" where the profiler saw no device activity); ``fleet_eval``'s
+   also run (s)'s demoted calls, their largest difference from the hand
+   kernels and ms per dispatch by level.
    Before it, one line of each phase's wall seconds.
 
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -1121,7 +1164,7 @@ def run_main_path(platform: str, pods_a, pods_b) -> dict:
             bound=sum(v is not None for v in bound.values()), bindings=bound,
             overcommitted=over, launches=launches,
             dispatch_count=b.dispatch_count, burst_dispatches=b.burst_dispatches,
-            burst_served=b.burst_served, dispatch_errors=b.dispatch_errors,
+            burst_served=b.burst_served, **dispatch_health(b),
             **resident_counts(b),
             wall_s=wall, eval_s=sum(eval_s),
             eval_ms_per_call=1e3 * sum(eval_s) / max(len(eval_s), 1),
@@ -1199,6 +1242,69 @@ def resident_counts(b) -> dict:
         admission_rebuilds=b.admission_rebuilds,
         first_restack_ms=r.last_restack_ms if r.restacks == 1 else None,
     )
+
+
+def dispatch_health(b) -> dict:
+    """A batch plugin's dispatch chain counters: exceptions caught,
+    dispatches completed on a demoted level and the circuit breaker's pin.
+    Every run but (s) must read 0 in all three."""
+    return dict(dispatch_errors=b.dispatch_errors, dispatch_fallbacks=b.dispatch_fallbacks,
+                backend_level=b.backend_level)
+
+
+def stack_dispatch(stack) -> dict:
+    """:func:`dispatch_health` over a stack's batch plugins (either
+    package's stack; none in loop mode)."""
+    rows = [dispatch_health(p) for p in stack.framework.batch_plugins]
+    return dict(dispatch_errors=sum(r["dispatch_errors"] for r in rows),
+                dispatch_fallbacks=sum(r["dispatch_fallbacks"] for r in rows),
+                backend_level=max((r["backend_level"] for r in rows), default=0))
+
+
+def demoted(r: dict) -> str:
+    """What a record's dispatch chain counters say went wrong ("" when all
+    three are 0)."""
+    keys = ("dispatch_errors", "dispatch_fallbacks", "backend_level")
+    return ", ".join(f"{k} {r[k]}" for k in keys if r.get(k))
+
+
+class DispatchWatch:
+    """While installed, every batch plugin dispatch in this process is
+    watched (``YodaBatch._dispatch`` wrapped): the exceptions it caught,
+    the dispatches it completed on a demoted level and the highest circuit
+    breaker pin, over every plugin, whichever run built it. ``main``
+    requires all three to stay 0 through every phase before run (s); (p1)'s
+    worker processes report theirs."""
+
+    def install(self) -> "DispatchWatch":
+        from yoda_tpu_torch.plugins.yoda.batch import YodaBatch
+
+        self.cls, self.real = YodaBatch, YodaBatch._dispatch
+        self.lock = threading.Lock()
+        self.counts = dict(dispatch_errors=0, dispatch_fallbacks=0, backend_level=0)
+        real, watch = self.real, self
+
+        def _dispatch(plugin, static, call):
+            errors, fallbacks = plugin.dispatch_errors, plugin.dispatch_fallbacks
+            try:
+                return real(plugin, static, call)
+            finally:
+                with watch.lock:
+                    c = watch.counts
+                    c["dispatch_errors"] += plugin.dispatch_errors - errors
+                    c["dispatch_fallbacks"] += plugin.dispatch_fallbacks - fallbacks
+                    c["backend_level"] = max(c["backend_level"], plugin.backend_level)
+
+        YodaBatch._dispatch = _dispatch
+        return self
+
+    def restore(self) -> None:
+        self.cls._dispatch = self.real
+
+    def check(self, what: str) -> None:
+        bad = demoted(self.counts)
+        if bad:
+            raise AssertionError(f"{what}: a dispatch demoted outside run (s): {bad}")
 
 
 def gang_script(seed: int, *, plain: int = 8, plain_size: int = 16,
@@ -1356,7 +1462,8 @@ def run_gang_path(platform: str, run: str) -> dict:
 GANG_COUNTERS = (
     "dispatch_count", "burst_dispatches", "burst_served", "gang_burst_dispatches",
     "gang_burst_served", "joint_dispatches", "joint_gangs", "joint_parked",
-    "fused_plan_dispatches", "plan_served", "dispatch_errors",
+    "fused_plan_dispatches", "plan_served", "dispatch_errors", "dispatch_fallbacks",
+    "backend_level",
 )
 
 
@@ -1437,8 +1544,8 @@ def check_gang_run(g: dict, c: dict) -> None:
         )
     if g["overcommitted"]:
         raise AssertionError(f"run {run}: over-committed {g['overcommitted']}")
-    if g["dispatch_errors"]:
-        raise AssertionError(f"run {run}: {g['dispatch_errors']} dispatch errors")
+    if demoted(g):
+        raise AssertionError(f"run {run}: {demoted(g)}")
     if g["waiting"]:
         raise AssertionError(f"run {run}: {g['waiting']} pods left at Permit")
     for name, v in g["verdicts"].items():
@@ -1528,8 +1635,8 @@ def phase_main_path(smi: str) -> dict:
             raise AssertionError(f"run {run}: {g['bound']}/{g['pods']} pods bound")
         if g["overcommitted"]:
             raise AssertionError(f"run {run}: over-committed {g['overcommitted']}")
-        if g["dispatch_errors"]:
-            raise AssertionError(f"run {run}: {g['dispatch_errors']} dispatch errors")
+        if demoted(g):
+            raise AssertionError(f"run {run}: {demoted(g)}")
         if not 0 < g["launches"] == g["dispatch_count"]:
             raise AssertionError(
                 f"run {run}: {g['launches']} kernel launches for "
@@ -1811,7 +1918,7 @@ def run_churn(platform: str, pods, *, classic: bool = False) -> dict:
         dispatch_count=b.dispatch_count, burst_dispatches=b.burst_dispatches,
         burst_served=b.burst_served, burst_invalidated=b.burst_invalidated,
         sets_retained=b.sets_retained, restacks=b.restacks,
-        dispatch_errors=b.dispatch_errors,
+        **dispatch_health(b),
         admission_reuse=b.admission_reuse, admission_patched=b.admission_patched,
         admission_rebuilds=b.admission_rebuilds,
         wall_s=wall, pods_per_s=len(lat) / wall if wall else 0.0,
@@ -1864,8 +1971,8 @@ def check_churn(g: dict, c: dict) -> None:
                 f"{name}: sets_retained {run['sets_retained']}, burst_invalidated "
                 f"{run['burst_invalidated']} (want both branches of _retain_set)"
             )
-        if run["dispatch_errors"]:
-            raise AssertionError(f"{name}: {run['dispatch_errors']} dispatch errors")
+        if demoted(run):
+            raise AssertionError(f"{name}: {demoted(run)}")
         if not run["resident_equals_cold"]:
             raise AssertionError(f"{name}: resident tensors != cold put_static")
     if not 0 < g["launches"] == g["dispatch_count"]:
@@ -2033,9 +2140,9 @@ def check_preemption(g: dict, c: dict) -> None:
         name = f"run f ({run['platform']})"
         if run["overcommitted"]:
             raise AssertionError(f"{name}: over-committed {run['overcommitted']}")
-        if run["waiting"] or run["dispatch_errors"]:
+        if run["waiting"] or demoted(run):
             raise AssertionError(f"{name}: {run['waiting']} left at Permit, "
-                                 f"{run['dispatch_errors']} dispatch errors")
+                                 f"{demoted(run)}")
         if run["wave2_bound"] != 48:
             raise AssertionError(f"{name}: {run['wave2_bound']}/48 wave-2 pods bound")
         if run["preempted_total"] != len(run["evicted"]) or not run["evicted"]:
@@ -2481,8 +2588,8 @@ def check_affinity_run(run: dict, size: dict) -> None:
     failures = []
     if run["overcommitted"]:
         failures.append(f"over-committed {run['overcommitted']}")
-    if run["waiting"] or run["dispatch_errors"]:
-        failures.append(f"{run['waiting']} left at Permit, {run['dispatch_errors']} errors")
+    if run["waiting"] or demoted(run):
+        failures.append(f"{run['waiting']} left at Permit, {demoted(run)}")
     if c["wave1_unbound"]:
         failures.append(f"wave 1 left unbound: {c['wave1_unbound']}")
     if not c["serve_hosts_distinct"] or c["serve_skew"] > 1:
@@ -2589,7 +2696,7 @@ def run_wide_fleet(platform: str, burst: int) -> dict:
         platform=platform, burst=burst, chip_bucket=int(b._static.hbm_free_mib.shape[1]),
         bindings=bindings_of(stack, [n for n, _ in pods]),
         launches=cuda_kernel.launches, dispatch_count=b.dispatch_count,
-        dispatch_errors=b.dispatch_errors,
+        **dispatch_health(b),
     )
 
 
@@ -2607,10 +2714,10 @@ def phase_wide_fleet(smi: str) -> list[dict]:
             raise AssertionError(f"wide fleet: {len(diff)} pods bound differently, e.g. {diff[:3]}")
         if g["chip_bucket"] != 64 or not 0 < bound < len(g["bindings"]):
             raise AssertionError(f"wide fleet: bucket {g['chip_bucket']}, {bound} bound")
-        if g["dispatch_errors"] or not 0 < g["launches"] == g["dispatch_count"]:
+        if demoted(g) or not 0 < g["launches"] == g["dispatch_count"]:
             raise AssertionError(
                 f"wide fleet: {g['launches']} launches for {g['dispatch_count']} "
-                f"dispatches, {g['dispatch_errors']} errors"
+                f"dispatches, {demoted(g)}"
             )
         if c["launches"]:
             raise AssertionError("wide fleet: the CPU run launched the kernel")
@@ -2899,7 +3006,7 @@ def run_speculation(platform: str, size: dict) -> dict:
         spec_row_updates=spec.kernel.row_updates,
         serve_launches=stack.batch._kern.launches,
         row_update_launches=kernel_mod.row_update_launches,
-        dispatch_count=stack.batch.dispatch_count, dispatch_errors=stack.batch.dispatch_errors,
+        dispatch_count=stack.batch.dispatch_count, **dispatch_health(stack.batch),
         spec_restacks=spec._fleet.restacks, spec_delta_syncs=spec._fleet.delta_syncs,
         overcommitted=over_capacity(stack), accounting_gap=accounting_gap(stack),
         speculate_ms_median=statistics.median(tick_ms),
@@ -3013,7 +3120,7 @@ def run_rebalance(platform: str, size: dict):
         unbinds=stack.binder.unbinds, launches=cuda_kernel.launches,
         joint_fit_launches=cuda_kernel.joint_fit_launches,
         row_update_launches=kernel_mod.row_update_launches,
-        dispatch_count=stack.batch.dispatch_count, dispatch_errors=stack.batch.dispatch_errors,
+        dispatch_count=stack.batch.dispatch_count, **dispatch_health(stack.batch),
         overcommitted=over_capacity(stack), accounting_gap=accounting_gap(stack),
         waiting=len(stack.framework.waiting_pods()),
     )
@@ -3233,7 +3340,7 @@ def run_threaded(platform: str, size: dict, spec_enabled: bool = True) -> dict:
         fused_plan_dispatches=stack.batch.fused_plan_dispatches,
         launches=cuda_kernel.launches, joint_fit_launches=cuda_kernel.joint_fit_launches,
         row_update_launches=kernel_mod.row_update_launches,
-        dispatch_errors=stack.batch.dispatch_errors,
+        **dispatch_health(stack.batch),
         overcommitted=over_capacity(stack), accounting_gap=accounting_gap(stack),
         wall_s=wall, pods_per_s=len(lat) / wall if wall else 0.0,
         p50_ms=pct_ms(lat, 0.5), p99_ms=pct_ms(lat, 0.99),
@@ -3274,8 +3381,8 @@ def check_background_run(run: dict, size: dict) -> None:
             raise AssertionError(f"{name} {part}: over capacity {r['overcommitted']}, "
                                  f"accounting != bound pods at {r['accounting_gap']}")
     h1, h2, h3, h4 = run["h1"], run["h2"], run["h3"], run["h4"]
-    if h1["dispatch_errors"] or any(v is None for v in h1["bindings"].values()):
-        raise AssertionError(f"{name} h1: unbound pods or dispatch errors")
+    if demoted(h1) or any(v is None for v in h1["bindings"].values()):
+        raise AssertionError(f"{name} h1: unbound pods or {demoted(h1)}")
     if not h1["stats"]["hits"] or h1["stats"]["ticks"] != size["waves"]:
         raise AssertionError(f"{name} h1: no speculative hit: {h1['stats']}")
     if h1["dispatch_count"] + h1["stats"]["hits"] != h1["pods"]:
@@ -3291,19 +3398,18 @@ def check_background_run(run: dict, size: dict) -> None:
         raise AssertionError(f"{name} h2: no preemption or no resize: {passes}")
     if passes[-1]["moves"] or passes[-1]["preempted"] or passes[-1]["resizes"]:
         raise AssertionError(f"{name} h2: the passes did not settle: {passes[-1]}")
-    if h2["waiting"] or h2["dispatch_errors"]:
-        raise AssertionError(f"{name} h2: {h2['waiting']} at Permit, "
-                             f"{h2['dispatch_errors']} dispatch errors")
+    if h2["waiting"] or demoted(h2):
+        raise AssertionError(f"{name} h2: {h2['waiting']} at Permit, {demoted(h2)}")
     if h3["resync"]["adopted_gangs"] != ["orphan"] or None in h3["orphan"].values():
         raise AssertionError(f"{name} h3: the half-bound gang: {h3['resync']}, {h3['orphan']}")
     d = h3["drift"]
     if (d["ghost_pods"], d["leaked_reservations"]) != (2, 1):
         raise AssertionError(f"{name} h3: drift report {d}")
     if h4 is not None:
-        if h4["alive"] or h4["errors"] or h4["dispatch_errors"] or h4["bad_plans"]:
+        if h4["alive"] or h4["errors"] or demoted(h4) or h4["bad_plans"]:
             raise AssertionError(
                 f"{name} h4: thread alive {h4['alive']}, errors {h4['errors']}, "
-                f"dispatch errors {h4['dispatch_errors']}, plans that do not admit "
+                f"dispatch chain {demoted(h4)}, plans that do not admit "
                 f"their pod {h4['bad_plans']}"
             )
         if h4["bound"] != h4["pods"] or set(h4["gangs"].values()) != {4}:
@@ -3747,7 +3853,7 @@ def run_nodehealth(platform: str, size: dict = NODEHEALTH_FULL) -> dict:
         },
         # The launches of the calls held against the plain versions.
         kept_launches=held["kept"], max_abs_err=held["max_abs_err"],
-        dispatch_errors=batch.dispatch_errors,
+        **dispatch_health(batch),
         dispatch_count=batch.dispatch_count, serve_s=serve_s,
         serve_pods_per_s=size["serve"] / serve_s if serve_s else 0.0,
         rebalance_ms=rebalance_ms, reopen_ms=reopen_ms, wall_s=wall,
@@ -3766,8 +3872,8 @@ def check_nodehealth_run(run: dict, size: dict) -> None:
     for key in ("violations", "split", "leaked", "overcommitted", "accounting_gap"):
         if run[key]:
             raise AssertionError(f"{name}: {key} {run[key]}")
-    if run["dispatch_errors"]:
-        raise AssertionError(f"{name}: {run['dispatch_errors']} dispatch errors")
+    if demoted(run):
+        raise AssertionError(f"{name}: {demoted(run)}")
     passes = {p["step"]: p for p in run["passes"]}
     empty = dict(patched=[], shrunk=[], requeued=[], deferred=[], singles=[],
                  durations_ms=[])
@@ -3913,9 +4019,9 @@ def check_threaded_nospec(run: dict) -> None:
     if run["overcommitted"] or run["accounting_gap"]:
         raise AssertionError(f"{name}: over capacity {run['overcommitted']}, "
                              f"accounting != bound pods at {run['accounting_gap']}")
-    if run["alive"] or run["errors"] or run["dispatch_errors"]:
+    if run["alive"] or run["errors"] or demoted(run):
         raise AssertionError(f"{name}: thread alive {run['alive']}, errors "
-                             f"{run['errors']}, dispatch errors {run['dispatch_errors']}")
+                             f"{run['errors']}, dispatch chain {demoted(run)}")
     if run["bound"] != run["pods"] or set(run["gangs"].values()) != {4}:
         raise AssertionError(f"{name}: {run['bound']}/{run['pods']} bound, gangs {run['gangs']}")
     if run["spec_launches"] or run["consumed"] or not run["serve_launches"]:
@@ -3956,7 +4062,7 @@ def phase_nodehealth(smi: str, rerun: CpuRerun) -> dict:
 
 # --- run (j): observability -------------------------------------------------
 
-OBSERVABILITY_FULL = dict(slices=512, v5e_hosts=2952, spot=320, prod=8, pairs=2,
+OBSERVABILITY_FULL = dict(slices=512, v5e_hosts=2952, spot=320, prod=8, pairs=1,
                           hold_s=3.0, scrapes=20)
 OBSERVABILITY_SMALL = dict(slices=32, v5e_hosts=160, spot=272, prod=4, pairs=1,
                            hold_s=1.2, scrapes=3)
@@ -4251,7 +4357,7 @@ def run_obs_serve(platform: str, size: dict, *, stepped: bool = True,
         bindings=bound, overcommitted=over_capacity(stack),
         accounting_gap=accounting_gap(stack),
         waiting=len(stack.framework.waiting_pods()),
-        dispatch_errors=stack.batch.dispatch_errors,
+        **dispatch_health(stack.batch),
         gangs={g: sum(bound[n] not in (None, "evicted") for n in names
                       if n.startswith(f"{g}-")) for g in gangs},
         **kept.errors(),
@@ -4369,7 +4475,7 @@ def run_obs_ladder(platform: str, size: dict) -> dict:
     return dict(
         platform=platform, steps=steps, pods=len(names),
         bindings=bindings_of(stack, names), overcommitted=over_capacity(stack),
-        accounting_gap=accounting_gap(stack), dispatch_errors=stack.batch.dispatch_errors,
+        accounting_gap=accounting_gap(stack), **dispatch_health(stack.batch),
         **kept.errors(),
     )
 
@@ -4514,10 +4620,10 @@ def check_observability_run(run: dict, size: dict) -> None:
     parts = [p for p in ("j1", "j1_wall", "j2", "j3", "cost") if p in run]
     for part in parts:
         r = run[part]
-        if r.get("overcommitted") or r.get("accounting_gap") or r.get("dispatch_errors"):
+        if r.get("overcommitted") or r.get("accounting_gap") or demoted(r):
             raise AssertionError(f"{name} {part}: over capacity {r.get('overcommitted')}, "
-                                 f"accounting {r.get('accounting_gap')}, dispatch errors "
-                                 f"{r.get('dispatch_errors')}")
+                                 f"accounting {r.get('accounting_gap')}, dispatch chain "
+                                 f"{demoted(r)}")
         if r["kept"] != r["launches"] or any(r["max_abs_err"].values()):
             raise AssertionError(f"{name} {part}: {r['kept']} launches held against the "
                                  f"plain versions of {r['launches']}, differences "
@@ -4963,7 +5069,7 @@ def run_tenancy_stepped(platform: str, size: dict, *, fairness: bool = True,
             quota_explain=quota_explain,
             overcommitted=over_capacity(stack), accounting_gap=accounting_gap(stack),
             split_gangs=gang_split(stack, flood + teams),
-            dispatch_errors=stack.batch.dispatch_errors, wall_s=wall,
+            **dispatch_health(stack.batch), wall_s=wall,
             **kept_counts(kept, rows),
         )
     finally:
@@ -5089,7 +5195,7 @@ def run_tenancy_wall(platform: str, size: dict) -> dict:
             scheduled_events_not_one=sorted(k for k in bound if scheduled.get(k) != 1),
             overcommitted=over_capacity(stack), accounting_gap=accounting_gap(stack),
             split_gangs=gang_split(stack, flood + teams),
-            dispatch_errors=stack.batch.dispatch_errors,
+            **dispatch_health(stack.batch),
             **kept_counts(kept, rows),
         )
     finally:
@@ -5128,11 +5234,10 @@ def check_tenancy_run(run: dict, size: dict) -> None:
     name = f"run k ({run['k1']['platform']})"
     for part in [p for p in ("k1", "k2", "k3", "k1_unfair") if p in run]:
         r = run[part]
-        if r["overcommitted"] or r["accounting_gap"] or r["dispatch_errors"] \
-                or r["split_gangs"]:
+        if r["overcommitted"] or r["accounting_gap"] or demoted(r) or r["split_gangs"]:
             raise AssertionError(f"{name} {part}: over capacity {r['overcommitted']}, "
-                                 f"accounting {r['accounting_gap']}, dispatch errors "
-                                 f"{r['dispatch_errors']}, split gangs {r['split_gangs']}")
+                                 f"accounting {r['accounting_gap']}, dispatch chain "
+                                 f"{demoted(r)}, split gangs {r['split_gangs']}")
         if r["kept"] != r["launches"] or any(r["max_abs_err"].values()):
             raise AssertionError(f"{name} {part}: {r['kept']} launches held against the "
                                  f"plain versions of {r['launches']}, differences "
@@ -6126,7 +6231,7 @@ def phase_process(smi: str, rerun: "SpawnedRerun", build_s: float) -> dict:
 # scores every node in host Python, so the depth is cut to keep the phase
 # near a minute on the card's host: (m2)'s plain gangs have 4 members
 # where run (c)'s have 16.
-LOOP_FULL = dict(slices=512, v5e_hosts=2952, singles=64, plain=4, plain_size=4,
+LOOP_FULL = dict(slices=512, v5e_hosts=2952, singles=32, plain=4, plain_size=4,
                  singles2=16)
 LOOP_SMALL = dict(slices=4, v5e_hosts=40, singles=16, plain=2, plain_size=4,
                   singles2=8)
@@ -7111,9 +7216,13 @@ def run_lanes_wall(platform: str, size: dict, *, shards: int, journal: bool,
             create_wave(cluster, wave)
             for n, _, _ in wave:
                 created[n] = t_wave
+            # Bound and committed: a gang whose commit conflicts with an
+            # earlier-staged claim of another lane is unbound after its
+            # binds landed, so nothing may stay staged around the check.
             wait_for(lambda w=wave: all(
-                cluster.get_pod(f"default/{n}").node_name for n, _, _ in w),
-                600.0, "every pod of the wave bound", poll_s=0.05)
+                cluster.get_pod(f"default/{n}").node_name for n, _, _ in w)
+                and g.accountant.staged_count() == 0,
+                600.0, "every pod of the wave bound and committed", poll_s=0.05)
         wall = time.monotonic() - t0
         if platform != "cpu":
             torch.cuda.synchronize()
@@ -7309,8 +7418,8 @@ PROC_SMALL = dict(slices=16, v5e_hosts=96, shards=2, singles_b=32, plain=2,
 # run (b)'s singletons (cut from 256 to hold the script's time); (p3):
 # the leader / tailing standby pair with ``failover`` singletons, the
 # leader stopped after half.
-PROC_WIRE_FULL = dict(slices=512, v5e_hosts=2952, shards=4, singles_b=128, script={},
-                      failover=128)
+PROC_WIRE_FULL = dict(slices=512, v5e_hosts=2952, shards=4, singles_b=64, script={},
+                      failover=64)
 PROC_WIRE_SMALL = dict(slices=16, v5e_hosts=96, shards=2, singles_b=16,
                        script=dict(plain=2, plain_size=4, cosched=2, topo=2, multi=1,
                                    singles=8), failover=16)
@@ -7413,7 +7522,8 @@ def spec_worker_entry(argv: "list[str]") -> int:
     ``fleet_eval`` / ``joint_fit`` launch kept (:class:`KeptKernels`, the
     counts zeroed as it installs) and the evaluation round trip timed; at
     exit it writes the launches, the launches held against the plain
-    versions with the largest difference, and ms per evaluation to OUT."""
+    versions with the largest difference, the dispatch chain's counters
+    (:class:`DispatchWatch`) and ms per evaluation to OUT."""
     spec_path, out_path, device = argv
     from yoda_tpu_torch.framework import procserve
     from yoda_tpu_torch.ops.kernel import TorchFleetKernel
@@ -7432,6 +7542,7 @@ def spec_worker_entry(argv: "list[str]") -> int:
 
     TorchFleetKernel.evaluate_burst = timed
     kept = KeptKernels() if device == "cuda" else None
+    watch = DispatchWatch().install()
     out = dict(pid=os.getpid(), device=device, rc=None)
     try:
         if kept is not None:
@@ -7439,6 +7550,7 @@ def spec_worker_entry(argv: "list[str]") -> int:
         try:
             out["rc"] = procserve._run_spec_worker(spec, device)
         finally:
+            out["dispatch"] = dict(watch.counts)
             if kept is not None:
                 kept.restore()
                 out["kernels"] = kept.errors()
@@ -7571,6 +7683,7 @@ def run_proc_spec(platform: str, size: dict, what: str = "p1") -> dict:
         pods_per_s=pods / slowest if slowest else 0.0,
         commit_rpc=rpc,
         kernels={lane: w.get("kernels") for lane, w in workers.items()},
+        dispatch={lane: w.get("dispatch") for lane, w in workers.items()},
     )
 
 
@@ -7624,7 +7737,8 @@ def check_proc_spec_run(run: dict, size: dict) -> None:
     """(p1)'s gates on one platform: every worker exited 0 and reported;
     every pod bound and committed, gangs whole, no host over its chips;
     no pod routed to the global lane (nothing serves it here); 0 staged
-    residue, 0 leaked chips and 0 commit conflicts at the parent."""
+    residue, 0 leaked chips and 0 commit conflicts at the parent; no
+    worker's dispatch caught an error or demoted."""
     n = size["shards"]
     if sorted(run["reports"]) != [f"s{i}" for i in range(n)]:
         raise AssertionError(f"(p1) reports from {sorted(run['reports'])}")
@@ -7637,6 +7751,9 @@ def check_proc_spec_run(run: dict, size: dict) -> None:
     for lane, r in run["reports"].items():
         if r["staged_residue"] or r["commit_conflicts"]:
             raise AssertionError(f"(p1) {lane} report: {r}")
+    for lane, d in run["dispatch"].items():
+        if d is None or demoted(d):
+            raise AssertionError(f"(p1) worker {lane} dispatch chain: {d}")
     if sum(r["pods"] for r in run["reports"].values()) != run["pods"]:
         raise AssertionError(f"(p1) reported pods {run['reports']} of {run['pods']}")
 
@@ -8920,6 +9037,7 @@ def run_federation_stepped(platform: str, size: dict, m: dict) -> dict:
                      if g in last_bind_at}
     ledger = gang_ledger(m, fed, gangs)
     member_launches = {member.name: kernel_counts(member.stack) for member in fed.members}
+    member_dispatch = {member.name: stack_dispatch(member.stack) for member in fed.members}
     devices = sorted({stack_device(member.stack) for member in fed.members})
     for member in fed.members:
         close_stack(member.stack)
@@ -8938,7 +9056,8 @@ def run_federation_stepped(platform: str, size: dict, m: dict) -> dict:
             first_bind is None or first_resync < first_bind),
         "remote_binds_after_heal": sum(1 for r in after if r[0] == "bind" and r[1] == "remote"),
         "health_ms": health_ms, "spillover_ms": spill_ms, "completion_ms": completion_ms,
-        "member_launches": member_launches, "devices": devices,
+        "member_launches": member_launches, "member_dispatch": member_dispatch,
+        "devices": devices,
         "nodes": {member.name: len(member.stack.informer.snapshot()) for member in fed.members},
         "build_s": build_s, "wall_s": wall_s,
     }
@@ -9182,7 +9301,7 @@ def check_federation_r1(r1: dict, size: dict) -> None:
     gang home that fits the secondary alone, the ladder walked to LOST and
     back, the rejoin resync releasing the dropped deletions before the
     secondary's first bind, every pod of the waves bound, nothing left at
-    Permit."""
+    Permit, no member stack's dispatch caught an error or demoted."""
     bad = []
     if r1["fenced_binds"]:
         bad.append(f"binds by a fenced member: {r1['fenced_binds'][:4]}")
@@ -9216,6 +9335,9 @@ def check_federation_r1(r1: dict, size: dict) -> None:
                      if v is None and k.startswith(("b-", "local-", "era-", "spod-")))
     if unbound:
         bad.append(f"singletons unbound: {unbound[:6]}")
+    for member, d in r1["member_dispatch"].items():
+        if demoted(d):
+            bad.append(f"member {member}'s dispatch chain: {demoted(d)}")
     if bad:
         raise AssertionError("run r1: " + "; ".join(bad))
 
@@ -9332,6 +9454,552 @@ def phase_federation(smi: str, rerun: "SpawnedRerun") -> dict:
     return g
 
 
+# --- run (s): the degraded-mode dispatch chain --------------------------------
+
+FALLBACK_FULL = dict(slices=512, v5e_hosts=2952, warm=8, singles=16, burst=16, gang=16,
+                     pinned=64, numpy=16, timing_calls=20)
+FALLBACK_SMALL = dict(slices=8, v5e_hosts=64, warm=8, singles=4, burst=8, gang=4,
+                      pinned=8, numpy=4, timing_calls=2)
+FALLBACK_PHASE = "fallback run (s)"  # the only phase that may demote a dispatch
+
+
+class LevelTap:
+    """A demoted level's kernel, wrapped for (s3): each evaluation's
+    inputs (copied as they were: the resident dynamics row is maintained
+    in place), the static rows that level held, its result and its wall ms
+    are kept; everything else passes through."""
+
+    def __init__(self, inner, level: int) -> None:
+        self._inner, self.level, self.calls = inner, level, []
+
+    def __getattr__(self, name: str):
+        attr = getattr(self._inner, name)
+        if not name.startswith("evaluate"):
+            return attr
+
+        def evaluate(*args):
+            import copy
+
+            kept = copy.deepcopy(args)
+            t = time.perf_counter()
+            out = attr(*args)
+            ms = 1e3 * (time.perf_counter() - t)
+            self.calls.append(dict(method=name, args=kept, static=self.static_rows(),
+                                   names=list(self._inner.names), out=out, ms=ms))
+            return out
+
+        return evaluate
+
+    def static_rows(self) -> tuple:
+        """The [9, C, N] chip grids and [4, N] node rows this level holds,
+        on the host: the plain version's own tensors (a re-put replaces
+        them, nothing writes them), the numpy evaluator's live arrays
+        copied."""
+        from types import SimpleNamespace
+
+        from yoda_tpu_torch.ops.kernel import stack_static
+
+        inner = self._inner
+        if self.level == 1:
+            return inner._chips, inner._nodes
+        chips, nodes = stack_static(SimpleNamespace(**inner._static))
+        return torch.from_numpy(chips), torch.from_numpy(nodes)
+
+
+def fleet_view(chips: torch.Tensor, nodes: torch.Tensor, names: list):
+    """What ``put_static`` reads (the static fields by name, flags as bool)
+    rebuilt from the device layout, so each level's kernel takes the rows
+    a demoted call evaluated against."""
+    from types import SimpleNamespace
+
+    from yoda_tpu_torch.ops import kernel as kernel_mod
+
+    fields = {k: chips[i].T.numpy() for i, k in enumerate(kernel_mod.CHIP_KEYS)}
+    fields.update({k: nodes[i].numpy() for i, k in enumerate(kernel_mod.STATIC_NODE_KEYS)})
+    for k in kernel_mod._BOOL_KEYS & fields.keys():
+        fields[k] = fields[k] != 0
+    return SimpleNamespace(names=names, **fields)
+
+
+def result_rows(out) -> list:
+    """A kernel entry point's result as a flat list of int arrays: every
+    result row (feasible, reasons, raw, final, claimable, best), and for a
+    fused plan the gangs' fits and picks."""
+    from yoda_tpu_torch.ops.kernel import KernelResult
+
+    if isinstance(out, KernelResult):
+        return [out.feasible.astype(np.int32), out.reasons, out.raw_scores, out.scores,
+                out.claimable, np.array([out.best_index])]
+    if isinstance(out, tuple):
+        grouped, fits, picks = out
+        return (result_rows(grouped) + [np.array(fits, dtype=np.int32)]
+                + [np.asarray(p) for p in picks])
+    return [row for item in out for row in result_rows(item)]
+
+
+def rows_err(got, want) -> int:
+    """Largest difference of two result_rows lists (-1 when their shapes
+    differ)."""
+    a, b = result_rows(got), result_rows(want)
+    if len(a) != len(b) or any(x.shape != y.shape for x, y in zip(a, b)):
+        return -1
+    return max((int(np.abs(x.astype(np.int64) - y).max()) for x, y in zip(a, b) if x.size),
+               default=0)
+
+
+def level_kernels(weights, view, device, levels=(0, 1, 2)) -> dict:
+    """The chain's levels over ``view``'s rows: 0 the primary on ``device``
+    (the hand kernels on the card), 1 the plain version on the host, 2 the
+    numpy evaluator."""
+    from yoda_tpu_torch.ops.kernel import NumpyFleetKernel, TorchFleetKernel
+
+    make = {0: lambda: TorchFleetKernel(weights, device),
+            1: lambda: TorchFleetKernel(weights, "cpu"), 2: lambda: NumpyFleetKernel(weights)}
+    out = {level: make[level]() for level in levels}
+    for kern in out.values():
+        kern.put_static(view)
+    return out
+
+
+def install_plan_fault(batch, plan):
+    """:func:`testing.chaos.install_chaos_kernel` with a wrapper whose fused
+    plan (``evaluate_joint_plan``) draws from ``plan`` too: the port's
+    ``ChaosKernel``, like the reference's, has no such method, so the fused
+    plain-gang pass cannot be faulted through it."""
+    from yoda_tpu_torch.testing.chaos import ChaosKernel
+
+    class PlanFault(ChaosKernel):
+        def evaluate_joint_plan(self, dyn, host_ok_groups, request_groups, minimum=1):
+            self._maybe_fail("plan")
+            return self._inner.evaluate_joint_plan(dyn, host_ok_groups, request_groups,
+                                                   minimum)
+
+    inner = batch._kern
+    batch._kern = PlanFault(inner, plan)
+    if batch._resident is not None and batch._resident.kern is inner:
+        batch._resident.kern = batch._kern
+    return batch._kern
+
+
+def uninstall_fault(batch, wrapped) -> None:
+    """Put the primary back where a fault wrapper took its place."""
+    batch._kern = wrapped._inner
+    if batch._resident is not None and batch._resident.kern is wrapped:
+        batch._resident.kern = wrapped._inner
+
+
+def fallback_gangs(prefix: str, size: dict, count: int = 2) -> list:
+    """``count`` plain gangs of ``size["gang"]`` v5e members x 8 chips: a
+    joint pass of them runs the fused plan."""
+    return [(f"{prefix}{g}-{i:02d}", {"tpu/gang": f"{prefix}{g}",
+                                       "tpu/gang-size": str(size["gang"]),
+                                       "tpu/chips": "8", "tpu/generation": "v5e"})
+            for g in range(count) for i in range(size["gang"])]
+
+
+def run_fallback(size: dict = FALLBACK_FULL, *, hold_on: "str | None" = None,
+                 reported: bool = True) -> dict:
+    """Run (s)'s chain half, the degraded-mode dispatch chain on stacks
+    whose primary is on the host (``kernel_platform: cpu``: the only
+    primary the port demotes) over the 5,000-node fleet at default
+    settings, with faults injected through the port's ``testing.chaos``;
+    every demoted call is kept (:class:`LevelTap`):
+    (s1) one-shot faults, each installed alone and then removed: 16 run (a)
+    singletons at ``batch_requests`` 1 (one stack), a K = 16 burst of run
+    (b)'s pods and a joint pass of two plain gangs of 16 x 8 v5e chips (the
+    fused plan, faulted by :func:`install_plan_fault`) at
+    ``batch_requests`` 16 (a second stack, warmed the same way): each fault
+    served at level 1 in its cycle, the pin back at 0, and the primary
+    serving again after it (a singleton; a joint pass of two more gangs);
+    (s2) a persistent fault (``count`` 100) on the second stack: three
+    singletons one at a time pin level 1, the plan's invocations stop,
+    ``/metrics`` shows the pin, 64 singletons bind at level 1; then level
+    1 wrapped in a ``ChaosKernel`` too: 16 singletons one at a time (the
+    third failure pins level 2) and two plain gangs bind at level 2;
+    (s3, with ``hold_on`` a card platform) each kept call again on the
+    hand kernels on the same inputs (all six rows, picks and fits;
+    tolerance 0), and, reported, ms per call of levels 0, 1 and 2 on a
+    K = 1 and a K = 16 input of the run.
+    The pool bound a level-1 kernel sets on torch's threads is lifted when
+    the run ends."""
+    from yoda_tpu_torch.api.types import PodSpec
+    from yoda_tpu_torch.testing.chaos import (
+        ChaosKernel,
+        ChaosPlan,
+        FaultSpec,
+        install_chaos_kernel,
+    )
+
+    threads = torch.get_num_threads()
+    pods_a, pods_b = fleet_and_pods(seed=0)
+    steps: list = []
+    bindings: dict = {}
+    taps: list = []
+
+    def drain(stack, pods, one_at_a_time: bool = False) -> None:
+        for group in ([[p] for p in pods] if one_at_a_time else [pods]):
+            for name, labels in group:
+                stack.cluster.create_pod(PodSpec(name, labels=dict(labels)))
+            stack.scheduler.run_until_idle(max_wall_s=600)
+        bindings.update(bindings_of(stack, [n for n, _ in pods]))
+
+    def step(stack, what: str, plan=None) -> dict:
+        b = stack.batch
+        row = dict(step=what, **dispatch_health(b),
+                   probes=plan.invocations("dispatch") if plan is not None else None,
+                   level1_calls=len(b._fb_kerns[1].calls)
+                   if isinstance(b._fb_kerns.get(1), LevelTap) else None)
+        steps.append(row)
+        return row
+
+    def warmed(burst: int, warm: list):
+        stack, _agent = build_fleet("cpu", burst, slices=size["slices"],
+                                    v5e_hosts=size["v5e_hosts"])
+        drain(stack, warm)
+        b = stack.batch
+        for level in (1, 2):  # built as the chain builds them, then tapped
+            b._kernel_at(level, b._static)
+            b._fb_kerns[level] = LevelTap(b._fb_kerns[level], level)
+            taps.append(b._fb_kerns[level])
+        return stack
+
+    wall0 = time.monotonic()
+    w, n1 = size["warm"], size["singles"]
+    one = warmed(1, pods_a[:w])
+    step(one, "warm K=1")
+    oneshot = ChaosPlan([FaultSpec("dispatch", 0, "error")])
+    wrapped = install_chaos_kernel(one.batch, oneshot)
+    drain(one, pods_a[w : w + n1])
+    step(one, "s1 singletons", oneshot)
+    uninstall_fault(one.batch, wrapped)
+    over = over_capacity(one)
+    close_stack(one)
+
+    burst = warmed(16, pods_a[w + n1 : 2 * w + n1])
+    b = burst.batch
+    step(burst, "warm K=16")
+    at = size["burst"]
+    # After each fault is removed the primary serves again (a singleton, a
+    # joint pass): the pin is back at 0 and the level's consecutive
+    # failures reset.
+    oneshot = ChaosPlan([FaultSpec("dispatch", 0, "error")])
+    wrapped = install_chaos_kernel(b, oneshot)
+    drain(burst, pods_b[:at])
+    step(burst, "s1 burst", oneshot)
+    uninstall_fault(b, wrapped)
+    drain(burst, pods_b[at : at + 1])
+    step(burst, "s1 burst, then the primary")
+    oneshot = ChaosPlan([FaultSpec("dispatch", 0, "error")])
+    wrapped = install_plan_fault(b, oneshot)
+    drain(burst, fallback_gangs("s1-plain", size))
+    step(burst, "s1 fused plan", oneshot)
+    uninstall_fault(b, wrapped)
+    drain(burst, fallback_gangs("s1-clean", size))  # the fused plan at level 0
+    step(burst, "s1 fused plan, then the primary")
+
+    at += 1
+    persistent = ChaosPlan([FaultSpec("dispatch", 0, "error", count=100)])
+    install_chaos_kernel(b, persistent)
+    drain(burst, pods_b[at : at + 3], one_at_a_time=True)
+    step(burst, "s2 pin level 1", persistent)
+    at += 3
+    pinned_metrics = {k: v for k, v in scrape_values(
+        burst.metrics.registry.render_prometheus()).items()
+        if k.startswith(("yoda_dispatch_backend_level", "yoda_dispatch_fallback_total"))}
+    drain(burst, pods_b[at : at + size["pinned"]])
+    step(burst, "s2 pinned", persistent)
+    at += size["pinned"]
+    level1 = ChaosPlan([FaultSpec("dispatch", 0, "error", count=100)])
+    b._fb_kerns[1] = ChaosKernel(b._fb_kerns[1], level1)
+    drain(burst, pods_b[at : at + size["numpy"]], one_at_a_time=True)
+    step(burst, "s2 level 2 singletons", level1)
+    drain(burst, fallback_gangs("s2-plain", size))
+    step(burst, "s2 level 2 fused plan", level1)
+    over += over_capacity(burst)
+    fused = b.fused_plan_dispatches
+    close_stack(burst)
+    wall = time.monotonic() - wall0
+    calls = [c for tap in taps for c in tap.calls]
+    out = dict(
+        platform="cpu", steps=steps, bindings=bindings, pinned_metrics=pinned_metrics,
+        tapped=[(c["method"], len(c["args"][2]) if c["method"] == "evaluate_burst" else None)
+                for c in calls],
+        levels=[tap.level for tap in taps for _ in tap.calls],
+        over=over, fused_plan_dispatches=fused, wall_s=wall,
+    )
+    if hold_on is not None:
+        out["s3"] = hold_demoted(calls, taps[0].weights, hold_on, size, reported=reported)
+    torch.set_num_threads(threads)
+    return out
+
+
+def hold_demoted(calls: list, weights, platform: str, size: dict, *,
+                 reported: bool) -> dict:
+    """(s3): each demoted call again on the card's hand kernels on its own
+    inputs and rows, every result row, fit and pick compared; reported,
+    ms per call of each level on a K = 1 and a K = 16 input of the run
+    (median of ``timing_calls``; level 0 is the round trip through
+    ``fleet_eval``)."""
+    from yoda_tpu_torch.ops.kernel import resolve_device
+
+    device = resolve_device(platform)
+    err, compared = 0, 0
+    for c in calls:
+        kern = level_kernels(weights, fleet_view(*c["static"], c["names"]), device, (0,))[0]
+        got = getattr(kern, c["method"])(*c["args"])
+        e = rows_err(c["out"], got)
+        err = e if e < 0 or err < 0 else max(err, e)
+        compared += 1
+    out = dict(compared=compared, max_abs_err=err)
+    if not reported:
+        return out
+    timing = {}
+    for k in (1, 16):
+        c = next(c for c in calls if c["method"] == "evaluate_burst" and len(c["args"][2]) == k
+                 or k == 1 and c["method"] == "evaluate")
+        dyn, *rest = c["args"]
+        if c["method"] == "evaluate":
+            rest = [np.asarray(dyn)[3:4], [rest[0]]]
+        kerns = level_kernels(weights, fleet_view(*c["static"], c["names"]), device)
+        row = {}
+        for level, kern in kerns.items():
+            ms = []
+            for _ in range(size["timing_calls"]):
+                t = time.perf_counter()
+                kern.evaluate_burst(dyn, *rest)
+                ms.append(1e3 * (time.perf_counter() - t))
+            row[f"level{level}_ms"] = statistics.median(ms)
+        timing[f"k{k}"] = row
+    out["timing"] = timing
+    return out
+
+
+def check_fallback_run(run: dict, size: dict) -> None:
+    """The chain half's gates: each one-shot fault served at level 1 in its
+    cycle (one more fallback, one more level-1 call) with the pin back at
+    0; the persistent fault pins level 1 after three failures and the
+    plan's invocations stop there; ``/metrics`` shows the pin and the
+    fallbacks; level 2 pinned after three failures at level 1; every pod
+    bound, no host over its chips; with (s3), every demoted call equal to
+    the hand kernels on its inputs."""
+    s = {row["step"]: row for row in run["steps"]}
+    bad = []
+    for part in ("s1 singletons", "s1 burst", "s1 fused plan"):
+        r = s[part]
+        if r["probes"] < 1 or r["backend_level"] != 0:
+            bad.append(f"{part}: {r}")
+    pairs = (("warm K=1", "s1 singletons"), ("warm K=16", "s1 burst"),
+             ("s1 burst", "s1 burst, then the primary"),
+             ("s1 burst, then the primary", "s1 fused plan"),
+             ("s1 fused plan", "s1 fused plan, then the primary"))
+    falls = [s[b]["dispatch_fallbacks"] - s[a]["dispatch_fallbacks"] for a, b in pairs]
+    calls = [s[b]["level1_calls"] - s[a]["level1_calls"] for a, b in pairs]
+    if falls != [1, 1, 0, 1, 0] or calls != [1, 1, 0, 1, 0]:
+        bad.append(f"one-shot faults: fallbacks {falls}, level-1 calls {calls}")
+    for part in ("s1 burst, then the primary", "s1 fused plan, then the primary"):
+        if s[part]["backend_level"] != 0:
+            bad.append(f"{part}: {s[part]}")
+    pin, pinned = s["s2 pin level 1"], s["s2 pinned"]
+    if pin["backend_level"] != 1 or pin["dispatch_errors"] - s["s1 fused plan"][
+            "dispatch_errors"] != 3 or pin["probes"] != 3:
+        bad.append(f"pin: {pin}")
+    if pinned["probes"] != pin["probes"] or pinned["backend_level"] != 1 \
+            or pinned["dispatch_errors"] != pin["dispatch_errors"]:
+        bad.append(f"pinned: {pinned}")
+    m = run["pinned_metrics"]
+    if m.get("yoda_dispatch_backend_level") != 1.0 or not m.get("yoda_dispatch_fallback_total"):
+        bad.append(f"/metrics at the pin: {m}")
+    low, gang = s["s2 level 2 singletons"], s["s2 level 2 fused plan"]
+    if low["backend_level"] != 2 or low["probes"] != 3 or gang["backend_level"] != 2:
+        bad.append(f"level 2: {low}, {gang}")
+    if 2 not in run["levels"]:
+        bad.append("no call served at level 2")
+    unbound = sorted(n for n, v in run["bindings"].items() if v is None)
+    if unbound or run["over"]:
+        bad.append(f"unbound {unbound[:6]}, over {run['over'][:4]}")
+    s3 = run.get("s3")
+    if s3 is not None and (s3["compared"] != len(run["tapped"]) or s3["max_abs_err"] != 0):
+        bad.append(f"(s3): {s3['compared']} of {len(run['tapped'])} demoted calls "
+                   f"compared, largest difference {s3['max_abs_err']}")
+    if bad:
+        raise AssertionError("run (s): " + "; ".join(bad))
+
+
+def run_card_faults(platform: str, size: dict = FALLBACK_FULL) -> dict:
+    """Run (s)'s card half, (s4): (s1)'s and (s2)'s faults on stacks whose
+    primary is on the card, which the port never demotes. Each injected
+    fault is counted in ``dispatch_errors`` and re-raised, its pod's cycle
+    ends in error, the pod binds on the card when it is retried, and no
+    host level is built. One-shot faults, each installed alone and then
+    removed: 16 run (a) singletons at ``batch_requests`` 1, a K = 16 burst
+    of run (b)'s pods and a joint pass of two plain gangs of 16 x 8 v5e
+    chips (the fused plan) at ``batch_requests`` 16, each stack after 8
+    warm-up singletons; then a persistent fault over three singletons one
+    at a time (each retry probes the card again: no pin), ``/metrics``
+    read, the fault removed and the pods retried."""
+    from yoda_tpu_torch.api.types import PodSpec
+    from yoda_tpu_torch.testing.chaos import ChaosPlan, FaultSpec, install_chaos_kernel
+
+    pods_a, pods_b = fleet_and_pods(seed=0)
+    steps: list = []
+    bindings: dict = {}
+    over: list = []
+    created: dict = {}  # id(stack) -> the names of the pods made there
+
+    def drain(stack, pods, one_at_a_time: bool = False) -> None:
+        for group in ([[p] for p in pods] if one_at_a_time else [pods]):
+            for name, labels in group:
+                stack.cluster.create_pod(PodSpec(name, labels=dict(labels)))
+            stack.scheduler.run_until_idle(max_wall_s=600)
+        created.setdefault(id(stack), []).extend(n for n, _ in pods)
+
+    def retry(stack) -> None:
+        stack.scheduler.queue.move_all_to_active(force=True)
+        stack.scheduler.run_until_idle(max_wall_s=600)
+
+    def step(stack, what: str, plan=None) -> None:
+        b = stack.batch
+        steps.append(dict(
+            step=what, **dispatch_health(b),
+            faults=len(plan.fired) if plan is not None else None,
+            cycle_errors=sum(r.outcome == "error" for r in stack.scheduler.stats.results),
+            host_levels=len(b._fb_kerns)))
+
+    def warmed(burst: int, warm: list):
+        stack, _agent = build_fleet(platform, burst, slices=size["slices"],
+                                    v5e_hosts=size["v5e_hosts"])
+        drain(stack, warm)
+        return stack
+
+    def closed(stack) -> None:
+        bindings.update(bindings_of(stack, created[id(stack)]))
+        over.extend(over_capacity(stack))
+        close_stack(stack)
+
+    def oneshot(stack, pods, what: str, install=install_chaos_kernel) -> None:
+        plan = ChaosPlan([FaultSpec("dispatch", 0, "error")])
+        wrapped = install(stack.batch, plan)
+        drain(stack, pods)
+        uninstall_fault(stack.batch, wrapped)
+        retry(stack)
+        step(stack, what, plan)
+
+    kept = KeptKernels()
+    kept.install()
+    wall0 = time.monotonic()
+    try:
+        w, n1 = size["warm"], size["singles"]
+        one = warmed(1, pods_a[:w])
+        step(one, "warm K=1")
+        oneshot(one, pods_a[w : w + n1], "s4 singletons")
+        closed(one)
+
+        burst = warmed(16, pods_a[w + n1 : 2 * w + n1])
+        step(burst, "warm K=16")
+        at = size["burst"]
+        oneshot(burst, pods_b[:at], "s4 burst")
+        oneshot(burst, fallback_gangs("s4-plain", size), "s4 fused plan", install_plan_fault)
+        drain(burst, fallback_gangs("s4-clean", size))  # the fused plan on the card
+        step(burst, "s4 fused plan, then the card")
+        persistent = ChaosPlan([FaultSpec("dispatch", 0, "error", count=100)])
+        wrapped = install_chaos_kernel(burst.batch, persistent)
+        drain(burst, pods_b[at : at + 3], one_at_a_time=True)
+        step(burst, "s4 persistent", persistent)
+        metrics = {k: v for k, v in scrape_values(
+            burst.metrics.registry.render_prometheus()).items()
+            if k.startswith("yoda_dispatch_")}
+        uninstall_fault(burst.batch, wrapped)
+        retry(burst)
+        step(burst, "s4 after the fault")
+        fused = burst.batch.fused_plan_dispatches
+        closed(burst)
+    finally:
+        kept.restore()
+    return dict(platform=platform, steps=steps, bindings=bindings, metrics=metrics,
+                over=over, fused_plan_dispatches=fused, wall_s=time.monotonic() - wall0,
+                **kept.errors())
+
+
+def check_card_faults(run: dict) -> None:
+    """(s4)'s gates: every fault that fired counted once in
+    ``dispatch_errors`` and nothing else counted; the one-shot fault at
+    K = 1 ends its pod's cycle in error, the one-shot faults in a K = 16
+    burst's and a joint pass's pre-evaluation end none (their pods are
+    evaluated one by one on the card, as for any failed pre-evaluation);
+    the persistent fault fires at every dispatch, three or more, and ends
+    three or more cycles in error; nothing demoted, no pin, no host level
+    built; ``/metrics`` shows the errors, level 0 and no fallback; the fused
+    plan runs on the card after the faults; every pod bound on the card
+    after its retry, no host over its chips, every launch equal to its
+    plain version and, on the card, both kernels launched."""
+    s = {row["step"]: row for row in run["steps"]}
+    bad = []
+    for a, b, cycles in (("warm K=1", "s4 singletons", (1, 1)),
+                         ("warm K=16", "s4 burst", (0, 0)),
+                         ("s4 burst", "s4 fused plan", (0, 0)),
+                         ("s4 fused plan", "s4 persistent", (3, 1 << 30))):
+        errors = s[b]["dispatch_errors"] - s[a]["dispatch_errors"]
+        ended = s[b]["cycle_errors"] - s[a]["cycle_errors"]
+        fired = s[b]["faults"]
+        if errors != fired or not (fired == 1 or b == "s4 persistent" and fired >= 3) \
+                or not cycles[0] <= ended <= min(cycles[1], errors):
+            bad.append(f"{b}: {fired} faults fired, {errors} dispatch errors, "
+                       f"{ended} cycles ended in error")
+    if any(r["dispatch_fallbacks"] or r["backend_level"] or r["host_levels"]
+           for r in run["steps"]):
+        bad.append(f"demoted: {run['steps']}")
+    last = s["s4 after the fault"]
+    m = run["metrics"]
+    if (m.get("yoda_dispatch_backend_level") != 0.0 or m.get("yoda_dispatch_fallback_total")
+            or m.get("yoda_dispatch_errors_total") != s["s4 persistent"]["dispatch_errors"]):
+        bad.append(f"/metrics under the persistent fault: {m}")
+    if last["dispatch_errors"] != s["s4 persistent"]["dispatch_errors"]:
+        bad.append("a dispatch failed after the faults were removed")
+    if s["s4 fused plan, then the card"]["dispatch_errors"] != s["s4 fused plan"][
+            "dispatch_errors"] or not run["fused_plan_dispatches"]:
+        bad.append(f"the fused plan after the faults: {run['fused_plan_dispatches']} dispatches")
+    unbound = sorted(n for n, v in run["bindings"].items() if v is None)
+    if unbound or run["over"]:
+        bad.append(f"unbound {unbound[:6]}, over {run['over'][:4]}")
+    if run["kept"] != run["launches"] or any(run["max_abs_err"].values()):
+        bad.append(f"launches against the plain versions: {run['kept']} of "
+                   f"{run['launches']}, {run['max_abs_err']}")
+    if run["platform"] != "cpu" and not (run["launches"]["fleet_eval"]
+                                         and run["launches"]["joint_fit"]):
+        bad.append(f"the card launched {run['launches']}")
+    if bad:
+        raise AssertionError("run (s4): " + "; ".join(bad))
+
+
+def print_fallback(chain: dict, card: dict, smi: str) -> None:
+    print(f"run (s) fallback chain (host primary): {len(chain['bindings'])} pods bound "
+          f"in {chain['wall_s']:.1f} s; steps "
+          + json.dumps([{k: r[k] for k in ("step", "dispatch_errors", "dispatch_fallbacks",
+                                           "backend_level", "probes")} for r in chain["steps"]])
+          + f"; pin on /metrics {chain['pinned_metrics']}; demoted calls "
+          f"{len(chain['tapped'])} (levels {sorted(set(chain['levels']))}); "
+          f"s3 {json.dumps(chain.get('s3'))} | {smi}", flush=True)
+    print(f"run (s4) faults on the card: {len(card['bindings'])} pods bound in "
+          f"{card['wall_s']:.1f} s; steps "
+          + json.dumps([{k: r[k] for k in ("step", "dispatch_errors", "cycle_errors",
+                                           "dispatch_fallbacks", "backend_level", "faults")}
+                        for r in card["steps"]])
+          + f"; /metrics {card['metrics']}; launches {card['launches']} | {smi}", flush=True)
+
+
+def phase_fallback(smi: str) -> dict:
+    """Run (s), last (the chain half's level-1 kernels bound torch's pool
+    for the process; the run lifts it again): (s4) the faults on card
+    stacks, then the chain on host-primary stacks with (s3) on the card."""
+    g = run_card_faults("auto")
+    check_card_faults(g)
+    c = run_fallback(FALLBACK_FULL, hold_on="auto")
+    print_fallback(c, g, smi)
+    check_fallback_run(c, FALLBACK_FULL)
+    g["s3"] = c["s3"]
+    return g
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--spec-worker"]:
         sys.exit(spec_worker_entry(sys.argv[2:]))
@@ -9346,11 +10014,14 @@ def main() -> None:
         print("no CUDA device: chip_smoke.py needs one NVIDIA GPU", file=sys.stderr)
         sys.exit(2)
     seconds: dict[str, float] = {}
+    watch = None  # every dispatch in this process, from the build on
 
     def phase(label: str, fn, *args):
         t = time.monotonic()
         try:
             out = fn(*args)
+            if watch is not None and label != FALLBACK_PHASE:
+                watch.check(label)
         except Exception as e:  # noqa: BLE001 — report the failing phase
             fail(label, e)
         seconds[label] = time.monotonic() - t
@@ -9358,6 +10029,7 @@ def main() -> None:
         return out
 
     kind, smi = phase("device/build", phase_device)
+    watch = DispatchWatch().install()
     rerun = CpuRerun(BACKGROUND_FULL, NODEHEALTH_FULL)
     obs_rerun = SpawnedRerun("run_observability", OBSERVABILITY_FULL, "run (j)")
     tenancy_rerun = SpawnedRerun("run_tenancy", TENANCY_FULL, "run (k)")
@@ -9388,6 +10060,7 @@ def main() -> None:
         proc = phase("process lanes run (p)", phase_proc, smi, lanes)
         chaos = phase("chaos run (q)", phase_chaos, smi, chaos_rerun)
         federation = phase("federation run (r)", phase_federation, smi, fed_rerun)
+        fallback = phase(FALLBACK_PHASE, phase_fallback, smi)
         print("phase seconds:", json.dumps(seconds))
         q_parts = ("q1", "q2", "q3")
         r_parts = ("r1", "r2", "r3")
@@ -9437,7 +10110,12 @@ def main() -> None:
                     + sum(lanes[p]["kernels"]["launches"]["fleet_eval"] for p in o_parts)
                     + sum(w["launches"]["fleet_eval"] for w in proc["p1"]["kernels"].values())
                     + sum(chaos[p]["kernels"]["launches"]["fleet_eval"] for p in q_parts)
-                    + sum(r_launches("fleet_eval").values()),
+                    + sum(r_launches("fleet_eval").values())
+                    + fallback["launches"]["fleet_eval"],
+                    "launches_run_s": fallback["launches"]["fleet_eval"],
+                    "run_s_demoted_calls": fallback["s3"]["compared"],
+                    "run_s_demoted_vs_kernel_max_abs_err": fallback["s3"]["max_abs_err"],
+                    "run_s_ms_per_dispatch_by_level": fallback["s3"]["timing"],
                     "launches_run_r": r_launches("fleet_eval"),
                     "launches_run_r_by_member": r_by_member("fleet_eval"),
                     "launches_run_p1_by_worker": {
@@ -9498,7 +10176,8 @@ def main() -> None:
                                          for w in proc["p1"]["kernels"].values()),
                                        *(chaos[p]["kernels"]["max_abs_err"]["fleet_eval"]
                                          for p in q_parts),
-                                       *r_err("fleet_eval")),
+                                       *r_err("fleet_eval"),
+                                       fallback["max_abs_err"]["fleet_eval"]),
                     "ms": main_row["ms"],
                     "plain_ms": main_row["plain_ms"],
                     "bound_ms": main_row["bound_ms"],
@@ -9536,7 +10215,9 @@ def main() -> None:
                     + sum(lanes[p]["kernels"]["launches"]["joint_fit"] for p in o_parts)
                     + sum(w["launches"]["joint_fit"] for w in proc["p1"]["kernels"].values())
                     + sum(chaos[p]["kernels"]["launches"]["joint_fit"] for p in q_parts)
-                    + sum(r_launches("joint_fit").values()),
+                    + sum(r_launches("joint_fit").values())
+                    + fallback["launches"]["joint_fit"],
+                    "launches_run_s": fallback["launches"]["joint_fit"],
                     "launches_run_r": r_launches("joint_fit"),
                     "launches_run_r_by_member": r_by_member("joint_fit"),
                     "launches_run_p1_by_worker": {
@@ -9579,7 +10260,8 @@ def main() -> None:
                                          for w in proc["p1"]["kernels"].values()),
                                        *(chaos[p]["kernels"]["max_abs_err"]["joint_fit"]
                                          for p in q_parts),
-                                       *r_err("joint_fit")),
+                                       *r_err("joint_fit"),
+                                       fallback["max_abs_err"]["joint_fit"]),
                     "ms": joint_main["ms"],
                     "device_ms": not_measured(joint_main["device_ms"]),
                     "plain_ms": joint_main["plain_ms"],

@@ -9,7 +9,11 @@ the node health path (run (i)): a fence flip patches the admission rows
 the card's kernels read, with no re-stack and no row update, and the
 whole run decides as on the CPU; and the lanes as worker processes (run
 (p) at its small size), each launching on the card; and federation and the
-node agents (run (r) at its small size), every member stack on the card.
+node agents (run (r) at its small size), every member stack on the card;
+and the degraded-mode dispatch chain (run (s) at its small size): every
+result a host-primary stack demoted held against the hand kernels on its
+own inputs, and faults on a card stack counted and re-raised, never
+demoted.
 
 Tests marked ``cuda`` need the card and skip without one; run them there
 with ``python -m pytest -m cuda tests/test_torch_cuda.py``. This file
@@ -902,3 +906,25 @@ class TestFederationOnCard:
         check_federation(run_federation("auto", FEDERATION_SMALL),
                          run_federation("cpu", FEDERATION_SMALL, reported=False),
                          FEDERATION_SMALL)
+
+
+@pytest.mark.cuda
+class TestFallbackOnCard:
+    def test_run_s_small(self, card):
+        """chip_smoke's run (s) at its small size: on host-primary stacks
+        one-shot faults served at level 1 and the breaker's pins at 1 and
+        2, every demoted result equal to ``fleet_eval`` / ``joint_fit`` on
+        the card on the same inputs; on card stacks (s4) every fault
+        counted and re-raised, nothing demoted, every pod bound on the
+        card after its retry."""
+        from chip_smoke import (
+            FALLBACK_SMALL,
+            check_card_faults,
+            check_fallback_run,
+            run_card_faults,
+            run_fallback,
+        )
+
+        check_card_faults(run_card_faults("auto", FALLBACK_SMALL))
+        check_fallback_run(run_fallback(FALLBACK_SMALL, hold_on="auto", reported=False),
+                           FALLBACK_SMALL)

@@ -7,8 +7,9 @@ The reference's ``slow`` sweeps stay slow.
 
 Each case runs from the reference's own source through
 ``torch_refcases.run_case`` (imports pointed at the port, the port's
-``kernel_platform: auto`` mapped to the host), with its exact assertions.
-Left out, each with the part it waits for: see ``SKIP``.
+``kernel_platform: auto`` mapped to the host), with its exact assertions,
+``TestDispatchFallback``'s degraded-mode chain included. No case is left
+out (``SKIP`` is empty).
 """
 
 from __future__ import annotations
@@ -17,10 +18,7 @@ import pytest
 from torch_refcases import PACKAGES, cases, run_case
 
 REF = "test_chaos.py"
-SKIP = {
-    "TestDispatchFallback":
-        "the degraded-mode dispatch chain (ROADMAP item 15)",
-}
+SKIP: "dict[str, str]" = {}
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)

@@ -19,7 +19,11 @@ the case's own process and in a script it runs in a fresh interpreter
 through the same mapping, so it spawns the port's worker with ``--device
 cpu``). A worker process that a case spawns itself as ``python -m
 yoda_tpu.framework.procserve`` is the port's worker, given ``--device
-cpu``. The case body, its inputs and its assertions
+cpu``. A case's ``kernel_backend: pallas`` config keeps "auto" (the
+port refuses another platform beside it) and runs on the host through the
+same ``resolve_device`` mapping; a case that hands a kernel JAX's host
+device (``jax.devices("cpu")[0]``) hands the port's ``"cpu"``. The case
+body, its inputs and its assertions
 are the reference's own, unchanged, so a case passing on both packages
 holds the port to exactly what the reference is held to.
 
@@ -151,9 +155,12 @@ def _port_source(src: str) -> str:
             return m.group(0)
         return m.group(1) + "yoda_tpu_torch" + mod[len("yoda_tpu"):]
 
-    return re.sub(
+    src = re.sub(
         r"(\bfrom\s+)(yoda_tpu(?:\.[\w.]+)?)(?=\s+import\b)", swap, src
     )
+    # A case that hands a kernel JAX's host device gives the port's the
+    # host's torch device name.
+    return src.replace('jax.devices("cpu")[0]', '"cpu"')
 
 
 def _cpu_build_stack(real):
@@ -161,7 +168,10 @@ def _cpu_build_stack(real):
         from yoda_tpu_torch.config import SchedulerConfig
 
         config = config or SchedulerConfig()
-        if config.kernel_platform == "auto":
+        # A "pallas" config must leave the platform at "auto" (the port
+        # refuses any other); its batch plugin's resolve_device is the
+        # host mapping below, so it runs on the host all the same.
+        if config.kernel_platform == "auto" and config.kernel_backend != "pallas":
             config = dataclasses.replace(config, kernel_platform="cpu")
         return real(cluster, config, **kw)
 

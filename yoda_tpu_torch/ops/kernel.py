@@ -41,9 +41,13 @@ one-shot :func:`fused_filter_score`.
 and signature over :class:`TorchFleetKernel`. A kernel on the host bounds
 torch's intra-op pool (:func:`bound_host_pool`).
 
-Left out until a later slice: ``NumpyFleetKernel`` (the reference's
-degraded-mode rung; the port has no fallback chain, so the numpy twin of
-the scan is not carried either).
+The degraded-mode rung is here too: :class:`NumpyFleetKernel`, the last
+level of the batch plugin's dispatch fallback chain (which demotes only a
+primary on the host: one on the card never demotes). The phase functions
+and :func:`joint_fit_scan` take the array operations they use as ``xp``
+(:data:`TORCH_OPS`, the default, or :data:`NUMPY_OPS`), as the
+reference's take ``xp=jnp`` / ``xp=np``, so the numpy evaluator runs the
+plain version's arithmetic, defined once, without a torch op.
 """
 
 from __future__ import annotations
@@ -165,32 +169,174 @@ class KernelResult:
     claimable: np.ndarray | None = None
 
 
-def _floordiv(a: torch.Tensor, b) -> torch.Tensor:
-    return torch.div(a, b, rounding_mode="floor")
+class _TorchOps:
+    """The array operations of the evaluation's phase functions and of the
+    fit scan, over torch tensors on whatever device they lie: the plain
+    version. :data:`NUMPY_OPS` is the same interface over numpy arrays, so
+    :class:`NumpyFleetKernel` runs the same arithmetic, defined once here,
+    without a torch op (the reference's ``xp=jnp`` / ``xp=np`` seam)."""
+
+    where = staticmethod(torch.where)
+    maximum = staticmethod(torch.maximum)
+    minimum = staticmethod(torch.minimum)
+
+    @staticmethod
+    def const(value: int, like):
+        """``value`` as a 0-d int32 on ``like``'s device."""
+        return torch.full((), value, dtype=torch.int32, device=like.device)
+
+    @staticmethod
+    def zeros(shape, like):
+        return torch.zeros(shape, dtype=torch.int32, device=like.device)
+
+    @staticmethod
+    def i32(x):
+        return x.to(torch.int32)
+
+    @staticmethod
+    def columns(v):
+        """Request scalars (ints or [K] vectors) as a [K, 1] int32 column."""
+        return torch.as_tensor(v, dtype=torch.int32).reshape(-1, 1)
+
+    @staticmethod
+    def total(x):
+        """Sum over the last axis in 64 bits (callers wrap it to int32)."""
+        return x.sum(dim=-1)
+
+    @staticmethod
+    def amax(x, axis, keepdims: bool = False):
+        return x.amax(dim=axis, keepdim=keepdims)
+
+    @staticmethod
+    def amin(x, axis, keepdims: bool = False):
+        return x.amin(dim=axis, keepdim=keepdims)
+
+    @staticmethod
+    def any(x):
+        return x.any(dim=-1)
+
+    @staticmethod
+    def stack(xs, axis: int):
+        return torch.stack(xs, dim=axis)
+
+    @staticmethod
+    def floordiv(a, b):
+        return torch.div(a, b, rounding_mode="floor")
+
+    @staticmethod
+    def copy(x):
+        return x.clone()
+
+    @staticmethod
+    def first_argmax(x) -> int:
+        """Index of the first maximum of a 1-D ``x``."""
+        return int(torch.argmax(x))
+
+    @staticmethod
+    def last_argmax(x):
+        """Per row of [K, N] ``x``: the index of its LAST maximum (int32;
+        argmax of the reversed row takes the first) and that maximum."""
+        n = x.shape[-1]
+        row = (n - 1 - torch.argmax(x.flip(-1), dim=-1)).to(torch.int32)
+        return row, x.gather(-1, row.long()[:, None])[:, 0]
+
+    @staticmethod
+    def vector(values: list, like, flags: bool = False):
+        """A Python list as a 1-D int32 (or bool) on ``like``'s device."""
+        dtype = torch.bool if flags else torch.int32
+        return torch.tensor(values, dtype=dtype, device=like.device)
 
 
-def _norm(metric: torch.Tensor, maximum: torch.Tensor) -> torch.Tensor:
-    return _floordiv(metric * 100, maximum)
+class _NumpyOps:
+    """:class:`_TorchOps`' interface over numpy arrays (int32 wraps as in
+    torch; sums are taken in 64 bits and wrapped as there)."""
+
+    where = staticmethod(np.where)
+    maximum = staticmethod(np.maximum)
+    minimum = staticmethod(np.minimum)
+
+    @staticmethod
+    def const(value: int, like):
+        return np.int32(value)
+
+    @staticmethod
+    def zeros(shape, like):
+        return np.zeros(shape, dtype=np.int32)
+
+    @staticmethod
+    def i32(x):
+        return np.asarray(x).astype(np.int32)
+
+    @staticmethod
+    def columns(v):
+        return np.asarray(v, dtype=np.int32).reshape(-1, 1)
+
+    @staticmethod
+    def total(x):
+        return x.sum(axis=-1, dtype=np.int64)
+
+    @staticmethod
+    def amax(x, axis, keepdims: bool = False):
+        return x.max(axis=axis, keepdims=keepdims)
+
+    @staticmethod
+    def amin(x, axis, keepdims: bool = False):
+        return x.min(axis=axis, keepdims=keepdims)
+
+    @staticmethod
+    def any(x):
+        return x.any(axis=-1)
+
+    @staticmethod
+    def stack(xs, axis: int):
+        return np.stack(xs, axis=axis)
+
+    @staticmethod
+    def floordiv(a, b):
+        return np.floor_divide(a, b)
+
+    @staticmethod
+    def copy(x):
+        return x.copy()
+
+    @staticmethod
+    def first_argmax(x) -> int:
+        return int(np.argmax(x))
+
+    @staticmethod
+    def last_argmax(x):
+        n = x.shape[-1]
+        row = (n - 1 - np.argmax(x[..., ::-1], axis=-1)).astype(np.int32)
+        return row, np.take_along_axis(x, row[:, None].astype(np.intp), -1)[:, 0]
+
+    @staticmethod
+    def vector(values: list, like, flags: bool = False):
+        return np.asarray(values, dtype=bool if flags else np.int32).reshape(-1)
 
 
-def _i32(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.int32)
+TORCH_OPS = _TorchOps()
+NUMPY_OPS = _NumpyOps()
+_i32 = TORCH_OPS.i32
 
 
-def _request_columns(number, hbm_mib, clock_mhz, gen_rank, wants_topology):
+def _request_columns(number, hbm_mib, clock_mhz, gen_rank, wants_topology,
+                     xp=TORCH_OPS):
     """Request scalars as [K, 1] int32 columns."""
     return tuple(
-        torch.as_tensor(v, dtype=torch.int32).reshape(-1, 1)
-        for v in (number, hbm_mib, clock_mhz, gen_rank, wants_topology)
+        xp.columns(v) for v in (number, hbm_mib, clock_mhz, gen_rank, wants_topology)
     )
 
 
-def _rows(x: torch.Tensor) -> torch.Tensor:
+def _norm(metric, maximum, xp=TORCH_OPS):
+    return xp.floordiv(metric * 100, maximum)
+
+
+def _rows(x, xp=TORCH_OPS):
     """Chip-axis count -> int32."""
-    return _i32(x.sum(dim=-1))
+    return xp.i32(xp.total(x))
 
 
-def _qualifying(a: dict, hbm_mib: torch.Tensor, clock_mhz: torch.Tensor):
+def _qualifying(a: dict, hbm_mib, clock_mhz):
     """(healthy [N, C], hbm_ok, clock_ok, qual [K, N, C]) for [K, 1]
     request columns."""
     healthy = a["chip_valid"] & a["chip_healthy"]
@@ -199,7 +345,7 @@ def _qualifying(a: dict, hbm_mib: torch.Tensor, clock_mhz: torch.Tensor):
     return healthy, hbm_ok, clock_ok, hbm_ok & clock_ok
 
 
-def _phase_filter(a: dict, number, hbm_mib, clock_mhz, gen_rank):
+def _phase_filter(a: dict, number, hbm_mib, clock_mhz, gen_rank, xp=TORCH_OPS):
     """Phase 1 of the evaluation: feasibility, the first failing reason and
     the claimable chips per (request, node), and the six maxima of the
     feasible nodes' qualifying chips (0 where there are none; the caller
@@ -209,28 +355,29 @@ def _phase_filter(a: dict, number, hbm_mib, clock_mhz, gen_rank):
     healthy, hbm_ok, clock_ok, qual = _qualifying(a, hbm_mib, clock_mhz)
     clock_c = clock_mhz[:, :, None]
     hbm_c = hbm_mib[:, :, None]
-    count_healthy = _rows(healthy)                           # [N]
-    count_hbm = _rows(hbm_ok)                                # [K, N]
-    count_clock = _rows(clock_ok)
+    count_healthy = _rows(healthy, xp)                       # [N]
+    count_hbm = _rows(hbm_ok, xp)                            # [K, N]
+    count_clock = _rows(clock_ok, xp)
 
     # Reservation corrections: reference kernel_impl (and
     # filter_plugin.available_chips / stale_freed_chips) parity.
-    zero = torch.zeros((), dtype=torch.int32, device=healthy.device)
-    apparently_used = _rows(healthy & a["chip_used"])
-    absorbable = torch.maximum(apparently_used - a["ext_chips"], zero)
-    invisible = torch.maximum(a["reserved_chips"] - absorbable, zero)
-    stale_freed = torch.maximum(absorbable - a["reserved_chips"], zero)
+    zero = xp.const(0, count_healthy)
+    apparently_used = _rows(healthy & a["chip_used"], xp)
+    absorbable = xp.maximum(apparently_used - a["ext_chips"], zero)
+    invisible = xp.maximum(a["reserved_chips"] - absorbable, zero)
+    stale_freed = xp.maximum(absorbable - a["reserved_chips"], zero)
     freed_candidates = _rows(
         healthy
         & a["chip_used"]
         & (a["clock_mhz"] >= clock_c)
-        & (a["hbm_total_mib"] >= hbm_c)
+        & (a["hbm_total_mib"] >= hbm_c),
+        xp,
     )
-    freed_candidates = torch.maximum(freed_candidates - a["ext_chips"], zero)
-    freed = torch.minimum(
-        stale_freed, torch.maximum(freed_candidates - a["reserved_chips"], zero)
+    freed_candidates = xp.maximum(freed_candidates - a["ext_chips"], zero)
+    freed = xp.minimum(
+        stale_freed, xp.maximum(freed_candidates - a["reserved_chips"], zero)
     )
-    count_avail = _rows(qual & ~a["chip_used"])
+    count_avail = _rows(qual & ~a["chip_used"], xp)
     fits_chips = count_healthy >= number
     fits_hbm = (hbm_mib == 0) | ((count_hbm + freed) >= number)
     fits_clock = (clock_mhz == 0) | (count_clock >= number)
@@ -250,7 +397,7 @@ def _phase_filter(a: dict, number, hbm_mib, clock_mhz, gen_rank):
 
     # First failing predicate, in the same order the Python filter checks:
     # a reversed where-chain (torch has no select).
-    reasons = torch.zeros(feasible.shape, dtype=torch.int32, device=feasible.device)
+    reasons = xp.zeros(feasible.shape, count_healthy)
     for cond, code in reversed(
         [
             (~a["node_valid"], REASON_NO_METRICS),
@@ -263,18 +410,15 @@ def _phase_filter(a: dict, number, hbm_mib, clock_mhz, gen_rank):
             (~fits_reserved, REASON_RESERVED),
         ]
     ):
-        reasons = torch.where(cond, code, reasons)
+        reasons = xp.where(cond, xp.const(code, reasons), reasons)
 
     # --- collection: per-request maxima over feasible nodes' qualifying chips
     cmask = feasible[:, :, None] & qual                      # [K, N, C]
-    maxima = torch.stack(
-        [
-            torch.where(cmask, a[key], zero).amax(dim=(-2, -1))
-            for key in _MAX_KEYS
-        ],
-        dim=-1,
+    maxima = xp.stack(
+        [xp.amax(xp.where(cmask, a[key], zero), (-2, -1)) for key in _MAX_KEYS],
+        -1,
     )
-    claimable = torch.maximum(count_avail + freed - invisible, zero)
+    claimable = xp.maximum(count_avail + freed - invisible, zero)
     return feasible, reasons, claimable, qual, maxima
 
 
@@ -286,101 +430,98 @@ _MAX_KEYS = (
 )
 
 
-def _phase_raw(a: dict, feasible, qual, maxima, weights: Weights) -> torch.Tensor:
+def _phase_raw(a: dict, feasible, qual, maxima, weights: Weights, xp=TORCH_OPS):
     """Phase 2: the raw score of every feasible (request, node) against the
     cluster maxima ([K, 6], each at least 1); 0 elsewhere."""
     w = weights
-    zero = torch.zeros((), dtype=torch.int32, device=feasible.device)
+    zero = xp.const(0, maxima)
     m = maxima.reshape(-1, 6, 1, 1)
     chip_scores = (
-        _norm(a["hbm_bandwidth"], m[:, 0]) * w.hbm_bandwidth
-        + _norm(a["clock_mhz"], m[:, 1]) * w.clock
-        + _norm(a["tflops"], m[:, 2]) * w.tflops
-        + _norm(a["power_w"], m[:, 3]) * w.power
-        + _norm(a["hbm_free_mib"], m[:, 4]) * w.hbm_free
-        + _norm(a["hbm_total_mib"], m[:, 5]) * w.hbm_total
+        _norm(a["hbm_bandwidth"], m[:, 0], xp) * w.hbm_bandwidth
+        + _norm(a["clock_mhz"], m[:, 1], xp) * w.clock
+        + _norm(a["tflops"], m[:, 2], xp) * w.tflops
+        + _norm(a["power_w"], m[:, 3], xp) * w.power
+        + _norm(a["hbm_free_mib"], m[:, 4], xp) * w.hbm_free
+        + _norm(a["hbm_total_mib"], m[:, 5], xp) * w.hbm_total
     )
-    basic = _i32(torch.where(qual, chip_scores, zero).sum(dim=-1))
+    basic = _rows(xp.where(qual, chip_scores, zero), xp)
 
-    free_sum = _i32(torch.where(a["chip_valid"], a["hbm_free_mib"], zero).sum(dim=-1))
-    total_sum = _i32(torch.where(a["chip_valid"], a["hbm_total_mib"], zero).sum(dim=-1))
-    safe_total = total_sum.clamp(min=1)
-    actual = torch.where(
-        total_sum > 0, _floordiv(free_sum * 100, safe_total), zero
+    free_sum = _rows(xp.where(a["chip_valid"], a["hbm_free_mib"], zero), xp)
+    total_sum = _rows(xp.where(a["chip_valid"], a["hbm_total_mib"], zero), xp)
+    safe_total = xp.maximum(total_sum, xp.const(1, total_sum))
+    actual = xp.where(
+        total_sum > 0, xp.floordiv(free_sum * 100, safe_total), zero
     ) * w.actual
-    headroom = torch.maximum(total_sum - a["claimed_hbm_mib"], zero)
-    allocate = torch.where(
-        total_sum > 0, _floordiv(headroom * 100, safe_total), zero
+    headroom = xp.maximum(total_sum - a["claimed_hbm_mib"], zero)
+    allocate = xp.where(
+        total_sum > 0, xp.floordiv(headroom * 100, safe_total), zero
     ) * w.allocate
-    return torch.where(feasible, basic + actual + allocate, zero)
+    return xp.where(feasible, basic + actual + allocate, zero)
 
 
-def _raw_bounds(feasible, raw) -> "tuple[torch.Tensor, torch.Tensor]":
+def _raw_bounds(feasible, raw, xp=TORCH_OPS):
     """The min-max normalization's lowest and highest raw score over the
     feasible nodes, [K, 1] each. Fillers sit outside both reductions'
     ranges: raw goes negative under most-allocated's negated weights."""
-    big = torch.full((), INT32_MAX, dtype=torch.int32, device=raw.device)
-    lowest = torch.where(feasible, raw, big).amin(dim=-1, keepdim=True)
-    highest = torch.where(feasible, raw, -big).amax(dim=-1, keepdim=True)
+    lowest = xp.amin(xp.where(feasible, raw, xp.const(INT32_MAX, raw)), -1, True)
+    highest = xp.amax(xp.where(feasible, raw, xp.const(-INT32_MAX, raw)), -1, True)
     return lowest, highest
 
 
-def minmax_span(lowest, highest) -> "tuple[torch.Tensor, torch.Tensor]":
+def minmax_span(lowest, highest, xp=TORCH_OPS):
     """The all-equal guard on the fleet-wide bounds: (lowest, span)."""
-    lowest = torch.where(highest == lowest, lowest - 1, lowest)
-    return lowest, torch.maximum(highest - lowest, torch.ones_like(lowest))
+    lowest = xp.where(highest == lowest, lowest - 1, lowest)
+    return lowest, xp.maximum(highest - lowest, xp.const(1, lowest))
 
 
 def _phase_final(a: dict, feasible, raw, lowest, span, wants_topology,
-                 weights: Weights) -> torch.Tensor:
+                 weights: Weights, xp=TORCH_OPS):
     """Phase 3: min-max normalization to [0, 100] against the fleet-wide
     ``lowest`` / ``span`` ([K, 1]), plus the anti-fragmentation tier,
     added AFTER normalization; 0 where infeasible."""
-    zero = torch.zeros((), dtype=torch.int32, device=raw.device)
-    normalized = torch.where(feasible, _floordiv((raw - lowest) * 100, span), zero)
-    protect = torch.where(
+    zero = xp.const(0, raw)
+    normalized = xp.where(feasible, xp.floordiv((raw - lowest) * 100, span), zero)
+    protect = xp.where(
         (wants_topology == 0) & ~a["in_slice"],
-        SLICE_PROTECT_TIER * weights.slice_protect,
-        0,
-    ).to(torch.int32)
-    return torch.where(feasible, normalized + protect, zero)
+        xp.const(SLICE_PROTECT_TIER * weights.slice_protect, raw),
+        zero,
+    )
+    return xp.where(feasible, normalized + protect, zero)
 
 
-def _best_row(feasible, final) -> "tuple[torch.Tensor, torch.Tensor]":
-    """Highest score, ties -> later row (argmax of the reversed row takes the
-    FIRST max, i.e. the last one of the original order), over
-    where(feasible, final, -1): (row [K] int32, its score [K] int32)."""
-    masked = torch.where(feasible, final, torch.full_like(final, -1))
-    n = final.shape[-1]
-    row = (n - 1 - torch.argmax(masked.flip(-1), dim=-1)).to(torch.int32)
-    return row, masked.gather(-1, row.long()[:, None])[:, 0]
+def _best_row(feasible, final, xp=TORCH_OPS):
+    """Highest score, ties -> later row, over where(feasible, final, -1):
+    (row [K] int32, its score [K] int32)."""
+    return xp.last_argmax(xp.where(feasible, final, xp.const(-1, final)))
 
 
 def kernel_impl(
     a: dict, number, hbm_mib, clock_mhz, gen_rank, wants_topology,
-    weights: Weights,
+    weights: Weights, xp=TORCH_OPS,
 ):
     """The whole evaluation for K requests at once. ``a`` maps NODE_KEYS to
-    [N] or [K, N] tensors (per-request rows, e.g. ``host_ok``) and
-    CHIP_KEYS to [N, C] tensors (bool for the flags, int32 for the rest).
-    Request scalars are [K, 1] int32 tensors. Returns (feasible [K, N]
-    bool, reasons, raw, final, claimable [K, N] int32, best [K] int32) —
-    the reference's outputs with a leading request axis. It is the three
-    phases of :func:`kernel_shard_phase` over one shard, with the global
-    values computed in between."""
+    [N] or [K, N] arrays (per-request rows, e.g. ``host_ok``) and
+    CHIP_KEYS to [N, C] arrays (bool for the flags, int32 for the rest):
+    torch tensors, or numpy arrays with ``xp=NUMPY_OPS``. Request scalars
+    are ints or [K] vectors. Returns (feasible [K, N] bool, reasons, raw,
+    final, claimable [K, N] int32, best [K] int32) — the reference's
+    outputs with a leading request axis. It is the three phases of
+    :func:`kernel_shard_phase` over one shard, with the global values
+    computed in between."""
     number, hbm_mib, clock_mhz, gen_rank, wants_topology = _request_columns(
-        number, hbm_mib, clock_mhz, gen_rank, wants_topology
+        number, hbm_mib, clock_mhz, gen_rank, wants_topology, xp
     )
     feasible, reasons, claimable, qual, maxima = _phase_filter(
-        a, number, hbm_mib, clock_mhz, gen_rank
+        a, number, hbm_mib, clock_mhz, gen_rank, xp
     )
-    raw = _phase_raw(a, feasible, qual, maxima.clamp(min=1), weights)
-    lowest, span = minmax_span(*_raw_bounds(feasible, raw))
-    final = _phase_final(a, feasible, raw, lowest, span, wants_topology, weights)
-    best, _ = _best_row(feasible, final)
-    best = torch.where(feasible.any(dim=-1), best, torch.full_like(best, -1))
+    raw = _phase_raw(
+        a, feasible, qual, xp.maximum(maxima, xp.const(1, maxima)), weights, xp
+    )
+    lowest, span = minmax_span(*_raw_bounds(feasible, raw, xp), xp)
+    final = _phase_final(a, feasible, raw, lowest, span, wants_topology, weights, xp)
+    best, _ = _best_row(feasible, final, xp)
+    best = xp.where(xp.any(feasible), best, xp.const(-1, best))
     return feasible, reasons, raw, final, claimable, best
-
 
 
 def kernel_shard_phase(
@@ -730,15 +871,16 @@ def joint_fit_vectors(
 
 
 def joint_fit_scan(
-    feas_k: torch.Tensor,    # [K, N] feasible (bool or 0/1 int32)
-    scores_k: torch.Tensor,  # [K, N] int32 final scores
-    claim_k: torch.Tensor,   # [K, N] int32 claimable chips
-    chips_k: torch.Tensor,   # [K] int32 (joint_fit_vectors)
-    starts_k: torch.Tensor,  # [K] int32
-    valid_k: torch.Tensor,   # [K] int32
-) -> "tuple[torch.Tensor, torch.Tensor, torch.Tensor]":
+    feas_k,    # [K, N] feasible (bool or 0/1 int32)
+    scores_k,  # [K, N] int32 final scores
+    claim_k,   # [K, N] int32 claimable chips
+    chips_k,   # [K] int32 (joint_fit_vectors)
+    starts_k,  # [K] int32
+    valid_k,   # [K] int32
+    xp=TORCH_OPS,
+):
     """The joint fit gate for plain gangs as a scan over the stacked member
-    rows — the plain PyTorch version of the hand-written joint-fit kernel
+    rows — the plain version of the hand-written joint-fit kernel
     (ops/cuda_kernel.py ``joint_fit``) and of the reference's ``lax.scan``
     (yoda_tpu/ops/kernel.py ``joint_fit_scan``). Each gang starts from the
     chips consumed by every earlier FITTING gang, each member greedily
@@ -748,38 +890,37 @@ def joint_fit_scan(
     sim [N] int32)``: the node index each row claimed (-1 when it claimed
     nothing), the gang's running fit verdict after each row (read it at
     the gang's LAST row), and the chips consumed by all fitting gangs.
-    Runs on the tensors' device, one row at a time; int32 throughout."""
+    One row at a time, int32 throughout: over torch tensors on their
+    device, or over numpy arrays with ``xp=NUMPY_OPS`` (the numpy
+    evaluator's scan, which runs no torch op)."""
     feas_k = feas_k != 0
     k, n = feas_k.shape
-    dev = feas_k.device
-    sim = torch.zeros(n, dtype=torch.int32, device=dev)
-    tent = sim.clone()
+    sim = xp.zeros(n, scores_k)
+    tent = xp.copy(sim)
     gok = True
-    picks = torch.full((k,), -1, dtype=torch.int32)
-    gok_k = torch.zeros(k, dtype=torch.bool)
-    chips, starts, valid = (
-        v.tolist() for v in (chips_k, starts_k, valid_k)
-    )
+    picks = [-1] * k
+    gok_k = [False] * k
+    chips, starts, valid = (v.tolist() for v in (chips_k, starts_k, valid_k))
     for i in range(k):
         if starts[i]:
             # Group boundary: commit the previous gang iff it fit, then
             # restart the tentative ledger from the committed state.
             if gok:
-                sim = tent.clone()
+                sim = xp.copy(tent)
             gok = True
-            tent = sim.clone()
+            tent = xp.copy(sim)
         if valid[i]:
             ok = feas_k[i] & ((claim_k[i] - tent) >= chips[i])
             any_ok = bool(ok.any())
             if any_ok and gok:
-                pick = int(torch.argmax(torch.where(ok, scores_k[i], -1)))
+                pick = xp.first_argmax(xp.where(ok, scores_k[i], xp.const(-1, tent)))
                 tent[pick] += chips[i]
                 picks[i] = pick
             gok = gok and any_ok
         gok_k[i] = gok
     if gok:
-        sim = tent.clone()
-    return picks.to(dev), gok_k.to(dev), sim
+        sim = xp.copy(tent)
+    return xp.vector(picks, sim), xp.vector(gok_k, sim, flags=True), sim
 
 
 def kernel_joint_plan(
@@ -815,11 +956,12 @@ def evaluate_joint_plan_via_burst(
 ) -> "tuple[list[list[KernelResult]], list[bool], list[np.ndarray]]":
     """The fit-gated joint evaluation composed on the host: member rows go
     through the kernel's own ``evaluate_burst`` (one round trip) and the
-    plain scan runs over the trimmed results on the CPU. The reference's
-    path for backends without a fused lowering; here it is the host
-    composition :meth:`TorchFleetKernel.evaluate_joint_plan` is held
-    against (it never runs on the serve path). Returns
-    ``(results_per_gang, fit_per_gang, picks_per_gang)``."""
+    scan runs over the trimmed results in numpy (:func:`joint_fit_scan`
+    with ``xp=NUMPY_OPS``), so with :class:`NumpyFleetKernel` the whole
+    path runs no torch op. The reference's path for backends without a
+    fused lowering (the numpy evaluator, the node-sharded kernel); the
+    host composition :meth:`TorchFleetKernel.evaluate_joint_plan` is held
+    against. Returns ``(results_per_gang, fit_per_gang, picks_per_gang)``."""
     host_ok_k, requests, offsets = stack_joint_burst(
         host_ok_groups, request_groups, minimum
     )
@@ -828,12 +970,12 @@ def evaluate_joint_plan_via_burst(
     m = offsets[-1]
     picks, gok_k, _sim = joint_fit_scan(
         *(
-            torch.from_numpy(np.stack([getattr(r, f) for r in flat[:m]]))
+            np.stack([getattr(r, f) for r in flat[:m]])
             for f in ("feasible", "scores", "claimable")
         ),
-        *(torch.from_numpy(v[:m]) for v in (chips_k, starts_k, valid_k)),
+        chips_k[:m], starts_k[:m], valid_k[:m],
+        xp=NUMPY_OPS,
     )
-    picks, gok_k = picks.numpy(), gok_k.numpy()
     g_count = len(request_groups)
     grouped = [flat[offsets[g] : offsets[g + 1]] for g in range(g_count)]
     fits = [bool(gok_k[offsets[g + 1] - 1]) for g in range(g_count)]
@@ -1122,6 +1264,102 @@ class DeviceFleetKernel(TorchFleetKernel):
             weights,
             resolve_device("auto") if device is None else device,
             stream,
+        )
+
+
+class NumpyFleetKernel:
+    """Host evaluator in numpy with :class:`TorchFleetKernel`'s contract:
+    the last rung of the dispatch fallback chain (plugins/yoda/batch.py
+    ``YodaBatch._dispatch``, the reference's ``NumpyFleetKernel``). It
+    runs the plain version's phase functions and fit scan over numpy
+    arrays (``xp=NUMPY_OPS``), so its arithmetic is the one the hand
+    kernels are held against, int32 result for int32 result. No torch op
+    runs on its path, as in the reference, so a fault in torch cannot take
+    it down with the levels above it. The chain reaches it only from a
+    primary on the host."""
+
+    def __init__(self, weights: Weights) -> None:
+        self.weights = weights
+        self._static: dict | None = None
+        self._names: list[str] = []
+
+    @property
+    def names(self) -> list[str]:
+        return self._names
+
+    def put_static(self, arrays: FleetArrays) -> None:
+        # References, not copies: the batch plugin's and the resident
+        # cache's in-place row refills stay visible.
+        self._static = {
+            k: np.asarray(getattr(arrays, k)) for k in STATIC_NODE_KEYS + CHIP_KEYS
+        }
+        self._names = list(arrays.names)
+
+    def update_rows(self, arrays: FleetArrays, rows: "list[int]") -> None:
+        """No device state: put_static stored REFERENCES into ``arrays``,
+        so the caller's in-place row refills are already visible. Re-sync
+        only if the arrays object itself was swapped."""
+        if self._static is None or self._static["chip_valid"] is not arrays.chip_valid:
+            self.put_static(arrays)
+
+    def _packed(self, dyn: np.ndarray, host_ok: np.ndarray, reqv: np.ndarray) -> np.ndarray:
+        """One request -> [6, N] int32 rows, as the hand kernel packs them."""
+        a = dict(self._static)
+        a["fresh"] = dyn[0] != 0
+        a["reserved_chips"] = np.asarray(dyn[1], dtype=np.int32)
+        a["claimed_hbm_mib"] = np.asarray(dyn[2], dtype=np.int32)
+        a["host_ok"] = np.asarray(host_ok) != 0
+        feasible, reasons, raw, final, claimable, best = kernel_impl(
+            a, *(int(v) for v in reqv), weights=self.weights, xp=NUMPY_OPS
+        )
+        return np.stack([
+            feasible[0].astype(np.int32), reasons[0], raw[0], final[0],
+            np.full_like(final[0], best[0]), claimable[0],
+        ])
+
+    def evaluate(self, dyn: np.ndarray, request: KernelRequest) -> KernelResult:
+        """One request; its admission row is ``dyn[3]``."""
+        return self.evaluate_burst(dyn, np.asarray(dyn)[3:4], [request])[0]
+
+    def evaluate_burst(
+        self,
+        dyn: np.ndarray,
+        host_ok_k: np.ndarray,
+        requests: "list[KernelRequest]",
+    ) -> list[KernelResult]:
+        """K requests, one host loop: this path runs only in degraded mode,
+        so it protects memory ([N, C] per request), not amortization."""
+        if self._static is None:
+            raise RuntimeError("put_static() must run before evaluate_burst()")
+        dyn = np.asarray(dyn)
+        packed = np.stack([
+            self._packed(dyn, host_ok_k[k], pack_request(r))
+            for k, r in enumerate(requests)
+        ])
+        return results_from_packed(self._names, packed)
+
+    def evaluate_joint(
+        self,
+        dyn: np.ndarray,
+        host_ok_groups: "list[np.ndarray]",
+        request_groups: "list[list[KernelRequest]]",
+        minimum: int = 1,
+    ) -> "list[list[KernelResult]]":
+        return evaluate_joint_via_burst(
+            self, dyn, host_ok_groups, request_groups, minimum
+        )
+
+    def evaluate_joint_plan(
+        self,
+        dyn: np.ndarray,
+        host_ok_groups: "list[np.ndarray]",
+        request_groups: "list[list[KernelRequest]]",
+        minimum: int = 1,
+    ) -> "tuple[list[list[KernelResult]], list[bool], list[np.ndarray]]":
+        """The fused plan's degraded-mode twin: the numpy burst loop, then
+        the numpy fit scan (:func:`evaluate_joint_plan_via_burst`)."""
+        return evaluate_joint_plan_via_burst(
+            self, dyn, host_ok_groups, request_groups, minimum
         )
 
 

@@ -32,14 +32,23 @@ or joint-dispatch span on each gathered gang's trace, from before the
 kernel launches to after their results are back on the host), and the
 node-sharded evaluation (``mesh_devices``: a
 ``parallel.ShardedDeviceFleetKernel`` over contiguous row blocks of the
-resident state, counted in ``sharded_dispatches``). Left out until a later
-slice: the dispatch fallback chain with its circuit breaker — on a CUDA
-device an evaluation runs on the hand kernels or raises. The reference's
-TPU-measured platform
+resident state, counted in ``sharded_dispatches``), and the dispatch
+fallback chain with its circuit breaker (``_dispatch`` / ``_kernel_at``)
+for a primary on the host (``kernel_platform: cpu``): an evaluation call
+that raises there is demoted, in the same cycle, to a fresh plain version
+on a host copy and then to the numpy evaluator
+(ops.kernel.NumpyFleetKernel), each demotion counted
+(``dispatch_errors``, ``dispatch_fallbacks``, ``backend_level``; the
+``yoda_dispatch_*`` families). Only a failure inside the evaluation call
+is demoted: a failure of the resident state's row sync before it
+(``_refresh_static``) raises out of the cycle. A primary on the card never
+demotes, a departure from the reference: a failed launch, build or load
+there is counted in ``dispatch_errors`` and re-raised, the cycle ends in
+error and the pod is retried, so the card's faults are never served
+quietly from the host. Left out: the reference's TPU-measured platform
 policy (``_device_for`` / ``_dispatch_floor_ms`` and the
-``AUTO_DEVICE_MIN_ELEMS`` / ``AUTO_REMOTE_FLOOR_MS`` cut-offs) is not
-carried over: ``kernel_platform`` picks the device outright
-(ops.kernel.resolve_device).
+``AUTO_DEVICE_MIN_ELEMS`` / ``AUTO_REMOTE_FLOOR_MS`` cut-offs):
+``kernel_platform`` picks the device outright (ops.kernel.resolve_device).
 """
 
 from __future__ import annotations
@@ -72,6 +81,7 @@ from yoda_tpu_torch.ops.kernel import (
     REASON_MESSAGES,
     KernelRequest,
     KernelResult,
+    NumpyFleetKernel,
     TorchFleetKernel,
     resolve_device,
 )
@@ -87,6 +97,21 @@ from yoda_tpu_torch.plugins.yoda.filter_plugin import (
 from yoda_tpu_torch.plugins.yoda.gang import ALLOWED_HOSTS_KEY, GANG_REMAINING_KEY
 
 log = logging.getLogger("yoda_tpu_torch.batch")
+
+# Dispatch fallback chain (failure-domain hardening) for a primary on the
+# host: an exception from the evaluation call demotes the call one backend
+# level instead of crashing the scheduling loop. Levels: 0 = the primary
+# (the plain version under kernel_platform: cpu, or the mesh kernel over
+# host shards), 1 = a fresh TorchFleetKernel on the host (the plain version
+# on a host copy; kept for parity with the reference's levels, whose level
+# 1 is its XLA host kernel), 2 = the numpy evaluator
+# (ops.kernel.NumpyFleetKernel). After this many consecutive failures at a
+# level the circuit breaker pins dispatches below it until restart, so a
+# level that keeps failing is not probed every cycle. A primary on the card
+# never demotes (YodaBatch._dispatch).
+CIRCUIT_BREAK_FAILURES = 3
+_MAX_FALLBACK_LEVEL = 2
+_LEVEL_NAMES = ("primary", "plain version on the host", "numpy evaluator")
 
 
 def _pod_constraints(pod: PodSpec) -> tuple:
@@ -378,8 +403,16 @@ class YodaBatch(BatchFilterScorePlugin):
         self.sets_retained = 0        # burst/joint sets kept across an
                                       # unrelated-node epoch bump
         self.dispatch_count = 0   # real kernel dispatches
-        self.dispatch_errors = 0  # dispatches that raised (none are retried)
-        self.sharded_dispatches = 0  # dispatches on the mesh kernel
+        self.sharded_dispatches = 0  # level-0 dispatches on the mesh kernel
+        # Dispatch fallback chain + circuit breaker: the counters feed the
+        # yoda_dispatch_* families; _fb_* cache the demoted kernels and the
+        # static arrays they last put.
+        self.dispatch_errors = 0      # dispatch exceptions caught
+        self.dispatch_fallbacks = 0   # dispatches completed on a demoted level
+        self._backend_level = 0       # circuit-breaker pin (0 = primary)
+        self._level_failures: dict[int, int] = {}
+        self._fb_kerns: dict[int, object] = {}
+        self._fb_static_key: dict[int, tuple] = {}
         # Multi-pod burst dispatch: prepare_burst evaluates up to
         # batch_requests pending pods in one kernel call; their cycles are
         # then served from _burst.
@@ -447,18 +480,124 @@ class YodaBatch(BatchFilterScorePlugin):
         r = self._resident
         return r.last_delta_ms if r is not None else 0.0
 
-    def _dispatch(self, call):
-        """Run ``call`` on the kernel. A failure is counted and re-raised:
-        there is no demotion to another backend. A dispatch on the mesh
-        kernel counts in ``sharded_dispatches``."""
+    @property
+    def backend_level(self) -> int:
+        """0 = primary kernel, 1 = the plain version on the host, 2 = the
+        numpy evaluator: the circuit breaker's current pin
+        (yoda_dispatch_backend_level; nonzero means the scheduler serves
+        in degraded mode; always 0 for a primary on the card)."""
+        return self._backend_level
+
+    def _primary_on_card(self) -> bool:
+        """Whether the primary kernel's tensors live on the card (no
+        demotion then; see :meth:`_dispatch`)."""
+        return self.device.type == "cuda"
+
+    def _kernel_at(self, level: int, static: FleetArrays):
+        """The kernel serving fallback ``level``, with ``static`` put. Level
+        0 is the primary (already loaded by _refresh_static); the demoted
+        levels are built lazily and re-put ``static`` only when it changed.
+        None = this level is unavailable (its construction or put failed)
+        and the chain skips it for good."""
+        if level == 0:
+            return self._kern
+        kern = self._fb_kerns.get(level)
+        if kern is False:
+            return None  # permanently unavailable (construction failed)
         try:
-            out = call(self._kern)
-        except Exception:
-            self.dispatch_errors += 1
-            raise
-        if self.mesh_devices:
-            self.sharded_dispatches += 1
-        return out
+            if kern is None:
+                if level == 1:
+                    kern = TorchFleetKernel(self.weights, device="cpu")
+                else:
+                    kern = NumpyFleetKernel(self.weights)
+                self._fb_kerns[level] = kern
+            # The arrays by identity (a FleetArrays compares its arrays
+            # element-wise, so == on two fleets of the same names raises);
+            # the key holds a strong reference, so a collected object's
+            # reused id cannot alias it.
+            last = self._fb_static_key.get(level)
+            if last is None or last[0] is not static or last[1] != self._cache_version:
+                kern.put_static(static)
+                self._fb_static_key[level] = (static, self._cache_version)
+            return kern
+        except Exception:  # noqa: BLE001 — a broken level is skipped, not fatal
+            log.exception("fallback kernel level %d unavailable", level)
+            self._fb_kerns[level] = False
+            return None
+
+    def _dispatch(self, static: FleetArrays, call):
+        """Run ``call`` (kern -> result) on the primary kernel.
+
+        On the card (the hand kernels, or the mesh kernel over the card's
+        shards) a failure is counted in ``dispatch_errors`` and re-raised,
+        whatever it is (a failed build or load, a refused launch, a CUDA
+        error, a wrong argument): the cycle ends in error and the pod is
+        retried, and nothing the card was asked to evaluate is served from
+        the host. This departs from the reference, which demotes there too.
+
+        On the host (``kernel_platform: cpu``) it runs the reference's chain:
+        the primary -> the plain version on a host copy -> the numpy
+        evaluator. An exception from ``call`` falls to the next level in
+        the SAME call, so the cycle completes: each is counted in
+        ``dispatch_errors``, each completion below the primary in
+        ``dispatch_fallbacks``, and the circuit breaker pins dispatches
+        below a level after CIRCUIT_BREAK_FAILURES consecutive failures
+        there. Only ``call`` is covered: the row sync before it
+        (``_refresh_static``) is not. Raises the last error when every
+        level failed."""
+        if self._primary_on_card():
+            try:
+                out = call(self._kern)
+            except Exception:
+                self.dispatch_errors += 1
+                raise
+            if self.mesh_devices:
+                self.sharded_dispatches += 1
+            return out
+        level = self._backend_level
+        last_error: Exception | None = None
+        while level <= _MAX_FALLBACK_LEVEL:
+            kern = self._kernel_at(level, static)
+            if kern is None:
+                level += 1
+                continue
+            try:
+                out = call(kern)
+            except Exception as e:  # noqa: BLE001 — any failure demotes, as the reference
+                self.dispatch_errors += 1
+                last_error = e
+                fails = self._level_failures.get(level, 0) + 1
+                self._level_failures[level] = fails
+                if (
+                    fails >= CIRCUIT_BREAK_FAILURES
+                    and self._backend_level == level
+                    and level < _MAX_FALLBACK_LEVEL
+                ):
+                    self._backend_level = level + 1
+                    log.error(
+                        "kernel backend level %d failed %d times (%s); "
+                        "circuit breaker pins dispatches to level %d (%s) "
+                        "until restart",
+                        level, fails, e, level + 1, _LEVEL_NAMES[level + 1],
+                    )
+                else:
+                    log.warning(
+                        "kernel dispatch failed at backend level %d (%s); "
+                        "demoting this dispatch", level, e,
+                    )
+                level += 1
+                continue
+            self._level_failures[level] = 0  # consecutive-failure semantics
+            if level > 0:
+                self.dispatch_fallbacks += 1
+            elif self.mesh_devices:
+                # Level 0 on the mesh kernel: a node-sharded dispatch
+                # (yoda_sharded_dispatches_total).
+                self.sharded_dispatches += 1
+            return out
+        if last_error is not None:
+            raise last_error
+        raise RuntimeError("no kernel backend available for dispatch")
 
     def _dyn_for(
         self, static: FleetArrays, host_ok: "np.ndarray | None" = None
@@ -620,7 +759,7 @@ class YodaBatch(BatchFilterScorePlugin):
             static,
             host_ok=self._admission_vec(static, snapshot, pod, aff, pending_res),
         )
-        result = self._dispatch(lambda kern: kern.evaluate(dyn, reqk))
+        result = self._dispatch(static, lambda kern: kern.evaluate(dyn, reqk))
         self.dispatch_count += 1
         # Soft steering (preferred node affinity, preferred pod affinity,
         # spread balance) is a host-side additive term, per (pod, node).
@@ -797,7 +936,7 @@ class YodaBatch(BatchFilterScorePlugin):
         pad = KernelRequest(1, 0, 0, 0, 0)
         requests += [pad] * (k - len(requests))
         results = self._dispatch(
-            lambda kern: kern.evaluate_burst(dyn, host_ok_k, requests)
+            static, lambda kern: kern.evaluate_burst(dyn, host_ok_k, requests)
         )
         self.dispatch_count += 1
         self.burst_dispatches += 1
@@ -1153,7 +1292,7 @@ class YodaBatch(BatchFilterScorePlugin):
         # pinned copy is synchronized before they return), so [td0, td1]
         # covers the launches and their results on the card.
         td0 = time.monotonic()
-        grouped, joint_fits = self._dispatch(run_joint)
+        grouped, joint_fits = self._dispatch(static, run_joint)
         if joint_fits is not None:
             self.fused_plan_dispatches += 1
         self.dispatch_count += 1

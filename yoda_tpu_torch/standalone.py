@@ -1189,9 +1189,9 @@ def _register_stack_families(
 def _register_batch_families(metrics, batch):
     """The batch plugin's lazy counters, as the reference registers them,
     summed over every stack's plugin sharing the registry. The dispatch
-    fallback chain is not ported: its families read 0 (an evaluation on
-    the card runs on the hand kernels or raises, so nothing is ever
-    demoted)."""
+    fallback chain's families read the plugins' counters; a primary on the
+    card never demotes, so there only ``yoda_dispatch_errors_total`` moves.
+    The help strings stay the reference's."""
     r = metrics.registry
 
     def register(acc):
@@ -1287,7 +1287,7 @@ def _register_batch_families(metrics, batch):
             "Dispatches completed on a DEMOTED kernel backend "
             "(primary -> XLA host kernel -> numpy evaluator) — "
             "nonzero means degraded-mode operation",
-            lambda: 0,
+            lambda: sum(p.dispatch_fallbacks for p in acc),
         )
         r.gauge(
             "yoda_dispatch_backend_level",
@@ -1295,7 +1295,7 @@ def _register_batch_families(metrics, batch):
             "host fallback, 2 = numpy evaluator (max over profiles; "
             "nonzero = a backend was pinned down after repeated "
             "dispatch failures)",
-            lambda: 0,
+            lambda: max((p.backend_level for p in acc), default=0),
         )
         r.counter(
             "yoda_snapshot_reuse_total",

@@ -16,9 +16,10 @@ produces, on a seeded schedule a test can replay exactly:
   classifier), transient timeouts, unbind failures, dropped agent
   publishes, and metric staleness (backdated ``last_updated_unix``).
 - ``ChaosKernel``: wraps any ``FleetKernelLike``; injects kernel dispatch
-  exceptions (the Pallas-lowering / device-runtime failure class). Only
-  the PRIMARY kernel is wrapped, so YodaBatch's fallback chain demotes to
-  healthy backends — exactly the path the tests assert.
+  exceptions (the launch-failure class). Only the PRIMARY kernel is
+  wrapped, so on a host primary YodaBatch's fallback chain demotes to
+  healthy backends — exactly the path the tests assert; on a card primary
+  the fault is counted and re-raised, never demoted.
 - ``maybe_drop_watch``: consumes a scheduled "watch" fault by compacting
   a ``FakeKubeApiServer``'s event window, killing open watch streams with
   410 Gone (forcing the client's relist-and-resync).
@@ -59,11 +60,15 @@ cluster — plus a fresh ``build_stack`` whose warm-start resync
 (framework/reconciler.py) must then recover the half-bound state.
 
 Counterpart of ``yoda_tpu/testing/chaos.py`` over the port's modules,
-every import at call time as there. Two differences. The port has no
-dispatch fallback chain yet (ROADMAP item 15): a scheduled ``dispatch``
-fault raises out of the batch plugin's evaluation (counted in
-``dispatch_errors``) and through the scheduling cycle, never demoting to
-another backend. :class:`DriveWorker` takes a ``device`` (a
+every import at call time as there. A scheduled ``dispatch`` fault
+raises from the primary kernel's evaluation. On a primary on the host
+(``kernel_platform: cpu``) the batch plugin's dispatch chain demotes that
+dispatch to the plain version on a host copy (then to the numpy
+evaluator), counted in ``dispatch_errors`` and ``dispatch_fallbacks``, as
+in the reference. Two differences: on a primary on the card the fault is
+counted in ``dispatch_errors`` and re-raised, never demoted (the cycle
+ends in error and the pod is retried); and
+:class:`DriveWorker` takes a ``device`` (a
 ``kernel_platform`` value: "auto", the default, is the card and raises
 without one; "cpu" is how a caller asks for the host) and spawns the
 port's worker entry with it. ``ChaosCluster.probe`` (the federation
@@ -463,7 +468,12 @@ class ChaosCluster:
 
 class ChaosKernel:
     """Wraps a ``FleetKernelLike``; scheduled "dispatch" faults raise from
-    every evaluate path (the Pallas/XLA runtime-failure class)."""
+    every evaluate path (the launch-failure class: a CUDA error, a refused
+    launch). Like the reference's, it has no ``evaluate_joint_plan``: a
+    fused plain-gang pass through it raises ``AttributeError``, which the
+    batch plugin's dispatch chain on a host primary demotes as it demotes a
+    failed launch, without drawing from the plan (a card primary re-raises
+    it)."""
 
     def __init__(self, inner, plan: ChaosPlan) -> None:
         self._inner = inner
@@ -513,16 +523,15 @@ class ChaosKernel:
 
 def install_chaos_kernel(batch_plugin, plan: ChaosPlan) -> ChaosKernel:
     """Wrap ``batch_plugin``'s PRIMARY kernel with a ``ChaosKernel``. The
-    fallback levels (XLA host / numpy) are not wrapped — dispatch faults
-    prove the demotion path, they don't sabotage it. The XLA kernel is
-    built lazily by the platform policy, so run one scheduling cycle (or
-    use kernel_backend='pallas' / mesh, built eagerly) before installing."""
+    fallback levels (the plain version on the host, the numpy evaluator)
+    are not wrapped — dispatch faults prove the demotion path, they don't
+    sabotage it. The port's batch plugin builds its primary kernel at
+    construction, so the wrapper installs before the first cycle too."""
     inner = batch_plugin._kern
     if inner is None:
         raise RuntimeError(
-            "batch plugin has no kernel yet — run one scheduling cycle "
-            "before installing the chaos kernel (the XLA kernel is built "
-            "lazily by the platform policy)"
+            "batch plugin has no kernel yet — build it before installing "
+            "the chaos kernel"
         )
     wrapped = ChaosKernel(inner, plan)
     batch_plugin._kern = wrapped
