@@ -424,8 +424,10 @@ Phases, each of which makes the script exit non-zero when it fails:
        p99 by op, ``os.cpu_count()``;
    (p2) ``python -m yoda_tpu_torch.cli`` with ``shard_count`` 4,
        ``shard_mode: process`` and the journal over run (l)'s API server
-       process: run (c)'s two gang waves with 64 of run (b)'s singletons
-       (cut from 256, then 128) split over them; the worker of lane s0 gets SIGKILL
+       process: half of run (c)'s gangs (4 plain, 4 coscheduling, 8
+       topology, 2 multislice; all of them until run (t) came) in its two
+       waves with 64 of run (b)'s singletons (cut from 256, then 128)
+       split over them; the worker of lane s0 gets SIGKILL
        once half of wave 1 is bound and every worker has run a cycle. Gates: every pod bound, gangs whole on valid blocks, no
        host over its chips, no second bind refused (409), ``/debug/shards``
        showing 4 workers alive and lane s0 restarted once, no staged
@@ -450,7 +452,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    (q1) ``testing.tracegen.replay`` over the 5,000-node fleet with the
        rebalancer driven (its default configuration, ``kernel_platform:
        auto``, with ``bind_workers: 0``): two virtual minutes of three
-       tenants on a diurnal wave (team-a singletons at priority 5, team-b
+       tenants at half the trace's arrival rates (the whole rate until run
+       (t) came) on a diurnal wave (team-a singletons at priority 5, team-b
        singletons and plain gangs of 2-4, team-c 2x2x1 topology gangs), a
        flash crowd, foreign churn, 4 hosts killed at 60 s, 8 drained at
        80 s for 30 s. The fingerprint, the SLO evaluation, the counts and
@@ -557,11 +560,32 @@ Phases, each of which makes the script exit non-zero when it fails:
    ``dispatch_errors``, ``dispatch_fallbacks`` and ``backend_level`` at 0
    (``DispatchWatch`` over every dispatch of this process, and each run's
    own records; (p1)'s workers and (r1)'s member stacks report theirs).
-   Run (s) comes last, and lifts the bound its level-1 kernels put on
-   torch's intra-op pool when it ends.
+   Run (s) comes last (its faults count in every dispatch watched after
+   it), and lifts the bound its level-1 kernels put on torch's intra-op
+   pool when it ends. Run (t), just before it, is the platform policy
+   (the dispatch-floor probe and its gauge; ``PLATFORM_FULL``), on the
+   5,000-node fleet (8,192 x 8 padded) and on run (d)'s 52 contended v5e
+   hosts as a fleet of their own (64 x 8 padded):
+   (t1) the floor probe (the least of five round trips of ``a + 1`` over 8
+       int32 on the card; seven launches, counted where each is made) and
+       ``yoda_kernel_dispatch_floor_ms`` read from a served ``/metrics``,
+       beside ``fleet_eval``'s own round trip at 8 padded rows;
+   (t2) ms per evaluation (median of 20) on seeded fleets of 64, 512,
+       1,024, 4,096 and 8,192 padded rows x 8 chips, K = 1 and 16: the
+       card's kernel, the plain version on the host and the numpy
+       evaluator, every result equal to the card's; the smallest shape
+       at which the card wins, per K (the evidence on which the port
+       refuses ``kernel_device_min_elems``);
+   (t3) a default stack: run (d)'s gangs on the 52 hosts (three bind, the
+       fourth parks), the fleet grown through the agent to 600 hosts
+       (1,024 x 8), where the parked gang and 32 singletons bind, and run
+       (a)'s 64 singletons on the 5,000-node fleet, every evaluation on
+       the card with launches equal to them; bindings equal a
+       ``kernel_platform: cpu`` stack's, which launches nothing and never
+       probes.
 4. One line {"kernels": [...]} with each kernel's launches over every run
    above (runs (h)'s, (i)'s, (j)'s, (k)'s, (l)'s, (o)'s, (q)'s, (r)'s and
-   (s)'s also by part or apart, run (r)'s by member stack, run (o)'s by
+   (s)'s and (t)'s also by part or apart, run (r)'s by member stack, run (o)'s by
    lane, run (p1)'s by worker process, and the
    speculation thread's apart; the shard entry's from run (n2)), its
    largest difference from the plain version and its times ("not
@@ -4067,8 +4091,10 @@ OBSERVABILITY_FULL = dict(slices=512, v5e_hosts=2952, spot=320, prod=8, pairs=1,
 OBSERVABILITY_SMALL = dict(slices=32, v5e_hosts=160, spot=272, prod=4, pairs=1,
                            hold_s=1.2, scrapes=3)
 # Families whose values are wall-clock readings or name the device: their
-# sample counts are compared, their values are not.
-OBS_WALL = ("yoda_bind_wall_ms", "yoda_delta_apply_ms", "yoda_kernel_on_accelerator")
+# sample counts are compared, their values are not. The dispatch floor is
+# the card's probe (0 on a host stack, which never probes).
+OBS_WALL = ("yoda_bind_wall_ms", "yoda_delta_apply_ms", "yoda_kernel_on_accelerator",
+            "yoda_kernel_dispatch_floor_ms")
 PHASES = ("prefilter", "spec", "filter", "score", "reserve", "permit", "postfilter",
           "total")
 TRACE_DIR = "build"
@@ -7414,11 +7440,13 @@ PROC_FULL = dict(slices=512, v5e_hosts=2952, shards=4, singles_b=256, plain=8,
                  plain_size=16, warmup=8, baselines=False)
 PROC_SMALL = dict(slices=16, v5e_hosts=96, shards=2, singles_b=32, plain=2,
                   plain_size=4, warmup=2, baselines=True)
-# (p2): the CLI over the wire with run (c)'s two gang waves and half of
-# run (b)'s singletons (cut from 256 to hold the script's time); (p3):
-# the leader / tailing standby pair with ``failover`` singletons, the
-# leader stopped after half.
-PROC_WIRE_FULL = dict(slices=512, v5e_hosts=2952, shards=4, singles_b=64, script={},
+# (p2): the CLI over the wire with half of run (c)'s gangs in its two
+# waves (cut when run (t) came) and a quarter of run (b)'s singletons
+# (cut from 256 to hold the script's time); (p3): the leader / tailing
+# standby pair with ``failover`` singletons, the leader stopped after half.
+PROC_WIRE_FULL = dict(slices=512, v5e_hosts=2952, shards=4, singles_b=64,
+                      script=dict(plain=4, plain_size=16, cosched=4, topo=8, multi=2,
+                                  singles=64),
                       failover=64)
 PROC_WIRE_SMALL = dict(slices=16, v5e_hosts=96, shards=2, singles_b=16,
                        script=dict(plain=2, plain_size=4, cosched=2, topo=2, multi=1,
@@ -8240,7 +8268,9 @@ def phase_proc(smi: str, lanes: dict) -> dict:
 
 # ``rate`` scales every arrival rate of run (q1)'s trace; ``kill`` and
 # ``drain`` are its failure burst's and rolling drain's host counts.
-CHAOS_FULL = dict(hosts=2952, slices=512, rate=1.0, kill=4, drain=8, shards=4, contended=4,
+# (q1)'s arrival rates at half the trace's (cut from 1.0 to hold the
+# script's time when run (t) came).
+CHAOS_FULL = dict(hosts=2952, slices=512, rate=0.5, kill=4, drain=8, shards=4, contended=4,
                   contention_hosts=2952)
 CHAOS_SMALL = dict(hosts=64, slices=8, rate=0.25, kill=2, drain=4, shards=4, contended=4,
                    contention_hosts=8)
@@ -10000,6 +10030,328 @@ def phase_fallback(smi: str) -> dict:
     return g
 
 
+# --- run (t): the platform policy -------------------------------------------
+
+# The 5,000-node fleet (8,192 x 8 padded) and run (d)'s 52 contended v5e
+# hosts alone (64 x 8 padded), which then grow to ``grown_hosts`` (1,024 x
+# 8).
+PLATFORM_FULL = dict(slices=512, v5e_hosts=2952, small_hosts=52, grown_hosts=600,
+                     singles=64, grown_singles=32,
+                     sweep=(64, 512, 1024, 4096, 8192), timing_calls=20)
+PLATFORM_SMALL = dict(slices=8, v5e_hosts=40, small_hosts=52, grown_hosts=200,
+                      singles=8, grown_singles=8, sweep=(64, 512), timing_calls=3)
+
+
+def gauge_of(text: str, family: str) -> "float | None":
+    """One unlabelled sample's value from a /metrics page."""
+    for line in text.splitlines():
+        if line.startswith(family + " "):
+            return float(line.split()[1])
+    return None
+
+
+class EvalTap:
+    """While installed, every ``cuda_kernel.fleet_eval`` / ``joint_fit``
+    call of this process is counted by where its tensors lie: a call on
+    the card launches (``fleet_eval`` one launch per 128 requests), a call
+    on the host runs the plain version."""
+
+    def install(self) -> "EvalTap":
+        from yoda_tpu_torch.ops import cuda_kernel
+
+        self.mod, self.real = cuda_kernel, (cuda_kernel.fleet_eval, cuda_kernel.joint_fit)
+        self.card_chunks = self.card_calls = self.host_calls = 0
+        self.joint_card = self.joint_host = 0
+        tap = self
+        real_eval, real_joint = self.real
+
+        def fleet_eval(*args, **kw):
+            if args[0].is_cuda:
+                tap.card_calls += 1
+                tap.card_chunks += -(-int(args[4].shape[0]) // cuda_kernel.MAX_REQUESTS)
+            else:
+                tap.host_calls += 1
+            return real_eval(*args, **kw)
+
+        def joint_fit(packed, *rest, **kw):
+            if packed.is_cuda:
+                tap.joint_card += 1
+            else:
+                tap.joint_host += 1
+            return real_joint(packed, *rest, **kw)
+
+        cuda_kernel.fleet_eval, cuda_kernel.joint_fit = fleet_eval, joint_fit
+        return self
+
+    def restore(self) -> None:
+        self.mod.fleet_eval, self.mod.joint_fit = self.real
+
+    def counts(self) -> dict:
+        return dict(card_calls=self.card_calls, card_chunks=self.card_chunks,
+                    host_calls=self.host_calls, joint_card=self.joint_card,
+                    joint_host=self.joint_host)
+
+
+def small_fleet_stack(platform: str, size: dict):
+    """Run (d)'s 52 contended v5e hosts as a fleet of their own (Node
+    objects pool=contended), on a stack at ``batch_requests`` 16."""
+    from yoda_tpu_torch.agent.fake_publisher import FakeTpuAgent
+    from yoda_tpu_torch.config import SchedulerConfig
+    from yoda_tpu_torch.standalone import build_stack
+
+    stack = build_stack(config=SchedulerConfig(kernel_platform=platform, batch_requests=16))
+    agent = FakeTpuAgent(stack.cluster)
+    grow_hosts(stack, agent, 0, size["small_hosts"])
+    return stack, agent
+
+
+def grow_hosts(stack, agent, start: int, stop: int) -> None:
+    from yoda_tpu_torch.api.types import K8sNode
+
+    for h in range(start, stop):
+        agent.add_host(f"v5e-{h:04d}", generation="v5e", chips=8)
+        stack.cluster.put_node(K8sNode(f"v5e-{h:04d}", labels={"pool": "contended"}))
+    agent.publish_all()
+    if stack.ingestor is not None:
+        stack.ingestor.flush()
+
+
+def drive(stack, pods, tap: EvalTap) -> dict:
+    """Create ``pods`` ((name, labels, selector)), drain; what the
+    evaluations did meanwhile, by device."""
+    from yoda_tpu_torch.api.types import PodSpec
+    from yoda_tpu_torch.ops import cuda_kernel
+
+    before = tap.counts()
+    b = stack.batch
+    for name, labels, selector in pods:
+        stack.cluster.create_pod(PodSpec(name, labels=dict(labels),
+                                         node_selector=selector or {}))
+    cuda_kernel.launches = cuda_kernel.joint_fit_launches = 0
+    t0 = time.monotonic()
+    stack.scheduler.run_until_idle(max_wall_s=600)
+    if b.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    after = tap.counts()
+    return dict({k: after[k] - before[k] for k in after},
+                launches=cuda_kernel.launches, joint_fit_launches=cuda_kernel.joint_fit_launches,
+                wall_s=wall, dispatch_count=b.dispatch_count, device=str(b.device),
+                padded=list(b._static.padded_shape) if b._static is not None else None,
+                restacks=b.restacks, **dispatch_health(b))
+
+
+def run_platform(platform: str, size: dict = PLATFORM_FULL) -> dict:
+    """(t3) on one platform: run (d)'s gangs on the 52
+    contended hosts alone (three bind, the fourth parks), the fleet grown
+    through the agent to ``grown_hosts`` (every new host contended: the
+    parked gang binds) with ``grown_singles`` singletons; then run (a)'s
+    singletons on the 5,000-node fleet at K = 1. Every count is zeroed
+    just before each drive."""
+    waves, gangs = contended_script()
+    singles = [(f"g-s{j:02d}", {"tpu/chips": str(1 + j % 4), "tpu/generation": "v5e"},
+                None) for j in range(size["grown_singles"])]
+    pods_a = [(n, labels, None) for n, labels in fleet_and_pods(seed=0)[0][:size["singles"]]]
+    tap = EvalTap().install()
+    out: dict = {"platform": platform}
+    try:
+        small, agent = small_fleet_stack(platform, size)
+        try:
+            out["small"] = drive(small, waves[0], tap)
+            out["small"]["joint_parked"] = small.batch.joint_parked  # the fourth gang
+            grow_hosts(small, agent, size["small_hosts"], size["grown_hosts"])
+            out["grown"] = drive(small, singles, tap)
+            names = [n for n, _, _ in waves[0] + singles]
+            out["small_bindings"] = bindings_of(small, names)
+            b = small.batch
+            out["floor_ms"] = b._floor_ms
+            if platform != "cpu":
+                from yoda_tpu_torch.metrics_server import MetricsServer
+                import urllib.request
+
+                server = MetricsServer(small.metrics, host="127.0.0.1", port=0)
+                server.start()
+                try:
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{server.port}/metrics", timeout=30) as r:
+                        page = r.read().decode()
+                finally:
+                    server.stop()
+                out["floor_gauge"] = gauge_of(page, "yoda_kernel_dispatch_floor_ms")
+        finally:
+            small.close()
+        big, _agent = build_fleet(platform, 1, slices=size["slices"],
+                                  v5e_hosts=size["v5e_hosts"])
+        try:
+            out["big"] = drive(big, pods_a, tap)
+            out["big_bindings"] = bindings_of(big, [n for n, _, _ in pods_a])
+            out["big_floor_ms"] = big.batch._floor_ms
+        finally:
+            big.close()
+    finally:
+        tap.restore()
+    return out
+
+
+def platform_sweep(size: dict) -> dict:
+    """(t2): ms per evaluation (median of ``timing_calls`` round trips) on
+    synthetic fleets of ``sweep`` padded rows x 8 chips, K = 1 and 16: the
+    card's TorchFleetKernel, the plain version on the host (torch's pool
+    bound as a host stack bounds it) and NumpyFleetKernel; every result
+    held against the card's (tolerance 0). The smallest shape at which the
+    card beats both host evaluators, per K."""
+    from yoda_tpu_torch.config import SchedulerConfig
+    from yoda_tpu_torch.ops.kernel import KernelRequest
+
+    weights = SchedulerConfig().effective_weights()
+    card = torch.device("cuda", 0)
+    rows, err = [], 0
+    for n_pad in size["sweep"]:
+        chips, nodes, dyn = random_fleet(n_pad - n_pad // 4, n_pad, seed=n_pad + 7)
+        view = fleet_arrays(chips, nodes, dyn)
+        kerns = level_kernels(weights, view, card)
+        for k in (1, 16):
+            rng = np.random.default_rng(n_pad + k)
+            host_ok = (rng.random((k, n_pad)) > 0.2).astype(np.int32)
+            reqs = [KernelRequest(*map(int, REQUEST_TABLE[i % len(REQUEST_TABLE)]))
+                    for i in range(k)]
+            row = dict(padded=n_pad, chips=CHIPS, k=k)
+            want = kerns[0].evaluate_burst(dyn, host_ok, reqs)
+            for level, name in ((0, "card_ms"), (1, "host_torch_ms"), (2, "numpy_ms")):
+                kern = kerns[level]
+                got = kern.evaluate_burst(dyn, host_ok, reqs)
+                e = rows_err(got, want)
+                err = e if e < 0 or err < 0 else max(err, e)
+                ms = []
+                for _ in range(size["timing_calls"]):
+                    t = time.perf_counter()
+                    kern.evaluate_burst(dyn, host_ok, reqs)
+                    ms.append(1e3 * (time.perf_counter() - t))
+                row[name] = statistics.median(ms)
+            row["card_wins"] = row["card_ms"] < min(row["host_torch_ms"], row["numpy_ms"])
+            rows.append(row)
+    crossover = {}
+    for k in (1, 16):
+        wins = [r["padded"] for r in rows if r["k"] == k and r["card_wins"]]
+        crossover[f"k{k}"] = min(wins) if wins else None
+    return dict(rows=rows, max_abs_err=err, crossover_padded_rows=crossover)
+
+
+def floor_probe_timing(calls: int = 20) -> dict:
+    """(t1) beside the probe: fleet_eval's own round trip at 8 padded rows
+    (one node; TorchFleetKernel.evaluate_burst, K = 1, median of ``calls``
+    after warm-up), the probe's op on the host, and one torch.add
+    round trip on the card as the library's own call of the same
+    function; the probe's result against numpy."""
+    from yoda_tpu_torch.config import SchedulerConfig
+    from yoda_tpu_torch.ops.kernel import KernelRequest, TorchFleetKernel
+
+    weights = SchedulerConfig().effective_weights()
+    chips, nodes, dyn = random_fleet(1, 8, seed=8)
+    kern = TorchFleetKernel(weights, torch.device("cuda", 0))
+    kern.put_static(fleet_arrays(chips, nodes, dyn))
+    host_ok = np.ones((1, 8), dtype=np.int32)
+    req = [KernelRequest(1, 0, 0, 0, 0)]
+
+    def median_ms(fn) -> float:
+        fn()
+        ms = []
+        for _ in range(calls):
+            t = time.perf_counter()
+            fn()
+            ms.append(1e3 * (time.perf_counter() - t))
+        return statistics.median(ms)
+
+    x = torch.zeros(8, dtype=torch.int32, device="cuda")
+    xh = torch.zeros(8, dtype=torch.int32)
+    got = (x + 1).cpu().numpy()
+    return dict(
+        fleet_eval_round_trip_8_rows_ms=median_ms(lambda: kern.evaluate_burst(dyn, host_ok, req)),
+        probe_op_host_ms=median_ms(lambda: (xh + 1).numpy()),
+        library_add_ms=median_ms(lambda: torch.add(x, 1).cpu()),
+        probe_max_abs_err=int(np.abs(got - (np.zeros(8, np.int32) + 1)).max()),
+        probe_bound_ms=2 * 8 * 4 / MEM_BYTES_PER_S * 1e3,
+    )
+
+
+def check_platform(card: dict, cpu: dict, sweep: dict) -> None:
+    """(t1)-(t3)'s gates."""
+    bad = []
+    for what in ("small_bindings", "big_bindings"):
+        if card[what] != cpu[what]:
+            bad.append(f"{what} differ between the card and cpu stacks")
+    for run in (card, cpu):
+        unbound = [n for n, v in run["small_bindings"].items() if v is None]
+        unbound += [n for n, v in run["big_bindings"].items() if v is None]
+        if unbound:
+            bad.append(f"{run['platform']}: unbound {unbound[:4]}")
+        if run["small"]["joint_parked"] < 1:
+            bad.append(f"{run['platform']}: no gang parked at the gate before the growth")
+        for part in ("small", "grown", "big"):
+            r = run[part]
+            if demoted(r):
+                bad.append(f"{run['platform']} {part}: {demoted(r)}")
+            if (r["launches"], r["joint_fit_launches"]) != (r["card_chunks"], r["joint_card"]):
+                bad.append(f"{run['platform']} {part}: launches {r['launches']} / "
+                           f"{r['joint_fit_launches']} for {r['card_chunks']} chunks / "
+                           f"{r['joint_card']} joint passes on the card")
+    # (t3): the default stack evaluates everything on the card at both
+    # sizes; the cpu stack launches nothing.
+    for part in ("small", "grown", "big"):
+        r = card[part]
+        if r["host_calls"] or r["joint_host"] or r["device"] == "cpu" or not r["card_calls"]:
+            bad.append(f"(t3) default stack {part} not all on the card: {r}")
+        if cpu[part]["card_calls"] or cpu[part]["joint_card"]:
+            bad.append(f"(t3) the cpu stack launched a kernel in {part}")
+    # (t1): the probe ran, counted its launches, and its gauge reads it.
+    if not card["floor_ms"] or card.get("floor_gauge") != card["floor_ms"]:
+        bad.append(f"(t1) floor {card['floor_ms']} against the gauge {card.get('floor_gauge')}")
+    if card["probe_launches"] != 2 * PROBE_LAUNCHES:  # the small and the big stack
+        bad.append(f"(t1) {card['probe_launches']} probe launches, not "
+                   f"{2 * PROBE_LAUNCHES}")
+    if cpu["floor_ms"] is not None or cpu["probe_launches"]:
+        bad.append("(t1) a cpu stack probed the floor")
+    if sweep["max_abs_err"] != 0:
+        bad.append(f"(t2) a host evaluator differs from the card: {sweep['max_abs_err']}")
+    if bad:
+        raise AssertionError("run (t): " + "; ".join(bad))
+
+
+PROBE_LAUNCHES = 7  # the input's fill, the warm-up, five timed round trips
+
+
+def phase_platform(smi: str, size: dict = PLATFORM_FULL) -> dict:
+    """Run (t): (t1) the floor probe and its gauge, (t2) the crossover
+    sweep, (t3) a default stack on the card at both fleet sizes against a
+    cpu stack. The probe's launches are counted where they are made
+    (``batch.floor_probe_launches``), from 0 just before the stacks are
+    built, and read after each platform's stacks. The host kernels bound torch's pool; the run lifts
+    it again."""
+    from yoda_tpu_torch.plugins.yoda import batch as batch_mod
+
+    threads = torch.get_num_threads()
+    batch_mod.floor_probe_launches = 0
+    card = run_platform("auto", size)
+    card["probe_launches"] = batch_mod.floor_probe_launches
+    cpu = run_platform("cpu", size)
+    cpu["probe_launches"] = batch_mod.floor_probe_launches - card["probe_launches"]
+    sweep = platform_sweep(size)
+    torch.set_num_threads(threads)
+    probe = floor_probe_timing()
+    probe.update(floor_ms=card["floor_ms"], floor_gauge=card.get("floor_gauge"),
+                 launches=card["probe_launches"])
+    for name, run in (("t3 card", card), ("t3 cpu", cpu)):
+        print(f"run (t) {name} [{smi}]:", json.dumps(
+            {k: v for k, v in run.items() if not k.endswith("_bindings")}), flush=True)
+    print(f"run (t2) sweep [{smi}]:", json.dumps(sweep), flush=True)
+    print(f"run (t1) floor [{smi}]:", json.dumps(probe), flush=True)
+    check_platform(card, cpu, sweep)
+    parts = [card[p] for p in ("small", "grown", "big")]
+    launches = {"fleet_eval": sum(p["card_chunks"] for p in parts),
+                "joint_fit": sum(p["joint_card"] for p in parts)}
+    return dict(card=card, cpu=cpu, sweep=sweep, probe=probe, launches=launches)
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--spec-worker"]:
         sys.exit(spec_worker_entry(sys.argv[2:]))
@@ -10060,7 +10412,14 @@ def main() -> None:
         proc = phase("process lanes run (p)", phase_proc, smi, lanes)
         chaos = phase("chaos run (q)", phase_chaos, smi, chaos_rerun)
         federation = phase("federation run (r)", phase_federation, smi, fed_rerun)
+        from yoda_tpu_torch.plugins.yoda import batch as batch_mod
+
+        # Probe launches of this process's earlier runs (run (t) counts
+        # its own from 0), for the kernels line.
+        probes_before_t = batch_mod.floor_probe_launches
+        platform = phase("platform run (t)", phase_platform, smi)
         fallback = phase(FALLBACK_PHASE, phase_fallback, smi)
+        probe_launches_all = probes_before_t + batch_mod.floor_probe_launches
         print("phase seconds:", json.dumps(seconds))
         q_parts = ("q1", "q2", "q3")
         r_parts = ("r1", "r2", "r3")
@@ -10111,8 +10470,15 @@ def main() -> None:
                     + sum(w["launches"]["fleet_eval"] for w in proc["p1"]["kernels"].values())
                     + sum(chaos[p]["kernels"]["launches"]["fleet_eval"] for p in q_parts)
                     + sum(r_launches("fleet_eval").values())
-                    + fallback["launches"]["fleet_eval"],
+                    + fallback["launches"]["fleet_eval"]
+                    + platform["launches"]["fleet_eval"],
                     "launches_run_s": fallback["launches"]["fleet_eval"],
+                    "launches_run_t": {
+                        part: platform["card"][part]["card_chunks"]
+                        for part in ("small", "grown", "big")
+                    },
+                    "run_t_ms_per_evaluation": platform["sweep"]["rows"],
+                    "run_t_card_wins_from_padded_rows": platform["sweep"]["crossover_padded_rows"],
                     "run_s_demoted_calls": fallback["s3"]["compared"],
                     "run_s_demoted_vs_kernel_max_abs_err": fallback["s3"]["max_abs_err"],
                     "run_s_ms_per_dispatch_by_level": fallback["s3"]["timing"],
@@ -10177,7 +10543,8 @@ def main() -> None:
                                        *(chaos[p]["kernels"]["max_abs_err"]["fleet_eval"]
                                          for p in q_parts),
                                        *r_err("fleet_eval"),
-                                       fallback["max_abs_err"]["fleet_eval"]),
+                                       fallback["max_abs_err"]["fleet_eval"],
+                                       platform["sweep"]["max_abs_err"]),
                     "ms": main_row["ms"],
                     "plain_ms": main_row["plain_ms"],
                     "bound_ms": main_row["bound_ms"],
@@ -10216,8 +10583,13 @@ def main() -> None:
                     + sum(w["launches"]["joint_fit"] for w in proc["p1"]["kernels"].values())
                     + sum(chaos[p]["kernels"]["launches"]["joint_fit"] for p in q_parts)
                     + sum(r_launches("joint_fit").values())
-                    + fallback["launches"]["joint_fit"],
+                    + fallback["launches"]["joint_fit"]
+                    + platform["launches"]["joint_fit"],
                     "launches_run_s": fallback["launches"]["joint_fit"],
+                    "launches_run_t": {
+                        part: platform["card"][part]["joint_card"]
+                        for part in ("small", "grown", "big")
+                    },
                     "launches_run_r": r_launches("joint_fit"),
                     "launches_run_r_by_member": r_by_member("joint_fit"),
                     "launches_run_p1_by_worker": {
@@ -10324,6 +10696,25 @@ def main() -> None:
             # (runs (k)'s and (l)'s each held against the plain lowering),
             # times at the main path's fleet with 64 rows.
             "torch_ops": [
+                {
+                    "name": "dispatch_floor_probe",
+                    "route": "torch",
+                    "source": "yoda_tpu_torch/plugins/yoda/batch.py "
+                              "(YodaBatch._dispatch_floor_ms: a + 1 over 8 int32)",
+                    "replaces": "yoda_tpu/plugins/yoda/batch.py:534 _dispatch_floor_ms "
+                                "(jitted a + 1, :547)",
+                    "launches": platform["probe"]["launches"],
+                    "launches_all_runs_this_process": probe_launches_all,
+                    "max_abs_err": platform["probe"]["probe_max_abs_err"],
+                    "ms": platform["probe"]["floor_ms"],
+                    "gauge_ms": platform["probe"]["floor_gauge"],
+                    "plain_ms": platform["probe"]["probe_op_host_ms"],
+                    "bound_ms": platform["probe"]["probe_bound_ms"],
+                    "bound_by": "bytes",
+                    "library_ms": platform["probe"]["library_add_ms"],
+                    "fleet_eval_round_trip_8_rows_ms":
+                        platform["probe"]["fleet_eval_round_trip_8_rows_ms"],
+                },
                 {
                     "name": "update_rows",
                     "route": "torch",

@@ -13,7 +13,9 @@ node agents (run (r) at its small size), every member stack on the card;
 and the degraded-mode dispatch chain (run (s) at its small size): every
 result a host-primary stack demoted held against the hand kernels on its
 own inputs, and faults on a card stack counted and re-raised, never
-demoted.
+demoted; and the platform policy (run (t) at its small size): the floor
+probe on its gauge with its launches counted, a default stack on the card
+as its fleet grows, bindings equal to a cpu stack's.
 
 Tests marked ``cuda`` need the card and skip without one; run them there
 with ``python -m pytest -m cuda tests/test_torch_cuda.py``. This file
@@ -928,3 +930,20 @@ class TestFallbackOnCard:
         check_card_faults(run_card_faults("auto", FALLBACK_SMALL))
         check_fallback_run(run_fallback(FALLBACK_SMALL, hold_on="auto", reported=False),
                            FALLBACK_SMALL)
+
+
+@pytest.mark.cuda
+class TestPlatformOnCard:
+    def test_run_t_small(self, card):
+        """chip_smoke's run (t) at its small size: a default stack
+        evaluates run (d)'s gangs on the 52 hosts and the grown fleet on
+        the card, binding as a cpu stack does; the probe's floor is on the
+        gauge, with seven launches a stack; every host evaluator of the
+        sweep equals the card."""
+        from chip_smoke import PLATFORM_SMALL, phase_platform
+
+        threads = torch.get_num_threads()
+        try:
+            phase_platform("test", PLATFORM_SMALL)
+        finally:
+            torch.set_num_threads(threads)

@@ -55,11 +55,32 @@ def _class_skip(ref: str, reasons: "dict[str, str]") -> "dict[str, str]":
     }
 
 
-OPS_SKIP = _class_skip("test_ops.py", {
-    "TestDeviceFleetKernel": "run by test_torch_parity_ops.py",
-    "TestBatchPlatformPolicy": "the TPU-measured auto platform policy, not "
-    "carried over (ROADMAP B7)",
-})
+# The platform-policy cases that hold the reference's own answers: its
+# TPU-measured cut-offs or its JAX device handles. The port keeps the
+# device kernel_platform names at every shape; tests/test_torch_platform.py
+# holds that against the reference's _device_for over a grid, naming both
+# cut-offs.
+PLATFORM_SKIP = {
+    "TestBatchPlatformPolicy::test_auto_small_fleet_pins_cpu": "asserts the "
+    "reference's TPU-measured 2^22 cut-off (the port keeps the card at every "
+    "size) against jax.devices('cpu')",
+    "TestBatchPlatformPolicy::test_auto_large_fleet_uses_default_device_when_local":
+    "sets device_min_elems, the knob the port refuses (the card beat the host "
+    "at every shape measured, chip_smoke.py run (t2))",
+    "TestBatchPlatformPolicy::test_auto_refuses_remote_class_device": "asserts "
+    "the host for a floor over AUTO_REMOTE_FLOOR_MS against jax.devices('cpu'); "
+    "the port logs the floor and keeps the card",
+    "TestBatchPlatformPolicy::test_forced_platforms": "calls _device_for and "
+    "compares with the reference's device handles (None, jax.devices('cpu')); "
+    "the port has no per-shape decision",
+}
+
+OPS_SKIP = {
+    **_class_skip("test_ops.py", {
+        "TestDeviceFleetKernel": "run by test_torch_parity_ops.py",
+    }),
+    **PLATFORM_SKIP,
+}
 
 REFS = {
     "test_yoda_plugin.py": {},

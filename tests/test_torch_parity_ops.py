@@ -11,17 +11,15 @@ Left out, each with where it runs or the part it waits for: see ``SKIP``.
 from __future__ import annotations
 
 import pytest
+from test_torch_loop import PLATFORM_SKIP
 from torch_refcases import PACKAGES, cases, run_case
 
 REF = "test_ops.py"
-# test_torch_loop.py runs every other case of the file.
-_HERE = {
-    "TestDeviceFleetKernel": None,
-    "TestBatchPlatformPolicy": "the TPU-measured auto platform policy, not "
-    "carried over (ROADMAP B7)",
-}
+# test_torch_loop.py runs every other case of the file, and names the
+# platform-policy cases that assert the reference's own device answers.
+_HERE = {"TestDeviceFleetKernel": None}
 SKIP = {
-    c[0].split("[")[0]: _HERE.get(c[1], "run by test_torch_loop.py")
+    c[0].split("[")[0]: PLATFORM_SKIP.get(c[0], "run by test_torch_loop.py")
     for c in cases(REF, {})
     if _HERE.get(c[1], "") is not None
 }

@@ -351,6 +351,14 @@ def _split_key(pod_key: str) -> tuple[str, str]:
     return namespace, name
 
 
+def _rv_after(rv: "str | None", than: str) -> bool:
+    """Whether resourceVersion ``rv`` is newer than ``than``. The API
+    server's versions are opaque strings; they are compared only when
+    both are integers (etcd's revisions, the fake server's counter), and
+    never read as newer otherwise."""
+    return bool(rv and rv.isdigit() and than and than.isdigit() and int(rv) > int(than))
+
+
 @dataclass
 class _WatchTarget:
     kind: str                 # "Pod" | "TpuNodeMetrics"
@@ -428,6 +436,12 @@ class KubeCluster:
         self._pdbs: dict[str, K8sPdb] = {}
         self._pvs: dict[str, K8sPv] = {}
         self._rvs: dict[tuple[str, str], str] = {}  # (kind, key) -> resourceVersion
+        # (kind, key) -> resourceVersion of a deletion the watch applied
+        # while a LIST of that kind was in flight: only such a LIST can
+        # list the object again, so no record outlives the LISTs of its
+        # kind in flight (_lists_in_flight, kind -> count).
+        self._gone_rvs: dict[tuple[str, str], str] = {}
+        self._lists_in_flight: dict[str, int] = {}
         self._stop = threading.Event()
         self._threads: list[threading.Thread] = []
         all_targets = {
@@ -547,8 +561,29 @@ class KubeCluster:
     def _list_rv(self, target: _WatchTarget) -> str:
         """One LIST: reconcile the local store (diff → added/modified/
         deleted events) and return the collection resourceVersion to watch
-        from."""
-        data = self.api.request("GET", target.path)
+        from.
+
+        The LIST is a snapshot at its collection resourceVersion, and a
+        re-LIST (``resync_pods``) runs while the watch goes on applying
+        changes. A change the watch applied after that snapshot is newer
+        than the LIST and is kept: an object created after it is not
+        deleted, one modified after it is not set back, and one deleted
+        after it is not added again."""
+        kind = target.kind
+        with self._lock:
+            self._lists_in_flight[kind] = self._lists_in_flight.get(kind, 0) + 1
+        try:
+            return self._reconcile_list(target, self.api.request("GET", target.path))
+        finally:
+            with self._lock:
+                self._lists_in_flight[kind] -= 1
+                if not self._lists_in_flight[kind]:
+                    for k in [k for k in self._gone_rvs if k[0] == kind]:
+                        del self._gone_rvs[k]
+
+    def _reconcile_list(self, target: _WatchTarget, data: dict) -> str:
+        """The store reconciled to one LIST's answer ``data`` (_list_rv)."""
+        list_rv = data.get("metadata", {}).get("resourceVersion", "")
         items = data.get("items", [])
         if target.kind == "Pod":
             # Emit in creation order so restored arrival sequence numbers
@@ -570,8 +605,12 @@ class KubeCluster:
                 seen.add(key)
                 prev_rv = self._rvs.get((target.kind, key))
                 if key not in store:
+                    if _rv_after(self._gone_rvs.get((target.kind, key)), list_rv):
+                        continue  # deleted after this LIST
                     events.append(Event("added", target.kind, decoded))
                 elif rv != prev_rv:
+                    if _rv_after(prev_rv, rv):
+                        continue  # the watch applied a later version
                     events.append(Event("modified", target.kind, decoded))
                 else:
                     continue
@@ -579,6 +618,8 @@ class KubeCluster:
                 self._rvs[(target.kind, key)] = rv
             for key in list(store):
                 if key not in seen:
+                    if _rv_after(self._rvs.get((target.kind, key)), list_rv):
+                        continue  # created or changed after this LIST
                     gone = store.pop(key)
                     self._rvs.pop((target.kind, key), None)
                     events.append(Event("deleted", target.kind, gone))
@@ -590,7 +631,7 @@ class KubeCluster:
             # after a 410/partition replays thousands of diffs, and the
             # batched-ingest pipeline applies them in one pass.
             self._emit_many(events)
-        return data.get("metadata", {}).get("resourceVersion", "")
+        return list_rv
 
     def _watch_loop(self, target: _WatchTarget) -> None:
         backoff = self._backoff_initial_s
@@ -690,14 +731,16 @@ class KubeCluster:
             return
         with self._lock:
             store = self._store(kind)
+            rv = obj.get("metadata", {}).get("resourceVersion", "")
             if mapped == "deleted":
                 decoded = store.pop(key, decoded)
                 self._rvs.pop((kind, key), None)
+                if self._lists_in_flight.get(kind):
+                    self._gone_rvs[(kind, key)] = rv
             else:
                 store[key] = decoded
-                self._rvs[(kind, key)] = obj.get("metadata", {}).get(
-                    "resourceVersion", ""
-                )
+                self._rvs[(kind, key)] = rv
+                self._gone_rvs.pop((kind, key), None)
             # Under the lock (see _list_rv): no duplicate delivery around a
             # concurrent add_watcher replay.
             self._emit(Event(mapped, kind, decoded))

@@ -199,8 +199,10 @@ class SchedulerConfig:
     # CUDA card, and raise when none is present — there is no silent CPU
     # path; "cpu" runs the kernel's plain PyTorch version on the host (how
     # the tests ask for the CPU). kernel_device_min_elems belonged to the
-    # reference's TPU-measured auto crossover, which is not carried over:
-    # it loads, and build_stack refuses any value but None.
+    # reference's TPU-measured auto crossover, which is not carried over
+    # (on an H100 the card beat the host at every padded shape measured,
+    # chip_smoke.py run (t2)): it loads, and build_stack refuses any value
+    # but None.
     kernel_platform: str = "auto"
     kernel_device_min_elems: int | None = None
     # Fused-kernel implementation: "xla" or "pallas", the reference's two

@@ -233,6 +233,19 @@ class CommitRPCServer:
     (default, single-host) or ``"host:port"`` for the TCP transport —
     ``make_transport`` decides. ``term`` is the parent's epoch term,
     stamped on every response; ``set_term`` installs a promoted term.
+
+    Connection fence: every accepted connection gets a generation (its
+    accept order). A lane's ``residue_sync`` reconciles the parent's
+    claims against the worker's log as of that connection, so once a
+    lane has synced on generation g, a mutating op of that lane arriving
+    on an older connection is refused (``stale_conn_refusals``): it can
+    only be a request the worker abandoned at its deadline and the
+    network delivered late, and applying it would stage a claim no
+    worker holds and nothing releases. A worker talks on one connection
+    at a time, so its live connection is never older than its last sync.
+    The check and the op run under the lane's own lock, which its sync
+    holds too (other lanes are not held up); a commit first waits out the
+    resize barrier outside that lock. No field is added to the wire.
     """
 
     def __init__(
@@ -260,6 +273,10 @@ class CommitRPCServer:
         self._listener: "socket.socket | None" = None
         self._threads: list[threading.Thread] = []
         self._conns: list[socket.socket] = []
+        self._conn_gen = 0                   # generations handed out
+        self._synced_gen: dict[str, int] = {}  # lane -> its sync's conn
+        self._lane_locks: dict[str, threading.Lock] = {}  # the fence's, per lane
+        self.stale_conn_refusals = 0
         self._stopping = False
         # Start-line barrier (bench/test synchronization): workers park
         # here until every expected worker arrives, so process startup
@@ -334,16 +351,18 @@ class CommitRPCServer:
                 return  # listener closed: shutdown
             with self._lock:
                 self._conns.append(conn)
+                self._conn_gen += 1
+                gen = self._conn_gen
             t = threading.Thread(
                 target=self._serve_conn,
-                args=(conn,),
+                args=(conn, gen),
                 name="commit-rpc-conn",
                 daemon=True,
             )
             self._threads.append(t)
             t.start()
 
-    def _serve_conn(self, conn: socket.socket) -> None:
+    def _serve_conn(self, conn: socket.socket, gen: int = 0) -> None:
         rfile = conn.makefile("rb")
         transport = self.transport
         try:
@@ -357,7 +376,7 @@ class CommitRPCServer:
                 t0 = time.perf_counter()
                 try:
                     req = json.loads(raw)
-                    resp = self._dispatch(req)
+                    resp = self._dispatch(req, gen)
                 except Exception as e:  # noqa: BLE001 — a bad request must not kill the conn
                     req = {}
                     resp = {"ok": False, "error": f"{type(e).__name__}: {e}"}
@@ -399,22 +418,49 @@ class CommitRPCServer:
         {"stage", "commit", "release", "residue", "residue_sync"}
     )
 
-    def _dispatch(self, req: dict) -> dict:
+    def _dispatch(self, req: dict, gen: int = 0) -> dict:
+        """Serve one request that arrived on connection generation
+        ``gen`` (0: not from a connection, never fenced)."""
         op = req.get("op")
+        if op not in self._MUTATING_OPS:
+            return self._serve_op(op, req)
         lane = str(req.get("shard", ""))
-        if op in self._MUTATING_OPS:
-            worker_term = int(req.get("term", 0) or 0)
-            if worker_term > self.term:
-                why = (
-                    f"stale parent: term {self.term} deposed by "
-                    f"term {worker_term}"
+        worker_term = int(req.get("term", 0) or 0)
+        if worker_term > self.term:
+            return self._refusal(
+                op,
+                f"stale parent: term {self.term} deposed by term {worker_term}",
+            )
+        if op == "commit":
+            self.accountant.await_commit_gate()  # never under the lane's lock
+        with self._lock:
+            lane_lock = self._lane_locks.setdefault(lane, threading.Lock())
+        with lane_lock:
+            synced = self._synced_gen.get(lane, 0)
+            if gen and gen < synced:
+                with self._lock:
+                    self.stale_conn_refusals += 1
+                return self._refusal(
+                    op,
+                    f"stale connection: lane {lane!r} resynced on a newer "
+                    "connection",
                 )
-                if op == "commit":
-                    # Shaped like a fence refusal, not an error: the
-                    # worker rolls back + requeues, same as any refused
-                    # commit. Nothing is journaled here.
-                    return {"ok": True, "committed": False, "why": why}
-                return {"ok": False, "error": why}
+            return self._serve_mutating(op, req, gen)
+
+    @staticmethod
+    def _refusal(op, why: str) -> dict:
+        if op == "commit":
+            # Shaped like a fence refusal, not an error: the worker rolls
+            # back + requeues, same as any refused commit. Nothing is
+            # journaled here.
+            return {"ok": True, "committed": False, "why": why}
+        return {"ok": False, "error": why}
+
+    def _serve_mutating(self, op, req: dict, gen: int) -> dict:
+        """One of ``_MUTATING_OPS``, under its lane's fence lock: nothing
+        here may block (the commit waited out the resize barrier before
+        the lock was taken)."""
+        lane = str(req.get("shard", ""))
         if op == "stage":
             seq = self.accountant.stage(
                 req["uid"],
@@ -436,7 +482,7 @@ class CommitRPCServer:
                     "committed": False,
                     "why": "parent fenced (not leading or not resynced)",
                 }
-            committed, why = self.accountant.commit_staged(
+            committed, why = self.accountant.commit_staged_now(
                 list(req.get("uids", ()))
             )
             if not committed and self.metrics is not None:
@@ -452,6 +498,12 @@ class CommitRPCServer:
                 "ok": True,
                 "found": self.accountant.commit_residue(req["uid"]),
             }
+        if gen:
+            self._synced_gen[lane] = max(self._synced_gen.get(lane, 0), gen)
+        return self._op_residue_sync(lane, req)
+
+    def _serve_op(self, op, req: dict) -> dict:
+        lane = str(req.get("shard", ""))
         if op == "hello":
             self._note_worker(lane, req, hello=True)
             return {"ok": True}
@@ -467,8 +519,6 @@ class CommitRPCServer:
             return self._op_barrier(req)
         if op == "tail":
             return self._op_tail(req)
-        if op == "residue_sync":
-            return self._op_residue_sync(lane, req)
         if op == "debug":
             return {"ok": True, "workers": self.debug()["workers"]}
         return {"ok": False, "error": f"unknown op {op!r}"}

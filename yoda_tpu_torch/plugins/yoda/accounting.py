@@ -296,12 +296,14 @@ class ChipAccountant(ReservePlugin):
         committed — or uids with no claim at all — validate vacuously, so
         unsharded stacks (nothing ever staged) pay one dict probe per
         uid and the branch below never runs."""
-        # Resize quiesce: wait (never under any lock) while the barrier
-        # is held. Bounded — a wedged resizer must not wedge commits
-        # forever; after the timeout the commit proceeds, still correct
-        # (validation does not read the shard map).
-        if not self._commit_gate.is_set():
-            self._commit_gate.wait(timeout=10.0)
+        self.await_commit_gate()
+        return self.commit_staged_now(uids)
+
+    def commit_staged_now(self, uids) -> "tuple[bool, str]":
+        """:meth:`commit_staged` without the resize barrier's wait, for a
+        caller that waited it out (:meth:`await_commit_gate`) before
+        taking a lock of its own. A commit that still meets the barrier
+        proceeds, which is correct as after the wait's timeout."""
         with self._lock:
             mine = [
                 (u, self._claims[u])
@@ -336,6 +338,15 @@ class ChipAccountant(ReservePlugin):
                 self._staged.discard(u)
             self.commit_commits += 1
             return True, ""
+
+    def await_commit_gate(self) -> None:
+        """Resize quiesce: wait (never under any lock) while the barrier
+        is held. Bounded — a wedged resizer must not wedge commits
+        forever; after the timeout the commit proceeds, still correct
+        (validation does not read the shard map). A caller that holds a
+        lock of its own across ``commit_staged`` waits here first."""
+        if not self._commit_gate.is_set():
+            self._commit_gate.wait(timeout=10.0)
 
     def hold_commits(self) -> None:
         """Close the resize quiesce barrier: commit_staged callers wait

@@ -45,21 +45,32 @@ is demoted: a failure of the resident state's row sync before it
 demotes, a departure from the reference: a failed launch, build or load
 there is counted in ``dispatch_errors`` and re-raised, the cycle ends in
 error and the pod is retried, so the card's faults are never served
-quietly from the host. Left out: the reference's TPU-measured platform
-policy (``_device_for`` / ``_dispatch_floor_ms`` and the
-``AUTO_DEVICE_MIN_ELEMS`` / ``AUTO_REMOTE_FLOOR_MS`` cut-offs):
-``kernel_platform`` picks the device outright (ops.kernel.resolve_device).
+quietly from the host. The platform policy: ``kernel_platform`` picks
+the device outright (ops.kernel.resolve_device): ``cpu`` is the host,
+``auto`` and ``device`` the card, at every fleet size. Under ``auto`` the
+plugin probes the card's dispatch floor once, at its first re-stack
+(``_dispatch_floor_ms``, read by ``yoda_kernel_dispatch_floor_ms``), as
+the reference does; a floor over ``AUTO_REMOTE_FLOOR_MS`` is logged as an
+error and the card kept, where the reference treats the device as remote
+and keeps the host. The reference's size cut-off (``_device_for`` with
+``AUTO_DEVICE_MIN_ELEMS`` and the ``kernel_device_min_elems`` knob, which
+send small fleets to the host) is not carried over: on an H100 the card
+beat both host evaluators at every shape measured, from 64 to 8,192
+padded rows (chip_smoke.py run (t2)), and ``build_stack`` refuses the
+knob.
 """
 
 from __future__ import annotations
 
 import logging
+import threading
 import time
 from collections import Counter
 from dataclasses import dataclass, field
 from typing import Callable, Sequence
 
 import numpy as np
+import torch
 
 from yoda_tpu_torch.api.affinity import pod_has_inter_pod_terms
 from yoda_tpu_torch.api.requests import gang_name_of
@@ -112,6 +123,28 @@ log = logging.getLogger("yoda_tpu_torch.batch")
 CIRCUIT_BREAK_FAILURES = 3
 _MAX_FALLBACK_LEVEL = 2
 _LEVEL_NAMES = ("primary", "plain version on the host", "numpy evaluator")
+
+# The reference's cut between a locally attached device and a remote one
+# (its dispatch floor, measured on a TPU). The port keeps it only as an
+# alarm: a card whose floor is over it is logged as an error and still
+# used (YodaBatch._dispatch_floor_ms).
+AUTO_REMOTE_FLOOR_MS = 2.0
+
+# Launches the dispatch-floor probe made on the card, each counted where
+# it is made: the fill of its input, the warm-up and the five timed
+# round trips, seven per probe.
+floor_probe_launches = 0
+_probe_lock = threading.Lock()
+
+
+def _probe_launch(op: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """Run one launch of the floor probe, counted when it ran on the card."""
+    global floor_probe_launches
+    out = op()
+    if out.is_cuda:
+        with _probe_lock:
+            floor_probe_launches += 1
+    return out
 
 
 def _pod_constraints(pod: PodSpec) -> tuple:
@@ -352,6 +385,7 @@ class YodaBatch(BatchFilterScorePlugin):
         self.platform = platform
         self.mesh_devices = mesh_devices
         self.kernel_backend = kernel_backend
+        self._floor_ms: "float | None" = None  # the lazy dispatch-floor probe
         if mesh_devices:
             # Eager: an infeasible mesh (more devices than exist) fails at
             # construction, not mid-cycle. The mesh is fixed for the
@@ -492,6 +526,37 @@ class YodaBatch(BatchFilterScorePlugin):
         """Whether the primary kernel's tensors live on the card (no
         demotion then; see :meth:`_dispatch`)."""
         return self.device.type == "cuda"
+
+    def _dispatch_floor_ms(self) -> float:
+        """Measured once per plugin: the least of five round trips of
+        ``a + 1`` over 8 int32 on the plugin's device, read back to the
+        host, after one warm-up outside the measurement. Read by
+        ``yoda_kernel_dispatch_floor_ms``. A floor over
+        ``AUTO_REMOTE_FLOOR_MS`` is logged as an error and the card kept:
+        a local card that slow is a fault to look at, not a remote device
+        to route around (the reference keeps the host then)."""
+        if self._floor_ms is None:
+            x = _probe_launch(
+                lambda: torch.zeros(8, dtype=torch.int32, device=self.device)
+            )
+            _probe_launch(lambda: x + 1).cpu()  # the first launch loads the module
+            samples = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                _probe_launch(lambda: x + 1).cpu()
+                samples.append((time.perf_counter() - t0) * 1e3)
+            self._floor_ms = min(samples)
+            log.info(
+                "kernel auto policy: dispatch floor %.4f ms on %s",
+                self._floor_ms, self.device,
+            )
+            if self._floor_ms > AUTO_REMOTE_FLOOR_MS:
+                log.error(
+                    "kernel auto policy: the dispatch floor on %s is %.2f ms, "
+                    "over %.1f ms; the fleet stays on it",
+                    self.device, self._floor_ms, AUTO_REMOTE_FLOOR_MS,
+                )
+        return self._floor_ms
 
     def _kernel_at(self, level: int, static: FleetArrays):
         """The kernel serving fallback ``level``, with ``static`` put. Level
@@ -640,6 +705,8 @@ class YodaBatch(BatchFilterScorePlugin):
         )
 
     def _refresh_static(self, snapshot: Snapshot) -> FleetArrays:
+        if self._floor_ms is None and self.platform == "auto" and not self.mesh_devices:
+            self._dispatch_floor_ms()  # once, at the first re-stack
         if self._resident_active(snapshot):
             if self._resident is None:
                 self._resident = FleetStateCache(

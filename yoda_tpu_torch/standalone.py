@@ -104,8 +104,11 @@ item it waits for when it is set away from its default — except to the
 value that turns the part off, which is what this port already does
 (``UNPORTED_KNOB_VALUES``). The one such knob left is
 ``kernel_device_min_elems``, the reference's host-or-device cut-off under
-``kernel_platform: auto`` (B7 in ROADMAP queue 2), which the port's "auto"
-(the card, or raise) does not read.
+``kernel_platform: auto``, refused on purpose (``NOT_CARRIED_OVER``): on
+an H100 the card beat both host evaluators at every padded shape measured
+(chip_smoke.py run (t2)), so the port's "auto" is the card, or raises.
+The dispatch-floor probe the reference's policy reads is ported, and
+``yoda_kernel_dispatch_floor_ms`` reads it.
 Where the default turns such a part ON (the reference builds it),
 ``build_stack`` logs one warning naming every such part and lists them in
 ``Stack.not_built``; with every part of the default configuration ported,
@@ -239,9 +242,16 @@ PORTED_KNOBS = frozenset(
 
 # The ROADMAP item each knob of a part this port does not have yet waits
 # for; ``build_stack`` names it when such a knob is set. Every queue-1 item
-# with a knob is ported (``kernel_device_min_elems`` waits for a
-# measurement, not a module, and is named without one).
+# with a knob is ported.
 LATER_ITEMS: "dict[str, str]" = {}
+
+# Knobs of the reference the port refuses on purpose, each with why;
+# ``build_stack`` names the reason when such a knob is set.
+NOT_CARRIED_OVER: "dict[str, str]" = {
+    "kernel_device_min_elems": "the reference's host-or-card size cut-off; "
+    "on an H100 the card beat both host evaluators at every padded shape "
+    "from 64 to 8,192 rows (chip_smoke.py run (t2)), so 'auto' is the card",
+}
 
 # Every other knob belongs to a part this port does not have yet; it must
 # keep its default or take one of these values, each of which switches
@@ -264,8 +274,11 @@ def unported_settings(config: SchedulerConfig) -> list[str]:
         if value in UNPORTED_KNOB_VALUES.get(f.name, ("", ()))[1]:
             continue
         item = LATER_ITEMS.get(f.name)
+        why = NOT_CARRIED_OVER.get(f.name)
         out.append(
-            f"{f.name}={value!r}" + (f" (ROADMAP item {item})" if item else "")
+            f"{f.name}={value!r}"
+            + (f" (ROADMAP item {item})" if item else "")
+            + (f" (not carried over: {why})" if why else "")
         )
     return out
 
@@ -1273,7 +1286,7 @@ def _register_batch_families(metrics, batch):
             "Measured default-device per-dispatch floor (0 until the "
             "auto platform policy probes it; ~0.1 locally-attached, "
             "~100 over a tunnel/RPC transport)",
-            lambda: 0.0,
+            lambda: max((p._floor_ms or 0.0 for p in acc), default=0.0),
         )
         r.counter(
             "yoda_dispatch_errors_total",
