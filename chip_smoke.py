@@ -5130,9 +5130,9 @@ def run_tenancy_wall(platform: str, size: dict) -> dict:
     batches: list = []
     real_on_batch = ing.on_batch
 
-    def on_batch(raw: int, applied: int) -> None:
+    def on_batch(raw: int, applied: int, t0: float, t1: float) -> None:
         batches.append((raw, applied))
-        real_on_batch(raw, applied)
+        real_on_batch(raw, applied, t0, t1)
 
     ing.on_batch = on_batch
     stop = threading.Event()

@@ -33,6 +33,15 @@ PORT = "yoda_tpu_torch"
 # (pass, file, message) of every finding the port is allowed today.
 EXPECTED: set = set()
 
+# metrics-drift finds each registered family's assertion in the
+# reference's tests/test_observability.py and its documentation in
+# docs/OPERATIONS.md; the port's own families
+# (observability.PORT_ONLY_OBSERVABLES) are asserted in the port's test
+# file and documented in the port's operations doc, which the port's run
+# reads beside them.
+PORT_OBSERVABILITY_TEST = REPO / "tests" / "test_torch_serve_tracing.py"
+PORT_OPERATIONS_MD = REPO / "docs" / "PORT_OPERATIONS.md"
+
 
 def _port_path(path: str) -> str:
     return PORT + path[len("yoda_tpu"):] if path.startswith("yoda_tpu/") else path
@@ -73,6 +82,20 @@ def lint():
                tuple(_port_path(p) for p in journal_discipline.APPEND_EXEMPT))
     try:
         project = Project(REPO, package=PORT)
+        read_text = project.read_text
+
+        port_files = {
+            project.observability_test: PORT_OBSERVABILITY_TEST,
+            project.operations_md: PORT_OPERATIONS_MD,
+        }
+
+        def read_with_port_files(path):
+            text = read_text(path)
+            if path in port_files and text is not None:
+                text += read_text(port_files[path]) or ""
+            return text
+
+        project.read_text = read_with_port_files
         graph = CallGraph(project)
         log: set = set()
         tracked_module, tracked_function = _visits(log)

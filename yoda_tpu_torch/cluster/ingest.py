@@ -23,7 +23,9 @@ intermediate observations (and the version/epoch counters) differ.
 Counterpart of ``yoda_tpu/cluster/ingest.py``, whole. In the port each
 applied batch also reaches the device-resident fleet state: the informer's
 delta feeds report the batch's changed rows once, and the next dispatch
-applies them with one ``TorchFleetKernel.update_rows``.
+applies them with one ``TorchFleetKernel.update_rows``. The ``on_batch``
+hook also gets each apply's start and end, which ``build_stack`` turns
+into ``yoda_ingest_apply_seconds``.
 """
 
 from __future__ import annotations
@@ -113,13 +115,15 @@ class EventBatcher:
         *,
         batch_max: int = 256,
         window_s: float = 0.0,
-        on_batch: "Callable[[int, int], None] | None" = None,
+        on_batch: "Callable[[int, int, float, float], None] | None" = None,
     ) -> None:
         self.apply_fn = apply_fn
         self.batch_max = max(int(batch_max), 1)
         self.window_s = max(float(window_s), 0.0)
-        # Observability hook: (raw events in, coalesced events applied)
-        # per batch — feeds yoda_ingest_events_total / _batch_size.
+        # Observability hook: (raw events in, coalesced events applied,
+        # the apply's start and end on the monotonic clock, equal when
+        # nothing was applied) per batch — feeds yoda_ingest_events_total
+        # / _batch_size and the port's yoda_ingest_apply_seconds.
         self.on_batch = on_batch
         self.events_in = 0
         self.batches = 0
@@ -215,12 +219,14 @@ class EventBatcher:
             if not batch and raw == 0:
                 return
             self.events_in += raw
+            t0 = t1 = time.monotonic()
             if batch:
                 self.batches += 1
                 self.events_out += len(batch)
                 self.apply_fn(batch)
+                t1 = time.monotonic()
             if self.on_batch is not None:
-                self.on_batch(raw, len(batch))
+                self.on_batch(raw, len(batch), t0, t1)
 
     def _drain_loop(self) -> None:
         while True:

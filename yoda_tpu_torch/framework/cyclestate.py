@@ -38,6 +38,23 @@ class ShardTag:
         return self
 
 
+# The fused evaluation's filter path: the batch plugin writes ROW_SERVED
+# here when it served the cycle from a row evaluated before the cycle (a
+# burst's, a joint gang burst's or a gang plan's). The scheduler splits
+# the cycle's filter time by it into the port's filter_burst_row and
+# filter_dispatch phases; absent = a fresh evaluation.
+FILTER_PATH_KEY = "yoda-batch/filter-path"
+
+
+@dataclass(frozen=True)
+class RowServed:
+    def clone(self) -> "RowServed":
+        return self
+
+
+ROW_SERVED = RowServed()
+
+
 class CycleState:
     def __init__(self) -> None:
         self._lock = threading.RLock()

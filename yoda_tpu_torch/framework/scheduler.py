@@ -29,7 +29,12 @@ engine's bound edge at both bind sites, the why-pending records and
 resolutions, and the cycle / permit-park / bound / permit-rejected /
 gather / joint-park spans. As in the reference, the cycle lock is
 released before PostFilter: preemption's victim selection takes the same
-lock.
+lock. Beyond the reference (``observability.PORT_ONLY_OBSERVABLES``): a
+prepared burst is timed as ``phase="burst"`` with one ``burst`` span,
+a fused evaluation's ``filter`` is split into ``filter_burst_row`` and
+``filter_dispatch`` by what served the cycle, and each loop turn that
+popped work adds its wall and on-CPU seconds to
+``yoda_serve_busy_seconds_total``.
 
 The bind pipeline and the production loop are here too: with a
 ``bind_executor`` wired, a gang's release fans its member binds out on the
@@ -69,6 +74,7 @@ log = logging.getLogger("yoda_tpu_torch.scheduler")
 from yoda_tpu_torch.api.requests import gang_name_of
 from yoda_tpu_torch.api.types import PodSpec
 from yoda_tpu_torch.framework.cyclestate import (
+    FILTER_PATH_KEY,
     SHARD_STATE_KEY,
     CycleState,
     ShardTag,
@@ -82,7 +88,12 @@ from yoda_tpu_torch.framework.interfaces import (
 )
 from yoda_tpu_torch.framework.queue import QueuedPodInfo, SchedulingQueue
 from yoda_tpu_torch.framework.runtime import Framework, WaitingPod
-from yoda_tpu_torch.observability import PhaseTimer, SchedulingMetrics, TraceEntry
+from yoda_tpu_torch.observability import (
+    SERVE_SUBJECT,
+    PhaseTimer,
+    SchedulingMetrics,
+    TraceEntry,
+)
 from yoda_tpu_torch.tracing import subject_of
 
 
@@ -549,6 +560,14 @@ class Scheduler:
                     feasible = sorted(
                         n for n, s in statuses.items() if s.success
                     )
+            if batch is not None:
+                # The port's split of the fused evaluation's filter by what
+                # served the cycle: a row evaluated before it (a burst's)
+                # or a fresh evaluation. Loop mode records neither.
+                timer.phases_ms[
+                    "filter_burst_row" if state.contains(FILTER_PATH_KEY)
+                    else "filter_dispatch"
+                ] = timer.phases_ms["filter"]
             feasible_count = len(feasible)
             # The reference's V(3) per-node decision detail (scheduler.go:67).
             # Under search truncation, statuses covers only the scanned
@@ -1056,6 +1075,7 @@ class Scheduler:
         batch = [first]
         if self.burst_size <= 1 or not self.framework.supports_burst:
             return batch
+        t0 = self.clock()
         while len(batch) < self.burst_size:
             nxt = self.queue.pop(timeout=0.0)
             if nxt is None:
@@ -1077,7 +1097,36 @@ class Scheduler:
                 # A failed prepare must never lose the popped entries —
                 # they schedule individually below.
                 log.exception("burst pre-evaluation failed; scheduling individually")
+            self._observe_burst(t0, len(batch))
         return batch
+
+    def _observe_burst(self, t0: float, pods: int) -> None:
+        """A prepared burst, from its first further pop to the return of
+        prepare_burst: phase="burst" and one burst span on the serve
+        thread's track."""
+        if self.metrics is None:
+            return
+        t1 = self.clock()
+        self.metrics.latency.observe(t1 - t0, phase="burst")
+        tracer = self.metrics.tracer
+        if tracer.enabled:
+            tracer.add(
+                SERVE_SUBJECT, "burst", t0=t0, t1=t1,
+                attrs={"pods": pods, "shard": self.shard or ""},
+            )
+
+    def _end_turn(self, wall0: float, cpu0: float) -> None:
+        """A loop turn that popped work ends: its wall and on-CPU seconds
+        into yoda_serve_busy_seconds_total, then the collections it saw
+        folded into their histogram and spans. The clocks are read cpu
+        inside wall, so cpu never exceeds wall."""
+        if self.metrics is None:
+            return
+        cpu = time.thread_time() - cpu0
+        wall = time.monotonic() - wall0
+        self.metrics.serve_busy.inc(wall, clock="wall")
+        self.metrics.serve_busy.inc(cpu, clock="cpu")
+        self.metrics.gc_pauses.fold()
 
     # Ceiling on one event-bound drain wait: signals wake the waiter
     # immediately, so this bounds only the unsignaled cases (fake clocks
@@ -1111,6 +1160,7 @@ class Scheduler:
             else:
                 qpi = self.queue.pop(timeout=0.0)
             if qpi is not None:
+                wall0, cpu0 = time.monotonic(), time.thread_time()
                 if self.metrics is not None and self._bind_inflight() > 0:
                     # Pipeline overlap: this cycle's snapshot + dispatch
                     # runs while the previous release's binds are in
@@ -1118,6 +1168,7 @@ class Scheduler:
                     self.metrics.overlap_cycles.inc()
                 for q in self._pop_batch(qpi):
                     self.schedule_one(q)
+                self._end_turn(wall0, cpu0)
                 continue
             self.framework.expire_waiting(now=self.clock())
             waiters = self.framework.waiting_pods()
@@ -1192,11 +1243,14 @@ class Scheduler:
                 hook()
             qpi = self.queue.pop(timeout=poll_s)
             if qpi is not None:
+                wall0, cpu0 = time.monotonic(), time.thread_time()
                 if self.metrics is not None and self._bind_inflight() > 0:
                     self.metrics.overlap_cycles.inc()
                 for q in self._pop_batch(qpi):
                     self.schedule_one(q)
             self.framework.expire_waiting(now=self.clock())
+            if qpi is not None:
+                self._end_turn(wall0, cpu0)
 
 
 def _normalize(scores: dict[str, int]) -> dict[str, int]:

@@ -47,12 +47,19 @@ journal's term (``standalone.build_stack``); the per-lane gauges and the
 by ``standalone.build_stack`` over the live lanes and journals.
 ``yoda_overlap_cycles_total`` is fed by the scheduler's
 serve and drain loops (a turn popped while pipelined binds are in flight).
+
+Beyond the reference's set, the port traces its serve loop from inside
+(``PORT_ONLY_OBSERVABLES``): the burst's preparation, the filter's two
+paths, the interpreter's collections (``GcPauses``), the ingest's applies
+and the serve thread's on-CPU share.
 """
 
 from __future__ import annotations
 
+import gc
 import threading
 import time
+import weakref
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Iterable, Mapping
@@ -62,6 +69,40 @@ from typing import Callable, Iterable, Mapping
 DEFAULT_BUCKETS = (
     0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.2, 0.5, 1.0, 2.5, 10.0,
 )
+
+# Pauses and applies that last microseconds to a fraction of a second.
+SHORT_BUCKETS = (
+    0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+    0.25, 0.5, 1.0,
+)
+
+# What the port records beyond the reference's metric set: a deliberate
+# departure, made for the port's benchmark (portbench/) and its operators,
+# who read from inside the process where the serve loop's time goes. The
+# parity tests take exactly these names off the port's side before they
+# compare it with the reference; docs/PORT_OPERATIONS.md documents each.
+PORT_ONLY_OBSERVABLES = frozenset(
+    {
+        # Families (SchedulingMetrics).
+        "yoda_gc_pause_seconds",        # {generation}: GcPauses
+        "yoda_ingest_apply_seconds",    # one apply_fn(batch) of the batcher
+        "yoda_serve_busy_seconds_total",  # {clock="wall"|"cpu"}: serve turns
+        # Phases of yoda_scheduling_latency_seconds{phase}: a prepared
+        # burst (once per burst of K > 1, not per cycle), and the filter
+        # phase split by what served the cycle (the two partition filter).
+        "burst",
+        "filter_burst_row",
+        "filter_dispatch",
+        # Span names: "burst" (above, on the serve thread's track, subject
+        # SERVE_SUBJECT) and one "gc" per generation-2 collection (track
+        # "gc", subject GC_SUBJECT). Both are rare beside the pods' own
+        # spans, which share the ring; the ingest's applies and younger
+        # collections are only counted.
+        "gc",
+    }
+)
+SERVE_SUBJECT = "loop:serve"
+GC_SUBJECT = "interpreter:gc"
 
 
 def _fmt_labels(labels: Mapping[str, str]) -> str:
@@ -188,6 +229,9 @@ class Histogram:
         self.name = name
         self.help = help_
         self.buckets = tuple(sorted(buckets))
+        # Observations queued where no lock may be taken (GcPauses' hook)
+        # are folded in by this, when set, before every read.
+        self.fold_fn: Callable[[], None] | None = None
         self._lock = threading.Lock()
         # label-key -> [per-bucket counts, count, sum, quantile ring].
         # The ring is a PREALLOCATED list written by index (count % RING)
@@ -218,6 +262,8 @@ class Histogram:
             s[2] += value
 
     def count(self, **labels: str) -> int:
+        if self.fold_fn is not None:
+            self.fold_fn()
         key = tuple(sorted(labels.items()))
         with self._lock:
             s = self._series.get(key)
@@ -231,6 +277,8 @@ class Histogram:
         lock, so a scrape/quantile burst could stall every ``observe()``
         on the serve path behind 4096-sample sorts. Wrap order does not
         matter — a quantile is order-blind over the window."""
+        if self.fold_fn is not None:
+            self.fold_fn()
         key = tuple(sorted(labels.items()))
         with self._lock:
             s = self._series.get(key)
@@ -241,6 +289,8 @@ class Histogram:
         return data[min(int(len(data) * q), len(data) - 1)]
 
     def render(self) -> list[str]:
+        if self.fold_fn is not None:
+            self.fold_fn()
         out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} histogram"]
         with self._lock:
             series = {k: (list(s[0]), s[1], s[2]) for k, s in self._series.items()}
@@ -767,6 +817,34 @@ class SchedulingMetrics:
             "answers 'aged out' for them)",
             collect_fn=lambda: float(self.pending.evicted),
         )
+        # The serve loop traced from inside (PORT_ONLY_OBSERVABLES). The
+        # collector hook is installed by standalone.build_stack, once
+        # for however many stacks share this object.
+        self.gc_pause = r.histogram(
+            "yoda_gc_pause_seconds",
+            "Interpreter garbage collections by generation, wall seconds "
+            "each: every thread of the process stands still for them "
+            "(generation 2 also records a gc span)",
+            buckets=SHORT_BUCKETS,
+        )
+        self.gc_pauses = GcPauses(self.gc_pause, self.tracer)
+        self.gc_pause.fold_fn = self.gc_pauses.fold
+        self.ingest_apply = r.histogram(
+            "yoda_ingest_apply_seconds",
+            "Wall seconds of each batched-ingest apply (the handler chain "
+            "over one coalesced batch) on whichever thread ran it",
+            buckets=SHORT_BUCKETS,
+        )
+        self.serve_busy = r.counter(
+            "yoda_serve_busy_seconds_total",
+            "Serve-loop turns that popped work, from the pop's return to "
+            "the end of the turn (serve_forever: its expiry sweep after the "
+            "cycles; run_until_idle: the cycles, as it sweeps only on turns "
+            "that popped nothing): clock=wall elapsed, clock=cpu "
+            "the serve thread's own CPU time (cpu/wall below 1 = time "
+            "ready but not running: another thread held the interpreter "
+            "lock, or the OS)",
+        )
 
     # --- fleet gauges (lazy, fed by the informer at scrape time) ---
 
@@ -883,3 +961,86 @@ class PhaseTimer:
     def observe_into(self, hist: Histogram) -> None:
         for phase, ms in self.phases_ms.items():
             hist.observe(ms / 1e3, phase=phase)
+
+
+class GcPauses:
+    """The interpreter's collections, timed from inside: a ``gc.callbacks``
+    hook feeds ``yoda_gc_pause_seconds{generation}``, and each
+    generation-2 collection also becomes one ``gc`` span on the ``gc``
+    track. ``install`` / ``uninstall`` count the stacks that share one
+    ``SchedulingMetrics`` (``standalone.build_stack`` / ``Stack.close``),
+    so each collection is counted once however many share it.
+
+    A collection can start between any two bytecodes of any thread, one
+    that holds the histogram's or the tracer's lock among them, so the
+    hook takes no lock: it stamps the start and queues (generation,
+    start, end) on a deque when the collection stops. ``fold`` moves the
+    queue into the histogram and the tracer; it runs before every read of
+    the histogram and at the end of each serve-loop turn. The hook holds
+    this object weakly: a metrics set dropped without a close leaves a
+    hook that does nothing, and the next ``install`` removes it."""
+
+    def __init__(self, hist: Histogram, tracer) -> None:
+        self.hist = hist
+        self.tracer = tracer
+        self._t0 = 0.0
+        self._done: deque = deque(maxlen=65536)
+        self._users = 0
+        self._hook: "_GcHook | None" = None
+        self._lock = threading.Lock()
+
+    def install(self) -> None:
+        with self._lock:
+            self._users += 1
+            if self._hook is not None:
+                return
+            self._hook = _GcHook(weakref.ref(self))
+            gc.callbacks[:] = [
+                cb for cb in gc.callbacks
+                if not (isinstance(cb, _GcHook) and cb.ref() is None)
+            ]
+            gc.callbacks.append(self._hook)
+
+    def uninstall(self) -> None:
+        with self._lock:
+            self._users = max(self._users - 1, 0)
+            if self._users or self._hook is None:
+                return
+            hook, self._hook = self._hook, None
+        if hook in gc.callbacks:
+            gc.callbacks.remove(hook)
+        self.fold()
+
+    def _on(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.monotonic()
+        else:
+            self._done.append((info["generation"], self._t0, time.monotonic()))
+
+    def fold(self) -> None:
+        done = self._done
+        while done:
+            try:
+                gen, t0, t1 = done.popleft()
+            except IndexError:
+                return
+            self.hist.observe(t1 - t0, generation=str(gen))
+            if gen == 2:
+                self.tracer.add(
+                    GC_SUBJECT, "gc", t0=t0, t1=t1, track="gc",
+                    attrs={"generation": gen},
+                )
+
+
+class _GcHook:
+    """The ``gc.callbacks`` entry of one ``GcPauses``, held weakly."""
+
+    __slots__ = ("ref",)
+
+    def __init__(self, ref: "weakref.ref[GcPauses]") -> None:
+        self.ref = ref
+
+    def __call__(self, phase: str, info: dict) -> None:
+        pauses = self.ref()
+        if pauses is not None:
+            pauses._on(phase, info)

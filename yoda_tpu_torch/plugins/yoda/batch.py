@@ -81,7 +81,7 @@ from yoda_tpu_torch.api.types import (
     untolerated_soft_taints,
 )
 from yoda_tpu_torch.config import Weights
-from yoda_tpu_torch.framework.cyclestate import CycleState
+from yoda_tpu_torch.framework.cyclestate import FILTER_PATH_KEY, ROW_SERVED, CycleState
 from yoda_tpu_torch.framework.interfaces import (
     BatchFilterScorePlugin,
     Snapshot,
@@ -809,10 +809,12 @@ class YodaBatch(BatchFilterScorePlugin):
             if served is None:
                 served = self._serve_gang_plan(state, pod, gang_name, snapshot, reqk)
             if served is not None:
+                state.write(FILTER_PATH_KEY, ROW_SERVED)
                 return served
         elif self._burst is not None:
             served = self._serve_burst(pod, snapshot, reqk)
             if served is not None:
+                state.write(FILTER_PATH_KEY, ROW_SERVED)
                 return served
         static = self._refresh_static(snapshot)
         aff = get_affinity(state)

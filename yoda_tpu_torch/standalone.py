@@ -67,7 +67,11 @@ its drain thread started) coalesces the watch stream and applies each
 batch through the same handler chain, the informer taking it under one
 lock with one epoch bump, so the device-resident fleet state applies each
 batch's changed rows once. ``Stack.close`` stops the batcher's drain
-thread, the recorder's worker and the gang plugin's bind executor.
+thread, the recorder's worker and the gang plugin's bind executor. Each
+stack also takes a share of its metrics' collector hook
+(``observability.GcPauses``: ``yoda_gc_pause_seconds``), which
+``Stack.close`` gives back, and the batcher's ``on_batch`` hook feeds the
+port's ``yoda_ingest_apply_seconds``.
 
 Durability and the shard-out, as the reference wires them:
 ``journal_path`` opens the durable claim journal (``journal/``) before any
@@ -400,13 +404,17 @@ class Stack:
     # journal_path unset. Shared-accountant assemblies (profiles, shards)
     # share one journal through the one accountant.
     journal: object = None
+    # Whether this stack holds a share of its metrics' collector hook
+    # (observability.GcPauses), which close gives back.
+    gc_hooked: bool = False
 
     def close(self) -> None:
         """Stop the stack's threads: the gang plugin's bind executor (its
         stop event set, so pending bind retry sleeps abort; in-flight
         binds are not waited for), the batcher's drain thread (its residue
         applied first) and the Event recorder's worker (its backlog
-        written first)."""
+        written first); then give back this stack's share of the
+        collector hook."""
         self.gang.close()
         if self.ingestor is not None:
             if self.metrics is not None:
@@ -414,6 +422,9 @@ class Stack:
             self.ingestor.stop()
         if self.events is not None:
             self.events.close()
+        if self.gc_hooked:
+            self.gc_hooked = False
+            self.metrics.gc_pauses.uninstall()
 
 
 def build_stack(
@@ -846,10 +857,11 @@ def build_stack(
                 for event in events:
                     recorder.handle(event)
 
-        def on_ingest_batch(raw: int, applied: int) -> None:
+        def on_ingest_batch(raw: int, applied: int, t0: float, t1: float) -> None:
             metrics.ingest_events.inc(raw)
             if applied:
                 metrics.ingest_batch.observe(applied)
+                metrics.ingest_apply.observe(t1 - t0)
 
         ingestor = EventBatcher(
             apply_batch,
@@ -1002,12 +1014,16 @@ def build_stack(
         and reconciler.resynced.is_set()
         and not overload.repairs_paused()
     )
+    # The collector hook (observability.GcPauses): once per metrics set,
+    # however many stacks share it; Stack.close takes this stack's share
+    # back.
+    metrics.gc_pauses.install()
     return Stack(
         cluster, informer, accountant, framework, queue, scheduler, binder,
         batch, gang, preemption, reconciler, rebalancer, speculation,
         nodehealth, bind_executor, metrics, not_built,
         events=recorder, ingestor=ingestor, tenants=ledger,
-        watch_fns=tuple(registered_fns), journal=journal,
+        watch_fns=tuple(registered_fns), journal=journal, gc_hooked=True,
     )
 
 

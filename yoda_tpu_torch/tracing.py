@@ -43,7 +43,10 @@ gang release and rollback, and the rebalancer's and repair's spans.
 A scheduler lane's cycle spans carry its ``shard`` and a lost gang
 commit lands as ``shard-commit-conflict`` on the gang's trace; a gang
 the federation migrates gets a ``spillover`` span on the ``federation``
-track, under the trace its home cycles recorded.
+track, under the trace its home cycles recorded. Beyond the reference
+(``observability.PORT_ONLY_OBSERVABLES``), the serve loop records a
+``burst`` span per prepared burst and the collector hook a ``gc`` span per
+full collection; a span's ``wall_unix`` is its start.
 """
 
 from __future__ import annotations
@@ -134,7 +137,7 @@ class SpanRecord:
     track: str          # Perfetto row: the emitting thread / control loop
     t0_ms: float        # monotonic-clock start, milliseconds
     dur_ms: float
-    wall_unix: float
+    wall_unix: float    # the start on the Unix clock, seconds
     attrs: dict = field(default_factory=dict)
 
     def to_dict(self) -> dict:
@@ -182,6 +185,11 @@ class Tracer:
         self.sink_rotations = 0
         self._sink_bytes = 0
         self.clock = clock
+        # A span's wall_unix is its start, t0 shifted by this offset fixed
+        # once here: on the Unix clock a span lines up with a device
+        # profile (Kineto's chrome-trace ts + baseTimeNanoseconds / 1e3
+        # is Unix microseconds).
+        self.unix_offset = time.time() - clock()
         self.dropped = 0            # ring overflow count (oldest evicted)
         self._lock = threading.Lock()
         self._ring: deque[SpanRecord] = deque(maxlen=self.capacity)
@@ -272,7 +280,7 @@ class Tracer:
                 track,
                 t0 * 1e3,
                 max(t1 - t0, 0.0) * 1e3,
-                time.time(),
+                self.unix_offset + t0,
                 attrs if attrs is not None else {},
             )
             if len(self._ring) == self._ring.maxlen:
