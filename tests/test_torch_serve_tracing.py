@@ -12,6 +12,8 @@ set (``observability.PORT_ONLY_OBSERVABLES``).
 - ``yoda_ingest_apply_seconds`` once per batch, with no span (the pods'
   history keeps the span ring);
 - ``yoda_serve_busy_seconds_total{clock="wall"|"cpu"}``, cpu within wall;
+- ``yoda_burst_row_walks_total``, the full walks of a burst-served
+  cycle's verdicts;
 - a span's ``wall_unix`` is its start on the Unix clock.
 
 Each name of the set is present on the port and absent from the
@@ -54,6 +56,7 @@ FAMILIES = {
     "yoda_gc_pause_seconds",
     "yoda_ingest_apply_seconds",
     "yoda_serve_busy_seconds_total",
+    "yoda_burst_row_walks_total",
 }
 PHASES = {"burst", "filter_burst_row", "filter_dispatch"}
 SPANS = {"burst", "gc"}

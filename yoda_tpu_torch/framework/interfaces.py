@@ -19,8 +19,9 @@ gang plugin; the runtime reaches its waitlist hooks (``on_pod_waiting``,
 from __future__ import annotations
 
 import enum
+from collections import abc
 from dataclasses import dataclass, field
-from typing import TYPE_CHECKING, Mapping, Protocol, Sequence
+from typing import TYPE_CHECKING, Callable, Mapping, Protocol, Sequence
 
 from yoda_tpu_torch.api.types import K8sNode, PodSpec, TpuNodeMetrics
 
@@ -242,6 +243,87 @@ class ScorePlugin(Plugin):
         return Status.ok()
 
 
+class RowVerdicts(abc.Mapping):
+    """Per-node filter verdicts computed on read, for a cycle a batch
+    plugin served from a row evaluated before it (a burst's): only
+    ``feasible()`` can pass, and any other node's Status comes from the
+    row's arrays when it is asked for. A bound cycle reads none of them,
+    so it pays no walk over the fleet.
+
+    Read-only to its readers; the framework records a filter plugin's
+    rejection with ``reject``, which every later read sees. The first full
+    walk (a failure summary, PostFilter, the pending record, debug
+    logging) builds the whole map once, and each full walk calls
+    ``on_walk``. Subclasses give ``_status_at``, the Status of row i."""
+
+    def __init__(
+        self,
+        names: Sequence[str],
+        index: Mapping[str, int],
+        feasible: Sequence[str],
+        on_walk: "Callable[[], None] | None" = None,
+    ) -> None:
+        self._names = names
+        self._index = index
+        self._feasible = tuple(feasible)
+        self._on_walk = on_walk
+        self._rejected: dict[str, Status] = {}
+        self._map: dict[str, Status] | None = None
+
+    def _status_at(self, i: int) -> Status:
+        raise NotImplementedError
+
+    def as_dict(self) -> dict[str, Status]:
+        """The whole map (a full walk): built on the first call, kept."""
+        if self._on_walk is not None:
+            self._on_walk()
+        if self._map is None:
+            built = dict(
+                zip(self._names, map(self._status_at, range(len(self._names))))
+            )
+            built.update(self._rejected)
+            self._map = built
+        return self._map
+
+    def __getitem__(self, name: str) -> Status:
+        if self._map is not None:
+            return self._map[name]
+        st = self._rejected.get(name)
+        return st if st is not None else self._status_at(self._index[name])
+
+    def __iter__(self):
+        return iter(self.as_dict())
+
+    def __len__(self) -> int:
+        return len(self._names)
+
+    def __contains__(self, name: object) -> bool:
+        return name in self._index
+
+    def keys(self):
+        return self.as_dict().keys()
+
+    def items(self):
+        return self.as_dict().items()
+
+    def values(self):
+        return self.as_dict().values()
+
+    def feasible(self) -> list[str]:
+        """The nodes that pass, in the names' order."""
+        return [n for n in self._feasible if n not in self._rejected]
+
+    def covers(self, names: Sequence[str]) -> bool:
+        """True when every node of ``names`` has a verdict here."""
+        return names == self._names or all(map(self._index.__contains__, names))
+
+    def reject(self, name: str, status: Status) -> None:
+        """A filter plugin's verdict on a node that passed the row."""
+        self._rejected[name] = status
+        if self._map is not None:
+            self._map[name] = status
+
+
 class BatchFilterScorePlugin(Plugin):
     """TPU-native fast path with no upstream analog: filter AND score every
     node in one fused, device-compiled computation over the fleet's metric
@@ -252,9 +334,10 @@ class BatchFilterScorePlugin(Plugin):
 
     def filter_and_score_batch(
         self, state: "CycleState", pod: PodSpec, snapshot: Snapshot
-    ) -> tuple[dict[str, Status], dict[str, int]]:
+    ) -> tuple[Mapping[str, Status], dict[str, int]]:
         """Returns (per-node filter status, per-node raw score for feasible
-        nodes)."""
+        nodes). The statuses are a fresh dict the caller owns, or a
+        :class:`RowVerdicts` for a cycle served from a row."""
         raise NotImplementedError
 
 

@@ -51,6 +51,7 @@ from yoda_tpu_torch.framework.interfaces import (
     PreScorePlugin,
     QueueSortPlugin,
     ReservePlugin,
+    RowVerdicts,
     ScorePlugin,
     Snapshot,
     Status,
@@ -435,9 +436,11 @@ class Framework:
 
     def run_batch_filter_score(
         self, state: CycleState, pod: PodSpec, snapshot: Snapshot
-    ) -> tuple[dict[str, Status], dict[str, int]] | None:
+    ) -> tuple[Mapping[str, Status], dict[str, int]] | None:
         """Fused fast path; None when no batch plugin is registered. Regular
-        FilterPlugins still run, but only over the batch-feasible subset."""
+        FilterPlugins still run, but only over the batch-feasible subset.
+        A lone plugin's :class:`RowVerdicts` comes back as it is when it
+        covers the snapshot's nodes; otherwise the statuses are a dict."""
         if not self.batch_plugins:
             return None
         if len(self.batch_plugins) == 1:
@@ -446,6 +449,22 @@ class Framework:
             statuses, totals = self.batch_plugins[0].filter_and_score_batch(
                 state, pod, snapshot
             )
+            if isinstance(statuses, RowVerdicts):
+                names = snapshot.names()
+                if statuses.covers(names):
+                    # A row-served cycle: only the row's pick can pass, so
+                    # the filter plugins see it alone and no other node's
+                    # verdict is read.
+                    for n in statuses.feasible():
+                        for p in self.filter_plugins:
+                            st2 = p.filter(state, pod, snapshot.get(n))
+                            if not st2.success:
+                                statuses.reject(n, st2)
+                                break
+                    return statuses, {
+                        n: totals.get(n, 0) for n in statuses.feasible()
+                    }
+                statuses = dict(statuses)
             for n in snapshot.names():
                 if n not in statuses:
                     statuses[n] = Status.ok()

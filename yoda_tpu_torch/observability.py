@@ -51,7 +51,8 @@ serve and drain loops (a turn popped while pipelined binds are in flight).
 Beyond the reference's set, the port traces its serve loop from inside
 (``PORT_ONLY_OBSERVABLES``): the burst's preparation, the filter's two
 paths, the interpreter's collections (``GcPauses``), the ingest's applies
-and the serve thread's on-CPU share.
+and the serve thread's on-CPU share; and it counts the full walks of a
+burst-served cycle's verdicts (``yoda_burst_row_walks_total``).
 """
 
 from __future__ import annotations
@@ -87,6 +88,7 @@ PORT_ONLY_OBSERVABLES = frozenset(
         "yoda_gc_pause_seconds",        # {generation}: GcPauses
         "yoda_ingest_apply_seconds",    # one apply_fn(batch) of the batcher
         "yoda_serve_busy_seconds_total",  # {clock="wall"|"cpu"}: serve turns
+        "yoda_burst_row_walks_total",   # full walks of a served row's verdicts
         # Phases of yoda_scheduling_latency_seconds{phase}: a prepared
         # burst (once per burst of K > 1, not per cycle), and the filter
         # phase split by what served the cycle (the two partition filter).

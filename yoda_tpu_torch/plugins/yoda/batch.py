@@ -21,7 +21,10 @@ refills kept for bare constructions, the per-pod admission vector and its
 cross-snapshot cache (``_admission_vec``; a pod with an ``AffinityData``
 bypasses both caches), the preference bonus with its inter-pod and spread
 terms, ``filter_and_score_batch``, the multi-pod burst (``prepare_burst`` /
-``_serve_burst`` with its serve-time spot-checks), the lazy whole-gang
+``_serve_burst`` with its serve-time spot-checks; a served row is picked
+with array operations and its verdicts handed over as a view read off the
+row, ``_BurstRowVerdicts``, a departure in form from the reference's
+per-node map with the same verdicts), the lazy whole-gang
 plan (``_GangPlan``), the gang-fused and cross-gang joint dispatches with
 their fit gate (``prepare_gang_burst`` / ``prepare_joint_burst``; plain
 gangs' gate runs in the joint-fit kernel, topology gangs' in the host
@@ -67,7 +70,7 @@ import threading
 import time
 from collections import Counter
 from dataclasses import dataclass, field
-from typing import Callable, Sequence
+from typing import Callable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -84,6 +87,7 @@ from yoda_tpu_torch.config import Weights
 from yoda_tpu_torch.framework.cyclestate import FILTER_PATH_KEY, ROW_SERVED, CycleState
 from yoda_tpu_torch.framework.interfaces import (
     BatchFilterScorePlugin,
+    RowVerdicts,
     Snapshot,
     Status,
 )
@@ -302,6 +306,47 @@ class _BurstSet:
     # 0..g-1's claims — so a validation failure on any one set means the
     # common baseline is stale and the whole group drops.
     group: tuple[str, ...] | None = None
+    # Each row's place in the names' sorted order (ties go to the later
+    # name); set on a burst of singletons.
+    rank: np.ndarray | None = None
+
+
+# A served burst row's verdicts: the kernel's reasons by REASON_* code.
+_HELD = Status.unschedulable(
+    "feasible, but a burst sibling was steered here first "
+    "(single-choice serving)"
+)
+_SIBLING = Status.unschedulable("chips consumed by a burst sibling")
+_REASON_STATUS = {
+    code: Status.unschedulable(msg) for code, msg in REASON_MESSAGES.items()
+}
+_INFEASIBLE = Status.unschedulable("infeasible")
+
+
+class _BurstRowVerdicts(RowVerdicts):
+    """The verdicts of a cycle served from its burst row, read off the
+    row: ``Status.ok()`` for the pick, the single-choice status for the
+    other rows still open to the pod (another plugin must not redirect
+    the bind to a node whose row was never spot-checked), the sibling
+    status for feasible rows whose chips the set's earlier picks took,
+    and the kernel's reason for the rest."""
+
+    def __init__(self, b: _BurstSet, pick: int, open_rows, feasible, reasons,
+                 on_walk) -> None:
+        super().__init__(b.names, b.index, (b.names[pick],), on_walk)
+        self._pick = pick
+        self._open = open_rows
+        self._feasible_rows = feasible
+        self._reasons = reasons
+
+    def _status_at(self, i: int) -> Status:
+        if i == self._pick:
+            return Status.ok()
+        if self._open[i]:
+            return _HELD
+        if self._feasible_rows[i]:
+            return _SIBLING
+        return _REASON_STATUS.get(int(self._reasons[i]), _INFEASIBLE)
 
 
 @dataclass
@@ -455,6 +500,10 @@ class YodaBatch(BatchFilterScorePlugin):
         self.burst_dispatches = 0   # multi-pod kernel dispatches
         self.burst_served = 0       # cycles answered from a burst
         self.burst_invalidated = 0  # burst rows dropped by failed validation
+        # Full walks of a served row's verdicts (_BurstRowVerdicts): only
+        # non-bound outcomes and debug logging read past the pick.
+        self.burst_row_walks = 0
+        self._rank_of: tuple[list[str], np.ndarray] | None = None
         # Gang members parked at Permit (GangPlugin.pending_placements):
         # a burst is refused while one's cpu/memory/port claim is not yet
         # visible in the snapshot (_pending_blocking).
@@ -798,7 +847,7 @@ class YodaBatch(BatchFilterScorePlugin):
 
     def filter_and_score_batch(
         self, state: CycleState, pod: PodSpec, snapshot: Snapshot
-    ) -> tuple[dict[str, Status], dict[str, int]]:
+    ) -> tuple[Mapping[str, Status], dict[str, int]]:
         if len(snapshot) == 0:
             return {}, {}
         req = get_request(state)
@@ -1024,7 +1073,22 @@ class YodaBatch(BatchFilterScorePlugin):
             index={nm: i for i, nm in enumerate(static.names)},
             base_reserved=np.asarray(dyn[1]).copy(),
             entries=entries,
+            rank=self._name_rank(static.names),
         )
+
+    def _name_rank(self, names: list[str]) -> np.ndarray:
+        """Each row's place in the sorted names, kept while the fleet's
+        name list is the same object."""
+        got = self._rank_of
+        if got is None or got[0] is not names:
+            order = sorted(range(len(names)), key=names.__getitem__)
+            rank = np.empty(len(names), dtype=np.int64)
+            rank[order] = np.arange(len(names))
+            got = self._rank_of = (names, rank)
+        return got[1]
+
+    def _count_row_walk(self) -> None:
+        self.burst_row_walks += 1
 
     def _pending_blocking(self, snapshot: Snapshot) -> bool:
         """True when some Permit-parked placement's pod is NOT yet visible
@@ -1119,10 +1183,12 @@ class YodaBatch(BatchFilterScorePlugin):
 
     def _serve_burst(
         self, pod: PodSpec, snapshot: Snapshot, reqk: KernelRequest
-    ) -> tuple[dict[str, Status], dict[str, int]] | None:
+    ) -> tuple[RowVerdicts, dict[str, int]] | None:
         """Serve this pod's cycle from the burst dispatch — after adjusting
         for sibling consumption and validating the accountant still matches
-        the dispatch baseline on the chosen node. None = dispatch fresh."""
+        the dispatch baseline on the chosen node. None = dispatch fresh.
+        The pick is made with array operations over the row, and the
+        per-node verdicts come back as a view read off the row."""
         b = self._burst
         ver = self._fleet_version(snapshot)
         if ver != b.fleet_version and not self._retain_set(b, ver):
@@ -1138,28 +1204,32 @@ class YodaBatch(BatchFilterScorePlugin):
             return None
         chips = max(reqk.number, 1)
         result = entry.result
-        statuses: dict[str, Status] = {}
-        scores: dict[str, int] = {}
-        sibling = Status.unschedulable("chips consumed by a burst sibling")
-        for i, name in enumerate(b.names):
-            if result.feasible[i]:
-                used = b.consumed.get(name, 0)
-                if used and result.claimable[i] - used < chips:
-                    statuses[name] = sibling
-                    continue
-                statuses[name] = Status.ok()
-                scores[name] = int(result.scores[i]) + int(entry.pref_bonus[i])
-            else:
-                reason = REASON_MESSAGES.get(int(result.reasons[i]), "infeasible")
-                statuses[name] = Status.unschedulable(reason)
+        n = len(b.names)
+        feasible = result.feasible[:n].astype(bool, copy=False)
+        open_rows = feasible
+        if b.consumed:
+            # Rows whose chips earlier picks of the set took stay open only
+            # while what is left still holds this pod.
+            used = np.zeros(n, dtype=np.int64)
+            for name, c in b.consumed.items():
+                used[b.index[name]] = c
+            open_rows = feasible & (
+                (used == 0) | (result.claimable[:n] - used >= chips)
+            )
         del b.entries[pod.uid]
         if not b.entries:
             self._burst = None
-        if not scores:
+        rows = np.flatnonzero(open_rows)
+        if not rows.size:
             # Never park a pod off a stale row (reservation releases do not
             # bump the metrics version): fall back to a fresh dispatch.
             return None
-        best = max(scores, key=lambda nm: (scores[nm], nm))
+        totals = result.scores[rows].astype(np.int64) + entry.pref_bonus[rows]
+        high = totals.max()
+        top = rows[totals == high]
+        # Highest total; among equals the later name.
+        pick = int(top[0] if top.size == 1 else top[np.argmax(b.rank[top])])
+        best = b.names[pick]
         if not self._pick_checks(b, pod, best, snapshot):
             self._drop_burst()
             self.burst_invalidated += 1  # this row, beyond the set drop
@@ -1169,18 +1239,11 @@ class YodaBatch(BatchFilterScorePlugin):
             (pod.uid, pod.cpu_milli_request, pod.memory_request)
         )
         self.burst_served += 1
-        # Steer the cycle to the ONE spot-checked node (single-choice
-        # serving): another plugin must not redirect the bind to a node
-        # whose burst row was never validated.
-        held = Status.unschedulable(
-            "feasible, but a burst sibling was steered here first "
-            "(single-choice serving)"
+        # Single-choice serving: the pick is the one row that passes.
+        verdicts = _BurstRowVerdicts(
+            b, pick, open_rows, feasible, result.reasons[:n], self._count_row_walk
         )
-        statuses = {
-            nm: (st if not st.success else (Status.ok() if nm == best else held))
-            for nm, st in statuses.items()
-        }
-        return statuses, {best: scores[best]}
+        return verdicts, {best: int(high)}
 
     # --- gang-fused / cross-gang joint dispatch ---
 

@@ -1297,6 +1297,13 @@ def _register_batch_families(metrics, batch):
             "high rate means the amortization is being lost to churn",
             lambda: sum(p.burst_invalidated for p in acc),
         )
+        r.counter(
+            "yoda_burst_row_walks_total",
+            "Full walks of a burst-served cycle's per-node verdicts (the "
+            "first builds the map): a bound cycle reads only its pick, so "
+            "only failed outcomes and debug logging walk them",
+            lambda: sum(p.burst_row_walks for p in acc),
+        )
         r.gauge(
             "yoda_kernel_dispatch_floor_ms",
             "Measured default-device per-dispatch floor (0 until the "
